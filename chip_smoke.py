@@ -8,9 +8,12 @@ NVIDIA card: the quickest proof that the port builds and runs on the GPU.
 Phases, in order (any failure exits non-zero; nothing is caught and ignored):
  0. the card: nvidia-smi name and power limit, torch's device name;
  1. build every kernel from csrc/ (one nvcc per source, in parallel);
- 2. each kernel against its plain PyTorch version on the card, at the main
-    path's shapes, with its time, the plain version's, one library call's
-    and the bound (bytes at 3.35 TB/s, operations at 989 TFLOP/s bf16);
+ 2. each kernel against its plain PyTorch version on the card, at the
+    shapes its path gives it, with its time, the plain version's, one
+    library call's and the bound (bytes at 3.35 TB/s, operations at 989
+    TFLOP/s bf16): quant_matmul_int4, flash_decode and verify_prefix at the
+    B=1 main path's shapes, flash_prefill at admission prefills (and
+    resumed chunks), paged_flash at the serving step's;
  3. end to end at full width: Engine with an int4 llama-3.2-3b target and
     llama-3.2-1b draft (random weights from a seed, int8 embedding/tied
     head), K=1, greedy, 64 new tokens, max_seq_len 512, on bench.py's
@@ -19,12 +22,21 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
     must equal a baseline run's and repeat exactly, logprobs finite, and a
     run drafting with the target's own weights must accept drafts and give
     the same ids;
+ 3b. serving at full width, the same weights: ContinuousBatcher over a paged
+    KV cache (page 64, max_seq_len 1024, 8 slots), 16 requests of 45-360
+    tokens and 16-64 new tokens, so that 8 wait and are admitted as slots
+    retire; every kernel's count set to 0 just before run() and read just
+    after. All requests retire with finite logprobs; each request's ids
+    equal the start of phase 3's B=1 Engine.generate ids for its prompt (a
+    difference must be a near tie at an op found to round a row differently
+    at another batch shape); a contiguous-layout batcher gives the same ids;
  4. the kernels' JSON line, then the result line.
 
 Without CUDA it exits non-zero before printing any result.
 """
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -52,14 +64,23 @@ QMM_1B = [(2048, 3072), (2048, 2048), (2048, 16384), (8192, 2048)]
 # |got - ref| <= 2^-8 |ref| (the output's bf16 rounding) + 2^-16 (f32
 # summation order). verify_prefix: exact.
 QMM_RTOL = 1e-2
-FLASH_RTOL, FLASH_ATOL = 2.0 ** -8, 2.0 ** -16
-# flash_decode checks fill V past the last position with this value, so a
+FLASH_RTOL, FLASH_ATOL = 2.0 ** -8, 2.0 ** -16  # flash_prefill and paged_flash too
+# The attention checks fill V past the last position with this value, so a
 # mask that lets one masked key in moves an output by about POISON / T.
 POISON = 64.0
+GEOMS = {64: (32, 8), 128: (24, 8)}  # head dim: (H, KVH) of the 1B and the 3B
+LAYERS = {64: 16, 128: 28}  # layers of the model with that head dim
+# Serving (phase 3b): request i's prompt and budget.
+SERVE_PROMPTS = ["The quick brown fox jumps over the lazy dog. " * (1 + i % 8) for i in range(16)]
+SERVE_BUDGETS = [(16, 32, 48, 64)[i % 4] for i in range(16)]
+SERVE_SLOTS, SERVE_PAGE, SERVE_MAX_LEN = 8, 64, 1024
+
+
+T_START = time.perf_counter()
 
 
 def log(*a):
-    print(*a, flush=True)
+    print(f"[{time.perf_counter() - T_START:7.1f} s]", *a, flush=True)
 
 
 def median_ms(fn, iters=25, warmup=3):
@@ -249,12 +270,163 @@ def phase_verify_prefix(dev):
     return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b, bound_by=by, max_abs_err=0.0)
 
 
+def check_close(got, ref, what):
+    """Per element within FLASH_RTOL |ref| + FLASH_ATOL; returns max abs err."""
+    excess = ((got - ref).abs() - FLASH_RTOL * ref.abs() - FLASH_ATOL).max().item()
+    assert torch.isfinite(got).all() and excess <= 0, (what, excess)
+    return (got - ref).abs().max().item()
+
+
+def sdpa_causal(q, k, v):
+    """The library call for a prefill from position 0 (timed only)."""
+    out = torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k, v, is_causal=True, enable_gqa=True)
+    return out.transpose(1, 2)
+
+
+def phase_flash_prefill(dev):
+    from llm_inference_lab_tpu_torch.ops.flash_decode import flash_decode
+    from llm_inference_lab_tpu_torch.ops.flash_prefill import flash_prefill, flash_prefill_plain
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    max_err = 0.0
+    for S in (64, 160, 512):
+        for D, (H, KVH) in GEOMS.items():
+            # Sequence 0 prefills from position 0, sequence 1 is a chunk
+            # resuming at 128; row 0 of sequence 1 is dead. T is the last
+            # position rounded up to 32, or 1024.
+            q, k, v, _ = flash_inputs(g, dev, 2, S, H, KVH, 1024, D, 0)
+            k, v = k[0], v[0]
+            ar = torch.arange(S, device=dev, dtype=torch.int32)
+            pos = torch.stack([ar, 128 + ar]).contiguous()
+            v[0, :, S:] = POISON
+            v[1, :, 128 + S:] = POISON
+            pos[1, 0] = -1
+            ref = flash_prefill_plain(q.float(), k.float(), v.float(), pos)
+            outs = {}
+            for T in (-(-(128 + S) // 32) * 32, 1024):
+                outs[T] = flash_prefill(q, k[:, :, :T], v[:, :, :T], pos)
+                err = check_close(outs[T].float(), ref, ("flash_prefill", S, D, T))
+                max_err = max(max_err, err)
+                assert torch.all(outs[T][1, 0] == 0), (S, D, T, "dead row not zero")
+            small, full = outs.values()
+            assert torch.equal(small, full), (S, D, "depends on T past the positions")
+            # A row alone equals the row inside its 32-row block, and is
+            # what flash_decode (the same tile body) gives for it.
+            for j in (1, S // 2 + 3, S - 1):
+                qj, pj = q[:, j:j + 1].contiguous(), pos[:, j:j + 1].contiguous()
+                assert torch.equal(flash_prefill(qj, k, v, pj), full[:, j:j + 1]), (S, D, j)
+                assert torch.equal(flash_decode(qj, k, v, pj), full[:, j:j + 1]), (S, D, j)
+            log(f"flash_prefill S={S} D={D}: max_abs_err {err:.3g}; T-independent, "
+                f"row-independent, == flash_decode per row (dead row zero)")
+    # Timing at admission prefills: G prompts of P = 256 positions into a
+    # [G, KVH, 256, D] scratch. One wave = 28 3B layers and 16 1B layers.
+    P = 256
+    per = {}
+    for G in (1, 4):
+        for D, (H, KVH) in GEOMS.items():
+            L = 2 * L2_BYTES // (2 * G * KVH * P * D * 2) + 1
+            q = torch.randn((G, P, H, D), generator=g, device=dev).bfloat16()
+            k = torch.randn((L, G, KVH, P, D), generator=g, device=dev).bfloat16()
+            v = torch.randn((L, G, KVH, P, D), generator=g, device=dev).bfloat16()
+            pos = torch.arange(P, device=dev, dtype=torch.int32)[None].repeat(G, 1).contiguous()
+            cyc = Cycle(L)
+            ms = median_ms(lambda: flash_prefill(q, k[cyc()], v[cyc.i], pos))
+            plain = median_ms(lambda: flash_prefill_plain(q, k[cyc()], v[cyc.i], pos), iters=10)
+            lib = median_ms(lambda: sdpa_causal(q, k[cyc()], v[cyc.i]), iters=10)
+            seen = G * H * P * (P + 1) // 2  # (query row, key) pairs the mask keeps
+            b, by = bound_ms(2 * 2 * G * P * H * D + 2 * 2 * G * KVH * P * D + 4 * G * P,
+                             4 * seen * D)
+            per[(G, D)] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b, bound_by=by)
+            log(f"flash_prefill G={G} P={P} D={D}: {ms:.4f} ms  plain {plain:.4f}  "
+                f"library {lib:.4f} (SDPA causal)  bound {b:.5f} ({by})")
+            del k, v
+    agg = {key: sum(per[(4, D)][key] * LAYERS[D] for D in GEOMS)
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    agg["bound_by"] = per[(4, 128)]["bound_by"]
+    agg["max_abs_err"] = max_err
+    return agg
+
+
+def paged_inputs(g, dev, B, S, H, KVH, D, P, last, L=1):
+    """q [B, S, H, D]; contiguous K/V [L, B, KVH, 1024, D] with V past each
+    sequence's last position set to POISON; the same keys in page pools
+    [L, N, KVH, P, D] through one shuffled table [B, M] (page 0 unused);
+    positions [B, S] ending at last[b]."""
+    M = SERVE_MAX_LEN // P
+    N = B * M + 1
+    q = torch.randn((B, S, H, D), generator=g, device=dev).bfloat16()
+    kc = torch.randn((L, B, KVH, M * P, D), generator=g, device=dev).bfloat16()
+    vc = torch.randn((L, B, KVH, M * P, D), generator=g, device=dev).bfloat16()
+    for b in range(B):
+        vc[:, b, :, last[b] + 1:] = POISON
+    table = (torch.randperm(N - 1, generator=g, device=dev)[: B * M] + 1).reshape(B, M)
+    table = table.to(torch.int32).contiguous()
+    kp = torch.zeros((L, N, KVH, P, D), device=dev, dtype=torch.bfloat16)
+    vp = torch.zeros_like(kp)
+    for src, dst in ((kc, kp), (vc, vp)):
+        dst[:, table.flatten().long()] = (src.reshape(L, B, KVH, M, P, D).transpose(2, 3)
+                                          .reshape(L, B * M, KVH, P, D))
+    pos = torch.tensor(last, device=dev, dtype=torch.int32)[:, None] - S + 1
+    pos = (pos + torch.arange(S, device=dev, dtype=torch.int32)[None]).contiguous()
+    return q, kc, vc, kp, vp, table, pos
+
+
+def phase_paged_flash(dev):
+    from llm_inference_lab_tpu_torch.models.paged import gather_pages
+    from llm_inference_lab_tpu_torch.ops.flash_decode import flash_decode
+    from llm_inference_lab_tpu_torch.ops.paged_flash import paged_flash, paged_flash_plain
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    B, max_err = 8, 0.0
+    for S in (1, 2, 5):
+        for D, (H, KVH) in GEOMS.items():
+            for P in (16, 64):
+                last = torch.randint(S, 1001, (B,), generator=g, device=dev).tolist()
+                q, kc, vc, kp, vp, table, pos = paged_inputs(g, dev, B, S, H, KVH, D, P, last)
+                kc, vc, kp, vp = kc[0], vc[0], kp[0], vp[0]
+                assert torch.equal(gather_pages(kp, table), kc)
+                pos[1, 0] = -1
+                got = paged_flash(q, kp, vp, pos, table)
+                ref = paged_flash_plain(q.float(), kp.float(), vp.float(), pos, table)
+                err = check_close(got.float(), ref, ("paged_flash", S, D, P))
+                max_err = max(max_err, err)
+                assert torch.all(got[1, 0] == 0), (S, D, P, "dead row not zero")
+                assert torch.equal(got, flash_decode(q, kc, vc, pos)), (S, D, P, "bits != D")
+                log(f"paged_flash B={B} S={S} D={D} P={P} (last positions up to {max(last)}): "
+                    f"max_abs_err {err:.3g}; == flash_decode on the gathered keys (dead row zero)")
+    # Timing at the serving step's shapes: 8 slots at positions near 250,
+    # 64-row pages, 1024 positions a sequence: the draft (S=1, D=64) and
+    # verify (S=2, D=128) calls of one K=1 step.
+    agg = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bound_by="bytes",
+               max_abs_err=max_err)
+    last = [246 + b for b in range(B)]
+    for S, D in ((1, 64), (2, 128)):
+        H, KVH = GEOMS[D]
+        M = SERVE_MAX_LEN // SERVE_PAGE
+        L = 2 * L2_BYTES // (2 * (B * M + 1) * KVH * SERVE_PAGE * D * 2) + 1
+        q, _, _, kp, vp, table, pos = paged_inputs(g, dev, B, S, H, KVH, D, SERVE_PAGE, last, L=L)
+        cyc = Cycle(L)
+        ms = median_ms(lambda: paged_flash(q, kp[cyc()], vp[cyc.i], pos, table))
+        plain = median_ms(lambda: paged_flash_plain(q, kp[cyc()], vp[cyc.i], pos, table),
+                          iters=10)
+        lib = median_ms(lambda: sdpa(q, gather_pages(kp[cyc()], table),
+                                     gather_pages(vp[cyc.i], table), pos), iters=10)
+        keys = sum(p + 1 for p in last)  # keys the positions reach, over the sequences
+        seen = sum(p - S + 2 + i for p in last for i in range(S)) * H
+        b, by = bound_ms(2 * KVH * keys * D * 2 + 2 * 2 * B * S * H * D + 4 * B * S
+                         + 4 * table.numel(), 4 * seen * D)
+        log(f"paged_flash B={B} S={S} D={D} P={SERVE_PAGE} p~250: {ms:.4f} ms  plain "
+            f"{plain:.4f}  library {lib:.4f} (gather + SDPA)  bound {b:.5f} ({by})")
+        for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib), ("bound_ms", b)):
+            agg[key] += LAYERS[D] * val
+        del kp, vp
+    return agg
+
+
 def phase_end_to_end(dev, profile):
     from llm_inference_lab_tpu_torch.config import EngineConfig
     from llm_inference_lab_tpu_torch.core.engine import Engine
-    from llm_inference_lab_tpu_torch.ops.flash_decode import flash_decode
-    from llm_inference_lab_tpu_torch.ops.quant_matmul import quant_matmul
-    from llm_inference_lab_tpu_torch.ops.verify import verify_prefix
 
     cfg = EngineConfig(base_model="llama-3.2-3b", draft_model="llama-3.2-1b", max_draft=1,
                        max_new_tokens=64, max_seq_len=512, quantization="int4",
@@ -265,8 +437,7 @@ def phase_end_to_end(dev, profile):
     log(f"engine init (random int4 weights on the card): {time.perf_counter() - t0:.1f} s")
     eng.generate(PROMPT)  # warm-up
     torch.cuda.reset_peak_memory_stats()
-    wrappers = {"quant_matmul_int4": quant_matmul, "flash_decode": flash_decode,
-                "verify_prefix": verify_prefix}
+    wrappers = kernel_wrappers()
     for w in wrappers.values():
         w.launches = 0
     runs = [eng.generate(PROMPT) for _ in range(3)]
@@ -274,7 +445,8 @@ def phase_end_to_end(dev, profile):
     peak_mb = torch.cuda.max_memory_allocated() / 1e6
     log(f"launches in the 3 timed runs: {launches}")
     for name, n in launches.items():
-        assert n > 0, f"{name} never launched on the main path"
+        # The contiguous B=1 path has no page pool; its prefill runs E.
+        assert n > 0 or name == "paged_flash", f"{name} never launched on the main path"
     ids = runs[0]["generated_ids"]
     assert all(r["generated_ids"] == ids for r in runs), "repeated runs differ"
     for r in runs:
@@ -310,14 +482,140 @@ def phase_end_to_end(dev, profile):
         f"baseline (3B alone): {timing(bases)}, steps {bases[0]['steps']}; "
         f"spec ids == baseline ids")
     if profile:
-        profile_run(eng, statistics.median(r["latency_ms"] for r in runs))
+        profile_run("generate", lambda: eng.generate(PROMPT),
+                    statistics.median(r["latency_ms"] for r in runs))
+    return eng, launches
+
+
+def kernel_wrappers():
+    from llm_inference_lab_tpu_torch.ops.flash_decode import flash_decode
+    from llm_inference_lab_tpu_torch.ops.flash_prefill import flash_prefill
+    from llm_inference_lab_tpu_torch.ops.paged_flash import paged_flash
+    from llm_inference_lab_tpu_torch.ops.quant_matmul import quant_matmul
+    from llm_inference_lab_tpu_torch.ops.verify import verify_prefix
+
+    return {"quant_matmul_int4": quant_matmul, "flash_decode": flash_decode,
+            "flash_prefill": flash_prefill, "paged_flash": paged_flash,
+            "verify_prefix": verify_prefix}
+
+
+def row_stability(eng, dev):
+    """Each dense op of a forward on 16 rows, computed one row at a time
+    (M = 1) and together as the first M = 2, 8, 16 rows (B=1 generate runs
+    M = 1 and 2, the 8-slot batcher 8 and 16): for each M, how many rows
+    differ in any bit from the row alone. The attention kernels' rows are
+    checked in their phases."""
+    from llm_inference_lab_tpu_torch.models.transformer import lm_head_logits, rms_norm
+    from llm_inference_lab_tpu_torch.ops.quant_matmul import quant_matmul
+
+    cfg, params = eng.target.config, eng.target.params
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn((16, cfg.d_model), generator=g, device=dev).bfloat16()
+    w = params["layers"]["w_qkv"].layer(0)
+    ops = {
+        "rms_norm (torch mean over d_model)":
+            lambda a: rms_norm(a, params["layers"]["attn_norm_scale"][0], cfg.rms_norm_eps),
+        "tied int8 head (cast + torch.matmul)": lambda a: lm_head_logits(cfg, params, a),
+        "quant_matmul_int4 (kernel A)": lambda a: quant_matmul(a, w.data, w.scale),
+    }
+    out = {}
+    for name, fn in ops.items():
+        alone = torch.cat([fn(x[i:i + 1].contiguous()) for i in range(16)])
+        out[name] = {M: int((fn(x[:M].contiguous()) != alone[:M]).any(-1).sum())
+                     for M in (2, 8, 16)}
+    return out
+
+
+def near_tie(eng, dev, prompt, ids_a, ids_b):
+    """At the first position where two greedy runs of one prompt differ: the
+    two top target logits from a fresh B=1 forward over the common prefix,
+    their gap and the gap in bf16 ulps of the top logit (the head rounds
+    its products to bf16)."""
+    j = next(i for i, (a, b) in enumerate(zip(ids_a, ids_b)) if a != b)
+    ctx = eng.tokenizer.encode(prompt) + ids_a[:j]
+    n = len(ctx)
+    cache = eng.target.init_cache(1, -(-n // 32) * 32, dev)
+    logits, _ = eng.target.forward(
+        torch.tensor([ctx], device=dev, dtype=torch.int32),
+        torch.arange(n, device=dev, dtype=torch.int32)[None],
+        cache, torch.zeros((1,), device=dev, dtype=torch.int32))
+    top = torch.topk(logits[0, -1], 2)
+    (v1, v2), (t1, t2) = top.values.tolist(), top.indices.tolist()
+    ulp = 2.0 ** (math.floor(math.log2(abs(v1))) - 7)
+    return dict(position=j, tokens=(ids_a[j], ids_b[j]), top2=((t1, v1), (t2, v2)),
+                gap=v1 - v2, gap_ulps=(v1 - v2) / ulp)
+
+
+def phase_serving(dev, eng, profile):
+    """Phase 3b: the paged serving path at full width, on phase 3's weights."""
+    from llm_inference_lab_tpu_torch.core.batching import ContinuousBatcher
+    from llm_inference_lab_tpu_torch.core.engine import Engine
+
+    def batcher(layout):
+        cfg = replace(eng.config, max_seq_len=SERVE_MAX_LEN, kv_layout=layout,
+                      kv_page_size=SERVE_PAGE)
+        b = ContinuousBatcher(Engine(cfg, device=dev, target_params=eng.target.params,
+                                     draft_params=eng.draft.params), n_slots=SERVE_SLOTS)
+        for prompt, budget in zip(SERVE_PROMPTS, SERVE_BUDGETS):
+            b.submit(prompt, max_new_tokens=budget)
+        return b
+
+    # The contiguous batcher's run is the warm-up and the layout reference.
+    contiguous = batcher("contiguous").run()
+    paged = batcher("paged")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    results = paged.run()
+    launches = {name: w.launches for name, w in wrappers.items()}
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    st = paged.stats.report()
+    log(f"launches in the serving run: {launches}")
+    for name, n in launches.items():
+        # Paged serving decodes through F; D serves the contiguous layout.
+        assert n > 0 or name == "flash_decode", f"{name} never launched while serving"
+    assert len(results) == len(SERVE_PROMPTS) == st["retired"], "not every request retired"
+    for r in results:
+        lp = torch.tensor(r["token_logprobs"] + r["prompt_logprobs"][1:])
+        assert r["generated_tokens"] >= 1 and torch.isfinite(lp).all(), ("bad result", r["req_id"])
+    assert [r["generated_ids"] for r in results] == [r["generated_ids"] for r in contiguous], \
+        "paged and contiguous batchers differ"
+    log(f"serving (3B int4 + 1B draft, K=1, paged KV page {SERVE_PAGE}, {SERVE_SLOTS} slots, "
+        f"max_seq_len {SERVE_MAX_LEN}): {len(results)} requests, {st['committed_tokens']} "
+        f"generated tokens in {st['wall_s']:.3f} s = {st['tok_s']:.2f} tok/s aggregate; "
+        f"{st['steps']} steps, {st['admit_waves']} admission waves, mean occupied slots "
+        f"{st['mean_occupied_slots']:.2f}, peak memory {peak_mb:.1f} MB; "
+        f"ids == contiguous-layout batcher ids")
+    # Each request against phase 3's B=1 Engine.generate (contiguous, 64 new
+    # tokens) on its prompt.
+    reference = {p: eng.generate(p)["generated_ids"] for p in dict.fromkeys(SERVE_PROMPTS)}
+    stability = row_stability(eng, dev)
+    log("row stability (rows of M that differ from the row alone, M = 2/8/16): "
+        + "; ".join(f"{op}: {d[2]}/{d[8]}/{d[16]}" for op, d in stability.items()))
+    unstable = [op for op, d in stability.items() if d[8] or d[16]]
+    differ = 0
+    for r, prompt in zip(results, SERVE_PROMPTS):
+        ref = reference[prompt][: len(r["generated_ids"])]
+        if r["generated_ids"] == ref:
+            continue
+        differ += 1
+        tie = near_tie(eng, dev, prompt, ref, r["generated_ids"])
+        log(f"request {r['req_id']} differs from generate: {tie}; ops that round rows "
+            f"differently at the batcher's M: {unstable}")
+        assert tie["gap_ulps"] <= 2 and unstable, ("not a near tie at a named op", tie)
+    log(f"serving ids == the start of B=1 generate ids for {len(results) - differ} of "
+        f"{len(results)} requests (the rest near ties)")
+    if profile:
+        profile_run("serving run", lambda: batcher("paged").run(), st["wall_s"] * 1e3)
     return launches
 
 
-def profile_run(eng, latency_ms):
-    """Kernel time by name over one profiled generate, and the device's busy
-    share: the union of the kernels' intervals over the latency of an
-    unprofiled generate (latency_ms; the profiler slows the host, not the
+def profile_run(what, fn, latency_ms):
+    """Kernel time by name over one profiled call of fn, and the device's
+    busy share: the union of the kernels' intervals over the latency of an
+    unprofiled call (latency_ms; the profiler slows the host, not the
     kernels). GPU-side annotations of PyTorch ops are left out: they would
     count their kernels twice."""
     from torch.autograd import DeviceType
@@ -326,7 +624,7 @@ def profile_run(eng, latency_ms):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.generate(PROMPT)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
@@ -342,7 +640,7 @@ def profile_run(eng, latency_ms):
     for k in kernels:
         t, n = by_name.get(k.name, (0.0, 0))
         by_name[k.name] = (t + k.time_range.elapsed_us(), n + 1)
-    log(f"profile: {len(kernels)} kernels in one generate, busy {busy_us / 1e3:.1f} ms; "
+    log(f"profile: {len(kernels)} kernels in one {what}, busy {busy_us / 1e3:.1f} ms; "
         f"wall {wall_ms:.1f} ms with the profiler, {latency_ms:.1f} ms without; "
         f"busy share {busy_us / 1e3 / latency_ms:.3f}")
     for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
@@ -374,23 +672,34 @@ def main(argv):
             if "Used" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
+    step = "one K=1 decode step (all of its calls at the B=1 main path's shapes)"
     kernels = {
-        "quant_matmul_int4": (phase_quant_matmul(dev), "ops/pallas/quant_matmul.py:76"),
-        "flash_decode": (phase_flash_decode(dev), "ops/pallas/flash_decode.py:146"),
-        "verify_prefix": (phase_verify_prefix(dev), "ops/pallas/verify_pallas.py:46"),
+        "quant_matmul_int4": (phase_quant_matmul(dev), "ops/pallas/quant_matmul.py:76", step),
+        "flash_decode": (phase_flash_decode(dev), "ops/pallas/flash_decode.py:146", step),
+        "flash_prefill": (phase_flash_prefill(dev), "ops/pallas/flash_prefill.py:86",
+                          "one admission wave (G=4 prompts of P=256, both models' layers)"),
+        "paged_flash": (phase_paged_flash(dev), "ops/pallas/paged_flash.py:82",
+                        "one K=1 decode step of the 8-slot serving batch (both models' layers)"),
+        "verify_prefix": (phase_verify_prefix(dev), "ops/pallas/verify_pallas.py:46", step),
     }
-    launches = phase_end_to_end(dev, "--profile" in argv)
+    t0 = time.perf_counter()
+    eng, on_generate = phase_end_to_end(dev, "--profile" in argv)
+    log(f"phase 3 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    on_serving = phase_serving(dev, eng, "--profile" in argv)
+    log(f"phase 3b took {time.perf_counter() - t0:.1f} s")
 
     line = {"kernels": [
         {"name": name, "route": "cuda",
          "source": f"llm_inference_lab_tpu_torch/csrc/{name}.cu",
          "replaces": f"llm_inference_lab_tpu/{where}",
-         "launches": launches[name],
+         "launches": on_generate[name] + on_serving[name],
+         "launches_by_path": {"generate (3 runs)": on_generate[name],
+                              "serving (16 requests)": on_serving[name]},
          "max_abs_err": agg["max_abs_err"],
          "ms": agg["ms"], "plain_ms": agg["plain_ms"], "bound_ms": agg["bound_ms"],
-         "bound_by": agg["bound_by"], "library_ms": agg["library_ms"],
-         "per": "one K=1 decode step (all of its calls at the main path's shapes)"}
-        for name, (agg, where) in kernels.items()]}
+         "bound_by": agg["bound_by"], "library_ms": agg["library_ms"], "per": per}
+        for name, (agg, where, per) in kernels.items()]}
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

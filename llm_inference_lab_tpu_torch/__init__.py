@@ -1,9 +1,9 @@
 """PyTorch/CUDA port of llm_inference_lab_tpu for one NVIDIA H100.
 
 Module names follow the JAX package so each counterpart is easy to find.
-Plain tensor code is PyTorch; the three TPU kernels of the speculative-decode
-main path (int4 quant_matmul, flash_decode, verify_prefix) are CUDA C++ for
-sm_90a under ``csrc/``, built with nvcc at first use.
+Plain tensor code is PyTorch; the TPU kernels of the ported paths (int4
+quant_matmul, flash_decode, flash_prefill, paged_flash, verify_prefix) are
+CUDA C++ for sm_90a under ``csrc/``, built with nvcc at first use.
 
 Dispatch is by the tensor's device: a CPU tensor runs the op's plain PyTorch
 version, a CUDA tensor launches the kernel or raises. Nothing falls back.

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
 ``_build/lib<name>-<hash>.so`` (nvcc for sm_90a, -O3, -shared, -fPIC), where
-the hash covers the source and NVCC_FLAGS: a changed source or changed flags
-name a library that does not exist yet, so it is built afresh. Nothing is
+the hash covers the source, every ``csrc/*.cuh`` header and NVCC_FLAGS: a
+changed source, a changed shared header or changed flags name a library that
+does not exist yet, so it is built afresh. Nothing is
 built when a module is imported: the first launch of a kernel builds it, and
 ``build_all`` builds every source in parallel (one nvcc each, all started
 together), which is what chip_smoke.py does before anything else.
@@ -24,7 +25,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
-SOURCES = ("quant_matmul_int4", "flash_decode", "verify_prefix")
+SOURCES = ("quant_matmul_int4", "flash_decode", "flash_prefill", "paged_flash", "verify_prefix")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -43,6 +44,17 @@ SIGNATURES = {
         # scale, stream
         "flash_decode_bf16": [P, P, P, P, P, I, I, I, I, I, I, ctypes.c_longlong,
                               ctypes.c_longlong, ctypes.c_float, P],
+    },
+    "flash_prefill": {
+        # the arguments of flash_decode_bf16
+        "flash_prefill_bf16": [P, P, P, P, P, I, I, I, I, I, I, ctypes.c_longlong,
+                               ctypes.c_longlong, ctypes.c_float, P],
+    },
+    "paged_flash": {
+        # q, k_pool, v_pool, table, positions, out, B, S, H, KVH, M, P, D,
+        # stride_page, scale, stream
+        "paged_flash_bf16": [P, P, P, P, P, P, I, I, I, I, I, I, I, ctypes.c_longlong,
+                             ctypes.c_float, P],
     },
     "verify_prefix": {
         # draft, logits, arg_ws, mask, accept_len, B, K, V, row_stride, batch_stride, stream
@@ -63,6 +75,10 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    # Headers are shared between sources: any header's bytes name every
+    # library, so an edit to one never reuses a library built without it.
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
     digest.update("\0".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

@@ -2,9 +2,11 @@
 EngineConfig that the ported slice reads.
 
 The slice is vanilla drafting at a fixed K, greedy longest_prefix
-acceptance, weight-only int4/int8 and a contiguous bf16 KV cache; a field of
-the JAX config with a single ported value has no field here until a later
-slice ports a second value for it.
+acceptance, weight-only int4/int8 and a bf16 KV cache, contiguous or paged;
+a field of the JAX config with a single ported value has no field here until
+a later slice ports a second value for it. So ``prefix_caching`` (off),
+``admit_chunk`` (one-shot admission) and ``kv_lazy_pages`` (eager page
+reservation, ``kv_lazy_pages=False`` in JAX) have no field yet.
 """
 
 from __future__ import annotations
@@ -27,6 +29,11 @@ class EngineConfig:
     quantized_init: bool = False
     seed: int = 0
     eos_token_id: Optional[int] = None
+    # KV cache layout: "contiguous" (one [max_seq] lane per slot) or "paged"
+    # (a page pool and per-sequence page tables, models/paged.py).
+    kv_layout: str = "contiguous"
+    kv_page_size: int = 64
+    kv_pages: Optional[int] = None  # pool size; None = slots * pages per sequence + 1
 
     def validate(self) -> None:
         """Reject settings outside the ported slice instead of ignoring them."""
@@ -36,3 +43,7 @@ class EngineConfig:
             raise NotImplementedError("int4 embedding (EmbedQuant4) is not ported yet")
         if self.quantization not in (None, "int8", "int4"):
             raise ValueError(f"unknown quantization {self.quantization!r}")
+        if self.kv_layout not in ("contiguous", "paged"):
+            raise ValueError(f"unknown kv_layout {self.kv_layout!r}")
+        if self.kv_layout == "paged" and (self.kv_page_size <= 0 or 128 % self.kv_page_size):
+            raise ValueError("kv_page_size must divide 128 (buffer bucketing)")

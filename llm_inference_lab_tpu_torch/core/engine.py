@@ -4,8 +4,11 @@ Port of llm_inference_lab_tpu/core/engine.py (``Engine.generate`` /
 ``generate_batch`` and ``_build_results``) for the ported slice: Llama
 target and draft, vanilla drafting at a fixed K, greedy longest_prefix
 acceptance, weight-only int4/int8 with an optional int8 embedding/tied head,
-a contiguous KV cache. Prompt bucketing, the out-of-vocab clamp and the
-result keys follow the JAX engine.
+a contiguous or paged KV cache (``kv_layout``). Prompt bucketing, the
+out-of-vocab clamp and the result keys follow the JAX engine. The serving
+path (core/batching.py ContinuousBatcher) drives the same step and reads
+``encode``, ``is_spec``, ``_max_k``, ``eos_token_id`` and ``_step`` from
+here.
 
 The device defaults to "cuda"; asking for it on a machine without CUDA
 raises (pass device="cpu" for the plain PyTorch versions of every op).
@@ -80,17 +83,21 @@ class Engine:
     def generate(self, prompt: str) -> Dict[str, Any]:
         return self.generate_batch([prompt])[0]
 
+    def encode(self, prompt: str, max_new: int, max_seq_len: int) -> List[int]:
+        """Prompt ids, cut to leave room for max_new tokens and the step's
+        K+2 scratch rows in max_seq_len, each clamped into the vocabulary
+        (a trust-boundary clamp, always on: an out-of-vocab id would index
+        past the embedding table)."""
+        vocab = self.target.config.vocab_size
+        ids = self.tokenizer.encode(prompt)[: max_seq_len - max_new - self._max_k - 2]
+        return [min(max(t, 0), vocab - 1) for t in ids]
+
     @torch.inference_mode()
     def generate_batch(self, prompts: List[str]) -> List[Dict[str, Any]]:
         cfg = self.config
         max_new = cfg.max_new_tokens
         B = len(prompts)
-        enc = [self.tokenizer.encode(p)[: cfg.max_seq_len - max_new - self._max_k - 2]
-               for p in prompts]
-        # Trust-boundary clamp, always on: an out-of-vocab id would index
-        # past the embedding table.
-        vocab = self.target.config.vocab_size
-        enc = [[min(max(t, 0), vocab - 1) for t in e] for e in enc]
+        enc = [self.encode(p, max_new, cfg.max_seq_len) for p in prompts]
         plens = np.array([len(e) for e in enc], np.int32)
         P = _round_up(max(int(plens.max()), 1), 32)
         max_len = _round_up(P + max_new + self._max_k + 2, 128)
@@ -100,7 +107,8 @@ class Engine:
 
         dev = self.device
         t_start = time.perf_counter()
-        state = init_state(self.target, self.draft, B, max_len, dev, max_new_tokens=max_new)
+        state = init_state(self.target, self.draft, B, max_len, dev, max_new_tokens=max_new,
+                           paged=cfg.kv_layout == "paged", page_size=cfg.kv_page_size)
         state = self._prefill(state, torch.from_numpy(block).to(dev),
                               torch.from_numpy(plens).to(dev))
         self._sync()

@@ -6,7 +6,8 @@ slice reads. Invariants (as in the JAX package):
 * ``tokens[b, :lengths[b]]`` are the committed tokens of sequence b; the
   buffer beyond is scratch.
 * Both KV caches hold exactly the committed tokens [0, lengths[b]-1): all but
-  the last committed token. Cache slot index == absolute position.
+  the last committed token. Cache slot index == absolute position (for a
+  paged cache: page ordinal * page size + row in the page).
 * ``active[b]`` is False once b hit EOS, its budget or the buffer end;
   inactive lanes still flow through the batched step but commit nothing.
 
@@ -17,11 +18,12 @@ place by the forwards.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
 from llm_inference_lab_tpu_torch.models.base import KVCache, Model
+from llm_inference_lab_tpu_torch.models.paged import PagedKVCache
 
 
 @dataclass
@@ -31,8 +33,8 @@ class DecodeState:
     prompt_lens: torch.Tensor  # [B] int32
     max_new: torch.Tensor  # [B] int32 — per-sequence generation budget
     active: torch.Tensor  # [B] bool
-    target_cache: KVCache
-    draft_cache: Optional[KVCache]
+    target_cache: Union[KVCache, PagedKVCache]
+    draft_cache: Optional[Union[KVCache, PagedKVCache]]
     proposed: torch.Tensor  # [B] int32 — draft tokens proposed
     accepted: torch.Tensor  # [B] int32 — draft tokens accepted
     bonus: torch.Tensor  # [B] int32 — bonus/fallback tokens emitted
@@ -41,8 +43,15 @@ class DecodeState:
 
 
 def init_state(target_model: Model, draft_model: Optional[Model], batch_size: int,
-               max_seq_len: int, device, max_new_tokens: int = 64) -> DecodeState:
+               max_seq_len: int, device, max_new_tokens: int = 64, paged: bool = False,
+               page_size: int = 64, n_pages: Optional[int] = None,
+               table: Optional[torch.Tensor] = None) -> DecodeState:
+    """paged=True gives both models a PagedKVCache: n_pages pages of
+    page_size rows (default batch_size * max_pages) and, unless a table is
+    given, the default table that gives slot b the pages [b*m, (b+1)*m).
+    Each cache keeps its own copy of a given table."""
     B = batch_size
+    kv_kw = dict(paged=paged, page_size=page_size, n_pages=n_pages, table=table)
 
     def zeros_i32(*shape):
         return torch.zeros(shape, dtype=torch.int32, device=device)
@@ -53,8 +62,8 @@ def init_state(target_model: Model, draft_model: Optional[Model], batch_size: in
         prompt_lens=zeros_i32(B),
         max_new=torch.full((B,), max_new_tokens, dtype=torch.int32, device=device),
         active=torch.zeros((B,), dtype=torch.bool, device=device),
-        target_cache=target_model.init_cache(B, max_seq_len, device),
-        draft_cache=(draft_model.init_cache(B, max_seq_len, device)
+        target_cache=target_model.init_cache(B, max_seq_len, device, **kv_kw),
+        draft_cache=(draft_model.init_cache(B, max_seq_len, device, **kv_kw)
                      if draft_model is not None else None),
         proposed=zeros_i32(B),
         accepted=zeros_i32(B),

@@ -1,0 +1,100 @@
+// Online-softmax GQA attention for prefill-length query blocks over a
+// contiguous bf16 KV cache, for Hopper (kernel E).
+//
+// Replaces: llm_inference_lab_tpu/ops/pallas/flash_prefill.py
+//           flash_prefill_attention (_body: query-block grid axis, causal
+//           tile skip), bf16 chain-mask variant: mask kv_pos <= p, scale
+//           D**-0.5. The window, softcap, scale-override and int8-cache
+//           variants are not ported yet.
+//
+// The function of flash_decode.cu, for S > 32: q bf16 [B, S, H, D]; k, v
+// bf16 [B, KVH, T, D] (a layer's view of the stacked cache, through its
+// batch and head strides); positions int32 [B, S], which need not start at
+// 0 (a chunk may resume at any base) and may be -1 (a dead row, zeros out);
+// out bf16 [B, S, H, D].
+//
+// What bounds it on the H100: the larger of the bytes (q, out, and K and V
+// up to the largest position) at 3.35 TB/s and the operations (4 * D *
+// (p + 1) per query row and head) at the bf16 tensor-core peak, 989
+// TFLOP/s. At the serving admission's shapes (P = 256, 3B geometry: 0.4
+// GFLOP against 4.2 MB, ~100 flops per byte, below the ridge of ~295) the
+// bytes bound it; from S of about 1.5k on, the operations. This first
+// kernel runs the arithmetic on CUDA cores in f32 and is far from either;
+// tensor cores (wgmma), TMA and wider tiles are later work.
+//
+// Design (right first, then fast):
+//  * One block per (b, kv head, 32-position query block): 32 * group rows,
+//    all group heads of the kv head, on 2 * group warps of 16 rows each
+//    (group <= 4: 256 threads). q rows sit in dynamic shared memory.
+//  * The body of attn_tile.cuh: the block walks 32-key tiles up to its
+//    largest position, and each row stops at the last tile its own position
+//    reaches. That is the causal tile skip, done per row: a row's bits never
+//    depend on S, on the rows beside it, or on T beyond its position, so
+//    admission (scratch T = P) and Engine.generate (T = max_len) prefill
+//    the same bits, and they equal kernel D's for the same row.
+//  * S and T need not be multiples of 32: rows past S are not written and
+//    keys past T are never read.
+
+#include "attn_tile.cuh"
+
+namespace {
+
+constexpr int QB = 32;       // query positions per block
+constexpr int MAX_GROUP = 4;  // 2 * group warps of attn::RPW rows each
+
+template <int D>
+__global__ void __launch_bounds__(2 * MAX_GROUP * 32)
+flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v, const int* __restrict__ pos,
+                     __nv_bfloat16* __restrict__ out, int S, int H, int KVH, int T,
+                     long long stride_kb, long long stride_kh, float scale) {
+  extern __shared__ __align__(16) unsigned char qs_raw[];  // [32 * group, D] bf16
+  __shared__ __align__(16) attn::Tile<D> tile;
+  __shared__ int kmax_s;
+  const int b = blockIdx.x / KVH, h = blockIdx.x % KVH;
+  const int group = H / KVH;
+  const attn::PlaneKeys<D> keys{k + b * stride_kb + h * stride_kh, v + b * stride_kb + h * stride_kh};
+  attn::attend_rows<D>(q, pos, out, keys, b, h, S, H, KVH, blockIdx.y * QB * group, T, scale,
+                       reinterpret_cast<__nv_bfloat16*>(qs_raw), tile, kmax_s);
+}
+
+template <int D>
+int launch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v, const int* pos,
+           __nv_bfloat16* out, int B, int S, int H, int KVH, int T, long long stride_kb,
+           long long stride_kh, float scale, cudaStream_t st) {
+  const int group = H / KVH;
+  const size_t smem = (size_t)QB * group * D * sizeof(__nv_bfloat16);
+  // With the static tile, D = 128 at group 4 needs more than the default
+  // 48 KB a block may take.
+  if (smem + sizeof(attn::Tile<D>) + sizeof(int) > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_prefill_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  dim3 grid(B * KVH, (S + QB - 1) / QB);
+  dim3 block(2 * group * 32);
+  flash_prefill_kernel<D><<<grid, block, smem, st>>>(q, k, v, pos, out, S, H, KVH, T, stride_kb,
+                                                      stride_kh, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Requires D in {64, 128}, H % KVH == 0 with H / KVH <= 4, contiguous q /
+// out / positions and unit-stride [T, D] planes in k and v (checked in
+// Python).
+extern "C" int flash_prefill_bf16(const void* q, const void* k, const void* v, const void* pos,
+                                  void* out, int B, int S, int H, int KVH, int T, int D,
+                                  long long stride_kb, long long stride_kh, float scale,
+                                  void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (H % KVH || H / KVH > MAX_GROUP) return (int)cudaErrorInvalidValue;
+  const auto* qp = static_cast<const __nv_bfloat16*>(q);
+  const auto* kp = static_cast<const __nv_bfloat16*>(k);
+  const auto* vp = static_cast<const __nv_bfloat16*>(v);
+  const auto* pp = static_cast<const int*>(pos);
+  auto* op = static_cast<__nv_bfloat16*>(out);
+  if (D == 128) return launch<128>(qp, kp, vp, pp, op, B, S, H, KVH, T, stride_kb, stride_kh, scale, st);
+  if (D == 64) return launch<64>(qp, kp, vp, pp, op, B, S, H, KVH, T, stride_kb, stride_kh, scale, st);
+  return (int)cudaErrorInvalidValue;
+}

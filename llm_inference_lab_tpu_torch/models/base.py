@@ -80,7 +80,16 @@ class Model:
 
         return forward(self.config, self.params, tokens, positions, cache, cache_lens)
 
-    def init_cache(self, batch_size: int, max_seq_len: int, device) -> KVCache:
+    def init_cache(self, batch_size: int, max_seq_len: int, device, paged: bool = False,
+                   page_size: int = 64, n_pages: Optional[int] = None,
+                   table: Optional[torch.Tensor] = None):
+        """A contiguous KVCache, or with paged=True a PagedKVCache (a pool of
+        n_pages pages of page_size rows and a [batch_size, max_pages] table)."""
+        if paged:
+            from llm_inference_lab_tpu_torch.models.paged import PagedKVCache
+
+            return PagedKVCache.create(self.config, batch_size, max_seq_len, device,
+                                       n_pages=n_pages, page_size=page_size, table=table)
         return KVCache.create(self.config, batch_size, max_seq_len, device)
 
 

@@ -17,12 +17,12 @@ import torch
 import torch.nn.functional as F
 
 from llm_inference_lab_tpu_torch.models.base import (
-    KVCache,
     ModelConfig,
     cache_slots,
     write_cache_layer,
 )
-from llm_inference_lab_tpu_torch.ops.attention import attend
+from llm_inference_lab_tpu_torch.models.paged import PagedKVCache, page_slots, write_paged_layer
+from llm_inference_lab_tpu_torch.ops.attention import attend, paged_attend
 from llm_inference_lab_tpu_torch.ops.quant import EmbedQuant, QuantTensor, dense
 
 
@@ -79,16 +79,21 @@ def rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
 
 
 def _attn_block(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor,
-                cos, sin, cache: KVCache, layer: int, slots) -> torch.Tensor:
+                cos, sin, cache, layer: int, slots) -> torch.Tensor:
     B, S, _ = x.shape
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     qkv = dense(x, p["w_qkv"])  # fused QKV: one matmul instead of three
     # q and k heads rotate together: one pass of elementwise ops, not two.
     qk = rope(qkv[..., : (H + KV) * Dh].reshape(B, S, H + KV, Dh), cos, sin)
     v = qkv[..., (H + KV) * Dh:].reshape(B, S, KV, Dh)
+    q = qk[:, :, :H].contiguous()
     # Write the new KV at absolute positions BEFORE attending (ops/attention).
-    write_cache_layer(cache, layer, qk[:, :, H:], v, slots)
-    attn = attend(qk[:, :, :H].contiguous(), cache.k[layer], cache.v[layer], positions)
+    if isinstance(cache, PagedKVCache):
+        write_paged_layer(cache, layer, qk[:, :, H:], v, slots)
+        attn = paged_attend(q, cache.k[layer], cache.v[layer], positions, cache.table)
+    else:
+        write_cache_layer(cache, layer, qk[:, :, H:], v, slots)
+        attn = attend(q, cache.k[layer], cache.v[layer], positions)
     return dense(attn.reshape(B, S, H * Dh), p["wo"])
 
 
@@ -104,16 +109,20 @@ def _layer_params(layers: dict, i: int) -> dict:
 
 
 def forward(cfg: ModelConfig, params: Any, tokens: torch.Tensor, positions: torch.Tensor,
-            cache: KVCache, cache_lens: torch.Tensor):
-    """tokens, positions: [B, S] (positions int32); cache written in place at
-    cache_lens[b] + arange(S). Returns (logits [B, S, V] f32, cache)."""
+            cache, cache_lens: torch.Tensor):
+    """tokens, positions: [B, S] (positions int32); cache (a KVCache or a
+    PagedKVCache) written in place at cache_lens[b] + arange(S). Returns
+    (logits [B, S, V] f32, cache)."""
     embed = params["embed"]
     if isinstance(embed, EmbedQuant):
         x = embed.lookup(tokens, cfg.dtype)
     else:
         x = embed[tokens].to(cfg.dtype)
     cos, sin = rope_tables(cfg, positions)
-    slots = cache_slots(cache_lens, tokens.shape[1], cache.max_seq_len)
+    if isinstance(cache, PagedKVCache):
+        slots = page_slots(cache.table, cache_lens, tokens.shape[1], cache.page_size)
+    else:
+        slots = cache_slots(cache_lens, tokens.shape[1], cache.max_seq_len)
     eps = cfg.rms_norm_eps
     for i in range(cfg.n_layers):
         p = _layer_params(params["layers"], i)

@@ -1,32 +1,59 @@
-"""Decode attention over a length-masked static KV cache.
+"""Attention over the KV cache: contiguous (``attend``) and paged
+(``paged_attend``).
 
-Port of llm_inference_lab_tpu/ops/attention.py (``attend_xla``'s contract):
+Port of the JAX package's attention dispatch (ops/attention.py
+``attend_xla``'s contract; the routing of ops/pallas/flash_decode.py
+``_kernel_wrapper`` and ops/pallas/paged_flash.py ``_wrapper``):
 
     attend(q [B,S,H,D], k_cache [B,KVH,T,D], v_cache [B,KVH,T,D],
            positions [B,S]) -> [B,S,H,D]
+    paged_attend(q, k_pool [N,KVH,P,D], v_pool [N,KVH,P,D], positions,
+                 table [B,M]) -> [B,S,H,D]
 
-A query at absolute position p attends to cache slots [0, p]: the engine
-writes new rows at their positions before attending, so no separate length
-mask is needed. Only the chain-decode mask is ported; the sliding window,
+A query at absolute position p attends to cache positions [0, p]: the
+engine writes new rows at their positions before attending, so no separate
+length mask is needed. Routing, as in JAX: S <= 32 (draft, verify) goes to
+the decode kernels, flash_decode or paged_flash; longer S (prefill) to
+flash_prefill. A paged prefill first gathers its pages into a contiguous
+view (JAX sends that case to its XLA gather; only Engine.generate_batch in
+paged mode reaches it). Only the chain mask is ported: the sliding window,
 ring cache, tree mask, softcap, scale override and int8 caches raise.
-The work goes to ``flash_decode`` (the kernel on CUDA tensors).
 """
 
 from __future__ import annotations
 
 import torch
 
+from llm_inference_lab_tpu_torch.models.paged import gather_pages
 from llm_inference_lab_tpu_torch.ops.flash_decode import flash_decode
+from llm_inference_lab_tpu_torch.ops.flash_prefill import flash_prefill
+from llm_inference_lab_tpu_torch.ops.paged_flash import paged_flash
+
+DECODE_MAX_S = 32  # longer query blocks are prefills
+
+
+def _refuse_unported(k: torch.Tensor, **options) -> None:
+    for name, value in options.items():
+        if value is not None:
+            raise NotImplementedError(f"attention option {name} is not ported yet")
+    if k.dtype == torch.int8:
+        raise NotImplementedError("int8 KV caches are not ported yet")
 
 
 def attend(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
            positions: torch.Tensor, *, tree_mask=None, window=None, ring_len=None,
            scale=None, softcap=None) -> torch.Tensor:
-    unported = dict(tree_mask=tree_mask, window=window, ring_len=ring_len,
-                    scale=scale, softcap=softcap)
-    for name, value in unported.items():
-        if value is not None:
-            raise NotImplementedError(f"attention option {name} is not ported yet")
-    if k_cache.dtype == torch.int8:
-        raise NotImplementedError("int8 KV caches are not ported yet")
-    return flash_decode(q, k_cache, v_cache, positions)
+    _refuse_unported(k_cache, tree_mask=tree_mask, window=window, ring_len=ring_len,
+                     scale=scale, softcap=softcap)
+    if q.shape[1] <= DECODE_MAX_S:
+        return flash_decode(q, k_cache, v_cache, positions)
+    return flash_prefill(q, k_cache, v_cache, positions)
+
+
+def paged_attend(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                 positions: torch.Tensor, table: torch.Tensor, *, tree_mask=None,
+                 window=None, scale=None, softcap=None) -> torch.Tensor:
+    _refuse_unported(k_pool, tree_mask=tree_mask, window=window, scale=scale, softcap=softcap)
+    if q.shape[1] <= DECODE_MAX_S:
+        return paged_flash(q, k_pool, v_pool, positions, table)
+    return flash_prefill(q, gather_pages(k_pool, table), gather_pages(v_pool, table), positions)

@@ -3,8 +3,8 @@
 Port of llm_inference_lab_tpu/ops/pallas/flash_decode.py, bf16 chain-decode
 variant (mask kv_pos <= p, scale D**-0.5). On a CPU tensor ``flash_decode``
 runs the plain version; on a CUDA tensor it launches csrc/flash_decode.cu or
-raises. The kernel serves every S (draft S = 1, verify S = K+1, the S = 160
-prefill), where the TPU dispatcher sent bf16 caches and this prefill to XLA.
+raises. ``attend`` sends it the decode-shaped calls (S <= 32: draft S = 1,
+verify S = K+1); longer S goes to flash_prefill.
 
     flash_decode(q [B,S,H,D], k [B,KVH,T,D], v [B,KVH,T,D], positions [B,S])
         -> [B,S,H,D] in q's dtype
@@ -18,8 +18,6 @@ from __future__ import annotations
 import torch
 
 from llm_inference_lab_tpu_torch import build
-
-BT = 32  # kernel keys per tile
 
 
 def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -41,30 +39,50 @@ def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, S, H, D).to(q.dtype)
 
 
+def check_queries(name: str, q: torch.Tensor, positions: torch.Tensor, *caches: torch.Tensor):
+    """The checks every attention kernel makes on q, positions and its K/V
+    tensors: bf16, D in {64, 128}, int32 positions [B, S], contiguous q and
+    positions, one device, 16-byte aligned q and caches (the kernels read
+    16-byte vectors: a misaligned view would fault on the card after the
+    launch). Returns (B, S, H, D)."""
+    B, S, H, D = q.shape
+    if q.dtype != torch.bfloat16 or any(c.dtype != torch.bfloat16 for c in caches):
+        raise TypeError(f"{name} kernel takes bf16 q and caches")
+    if positions.dtype != torch.int32 or positions.shape != (B, S):
+        raise TypeError(f"{name} kernel takes int32 positions [B, S]")
+    if D not in (64, 128):
+        raise ValueError(f"{name} kernel: head dim {D} is not 64 or 128")
+    if not (q.is_contiguous() and positions.is_contiguous()):
+        raise ValueError(f"{name} kernel needs contiguous q and positions")
+    if any(t.device != q.device for t in (positions, *caches)):
+        raise ValueError(f"{name} kernel needs all operands on one device")
+    if any(t.data_ptr() % 16 for t in (q, *caches)):
+        raise ValueError(f"{name} kernel needs 16-byte aligned q and caches")
+    return B, S, H, D
+
+
+def check_planes(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """k and v [B, KVH, T, D] with equal strides and unit-stride [T, D]
+    planes at 16-byte aligned batch and head strides (a layer's view of the
+    stacked cache qualifies)."""
+    B, S, H, D = q.shape
+    KVH, T = k.shape[1], k.shape[2]
+    if H % KVH or k.shape != (B, KVH, T, D) or v.shape != k.shape:
+        raise ValueError(f"{name} kernel: unsupported shapes q {tuple(q.shape)} k {tuple(k.shape)}")
+    if k.stride() != v.stride() or k.stride(3) != 1 or k.stride(2) != D:
+        raise ValueError(f"{name} kernel needs k and v with equal strides and [T, D] planes")
+    if k.stride(0) % 8 or k.stride(1) % 8:
+        raise ValueError(f"{name} kernel needs 16-byte aligned plane strides")
+
+
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  positions: torch.Tensor) -> torch.Tensor:
     if not q.is_cuda:
         return flash_decode_plain(q, k, v, positions)
-    B, S, H, D = q.shape
+    B, S, H, D = check_queries("flash_decode", q, positions, k, v)
+    check_planes("flash_decode", q, k, v)
     KVH, T = k.shape[1], k.shape[2]
-    if q.dtype != torch.bfloat16 or k.dtype != torch.bfloat16 or v.dtype != torch.bfloat16:
-        raise TypeError("flash_decode kernel takes bf16 q and caches")
-    if positions.dtype != torch.int32 or positions.shape != (B, S):
-        raise TypeError("flash_decode kernel takes int32 positions [B, S]")
-    if D not in (64, 128) or T % BT or H % KVH or k.shape != (B, KVH, T, D) or v.shape != k.shape:
-        raise ValueError(f"flash_decode kernel: unsupported shapes q {tuple(q.shape)} k {tuple(k.shape)}")
-    if k.stride() != v.stride() or k.stride(3) != 1 or k.stride(2) != D:
-        raise ValueError("flash_decode kernel needs k and v with equal strides and [T, D] planes")
-    if not (q.is_contiguous() and positions.is_contiguous()):
-        raise ValueError("flash_decode kernel needs contiguous q and positions")
-    if not (q.device == k.device == v.device == positions.device):
-        raise ValueError("flash_decode kernel needs all operands on one device")
     out = torch.empty_like(q)
-    # The kernel reads q, k and v and each (b, kv head) plane in 16-byte
-    # vectors: a misaligned view would fault on the card after the launch.
-    if (any(t.data_ptr() % 16 for t in (q, k, v, out))
-            or k.stride(0) % 8 or k.stride(1) % 8):
-        raise ValueError("flash_decode kernel needs 16-byte aligned q, k, v and plane strides")
     lib = build.library("flash_decode")
     err = lib.flash_decode_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), positions.data_ptr(), out.data_ptr(),

@@ -14,7 +14,10 @@ import numpy as np
 import pytest
 import torch
 
+from llm_inference_lab_tpu_torch.models.paged import gather_pages
 from llm_inference_lab_tpu_torch.ops.flash_decode import flash_decode, flash_decode_plain
+from llm_inference_lab_tpu_torch.ops.flash_prefill import flash_prefill, flash_prefill_plain
+from llm_inference_lab_tpu_torch.ops.paged_flash import paged_flash, paged_flash_plain
 from llm_inference_lab_tpu_torch.ops.quant import quantize_int4
 from llm_inference_lab_tpu_torch.ops.quant_matmul import quant_matmul, quant_matmul_plain
 from llm_inference_lab_tpu_torch.ops.verify import verify_prefix, verify_prefix_plain
@@ -108,3 +111,81 @@ def test_verify_prefix_kernel_matches_plain_exactly(card):
     got, ref = verify_prefix(d, lg), verify_prefix_plain(d, lg)
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
     assert got[0].tolist() == [3, 2, 0, 4]
+
+
+def _within(got, ref):
+    """The attention kernels' tolerance against their plain versions on f32
+    copies: 2^-8 of |ref| (bf16 output rounding) plus 2^-16 (f32 order)."""
+    return bool(torch.all((got - ref).abs() <= 2.0 ** -8 * ref.abs() + 2.0 ** -16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,D,H", [(64, 64, 32), (160, 128, 24), (333, 128, 24)])
+def test_flash_prefill_kernel_matches_plain_and_rows_are_independent(card, S, D, H):
+    """Sequence 0 prefills from 0, sequence 1 resumes at 128 with a dead
+    first row; V past each last position is 64. Every row is within the
+    tolerance, and bit-identical alone, inside its block, at T = 1024 and
+    at T cut just past the positions, and under flash_decode."""
+    rng = np.random.default_rng(S + D)
+    B, KVH, T = 2, 8, 1024
+    q = torch.from_numpy(rng.normal(0, 1, (B, S, H, D)).astype(np.float32))
+    k = torch.from_numpy(rng.normal(0, 1, (B, KVH, T, D)).astype(np.float32))
+    v = torch.from_numpy(rng.normal(0, 1, (B, KVH, T, D)).astype(np.float32))
+    pos = torch.from_numpy(np.stack([np.arange(S), 128 + np.arange(S)]).astype(np.int32))
+    v[0, :, S:] = 64.0
+    v[1, :, 128 + S:] = 64.0
+    pos[1, 0] = -1
+    q, k, v = (t.to(card).bfloat16() for t in (q, k, v))
+    pos = pos.to(card)
+    before = flash_prefill.launches
+    got = flash_prefill(q, k, v, pos)
+    assert flash_prefill.launches == before + 1
+    assert _within(got.float(), flash_prefill_plain(q.float(), k.float(), v.float(), pos))
+    assert torch.all(got[1, 0] == 0)
+    T_cut = -(-(128 + S) // 32) * 32
+    assert torch.equal(flash_prefill(q, k[:, :, :T_cut], v[:, :, :T_cut], pos), got)
+    for j in (1, S // 2, S - 1):
+        qj, pj = q[:, j:j + 1].contiguous(), pos[:, j:j + 1].contiguous()
+        assert torch.equal(flash_prefill(qj, k, v, pj), got[:, j:j + 1])
+        assert torch.equal(flash_decode(qj, k, v, pj), got[:, j:j + 1])
+
+
+def _paged(card, rng, B, S, H, KVH, D, P, N_extra=3):
+    M = 1024 // P
+    N = B * M + N_extra
+    q = torch.from_numpy(rng.normal(0, 1, (B, S, H, D)).astype(np.float32)).to(card).bfloat16()
+    pool = torch.from_numpy(rng.normal(0, 1, (2, N, KVH, P, D)).astype(np.float32))
+    pool = pool.to(card).bfloat16()
+    table = torch.from_numpy((rng.permutation(N - 1)[: B * M].reshape(B, M) + 1).astype(np.int32))
+    last = rng.integers(S, 1000, (B,))
+    pos = torch.from_numpy((last[:, None] - S + 1 + np.arange(S)[None]).astype(np.int32))
+    return q, pool[0], pool[1], table.to(card), pos.to(card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,D,H,P", [(1, 64, 32, 16), (2, 128, 24, 64), (5, 128, 24, 32)])
+def test_paged_flash_kernel_matches_plain_and_flash_decode_bits(card, S, D, H, P):
+    """B=8 sequences at positions up to 1000 through shuffled tables, one
+    dead row: within the tolerance of the plain version, and the same bits
+    as flash_decode over the gathered contiguous keys."""
+    rng = np.random.default_rng(10 * S + P)
+    q, kp, vp, table, pos = _paged(card, rng, 8, S, H, 8, D, P)
+    pos[1, 0] = -1
+    before = paged_flash.launches
+    got = paged_flash(q, kp, vp, pos, table)
+    assert paged_flash.launches == before + 1
+    assert _within(got.float(), paged_flash_plain(q.float(), kp.float(), vp.float(), pos, table))
+    assert torch.all(got[1, 0] == 0)
+    assert torch.equal(got, flash_decode(q, gather_pages(kp, table), gather_pages(vp, table), pos))
+
+
+@pytest.mark.cuda
+def test_paged_flash_rejects_misaligned_pool_and_foreign_table(card):
+    rng = np.random.default_rng(0)
+    q, kp, vp, table, pos = _paged(card, rng, 2, 1, 24, 8, 128, 64)
+    flat = torch.zeros((kp.numel() + 1,), device=card, dtype=torch.bfloat16)
+    misaligned = flat[1:].view(kp.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        paged_flash(q, misaligned, misaligned, pos, table)
+    with pytest.raises(ValueError, match="device"):
+        paged_flash(q, kp, vp, pos, table.cpu())
