@@ -285,8 +285,8 @@ def sdpa_causal(q, k, v):
 
 
 def phase_flash_prefill(dev):
-    from llm_inference_lab_tpu_torch.ops.flash_decode import flash_decode
-    from llm_inference_lab_tpu_torch.ops.flash_prefill import flash_prefill, flash_prefill_plain
+    from llm_inference_lab_tpu_torch.ops.flash_decode import flash_decode, flash_decode_plain
+    from llm_inference_lab_tpu_torch.ops.flash_prefill import flash_prefill
 
     g = torch.Generator(device=dev).manual_seed(4)
     max_err = 0.0
@@ -302,7 +302,7 @@ def phase_flash_prefill(dev):
             v[0, :, S:] = POISON
             v[1, :, 128 + S:] = POISON
             pos[1, 0] = -1
-            ref = flash_prefill_plain(q.float(), k.float(), v.float(), pos)
+            ref = flash_decode_plain(q.float(), k.float(), v.float(), pos)
             outs = {}
             for T in (-(-(128 + S) // 32) * 32, 1024):
                 outs[T] = flash_prefill(q, k[:, :, :T], v[:, :, :T], pos)
@@ -319,6 +319,21 @@ def phase_flash_prefill(dev):
                 assert torch.equal(flash_decode(qj, k, v, pj), full[:, j:j + 1]), (S, D, j)
             log(f"flash_prefill S={S} D={D}: max_abs_err {err:.3g}; T-independent, "
                 f"row-independent, == flash_decode per row (dead row zero)")
+    # The B=1 main path's prompt prefill (S=160 at T=256), which E took over
+    # from D: E beside D on the same inputs (per request, not in the wave).
+    for D, (H, KVH) in GEOMS.items():
+        L = 2 * L2_BYTES // (2 * KVH * T_MAIN * D * 2) + 1
+        q, k, v, pos = flash_inputs(g, dev, 1, 160, H, KVH, T_MAIN, D, 159, L=L)
+        cyc = Cycle(L)
+        ms = median_ms(lambda: flash_prefill(q, k[cyc()], v[cyc.i], pos))
+        ms_d = median_ms(lambda: flash_decode(q, k[cyc()], v[cyc.i], pos))
+        lib = median_ms(lambda: sdpa_causal(q, k[cyc()][:, :, :160], v[cyc.i][:, :, :160]),
+                        iters=10)
+        b, by = bound_ms(2 * 2 * KVH * 160 * D + 2 * 2 * 160 * H * D + 4 * 160,
+                         4 * H * 160 * 161 // 2 * D)
+        log(f"flash_prefill main-path prefill S=160 T={T_MAIN} D={D}: {ms:.4f} ms  "
+            f"flash_decode {ms_d:.4f}  library {lib:.4f} (SDPA causal)  bound {b:.5f} ({by})")
+        del k, v
     # Timing at admission prefills: G prompts of P = 256 positions into a
     # [G, KVH, 256, D] scratch. One wave = 28 3B layers and 16 1B layers.
     P = 256
@@ -332,7 +347,7 @@ def phase_flash_prefill(dev):
             pos = torch.arange(P, device=dev, dtype=torch.int32)[None].repeat(G, 1).contiguous()
             cyc = Cycle(L)
             ms = median_ms(lambda: flash_prefill(q, k[cyc()], v[cyc.i], pos))
-            plain = median_ms(lambda: flash_prefill_plain(q, k[cyc()], v[cyc.i], pos), iters=10)
+            plain = median_ms(lambda: flash_decode_plain(q, k[cyc()], v[cyc.i], pos), iters=10)
             lib = median_ms(lambda: sdpa_causal(q, k[cyc()], v[cyc.i]), iters=10)
             seen = G * H * P * (P + 1) // 2  # (query row, key) pairs the mask keeps
             b, by = bound_ms(2 * 2 * G * P * H * D + 2 * 2 * G * KVH * P * D + 4 * G * P,

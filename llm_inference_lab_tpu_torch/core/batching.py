@@ -20,7 +20,7 @@ Left out of this slice (ROADMAP Queue 1): lazy pages with preemption,
 prefix caching, incremental (chunked) admission, per-request sampling,
 grammars, LoRA, top-N logprobs and cancel; and the TPU host's tuning of the
 loop (chunk cost model, async and prefetched polls, fused and overlapped
-admission, traces). The loop here runs ``poll_every`` steps, then reads the
+admission, traces). The loop here runs POLL_EVERY steps, then reads the
 flags once and retires and admits.
 """
 
@@ -38,6 +38,8 @@ from llm_inference_lab_tpu_torch.core.scheduler import Scheduler
 from llm_inference_lab_tpu_torch.core.state import DecodeState, init_state
 from llm_inference_lab_tpu_torch.models.base import Model
 from llm_inference_lab_tpu_torch.models.paged import PageAllocator, PagedKVCache
+
+POLL_EVERY = 4  # decode steps between two host reads of the slots' flags
 
 
 @dataclass
@@ -154,14 +156,12 @@ class ContinuousBatcher:
     """Drives an Engine's step over a fixed slot batch with rolling
     admission and retirement, on the engine's device."""
 
-    def __init__(self, engine: Engine, n_slots: int = 8, max_seq_len: Optional[int] = None,
-                 poll_every: int = 4, length_bucket: int = 32, max_wait: int = 64):
+    def __init__(self, engine: Engine, n_slots: int = 8):
         self.engine = engine
         self.n_slots = n_slots
         cfg = engine.config
-        self.max_seq_len = max_seq_len or cfg.max_seq_len
-        self.poll_every = poll_every
-        self.scheduler = Scheduler(length_bucket=length_bucket, max_wait=max_wait)
+        self.max_seq_len = cfg.max_seq_len
+        self.scheduler = Scheduler()
         self._requests: Dict[int, _Request] = {}
         self._slots: List[Optional[_Request]] = [None] * n_slots
         self._done: Dict[int, _Request] = {}
@@ -271,10 +271,9 @@ class ContinuousBatcher:
             self.stats.admitted += 1
 
     @torch.inference_mode()
-    def step_chunk(self, n: Optional[int] = None) -> None:
-        """n decode steps (default poll_every) over all slots, then one host
-        read of the flags, which retires the requests that finished."""
-        n = self.poll_every if n is None else n
+    def step_chunk(self, n: int = POLL_EVERY) -> None:
+        """n decode steps over all slots, then one host read of the flags,
+        which retires the requests that finished."""
         occupied = sum(r is not None for r in self._slots)
         for _ in range(n):
             self.state = self.engine._step(self.state)

@@ -14,6 +14,9 @@ from __future__ import annotations
 from collections import deque
 from typing import Deque, List, Tuple
 
+LENGTH_BUCKET = 32  # prompt lengths per bucket
+MAX_WAIT = 64  # admission rounds a request may wait before it is overdue
+
 
 class Scheduler:
     """Queued requests are admitted in waves. Each wave takes the prompt-
@@ -22,7 +25,7 @@ class Scheduler:
     waited more than max_wait admission rounds is overdue and goes first,
     with its own bucket, so none starves."""
 
-    def __init__(self, length_bucket: int = 32, max_wait: int = 64):
+    def __init__(self, length_bucket: int = LENGTH_BUCKET, max_wait: int = MAX_WAIT):
         self.length_bucket = length_bucket
         self.max_wait = max_wait
         # (req_id, prompt_len, submit order, admission round at submit)

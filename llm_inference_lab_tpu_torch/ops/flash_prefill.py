@@ -3,8 +3,9 @@ contiguous bf16 KV cache.
 
 Port of llm_inference_lab_tpu/ops/pallas/flash_prefill.py, bf16 chain-mask
 variant (mask kv_pos <= p, scale D**-0.5). On a CPU tensor ``flash_prefill``
-runs the plain version; on a CUDA tensor it launches csrc/flash_prefill.cu
-or raises. ``attend`` sends it S > 32, as the JAX dispatcher does: the
+runs the plain version, ``flash_decode_plain`` (kernels D and E compute one
+function, attend_xla's chain mask); on a CUDA tensor it launches
+csrc/flash_prefill.cu or raises. ``attend`` sends it S > 32, as the JAX dispatcher does: the
 serving admission's [G, P] prefill and Engine.generate's prompt.
 
     flash_prefill(q [B,S,H,D], k [B,KVH,T,D], v [B,KVH,T,D], positions [B,S])
@@ -27,15 +28,11 @@ from llm_inference_lab_tpu_torch.ops.flash_decode import (
 
 MAX_GROUP = 4  # the kernel runs 2 * group warps per 32-position block
 
-# Kernels D and E compute one function (attend_xla's chain mask), so they
-# share one plain version.
-flash_prefill_plain = flash_decode_plain
-
 
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   positions: torch.Tensor) -> torch.Tensor:
     if not q.is_cuda:
-        return flash_prefill_plain(q, k, v, positions)
+        return flash_decode_plain(q, k, v, positions)
     B, S, H, D = check_queries("flash_prefill", q, positions, k, v)
     check_planes("flash_prefill", q, k, v)
     KVH, T = k.shape[1], k.shape[2]

@@ -2,8 +2,8 @@
 
 Port of llm_inference_lab_tpu/ops/pallas/paged_flash.py, bf16 chain-decode
 variant (mask kv_pos <= p, scale D**-0.5). On a CPU tensor ``paged_flash``
-runs the plain version (gather the pages, then the plain attention); on a
-CUDA tensor it launches csrc/paged_flash.cu or raises.
+runs the plain version; on a CUDA tensor it launches csrc/paged_flash.cu or
+raises.
 
     paged_flash(q [B,S,H,D], k_pool [N,KVH,P,D], v_pool [N,KVH,P,D],
                 positions [B,S], table [B,M]) -> [B,S,H,D] in q's dtype
@@ -19,11 +19,19 @@ from __future__ import annotations
 import torch
 
 from llm_inference_lab_tpu_torch import build
-from llm_inference_lab_tpu_torch.ops.flash_decode import check_queries
-from llm_inference_lab_tpu_torch.ops.paged_attention import paged_attend_plain
+from llm_inference_lab_tpu_torch.models.paged import gather_pages
+from llm_inference_lab_tpu_torch.ops.flash_decode import check_queries, flash_decode_plain
 
-# The kernel's plain version is the paged reference path.
-paged_flash_plain = paged_attend_plain
+
+def paged_flash_plain(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                      positions: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Port of ops/paged_attention.py ``paged_attend_xla`` (chain mask):
+    gather each sequence's pages into a contiguous [B, KVH, M*P, D] view
+    (page ordinal j holds positions [j*P, (j+1)*P), so the position mask
+    carries over) and run the plain attention; a row at position -1 gives
+    zeros."""
+    return flash_decode_plain(q, gather_pages(k_pool, table), gather_pages(v_pool, table),
+                              positions)
 
 
 def paged_flash(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,

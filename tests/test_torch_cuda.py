@@ -16,7 +16,7 @@ import torch
 
 from llm_inference_lab_tpu_torch.models.paged import gather_pages
 from llm_inference_lab_tpu_torch.ops.flash_decode import flash_decode, flash_decode_plain
-from llm_inference_lab_tpu_torch.ops.flash_prefill import flash_prefill, flash_prefill_plain
+from llm_inference_lab_tpu_torch.ops.flash_prefill import flash_prefill
 from llm_inference_lab_tpu_torch.ops.paged_flash import paged_flash, paged_flash_plain
 from llm_inference_lab_tpu_torch.ops.quant import quantize_int4
 from llm_inference_lab_tpu_torch.ops.quant_matmul import quant_matmul, quant_matmul_plain
@@ -140,7 +140,7 @@ def test_flash_prefill_kernel_matches_plain_and_rows_are_independent(card, S, D,
     before = flash_prefill.launches
     got = flash_prefill(q, k, v, pos)
     assert flash_prefill.launches == before + 1
-    assert _within(got.float(), flash_prefill_plain(q.float(), k.float(), v.float(), pos))
+    assert _within(got.float(), flash_decode_plain(q.float(), k.float(), v.float(), pos))
     assert torch.all(got[1, 0] == 0)
     T_cut = -(-(128 + S) // 32) * 32
     assert torch.equal(flash_prefill(q, k[:, :, :T_cut], v[:, :, :T_cut], pos), got)

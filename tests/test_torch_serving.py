@@ -6,9 +6,9 @@ The JAX batcher's own loop times its polls with a cost model and lagged
 snapshots, so the slots and admission waves a request gets depend on wall
 time. Which slot a request lands in changes its drafts after a full accept
 (the draft-cache hole the port keeps for parity, ROADMAP Queue 3), so the
-JAX batcher is driven here through its own admit / step / retire methods on
-the port's schedule (one step per poll): both then admit the same requests
-into the same slots at the same steps.
+batcher parity test drives both batchers through their own admit / step /
+retire methods, one step per poll: both then admit the same requests into
+the same slots at the same steps.
 """
 
 import functools
@@ -90,22 +90,43 @@ REQUESTS = [("serving parity " * n, m) for n, m in ((1, 5), (4, 16), (10, 9), (2
                                                     (3, 7))]
 
 
-def _run_jax(layout: str, page_size: int, target, draft):
-    eng = JaxEngine(JaxEngineConfig(implementation="hf", kv_layout=layout,
-                                    kv_page_size=page_size, kv_lazy_pages=False, **COMMON),
-                    target_model=target, draft_model=draft)
-    b = JaxBatcher(eng, n_slots=3)
+def _drive(b, step, retire):
+    """The same schedule for both batchers: admit, then one decode step per
+    poll, retire, admit, until every slot is empty."""
     for prompt, budget in REQUESTS:
         b.submit(prompt, max_new_tokens=budget)
     b._admit_pending()
     for _ in range(200):
         if not any(s is not None for s in b._slots):
             break
-        b.step_chunk(1)
-        b._retire_finished()
+        step()
+        retire()
         b._admit_pending()
     assert not b.scheduler.pending()
     return {r["req_id"]: r for r in (b._done[i].result for i in sorted(b._done))}
+
+
+def _run_jax(layout: str, page_size: int, target, draft):
+    eng = JaxEngine(JaxEngineConfig(implementation="hf", kv_layout=layout,
+                                    kv_page_size=page_size, kv_lazy_pages=False, **COMMON),
+                    target_model=target, draft_model=draft)
+    b = JaxBatcher(eng, n_slots=3)
+    return _drive(b, lambda: b.step_chunk(1), b._retire_finished)
+
+
+def _own_prompt_logprobs(eng, prompt: str, budget: int) -> np.ndarray:
+    """Prompt logprobs from the port's B=1 forward over the unpadded prompt
+    (no admission group, no padding), scored as the admission scores them."""
+    ids = eng.encode(prompt, budget, eng.config.max_seq_len)
+    n = len(ids)
+    with torch.inference_mode():
+        lg, _ = eng.target.forward(torch.tensor([ids], dtype=torch.int32),
+                                   torch.arange(n, dtype=torch.int32)[None],
+                                   eng.target.init_cache(1, n, "cpu"),
+                                   torch.zeros(1, dtype=torch.int32))
+    lg32 = lg[0, :-1].float()
+    lp = lg32.gather(-1, torch.tensor(ids[1:])[:, None])[:, 0] - torch.logsumexp(lg32, -1)
+    return lp.numpy()
 
 
 @pytest.mark.parametrize("layout,page_size", [("contiguous", 64), ("paged", 16), ("paged", 64)])
@@ -114,32 +135,44 @@ def test_batcher_matches_jax(layout, page_size):
     eager page reservation as the port does), llama-tiny, f32, K=2, 3
     slots, 6 requests: per request, generated ids, proposed, accepted,
     generated tokens and finish reason are equal; token logprobs agree
-    within 1e-4. Prompt logprobs come from the [G, P] admission prefill,
-    whose O(10) logits the two libraries sum in another order over up to
-    G * P = 320 rows: they agree within 1e-4 + 3e-5 of the value
-    (differences of 2.3e-5 of it were seen)."""
+    within 1e-4.
+
+    Prompt logprobs come from the [G, P] admission prefill. They equal the
+    port's own B=1 forward over the unpadded prompt within 1e-5 (the result
+    rounds them to 6 decimals): a wrong row, splice or padding would move
+    them by far more. Against JAX they agree within 1e-4 + 3e-5 |lp|. The
+    gap is f32 rounding in the two libraries' forwards, not the port's
+    batch: it is there at B=1 without padding, where each library is up to
+    3e-4 from a float64 forward of the same weights, and JAX's own [G, P]
+    prefill moves its logprobs by up to 1.4e-4 from its B=1 forward. No
+    single op makes it: rounding any one op's output to f32 inside a
+    float64 forward moves the logprobs by 3e-5 to 7e-5; at x10 weights the
+    attention scores reach |s| ~ 1300. The gap grows with |lp|: at most
+    6e-5 where |lp| < 6, and 2.2e-4 = 2.6e-5 |lp| at lp = -8.5 over the six
+    prompts, none with |lp| < 3 (tests/torch_logprob_probe.py prints
+    these)."""
     target, draft = _tiny(0), _tiny(0, mix_with=1)
     want = _run_jax(layout, page_size, target, draft)
     eng = Engine(EngineConfig(kv_layout=layout, kv_page_size=page_size, **COMMON), device="cpu",
                  target_params=params_from_jax(target.params),
                  draft_params=params_from_jax(draft.params))
-    b = ContinuousBatcher(eng, n_slots=3, poll_every=1)
-    for prompt, budget in REQUESTS:
-        b.submit(prompt, max_new_tokens=budget)
-    got = b.run()
-    assert [r["req_id"] for r in got] == sorted(want) == list(range(len(REQUESTS)))
-    for r in got:
-        w = want[r["req_id"]]
+    b = ContinuousBatcher(eng, n_slots=3)
+    got = _drive(b, lambda: b.step_chunk(1), lambda: None)  # step_chunk retires itself
+    assert sorted(got) == sorted(want) == list(range(len(REQUESTS)))
+    for rid, r in got.items():
+        w = want[rid]
         for key in ("generated_ids", "proposed", "accepted", "generated_tokens", "finish_reason"):
-            assert r[key] == w[key], (r["req_id"], key, r[key], w[key])
+            assert r[key] == w[key], (rid, key, r[key], w[key])
         np.testing.assert_allclose(r["token_logprobs"], w["token_logprobs"], rtol=0, atol=1e-4)
+        np.testing.assert_allclose(r["prompt_logprobs"][1:], _own_prompt_logprobs(eng, *REQUESTS[rid]),
+                                   rtol=0, atol=1e-5)
         np.testing.assert_allclose(r["prompt_logprobs"][1:], w["prompt_logprobs"][1:],
                                    rtol=3e-5, atol=1e-4)
         assert r["prompt_logprobs"][0] is None and r["prompt_tokens_reused"] == 0
-    assert sum(r["accepted"] for r in got) > 0  # drafts are accepted: bonus paths run
+    assert sum(r["accepted"] for r in got.values()) > 0  # drafts are accepted: bonus paths run
     stats = b.stats.report()
     assert stats["admitted"] == stats["retired"] == len(REQUESTS)
-    assert stats["committed_tokens"] == sum(r["generated_tokens"] for r in got)
+    assert stats["committed_tokens"] == sum(r["generated_tokens"] for r in got.values())
     assert stats["admit_waves"] >= 2  # the queued half was admitted as slots retired
 
 
@@ -169,9 +202,9 @@ def test_paged_memory_aware_admission():
         occupancy = []
         step_chunk = b.step_chunk
 
-        def traced(n=None):
+        def traced(*n):
             occupancy.append(sum(r is not None for r in b._slots))
-            step_chunk(n)
+            step_chunk(*n)
 
         b.step_chunk = traced
         for p in prompts:
