@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (llm_inference_lab_tpu_torch) on one
 NVIDIA card: the quickest proof that the port builds and runs on the GPU.
 
-    python3 chip_smoke.py            # phases 0-4, last line a JSON result
-    python3 chip_smoke.py --profile  # also a torch.profiler breakdown of one run
+    python3 chip_smoke.py            # phases 0-6, last line a JSON result
+    python3 chip_smoke.py --profile  # also a torch.profiler breakdown of runs
 
 Phases, in order (any failure exits non-zero; nothing is caught and ignored):
  0. the card: nvidia-smi name and power limit, torch's device name;
@@ -13,7 +13,12 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
     library call's and the bound (bytes at 3.35 TB/s, operations at 989
     TFLOP/s bf16): quant_matmul_int4, flash_decode and verify_prefix at the
     B=1 main path's shapes, flash_prefill at admission prefills (and
-    resumed chunks), paged_flash at the serving step's;
+    resumed chunks), paged_flash at the serving step's; then the int8
+    kernels: quant_matmul_int8 (kernel B) at every projection of the int8
+    path and M = 1, 5, 8, 40 and an admission wave's M, with every row's
+    bits independent of M, and the int8-cache variants of flash_decode,
+    flash_prefill and paged_flash, each beside its bf16 kernel on the same
+    positions, bit-equal to one another on the same keys and scales;
  3. end to end at full width: Engine with an int4 llama-3.2-3b target and
     llama-3.2-1b draft (random weights from a seed, int8 embedding/tied
     head), K=1, greedy, 64 new tokens, max_seq_len 512, on bench.py's
@@ -30,7 +35,15 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
     equal the start of phase 3's B=1 Engine.generate ids for its prompt (a
     difference must be a near tie at an op found to round a row differently
     at another batch shape); a contiguous-layout batcher gives the same ids;
- 4. the kernels' JSON line, then the result line.
+ 4. the int8 path end to end at full width: configs/llama32_int8.yaml (int8
+    3B target + 1B draft, K=4, max_seq_len 512, bf16 tied head) with an int8
+    KV cache, random int8 weights from a seed, phase 3's prompt and checks;
+    kernel A launches no time there; kv_alignment_report on the final cache
+    of a generate is within KV_ALIGN_STEPS int8 steps of a fresh prefill;
+ 5. int8 serving: phase 3b's requests and checks over paged int8 pools (page
+    64, max_seq_len 512) on phase 4's weights, against phase 4's generate;
+ 6. the kernels' JSON line (every kernel, launches by path), then the
+    result line.
 
 Without CUDA it exits non-zero before printing any result.
 """
@@ -74,6 +87,33 @@ LAYERS = {64: 16, 128: 28}  # layers of the model with that head dim
 SERVE_PROMPTS = ["The quick brown fox jumps over the lazy dog. " * (1 + i % 8) for i in range(16)]
 SERVE_BUDGETS = [(16, 32, 48, 64)[i % 4] for i in range(16)]
 SERVE_SLOTS, SERVE_PAGE, SERVE_MAX_LEN = 8, 64, 1024
+# The int8 path (phases 4 and 5): configs/llama32_int8.yaml's engine
+# settings with the int8 KV cache.
+INT8_CFG = dict(base_model="llama-3.2-3b", draft_model="llama-3.2-1b", max_draft=4,
+                max_new_tokens=64, max_seq_len=512, quantization="int8", quantized_init=True,
+                kv_quantization="int8", seed=0)
+INT8_MAX_LEN = 512  # serving lanes of the int8 path
+KV_ALIGN_STEPS = 4  # kv_alignment_report's tolerance, in int8 steps (phase_kv_alignment)
+# Kernel B's checks: the path's M (B=1 draft and verify, 8-slot draft and
+# verify) and one admission wave (G = 8 prompts of P = 256).
+QMM8_M = (1, 5, 8, 40, 2048)
+# Kernel B per element: 2^-8 |ref| (the bf16 output's rounding) + 2^-14 of
+# the largest |ref| (f32 sums of up to 8192 products in another order).
+QMM8_RTOL, QMM8_MTOL = 2.0 ** -8, 2.0 ** -14
+# int8 POISON: keys and values past the last position hold bytes 127 with a
+# scale of 0.5 (63.5, 18x the scale of an N(0, 1) row), in K and V.
+POISON_BYTE, POISON_SCALE = 127, 0.5
+# The kernels each path must launch (and no other).
+PATH_KERNELS = {
+    "generate int4 (3 runs)": {"quant_matmul_int4", "flash_decode", "flash_prefill",
+                               "verify_prefix"},
+    "serving int4 (16 requests)": {"quant_matmul_int4", "flash_prefill", "paged_flash",
+                                   "verify_prefix"},
+    "generate int8 (3 runs)": {"quant_matmul_int8", "flash_decode_int8", "flash_prefill_int8",
+                               "verify_prefix"},
+    "serving int8 (16 requests)": {"quant_matmul_int8", "flash_prefill_int8",
+                                   "paged_flash_int8", "verify_prefix"},
+}
 
 
 T_START = time.perf_counter()
@@ -88,7 +128,9 @@ def median_ms(fn, iters=25, warmup=3):
     back-to-back calls. A first pass measures how long the host takes to
     enqueue the calls; the timed pass then queues behind a spin kernel three
     times that long, so the events time the device's work and not the
-    host's launch rate. Raises if the spin did not cover the enqueue."""
+    host's launch rate. If the spin did not cover the enqueue (the host
+    stalled), the pass is repeated behind a longer spin; raises if it never
+    does."""
     for _ in range(warmup):
         fn()
     events = [torch.cuda.Event(enable_timing=True) for _ in range(iters + 2)]
@@ -103,14 +145,18 @@ def median_ms(fn, iters=25, warmup=3):
 
     torch.cuda.synchronize()
     spin_s = 3 * enqueue()
-    torch.cuda.synchronize()
-    events[0].record()
-    torch.cuda._sleep(int(spin_s * SPIN_CYCLES_PER_S))
-    took_s = enqueue()
-    torch.cuda.synchronize()
-    spun_s = events[0].elapsed_time(events[1]) / 1e3
-    assert spun_s > took_s, f"timing: enqueue {took_s:.6f} s outlasted the spin {spun_s:.6f} s"
-    return statistics.median(events[i].elapsed_time(events[i + 1]) for i in range(1, iters + 1))
+    for _ in range(4):
+        torch.cuda.synchronize()
+        events[0].record()
+        torch.cuda._sleep(int(spin_s * SPIN_CYCLES_PER_S))
+        took_s = enqueue()
+        torch.cuda.synchronize()
+        spun_s = events[0].elapsed_time(events[1]) / 1e3
+        if spun_s > took_s:
+            return statistics.median(events[i].elapsed_time(events[i + 1])
+                                     for i in range(1, iters + 1))
+        spin_s = 3 * max(spin_s, took_s)
+    raise AssertionError(f"timing: enqueue {took_s:.6f} s outlasted the spin {spun_s:.6f} s")
 
 
 def bound_ms(nbytes, nops):
@@ -439,29 +485,342 @@ def phase_paged_flash(dev):
     return agg
 
 
-def phase_end_to_end(dev, profile):
-    from llm_inference_lab_tpu_torch.config import EngineConfig
-    from llm_inference_lab_tpu_torch.core.engine import Engine
+# ---------------------------------------------------------------- int8 kernels
+def phase_quant_matmul_int8(dev):
+    """Kernel B at every projection of the int8 path: checks at M in QMM8_M
+    on the first M rows of one x (every row's bits the same at every M),
+    times at M = 1, 5, 8, 40 with the plain version, the library call and
+    the bound."""
+    from llm_inference_lab_tpu_torch.ops.quant_matmul import (
+        quant_matmul_int8,
+        quant_matmul_plain_int8,
+    )
 
-    cfg = EngineConfig(base_model="llama-3.2-3b", draft_model="llama-3.2-1b", max_draft=1,
-                       max_new_tokens=64, max_seq_len=512, quantization="int4",
-                       quantized_init=True, quantize_embed=True, seed=0)
-    t0 = time.perf_counter()
-    eng = Engine(cfg, device=dev)
-    torch.cuda.synchronize()
-    log(f"engine init (random int4 weights on the card): {time.perf_counter() - t0:.1f} s")
-    eng.generate(PROMPT)  # warm-up
-    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device=dev).manual_seed(11)
+    rows, max_err = {}, 0.0
+    for K, N in QMM_3B + QMM_1B:
+        L = max(2, (200 << 20) // (K * N))  # > 200 MB of weights: beyond L2
+        w = torch.randint(-128, 128, (L, K, N), generator=g, dtype=torch.int8, device=dev)
+        sc = torch.rand((L, N), generator=g, device=dev) * (0.02 / 127) + 1e-5
+        x = torch.randn((max(QMM8_M), K), generator=g, device=dev).bfloat16()
+        outs = {}
+        for M in QMM8_M:
+            got = quant_matmul_int8(x[:M], w[0], sc[0])
+            ref = quant_matmul_plain_int8(x[:M].float(), w[0], sc[0])
+            err = (got.float() - ref).abs()
+            tol = QMM8_RTOL * ref.abs() + QMM8_MTOL * ref.abs().max()
+            assert torch.isfinite(got).all() and bool((err <= tol).all()), (K, N, M, err.max())
+            max_err = max(max_err, err.max().item())
+            for m_prev, prev in outs.items():  # the same bits for a row at every M
+                assert torch.equal(got[:m_prev], prev), (K, N, M, m_prev, "M-dependent rounding")
+            outs[M] = got
+        del outs
+        cyc = Cycle(L)
+        for M in (1, 5, 8, 40):
+            xm = x[:M].contiguous()
+            ms = median_ms(lambda: quant_matmul_int8(xm, w[cyc()], sc[cyc.i]))
+            plain = median_ms(lambda: quant_matmul_plain_int8(xm, w[cyc()], sc[cyc.i]), iters=10)
+            lib = median_ms(lambda: torch.matmul(xm, w[cyc()].to(torch.bfloat16)) * sc[cyc.i],
+                            iters=10)
+            b, by = bound_ms(K * N + 4 * N + 2 * M * K + 2 * M * N, 2 * M * K * N)
+            rows[(K, N, M)] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b, bound_by=by)
+            log(f"quant_matmul_int8 K={K} N={N} M={M}: {ms:.4f} ms  plain {plain:.4f}  "
+                f"library {lib:.4f}  bound {b:.4f} ({by})")
+        log(f"quant_matmul_int8 K={K} N={N}: within tolerance at M = {QMM8_M}, every row the "
+            f"same bits at every M")
+        del w, sc
+    # One K=4 decode step at B=1: 4 draft forwards of 16 1B layers at M=1,
+    # one verify of 28 3B layers at M=5.
+    step = [(k, n, 1, 4 * 16) for k, n in QMM_1B] + [(k, n, 5, 28) for k, n in QMM_3B]
+    agg = {key: sum(rows[(k, n, m)][key] * c for k, n, m, c in step)
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    agg["bound_by"] = "bytes"
+    agg["max_abs_err"] = max_err
+    serve = [(k, n, 8, 4 * 16) for k, n in QMM_1B] + [(k, n, 40, 28) for k, n in QMM_3B]
+    log("quant_matmul_int8 one 8-slot K=4 serving step (M = 8 draft, 40 verify): "
+        + ", ".join(f"{key} {sum(rows[(k, n, m)][key] * c for k, n, m, c in serve):.4f}"
+                    for key in ("ms", "plain_ms", "library_ms", "bound_ms")))
+    return agg
+
+
+def int8_kv(g, dev, shape, last=None):
+    """N(0, 1) rows quantized per row (int8 values, f32 scales) of shape
+    [.., B, KVH, T, D]; with `last` (one position per sequence of axis -4),
+    keys past it are int8 POISON in values and scales."""
+    from llm_inference_lab_tpu_torch.models.base import quantize_rows
+
+    vals, scales = quantize_rows(torch.randn(shape, generator=g, device=dev))
+    for b, p in enumerate(last or []):
+        vals[..., b, :, p + 1:, :] = POISON_BYTE
+        scales[..., b, :, p + 1:] = POISON_SCALE
+    return vals, scales
+
+
+def sdpa_int8(q, k, v, ks, vs, pos, causal=False):
+    """The library yardstick for an int8 cache (timed only, never used):
+    dequantize to bf16, then SDPA with the position mask (or causal)."""
+    kd = (k.float() * ks[..., None]).to(q.dtype)
+    vd = (v.float() * vs[..., None]).to(q.dtype)
+    return sdpa_causal(q, kd, vd) if causal else sdpa(q, kd, vd, pos)
+
+
+def attn_bound(S, H, KVH, D, keys, seen, extra_bytes=0):
+    """Bytes: int8 K and V up to the last positions plus 8 bytes of scales a
+    key, q and out bf16, positions and extra_bytes; operations: 4 D per
+    (query row, visible key)."""
+    kv = 2 * KVH * keys * D + 8 * KVH * keys
+    return bound_ms(kv + 2 * 2 * S * H * D + 4 * S + extra_bytes, 4 * seen * D)
+
+
+def phase_flash_decode_int8(dev):
+    """D-int8: checks at S = 1, 5 (draft, verify), D = 64, 128, T = 256 and
+    4096; times at the int8 B=1 path's shapes beside D-bf16 on the same
+    positions."""
+    from llm_inference_lab_tpu_torch.ops.flash_decode import (
+        flash_decode,
+        flash_decode_int8,
+        flash_decode_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    max_err = 0.0
+    for S in (1, 5):
+        for D, (H, KVH) in GEOMS.items():
+            for T in (256, 4096):
+                p_last = T - 57  # 8 keys into a 32-key tile
+                q = torch.randn((2, S, H, D), generator=g, device=dev).bfloat16()
+                k, ks = int8_kv(g, dev, (2, KVH, T, D), [p_last] * 2)
+                v, vs = int8_kv(g, dev, (2, KVH, T, D), [p_last] * 2)
+                pos = (p_last - S + 1 + torch.arange(S, device=dev, dtype=torch.int32))[None]
+                pos = pos.repeat(2, 1).contiguous()
+                pos[1, 0] = -1
+                got = flash_decode_int8(q, k, v, pos, ks, vs)
+                err = check_close(got.float(), flash_decode_plain(q.float(), k, v, pos, ks, vs),
+                                  ("flash_decode_int8", S, D, T))
+                assert torch.all(got[1, 0] == 0), (S, D, T, "dead row not zero")
+                if S == 5:
+                    one = flash_decode_int8(q[:, :1].contiguous(), k, v, pos[:, :1].contiguous(),
+                                            ks, vs)
+                    assert torch.equal(one, got[:, :1]), (D, T, "S-dependent rounding")
+                max_err = max(max_err, err)
+                log(f"flash_decode_int8 S={S} D={D} T={T}: max_abs_err {err:.3g} (dead row zero)")
+    agg = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bound_by="bytes",
+               max_abs_err=max_err)
+    for S, D, n in ((1, 64, 4 * 16), (5, 128, 28)):
+        H, KVH = GEOMS[D]
+        L = 2 * L2_BYTES // (2 * KVH * T_MAIN * D) + 1
+        q = torch.randn((1, S, H, D), generator=g, device=dev).bfloat16()
+        k, ks = int8_kv(g, dev, (L, 1, KVH, T_MAIN, D))
+        v, vs = int8_kv(g, dev, (L, 1, KVH, T_MAIN, D))
+        nb = 2 * L2_BYTES // (4 * KVH * T_MAIN * D) + 1  # bf16 copies, twice the L2 too
+        kb, vb = k[:nb].bfloat16(), v[:nb].bfloat16()
+        pos = (P_MAIN - S + 1 + torch.arange(S, device=dev, dtype=torch.int32))[None].contiguous()
+        cyc, cyb = Cycle(L), Cycle(nb)
+        ms = median_ms(lambda: flash_decode_int8(q, k[cyc()], v[cyc.i], pos, ks[cyc.i], vs[cyc.i]))
+        bf16 = median_ms(lambda: flash_decode(q, kb[cyb()], vb[cyb.i], pos))
+        plain = median_ms(lambda: flash_decode_plain(q, k[cyc()], v[cyc.i], pos, ks[cyc.i],
+                                                     vs[cyc.i]), iters=10)
+        lib = median_ms(lambda: sdpa_int8(q, k[cyc()], v[cyc.i], ks[cyc.i], vs[cyc.i], pos),
+                        iters=10)
+        seen = H * sum(P_MAIN - S + 2 + i for i in range(S))
+        b, by = attn_bound(S, H, KVH, D, P_MAIN + 1, seen)
+        log(f"flash_decode_int8 S={S} D={D} T={T_MAIN} p={P_MAIN}: {ms:.4f} ms  (bf16 kernel "
+            f"{bf16:.4f})  plain {plain:.4f}  library {lib:.4f} (dequant + SDPA)  "
+            f"bound {b:.5f} ({by})")
+        for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib), ("bound_ms", b)):
+            agg[key] += n * val
+        del k, v, kb, vb
+    return agg
+
+
+def phase_flash_prefill_int8(dev):
+    """E-int8: checks at S = 64, 160, 512 (a chunk resuming at 128, a dead
+    row, T cut and full, row by row equal to D-int8); times at the int8 B=1
+    prompt prefill and an admission wave, beside E-bf16."""
+    from llm_inference_lab_tpu_torch.ops.flash_decode import flash_decode_int8, flash_decode_plain
+    from llm_inference_lab_tpu_torch.ops.flash_prefill import flash_prefill, flash_prefill_int8
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    max_err = 0.0
+    for S in (64, 160, 512):
+        for D, (H, KVH) in GEOMS.items():
+            q = torch.randn((2, S, H, D), generator=g, device=dev).bfloat16()
+            last = [S - 1, 128 + S - 1]
+            k, ks = int8_kv(g, dev, (2, KVH, 1024, D), last)
+            v, vs = int8_kv(g, dev, (2, KVH, 1024, D), last)
+            ar = torch.arange(S, device=dev, dtype=torch.int32)
+            pos = torch.stack([ar, 128 + ar]).contiguous()
+            pos[1, 0] = -1
+            ref = flash_decode_plain(q.float(), k, v, pos, ks, vs)
+            outs = {}
+            for T in (-(-(128 + S) // 32) * 32, 1024):
+                outs[T] = flash_prefill_int8(q, k[:, :, :T], v[:, :, :T], pos, ks[:, :, :T],
+                                             vs[:, :, :T])
+                err = check_close(outs[T].float(), ref, ("flash_prefill_int8", S, D, T))
+                max_err = max(max_err, err)
+                assert torch.all(outs[T][1, 0] == 0), (S, D, T, "dead row not zero")
+            small, full = outs.values()
+            assert torch.equal(small, full), (S, D, "depends on T past the positions")
+            for j in (1, S // 2 + 3, S - 1):
+                qj, pj = q[:, j:j + 1].contiguous(), pos[:, j:j + 1].contiguous()
+                assert torch.equal(flash_prefill_int8(qj, k, v, pj, ks, vs), full[:, j:j + 1])
+                assert torch.equal(flash_decode_int8(qj, k, v, pj, ks, vs), full[:, j:j + 1])
+            log(f"flash_prefill_int8 S={S} D={D}: max_abs_err {err:.3g}; T-independent, "
+                f"row-independent, == flash_decode_int8 per row (dead row zero)")
+    per = {}
+    for G, P, T in ((1, 160, T_MAIN), (4, 256, 256)):  # B=1 prompt prefill; admission wave
+        for D, (H, KVH) in GEOMS.items():
+            L = 2 * L2_BYTES // (2 * G * KVH * T * D) + 1
+            q = torch.randn((G, P, H, D), generator=g, device=dev).bfloat16()
+            k, ks = int8_kv(g, dev, (L, G, KVH, T, D))
+            v, vs = int8_kv(g, dev, (L, G, KVH, T, D))
+            nb = 2 * L2_BYTES // (4 * G * KVH * T * D) + 1
+            kb, vb = k[:nb].bfloat16(), v[:nb].bfloat16()
+            pos = torch.arange(P, device=dev, dtype=torch.int32)[None].repeat(G, 1).contiguous()
+            cyc, cyb = Cycle(L), Cycle(nb)
+            ms = median_ms(lambda: flash_prefill_int8(q, k[cyc()], v[cyc.i], pos, ks[cyc.i],
+                                                      vs[cyc.i]))
+            bf16 = median_ms(lambda: flash_prefill(q, kb[cyb()], vb[cyb.i], pos))
+            plain = median_ms(lambda: flash_decode_plain(q, k[cyc()], v[cyc.i], pos, ks[cyc.i],
+                                                         vs[cyc.i]), iters=10)
+            lib = median_ms(lambda: sdpa_int8(q, k[cyc()][:, :, :P], v[cyc.i][:, :, :P],
+                                              ks[cyc.i][:, :, :P], vs[cyc.i][:, :, :P], pos,
+                                              causal=True), iters=10)
+            b, by = attn_bound(G * P, H, KVH, D, G * P, G * H * P * (P + 1) // 2)
+            per[(G, D)] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b, bound_by=by)
+            log(f"flash_prefill_int8 G={G} P={P} T={T} D={D}: {ms:.4f} ms  (bf16 kernel "
+                f"{bf16:.4f})  plain {plain:.4f}  library {lib:.4f} (dequant + SDPA causal)  "
+                f"bound {b:.5f} ({by})")
+            del k, v, kb, vb
+    agg = {key: sum(per[(4, D)][key] * LAYERS[D] for D in GEOMS)
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    agg["bound_by"] = per[(4, 128)]["bound_by"]
+    agg["max_abs_err"] = max_err
+    return agg
+
+
+def paged_int8_inputs(g, dev, B, S, H, KVH, D, P, last, max_len, L=1):
+    """The int8 counterpart of paged_inputs: contiguous int8 K/V and scales
+    [L, B, KVH, max_len(, D)] with POISON past each last position, the same
+    keys and scales in pools [L, N, KVH, P(, D)] through one shuffled table
+    [B, M] (page 0 unused), positions [B, S] ending at last[b]."""
+    M = max_len // P
+    N = B * M + 1
+    q = torch.randn((B, S, H, D), generator=g, device=dev).bfloat16()
+    kc, ksc = int8_kv(g, dev, (L, B, KVH, M * P, D), last)
+    vc, vsc = int8_kv(g, dev, (L, B, KVH, M * P, D), last)
+    table = (torch.randperm(N - 1, generator=g, device=dev)[: B * M] + 1).reshape(B, M)
+    table = table.to(torch.int32).contiguous()
+
+    def pool(src):
+        tail = src.shape[4:]
+        dst = torch.zeros((L, N, KVH, P, *tail), device=dev, dtype=src.dtype)
+        dst[:, table.flatten().long()] = (src.reshape(L, B, KVH, M, P, *tail).transpose(2, 3)
+                                          .reshape(L, B * M, KVH, P, *tail))
+        return dst
+
+    pos = torch.tensor(last, device=dev, dtype=torch.int32)[:, None] - S + 1
+    pos = (pos + torch.arange(S, device=dev, dtype=torch.int32)[None]).contiguous()
+    return q, (kc, vc, ksc, vsc), tuple(pool(t) for t in (kc, vc, ksc, vsc)), table, pos
+
+
+def phase_paged_flash_int8(dev):
+    """F-int8: checks at B=8, S = 1, 5, D = 64, 128, P = 16, 64, positions up
+    to 1000, bit-equal to D-int8 on the gathered keys and scales; times at
+    the int8 serving step's shapes beside F-bf16 on the same positions."""
+    from llm_inference_lab_tpu_torch.models.paged import gather_pages
+    from llm_inference_lab_tpu_torch.ops.flash_decode import flash_decode_int8
+    from llm_inference_lab_tpu_torch.ops.paged_flash import (
+        paged_flash,
+        paged_flash_int8,
+        paged_flash_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(14)
+    B, max_err = 8, 0.0
+    for S in (1, 5):
+        for D, (H, KVH) in GEOMS.items():
+            for P in (16, 64):
+                last = torch.randint(S, 1001, (B,), generator=g, device=dev).tolist()
+                q, cont, pools, table, pos = paged_int8_inputs(g, dev, B, S, H, KVH, D, P, last,
+                                                               SERVE_MAX_LEN)
+                cont, pools = [t[0] for t in cont], [t[0] for t in pools]
+                assert torch.equal(gather_pages(pools[2], table), cont[2])
+                pos[1, 0] = -1
+                got = paged_flash_int8(q, pools[0], pools[1], pos, table, pools[2], pools[3])
+                ref = paged_flash_plain(q.float(), pools[0], pools[1], pos, table, pools[2],
+                                        pools[3])
+                err = check_close(got.float(), ref, ("paged_flash_int8", S, D, P))
+                max_err = max(max_err, err)
+                assert torch.all(got[1, 0] == 0), (S, D, P, "dead row not zero")
+                assert torch.equal(got, flash_decode_int8(q, cont[0], cont[1], pos, cont[2],
+                                                          cont[3])), (S, D, P, "bits != D")
+                log(f"paged_flash_int8 B={B} S={S} D={D} P={P} (last positions up to "
+                    f"{max(last)}): max_abs_err {err:.3g}; == flash_decode_int8 on the gathered "
+                    f"keys and scales (dead row zero)")
+    agg = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bound_by="bytes",
+               max_abs_err=max_err)
+    last = [246 + b for b in range(B)]
+    M = INT8_MAX_LEN // SERVE_PAGE
+    for S, D, n in ((1, 64, 4 * 16), (5, 128, 28)):
+        H, KVH = GEOMS[D]
+        L = 2 * L2_BYTES // (2 * (B * M + 1) * KVH * SERVE_PAGE * D) + 1
+        q, _, (kp, vp, ksp, vsp), table, pos = paged_int8_inputs(
+            g, dev, B, S, H, KVH, D, SERVE_PAGE, last, INT8_MAX_LEN, L=L)
+        nb = L // 2 + 1
+        kb, vb = kp[:nb].bfloat16(), vp[:nb].bfloat16()
+        cyc, cyb = Cycle(L), Cycle(nb)
+        ms = median_ms(lambda: paged_flash_int8(q, kp[cyc()], vp[cyc.i], pos, table, ksp[cyc.i],
+                                                vsp[cyc.i]))
+        bf16 = median_ms(lambda: paged_flash(q, kb[cyb()], vb[cyb.i], pos, table))
+        plain = median_ms(lambda: paged_flash_plain(q, kp[cyc()], vp[cyc.i], pos, table,
+                                                    ksp[cyc.i], vsp[cyc.i]), iters=10)
+        lib = median_ms(lambda: sdpa_int8(
+            q, gather_pages(kp[cyc()], table), gather_pages(vp[cyc.i], table),
+            gather_pages(ksp[cyc.i], table), gather_pages(vsp[cyc.i], table), pos), iters=10)
+        keys = sum(p + 1 for p in last)
+        seen = sum(p - S + 2 + i for p in last for i in range(S)) * H
+        b, by = attn_bound(B * S, H, KVH, D, keys, seen, extra_bytes=4 * table.numel())
+        log(f"paged_flash_int8 B={B} S={S} D={D} P={SERVE_PAGE} p~250: {ms:.4f} ms  (bf16 "
+            f"kernel {bf16:.4f})  plain {plain:.4f}  library {lib:.4f} (gather + dequant + "
+            f"SDPA)  bound {b:.5f} ({by})")
+        for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib), ("bound_ms", b)):
+            agg[key] += n * val
+        del kp, vp, kb, vb
+    return agg
+
+
+def count_launches(path, run):
+    """Set every kernel's launch count to 0, call run(), read the counts, and
+    check that exactly the kernels of `path` launched."""
     wrappers = kernel_wrappers()
     for w in wrappers.values():
         w.launches = 0
-    runs = [eng.generate(PROMPT) for _ in range(3)]
+    out = run()
     launches = {name: w.launches for name, w in wrappers.items()}
+    log(f"launches in {path}: {launches}")
+    launched = {name for name, n in launches.items() if n}
+    assert launched == PATH_KERNELS[path], (path, "launched", launched,
+                                            "expected", PATH_KERNELS[path])
+    return out, launches
+
+
+def phase_end_to_end(dev, profile, cfg, path, label):
+    """Phases 3 and 4: Engine.generate at B=1, warm-up then three timed
+    runs, against a baseline and a self-drafted run."""
+    from llm_inference_lab_tpu_torch.config import EngineConfig
+    from llm_inference_lab_tpu_torch.core.engine import Engine
+
+    cfg = EngineConfig(**cfg)
+    t0 = time.perf_counter()
+    eng = Engine(cfg, device=dev)
+    torch.cuda.synchronize()
+    log(f"engine init (random {cfg.quantization} weights on the card): "
+        f"{time.perf_counter() - t0:.1f} s")
+    eng.generate(PROMPT)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    runs, launches = count_launches(path, lambda: [eng.generate(PROMPT) for _ in range(3)])
     peak_mb = torch.cuda.max_memory_allocated() / 1e6
-    log(f"launches in the 3 timed runs: {launches}")
-    for name, n in launches.items():
-        # The contiguous B=1 path has no page pool; its prefill runs E.
-        assert n > 0 or name == "paged_flash", f"{name} never launched on the main path"
     ids = runs[0]["generated_ids"]
     assert all(r["generated_ids"] == ids for r in runs), "repeated runs differ"
     for r in runs:
@@ -485,59 +844,95 @@ def phase_end_to_end(dev, profile):
     assert same["accepted"] > 0, "the self-drafted run accepted no draft"
     log(f"self-drafted 3B (target weights as draft): acceptance {same['acceptance_rate']:.4f}, "
         f"steps {same['steps']}, {same['tokens_per_sec']:.2f} tok/s; ids == baseline ids")
+
     def timing(rs):
         tps = statistics.median(r["tokens_per_sec"] for r in rs)
         step_ms = statistics.median(r["generation_time_ms"] / r["steps"] for r in rs)
         return (f"median {tps:.2f} tok/s, {step_ms:.3f} ms/step, "
                 f"runs tok/s {[round(r['tokens_per_sec'], 2) for r in rs]}")
 
-    log(f"end to end (3B int4 + 1B draft, K=1, B=1, 64 new tokens): {timing(runs)}, "
+    log(f"end to end ({label}, B=1, 64 new tokens): {timing(runs)}, "
         f"steps {runs[0]['steps']}, acceptance {runs[0]['acceptance_rate']:.4f}, "
         f"generated {runs[0]['generated_tokens']}, peak memory {peak_mb:.1f} MB; "
         f"baseline (3B alone): {timing(bases)}, steps {bases[0]['steps']}; "
         f"spec ids == baseline ids")
     if profile:
-        profile_run("generate", lambda: eng.generate(PROMPT),
+        profile_run(f"generate ({label})", lambda: eng.generate(PROMPT),
                     statistics.median(r["latency_ms"] for r in runs))
     return eng, launches
 
 
+def phase_kv_alignment(eng):
+    """kv_alignment_report on the final state of one generate: the committed
+    rows of the target cache against a fresh prefill of the committed
+    tokens, dequantized, each element's difference relative to
+    max(|fresh|, 1). The live rows come from forwards of 160 and 5 rows,
+    the fresh ones from one of 256, and torch's mean in rms_norm can round
+    a row differently with the number of rows: that moves bf16 values by a
+    bf16 step, about one int8 step of their row (amax/128 against
+    amax/127), and the int8 rounding adds up to one more (1.87 steps at one
+    position on an H100 80GB HBM3 with these settings;
+    tests/torch_kv_align_probe.py finds the row and the op). So the
+    tolerance is KV_ALIGN_STEPS steps of the largest committed row scale; a
+    stale, misplaced or unquantized row is off by O(1) of its values."""
+    from llm_inference_lab_tpu_torch.core.kv_verify import kv_alignment_report
+
+    state, plens, _, _ = eng.decode([PROMPT])
+    cache, n = state.target_cache, int(state.lengths[0]) - 1
+    step = max(float(sc[:, :, :, :n].max()) for sc in (cache.k_scale, cache.v_scale))
+    tol = KV_ALIGN_STEPS * step
+    rep = kv_alignment_report(eng.target, state, atol=tol, rtol=tol)
+    log(f"kv_alignment_report (int8 cache, {rep['committed_rows']} committed rows, largest "
+        f"row scale {step:.4f}, tolerance {KV_ALIGN_STEPS} steps = {tol:.4f}): {rep}; "
+        f"largest difference {max(rep['max_rel_diff_k'], rep['max_rel_diff_v']) / step:.2f} "
+        f"steps")
+    assert rep["aligned"] and rep["committed_rows"] > int(plens[0]), rep
+    return rep
+
+
 def kernel_wrappers():
-    from llm_inference_lab_tpu_torch.ops.flash_decode import flash_decode
-    from llm_inference_lab_tpu_torch.ops.flash_prefill import flash_prefill
-    from llm_inference_lab_tpu_torch.ops.paged_flash import paged_flash
-    from llm_inference_lab_tpu_torch.ops.quant_matmul import quant_matmul
+    from llm_inference_lab_tpu_torch.ops.flash_decode import flash_decode, flash_decode_int8
+    from llm_inference_lab_tpu_torch.ops.flash_prefill import flash_prefill, flash_prefill_int8
+    from llm_inference_lab_tpu_torch.ops.paged_flash import paged_flash, paged_flash_int8
+    from llm_inference_lab_tpu_torch.ops.quant_matmul import quant_matmul, quant_matmul_int8
     from llm_inference_lab_tpu_torch.ops.verify import verify_prefix
 
-    return {"quant_matmul_int4": quant_matmul, "flash_decode": flash_decode,
-            "flash_prefill": flash_prefill, "paged_flash": paged_flash,
+    return {"quant_matmul_int4": quant_matmul, "quant_matmul_int8": quant_matmul_int8,
+            "flash_decode": flash_decode, "flash_decode_int8": flash_decode_int8,
+            "flash_prefill": flash_prefill, "flash_prefill_int8": flash_prefill_int8,
+            "paged_flash": paged_flash, "paged_flash_int8": paged_flash_int8,
             "verify_prefix": verify_prefix}
 
 
 def row_stability(eng, dev):
-    """Each dense op of a forward on 16 rows, computed one row at a time
-    (M = 1) and together as the first M = 2, 8, 16 rows (B=1 generate runs
-    M = 1 and 2, the 8-slot batcher 8 and 16): for each M, how many rows
-    differ in any bit from the row alone. The attention kernels' rows are
+    """Each dense op of a forward on 40 random rows, computed one row at a
+    time (M = 1) and together as the first M = 2, 5, 8, 16, 40 rows (B=1
+    generate runs M = 1, 2 at K=1 and 1, 5 at K=4; the 8-slot batcher 8, 16
+    or 8, 40): for each M, how many rows differ in any bit from the row
+    alone. Random rows can miss a rounding that a real row shows
+    (tests/torch_kv_align_probe.py). The attention kernels' rows are
     checked in their phases."""
     from llm_inference_lab_tpu_torch.models.transformer import lm_head_logits, rms_norm
-    from llm_inference_lab_tpu_torch.ops.quant_matmul import quant_matmul
+    from llm_inference_lab_tpu_torch.ops.quant import dense
 
     cfg, params = eng.target.config, eng.target.params
     g = torch.Generator(device=dev).manual_seed(6)
-    x = torch.randn((16, cfg.d_model), generator=g, device=dev).bfloat16()
+    x = torch.randn((40, cfg.d_model), generator=g, device=dev).bfloat16()
     w = params["layers"]["w_qkv"].layer(0)
+    kernel = "quant_matmul_int4 (kernel A)" if w.bits == 4 else "quant_matmul_int8 (kernel B)"
+    head = ("tied int8 head (cast + torch.matmul)" if cfg.tie_word_embeddings
+            and not isinstance(params["embed"], torch.Tensor) else "tied bf16 head (torch.matmul)")
     ops = {
         "rms_norm (torch mean over d_model)":
             lambda a: rms_norm(a, params["layers"]["attn_norm_scale"][0], cfg.rms_norm_eps),
-        "tied int8 head (cast + torch.matmul)": lambda a: lm_head_logits(cfg, params, a),
-        "quant_matmul_int4 (kernel A)": lambda a: quant_matmul(a, w.data, w.scale),
+        head: lambda a: lm_head_logits(cfg, params, a),
+        kernel: lambda a: dense(a, w),
     }
     out = {}
     for name, fn in ops.items():
-        alone = torch.cat([fn(x[i:i + 1].contiguous()) for i in range(16)])
+        alone = torch.cat([fn(x[i:i + 1].contiguous()) for i in range(40)])
         out[name] = {M: int((fn(x[:M].contiguous()) != alone[:M]).any(-1).sum())
-                     for M in (2, 8, 16)}
+                     for M in (2, 5, 8, 16, 40)}
     return out
 
 
@@ -549,7 +944,7 @@ def near_tie(eng, dev, prompt, ids_a, ids_b):
     j = next(i for i, (a, b) in enumerate(zip(ids_a, ids_b)) if a != b)
     ctx = eng.tokenizer.encode(prompt) + ids_a[:j]
     n = len(ctx)
-    cache = eng.target.init_cache(1, -(-n // 32) * 32, dev)
+    cache = eng.target.init_cache(1, -(-n // 32) * 32, dev, dtype=eng.kv_dtype)
     logits, _ = eng.target.forward(
         torch.tensor([ctx], device=dev, dtype=torch.int32),
         torch.arange(n, device=dev, dtype=torch.int32)[None],
@@ -561,14 +956,14 @@ def near_tie(eng, dev, prompt, ids_a, ids_b):
                 gap=v1 - v2, gap_ulps=(v1 - v2) / ulp)
 
 
-def phase_serving(dev, eng, profile):
-    """Phase 3b: the paged serving path at full width, on phase 3's weights."""
+def phase_serving(dev, eng, profile, max_len, path, label):
+    """Phases 3b and 5: the paged serving path at full width, on the B=1
+    phase's weights and engine settings, lanes of max_len."""
     from llm_inference_lab_tpu_torch.core.batching import ContinuousBatcher
     from llm_inference_lab_tpu_torch.core.engine import Engine
 
     def batcher(layout):
-        cfg = replace(eng.config, max_seq_len=SERVE_MAX_LEN, kv_layout=layout,
-                      kv_page_size=SERVE_PAGE)
+        cfg = replace(eng.config, max_seq_len=max_len, kv_layout=layout, kv_page_size=SERVE_PAGE)
         b = ContinuousBatcher(Engine(cfg, device=dev, target_params=eng.target.params,
                                      draft_params=eng.draft.params), n_slots=SERVE_SLOTS)
         for prompt, budget in zip(SERVE_PROMPTS, SERVE_BUDGETS):
@@ -580,36 +975,29 @@ def phase_serving(dev, eng, profile):
     paged = batcher("paged")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    wrappers = kernel_wrappers()
-    for w in wrappers.values():
-        w.launches = 0
-    results = paged.run()
-    launches = {name: w.launches for name, w in wrappers.items()}
+    results, launches = count_launches(path, paged.run)
     peak_mb = torch.cuda.max_memory_allocated() / 1e6
     st = paged.stats.report()
-    log(f"launches in the serving run: {launches}")
-    for name, n in launches.items():
-        # Paged serving decodes through F; D serves the contiguous layout.
-        assert n > 0 or name == "flash_decode", f"{name} never launched while serving"
     assert len(results) == len(SERVE_PROMPTS) == st["retired"], "not every request retired"
     for r in results:
         lp = torch.tensor(r["token_logprobs"] + r["prompt_logprobs"][1:])
         assert r["generated_tokens"] >= 1 and torch.isfinite(lp).all(), ("bad result", r["req_id"])
     assert [r["generated_ids"] for r in results] == [r["generated_ids"] for r in contiguous], \
         "paged and contiguous batchers differ"
-    log(f"serving (3B int4 + 1B draft, K=1, paged KV page {SERVE_PAGE}, {SERVE_SLOTS} slots, "
-        f"max_seq_len {SERVE_MAX_LEN}): {len(results)} requests, {st['committed_tokens']} "
+    log(f"serving ({label}, paged KV page {SERVE_PAGE}, {SERVE_SLOTS} slots, "
+        f"max_seq_len {max_len}): {len(results)} requests, {st['committed_tokens']} "
         f"generated tokens in {st['wall_s']:.3f} s = {st['tok_s']:.2f} tok/s aggregate; "
         f"{st['steps']} steps, {st['admit_waves']} admission waves, mean occupied slots "
         f"{st['mean_occupied_slots']:.2f}, peak memory {peak_mb:.1f} MB; "
         f"ids == contiguous-layout batcher ids")
-    # Each request against phase 3's B=1 Engine.generate (contiguous, 64 new
-    # tokens) on its prompt.
+    # Each request against the B=1 phase's Engine.generate (contiguous, 64
+    # new tokens) on its prompt.
     reference = {p: eng.generate(p)["generated_ids"] for p in dict.fromkeys(SERVE_PROMPTS)}
     stability = row_stability(eng, dev)
-    log("row stability (rows of M that differ from the row alone, M = 2/8/16): "
-        + "; ".join(f"{op}: {d[2]}/{d[8]}/{d[16]}" for op, d in stability.items()))
-    unstable = [op for op, d in stability.items() if d[8] or d[16]]
+    log("row stability (rows of M that differ from the row alone, M = 2/5/8/16/40): "
+        + "; ".join(f"{op}: {'/'.join(str(d[m]) for m in sorted(d))}"
+                    for op, d in stability.items()))
+    unstable = [op for op, d in stability.items() if any(d.values())]
     differ = 0
     for r, prompt in zip(results, SERVE_PROMPTS):
         ref = reference[prompt][: len(r["generated_ids"])]
@@ -618,12 +1006,12 @@ def phase_serving(dev, eng, profile):
         differ += 1
         tie = near_tie(eng, dev, prompt, ref, r["generated_ids"])
         log(f"request {r['req_id']} differs from generate: {tie}; ops that round rows "
-            f"differently at the batcher's M: {unstable}")
+            f"differently at another M: {unstable}")
         assert tie["gap_ulps"] <= 2 and unstable, ("not a near tie at a named op", tie)
     log(f"serving ids == the start of B=1 generate ids for {len(results) - differ} of "
         f"{len(results)} requests (the rest near ties)")
     if profile:
-        profile_run("serving run", lambda: batcher("paged").run(), st["wall_s"] * 1e3)
+        profile_run(f"serving run ({label})", lambda: batcher("paged").run(), st["wall_s"] * 1e3)
     return launches
 
 
@@ -683,38 +1071,75 @@ def main(argv):
     reports = build.build_all()
     log(f"build: {len(reports)} kernel libraries in {time.perf_counter() - t0:.1f} s")
     for name, out in reports.items():
+        entry = ""
         for line in out.splitlines():
+            if "Compiling entry function" in line:  # the mangled name carries D and the type
+                entry = line.split("'")[1][:72] if "'" in line else line.strip()
             if "Used" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+                log(f"  ptxas {name} {entry}: {line.strip()}")
 
     step = "one K=1 decode step (all of its calls at the B=1 main path's shapes)"
-    kernels = {
-        "quant_matmul_int4": (phase_quant_matmul(dev), "ops/pallas/quant_matmul.py:76", step),
-        "flash_decode": (phase_flash_decode(dev), "ops/pallas/flash_decode.py:146", step),
-        "flash_prefill": (phase_flash_prefill(dev), "ops/pallas/flash_prefill.py:86",
-                          "one admission wave (G=4 prompts of P=256, both models' layers)"),
-        "paged_flash": (phase_paged_flash(dev), "ops/pallas/paged_flash.py:82",
-                        "one K=1 decode step of the 8-slot serving batch (both models' layers)"),
-        "verify_prefix": (phase_verify_prefix(dev), "ops/pallas/verify_pallas.py:46", step),
-    }
+    step8 = "one K=4 decode step of the int8 B=1 path (4 x 16 draft layers, 28 verify layers)"
+    wave = "one admission wave (G=4 prompts of P=256, both models' layers)"
+    # name: (numbers, csrc file, the Pallas kernel it replaces, unit of work)
     t0 = time.perf_counter()
-    eng, on_generate = phase_end_to_end(dev, "--profile" in argv)
+    kernels = {
+        "quant_matmul_int4": (phase_quant_matmul(dev), "quant_matmul_int4",
+                              "ops/pallas/quant_matmul.py:76", step),
+        "flash_decode": (phase_flash_decode(dev), "flash_decode", "ops/pallas/flash_decode.py:146",
+                         step),
+        "flash_prefill": (phase_flash_prefill(dev), "flash_prefill",
+                          "ops/pallas/flash_prefill.py:86", wave),
+        "paged_flash": (phase_paged_flash(dev), "paged_flash", "ops/pallas/paged_flash.py:82",
+                        "one K=1 decode step of the 8-slot serving batch (both models' layers)"),
+        "verify_prefix": (phase_verify_prefix(dev), "verify_prefix",
+                          "ops/pallas/verify_pallas.py:46", step),
+        "quant_matmul_int8": (phase_quant_matmul_int8(dev), "quant_matmul_int8",
+                              "ops/pallas/quant_matmul.py:58", step8),
+        "flash_decode_int8": (phase_flash_decode_int8(dev), "flash_decode",
+                              "ops/pallas/flash_decode.py:203", step8),
+        "flash_prefill_int8": (phase_flash_prefill_int8(dev), "flash_prefill",
+                               "ops/pallas/flash_prefill.py:142", wave + ", int8 scratch"),
+        "paged_flash_int8": (phase_paged_flash_int8(dev), "paged_flash",
+                             "ops/pallas/paged_flash.py:171",
+                             "one K=4 decode step of the 8-slot int8 serving batch"),
+    }
+    log(f"phase 2 took {time.perf_counter() - t0:.1f} s")
+    profile = "--profile" in argv
+    paths = list(PATH_KERNELS)
+    on_path = {}
+    t0 = time.perf_counter()
+    eng, on_path[paths[0]] = phase_end_to_end(
+        dev, profile, dict(base_model="llama-3.2-3b", draft_model="llama-3.2-1b", max_draft=1,
+                           max_new_tokens=64, max_seq_len=512, quantization="int4",
+                           quantized_init=True, quantize_embed=True, seed=0),
+        paths[0], "3B int4 + 1B draft, K=1")
     log(f"phase 3 took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    on_serving = phase_serving(dev, eng, "--profile" in argv)
+    on_path[paths[1]] = phase_serving(dev, eng, profile, SERVE_MAX_LEN, paths[1],
+                                      "3B int4 + 1B draft, K=1")
     log(f"phase 3b took {time.perf_counter() - t0:.1f} s")
+    del eng
+    t0 = time.perf_counter()
+    eng, on_path[paths[2]] = phase_end_to_end(dev, profile, INT8_CFG, paths[2],
+                                              "3B int8 + 1B draft, K=4, int8 KV")
+    phase_kv_alignment(eng)
+    log(f"phase 4 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    on_path[paths[3]] = phase_serving(dev, eng, profile, INT8_MAX_LEN, paths[3],
+                                      "3B int8 + 1B draft, K=4, int8 KV")
+    log(f"phase 5 took {time.perf_counter() - t0:.1f} s")
 
     line = {"kernels": [
         {"name": name, "route": "cuda",
-         "source": f"llm_inference_lab_tpu_torch/csrc/{name}.cu",
+         "source": f"llm_inference_lab_tpu_torch/csrc/{src}.cu",
          "replaces": f"llm_inference_lab_tpu/{where}",
-         "launches": on_generate[name] + on_serving[name],
-         "launches_by_path": {"generate (3 runs)": on_generate[name],
-                              "serving (16 requests)": on_serving[name]},
+         "launches": sum(n[name] for n in on_path.values()),
+         "launches_by_path": {path: n[name] for path, n in on_path.items()},
          "max_abs_err": agg["max_abs_err"],
          "ms": agg["ms"], "plain_ms": agg["plain_ms"], "bound_ms": agg["bound_ms"],
          "bound_by": agg["bound_by"], "library_ms": agg["library_ms"], "per": per}
-        for name, (agg, where, per) in kernels.items()]}
+        for name, (agg, src, where, per) in kernels.items()]}
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

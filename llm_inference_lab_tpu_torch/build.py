@@ -25,7 +25,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
-SOURCES = ("quant_matmul_int4", "flash_decode", "flash_prefill", "paged_flash", "verify_prefix")
+SOURCES = ("quant_matmul_int4", "quant_matmul_int8", "flash_decode", "flash_prefill",
+           "paged_flash", "verify_prefix")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -33,33 +34,43 @@ NVCC_FLAGS = [
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+LL = ctypes.c_longlong
+F = ctypes.c_float
 # C signatures: every entry returns the cudaError_t of its launches as int.
 SIGNATURES = {
     "quant_matmul_int4": {
         # x, w, scale, workspace, out, M, K, N, ksplit, stream
         "qmm_int4": [P, P, P, P, P, I, I, I, I, P],
     },
+    "quant_matmul_int8": {
+        # the arguments of qmm_int4, w int8 [K, N]
+        "qmm_int8": [P, P, P, P, P, I, I, I, I, P],
+    },
     "flash_decode": {
         # q, k, v, positions, out, B, S, H, KVH, T, D, stride_kb, stride_kh,
         # scale, stream
-        "flash_decode_bf16": [P, P, P, P, P, I, I, I, I, I, I, ctypes.c_longlong,
-                              ctypes.c_longlong, ctypes.c_float, P],
+        "flash_decode_bf16": [P, P, P, P, P, I, I, I, I, I, I, LL, LL, F, P],
+        # q, k, v, k_scale, v_scale, positions, out, B, S, H, KVH, T, D,
+        # stride_kb, stride_kh, stride_sb, stride_sh, scale, stream
+        "flash_decode_int8": [P, P, P, P, P, P, P, I, I, I, I, I, I, LL, LL, LL, LL, F, P],
     },
     "flash_prefill": {
         # the arguments of flash_decode_bf16
-        "flash_prefill_bf16": [P, P, P, P, P, I, I, I, I, I, I, ctypes.c_longlong,
-                               ctypes.c_longlong, ctypes.c_float, P],
+        "flash_prefill_bf16": [P, P, P, P, P, I, I, I, I, I, I, LL, LL, F, P],
+        # the arguments of flash_decode_int8
+        "flash_prefill_int8": [P, P, P, P, P, P, P, I, I, I, I, I, I, LL, LL, LL, LL, F, P],
     },
     "paged_flash": {
         # q, k_pool, v_pool, table, positions, out, B, S, H, KVH, M, P, D,
         # stride_page, scale, stream
-        "paged_flash_bf16": [P, P, P, P, P, P, I, I, I, I, I, I, I, ctypes.c_longlong,
-                             ctypes.c_float, P],
+        "paged_flash_bf16": [P, P, P, P, P, P, I, I, I, I, I, I, I, LL, F, P],
+        # q, k_pool, v_pool, k_scale, v_scale, table, positions, out, B, S, H,
+        # KVH, M, P, D, stride_page, stride_spage, scale, stream
+        "paged_flash_int8": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, LL, LL, F, P],
     },
     "verify_prefix": {
         # draft, logits, arg_ws, mask, accept_len, B, K, V, row_stride, batch_stride, stream
-        "verify_prefix_f32": [P, P, P, P, P, I, I, I, ctypes.c_longlong,
-                              ctypes.c_longlong, P],
+        "verify_prefix_f32": [P, P, P, P, P, I, I, I, LL, LL, P],
     },
 }
 

@@ -2,7 +2,8 @@
 EngineConfig that the ported slice reads.
 
 The slice is vanilla drafting at a fixed K, greedy longest_prefix
-acceptance, weight-only int4/int8 and a bf16 KV cache, contiguous or paged;
+acceptance, weight-only int4/int8 and a bf16 or int8 KV cache (per-row
+scales), contiguous or paged;
 a field of the JAX config with a single ported value has no field here until
 a later slice ports a second value for it. So ``prefix_caching`` (off),
 ``admit_chunk`` (one-shot admission) and ``kv_lazy_pages`` (eager page
@@ -34,6 +35,9 @@ class EngineConfig:
     kv_layout: str = "contiguous"
     kv_page_size: int = 64
     kv_pages: Optional[int] = None  # pool size; None = slots * pages per sequence + 1
+    # KV cache element type: None (the model dtype) or "int8" (symmetric
+    # per-row scales, quantized as each row is written).
+    kv_quantization: Optional[str] = None  # None | "int8"
 
     def validate(self) -> None:
         """Reject settings outside the ported slice instead of ignoring them."""
@@ -43,6 +47,8 @@ class EngineConfig:
             raise NotImplementedError("int4 embedding (EmbedQuant4) is not ported yet")
         if self.quantization not in (None, "int8", "int4"):
             raise ValueError(f"unknown quantization {self.quantization!r}")
+        if self.kv_quantization not in (None, "int8"):
+            raise ValueError(f"unknown kv_quantization {self.kv_quantization!r}")
         if self.kv_layout not in ("contiguous", "paged"):
             raise ValueError(f"unknown kv_layout {self.kv_layout!r}")
         if self.kv_layout == "paged" and (self.kv_page_size <= 0 or 128 % self.kv_page_size):

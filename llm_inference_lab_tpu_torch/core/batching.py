@@ -10,8 +10,9 @@ and its slot is refilled from the queue:
     results = batcher.run()          # drain everything, ordered by req_id
 
 Admission prefills a whole wave at once: one [G, P] forward per model into
-a [L, G, KVH, P, D] scratch cache, spliced into the slots' cache lanes
-(contiguous) or their pages (paged, ``kv_layout="paged"``). With pages,
+a [L, G, KVH, P, D] scratch cache of the slots' KV type (int8 with its
+scales under ``kv_quantization="int8"``), spliced into the slots' cache
+lanes (contiguous) or their pages (paged, ``kv_layout="paged"``). With pages,
 admission is memory-aware: a request waits until the allocator can reserve
 pages for its prompt, its budget and the step's K+2 scratch rows, all up
 front (the JAX package's ``kv_lazy_pages=False``).
@@ -82,7 +83,10 @@ class BatcherStats:
 
 def make_admit_many(target_model: Model, draft_model: Optional[Model]):
     """G-slot admission: ONE [G, P] prefill forward per model into a
-    [L, G, KVH, P, D] scratch cache, then a splice into the G slots.
+    [L, G, KVH, P, D] scratch cache, then a splice into the G slots. The
+    scratch has the slots' KV dtype, so an int8 cache's admitted rows are
+    quantized per row from the same forward rows as Engine.generate's, and
+    the splice carries their scales with them.
 
     admit(state, rows [G, P], prompt_lens [G], slots [G], max_news [G],
           table_rows [G, M] or None) -> state, all int32 on the device.
@@ -98,17 +102,20 @@ def make_admit_many(target_model: Model, draft_model: Optional[Model]):
 
     def splice(cache, sub, slots: torch.Tensor, table_rows: Optional[torch.Tensor]) -> None:
         G, P = sub.k.shape[1], sub.k.shape[3]
+        pairs = [(sub.k, cache.k), (sub.v, cache.v)]
+        if cache.k_scale is not None:  # int8: the scale rows travel with the values
+            pairs += [(sub.k_scale, cache.k_scale), (sub.v_scale, cache.v_scale)]
         if isinstance(cache, PagedKVCache):
             pg = cache.page_size
-            L, _, KVH, _, D = sub.k.shape
             pids = table_rows[:, : P // pg].long()  # [G, J]
-            for src, dst in ((sub.k, cache.k), (sub.v, cache.v)):
-                # [L, G, KVH, J*pg, D] -> [L, G, J, KVH, pg, D], page-major
-                dst[:, pids] = src.reshape(L, G, KVH, P // pg, pg, D).transpose(2, 3)
+            for src, dst in pairs:
+                # [L, G, KVH, J*pg(, D)] -> [L, G, J, KVH, pg(, D)], page-major
+                L, _, KVH = src.shape[:3]
+                dst[:, pids] = src.reshape(L, G, KVH, P // pg, pg, *src.shape[4:]).transpose(2, 3)
             cache.table[slots] = table_rows
         else:
-            cache.k[:, slots, :, :P] = sub.k
-            cache.v[:, slots, :, :P] = sub.v
+            for src, dst in pairs:
+                dst[:, slots, :, :P] = src
 
     def admit(state: DecodeState, rows: torch.Tensor, prompt_lens: torch.Tensor,
               slots: torch.Tensor, max_news: torch.Tensor,
@@ -120,7 +127,7 @@ def make_admit_many(target_model: Model, draft_model: Optional[Model]):
         slots_l = slots.long()
 
         def prefill(model: Model, cache):
-            scratch = model.init_cache(G, P, dev)
+            scratch = model.init_cache(G, P, dev, dtype=cache.k.dtype)
             logits, _ = model.forward(rows, positions, scratch, zeros)
             splice(cache, scratch, slots_l, table_rows)
             return logits
@@ -180,7 +187,8 @@ class ContinuousBatcher:
                             table=torch.zeros((n_slots, self._pages_per_seq), dtype=torch.int32))
         with torch.inference_mode():
             self.state = init_state(engine.target, engine.draft, n_slots, self.max_seq_len,
-                                    engine.device, max_new_tokens=cfg.max_new_tokens, **paged_kw)
+                                    engine.device, max_new_tokens=cfg.max_new_tokens,
+                                    kv_dtype=engine.kv_dtype, **paged_kw)
 
     def submit(self, prompt: str, max_new_tokens: Optional[int] = None) -> int:
         """Queue a prompt; returns its req_id."""

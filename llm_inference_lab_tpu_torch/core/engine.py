@@ -4,11 +4,13 @@ Port of llm_inference_lab_tpu/core/engine.py (``Engine.generate`` /
 ``generate_batch`` and ``_build_results``) for the ported slice: Llama
 target and draft, vanilla drafting at a fixed K, greedy longest_prefix
 acceptance, weight-only int4/int8 with an optional int8 embedding/tied head,
-a contiguous or paged KV cache (``kv_layout``). Prompt bucketing, the
+a contiguous or paged KV cache (``kv_layout``) of the model dtype or int8
+(``kv_quantization``). Prompt bucketing, the
 out-of-vocab clamp and the result keys follow the JAX engine. The serving
 path (core/batching.py ContinuousBatcher) drives the same step and reads
 ``encode``, ``is_spec``, ``_max_k``, ``eos_token_id`` and ``_step`` from
-here.
+here, and ``decode`` hands the final state (committed tokens and caches)
+to a caller such as core/kv_verify.py.
 
 The device defaults to "cuda"; asking for it on a machine without CUDA
 raises (pass device="cpu" for the plain PyTorch versions of every op).
@@ -18,7 +20,7 @@ from __future__ import annotations
 
 import resource
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -71,6 +73,9 @@ class Engine:
         self.tokenizer = ByteTokenizer()
         self.eos_token_id = (cfg.eos_token_id if cfg.eos_token_id is not None
                              else self.tokenizer.eos_token_id)
+        # The KV element type both caches use (JAX engine.py reads
+        # kv_quantization the same way): None keeps the model dtype.
+        self.kv_dtype = torch.int8 if cfg.kv_quantization == "int8" else None
         self.is_spec = self.draft is not None
         self._max_k = cfg.max_draft
         if self.is_spec:
@@ -92,8 +97,13 @@ class Engine:
         ids = self.tokenizer.encode(prompt)[: max_seq_len - max_new - self._max_k - 2]
         return [min(max(t, 0), vocab - 1) for t in ids]
 
-    @torch.inference_mode()
     def generate_batch(self, prompts: List[str]) -> List[Dict[str, Any]]:
+        return self._build_results(*self.decode(prompts))
+
+    @torch.inference_mode()
+    def decode(self, prompts: List[str]) -> Tuple[DecodeState, np.ndarray, float, float]:
+        """Prefill the prompts and decode them to the end. Returns the final
+        state, the prompt lengths, and the decode and total wall seconds."""
         cfg = self.config
         max_new = cfg.max_new_tokens
         B = len(prompts)
@@ -108,7 +118,8 @@ class Engine:
         dev = self.device
         t_start = time.perf_counter()
         state = init_state(self.target, self.draft, B, max_len, dev, max_new_tokens=max_new,
-                           paged=cfg.kv_layout == "paged", page_size=cfg.kv_page_size)
+                           paged=cfg.kv_layout == "paged", page_size=cfg.kv_page_size,
+                           kv_dtype=self.kv_dtype)
         state = self._prefill(state, torch.from_numpy(block).to(dev),
                               torch.from_numpy(plens).to(dev))
         self._sync()
@@ -120,7 +131,7 @@ class Engine:
         self._sync()
         decode_s = time.perf_counter() - t_decode
         total_s = time.perf_counter() - t_start
-        return self._build_results(state, plens, decode_s, total_s)
+        return state, plens, decode_s, total_s
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -175,6 +186,7 @@ class Engine:
                 "device": str(self.device),
                 "dtype": cfg.dtype,
                 "quantization": cfg.quantization,
+                "kv_quantization": cfg.kv_quantization,
                 "base_model": cfg.base_model,
                 "draft_model": cfg.draft_model,
                 "draft_mode": "vanilla",

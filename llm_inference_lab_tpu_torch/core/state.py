@@ -45,13 +45,16 @@ class DecodeState:
 def init_state(target_model: Model, draft_model: Optional[Model], batch_size: int,
                max_seq_len: int, device, max_new_tokens: int = 64, paged: bool = False,
                page_size: int = 64, n_pages: Optional[int] = None,
-               table: Optional[torch.Tensor] = None) -> DecodeState:
+               table: Optional[torch.Tensor] = None,
+               kv_dtype: Optional[torch.dtype] = None) -> DecodeState:
     """paged=True gives both models a PagedKVCache: n_pages pages of
     page_size rows (default batch_size * max_pages) and, unless a table is
     given, the default table that gives slot b the pages [b*m, (b+1)*m).
-    Each cache keeps its own copy of a given table."""
+    Each cache keeps its own copy of a given table. kv_dtype torch.int8
+    makes both caches (or pools) int8 with per-row scales; None keeps the
+    models' dtype."""
     B = batch_size
-    kv_kw = dict(paged=paged, page_size=page_size, n_pages=n_pages, table=table)
+    kv_kw = dict(paged=paged, page_size=page_size, n_pages=n_pages, table=table, dtype=kv_dtype)
 
     def zeros_i32(*shape):
         return torch.zeros(shape, dtype=torch.int32, device=device)

@@ -4,7 +4,9 @@
 //
 // Replaces the tile body the three Pallas kernels share:
 // llm_inference_lab_tpu/ops/pallas/flash_decode.py _accum_tile / _finalize
-// (bf16 chain mask kv_pos <= p, scale D**-0.5, f32 m / l / accumulator).
+// (chain mask kv_pos <= p, scale D**-0.5, f32 m / l / accumulator), for a
+// bf16 cache and for an int8 cache with per-key f32 scales (the Pallas
+// _kernel_quant variants).
 //
 // A block owns one (b, kv head) and ROWS = 16 * warps query rows, where row
 // r stands for query position s = r / group and head h * group + r % group:
@@ -15,17 +17,25 @@
 // P.V product broadcasts each p_j by shuffle and each lane accumulates D/32
 // output columns.
 //
+// The int8 cache (T = int8_t): the tile holds K and V as int8 (half the
+// shared memory of bf16) and the keys' k and v scales. As in the Pallas
+// body, k's scale multiplies the score column after the D**-0.5 scale
+// (dot(q, k) * scale * ks[j]), the softmax sum l takes the unscaled p_j,
+// and v's scale multiplies p_j before the P.V product (p_j * vs[j]), so the
+// tiles are never dequantized. A key not loaded has zero bytes and zero
+// scales.
+//
 // Row independence, on which the engine's parity rests: a row skips every
 // tile that starts after its position, and keys at or past the block's end
 // are loaded as zeros and masked. So a row's bits depend only on its own
-// position, its q and the keys [0, p]: not on S, the other rows of its
-// block, how many rows a block holds, T beyond p, or whether the keys are
-// read from a contiguous plane or through a page table. D, E and F give the
-// same bits for the same keys. The softmax arithmetic is written with
-// explicit rounding intrinsics (__fmul_rn, __fsub_rn, __fmaf_rn), so the
-// compiler cannot contract it differently in the three kernels. A row with
-// no visible key (position -1) returns zeros, as attend_xla does (the
-// Pallas body returns the mean of V).
+// position, its q and the keys [0, p] (and their scales): not on S, the
+// other rows of its block, how many rows a block holds, T beyond p, or
+// whether the keys are read from a contiguous plane or through a page
+// table. D, E and F give the same bits for the same keys. The softmax
+// arithmetic is written with explicit rounding intrinsics (__fmul_rn,
+// __fsub_rn, __fmaf_rn), so the compiler cannot contract it differently in
+// the three kernels. A row with no visible key (position -1) returns zeros,
+// as attend_xla does (the Pallas body returns the mean of V).
 
 #pragma once
 
@@ -33,6 +43,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace attn {
 
@@ -51,47 +63,86 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+template <int D, class T>
+struct Tile;
+
 template <int D>
-struct Tile {
+struct Tile<D, __nv_bfloat16> {
   __nv_bfloat16 k[BT][D + 8];  // padded rows: conflict-free 16-byte reads
   __nv_bfloat16 v[BT][D];
 };
 
-// Keys of one (b, kv head) plane of a contiguous [T, D] cache.
 template <int D>
+struct Tile<D, int8_t> {
+  int8_t k[BT][D + 16];  // padded rows: conflict-free 16-byte reads
+  int8_t v[BT][D];
+  float ks[BT];  // the keys' k and v scales (0 for a key not loaded)
+  float vs[BT];
+};
+
+// Keys of one (b, kv head) plane of a contiguous [T, D] cache; for int8,
+// ks / vs point at the plane's [T] scales (unused for bf16).
+template <int D, class T>
 struct PlaneKeys {
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
+  const T* k;
+  const T* v;
+  const float* ks;
+  const float* vs;
   __device__ __forceinline__ size_t operator()(int key) const { return (size_t)key * D; }
+  __device__ __forceinline__ size_t scale(int key) const { return (size_t)key; }
 };
 
 // Keys of one sequence in a page pool [N, KVH, P, D], k and v already
 // offset to the kv head: key j lives in page table[j / P] at row j % P.
-// The page is looked up per key, so any page size works.
-template <int D>
+// The page is looked up per key, so any page size works. For int8, ks / vs
+// point at the kv head's scales in the [N, KVH, P] scale pools.
+template <int D, class T>
 struct PagedKeys {
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
+  const T* k;
+  const T* v;
+  const float* ks;
+  const float* vs;
   const int* table;  // this sequence's table row
   int P;
   long long stride_page;
+  long long stride_spage;  // page stride of the scale pools
   __device__ __forceinline__ size_t operator()(int key) const {
     return (size_t)table[key / P] * stride_page + (size_t)(key % P) * D;
   }
+  __device__ __forceinline__ size_t scale(int key) const {
+    return (size_t)table[key / P] * stride_spage + (size_t)(key % P);
+  }
 };
+
+// Columns [lane * DPL, lane * DPL + DPL) of an int8 V row, as floats.
+template <int DPL>
+__device__ __forceinline__ void int8_cols(const int8_t* p, float (&f)[DPL]) {
+  if constexpr (DPL == 4) {
+    const char4 c = *reinterpret_cast<const char4*>(p);
+    f[0] = (float)c.x, f[1] = (float)c.y, f[2] = (float)c.z, f[3] = (float)c.w;
+  } else {
+    static_assert(DPL == 2, "head dim 64 or 128");
+    const char2 c = *reinterpret_cast<const char2*>(p);
+    f[0] = (float)c.x, f[1] = (float)c.y;
+  }
+}
 
 // The whole block: q [B, S, H, D] bf16, positions [B, S] int32, out
 // [B, S, H, D] bf16; rows [r0, r0 + ROWS) of sequence b, kv head h; keys
-// [0, T) available. qs: shared memory for ROWS * D bf16 (16-byte aligned).
-template <int D, class Keys>
+// [0, T) available, of element type T_ (bf16, or int8 with scales). qs:
+// shared memory for ROWS * D bf16 (16-byte aligned).
+template <int D, class T_, class Keys>
 __device__ __forceinline__ void attend_rows(const __nv_bfloat16* __restrict__ q,
                                             const int* __restrict__ pos,
                                             __nv_bfloat16* __restrict__ out, const Keys& keys,
                                             int b, int h, int S, int H, int KVH, int r0, int T,
-                                            float scale, __nv_bfloat16* qs, Tile<D>& tile,
+                                            float scale, __nv_bfloat16* qs, Tile<D, T_>& tile,
                                             int& kmax_s) {
+  constexpr bool INT8 = std::is_same<T_, int8_t>::value;
   constexpr int DPL = D / 32;  // output columns per lane
-  constexpr int C8 = D / 8;    // 16-byte chunks per row
+  constexpr int C8 = D / 8;    // 16-byte chunks per q row
+  constexpr int KC = D * (int)sizeof(T_) / 16;  // 16-byte chunks per K / V row
+  constexpr int EPC = 16 / (int)sizeof(T_);     // cache elements per chunk
   const int nthreads = blockDim.x, warps = nthreads / 32, rows = warps * RPW;
   const int group = H / KVH;
   const int nrows = S * group;
@@ -131,16 +182,24 @@ __device__ __forceinline__ void attend_rows(const __nv_bfloat16* __restrict__ q,
   for (int t = 0; t < ntiles; ++t) {
     const int t0 = t * BT;
     __syncthreads();
-    for (int e = threadIdx.x; e < BT * C8; e += nthreads) {
-      const int j = e / C8, c = e % C8, key = t0 + j;
+    for (int e = threadIdx.x; e < BT * KC; e += nthreads) {
+      const int j = e / KC, c = e % KC, key = t0 + j;
       uint4 kv4 = make_uint4(0u, 0u, 0u, 0u), vv4 = kv4;
       if (key < kend) {  // never read past the block's last visible key
-        const size_t off = keys(key) + c * 8;
+        const size_t off = keys(key) + c * EPC;
         kv4 = *reinterpret_cast<const uint4*>(keys.k + off);
         vv4 = *reinterpret_cast<const uint4*>(keys.v + off);
       }
-      *reinterpret_cast<uint4*>(&tile.k[j][c * 8]) = kv4;
-      *reinterpret_cast<uint4*>(&tile.v[j][c * 8]) = vv4;
+      *reinterpret_cast<uint4*>(&tile.k[j][c * EPC]) = kv4;
+      *reinterpret_cast<uint4*>(&tile.v[j][c * EPC]) = vv4;
+    }
+    if constexpr (INT8) {
+      for (int j = threadIdx.x; j < BT; j += nthreads) {
+        const int key = t0 + j;
+        const bool live = key < kend;
+        tile.ks[j] = live ? keys.ks[keys.scale(key)] : 0.f;
+        tile.vs[j] = live ? keys.vs[keys.scale(key)] : 0.f;
+      }
     }
     __syncthreads();
 #pragma unroll
@@ -149,36 +208,75 @@ __device__ __forceinline__ void attend_rows(const __nv_bfloat16* __restrict__ q,
       if (p < t0) continue;  // warp-uniform: nothing visible in this tile
       const __nv_bfloat16* qrow = qs + (size_t)(warp + warps * i) * D;
       float dot = 0.f;
+      if constexpr (INT8) {
 #pragma unroll
-      for (int c = 0; c < C8; ++c) {
-        const uint4 kv4 = *reinterpret_cast<const uint4*>(&tile.k[lane][c * 8]);
-        const uint4 qv4 = *reinterpret_cast<const uint4*>(qrow + c * 8);
-        const __nv_bfloat162* kk = reinterpret_cast<const __nv_bfloat162*>(&kv4);
-        const __nv_bfloat162* qq = reinterpret_cast<const __nv_bfloat162*>(&qv4);
+        for (int c = 0; c < KC; ++c) {  // 16 bytes of k against two q chunks
+          const uint4 kv4 = *reinterpret_cast<const uint4*>(&tile.k[lane][c * 16]);
+          const char4* kk = reinterpret_cast<const char4*>(&kv4);
 #pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const float2 kf = __bfloat1622float2(kk[u]);
-          const float2 qf = __bfloat1622float2(qq[u]);
-          dot = fmaf(qf.x, kf.x, dot);
-          dot = fmaf(qf.y, kf.y, dot);
+          for (int hq = 0; hq < 2; ++hq) {
+            const uint4 qv4 = *reinterpret_cast<const uint4*>(qrow + c * 16 + hq * 8);
+            const __nv_bfloat162* qq = reinterpret_cast<const __nv_bfloat162*>(&qv4);
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              const char4 k4 = kk[2 * hq + u];
+              const float2 q0 = __bfloat1622float2(qq[2 * u]);
+              const float2 q1 = __bfloat1622float2(qq[2 * u + 1]);
+              dot = fmaf(q0.x, (float)k4.x, dot);
+              dot = fmaf(q0.y, (float)k4.y, dot);
+              dot = fmaf(q1.x, (float)k4.z, dot);
+              dot = fmaf(q1.y, (float)k4.w, dot);
+            }
+          }
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < C8; ++c) {
+          const uint4 kv4 = *reinterpret_cast<const uint4*>(&tile.k[lane][c * 8]);
+          const uint4 qv4 = *reinterpret_cast<const uint4*>(qrow + c * 8);
+          const __nv_bfloat162* kk = reinterpret_cast<const __nv_bfloat162*>(&kv4);
+          const __nv_bfloat162* qq = reinterpret_cast<const __nv_bfloat162*>(&qv4);
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const float2 kf = __bfloat1622float2(kk[u]);
+            const float2 qf = __bfloat1622float2(qq[u]);
+            dot = fmaf(qf.x, kf.x, dot);
+            dot = fmaf(qf.y, kf.y, dot);
+          }
         }
       }
-      const float sc = (t0 + lane <= p && t0 + lane < T) ? __fmul_rn(dot, scale) : -INFINITY;
+      float sc = -INFINITY;
+      if (t0 + lane <= p && t0 + lane < T) {
+        sc = __fmul_rn(dot, scale);
+        if constexpr (INT8) sc = __fmul_rn(sc, tile.ks[lane]);
+      }
       const float m_new = fmaxf(m[i], warp_max(sc));  // finite: key t0 is visible
       const float alpha = expf(__fsub_rn(m[i], m_new));
       const float pj = expf(__fsub_rn(sc, m_new));
       l[i] = __fmaf_rn(l[i], alpha, warp_sum(pj));
 #pragma unroll
       for (int d = 0; d < DPL; ++d) acc[i][d] = __fmul_rn(acc[i][d], alpha);
+      if constexpr (INT8) {
+        const float pw = __fmul_rn(pj, tile.vs[lane]);  // l above took the unscaled p_j
 #pragma unroll 8
-      for (int j = 0; j < BT; ++j) {
-        const float pb = __shfl_sync(0xffffffffu, pj, j);
-        const __nv_bfloat162* vr = reinterpret_cast<const __nv_bfloat162*>(&tile.v[j][lane * DPL]);
+        for (int j = 0; j < BT; ++j) {
+          const float pb = __shfl_sync(0xffffffffu, pw, j);
+          float vf[DPL];
+          int8_cols<DPL>(&tile.v[j][lane * DPL], vf);
 #pragma unroll
-        for (int d = 0; d < DPL / 2; ++d) {
-          const float2 vf = __bfloat1622float2(vr[d]);
-          acc[i][2 * d] = fmaf(pb, vf.x, acc[i][2 * d]);
-          acc[i][2 * d + 1] = fmaf(pb, vf.y, acc[i][2 * d + 1]);
+          for (int d = 0; d < DPL; ++d) acc[i][d] = fmaf(pb, vf[d], acc[i][d]);
+        }
+      } else {
+#pragma unroll 8
+        for (int j = 0; j < BT; ++j) {
+          const float pb = __shfl_sync(0xffffffffu, pj, j);
+          const __nv_bfloat162* vr = reinterpret_cast<const __nv_bfloat162*>(&tile.v[j][lane * DPL]);
+#pragma unroll
+          for (int d = 0; d < DPL / 2; ++d) {
+            const float2 vf = __bfloat1622float2(vr[d]);
+            acc[i][2 * d] = fmaf(pb, vf.x, acc[i][2 * d]);
+            acc[i][2 * d + 1] = fmaf(pb, vf.y, acc[i][2 * d + 1]);
+          }
         }
       }
       m[i] = m_new;

@@ -1,17 +1,20 @@
 // Online-softmax GQA attention for prefill-length query blocks over a
-// contiguous bf16 KV cache, for Hopper (kernel E).
+// contiguous bf16 or int8 KV cache, for Hopper (kernel E).
 //
 // Replaces: llm_inference_lab_tpu/ops/pallas/flash_prefill.py
 //           flash_prefill_attention (_body: query-block grid axis, causal
-//           tile skip), bf16 chain-mask variant: mask kv_pos <= p, scale
-//           D**-0.5. The window, softcap, scale-override and int8-cache
-//           variants are not ported yet.
+//           tile skip), chain-mask variants: mask kv_pos <= p, scale
+//           D**-0.5, a bf16 cache (_kernel) and an int8 cache with per-row
+//           scales (_kernel_quant). The window, softcap and scale-override
+//           options are not ported yet.
 //
 // The function of flash_decode.cu, for S > 32: q bf16 [B, S, H, D]; k, v
-// bf16 [B, KVH, T, D] (a layer's view of the stacked cache, through its
-// batch and head strides); positions int32 [B, S], which need not start at
-// 0 (a chunk may resume at any base) and may be -1 (a dead row, zeros out);
-// out bf16 [B, S, H, D].
+// bf16 or int8 [B, KVH, T, D] (a layer's view of the stacked cache, through
+// its batch and head strides), for int8 with k and v scales f32 [B, KVH, T];
+// positions int32 [B, S], which need not start at 0 (a chunk may resume at
+// any base) and may be -1 (a dead row, zeros out); out bf16 [B, S, H, D].
+// An admission wave prefills into an int8 scratch cache through this kernel,
+// so its rows have the same bits as Engine.generate's prompt prefill.
 //
 // What bounds it on the H100: the larger of the bytes (q, out, and K and V
 // up to the largest position) at 3.35 TB/s and the operations (4 * D *
@@ -42,40 +45,63 @@ namespace {
 constexpr int QB = 32;       // query positions per block
 constexpr int MAX_GROUP = 4;  // 2 * group warps of attn::RPW rows each
 
-template <int D>
+template <int D, class T>
 __global__ void __launch_bounds__(2 * MAX_GROUP * 32)
-flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, const int* __restrict__ pos,
-                     __nv_bfloat16* __restrict__ out, int S, int H, int KVH, int T,
-                     long long stride_kb, long long stride_kh, float scale) {
+flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const float* __restrict__ ks,
+                     const float* __restrict__ vs, const int* __restrict__ pos,
+                     __nv_bfloat16* __restrict__ out, int S, int H, int KVH, int Tk,
+                     long long stride_kb, long long stride_kh, long long stride_sb,
+                     long long stride_sh, float scale) {
   extern __shared__ __align__(16) unsigned char qs_raw[];  // [32 * group, D] bf16
-  __shared__ __align__(16) attn::Tile<D> tile;
+  __shared__ __align__(16) attn::Tile<D, T> tile;
   __shared__ int kmax_s;
   const int b = blockIdx.x / KVH, h = blockIdx.x % KVH;
   const int group = H / KVH;
-  const attn::PlaneKeys<D> keys{k + b * stride_kb + h * stride_kh, v + b * stride_kb + h * stride_kh};
-  attn::attend_rows<D>(q, pos, out, keys, b, h, S, H, KVH, blockIdx.y * QB * group, T, scale,
-                       reinterpret_cast<__nv_bfloat16*>(qs_raw), tile, kmax_s);
+  const size_t kv = b * stride_kb + h * stride_kh, sc = b * stride_sb + h * stride_sh;
+  const attn::PlaneKeys<D, T> keys{k + kv, v + kv, ks + sc, vs + sc};
+  attn::attend_rows<D, T>(q, pos, out, keys, b, h, S, H, KVH, blockIdx.y * QB * group, Tk, scale,
+                          reinterpret_cast<__nv_bfloat16*>(qs_raw), tile, kmax_s);
 }
 
-template <int D>
-int launch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v, const int* pos,
-           __nv_bfloat16* out, int B, int S, int H, int KVH, int T, long long stride_kb,
-           long long stride_kh, float scale, cudaStream_t st) {
+template <int D, class T>
+int launch_d(const void* q, const void* k, const void* v, const void* ks, const void* vs,
+             const void* pos, void* out, int B, int S, int H, int KVH, int Tk,
+             long long stride_kb, long long stride_kh, long long stride_sb, long long stride_sh,
+             float scale, cudaStream_t st) {
   const int group = H / KVH;
   const size_t smem = (size_t)QB * group * D * sizeof(__nv_bfloat16);
   // With the static tile, D = 128 at group 4 needs more than the default
   // 48 KB a block may take.
-  if (smem + sizeof(attn::Tile<D>) + sizeof(int) > 48 * 1024) {
+  if (smem + sizeof(attn::Tile<D, T>) + sizeof(int) > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_prefill_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        flash_prefill_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   dim3 grid(B * KVH, (S + QB - 1) / QB);
   dim3 block(2 * group * 32);
-  flash_prefill_kernel<D><<<grid, block, smem, st>>>(q, k, v, pos, out, S, H, KVH, T, stride_kb,
-                                                      stride_kh, scale);
+  flash_prefill_kernel<D, T><<<grid, block, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const float*>(ks), static_cast<const float*>(vs), static_cast<const int*>(pos),
+      static_cast<__nv_bfloat16*>(out), S, H, KVH, Tk, stride_kb, stride_kh, stride_sb,
+      stride_sh, scale);
   return (int)cudaGetLastError();
+}
+
+template <class T>
+int launch(const void* q, const void* k, const void* v, const void* ks, const void* vs,
+           const void* pos, void* out, int B, int S, int H, int KVH, int Tk, int D,
+           long long stride_kb, long long stride_kh, long long stride_sb, long long stride_sh,
+           float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (H % KVH || H / KVH > MAX_GROUP) return (int)cudaErrorInvalidValue;
+  if (D == 128)
+    return launch_d<128, T>(q, k, v, ks, vs, pos, out, B, S, H, KVH, Tk, stride_kb, stride_kh,
+                            stride_sb, stride_sh, scale, st);
+  if (D == 64)
+    return launch_d<64, T>(q, k, v, ks, vs, pos, out, B, S, H, KVH, Tk, stride_kb, stride_kh,
+                           stride_sb, stride_sh, scale, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -87,14 +113,16 @@ extern "C" int flash_prefill_bf16(const void* q, const void* k, const void* v, c
                                   void* out, int B, int S, int H, int KVH, int T, int D,
                                   long long stride_kb, long long stride_kh, float scale,
                                   void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (H % KVH || H / KVH > MAX_GROUP) return (int)cudaErrorInvalidValue;
-  const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* kp = static_cast<const __nv_bfloat16*>(k);
-  const auto* vp = static_cast<const __nv_bfloat16*>(v);
-  const auto* pp = static_cast<const int*>(pos);
-  auto* op = static_cast<__nv_bfloat16*>(out);
-  if (D == 128) return launch<128>(qp, kp, vp, pp, op, B, S, H, KVH, T, stride_kb, stride_kh, scale, st);
-  if (D == 64) return launch<64>(qp, kp, vp, pp, op, B, S, H, KVH, T, stride_kb, stride_kh, scale, st);
-  return (int)cudaErrorInvalidValue;
+  return launch<__nv_bfloat16>(q, k, v, nullptr, nullptr, pos, out, B, S, H, KVH, T, D,
+                               stride_kb, stride_kh, 0, 0, scale, stream);
+}
+
+// The int8 cache, with the arguments of flash_decode_int8.
+extern "C" int flash_prefill_int8(const void* q, const void* k, const void* v,
+                                  const void* k_scale, const void* v_scale, const void* pos,
+                                  void* out, int B, int S, int H, int KVH, int T, int D,
+                                  long long stride_kb, long long stride_kh, long long stride_sb,
+                                  long long stride_sh, float scale, void* stream) {
+  return launch<int8_t>(q, k, v, k_scale, v_scale, pos, out, B, S, H, KVH, T, D, stride_kb,
+                        stride_kh, stride_sb, stride_sh, scale, stream);
 }

@@ -1,21 +1,24 @@
-// Online-softmax GQA decode attention over a paged bf16 KV pool, for Hopper
-// (kernel F).
+// Online-softmax GQA decode attention over a paged bf16 or int8 KV pool,
+// for Hopper (kernel F).
 //
 // Replaces: llm_inference_lab_tpu/ops/pallas/paged_flash.py
-//           paged_flash_attention (_body, live-page clamp), bf16 chain-decode
-//           variant: mask kv_pos <= p, scale D**-0.5. The window, softcap,
-//           scale-override and int8-pool variants are not ported yet.
+//           paged_flash_attention (_body, live-page clamp), chain-decode
+//           variants: mask kv_pos <= p, scale D**-0.5, bf16 pools (_kernel)
+//           and int8 pools with per-row scale pools (_kernel_quant). The
+//           window, softcap and scale-override options are not ported yet.
 //
 // The function of flash_decode.cu, with key j of sequence b read from page
 // table[b, j / P], row j % P, of the layer's pool:
 //
-// q bf16 [B, S, H, D]; k, v pools bf16 [N, KVH, P, D] (one layer's view of
-// the stacked [L, N, KVH, P, D] pool: unit-stride [P, D] pages, head stride
-// P * D, page stride given); table int32 [B, M]; positions int32 [B, S];
-// out bf16 [B, S, H, D].
+// q bf16 [B, S, H, D]; k, v pools bf16 or int8 [N, KVH, P, D] (one layer's
+// view of the stacked [L, N, KVH, P, D] pool: unit-stride [P, D] pages, head
+// stride P * D, page stride given); for int8, k and v scale pools f32
+// [N, KVH, P] (unit-stride pages, head stride P, page stride given); table
+// int32 [B, M]; positions int32 [B, S]; out bf16 [B, S, H, D].
 //
 // What bounds it on the H100: the bytes of the live pages (keys up to
-// max(p) + 1 of each sequence, plus q and out) at 3.35 TB/s. At the serving
+// max(p) + 1 of each sequence, plus 8 bytes of scales a key for int8, q and
+// out) at 3.35 TB/s. At the serving
 // step's shapes that is a few hundred KB, so, like kernel D, it waits on
 // launch and load latency with B * KVH blocks.
 //
@@ -38,20 +41,54 @@ namespace {
 constexpr int WARPS = 4;
 constexpr int ROWS = WARPS * attn::RPW;  // query rows per block, as in flash_decode.cu
 
-template <int D>
+template <int D, class T>
 __global__ void __launch_bounds__(WARPS * 32)
-paged_flash_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kp,
-                   const __nv_bfloat16* __restrict__ vp, const int* __restrict__ table,
+paged_flash_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ kp,
+                   const T* __restrict__ vp, const float* __restrict__ ksp,
+                   const float* __restrict__ vsp, const int* __restrict__ table,
                    const int* __restrict__ pos, __nv_bfloat16* __restrict__ out, int S, int H,
-                   int KVH, int M, int P, long long stride_page, float scale) {
+                   int KVH, int M, int P, long long stride_page, long long stride_spage,
+                   float scale) {
   __shared__ __align__(16) __nv_bfloat16 qs[ROWS * D];
-  __shared__ __align__(16) attn::Tile<D> tile;
+  __shared__ __align__(16) attn::Tile<D, T> tile;
   __shared__ int kmax_s;
   const int b = blockIdx.x / KVH, h = blockIdx.x % KVH;
-  const size_t head = (size_t)h * P * D;
-  const attn::PagedKeys<D> keys{kp + head, vp + head, table + (size_t)b * M, P, stride_page};
-  attn::attend_rows<D>(q, pos, out, keys, b, h, S, H, KVH, blockIdx.y * ROWS, M * P, scale, qs,
-                       tile, kmax_s);
+  const size_t head = (size_t)h * P * D, shead = (size_t)h * P;
+  const attn::PagedKeys<D, T> keys{kp + head, vp + head, ksp + shead, vsp + shead,
+                                   table + (size_t)b * M, P, stride_page, stride_spage};
+  attn::attend_rows<D, T>(q, pos, out, keys, b, h, S, H, KVH, blockIdx.y * ROWS, M * P, scale,
+                          qs, tile, kmax_s);
+}
+
+template <class T>
+int launch(const void* q, const void* k_pool, const void* v_pool, const void* ks_pool,
+           const void* vs_pool, const void* table, const void* pos, void* out, int B, int S,
+           int H, int KVH, int M, int P, int D, long long stride_page, long long stride_spage,
+           float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nrows = S * (H / KVH);
+  dim3 grid(B * KVH, (nrows + ROWS - 1) / ROWS);
+  dim3 block(WARPS * 32);
+  const auto* qp = static_cast<const __nv_bfloat16*>(q);
+  const auto* kp = static_cast<const T*>(k_pool);
+  const auto* vp = static_cast<const T*>(v_pool);
+  const auto* ksp = static_cast<const float*>(ks_pool);
+  const auto* vsp = static_cast<const float*>(vs_pool);
+  const auto* tp = static_cast<const int*>(table);
+  const auto* pp = static_cast<const int*>(pos);
+  auto* op = static_cast<__nv_bfloat16*>(out);
+  if (D == 128) {
+    paged_flash_kernel<128, T><<<grid, block, 0, st>>>(qp, kp, vp, ksp, vsp, tp, pp, op, S, H,
+                                                       KVH, M, P, stride_page, stride_spage,
+                                                       scale);
+  } else if (D == 64) {
+    paged_flash_kernel<64, T><<<grid, block, 0, st>>>(qp, kp, vp, ksp, vsp, tp, pp, op, S, H,
+                                                      KVH, M, P, stride_page, stride_spage,
+                                                      scale);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -63,24 +100,17 @@ extern "C" int paged_flash_bf16(const void* q, const void* k_pool, const void* v
                                 const void* table, const void* pos, void* out, int B, int S,
                                 int H, int KVH, int M, int P, int D, long long stride_page,
                                 float scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nrows = S * (H / KVH);
-  dim3 grid(B * KVH, (nrows + ROWS - 1) / ROWS);
-  dim3 block(WARPS * 32);
-  const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* kp = static_cast<const __nv_bfloat16*>(k_pool);
-  const auto* vp = static_cast<const __nv_bfloat16*>(v_pool);
-  const auto* tp = static_cast<const int*>(table);
-  const auto* pp = static_cast<const int*>(pos);
-  auto* op = static_cast<__nv_bfloat16*>(out);
-  if (D == 128) {
-    paged_flash_kernel<128><<<grid, block, 0, st>>>(qp, kp, vp, tp, pp, op, S, H, KVH, M, P,
-                                                    stride_page, scale);
-  } else if (D == 64) {
-    paged_flash_kernel<64><<<grid, block, 0, st>>>(qp, kp, vp, tp, pp, op, S, H, KVH, M, P,
-                                                   stride_page, scale);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return launch<__nv_bfloat16>(q, k_pool, v_pool, nullptr, nullptr, table, pos, out, B, S, H,
+                               KVH, M, P, D, stride_page, 0, scale, stream);
+}
+
+// int8 pools: the bf16 entry's arguments plus the k and v scale pools
+// [N, KVH, P] f32 and their page stride (checked in Python).
+extern "C" int paged_flash_int8(const void* q, const void* k_pool, const void* v_pool,
+                                const void* k_scale, const void* v_scale, const void* table,
+                                const void* pos, void* out, int B, int S, int H, int KVH, int M,
+                                int P, int D, long long stride_page, long long stride_spage,
+                                float scale, void* stream) {
+  return launch<int8_t>(q, k_pool, v_pool, k_scale, v_scale, table, pos, out, B, S, H, KVH, M,
+                        P, D, stride_page, stride_spage, scale, stream);
 }

@@ -1,7 +1,8 @@
 """Model config and static-shape KV cache.
 
-Port of llm_inference_lab_tpu/models/base.py (ModelConfig, KVCache and the
-cache write at absolute positions) for the Llama family.
+Port of llm_inference_lab_tpu/models/base.py (ModelConfig, KVCache, the
+per-row int8 quantization and the cache write at absolute positions) for the
+Llama family.
 
 Cache-tail invariant (what makes single-pass verification work): the cache
 holds KV for committed tokens [0, L-1), everything except the last committed
@@ -49,22 +50,53 @@ class ModelConfig:
 @dataclass
 class KVCache:
     """k, v: [n_layers, B, n_kv_heads, max_seq, head_dim] (heads-major, as the
-    JAX package and the flash_decode kernel read it)."""
+    JAX package and the attention kernels read it).
+
+    An int8 cache (the JAX package's "quantized KV append") holds symmetric
+    per-(head, position) scales in k_scale / v_scale [n_layers, B, n_kv_heads,
+    max_seq] f32, initialised to ones. The JAX package carries scales for
+    every cache; a bf16 cache here carries None instead, which saves their
+    memory and never reads them."""
 
     k: torch.Tensor
     v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
 
     @classmethod
     def create(cls, cfg: ModelConfig, batch_size: int, max_seq_len: int,
                device, dtype: Optional[torch.dtype] = None) -> "KVCache":
+        """dtype: the KV element type, the model dtype by default, or
+        torch.int8 for a quantized cache with scales."""
         shape = (cfg.n_layers, batch_size, cfg.n_kv_heads, max_seq_len, cfg.head_dim)
-        dtype = dtype or cfg.dtype
-        return cls(k=torch.zeros(shape, dtype=dtype, device=device),
-                   v=torch.zeros(shape, dtype=dtype, device=device))
+        return cls(*kv_buffers(shape, dtype or cfg.dtype, device))
 
     @property
     def max_seq_len(self) -> int:
         return self.k.shape[3]
+
+
+def kv_buffers(shape, dtype: torch.dtype, device):
+    """Zeroed k and v of `shape`, and for int8 their scales (shape without
+    the head dim) set to ones, as the JAX package initialises them; None
+    scales otherwise."""
+    k = torch.zeros(shape, dtype=dtype, device=device)
+    v = torch.zeros(shape, dtype=dtype, device=device)
+    if dtype != torch.int8:
+        return k, v, None, None
+    ones = torch.ones(shape[:-1], dtype=torch.float32, device=device)
+    return k, v, ones, ones.clone()
+
+
+def quantize_rows(x: torch.Tensor):
+    """[..., D] -> (int8 values [..., D], f32 scales [...]): symmetric per
+    row, with the f32 steps of the JAX package's _quantize_rows, so the bytes
+    and scales are the same bit for bit (amax over D, max(amax, 1e-8) / 127,
+    round half to even, clip to +-127)."""
+    x32 = x.float()
+    scale = x32.abs().amax(dim=-1).clamp_min(1e-8) / 127.0
+    q = torch.round(x32 / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale
 
 
 @dataclass
@@ -82,15 +114,19 @@ class Model:
 
     def init_cache(self, batch_size: int, max_seq_len: int, device, paged: bool = False,
                    page_size: int = 64, n_pages: Optional[int] = None,
-                   table: Optional[torch.Tensor] = None):
+                   table: Optional[torch.Tensor] = None,
+                   dtype: Optional[torch.dtype] = None):
         """A contiguous KVCache, or with paged=True a PagedKVCache (a pool of
-        n_pages pages of page_size rows and a [batch_size, max_pages] table)."""
+        n_pages pages of page_size rows and a [batch_size, max_pages] table).
+        dtype: the KV element type (None: the model dtype; torch.int8: a
+        quantized cache with per-row scales)."""
         if paged:
             from llm_inference_lab_tpu_torch.models.paged import PagedKVCache
 
             return PagedKVCache.create(self.config, batch_size, max_seq_len, device,
-                                       n_pages=n_pages, page_size=page_size, table=table)
-        return KVCache.create(self.config, batch_size, max_seq_len, device)
+                                       n_pages=n_pages, page_size=page_size, table=table,
+                                       dtype=dtype)
+        return KVCache.create(self.config, batch_size, max_seq_len, device, dtype=dtype)
 
 
 def cache_slots(start: torch.Tensor, S: int, T: int):
@@ -105,9 +141,15 @@ def cache_slots(start: torch.Tensor, S: int, T: int):
 def write_cache_layer(cache: KVCache, layer: int, k_new: torch.Tensor,
                       v_new: torch.Tensor, slots) -> None:
     """Write the new rows k_new/v_new [B, S, n_kv, d] (model compute order)
-    of layer `layer` at ``slots = cache_slots(...)``, in place."""
+    of layer `layer` at ``slots = cache_slots(...)``, in place; an int8
+    cache quantizes each row as it is written, with its scale (the port of
+    update_cache_layer's non-ring branch)."""
     b_idx, slot = slots
     # Advanced indices (b [B,1], slot [B,S]) around the head slice index a
-    # [B, S, n_kv, d] block: exactly the model-order rows.
-    cache.k[layer][b_idx, :, slot, :] = k_new.to(cache.k.dtype)
-    cache.v[layer][b_idx, :, slot, :] = v_new.to(cache.v.dtype)
+    # [B, S, n_kv, d] block (a [B, S, n_kv] block of scales): exactly the
+    # model-order rows.
+    for dst, scales, new in ((cache.k, cache.k_scale, k_new), (cache.v, cache.v_scale, v_new)):
+        if dst.dtype == torch.int8:
+            new, scale = quantize_rows(new)
+            scales[layer][b_idx, :, slot] = scale
+        dst[layer][b_idx, :, slot, :] = new.to(dst.dtype)

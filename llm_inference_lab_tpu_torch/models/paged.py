@@ -1,10 +1,12 @@
 """Paged KV cache: a page pool and per-sequence page tables.
 
 Port of llm_inference_lab_tpu/models/paged.py (PagedKVCache, the paged
-cache write, gather_pages and PageAllocator) for bf16 pools. Layout, as in
-the JAX package:
+cache write, gather_pages and PageAllocator) for bf16 and int8 pools.
+Layout, as in the JAX package:
 
     k/v pools  [n_layers, n_pages, n_kv_heads, page_size, head_dim]
+    scales     [n_layers, n_pages, n_kv_heads, page_size] f32 (int8 pools;
+               None for bf16 pools, as in models/base.py KVCache)
     table      [B, max_pages_per_seq] int32: page ids in position order;
                page j of a sequence holds positions [j*P, (j+1)*P). Unused
                entries point at page 0, which the position mask keeps
@@ -23,7 +25,7 @@ from typing import List, Optional
 
 import torch
 
-from llm_inference_lab_tpu_torch.models.base import ModelConfig
+from llm_inference_lab_tpu_torch.models.base import ModelConfig, kv_buffers, quantize_rows
 
 
 @dataclass
@@ -31,6 +33,8 @@ class PagedKVCache:
     k: torch.Tensor  # [L, N_pages, KVH, P, D]
     v: torch.Tensor
     table: torch.Tensor  # [B, max_pages] int32
+    k_scale: Optional[torch.Tensor] = None  # [L, N_pages, KVH, P] f32 (int8 pools)
+    v_scale: Optional[torch.Tensor] = None
 
     @classmethod
     def create(cls, cfg: ModelConfig, batch_size: int, max_seq_len: int, device,
@@ -39,19 +43,19 @@ class PagedKVCache:
                dtype: Optional[torch.dtype] = None) -> "PagedKVCache":
         """Default table: slot b owns pages [b*m, (b+1)*m), which is a
         contiguous cache in pages (Engine.generate_batch). Serving passes its
-        own allocator-driven table, of which the cache keeps a private copy."""
+        own allocator-driven table, of which the cache keeps a private copy.
+        dtype torch.int8 makes int8 pools with scale pools."""
         P = page_size
         m = (max_seq_len + P - 1) // P
         n_pages = n_pages if n_pages is not None else batch_size * m
         shape = (cfg.n_layers, n_pages, cfg.n_kv_heads, P, cfg.head_dim)
-        dtype = dtype or cfg.dtype
         if table is None:
             table = torch.arange(batch_size * m, dtype=torch.int32,
                                  device=device).reshape(batch_size, m) % n_pages
         else:
             table = table.to(device=device, dtype=torch.int32).clone()
-        return cls(k=torch.zeros(shape, dtype=dtype, device=device),
-                   v=torch.zeros(shape, dtype=dtype, device=device), table=table)
+        k, v, k_scale, v_scale = kv_buffers(shape, dtype or cfg.dtype, device)
+        return cls(k=k, v=v, table=table, k_scale=k_scale, v_scale=v_scale)
 
     @property
     def page_size(self) -> int:
@@ -79,22 +83,26 @@ def page_slots(table: torch.Tensor, start: torch.Tensor, S: int, page_size: int)
 def write_paged_layer(cache: PagedKVCache, layer: int, k_new: torch.Tensor,
                       v_new: torch.Tensor, slots) -> None:
     """Write the new rows k_new/v_new [B, S, n_kv, d] (model compute order)
-    of layer `layer` at ``slots = page_slots(...)``, in place (the port of
+    of layer `layer` at ``slots = page_slots(...)``, in place; int8 pools
+    quantize each row as it is written, with its scale (the port of
     update_paged_layer / scatter_paged_stack)."""
-    if cache.k.dtype == torch.int8:
-        raise NotImplementedError("int8 KV pools are not ported yet")
     page, off = slots
     # Advanced indices (page, off [B, S]) around the head slice index a
-    # [B, S, n_kv, d] block: exactly the model-order rows.
-    cache.k[layer][page, :, off, :] = k_new.to(cache.k.dtype)
-    cache.v[layer][page, :, off, :] = v_new.to(cache.v.dtype)
+    # [B, S, n_kv, d] block (a [B, S, n_kv] block of scales): exactly the
+    # model-order rows.
+    for dst, scales, new in ((cache.k, cache.k_scale, k_new), (cache.v, cache.v_scale, v_new)):
+        if dst.dtype == torch.int8:
+            new, scale = quantize_rows(new)
+            scales[layer][page, :, off] = scale
+        dst[layer][page, :, off, :] = new.to(dst.dtype)
 
 
 def gather_pages(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """[N_pages, KVH, P, D] + [B, max_pages] -> contiguous [B, KVH, M*P, D]."""
-    g = pool[table.long()]  # [B, M, KVH, P, D]
-    B, M, KVH, P, D = g.shape
-    return g.permute(0, 2, 1, 3, 4).reshape(B, KVH, M * P, D)
+    """[N_pages, KVH, P, D] + [B, max_pages] -> contiguous [B, KVH, M*P, D];
+    a scale pool [N_pages, KVH, P] gathers to [B, KVH, M*P] alike."""
+    g = pool[table.long()]  # [B, M, KVH, P(, D)]
+    B, M, KVH, P = g.shape[:4]
+    return g.transpose(1, 2).reshape(B, KVH, M * P, *g.shape[4:])
 
 
 class PageAllocator:

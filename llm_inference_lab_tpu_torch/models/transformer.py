@@ -87,13 +87,16 @@ def _attn_block(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Ten
     qk = rope(qkv[..., : (H + KV) * Dh].reshape(B, S, H + KV, Dh), cos, sin)
     v = qkv[..., (H + KV) * Dh:].reshape(B, S, KV, Dh)
     q = qk[:, :, :H].contiguous()
-    # Write the new KV at absolute positions BEFORE attending (ops/attention).
+    # Write the new KV at absolute positions BEFORE attending (ops/attention);
+    # an int8 cache quantizes the rows and attends with the layer's scales.
+    scales = ((cache.k_scale[layer], cache.v_scale[layer]) if cache.k_scale is not None
+              else (None, None))
     if isinstance(cache, PagedKVCache):
         write_paged_layer(cache, layer, qk[:, :, H:], v, slots)
-        attn = paged_attend(q, cache.k[layer], cache.v[layer], positions, cache.table)
+        attn = paged_attend(q, cache.k[layer], cache.v[layer], positions, cache.table, *scales)
     else:
         write_cache_layer(cache, layer, qk[:, :, H:], v, slots)
-        attn = attend(q, cache.k[layer], cache.v[layer], positions)
+        attn = attend(q, cache.k[layer], cache.v[layer], positions, *scales)
     return dense(attn.reshape(B, S, H * Dh), p["wo"])
 
 

@@ -6,9 +6,11 @@ Port of the JAX package's attention dispatch (ops/attention.py
 ``_kernel_wrapper`` and ops/pallas/paged_flash.py ``_wrapper``):
 
     attend(q [B,S,H,D], k_cache [B,KVH,T,D], v_cache [B,KVH,T,D],
-           positions [B,S]) -> [B,S,H,D]
+           positions [B,S], k_scale [B,KVH,T] = None, v_scale = None)
+        -> [B,S,H,D]
     paged_attend(q, k_pool [N,KVH,P,D], v_pool [N,KVH,P,D], positions,
-                 table [B,M]) -> [B,S,H,D]
+                 table [B,M], k_scale [N,KVH,P] = None, v_scale = None)
+        -> [B,S,H,D]
 
 A query at absolute position p attends to cache positions [0, p]: the
 engine writes new rows at their positions before attending, so no separate
@@ -16,11 +18,15 @@ length mask is needed. Routing, as in JAX: S <= 32 (draft, verify) goes to
 the decode kernels, flash_decode or paged_flash; longer S (prefill) to
 flash_prefill. A paged prefill first gathers its pages into a contiguous
 view (JAX sends that case to its XLA gather; only Engine.generate_batch in
-paged mode reaches it). Only the chain mask is ported: the sliding window,
-ring cache, tree mask, softcap, scale override and int8 caches raise.
+paged mode reaches it). An int8 cache (with its scales) is routed exactly
+as a bf16 one, to the int8 variants of the same kernels. Only the chain
+mask is ported: the sliding window, ring cache, tree mask, softcap and scale
+override raise.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -32,28 +38,31 @@ from llm_inference_lab_tpu_torch.ops.paged_flash import paged_flash
 DECODE_MAX_S = 32  # longer query blocks are prefills
 
 
-def _refuse_unported(k: torch.Tensor, **options) -> None:
+def _refuse_unported(**options) -> None:
     for name, value in options.items():
         if value is not None:
             raise NotImplementedError(f"attention option {name} is not ported yet")
-    if k.dtype == torch.int8:
-        raise NotImplementedError("int8 KV caches are not ported yet")
 
 
 def attend(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-           positions: torch.Tensor, *, tree_mask=None, window=None, ring_len=None,
-           scale=None, softcap=None) -> torch.Tensor:
-    _refuse_unported(k_cache, tree_mask=tree_mask, window=window, ring_len=ring_len,
-                     scale=scale, softcap=softcap)
+           positions: torch.Tensor, k_scale: Optional[torch.Tensor] = None,
+           v_scale: Optional[torch.Tensor] = None, *, tree_mask=None, window=None,
+           ring_len=None, scale=None, softcap=None) -> torch.Tensor:
+    _refuse_unported(tree_mask=tree_mask, window=window, ring_len=ring_len, scale=scale,
+                     softcap=softcap)
     if q.shape[1] <= DECODE_MAX_S:
-        return flash_decode(q, k_cache, v_cache, positions)
-    return flash_prefill(q, k_cache, v_cache, positions)
+        return flash_decode(q, k_cache, v_cache, positions, k_scale, v_scale)
+    return flash_prefill(q, k_cache, v_cache, positions, k_scale, v_scale)
 
 
 def paged_attend(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
-                 positions: torch.Tensor, table: torch.Tensor, *, tree_mask=None,
-                 window=None, scale=None, softcap=None) -> torch.Tensor:
-    _refuse_unported(k_pool, tree_mask=tree_mask, window=window, scale=scale, softcap=softcap)
+                 positions: torch.Tensor, table: torch.Tensor,
+                 k_scale: Optional[torch.Tensor] = None, v_scale: Optional[torch.Tensor] = None,
+                 *, tree_mask=None, window=None, scale=None, softcap=None) -> torch.Tensor:
+    _refuse_unported(tree_mask=tree_mask, window=window, scale=scale, softcap=softcap)
     if q.shape[1] <= DECODE_MAX_S:
-        return paged_flash(q, k_pool, v_pool, positions, table)
-    return flash_prefill(q, gather_pages(k_pool, table), gather_pages(v_pool, table), positions)
+        return paged_flash(q, k_pool, v_pool, positions, table, k_scale, v_scale)
+    if k_scale is not None:
+        k_scale, v_scale = gather_pages(k_scale, table), gather_pages(v_scale, table)
+    return flash_prefill(q, gather_pages(k_pool, table), gather_pages(v_pool, table), positions,
+                         k_scale, v_scale)

@@ -1,12 +1,16 @@
-"""Online-softmax decode attention over a contiguous bf16 KV cache.
+"""Online-softmax decode attention over a contiguous bf16 or int8 KV cache.
 
-Port of llm_inference_lab_tpu/ops/pallas/flash_decode.py, bf16 chain-decode
-variant (mask kv_pos <= p, scale D**-0.5). On a CPU tensor ``flash_decode``
-runs the plain version; on a CUDA tensor it launches csrc/flash_decode.cu or
-raises. ``attend`` sends it the decode-shaped calls (S <= 32: draft S = 1,
-verify S = K+1); longer S goes to flash_prefill.
+Port of llm_inference_lab_tpu/ops/pallas/flash_decode.py, chain-decode
+variants (mask kv_pos <= p, scale D**-0.5) over a bf16 cache (_kernel) and
+an int8 cache with per-row scales (_kernel_quant). On a CPU tensor
+``flash_decode`` runs the plain version; on a CUDA tensor it launches
+csrc/flash_decode.cu or raises. An int8 cache goes to ``flash_decode_int8``,
+the int8 instantiation of the same kernel with its own launch count.
+``attend`` sends it the decode-shaped calls (S <= 32: draft S = 1, verify
+S = K+1); longer S goes to flash_prefill.
 
-    flash_decode(q [B,S,H,D], k [B,KVH,T,D], v [B,KVH,T,D], positions [B,S])
+    flash_decode(q [B,S,H,D], k [B,KVH,T,D], v [B,KVH,T,D], positions [B,S],
+                 k_scale [B,KVH,T] = None, v_scale [B,KVH,T] = None)
         -> [B,S,H,D] in q's dtype
 
 A query row with no visible key (position -1) returns zeros, as attend_xla
@@ -15,16 +19,31 @@ does; the Pallas tile body returns the mean of V there.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from llm_inference_lab_tpu_torch import build
 
 
+def dequantize_cache(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     k_scale: Optional[torch.Tensor], v_scale: Optional[torch.Tensor]):
+    """An int8 cache dequantized to q's dtype, as attend_xla does (f32
+    product with the row scales, then the cast); a bf16 cache as it is."""
+    if k.dtype != torch.int8:
+        return k, v
+    return ((k.float() * k_scale[..., None]).to(q.dtype),
+            (v.float() * v_scale[..., None]).to(q.dtype))
+
+
 def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       positions: torch.Tensor) -> torch.Tensor:
-    """attend_xla's chain-decode math in f32: scores, causal-by-position mask,
-    softmax, zeros on rows with no visible key, probabilities rounded to the
-    cache dtype before P @ V (as attend_xla rounds them)."""
+                       positions: torch.Tensor, k_scale: Optional[torch.Tensor] = None,
+                       v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """attend_xla's chain-decode math in f32: an int8 cache dequantized to
+    q's dtype, scores, causal-by-position mask, softmax, zeros on rows with
+    no visible key, probabilities rounded to the cache dtype before P @ V
+    (as attend_xla rounds them)."""
+    k, v = dequantize_cache(q, k, v, k_scale, v_scale)
     B, S, H, D = q.shape
     KVH, T = k.shape[1], k.shape[2]
     group = H // KVH
@@ -39,15 +58,16 @@ def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, S, H, D).to(q.dtype)
 
 
-def check_queries(name: str, q: torch.Tensor, positions: torch.Tensor, *caches: torch.Tensor):
+def check_queries(name: str, q: torch.Tensor, positions: torch.Tensor, *caches: torch.Tensor,
+                  cache_dtype: torch.dtype = torch.bfloat16):
     """The checks every attention kernel makes on q, positions and its K/V
-    tensors: bf16, D in {64, 128}, int32 positions [B, S], contiguous q and
-    positions, one device, 16-byte aligned q and caches (the kernels read
-    16-byte vectors: a misaligned view would fault on the card after the
-    launch). Returns (B, S, H, D)."""
+    tensors: bf16 q, caches of cache_dtype, D in {64, 128}, int32 positions
+    [B, S], contiguous q and positions, one device, 16-byte aligned q and
+    caches (the kernels read 16-byte vectors: a misaligned view would fault
+    on the card after the launch). Returns (B, S, H, D)."""
     B, S, H, D = q.shape
-    if q.dtype != torch.bfloat16 or any(c.dtype != torch.bfloat16 for c in caches):
-        raise TypeError(f"{name} kernel takes bf16 q and caches")
+    if q.dtype != torch.bfloat16 or any(c.dtype != cache_dtype for c in caches):
+        raise TypeError(f"{name} kernel takes bf16 q and {cache_dtype} caches")
     if positions.dtype != torch.int32 or positions.shape != (B, S):
         raise TypeError(f"{name} kernel takes int32 positions [B, S]")
     if D not in (64, 128):
@@ -71,26 +91,77 @@ def check_planes(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -
         raise ValueError(f"{name} kernel: unsupported shapes q {tuple(q.shape)} k {tuple(k.shape)}")
     if k.stride() != v.stride() or k.stride(3) != 1 or k.stride(2) != D:
         raise ValueError(f"{name} kernel needs k and v with equal strides and [T, D] planes")
-    if k.stride(0) % 8 or k.stride(1) % 8:
+    if (k.stride(0) * k.element_size()) % 16 or (k.stride(1) * k.element_size()) % 16:
         raise ValueError(f"{name} kernel needs 16-byte aligned plane strides")
 
 
-def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 positions: torch.Tensor) -> torch.Tensor:
-    if not q.is_cuda:
-        return flash_decode_plain(q, k, v, positions)
-    B, S, H, D = check_queries("flash_decode", q, positions, k, v)
-    check_planes("flash_decode", q, k, v)
+def check_scales(name: str, k: torch.Tensor, k_scale: torch.Tensor, v_scale: torch.Tensor) -> None:
+    """The scales of an int8 cache or pool k [X, KVH, R, D]: f32 [X, KVH, R]
+    on k's device, both with the same strides and unit stride along R."""
+    if k_scale is None or v_scale is None:
+        raise ValueError(f"{name}: an int8 cache needs its k and v scales")
+    if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
+        raise TypeError(f"{name} kernel takes f32 scales")
+    if k_scale.shape != k.shape[:3] or v_scale.shape != k_scale.shape:
+        raise ValueError(f"{name} kernel: scales {tuple(k_scale.shape)} do not match the cache "
+                         f"{tuple(k.shape)}")
+    if k_scale.stride() != v_scale.stride() or k_scale.stride(2) != 1:
+        raise ValueError(f"{name} kernel needs k and v scales with equal strides, unit along T")
+    if k_scale.device != k.device or v_scale.device != k.device:
+        raise ValueError(f"{name} kernel needs all operands on one device")
+
+
+def launch_planes(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  positions: torch.Tensor, k_scale: Optional[torch.Tensor],
+                  v_scale: Optional[torch.Tensor]) -> torch.Tensor:
+    """Check the operands of kernel D or E (`kernel` is "flash_decode" or
+    "flash_prefill") over a contiguous cache and launch its bf16 entry, or
+    its int8 entry with the scale planes when k is int8."""
+    int8 = k.dtype == torch.int8
+    name = kernel + ("_int8" if int8 else "")
+    B, S, H, D = check_queries(name, q, positions, k, v,
+                               cache_dtype=torch.int8 if int8 else torch.bfloat16)
+    check_planes(name, q, k, v)
     KVH, T = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
-    lib = build.library("flash_decode")
-    err = lib.flash_decode_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), positions.data_ptr(), out.data_ptr(),
-        B, S, H, KVH, T, D, k.stride(0), k.stride(1), D ** -0.5,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, "flash_decode")
+    lib = build.library(kernel)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if int8:
+        check_scales(name, k, k_scale, v_scale)
+        err = getattr(lib, name)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
+            positions.data_ptr(), out.data_ptr(), B, S, H, KVH, T, D, k.stride(0), k.stride(1),
+            k_scale.stride(0), k_scale.stride(1), D ** -0.5, stream)
+    else:
+        err = getattr(lib, f"{kernel}_bf16")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), positions.data_ptr(), out.data_ptr(),
+            B, S, H, KVH, T, D, k.stride(0), k.stride(1), D ** -0.5, stream)
+    build.check(err, name)
+    return out
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor,
+                 k_scale: Optional[torch.Tensor] = None,
+                 v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    if k.dtype == torch.int8:
+        return flash_decode_int8(q, k, v, positions, k_scale, v_scale)
+    if not q.is_cuda:
+        return flash_decode_plain(q, k, v, positions)
+    out = launch_planes("flash_decode", q, k, v, positions, None, None)
     flash_decode.launches += 1
     return out
 
 
+def flash_decode_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor,
+                      k_scale: torch.Tensor, v_scale: torch.Tensor) -> torch.Tensor:
+    """flash_decode over an int8 cache k, v [B, KVH, T, D] with f32 scales
+    [B, KVH, T]."""
+    if not q.is_cuda:
+        return flash_decode_plain(q, k, v, positions, k_scale, v_scale)
+    out = launch_planes("flash_decode", q, k, v, positions, k_scale, v_scale)
+    flash_decode_int8.launches += 1
+    return out
+
+
 flash_decode.launches = 0
+flash_decode_int8.launches = 0

@@ -1,14 +1,18 @@
 """Online-softmax attention for prefill-length query blocks over a
-contiguous bf16 KV cache.
+contiguous bf16 or int8 KV cache.
 
-Port of llm_inference_lab_tpu/ops/pallas/flash_prefill.py, bf16 chain-mask
-variant (mask kv_pos <= p, scale D**-0.5). On a CPU tensor ``flash_prefill``
-runs the plain version, ``flash_decode_plain`` (kernels D and E compute one
-function, attend_xla's chain mask); on a CUDA tensor it launches
-csrc/flash_prefill.cu or raises. ``attend`` sends it S > 32, as the JAX dispatcher does: the
-serving admission's [G, P] prefill and Engine.generate's prompt.
+Port of llm_inference_lab_tpu/ops/pallas/flash_prefill.py, chain-mask
+variants (mask kv_pos <= p, scale D**-0.5) over a bf16 cache (_kernel) and
+an int8 cache with per-row scales (_kernel_quant). On a CPU tensor
+``flash_prefill`` runs the plain version, ``flash_decode_plain`` (kernels D
+and E compute one function, attend_xla's chain mask); on a CUDA tensor it
+launches csrc/flash_prefill.cu or raises. An int8 cache goes to
+``flash_prefill_int8``, with its own launch count. ``attend`` sends it
+S > 32, as the JAX dispatcher does: the serving admission's [G, P] prefill
+and Engine.generate's prompt.
 
-    flash_prefill(q [B,S,H,D], k [B,KVH,T,D], v [B,KVH,T,D], positions [B,S])
+    flash_prefill(q [B,S,H,D], k [B,KVH,T,D], v [B,KVH,T,D], positions [B,S],
+                  k_scale [B,KVH,T] = None, v_scale [B,KVH,T] = None)
         -> [B,S,H,D] in q's dtype
 
 Positions need not start at 0 (a chunk may resume at any base); a row at
@@ -17,36 +21,45 @@ position -1 returns zeros, as attend_xla does.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from llm_inference_lab_tpu_torch import build
-from llm_inference_lab_tpu_torch.ops.flash_decode import (
-    check_planes,
-    check_queries,
-    flash_decode_plain,
-)
+from llm_inference_lab_tpu_torch.ops.flash_decode import flash_decode_plain, launch_planes
 
 MAX_GROUP = 4  # the kernel runs 2 * group warps per 32-position block
 
 
-def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  positions: torch.Tensor) -> torch.Tensor:
+def _check_group(q: torch.Tensor, k: torch.Tensor) -> None:
+    if q.shape[2] // k.shape[1] > MAX_GROUP:
+        raise ValueError(f"flash_prefill kernel takes GQA groups up to {MAX_GROUP}, "
+                         f"got {q.shape[2] // k.shape[1]}")
+
+
+def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor,
+                  k_scale: Optional[torch.Tensor] = None,
+                  v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    if k.dtype == torch.int8:
+        return flash_prefill_int8(q, k, v, positions, k_scale, v_scale)
     if not q.is_cuda:
         return flash_decode_plain(q, k, v, positions)
-    B, S, H, D = check_queries("flash_prefill", q, positions, k, v)
-    check_planes("flash_prefill", q, k, v)
-    KVH, T = k.shape[1], k.shape[2]
-    if H // KVH > MAX_GROUP:
-        raise ValueError(f"flash_prefill kernel takes GQA groups up to {MAX_GROUP}, got {H // KVH}")
-    out = torch.empty_like(q)
-    lib = build.library("flash_prefill")
-    err = lib.flash_prefill_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), positions.data_ptr(), out.data_ptr(),
-        B, S, H, KVH, T, D, k.stride(0), k.stride(1), D ** -0.5,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, "flash_prefill")
+    _check_group(q, k)
+    out = launch_planes("flash_prefill", q, k, v, positions, None, None)
     flash_prefill.launches += 1
     return out
 
 
+def flash_prefill_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor,
+                       k_scale: torch.Tensor, v_scale: torch.Tensor) -> torch.Tensor:
+    """flash_prefill over an int8 cache k, v [B, KVH, T, D] with f32 scales
+    [B, KVH, T]."""
+    if not q.is_cuda:
+        return flash_decode_plain(q, k, v, positions, k_scale, v_scale)
+    _check_group(q, k)
+    out = launch_planes("flash_prefill", q, k, v, positions, k_scale, v_scale)
+    flash_prefill_int8.launches += 1
+    return out
+
+
 flash_prefill.launches = 0
+flash_prefill_int8.launches = 0

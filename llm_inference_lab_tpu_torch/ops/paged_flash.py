@@ -1,12 +1,15 @@
-"""Online-softmax decode attention over a paged bf16 KV pool.
+"""Online-softmax decode attention over a paged bf16 or int8 KV pool.
 
-Port of llm_inference_lab_tpu/ops/pallas/paged_flash.py, bf16 chain-decode
-variant (mask kv_pos <= p, scale D**-0.5). On a CPU tensor ``paged_flash``
-runs the plain version; on a CUDA tensor it launches csrc/paged_flash.cu or
-raises.
+Port of llm_inference_lab_tpu/ops/pallas/paged_flash.py, chain-decode
+variants (mask kv_pos <= p, scale D**-0.5) over bf16 pools (_kernel) and
+int8 pools with per-row scale pools (_kernel_quant). On a CPU tensor
+``paged_flash`` runs the plain version; on a CUDA tensor it launches
+csrc/paged_flash.cu or raises. int8 pools go to ``paged_flash_int8``, with
+its own launch count.
 
     paged_flash(q [B,S,H,D], k_pool [N,KVH,P,D], v_pool [N,KVH,P,D],
-                positions [B,S], table [B,M]) -> [B,S,H,D] in q's dtype
+                positions [B,S], table [B,M], k_scale [N,KVH,P] = None,
+                v_scale [N,KVH,P] = None) -> [B,S,H,D] in q's dtype
 
 Key j of sequence b is row j % P of page table[b, j // P]. The kernel gives
 the same bits as flash_decode on the same keys, and reads only the pages a
@@ -16,44 +19,67 @@ serving allocator hands out only such ids, and the kernel does not check.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from llm_inference_lab_tpu_torch import build
 from llm_inference_lab_tpu_torch.models.paged import gather_pages
-from llm_inference_lab_tpu_torch.ops.flash_decode import check_queries, flash_decode_plain
+from llm_inference_lab_tpu_torch.ops.flash_decode import (
+    check_queries,
+    check_scales,
+    flash_decode_plain,
+)
 
 
 def paged_flash_plain(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
-                      positions: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+                      positions: torch.Tensor, table: torch.Tensor,
+                      k_scale: Optional[torch.Tensor] = None,
+                      v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Port of ops/paged_attention.py ``paged_attend_xla`` (chain mask):
-    gather each sequence's pages into a contiguous [B, KVH, M*P, D] view
-    (page ordinal j holds positions [j*P, (j+1)*P), so the position mask
-    carries over) and run the plain attention; a row at position -1 gives
-    zeros."""
+    gather each sequence's pages (and, for int8 pools, their scales) into a
+    contiguous [B, KVH, M*P, D] view (page ordinal j holds positions
+    [j*P, (j+1)*P), so the position mask carries over) and run the plain
+    attention; a row at position -1 gives zeros."""
+    if k_scale is not None:
+        k_scale, v_scale = gather_pages(k_scale, table), gather_pages(v_scale, table)
     return flash_decode_plain(q, gather_pages(k_pool, table), gather_pages(v_pool, table),
-                              positions)
+                              positions, k_scale, v_scale)
 
 
-def paged_flash(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
-                positions: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    if not q.is_cuda:
-        return paged_flash_plain(q, k_pool, v_pool, positions, table)
-    B, S, H, D = check_queries("paged_flash", q, positions, k_pool, v_pool)
+def _check_pools(name: str, q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                 positions: torch.Tensor, table: torch.Tensor, cache_dtype: torch.dtype):
+    """Pools [N, KVH, P, D] of cache_dtype with equal strides, [KVH, P, D]
+    pages and a 16-byte aligned page stride; a contiguous int32 table
+    [B, M] on q's device. Returns (B, S, H, D, KVH, P, M)."""
+    B, S, H, D = check_queries(name, q, positions, k_pool, v_pool, cache_dtype=cache_dtype)
     N, KVH, P = k_pool.shape[0], k_pool.shape[1], k_pool.shape[2]
     if H % KVH or k_pool.shape != (N, KVH, P, D) or v_pool.shape != k_pool.shape:
-        raise ValueError(f"paged_flash kernel: unsupported shapes q {tuple(q.shape)} "
+        raise ValueError(f"{name} kernel: unsupported shapes q {tuple(q.shape)} "
                          f"pool {tuple(k_pool.shape)}")
     if (k_pool.stride() != v_pool.stride() or k_pool.stride(3) != 1
             or k_pool.stride(2) != D or k_pool.stride(1) != P * D):
-        raise ValueError("paged_flash kernel needs k and v pools with equal strides and "
+        raise ValueError(f"{name} kernel needs k and v pools with equal strides and "
                          "[KVH, P, D] pages")
-    if k_pool.stride(0) % 8:
-        raise ValueError("paged_flash kernel needs a 16-byte aligned page stride")
+    if (k_pool.stride(0) * k_pool.element_size()) % 16:
+        raise ValueError(f"{name} kernel needs a 16-byte aligned page stride")
     if table.dtype != torch.int32 or table.dim() != 2 or table.shape[0] != B:
-        raise TypeError("paged_flash kernel takes an int32 table [B, M]")
+        raise TypeError(f"{name} kernel takes an int32 table [B, M]")
     if not table.is_contiguous() or table.device != q.device:
-        raise ValueError("paged_flash kernel needs a contiguous table on q's device")
-    M = table.shape[1]
+        raise ValueError(f"{name} kernel needs a contiguous table on q's device")
+    return B, S, H, D, KVH, P, table.shape[1]
+
+
+def paged_flash(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                positions: torch.Tensor, table: torch.Tensor,
+                k_scale: Optional[torch.Tensor] = None,
+                v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    if k_pool.dtype == torch.int8:
+        return paged_flash_int8(q, k_pool, v_pool, positions, table, k_scale, v_scale)
+    if not q.is_cuda:
+        return paged_flash_plain(q, k_pool, v_pool, positions, table)
+    B, S, H, D, KVH, P, M = _check_pools("paged_flash", q, k_pool, v_pool, positions, table,
+                                         torch.bfloat16)
     out = torch.empty_like(q)
     lib = build.library("paged_flash")
     err = lib.paged_flash_bf16(
@@ -65,4 +91,29 @@ def paged_flash(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     return out
 
 
+def paged_flash_int8(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                     positions: torch.Tensor, table: torch.Tensor, k_scale: torch.Tensor,
+                     v_scale: torch.Tensor) -> torch.Tensor:
+    """paged_flash over int8 pools [N, KVH, P, D] with f32 scale pools
+    [N, KVH, P]."""
+    if not q.is_cuda:
+        return paged_flash_plain(q, k_pool, v_pool, positions, table, k_scale, v_scale)
+    B, S, H, D, KVH, P, M = _check_pools("paged_flash_int8", q, k_pool, v_pool, positions, table,
+                                         torch.int8)
+    check_scales("paged_flash_int8", k_pool, k_scale, v_scale)
+    if k_scale.stride(1) != P:
+        raise ValueError("paged_flash_int8 kernel needs scale pools with [KVH, P] pages")
+    out = torch.empty_like(q)
+    lib = build.library("paged_flash")
+    err = lib.paged_flash_int8(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), k_scale.data_ptr(),
+        v_scale.data_ptr(), table.data_ptr(), positions.data_ptr(), out.data_ptr(), B, S, H,
+        KVH, M, P, D, k_pool.stride(0), k_scale.stride(0), D ** -0.5,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "paged_flash_int8")
+    paged_flash_int8.launches += 1
+    return out
+
+
 paged_flash.launches = 0
+paged_flash_int8.launches = 0

@@ -20,7 +20,11 @@ from typing import Any
 
 import torch
 
-from llm_inference_lab_tpu_torch.ops.quant_matmul import quant_matmul, unpack_int4
+from llm_inference_lab_tpu_torch.ops.quant_matmul import (
+    quant_matmul,
+    quant_matmul_int8,
+    unpack_int4,
+)
 
 
 @dataclass
@@ -81,13 +85,6 @@ def dequantize(qt: QuantTensor, dtype=torch.bfloat16) -> torch.Tensor:
     return (q.float() * qt.scale.unsqueeze(-2)).to(dtype)
 
 
-def quant_matmul_plain_int8(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
-    """(x @ q) * scale with f32 accumulation, output in x's dtype (the int8
-    counterpart of quant_matmul_xla; its Hopper kernel is queued)."""
-    y = torch.matmul(x.float(), qt.data.float()) * qt.scale
-    return y.to(x.dtype)
-
-
 @dataclass
 class EmbedQuant:
     """Quantized embedding table [V, D] with per-row (per-token) scales [V]:
@@ -120,17 +117,14 @@ def dense(x: torch.Tensor, w: Any) -> torch.Tensor:
     """The single matmul entry point for all model projections.
 
     x: [..., d_in]; w: tensor [d_in, d_out] or a (per-layer) QuantTensor.
-    int4 weights go through quant_matmul (the kernel on CUDA tensors)."""
+    int4 weights go through quant_matmul (kernel A on CUDA tensors), int8
+    weights through quant_matmul_int8 (kernel B)."""
     if not isinstance(w, QuantTensor):
         return torch.matmul(x, w.to(x.dtype))
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
-    if w.bits == 4:
-        y = quant_matmul(x2, w.data, w.scale)
-    elif x.is_cuda:
-        raise NotImplementedError("int8 weights on CUDA need the int8 kernel (queued)")
-    else:
-        y = quant_matmul_plain_int8(x2, w)
+    matmul = quant_matmul if w.bits == 4 else quant_matmul_int8
+    y = matmul(x2, w.data, w.scale)
     return y.reshape(*lead, w.shape[-1])
 
 

@@ -1,10 +1,14 @@
-"""int4 dequantizing matmul: y = (x @ unpack4(w)) * scale.
+"""Dequantizing matmuls: y = (x @ unpack4(w)) * scale (int4, kernel A) and
+y = (x @ w) * scale (int8, kernel B).
 
-Port of llm_inference_lab_tpu/ops/pallas/quant_matmul.py (int4 path) and of
-its reference quant_matmul_xla. On a CPU tensor ``quant_matmul`` runs the
-plain version; on a CUDA tensor it launches csrc/quant_matmul_int4.cu or
-raises. The kernel serves every M, so the prefill (M = 160) goes through it
-too, where the TPU dispatcher sent M > 32 to XLA.
+Port of llm_inference_lab_tpu/ops/pallas/quant_matmul.py (int4 and int8
+paths) and of its reference quant_matmul_xla. On a CPU tensor
+``quant_matmul`` and ``quant_matmul_int8`` run their plain versions; on a
+CUDA tensor they launch csrc/quant_matmul_int4.cu and
+csrc/quant_matmul_int8.cu or raise. Both kernels serve every M, so prefills
+(M = 160, admission waves of G * P rows) go through them too, where the TPU
+dispatcher sent M > 32 to XLA: each output sums in an order that depends on
+(K, N) only, so every M rounds a row alike.
 """
 
 from __future__ import annotations
@@ -14,7 +18,7 @@ import torch
 from llm_inference_lab_tpu_torch import build
 
 BN = 256  # kernel columns per block
-SPLIT_ROWS = 64  # the kernel splits K in units of this many packed rows
+SPLIT_ROWS = 64  # the kernels split K in units of this many weight rows
 TARGET_BLOCKS = 4 * 132  # about four blocks per H100 SM
 
 
@@ -32,11 +36,19 @@ def quant_matmul_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) ->
     return y.to(x.dtype)
 
 
-def ksplit_for(K: int, N: int) -> int:
+def quant_matmul_plain_int8(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """x [M, K]; w int8 [K, N]; scale f32 [N]. f32 accumulation, output in
+    x's dtype (quant_matmul_xla's contract)."""
+    y = torch.matmul(x.float(), w.float()) * scale
+    return y.to(x.dtype)
+
+
+def ksplit_for(K: int, N: int, bits: int = 4) -> int:
     """How many blocks share the K reduction of one column block: the largest
     divisor of the chunk count that keeps the grid near TARGET_BLOCKS. It
-    depends on (K, N) only, never on M, so every M sums in the same order."""
-    chunks = (K // 2) // SPLIT_ROWS
+    depends on (K, N) only, never on M, so every M sums in the same order.
+    A weight row holds K/2 packed bytes at 4 bits, K at 8."""
+    chunks = (K // 2 if bits == 4 else K) // SPLIT_ROWS
     nblk = N // BN
     best = 1
     for d in range(1, chunks + 1):
@@ -45,32 +57,53 @@ def ksplit_for(K: int, N: int) -> int:
     return best
 
 
-def quant_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    if not x.is_cuda:
-        return quant_matmul_plain(x, w, scale)
+def _launch(name: str, x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+            bits: int) -> torch.Tensor:
+    """Check the operands of kernel A (bits 4, w [K/2, N]) or B (bits 8,
+    w [K, N]) and launch it: bf16 x, int8 w, f32 scale [N], N a multiple of
+    256, K a multiple of the split unit, contiguous operands on one device
+    and w 16-byte aligned (a layer's view of the stacked weight qualifies)."""
     M, K = x.shape
     N = w.shape[-1]
+    rows = K // 2 if bits == 4 else K
     if x.dtype != torch.bfloat16 or w.dtype != torch.int8 or scale.dtype != torch.float32:
-        raise TypeError("quant_matmul kernel takes bf16 x, int8 w, f32 scale")
-    if w.shape != (K // 2, N) or scale.shape != (N,) or K % 2:
+        raise TypeError(f"{name} kernel takes bf16 x, int8 w, f32 scale")
+    if w.shape != (rows, N) or scale.shape != (N,) or (bits == 4 and K % 2):
         raise ValueError(f"bad shapes x {tuple(x.shape)} w {tuple(w.shape)} scale {tuple(scale.shape)}")
-    if N % BN or (K // 2) % SPLIT_ROWS:
-        raise ValueError(f"quant_matmul kernel needs N % {BN} == 0 and K % {2 * SPLIT_ROWS} == 0, "
-                         f"got K={K} N={N}")
+    if N % BN or rows % SPLIT_ROWS:
+        raise ValueError(f"{name} kernel needs N % {BN} == 0 and K % {K // rows * SPLIT_ROWS} "
+                         f"== 0, got K={K} N={N}")
     if not (x.is_contiguous() and w.is_contiguous() and scale.is_contiguous()):
-        raise ValueError("quant_matmul kernel needs contiguous operands")
+        raise ValueError(f"{name} kernel needs contiguous operands")
     if w.data_ptr() % 16 or not (w.device == x.device == scale.device):
-        raise ValueError("quant_matmul kernel needs w 16-byte aligned and all operands on one device")
-    ks = ksplit_for(K, N)
+        raise ValueError(f"{name} kernel needs w 16-byte aligned and all operands on one device")
+    ks = ksplit_for(K, N, bits)
     ws = torch.empty((ks, M, N), dtype=torch.float32, device=x.device)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
-    lib = build.library("quant_matmul_int4")
-    err = lib.qmm_int4(x.data_ptr(), w.data_ptr(), scale.data_ptr(), ws.data_ptr(),
-                       out.data_ptr(), M, K, N, ks,
-                       torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(err, "quant_matmul_int4")
+    err = getattr(build.library(name), f"qmm_int{bits}")(
+        x.data_ptr(), w.data_ptr(), scale.data_ptr(), ws.data_ptr(), out.data_ptr(), M, K, N,
+        ks, torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, name)
+    return out
+
+
+def quant_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """int4: x [M, K] @ packed w [K/2, N], times scale [N]."""
+    if not x.is_cuda:
+        return quant_matmul_plain(x, w, scale)
+    out = _launch("quant_matmul_int4", x, w, scale, bits=4)
     quant_matmul.launches += 1
     return out
 
 
+def quant_matmul_int8(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """int8: x [M, K] @ w [K, N], times scale [N]."""
+    if not x.is_cuda:
+        return quant_matmul_plain_int8(x, w, scale)
+    out = _launch("quant_matmul_int8", x, w, scale, bits=8)
+    quant_matmul_int8.launches += 1
+    return out
+
+
 quant_matmul.launches = 0
+quant_matmul_int8.launches = 0

@@ -14,12 +14,26 @@ import numpy as np
 import pytest
 import torch
 
+from llm_inference_lab_tpu_torch.models.base import quantize_rows
 from llm_inference_lab_tpu_torch.models.paged import gather_pages
-from llm_inference_lab_tpu_torch.ops.flash_decode import flash_decode, flash_decode_plain
-from llm_inference_lab_tpu_torch.ops.flash_prefill import flash_prefill
-from llm_inference_lab_tpu_torch.ops.paged_flash import paged_flash, paged_flash_plain
+from llm_inference_lab_tpu_torch.ops.flash_decode import (
+    flash_decode,
+    flash_decode_int8,
+    flash_decode_plain,
+)
+from llm_inference_lab_tpu_torch.ops.flash_prefill import flash_prefill, flash_prefill_int8
+from llm_inference_lab_tpu_torch.ops.paged_flash import (
+    paged_flash,
+    paged_flash_int8,
+    paged_flash_plain,
+)
 from llm_inference_lab_tpu_torch.ops.quant import quantize_int4
-from llm_inference_lab_tpu_torch.ops.quant_matmul import quant_matmul, quant_matmul_plain
+from llm_inference_lab_tpu_torch.ops.quant_matmul import (
+    quant_matmul,
+    quant_matmul_int8,
+    quant_matmul_plain,
+    quant_matmul_plain_int8,
+)
 from llm_inference_lab_tpu_torch.ops.verify import verify_prefix, verify_prefix_plain
 
 
@@ -189,3 +203,99 @@ def test_paged_flash_rejects_misaligned_pool_and_foreign_table(card):
         paged_flash(q, misaligned, misaligned, pos, table)
     with pytest.raises(ValueError, match="device"):
         paged_flash(q, kp, vp, pos, table.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N", [(3072, 5120), (8192, 2048)])
+def test_int8_kernel_matches_plain_and_rows_ignore_m(card, K, N):
+    """Kernel B on random int8 bytes (-128 included) against the plain
+    version on the same inputs in f32, per element: 2^-8 |ref| (bf16
+    output rounding) + 2^-14 of the largest output (f32 sums in another
+    order over K terms). The first M rows of one x: every row has the same
+    bits at M = 1, 5 and 40."""
+    g = torch.Generator(device=card).manual_seed(K + N)
+    w = torch.randint(-128, 128, (2, K, N), generator=g, dtype=torch.int8, device=card)[1]
+    scale = torch.rand((N,), generator=g, device=card) * (0.02 / 127) + 1e-5
+    x = torch.randn((40, K), generator=g, device=card).bfloat16()
+    outs = {}
+    for M in (1, 5, 40):
+        before = quant_matmul_int8.launches
+        got = quant_matmul_int8(x[:M], w, scale)
+        assert quant_matmul_int8.launches == before + 1
+        ref = quant_matmul_plain_int8(x[:M].float(), w, scale)
+        tol = 2.0 ** -8 * ref.abs() + 2.0 ** -14 * ref.abs().max()
+        assert torch.all((got.float() - ref).abs() <= tol)
+        outs[M] = got
+    assert torch.equal(outs[5][:1], outs[1]) and torch.equal(outs[40][:5], outs[5])
+
+
+@pytest.mark.cuda
+def test_int8_kernel_rejects_misaligned_and_strided_weights(card):
+    K, N = 2048, 2048
+    x = torch.zeros((1, K), device=card, dtype=torch.bfloat16)
+    scale = torch.ones((N,), device=card)
+    flat = torch.zeros((K * N + 8,), device=card, dtype=torch.int8)
+    with pytest.raises(ValueError, match="aligned"):
+        quant_matmul_int8(x, flat[8 - 1:-1].view(K, N), scale)
+    with pytest.raises(ValueError, match="contiguous"):
+        quant_matmul_int8(x, flat[:K * N].view(N, K).t(), scale)
+    with pytest.raises(ValueError, match="N % 256"):
+        quant_matmul_int8(x, flat[:K * 128].view(K, 128), scale[:128])
+
+
+def _int8_cache(card, g, shape):
+    """N(0, 1) rows quantized per row on the card: (int8, f32 scales)."""
+    return quantize_rows(torch.randn(shape, generator=g, device=card))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,D,H", [(1, 64, 32), (5, 128, 24), (160, 128, 24)])
+def test_int8_attention_kernels_match_plain_and_each_other(card, S, D, H):
+    """D-, E- and F-int8 over one int8 cache: sequence 0 ends at 180,
+    sequence 1 at 250 with a dead first row; keys past each last position
+    hold bytes 127 with a scale of 0.5 (a masked key let in moves an output
+    by far more than the tolerance). Each within 2^-8 |ref| + 2^-16 of the
+    plain version on f32 q (which dequantizes the cache to f32); E equals D
+    row by row; F over the same keys in shuffled 64-row pages equals D."""
+    g = torch.Generator(device=card).manual_seed(S + D)
+    B, KVH, T, P = 2, 8, 256, 64
+    q = torch.randn((B, S, H, D), generator=g, device=card).bfloat16()
+    k, ks = _int8_cache(card, g, (B, KVH, T, D))
+    v, vs = _int8_cache(card, g, (B, KVH, T, D))
+    last = [180, 250]
+    for b in range(B):
+        for t, st in ((k, ks), (v, vs)):
+            t[b, :, last[b] + 1:] = 127
+            st[b, :, last[b] + 1:] = 0.5
+    pos = torch.tensor(last, device=card, dtype=torch.int32)[:, None] - S + 1
+    pos = (pos + torch.arange(S, device=card, dtype=torch.int32)[None]).contiguous()
+    pos[1, 0] = -1
+    ref = flash_decode_plain(q.float(), k, v, pos, ks, vs)
+    route = flash_decode_int8 if S <= 32 else flash_prefill_int8
+    before = route.launches
+    got = route(q, k, v, pos, ks, vs)
+    assert route.launches == before + 1
+    assert _within(got.float(), ref) and torch.all(got[1, 0] == 0)
+    if S > 32:
+        for j in (1, S // 2, S - 1):
+            qj, pj = q[:, j:j + 1].contiguous(), pos[:, j:j + 1].contiguous()
+            assert torch.equal(flash_decode_int8(qj, k, v, pj, ks, vs), got[:, j:j + 1])
+        return
+    M = T // P
+    table = (torch.randperm(B * M + 2, generator=g, device=card)[: B * M] + 1).view(B, M)
+    table = table.to(torch.int32).contiguous()
+    N = B * M + 3
+
+    def pool(src, tail):
+        dst = torch.zeros((N, KVH, P, *tail), device=card, dtype=src.dtype)
+        dst[table.flatten().long()] = (src.reshape(B, KVH, M, P, *tail).transpose(1, 2)
+                                       .reshape(B * M, KVH, P, *tail))
+        return dst
+
+    kp, vp, ksp, vsp = pool(k, (D,)), pool(v, (D,)), pool(ks, ()), pool(vs, ())
+    assert torch.equal(gather_pages(ksp, table), ks)
+    before = paged_flash_int8.launches
+    paged = paged_flash_int8(q, kp, vp, pos, table, ksp, vsp)
+    assert paged_flash_int8.launches == before + 1
+    assert torch.equal(paged, got)
+    assert _within(paged.float(), paged_flash_plain(q.float(), kp, vp, pos, table, ksp, vsp))

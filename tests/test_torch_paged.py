@@ -75,14 +75,6 @@ def test_paged_write_and_gather_match_jax_exactly():
             jpaged.gather_pages(jk[layer], jnp.asarray(table))))
 
 
-def test_paged_write_refuses_int8_pool():
-    cfg = ModelConfig(n_layers=1, n_heads=2, n_kv_heads=1, d_model=16, dtype=torch.float32)
-    cache = PagedKVCache.create(cfg, 1, 16, "cpu", page_size=8, dtype=torch.int8)
-    slots = page_slots(cache.table, torch.zeros(1, dtype=torch.int32), 1, 8)
-    with pytest.raises(NotImplementedError):
-        write_paged_layer(cache, 0, torch.zeros(1, 1, 1, 8), torch.zeros(1, 1, 1, 8), slots)
-
-
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_page_allocator_matches_jax(seed):
     """The same random alloc/free sequence gives the same pages, the same

@@ -147,6 +147,8 @@ def test_config_rejects_unported_settings():
         EngineConfig(quantize_embed=True, embed_bits=4).validate()
     with pytest.raises(ValueError):
         EngineConfig(quantization="int2").validate()
+    with pytest.raises(ValueError):
+        EngineConfig(kv_quantization="int4").validate()
 
 
 _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|llm_inference_lab_tpu)(\.|\s|$)",
