@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch/CUDA port (llm_inference_lab_tpu_torch) on one
 NVIDIA card: the quickest proof that the port builds and runs on the GPU.
 
-    python3 chip_smoke.py            # phases 0-6, last line a JSON result
-    python3 chip_smoke.py --profile  # also a torch.profiler breakdown of runs
+    python3 chip_smoke.py                  # phases 0-8, last line a JSON result
+    python3 chip_smoke.py --profile        # also a torch.profiler breakdown of runs
+    python3 chip_smoke.py --profile=gemma  # the breakdown of the Gemma-2 runs only
 
 Phases, in order (any failure exits non-zero; nothing is caught and ignored):
  0. the card: nvidia-smi name and power limit, torch's device name;
@@ -18,7 +19,13 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
     path and M = 1, 5, 8, 40 and an admission wave's M, with every row's
     bits independent of M, and the int8-cache variants of flash_decode,
     flash_prefill and paged_flash, each beside its bf16 kernel on the same
-    positions, bit-equal to one another on the same keys and scales;
+    positions, bit-equal to one another on the same keys and scales; then
+    D, E and F at head dim 256 with Gemma-2's options (scale 1/16, softcap
+    50, window 4096 or none: a local and a global layer) and geometries
+    (16/8 and 8/4 heads), bf16 and int8, over T = 4608 with POISON at every
+    key a sequence's rows do not see (below their window, past their
+    position), bit-equal to one another, timed at the Gemma-2 paths'
+    shapes;
  3. end to end at full width: Engine with an int4 llama-3.2-3b target and
     llama-3.2-1b draft (random weights from a seed, int8 embedding/tied
     head), K=1, greedy, 64 new tokens, max_seq_len 512, on bench.py's
@@ -42,8 +49,15 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
     of a generate is within KV_ALIGN_STEPS int8 steps of a fresh prefill;
  5. int8 serving: phase 3b's requests and checks over paged int8 pools (page
     64, max_seq_len 512) on phase 4's weights, against phase 4's generate;
- 6. the kernels' JSON line (every kernel, launches by path), then the
-    result line.
+ 6. Gemma-2 at full width: an int4 gemma-2-9b target and gemma-2-2b draft
+    (random weights from a seed, bf16 tied embedding/head), K=1, greedy,
+    max_seq_len 8192: phase 3's checks on its prompt, then one speculative
+    and one baseline run on a 4320-token prompt (cache T = 4480), where the
+    window of 4096 binds in the prefill (kernel E) and at every decode step
+    (kernel D): their ids must be equal;
+ 7. Gemma-2 serving: phase 3b's requests and checks on phase 6's weights;
+ 8. the kernels' JSON line (every kernel, launches by path; the Gemma-2
+    variants of D, E and F on rows of their own), then the result line.
 
 Without CUDA it exits non-zero before printing any result.
 """
@@ -103,6 +117,17 @@ QMM8_RTOL, QMM8_MTOL = 2.0 ** -8, 2.0 ** -14
 # int8 POISON: keys and values past the last position hold bytes 127 with a
 # scale of 0.5 (63.5, 18x the scale of an N(0, 1) row), in K and V.
 POISON_BYTE, POISON_SCALE = 127, 0.5
+# Gemma-2 (phases 2, 6 and 7): the 9B target and the 2B draft, int4
+# projections, bf16 tied embedding and head, K=1.
+GEMMA_CFG = dict(base_model="gemma-2-9b", draft_model="gemma-2-2b", max_draft=1,
+                 max_new_tokens=64, max_seq_len=8192, quantization="int4", quantized_init=True,
+                 quantize_embed=False, seed=0)
+GEMMA_GEOMS = {"9b": (16, 8, 42), "2b": (8, 4, 26)}  # H, KVH, layers (half of them local)
+GEMMA_OPTS = dict(scale=256.0 ** -0.5, softcap=50.0)  # query_pre_attn_scalar, attn softcap
+GEMMA_WINDOW = 4096
+LONG_PROMPT = PROMPT * 32  # 4320 byte tokens; Engine.decode's cache T = 4480
+T_LONG = 4480
+P_LONG = 4352  # a mid-generation position of the long-prompt run: 4320 + 32
 # The kernels each path must launch (and no other).
 PATH_KERNELS = {
     "generate int4 (3 runs)": {"quant_matmul_int4", "flash_decode", "flash_prefill",
@@ -113,7 +138,14 @@ PATH_KERNELS = {
                                "verify_prefix"},
     "serving int8 (16 requests)": {"quant_matmul_int8", "flash_prefill_int8",
                                    "paged_flash_int8", "verify_prefix"},
+    "generate gemma-2 (3 runs)": {"quant_matmul_int4", "flash_decode", "flash_prefill",
+                                  "verify_prefix"},
+    "generate gemma-2 long prompt (spec + baseline)": {"quant_matmul_int4", "flash_decode",
+                                                       "flash_prefill", "verify_prefix"},
+    "serving gemma-2 (16 requests)": {"quant_matmul_int4", "flash_prefill", "paged_flash",
+                                      "verify_prefix"},
 }
+GEMMA_PATHS = [path for path in PATH_KERNELS if "gemma-2" in path]
 
 
 T_START = time.perf_counter()
@@ -790,6 +822,204 @@ def phase_paged_flash_int8(dev):
     return agg
 
 
+# ------------------------------------------------------- Gemma-2 attention
+def gemma_keys(g, dev, cache, B, KVH, T, pos, window):
+    """K, V [B, KVH, T, 256] (bf16, or int8 with f32 scales) of N(0, 1)
+    rows, with POISON at the keys no live row of a sequence sees: past its
+    largest position and, with a window, at or below its smallest position
+    minus the window. POISON is in K and V (bf16: POISON in every element;
+    int8: POISON_BYTE at POISON_SCALE), so a masked key let in takes over
+    its row's softmax (its score reaches the softcap) and its output."""
+    from llm_inference_lab_tpu_torch.models.base import quantize_rows
+
+    k = torch.randn((B, KVH, T, 256), generator=g, device=dev)
+    v = torch.randn((B, KVH, T, 256), generator=g, device=dev)
+    unseen = torch.zeros((B, KVH, T), dtype=torch.bool, device=dev)
+    for b in range(B):
+        live = pos[b][pos[b] >= 0]
+        unseen[b, :, int(live.max()) + 1:] = True
+        if window:
+            unseen[b, :, : max(int(live.min()) - window + 1, 0)] = True
+    if cache == "int8":
+        (k, ks), (v, vs) = quantize_rows(k), quantize_rows(v)
+        for t, st in ((k, ks), (v, vs)):
+            t[unseen] = POISON_BYTE
+            st[unseen] = POISON_SCALE
+        return k, v, ks, vs
+    k[unseen] = POISON
+    v[unseen] = POISON
+    return k.bfloat16(), v.bfloat16(), None, None
+
+
+def to_pages(g, dev, tensors, P):
+    """The same keys (and scales) [B, KVH, T(, D)] in shuffled P-row pages
+    [B * M + 1, KVH, P(, D)] (page 0 unused) through a table [B, M]."""
+    B, KVH, T = tensors[0].shape[:3]
+    M = T // P
+    table = (torch.randperm(B * M, generator=g, device=dev) + 1).reshape(B, M)
+    table = table.to(torch.int32).contiguous()
+    pools = []
+    for src in tensors:
+        tail = src.shape[3:]
+        dst = torch.zeros((B * M + 1, KVH, P, *tail), device=dev, dtype=src.dtype)
+        dst[table.flatten().long()] = (src.reshape(B, KVH, M, P, *tail).transpose(1, 2)
+                                       .reshape(B * M, KVH, P, *tail))
+        pools.append(dst)
+    return pools, table
+
+
+def seen_keys(pos, window):
+    """(keys from the lowest first visible key to the largest position, per
+    sequence, summed; (row, key) pairs the mask keeps) for positions [B, S]."""
+    keys = pairs = 0
+    for row in pos.tolist():
+        live = [p for p in row if p >= 0]
+        lo = max(min(live) - window + 1, 0) if window else 0
+        keys += max(live) - lo + 1
+        pairs += sum(min(p + 1, window) if window else p + 1 for p in live)
+    return keys, pairs
+
+
+def sdpa_masked(q, k, v, pos, window):
+    """The library yardstick for Gemma-2's attention (timed only, never
+    used): SDPA with the position and window mask as a boolean mask. It
+    computes less than the kernels: no softcap."""
+    T = k.shape[2]
+    kv = torch.arange(T, device=q.device)[None, None, None, :]
+    p = pos[:, None, :, None]
+    mask = (kv <= p) & (kv > p - window) if window else kv <= p
+    out = torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k, v, attn_mask=mask, scale=GEMMA_OPTS["scale"], enable_gqa=True)
+    return out.transpose(1, 2)
+
+
+def phase_gemma_attention(dev):
+    """D, E and F at head dim 256 with Gemma-2's options. Checks: both
+    geometries, bf16 and int8 caches, window 4096 (a local layer) and none
+    (a global one), T = 4608: decode rows (S = 1, 2) of four sequences
+    ending at 4096 (the window cuts key 0), 4200, 4607 and 300, one row
+    dead; prefill rows (S = 160) at 4000..4159 (crossing 4096) and
+    4448..4607 with a dead row. Each within FLASH_RTOL / FLASH_ATOL of its
+    plain version on f32 q, finite, dead rows zero; E == D and F (shuffled
+    64-row pages) == D on the decode rows, D == E on single prefill rows.
+    Times (bf16): D at the long-prompt decode step, E at the long prompt's
+    prefill, F at the Gemma-2 serving step."""
+    from llm_inference_lab_tpu_torch.models.paged import gather_pages
+    from llm_inference_lab_tpu_torch.ops.flash_decode import (
+        flash_decode,
+        flash_decode_int8,
+        flash_decode_plain,
+    )
+    from llm_inference_lab_tpu_torch.ops.flash_prefill import flash_prefill, flash_prefill_int8
+    from llm_inference_lab_tpu_torch.ops.paged_flash import (
+        paged_flash,
+        paged_flash_int8,
+        paged_flash_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    kernels = {"bf16": (flash_decode, flash_prefill, paged_flash),
+               "int8": (flash_decode_int8, flash_prefill_int8, paged_flash_int8)}
+    errs = {"flash_decode": 0.0, "flash_prefill": 0.0, "paged_flash": 0.0}
+    T = 4608
+    for H, KVH, _ in GEMMA_GEOMS.values():
+        for cache, (dk, ek, fk) in kernels.items():
+            for window in (GEMMA_WINDOW, None):
+                opts = dict(GEMMA_OPTS, window=window)
+                what = f"H={H} KVH={KVH} {cache} window={window}"
+                for S, last in ((1, (4096, 4200, 4607, 300)), (2, (4096, 4200, 4607, 300)),
+                                (160, (4159, 4607))):
+                    B = len(last)
+                    pos = (torch.tensor(last, device=dev, dtype=torch.int32)[:, None] - S + 1
+                           + torch.arange(S, device=dev, dtype=torch.int32)[None]).contiguous()
+                    if S > 1:
+                        pos[-1, 0] = -1
+                    k, v, ks, vs = gemma_keys(g, dev, cache, B, KVH, T, pos, window)
+                    q = torch.randn((B, S, H, 256), generator=g, device=dev).bfloat16()
+                    sc = (ks, vs) if cache == "int8" else ()
+                    ref = flash_decode_plain(q.float(), *((k, v) if sc else (k.float(), v.float())),
+                                             pos, *sc, **opts)
+                    got = (dk if S <= 32 else ek)(q, k, v, pos, *sc, **opts)
+                    name = "flash_decode" if S <= 32 else "flash_prefill"
+                    errs[name] = max(errs[name], check_close(got.float(), ref, (name, what, S)))
+                    if S > 1:
+                        assert torch.all(got[-1, 0] == 0), (what, S, "dead row not zero")
+                    if S <= 32:
+                        assert torch.equal(ek(q, k, v, pos, *sc, **opts), got), (what, S, "E != D")
+                        pools, table = to_pages(g, dev, (k, v, *sc), SERVE_PAGE)
+                        paged = fk(q, pools[0], pools[1], pos, table, *pools[2:], **opts)
+                        assert torch.equal(paged, got), (what, S, "F != D")
+                        kv_f = pools[:2] if sc else [t.float() for t in pools[:2]]
+                        ref_f = paged_flash_plain(q.float(), *kv_f, pos, table, *pools[2:], **opts)
+                        errs["paged_flash"] = max(errs["paged_flash"],
+                                                  check_close(paged.float(), ref_f, ("F", what, S)))
+                        del pools
+                    else:
+                        for j in (0, 95, 96, 159):  # row 96 of sequence 0 is at 4096
+                            qj, pj = q[:, j:j + 1].contiguous(), pos[:, j:j + 1].contiguous()
+                            assert torch.equal(dk(qj, k, v, pj, *sc, **opts), got[:, j:j + 1]), \
+                                (what, j, "D != E on a prefill row")
+                    del k, v, ref
+                log(f"gemma-2 attention D=256 {what}: D (S=1, 2), E (S=160) and F within "
+                    f"tolerance of their plain versions with POISON outside every row's keys; "
+                    f"E == D, F == D, D == E per prefill row; dead rows zero")
+    timed = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bound_by="bytes",
+                        max_abs_err=err) for name, err in errs.items()}
+
+    def add(name, n, ms, plain, lib, b, by, what):
+        log(f"{name} gemma-2 {what}: {ms:.4f} ms  plain {plain:.4f}  library {lib:.4f} "
+            f"(SDPA + mask, no softcap)  bound {b:.5f} ({by})")
+        agg = timed[name]
+        for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib), ("bound_ms", b)):
+            agg[key] += n * val
+        if by == "operations":
+            agg["bound_by"] = by
+
+    # D at the long-prompt decode step (p = P_LONG, T = T_LONG): the 2B
+    # draft's S=1 and the 9B verify's S=2, on local and global layers; E at
+    # the long prompt's prefill (S = 4320 from position 0, T = T_LONG).
+    for (H, KVH, layers), S in zip(GEMMA_GEOMS.values(), (2, 1)):
+        for window in (GEMMA_WINDOW, None):
+            opts = dict(GEMMA_OPTS, window=window)
+            L = 2 * L2_BYTES // (2 * KVH * T_LONG * 256 * 2) + 1
+            for Sq, p_last, name in ((S, P_LONG, "flash_decode"), (4320, 4319, "flash_prefill")):
+                q, k, v, pos = flash_inputs(g, dev, 1, Sq, H, KVH, T_LONG, 256, p_last, L=L)
+                fn = flash_decode if name == "flash_decode" else flash_prefill
+                cyc = Cycle(L)
+                ms = median_ms(lambda: fn(q, k[cyc()], v[cyc.i], pos, **opts),
+                               iters=25 if Sq <= 32 else 5, warmup=3 if Sq <= 32 else 1)
+                plain = median_ms(lambda: flash_decode_plain(q, k[cyc()], v[cyc.i], pos, **opts),
+                                  iters=10 if Sq <= 32 else 3, warmup=1)
+                lib = median_ms(lambda: sdpa_masked(q, k[cyc()], v[cyc.i], pos, window),
+                                iters=10 if Sq <= 32 else 3, warmup=1)
+                keys, pairs = seen_keys(pos, window)
+                b, by = bound_ms(2 * KVH * keys * 256 * 2 + 2 * 2 * Sq * H * 256 + 4 * Sq,
+                                 4 * H * pairs * 256)
+                add(name, layers // 2, ms, plain, lib, b, by,
+                    f"H={H} S={Sq} T={T_LONG} p_last={p_last} window={window}")
+                del q, k, v
+    # F at the serving step: 8 slots near position 250, 64-row pages,
+    # 1024 positions a sequence (the window does not bind: scale + softcap).
+    B = 8
+    last = [246 + b for b in range(B)]
+    for (H, KVH, layers), S in zip(GEMMA_GEOMS.values(), (2, 1)):
+        M = SERVE_MAX_LEN // SERVE_PAGE
+        L = 2 * L2_BYTES // (2 * (B * M + 1) * KVH * SERVE_PAGE * 256 * 2) + 1
+        q, _, _, kp, vp, table, pos = paged_inputs(g, dev, B, S, H, KVH, 256, SERVE_PAGE, last, L=L)
+        cyc = Cycle(L)
+        ms = median_ms(lambda: paged_flash(q, kp[cyc()], vp[cyc.i], pos, table, **GEMMA_OPTS))
+        plain = median_ms(lambda: paged_flash_plain(q, kp[cyc()], vp[cyc.i], pos, table,
+                                                    **GEMMA_OPTS), iters=10)
+        lib = median_ms(lambda: sdpa_masked(q, gather_pages(kp[cyc()], table),
+                                            gather_pages(vp[cyc.i], table), pos, None), iters=10)
+        keys, pairs = seen_keys(pos, None)
+        b, by = bound_ms(2 * KVH * keys * 256 * 2 + 2 * 2 * B * S * H * 256 + 4 * B * S
+                         + 4 * table.numel(), 4 * H * pairs * 256)
+        add("paged_flash", layers, ms, plain, lib, b, by, f"B={B} H={H} S={S} P={SERVE_PAGE} p~250")
+        del kp, vp
+    return timed
+
+
 def count_launches(path, run):
     """Set every kernel's launch count to 0, call run(), read the counts, and
     check that exactly the kernels of `path` launched."""
@@ -832,7 +1062,7 @@ def phase_end_to_end(dev, profile, cfg, path, label):
     base_eng.generate(PROMPT)
     bases = [base_eng.generate(PROMPT) for _ in range(3)]
     assert all(b["generated_ids"] == ids for b in bases), "speculative output differs from baseline"
-    # The random 1B draft never agrees with the random 3B target, so the run
+    # The random draft never agrees with the random target, so the run
     # above rejects every draft. Drafting with the target's own weights
     # accepts drafts and runs the accept and full-accept bonus paths. (Not
     # every draft: after a full accept the draft cache lacks the last
@@ -842,7 +1072,7 @@ def phase_end_to_end(dev, profile, cfg, path, label):
                   draft_params=eng.target.params).generate(PROMPT)
     assert same["generated_ids"] == ids, "self-drafted output differs from baseline"
     assert same["accepted"] > 0, "the self-drafted run accepted no draft"
-    log(f"self-drafted 3B (target weights as draft): acceptance {same['acceptance_rate']:.4f}, "
+    log(f"self-drafted (target weights as draft): acceptance {same['acceptance_rate']:.4f}, "
         f"steps {same['steps']}, {same['tokens_per_sec']:.2f} tok/s; ids == baseline ids")
 
     def timing(rs):
@@ -851,15 +1081,47 @@ def phase_end_to_end(dev, profile, cfg, path, label):
         return (f"median {tps:.2f} tok/s, {step_ms:.3f} ms/step, "
                 f"runs tok/s {[round(r['tokens_per_sec'], 2) for r in rs]}")
 
-    log(f"end to end ({label}, B=1, 64 new tokens): {timing(runs)}, "
+    log(f"end to end ({label}, B=1, {cfg.max_new_tokens} new tokens): {timing(runs)}, "
         f"steps {runs[0]['steps']}, acceptance {runs[0]['acceptance_rate']:.4f}, "
         f"generated {runs[0]['generated_tokens']}, peak memory {peak_mb:.1f} MB; "
-        f"baseline (3B alone): {timing(bases)}, steps {bases[0]['steps']}; "
+        f"baseline (target alone): {timing(bases)}, steps {bases[0]['steps']}; "
         f"spec ids == baseline ids")
     if profile:
         profile_run(f"generate ({label})", lambda: eng.generate(PROMPT),
                     statistics.median(r["latency_ms"] for r in runs))
     return eng, launches
+
+
+def phase_long_prompt(dev, eng, path):
+    """Phase 6's long prompt: one speculative and one baseline generate on
+    LONG_PROMPT (4320 tokens, cache T = 4480 > the window), in one launch
+    count. Their ids must be equal and every logprob finite."""
+    from llm_inference_lab_tpu_torch.core.engine import Engine, _round_up
+
+    cfg = eng.config
+    n = len(eng.encode(LONG_PROMPT, cfg.max_new_tokens, cfg.max_seq_len))
+    T = _round_up(_round_up(n, 32) + cfg.max_new_tokens + cfg.max_draft + 2, 128)
+    assert n == 4320 and T == T_LONG > GEMMA_WINDOW, (n, T)
+    base = Engine(replace(cfg, draft_model=None), device=dev, target_params=eng.target.params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (spec, bl), launches = count_launches(
+        path, lambda: (eng.generate(LONG_PROMPT), base.generate(LONG_PROMPT)))
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    assert spec["generated_ids"] == bl["generated_ids"], "long prompt: spec ids != baseline ids"
+    for r in (spec, bl):
+        lp = torch.tensor(r["token_logprobs"] + r["prompt_logprobs"][1:])
+        assert r["generated_tokens"] >= 1 and torch.isfinite(lp).all(), "bad long-prompt logprobs"
+
+    def secs(r):
+        decode = r["generation_time_ms"] / 1e3
+        return (f"prefill {r['latency_ms'] / 1e3 - decode:.3f} s, decode {decode:.3f} s "
+                f"({r['tokens_per_sec']:.2f} tok/s, {r['steps']} steps)")
+
+    log(f"long prompt ({n} tokens, T={T}, window {GEMMA_WINDOW} binds): spec {secs(spec)}, "
+        f"acceptance {spec['acceptance_rate']:.4f}; baseline {secs(bl)}; peak memory "
+        f"{peak_mb:.1f} MB; spec ids == baseline ids")
+    return launches
 
 
 def phase_kv_alignment(eng):
@@ -924,7 +1186,8 @@ def row_stability(eng, dev):
             and not isinstance(params["embed"], torch.Tensor) else "tied bf16 head (torch.matmul)")
     ops = {
         "rms_norm (torch mean over d_model)":
-            lambda a: rms_norm(a, params["layers"]["attn_norm_scale"][0], cfg.rms_norm_eps),
+            lambda a: rms_norm(a, params["layers"]["attn_norm_scale"][0], cfg.rms_norm_eps,
+                               cfg.rms_one_offset),
         head: lambda a: lm_head_logits(cfg, params, a),
         kernel: lambda a: dense(a, w),
     }
@@ -1104,8 +1367,23 @@ def main(argv):
                              "ops/pallas/paged_flash.py:171",
                              "one K=4 decode step of the 8-slot int8 serving batch"),
     }
+    gemma = phase_gemma_attention(dev)
+    kernels.update({
+        "flash_decode/gemma-2": (
+            gemma["flash_decode"], "flash_decode", "ops/pallas/flash_decode.py:146",
+            "one K=1 decode step of the Gemma-2 long-prompt path (p=4352, T=4480: 26 draft "
+            "layers at S=1, 42 verify layers at S=2, half of each windowed)"),
+        "flash_prefill/gemma-2": (
+            gemma["flash_prefill"], "flash_prefill", "ops/pallas/flash_prefill.py:86",
+            "the Gemma-2 long prompt's prefill (S=4320, T=4480) through 26 + 42 layers, half "
+            "windowed"),
+        "paged_flash/gemma-2": (
+            gemma["paged_flash"], "paged_flash", "ops/pallas/paged_flash.py:82",
+            "one K=1 decode step of the 8-slot Gemma-2 serving batch (26 + 42 layers)"),
+    })
     log(f"phase 2 took {time.perf_counter() - t0:.1f} s")
     profile = "--profile" in argv
+    profile_gemma = profile or "--profile=gemma" in argv
     paths = list(PATH_KERNELS)
     on_path = {}
     t0 = time.perf_counter()
@@ -1129,17 +1407,37 @@ def main(argv):
     on_path[paths[3]] = phase_serving(dev, eng, profile, INT8_MAX_LEN, paths[3],
                                       "3B int8 + 1B draft, K=4, int8 KV")
     log(f"phase 5 took {time.perf_counter() - t0:.1f} s")
+    del eng
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    label = "Gemma-2 9B int4 + 2B draft, K=1"
+    eng, on_path[paths[4]] = phase_end_to_end(dev, profile_gemma, GEMMA_CFG, paths[4], label)
+    on_path[paths[5]] = phase_long_prompt(dev, eng, paths[5])
+    log(f"phase 6 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    on_path[paths[6]] = phase_serving(dev, eng, profile_gemma, SERVE_MAX_LEN, paths[6], label)
+    log(f"phase 7 took {time.perf_counter() - t0:.1f} s")
+
+    def counted(name):
+        """The paths whose launches a row counts: a Gemma-2 row its paths,
+        the bf16 D, E and F rows the Llama paths, every other row all."""
+        if name.endswith("/gemma-2"):
+            return GEMMA_PATHS
+        if name in ("flash_decode", "flash_prefill", "paged_flash"):
+            return [path for path in paths if path not in GEMMA_PATHS]
+        return paths
 
     line = {"kernels": [
         {"name": name, "route": "cuda",
          "source": f"llm_inference_lab_tpu_torch/csrc/{src}.cu",
          "replaces": f"llm_inference_lab_tpu/{where}",
-         "launches": sum(n[name] for n in on_path.values()),
-         "launches_by_path": {path: n[name] for path, n in on_path.items()},
+         "launches": sum(on_path[path][name.split("/")[0]] for path in counted(name)),
+         "launches_by_path": {path: on_path[path][name.split("/")[0]] for path in counted(name)},
          "max_abs_err": agg["max_abs_err"],
          "ms": agg["ms"], "plain_ms": agg["plain_ms"], "bound_ms": agg["bound_ms"],
          "bound_by": agg["bound_by"], "library_ms": agg["library_ms"], "per": per}
         for name, (agg, src, where, per) in kernels.items()]}
+    log(f"whole run took {time.perf_counter() - T_START:.1f} s")
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -48,25 +48,27 @@ SIGNATURES = {
     },
     "flash_decode": {
         # q, k, v, positions, out, B, S, H, KVH, T, D, stride_kb, stride_kh,
-        # scale, stream
-        "flash_decode_bf16": [P, P, P, P, P, I, I, I, I, I, I, LL, LL, F, P],
+        # scale, softcap, window, stream
+        "flash_decode_bf16": [P, P, P, P, P, I, I, I, I, I, I, LL, LL, F, F, I, P],
         # q, k, v, k_scale, v_scale, positions, out, B, S, H, KVH, T, D,
-        # stride_kb, stride_kh, stride_sb, stride_sh, scale, stream
-        "flash_decode_int8": [P, P, P, P, P, P, P, I, I, I, I, I, I, LL, LL, LL, LL, F, P],
+        # stride_kb, stride_kh, stride_sb, stride_sh, scale, softcap, window,
+        # stream
+        "flash_decode_int8": [P, P, P, P, P, P, P, I, I, I, I, I, I, LL, LL, LL, LL, F, F, I, P],
     },
     "flash_prefill": {
         # the arguments of flash_decode_bf16
-        "flash_prefill_bf16": [P, P, P, P, P, I, I, I, I, I, I, LL, LL, F, P],
+        "flash_prefill_bf16": [P, P, P, P, P, I, I, I, I, I, I, LL, LL, F, F, I, P],
         # the arguments of flash_decode_int8
-        "flash_prefill_int8": [P, P, P, P, P, P, P, I, I, I, I, I, I, LL, LL, LL, LL, F, P],
+        "flash_prefill_int8": [P, P, P, P, P, P, P, I, I, I, I, I, I, LL, LL, LL, LL, F, F, I, P],
     },
     "paged_flash": {
         # q, k_pool, v_pool, table, positions, out, B, S, H, KVH, M, P, D,
-        # stride_page, scale, stream
-        "paged_flash_bf16": [P, P, P, P, P, P, I, I, I, I, I, I, I, LL, F, P],
+        # stride_page, scale, softcap, window, stream
+        "paged_flash_bf16": [P, P, P, P, P, P, I, I, I, I, I, I, I, LL, F, F, I, P],
         # q, k_pool, v_pool, k_scale, v_scale, table, positions, out, B, S, H,
-        # KVH, M, P, D, stride_page, stride_spage, scale, stream
-        "paged_flash_int8": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, LL, LL, F, P],
+        # KVH, M, P, D, stride_page, stride_spage, scale, softcap, window,
+        # stream
+        "paged_flash_int8": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, LL, LL, F, F, I, P],
     },
     "verify_prefix": {
         # draft, logits, arg_ws, mask, accept_len, B, K, V, row_stride, batch_stride, stream

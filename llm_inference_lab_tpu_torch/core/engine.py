@@ -1,9 +1,10 @@
 """Engine: speculative-decoding generation on one device.
 
 Port of llm_inference_lab_tpu/core/engine.py (``Engine.generate`` /
-``generate_batch`` and ``_build_results``) for the ported slice: Llama
-target and draft, vanilla drafting at a fixed K, greedy longest_prefix
-acceptance, weight-only int4/int8 with an optional int8 embedding/tied head,
+``generate_batch`` and ``_build_results``) for the ported slice: Llama or
+Gemma target and draft (models/registry.py), vanilla drafting at a fixed K,
+greedy longest_prefix acceptance, weight-only int4/int8 with an optional
+int8 embedding/tied head,
 a contiguous or paged KV cache (``kv_layout``) of the model dtype or int8
 (``kv_quantization``). Prompt bucketing, the
 out-of-vocab clamp and the result keys follow the JAX engine. The serving
@@ -33,7 +34,7 @@ from llm_inference_lab_tpu_torch.core.specstep import (
     make_spec_step,
 )
 from llm_inference_lab_tpu_torch.core.state import DecodeState, init_state
-from llm_inference_lab_tpu_torch.models import llama
+from llm_inference_lab_tpu_torch.models import registry
 from llm_inference_lab_tpu_torch.ops.quant import quantize_params
 from llm_inference_lab_tpu_torch.utils.tokenizer import ByteTokenizer
 
@@ -58,12 +59,12 @@ class Engine:
         qinit = cfg.quantization if (cfg.quantized_init and cfg.quantization) else None
         model_kw = dict(device=self.device, dtype=dtype, quantized_init=qinit,
                         quantize_embed=cfg.quantize_embed)
-        self.target = llama.create(cfg.base_model, seed=cfg.seed, params=target_params,
-                                   **model_kw)
+        self.target = registry.create(cfg.base_model, seed=cfg.seed, params=target_params,
+                                      **model_kw)
         self.draft = None
         if cfg.draft_model is not None:
-            self.draft = llama.create(cfg.draft_model, seed=cfg.seed + 1, params=draft_params,
-                                      **model_kw)
+            self.draft = registry.create(cfg.draft_model, seed=cfg.seed + 1, params=draft_params,
+                                         **model_kw)
         if cfg.quantization and not cfg.quantized_init:
             for m in (self.target, self.draft):
                 if m is not None:

@@ -4,43 +4,58 @@
 //
 // Replaces the tile body the three Pallas kernels share:
 // llm_inference_lab_tpu/ops/pallas/flash_decode.py _accum_tile / _finalize
-// (chain mask kv_pos <= p, scale D**-0.5, f32 m / l / accumulator), for a
-// bf16 cache and for an int8 cache with per-key f32 scales (the Pallas
-// _kernel_quant variants).
+// (chain mask kv_pos <= p, f32 m / l / accumulator) with its static options
+// scale (default D**-0.5), softcap and window, for a bf16 cache and for an
+// int8 cache with per-key f32 scales (the Pallas _kernel_quant variants).
+// The ring cache's modular mask (ring_len) is not ported.
 //
-// A block owns one (b, kv head) and ROWS = 16 * warps query rows, where row
-// r stands for query position s = r / group and head h * group + r % group:
-// the GQA group is folded into the rows. Its q rows are staged in shared
-// memory; then the block walks 32-key tiles of K and V (also in shared
-// memory) up to the largest position among its rows. One lane owns one key
-// for the scores; one warp owns one query row for the online softmax; the
-// P.V product broadcasts each p_j by shuffle and each lane accumulates D/32
-// output columns.
+// A block owns one (b, kv head) and rows_per_warp<D> * warps query rows,
+// where row r stands for query position s = r / group and head h * group +
+// r % group: the GQA group is folded into the rows. Its q rows are staged in
+// shared memory; then the block walks 32-key tiles of K and V (also in
+// shared memory) from the lowest first visible key among its rows up to the
+// largest position among them. One lane owns one key for the scores; one
+// warp owns one query row for the online softmax; the P.V product
+// broadcasts each p_j by shuffle and each lane accumulates D/32 output
+// columns. A warp holds acc[rows][D/32] per lane, so it takes 16 rows at
+// D <= 128 and 8 at D = 256 (64 accumulator registers either way).
+//
+// Options (runtime arguments, 0 = off; with all three off the arithmetic is
+// the plain chain mask's, instruction for instruction):
+//  * scale: the score scale (Gemma-2's query_pre_attn_scalar**-0.5).
+//  * softcap: s -> softcap * tanh(s / softcap), after the score scale (and
+//    for int8 after k's per-key scale) and before the mask, as in Pallas.
+//  * window: a row at position p also masks keys at or below p - window
+//    (Mistral, Gemma-2's local layers).
 //
 // The int8 cache (T = int8_t): the tile holds K and V as int8 (half the
 // shared memory of bf16) and the keys' k and v scales. As in the Pallas
-// body, k's scale multiplies the score column after the D**-0.5 scale
+// body, k's scale multiplies the score column after the score scale
 // (dot(q, k) * scale * ks[j]), the softmax sum l takes the unscaled p_j,
 // and v's scale multiplies p_j before the P.V product (p_j * vs[j]), so the
 // tiles are never dequantized. A key not loaded has zero bytes and zero
 // scales.
 //
 // Row independence, on which the engine's parity rests: a row skips every
-// tile that starts after its position, and keys at or past the block's end
-// are loaded as zeros and masked. So a row's bits depend only on its own
-// position, its q and the keys [0, p] (and their scales): not on S, the
-// other rows of its block, how many rows a block holds, T beyond p, or
-// whether the keys are read from a contiguous plane or through a page
-// table. D, E and F give the same bits for the same keys. The softmax
+// tile that starts after its position and, with a window, every tile that
+// ends before its first visible key p - window + 1; keys at or past the
+// block's end are loaded as zeros and masked. So a row's bits depend only on
+// its own position, its q and the keys (p - window, p] (and their scales):
+// not on S, the other rows of its block, how many rows a block or a warp
+// holds, T beyond p, or whether the keys are read from a contiguous plane or
+// through a page table. D, E and F give the same bits for the same keys.
+// Skipping the tiles below the window is also what keeps the running max
+// finite: every tile a row processes holds a key it sees. The softmax
 // arithmetic is written with explicit rounding intrinsics (__fmul_rn,
-// __fsub_rn, __fmaf_rn), so the compiler cannot contract it differently in
-// the three kernels. A row with no visible key (position -1) returns zeros,
-// as attend_xla does (the Pallas body returns the mean of V).
+// __fsub_rn, __fmaf_rn, __fdiv_rn), so the compiler cannot contract it
+// differently in the three kernels. A row with no visible key (position -1)
+// returns zeros, as attend_xla does (the Pallas body returns the mean of V).
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -48,8 +63,32 @@
 
 namespace attn {
 
-constexpr int BT = 32;   // keys per tile: one per lane
-constexpr int RPW = 16;  // query rows per warp
+constexpr int BT = 32;  // keys per tile: one per lane
+
+// Query rows per warp: acc[RPW][D / 32] stays at 64 f32 registers a lane.
+template <int D>
+constexpr int RPW = D <= 128 ? 16 : 8;
+
+// The static options of the Pallas tile body; 0 turns softcap and window off.
+struct Options {
+  float scale;    // score scale
+  float softcap;  // > 0: s -> softcap * tanh(s / softcap)
+  int window;     // > 0: keys (p - window, p] only
+};
+
+// First key a row at position p >= 0 sees.
+__device__ __forceinline__ int first_key(int p, int window) {
+  return window > 0 ? max(p - window + 1, 0) : 0;
+}
+
+// Lets `kernel` take up to `dyn` bytes of dynamic shared memory beside its
+// `stat` bytes of static shared memory, where the two pass the default 48 KB
+// a block may take. Set once per kernel (the first launch).
+template <class Kernel>
+cudaError_t allow_shared(Kernel kernel, size_t dyn, size_t stat) {
+  if (dyn + stat <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -120,30 +159,37 @@ __device__ __forceinline__ void int8_cols(const int8_t* p, float (&f)[DPL]) {
   if constexpr (DPL == 4) {
     const char4 c = *reinterpret_cast<const char4*>(p);
     f[0] = (float)c.x, f[1] = (float)c.y, f[2] = (float)c.z, f[3] = (float)c.w;
+  } else if constexpr (DPL == 8) {
+    const int2 c = *reinterpret_cast<const int2*>(p);
+    const char4 a = *reinterpret_cast<const char4*>(&c.x), b = *reinterpret_cast<const char4*>(&c.y);
+    f[0] = (float)a.x, f[1] = (float)a.y, f[2] = (float)a.z, f[3] = (float)a.w;
+    f[4] = (float)b.x, f[5] = (float)b.y, f[6] = (float)b.z, f[7] = (float)b.w;
   } else {
-    static_assert(DPL == 2, "head dim 64 or 128");
+    static_assert(DPL == 2, "head dim 64, 128 or 256");
     const char2 c = *reinterpret_cast<const char2*>(p);
     f[0] = (float)c.x, f[1] = (float)c.y;
   }
 }
 
 // The whole block: q [B, S, H, D] bf16, positions [B, S] int32, out
-// [B, S, H, D] bf16; rows [r0, r0 + ROWS) of sequence b, kv head h; keys
-// [0, T) available, of element type T_ (bf16, or int8 with scales). qs:
-// shared memory for ROWS * D bf16 (16-byte aligned).
+// [B, S, H, D] bf16; rows [r0, r0 + RPW<D> * warps) of sequence b, kv head
+// h; keys [0, T) available, of element type T_ (bf16, or int8 with scales).
+// qs: shared memory for that many rows of D bf16 (16-byte aligned).
 template <int D, class T_, class Keys>
 __device__ __forceinline__ void attend_rows(const __nv_bfloat16* __restrict__ q,
                                             const int* __restrict__ pos,
                                             __nv_bfloat16* __restrict__ out, const Keys& keys,
                                             int b, int h, int S, int H, int KVH, int r0, int T,
-                                            float scale, __nv_bfloat16* qs, Tile<D, T_>& tile,
-                                            int& kmax_s) {
+                                            const Options opt, __nv_bfloat16* qs,
+                                            Tile<D, T_>& tile, int& kmax_s, int& kmin_s) {
   constexpr bool INT8 = std::is_same<T_, int8_t>::value;
   constexpr int DPL = D / 32;  // output columns per lane
   constexpr int C8 = D / 8;    // 16-byte chunks per q row
   constexpr int KC = D * (int)sizeof(T_) / 16;  // 16-byte chunks per K / V row
   constexpr int EPC = 16 / (int)sizeof(T_);     // cache elements per chunk
-  const int nthreads = blockDim.x, warps = nthreads / 32, rows = warps * RPW;
+  constexpr int R = RPW<D>;
+  constexpr int DOT_UNROLL = C8 < 16 ? C8 : 16;  // q.k chunks in flight
+  const int nthreads = blockDim.x, warps = nthreads / 32, rows = warps * R;
   const int group = H / KVH;
   const int nrows = S * group;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -157,20 +203,24 @@ __device__ __forceinline__ void attend_rows(const __nv_bfloat16* __restrict__ q,
     }
     *reinterpret_cast<uint4*>(qs + (size_t)lr * D + c * 8) = val;
   }
-  if (threadIdx.x == 0) kmax_s = -1;
+  if (threadIdx.x == 0) kmax_s = -1, kmin_s = INT_MAX;
   __syncthreads();
   for (int lr = threadIdx.x; lr < rows; lr += nthreads) {
     const int r = r0 + lr;
-    if (r < nrows) atomicMax(&kmax_s, pos[b * S + r / group]);
+    const int p = r < nrows ? pos[b * S + r / group] : -1;
+    if (p >= 0) atomicMax(&kmax_s, p), atomicMin(&kmin_s, first_key(p, opt.window));
   }
   __syncthreads();
+  // Tiles [tfirst, ntiles): from the lowest first visible key to the largest
+  // position (no tile at all when every row is dead).
   const int kend = min(kmax_s + 1, T);
   const int ntiles = kend > 0 ? (kend + BT - 1) / BT : 0;
+  const int tfirst = kend > 0 ? kmin_s / BT : 0;
 
-  float m[RPW], l[RPW], acc[RPW][DPL];
-  int prow[RPW];
+  float m[R], l[R], acc[R][DPL];
+  int prow[R];
 #pragma unroll
-  for (int i = 0; i < RPW; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int r = r0 + warp + warps * i;
     prow[i] = r < nrows ? pos[b * S + r / group] : -1;
     m[i] = -INFINITY;
@@ -179,7 +229,7 @@ __device__ __forceinline__ void attend_rows(const __nv_bfloat16* __restrict__ q,
     for (int d = 0; d < DPL; ++d) acc[i][d] = 0.f;
   }
 
-  for (int t = 0; t < ntiles; ++t) {
+  for (int t = tfirst; t < ntiles; ++t) {
     const int t0 = t * BT;
     __syncthreads();
     for (int e = threadIdx.x; e < BT * KC; e += nthreads) {
@@ -203,9 +253,11 @@ __device__ __forceinline__ void attend_rows(const __nv_bfloat16* __restrict__ q,
     }
     __syncthreads();
 #pragma unroll
-    for (int i = 0; i < RPW; ++i) {
+    for (int i = 0; i < R; ++i) {
       const int p = prow[i];
-      if (p < t0) continue;  // warp-uniform: nothing visible in this tile
+      // Warp-uniform: nothing visible in this tile (it starts after p, or
+      // ends before the row's first visible key).
+      if (p < t0 || (opt.window > 0 && t0 + BT + opt.window <= p + 1)) continue;
       const __nv_bfloat16* qrow = qs + (size_t)(warp + warps * i) * D;
       float dot = 0.f;
       if constexpr (INT8) {
@@ -230,7 +282,7 @@ __device__ __forceinline__ void attend_rows(const __nv_bfloat16* __restrict__ q,
           }
         }
       } else {
-#pragma unroll
+#pragma unroll (DOT_UNROLL)
         for (int c = 0; c < C8; ++c) {
           const uint4 kv4 = *reinterpret_cast<const uint4*>(&tile.k[lane][c * 8]);
           const uint4 qv4 = *reinterpret_cast<const uint4*>(qrow + c * 8);
@@ -245,12 +297,15 @@ __device__ __forceinline__ void attend_rows(const __nv_bfloat16* __restrict__ q,
           }
         }
       }
+      const int key = t0 + lane;
       float sc = -INFINITY;
-      if (t0 + lane <= p && t0 + lane < T) {
-        sc = __fmul_rn(dot, scale);
+      if (key <= p && key < T && (opt.window <= 0 || key > p - opt.window)) {
+        sc = __fmul_rn(dot, opt.scale);
         if constexpr (INT8) sc = __fmul_rn(sc, tile.ks[lane]);
+        if (opt.softcap > 0.f) sc = __fmul_rn(tanhf(__fdiv_rn(sc, opt.softcap)), opt.softcap);
       }
-      const float m_new = fmaxf(m[i], warp_max(sc));  // finite: key t0 is visible
+      // Finite: the row sees a key of this tile (the skip above).
+      const float m_new = fmaxf(m[i], warp_max(sc));
       const float alpha = expf(__fsub_rn(m[i], m_new));
       const float pj = expf(__fsub_rn(sc, m_new));
       l[i] = __fmaf_rn(l[i], alpha, warp_sum(pj));
@@ -284,7 +339,7 @@ __device__ __forceinline__ void attend_rows(const __nv_bfloat16* __restrict__ q,
   }
 
 #pragma unroll
-  for (int i = 0; i < RPW; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int r = r0 + warp + warps * i;
     if (r >= nrows) continue;
     const int s = r / group, g = r % group;

@@ -2,7 +2,7 @@
 
 Port of llm_inference_lab_tpu/models/base.py (ModelConfig, KVCache, the
 per-row int8 quantization and the cache write at absolute positions) for the
-Llama family.
+Llama and Gemma families.
 
 Cache-tail invariant (what makes single-pass verification work): the cache
 holds KV for committed tokens [0, L-1), everything except the last committed
@@ -41,9 +41,29 @@ class ModelConfig:
     rms_norm_eps: float = 1e-5
     tie_word_embeddings: bool = True
     dtype: torch.dtype = torch.bfloat16
+    # Gated MLP activation: "silu" (Llama) or "gelu_tanh" (Gemma's GeGLU).
+    act: str = "silu"
+    # Local attention: a token at position p attends to (p - window, p];
+    # None = full causal attention.
+    sliding_window: Optional[int] = None
+    # Gemma: head_dim decoupled from d_model / n_heads, a sqrt(d_model)
+    # input-embedding scale, RMSNorm as x_hat * (1 + w).
+    head_dim_override: Optional[int] = None
+    embed_scale: bool = False
+    rms_one_offset: bool = False
+    # Gemma-2: softcaps (x -> cap * tanh(x / cap)) on the attention scores
+    # and the final logits, the score scale query_pre_attn_scalar**-0.5,
+    # sandwich norms after both blocks, the window on even layers only.
+    attn_logit_softcap: Optional[float] = None
+    final_logit_softcap: Optional[float] = None
+    query_pre_attn_scalar: Optional[float] = None
+    post_norms: bool = False
+    alt_window: bool = False
 
     @property
     def head_dim(self) -> int:
+        if self.head_dim_override is not None:
+            return self.head_dim_override
         return self.d_model // self.n_heads
 
 

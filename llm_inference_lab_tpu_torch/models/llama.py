@@ -1,16 +1,9 @@
-"""Llama family presets and a factory that random-inits (port of
-llm_inference_lab_tpu/models/llama.py and models/factory.py). Loading a
-checkpoint comes with a later slice."""
+"""Llama family presets (port of llm_inference_lab_tpu/models/llama.py)."""
 
 from __future__ import annotations
 
-from dataclasses import replace
-from typing import Optional
-
-import torch
-
-from llm_inference_lab_tpu_torch.models import transformer
 from llm_inference_lab_tpu_torch.models.base import Model, ModelConfig
+from llm_inference_lab_tpu_torch.models.factory import create_family_model
 
 LLAMA_CONFIGS = {
     "llama-3.2-1b": ModelConfig(
@@ -31,18 +24,6 @@ LLAMA_CONFIGS = {
 }
 
 
-def create(name: str, *, device, dtype: torch.dtype = torch.bfloat16, seed: int = 0,
-           quantized_init: Optional[str] = None, quantize_embed: bool = False,
-           params: Optional[dict] = None) -> Model:
-    """A Llama model on `device`: the given params, or a random init from a
-    torch.Generator seeded with `seed` (directly in quantized form when
-    quantized_init is "int4"/"int8")."""
-    cfg = replace(LLAMA_CONFIGS[name], dtype=dtype)
-    if params is None:
-        g = torch.Generator(device=device).manual_seed(seed)
-        if quantized_init:
-            params = transformer.init_params_quantized(
-                cfg, g, device, mode=quantized_init, quantize_embed=quantize_embed)
-        else:
-            params = transformer.init_params(cfg, g, device)
-    return Model(config=cfg, params=params)
+def create(name: str, **kw) -> Model:
+    """A Llama model: the keywords of factory.create_family_model."""
+    return create_family_model(LLAMA_CONFIGS, name, **kw)

@@ -1,0 +1,31 @@
+"""Model registry: name -> family (port of llm_inference_lab_tpu/models/
+registry.py get_model for the ported families, Llama and Gemma). A name is
+matched after the same lower-casing and hub-prefix stripping as in JAX."""
+
+from __future__ import annotations
+
+from llm_inference_lab_tpu_torch.models import gemma, llama
+from llm_inference_lab_tpu_torch.models.base import Model
+
+FAMILIES = ((llama.LLAMA_CONFIGS, llama.create), (gemma.GEMMA_CONFIGS, gemma.create))
+_PREFIXES = ("meta-llama/", "openai-community/", "facebook/", "qwen/", "mistralai/", "google/",
+             "microsoft/")
+
+
+def model_key(name: str) -> str:
+    key = name.lower()
+    for prefix in _PREFIXES:
+        key = key.replace(prefix, "")
+    return key
+
+
+def create(name: str, **kw) -> Model:
+    """The model `name` (e.g. "gemma-2-9b" or "google/gemma-2-9b"): the
+    keywords of factory.create_family_model. Raises ValueError for a name no
+    ported family knows."""
+    key = model_key(name)
+    for configs, family_create in FAMILIES:
+        if key in configs:
+            return family_create(key, **kw)
+    known = sorted(k for configs, _ in FAMILIES for k in configs)
+    raise ValueError(f"unknown model {name!r}; known: {known}")

@@ -1,7 +1,11 @@
-"""Llama decoder: RMSNorm, llama3 RoPE, fused QKV, GQA attention over the
-cache, gated SiLU MLP, tied (optionally int8) head.
+"""Llama-architecture decoder: RMSNorm, llama3 RoPE, fused QKV, GQA
+attention over the cache, gated SiLU or GeGLU MLP, tied (optionally int8)
+head; with Gemma's and Gemma-2's flags (embedding scale, (1 + w) norms,
+sandwich norms, the per-layer sliding window, the score scale and the
+attention and final logit softcaps).
 
-Port of llm_inference_lab_tpu/models/transformer.py for the Llama family.
+Port of llm_inference_lab_tpu/models/transformer.py for the Llama and Gemma
+families.
 The JAX package scans one compiled layer over stacked params; the port runs
 a Python loop over the same stacked tensors, taking each layer as a view
 (no copy), and every projection goes through ``ops.quant.dense``.
@@ -26,9 +30,14 @@ from llm_inference_lab_tpu_torch.ops.attention import attend, paged_attend
 from llm_inference_lab_tpu_torch.ops.quant import EmbedQuant, QuantTensor, dense
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float,
+             one_offset: bool = False) -> torch.Tensor:
+    """one_offset: Gemma's weights stored as (w - 1), so the weight is
+    1 + w in f32."""
     x32 = x.float()
     var = (x32 * x32).mean(dim=-1, keepdim=True)
+    if one_offset:
+        scale = 1.0 + scale.float()
     # A bf16 scale promotes to f32 inside the product: no separate cast.
     return (x32 * torch.rsqrt(var + eps) * scale).to(x.dtype)
 
@@ -78,6 +87,17 @@ def rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
+def attn_options(cfg: ModelConfig, layer: int) -> dict:
+    """The attention options of one layer (JAX _attn_extras with the window
+    gate): the window on every layer, or with alt_window on even layers
+    only; the score scale and the softcap from the config."""
+    local = not cfg.alt_window or layer % 2 == 0
+    return dict(window=cfg.sliding_window if local else None,
+                scale=(cfg.query_pre_attn_scalar ** -0.5
+                       if cfg.query_pre_attn_scalar is not None else None),
+                softcap=cfg.attn_logit_softcap)
+
+
 def _attn_block(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor,
                 cos, sin, cache, layer: int, slots) -> torch.Tensor:
     B, S, _ = x.shape
@@ -91,19 +111,23 @@ def _attn_block(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Ten
     # an int8 cache quantizes the rows and attends with the layer's scales.
     scales = ((cache.k_scale[layer], cache.v_scale[layer]) if cache.k_scale is not None
               else (None, None))
+    options = attn_options(cfg, layer)
     if isinstance(cache, PagedKVCache):
         write_paged_layer(cache, layer, qk[:, :, H:], v, slots)
-        attn = paged_attend(q, cache.k[layer], cache.v[layer], positions, cache.table, *scales)
+        attn = paged_attend(q, cache.k[layer], cache.v[layer], positions, cache.table, *scales,
+                            **options)
     else:
         write_cache_layer(cache, layer, qk[:, :, H:], v, slots)
-        attn = attend(q, cache.k[layer], cache.v[layer], positions, *scales)
+        attn = attend(q, cache.k[layer], cache.v[layer], positions, *scales, **options)
     return dense(attn.reshape(B, S, H * Dh), p["wo"])
 
 
-def _mlp_block(p: dict, x: torch.Tensor) -> torch.Tensor:
+def _mlp_block(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     gu = dense(x, p["w_gate_up"])  # gate and up fused into one matmul
     F_ = gu.shape[-1] // 2
-    return dense(F.silu(gu[..., :F_]) * gu[..., F_:], p["w_down"])
+    gate = gu[..., :F_]
+    gate = F.gelu(gate, approximate="tanh") if cfg.act == "gelu_tanh" else F.silu(gate)
+    return dense(gate * gu[..., F_:], p["w_down"])
 
 
 def _layer_params(layers: dict, i: int) -> dict:
@@ -121,29 +145,56 @@ def forward(cfg: ModelConfig, params: Any, tokens: torch.Tensor, positions: torc
         x = embed.lookup(tokens, cfg.dtype)
     else:
         x = embed[tokens].to(cfg.dtype)
+    if cfg.embed_scale:
+        # Gemma's input normalizer: sqrt(d_model) rounded to the compute
+        # dtype, then multiplied (as the JAX package and HF round it).
+        x = x * _embed_multiplier(cfg.d_model, cfg.dtype)
     cos, sin = rope_tables(cfg, positions)
     if isinstance(cache, PagedKVCache):
         slots = page_slots(cache.table, cache_lens, tokens.shape[1], cache.page_size)
     else:
         slots = cache_slots(cache_lens, tokens.shape[1], cache.max_seq_len)
-    eps = cfg.rms_norm_eps
+
+    def norm(h, w):
+        return rms_norm(h, w, cfg.rms_norm_eps, cfg.rms_one_offset)
+
     for i in range(cfg.n_layers):
         p = _layer_params(params["layers"], i)
-        x = x + _attn_block(cfg, p, rms_norm(x, p["attn_norm_scale"], eps), positions,
-                            cos, sin, cache, i, slots)
-        x = x + _mlp_block(p, rms_norm(x, p["mlp_norm_scale"], eps))
-    x = rms_norm(x, params["final_norm_scale"], eps)
+        a = _attn_block(cfg, p, norm(x, p["attn_norm_scale"]), positions, cos, sin, cache, i,
+                        slots)
+        if cfg.post_norms:  # Gemma-2's sandwich norms
+            a = norm(a, p["post_attn_norm_scale"])
+        x = x + a
+        h = _mlp_block(cfg, p, norm(x, p["mlp_norm_scale"]))
+        if cfg.post_norms:
+            h = norm(h, p["post_mlp_norm_scale"])
+        x = x + h
+    x = norm(x, params["final_norm_scale"])
     return lm_head_logits(cfg, params, x), cache
 
 
+@lru_cache(maxsize=8)
+def _embed_multiplier(d_model: int, dtype: torch.dtype) -> float:
+    """sqrt(d_model) rounded to `dtype`, as a Python float (exact in f32, so
+    multiplying by it rounds as the dtype's product does)."""
+    return float(torch.tensor(d_model ** 0.5, dtype=dtype))
+
+
 def lm_head_logits(cfg: ModelConfig, params: Any, x: torch.Tensor) -> torch.Tensor:
-    """Hidden states [.., D] -> vocab logits, f32."""
+    """Hidden states [.., D] -> vocab logits, f32; Gemma-2 caps them
+    (cap * tanh(logits / cap), in place on the f32 logits)."""
     if cfg.tie_word_embeddings:
         embed = params["embed"]
         if isinstance(embed, EmbedQuant):
-            return embed.head_logits(x)
-        return torch.matmul(x, embed.to(x.dtype).t()).float()
-    return dense(x, params["lm_head"]).float()
+            logits = embed.head_logits(x)
+        else:
+            logits = torch.matmul(x, embed.to(x.dtype).t()).float()
+    else:
+        logits = dense(x, params["lm_head"]).float()
+    if cfg.final_logit_softcap is not None:
+        cap = cfg.final_logit_softcap
+        logits = logits.div_(cap).tanh_().mul_(cap)
+    return logits
 
 
 def _normal(g: torch.Generator, shape, dtype, device, std: float = 0.02) -> torch.Tensor:
@@ -157,10 +208,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device,
     D, Fd, H, KV, Dh, L = (cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv_heads,
                            cfg.head_dim, cfg.n_layers)
     dt = cfg.dtype
-    layers = {
-        "attn_norm_scale": torch.ones((L, D), dtype=dt, device=device),
-        "mlp_norm_scale": torch.ones((L, D), dtype=dt, device=device),
-    }
+    # Gemma stores RMSNorm weights as (w - 1): the identity is zeros.
+    norm_one = torch.zeros if cfg.rms_one_offset else torch.ones
+    names = ["attn_norm_scale", "mlp_norm_scale"]
+    if cfg.post_norms:  # Gemma-2's sandwich norms
+        names += ["post_attn_norm_scale", "post_mlp_norm_scale"]
+    layers = {n: norm_one((L, D), dtype=dt, device=device) for n in names}
     if not skip_big:
         layers.update(
             w_qkv=_normal(generator, (L, D, (H + 2 * KV) * Dh), dt, device),
@@ -171,7 +224,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device,
     params = {
         "embed": _normal(generator, (cfg.vocab_size, D), dt, device),
         "layers": layers,
-        "final_norm_scale": torch.ones((D,), dtype=dt, device=device),
+        "final_norm_scale": norm_one((D,), dtype=dt, device=device),
     }
     if not cfg.tie_word_embeddings and not skip_big:
         params["lm_head"] = _normal(generator, (D, cfg.vocab_size), dt, device)

@@ -6,22 +6,30 @@ Port of the JAX package's attention dispatch (ops/attention.py
 ``_kernel_wrapper`` and ops/pallas/paged_flash.py ``_wrapper``):
 
     attend(q [B,S,H,D], k_cache [B,KVH,T,D], v_cache [B,KVH,T,D],
-           positions [B,S], k_scale [B,KVH,T] = None, v_scale = None)
+           positions [B,S], k_scale [B,KVH,T] = None, v_scale = None,
+           window=None, scale=None, softcap=None)
         -> [B,S,H,D]
     paged_attend(q, k_pool [N,KVH,P,D], v_pool [N,KVH,P,D], positions,
-                 table [B,M], k_scale [N,KVH,P] = None, v_scale = None)
+                 table [B,M], k_scale [N,KVH,P] = None, v_scale = None,
+                 window=None, scale=None, softcap=None)
         -> [B,S,H,D]
 
-A query at absolute position p attends to cache positions [0, p]: the
-engine writes new rows at their positions before attending, so no separate
-length mask is needed. Routing, as in JAX: S <= 32 (draft, verify) goes to
-the decode kernels, flash_decode or paged_flash; longer S (prefill) to
-flash_prefill. A paged prefill first gathers its pages into a contiguous
-view (JAX sends that case to its XLA gather; only Engine.generate_batch in
-paged mode reaches it). An int8 cache (with its scales) is routed exactly
-as a bf16 one, to the int8 variants of the same kernels. Only the chain
-mask is ported: the sliding window, ring cache, tree mask, softcap and scale
-override raise.
+A query at absolute position p attends to cache positions [0, p], or with a
+sliding window to (p - window, p]: the engine writes new rows at their
+positions before attending, so no separate length mask is needed. scale
+replaces the score scale D**-0.5 and softcap caps the scores
+(cap * tanh(s / cap)), as attend_xla's options do. Routing, as in JAX:
+S <= 32 (draft, verify) goes to the decode kernels, flash_decode or
+paged_flash; longer S (prefill) to flash_prefill, all with the options. A
+window that cannot bind is dropped, as the JAX wrappers drop it: when the
+cache holds no more positions than the window (T, or M * P for pages). A
+paged prefill first gathers its pages into a contiguous view (JAX sends that
+case to its XLA gather; only Engine.generate_batch in paged mode reaches
+it). An int8 cache (with its scales) is routed exactly as a
+bf16 one, to the int8 variants of the same kernels. Gemma-2's per-layer
+window gate (window_on, traced in JAX) is the caller's choice here: the
+port's layer loop is Python and passes the window on local layers only. The
+ring cache (ring_len) and the tree mask raise.
 """
 
 from __future__ import annotations
@@ -44,25 +52,37 @@ def _refuse_unported(**options) -> None:
             raise NotImplementedError(f"attention option {name} is not ported yet")
 
 
+def _options(span: int, window: Optional[int], **options) -> dict:
+    """The options in use, for the kernel wrappers: the window only where it
+    can bind (keys (p - window, p] with p < span <= window reach back to 0
+    anyway)."""
+    if window is not None and span > window:
+        options["window"] = window
+    return {name: value for name, value in options.items() if value is not None}
+
+
 def attend(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
            positions: torch.Tensor, k_scale: Optional[torch.Tensor] = None,
-           v_scale: Optional[torch.Tensor] = None, *, tree_mask=None, window=None,
-           ring_len=None, scale=None, softcap=None) -> torch.Tensor:
-    _refuse_unported(tree_mask=tree_mask, window=window, ring_len=ring_len, scale=scale,
-                     softcap=softcap)
+           v_scale: Optional[torch.Tensor] = None, *, tree_mask=None,
+           window: Optional[int] = None, ring_len=None, scale: Optional[float] = None,
+           softcap: Optional[float] = None) -> torch.Tensor:
+    _refuse_unported(tree_mask=tree_mask, ring_len=ring_len)
+    options = _options(k_cache.shape[2], window, scale=scale, softcap=softcap)
     if q.shape[1] <= DECODE_MAX_S:
-        return flash_decode(q, k_cache, v_cache, positions, k_scale, v_scale)
-    return flash_prefill(q, k_cache, v_cache, positions, k_scale, v_scale)
+        return flash_decode(q, k_cache, v_cache, positions, k_scale, v_scale, **options)
+    return flash_prefill(q, k_cache, v_cache, positions, k_scale, v_scale, **options)
 
 
 def paged_attend(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                  positions: torch.Tensor, table: torch.Tensor,
                  k_scale: Optional[torch.Tensor] = None, v_scale: Optional[torch.Tensor] = None,
-                 *, tree_mask=None, window=None, scale=None, softcap=None) -> torch.Tensor:
-    _refuse_unported(tree_mask=tree_mask, window=window, scale=scale, softcap=softcap)
+                 *, tree_mask=None, window: Optional[int] = None, scale: Optional[float] = None,
+                 softcap: Optional[float] = None) -> torch.Tensor:
+    _refuse_unported(tree_mask=tree_mask)
+    options = _options(table.shape[1] * k_pool.shape[2], window, scale=scale, softcap=softcap)
     if q.shape[1] <= DECODE_MAX_S:
-        return paged_flash(q, k_pool, v_pool, positions, table, k_scale, v_scale)
+        return paged_flash(q, k_pool, v_pool, positions, table, k_scale, v_scale, **options)
     if k_scale is not None:
         k_scale, v_scale = gather_pages(k_scale, table), gather_pages(v_scale, table)
     return flash_prefill(q, gather_pages(k_pool, table), gather_pages(v_pool, table), positions,
-                         k_scale, v_scale)
+                         k_scale, v_scale, **options)

@@ -1,25 +1,28 @@
 """Online-softmax decode attention over a contiguous bf16 or int8 KV cache.
 
 Port of llm_inference_lab_tpu/ops/pallas/flash_decode.py, chain-decode
-variants (mask kv_pos <= p, scale D**-0.5) over a bf16 cache (_kernel) and
-an int8 cache with per-row scales (_kernel_quant). On a CPU tensor
-``flash_decode`` runs the plain version; on a CUDA tensor it launches
-csrc/flash_decode.cu or raises. An int8 cache goes to ``flash_decode_int8``,
-the int8 instantiation of the same kernel with its own launch count.
-``attend`` sends it the decode-shaped calls (S <= 32: draft S = 1, verify
-S = K+1); longer S goes to flash_prefill.
+variants (mask kv_pos <= p) over a bf16 cache (_kernel) and an int8 cache
+with per-row scales (_kernel_quant), with the tile body's static options
+(``Options``): the score ``scale`` (default D**-0.5), the logit ``softcap``
+and the sliding ``window``. On a CPU tensor ``flash_decode`` runs the plain
+version; on a CUDA tensor it launches csrc/flash_decode.cu or raises. An int8
+cache goes to ``flash_decode_int8``, the int8 instantiation of the same
+kernel with its own launch count. ``attend`` sends it the decode-shaped calls
+(S <= 32: draft S = 1, verify S = K+1); longer S goes to flash_prefill.
 
     flash_decode(q [B,S,H,D], k [B,KVH,T,D], v [B,KVH,T,D], positions [B,S],
-                 k_scale [B,KVH,T] = None, v_scale [B,KVH,T] = None)
+                 k_scale [B,KVH,T] = None, v_scale [B,KVH,T] = None,
+                 scale=None, softcap=None, window=None)
         -> [B,S,H,D] in q's dtype
 
-A query row with no visible key (position -1) returns zeros, as attend_xla
-does; the Pallas tile body returns the mean of V there.
+A query at position p sees keys (p - window, p] (all of [0, p] without a
+window). A query row with no visible key (position -1) returns zeros, as
+attend_xla does; the Pallas tile body returns the mean of V there.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -36,21 +39,51 @@ def dequantize_cache(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             (v.float() * v_scale[..., None]).to(q.dtype))
 
 
+class Options(NamedTuple):
+    """The tile body's static options (_accum_tile's scale, softcap and
+    window; None is off, and the score scale then D**-0.5)."""
+
+    scale: Optional[float] = None
+    softcap: Optional[float] = None
+    window: Optional[int] = None
+
+    def check(self) -> None:
+        if self.softcap is not None and not self.softcap > 0:
+            raise ValueError(f"softcap must be positive, got {self.softcap}")
+        if self.window is not None and self.window < 1:
+            raise ValueError(f"window must be at least 1, got {self.window}")
+
+    def kernel_args(self, D: int):
+        """(scale, softcap, window) as the C entries take them: 0 turns
+        softcap and window off."""
+        return (D ** -0.5 if self.scale is None else self.scale, self.softcap or 0.0,
+                self.window or 0)
+
+
 def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        positions: torch.Tensor, k_scale: Optional[torch.Tensor] = None,
-                       v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """attend_xla's chain-decode math in f32: an int8 cache dequantized to
-    q's dtype, scores, causal-by-position mask, softmax, zeros on rows with
-    no visible key, probabilities rounded to the cache dtype before P @ V
-    (as attend_xla rounds them)."""
+                       v_scale: Optional[torch.Tensor] = None, *, scale: Optional[float] = None,
+                       softcap: Optional[float] = None,
+                       window: Optional[int] = None) -> torch.Tensor:
+    """attend_xla's chain-decode math in f32, in its order: an int8 cache
+    dequantized to q's dtype, scores times the scale, the softcap, the
+    position mask (with the window's lower bound), softmax, zeros on rows
+    with no visible key, probabilities rounded to the cache dtype before
+    P @ V (as attend_xla rounds them)."""
     k, v = dequantize_cache(q, k, v, k_scale, v_scale)
     B, S, H, D = q.shape
     KVH, T = k.shape[1], k.shape[2]
     group = H // KVH
     qg = q.reshape(B, S, KVH, group, D).float()
-    scores = torch.einsum("bsngd,bntd->bngst", qg, k.float()) * (D ** -0.5)
-    kv_pos = torch.arange(T, device=q.device)
-    mask = kv_pos[None, None, None, None, :] <= positions[:, None, None, :, None]
+    scores = torch.einsum("bsngd,bntd->bngst", qg, k.float()) * (D ** -0.5 if scale is None
+                                                                  else scale)
+    if softcap is not None:
+        scores = torch.tanh(scores / softcap) * softcap
+    kv_pos = torch.arange(T, device=q.device)[None, None, None, None, :]
+    p = positions[:, None, None, :, None]
+    mask = kv_pos <= p
+    if window is not None:
+        mask &= kv_pos > p - window
     scores = scores.masked_fill(~mask, float("-inf"))
     probs = torch.softmax(scores, dim=-1)
     probs = torch.where(mask.any(-1, keepdim=True), probs, torch.zeros_like(probs))
@@ -61,7 +94,7 @@ def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def check_queries(name: str, q: torch.Tensor, positions: torch.Tensor, *caches: torch.Tensor,
                   cache_dtype: torch.dtype = torch.bfloat16):
     """The checks every attention kernel makes on q, positions and its K/V
-    tensors: bf16 q, caches of cache_dtype, D in {64, 128}, int32 positions
+    tensors: bf16 q, caches of cache_dtype, D in {64, 128, 256}, int32 positions
     [B, S], contiguous q and positions, one device, 16-byte aligned q and
     caches (the kernels read 16-byte vectors: a misaligned view would fault
     on the card after the launch). Returns (B, S, H, D)."""
@@ -70,8 +103,8 @@ def check_queries(name: str, q: torch.Tensor, positions: torch.Tensor, *caches: 
         raise TypeError(f"{name} kernel takes bf16 q and {cache_dtype} caches")
     if positions.dtype != torch.int32 or positions.shape != (B, S):
         raise TypeError(f"{name} kernel takes int32 positions [B, S]")
-    if D not in (64, 128):
-        raise ValueError(f"{name} kernel: head dim {D} is not 64 or 128")
+    if D not in (64, 128, 256):
+        raise ValueError(f"{name} kernel: head dim {D} is not 64, 128 or 256")
     if not (q.is_contiguous() and positions.is_contiguous()):
         raise ValueError(f"{name} kernel needs contiguous q and positions")
     if any(t.device != q.device for t in (positions, *caches)):
@@ -113,10 +146,11 @@ def check_scales(name: str, k: torch.Tensor, k_scale: torch.Tensor, v_scale: tor
 
 def launch_planes(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   positions: torch.Tensor, k_scale: Optional[torch.Tensor],
-                  v_scale: Optional[torch.Tensor]) -> torch.Tensor:
+                  v_scale: Optional[torch.Tensor], opts: Options) -> torch.Tensor:
     """Check the operands of kernel D or E (`kernel` is "flash_decode" or
     "flash_prefill") over a contiguous cache and launch its bf16 entry, or
     its int8 entry with the scale planes when k is int8."""
+    opts.check()
     int8 = k.dtype == torch.int8
     name = kernel + ("_int8" if int8 else "")
     B, S, H, D = check_queries(name, q, positions, k, v,
@@ -131,34 +165,35 @@ def launch_planes(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
         err = getattr(lib, name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
             positions.data_ptr(), out.data_ptr(), B, S, H, KVH, T, D, k.stride(0), k.stride(1),
-            k_scale.stride(0), k_scale.stride(1), D ** -0.5, stream)
+            k_scale.stride(0), k_scale.stride(1), *opts.kernel_args(D), stream)
     else:
         err = getattr(lib, f"{kernel}_bf16")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), positions.data_ptr(), out.data_ptr(),
-            B, S, H, KVH, T, D, k.stride(0), k.stride(1), D ** -0.5, stream)
+            B, S, H, KVH, T, D, k.stride(0), k.stride(1), *opts.kernel_args(D), stream)
     build.check(err, name)
     return out
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor,
-                 k_scale: Optional[torch.Tensor] = None,
-                 v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 k_scale: Optional[torch.Tensor] = None, v_scale: Optional[torch.Tensor] = None,
+                 **options) -> torch.Tensor:
+    """options: the keywords of Options (scale, softcap, window)."""
     if k.dtype == torch.int8:
-        return flash_decode_int8(q, k, v, positions, k_scale, v_scale)
+        return flash_decode_int8(q, k, v, positions, k_scale, v_scale, **options)
     if not q.is_cuda:
-        return flash_decode_plain(q, k, v, positions)
-    out = launch_planes("flash_decode", q, k, v, positions, None, None)
+        return flash_decode_plain(q, k, v, positions, **options)
+    out = launch_planes("flash_decode", q, k, v, positions, None, None, Options(**options))
     flash_decode.launches += 1
     return out
 
 
 def flash_decode_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor,
-                      k_scale: torch.Tensor, v_scale: torch.Tensor) -> torch.Tensor:
+                      k_scale: torch.Tensor, v_scale: torch.Tensor, **options) -> torch.Tensor:
     """flash_decode over an int8 cache k, v [B, KVH, T, D] with f32 scales
     [B, KVH, T]."""
     if not q.is_cuda:
-        return flash_decode_plain(q, k, v, positions, k_scale, v_scale)
-    out = launch_planes("flash_decode", q, k, v, positions, k_scale, v_scale)
+        return flash_decode_plain(q, k, v, positions, k_scale, v_scale, **options)
+    out = launch_planes("flash_decode", q, k, v, positions, k_scale, v_scale, Options(**options))
     flash_decode_int8.launches += 1
     return out
 

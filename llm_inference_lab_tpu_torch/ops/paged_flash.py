@@ -1,15 +1,18 @@
 """Online-softmax decode attention over a paged bf16 or int8 KV pool.
 
 Port of llm_inference_lab_tpu/ops/pallas/paged_flash.py, chain-decode
-variants (mask kv_pos <= p, scale D**-0.5) over bf16 pools (_kernel) and
-int8 pools with per-row scale pools (_kernel_quant). On a CPU tensor
+variants (mask kv_pos <= p) over bf16 pools (_kernel) and int8 pools with
+per-row scale pools (_kernel_quant), with flash_decode's options (scale,
+softcap, window; the window's page sweep is the kernel's key range). On a
+CPU tensor
 ``paged_flash`` runs the plain version; on a CUDA tensor it launches
 csrc/paged_flash.cu or raises. int8 pools go to ``paged_flash_int8``, with
 its own launch count.
 
     paged_flash(q [B,S,H,D], k_pool [N,KVH,P,D], v_pool [N,KVH,P,D],
                 positions [B,S], table [B,M], k_scale [N,KVH,P] = None,
-                v_scale [N,KVH,P] = None) -> [B,S,H,D] in q's dtype
+                v_scale [N,KVH,P] = None, scale=None, softcap=None, window=None)
+        -> [B,S,H,D] in q's dtype
 
 Key j of sequence b is row j % P of page table[b, j // P]. The kernel gives
 the same bits as flash_decode on the same keys, and reads only the pages a
@@ -26,6 +29,7 @@ import torch
 from llm_inference_lab_tpu_torch import build
 from llm_inference_lab_tpu_torch.models.paged import gather_pages
 from llm_inference_lab_tpu_torch.ops.flash_decode import (
+    Options,
     check_queries,
     check_scales,
     flash_decode_plain,
@@ -35,7 +39,7 @@ from llm_inference_lab_tpu_torch.ops.flash_decode import (
 def paged_flash_plain(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                       positions: torch.Tensor, table: torch.Tensor,
                       k_scale: Optional[torch.Tensor] = None,
-                      v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      v_scale: Optional[torch.Tensor] = None, **options) -> torch.Tensor:
     """Port of ops/paged_attention.py ``paged_attend_xla`` (chain mask):
     gather each sequence's pages (and, for int8 pools, their scales) into a
     contiguous [B, KVH, M*P, D] view (page ordinal j holds positions
@@ -44,7 +48,7 @@ def paged_flash_plain(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tenso
     if k_scale is not None:
         k_scale, v_scale = gather_pages(k_scale, table), gather_pages(v_scale, table)
     return flash_decode_plain(q, gather_pages(k_pool, table), gather_pages(v_pool, table),
-                              positions, k_scale, v_scale)
+                              positions, k_scale, v_scale, **options)
 
 
 def _check_pools(name: str, q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
@@ -73,11 +77,14 @@ def _check_pools(name: str, q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch
 def paged_flash(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                 positions: torch.Tensor, table: torch.Tensor,
                 k_scale: Optional[torch.Tensor] = None,
-                v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                v_scale: Optional[torch.Tensor] = None, **options) -> torch.Tensor:
+    """options: the keywords of flash_decode.Options (scale, softcap, window)."""
     if k_pool.dtype == torch.int8:
-        return paged_flash_int8(q, k_pool, v_pool, positions, table, k_scale, v_scale)
+        return paged_flash_int8(q, k_pool, v_pool, positions, table, k_scale, v_scale, **options)
     if not q.is_cuda:
-        return paged_flash_plain(q, k_pool, v_pool, positions, table)
+        return paged_flash_plain(q, k_pool, v_pool, positions, table, **options)
+    opts = Options(**options)
+    opts.check()
     B, S, H, D, KVH, P, M = _check_pools("paged_flash", q, k_pool, v_pool, positions, table,
                                          torch.bfloat16)
     out = torch.empty_like(q)
@@ -85,7 +92,7 @@ def paged_flash(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     err = lib.paged_flash_bf16(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
         positions.data_ptr(), out.data_ptr(), B, S, H, KVH, M, P, D, k_pool.stride(0),
-        D ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+        *opts.kernel_args(D), torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "paged_flash")
     paged_flash.launches += 1
     return out
@@ -93,11 +100,14 @@ def paged_flash(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
 
 def paged_flash_int8(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                      positions: torch.Tensor, table: torch.Tensor, k_scale: torch.Tensor,
-                     v_scale: torch.Tensor) -> torch.Tensor:
+                     v_scale: torch.Tensor, **options) -> torch.Tensor:
     """paged_flash over int8 pools [N, KVH, P, D] with f32 scale pools
     [N, KVH, P]."""
     if not q.is_cuda:
-        return paged_flash_plain(q, k_pool, v_pool, positions, table, k_scale, v_scale)
+        return paged_flash_plain(q, k_pool, v_pool, positions, table, k_scale, v_scale,
+                                 **options)
+    opts = Options(**options)
+    opts.check()
     B, S, H, D, KVH, P, M = _check_pools("paged_flash_int8", q, k_pool, v_pool, positions, table,
                                          torch.int8)
     check_scales("paged_flash_int8", k_pool, k_scale, v_scale)
@@ -108,7 +118,7 @@ def paged_flash_int8(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor
     err = lib.paged_flash_int8(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), k_scale.data_ptr(),
         v_scale.data_ptr(), table.data_ptr(), positions.data_ptr(), out.data_ptr(), B, S, H,
-        KVH, M, P, D, k_pool.stride(0), k_scale.stride(0), D ** -0.5,
+        KVH, M, P, D, k_pool.stride(0), k_scale.stride(0), *opts.kernel_args(D),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "paged_flash_int8")
     paged_flash_int8.launches += 1

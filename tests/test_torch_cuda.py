@@ -299,3 +299,83 @@ def test_int8_attention_kernels_match_plain_and_each_other(card, S, D, H):
     assert paged_flash_int8.launches == before + 1
     assert torch.equal(paged, got)
     assert _within(paged.float(), paged_flash_plain(q.float(), kp, vp, pos, table, ksp, vsp))
+
+
+def _gemma2_keys(card, g, cache, B, KVH, T, D, pos, window):
+    """K, V [B, KVH, T, D] (bf16, or int8 with f32 scales) of N(0, 1) rows,
+    with POISON (64 in every element of K and V; int8 bytes 127 at a scale
+    of 0.5) at the keys no live row of a sequence sees: past its largest
+    position and, with a window, at or below its smallest position minus
+    the window. A masked key let in dominates its row's softmax."""
+    k = torch.randn((B, KVH, T, D), generator=g, device=card)
+    v = torch.randn((B, KVH, T, D), generator=g, device=card)
+    dead = torch.zeros((B, T), dtype=torch.bool, device=card)
+    for b in range(B):
+        live = pos[b][pos[b] >= 0]
+        dead[b, int(live.max()) + 1:] = True
+        if window:
+            dead[b, : max(int(live.min()) - window + 1, 0)] = True
+    if cache == "int8":
+        (k, ks), (v, vs) = quantize_rows(k), quantize_rows(v)
+        for t, st in ((k, ks), (v, vs)):
+            t[dead[:, None].expand(B, KVH, T)] = 127
+            st[dead[:, None].expand(B, KVH, T)] = 0.5
+        return k, v, ks, vs
+    k[dead[:, None].expand(B, KVH, T)] = 64.0
+    v[dead[:, None].expand(B, KVH, T)] = 64.0
+    return k.bfloat16(), v.bfloat16(), None, None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [256, None])
+@pytest.mark.parametrize("cache", ["bf16", "int8"])
+@pytest.mark.parametrize("H,KVH", [(16, 8), (8, 4)])
+def test_gemma2_attention_kernels_match_plain_and_each_other(card, H, KVH, cache, window):
+    """Kernels D, E and F at head dim 256 with Gemma-2's options (scale
+    1/16, softcap 50) and a window of 256 (a local layer) or none (a global
+    one) over T = 1024, POISON at every key a sequence's rows do not see.
+    Decode rows at 299..300 and 999..1000, one dead; prefill rows at
+    200..263 (crossing the window) and 900..963. Each kernel within 2^-8
+    |ref| + 2^-16 of its plain version on f32 q, and finite (rows skip the
+    tiles below their window); E equals D row by row, and F through shuffled
+    64-row pages equals D."""
+    g = torch.Generator(device=card).manual_seed(H + (window or 0))
+    B, T, D, P = 2, 1024, 256, 64
+    opts = dict(scale=1 / 16, softcap=50.0, window=window)
+    route = {"bf16": (flash_decode, flash_prefill, paged_flash),
+             "int8": (flash_decode_int8, flash_prefill_int8, paged_flash_int8)}[cache]
+    for S, last in ((2, (300, 1000)), (64, (263, 963))):
+        pos = (torch.tensor(last, device=card, dtype=torch.int32)[:, None] - S + 1
+               + torch.arange(S, device=card, dtype=torch.int32)[None]).contiguous()
+        if S == 2:
+            pos[1, 0] = -1
+        k, v, ks, vs = _gemma2_keys(card, g, cache, B, KVH, T, D, pos, window)
+        q = torch.randn((B, S, H, D), generator=g, device=card).bfloat16()
+        scales = (ks, vs) if cache == "int8" else ()
+        plain_kv = (k, v) if cache == "int8" else (k.float(), v.float())
+        ref = flash_decode_plain(q.float(), *plain_kv, pos, *scales, **opts)
+        kernel = route[0] if S <= 32 else route[1]
+        before = kernel.launches
+        got = kernel(q, k, v, pos, *scales, **opts)
+        assert kernel.launches == before + 1
+        assert torch.isfinite(got).all() and _within(got.float(), ref)
+        if S == 2:
+            assert torch.all(got[1, 0] == 0)
+            assert torch.equal(route[1](q, k, v, pos, *scales, **opts), got)
+            M = T // P
+            table = (torch.randperm(B * M + 2, generator=g, device=card)[: B * M] + 1)
+            table = table.view(B, M).to(torch.int32).contiguous()
+
+            def pool(src):
+                tail = src.shape[3:]
+                dst = torch.zeros((B * M + 3, KVH, P, *tail), device=card, dtype=src.dtype)
+                dst[table.flatten().long()] = (src.reshape(B, KVH, M, P, *tail).transpose(1, 2)
+                                               .reshape(B * M, KVH, P, *tail))
+                return dst
+
+            paged = route[2](q, pool(k), pool(v), pos, table, *(pool(s) for s in scales), **opts)
+            assert torch.equal(paged, got)
+        else:
+            for j in (0, 55, 56, 63):  # 56: the first row whose window cuts key 0
+                qj, pj = q[:, j:j + 1].contiguous(), pos[:, j:j + 1].contiguous()
+                assert torch.equal(route[0](qj, k, v, pj, *scales, **opts), got[:, j:j + 1])

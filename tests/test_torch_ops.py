@@ -74,11 +74,20 @@ def test_flash_decode_row_independent_of_batching():
 
 
 def test_attend_refuses_unported_options():
-    q, k, v, pos = (torch.from_numpy(a) for a in _attn_inputs(1, seed=4))
+    """Of the JAX options only the ring cache and the tree mask stay
+    unported and raise; window, softcap and scale run, and give attend_xla's
+    result for the same option (f32, 2e-5 absolute as above)."""
+    a = _attn_inputs(1, seed=4)
+    q, k, v, pos = (torch.from_numpy(x) for x in a)
     for kw in ({"window": 16}, {"softcap": 30.0}, {"ring_len": 256}, {"scale": 0.1},
                {"tree_mask": torch.ones(1, 1, dtype=torch.bool)}):
-        with pytest.raises(NotImplementedError):
-            attend(q, k, v, pos, **kw)
+        if "ring_len" in kw or "tree_mask" in kw:
+            with pytest.raises(NotImplementedError):
+                attend(q, k, v, pos, **kw)
+            continue
+        ref = attend_xla(*(jnp.asarray(x) for x in a), **kw)
+        np.testing.assert_allclose(attend(q, k, v, pos, **kw).numpy(), np.asarray(ref), rtol=0,
+                                   atol=2e-5)
 
 
 def _verify_inputs(B=4, K=4, V=1000, seed=0):
