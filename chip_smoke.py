@@ -2,9 +2,10 @@
 """Smoke run of the PyTorch/CUDA port (llm_inference_lab_tpu_torch) on one
 NVIDIA card: the quickest proof that the port builds and runs on the GPU.
 
-    python3 chip_smoke.py                  # phases 0-8, last line a JSON result
-    python3 chip_smoke.py --profile        # also a torch.profiler breakdown of runs
-    python3 chip_smoke.py --profile=gemma  # the breakdown of the Gemma-2 runs only
+    python3 chip_smoke.py                    # phases 0-9, last line a JSON result
+    python3 chip_smoke.py --profile          # also a torch.profiler breakdown of runs
+    python3 chip_smoke.py --profile=gemma    # the breakdown of the Gemma-2 runs only
+    python3 chip_smoke.py --profile=mistral  # the breakdown of the Mistral B=1 run only
 
 Phases, in order (any failure exits non-zero; nothing is caught and ignored):
  0. the card: nvidia-smi name and power limit, torch's device name;
@@ -25,7 +26,14 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
     (16/8 and 8/4 heads), bf16 and int8, over T = 4608 with POISON at every
     key a sequence's rows do not see (below their window, past their
     position), bit-equal to one another, timed at the Gemma-2 paths'
-    shapes;
+    shapes; then D and E with ring_len at Mistral-7B's geometry (32 / 8
+    heads of 128, window 4096, ring R = 4736), bf16 and int8: decode rows
+    near 5400 and a 512-row chunk across the wrap on a ring of T = R, and
+    rows on one of T = 256 < R, POISON at every slot a row does not see,
+    each within its tolerance of its plain version, D == E, and equal to
+    their own results over the same keys laid out by position; timed at the
+    long prompt's K=4 step and its 11 prefill chunks beside SDPA given the
+    same boolean ring mask;
  3. end to end at full width: Engine with an int4 llama-3.2-3b target and
     llama-3.2-1b draft (random weights from a seed, int8 embedding/tied
     head), K=1, greedy, 64 new tokens, max_seq_len 512, on bench.py's
@@ -56,8 +64,17 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
     window of 4096 binds in the prefill (kernel E) and at every decode step
     (kernel D): their ids must be equal;
  7. Gemma-2 serving: phase 3b's requests and checks on phase 6's weights;
- 8. the kernels' JSON line (every kernel, launches by path; the Gemma-2
-    variants of D, E and F on rows of their own), then the result line.
+ 8. Mistral-7B with the rolling-buffer cache at full width: an int4
+    mistral-7b target and a mistral-7b draft from the next seed (int4 head,
+    bf16 embedding), K=4, max_seq_len 8192, prefill_chunk 512, kv_ring (R =
+    4736 on both models): phase 3's checks on its prompt (T = 256 < R),
+    then on a 5400-token prompt (11 chunks, the ring wraps) spec and
+    baseline on the ring (equal ids), a baseline on the full cache and int8
+    KV baselines on the ring and the full cache: ring ids == full-cache ids
+    for bf16 and int8, or a near tie of at most 2 bf16 ulps;
+ 9. the kernels' JSON line (every kernel, launches by path; the Gemma-2
+    variants of D, E and F and the ring variants of D and E on rows of their
+    own), then the result line.
 
 Without CUDA it exits non-zero before printing any result.
 """
@@ -128,6 +145,19 @@ GEMMA_WINDOW = 4096
 LONG_PROMPT = PROMPT * 32  # 4320 byte tokens; Engine.decode's cache T = 4480
 T_LONG = 4480
 P_LONG = 4352  # a mid-generation position of the long-prompt run: 4320 + 32
+# Mistral-7B with the rolling-buffer cache (phases 2 and 8): the 7B target
+# and a 7B draft from the next seed (acceptance 0: every step writes K+1
+# rows to the ring and commits one), int4 projections and head, bf16
+# embedding, K=4, chunked prefill of 512, the ring.
+MISTRAL_CFG = dict(base_model="mistral-7b", draft_model="mistral-7b", max_draft=4,
+                   max_new_tokens=64, max_seq_len=8192, quantization="int4", quantized_init=True,
+                   quantize_embed=False, prefill_chunk=512, kv_ring=True, seed=0)
+MISTRAL_GEOM = (32, 8, 32)  # H, KVH, layers
+MISTRAL_WINDOW = 4096
+RING_LEN = 4736  # round_up(window 4096 + chunk 512 + K 4 + 2, 128)
+MISTRAL_LONG = PROMPT * 40  # 5400 byte tokens: P = 5632 (11 chunks of 512), max_len 5760
+MISTRAL_LONG_SHAPE = (5400, 5632, 5760)  # tokens, prompt block P, max_len
+P_RING = 5400  # a decode position of the long prompt: its window wraps the ring
 # The kernels each path must launch (and no other).
 PATH_KERNELS = {
     "generate int4 (3 runs)": {"quant_matmul_int4", "flash_decode", "flash_prefill",
@@ -144,8 +174,20 @@ PATH_KERNELS = {
                                                        "flash_prefill", "verify_prefix"},
     "serving gemma-2 (16 requests)": {"quant_matmul_int4", "flash_prefill", "paged_flash",
                                       "verify_prefix"},
+    "generate mistral-7b ring (3 runs)": {"quant_matmul_int4", "flash_decode", "flash_prefill",
+                                          "verify_prefix"},
+    "generate mistral-7b ring long prompt (spec + baseline)": {
+        "quant_matmul_int4", "flash_decode", "flash_prefill", "verify_prefix"},
+    "generate mistral-7b full cache long prompt (baseline)": {
+        "quant_matmul_int4", "flash_decode", "flash_prefill"},
+    "generate mistral-7b int8 ring long prompt (baseline)": {
+        "quant_matmul_int4", "flash_decode_int8", "flash_prefill_int8"},
+    "generate mistral-7b int8 full cache long prompt (baseline)": {
+        "quant_matmul_int4", "flash_decode_int8", "flash_prefill_int8"},
 }
 GEMMA_PATHS = [path for path in PATH_KERNELS if "gemma-2" in path]
+MISTRAL_PATHS = [path for path in PATH_KERNELS if "mistral" in path]
+RING_PATHS = [path for path in MISTRAL_PATHS if "ring" in path]
 
 
 T_START = time.perf_counter()
@@ -823,8 +865,8 @@ def phase_paged_flash_int8(dev):
 
 
 # ------------------------------------------------------- Gemma-2 attention
-def gemma_keys(g, dev, cache, B, KVH, T, pos, window):
-    """K, V [B, KVH, T, 256] (bf16, or int8 with f32 scales) of N(0, 1)
+def gemma_keys(g, dev, cache, B, KVH, T, pos, window, D=256):
+    """K, V [B, KVH, T, D] (bf16, or int8 with f32 scales) of N(0, 1)
     rows, with POISON at the keys no live row of a sequence sees: past its
     largest position and, with a window, at or below its smallest position
     minus the window. POISON is in K and V (bf16: POISON in every element;
@@ -832,8 +874,8 @@ def gemma_keys(g, dev, cache, B, KVH, T, pos, window):
     its row's softmax (its score reaches the softcap) and its output."""
     from llm_inference_lab_tpu_torch.models.base import quantize_rows
 
-    k = torch.randn((B, KVH, T, 256), generator=g, device=dev)
-    v = torch.randn((B, KVH, T, 256), generator=g, device=dev)
+    k = torch.randn((B, KVH, T, D), generator=g, device=dev)
+    v = torch.randn((B, KVH, T, D), generator=g, device=dev)
     unseen = torch.zeros((B, KVH, T), dtype=torch.bool, device=dev)
     for b in range(B):
         live = pos[b][pos[b] >= 0]
@@ -1020,6 +1062,179 @@ def phase_gemma_attention(dev):
     return timed
 
 
+# --------------------------------------------------- Mistral's ring attention
+def ring_keys(g, dev, cache, B, KVH, T, pos, window, R, D=128):
+    """The same keys two ways: by position, [B, KVH, Tf, D] with Tf past
+    every position and POISON where no live row of a sequence sees
+    (gemma_keys); and as the engine's ring of R slots leaves them, [B, KVH,
+    T, D]: slot s holds the latest position at most the sequence's largest
+    one congruent to s mod R, POISON where there is none. Returns (full,
+    ring), each [k, v, k_scale, v_scale] (scales None for bf16)."""
+    Tf = int(pos.max()) + 2  # position Tf - 1 is past every row: POISON
+    full = gemma_keys(g, dev, cache, B, KVH, Tf, pos, window, D=D)
+    slots = torch.arange(T, device=dev)
+    idx = torch.stack([int(p.max()) - (int(p.max()) - slots) % R for p in pos])
+    idx = torch.where(idx >= 0, idx, Tf - 1)
+    ring = [None if t is None else torch.stack([t[b][:, idx[b]] for b in range(B)]).contiguous()
+            for t in full]
+    return list(full), ring
+
+
+def ring_mask(pos, T, window, R):
+    """[B, 1, S, T] bool: attend_xla's ring rule, slot s seen by a row at p
+    iff rel = (p - s) mod R < window and rel <= p."""
+    rel = (pos[:, None, :, None] - torch.arange(T, device=pos.device)) % R
+    return (rel < window) & (rel <= pos[:, None, :, None])
+
+
+def sdpa_ring(q, k, v, mask, ks=None, vs=None):
+    """The library yardstick for ring attention (timed only, never used):
+    SDPA given the boolean ring mask; an int8 cache dequantized first."""
+    if ks is not None:
+        k = (k.float() * ks[..., None]).to(q.dtype)
+        v = (v.float() * vs[..., None]).to(q.dtype)
+    out = torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k, v, attn_mask=mask, enable_gqa=True)
+    return out.transpose(1, 2)
+
+
+def phase_ring_attention(dev):
+    """D and E with ring_len at Mistral-7B's geometry (32 / 8 heads of 128,
+    window 4096, R = RING_LEN = 4736), bf16 and int8. Checks on a ring of
+    T = R slots: decode rows (S = 1, 5) at 5400 (the window wraps the ring)
+    and near 300 with a dead row, a 512-row chunk at 4608..5119 (it crosses
+    the wrap at 4736) beside one at 0..511 with a dead row; on a ring of
+    T = 256 < R (the short prompt's cache): S = 5 at 130..134 and 196..200,
+    S = 160 at 0..159 and 96..255. POISON at every position and slot no
+    live row sees. Each within FLASH_RTOL / FLASH_ATOL of its plain version
+    on f32 q, finite, dead rows zero; E == D on the decode rows, D == E row
+    by row in the chunks; at T = R each equals its own result over the same
+    keys laid out by position with the window alone (the body walks
+    positions, so the wrap costs no bits). Times: D at the long prompt's
+    K=4 step (p = 5400), E at the long prompt's 11 chunks of 512."""
+    from llm_inference_lab_tpu_torch.ops.flash_decode import (
+        flash_decode,
+        flash_decode_int8,
+        flash_decode_plain,
+    )
+    from llm_inference_lab_tpu_torch.ops.flash_prefill import flash_prefill, flash_prefill_int8
+
+    g = torch.Generator(device=dev).manual_seed(41)
+    H, KVH, layers = MISTRAL_GEOM
+    D, W, R = 128, MISTRAL_WINDOW, RING_LEN
+    opts = dict(window=W, ring_len=R)
+    kernels = {"bf16": (flash_decode, flash_prefill), "int8": (flash_decode_int8,
+                                                               flash_prefill_int8)}
+    errs = {name: 0.0 for name in ("flash_decode", "flash_prefill", "flash_decode_int8",
+                                   "flash_prefill_int8")}
+    cases = {R: ((1, (5400, 300)), (5, (5400, 304)), (512, (5119, 511))),
+             256: ((5, (134, 200)), (160, (159, 255)))}
+    for cache, (dk, ek) in kernels.items():
+        for T, shapes in cases.items():
+            for S, last in shapes:
+                pos = (torch.tensor(last, device=dev, dtype=torch.int32)[:, None] - S + 1
+                       + torch.arange(S, device=dev, dtype=torch.int32)[None]).contiguous()
+                if S > 1:
+                    pos[1, 0] = -1
+                full, (k, v, ks, vs) = ring_keys(g, dev, cache, 2, KVH, T, pos, W, R)
+                q = torch.randn((2, S, H, D), generator=g, device=dev).bfloat16()
+                sc = (ks, vs) if cache == "int8" else ()
+                ref = flash_decode_plain(q.float(), *((k, v) if sc else (k.float(), v.float())),
+                                         pos, *sc, **opts)
+                kernel = dk if S <= 32 else ek
+                name = kernel.__name__
+                got = kernel(q, k, v, pos, *sc, **opts)
+                what = (name, "ring", cache, T, S)
+                errs[name] = max(errs[name], check_close(got.float(), ref, what))
+                if S > 1:
+                    assert torch.all(got[1, 0] == 0), (what, "dead row not zero")
+                if S <= 32:
+                    assert torch.equal(ek(q, k, v, pos, *sc, **opts), got), (what, "E != D")
+                else:
+                    for j in (0, S // 4 - 1, S // 4, S - 1):  # 4608 + 128 = 4736: the wrap
+                        qj, pj = q[:, j:j + 1].contiguous(), pos[:, j:j + 1].contiguous()
+                        assert torch.equal(dk(qj, k, v, pj, *sc, **opts), got[:, j:j + 1]), \
+                            (what, j, "D != E on a chunk row")
+                if T == R:
+                    fk, fv, fks, fvs = full
+                    fsc = (fks, fvs) if sc else ()
+                    assert torch.equal(kernel(q, fk, fv, pos, *fsc, window=W), got), \
+                        (what, "ring != the same keys by position")
+                log(f"ring attention {cache} T={T} S={S} last={last}: {name} within tolerance "
+                    f"of its plain version, POISON unseen, dead rows zero, D == E"
+                    + (", == the same keys by position" if T == R else ""))
+                del full, k, v, ref
+    timed = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bound_by="bytes",
+                        max_abs_err=err) for name, err in errs.items()}
+
+    def add(name, n, ms, plain, lib, b, by, what, full=""):
+        log(f"{name} ring {what}: {ms:.4f} ms  plain {plain:.4f}  library {lib:.4f} "
+            f"(SDPA + the ring mask)  bound {b:.5f} ({by}){full}")
+        agg = timed[name]
+        for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib), ("bound_ms", b)):
+            agg[key] += n * val
+        if by == "operations":
+            agg["bound_by"] = by
+
+    # D at the long prompt's K=4 step (draft S = 1 four times, verify S = 5,
+    # at p = P_RING); E at its 11 chunks of 512 (T = R: the ring is full).
+    # D and E's chunk across the wrap are timed again over a full cache (T =
+    # the long prompt's 5760, the window alone, the same positions): the
+    # ring's own cost.
+    work = [(S, P_RING, 4 * layers if S == 1 else layers) for S in (1, 5)]
+    work += [(512, 512 * c + 511, layers) for c in range(11)]
+    Tf = 5760
+    for cache, (dk, ek) in kernels.items():
+        esize = 1 if cache == "int8" else 2
+
+        def keys(T):
+            L = 2 * L2_BYTES // (2 * KVH * T * D * esize) + 1
+            if cache == "int8":
+                (k, ks), (v, vs) = (int8_kv(g, dev, (L, 1, KVH, T, D)) for _ in "kv")
+                return Cycle(L), k, v, ks, vs
+            k, v = (torch.randn((L, 1, KVH, T, D), generator=g, device=dev).bfloat16()
+                    for _ in "kv")
+            return Cycle(L), k, v, None, None
+
+        (cyc, k, v, ks, vs), (cyf, kf, vf, ksf, vsf) = keys(R), keys(Tf)
+
+        def scales():
+            return (ks[cyc.i], vs[cyc.i]) if ks is not None else ()
+
+        def full_scales():
+            return (ksf[cyf.i], vsf[cyf.i]) if ksf is not None else ()
+
+        for S, p_last, n in work:
+            q = torch.randn((1, S, H, D), generator=g, device=dev).bfloat16()
+            pos = (p_last - S + 1 + torch.arange(S, device=dev, dtype=torch.int32))[None]
+            pos = pos.contiguous()
+            mask = ring_mask(pos, R, W, R)
+            fn = dk if S <= 32 else ek
+            big = S > 32
+            ms = median_ms(lambda: fn(q, k[cyc()], v[cyc.i], pos, *scales(), **opts),
+                           iters=5 if big else 25, warmup=1 if big else 3)
+            plain = median_ms(lambda: flash_decode_plain(q, k[cyc()], v[cyc.i], pos, *scales(),
+                                                         **opts), iters=3 if big else 10, warmup=1)
+            lib = median_ms(lambda: sdpa_ring(q, k[cyc()], v[cyc.i], mask, *scales()),
+                            iters=3 if big else 10, warmup=1)
+            keys, pairs = seen_keys(pos, W)  # the ring holds every position a window reaches
+            if cache == "int8":
+                b, by = attn_bound(S, H, KVH, D, keys, pairs * H)
+            else:
+                b, by = bound_ms(2 * KVH * keys * D * 2 + 2 * 2 * S * H * D + 4 * S,
+                                 4 * H * pairs * D)
+            full = ""
+            if S <= 32 or p_last == 5119:
+                full_ms = median_ms(lambda: fn(q, kf[cyf()], vf[cyf.i], pos, *full_scales(),
+                                               window=W), iters=5 if big else 25,
+                                    warmup=1 if big else 3)
+                full = f"; full cache (T={Tf}, window alone) {full_ms:.4f} ms"
+            name = fn.__name__
+            add(name, n, ms, plain, lib, b, by, f"{cache} H={H} S={S} T={R} p_last={p_last}", full)
+        del k, v, ks, vs, kf, vf, ksf, vsf
+    return timed
+
+
 def count_launches(path, run):
     """Set every kernel's launch count to 0, call run(), read the counts, and
     check that exactly the kernels of `path` launched."""
@@ -1121,6 +1336,80 @@ def phase_long_prompt(dev, eng, path):
     log(f"long prompt ({n} tokens, T={T}, window {GEMMA_WINDOW} binds): spec {secs(spec)}, "
         f"acceptance {spec['acceptance_rate']:.4f}; baseline {secs(bl)}; peak memory "
         f"{peak_mb:.1f} MB; spec ids == baseline ids")
+    return launches
+
+
+def cache_mb(cfg, T, kv_bytes=2):
+    """MB of one model's K and V for one sequence of T slots (int8: 1 byte
+    a value and 8 bytes of scales a row)."""
+    rows = 2 * cfg.n_layers * cfg.n_kv_heads * T
+    return rows * (cfg.head_dim * kv_bytes + (4 if kv_bytes == 1 else 0)) / 1e6
+
+
+def phase_mistral_long(dev, eng, paths):
+    """Phase 8's long prompt (MISTRAL_LONG, 5400 tokens: P = 5632 in 11
+    chunks of 512, max_len 5760, ring T = R = 4736; it wraps the ring at
+    position 4736 and its decode sees two ends of the buffer). Spec and
+    baseline on the ring (spec ids == ring baseline ids); a baseline on the
+    full cache (T = 5760); int8-KV baselines on the ring and on the full
+    cache. Ring ids must equal the full cache's for bf16 and for int8;
+    where a pair parts, near_tie on the full-cache engine (a ring cannot
+    hold a one-shot forward of the prompt) must find a gap of at most 2
+    bf16 ulps of the top logit. Each run in its own launch count."""
+    from llm_inference_lab_tpu_torch.core.engine import Engine, _round_up
+
+    cfg = eng.config
+    n = len(eng.encode(MISTRAL_LONG, cfg.max_new_tokens, cfg.max_seq_len))
+    P = _round_up(_round_up(n, 32), cfg.prefill_chunk)
+    T = _round_up(P + cfg.max_new_tokens + cfg.max_draft + 2, 128)
+    assert (n, P, T) == MISTRAL_LONG_SHAPE, (n, P, T)
+    tp = eng.target.params
+
+    def engine(**kw):
+        return Engine(replace(cfg, draft_model=None, **kw), device=dev, target_params=tp)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = engine()
+    launches = {}
+    (spec, ring), launches[paths[0]] = count_launches(
+        paths[0], lambda: (eng.generate(MISTRAL_LONG), base.generate(MISTRAL_LONG)))
+    assert spec["generated_ids"] == ring["generated_ids"], "long prompt: spec ids != ring baseline"
+    full_eng = engine(kv_ring=False)
+    full, launches[paths[1]] = count_launches(paths[1], lambda: full_eng.generate(MISTRAL_LONG))
+    ring8_eng, full8_eng = engine(kv_quantization="int8"), engine(kv_quantization="int8",
+                                                                 kv_ring=False)
+    ring8, launches[paths[2]] = count_launches(paths[2], lambda: ring8_eng.generate(MISTRAL_LONG))
+    full8, launches[paths[3]] = count_launches(paths[3], lambda: full8_eng.generate(MISTRAL_LONG))
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    assert base.target.config.kv_ring_len == RING_LEN and full_eng.target.config.kv_ring_len is None
+    for r in (spec, ring, full, ring8, full8):
+        lp = torch.tensor(r["token_logprobs"] + r["prompt_logprobs"][1:])
+        assert r["generated_tokens"] >= 1 and torch.isfinite(lp).all(), "bad long-prompt logprobs"
+    for kv, a, b, ref_eng in (("bf16", ring, full, full_eng), ("int8", ring8, full8, full8_eng)):
+        gap = max(abs(x - y) for x, y in zip(a["token_logprobs"] + a["prompt_logprobs"][1:],
+                                             b["token_logprobs"] + b["prompt_logprobs"][1:]))
+        if a["generated_ids"] == b["generated_ids"]:
+            log(f"long prompt {kv} KV: ring ids == full-cache ids; largest logprob difference "
+                f"{gap:.3g}")
+            continue
+        tie = near_tie(ref_eng, dev, MISTRAL_LONG, b["generated_ids"], a["generated_ids"])
+        log(f"long prompt {kv} KV: ring ids differ from the full cache's: {tie}")
+        assert tie["gap_ulps"] <= 2, ("ring != full cache, not a near tie", kv, tie)
+
+    def secs(r):
+        decode = r["generation_time_ms"] / 1e3
+        return (f"prefill {r['latency_ms'] / 1e3 - decode:.3f} s, decode {decode:.3f} s "
+                f"({r['tokens_per_sec']:.2f} tok/s, {r['steps']} steps)")
+
+    mc = eng.target.config
+    log(f"mistral long prompt ({n} tokens, P={P}, ring T={RING_LEN}, full T={T}): spec "
+        f"{secs(spec)}, acceptance {spec['acceptance_rate']:.4f}; ring baseline {secs(ring)}; "
+        f"full-cache baseline {secs(full)}; int8 ring baseline {secs(ring8)}; int8 full-cache "
+        f"baseline {secs(full8)}; peak memory {peak_mb:.1f} MB; cache a model: ring "
+        f"{cache_mb(mc, RING_LEN):.1f} MB, full {cache_mb(mc, T):.1f} MB (at max_seq_len "
+        f"{cfg.max_seq_len}: {cache_mb(mc, cfg.max_seq_len):.1f} MB), int8 ring "
+        f"{cache_mb(mc, RING_LEN, 1):.1f} MB; spec ids == ring baseline ids")
     return launches
 
 
@@ -1368,6 +1657,7 @@ def main(argv):
                              "one K=4 decode step of the 8-slot int8 serving batch"),
     }
     gemma = phase_gemma_attention(dev)
+    ring = phase_ring_attention(dev)
     kernels.update({
         "flash_decode/gemma-2": (
             gemma["flash_decode"], "flash_decode", "ops/pallas/flash_decode.py:146",
@@ -1381,9 +1671,25 @@ def main(argv):
             gemma["paged_flash"], "paged_flash", "ops/pallas/paged_flash.py:82",
             "one K=1 decode step of the 8-slot Gemma-2 serving batch (26 + 42 layers)"),
     })
+    ring_step = ("one K=4 decode step of the Mistral-7B long-prompt path on the ring (p=5400, "
+                 "R=T=4736: 4 x 32 draft layers at S=1, 32 verify layers at S=5)")
+    ring_prefill = ("the Mistral-7B long prompt's prefill on the ring (11 chunks of 512, R=T=4736) "
+                    "through the 32 layers of one model")
+    kernels.update({
+        "flash_decode/ring": (ring["flash_decode"], "flash_decode",
+                              "ops/pallas/flash_decode.py:146", ring_step),
+        "flash_prefill/ring": (ring["flash_prefill"], "flash_prefill",
+                               "ops/pallas/flash_prefill.py:86", ring_prefill),
+        "flash_decode_int8/ring": (ring["flash_decode_int8"], "flash_decode",
+                                   "ops/pallas/flash_decode.py:203", ring_step + ", int8 KV"),
+        "flash_prefill_int8/ring": (ring["flash_prefill_int8"], "flash_prefill",
+                                    "ops/pallas/flash_prefill.py:142",
+                                    ring_prefill + ", int8 KV"),
+    })
     log(f"phase 2 took {time.perf_counter() - t0:.1f} s")
     profile = "--profile" in argv
     profile_gemma = profile or "--profile=gemma" in argv
+    profile_mistral = profile or "--profile=mistral" in argv
     paths = list(PATH_KERNELS)
     on_path = {}
     t0 = time.perf_counter()
@@ -1417,14 +1723,29 @@ def main(argv):
     t0 = time.perf_counter()
     on_path[paths[6]] = phase_serving(dev, eng, profile_gemma, SERVE_MAX_LEN, paths[6], label)
     log(f"phase 7 took {time.perf_counter() - t0:.1f} s")
+    del eng
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    eng, on_path[paths[7]] = phase_end_to_end(dev, profile_mistral, MISTRAL_CFG, paths[7],
+                                              "Mistral-7B int4 + 7B draft, K=4, ring")
+    lens = (eng.target.config.kv_ring_len, eng.draft.config.kv_ring_len)
+    assert lens == (RING_LEN, RING_LEN), ("ring lengths", lens)
+    on_path.update(phase_mistral_long(dev, eng, paths[8:12]))
+    log(f"phase 8 took {time.perf_counter() - t0:.1f} s")
 
     def counted(name):
-        """The paths whose launches a row counts: a Gemma-2 row its paths,
-        the bf16 D, E and F rows the Llama paths, every other row all."""
+        """The paths whose launches a row counts: a Gemma-2 row its paths, a
+        ring row the Mistral ring paths, the bf16 D, E and F rows the Llama
+        paths, the int8 ones the Llama and Gemma-2 paths (none launch
+        there), every other row all."""
         if name.endswith("/gemma-2"):
             return GEMMA_PATHS
+        if name.endswith("/ring"):
+            return RING_PATHS
         if name in ("flash_decode", "flash_prefill", "paged_flash"):
-            return [path for path in paths if path not in GEMMA_PATHS]
+            return [path for path in paths if path not in GEMMA_PATHS + MISTRAL_PATHS]
+        if name in ("flash_decode_int8", "flash_prefill_int8", "paged_flash_int8"):
+            return [path for path in paths if path not in MISTRAL_PATHS]
         return paths
 
     line = {"kernels": [

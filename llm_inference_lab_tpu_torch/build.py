@@ -48,18 +48,20 @@ SIGNATURES = {
     },
     "flash_decode": {
         # q, k, v, positions, out, B, S, H, KVH, T, D, stride_kb, stride_kh,
-        # scale, softcap, window, stream
-        "flash_decode_bf16": [P, P, P, P, P, I, I, I, I, I, I, LL, LL, F, F, I, P],
+        # scale, softcap, window, ring, stream
+        "flash_decode_bf16": [P, P, P, P, P, I, I, I, I, I, I, LL, LL, F, F, I, I, P],
         # q, k, v, k_scale, v_scale, positions, out, B, S, H, KVH, T, D,
         # stride_kb, stride_kh, stride_sb, stride_sh, scale, softcap, window,
-        # stream
-        "flash_decode_int8": [P, P, P, P, P, P, P, I, I, I, I, I, I, LL, LL, LL, LL, F, F, I, P],
+        # ring, stream
+        "flash_decode_int8": [P, P, P, P, P, P, P, I, I, I, I, I, I, LL, LL, LL, LL, F, F, I, I,
+                              P],
     },
     "flash_prefill": {
         # the arguments of flash_decode_bf16
-        "flash_prefill_bf16": [P, P, P, P, P, I, I, I, I, I, I, LL, LL, F, F, I, P],
+        "flash_prefill_bf16": [P, P, P, P, P, I, I, I, I, I, I, LL, LL, F, F, I, I, P],
         # the arguments of flash_decode_int8
-        "flash_prefill_int8": [P, P, P, P, P, P, P, I, I, I, I, I, I, LL, LL, LL, LL, F, F, I, P],
+        "flash_prefill_int8": [P, P, P, P, P, P, P, I, I, I, I, I, I, LL, LL, LL, LL, F, F, I, I,
+                               P],
     },
     "paged_flash": {
         # q, k_pool, v_pool, table, positions, out, B, S, H, KVH, M, P, D,

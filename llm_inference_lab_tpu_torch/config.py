@@ -3,7 +3,8 @@ EngineConfig that the ported slice reads.
 
 The slice is vanilla drafting at a fixed K, greedy longest_prefix
 acceptance, weight-only int4/int8 and a bf16 or int8 KV cache (per-row
-scales), contiguous or paged;
+scales), contiguous or paged, single-shot or chunked prefill, and the
+rolling-buffer cache (``kv_ring``) of uniform sliding-window models;
 a field of the JAX config with a single ported value has no field here until
 a later slice ports a second value for it. So ``prefix_caching`` (off),
 ``admit_chunk`` (one-shot admission) and ``kv_lazy_pages`` (eager page
@@ -38,6 +39,17 @@ class EngineConfig:
     # KV cache element type: None (the model dtype) or "int8" (symmetric
     # per-row scales, quantized as each row is written).
     kv_quantization: Optional[str] = None  # None | "int8"
+    # Chunked prefill: prompts longer than this prefill in forwards of this
+    # many tokens, each attending to the rows the earlier chunks wrote
+    # (None = one forward over the whole prompt).
+    prefill_chunk: Optional[int] = None
+    # Rolling-buffer KV for uniform sliding-window models (Mistral): the
+    # contiguous cache becomes a ring of window + prefill_chunk + K + 2
+    # slots, rounded up to 128 (slot = position mod ring), when that is
+    # shorter than max_seq_len. Needs the contiguous layout and
+    # prefill_chunk, a multiple of 32: a single-shot prefill longer than the
+    # ring would overwrite rows its own queries still need.
+    kv_ring: bool = False
 
     def validate(self) -> None:
         """Reject settings outside the ported slice instead of ignoring them."""
@@ -53,3 +65,15 @@ class EngineConfig:
             raise ValueError(f"unknown kv_layout {self.kv_layout!r}")
         if self.kv_layout == "paged" and (self.kv_page_size <= 0 or 128 % self.kv_page_size):
             raise ValueError("kv_page_size must divide 128 (buffer bucketing)")
+        if self.prefill_chunk is not None and self.prefill_chunk <= 0:
+            raise ValueError(f"prefill_chunk must be positive, got {self.prefill_chunk}")
+        if self.kv_ring:
+            if self.kv_layout != "contiguous":
+                raise ValueError("kv_ring requires kv_layout='contiguous'")
+            if not self.prefill_chunk:
+                raise ValueError("kv_ring requires prefill_chunk (a single-shot prefill longer "
+                                 "than the ring would overwrite rows its own queries still "
+                                 "need); set e.g. prefill_chunk=512")
+            if self.prefill_chunk % 32:
+                raise ValueError("kv_ring needs prefill_chunk to be a multiple of 32 (the prompt "
+                                 "bucket) so no forward ever exceeds the chunk")

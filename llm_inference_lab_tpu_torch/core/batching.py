@@ -18,7 +18,8 @@ pages for its prompt, its budget and the step's K+2 scratch rows, all up
 front (the JAX package's ``kv_lazy_pages=False``).
 
 Left out of this slice (ROADMAP Queue 1): lazy pages with preemption,
-prefix caching, incremental (chunked) admission, per-request sampling,
+prefix caching, incremental (chunked) admission and with it an engine with
+a rolling-buffer cache (``kv_ring``, which raises here), per-request sampling,
 grammars, LoRA, top-N logprobs and cancel; and the TPU host's tuning of the
 loop (chunk cost model, async and prefetched polls, fused and overlapped
 admission, traces). The loop here runs POLL_EVERY steps, then reads the
@@ -164,6 +165,13 @@ class ContinuousBatcher:
     admission and retirement, on the engine's device."""
 
     def __init__(self, engine: Engine, n_slots: int = 8):
+        if any(m is not None and m.config.kv_ring_len is not None
+               for m in (engine.target, engine.draft)):
+            # A wave's one-shot [G, P] prefill would wrap a ring shorter than
+            # its prompts over rows its own queries still need.
+            raise NotImplementedError(
+                "serving over a rolling-buffer cache (kv_ring) needs incremental admission "
+                "(admit_chunk), which is not ported yet")
         self.engine = engine
         self.n_slots = n_slots
         cfg = engine.config

@@ -1,12 +1,14 @@
 """Engine: speculative-decoding generation on one device.
 
 Port of llm_inference_lab_tpu/core/engine.py (``Engine.generate`` /
-``generate_batch`` and ``_build_results``) for the ported slice: Llama or
-Gemma target and draft (models/registry.py), vanilla drafting at a fixed K,
-greedy longest_prefix acceptance, weight-only int4/int8 with an optional
-int8 embedding/tied head,
-a contiguous or paged KV cache (``kv_layout``) of the model dtype or int8
-(``kv_quantization``). Prompt bucketing, the
+``generate_batch``, ``_enable_kv_ring`` and ``_build_results``) for the
+ported slice: Llama, Gemma or Mistral target and draft
+(models/registry.py), vanilla drafting at a fixed K, greedy longest_prefix
+acceptance, weight-only int4/int8 with an optional int8 embedding/tied
+head, a contiguous or paged KV cache (``kv_layout``) of the model dtype or
+int8 (``kv_quantization``), single-shot or chunked prefill
+(``prefill_chunk``) and the rolling-buffer cache (``kv_ring``). Prompt
+bucketing, the
 out-of-vocab clamp and the result keys follow the JAX engine. The serving
 path (core/batching.py ContinuousBatcher) drives the same step and reads
 ``encode``, ``is_spec``, ``_max_k``, ``eos_token_id`` and ``_step`` from
@@ -21,6 +23,7 @@ from __future__ import annotations
 
 import resource
 import time
+from dataclasses import replace
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -84,7 +87,27 @@ class Engine:
                                         eos_token_id=self.eos_token_id)
         else:
             self._step = make_baseline_step(self.target, eos_token_id=self.eos_token_id)
-        self._prefill = make_prefill(self.target, self.draft)
+        if cfg.kv_ring:
+            self._enable_kv_ring()
+        self._prefill = make_prefill(self.target, self.draft, chunk=cfg.prefill_chunk)
+
+    def _enable_kv_ring(self) -> None:
+        """Ring the contiguous KV cache of uniform sliding-window models: slot
+        = position mod R with R = round_up(window + chunk + K + 2, 128), so a
+        write (at position p, clobbering p - R) never reaches a row still
+        inside a live query's window. Applied per model: a model without a
+        window, or with Gemma-2's alternating one, keeps its plain cache, and
+        so does one whose ring would not be shorter than max_seq_len."""
+        cfg = self.config
+        for model in (self.target, self.draft):
+            if model is None:
+                continue
+            mc = model.config
+            if mc.sliding_window is None or mc.alt_window:
+                continue
+            R = _round_up(mc.sliding_window + cfg.prefill_chunk + self._max_k + 2, 128)
+            if R < cfg.max_seq_len:
+                model.config = replace(mc, kv_ring_len=R)
 
     def generate(self, prompt: str) -> Dict[str, Any]:
         return self.generate_batch([prompt])[0]
@@ -111,6 +134,8 @@ class Engine:
         enc = [self.encode(p, max_new, cfg.max_seq_len) for p in prompts]
         plens = np.array([len(e) for e in enc], np.int32)
         P = _round_up(max(int(plens.max()), 1), 32)
+        if cfg.prefill_chunk and P > cfg.prefill_chunk:
+            P = _round_up(P, cfg.prefill_chunk)  # the chunks tile the prompt block
         max_len = _round_up(P + max_new + self._max_k + 2, 128)
         block = np.zeros((B, P), np.int32)
         for i, e in enumerate(enc):

@@ -5,7 +5,9 @@ and ``kv_alignment_report``). The cache invariant is structural (slot ==
 absolute position, rows [0, L-1) committed), so one check after a
 generation suffices: re-prefill the committed tokens from scratch with the
 same model and compare the caches row by row under the length mask, int8
-caches dequantized. It is a plain function the caller invokes on a final
+caches dequantized. A rolling-buffer cache holds only its last ring_len
+rows, so slot == position fails there: its report says it was skipped, as
+in JAX. It is a plain function the caller invokes on a final
 state (``Engine.decode`` returns one); the JAX package gates it behind an
 environment flag, the port has none.
 """
@@ -65,6 +67,8 @@ def kv_alignment_report(model: Model, state: DecodeState, atol: float = 5e-2,
     single one. The difference of each element is taken relative to
     max(|fresh|, 1); the report is aligned when the largest is at most
     max(atol, rtol), as in the JAX package."""
+    if model.config.kv_ring_len is not None:
+        return {"aligned": True, "skipped": "kv_ring"}
     tokens, lengths = state.tokens, state.lengths
     B, T = tokens.shape
     live = state.target_cache

@@ -160,27 +160,45 @@ def make_baseline_step(target_model: Model, *, eos_token_id: Optional[int] = Non
     return step
 
 
-def make_prefill(target_model: Model, draft_model: Optional[Model]):
-    """Single-shot prompt prefill: populate both caches over the right-padded
-    prompt block in one forward each, and score the prompt tokens (prompt
-    logprobs) from the target logits. Junk KV rows beyond each prompt sit at
-    positions the mask never reaches until they are overwritten."""
+def make_prefill(target_model: Model, draft_model: Optional[Model], chunk: Optional[int] = None):
+    """Prompt prefill: populate both caches over the right-padded prompt
+    block and score the prompt tokens (prompt logprobs) from the target
+    logits. Junk KV rows beyond each prompt sit at positions the mask never
+    reaches until they are overwritten.
+
+    One forward over the whole block, or with `chunk` set and P > chunk
+    (P a multiple of chunk) one forward per chunk of the block, in order
+    (JAX's lax.scan over chunks is a Python loop here): chunk i's queries at
+    positions i*chunk .. i*chunk + chunk - 1 attend to the rows the earlier
+    chunks wrote and their own. Activations are then O(chunk) rows, and a
+    rolling-buffer cache shorter than the prompt is written before it wraps
+    past rows a query still needs. Row j of chunk i scores the prompt token
+    at position i*chunk + j + 1."""
 
     def prefill(state: DecodeState, prompt_block: torch.Tensor,
                 prompt_lens: torch.Tensor) -> DecodeState:
         B, P = prompt_block.shape
         dev = prompt_block.device
-        positions = torch.arange(P, dtype=torch.int32, device=dev)[None].repeat(B, 1)
-        zeros = torch.zeros((B,), dtype=torch.int32, device=dev)
-        lg, _ = target_model.forward(prompt_block, positions, state.target_cache, zeros)
-        if draft_model is not None:
-            draft_model.forward(prompt_block, positions, state.draft_cache, zeros)
-        lg32 = lg[:, :-1].float()
-        row_lp = (lg32.gather(-1, prompt_block[:, 1:, None].long())[..., 0]
-                  - torch.logsumexp(lg32, dim=-1))
-        row_lp = torch.where(positions[:, 1:] < prompt_lens[:, None], row_lp, 0.0)
         lp_buf = state.token_logprobs.clone()
-        lp_buf[:, 1:P] = row_lp
+        C = chunk if chunk is not None and P > chunk else P
+        if P % C:
+            raise ValueError(f"prompt block of {P} is not a multiple of the chunk {C}")
+        arange = torch.arange(C, dtype=torch.int32, device=dev)[None].repeat(B, 1)
+        for c0 in range(0, P, C):
+            tok = prompt_block[:, c0:c0 + C]
+            positions = c0 + arange
+            start = torch.full((B,), c0, dtype=torch.int32, device=dev)
+            lg, _ = target_model.forward(tok, positions, state.target_cache, start)
+            if draft_model is not None:
+                draft_model.forward(tok, positions, state.draft_cache, start)
+            # Row j scores the next prompt token, 0 past the prompt; the last
+            # row of the block has none: C - 1 rows score in the last chunk.
+            n = min(C, P - 1 - c0)
+            lg32 = lg[:, :n].float()
+            nxt = prompt_block[:, c0 + 1:c0 + 1 + n, None].long()
+            row_lp = lg32.gather(-1, nxt)[..., 0] - torch.logsumexp(lg32, dim=-1)
+            lp_buf[:, c0 + 1:c0 + 1 + n] = torch.where(
+                positions[:, :n] + 1 < prompt_lens[:, None], row_lp, 0.0)
         tokens = state.tokens.clone()
         tokens[:, :P] = prompt_block
         return replace(state, tokens=tokens, lengths=prompt_lens, prompt_lens=prompt_lens,

@@ -5,9 +5,9 @@
 // Replaces the tile body the three Pallas kernels share:
 // llm_inference_lab_tpu/ops/pallas/flash_decode.py _accum_tile / _finalize
 // (chain mask kv_pos <= p, f32 m / l / accumulator) with its static options
-// scale (default D**-0.5), softcap and window, for a bf16 cache and for an
-// int8 cache with per-key f32 scales (the Pallas _kernel_quant variants).
-// The ring cache's modular mask (ring_len) is not ported.
+// scale (default D**-0.5), softcap, window and ring_len, for a bf16 cache and
+// for an int8 cache with per-key f32 scales (the Pallas _kernel_quant
+// variants).
 //
 // A block owns one (b, kv head) and rows_per_warp<D> * warps query rows,
 // where row r stands for query position s = r / group and head h * group +
@@ -20,13 +20,25 @@
 // columns. A warp holds acc[rows][D/32] per lane, so it takes 16 rows at
 // D <= 128 and 8 at D = 256 (64 accumulator registers either way).
 //
-// Options (runtime arguments, 0 = off; with all three off the arithmetic is
+// Options (runtime arguments, 0 = off; with all of them off the arithmetic is
 // the plain chain mask's, instruction for instruction):
 //  * scale: the score scale (Gemma-2's query_pre_attn_scalar**-0.5).
 //  * softcap: s -> softcap * tanh(s / softcap), after the score scale (and
 //    for int8 after k's per-key scale) and before the mask, as in Pallas.
 //  * window: a row at position p also masks keys at or below p - window
 //    (Mistral, Gemma-2's local layers).
+//  * ring (ring_len, needs a window): the rolling-buffer cache of Mistral's
+//    kv_ring, where position j lives in slot j % ring of a plane of T <=
+//    ring slots. Pallas masks slots: slot s is seen iff rel = (p - s) mod
+//    ring < window and rel <= p. The body walks positions instead, as it
+//    does without a ring, and loads position j from slot j % ring: a row
+//    sees position j iff p - min(window, ring) < j <= p, j >= 0 and
+//    j % ring < T, which is the same set of slots. So a row visits its
+//    tiles in position order, the wrap of the ring costs nothing, and its
+//    bits are those of a full cache holding the same rows. The keys type
+//    carries the ring as a compile-time flag (PlaneKeys<D, T, true>): the
+//    kernels instantiate the body with and without it and pick one by the
+//    runtime argument, so the body without a ring has no ring code in it.
 //
 // The int8 cache (T = int8_t): the tile holds K and V as int8 (half the
 // shared memory of bf16) and the keys' k and v scales. As in the Pallas
@@ -38,15 +50,16 @@
 //
 // Row independence, on which the engine's parity rests: a row skips every
 // tile that starts after its position and, with a window, every tile that
-// ends before its first visible key p - window + 1; keys at or past the
+// ends before its first visible key p - window + 1 (with a ring, also every
+// tile none of whose keys it sees has a slot below T); keys at or past the
 // block's end are loaded as zeros and masked. So a row's bits depend only on
 // its own position, its q and the keys (p - window, p] (and their scales):
 // not on S, the other rows of its block, how many rows a block or a warp
-// holds, T beyond p, or whether the keys are read from a contiguous plane or
-// through a page table. D, E and F give the same bits for the same keys.
-// Skipping the tiles below the window is also what keeps the running max
-// finite: every tile a row processes holds a key it sees. The softmax
-// arithmetic is written with explicit rounding intrinsics (__fmul_rn,
+// holds, T beyond p, or whether the keys are read from a contiguous plane, a
+// ring or through a page table. D, E and F give the same bits for the same
+// keys. Skipping the tiles a row does not see is also what keeps the
+// running max finite: every tile a row processes holds a key it sees. The
+// softmax arithmetic is written with explicit rounding intrinsics (__fmul_rn,
 // __fsub_rn, __fmaf_rn, __fdiv_rn), so the compiler cannot contract it
 // differently in the three kernels. A row with no visible key (position -1)
 // returns zeros, as attend_xla does (the Pallas body returns the mean of V).
@@ -69,12 +82,23 @@ constexpr int BT = 32;  // keys per tile: one per lane
 template <int D>
 constexpr int RPW = D <= 128 ? 16 : 8;
 
-// The static options of the Pallas tile body; 0 turns softcap and window off.
+// The static options of the Pallas tile body; 0 turns softcap, window and
+// ring off.
 struct Options {
   float scale;    // score scale
   float softcap;  // > 0: s -> softcap * tanh(s / softcap)
   int window;     // > 0: keys (p - window, p] only
+  int ring;       // > 0 (with a window; >= BT): position j lives in slot j % ring
 };
+
+// A ring plane of T < ring slots (a cache shorter than the ring) holds only
+// the positions j with j % ring < T. Whether one of the positions [a, b]
+// (0 <= a <= b) is among them.
+__device__ __forceinline__ bool ring_holds_one(int a, int b, int ring, int T) {
+  if (T >= ring) return true;
+  const int s = a % ring;
+  return s < T || a + (ring - s) <= b;
+}
 
 // First key a row at position p >= 0 sees.
 __device__ __forceinline__ int first_key(int p, int window) {
@@ -119,16 +143,19 @@ struct Tile<D, int8_t> {
   float vs[BT];
 };
 
-// Keys of one (b, kv head) plane of a contiguous [T, D] cache; for int8,
-// ks / vs point at the plane's [T] scales (unused for bf16).
-template <int D, class T>
+// Keys of one (b, kv head) plane of a contiguous [T, D] cache, by slot; for
+// int8, ks / vs point at the plane's [T] scales (unused for bf16). With RING
+// the plane is a rolling buffer of opt.ring slots, position j in slot
+// j % ring (attend_rows maps positions to slots); without, slot == position.
+template <int D, class T, bool RING>
 struct PlaneKeys {
+  static constexpr bool kRing = RING;
   const T* k;
   const T* v;
   const float* ks;
   const float* vs;
-  __device__ __forceinline__ size_t operator()(int key) const { return (size_t)key * D; }
-  __device__ __forceinline__ size_t scale(int key) const { return (size_t)key; }
+  __device__ __forceinline__ size_t operator()(int slot) const { return (size_t)slot * D; }
+  __device__ __forceinline__ size_t scale(int slot) const { return (size_t)slot; }
 };
 
 // Keys of one sequence in a page pool [N, KVH, P, D], k and v already
@@ -137,6 +164,7 @@ struct PlaneKeys {
 // point at the kv head's scales in the [N, KVH, P] scale pools.
 template <int D, class T>
 struct PagedKeys {
+  static constexpr bool kRing = false;
   const T* k;
   const T* v;
   const float* ks;
@@ -173,7 +201,8 @@ __device__ __forceinline__ void int8_cols(const int8_t* p, float (&f)[DPL]) {
 
 // The whole block: q [B, S, H, D] bf16, positions [B, S] int32, out
 // [B, S, H, D] bf16; rows [r0, r0 + RPW<D> * warps) of sequence b, kv head
-// h; keys [0, T) available, of element type T_ (bf16, or int8 with scales).
+// h; slots [0, T) available (a ring's position j in slot j % opt.ring, else
+// slot j), of element type T_ (bf16, or int8 with scales).
 // qs: shared memory for that many rows of D bf16 (16-byte aligned).
 template <int D, class T_, class Keys>
 __device__ __forceinline__ void attend_rows(const __nv_bfloat16* __restrict__ q,
@@ -183,6 +212,7 @@ __device__ __forceinline__ void attend_rows(const __nv_bfloat16* __restrict__ q,
                                             const Options opt, __nv_bfloat16* qs,
                                             Tile<D, T_>& tile, int& kmax_s, int& kmin_s) {
   constexpr bool INT8 = std::is_same<T_, int8_t>::value;
+  constexpr bool RING = Keys::kRing;
   constexpr int DPL = D / 32;  // output columns per lane
   constexpr int C8 = D / 8;    // 16-byte chunks per q row
   constexpr int KC = D * (int)sizeof(T_) / 16;  // 16-byte chunks per K / V row
@@ -193,6 +223,9 @@ __device__ __forceinline__ void attend_rows(const __nv_bfloat16* __restrict__ q,
   const int group = H / KVH;
   const int nrows = S * group;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // A ring's slots hold at most its last `ring` positions: attend_xla's
+  // rel < window with rel < ring is the window min(window, ring).
+  const int window = RING ? min(opt.window, opt.ring) : opt.window;
 
   for (int e = threadIdx.x; e < rows * C8; e += nthreads) {
     const int lr = e / C8, c = e % C8, r = r0 + lr;
@@ -208,12 +241,14 @@ __device__ __forceinline__ void attend_rows(const __nv_bfloat16* __restrict__ q,
   for (int lr = threadIdx.x; lr < rows; lr += nthreads) {
     const int r = r0 + lr;
     const int p = r < nrows ? pos[b * S + r / group] : -1;
-    if (p >= 0) atomicMax(&kmax_s, p), atomicMin(&kmin_s, first_key(p, opt.window));
+    if (p >= 0) atomicMax(&kmax_s, p), atomicMin(&kmin_s, first_key(p, window));
   }
   __syncthreads();
-  // Tiles [tfirst, ntiles): from the lowest first visible key to the largest
-  // position (no tile at all when every row is dead).
-  const int kend = min(kmax_s + 1, T);
+  // Tiles [tfirst, ntiles) of positions: from the lowest first visible key to
+  // the largest position (no tile at all when every row is dead). Without a
+  // ring the plane ends at position T; a ring's positions run on past T, and
+  // the loads check each one's slot.
+  const int kend = RING ? kmax_s + 1 : min(kmax_s + 1, T);
   const int ntiles = kend > 0 ? (kend + BT - 1) / BT : 0;
   const int tfirst = kend > 0 ? kmin_s / BT : 0;
 
@@ -231,12 +266,21 @@ __device__ __forceinline__ void attend_rows(const __nv_bfloat16* __restrict__ q,
 
   for (int t = tfirst; t < ntiles; ++t) {
     const int t0 = t * BT;
+    const int s0 = RING ? t0 % opt.ring : t0;
+    // The slot of position t0 + j (j < BT): one modulo a tile, then at most
+    // one wrap (ring >= BT), a select rather than a branch, so the tile's
+    // loads still issue back to back.
+    const auto slot = [&](int j) {
+      const int s = s0 + j;
+      if constexpr (RING) return s >= opt.ring ? s - opt.ring : s;
+      return s;
+    };
     __syncthreads();
     for (int e = threadIdx.x; e < BT * KC; e += nthreads) {
-      const int j = e / KC, c = e % KC, key = t0 + j;
+      const int j = e / KC, c = e % KC, key = t0 + j, s = slot(j);
       uint4 kv4 = make_uint4(0u, 0u, 0u, 0u), vv4 = kv4;
-      if (key < kend) {  // never read past the block's last visible key
-        const size_t off = keys(key) + c * EPC;
+      if (key < kend && (!RING || s < T)) {  // never past the block's last key or the plane
+        const size_t off = keys(s) + c * EPC;
         kv4 = *reinterpret_cast<const uint4*>(keys.k + off);
         vv4 = *reinterpret_cast<const uint4*>(keys.v + off);
       }
@@ -245,10 +289,10 @@ __device__ __forceinline__ void attend_rows(const __nv_bfloat16* __restrict__ q,
     }
     if constexpr (INT8) {
       for (int j = threadIdx.x; j < BT; j += nthreads) {
-        const int key = t0 + j;
-        const bool live = key < kend;
-        tile.ks[j] = live ? keys.ks[keys.scale(key)] : 0.f;
-        tile.vs[j] = live ? keys.vs[keys.scale(key)] : 0.f;
+        const int key = t0 + j, s = slot(j);
+        const bool live = key < kend && (!RING || s < T);
+        tile.ks[j] = live ? keys.ks[keys.scale(s)] : 0.f;
+        tile.vs[j] = live ? keys.vs[keys.scale(s)] : 0.f;
       }
     }
     __syncthreads();
@@ -256,8 +300,12 @@ __device__ __forceinline__ void attend_rows(const __nv_bfloat16* __restrict__ q,
     for (int i = 0; i < R; ++i) {
       const int p = prow[i];
       // Warp-uniform: nothing visible in this tile (it starts after p, or
-      // ends before the row's first visible key).
-      if (p < t0 || (opt.window > 0 && t0 + BT + opt.window <= p + 1)) continue;
+      // ends before the row's first visible key, or none of the ring's
+      // positions the row sees in it has a slot in the plane).
+      if (p < t0 || (window > 0 && t0 + BT + window <= p + 1)) continue;
+      if constexpr (RING) {
+        if (!ring_holds_one(max(t0, p - window + 1), min(t0 + BT - 1, p), opt.ring, T)) continue;
+      }
       const __nv_bfloat16* qrow = qs + (size_t)(warp + warps * i) * D;
       float dot = 0.f;
       if constexpr (INT8) {
@@ -299,7 +347,7 @@ __device__ __forceinline__ void attend_rows(const __nv_bfloat16* __restrict__ q,
       }
       const int key = t0 + lane;
       float sc = -INFINITY;
-      if (key <= p && key < T && (opt.window <= 0 || key > p - opt.window)) {
+      if (key <= p && slot(lane) < T && (window <= 0 || key > p - window)) {
         sc = __fmul_rn(dot, opt.scale);
         if constexpr (INT8) sc = __fmul_rn(sc, tile.ks[lane]);
         if (opt.softcap > 0.f) sc = __fmul_rn(tanhf(__fdiv_rn(sc, opt.softcap)), opt.softcap);

@@ -5,11 +5,14 @@
 //           flash_decode_attention (tile body _accum_tile), chain-decode
 //           variants: mask kv_pos <= p, a bf16 cache (_kernel) and an int8
 //           cache with per-row scales (_kernel_quant), with the options
-//           scale, softcap and window. The ring cache (ring_len) is not
-//           ported.
+//           scale, softcap, window and ring_len (the modular mask of the
+//           rolling-buffer cache).
 //
 //   out[b, s, h, :] = softmax_t(cap(q[b,s,h] . k[b,h/g,t] * scale)
 //                               | p[b,s] - window < t <= p[b,s]) @ v
+//
+// (with a ring of R slots, t is the position p - rel that slot
+// (p - rel) % R holds, rel < min(window, R), and only slots below T exist)
 //
 // q bf16 [B, S, H, D]; k, v bf16 or int8 [B, KVH, T, D] (one layer's view
 // of the stacked [L, B, KVH, T, D] cache, given by its batch and head
@@ -46,7 +49,7 @@ constexpr int WARPS = 4;
 template <int D>
 constexpr int ROWS = WARPS * attn::RPW<D>;  // query rows per block
 
-template <int D, class T>
+template <int D, class T, bool RING>
 __global__ void __launch_bounds__(WARPS * 32)
 flash_decode_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const float* __restrict__ ks,
@@ -59,7 +62,7 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ k
   __shared__ int kmax_s, kmin_s;
   const int b = blockIdx.x / KVH, h = blockIdx.x % KVH;
   const size_t kv = b * stride_kb + h * stride_kh, sc = b * stride_sb + h * stride_sh;
-  const attn::PlaneKeys<D, T> keys{k + kv, v + kv, ks + sc, vs + sc};
+  const attn::PlaneKeys<D, T, RING> keys{k + kv, v + kv, ks + sc, vs + sc};
   attn::attend_rows<D, T>(q, pos, out, keys, b, h, S, H, KVH, blockIdx.y * ROWS<D>, Tk, opt,
                           reinterpret_cast<__nv_bfloat16*>(qs_raw), tile, kmax_s, kmin_s);
 }
@@ -70,12 +73,16 @@ int launch_d(const void* q, const void* k, const void* v, const void* ks, const 
              long long stride_kb, long long stride_kh, long long stride_sb, long long stride_sh,
              attn::Options opt, cudaStream_t st) {
   constexpr size_t smem = (size_t)ROWS<D> * D * sizeof(__nv_bfloat16);
-  static const cudaError_t shared_ok =
-      attn::allow_shared(flash_decode_kernel<D, T>, smem, sizeof(attn::Tile<D, T>) + 2 * sizeof(int));
-  if (shared_ok != cudaSuccess) return (int)shared_ok;
+  constexpr size_t stat = sizeof(attn::Tile<D, T>) + 2 * sizeof(int);
+  static const cudaError_t shared_ok[2] = {
+      attn::allow_shared(flash_decode_kernel<D, T, false>, smem, stat),
+      attn::allow_shared(flash_decode_kernel<D, T, true>, smem, stat)};
+  if (shared_ok[opt.ring > 0] != cudaSuccess) return (int)shared_ok[opt.ring > 0];
   const int nrows = S * (H / KVH);
   dim3 grid(B * KVH, (nrows + ROWS<D> - 1) / ROWS<D>);
-  flash_decode_kernel<D, T><<<grid, WARPS * 32, smem, st>>>(
+  const auto kernel =
+      opt.ring > 0 ? flash_decode_kernel<D, T, true> : flash_decode_kernel<D, T, false>;
+  kernel<<<grid, WARPS * 32, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(ks), static_cast<const float*>(vs), static_cast<const int*>(pos),
       static_cast<__nv_bfloat16*>(out), S, H, KVH, Tk, stride_kb, stride_kh, stride_sb,
@@ -89,6 +96,8 @@ int launch(const void* q, const void* k, const void* v, const void* ks, const vo
            long long stride_kb, long long stride_kh, long long stride_sb, long long stride_sh,
            attn::Options opt, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // A ring needs a window, and no shorter than a tile.
+  if (opt.ring > 0 && (opt.window <= 0 || opt.ring < attn::BT)) return (int)cudaErrorInvalidValue;
   if (D == 128)
     return launch_d<128, T>(q, k, v, ks, vs, pos, out, B, S, H, KVH, Tk, stride_kb, stride_kh,
                             stride_sb, stride_sh, opt, st);
@@ -104,14 +113,16 @@ int launch(const void* q, const void* k, const void* v, const void* ks, const vo
 }  // namespace
 
 // Requires D in {64, 128, 256}, H % KVH == 0, contiguous q / out / positions
-// and unit-stride [T, D] planes in k and v (checked in Python). softcap and
-// window: 0 turns them off.
+// and unit-stride [T, D] planes in k and v (checked in Python). softcap,
+// window and ring: 0 turns them off; a ring needs a window and at least 32
+// slots (a tile).
 extern "C" int flash_decode_bf16(const void* q, const void* k, const void* v, const void* pos,
                                  void* out, int B, int S, int H, int KVH, int T, int D,
                                  long long stride_kb, long long stride_kh, float scale,
-                                 float softcap, int window, void* stream) {
+                                 float softcap, int window, int ring, void* stream) {
   return launch<__nv_bfloat16>(q, k, v, nullptr, nullptr, pos, out, B, S, H, KVH, T, D,
-                               stride_kb, stride_kh, 0, 0, {scale, softcap, window}, stream);
+                               stride_kb, stride_kh, 0, 0, {scale, softcap, window, ring},
+                               stream);
 }
 
 // The int8 cache: k, v int8 with the bf16 entry's strides (in bytes =
@@ -121,7 +132,9 @@ extern "C" int flash_decode_int8(const void* q, const void* k, const void* v, co
                                  const void* v_scale, const void* pos, void* out, int B, int S,
                                  int H, int KVH, int T, int D, long long stride_kb,
                                  long long stride_kh, long long stride_sb, long long stride_sh,
-                                 float scale, float softcap, int window, void* stream) {
+                                 float scale, float softcap, int window, int ring,
+                                 void* stream) {
   return launch<int8_t>(q, k, v, k_scale, v_scale, pos, out, B, S, H, KVH, T, D, stride_kb,
-                        stride_kh, stride_sb, stride_sh, {scale, softcap, window}, stream);
+                        stride_kh, stride_sb, stride_sh, {scale, softcap, window, ring},
+                        stream);
 }

@@ -5,7 +5,10 @@
 //           flash_prefill_attention (_body: query-block grid axis, causal
 //           and window tile skip), chain-mask variants: mask kv_pos <= p, a
 //           bf16 cache (_kernel) and an int8 cache with per-row scales
-//           (_kernel_quant), with the options scale, softcap and window.
+//           (_kernel_quant), with the options scale, softcap and window;
+//           and the rolling-buffer cache's ring_len, which the Pallas
+//           prefill lacks (JAX sends ring prefill chunks to attend_xla's
+//           ring branch, ops/attention.py): the function of that branch.
 //
 // The function of flash_decode.cu, for S > 32: q bf16 [B, S, H, D]; k, v
 // bf16 or int8 [B, KVH, T, D] (a layer's view of the stacked cache, through
@@ -48,7 +51,7 @@ constexpr int MAX_GROUP = 4;  // 2 * group warps of attn::RPW<D> rows each
 template <int D>
 constexpr int QB = 2 * attn::RPW<D>;  // query positions per block
 
-template <int D, class T>
+template <int D, class T, bool RING>
 __global__ void __launch_bounds__(2 * MAX_GROUP * 32)
 flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const float* __restrict__ ks,
@@ -62,7 +65,7 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ 
   const int b = blockIdx.x / KVH, h = blockIdx.x % KVH;
   const int group = H / KVH;
   const size_t kv = b * stride_kb + h * stride_kh, sc = b * stride_sb + h * stride_sh;
-  const attn::PlaneKeys<D, T> keys{k + kv, v + kv, ks + sc, vs + sc};
+  const attn::PlaneKeys<D, T, RING> keys{k + kv, v + kv, ks + sc, vs + sc};
   attn::attend_rows<D, T>(q, pos, out, keys, b, h, S, H, KVH, blockIdx.y * QB<D> * group, Tk,
                           opt, reinterpret_cast<__nv_bfloat16*>(qs_raw), tile, kmax_s, kmin_s);
 }
@@ -76,13 +79,17 @@ int launch_d(const void* q, const void* k, const void* v, const void* ks, const 
   const size_t smem = (size_t)QB<D> * group * D * sizeof(__nv_bfloat16);
   // With the static tile, D = 128 at group 4 and D = 256 at group 2 need
   // more than the default 48 KB a block may take: allow the largest group's.
-  static const cudaError_t shared_ok =
-      attn::allow_shared(flash_prefill_kernel<D, T>, (size_t)QB<D> * MAX_GROUP * D * 2,
-                         sizeof(attn::Tile<D, T>) + 2 * sizeof(int));
-  if (shared_ok != cudaSuccess) return (int)shared_ok;
+  constexpr size_t most = (size_t)QB<D> * MAX_GROUP * D * 2;
+  constexpr size_t stat = sizeof(attn::Tile<D, T>) + 2 * sizeof(int);
+  static const cudaError_t shared_ok[2] = {
+      attn::allow_shared(flash_prefill_kernel<D, T, false>, most, stat),
+      attn::allow_shared(flash_prefill_kernel<D, T, true>, most, stat)};
+  if (shared_ok[opt.ring > 0] != cudaSuccess) return (int)shared_ok[opt.ring > 0];
   dim3 grid(B * KVH, (S + QB<D> - 1) / QB<D>);
   dim3 block(2 * group * 32);
-  flash_prefill_kernel<D, T><<<grid, block, smem, st>>>(
+  const auto kernel =
+      opt.ring > 0 ? flash_prefill_kernel<D, T, true> : flash_prefill_kernel<D, T, false>;
+  kernel<<<grid, block, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(ks), static_cast<const float*>(vs), static_cast<const int*>(pos),
       static_cast<__nv_bfloat16*>(out), S, H, KVH, Tk, stride_kb, stride_kh, stride_sb,
@@ -97,6 +104,8 @@ int launch(const void* q, const void* k, const void* v, const void* ks, const vo
            attn::Options opt, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (H % KVH || H / KVH > MAX_GROUP) return (int)cudaErrorInvalidValue;
+  // A ring needs a window, and no shorter than a tile.
+  if (opt.ring > 0 && (opt.window <= 0 || opt.ring < attn::BT)) return (int)cudaErrorInvalidValue;
   if (D == 128)
     return launch_d<128, T>(q, k, v, ks, vs, pos, out, B, S, H, KVH, Tk, stride_kb, stride_kh,
                             stride_sb, stride_sh, opt, st);
@@ -117,9 +126,10 @@ int launch(const void* q, const void* k, const void* v, const void* ks, const vo
 extern "C" int flash_prefill_bf16(const void* q, const void* k, const void* v, const void* pos,
                                   void* out, int B, int S, int H, int KVH, int T, int D,
                                   long long stride_kb, long long stride_kh, float scale,
-                                  float softcap, int window, void* stream) {
+                                  float softcap, int window, int ring, void* stream) {
   return launch<__nv_bfloat16>(q, k, v, nullptr, nullptr, pos, out, B, S, H, KVH, T, D,
-                               stride_kb, stride_kh, 0, 0, {scale, softcap, window}, stream);
+                               stride_kb, stride_kh, 0, 0, {scale, softcap, window, ring},
+                               stream);
 }
 
 // The int8 cache, with the arguments of flash_decode_int8.
@@ -128,7 +138,8 @@ extern "C" int flash_prefill_int8(const void* q, const void* k, const void* v,
                                   void* out, int B, int S, int H, int KVH, int T, int D,
                                   long long stride_kb, long long stride_kh, long long stride_sb,
                                   long long stride_sh, float scale, float softcap, int window,
-                                  void* stream) {
+                                  int ring, void* stream) {
   return launch<int8_t>(q, k, v, k_scale, v_scale, pos, out, B, S, H, KVH, T, D, stride_kb,
-                        stride_kh, stride_sb, stride_sh, {scale, softcap, window}, stream);
+                        stride_kh, stride_sb, stride_sh, {scale, softcap, window, ring},
+                        stream);
 }

@@ -1,8 +1,9 @@
 """Model config and static-shape KV cache.
 
 Port of llm_inference_lab_tpu/models/base.py (ModelConfig, KVCache, the
-per-row int8 quantization and the cache write at absolute positions) for the
-Llama and Gemma families.
+per-row int8 quantization and the cache write at absolute positions, or at
+position mod ring_len in the rolling-buffer cache) for the Llama, Gemma and
+Mistral families.
 
 Cache-tail invariant (what makes single-pass verification work): the cache
 holds KV for committed tokens [0, L-1), everything except the last committed
@@ -59,6 +60,12 @@ class ModelConfig:
     query_pre_attn_scalar: Optional[float] = None
     post_norms: bool = False
     alt_window: bool = False
+    # Rolling-buffer KV (EngineConfig.kv_ring): the contiguous cache is a
+    # ring of this many slots (slot = position mod kv_ring_len) instead of
+    # max_seq_len. The engine sizes it to window + chunk + K + slack, so no
+    # write ever clobbers a row still inside a live query's window (a write
+    # at position p clobbers p - kv_ring_len). None = slot == position.
+    kv_ring_len: Optional[int] = None
 
     @property
     def head_dim(self) -> int:
@@ -139,36 +146,52 @@ class Model:
         """A contiguous KVCache, or with paged=True a PagedKVCache (a pool of
         n_pages pages of page_size rows and a [batch_size, max_pages] table).
         dtype: the KV element type (None: the model dtype; torch.int8: a
-        quantized cache with per-row scales)."""
+        quantized cache with per-row scales). A ring model's contiguous cache
+        holds at most kv_ring_len slots."""
         if paged:
             from llm_inference_lab_tpu_torch.models.paged import PagedKVCache
 
             return PagedKVCache.create(self.config, batch_size, max_seq_len, device,
                                        n_pages=n_pages, page_size=page_size, table=table,
                                        dtype=dtype)
+        if self.config.kv_ring_len is not None:
+            max_seq_len = min(max_seq_len, self.config.kv_ring_len)
         return KVCache.create(self.config, batch_size, max_seq_len, device, dtype=dtype)
 
 
-def cache_slots(start: torch.Tensor, S: int, T: int):
-    """Index of the S new rows per sequence, slots start[b] .. start[b]+S-1,
-    for ``write_cache_layer``: (b [B, 1], slot [B, S]). Slots clip to the
-    buffer as the JAX scatter does; the engine guarantees headroom. A
-    forward computes it once for all its layers."""
-    slots = (start[:, None] + torch.arange(S, device=start.device)[None]).clamp(0, T - 1)
-    return torch.arange(start.shape[0], device=start.device)[:, None], slots
+def cache_slots(start: torch.Tensor, S: int, T: int, ring_len: Optional[int] = None):
+    """Where the S new rows per sequence (positions start[b] .. start[b]+S-1)
+    land, for ``write_cache_layer``: (b [B, 1], slot [B, n], rows), where the
+    last n of the S rows (rows = slice(S - n, None)) are written. Slots
+    clip to the buffer as the JAX scatter does; the engine guarantees
+    headroom. With ring_len R the slot is position mod R, and when S > R only
+    the last R rows land (an earlier row would be overwritten by a later
+    one of the same block; JAX drops it). A forward computes this once for
+    all its layers."""
+    pos = start[:, None] + torch.arange(S, device=start.device)[None]
+    rows = slice(None)
+    if ring_len is None:
+        slots = pos.clamp(0, T - 1)
+    else:
+        if S > ring_len:
+            rows = slice(S - ring_len, None)
+            pos = pos[:, rows]
+        slots = pos % ring_len
+    return torch.arange(start.shape[0], device=start.device)[:, None], slots, rows
 
 
 def write_cache_layer(cache: KVCache, layer: int, k_new: torch.Tensor,
                       v_new: torch.Tensor, slots) -> None:
     """Write the new rows k_new/v_new [B, S, n_kv, d] (model compute order)
     of layer `layer` at ``slots = cache_slots(...)``, in place; an int8
-    cache quantizes each row as it is written, with its scale (the port of
-    update_cache_layer's non-ring branch)."""
-    b_idx, slot = slots
+    cache quantizes each row as it is written and writes its scale at the
+    same slot (the port of update_cache_layer, both branches)."""
+    b_idx, slot, rows = slots
     # Advanced indices (b [B,1], slot [B,S]) around the head slice index a
     # [B, S, n_kv, d] block (a [B, S, n_kv] block of scales): exactly the
     # model-order rows.
     for dst, scales, new in ((cache.k, cache.k_scale, k_new), (cache.v, cache.v_scale, v_new)):
+        new = new[:, rows]
         if dst.dtype == torch.int8:
             new, scale = quantize_rows(new)
             scales[layer][b_idx, :, slot] = scale

@@ -1,13 +1,14 @@
 """Model registry: name -> family (port of llm_inference_lab_tpu/models/
-registry.py get_model for the ported families, Llama and Gemma). A name is
+registry.py get_model for the ported families, Llama, Gemma and Mistral). A name is
 matched after the same lower-casing and hub-prefix stripping as in JAX."""
 
 from __future__ import annotations
 
-from llm_inference_lab_tpu_torch.models import gemma, llama
+from llm_inference_lab_tpu_torch.models import gemma, llama, mistral
 from llm_inference_lab_tpu_torch.models.base import Model
 
-FAMILIES = ((llama.LLAMA_CONFIGS, llama.create), (gemma.GEMMA_CONFIGS, gemma.create))
+FAMILIES = ((llama.LLAMA_CONFIGS, llama.create), (gemma.GEMMA_CONFIGS, gemma.create),
+            (mistral.MISTRAL_CONFIGS, mistral.create))
 _PREFIXES = ("meta-llama/", "openai-community/", "facebook/", "qwen/", "mistralai/", "google/",
              "microsoft/")
 

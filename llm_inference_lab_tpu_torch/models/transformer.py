@@ -2,10 +2,12 @@
 attention over the cache, gated SiLU or GeGLU MLP, tied (optionally int8)
 head; with Gemma's and Gemma-2's flags (embedding scale, (1 + w) norms,
 sandwich norms, the per-layer sliding window, the score scale and the
-attention and final logit softcaps).
+attention and final logit softcaps) and Mistral's untied head and
+rolling-buffer cache (ModelConfig.kv_ring_len: the rows land at position mod
+ring and attention masks modulo the ring).
 
-Port of llm_inference_lab_tpu/models/transformer.py for the Llama and Gemma
-families.
+Port of llm_inference_lab_tpu/models/transformer.py for the Llama, Gemma and
+Mistral families.
 The JAX package scans one compiled layer over stacked params; the port runs
 a Python loop over the same stacked tensors, taking each layer as a view
 (no copy), and every projection goes through ``ops.quant.dense``.
@@ -118,7 +120,8 @@ def _attn_block(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Ten
                             **options)
     else:
         write_cache_layer(cache, layer, qk[:, :, H:], v, slots)
-        attn = attend(q, cache.k[layer], cache.v[layer], positions, *scales, **options)
+        attn = attend(q, cache.k[layer], cache.v[layer], positions, *scales,
+                      ring_len=cfg.kv_ring_len, **options)
     return dense(attn.reshape(B, S, H * Dh), p["wo"])
 
 
@@ -153,7 +156,7 @@ def forward(cfg: ModelConfig, params: Any, tokens: torch.Tensor, positions: torc
     if isinstance(cache, PagedKVCache):
         slots = page_slots(cache.table, cache_lens, tokens.shape[1], cache.page_size)
     else:
-        slots = cache_slots(cache_lens, tokens.shape[1], cache.max_seq_len)
+        slots = cache_slots(cache_lens, tokens.shape[1], cache.max_seq_len, cfg.kv_ring_len)
 
     def norm(h, w):
         return rms_norm(h, w, cfg.rms_norm_eps, cfg.rms_one_offset)

@@ -7,7 +7,7 @@ Port of the JAX package's attention dispatch (ops/attention.py
 
     attend(q [B,S,H,D], k_cache [B,KVH,T,D], v_cache [B,KVH,T,D],
            positions [B,S], k_scale [B,KVH,T] = None, v_scale = None,
-           window=None, scale=None, softcap=None)
+           window=None, ring_len=None, scale=None, softcap=None)
         -> [B,S,H,D]
     paged_attend(q, k_pool [N,KVH,P,D], v_pool [N,KVH,P,D], positions,
                  table [B,M], k_scale [N,KVH,P] = None, v_scale = None,
@@ -22,14 +22,18 @@ replaces the score scale D**-0.5 and softcap caps the scores
 S <= 32 (draft, verify) goes to the decode kernels, flash_decode or
 paged_flash; longer S (prefill) to flash_prefill, all with the options. A
 window that cannot bind is dropped, as the JAX wrappers drop it: when the
-cache holds no more positions than the window (T, or M * P for pages). A
+cache holds no more positions than the window (T, or M * P for pages). The
+rolling-buffer cache (ring_len R, contiguous only: slot = position mod R)
+keeps its window unconditionally, as JAX does, since the modular mask needs
+it; it goes to D for S <= 32 and to E for longer S (JAX sends ring prefill
+chunks to attend_xla: its Pallas prefill has no modular mask). A
 paged prefill first gathers its pages into a contiguous view (JAX sends that
 case to its XLA gather; only Engine.generate_batch in paged mode reaches
 it). An int8 cache (with its scales) is routed exactly as a
 bf16 one, to the int8 variants of the same kernels. Gemma-2's per-layer
 window gate (window_on, traced in JAX) is the caller's choice here: the
 port's layer loop is Python and passes the window on local layers only. The
-ring cache (ring_len) and the tree mask raise.
+tree mask raises: it is not ported.
 """
 
 from __future__ import annotations
@@ -55,8 +59,8 @@ def _refuse_unported(**options) -> None:
 def _options(span: int, window: Optional[int], **options) -> dict:
     """The options in use, for the kernel wrappers: the window only where it
     can bind (keys (p - window, p] with p < span <= window reach back to 0
-    anyway)."""
-    if window is not None and span > window:
+    anyway), or always with a ring."""
+    if window is not None and (span > window or options.get("ring_len") is not None):
         options["window"] = window
     return {name: value for name, value in options.items() if value is not None}
 
@@ -64,10 +68,11 @@ def _options(span: int, window: Optional[int], **options) -> dict:
 def attend(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
            positions: torch.Tensor, k_scale: Optional[torch.Tensor] = None,
            v_scale: Optional[torch.Tensor] = None, *, tree_mask=None,
-           window: Optional[int] = None, ring_len=None, scale: Optional[float] = None,
-           softcap: Optional[float] = None) -> torch.Tensor:
-    _refuse_unported(tree_mask=tree_mask, ring_len=ring_len)
-    options = _options(k_cache.shape[2], window, scale=scale, softcap=softcap)
+           window: Optional[int] = None, ring_len: Optional[int] = None,
+           scale: Optional[float] = None, softcap: Optional[float] = None) -> torch.Tensor:
+    _refuse_unported(tree_mask=tree_mask)
+    options = _options(k_cache.shape[2], window, ring_len=ring_len, scale=scale,
+                       softcap=softcap)
     if q.shape[1] <= DECODE_MAX_S:
         return flash_decode(q, k_cache, v_cache, positions, k_scale, v_scale, **options)
     return flash_prefill(q, k_cache, v_cache, positions, k_scale, v_scale, **options)

@@ -3,21 +3,27 @@
 Port of llm_inference_lab_tpu/ops/pallas/flash_decode.py, chain-decode
 variants (mask kv_pos <= p) over a bf16 cache (_kernel) and an int8 cache
 with per-row scales (_kernel_quant), with the tile body's static options
-(``Options``): the score ``scale`` (default D**-0.5), the logit ``softcap``
-and the sliding ``window``. On a CPU tensor ``flash_decode`` runs the plain
-version; on a CUDA tensor it launches csrc/flash_decode.cu or raises. An int8
-cache goes to ``flash_decode_int8``, the int8 instantiation of the same
-kernel with its own launch count. ``attend`` sends it the decode-shaped calls
-(S <= 32: draft S = 1, verify S = K+1); longer S goes to flash_prefill.
+(``Options``): the score ``scale`` (default D**-0.5), the logit ``softcap``,
+the sliding ``window`` and the rolling-buffer cache's ``ring_len``. On a CPU
+tensor ``flash_decode`` runs the plain version; on a CUDA tensor it launches
+csrc/flash_decode.cu or raises. An int8 cache goes to ``flash_decode_int8``,
+the int8 instantiation of the same kernel with its own launch count.
+``attend`` sends it the decode-shaped calls (S <= 32: draft S = 1, verify
+S = K+1); longer S goes to flash_prefill.
 
     flash_decode(q [B,S,H,D], k [B,KVH,T,D], v [B,KVH,T,D], positions [B,S],
                  k_scale [B,KVH,T] = None, v_scale [B,KVH,T] = None,
-                 scale=None, softcap=None, window=None)
+                 scale=None, softcap=None, window=None, ring_len=None)
         -> [B,S,H,D] in q's dtype
 
 A query at position p sees keys (p - window, p] (all of [0, p] without a
-window). A query row with no visible key (position -1) returns zeros, as
-attend_xla does; the Pallas tile body returns the mean of V there.
+window). With ring_len R (which needs a window), slot s of the cache holds
+the latest position <= p congruent to s mod R: it is seen iff rel = (p - s)
+mod R satisfies rel < window and rel <= p, as attend_xla's ring branch
+says. R is the ring's length, not T: a cache shorter than the ring (T < R)
+holds the slots [0, T). A query row with no visible key (position -1)
+returns zeros, as attend_xla does; the Pallas tile body returns the mean of
+V there.
 """
 
 from __future__ import annotations
@@ -27,6 +33,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from llm_inference_lab_tpu_torch import build
+
+RING_MIN = 32  # the kernels' key tile: a shorter ring is refused on the card
 
 
 def dequantize_cache(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -40,22 +48,30 @@ def dequantize_cache(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 class Options(NamedTuple):
-    """The tile body's static options (_accum_tile's scale, softcap and
-    window; None is off, and the score scale then D**-0.5)."""
+    """The tile body's static options (_accum_tile's scale, softcap, window
+    and ring_len; None is off, and the score scale then D**-0.5)."""
 
     scale: Optional[float] = None
     softcap: Optional[float] = None
     window: Optional[int] = None
+    ring_len: Optional[int] = None
 
     def check(self) -> None:
         if self.softcap is not None and not self.softcap > 0:
             raise ValueError(f"softcap must be positive, got {self.softcap}")
         if self.window is not None and self.window < 1:
             raise ValueError(f"window must be at least 1, got {self.window}")
+        if self.ring_len is not None:
+            if self.ring_len < 1:
+                raise ValueError(f"ring_len must be at least 1, got {self.ring_len}")
+            if self.window is None:
+                raise ValueError("ring_len needs a window (the ring keeps only the rows a "
+                                 "window can see)")
 
     def kernel_args(self, D: int):
         """(scale, softcap, window) as the C entries take them: 0 turns
-        softcap and window off."""
+        softcap and window off. The ring's length goes to kernels D and E
+        only (launch_planes)."""
         return (D ** -0.5 if self.scale is None else self.scale, self.softcap or 0.0,
                 self.window or 0)
 
@@ -63,13 +79,15 @@ class Options(NamedTuple):
 def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        positions: torch.Tensor, k_scale: Optional[torch.Tensor] = None,
                        v_scale: Optional[torch.Tensor] = None, *, scale: Optional[float] = None,
-                       softcap: Optional[float] = None,
-                       window: Optional[int] = None) -> torch.Tensor:
+                       softcap: Optional[float] = None, window: Optional[int] = None,
+                       ring_len: Optional[int] = None) -> torch.Tensor:
     """attend_xla's chain-decode math in f32, in its order: an int8 cache
     dequantized to q's dtype, scores times the scale, the softcap, the
-    position mask (with the window's lower bound), softmax, zeros on rows
-    with no visible key, probabilities rounded to the cache dtype before
-    P @ V (as attend_xla rounds them)."""
+    position mask (with the window's lower bound; with a ring, the modular
+    rule rel = (p - slot) mod ring_len < window and rel <= p), softmax,
+    zeros on rows with no visible key, probabilities rounded to the cache
+    dtype before P @ V (as attend_xla rounds them)."""
+    Options(scale, softcap, window, ring_len).check()
     k, v = dequantize_cache(q, k, v, k_scale, v_scale)
     B, S, H, D = q.shape
     KVH, T = k.shape[1], k.shape[2]
@@ -81,9 +99,13 @@ def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scores = torch.tanh(scores / softcap) * softcap
     kv_pos = torch.arange(T, device=q.device)[None, None, None, None, :]
     p = positions[:, None, None, :, None]
-    mask = kv_pos <= p
-    if window is not None:
-        mask &= kv_pos > p - window
+    if ring_len is not None:
+        rel = (p - kv_pos) % ring_len
+        mask = (rel < window) & (rel <= p)
+    else:
+        mask = kv_pos <= p
+        if window is not None:
+            mask &= kv_pos > p - window
     scores = scores.masked_fill(~mask, float("-inf"))
     probs = torch.softmax(scores, dim=-1)
     probs = torch.where(mask.any(-1, keepdim=True), probs, torch.zeros_like(probs))
@@ -156,7 +178,11 @@ def launch_planes(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     B, S, H, D = check_queries(name, q, positions, k, v,
                                cache_dtype=torch.int8 if int8 else torch.bfloat16)
     check_planes(name, q, k, v)
+    if opts.ring_len is not None and opts.ring_len < RING_MIN:
+        raise ValueError(f"{name} kernel takes ring_len >= {RING_MIN} (a tile of keys), "
+                         f"got {opts.ring_len}")
     KVH, T = k.shape[1], k.shape[2]
+    ring = opts.ring_len or 0  # 0: slot == position
     out = torch.empty_like(q)
     lib = build.library(kernel)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -165,11 +191,11 @@ def launch_planes(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
         err = getattr(lib, name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
             positions.data_ptr(), out.data_ptr(), B, S, H, KVH, T, D, k.stride(0), k.stride(1),
-            k_scale.stride(0), k_scale.stride(1), *opts.kernel_args(D), stream)
+            k_scale.stride(0), k_scale.stride(1), *opts.kernel_args(D), ring, stream)
     else:
         err = getattr(lib, f"{kernel}_bf16")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), positions.data_ptr(), out.data_ptr(),
-            B, S, H, KVH, T, D, k.stride(0), k.stride(1), *opts.kernel_args(D), stream)
+            B, S, H, KVH, T, D, k.stride(0), k.stride(1), *opts.kernel_args(D), ring, stream)
     build.check(err, name)
     return out
 
@@ -177,7 +203,7 @@ def launch_planes(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor,
                  k_scale: Optional[torch.Tensor] = None, v_scale: Optional[torch.Tensor] = None,
                  **options) -> torch.Tensor:
-    """options: the keywords of Options (scale, softcap, window)."""
+    """options: the keywords of Options (scale, softcap, window, ring_len)."""
     if k.dtype == torch.int8:
         return flash_decode_int8(q, k, v, positions, k_scale, v_scale, **options)
     if not q.is_cuda:

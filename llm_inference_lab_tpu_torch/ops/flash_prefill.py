@@ -4,9 +4,12 @@ contiguous bf16 or int8 KV cache.
 Port of llm_inference_lab_tpu/ops/pallas/flash_prefill.py, chain-mask
 variants (mask kv_pos <= p) over a bf16 cache (_kernel) and an int8 cache
 with per-row scales (_kernel_quant), with flash_decode's options (scale,
-softcap, window; the window's tile skip is per row). On a CPU tensor
-``flash_prefill`` runs the plain version, ``flash_decode_plain`` (kernels D
-and E compute one function, attend_xla's chain mask); on a CUDA tensor it
+softcap, window; the window's tile skip is per row) and its ring_len: a
+prefill chunk over the rolling-buffer cache, which JAX sends to
+attend_xla's ring branch because its Pallas prefill has no modular mask.
+On a CPU tensor ``flash_prefill`` runs the plain version,
+``flash_decode_plain`` (kernels D and E compute one function, attend_xla's
+chain mask or its ring rule); on a CUDA tensor it
 launches csrc/flash_prefill.cu or raises. An int8 cache goes to
 ``flash_prefill_int8``, with its own launch count. ``attend`` sends it
 S > 32, as the JAX dispatcher does: the serving admission's [G, P] prefill
@@ -14,7 +17,7 @@ and Engine.generate's prompt.
 
     flash_prefill(q [B,S,H,D], k [B,KVH,T,D], v [B,KVH,T,D], positions [B,S],
                   k_scale [B,KVH,T] = None, v_scale [B,KVH,T] = None,
-                  scale=None, softcap=None, window=None)
+                  scale=None, softcap=None, window=None, ring_len=None)
         -> [B,S,H,D] in q's dtype
 
 Positions need not start at 0 (a chunk may resume at any base); a row at
@@ -41,7 +44,8 @@ def _check_group(q: torch.Tensor, k: torch.Tensor) -> None:
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor,
                   k_scale: Optional[torch.Tensor] = None, v_scale: Optional[torch.Tensor] = None,
                   **options) -> torch.Tensor:
-    """options: the keywords of flash_decode.Options (scale, softcap, window)."""
+    """options: the keywords of flash_decode.Options (scale, softcap, window,
+    ring_len)."""
     if k.dtype == torch.int8:
         return flash_prefill_int8(q, k, v, positions, k_scale, v_scale, **options)
     if not q.is_cuda:

@@ -18,6 +18,7 @@ Key j of sequence b is row j % P of page table[b, j // P]. The kernel gives
 the same bits as flash_decode on the same keys, and reads only the pages a
 row's position reaches. Page ids in the table must lie in [0, N): the
 serving allocator hands out only such ids, and the kernel does not check.
+The ring cache (ring_len) is contiguous only, as in JAX: it raises here.
 """
 
 from __future__ import annotations
@@ -51,6 +52,11 @@ def paged_flash_plain(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tenso
                               positions, k_scale, v_scale, **options)
 
 
+def _refuse_ring(options: dict) -> None:
+    if options.get("ring_len") is not None:
+        raise ValueError("paged_flash: the ring cache (ring_len) needs the contiguous layout")
+
+
 def _check_pools(name: str, q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                  positions: torch.Tensor, table: torch.Tensor, cache_dtype: torch.dtype):
     """Pools [N, KVH, P, D] of cache_dtype with equal strides, [KVH, P, D]
@@ -78,7 +84,9 @@ def paged_flash(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                 positions: torch.Tensor, table: torch.Tensor,
                 k_scale: Optional[torch.Tensor] = None,
                 v_scale: Optional[torch.Tensor] = None, **options) -> torch.Tensor:
-    """options: the keywords of flash_decode.Options (scale, softcap, window)."""
+    """options: the keywords of flash_decode.Options but ring_len (scale,
+    softcap, window)."""
+    _refuse_ring(options)
     if k_pool.dtype == torch.int8:
         return paged_flash_int8(q, k_pool, v_pool, positions, table, k_scale, v_scale, **options)
     if not q.is_cuda:
@@ -103,6 +111,7 @@ def paged_flash_int8(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor
                      v_scale: torch.Tensor, **options) -> torch.Tensor:
     """paged_flash over int8 pools [N, KVH, P, D] with f32 scale pools
     [N, KVH, P]."""
+    _refuse_ring(options)
     if not q.is_cuda:
         return paged_flash_plain(q, k_pool, v_pool, positions, table, k_scale, v_scale,
                                  **options)

@@ -379,3 +379,76 @@ def test_gemma2_attention_kernels_match_plain_and_each_other(card, H, KVH, cache
             for j in (0, 55, 56, 63):  # 56: the first row whose window cuts key 0
                 qj, pj = q[:, j:j + 1].contiguous(), pos[:, j:j + 1].contiguous()
                 assert torch.equal(route[0](qj, k, v, pj, *scales, **opts), got[:, j:j + 1])
+
+
+def _ring_keys(card, g, cache, B, KVH, D, R, T, W, pos, Tf):
+    """The same keys two ways: a full cache [B, KVH, Tf, D] indexed by
+    position, with POISON (as _gemma2_keys) at the positions no live row of
+    a sequence sees (below its smallest position minus W, past its largest
+    one); and a ring [B, KVH, T, D] of R slots, whose slot s holds the latest
+    position at most the sequence's largest one that is congruent to s mod R
+    (POISON where there is none), as the engine's ring writes leave it.
+    Returns (full, ring), each (k, v, k_scale, v_scale)."""
+    # Position Tf (past every live row) is POISON: the slots no position fills.
+    full = _gemma2_keys(card, g, cache, B, KVH, Tf + 1, D, pos, W)
+    slots = torch.arange(T, device=card)
+    idx = torch.stack([int(p[p >= 0].max()) - (int(p[p >= 0].max()) - slots) % R for p in pos])
+    idx = torch.where(idx >= 0, idx, Tf)  # [B, T]
+    ring = [None if t is None else torch.stack(
+        [t[b][:, idx[b]] for b in range(B)]).contiguous() for t in full]
+    return [None if t is None else t[:, :, :Tf].contiguous() for t in full], ring
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [512, 256])
+@pytest.mark.parametrize("cache", ["bf16", "int8"])
+def test_ring_attention_kernels_match_plain_and_full_cache(card, cache, T):
+    """Kernels D and E with ring_len R = 512 and window 200 at Mistral's
+    geometry (32 / 8 heads of 128), on a ring of T = R slots and on one of
+    T = 256 < R (positions whose slot is T or more do not exist there).
+    Decode rows (S = 5) at 1200..1204 (the window wraps the ring), 100..104
+    and, at T = 256, 496..500 (every slot the window reaches is past T:
+    zeros, not NaN); a dead row. Prefill rows (S = 64) at 1000..1063
+    (crossing the wrap at 1024) and 0..63. POISON at every position and slot
+    no live row sees. Each kernel within 2^-8 |ref| + 2^-16 of its plain
+    version on f32 q, finite; E equals D row by row; at T = R both equal
+    their own results over a full cache of the same keys by position (the
+    body walks positions, so the ring's wrap costs no bits). A ring shorter
+    than a 32-key tile is refused."""
+    g = torch.Generator(device=card).manual_seed(T)
+    H, KVH, D, R, W, Tf = 32, 8, 128, 512, 200, 1280
+    opts = dict(window=W, ring_len=R)
+    route = {"bf16": (flash_decode, flash_prefill), "int8": (flash_decode_int8,
+                                                             flash_prefill_int8)}[cache]
+    lasts = {5: (1204, 104, 500) if T < R else (1204, 104), 64: (1063, 63)}
+    for S, last in lasts.items():
+        B = len(last)
+        pos = (torch.tensor(last, device=card, dtype=torch.int32)[:, None] - S + 1
+               + torch.arange(S, device=card, dtype=torch.int32)[None]).contiguous()
+        pos[1, 0] = -1
+        full, ring = _ring_keys(card, g, cache, B, KVH, D, R, T, W, pos, Tf)
+        q = torch.randn((B, S, H, D), generator=g, device=card).bfloat16()
+        k, v, *scales = ring
+        scales = [s for s in scales if s is not None]
+        plain_kv = (k, v) if cache == "int8" else (k.float(), v.float())
+        ref = flash_decode_plain(q.float(), *plain_kv, pos, *scales, **opts)
+        kernel = route[0] if S <= 32 else route[1]
+        before = kernel.launches
+        got = kernel(q, k, v, pos, *scales, **opts)
+        assert kernel.launches == before + 1
+        assert torch.isfinite(got).all() and _within(got.float(), ref)
+        assert torch.all(got[1, 0] == 0)
+        if B == 3:
+            assert torch.all(got[2] == 0)  # no slot of its window is in the plane
+        if S <= 32:
+            assert torch.equal(route[1](q, k, v, pos, *scales, **opts), got)
+        else:
+            for j in (0, 23, 24, 63):  # row 24 of sequence 0 is at the wrap, 1024
+                qj, pj = q[:, j:j + 1].contiguous(), pos[:, j:j + 1].contiguous()
+                assert torch.equal(route[0](qj, k, v, pj, *scales, **opts), got[:, j:j + 1])
+        if T == R:
+            fk, fv, *fs = full
+            fs = [s for s in fs if s is not None]
+            assert torch.equal(kernel(q, fk, fv, pos, *fs, window=W), got)
+    with pytest.raises(ValueError, match="ring_len"):  # shorter than a tile of keys
+        kernel(q, k, v, pos, *scales, window=16, ring_len=16)

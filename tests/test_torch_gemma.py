@@ -278,11 +278,12 @@ def test_gemma2_layers_route_the_window(monkeypatch, paged):
 
 
 def test_unported_options_still_raise():
-    """The ring cache and the tree mask stay unported: they raise."""
+    """The tree mask stays unported: it raises. The ring cache runs on a
+    contiguous cache (tests/test_torch_mistral.py holds it to JAX) and is
+    refused on pages, as in JAX."""
     q, k, v, pos, _, _ = (torch.from_numpy(a) if a is not None else None
                           for a in _decode_inputs("f32", 128, S=1))
-    with pytest.raises(NotImplementedError):
-        attention.attend(q, k, v, pos, window=16, ring_len=64)
+    assert torch.isfinite(attention.attend(q, k, v, pos, window=16, ring_len=64)).all()
     with pytest.raises(NotImplementedError):
         attention.attend(q, k, v, pos, tree_mask=torch.ones(1, 1, dtype=torch.bool))
     pool = k.reshape(-1, 2, 32, 128)[:9]
@@ -290,6 +291,8 @@ def test_unported_options_still_raise():
     with pytest.raises(NotImplementedError):
         attention.paged_attend(q, pool, pool, pos, table,
                                tree_mask=torch.ones(1, 1, dtype=torch.bool))
+    with pytest.raises(TypeError):  # paged_attend takes no ring_len
+        attention.paged_attend(q, pool, pool, pos, table, window=16, ring_len=64)
 
 
 # ----------------------------------------------------------------- (d) forward

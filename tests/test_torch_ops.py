@@ -74,14 +74,17 @@ def test_flash_decode_row_independent_of_batching():
 
 
 def test_attend_refuses_unported_options():
-    """Of the JAX options only the ring cache and the tree mask stay
-    unported and raise; window, softcap and scale run, and give attend_xla's
-    result for the same option (f32, 2e-5 absolute as above)."""
+    """Of the JAX options only the tree mask stays unported and raises (a
+    ring without its window is refused as invalid); window, softcap, scale
+    and the ring run, and give attend_xla's result for the same option
+    (f32, 2e-5 absolute as above)."""
     a = _attn_inputs(1, seed=4)
     q, k, v, pos = (torch.from_numpy(x) for x in a)
-    for kw in ({"window": 16}, {"softcap": 30.0}, {"ring_len": 256}, {"scale": 0.1},
+    with pytest.raises(ValueError):
+        attend(q, k, v, pos, ring_len=256)
+    for kw in ({"window": 16}, {"softcap": 30.0}, {"ring_len": 128, "window": 16}, {"scale": 0.1},
                {"tree_mask": torch.ones(1, 1, dtype=torch.bool)}):
-        if "ring_len" in kw or "tree_mask" in kw:
+        if "tree_mask" in kw:
             with pytest.raises(NotImplementedError):
                 attend(q, k, v, pos, **kw)
             continue

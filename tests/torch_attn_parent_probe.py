@@ -1,16 +1,17 @@
 """Kernels D, E and F of this checkout against the same kernels built from
-another checkout (an earlier commit), on the card, with every option off:
-the bits of their outputs at the Llama paths' shapes (head dim 64 and 128,
-bf16 and int8 caches) and their device times, taken in turns (earlier,
-this, this, earlier). From the repo root of this checkout:
+another checkout (an earlier commit), on the card, with the ring off: the
+bits of their outputs at the Llama paths' shapes (head dim 64 and 128, bf16
+and int8 caches, every option off, and D and E with a window that binds)
+and their device times, taken in turns (earlier, this, this, earlier). From
+the repo root of this checkout:
 
     git archive <commit> llm_inference_lab_tpu_torch/csrc | tar -x -C <dir>
     python3 tests/torch_attn_parent_probe.py <dir>
 
 The earlier csrc/{flash_decode,flash_prefill,paged_flash}.cu are built with
 this checkout's nvcc flags into a temporary directory and called through
-ctypes with the entries they had before the options were added (the score
-scale their last float argument). Exits non-zero if any output differs.
+ctypes with the entries they had before the ring was added (scale, softcap
+and window, no ring argument). Exits non-zero if any output differs.
 """
 
 import ctypes
@@ -32,22 +33,26 @@ from llm_inference_lab_tpu_torch.ops import flash_prefill as fp  # noqa: E402
 from llm_inference_lab_tpu_torch.ops import paged_flash as pf  # noqa: E402
 
 P_, I_, LL, F_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-# The C entries before the options: scale is the last float argument.
+# The C entries before the ring: scale, softcap and window end the
+# arguments before the stream.
+OPTS = [F_, F_, I_]
 OLD_SIGNATURES = {
-    "flash_decode": {"flash_decode_bf16": [P_] * 5 + [I_] * 6 + [LL] * 2 + [F_, P_],
-                     "flash_decode_int8": [P_] * 7 + [I_] * 6 + [LL] * 4 + [F_, P_]},
-    "flash_prefill": {"flash_prefill_bf16": [P_] * 5 + [I_] * 6 + [LL] * 2 + [F_, P_],
-                      "flash_prefill_int8": [P_] * 7 + [I_] * 6 + [LL] * 4 + [F_, P_]},
-    "paged_flash": {"paged_flash_bf16": [P_] * 6 + [I_] * 7 + [LL, F_, P_],
-                    "paged_flash_int8": [P_] * 8 + [I_] * 7 + [LL] * 2 + [F_, P_]},
+    "flash_decode": {"flash_decode_bf16": [P_] * 5 + [I_] * 6 + [LL] * 2 + OPTS + [P_],
+                     "flash_decode_int8": [P_] * 7 + [I_] * 6 + [LL] * 4 + OPTS + [P_]},
+    "flash_prefill": {"flash_prefill_bf16": [P_] * 5 + [I_] * 6 + [LL] * 2 + OPTS + [P_],
+                      "flash_prefill_int8": [P_] * 7 + [I_] * 6 + [LL] * 4 + OPTS + [P_]},
+    "paged_flash": {"paged_flash_bf16": [P_] * 6 + [I_] * 7 + [LL] + OPTS + [P_],
+                    "paged_flash_int8": [P_] * 8 + [I_] * 7 + [LL] * 2 + OPTS + [P_]},
 }
-# (kernel, S, D, H, KVH): the Llama paths' shapes (1B: 32 / 8 heads of 64,
-# 3B: 24 / 8 heads of 128); decode at position 167 of T = 256, the prompt
-# prefill of 160 rows, serving's 8 slots near 250 in 64-row pages.
-CASES = [("flash_decode", 1, 64, 32, 8), ("flash_decode", 2, 128, 24, 8),
-         ("flash_decode", 5, 128, 24, 8), ("flash_prefill", 160, 64, 32, 8),
-         ("flash_prefill", 160, 128, 24, 8), ("paged_flash", 1, 64, 32, 8),
-         ("paged_flash", 2, 128, 24, 8), ("paged_flash", 5, 128, 24, 8)]
+# (kernel, S, D, H, KVH, window): the Llama paths' shapes (1B: 32 / 8 heads
+# of 64, 3B: 24 / 8 heads of 128); decode at position 167 of T = 256, the
+# prompt prefill of 160 rows, serving's 8 slots near 250 in 64-row pages;
+# D and E again with a window of 100, which binds there.
+CASES = [("flash_decode", 1, 64, 32, 8, None), ("flash_decode", 2, 128, 24, 8, None),
+         ("flash_decode", 5, 128, 24, 8, None), ("flash_prefill", 160, 64, 32, 8, None),
+         ("flash_prefill", 160, 128, 24, 8, None), ("paged_flash", 1, 64, 32, 8, None),
+         ("paged_flash", 2, 128, 24, 8, None), ("paged_flash", 5, 128, 24, 8, None),
+         ("flash_decode", 5, 128, 24, 8, 100), ("flash_prefill", 160, 128, 24, 8, 100)]
 
 
 def load_old(parent: str, tmp: str):
@@ -87,7 +92,7 @@ def inputs(g, dev, kernel, S, D, H, KVH, int8):
     return q, keys, pos, table
 
 
-def old_call(lib, kernel, q, keys, pos, table, out):
+def old_call(lib, kernel, q, keys, pos, table, out, window):
     B, S, H, D = q.shape
     st = torch.cuda.current_stream().cuda_stream
     int8 = keys[0].dtype == torch.int8
@@ -98,21 +103,23 @@ def old_call(lib, kernel, q, keys, pos, table, out):
         strides = [k.stride(0)] + ([keys[2].stride(0)] if int8 else [])
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), *sc, table.data_ptr(), pos.data_ptr(),
                  out.data_ptr(), B, S, H, k.shape[1], table.shape[1], k.shape[2], D, *strides,
-                 D ** -0.5, st)
+                 D ** -0.5, 0.0, window or 0, st)
     else:
         strides = [k.stride(0), k.stride(1)] + ([keys[2].stride(0), keys[2].stride(1)]
                                                  if int8 else [])
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), *sc, pos.data_ptr(), out.data_ptr(),
-                 B, S, H, k.shape[1], k.shape[2], D, *strides, D ** -0.5, st)
+                 B, S, H, k.shape[1], k.shape[2], D, *strides, D ** -0.5, 0.0, window or 0, st)
     build.check(err, f"earlier {kernel}")
     return out
 
 
-def new_call(kernel, q, keys, pos, table):
+def new_call(kernel, q, keys, pos, table, window):
     k, v, *sc = keys
+    opts = {} if window is None else {"window": window}
     if kernel == "paged_flash":
-        return pf.paged_flash(q, k, v, pos, table, *sc)
-    return (fd.flash_decode if kernel == "flash_decode" else fp.flash_prefill)(q, k, v, pos, *sc)
+        return pf.paged_flash(q, k, v, pos, table, *sc, **opts)
+    fn = fd.flash_decode if kernel == "flash_decode" else fp.flash_prefill
+    return fn(q, k, v, pos, *sc, **opts)
 
 
 @torch.inference_mode()
@@ -125,21 +132,24 @@ def main(parent: str) -> int:
     differ = 0
     with tempfile.TemporaryDirectory() as tmp:
         old = load_old(parent, tmp)
-        for kernel, S, D, H, KVH in CASES:
+        for kernel, S, D, H, KVH, window in CASES:
             for int8 in (False, True):
                 q, keys, pos, table = inputs(g, dev, kernel, S, D, H, KVH, int8)
                 out = torch.empty_like(q)
-                new = new_call(kernel, q, keys, pos, table)
-                same = torch.equal(old_call(old[kernel], kernel, q, keys, pos, table, out), new)
+                new = new_call(kernel, q, keys, pos, table, window)
+                same = torch.equal(old_call(old[kernel], kernel, q, keys, pos, table, out, window),
+                                   new)
                 differ += not same
-                times = [chip_smoke.median_ms(lambda: old_call(old[kernel], kernel, q, keys, pos,
-                                                               table, out)),
-                         chip_smoke.median_ms(lambda: new_call(kernel, q, keys, pos, table))]
-                times += [chip_smoke.median_ms(lambda: new_call(kernel, q, keys, pos, table)),
-                          chip_smoke.median_ms(lambda: old_call(old[kernel], kernel, q, keys, pos,
-                                                                table, out))]
+
+                def old_fn():
+                    return old_call(old[kernel], kernel, q, keys, pos, table, out, window)
+
+                def new_fn():
+                    return new_call(kernel, q, keys, pos, table, window)
+
+                times = [chip_smoke.median_ms(f) for f in (old_fn, new_fn, new_fn, old_fn)]
                 o, n = (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
-                print(f"{kernel} {'int8' if int8 else 'bf16'} S={S} D={D} H={H}: "
+                print(f"{kernel} {'int8' if int8 else 'bf16'} S={S} D={D} H={H} window={window}: "
                       f"{'same bits' if same else 'BITS DIFFER'}; earlier {times[0]:.4f} / "
                       f"{times[3]:.4f} ms, this {times[1]:.4f} / {times[2]:.4f} ms, "
                       f"this / earlier {n / o:.3f}")
