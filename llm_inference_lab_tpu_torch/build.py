@@ -26,7 +26,7 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 SOURCES = ("quant_matmul_int4", "quant_matmul_int8", "flash_decode", "flash_prefill",
-           "paged_flash", "verify_prefix")
+           "paged_flash", "verify_prefix", "rms_norm")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -47,19 +47,22 @@ SIGNATURES = {
         "qmm_int8": [P, P, P, P, P, I, I, I, I, P],
     },
     "flash_decode": {
+        # q, k, v, positions, out, ws, counters, B, S, H, KVH, T, D, stride_kb,
+        # stride_kh, scale, softcap, window, ring, nsplit, stream
+        "flash_decode_bf16": [P, P, P, P, P, P, P, I, I, I, I, I, I, LL, LL, F, F, I, I, I, P],
+        # q, k, v, k_scale, v_scale, positions, out, ws, counters, B, S, H, KVH,
+        # T, D, stride_kb, stride_kh, stride_sb, stride_sh, scale, softcap,
+        # window, ring, nsplit, stream
+        "flash_decode_int8": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, LL, LL, LL, LL, F, F,
+                              I, I, I, P],
+    },
+    "flash_prefill": {
         # q, k, v, positions, out, B, S, H, KVH, T, D, stride_kb, stride_kh,
         # scale, softcap, window, ring, stream
-        "flash_decode_bf16": [P, P, P, P, P, I, I, I, I, I, I, LL, LL, F, F, I, I, P],
+        "flash_prefill_bf16": [P, P, P, P, P, I, I, I, I, I, I, LL, LL, F, F, I, I, P],
         # q, k, v, k_scale, v_scale, positions, out, B, S, H, KVH, T, D,
         # stride_kb, stride_kh, stride_sb, stride_sh, scale, softcap, window,
         # ring, stream
-        "flash_decode_int8": [P, P, P, P, P, P, P, I, I, I, I, I, I, LL, LL, LL, LL, F, F, I, I,
-                              P],
-    },
-    "flash_prefill": {
-        # the arguments of flash_decode_bf16
-        "flash_prefill_bf16": [P, P, P, P, P, I, I, I, I, I, I, LL, LL, F, F, I, I, P],
-        # the arguments of flash_decode_int8
         "flash_prefill_int8": [P, P, P, P, P, P, P, I, I, I, I, I, I, LL, LL, LL, LL, F, F, I, I,
                                P],
     },
@@ -75,6 +78,10 @@ SIGNATURES = {
     "verify_prefix": {
         # draft, logits, arg_ws, mask, accept_len, B, K, V, row_stride, batch_stride, stream
         "verify_prefix_f32": [P, P, P, P, P, I, I, I, LL, LL, P],
+    },
+    "rms_norm": {
+        # x, w, out, M, N, eps, one_offset, w_f32, stream
+        "rms_norm_bf16": [P, P, P, I, I, F, I, I, P],
     },
 }
 

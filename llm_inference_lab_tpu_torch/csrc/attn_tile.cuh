@@ -1,6 +1,9 @@
-// Shared body of the port's online-softmax attention kernels for Hopper:
-// flash_decode.cu (kernel D), flash_prefill.cu (kernel E) and
-// paged_flash.cu (kernel F) include it.
+// Body of the port's CUDA-core online-softmax attention kernel for Hopper,
+// paged_flash.cu (kernel F). Kernels D and E (flash_decode.cu,
+// flash_prefill.cu) used it until they moved to the tensor-core body
+// attn_mma.cuh, which takes Options, first_key and allow_shared from here;
+// where the text below speaks of D and E, it describes F's arithmetic,
+// which D and E no longer share bit for bit.
 //
 // Replaces the tile body the three Pallas kernels share:
 // llm_inference_lab_tpu/ops/pallas/flash_decode.py _accum_tile / _finalize

@@ -29,19 +29,8 @@ from llm_inference_lab_tpu_torch.models.base import (
 )
 from llm_inference_lab_tpu_torch.models.paged import PagedKVCache, page_slots, write_paged_layer
 from llm_inference_lab_tpu_torch.ops.attention import attend, paged_attend
-from llm_inference_lab_tpu_torch.ops.quant import EmbedQuant, QuantTensor, dense
-
-
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float,
-             one_offset: bool = False) -> torch.Tensor:
-    """one_offset: Gemma's weights stored as (w - 1), so the weight is
-    1 + w in f32."""
-    x32 = x.float()
-    var = (x32 * x32).mean(dim=-1, keepdim=True)
-    if one_offset:
-        scale = 1.0 + scale.float()
-    # A bf16 scale promotes to f32 inside the product: no separate cast.
-    return (x32 * torch.rsqrt(var + eps) * scale).to(x.dtype)
+from llm_inference_lab_tpu_torch.ops.quant import EmbedQuant, QuantTensor, dense, f32_logits
+from llm_inference_lab_tpu_torch.ops.rms_norm import rms_norm
 
 
 @lru_cache(maxsize=32)
@@ -184,16 +173,21 @@ def _embed_multiplier(d_model: int, dtype: torch.dtype) -> float:
 
 
 def lm_head_logits(cfg: ModelConfig, params: Any, x: torch.Tensor) -> torch.Tensor:
-    """Hidden states [.., D] -> vocab logits, f32; Gemma-2 caps them
+    """Hidden states [.., D] -> vocab logits, f32: a tied head or an
+    unquantized untied one keeps its products and sums in f32 (JAX's
+    preferred_element_type=f32), a quantized untied head goes through dense
+    as JAX's does. Gemma-2 caps them
     (cap * tanh(logits / cap), in place on the f32 logits)."""
     if cfg.tie_word_embeddings:
         embed = params["embed"]
         if isinstance(embed, EmbedQuant):
             logits = embed.head_logits(x)
         else:
-            logits = torch.matmul(x, embed.to(x.dtype).t()).float()
-    else:
+            logits = f32_logits(x, embed.to(x.dtype))
+    elif isinstance(params["lm_head"], QuantTensor):
         logits = dense(x, params["lm_head"]).float()
+    else:
+        logits = f32_logits(x, params["lm_head"].to(x.dtype).t())
     if cfg.final_logit_softcap is not None:
         cap = cfg.final_logit_softcap
         logits = logits.div_(cap).tanh_().mul_(cap)

@@ -24,6 +24,14 @@ says. R is the ring's length, not T: a cache shorter than the ring (T < R)
 holds the slots [0, T). A query row with no visible key (position -1)
 returns zeros, as attend_xla does; the Pallas tile body returns the mean of
 V there.
+
+The kernel (csrc/attn_mma.cuh on tensor cores) splits the keys at fixed
+absolute positions into SPLIT-key splits over grid.z (``decode_splits``)
+and combines the f32 partials in its last block; ``flash_decode_split_plain``
+is that arithmetic written plainly, for the CPU tests. It rounds p to bf16
+before P.V, as Pallas does, so it is held to the plain version within a
+tolerance on the card (chip_smoke.check_attn), while a row's bits do not
+depend on S, T or the rows beside it.
 """
 
 from __future__ import annotations
@@ -34,7 +42,9 @@ import torch
 
 from llm_inference_lab_tpu_torch import build
 
-RING_MIN = 32  # the kernels' key tile: a shorter ring is refused on the card
+RING_MIN = 64  # the kernels' key tile: a shorter ring is refused on the card
+SPLIT = 256  # kernel D's split of the keys, at fixed absolute positions (csrc/attn_mma.cuh)
+ROWS = 64  # query rows a block of kernels D and E
 
 
 def dequantize_cache(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -113,6 +123,104 @@ def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, S, H, D).to(q.dtype)
 
 
+def flash_decode_split_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             positions: torch.Tensor, k_scale: Optional[torch.Tensor] = None,
+                             v_scale: Optional[torch.Tensor] = None, *, split: int = SPLIT,
+                             scale: Optional[float] = None, softcap: Optional[float] = None,
+                             window: Optional[int] = None,
+                             ring_len: Optional[int] = None) -> torch.Tensor:
+    """Kernel D's split-and-combine arithmetic, plainly (the CPU tests hold it
+    to flash_decode_plain; the wrapper never calls it). The keys a row sees
+    are cut at fixed absolute positions into splits of `split` keys (with a
+    ring, slot s stands for the position p - (p - s) mod ring_len it holds
+    for the row at p). Split i gives f32 partials: m_i, the largest score;
+    l_i, the sum of exp(s - m_i); acc_i, the sum of p * v with p (for int8
+    times v's per-key scale) rounded to q's dtype, the cache's compute dtype,
+    as the kernel rounds it before its P.V product. The combine takes the
+    splits in which the row sees a key, in ascending order: M = max m_i,
+    w_i = exp(m_i - M), out = sum w_i acc_i / sum w_i l_i; zeros for a row
+    that sees no key. Scores follow the kernel's order: q.k times the scale,
+    for int8 times k's per-key scale, then the softcap."""
+    Options(scale, softcap, window, ring_len).check()
+    B, S, H, D = q.shape
+    KVH, T = k.shape[1], k.shape[2]
+    group = H // KVH
+    int8 = k.dtype == torch.int8
+    qg = q.reshape(B, S, KVH, group, D).float()
+    scores = torch.einsum("bsngd,bntd->bngst", qg, k.float()) * (D ** -0.5 if scale is None
+                                                                  else scale)
+    if int8:
+        scores = scores * k_scale[:, :, None, None, :]
+    if softcap is not None:
+        scores = torch.tanh(scores / softcap) * softcap
+    slot = torch.arange(T, device=q.device)[None, None, None, None, :]
+    p = positions[:, None, None, :, None]
+    if ring_len is not None:
+        kv_pos = p - (p - slot) % ring_len  # the position the slot holds for this row
+        mask = (p - kv_pos < window) & (kv_pos >= 0)
+    else:
+        kv_pos = slot.expand_as(scores)
+        mask = kv_pos <= p
+        if window is not None:
+            mask &= kv_pos > p - window
+    mask = mask.expand_as(scores)
+    which = torch.div(kv_pos, split, rounding_mode="floor").expand_as(scores)
+    vf = v.float()
+    parts = []
+    for i in range(int(positions.max()) // split + 1 if positions.numel() else 0):
+        seen = mask & (which == i)
+        s_i = scores.masked_fill(~seen, float("-inf"))
+        hit = seen.any(-1, keepdim=True)
+        m_i = torch.where(hit, s_i.amax(-1, keepdim=True), torch.zeros_like(s_i[..., :1]))
+        pe = torch.exp(s_i - m_i)
+        l_i = pe.sum(-1, keepdim=True)
+        if int8:
+            pe = pe * v_scale[:, :, None, None, :]
+        acc_i = torch.einsum("bngst,bntd->bngsd", pe.to(q.dtype).float(), vf)
+        parts.append((hit, torch.where(hit, m_i, torch.full_like(m_i, float("-inf"))), l_i,
+                      acc_i))
+    out = torch.zeros((B, KVH, group, S, D), device=q.device)
+    if parts:
+        M = torch.stack([m for _, m, _, _ in parts]).amax(0)
+        den = torch.zeros_like(M)
+        num = torch.zeros_like(out)
+        for hit, m_i, l_i, acc_i in parts:  # ascending split order
+            w = torch.where(hit, torch.exp(m_i - torch.where(hit, M, m_i)), torch.zeros_like(m_i))
+            den = den + w * l_i
+            num = num + w * acc_i
+        out = torch.where(den > 0, num / torch.where(den > 0, den, torch.ones_like(den)), out)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, D).to(q.dtype)
+
+
+def decode_splits(T: int, S: int, opts: Options) -> int:
+    """Kernel D's grid.z: how many SPLIT-key splits a block's rows can span.
+    Without a window, every position below T: ceil(T / SPLIT). With one (and
+    always with a ring, whose positions run past T), the window plus the
+    rows' spread, which the engine's consecutive positions keep below S:
+    ceil((window + S - 1) / SPLIT) + 1. The kernel writes NaN rather than a
+    wrong row if a block's rows span more."""
+    n = -(-T // SPLIT)
+    if opts.window is None:
+        return n
+    w = min(opts.window, opts.ring_len) if opts.ring_len is not None else opts.window
+    n_w = -(-(w + S - 1) // SPLIT) + 1
+    return n_w if opts.ring_len is not None else min(n, n_w)
+
+
+_counters: dict = {}
+
+
+def ticket_counters(device: torch.device, n: int) -> torch.Tensor:
+    """kernel D's ticket counters on `device`: zeros, at least n of them.
+    The last block of a row block resets its counter to 0, so the buffer is
+    zeroed once, when it is made, and shared by every call in stream order."""
+    buf = _counters.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros((max(n, 4096),), dtype=torch.int32, device=device)
+        _counters[device] = buf
+    return buf
+
+
 def check_queries(name: str, q: torch.Tensor, positions: torch.Tensor, *caches: torch.Tensor,
                   cache_dtype: torch.dtype = torch.bfloat16):
     """The checks every attention kernel makes on q, positions and its K/V
@@ -186,16 +294,30 @@ def launch_planes(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     out = torch.empty_like(q)
     lib = build.library(kernel)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    # Kernel D splits the keys over grid.z and combines in its last block:
+    # a workspace from the caching allocator and the ticket counters.
+    split, nsplit = (), ()
+    if kernel == "flash_decode":
+        nz = decode_splits(T, S, opts)
+        ws = counters = None
+        if nz > 1:
+            nblk = B * KVH * -(-S * (H // KVH) // ROWS)
+            ws = torch.empty((nblk * nz * ROWS * (D + 2),), dtype=torch.float32, device=q.device)
+            counters = ticket_counters(q.device, nblk)
+        split = tuple(0 if t is None else t.data_ptr() for t in (ws, counters))
+        nsplit = (nz,)
     if int8:
         check_scales(name, k, k_scale, v_scale)
         err = getattr(lib, name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
-            positions.data_ptr(), out.data_ptr(), B, S, H, KVH, T, D, k.stride(0), k.stride(1),
-            k_scale.stride(0), k_scale.stride(1), *opts.kernel_args(D), ring, stream)
+            positions.data_ptr(), out.data_ptr(), *split, B, S, H, KVH, T, D, k.stride(0),
+            k.stride(1), k_scale.stride(0), k_scale.stride(1), *opts.kernel_args(D), ring,
+            *nsplit, stream)
     else:
         err = getattr(lib, f"{kernel}_bf16")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), positions.data_ptr(), out.data_ptr(),
-            B, S, H, KVH, T, D, k.stride(0), k.stride(1), *opts.kernel_args(D), ring, stream)
+            *split, B, S, H, KVH, T, D, k.stride(0), k.stride(1), *opts.kernel_args(D), ring,
+            *nsplit, stream)
     build.check(err, name)
     return out
 

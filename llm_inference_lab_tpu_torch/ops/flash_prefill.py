@@ -4,8 +4,8 @@ contiguous bf16 or int8 KV cache.
 Port of llm_inference_lab_tpu/ops/pallas/flash_prefill.py, chain-mask
 variants (mask kv_pos <= p) over a bf16 cache (_kernel) and an int8 cache
 with per-row scales (_kernel_quant), with flash_decode's options (scale,
-softcap, window; the window's tile skip is per row) and its ring_len: a
-prefill chunk over the rolling-buffer cache, which JAX sends to
+softcap, window; a warp of 16 rows skips the tiles none of them sees) and
+its ring_len: a prefill chunk over the rolling-buffer cache, which JAX sends to
 attend_xla's ring branch because its Pallas prefill has no modular mask.
 On a CPU tensor ``flash_prefill`` runs the plain version,
 ``flash_decode_plain`` (kernels D and E compute one function, attend_xla's
@@ -32,15 +32,6 @@ import torch
 
 from llm_inference_lab_tpu_torch.ops.flash_decode import Options, flash_decode_plain, launch_planes
 
-MAX_GROUP = 4  # the kernel runs 2 * group warps per query block
-
-
-def _check_group(q: torch.Tensor, k: torch.Tensor) -> None:
-    if q.shape[2] // k.shape[1] > MAX_GROUP:
-        raise ValueError(f"flash_prefill kernel takes GQA groups up to {MAX_GROUP}, "
-                         f"got {q.shape[2] // k.shape[1]}")
-
-
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor,
                   k_scale: Optional[torch.Tensor] = None, v_scale: Optional[torch.Tensor] = None,
                   **options) -> torch.Tensor:
@@ -50,7 +41,6 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions: 
         return flash_prefill_int8(q, k, v, positions, k_scale, v_scale, **options)
     if not q.is_cuda:
         return flash_decode_plain(q, k, v, positions, **options)
-    _check_group(q, k)
     out = launch_planes("flash_prefill", q, k, v, positions, None, None, Options(**options))
     flash_prefill.launches += 1
     return out
@@ -62,7 +52,6 @@ def flash_prefill_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positi
     [B, KVH, T]."""
     if not q.is_cuda:
         return flash_decode_plain(q, k, v, positions, k_scale, v_scale, **options)
-    _check_group(q, k)
     out = launch_planes("flash_prefill", q, k, v, positions, k_scale, v_scale, Options(**options))
     flash_prefill_int8.launches += 1
     return out

@@ -98,12 +98,28 @@ class EmbedQuant:
         return (rows * self.scale[tokens].unsqueeze(-1)).to(dtype)
 
     def head_logits(self, x: torch.Tensor) -> torch.Tensor:
-        # x [.., D] @ q[V, D]^T with the row scales on the vocab axis. The
+        # x [.., D] @ q[V, D]^T in f32, then the row scales on the vocab axis
+        # in f32, as JAX's dot_general with preferred_element_type=f32. The
         # int8 -> x.dtype cast materializes a copy of the table every call
         # (788 MB at bf16 for the 3B head); routing the head through an int8
         # kernel is queued.
-        y = torch.matmul(x, self.q.to(x.dtype).t())
-        return y.float() * self.scale
+        return f32_logits(x, self.q.to(x.dtype)) * self.scale
+
+
+def f32_logits(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """x [.., D] @ table[V, D]^T with f32 products and f32 sums, f32 out: the
+    head's logits as JAX computes them (preferred_element_type=f32), never
+    rounded to x's dtype. On the card one cuBLAS call with an f32 output
+    (aten::mm.dtype); that overload has no CPU kernel, so on the CPU the
+    product runs on f32 copies (a product of two bf16 values is exact in
+    f32)."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.is_cuda:
+        y = torch.mm(x2, table.t(), out_dtype=torch.float32)
+    else:
+        y = torch.mm(x2.float(), table.float().t())
+    return y.reshape(*lead, table.shape[0])
 
 
 def quantize_embed(embed: torch.Tensor) -> EmbedQuant:

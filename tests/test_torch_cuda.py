@@ -28,6 +28,7 @@ from llm_inference_lab_tpu_torch.ops.paged_flash import (
     paged_flash_plain,
 )
 from llm_inference_lab_tpu_torch.ops.quant import quantize_int4
+from llm_inference_lab_tpu_torch.ops.rms_norm import rms_norm, rms_norm_plain
 from llm_inference_lab_tpu_torch.ops.quant_matmul import (
     quant_matmul,
     quant_matmul_int8,
@@ -69,12 +70,11 @@ def test_int4_kernel_matches_plain(card, K, N):
 @pytest.mark.cuda
 @pytest.mark.parametrize("S,D,H", [(1, 64, 32), (2, 128, 24), (160, 128, 24)])
 def test_flash_decode_kernel_matches_plain(card, S, D, H):
-    """The kernel keeps the probabilities in f32 and rounds only its output
-    to bf16, so it is held to the plain version on f32 copies of the same
-    inputs, element by element: 2^-8 of |ref| (bf16 output rounding) plus
-    2^-16 (f32 summation order). Values past the last position are 64, so a
-    mask that lets a masked key in fails. A dead row (position -1) is
-    exactly zero."""
+    """The kernel rounds p to bf16 before its P.V product (as Pallas does)
+    and its output to bf16, so it is held to the plain version on f32
+    copies of the same inputs by _attn_within. Values past the last position
+    are 64, so a mask that lets a masked key in fails. A dead row (position
+    -1) is exactly zero."""
     rng = np.random.default_rng(S + D)
     B, KVH, T = 2, 8, 256
     q = torch.from_numpy(rng.normal(0, 1, (B, S, H, D)).astype(np.float32))
@@ -86,9 +86,8 @@ def test_flash_decode_kernel_matches_plain(card, S, D, H):
     pos[1, 0] = -1
     q, k, v = (t.to(card).bfloat16() for t in (q, k, v))
     pos = pos.to(card)
-    got = flash_decode(q, k, v, pos).float()
-    ref = flash_decode_plain(q.float(), k.float(), v.float(), pos)
-    assert torch.all((got - ref).abs() <= 2.0 ** -8 * ref.abs() + 2.0 ** -16)
+    got = flash_decode(q, k, v, pos)
+    assert _attn_within(got, q, k, v, pos)
     assert torch.all(got[1, 0] == 0)
 
 
@@ -128,18 +127,51 @@ def test_verify_prefix_kernel_matches_plain_exactly(card):
 
 
 def _within(got, ref):
-    """The attention kernels' tolerance against their plain versions on f32
-    copies: 2^-8 of |ref| (bf16 output rounding) plus 2^-16 (f32 order)."""
+    """Kernel F's tolerance against its plain version on f32 copies: 2^-8 of
+    |ref| (bf16 output rounding) plus 2^-16 (f32 order). F keeps p in f32."""
     return bool(torch.all((got - ref).abs() <= 2.0 ** -8 * ref.abs() + 2.0 ** -16))
 
 
+def _f32_plain(q, k, v, pos, ks=None, vs=None, **opts):
+    """The plain version on f32 copies (an int8 cache dequantized in f32),
+    and the same with |v|: (ref, sum_j P_j |v_j|) per output element."""
+    kf, vf = k.float(), v.float()
+    if ks is not None:
+        kf, vf = kf * ks[..., None], vf * vs[..., None]
+    ref = flash_decode_plain(q.float(), kf, vf, pos, **opts)
+    return ref, flash_decode_plain(q.float(), kf, vf.abs(), pos, **opts)
+
+
+def _attn_within(got, q, k, v, pos, ks=None, vs=None, **opts):
+    """Kernels D and E against their plain version on f32 copies. They round
+    p (for int8 p times v's scale) to bf16 before P.V, as Pallas does: at
+    most 2^-9 of sum_j P_j |v_j| an output; the bf16 output 2^-9 |ref|; f32
+    order 2^-16. Held to 2^-8 |ref| + 2^-8 sum_j P_j |v_j| + 2^-16 (twice
+    the p term), and finite."""
+    ref, mag = _f32_plain(q, k, v, pos, ks, vs, **opts)
+    got = got.float()
+    return bool(torch.isfinite(got).all() and torch.all(
+        (got - ref).abs() <= 2.0 ** -8 * ref.abs() + 2.0 ** -8 * mag + 2.0 ** -16))
+
+
+def _attn_close(a, b, q, k, v, pos, ks=None, vs=None, **opts):
+    """Two of D, E and F on the same rows, each within its tolerance of the
+    plain version, so within the sum of both of each other: 2^-7 |b| +
+    2^-8 sum_j P_j |v_j| + 2^-15. (They shared one body and its bits until
+    D and E moved to tensor cores with bf16 p.)"""
+    _, mag = _f32_plain(q, k, v, pos, ks, vs, **opts)
+    a, b = a.float(), b.float()
+    return bool(torch.all((a - b).abs() <= 2.0 ** -7 * b.abs() + 2.0 ** -8 * mag + 2.0 ** -15))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("S,D,H", [(64, 64, 32), (160, 128, 24), (333, 128, 24)])
+@pytest.mark.parametrize("S,D,H", [(64, 64, 32), (160, 128, 24), (333, 128, 24), (97, 256, 16)])
 def test_flash_prefill_kernel_matches_plain_and_rows_are_independent(card, S, D, H):
     """Sequence 0 prefills from 0, sequence 1 resumes at 128 with a dead
     first row; V past each last position is 64. Every row is within the
-    tolerance, and bit-identical alone, inside its block, at T = 1024 and
-    at T cut just past the positions, and under flash_decode."""
+    tolerance, and bit-identical alone, inside its block, at T = 1024, at T
+    cut just past the positions (not a multiple of 64) and in a chunk of
+    the rows; flash_decode on a row is within both tolerances of it."""
     rng = np.random.default_rng(S + D)
     B, KVH, T = 2, 8, 1024
     q = torch.from_numpy(rng.normal(0, 1, (B, S, H, D)).astype(np.float32))
@@ -154,14 +186,17 @@ def test_flash_prefill_kernel_matches_plain_and_rows_are_independent(card, S, D,
     before = flash_prefill.launches
     got = flash_prefill(q, k, v, pos)
     assert flash_prefill.launches == before + 1
-    assert _within(got.float(), flash_decode_plain(q.float(), k.float(), v.float(), pos))
+    assert _attn_within(got, q, k, v, pos)
     assert torch.all(got[1, 0] == 0)
-    T_cut = -(-(128 + S) // 32) * 32
+    T_cut = 128 + S + 3
     assert torch.equal(flash_prefill(q, k[:, :, :T_cut], v[:, :, :T_cut], pos), got)
+    c0, c1 = S // 3, S // 3 + 40  # a chunk of the prompt: the same rows of the whole
+    chunk = flash_prefill(q[:, c0:c1].contiguous(), k, v, pos[:, c0:c1].contiguous())
+    assert torch.equal(chunk, got[:, c0:c1])
     for j in (1, S // 2, S - 1):
         qj, pj = q[:, j:j + 1].contiguous(), pos[:, j:j + 1].contiguous()
         assert torch.equal(flash_prefill(qj, k, v, pj), got[:, j:j + 1])
-        assert torch.equal(flash_decode(qj, k, v, pj), got[:, j:j + 1])
+        assert _attn_close(flash_decode(qj, k, v, pj), got[:, j:j + 1], qj, k, v, pj)
 
 
 def _paged(card, rng, B, S, H, KVH, D, P, N_extra=3):
@@ -180,8 +215,9 @@ def _paged(card, rng, B, S, H, KVH, D, P, N_extra=3):
 @pytest.mark.parametrize("S,D,H,P", [(1, 64, 32, 16), (2, 128, 24, 64), (5, 128, 24, 32)])
 def test_paged_flash_kernel_matches_plain_and_flash_decode_bits(card, S, D, H, P):
     """B=8 sequences at positions up to 1000 through shuffled tables, one
-    dead row: within the tolerance of the plain version, and the same bits
-    as flash_decode over the gathered contiguous keys."""
+    dead row: within the tolerance of the plain version, and flash_decode
+    over the gathered contiguous keys within both tolerances of it (D
+    rounds p to bf16 on tensor cores; F keeps f32 p)."""
     rng = np.random.default_rng(10 * S + P)
     q, kp, vp, table, pos = _paged(card, rng, 8, S, H, 8, D, P)
     pos[1, 0] = -1
@@ -190,7 +226,8 @@ def test_paged_flash_kernel_matches_plain_and_flash_decode_bits(card, S, D, H, P
     assert paged_flash.launches == before + 1
     assert _within(got.float(), paged_flash_plain(q.float(), kp.float(), vp.float(), pos, table))
     assert torch.all(got[1, 0] == 0)
-    assert torch.equal(got, flash_decode(q, gather_pages(kp, table), gather_pages(vp, table), pos))
+    kc, vc = gather_pages(kp, table), gather_pages(vp, table)
+    assert _attn_close(flash_decode(q, kc, vc, pos), got, q, kc, vc, pos)
 
 
 @pytest.mark.cuda
@@ -254,9 +291,11 @@ def test_int8_attention_kernels_match_plain_and_each_other(card, S, D, H):
     """D-, E- and F-int8 over one int8 cache: sequence 0 ends at 180,
     sequence 1 at 250 with a dead first row; keys past each last position
     hold bytes 127 with a scale of 0.5 (a masked key let in moves an output
-    by far more than the tolerance). Each within 2^-8 |ref| + 2^-16 of the
-    plain version on f32 q (which dequantizes the cache to f32); E equals D
-    row by row; F over the same keys in shuffled 64-row pages equals D."""
+    by far more than the tolerance). D and E within _attn_within of the
+    plain version on f32 q (which dequantizes the cache to f32), F within
+    2^-8 |ref| + 2^-16; E alone on a row equals the row in its block, D on a
+    row is within both tolerances of E; F over the same keys in shuffled
+    64-row pages within both tolerances of D."""
     g = torch.Generator(device=card).manual_seed(S + D)
     B, KVH, T, P = 2, 8, 256, 64
     q = torch.randn((B, S, H, D), generator=g, device=card).bfloat16()
@@ -270,16 +309,17 @@ def test_int8_attention_kernels_match_plain_and_each_other(card, S, D, H):
     pos = torch.tensor(last, device=card, dtype=torch.int32)[:, None] - S + 1
     pos = (pos + torch.arange(S, device=card, dtype=torch.int32)[None]).contiguous()
     pos[1, 0] = -1
-    ref = flash_decode_plain(q.float(), k, v, pos, ks, vs)
     route = flash_decode_int8 if S <= 32 else flash_prefill_int8
     before = route.launches
     got = route(q, k, v, pos, ks, vs)
     assert route.launches == before + 1
-    assert _within(got.float(), ref) and torch.all(got[1, 0] == 0)
+    assert _attn_within(got, q, k, v, pos, ks, vs) and torch.all(got[1, 0] == 0)
     if S > 32:
         for j in (1, S // 2, S - 1):
             qj, pj = q[:, j:j + 1].contiguous(), pos[:, j:j + 1].contiguous()
-            assert torch.equal(flash_decode_int8(qj, k, v, pj, ks, vs), got[:, j:j + 1])
+            assert torch.equal(flash_prefill_int8(qj, k, v, pj, ks, vs), got[:, j:j + 1])
+            assert _attn_close(flash_decode_int8(qj, k, v, pj, ks, vs), got[:, j:j + 1], qj, k,
+                               v, pj, ks, vs)
         return
     M = T // P
     table = (torch.randperm(B * M + 2, generator=g, device=card)[: B * M] + 1).view(B, M)
@@ -297,7 +337,7 @@ def test_int8_attention_kernels_match_plain_and_each_other(card, S, D, H):
     before = paged_flash_int8.launches
     paged = paged_flash_int8(q, kp, vp, pos, table, ksp, vsp)
     assert paged_flash_int8.launches == before + 1
-    assert torch.equal(paged, got)
+    assert _attn_close(got, paged, q, k, v, pos, ks, vs)
     assert _within(paged.float(), paged_flash_plain(q.float(), kp, vp, pos, table, ksp, vsp))
 
 
@@ -335,10 +375,11 @@ def test_gemma2_attention_kernels_match_plain_and_each_other(card, H, KVH, cache
     1/16, softcap 50) and a window of 256 (a local layer) or none (a global
     one) over T = 1024, POISON at every key a sequence's rows do not see.
     Decode rows at 299..300 and 999..1000, one dead; prefill rows at
-    200..263 (crossing the window) and 900..963. Each kernel within 2^-8
-    |ref| + 2^-16 of its plain version on f32 q, and finite (rows skip the
-    tiles below their window); E equals D row by row, and F through shuffled
-    64-row pages equals D."""
+    200..263 (crossing the window) and 900..963. D and E within
+    _attn_within of the plain version on f32 q, F within 2^-8 |ref| +
+    2^-16, all finite; E on the decode rows, D on single prefill rows and F
+    through shuffled 64-row pages each within both tolerances of the
+    other kernel."""
     g = torch.Generator(device=card).manual_seed(H + (window or 0))
     B, T, D, P = 2, 1024, 256, 64
     opts = dict(scale=1 / 16, softcap=50.0, window=window)
@@ -352,16 +393,15 @@ def test_gemma2_attention_kernels_match_plain_and_each_other(card, H, KVH, cache
         k, v, ks, vs = _gemma2_keys(card, g, cache, B, KVH, T, D, pos, window)
         q = torch.randn((B, S, H, D), generator=g, device=card).bfloat16()
         scales = (ks, vs) if cache == "int8" else ()
-        plain_kv = (k, v) if cache == "int8" else (k.float(), v.float())
-        ref = flash_decode_plain(q.float(), *plain_kv, pos, *scales, **opts)
         kernel = route[0] if S <= 32 else route[1]
         before = kernel.launches
         got = kernel(q, k, v, pos, *scales, **opts)
         assert kernel.launches == before + 1
-        assert torch.isfinite(got).all() and _within(got.float(), ref)
+        assert _attn_within(got, q, k, v, pos, *scales, **opts)
         if S == 2:
             assert torch.all(got[1, 0] == 0)
-            assert torch.equal(route[1](q, k, v, pos, *scales, **opts), got)
+            assert _attn_close(route[1](q, k, v, pos, *scales, **opts), got, q, k, v, pos,
+                               *scales, **opts)
             M = T // P
             table = (torch.randperm(B * M + 2, generator=g, device=card)[: B * M] + 1)
             table = table.view(B, M).to(torch.int32).contiguous()
@@ -374,11 +414,13 @@ def test_gemma2_attention_kernels_match_plain_and_each_other(card, H, KVH, cache
                 return dst
 
             paged = route[2](q, pool(k), pool(v), pos, table, *(pool(s) for s in scales), **opts)
-            assert torch.equal(paged, got)
+            assert _attn_close(got, paged, q, k, v, pos, *scales, **opts)
         else:
             for j in (0, 55, 56, 63):  # 56: the first row whose window cuts key 0
                 qj, pj = q[:, j:j + 1].contiguous(), pos[:, j:j + 1].contiguous()
-                assert torch.equal(route[0](qj, k, v, pj, *scales, **opts), got[:, j:j + 1])
+                assert torch.equal(route[1](qj, k, v, pj, *scales, **opts), got[:, j:j + 1])
+                assert _attn_close(route[0](qj, k, v, pj, *scales, **opts), got[:, j:j + 1], qj,
+                                   k, v, pj, *scales, **opts)
 
 
 def _ring_keys(card, g, cache, B, KVH, D, R, T, W, pos, Tf):
@@ -411,10 +453,12 @@ def test_ring_attention_kernels_match_plain_and_full_cache(card, cache, T):
     zeros, not NaN); a dead row. Prefill rows (S = 64) at 1000..1063
     (crossing the wrap at 1024) and 0..63. POISON at every position and slot
     no live row sees. Each kernel within 2^-8 |ref| + 2^-16 of its plain
-    version on f32 q, finite; E equals D row by row; at T = R both equal
-    their own results over a full cache of the same keys by position (the
-    body walks positions, so the ring's wrap costs no bits). A ring shorter
-    than a 32-key tile is refused."""
+    version (_attn_within), finite; E and D within both tolerances of each
+    other, a row alone equal to the row among others (D at S = 1 and S = 5,
+    E alone and in its chunk); at T = R both equal their own results over a
+    full cache of the same keys by position (the body walks positions, so
+    the ring's wrap costs no bits). A ring shorter than a 64-key tile is
+    refused."""
     g = torch.Generator(device=card).manual_seed(T)
     H, KVH, D, R, W, Tf = 32, 8, 128, 512, 200, 1280
     opts = dict(window=W, ring_len=R)
@@ -430,25 +474,85 @@ def test_ring_attention_kernels_match_plain_and_full_cache(card, cache, T):
         q = torch.randn((B, S, H, D), generator=g, device=card).bfloat16()
         k, v, *scales = ring
         scales = [s for s in scales if s is not None]
-        plain_kv = (k, v) if cache == "int8" else (k.float(), v.float())
-        ref = flash_decode_plain(q.float(), *plain_kv, pos, *scales, **opts)
         kernel = route[0] if S <= 32 else route[1]
         before = kernel.launches
         got = kernel(q, k, v, pos, *scales, **opts)
         assert kernel.launches == before + 1
-        assert torch.isfinite(got).all() and _within(got.float(), ref)
+        assert _attn_within(got, q, k, v, pos, *scales, **opts)
         assert torch.all(got[1, 0] == 0)
         if B == 3:
             assert torch.all(got[2] == 0)  # no slot of its window is in the plane
         if S <= 32:
-            assert torch.equal(route[1](q, k, v, pos, *scales, **opts), got)
+            assert _attn_close(route[1](q, k, v, pos, *scales, **opts), got, q, k, v, pos,
+                               *scales, **opts)
+            one = route[0](q[:, -1:].contiguous(), k, v, pos[:, -1:].contiguous(), *scales, **opts)
+            assert torch.equal(one, got[:, -1:])  # S = 1 against row S - 1 of S = 5
         else:
             for j in (0, 23, 24, 63):  # row 24 of sequence 0 is at the wrap, 1024
                 qj, pj = q[:, j:j + 1].contiguous(), pos[:, j:j + 1].contiguous()
-                assert torch.equal(route[0](qj, k, v, pj, *scales, **opts), got[:, j:j + 1])
+                assert torch.equal(route[1](qj, k, v, pj, *scales, **opts), got[:, j:j + 1])
+                assert _attn_close(route[0](qj, k, v, pj, *scales, **opts), got[:, j:j + 1], qj,
+                                   k, v, pj, *scales, **opts)
         if T == R:
             fk, fv, *fs = full
             fs = [s for s in fs if s is not None]
             assert torch.equal(kernel(q, fk, fv, pos, *fs, window=W), got)
     with pytest.raises(ValueError, match="ring_len"):  # shorter than a tile of keys
         kernel(q, k, v, pos, *scales, window=16, ring_len=16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache", ["bf16", "int8"])
+@pytest.mark.parametrize("T,window,p_last", [(256, None, 167), (4480, 4096, 4352)])
+def test_flash_decode_splits_match_plain_and_repeat(card, cache, T, window, p_last):
+    """Kernel D over one split (T = 256) and over 17 (T = 4480, window 4096,
+    rows at 4348..4352: keys 257..4352 in splits 1..17 of 256), Mistral's
+    geometry: within _attn_within of the plain version; the S = 1 call on
+    the last position equals that row of the S = 5 verify bit for bit;
+    repeated calls give the same bits (the combine takes the splits in a
+    fixed order, whichever block finishes last); one launch a call."""
+    g = torch.Generator(device=card).manual_seed(T + (window or 0))
+    B, H, KVH, D, S = 2, 32, 8, 128, 5
+    q = torch.randn((B, S, H, D), generator=g, device=card).bfloat16()
+    pos = (p_last - S + 1 + torch.arange(S, device=card, dtype=torch.int32))[None].repeat(B, 1)
+    pos = pos.contiguous()
+    pos[1, 0] = -1
+    if cache == "int8":
+        (k, ks), (v, vs) = (_int8_cache(card, g, (B, KVH, T, D)) for _ in "kv")
+        scales, kernel = (ks, vs), flash_decode_int8
+    else:
+        k, v = (torch.randn((B, KVH, T, D), generator=g, device=card).bfloat16() for _ in "kv")
+        scales, kernel = (), flash_decode
+    opts = {} if window is None else {"window": window}
+    before = kernel.launches
+    got = kernel(q, k, v, pos, *scales, **opts)
+    assert kernel.launches == before + 1
+    assert _attn_within(got, q, k, v, pos, *scales, **opts)
+    assert torch.all(got[1, 0] == 0)
+    one = kernel(q[:, -1:].contiguous(), k, v, pos[:, -1:].contiguous(), *scales, **opts)
+    assert torch.equal(one, got[:, -1:])
+    for _ in range(3):
+        assert torch.equal(kernel(q, k, v, pos, *scales, **opts), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,one_offset,w_dtype", [(3072, False, torch.bfloat16),
+                                                  (3584, True, torch.bfloat16),
+                                                  (4096, False, torch.float32)])
+def test_rms_norm_kernel_matches_plain_and_rows_ignore_m(card, N, one_offset, w_dtype):
+    """The rms_norm kernel within one bf16 step of each output of the plain
+    formula (the mean summed in another order can move the last rounding),
+    and every row with the same bits alone and among M = 2, 5, 8, 16, 40
+    rows; one launch a call."""
+    g = torch.Generator(device=card).manual_seed(N)
+    x = (torch.randn((40, N), generator=g, device=card) * 3).bfloat16()
+    w = (torch.randn((N,), generator=g, device=card) * 0.1 + (0 if one_offset else 1)).to(w_dtype)
+    before = rms_norm.launches
+    got = rms_norm(x, w, 1e-6, one_offset)
+    assert rms_norm.launches == before + 1
+    ref = rms_norm_plain(x, w, 1e-6, one_offset).float()
+    step = 2.0 ** (torch.floor(torch.log2(ref.abs().clamp_min(1e-30))) - 7)
+    assert torch.all((got.float() - ref).abs() <= step)
+    alone = torch.cat([rms_norm(x[i:i + 1], w, 1e-6, one_offset) for i in range(40)])
+    for M in (2, 5, 8, 16, 40):
+        assert torch.equal(rms_norm(x[:M], w, 1e-6, one_offset), alone[:M]), M

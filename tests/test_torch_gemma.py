@@ -359,10 +359,11 @@ def test_gemma_forward_matches_jax(name):
 def test_gemma2_bf16_forward_gap():
     """The same forward in bf16: the two libraries round at other places
     (JAX's gelu on bf16 rounds inside its tanh formula, torch's computes in
-    f32 and rounds once; the port's bf16 head rounds its logits to bf16).
-    Measured gap: 1.1% of the largest logit for gemma2-tiny, the size of
-    llama-tiny's (1.4%) with the same setup, so the tolerance is 2.5% of the
-    largest logit, with the same greedy token at every row."""
+    f32 and rounds once). Both heads keep their logits in f32. Measured gap:
+    1.31% of the largest logit for gemma2-tiny (the same with the head's
+    logits in f32 as with them rounded to bf16: the gelu rounding is the
+    gap), so the tolerance is 2.0% of the largest logit (1.5x the
+    measurement), with the same greedy token at every row."""
     m, params = _jax_params("gemma2-tiny", 1, jnp.bfloat16)
     tparams = params_from_jax(params)
     tcfg = registry.create("gemma2-tiny", device="cpu", params=tparams).config
@@ -374,7 +375,7 @@ def test_gemma2_bf16_forward_gap():
     tl, _ = tt.forward(tcfg, tparams, torch.from_numpy(toks), torch.from_numpy(pos),
                        KVCache.create(tcfg, 1, 128, "cpu"), torch.from_numpy(lens))
     ref, got = np.asarray(jl, np.float32), tl.numpy()
-    np.testing.assert_allclose(got, ref, rtol=0, atol=2.5e-2 * np.abs(ref).max())
+    np.testing.assert_allclose(got, ref, rtol=0, atol=2.0e-2 * np.abs(ref).max())
     np.testing.assert_array_equal(got.argmax(-1), ref.argmax(-1))
 
 

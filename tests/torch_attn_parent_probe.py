@@ -1,17 +1,21 @@
 """Kernels D, E and F of this checkout against the same kernels built from
-another checkout (an earlier commit), on the card, with the ring off: the
-bits of their outputs at the Llama paths' shapes (head dim 64 and 128, bf16
-and int8 caches, every option off, and D and E with a window that binds)
-and their device times, taken in turns (earlier, this, this, earlier). From
-the repo root of this checkout:
+another checkout (an earlier commit), on the card, with the ring off, at the
+Llama paths' shapes (head dim 64 and 128, bf16 and int8 caches, every option
+off, and D and E with a window that binds), with their device times taken in
+turns (earlier, this, this, earlier). From the repo root of this checkout:
 
     git archive <commit> llm_inference_lab_tpu_torch/csrc | tar -x -C <dir>
     python3 tests/torch_attn_parent_probe.py <dir>
 
+F (csrc/paged_flash.cu on attn_tile.cuh) must give the earlier kernel's
+bits. D and E moved to tensor cores (attn_mma.cuh) and round p to bf16
+before P.V, so they are held to their plain version instead, within
+chip_smoke.check_attn's tolerance, and only timed beside the earlier ones.
 The earlier csrc/{flash_decode,flash_prefill,paged_flash}.cu are built with
 this checkout's nvcc flags into a temporary directory and called through
-ctypes with the entries they had before the ring was added (scale, softcap
-and window, no ring argument). Exits non-zero if any output differs.
+ctypes with the entries they had before the split over T (D and E with the
+ring argument, F without). Exits non-zero if F's bits differ or D or E
+leaves its tolerance.
 """
 
 import ctypes
@@ -33,14 +37,14 @@ from llm_inference_lab_tpu_torch.ops import flash_prefill as fp  # noqa: E402
 from llm_inference_lab_tpu_torch.ops import paged_flash as pf  # noqa: E402
 
 P_, I_, LL, F_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-# The C entries before the ring: scale, softcap and window end the
-# arguments before the stream.
+# The earlier C entries: scale, softcap and window (and for D and E the
+# ring) end the arguments before the stream.
 OPTS = [F_, F_, I_]
 OLD_SIGNATURES = {
-    "flash_decode": {"flash_decode_bf16": [P_] * 5 + [I_] * 6 + [LL] * 2 + OPTS + [P_],
-                     "flash_decode_int8": [P_] * 7 + [I_] * 6 + [LL] * 4 + OPTS + [P_]},
-    "flash_prefill": {"flash_prefill_bf16": [P_] * 5 + [I_] * 6 + [LL] * 2 + OPTS + [P_],
-                      "flash_prefill_int8": [P_] * 7 + [I_] * 6 + [LL] * 4 + OPTS + [P_]},
+    "flash_decode": {"flash_decode_bf16": [P_] * 5 + [I_] * 6 + [LL] * 2 + OPTS + [I_, P_],
+                     "flash_decode_int8": [P_] * 7 + [I_] * 6 + [LL] * 4 + OPTS + [I_, P_]},
+    "flash_prefill": {"flash_prefill_bf16": [P_] * 5 + [I_] * 6 + [LL] * 2 + OPTS + [I_, P_],
+                      "flash_prefill_int8": [P_] * 7 + [I_] * 6 + [LL] * 4 + OPTS + [I_, P_]},
     "paged_flash": {"paged_flash_bf16": [P_] * 6 + [I_] * 7 + [LL] + OPTS + [P_],
                     "paged_flash_int8": [P_] * 8 + [I_] * 7 + [LL] * 2 + OPTS + [P_]},
 }
@@ -108,7 +112,8 @@ def old_call(lib, kernel, q, keys, pos, table, out, window):
         strides = [k.stride(0), k.stride(1)] + ([keys[2].stride(0), keys[2].stride(1)]
                                                  if int8 else [])
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), *sc, pos.data_ptr(), out.data_ptr(),
-                 B, S, H, k.shape[1], k.shape[2], D, *strides, D ** -0.5, 0.0, window or 0, st)
+                 B, S, H, k.shape[1], k.shape[2], D, *strides, D ** -0.5, 0.0, window or 0, 0,
+                 st)
     build.check(err, f"earlier {kernel}")
     return out
 
@@ -129,7 +134,7 @@ def main(parent: str) -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     print(f"card: {smi}")
     g = torch.Generator(device=dev).manual_seed(31)
-    differ = 0
+    differ = same_f = n_f = 0
     with tempfile.TemporaryDirectory() as tmp:
         old = load_old(parent, tmp)
         for kernel, S, D, H, KVH, window in CASES:
@@ -137,8 +142,20 @@ def main(parent: str) -> int:
                 q, keys, pos, table = inputs(g, dev, kernel, S, D, H, KVH, int8)
                 out = torch.empty_like(q)
                 new = new_call(kernel, q, keys, pos, table, window)
-                same = torch.equal(old_call(old[kernel], kernel, q, keys, pos, table, out, window),
-                                   new)
+                if kernel == "paged_flash":  # F keeps the earlier body: the same bits
+                    same = torch.equal(old_call(old[kernel], kernel, q, keys, pos, table, out,
+                                                window), new)
+                    n_f += 1
+                    same_f += same
+                    verdict = "same bits" if same else "BITS DIFFER"
+                else:  # D and E: within their tolerance of the plain version
+                    opts = {} if window is None else {"window": window}
+                    try:
+                        err = chip_smoke.check_attn(new, q, *keys[:2], pos, *keys[2:],
+                                                    what=(kernel, S, D), **opts)
+                        same, verdict = True, f"within tolerance of plain (max err {err:.3g})"
+                    except AssertionError as e:
+                        same, verdict = False, f"OUT OF TOLERANCE {e}"
                 differ += not same
 
                 def old_fn():
@@ -150,10 +167,12 @@ def main(parent: str) -> int:
                 times = [chip_smoke.median_ms(f) for f in (old_fn, new_fn, new_fn, old_fn)]
                 o, n = (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
                 print(f"{kernel} {'int8' if int8 else 'bf16'} S={S} D={D} H={H} window={window}: "
-                      f"{'same bits' if same else 'BITS DIFFER'}; earlier {times[0]:.4f} / "
+                      f"{verdict}; earlier {times[0]:.4f} / "
                       f"{times[3]:.4f} ms, this {times[1]:.4f} / {times[2]:.4f} ms, "
                       f"this / earlier {n / o:.3f}")
-    print(f"{len(CASES) * 2 - differ} of {len(CASES) * 2} cases give the same bits")
+    print(f"F: {same_f} of {n_f} cases give the earlier bits; D and E: "
+          f"{len(CASES) * 2 - n_f - (differ - (n_f - same_f))} of {len(CASES) * 2 - n_f} cases "
+          f"within tolerance of the plain version")
     return 1 if differ else 0
 
 
