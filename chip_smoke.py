@@ -15,23 +15,27 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
     shapes its path gives it (rms_norm at every model's width, rows
     bit-independent of M), with its time, the plain version's, one
     library call's and the bound (bytes at 3.35 TB/s, operations at 989
-    TFLOP/s bf16): quant_matmul_int4, flash_decode and verify_prefix at the
-    B=1 main path's shapes, flash_prefill at admission prefills (and
-    resumed chunks), paged_flash at the serving step's; then the int8
+    TFLOP/s bf16): quant_matmul_int4 (kernel A: its split-K kernel at the
+    B=1 main path's decode shapes, its tensor-core path, csrc/qmm_mma.cuh,
+    at M = 64, 160, 512 and 2048 at the 3B, 1B, Gemma-2 9B and Mistral-7B
+    widths, every row's bits independent of M within each, the rows that
+    differ between the two counted, timed at M = 160, 512, 2048),
+    flash_decode and verify_prefix at the B=1 main path's shapes,
+    flash_prefill at admission prefills (and resumed chunks), paged_flash
+    at the serving step's (F gives D's bits on the same keys); then the int8
     kernels: quant_matmul_int8 (kernel B) at every projection of the int8
-    path and M = 1, 5, 8, 40 and an admission wave's M, with every row's
-    bits independent of M, and the int8-cache variants of flash_decode,
-    flash_prefill and paged_flash, each beside its bf16 kernel on the same
-    positions, within their tolerances of one another on the same keys and
-    scales (D and E, on tensor cores with bf16 p, no longer share F's bits;
-    each kernel's rows are bit-independent of S, T and the rows beside
-    them); then
+    path and M = 1, 5, 8, 40, every row's bits independent of M, and its
+    tensor-core path as kernel A's, and the int8-cache variants of
+    flash_decode, flash_prefill and paged_flash, each beside its bf16 kernel
+    on the same positions (D and E within their tolerances of one another,
+    F with D's bits; each kernel's rows are bit-independent of S, T and the
+    rows beside them); then
     D, E and F at head dim 256 with Gemma-2's options (scale 1/16, softcap
     50, window 4096 or none: a local and a global layer) and geometries
     (16/8 and 8/4 heads), bf16 and int8, over T = 4608 with POISON at every
     key a sequence's rows do not see (below their window, past their
-    position), within tolerance of one another, timed at the Gemma-2
-    paths' shapes; then D and E with ring_len at Mistral-7B's geometry (32 / 8
+    position), D and E within tolerance of one another and F with D's
+    bits, timed at the Gemma-2 paths' shapes; then D and E with ring_len at Mistral-7B's geometry (32 / 8
     heads of 128, window 4096, ring R = 4736), bf16 and int8: decode rows
     near 5400 and a 512-row chunk across the wrap on a ring of T = R, and
     rows on one of T = 256 < R, POISON at every slot a row does not see,
@@ -55,14 +59,18 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
     after. All requests retire with finite logprobs; each request's ids
     equal the start of phase 3's B=1 Engine.generate ids for its prompt (a
     difference must be a near tie at an op found to round a row differently
-    at another batch shape or between kernels D and F); a contiguous-layout
-    batcher (which decodes through D where the paged one uses F) gives the
-    same ids, or ids that part only at such a near tie;
+    at another batch shape, or between A's or B's split-K kernel and
+    tensor-core path; D and F must not differ in any row at the serving
+    shapes, asserted); a contiguous-layout batcher (which decodes through D
+    where the paged one uses F) gives the same ids, or ids that part only at
+    such a near tie;
  4. the int8 path end to end at full width: configs/llama32_int8.yaml (int8
     3B target + 1B draft, K=4, max_seq_len 512, bf16 tied head) with an int8
     KV cache, random int8 weights from a seed, phase 3's prompt and checks;
     kernel A launches no time there; kv_alignment_report on the final cache
-    of a generate is within KV_ALIGN_STEPS int8 steps of a fresh prefill;
+    of a generate is within KV_ALIGN_STEPS int8 steps of a fresh prefill
+    (its decoded rows come from B's split-K kernel, the fresh ones from its
+    tensor-core path);
  5. int8 serving: phase 3b's requests and checks over paged int8 pools (page
     64, max_seq_len 512) on phase 4's weights, against phase 4's generate;
  6. Gemma-2 at full width: an int4 gemma-2-9b target and gemma-2-2b draft
@@ -105,24 +113,33 @@ PROMPT = "The quick brown fox jumps over the lazy dog. " * 3
 T_MAIN = 256  # cache length of the main path (P = 160, 64 new tokens, K = 1)
 P_MAIN = 167  # a mid-generation position: prompt (135) + 32 tokens
 
-# (K, N) of every int4 projection: 3B target, 1B draft.
+# (K, N) of every projection: 3B target, 1B draft; Gemma-2 9B; Mistral-7B
+# and its untied head.
 QMM_3B = [(3072, 5120), (3072, 3072), (3072, 16384), (8192, 3072)]
 QMM_1B = [(2048, 3072), (2048, 2048), (2048, 16384), (8192, 2048)]
-# Tolerances. quant_matmul: 1e-2 of the output's largest magnitude (bf16
-# output rounding, 2^-8 relative, plus f32 summation order). flash_decode:
-# the kernel keeps the probabilities in f32 and rounds only its output to
-# bf16, so it is held, element by element, to the plain version run on f32
-# copies of the same bf16 inputs (whose probabilities then stay f32 too):
-# |got - ref| <= 2^-8 |ref| (the output's bf16 rounding) + 2^-16 (f32
-# summation order). verify_prefix: exact.
+QMM_9B = [(3584, 8192), (4096, 3584), (3584, 28672), (14336, 3584)]
+QMM_MISTRAL = [(4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096)]
+MISTRAL_HEAD = (4096, 32000)
+QMM_WIDTHS = {"3B": QMM_3B, "1B": QMM_1B, "Gemma-2 9B": QMM_9B,
+              "Mistral-7B": QMM_MISTRAL + [MISTRAL_HEAD]}
+# Prefill rows the tensor-core path of kernels A and B is timed at: the
+# main path's 160-row prompt, a Mistral chunk of 512, an admission wave of
+# 8 prompts of 256 rows; and the rows it is checked at (from MMA_MIN_M).
+PREFILL_M = (160, 512, 2048)
+MMA_CHECK_M = (64, 160, 512, 2048)
+# Tolerances. quant_matmul (kernel A): 1e-2 of the output's largest
+# magnitude (bf16 output rounding, 2^-8 relative, plus f32 summation
+# order). verify_prefix: exact.
 QMM_RTOL = 1e-2
-FLASH_RTOL, FLASH_ATOL = 2.0 ** -8, 2.0 ** -16  # paged_flash (F keeps p in f32)
-# Kernels D and E round p (for int8 p times v's scale) to bf16 before P.V,
-# as Pallas does: at most 2^-9 sum_j P_j |v_j| an output, on top of F's
-# terms. They are held to FLASH_RTOL |ref| + ATTN_VTOL sum_j P_j |v_j| +
-# FLASH_ATOL against the plain version on f32 copies (twice the p term),
-# and to twice the sum of both tolerances against another kernel's output
-# on the same rows (check_attn_pair).
+# Attention (kernels D, E and F) keeps f32 scores and sums and rounds its
+# output to bf16 (FLASH_RTOL |ref|, f32 order FLASH_ATOL), and rounds p
+# (for int8 p times v's scale) to bf16 before P.V, as Pallas does: at most
+# 2^-9 sum_j P_j |v_j| an output. Each is held to FLASH_RTOL |ref| +
+# ATTN_VTOL sum_j P_j |v_j| + FLASH_ATOL against the plain version on f32
+# copies (twice the p term), and D and E to twice the sum of both
+# tolerances against each other on the same rows (check_attn_pair); F
+# gives D's bits.
+FLASH_RTOL, FLASH_ATOL = 2.0 ** -8, 2.0 ** -16
 ATTN_VTOL = 2.0 ** -8
 # The attention checks fill V past the last position with this value, so a
 # mask that lets one masked key in moves an output by about POISON / T.
@@ -140,9 +157,9 @@ INT8_CFG = dict(base_model="llama-3.2-3b", draft_model="llama-3.2-1b", max_draft
                 kv_quantization="int8", seed=0)
 INT8_MAX_LEN = 512  # serving lanes of the int8 path
 KV_ALIGN_STEPS = 4  # kv_alignment_report's tolerance, in int8 steps (phase_kv_alignment)
-# Kernel B's checks: the path's M (B=1 draft and verify, 8-slot draft and
-# verify) and one admission wave (G = 8 prompts of P = 256).
-QMM8_M = (1, 5, 8, 40, 2048)
+# Kernel B's decode checks: the path's M (B=1 draft and verify, 8-slot draft
+# and verify).
+QMM8_M = (1, 5, 8, 40)
 # Kernel B per element: 2^-8 |ref| (the bf16 output's rounding) + 2^-14 of
 # the largest |ref| (f32 sums of up to 8192 products in another order).
 QMM8_RTOL, QMM8_MTOL = 2.0 ** -8, 2.0 ** -14
@@ -173,32 +190,30 @@ RING_LEN = 4736  # round_up(window 4096 + chunk 512 + K 4 + 2, 128)
 MISTRAL_LONG = PROMPT * 40  # 5400 byte tokens: P = 5632 (11 chunks of 512), max_len 5760
 MISTRAL_LONG_SHAPE = (5400, 5632, 5760)  # tokens, prompt block P, max_len
 P_RING = 5400  # a decode position of the long prompt: its window wraps the ring
-# The kernels each path must launch (and no other).
+# The kernels each path must launch (and no other): the norm and the
+# projections' two kernels (decode rows through the split-K kernel, prefill
+# rows through the tensor-core path) on every path, then its attention.
+INT4 = {"rms_norm", "quant_matmul_int4", "quant_matmul_int4_mma"}
+INT8 = {"rms_norm", "quant_matmul_int8", "quant_matmul_int8_mma"}
+SPEC = {"flash_decode", "flash_prefill", "verify_prefix"}
+SERVE = {"flash_prefill", "paged_flash", "verify_prefix"}
 PATH_KERNELS = {
-    "generate int4 (3 runs)": {"rms_norm", "quant_matmul_int4", "flash_decode",
-                               "flash_prefill", "verify_prefix"},
-    "serving int4 (16 requests)": {"rms_norm", "quant_matmul_int4", "flash_prefill",
-                                   "paged_flash", "verify_prefix"},
-    "generate int8 (3 runs)": {"rms_norm", "quant_matmul_int8", "flash_decode_int8",
-                               "flash_prefill_int8", "verify_prefix"},
-    "serving int8 (16 requests)": {"rms_norm", "quant_matmul_int8", "flash_prefill_int8",
-                                   "paged_flash_int8", "verify_prefix"},
-    "generate gemma-2 (3 runs)": {"rms_norm", "quant_matmul_int4", "flash_decode",
-                                  "flash_prefill", "verify_prefix"},
-    "generate gemma-2 long prompt (spec + baseline)": {
-        "rms_norm", "quant_matmul_int4", "flash_decode", "flash_prefill", "verify_prefix"},
-    "serving gemma-2 (16 requests)": {"rms_norm", "quant_matmul_int4", "flash_prefill",
-                                      "paged_flash", "verify_prefix"},
-    "generate mistral-7b ring (3 runs)": {"rms_norm", "quant_matmul_int4", "flash_decode",
-                                          "flash_prefill", "verify_prefix"},
-    "generate mistral-7b ring long prompt (spec + baseline)": {
-        "rms_norm", "quant_matmul_int4", "flash_decode", "flash_prefill", "verify_prefix"},
-    "generate mistral-7b full cache long prompt (baseline)": {
-        "rms_norm", "quant_matmul_int4", "flash_decode", "flash_prefill"},
-    "generate mistral-7b int8 ring long prompt (baseline)": {
-        "rms_norm", "quant_matmul_int4", "flash_decode_int8", "flash_prefill_int8"},
-    "generate mistral-7b int8 full cache long prompt (baseline)": {
-        "rms_norm", "quant_matmul_int4", "flash_decode_int8", "flash_prefill_int8"},
+    "generate int4 (3 runs)": INT4 | SPEC,
+    "serving int4 (16 requests)": INT4 | SERVE,
+    "generate int8 (3 runs)": INT8 | {"flash_decode_int8", "flash_prefill_int8", "verify_prefix"},
+    "serving int8 (16 requests)": INT8 | {"flash_prefill_int8", "paged_flash_int8",
+                                          "verify_prefix"},
+    "generate gemma-2 (3 runs)": INT4 | SPEC,
+    "generate gemma-2 long prompt (spec + baseline)": INT4 | SPEC,
+    "serving gemma-2 (16 requests)": INT4 | SERVE,
+    "generate mistral-7b ring (3 runs)": INT4 | SPEC,
+    "generate mistral-7b ring long prompt (spec + baseline)": INT4 | SPEC,
+    "generate mistral-7b full cache long prompt (baseline)": INT4 | {"flash_decode",
+                                                                     "flash_prefill"},
+    "generate mistral-7b int8 ring long prompt (baseline)": INT4 | {"flash_decode_int8",
+                                                                    "flash_prefill_int8"},
+    "generate mistral-7b int8 full cache long prompt (baseline)": INT4 | {"flash_decode_int8",
+                                                                          "flash_prefill_int8"},
 }
 GEMMA_PATHS = [path for path in PATH_KERNELS if "gemma-2" in path]
 MISTRAL_PATHS = [path for path in PATH_KERNELS if "mistral" in path]
@@ -265,7 +280,101 @@ class Cycle:
         return self.i
 
 
+def qmm_within(bits, got, ref):
+    """Kernel A: within QMM_RTOL of the output's largest magnitude; kernel
+    B: QMM8_RTOL |ref| + QMM8_MTOL max |ref| per element. Returns max abs err."""
+    err = (got.float() - ref).abs()
+    if bits == 4:
+        ok = err.max() <= QMM_RTOL * ref.abs().max()
+    else:
+        ok = (err <= QMM8_RTOL * ref.abs() + QMM8_MTOL * ref.abs().max()).all()
+    assert torch.isfinite(got).all() and bool(ok), (bits, tuple(got.shape), err.max().item())
+    return err.max().item()
+
+
+def qmm_prefill(dev, bits, g):
+    """Kernel A (bits 4) or B (bits 8) at the prefill shapes of every width
+    in QMM_WIDTHS: within tolerance of the plain version at MMA_CHECK_M
+    (the first M rows of one x), every row with the same bits at each of
+    those M, and the rows that differ between the split-K kernel (those
+    rows at M = MMA_MIN_M - 1) and the tensor-core path (at MMA_MIN_M)
+    counted; timed at PREFILL_M beside the plain version, the library call
+    (A: dequantize, then torch.matmul; B: torch.matmul(x, w.to(bf16)) *
+    scale) and the bound. Returns ({(K, N, M): numbers}, max abs err,
+    rows across the paths)."""
+    from llm_inference_lab_tpu_torch.ops.quant import QuantTensor, dequantize
+    from llm_inference_lab_tpu_torch.ops.quant_matmul import (
+        MMA_MIN_M,
+        quant_matmul,
+        quant_matmul_int8,
+        quant_matmul_plain,
+        quant_matmul_plain_int8,
+    )
+
+    kernel, plain = ((quant_matmul, quant_matmul_plain) if bits == 4 else
+                     (quant_matmul_int8, quant_matmul_plain_int8))
+
+    def library(x, w, sc):
+        if bits == 4:
+            return torch.matmul(x, dequantize(QuantTensor(w, sc, 4), torch.bfloat16))
+        return torch.matmul(x, w.to(torch.bfloat16)) * sc
+
+    rows, max_err, across = {}, 0.0, 0
+    name = f"quant_matmul_int{bits}"
+    for width, shapes in QMM_WIDTHS.items():
+        for K, N in shapes:
+            wrows = K // 2 if bits == 4 else K
+            L = max(2, (200 << 20) // (wrows * N))  # > 200 MB of weights: beyond L2
+            w = torch.randint(-128, 128, (L, wrows, N), generator=g, dtype=torch.int8, device=dev)
+            sc = torch.rand((L, N), generator=g, device=dev) * (0.02 / (7 if bits == 4 else 127))
+            sc += 1e-5
+            x = torch.randn((max(MMA_CHECK_M), K), generator=g, device=dev).bfloat16()
+            outs = {}
+            for M in MMA_CHECK_M:
+                outs[M] = kernel(x[:M], w[0], sc[0])
+                max_err = max(max_err, qmm_within(bits, outs[M], plain(x[:M].float(), w[0], sc[0])))
+            for M in MMA_CHECK_M[:-1]:  # the same bits for a row at every M of the path
+                assert torch.equal(outs[M], outs[MMA_CHECK_M[-1]][:M]), (name, K, N, M)
+            split_k = kernel(x[:MMA_MIN_M - 1], w[0], sc[0])
+            n_across = int((split_k != outs[MMA_MIN_M][:MMA_MIN_M - 1]).any(-1).sum())
+            across += n_across
+            cyc = Cycle(L)
+            line = []
+            for M in PREFILL_M:
+                xm = x[:M]
+                ms = median_ms(lambda: kernel(xm, w[cyc()], sc[cyc.i]))
+                pl = median_ms(lambda: plain(xm, w[cyc()], sc[cyc.i]), iters=5, warmup=1)
+                lib = median_ms(lambda: library(xm, w[cyc()], sc[cyc.i]), iters=10)
+                b, by = bound_ms(wrows * N + 4 * N + 2 * M * K + 2 * M * N, 2 * M * K * N)
+                rows[(K, N, M)] = dict(ms=ms, plain_ms=pl, library_ms=lib, bound_ms=b, bound_by=by)
+                line.append(f"M={M} {ms:.4f} ms ({2 * M * K * N / ms / 1e9:.0f} TFLOP/s, "
+                            f"{b / ms:.3f} of the bound {b:.4f} {by}) plain {pl:.4f} library "
+                            f"{lib:.4f} ({ms / lib:.2f}x)")
+            log(f"{name} tensor-core path {width} K={K} N={N}: within tolerance at M = "
+                f"{MMA_CHECK_M}, every row the same bits at each; rows differing from the "
+                f"split-K kernel's (M = {MMA_MIN_M - 1} vs {MMA_MIN_M}): {n_across} of "
+                f"{MMA_MIN_M - 1}; " + "; ".join(line))
+            del w, sc, x, outs
+    return rows, max_err, across
+
+
+def prefill_agg(rows, work, max_err):
+    """Sum the numbers of rows[(K, N, M)] over work [(K, N, M, count)]."""
+    agg = {key: sum(rows[(k, n, m)][key] * c for k, n, m, c in work)
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    by_ops = sum(c for k, n, m, c in work if rows[(k, n, m)]["bound_by"] == "operations")
+    agg["bound_by"] = "operations" if by_ops > sum(c for *_, c in work) // 2 else "bytes"
+    agg["max_abs_err"] = max_err
+    return agg
+
+
 def phase_quant_matmul(dev):
+    """Kernel A: the split-K kernel at the B=1 main path's decode shapes (M =
+    1, 2; row 0 the same bits alone and inside the batch), timed for one
+    K=1 step; then the tensor-core path at every width's prefill shapes
+    (qmm_prefill). Returns (the step's numbers, the Mistral-7B long prompt's
+    prefill projections through one model: 11 chunks of 512 rows, 32
+    layers and the head)."""
     from llm_inference_lab_tpu_torch.ops.quant import dequantize, QuantTensor
     from llm_inference_lab_tpu_torch.ops.quant_matmul import quant_matmul, quant_matmul_plain
 
@@ -276,7 +385,7 @@ def phase_quant_matmul(dev):
         w = torch.randint(-128, 128, (L, K // 2, N), generator=g, dtype=torch.int8, device=dev)
         sc = torch.rand((L, N), generator=g, device=dev) * (0.02 / 7) + 1e-4
         cyc = Cycle(L)
-        for M in (1, 2, 160):
+        for M in (1, 2):
             x = torch.randn((M, K), generator=g, device=dev).bfloat16()
             got = quant_matmul(x, w[0], sc[0]).float()
             ref = quant_matmul_plain(x, w[0], sc[0]).float()
@@ -298,12 +407,13 @@ def phase_quant_matmul(dev):
         del w, sc
     # One K=1 decode step: 16 draft layers at M=1, 28 target layers at M=2.
     step = [(k, n, 1, 16) for k, n in QMM_1B] + [(k, n, 2, 28) for k, n in QMM_3B]
-    agg = {key: sum(rows[(k, n, m)][key] * c for k, n, m, c in step)
-           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    by_ops = sum(c for k, n, m, c in step if rows[(k, n, m)]["bound_by"] == "operations")
-    agg["bound_by"] = "operations" if by_ops > len(step) // 2 else "bytes"
-    agg["max_abs_err"] = max_err
-    return agg
+    pre, pre_err, across = qmm_prefill(dev, 4, g)
+    log(f"quant_matmul_int4: {across} rows differ between the split-K kernel and the "
+        f"tensor-core path over {sum(map(len, QMM_WIDTHS.values()))} shapes")
+    layers, chunks = MISTRAL_GEOM[2], -(-MISTRAL_LONG_SHAPE[1] // 512)
+    mistral = [(k, n, 512, layers * chunks) for k, n in QMM_MISTRAL]
+    mistral.append((*MISTRAL_HEAD, 512, chunks))
+    return prefill_agg(rows, step, max_err), prefill_agg(pre, mistral, pre_err)
 
 
 def flash_inputs(g, dev, B, S, H, KVH, T, D, p_last, L=1):
@@ -452,13 +562,6 @@ def phase_rms_norm(dev):
     return agg
 
 
-def check_close(got, ref, what):
-    """Per element within FLASH_RTOL |ref| + FLASH_ATOL; returns max abs err."""
-    excess = ((got - ref).abs() - FLASH_RTOL * ref.abs() - FLASH_ATOL).max().item()
-    assert torch.isfinite(got).all() and excess <= 0, (what, excess)
-    return (got - ref).abs().max().item()
-
-
 def f32_plain(q, k, v, pos, ks=None, vs=None, **opts):
     """The plain attention on f32 copies (an int8 cache dequantized in f32)
     and the same with |v|: (ref, sum_j P_j |v_j|) per output element."""
@@ -483,10 +586,10 @@ def check_attn(got, q, k, v, pos, ks=None, vs=None, what="", **opts):
 
 
 def check_attn_pair(a, b, q, k, v, pos, ks=None, vs=None, what="", **opts):
-    """Two of D, E and F on the same rows: each within its tolerance of the
-    plain version, so within twice both of each other (2 FLASH_RTOL |b| +
-    ATTN_VTOL sum_j P_j |v_j| + 2 FLASH_ATOL). They shared one body and its
-    bits until D and E moved to tensor cores with bf16 p."""
+    """D and E on the same rows: each within its tolerance of the plain
+    version, so within twice both of each other (2 FLASH_RTOL |b| +
+    ATTN_VTOL sum_j P_j |v_j| + 2 FLASH_ATOL). A row of E's 64-row block
+    and the same row through D's split need not share bits."""
     _, mag = f32_plain(q, k, v, pos, ks, vs, **opts)
     a, b = a.float(), b.float()
     excess = ((a - b).abs() - 2 * FLASH_RTOL * b.abs() - ATTN_VTOL * mag - 2 * FLASH_ATOL).max()
@@ -624,15 +727,13 @@ def phase_paged_flash(dev):
                 assert torch.equal(gather_pages(kp, table), kc)
                 pos[1, 0] = -1
                 got = paged_flash(q, kp, vp, pos, table)
-                ref = paged_flash_plain(q.float(), kp.float(), vp.float(), pos, table)
-                err = check_close(got.float(), ref, ("paged_flash", S, D, P))
+                err = check_attn(got, q, kc, vc, pos, what=("paged_flash", S, D, P))
                 max_err = max(max_err, err)
                 assert torch.all(got[1, 0] == 0), (S, D, P, "dead row not zero")
-                check_attn_pair(flash_decode(q, kc, vc, pos), got, q, kc, vc, pos,
-                                what=("flash_decode vs paged_flash", S, D, P))
+                assert torch.equal(flash_decode(q, kc, vc, pos), got), (S, D, P, "D != F")
                 log(f"paged_flash B={B} S={S} D={D} P={P} (last positions up to {max(last)}): "
-                    f"max_abs_err {err:.3g}; flash_decode on the gathered keys within tolerance "
-                    f"(dead row zero)")
+                    f"max_abs_err {err:.3g}; flash_decode's bits on the gathered keys (dead row "
+                    f"zero)")
     # Timing at the serving step's shapes: 8 slots at positions near 250,
     # 64-row pages, 1024 positions a sequence: the draft (S=1, D=64) and
     # verify (S=2, D=128) calls of one K=1 step.
@@ -664,10 +765,13 @@ def phase_paged_flash(dev):
 
 # ---------------------------------------------------------------- int8 kernels
 def phase_quant_matmul_int8(dev):
-    """Kernel B at every projection of the int8 path: checks at M in QMM8_M
-    on the first M rows of one x (every row's bits the same at every M),
-    times at M = 1, 5, 8, 40 with the plain version, the library call and
-    the bound."""
+    """Kernel B: the split-K kernel at every projection of the int8 path,
+    checked at M in QMM8_M on the first M rows of one x (every row's bits
+    the same at every M) and timed at M = 1, 5, 8, 40 with the plain
+    version, the library call and the bound; then the tensor-core path at
+    every width's prefill shapes (qmm_prefill). Returns (one K=4 step's
+    numbers, one admission wave's: 8 prompts of 256 rows through the 3B's
+    28 and the 1B's 16 layers)."""
     from llm_inference_lab_tpu_torch.ops.quant_matmul import (
         quant_matmul_int8,
         quant_matmul_plain_int8,
@@ -683,17 +787,14 @@ def phase_quant_matmul_int8(dev):
         outs = {}
         for M in QMM8_M:
             got = quant_matmul_int8(x[:M], w[0], sc[0])
-            ref = quant_matmul_plain_int8(x[:M].float(), w[0], sc[0])
-            err = (got.float() - ref).abs()
-            tol = QMM8_RTOL * ref.abs() + QMM8_MTOL * ref.abs().max()
-            assert torch.isfinite(got).all() and bool((err <= tol).all()), (K, N, M, err.max())
-            max_err = max(max_err, err.max().item())
+            max_err = max(max_err, qmm_within(8, got, quant_matmul_plain_int8(x[:M].float(), w[0],
+                                                                            sc[0])))
             for m_prev, prev in outs.items():  # the same bits for a row at every M
                 assert torch.equal(got[:m_prev], prev), (K, N, M, m_prev, "M-dependent rounding")
             outs[M] = got
         del outs
         cyc = Cycle(L)
-        for M in (1, 5, 8, 40):
+        for M in QMM8_M:
             xm = x[:M].contiguous()
             ms = median_ms(lambda: quant_matmul_int8(xm, w[cyc()], sc[cyc.i]))
             plain = median_ms(lambda: quant_matmul_plain_int8(xm, w[cyc()], sc[cyc.i]), iters=10)
@@ -709,15 +810,15 @@ def phase_quant_matmul_int8(dev):
     # One K=4 decode step at B=1: 4 draft forwards of 16 1B layers at M=1,
     # one verify of 28 3B layers at M=5.
     step = [(k, n, 1, 4 * 16) for k, n in QMM_1B] + [(k, n, 5, 28) for k, n in QMM_3B]
-    agg = {key: sum(rows[(k, n, m)][key] * c for k, n, m, c in step)
-           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    agg["bound_by"] = "bytes"
-    agg["max_abs_err"] = max_err
     serve = [(k, n, 8, 4 * 16) for k, n in QMM_1B] + [(k, n, 40, 28) for k, n in QMM_3B]
     log("quant_matmul_int8 one 8-slot K=4 serving step (M = 8 draft, 40 verify): "
         + ", ".join(f"{key} {sum(rows[(k, n, m)][key] * c for k, n, m, c in serve):.4f}"
                     for key in ("ms", "plain_ms", "library_ms", "bound_ms")))
-    return agg
+    pre, pre_err, across = qmm_prefill(dev, 8, g)
+    log(f"quant_matmul_int8: {across} rows differ between the split-K kernel and the "
+        f"tensor-core path over {sum(map(len, QMM_WIDTHS.values()))} shapes")
+    wave = [(k, n, 2048, 28) for k, n in QMM_3B] + [(k, n, 2048, 16) for k, n in QMM_1B]
+    return prefill_agg(rows, step, max_err), prefill_agg(pre, wave, pre_err)
 
 
 def int8_kv(g, dev, shape, last=None):
@@ -926,17 +1027,15 @@ def phase_paged_flash_int8(dev):
                 assert torch.equal(gather_pages(pools[2], table), cont[2])
                 pos[1, 0] = -1
                 got = paged_flash_int8(q, pools[0], pools[1], pos, table, pools[2], pools[3])
-                ref = paged_flash_plain(q.float(), pools[0], pools[1], pos, table, pools[2],
-                                        pools[3])
-                err = check_close(got.float(), ref, ("paged_flash_int8", S, D, P))
+                err = check_attn(got, q, *cont[:2], pos, *cont[2:],
+                                 what=("paged_flash_int8", S, D, P))
                 max_err = max(max_err, err)
                 assert torch.all(got[1, 0] == 0), (S, D, P, "dead row not zero")
-                check_attn_pair(flash_decode_int8(q, cont[0], cont[1], pos, cont[2], cont[3]),
-                                got, q, *cont[:2], pos, *cont[2:],
-                                what=("D-int8 vs F-int8", S, D, P))
+                assert torch.equal(flash_decode_int8(q, cont[0], cont[1], pos, cont[2], cont[3]),
+                                   got), (S, D, P, "D-int8 != F-int8")
                 log(f"paged_flash_int8 B={B} S={S} D={D} P={P} (last positions up to "
-                    f"{max(last)}): max_abs_err {err:.3g}; flash_decode_int8 on the gathered "
-                    f"keys and scales within tolerance (dead row zero)")
+                    f"{max(last)}): max_abs_err {err:.3g}; flash_decode_int8's bits on the "
+                    f"gathered keys and scales (dead row zero)")
     agg = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bound_by="bytes",
                max_abs_err=max_err)
     last = [246 + b for b in range(B)]
@@ -1046,11 +1145,11 @@ def phase_gemma_attention(dev):
     (a global one), T = 4608: decode rows (S = 1, 2) of four sequences
     ending at 4096 (the window cuts key 0), 4200, 4607 and 300, one row
     dead; prefill rows (S = 160) at 4000..4159 (crossing 4096) and
-    4448..4607 with a dead row. Each within its tolerance of its plain
-    version on f32 q (check_attn for D and E, check_close for F), finite,
-    dead rows zero; E vs D and F (shuffled 64-row pages) vs D on the decode
+    4448..4607 with a dead row. Each within check_attn's tolerance of its
+    plain version on f32 q, finite, dead rows zero; E vs D on the decode
     rows and D vs E on single prefill rows within both tolerances
-    (check_attn_pair); E's single prefill rows equal its block's bits.
+    (check_attn_pair); F (shuffled 64-row pages) gives D's bits on the
+    decode rows; E's single prefill rows equal its block's bits.
     Times (bf16): D at the long-prompt decode step, E at the long prompt's
     prefill, F at the Gemma-2 serving step."""
     from llm_inference_lab_tpu_torch.models.paged import gather_pages
@@ -1097,12 +1196,9 @@ def phase_gemma_attention(dev):
                                         what=(what, S, "E vs D"), **opts)
                         pools, table = to_pages(g, dev, (k, v, *sc), SERVE_PAGE)
                         paged = fk(q, pools[0], pools[1], pos, table, *pools[2:], **opts)
-                        check_attn_pair(got, paged, q, k, v, pos, *sc, what=(what, S, "D vs F"),
-                                        **opts)
-                        kv_f = pools[:2] if sc else [t.float() for t in pools[:2]]
-                        ref_f = paged_flash_plain(q.float(), *kv_f, pos, table, *pools[2:], **opts)
-                        errs["paged_flash"] = max(errs["paged_flash"],
-                                                  check_close(paged.float(), ref_f, ("F", what, S)))
+                        assert torch.equal(got, paged), (what, S, "D != F")
+                        errs["paged_flash"] = max(errs["paged_flash"], check_attn(
+                            paged, q, k, v, pos, *sc, what=("F", what, S), **opts))
                         del pools
                     else:
                         for j in (0, 95, 96, 159):  # row 96 of sequence 0 is at 4096
@@ -1541,7 +1637,9 @@ def phase_kv_alignment(eng):
     row differently with the number of rows (1.87 int8 steps at one
     position on an H100 80GB HBM3, tests/torch_kv_align_probe.py); the
     rms_norm kernel sums each row in a fixed order, but an op that rounds a
-    row differently at another M still moves bf16 values by a bf16 step,
+    row differently at another M (kernel B: the 5-row verify through its
+    split-K kernel, the 256-row prefill through its tensor-core path)
+    still moves bf16 values by a bf16 step,
     about one int8 step of their row, and the int8 rounding adds up to one
     more. So the tolerance stays KV_ALIGN_STEPS steps of the largest
     committed row scale (the log gives the largest difference in steps); a
@@ -1565,12 +1663,18 @@ def kernel_wrappers():
     from llm_inference_lab_tpu_torch.ops.flash_decode import flash_decode, flash_decode_int8
     from llm_inference_lab_tpu_torch.ops.flash_prefill import flash_prefill, flash_prefill_int8
     from llm_inference_lab_tpu_torch.ops.paged_flash import paged_flash, paged_flash_int8
-    from llm_inference_lab_tpu_torch.ops.quant_matmul import quant_matmul, quant_matmul_int8
+    from llm_inference_lab_tpu_torch.ops.quant_matmul import (
+        quant_matmul,
+        quant_matmul_int8,
+        quant_matmul_int8_mma,
+        quant_matmul_mma,
+    )
     from llm_inference_lab_tpu_torch.ops.rms_norm import rms_norm
     from llm_inference_lab_tpu_torch.ops.verify import verify_prefix
 
     return {"rms_norm": rms_norm,
-            "quant_matmul_int4": quant_matmul, "quant_matmul_int8": quant_matmul_int8,
+            "quant_matmul_int4": quant_matmul, "quant_matmul_int4_mma": quant_matmul_mma,
+            "quant_matmul_int8": quant_matmul_int8, "quant_matmul_int8_mma": quant_matmul_int8_mma,
             "flash_decode": flash_decode, "flash_decode_int8": flash_decode_int8,
             "flash_prefill": flash_prefill, "flash_prefill_int8": flash_prefill_int8,
             "paged_flash": paged_flash, "paged_flash_int8": paged_flash_int8,
@@ -1579,6 +1683,7 @@ def kernel_wrappers():
 
 RMS_NORM_OP = "rms_norm (kernel, fixed order)"
 D_VS_F = "D vs F rows at the serving shapes"
+ACROSS_MMA = "kernel {} across MMA_MIN_M (split-K kernel alone vs tensor-core path)"
 
 
 def row_stability(eng, dev):
@@ -1587,16 +1692,20 @@ def row_stability(eng, dev):
     generate runs M = 1, 2 at K=1 and 1, 5 at K=4; the 8-slot batcher 8, 16
     or 8, 40): for each M, how many rows differ in any bit from the row
     alone. Random rows can miss a rounding that a real row shows
-    (tests/torch_kv_align_probe.py). Then the one op that rounds a row
-    differently between serving and generate whatever M is: serving decodes
-    through kernel F (paged, f32 p) and generate through kernel D (tensor
-    cores, bf16 p); attention_rows counts the rows in which they differ."""
+    (tests/torch_kv_align_probe.py). Then the projection kernel across
+    MMA_MIN_M: MMA_MIN_M rows together (its tensor-core path, which every
+    prefill takes) against the same rows alone (its split-K kernel, which
+    every decode step takes); a row that one run prefills and another
+    decodes through this op can part there. Then D against F over the same
+    keys at the serving step's shapes: F runs D's body, so no row may
+    differ (asserted)."""
     from llm_inference_lab_tpu_torch.models.transformer import lm_head_logits, rms_norm
     from llm_inference_lab_tpu_torch.ops.quant import dense
+    from llm_inference_lab_tpu_torch.ops.quant_matmul import MMA_MIN_M
 
     cfg, params = eng.target.config, eng.target.params
     g = torch.Generator(device=dev).manual_seed(6)
-    x = torch.randn((40, cfg.d_model), generator=g, device=dev).bfloat16()
+    x = torch.randn((MMA_MIN_M, cfg.d_model), generator=g, device=dev).bfloat16()
     w = params["layers"]["w_qkv"].layer(0)
     kernel = "quant_matmul_int4 (kernel A)" if w.bits == 4 else "quant_matmul_int8 (kernel B)"
     head = ("tied int8 head (cast + torch.mm, f32 out)" if cfg.tie_word_embeddings
@@ -1612,20 +1721,25 @@ def row_stability(eng, dev):
     }
     out = {}
     for name, fn in ops.items():
-        alone = torch.cat([fn(x[i:i + 1].contiguous()) for i in range(40)])
+        n = MMA_MIN_M if name == kernel else 40
+        alone = torch.cat([fn(x[i:i + 1].contiguous()) for i in range(n)])
         out[name] = {M: int((fn(x[:M].contiguous()) != alone[:M]).any(-1).sum())
                      for M in (2, 5, 8, 16, 40)}
+        if name == kernel:
+            out[ACROSS_MMA.format("A" if w.bits == 4 else "B")] = {
+                MMA_MIN_M: int((fn(x) != alone).any(-1).sum())}
     assert not any(out[RMS_NORM_OP].values()), ("rms_norm rows depend on M", out[RMS_NORM_OP])
     out[D_VS_F] = attention_rows(eng, dev)
+    assert not any(out[D_VS_F].values()), ("D and F differ", out[D_VS_F])
     return out
 
 
 def attention_rows(eng, dev):
     """Kernel D over contiguous keys against kernel F over the same keys in
     shuffled pages, at the serving step's shapes (SERVE_SLOTS sequences at
-    positions near 250, SERVE_PAGE-row pages, the target's heads and cache
-    type, S = 1 and S = K+1): for each S, how many query rows (position,
-    head) differ in any bit."""
+    positions near 250, SERVE_PAGE-row pages, the target's heads, cache type
+    and options, S = 1 and S = K+1): for each S, how many query rows
+    (position, head) differ in any bit (row_stability requires 0)."""
     from llm_inference_lab_tpu_torch.models.base import quantize_rows
     from llm_inference_lab_tpu_torch.ops.flash_decode import flash_decode
     from llm_inference_lab_tpu_torch.ops.paged_flash import paged_flash
@@ -1707,13 +1821,15 @@ def phase_serving(dev, eng, profile, max_len, path, label):
         f"generated tokens in {st['wall_s']:.3f} s = {st['tok_s']:.2f} tok/s aggregate; "
         f"{st['steps']} steps, {st['admit_waves']} admission waves, mean occupied slots "
         f"{st['mean_occupied_slots']:.2f}, peak memory {peak_mb:.1f} MB")
-    # The ops that round a row differently at another M or between kernels
-    # D (generate and the contiguous batcher decode through it) and F (the
-    # paged batcher): where two runs of one prompt part, the gap must be a
-    # near tie and one of these must have rounded differently.
+    # The ops that round a row differently at another M, or between the
+    # split-K kernel and the tensor-core path of A or B (D and F must give
+    # the same bits: row_stability asserts it): where two runs of one prompt
+    # part, the gap must be a near tie and one of these must have rounded
+    # differently.
     stability = row_stability(eng, dev)
-    log("row stability (rows of M that differ from the row alone, M = 2/5/8/16/40; "
-        f"{D_VS_F}: rows that differ at S = 1/K+1): "
+    log("row stability (rows of M that differ from the row alone, M = 2/5/8/16/40, and "
+        f"at MMA_MIN_M across A's or B's two kernels; {D_VS_F}: rows that differ at S = "
+        "1/K+1, asserted 0): "
         + "; ".join(f"{op}: {'/'.join(str(d[m]) for m in sorted(d))}"
                     for op, d in stability.items()))
     unstable = [op for op, d in stability.items() if any(d.values())]
@@ -1723,7 +1839,7 @@ def phase_serving(dev, eng, profile, max_len, path, label):
             return 0
         tie = near_tie(eng, dev, prompt, ref, ids)
         log(f"request {rid} differs from {what}: {tie}; ops that round rows differently at "
-            f"another M or between kernels D and F: {unstable}")
+            f"another M or across A's or B's two kernels: {unstable}")
         assert tie["gap_ulps"] <= 2 and unstable, ("not a near tie at a named op", what, tie)
         return 1
 
@@ -1823,26 +1939,38 @@ def main(argv):
     wave = "one admission wave (G=4 prompts of P=256, both models' layers)"
     # name: (numbers, csrc file, the Pallas kernel it replaces, unit of work)
     t0 = time.perf_counter()
+    qmm4_step, qmm4_prefill = phase_quant_matmul(dev)
     kernels = {
-        "quant_matmul_int4": (phase_quant_matmul(dev), "quant_matmul_int4",
-                              "ops/pallas/quant_matmul.py:76", step),
-        "flash_decode": (phase_flash_decode(dev), "flash_decode", "ops/pallas/flash_decode.py:146",
-                         step),
-        "flash_prefill": (phase_flash_prefill(dev), "flash_prefill",
+        "quant_matmul_int4": (qmm4_step, "quant_matmul_int4.cu", "ops/pallas/quant_matmul.py:76",
+                              step),
+        "quant_matmul_int4_mma": (
+            qmm4_prefill, "qmm_mma.cuh", "ops/pallas/quant_matmul.py:76",
+            "the Mistral-7B long prompt's prefill projections through one model: 11 chunks of "
+            "512 rows through 32 layers and the int4 head"),
+        "flash_decode": (phase_flash_decode(dev), "flash_decode.cu",
+                         "ops/pallas/flash_decode.py:146", step),
+        "flash_prefill": (phase_flash_prefill(dev), "flash_prefill.cu",
                           "ops/pallas/flash_prefill.py:86", wave),
-        "paged_flash": (phase_paged_flash(dev), "paged_flash", "ops/pallas/paged_flash.py:82",
+        "paged_flash": (phase_paged_flash(dev), "paged_flash.cu", "ops/pallas/paged_flash.py:82",
                         "one K=1 decode step of the 8-slot serving batch (both models' layers)"),
-        "verify_prefix": (phase_verify_prefix(dev), "verify_prefix",
+        "verify_prefix": (phase_verify_prefix(dev), "verify_prefix.cu",
                           "ops/pallas/verify_pallas.py:46", step),
         # No Pallas kernel: JAX's rms_norm is plain jnp (transformer.py:29).
-        "rms_norm": (phase_rms_norm(dev), "rms_norm", "models/transformer.py:29", step),
-        "quant_matmul_int8": (phase_quant_matmul_int8(dev), "quant_matmul_int8",
-                              "ops/pallas/quant_matmul.py:58", step8),
-        "flash_decode_int8": (phase_flash_decode_int8(dev), "flash_decode",
+        "rms_norm": (phase_rms_norm(dev), "rms_norm.cu", "models/transformer.py:29", step),
+    }
+    qmm8_step, qmm8_prefill = phase_quant_matmul_int8(dev)
+    kernels |= {
+        "quant_matmul_int8": (qmm8_step, "quant_matmul_int8.cu", "ops/pallas/quant_matmul.py:58",
+                              step8),
+        "quant_matmul_int8_mma": (
+            qmm8_prefill, "qmm_mma.cuh", "ops/pallas/quant_matmul.py:58",
+            "one admission wave of 8 prompts of 256 rows (M = 2048) through the int8 3B's 28 "
+            "and the 1B's 16 layers"),
+        "flash_decode_int8": (phase_flash_decode_int8(dev), "flash_decode.cu",
                               "ops/pallas/flash_decode.py:203", step8),
-        "flash_prefill_int8": (phase_flash_prefill_int8(dev), "flash_prefill",
+        "flash_prefill_int8": (phase_flash_prefill_int8(dev), "flash_prefill.cu",
                                "ops/pallas/flash_prefill.py:142", wave + ", int8 scratch"),
-        "paged_flash_int8": (phase_paged_flash_int8(dev), "paged_flash",
+        "paged_flash_int8": (phase_paged_flash_int8(dev), "paged_flash.cu",
                              "ops/pallas/paged_flash.py:171",
                              "one K=4 decode step of the 8-slot int8 serving batch"),
     }
@@ -1850,15 +1978,15 @@ def main(argv):
     ring = phase_ring_attention(dev)
     kernels.update({
         "flash_decode/gemma-2": (
-            gemma["flash_decode"], "flash_decode", "ops/pallas/flash_decode.py:146",
+            gemma["flash_decode"], "flash_decode.cu", "ops/pallas/flash_decode.py:146",
             "one K=1 decode step of the Gemma-2 long-prompt path (p=4352, T=4480: 26 draft "
             "layers at S=1, 42 verify layers at S=2, half of each windowed)"),
         "flash_prefill/gemma-2": (
-            gemma["flash_prefill"], "flash_prefill", "ops/pallas/flash_prefill.py:86",
+            gemma["flash_prefill"], "flash_prefill.cu", "ops/pallas/flash_prefill.py:86",
             "the Gemma-2 long prompt's prefill (S=4320, T=4480) through 26 + 42 layers, half "
             "windowed"),
         "paged_flash/gemma-2": (
-            gemma["paged_flash"], "paged_flash", "ops/pallas/paged_flash.py:82",
+            gemma["paged_flash"], "paged_flash.cu", "ops/pallas/paged_flash.py:82",
             "one K=1 decode step of the 8-slot Gemma-2 serving batch (26 + 42 layers)"),
     })
     ring_step = ("one K=4 decode step of the Mistral-7B long-prompt path on the ring (p=5400, "
@@ -1866,13 +1994,13 @@ def main(argv):
     ring_prefill = ("the Mistral-7B long prompt's prefill on the ring (11 chunks of 512, R=T=4736) "
                     "through the 32 layers of one model")
     kernels.update({
-        "flash_decode/ring": (ring["flash_decode"], "flash_decode",
+        "flash_decode/ring": (ring["flash_decode"], "flash_decode.cu",
                               "ops/pallas/flash_decode.py:146", ring_step),
-        "flash_prefill/ring": (ring["flash_prefill"], "flash_prefill",
+        "flash_prefill/ring": (ring["flash_prefill"], "flash_prefill.cu",
                                "ops/pallas/flash_prefill.py:86", ring_prefill),
-        "flash_decode_int8/ring": (ring["flash_decode_int8"], "flash_decode",
+        "flash_decode_int8/ring": (ring["flash_decode_int8"], "flash_decode.cu",
                                    "ops/pallas/flash_decode.py:203", ring_step + ", int8 KV"),
-        "flash_prefill_int8/ring": (ring["flash_prefill_int8"], "flash_prefill",
+        "flash_prefill_int8/ring": (ring["flash_prefill_int8"], "flash_prefill.cu",
                                     "ops/pallas/flash_prefill.py:142",
                                     ring_prefill + ", int8 KV"),
     })
@@ -1940,7 +2068,7 @@ def main(argv):
 
     line = {"kernels": [
         {"name": name, "route": "cuda",
-         "source": f"llm_inference_lab_tpu_torch/csrc/{src}.cu",
+         "source": f"llm_inference_lab_tpu_torch/csrc/{src}",
          "replaces": f"llm_inference_lab_tpu/{where}",
          "launches": sum(on_path[path][name.split("/")[0]] for path in counted(name)),
          "launches_by_path": {path: on_path[path][name.split("/")[0]] for path in counted(name)},

@@ -41,10 +41,13 @@ SIGNATURES = {
     "quant_matmul_int4": {
         # x, w, scale, workspace, out, M, K, N, ksplit, stream
         "qmm_int4": [P, P, P, P, P, I, I, I, I, P],
+        # the tensor-core path (M >= 64): the same arguments
+        "qmm_int4_mma": [P, P, P, P, P, I, I, I, I, P],
     },
     "quant_matmul_int8": {
-        # the arguments of qmm_int4, w int8 [K, N]
+        # the arguments of qmm_int4 and qmm_int4_mma, w int8 [K, N]
         "qmm_int8": [P, P, P, P, P, I, I, I, I, P],
+        "qmm_int8_mma": [P, P, P, P, P, I, I, I, I, P],
     },
     "flash_decode": {
         # q, k, v, positions, out, ws, counters, B, S, H, KVH, T, D, stride_kb,
@@ -67,13 +70,14 @@ SIGNATURES = {
                                P],
     },
     "paged_flash": {
-        # q, k_pool, v_pool, table, positions, out, B, S, H, KVH, M, P, D,
-        # stride_page, scale, softcap, window, stream
-        "paged_flash_bf16": [P, P, P, P, P, P, I, I, I, I, I, I, I, LL, F, F, I, P],
-        # q, k_pool, v_pool, k_scale, v_scale, table, positions, out, B, S, H,
-        # KVH, M, P, D, stride_page, stride_spage, scale, softcap, window,
-        # stream
-        "paged_flash_int8": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, LL, LL, F, F, I, P],
+        # q, k_pool, v_pool, table, positions, out, ws, counters, B, S, H, KVH,
+        # M, P, D, stride_page, scale, softcap, window, nsplit, stream
+        "paged_flash_bf16": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, LL, F, F, I, I, P],
+        # q, k_pool, v_pool, k_scale, v_scale, table, positions, out, ws,
+        # counters, B, S, H, KVH, M, P, D, stride_page, stride_spage, scale,
+        # softcap, window, nsplit, stream
+        "paged_flash_int8": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, LL, LL, F, F, I,
+                             I, P],
     },
     "verify_prefix": {
         # draft, logits, arg_ws, mask, accept_len, B, K, V, row_stride, batch_stride, stream

@@ -1,12 +1,16 @@
-// Tensor-core body of kernels D (flash_decode.cu) and E (flash_prefill.cu):
-// online-softmax GQA attention over a contiguous bf16 or int8 KV cache with
-// mma.sync.m16n8k16 (bf16 in, f32 accumulate), K/V tiles double-buffered in
-// shared memory with cp.async and fed to the tensor cores by ldmatrix.
+// Tensor-core body of kernels D (flash_decode.cu), E (flash_prefill.cu) and
+// F (paged_flash.cu): online-softmax GQA attention over a bf16 or int8 KV
+// cache with mma.sync.m16n8k16 (bf16 in, f32 accumulate), K/V tiles
+// double-buffered in shared memory with cp.async and fed to the tensor cores
+// by ldmatrix. D and E read a contiguous plane (or a ring), F a page pool
+// through a page table; the three differ only in where key j is loaded
+// from (the address map), so they give the same bits on the same keys.
 //
 // Replaces the tile body the Pallas kernels share:
-// llm_inference_lab_tpu/ops/pallas/flash_decode.py _accum_tile / _finalize,
-// with its static options scale, softcap, window and ring_len, for a bf16
-// cache and an int8 cache with per-key f32 scales. What it computes, as
+// llm_inference_lab_tpu/ops/pallas/flash_decode.py _accum_tile / _finalize
+// (paged_flash.py _body calls it too), with its static options scale,
+// softcap, window and ring_len, for a bf16 cache and an int8 cache with
+// per-key f32 scales. What it computes, as
 // Pallas does: scores q.k^T in f32, times the scale, for int8 times k's
 // per-key scale, then the softcap, then the mask; the online softmax in f32
 // (l takes the unscaled p; exp(x - m) is 2^(x log2 e - m log2 e), one fma
@@ -31,14 +35,23 @@
 // seen nothing keeps m = -inf, l = 0, acc = 0). So a row's bits depend only
 // on its position, its q and its keys: not on S, the rows beside it, how
 // many rows a block holds, T past its position, or whether its keys come
-// from a contiguous plane or a ring (the ring is an address map: position j
-// is loaded from slot j % ring, one % a tile and a select a key, so a ring
-// needs at least BK<D> slots). A row with no visible key (position -1)
-// returns zeros, as attend_xla does.
+// from a contiguous plane, a ring or a page pool. The address maps:
+//  * PLANE: position j is row j of the [T, D] plane;
+//  * RING: position j is slot j % ring (one % a tile and a select a key, so
+//    a ring needs at least BK<D> slots);
+//  * PAGED: position j is row j % P of pool page table[b, j / P] (P a power
+//    of two); the table is read once for each page a tile spans, into
+//    shared memory beside the tile, and only for pages that hold a key of
+//    the block's live range. A paged block loads no key outside [its lowest
+//    first visible key, its largest position] (zeros instead), so dead
+//    pages, pages below the window, unused table entries and the dummy
+//    page 0 are never read for a live row.
+// A row with no visible key (position -1) returns zeros, as attend_xla
+// does.
 //
-// Split over T (kernel D, nz >= 1): block z of a (b, kv head, row block)
-// takes the keys of split lo / SPLIT + z, where lo is the block's lowest
-// first visible key and splits are fixed absolute ranges of SPLIT
+// Split over T (kernels D and F, nz >= 1): block z of a (b, kv head, row
+// block) takes the keys of split lo / SPLIT + z, where lo is the block's
+// lowest first visible key and splits are fixed absolute ranges of SPLIT
 // positions (independent of S and T). Each block writes f32 (m, l, acc)
 // partials of its rows to a workspace; the last block to take a ticket on
 // the row block's counter combines them, in ascending split order, skipping
@@ -48,6 +61,10 @@
 // the block writes its rows directly. If the block's rows span more splits
 // than the grid has (rows of one sequence further apart than the wrapper
 // assumed), those rows are written as NaN rather than wrong.
+//
+// The softmax arithmetic is written with explicit rounding intrinsics
+// (__fmul_rn, __fadd_rn, __fmaf_rn, __fdiv_rn), so the compiler cannot
+// contract it differently in the three kernels.
 
 #pragma once
 
@@ -59,8 +76,6 @@
 
 #include <type_traits>
 
-#include "attn_tile.cuh"  // attn::Options, attn::first_key, attn::allow_shared
-
 // Internal linkage (an unnamed namespace): flash_decode.cu and
 // flash_prefill.cu build into separate libraries, each with its own CUDA
 // runtime, and a kernel symbol shared by name between the two would be
@@ -70,7 +85,39 @@ namespace {
 
 constexpr int WARPS = 4;
 constexpr int ROWS = 16 * WARPS;  // query rows a block
-constexpr int SPLIT = 256;        // keys a split of kernel D (a multiple of every BK)
+constexpr int SPLIT = 256;        // keys a split of kernels D and F (a multiple of every BK)
+
+// Where key position j is loaded from (see the head of this file).
+enum Map { MAP_PLANE, MAP_RING, MAP_PAGED };
+
+// The static options of the Pallas tile body; 0 turns softcap, window and
+// ring off.
+struct Options {
+  float scale;    // score scale
+  float softcap;  // > 0: s -> softcap * tanh(s / softcap)
+  int window;     // > 0: keys (p - window, p] only
+  int ring;       // > 0 (with a window; >= 64): position j lives in slot j % ring
+};
+
+// First key a row at position p >= 0 sees.
+__device__ __forceinline__ int first_key(int p, int window) {
+  return window > 0 ? max(p - window + 1, 0) : 0;
+}
+
+// Lets `kernel` take up to `dyn` bytes of dynamic shared memory beside its
+// `stat` bytes of static shared memory, where the two pass the default 48 KB
+// a block may take. Set once per kernel (the first launch).
+template <class Kernel>
+cudaError_t allow_shared(Kernel kernel, size_t dyn, size_t stat) {
+  if (dyn + stat <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
 
 // Keys a tile: 64, or 32 at head dim 256 (the accumulator is 128 registers).
 template <int D>
@@ -160,13 +207,23 @@ __device__ __forceinline__ float quad_sum(float v) {
   return __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 2));
 }
 
-// The whole kernel. q bf16 [B, S, H, D]; k, v [B, KVH, T, D] planes through
-// their batch and head strides (bf16, or int8 with scales ks, vs [B, KVH, T]
-// through theirs); positions int32 [B, S]; out bf16 [B, S, H, D].
-// nz = 0: kernel E, the block walks all its keys and writes its rows. nz >=
-// 1: kernel D, grid.z = nz splits; ws holds gridDim.x * gridDim.y * nz *
-// ROWS * (D + 2) floats and counters gridDim.x * gridDim.y zeros (nz > 1).
-template <int D, class T_, bool RING>
+// F's page table: table int32 [B, n] of page ids, pages of 1 << lg rows.
+struct Pages {
+  const int* table;
+  int n, lg;
+};
+
+// The whole kernel. q bf16 [B, S, H, D]; positions int32 [B, S]; out bf16
+// [B, S, H, D]. PLANE and RING: k, v [B, KVH, T, D] planes through their
+// batch and head strides (bf16, or int8 with scales ks, vs [B, KVH, T]
+// through theirs). PAGED: k, v pools [N, KVH, P, D] with page stride
+// stride_kb and head stride stride_kh (scale pools [N, KVH, P]: stride_sb,
+// stride_sh), T = pages.n * P, key j of sequence b on page pages.table[b, j
+// >> lg]. nz = 0: kernel E, the block walks all its keys and writes its
+// rows. nz >= 1: kernels D and F, grid.z = nz splits; ws holds gridDim.x *
+// gridDim.y * nz * ROWS * (D + 2) floats and counters gridDim.x * gridDim.y
+// zeros (nz > 1).
+template <int D, class T_, int MAP>
 __global__ void __launch_bounds__(WARPS * 32)
 attend_kernel(const __nv_bfloat16* __restrict__ q, const T_* __restrict__ k,
               const T_* __restrict__ v, const float* __restrict__ ks,
@@ -174,7 +231,9 @@ attend_kernel(const __nv_bfloat16* __restrict__ q, const T_* __restrict__ k,
               __nv_bfloat16* __restrict__ out, float* __restrict__ ws,
               unsigned* __restrict__ counters, int S, int H, int KVH, int Tk,
               long long stride_kb, long long stride_kh, long long stride_sb, long long stride_sh,
-              attn::Options opt, int nz) {
+              Options opt, int nz, Pages pages) {
+  constexpr bool RING = MAP == MAP_RING;
+  constexpr bool PAGED = MAP == MAP_PAGED;
   using L = Layout<D, T_>;
   constexpr bool INT8 = L::INT8;
   constexpr int BKD = BK<D>;
@@ -188,6 +247,7 @@ attend_kernel(const __nv_bfloat16* __restrict__ q, const T_* __restrict__ k,
   __shared__ int pos_s[ROWS];
   __shared__ int lo_s, hi_s;
   __shared__ unsigned last_s;
+  __shared__ int page_s[2][PAGED ? BK<D> : 1];  // the pages a stage's tile spans
 
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
   unsigned char* stages = smem + L::q_bytes;
@@ -199,10 +259,14 @@ attend_kernel(const __nv_bfloat16* __restrict__ q, const T_* __restrict__ k,
   // A ring's slots hold at most its last `ring` positions: attend_xla's
   // rel < window with rel < ring is the window min(window, ring).
   const int window = RING ? min(opt.window, opt.ring) : opt.window;
-  const T_* kp = k + (size_t)b * stride_kb + (size_t)h * stride_kh;
-  const T_* vp = v + (size_t)b * stride_kb + (size_t)h * stride_kh;
-  const float* ksp = INT8 ? ks + (size_t)b * stride_sb + (size_t)h * stride_sh : nullptr;
-  const float* vsp = INT8 ? vs + (size_t)b * stride_sb + (size_t)h * stride_sh : nullptr;
+  // A page pool has no batch axis: the table gives each key's page.
+  const size_t boff = PAGED ? 0 : (size_t)b * stride_kb;
+  const size_t sboff = PAGED ? 0 : (size_t)b * stride_sb;
+  const T_* kp = k + boff + (size_t)h * stride_kh;
+  const T_* vp = v + boff + (size_t)h * stride_kh;
+  const float* ksp = INT8 ? ks + sboff + (size_t)h * stride_sh : nullptr;
+  const float* vsp = INT8 ? vs + sboff + (size_t)h * stride_sh : nullptr;
+  const int* table = PAGED ? pages.table + (size_t)b * pages.n : nullptr;
 
   // q rows (zeros past the last row) and positions (-1 past it).
   for (int e = tid; e < ROWS * (D / 8); e += WARPS * 32) {
@@ -223,13 +287,13 @@ attend_kernel(const __nv_bfloat16* __restrict__ q, const T_* __restrict__ k,
   __syncthreads();
   if (tid < ROWS) {
     const int p = pos_s[tid];
-    if (p >= 0) atomicMin(&lo_s, attn::first_key(p, window)), atomicMax(&hi_s, p);
+    if (p >= 0) atomicMin(&lo_s, first_key(p, window)), atomicMax(&hi_s, p);
   }
   // This warp's rows: lowest first visible key and largest position.
   int wlo = INT_MAX, whi = -1;
   {
     const int p = lane < 16 ? pos_s[warp * 16 + lane] : -1;
-    if (p >= 0) wlo = attn::first_key(p, window), whi = p;
+    if (p >= 0) wlo = first_key(p, window), whi = p;
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) {
       wlo = min(wlo, __shfl_xor_sync(0xffffffffu, wlo, o));
@@ -255,28 +319,64 @@ attend_kernel(const __nv_bfloat16* __restrict__ q, const T_* __restrict__ k,
     }
   }
 
-  // Stage st <- the keys of tile t (zeros for keys that do not exist).
+  // Stage st <- the keys of tile t (zeros for keys that do not exist, and
+  // for a page pool also for keys outside [lo, kend)).
   const auto load = [&](int t, int st) {
     unsigned char* sb = stages + st * L::stage_bytes;
+    float* kst = reinterpret_cast<float*>(sb + 2 * L::kv_bytes);
     const int t0 = t * BKD;
-    const int s0 = RING ? t0 % opt.ring : t0;
-    for (int e = tid; e < BKD * CH; e += WARPS * 32) {
-      const int j = e / CH, c = e % CH;
-      int slot = s0 + j;
-      if (RING && slot >= opt.ring) slot -= opt.ring;
-      const bool live = t0 + j < kend && slot < Tk;
-      const size_t off = live ? (size_t)slot * D + c * (16 / sizeof(T_)) : 0;
-      cp16(sb + (size_t)j * L::RS + c * 16, kp + off, live ? 16 : 0);
-      cp16(sb + L::kv_bytes + (size_t)j * L::RS + c * 16, vp + off, live ? 16 : 0);
-    }
-    if constexpr (INT8) {
-      float* kst = reinterpret_cast<float*>(sb + 2 * L::kv_bytes);
-      for (int j = tid; j < BKD; j += WARPS * 32) {
+    if constexpr (PAGED) {
+      // The pages the tile spans, each looked up once (a page holding no
+      // key of [lo, kend) is not looked up); block-uniform, so the barrier
+      // is reached by every thread. A stage's page ids are read only here,
+      // and two barriers of the loop lie between this stage's last use and
+      // its next fill.
+      int* pg = page_s[st];
+      const int lg = pages.lg, pmask = (1 << lg) - 1;
+      const int pg0 = t0 >> lg, npg = ((t0 + BKD - 1) >> lg) - pg0 + 1;
+      for (int i = tid; i < npg; i += WARPS * 32) {
+        const int pi = pg0 + i;
+        pg[i] = (pi << lg) < kend && ((pi + 1) << lg) > lo ? table[pi] : 0;
+      }
+      __syncthreads();
+      for (int e = tid; e < BKD * CH; e += WARPS * 32) {
+        const int j = e / CH, c = e % CH, key = t0 + j;
+        const bool live = key >= lo && key < kend;
+        const size_t off = live ? (size_t)pg[(key >> lg) - pg0] * stride_kb +
+                                      (size_t)(key & pmask) * D + c * (16 / sizeof(T_))
+                                : 0;
+        cp16(sb + (size_t)j * L::RS + c * 16, kp + off, live ? 16 : 0);
+        cp16(sb + L::kv_bytes + (size_t)j * L::RS + c * 16, vp + off, live ? 16 : 0);
+      }
+      if constexpr (INT8) {
+        for (int j = tid; j < BKD; j += WARPS * 32) {
+          const int key = t0 + j;
+          const bool live = key >= lo && key < kend;
+          const size_t off =
+              live ? (size_t)pg[(key >> lg) - pg0] * stride_sb + (size_t)(key & pmask) : 0;
+          cp4(kst + j, ksp + off, live ? 4 : 0);
+          cp4(kst + BKD + j, vsp + off, live ? 4 : 0);
+        }
+      }
+    } else {
+      const int s0 = RING ? t0 % opt.ring : t0;
+      for (int e = tid; e < BKD * CH; e += WARPS * 32) {
+        const int j = e / CH, c = e % CH;
         int slot = s0 + j;
         if (RING && slot >= opt.ring) slot -= opt.ring;
         const bool live = t0 + j < kend && slot < Tk;
-        cp4(kst + j, ksp + (live ? slot : 0), live ? 4 : 0);
-        cp4(kst + BKD + j, vsp + (live ? slot : 0), live ? 4 : 0);
+        const size_t off = live ? (size_t)slot * D + c * (16 / sizeof(T_)) : 0;
+        cp16(sb + (size_t)j * L::RS + c * 16, kp + off, live ? 16 : 0);
+        cp16(sb + L::kv_bytes + (size_t)j * L::RS + c * 16, vp + off, live ? 16 : 0);
+      }
+      if constexpr (INT8) {
+        for (int j = tid; j < BKD; j += WARPS * 32) {
+          int slot = s0 + j;
+          if (RING && slot >= opt.ring) slot -= opt.ring;
+          const bool live = t0 + j < kend && slot < Tk;
+          cp4(kst + j, ksp + (live ? slot : 0), live ? 4 : 0);
+          cp4(kst + BKD + j, vsp + (live ? slot : 0), live ? 4 : 0);
+        }
       }
     }
   };
@@ -289,7 +389,7 @@ attend_kernel(const __nv_bfloat16* __restrict__ q, const T_* __restrict__ k,
   // a row with none gets lo_r = 2^30, which no key reaches. A ring plane
   // shorter than the ring also checks each key's slot (slot_check).
   const auto row_range = [&](int p, unsigned& span) {
-    const int first = attn::first_key(p, window), last = RING ? p : min(p, Tk - 1);
+    const int first = first_key(p, window), last = RING ? p : min(p, Tk - 1);
     const bool any_key = p >= 0 && last >= first;
     span = any_key ? (unsigned)(last - first) : 0u;
     return any_key ? first : 1 << 30;
@@ -500,7 +600,7 @@ attend_kernel(const __nv_bfloat16* __restrict__ q, const T_* __restrict__ k,
       const int zz = z0 + lane;
       M = fmaxf(M, zz < nuse ? __ldcg(ml + 2 * zz * ROWS) : NEG_INF);
     }
-    M = attn::warp_max(M);
+    M = warp_max(M);
     float Lsum = 0.f;
     for (int z0 = 0; z0 < nuse; z0 += 32) {
       const int zz = z0 + lane;
@@ -542,55 +642,89 @@ attend_kernel(const __nv_bfloat16* __restrict__ q, const T_* __restrict__ k,
   if (tid == 0) counters[bidx] = 0u;  // ready for the next launch on the stream
 }
 
-// The launch of attend_kernel<D, T> (ring picked by opt.ring) on grid
-// (B * KVH, row blocks, max(nz, 1)).
-template <int D, class T>
+// The launch of attend_kernel<D, T, MAP> on grid (B * KVH, row blocks,
+// max(nz, 1)).
+template <int D, class T, int MAP>
 int launch(const void* q, const void* k, const void* v, const void* ks, const void* vs,
            const void* pos, void* out, float* ws, unsigned* counters, int B, int S, int H,
            int KVH, int Tk, long long stride_kb, long long stride_kh, long long stride_sb,
-           long long stride_sh, attn::Options opt, int nz, cudaStream_t st) {
+           long long stride_sh, Options opt, int nz, Pages pages, cudaStream_t st) {
   constexpr size_t smem = Layout<D, T>::total;
-  constexpr size_t stat = ROWS * sizeof(int) + 3 * sizeof(int);
+  constexpr size_t stat = ROWS * sizeof(int) + 3 * sizeof(int) + 2 * BK<D> * sizeof(int);
   // The combine keeps each warp's split weights in the stage buffers.
   if (nz > 1 && (size_t)WARPS * nz * sizeof(float) > 2 * Layout<D, T>::stage_bytes)
     return (int)cudaErrorInvalidValue;
-  static const cudaError_t shared_ok[2] = {
-      attn::allow_shared(attend_kernel<D, T, false>, smem, stat),
-      attn::allow_shared(attend_kernel<D, T, true>, smem, stat)};
-  if (shared_ok[opt.ring > 0] != cudaSuccess) return (int)shared_ok[opt.ring > 0];
+  static const cudaError_t shared_ok = allow_shared(attend_kernel<D, T, MAP>, smem, stat);
+  if (shared_ok != cudaSuccess) return (int)shared_ok;
   const int nrows = S * (H / KVH);
   dim3 grid(B * KVH, (nrows + ROWS - 1) / ROWS, nz > 1 ? nz : 1);
-  const auto kernel = opt.ring > 0 ? attend_kernel<D, T, true> : attend_kernel<D, T, false>;
-  kernel<<<grid, WARPS * 32, smem, st>>>(
+  attend_kernel<D, T, MAP><<<grid, WARPS * 32, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(ks), static_cast<const float*>(vs), static_cast<const int*>(pos),
       static_cast<__nv_bfloat16*>(out), ws, counters, S, H, KVH, Tk, stride_kb, stride_kh,
-      stride_sb, stride_sh, opt, nz);
+      stride_sb, stride_sh, opt, nz, pages);
   return (int)cudaGetLastError();
 }
 
-// Dispatch by head dim; refuses a ring without a window or shorter than 64
-// slots (a tile), and an unknown head dim.
+// The planes of kernels D and E (ring picked by opt.ring) or F's page pool
+// (pages.table set), by head dim.
+template <class T, int MAP>
+int launch_map(const void* q, const void* k, const void* v, const void* ks, const void* vs,
+               const void* pos, void* out, float* ws, unsigned* counters, int B, int S, int H,
+               int KVH, int Tk, int D, long long stride_kb, long long stride_kh,
+               long long stride_sb, long long stride_sh, Options opt, int nz, Pages pages,
+               cudaStream_t st) {
+  if (D == 128)
+    return launch<128, T, MAP>(q, k, v, ks, vs, pos, out, ws, counters, B, S, H, KVH, Tk,
+                               stride_kb, stride_kh, stride_sb, stride_sh, opt, nz, pages, st);
+  if (D == 64)
+    return launch<64, T, MAP>(q, k, v, ks, vs, pos, out, ws, counters, B, S, H, KVH, Tk,
+                              stride_kb, stride_kh, stride_sb, stride_sh, opt, nz, pages, st);
+  if (D == 256)
+    return launch<256, T, MAP>(q, k, v, ks, vs, pos, out, ws, counters, B, S, H, KVH, Tk,
+                               stride_kb, stride_kh, stride_sb, stride_sh, opt, nz, pages, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Kernels D and E over [B, KVH, T, D] planes. Refuses a ring without a
+// window or shorter than 64 slots (a tile), and an unknown head dim.
 template <class T>
 int launch_any(const void* q, const void* k, const void* v, const void* ks, const void* vs,
                const void* pos, void* out, float* ws, unsigned* counters, int B, int S, int H,
                int KVH, int Tk, int D, long long stride_kb, long long stride_kh,
-               long long stride_sb, long long stride_sh, attn::Options opt, int nz,
+               long long stride_sb, long long stride_sh, Options opt, int nz,
                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (H % KVH) return (int)cudaErrorInvalidValue;
   if (opt.ring > 0 && (opt.window <= 0 || opt.ring < 64)) return (int)cudaErrorInvalidValue;
   if (nz > 1 && (ws == nullptr || counters == nullptr)) return (int)cudaErrorInvalidValue;
-  if (D == 128)
-    return launch<128, T>(q, k, v, ks, vs, pos, out, ws, counters, B, S, H, KVH, Tk, stride_kb,
-                          stride_kh, stride_sb, stride_sh, opt, nz, st);
-  if (D == 64)
-    return launch<64, T>(q, k, v, ks, vs, pos, out, ws, counters, B, S, H, KVH, Tk, stride_kb,
-                         stride_kh, stride_sb, stride_sh, opt, nz, st);
-  if (D == 256)
-    return launch<256, T>(q, k, v, ks, vs, pos, out, ws, counters, B, S, H, KVH, Tk, stride_kb,
-                          stride_kh, stride_sb, stride_sh, opt, nz, st);
-  return (int)cudaErrorInvalidValue;
+  const Pages none{nullptr, 0, 0};
+  if (opt.ring > 0)
+    return launch_map<T, MAP_RING>(q, k, v, ks, vs, pos, out, ws, counters, B, S, H, KVH, Tk, D,
+                               stride_kb, stride_kh, stride_sb, stride_sh, opt, nz, none, st);
+  return launch_map<T, MAP_PLANE>(q, k, v, ks, vs, pos, out, ws, counters, B, S, H, KVH, Tk, D,
+                              stride_kb, stride_kh, stride_sb, stride_sh, opt, nz, none, st);
+}
+
+// Kernel F over [N, KVH, P, D] pools (unit-stride [P, D] pages, head stride
+// P * D, page stride stride_page; int8 scale pools [N, KVH, P] with head
+// stride P and page stride stride_spage) through table [B, M]. Refuses a
+// ring, a page size that is not a power of two, and an unknown head dim.
+template <class T>
+int launch_paged(const void* q, const void* k_pool, const void* v_pool, const void* ks_pool,
+                 const void* vs_pool, const void* table, const void* pos, void* out, float* ws,
+                 unsigned* counters, int B, int S, int H, int KVH, int M, int P, int D,
+                 long long stride_page, long long stride_spage, Options opt, int nz,
+                 void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (H % KVH || opt.ring != 0 || P < 1 || (P & (P - 1)) || M < 1)
+    return (int)cudaErrorInvalidValue;
+  if (nz < 1 || (nz > 1 && (ws == nullptr || counters == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const Pages pages{static_cast<const int*>(table), M, __builtin_ctz((unsigned)P)};
+  return launch_map<T, MAP_PAGED>(q, k_pool, v_pool, ks_pool, vs_pool, pos, out, ws, counters, B, S,
+                              H, KVH, M * P, D, stride_page, (long long)P * D, stride_spage, P,
+                              opt, nz, pages, st);
 }
 
 }  // namespace

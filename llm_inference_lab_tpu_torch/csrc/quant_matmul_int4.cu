@@ -10,11 +10,11 @@
 // a pointer into the stacked [L, K/2, N] buffer: no copy.
 //
 // What bounds it on the H100: at decode (M = 1 or 2) the K/2 * N weight
-// bytes, read once at 3.35 TB/s; the activations are tiny. At the M = 160
-// prefill it is still a few operations per weight byte, far below the
-// tensor-core ridge, so this CUDA-core kernel serves it too.
+// bytes, read once at 3.35 TB/s; the activations are tiny. From M = 64 rows
+// on (prefill) the operations do, and the wrapper sends those calls to the
+// tensor-core path at the end of this file (csrc/qmm_mma.cuh).
 //
-// Design (simple first):
+// Design of the split-K kernel, every call of M < 64 rows (simple first):
 //  * A block owns 256 output columns (64 threads x 4 columns, one 4-byte
 //    load per packed row per thread: a warp reads 128 contiguous bytes) and
 //    one K range. The K reduction is split across blocks (grid.y) so the
@@ -26,8 +26,7 @@
 //    shared memory.
 //  * A split covers a multiple of 64 packed rows. x is staged in shared
 //    memory 128 packed rows (256 input features) at a time, for up to
-//    MB = 32 rows of x per block; grid.z covers M in blocks of MB, so the
-//    M = 160 prefill runs in five z-blocks.
+//    MB = 32 rows of x per block; grid.z covers M in blocks of MB.
 //  * Latency, not bandwidth, is what a decode call waits on: each block
 //    moves only a few KB. So a thread issues its weight loads in batches
 //    (16 words at decode) before it uses any, and the first batch before
@@ -41,6 +40,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "qmm_mma.cuh"
 
 namespace {
 
@@ -137,16 +138,6 @@ qmm_int4_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ 
   }
 }
 
-__global__ void qmm_finish_kernel(const float* __restrict__ ws, const float* __restrict__ scale,
-                                  __nv_bfloat16* __restrict__ out, int M, int N, int ksplit) {
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t total = (size_t)M * N;
-  if (idx >= total) return;
-  float s = 0.f;
-  for (int k = 0; k < ksplit; ++k) s += ws[(size_t)k * total + idx];
-  out[idx] = __float2bfloat16(s * scale[idx % N]);
-}
-
 template <int MB>
 void launch(const void* x, const void* w, void* ws, int M, int K, int N, int ksplit,
             cudaStream_t st) {
@@ -173,8 +164,17 @@ extern "C" int qmm_int4(const void* x, const void* w, const void* scale, void* w
     launch<32>(x, w, ws, M, K, N, ksplit, st);
   }
   const size_t total = (size_t)M * N;
-  qmm_finish_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
+  qmm::finish_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
       static_cast<const float*>(ws), static_cast<const float*>(scale),
       static_cast<__nv_bfloat16*>(out), M, N, ksplit);
   return (int)cudaGetLastError();
+}
+
+// The tensor-core path for M >= 64 rows (csrc/qmm_mma.cuh): the same x, w,
+// scale and out, ws f32 [ksplit, M, N] when ksplit > 1. Requires N % 128 ==
+// 0 and K % 64 == 0, ksplit dividing K / 64, x 16-byte aligned (checked by
+// the Python wrapper, and all but the alignment here).
+extern "C" int qmm_int4_mma(const void* x, const void* w, const void* scale, void* ws,
+                            void* out, int M, int K, int N, int ksplit, void* stream) {
+  return qmm::launch<4>(x, w, scale, ws, out, M, K, N, ksplit, stream);
 }

@@ -11,10 +11,12 @@
 // What bounds it on the H100: at decode (M = 1 to 40) the K * N weight
 // bytes, read once at 3.35 TB/s (the 3B w_gate_up, 3072 x 16384, is 50.3 MB:
 // 15.0 us); the activations are tiny. At an admission prefill (M = G * P,
-// up to 4096) the operations would bound a tensor-core kernel; this one runs
-// every M on CUDA cores, as kernel A does, and is far from that bound there.
+// up to 4096) the operations do, and the wrapper sends every call of 64
+// rows or more to the tensor-core path at the end of this file
+// (csrc/qmm_mma.cuh), as kernel A's does.
 //
-// Design (the frame of quant_matmul_int4.cu, one weight per byte):
+// Design of the split-K kernel, every call of M < 64 rows (the frame of
+// quant_matmul_int4.cu, one weight per byte):
 //  * A block owns 256 output columns (64 threads x 4 columns, one 4-byte
 //    load per weight row per thread: a warp reads 128 contiguous bytes) and
 //    one K range. K is split across blocks (grid.y) so the card gets
@@ -40,6 +42,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "qmm_mma.cuh"
 
 namespace {
 
@@ -128,16 +132,6 @@ qmm_int8_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ 
   }
 }
 
-__global__ void qmm_finish_kernel(const float* __restrict__ ws, const float* __restrict__ scale,
-                                  __nv_bfloat16* __restrict__ out, int M, int N, int ksplit) {
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t total = (size_t)M * N;
-  if (idx >= total) return;
-  float s = 0.f;
-  for (int k = 0; k < ksplit; ++k) s += ws[(size_t)k * total + idx];
-  out[idx] = __float2bfloat16(s * scale[idx % N]);
-}
-
 template <int MB>
 void launch(const void* x, const void* w, void* ws, int M, int K, int N, int ksplit,
             cudaStream_t st) {
@@ -164,8 +158,17 @@ extern "C" int qmm_int8(const void* x, const void* w, const void* scale, void* w
     launch<32>(x, w, ws, M, K, N, ksplit, st);
   }
   const size_t total = (size_t)M * N;
-  qmm_finish_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
+  qmm::finish_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
       static_cast<const float*>(ws), static_cast<const float*>(scale),
       static_cast<__nv_bfloat16*>(out), M, N, ksplit);
   return (int)cudaGetLastError();
+}
+
+// The tensor-core path for M >= 64 rows (csrc/qmm_mma.cuh): the same x, w,
+// scale and out, ws f32 [ksplit, M, N] when ksplit > 1. Requires N % 128 ==
+// 0 and K % 64 == 0, ksplit dividing K / 64, x 16-byte aligned (checked by
+// the Python wrapper, and all but the alignment here).
+extern "C" int qmm_int8_mma(const void* x, const void* w, const void* scale, void* ws,
+                            void* out, int M, int K, int N, int ksplit, void* stream) {
+  return qmm::launch<8>(x, w, scale, ws, out, M, K, N, ksplit, stream);
 }

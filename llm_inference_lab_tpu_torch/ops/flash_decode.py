@@ -221,6 +221,24 @@ def ticket_counters(device: torch.device, n: int) -> torch.Tensor:
     return buf
 
 
+def split_buffers(q: torch.Tensor, KVH: int, T: int, opts: Options):
+    """Kernels D and F split the keys over grid.z and combine in their last
+    block: (workspace from the caching allocator, ticket counters, nz), the
+    buffers None when nz = 1. Keep them referenced until the launch."""
+    B, S, H, D = q.shape
+    nz = decode_splits(T, S, opts)
+    if nz == 1:
+        return None, None, nz
+    nblk = B * KVH * -(-S * (H // KVH) // ROWS)
+    ws = torch.empty((nblk * nz * ROWS * (D + 2),), dtype=torch.float32, device=q.device)
+    return ws, ticket_counters(q.device, nblk), nz
+
+
+def data_ptrs(*tensors):
+    """The tensors' addresses for a C entry, 0 for None."""
+    return tuple(0 if t is None else t.data_ptr() for t in tensors)
+
+
 def check_queries(name: str, q: torch.Tensor, positions: torch.Tensor, *caches: torch.Tensor,
                   cache_dtype: torch.dtype = torch.bfloat16):
     """The checks every attention kernel makes on q, positions and its K/V
@@ -294,17 +312,10 @@ def launch_planes(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     out = torch.empty_like(q)
     lib = build.library(kernel)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    # Kernel D splits the keys over grid.z and combines in its last block:
-    # a workspace from the caching allocator and the ticket counters.
     split, nsplit = (), ()
     if kernel == "flash_decode":
-        nz = decode_splits(T, S, opts)
-        ws = counters = None
-        if nz > 1:
-            nblk = B * KVH * -(-S * (H // KVH) // ROWS)
-            ws = torch.empty((nblk * nz * ROWS * (D + 2),), dtype=torch.float32, device=q.device)
-            counters = ticket_counters(q.device, nblk)
-        split = tuple(0 if t is None else t.data_ptr() for t in (ws, counters))
+        ws, counters, nz = split_buffers(q, KVH, T, opts)
+        split = data_ptrs(ws, counters)
         nsplit = (nz,)
     if int8:
         check_scales(name, k, k_scale, v_scale)

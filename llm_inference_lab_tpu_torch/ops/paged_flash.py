@@ -14,11 +14,16 @@ its own launch count.
                 v_scale [N,KVH,P] = None, scale=None, softcap=None, window=None)
         -> [B,S,H,D] in q's dtype
 
-Key j of sequence b is row j % P of page table[b, j // P]. The kernel gives
-the same bits as flash_decode on the same keys, and reads only the pages a
-row's position reaches. Page ids in the table must lie in [0, N): the
-serving allocator hands out only such ids, and the kernel does not check.
-The ring cache (ring_len) is contiguous only, as in JAX: it raises here.
+Key j of sequence b is row j % P of page table[b, j // P]; P is a power of
+two. The kernel is kernel D's (csrc/attn_mma.cuh) with the page table as its
+address map, split over T as D is (decode_splits with T = M * P), so it
+gives the same bits as flash_decode on the same keys; it reads only the
+pages that hold a key of a block's live range (``paged_keys`` is that
+address map written plainly, ``paged_flash_split_plain`` the whole kernel's
+arithmetic, for the CPU tests). Page ids in the table must lie in [0, N):
+the serving allocator hands out only such ids, and the kernel does not
+check. The ring cache (ring_len) is contiguous only, as in JAX: it raises
+here.
 """
 
 from __future__ import annotations
@@ -30,10 +35,14 @@ import torch
 from llm_inference_lab_tpu_torch import build
 from llm_inference_lab_tpu_torch.models.paged import gather_pages
 from llm_inference_lab_tpu_torch.ops.flash_decode import (
+    SPLIT,
     Options,
     check_queries,
     check_scales,
+    data_ptrs,
     flash_decode_plain,
+    flash_decode_split_plain,
+    split_buffers,
 )
 
 
@@ -52,6 +61,49 @@ def paged_flash_plain(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tenso
                               positions, k_scale, v_scale, **options)
 
 
+def paged_keys(pool: torch.Tensor, table: torch.Tensor, positions: torch.Tensor,
+               window: Optional[int] = None) -> torch.Tensor:
+    """Kernel F's address map, plainly: the keys (or scales) [B, KVH, M*P(,
+    D)] a sequence's rows read from a pool [N, KVH, P(, D)], key j from row
+    j % P of page table[b, j // P], for j in the live range [lowest first
+    visible key among the sequence's rows, largest position] and zeros
+    elsewhere. The table is read only for the pages that hold a key of that
+    range, so dead pages, pages below the window, unused table entries and
+    page 0 never reach the result."""
+    B, M = table.shape
+    P = pool.shape[2]
+    out = pool.new_zeros((B, pool.shape[1], M * P, *pool.shape[3:]))
+    for b in range(B):
+        live = positions[b][positions[b] >= 0]
+        if not live.numel():
+            continue
+        hi = min(int(live.max()), M * P - 1)
+        lo = max(int(live.min()) - window + 1, 0) if window is not None else 0
+        for page in range(lo // P, hi // P + 1):
+            a, e = max(lo, page * P), min(hi + 1, (page + 1) * P)
+            out[b, :, a:e] = pool[int(table[b, page]), :, a - page * P:e - page * P]
+    return out
+
+
+def paged_flash_split_plain(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                            positions: torch.Tensor, table: torch.Tensor,
+                            k_scale: Optional[torch.Tensor] = None,
+                            v_scale: Optional[torch.Tensor] = None, *, split: int = SPLIT,
+                            **options) -> torch.Tensor:
+    """Kernel F's arithmetic, plainly (the CPU tests; the wrapper never calls
+    it): the pool read through paged_keys, then kernel D's split and combine
+    (flash_decode_split_plain) over those keys, so it equals
+    flash_decode_split_plain over the same keys laid out contiguously."""
+    _refuse_ring(options)
+    window = options.get("window")
+    scales = ()
+    if k_scale is not None:
+        scales = tuple(paged_keys(s, table, positions, window) for s in (k_scale, v_scale))
+    return flash_decode_split_plain(
+        q, paged_keys(k_pool, table, positions, window),
+        paged_keys(v_pool, table, positions, window), positions, *scales, split=split, **options)
+
+
 def _refuse_ring(options: dict) -> None:
     if options.get("ring_len") is not None:
         raise ValueError("paged_flash: the ring cache (ring_len) needs the contiguous layout")
@@ -67,6 +119,8 @@ def _check_pools(name: str, q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch
     if H % KVH or k_pool.shape != (N, KVH, P, D) or v_pool.shape != k_pool.shape:
         raise ValueError(f"{name} kernel: unsupported shapes q {tuple(q.shape)} "
                          f"pool {tuple(k_pool.shape)}")
+    if P & (P - 1):
+        raise ValueError(f"{name} kernel takes a page size that is a power of two, got {P}")
     if (k_pool.stride() != v_pool.stride() or k_pool.stride(3) != 1
             or k_pool.stride(2) != D or k_pool.stride(1) != P * D):
         raise ValueError(f"{name} kernel needs k and v pools with equal strides and "
@@ -96,11 +150,13 @@ def paged_flash(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     B, S, H, D, KVH, P, M = _check_pools("paged_flash", q, k_pool, v_pool, positions, table,
                                          torch.bfloat16)
     out = torch.empty_like(q)
+    ws, counters, nz = split_buffers(q, KVH, M * P, opts)
     lib = build.library("paged_flash")
     err = lib.paged_flash_bf16(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
-        positions.data_ptr(), out.data_ptr(), B, S, H, KVH, M, P, D, k_pool.stride(0),
-        *opts.kernel_args(D), torch.cuda.current_stream(q.device).cuda_stream)
+        positions.data_ptr(), out.data_ptr(), *data_ptrs(ws, counters), B, S, H, KVH, M, P, D,
+        k_pool.stride(0), *opts.kernel_args(D), nz,
+        torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "paged_flash")
     paged_flash.launches += 1
     return out
@@ -123,12 +179,13 @@ def paged_flash_int8(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor
     if k_scale.stride(1) != P:
         raise ValueError("paged_flash_int8 kernel needs scale pools with [KVH, P] pages")
     out = torch.empty_like(q)
+    ws, counters, nz = split_buffers(q, KVH, M * P, opts)
     lib = build.library("paged_flash")
     err = lib.paged_flash_int8(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), k_scale.data_ptr(),
-        v_scale.data_ptr(), table.data_ptr(), positions.data_ptr(), out.data_ptr(), B, S, H,
-        KVH, M, P, D, k_pool.stride(0), k_scale.stride(0), *opts.kernel_args(D),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        v_scale.data_ptr(), table.data_ptr(), positions.data_ptr(), out.data_ptr(),
+        *data_ptrs(ws, counters), B, S, H, KVH, M, P, D, k_pool.stride(0), k_scale.stride(0),
+        *opts.kernel_args(D), nz, torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "paged_flash_int8")
     paged_flash_int8.launches += 1
     return out

@@ -5,10 +5,16 @@ Port of llm_inference_lab_tpu/ops/pallas/quant_matmul.py (int4 and int8
 paths) and of its reference quant_matmul_xla. On a CPU tensor
 ``quant_matmul`` and ``quant_matmul_int8`` run their plain versions; on a
 CUDA tensor they launch csrc/quant_matmul_int4.cu and
-csrc/quant_matmul_int8.cu or raise. Both kernels serve every M, so prefills
-(M = 160, admission waves of G * P rows) go through them too, where the TPU
-dispatcher sent M > 32 to XLA: each output sums in an order that depends on
-(K, N) only, so every M rounds a row alike.
+csrc/quant_matmul_int8.cu or raise. Each file holds two kernels, routed by
+M alone: below MMA_MIN_M rows (every decode and verify call: M = 1, 2, 5,
+8, 16, 40) the split-K CUDA-core kernel, whose outputs sum in an order that
+depends on (K, N) only; at MMA_MIN_M rows and above (prefills: M = 160,
+Mistral's 512-row chunks, admission waves of G * P rows, where the TPU
+dispatcher sent M > 32 to XLA) the tensor-core path of csrc/qmm_mma.cuh,
+through ``quant_matmul_mma`` and ``quant_matmul_int8_mma``, each with its
+own launch count, whose sums follow a k order fixed by (K, N) too
+(``mma_plan``). So within each path a row rounds alike at every M; the two
+paths round a row differently (chip_smoke.py's row_stability counts it).
 """
 
 from __future__ import annotations
@@ -20,6 +26,9 @@ from llm_inference_lab_tpu_torch import build
 BN = 256  # kernel columns per block
 SPLIT_ROWS = 64  # the kernels split K in units of this many weight rows
 TARGET_BLOCKS = 4 * 132  # about four blocks per H100 SM
+MMA_MIN_M = 64  # rows from which the tensor-core path takes the call
+MMA_BN = 128  # tensor-core path: output columns a block
+MMA_KTILE = 64  # tensor-core path: k-values a k-tile (its unit of K split)
 
 
 def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
@@ -57,12 +66,32 @@ def ksplit_for(K: int, N: int, bits: int = 4) -> int:
     return best
 
 
+def takes_mma(M: int) -> bool:
+    """Whether an M-row call goes to the tensor-core path: M alone decides,
+    through MMA_MIN_M."""
+    return M >= MMA_MIN_M
+
+
+def mma_plan(K: int, N: int, bits: int = 4) -> int:
+    """The tensor-core path's K split, from (K, N) and the weight type alone:
+    with the fixed k-tile it is all that decides the order of a row's sums.
+    int4 never splits. int8 splits K in two at N <= 4096 (32 or fewer column
+    blocks), where one block a column tile leaves the card half empty at a
+    160-row prefill; measured on an H100 by tests/torch_qmm_probe.py (PERF.md
+    §6)."""
+    if bits == 8 and N // MMA_BN <= 32 and (K // MMA_KTILE) % 2 == 0:
+        return 2
+    return 1
+
+
 def _launch(name: str, x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
-            bits: int) -> torch.Tensor:
+            bits: int, mma: bool = False) -> torch.Tensor:
     """Check the operands of kernel A (bits 4, w [K/2, N]) or B (bits 8,
-    w [K, N]) and launch it: bf16 x, int8 w, f32 scale [N], N a multiple of
-    256, K a multiple of the split unit, contiguous operands on one device
-    and w 16-byte aligned (a layer's view of the stacked weight qualifies)."""
+    w [K, N]) and launch it, its split-K kernel or (mma) its tensor-core
+    path: bf16 x, int8 w, f32 scale [N], N a multiple of 256, K a multiple
+    of the split unit, contiguous operands on one device and w (for the
+    tensor-core path x too) 16-byte aligned (a layer's view of the stacked
+    weight qualifies)."""
     M, K = x.shape
     N = w.shape[-1]
     rows = K // 2 if bits == 4 else K
@@ -77,33 +106,72 @@ def _launch(name: str, x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"{name} kernel needs contiguous operands")
     if w.data_ptr() % 16 or not (w.device == x.device == scale.device):
         raise ValueError(f"{name} kernel needs w 16-byte aligned and all operands on one device")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if mma:
+        if x.data_ptr() % 16 or M < 1:
+            raise ValueError(f"{name} tensor-core path needs x 16-byte aligned and M >= 1")
+        ks = mma_plan(K, N, bits)
+        ws = torch.empty((ks, M, N), dtype=torch.float32, device=x.device) if ks > 1 else None
+        out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+        err = getattr(build.library(name), f"qmm_int{bits}_mma")(
+            x.data_ptr(), w.data_ptr(), scale.data_ptr(), 0 if ws is None else ws.data_ptr(),
+            out.data_ptr(), M, K, N, ks, stream)
+        build.check(err, name + " (tensor-core path)")
+        return out
     ks = ksplit_for(K, N, bits)
     ws = torch.empty((ks, M, N), dtype=torch.float32, device=x.device)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
     err = getattr(build.library(name), f"qmm_int{bits}")(
         x.data_ptr(), w.data_ptr(), scale.data_ptr(), ws.data_ptr(), out.data_ptr(), M, K, N,
-        ks, torch.cuda.current_stream(x.device).cuda_stream)
+        ks, stream)
     build.check(err, name)
     return out
 
 
 def quant_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """int4: x [M, K] @ packed w [K/2, N], times scale [N]."""
+    """int4: x [M, K] @ packed w [K/2, N], times scale [N]; M >= MMA_MIN_M
+    goes to quant_matmul_mma."""
     if not x.is_cuda:
         return quant_matmul_plain(x, w, scale)
+    if takes_mma(x.shape[0]):
+        return quant_matmul_mma(x, w, scale)
     out = _launch("quant_matmul_int4", x, w, scale, bits=4)
     quant_matmul.launches += 1
     return out
 
 
+def quant_matmul_mma(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Kernel A's tensor-core path (csrc/qmm_mma.cuh), which quant_matmul
+    takes from MMA_MIN_M rows on; it computes any M >= 1."""
+    if not x.is_cuda:
+        return quant_matmul_plain(x, w, scale)
+    out = _launch("quant_matmul_int4", x, w, scale, bits=4, mma=True)
+    quant_matmul_mma.launches += 1
+    return out
+
+
 def quant_matmul_int8(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """int8: x [M, K] @ w [K, N], times scale [N]."""
+    """int8: x [M, K] @ w [K, N], times scale [N]; M >= MMA_MIN_M goes to
+    quant_matmul_int8_mma."""
     if not x.is_cuda:
         return quant_matmul_plain_int8(x, w, scale)
+    if takes_mma(x.shape[0]):
+        return quant_matmul_int8_mma(x, w, scale)
     out = _launch("quant_matmul_int8", x, w, scale, bits=8)
     quant_matmul_int8.launches += 1
     return out
 
 
+def quant_matmul_int8_mma(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Kernel B's tensor-core path, as quant_matmul_mma for int8 weights."""
+    if not x.is_cuda:
+        return quant_matmul_plain_int8(x, w, scale)
+    out = _launch("quant_matmul_int8", x, w, scale, bits=8, mma=True)
+    quant_matmul_int8_mma.launches += 1
+    return out
+
+
 quant_matmul.launches = 0
+quant_matmul_mma.launches = 0
 quant_matmul_int8.launches = 0
+quant_matmul_int8_mma.launches = 0

@@ -22,16 +22,15 @@ from llm_inference_lab_tpu_torch.ops.flash_decode import (
     flash_decode_plain,
 )
 from llm_inference_lab_tpu_torch.ops.flash_prefill import flash_prefill, flash_prefill_int8
-from llm_inference_lab_tpu_torch.ops.paged_flash import (
-    paged_flash,
-    paged_flash_int8,
-    paged_flash_plain,
-)
+from llm_inference_lab_tpu_torch.ops.paged_flash import paged_flash, paged_flash_int8
 from llm_inference_lab_tpu_torch.ops.quant import quantize_int4
 from llm_inference_lab_tpu_torch.ops.rms_norm import rms_norm, rms_norm_plain
 from llm_inference_lab_tpu_torch.ops.quant_matmul import (
+    MMA_MIN_M,
     quant_matmul,
     quant_matmul_int8,
+    quant_matmul_int8_mma,
+    quant_matmul_mma,
     quant_matmul_plain,
     quant_matmul_plain_int8,
 )
@@ -49,16 +48,18 @@ def card():
 @pytest.mark.parametrize("K,N", [(3072, 5120), (8192, 2048)])
 def test_int4_kernel_matches_plain(card, K, N):
     """bf16 output: tolerance 1e-2 of the largest magnitude (bf16 rounding of
-    the output, 2^-8 relative, plus f32 summation order)."""
+    the output, 2^-8 relative, plus f32 summation order). M = 160 takes the
+    tensor-core path (its own launch count)."""
     rng = np.random.default_rng(K + N)
     w = quantize_int4(torch.from_numpy(rng.normal(0, 0.02, (K, N)).astype(np.float32)))
     wd, ws = w.data.to(card), w.scale.to(card)
     outs = {}
     for M in (1, 2, 160):
         x = torch.from_numpy(rng.normal(0, 1, (M, K)).astype(np.float32)).to(card).bfloat16()
-        before = quant_matmul.launches
+        route = quant_matmul_mma if M >= MMA_MIN_M else quant_matmul
+        before = route.launches
         got = quant_matmul(x, wd, ws).float()
-        assert quant_matmul.launches == before + 1
+        assert route.launches == before + 1
         ref = quant_matmul_plain(x, wd, ws).float()
         assert (got - ref).abs().max() <= 1e-2 * ref.abs().max()
         outs[M] = (x, got)
@@ -126,12 +127,6 @@ def test_verify_prefix_kernel_matches_plain_exactly(card):
     assert got[0].tolist() == [3, 2, 0, 4]
 
 
-def _within(got, ref):
-    """Kernel F's tolerance against its plain version on f32 copies: 2^-8 of
-    |ref| (bf16 output rounding) plus 2^-16 (f32 order). F keeps p in f32."""
-    return bool(torch.all((got - ref).abs() <= 2.0 ** -8 * ref.abs() + 2.0 ** -16))
-
-
 def _f32_plain(q, k, v, pos, ks=None, vs=None, **opts):
     """The plain version on f32 copies (an int8 cache dequantized in f32),
     and the same with |v|: (ref, sum_j P_j |v_j|) per output element."""
@@ -155,10 +150,10 @@ def _attn_within(got, q, k, v, pos, ks=None, vs=None, **opts):
 
 
 def _attn_close(a, b, q, k, v, pos, ks=None, vs=None, **opts):
-    """Two of D, E and F on the same rows, each within its tolerance of the
-    plain version, so within the sum of both of each other: 2^-7 |b| +
-    2^-8 sum_j P_j |v_j| + 2^-15. (They shared one body and its bits until
-    D and E moved to tensor cores with bf16 p.)"""
+    """D and E on the same rows, each within its tolerance of the plain
+    version, so within the sum of both of each other: 2^-7 |b| + 2^-8
+    sum_j P_j |v_j| + 2^-15. (E walks a row's keys in one block, D splits
+    them and combines, so the two need not share bits; F gives D's.)"""
     _, mag = _f32_plain(q, k, v, pos, ks, vs, **opts)
     a, b = a.float(), b.float()
     return bool(torch.all((a - b).abs() <= 2.0 ** -7 * b.abs() + 2.0 ** -8 * mag + 2.0 ** -15))
@@ -215,19 +210,19 @@ def _paged(card, rng, B, S, H, KVH, D, P, N_extra=3):
 @pytest.mark.parametrize("S,D,H,P", [(1, 64, 32, 16), (2, 128, 24, 64), (5, 128, 24, 32)])
 def test_paged_flash_kernel_matches_plain_and_flash_decode_bits(card, S, D, H, P):
     """B=8 sequences at positions up to 1000 through shuffled tables, one
-    dead row: within the tolerance of the plain version, and flash_decode
-    over the gathered contiguous keys within both tolerances of it (D
-    rounds p to bf16 on tensor cores; F keeps f32 p)."""
+    dead row: within _attn_within of the plain version (F runs D's body and
+    rounds p to bf16), and flash_decode over the gathered contiguous keys
+    gives the same bits."""
     rng = np.random.default_rng(10 * S + P)
     q, kp, vp, table, pos = _paged(card, rng, 8, S, H, 8, D, P)
     pos[1, 0] = -1
     before = paged_flash.launches
     got = paged_flash(q, kp, vp, pos, table)
     assert paged_flash.launches == before + 1
-    assert _within(got.float(), paged_flash_plain(q.float(), kp.float(), vp.float(), pos, table))
-    assert torch.all(got[1, 0] == 0)
     kc, vc = gather_pages(kp, table), gather_pages(vp, table)
-    assert _attn_close(flash_decode(q, kc, vc, pos), got, q, kc, vc, pos)
+    assert _attn_within(got, q, kc, vc, pos)
+    assert torch.all(got[1, 0] == 0)
+    assert torch.equal(flash_decode(q, kc, vc, pos), got)
 
 
 @pytest.mark.cuda
@@ -292,10 +287,9 @@ def test_int8_attention_kernels_match_plain_and_each_other(card, S, D, H):
     sequence 1 at 250 with a dead first row; keys past each last position
     hold bytes 127 with a scale of 0.5 (a masked key let in moves an output
     by far more than the tolerance). D and E within _attn_within of the
-    plain version on f32 q (which dequantizes the cache to f32), F within
-    2^-8 |ref| + 2^-16; E alone on a row equals the row in its block, D on a
-    row is within both tolerances of E; F over the same keys in shuffled
-    64-row pages within both tolerances of D."""
+    plain version on f32 q (which dequantizes the cache to f32); E alone on
+    a row equals the row in its block, D on a row is within both tolerances
+    of E; F over the same keys in shuffled 64-row pages gives D's bits."""
     g = torch.Generator(device=card).manual_seed(S + D)
     B, KVH, T, P = 2, 8, 256, 64
     q = torch.randn((B, S, H, D), generator=g, device=card).bfloat16()
@@ -337,8 +331,7 @@ def test_int8_attention_kernels_match_plain_and_each_other(card, S, D, H):
     before = paged_flash_int8.launches
     paged = paged_flash_int8(q, kp, vp, pos, table, ksp, vsp)
     assert paged_flash_int8.launches == before + 1
-    assert _attn_close(got, paged, q, k, v, pos, ks, vs)
-    assert _within(paged.float(), paged_flash_plain(q.float(), kp, vp, pos, table, ksp, vsp))
+    assert torch.equal(got, paged)
 
 
 def _gemma2_keys(card, g, cache, B, KVH, T, D, pos, window):
@@ -376,10 +369,9 @@ def test_gemma2_attention_kernels_match_plain_and_each_other(card, H, KVH, cache
     one) over T = 1024, POISON at every key a sequence's rows do not see.
     Decode rows at 299..300 and 999..1000, one dead; prefill rows at
     200..263 (crossing the window) and 900..963. D and E within
-    _attn_within of the plain version on f32 q, F within 2^-8 |ref| +
-    2^-16, all finite; E on the decode rows, D on single prefill rows and F
-    through shuffled 64-row pages each within both tolerances of the
-    other kernel."""
+    _attn_within of the plain version on f32 q, all finite; E on the decode
+    rows and D on single prefill rows each within both tolerances of the
+    other kernel; F through shuffled 64-row pages with D's bits."""
     g = torch.Generator(device=card).manual_seed(H + (window or 0))
     B, T, D, P = 2, 1024, 256, 64
     opts = dict(scale=1 / 16, softcap=50.0, window=window)
@@ -414,7 +406,7 @@ def test_gemma2_attention_kernels_match_plain_and_each_other(card, H, KVH, cache
                 return dst
 
             paged = route[2](q, pool(k), pool(v), pos, table, *(pool(s) for s in scales), **opts)
-            assert _attn_close(got, paged, q, k, v, pos, *scales, **opts)
+            assert torch.equal(got, paged)
         else:
             for j in (0, 55, 56, 63):  # 56: the first row whose window cuts key 0
                 qj, pj = q[:, j:j + 1].contiguous(), pos[:, j:j + 1].contiguous()
@@ -556,3 +548,146 @@ def test_rms_norm_kernel_matches_plain_and_rows_ignore_m(card, N, one_offset, w_
     alone = torch.cat([rms_norm(x[i:i + 1], w, 1e-6, one_offset) for i in range(40)])
     for M in (2, 5, 8, 16, 40):
         assert torch.equal(rms_norm(x[:M], w, 1e-6, one_offset), alone[:M]), M
+
+
+def _pool_of(card, g, src, P, extra=2):
+    """The same keys (or scales) [B, KVH, T(, D)] in shuffled P-row pages
+    [B * M + extra + 1, KVH, P(, D)] through a table [B, M + extra] whose
+    last entries point at pages no row reads (page 0 unused)."""
+    B, KVH, T = src.shape[:3]
+    M = T // P
+    ids = torch.randperm(B * (M + extra), generator=g, device=card) + 1
+    table = ids.view(B, M + extra).to(torch.int32).contiguous()
+    tail = src.shape[3:]
+    dst = torch.randn((B * (M + extra) + 1, KVH, P, *tail), generator=g, device=card).to(src.dtype)
+    dst[table[:, :M].flatten().long()] = (src.reshape(B, KVH, M, P, *tail).transpose(1, 2)
+                                          .reshape(B * M, KVH, P, *tail))
+    return dst, table
+
+
+OPTION_SETS = [{}, {"scale": 0.11, "softcap": 20.0}, {"window": 300},
+               {"scale": 1 / 16, "softcap": 50.0, "window": 97}]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [16, 64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("cache", ["bf16", "int8"])
+def test_paged_flash_equals_flash_decode_bits(card, cache, D, P):
+    """Kernel F gives kernel D's bits on the same keys: four sequences at
+    positions up to 1000 (one dead row, one sequence at 20), T = 1024 in
+    the contiguous cache and two more table entries than the keys need (so
+    F's split count, from M * P, may exceed D's), at S = 1 and 5, with every
+    option set: none, scale and softcap, a window, all three. Each F call
+    is one launch and within _attn_within of the plain version."""
+    g = torch.Generator(device=card).manual_seed(D + P)
+    H, KVH = {64: (32, 8), 128: (24, 8), 256: (16, 8)}[D]
+    B, T = 4, 1024
+    if cache == "int8":
+        (k, ks), (v, vs) = (_int8_cache(card, g, (B, KVH, T, D)) for _ in "kv")
+        scales, dk, fk = (ks, vs), flash_decode_int8, paged_flash_int8
+    else:
+        k, v = (torch.randn((B, KVH, T, D), generator=g, device=card).bfloat16() for _ in "kv")
+        scales, dk, fk = (), flash_decode, paged_flash
+    pools = []
+    for t in (k, v, *scales):
+        g_t = torch.Generator(device=card).manual_seed(D + P)  # one table for all four
+        pool, table = _pool_of(card, g_t, t, P)
+        pools.append(pool)
+    for S in (1, 5):
+        last = torch.tensor([1000, 611, 20 + S, 333], device=card, dtype=torch.int32)
+        pos = (last[:, None] - S + 1 + torch.arange(S, device=card, dtype=torch.int32)[None])
+        pos = pos.contiguous()
+        pos[3, 0] = -1
+        q = torch.randn((B, S, H, D), generator=g, device=card).bfloat16()
+        for opts in OPTION_SETS:
+            ref = dk(q, k, v, pos, *scales, **opts)
+            before = fk.launches
+            got = fk(q, pools[0], pools[1], pos, table, *pools[2:], **opts)
+            assert fk.launches == before + 1
+            assert torch.equal(got, ref), (S, opts)
+            assert _attn_within(got, q, k, v, pos, *scales, **opts), (S, opts)
+
+
+@pytest.mark.cuda
+def test_paged_flash_rejects_page_size_not_a_power_of_two(card):
+    rng = np.random.default_rng(1)
+    q, kp, vp, table, pos = _paged(card, rng, 2, 1, 24, 8, 128, 64)
+    with pytest.raises(ValueError, match="power of two"):
+        paged_flash(q, kp[:, :, :48], vp[:, :, :48], pos, table)
+
+
+QMM_SHAPES = [(3072, 5120), (8192, 2048), (2048, 2048)]  # 3B qkv, 1B down and o
+QMM_MMA_M = (64, 160, 512, 2048)
+
+
+def _qmm_inputs(card, bits, K, N, M):
+    g = torch.Generator(device=card).manual_seed(K + N + bits)
+    rows = K // 2 if bits == 4 else K
+    w = torch.randint(-128, 128, (2, rows, N), generator=g, dtype=torch.int8, device=card)[1]
+    scale = torch.rand((N,), generator=g, device=card) * (0.02 / (7 if bits == 4 else 127)) + 1e-5
+    x = torch.randn((M, K), generator=g, device=card).bfloat16()
+    return x, w, scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N", QMM_SHAPES)
+@pytest.mark.parametrize("bits", [4, 8])
+def test_qmm_tensor_core_path_matches_plain_and_rows_ignore_m(card, bits, K, N):
+    """Kernels A and B at M = 64, 160, 512 and 2048 (the first M rows of one
+    x, random bytes, -128 included) take the tensor-core path, one launch of
+    its own a call: within the tolerance of the plain version on the same
+    inputs in f32 (A: 1e-2 of the largest output, test_int4_kernel_matches_
+    plain's; B: 2^-8 |ref| + 2^-14 of the largest, test_int8_kernel_matches_
+    plain_and_rows_ignore_m's), and every row with the same bits at every
+    M; a repeated call gives the same bits."""
+    x, w, scale = _qmm_inputs(card, bits, K, N, max(QMM_MMA_M))
+    kernel, mma, plain = ((quant_matmul, quant_matmul_mma, quant_matmul_plain) if bits == 4 else
+                          (quant_matmul_int8, quant_matmul_int8_mma, quant_matmul_plain_int8))
+    outs = {}
+    for M in QMM_MMA_M:
+        before, before_split = mma.launches, kernel.launches
+        got = kernel(x[:M], w, scale)
+        assert mma.launches == before + 1 and kernel.launches == before_split
+        ref = plain(x[:M].float(), w, scale)
+        err = (got.float() - ref).abs()
+        if bits == 4:
+            assert err.max() <= 1e-2 * ref.abs().max(), (M, err.max())
+        else:
+            assert torch.all(err <= 2.0 ** -8 * ref.abs() + 2.0 ** -14 * ref.abs().max()), M
+        outs[M] = got
+    for M in QMM_MMA_M[:-1]:
+        assert torch.equal(outs[M], outs[max(QMM_MMA_M)][:M]), M
+    assert torch.equal(kernel(x[:160], w, scale), outs[160])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [4, 8])
+def test_qmm_decode_shapes_stay_on_the_split_k_kernel(card, bits):
+    """M = 1, 2, 5, 8, 16, 40 and 63 launch the split-K kernel (its own
+    count; the tensor-core path's count stays), every row with the same
+    bits at each of them."""
+    K, N = 3072, 5120
+    x, w, scale = _qmm_inputs(card, bits, K, N, 63)
+    kernel, mma = ((quant_matmul, quant_matmul_mma) if bits == 4 else
+                   (quant_matmul_int8, quant_matmul_int8_mma))
+    before, before_mma = kernel.launches, mma.launches
+    ms = (1, 2, 5, 8, 16, 40, MMA_MIN_M - 1)
+    outs = {M: kernel(x[:M], w, scale) for M in ms}
+    assert kernel.launches == before + len(ms) and mma.launches == before_mma
+    for M in ms:
+        assert torch.equal(outs[M], outs[MMA_MIN_M - 1][:M]), M
+
+
+@pytest.mark.cuda
+def test_qmm_tensor_core_path_rejects_what_it_does_not_take(card):
+    K, N = 2048, 2048
+    x = torch.zeros((64 * K + 8,), device=card, dtype=torch.bfloat16)
+    w = torch.zeros((K // 2, N), device=card, dtype=torch.int8)
+    scale = torch.ones((N,), device=card)
+    with pytest.raises(ValueError, match="aligned"):
+        quant_matmul_mma(x[1:64 * K + 1].view(64, K), w, scale)
+    with pytest.raises(ValueError, match="N % 256"):
+        quant_matmul_mma(x[:64 * K].view(64, K), w[:, :128], scale[:128])
+    with pytest.raises(TypeError):
+        quant_matmul_int8_mma(x[:64 * K].view(64, K).float(), w, scale)

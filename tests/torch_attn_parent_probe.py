@@ -7,15 +7,16 @@ turns (earlier, this, this, earlier). From the repo root of this checkout:
     git archive <commit> llm_inference_lab_tpu_torch/csrc | tar -x -C <dir>
     python3 tests/torch_attn_parent_probe.py <dir>
 
-F (csrc/paged_flash.cu on attn_tile.cuh) must give the earlier kernel's
-bits. D and E moved to tensor cores (attn_mma.cuh) and round p to bf16
-before P.V, so they are held to their plain version instead, within
-chip_smoke.check_attn's tolerance, and only timed beside the earlier ones.
-The earlier csrc/{flash_decode,flash_prefill,paged_flash}.cu are built with
-this checkout's nvcc flags into a temporary directory and called through
-ctypes with the entries they had before the split over T (D and E with the
-ring argument, F without). Exits non-zero if F's bits differ or D or E
-leaves its tolerance.
+D and E (csrc/attn_mma.cuh) must give the earlier kernels' bits. F moved
+from the CUDA-core body (attn_tile.cuh, f32 p) onto D's tensor-core body
+(bf16 p), so it is held to D's bits over the same keys laid out
+contiguously, and to chip_smoke.check_attn's tolerance of the plain
+version, and timed beside the earlier F. The earlier
+csrc/{flash_decode,flash_prefill,paged_flash}.cu are built with this
+checkout's nvcc flags into a temporary directory and called through ctypes:
+D and E with the entries they still have, F with its entry before the split
+over T (no workspace, counters or split count). Exits non-zero if D or E
+differs from the earlier bits, or F from D's or the tolerance.
 """
 
 import ctypes
@@ -32,21 +33,19 @@ sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402
 from llm_inference_lab_tpu_torch import build  # noqa: E402
 from llm_inference_lab_tpu_torch.models.base import quantize_rows  # noqa: E402
+from llm_inference_lab_tpu_torch.models.paged import gather_pages  # noqa: E402
 from llm_inference_lab_tpu_torch.ops import flash_decode as fd  # noqa: E402
 from llm_inference_lab_tpu_torch.ops import flash_prefill as fp  # noqa: E402
 from llm_inference_lab_tpu_torch.ops import paged_flash as pf  # noqa: E402
 
 P_, I_, LL, F_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-# The earlier C entries: scale, softcap and window (and for D and E the
-# ring) end the arguments before the stream.
-OPTS = [F_, F_, I_]
+# The earlier C entries: D and E as they are now; F before its split over T
+# (scale, softcap and window end its arguments before the stream).
 OLD_SIGNATURES = {
-    "flash_decode": {"flash_decode_bf16": [P_] * 5 + [I_] * 6 + [LL] * 2 + OPTS + [I_, P_],
-                     "flash_decode_int8": [P_] * 7 + [I_] * 6 + [LL] * 4 + OPTS + [I_, P_]},
-    "flash_prefill": {"flash_prefill_bf16": [P_] * 5 + [I_] * 6 + [LL] * 2 + OPTS + [I_, P_],
-                      "flash_prefill_int8": [P_] * 7 + [I_] * 6 + [LL] * 4 + OPTS + [I_, P_]},
-    "paged_flash": {"paged_flash_bf16": [P_] * 6 + [I_] * 7 + [LL] + OPTS + [P_],
-                    "paged_flash_int8": [P_] * 8 + [I_] * 7 + [LL] * 2 + OPTS + [P_]},
+    "flash_decode": build.SIGNATURES["flash_decode"],
+    "flash_prefill": build.SIGNATURES["flash_prefill"],
+    "paged_flash": {"paged_flash_bf16": [P_] * 6 + [I_] * 7 + [LL] + [F_, F_, I_] + [P_],
+                    "paged_flash_int8": [P_] * 8 + [I_] * 7 + [LL] * 2 + [F_, F_, I_] + [P_]},
 }
 # (kernel, S, D, H, KVH, window): the Llama paths' shapes (1B: 32 / 8 heads
 # of 64, 3B: 24 / 8 heads of 128); decode at position 167 of T = 256, the
@@ -96,13 +95,14 @@ def inputs(g, dev, kernel, S, D, H, KVH, int8):
     return q, keys, pos, table
 
 
-def old_call(lib, kernel, q, keys, pos, table, out, window):
+def old_call(lib, kernel, q, keys, pos, table, window):
     B, S, H, D = q.shape
     st = torch.cuda.current_stream().cuda_stream
     int8 = keys[0].dtype == torch.int8
     fn = getattr(lib, f"{kernel}_{'int8' if int8 else 'bf16'}")
     k, v = keys[:2]
     sc = [t.data_ptr() for t in keys[2:]]
+    out = torch.empty_like(q)
     if kernel == "paged_flash":
         strides = [k.stride(0)] + ([keys[2].stride(0)] if int8 else [])
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), *sc, table.data_ptr(), pos.data_ptr(),
@@ -111,9 +111,15 @@ def old_call(lib, kernel, q, keys, pos, table, out, window):
     else:
         strides = [k.stride(0), k.stride(1)] + ([keys[2].stride(0), keys[2].stride(1)]
                                                  if int8 else [])
+        split, nsplit = [], []
+        if kernel == "flash_decode":
+            opts = fd.Options(window=window)
+            ws, counters, nz = fd.split_buffers(q, k.shape[1], k.shape[2], opts)
+            split = [0 if t is None else t.data_ptr() for t in (ws, counters)]
+            nsplit = [nz]
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), *sc, pos.data_ptr(), out.data_ptr(),
-                 B, S, H, k.shape[1], k.shape[2], D, *strides, D ** -0.5, 0.0, window or 0, 0,
-                 st)
+                 *split, B, S, H, k.shape[1], k.shape[2], D, *strides, D ** -0.5, 0.0,
+                 window or 0, 0, *nsplit, st)
     build.check(err, f"earlier {kernel}")
     return out
 
@@ -134,32 +140,32 @@ def main(parent: str) -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     print(f"card: {smi}")
     g = torch.Generator(device=dev).manual_seed(31)
-    differ = same_f = n_f = 0
+    bad = 0
     with tempfile.TemporaryDirectory() as tmp:
         old = load_old(parent, tmp)
         for kernel, S, D, H, KVH, window in CASES:
             for int8 in (False, True):
                 q, keys, pos, table = inputs(g, dev, kernel, S, D, H, KVH, int8)
-                out = torch.empty_like(q)
                 new = new_call(kernel, q, keys, pos, table, window)
-                if kernel == "paged_flash":  # F keeps the earlier body: the same bits
-                    same = torch.equal(old_call(old[kernel], kernel, q, keys, pos, table, out,
-                                                window), new)
-                    n_f += 1
-                    same_f += same
-                    verdict = "same bits" if same else "BITS DIFFER"
-                else:  # D and E: within their tolerance of the plain version
-                    opts = {} if window is None else {"window": window}
+                if kernel == "paged_flash":  # F: D's bits on the same keys, D's tolerance
+                    cont = [gather_pages(t, table) for t in keys]
+                    ref = fd.flash_decode(q, cont[0], cont[1], pos, *cont[2:])
+                    ok = torch.equal(new, ref)
                     try:
-                        err = chip_smoke.check_attn(new, q, *keys[:2], pos, *keys[2:],
-                                                    what=(kernel, S, D), **opts)
-                        same, verdict = True, f"within tolerance of plain (max err {err:.3g})"
+                        err = chip_smoke.check_attn(new, q, *cont[:2], pos, *cont[2:],
+                                                    what=(kernel, S, D))
+                        verdict = (f"D's bits {ok}, within tolerance of plain (max err "
+                                   f"{err:.3g})")
                     except AssertionError as e:
-                        same, verdict = False, f"OUT OF TOLERANCE {e}"
-                differ += not same
+                        ok, verdict = False, f"OUT OF TOLERANCE {e}"
+                else:  # D and E keep the earlier bits
+                    ok = torch.equal(old_call(old[kernel], kernel, q, keys, pos, table, window),
+                                     new)
+                    verdict = "same bits" if ok else "BITS DIFFER"
+                bad += not ok
 
                 def old_fn():
-                    return old_call(old[kernel], kernel, q, keys, pos, table, out, window)
+                    return old_call(old[kernel], kernel, q, keys, pos, table, window)
 
                 def new_fn():
                     return new_call(kernel, q, keys, pos, table, window)
@@ -169,11 +175,9 @@ def main(parent: str) -> int:
                 print(f"{kernel} {'int8' if int8 else 'bf16'} S={S} D={D} H={H} window={window}: "
                       f"{verdict}; earlier {times[0]:.4f} / "
                       f"{times[3]:.4f} ms, this {times[1]:.4f} / {times[2]:.4f} ms, "
-                      f"this / earlier {n / o:.3f}")
-    print(f"F: {same_f} of {n_f} cases give the earlier bits; D and E: "
-          f"{len(CASES) * 2 - n_f - (differ - (n_f - same_f))} of {len(CASES) * 2 - n_f} cases "
-          f"within tolerance of the plain version")
-    return 1 if differ else 0
+                      f"this / earlier {n / o:.3f}", flush=True)
+    print(f"{len(CASES) * 2 - bad} of {len(CASES) * 2} cases as required")
+    return 1 if bad else 0
 
 
 if __name__ == "__main__":
