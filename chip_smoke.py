@@ -15,16 +15,20 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
     shapes its path gives it (rms_norm at every model's width, rows
     bit-independent of M), with its time, the plain version's, one
     library call's and the bound (bytes at 3.35 TB/s, operations at 989
-    TFLOP/s bf16): quant_matmul_int4 (kernel A: its split-K kernel at the
-    B=1 main path's decode shapes, its tensor-core path, csrc/qmm_mma.cuh,
-    at M = 64, 160, 512 and 2048 at the 3B, 1B, Gemma-2 9B and Mistral-7B
+    TFLOP/s bf16): quant_matmul_int4 (kernel A: its decode body,
+    csrc/qmm_decode.cuh, at every width's projections, 3B, 1B, Gemma-2 9B
+    and 2B, Mistral-7B and its head, every row within tolerance and with
+    its bits alone at M = 1 to 63, timed at each path's rows with the step
+    sums of the B=1, serving and Mistral ring steps; its tensor-core path,
+    csrc/qmm_mma.cuh, at M = 64, 160, 512 and 2048 at the 3B, 1B, Gemma-2 9B and Mistral-7B
     widths, every row's bits independent of M within each, the rows that
     differ between the two counted, timed at M = 160, 512, 2048),
     flash_decode and verify_prefix at the B=1 main path's shapes,
     flash_prefill at admission prefills (and resumed chunks), paged_flash
     at the serving step's (F gives D's bits on the same keys); then the int8
-    kernels: quant_matmul_int8 (kernel B) at every projection of the int8
-    path and M = 1, 5, 8, 40, every row's bits independent of M, and its
+    kernels: quant_matmul_int8 (kernel B, the same decode body) at every
+    projection of the int8 path, checked at M = 1 to 63 and timed at 1, 5,
+    8, 40 and 63, every row's bits independent of M, and its
     tensor-core path as kernel A's, and the int8-cache variants of
     flash_decode, flash_prefill and paged_flash, each beside its bf16 kernel
     on the same positions (D and E within their tolerances of one another,
@@ -59,17 +63,17 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
     after. All requests retire with finite logprobs; each request's ids
     equal the start of phase 3's B=1 Engine.generate ids for its prompt (a
     difference must be a near tie at an op found to round a row differently
-    at another batch shape, or between A's or B's split-K kernel and
+    at another batch shape, or between A's or B's decode body and
     tensor-core path; D and F must not differ in any row at the serving
-    shapes, asserted); a contiguous-layout batcher (which decodes through D
-    where the paged one uses F) gives the same ids, or ids that part only at
-    such a near tie;
+    shapes, nor A's or B's decode rows across M, asserted); a
+    contiguous-layout batcher (which decodes through D where the paged one
+    uses F) gives the same ids, or ids that part only at such a near tie;
  4. the int8 path end to end at full width: configs/llama32_int8.yaml (int8
     3B target + 1B draft, K=4, max_seq_len 512, bf16 tied head) with an int8
     KV cache, random int8 weights from a seed, phase 3's prompt and checks;
     kernel A launches no time there; kv_alignment_report on the final cache
     of a generate is within KV_ALIGN_STEPS int8 steps of a fresh prefill
-    (its decoded rows come from B's split-K kernel, the fresh ones from its
+    (its decoded rows come from B's decode body, the fresh ones from its
     tensor-core path);
  5. int8 serving: phase 3b's requests and checks over paged int8 pools (page
     64, max_seq_len 512) on phase 4's weights, against phase 4's generate;
@@ -113,15 +117,25 @@ PROMPT = "The quick brown fox jumps over the lazy dog. " * 3
 T_MAIN = 256  # cache length of the main path (P = 160, 64 new tokens, K = 1)
 P_MAIN = 167  # a mid-generation position: prompt (135) + 32 tokens
 
-# (K, N) of every projection: 3B target, 1B draft; Gemma-2 9B; Mistral-7B
-# and its untied head.
+# (K, N) of every projection: 3B target, 1B draft; Gemma-2 9B and its 2B
+# draft; Mistral-7B and its untied head.
 QMM_3B = [(3072, 5120), (3072, 3072), (3072, 16384), (8192, 3072)]
 QMM_1B = [(2048, 3072), (2048, 2048), (2048, 16384), (8192, 2048)]
 QMM_9B = [(3584, 8192), (4096, 3584), (3584, 28672), (14336, 3584)]
+QMM_2B = [(2304, 4096), (2048, 2304), (2304, 18432), (9216, 2304)]
 QMM_MISTRAL = [(4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096)]
 MISTRAL_HEAD = (4096, 32000)
 QMM_WIDTHS = {"3B": QMM_3B, "1B": QMM_1B, "Gemma-2 9B": QMM_9B,
               "Mistral-7B": QMM_MISTRAL + [MISTRAL_HEAD]}
+# Kernels A and B below MMA_MIN_M rows (the decode body, csrc/qmm_decode.cuh):
+# every row checked at DECODE_CHECK_M against the plain version and against
+# itself computed alone; A timed at each width's path rows (B=1 draft and
+# verify, 8-slot draft and verify: K=1 on the Llama and Gemma-2 paths, K=4
+# at B=1 on Mistral's), B at QMM8_M and 63.
+DECODE_CHECK_M = (1, 2, 5, 8, 16, 40, 63)
+QMM_DECODE = {"3B": (QMM_3B, (1, 2, 8, 16)), "1B": (QMM_1B, (1, 2, 8, 16)),
+              "Gemma-2 9B": (QMM_9B, (1, 2, 8, 16)), "Gemma-2 2B": (QMM_2B, (1, 2, 8, 16)),
+              "Mistral-7B": (QMM_MISTRAL + [MISTRAL_HEAD], (1, 5))}
 # Prefill rows the tensor-core path of kernels A and B is timed at: the
 # main path's 160-row prompt, a Mistral chunk of 512, an admission wave of
 # 8 prompts of 256 rows; and the rows it is checked at (from MMA_MIN_M).
@@ -160,6 +174,7 @@ KV_ALIGN_STEPS = 4  # kv_alignment_report's tolerance, in int8 steps (phase_kv_a
 # Kernel B's decode checks: the path's M (B=1 draft and verify, 8-slot draft
 # and verify).
 QMM8_M = (1, 5, 8, 40)
+QMM8_TIME_M = QMM8_M + (63,)
 # Kernel B per element: 2^-8 |ref| (the bf16 output's rounding) + 2^-14 of
 # the largest |ref| (f32 sums of up to 8192 products in another order).
 QMM8_RTOL, QMM8_MTOL = 2.0 ** -8, 2.0 ** -14
@@ -191,7 +206,7 @@ MISTRAL_LONG = PROMPT * 40  # 5400 byte tokens: P = 5632 (11 chunks of 512), max
 MISTRAL_LONG_SHAPE = (5400, 5632, 5760)  # tokens, prompt block P, max_len
 P_RING = 5400  # a decode position of the long prompt: its window wraps the ring
 # The kernels each path must launch (and no other): the norm and the
-# projections' two kernels (decode rows through the split-K kernel, prefill
+# projections' two kernels (decode rows through the decode body, prefill
 # rows through the tensor-core path) on every path, then its attention.
 INT4 = {"rms_norm", "quant_matmul_int4", "quant_matmul_int4_mma"}
 INT8 = {"rms_norm", "quant_matmul_int8", "quant_matmul_int8_mma"}
@@ -296,8 +311,8 @@ def qmm_prefill(dev, bits, g):
     """Kernel A (bits 4) or B (bits 8) at the prefill shapes of every width
     in QMM_WIDTHS: within tolerance of the plain version at MMA_CHECK_M
     (the first M rows of one x), every row with the same bits at each of
-    those M, and the rows that differ between the split-K kernel (those
-    rows at M = MMA_MIN_M - 1) and the tensor-core path (at MMA_MIN_M)
+    those M, and the rows that differ between the decode body (those rows
+    at M = MMA_MIN_M - 1) and the tensor-core path (at MMA_MIN_M)
     counted; timed at PREFILL_M beside the plain version, the library call
     (A: dequantize, then torch.matmul; B: torch.matmul(x, w.to(bf16)) *
     scale) and the bound. Returns ({(K, N, M): numbers}, max abs err,
@@ -335,8 +350,8 @@ def qmm_prefill(dev, bits, g):
                 max_err = max(max_err, qmm_within(bits, outs[M], plain(x[:M].float(), w[0], sc[0])))
             for M in MMA_CHECK_M[:-1]:  # the same bits for a row at every M of the path
                 assert torch.equal(outs[M], outs[MMA_CHECK_M[-1]][:M]), (name, K, N, M)
-            split_k = kernel(x[:MMA_MIN_M - 1], w[0], sc[0])
-            n_across = int((split_k != outs[MMA_MIN_M][:MMA_MIN_M - 1]).any(-1).sum())
+            decode = kernel(x[:MMA_MIN_M - 1], w[0], sc[0])
+            n_across = int((decode != outs[MMA_MIN_M][:MMA_MIN_M - 1]).any(-1).sum())
             across += n_across
             cyc = Cycle(L)
             line = []
@@ -352,13 +367,13 @@ def qmm_prefill(dev, bits, g):
                             f"{lib:.4f} ({ms / lib:.2f}x)")
             log(f"{name} tensor-core path {width} K={K} N={N}: within tolerance at M = "
                 f"{MMA_CHECK_M}, every row the same bits at each; rows differing from the "
-                f"split-K kernel's (M = {MMA_MIN_M - 1} vs {MMA_MIN_M}): {n_across} of "
+                f"decode body's (M = {MMA_MIN_M - 1} vs {MMA_MIN_M}): {n_across} of "
                 f"{MMA_MIN_M - 1}; " + "; ".join(line))
             del w, sc, x, outs
     return rows, max_err, across
 
 
-def prefill_agg(rows, work, max_err):
+def sum_rows(rows, work, max_err):
     """Sum the numbers of rows[(K, N, M)] over work [(K, N, M, count)]."""
     agg = {key: sum(rows[(k, n, m)][key] * c for k, n, m, c in work)
            for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
@@ -368,52 +383,110 @@ def prefill_agg(rows, work, max_err):
     return agg
 
 
-def phase_quant_matmul(dev):
-    """Kernel A: the split-K kernel at the B=1 main path's decode shapes (M =
-    1, 2; row 0 the same bits alone and inside the batch), timed for one
-    K=1 step; then the tensor-core path at every width's prefill shapes
-    (qmm_prefill). Returns (the step's numbers, the Mistral-7B long prompt's
-    prefill projections through one model: 11 chunks of 512 rows, 32
-    layers and the head)."""
-    from llm_inference_lab_tpu_torch.ops.quant import dequantize, QuantTensor
-    from llm_inference_lab_tpu_torch.ops.quant_matmul import quant_matmul, quant_matmul_plain
+def qmm_decode(dev, bits, g, widths):
+    """Kernel A (bits 4) or B (bits 8) below MMA_MIN_M rows, the decode body
+    (csrc/qmm_decode.cuh), at every projection of widths {name: (shapes,
+    timed M)}: within tolerance of the plain version at DECODE_CHECK_M (the
+    first M rows of one x), every row with the same bits as the row alone
+    (asserted), and a second call on the same weights with the same bits
+    (the split's tickets reset); timed at the width's M beside the plain
+    version, the library call (A: dequantize, then torch.matmul; B:
+    torch.matmul(x, w.to(bf16)) * scale) and the bound. Returns ({(K, N,
+    M): numbers}, max abs err)."""
+    from llm_inference_lab_tpu_torch.ops.quant import QuantTensor, dequantize
+    from llm_inference_lab_tpu_torch.ops.quant_matmul import (
+        decode_plan,
+        quant_matmul,
+        quant_matmul_int8,
+        quant_matmul_plain,
+        quant_matmul_plain_int8,
+    )
 
-    g = torch.Generator(device=dev).manual_seed(1)
+    kernel, plain = ((quant_matmul, quant_matmul_plain) if bits == 4 else
+                     (quant_matmul_int8, quant_matmul_plain_int8))
+
+    def library(x, w, sc):
+        if bits == 4:
+            return torch.matmul(x, dequantize(QuantTensor(w, sc, 4), torch.bfloat16))
+        return torch.matmul(x, w.to(torch.bfloat16)) * sc
+
     rows, max_err = {}, 0.0
-    for K, N in QMM_3B + QMM_1B:
-        L = max(2, (200 << 20) // (K * N // 2))  # > 200 MB of weights: beyond L2
-        w = torch.randint(-128, 128, (L, K // 2, N), generator=g, dtype=torch.int8, device=dev)
-        sc = torch.rand((L, N), generator=g, device=dev) * (0.02 / 7) + 1e-4
-        cyc = Cycle(L)
-        for M in (1, 2):
-            x = torch.randn((M, K), generator=g, device=dev).bfloat16()
-            got = quant_matmul(x, w[0], sc[0]).float()
-            ref = quant_matmul_plain(x, w[0], sc[0]).float()
-            err = (got - ref).abs().max().item()
-            scale = ref.abs().max().item()
-            assert torch.isfinite(got).all() and err <= QMM_RTOL * scale, (K, N, M, err, scale)
-            max_err = max(max_err, err)
-            if M == 2:  # row 0 rounds identically alone and inside the batch
-                one = quant_matmul(x[:1].contiguous(), w[0], sc[0]).float()
-                assert torch.equal(one, got[:1]), (K, N, "M-dependent rounding")
-            ms = median_ms(lambda: quant_matmul(x, w[cyc()], sc[cyc.i]))
-            plain = median_ms(lambda: quant_matmul_plain(x, w[cyc()], sc[cyc.i]), iters=10)
-            lib = median_ms(lambda: torch.matmul(
-                x, dequantize(QuantTensor(w[cyc()], sc[cyc.i], 4), torch.bfloat16)), iters=10)
-            b, by = bound_ms(K // 2 * N + 4 * N + 2 * M * K + 2 * M * N, 2 * M * K * N)
-            rows[(K, N, M)] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b, bound_by=by)
-            log(f"quant_matmul_int4 K={K} N={N} M={M}: {ms:.4f} ms  plain {plain:.4f}  "
-                f"library {lib:.4f}  bound {b:.4f} ({by})  max_abs_err {err:.3g}")
-        del w, sc
+    name = f"quant_matmul_int{bits}"
+    for width, (shapes, time_m) in widths.items():
+        for K, N in shapes:
+            wrows = K // 2 if bits == 4 else K
+            L = max(2, (200 << 20) // (wrows * N))  # > 200 MB of weights: beyond L2
+            w = torch.randint(-128, 128, (L, wrows, N), generator=g, dtype=torch.int8, device=dev)
+            sc = torch.rand((L, N), generator=g, device=dev) * (0.02 / (7 if bits == 4 else 127))
+            sc += 1e-5
+            x = torch.randn((max(DECODE_CHECK_M), K), generator=g, device=dev).bfloat16()
+            alone = torch.cat([kernel(x[i:i + 1], w[0], sc[0]) for i in range(len(x))])
+            for M in DECODE_CHECK_M:
+                got = kernel(x[:M], w[0], sc[0])
+                max_err = max(max_err, qmm_within(bits, got, plain(x[:M].float(), w[0], sc[0])))
+                assert torch.equal(got, alone[:M]), (name, K, N, M, "M-dependent rounding")
+            again = kernel(x[:40], w[0], sc[0])
+            assert torch.equal(again, kernel(x[:40], w[0], sc[0])), (name, K, N, "repeat")
+            cyc = Cycle(L)
+            line = []
+            for M in time_m:
+                xm = x[:M]
+                ms = median_ms(lambda: kernel(xm, w[cyc()], sc[cyc.i]))
+                pl = median_ms(lambda: plain(xm, w[cyc()], sc[cyc.i]), iters=5, warmup=1)
+                lib = median_ms(lambda: library(xm, w[cyc()], sc[cyc.i]), iters=10)
+                b, by = bound_ms(wrows * N + 4 * N + 2 * M * K + 2 * M * N, 2 * M * K * N)
+                rows[(K, N, M)] = dict(ms=ms, plain_ms=pl, library_ms=lib, bound_ms=b, bound_by=by)
+                line.append(f"M={M} {ms:.4f} ms (bound {b:.4f} {by}, {b / ms:.3f} of it) plain "
+                            f"{pl:.4f} library {lib:.4f} ({ms / lib:.2f}x)")
+            log(f"{name} decode body {width} K={K} N={N} (K split {decode_plan(K, N, bits)}): "
+                f"within tolerance and every row the same bits as alone at M = "
+                f"{DECODE_CHECK_M}; " + "; ".join(line))
+            del w, sc, x, alone
+    return rows, max_err
+
+
+def calls(work):
+    """[(shapes, M, count)] -> [(K, N, M, count)], the form sum_rows takes."""
+    return [(k, n, m, c) for shapes, m, c in work for k, n in shapes]
+
+
+def log_step(name, what, rows, work):
+    agg = sum_rows(rows, calls(work), 0.0)
+    log(f"{name} {what}: " + ", ".join(f"{key} {agg[key]:.4f}" for key in
+                                       ("ms", "bound_ms", "plain_ms", "library_ms")))
+
+
+def phase_quant_matmul(dev):
+    """Kernel A: the decode body at every width's decode shapes
+    (qmm_decode), with the step sums of each path; then the tensor-core path
+    at every width's prefill shapes (qmm_prefill). Returns (one K=1 B=1
+    step's numbers, the Mistral-7B long prompt's prefill projections through
+    one model: 11 chunks of 512 rows, 32 layers and the head)."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    rows, max_err = qmm_decode(dev, 4, g, QMM_DECODE)
+    layers = {"1B": 16, "3B": 28, "2B": GEMMA_GEOMS["2b"][2], "9B": GEMMA_GEOMS["9b"][2],
+              "7B": MISTRAL_GEOM[2]}
     # One K=1 decode step: 16 draft layers at M=1, 28 target layers at M=2.
-    step = [(k, n, 1, 16) for k, n in QMM_1B] + [(k, n, 2, 28) for k, n in QMM_3B]
+    step = [(QMM_1B, 1, layers["1B"]), (QMM_3B, 2, layers["3B"])]
+    log_step("quant_matmul_int4", "one K=1 B=1 step (1B draft M = 1, 3B verify M = 2)", rows,
+             step)
+    log_step("quant_matmul_int4", "one 8-slot K=1 serving step (M = 8 draft, 16 verify)", rows,
+             [(QMM_1B, 8, layers["1B"]), (QMM_3B, 16, layers["3B"])])
+    log_step("quant_matmul_int4", "one Gemma-2 K=1 B=1 step (2B draft M = 1, 9B verify M = 2)",
+             rows, [(QMM_2B, 1, layers["2B"]), (QMM_9B, 2, layers["9B"])])
+    log_step("quant_matmul_int4", "one Gemma-2 8-slot K=1 serving step (M = 8 draft, 16 verify)",
+             rows, [(QMM_2B, 8, layers["2B"]), (QMM_9B, 16, layers["9B"])])
+    log_step("quant_matmul_int4", "one Mistral-7B K=4 B=1 step on the ring (4 x 32 draft "
+             "layers and the head at M = 1, 32 verify layers and the head at M = 5)", rows,
+             [(QMM_MISTRAL, 1, 4 * layers["7B"]), ([MISTRAL_HEAD], 1, 4),
+              (QMM_MISTRAL, 5, layers["7B"]), ([MISTRAL_HEAD], 5, 1)])
     pre, pre_err, across = qmm_prefill(dev, 4, g)
-    log(f"quant_matmul_int4: {across} rows differ between the split-K kernel and the "
+    log(f"quant_matmul_int4: {across} rows differ between the decode body and the "
         f"tensor-core path over {sum(map(len, QMM_WIDTHS.values()))} shapes")
-    layers, chunks = MISTRAL_GEOM[2], -(-MISTRAL_LONG_SHAPE[1] // 512)
-    mistral = [(k, n, 512, layers * chunks) for k, n in QMM_MISTRAL]
+    chunks = -(-MISTRAL_LONG_SHAPE[1] // 512)
+    mistral = [(k, n, 512, layers["7B"] * chunks) for k, n in QMM_MISTRAL]
     mistral.append((*MISTRAL_HEAD, 512, chunks))
-    return prefill_agg(rows, step, max_err), prefill_agg(pre, mistral, pre_err)
+    return sum_rows(rows, calls(step), max_err), sum_rows(pre, mistral, pre_err)
 
 
 def flash_inputs(g, dev, B, S, H, KVH, T, D, p_last, L=1):
@@ -765,60 +838,26 @@ def phase_paged_flash(dev):
 
 # ---------------------------------------------------------------- int8 kernels
 def phase_quant_matmul_int8(dev):
-    """Kernel B: the split-K kernel at every projection of the int8 path,
-    checked at M in QMM8_M on the first M rows of one x (every row's bits
-    the same at every M) and timed at M = 1, 5, 8, 40 with the plain
-    version, the library call and the bound; then the tensor-core path at
-    every width's prefill shapes (qmm_prefill). Returns (one K=4 step's
-    numbers, one admission wave's: 8 prompts of 256 rows through the 3B's
-    28 and the 1B's 16 layers)."""
-    from llm_inference_lab_tpu_torch.ops.quant_matmul import (
-        quant_matmul_int8,
-        quant_matmul_plain_int8,
-    )
-
+    """Kernel B: the decode body at every projection of the int8 path
+    (qmm_decode), timed at QMM8_TIME_M, with the K=4 B=1 and 8-slot serving
+    step sums; then the tensor-core path at every width's prefill shapes
+    (qmm_prefill). Returns (one K=4 B=1 step's numbers, one admission
+    wave's: 8 prompts of 256 rows through the 3B's 28 and the 1B's 16
+    layers)."""
     g = torch.Generator(device=dev).manual_seed(11)
-    rows, max_err = {}, 0.0
-    for K, N in QMM_3B + QMM_1B:
-        L = max(2, (200 << 20) // (K * N))  # > 200 MB of weights: beyond L2
-        w = torch.randint(-128, 128, (L, K, N), generator=g, dtype=torch.int8, device=dev)
-        sc = torch.rand((L, N), generator=g, device=dev) * (0.02 / 127) + 1e-5
-        x = torch.randn((max(QMM8_M), K), generator=g, device=dev).bfloat16()
-        outs = {}
-        for M in QMM8_M:
-            got = quant_matmul_int8(x[:M], w[0], sc[0])
-            max_err = max(max_err, qmm_within(8, got, quant_matmul_plain_int8(x[:M].float(), w[0],
-                                                                            sc[0])))
-            for m_prev, prev in outs.items():  # the same bits for a row at every M
-                assert torch.equal(got[:m_prev], prev), (K, N, M, m_prev, "M-dependent rounding")
-            outs[M] = got
-        del outs
-        cyc = Cycle(L)
-        for M in QMM8_M:
-            xm = x[:M].contiguous()
-            ms = median_ms(lambda: quant_matmul_int8(xm, w[cyc()], sc[cyc.i]))
-            plain = median_ms(lambda: quant_matmul_plain_int8(xm, w[cyc()], sc[cyc.i]), iters=10)
-            lib = median_ms(lambda: torch.matmul(xm, w[cyc()].to(torch.bfloat16)) * sc[cyc.i],
-                            iters=10)
-            b, by = bound_ms(K * N + 4 * N + 2 * M * K + 2 * M * N, 2 * M * K * N)
-            rows[(K, N, M)] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b, bound_by=by)
-            log(f"quant_matmul_int8 K={K} N={N} M={M}: {ms:.4f} ms  plain {plain:.4f}  "
-                f"library {lib:.4f}  bound {b:.4f} ({by})")
-        log(f"quant_matmul_int8 K={K} N={N}: within tolerance at M = {QMM8_M}, every row the "
-            f"same bits at every M")
-        del w, sc
+    rows, max_err = qmm_decode(dev, 8, g, {"3B": (QMM_3B, QMM8_TIME_M),
+                                            "1B": (QMM_1B, QMM8_TIME_M)})
     # One K=4 decode step at B=1: 4 draft forwards of 16 1B layers at M=1,
     # one verify of 28 3B layers at M=5.
-    step = [(k, n, 1, 4 * 16) for k, n in QMM_1B] + [(k, n, 5, 28) for k, n in QMM_3B]
-    serve = [(k, n, 8, 4 * 16) for k, n in QMM_1B] + [(k, n, 40, 28) for k, n in QMM_3B]
-    log("quant_matmul_int8 one 8-slot K=4 serving step (M = 8 draft, 40 verify): "
-        + ", ".join(f"{key} {sum(rows[(k, n, m)][key] * c for k, n, m, c in serve):.4f}"
-                    for key in ("ms", "plain_ms", "library_ms", "bound_ms")))
+    step = [(QMM_1B, 1, 4 * 16), (QMM_3B, 5, 28)]
+    log_step("quant_matmul_int8", "one K=4 B=1 step (M = 1 draft, 5 verify)", rows, step)
+    log_step("quant_matmul_int8", "one 8-slot K=4 serving step (M = 8 draft, 40 verify)", rows,
+             [(QMM_1B, 8, 4 * 16), (QMM_3B, 40, 28)])
     pre, pre_err, across = qmm_prefill(dev, 8, g)
-    log(f"quant_matmul_int8: {across} rows differ between the split-K kernel and the "
+    log(f"quant_matmul_int8: {across} rows differ between the decode body and the "
         f"tensor-core path over {sum(map(len, QMM_WIDTHS.values()))} shapes")
     wave = [(k, n, 2048, 28) for k, n in QMM_3B] + [(k, n, 2048, 16) for k, n in QMM_1B]
-    return prefill_agg(rows, step, max_err), prefill_agg(pre, wave, pre_err)
+    return sum_rows(rows, calls(step), max_err), sum_rows(pre, wave, pre_err)
 
 
 def int8_kv(g, dev, shape, last=None):
@@ -1638,7 +1677,7 @@ def phase_kv_alignment(eng):
     position on an H100 80GB HBM3, tests/torch_kv_align_probe.py); the
     rms_norm kernel sums each row in a fixed order, but an op that rounds a
     row differently at another M (kernel B: the 5-row verify through its
-    split-K kernel, the 256-row prefill through its tensor-core path)
+    decode body, the 256-row prefill through its tensor-core path)
     still moves bf16 values by a bf16 step,
     about one int8 step of their row, and the int8 rounding adds up to one
     more. So the tolerance stays KV_ALIGN_STEPS steps of the largest
@@ -1683,22 +1722,23 @@ def kernel_wrappers():
 
 RMS_NORM_OP = "rms_norm (kernel, fixed order)"
 D_VS_F = "D vs F rows at the serving shapes"
-ACROSS_MMA = "kernel {} across MMA_MIN_M (split-K kernel alone vs tensor-core path)"
+ACROSS_MMA = "kernel {} across MMA_MIN_M (decode body alone vs tensor-core path)"
 
 
 def row_stability(eng, dev):
     """Each dense op of a forward on 40 random rows, computed one row at a
     time (M = 1) and together as the first M = 2, 5, 8, 16, 40 rows (B=1
     generate runs M = 1, 2 at K=1 and 1, 5 at K=4; the 8-slot batcher 8, 16
-    or 8, 40): for each M, how many rows differ in any bit from the row
-    alone. Random rows can miss a rounding that a real row shows
-    (tests/torch_kv_align_probe.py). Then the projection kernel across
-    MMA_MIN_M: MMA_MIN_M rows together (its tensor-core path, which every
-    prefill takes) against the same rows alone (its split-K kernel, which
-    every decode step takes); a row that one run prefills and another
-    decodes through this op can part there. Then D against F over the same
-    keys at the serving step's shapes: F runs D's body, so no row may
-    differ (asserted)."""
+    or 8, 40), and the projection kernel also at 63 (its decode body's
+    largest M): for each M, how many rows differ in any bit from the row
+    alone; 0 for rms_norm and the projection kernel (asserted). Random rows
+    can miss a rounding that a real row shows (tests/torch_kv_align_probe.py).
+    Then the projection kernel across MMA_MIN_M: MMA_MIN_M rows together
+    (its tensor-core path, which every prefill takes) against the same rows
+    alone (its decode body, which every decode step takes); a row that one
+    run prefills and another decodes through this op can part there. Then D
+    against F over the same keys at the serving step's shapes: F runs D's
+    body, so no row may differ (asserted)."""
     from llm_inference_lab_tpu_torch.models.transformer import lm_head_logits, rms_norm
     from llm_inference_lab_tpu_torch.ops.quant import dense
     from llm_inference_lab_tpu_torch.ops.quant_matmul import MMA_MIN_M
@@ -1724,11 +1764,12 @@ def row_stability(eng, dev):
         n = MMA_MIN_M if name == kernel else 40
         alone = torch.cat([fn(x[i:i + 1].contiguous()) for i in range(n)])
         out[name] = {M: int((fn(x[:M].contiguous()) != alone[:M]).any(-1).sum())
-                     for M in (2, 5, 8, 16, 40)}
+                     for M in (2, 5, 8, 16, 40) + ((MMA_MIN_M - 1,) if name == kernel else ())}
         if name == kernel:
             out[ACROSS_MMA.format("A" if w.bits == 4 else "B")] = {
                 MMA_MIN_M: int((fn(x) != alone).any(-1).sum())}
     assert not any(out[RMS_NORM_OP].values()), ("rms_norm rows depend on M", out[RMS_NORM_OP])
+    assert not any(out[kernel].values()), ("projection rows depend on M", out[kernel])
     out[D_VS_F] = attention_rows(eng, dev)
     assert not any(out[D_VS_F].values()), ("D and F differ", out[D_VS_F])
     return out
@@ -1822,14 +1863,14 @@ def phase_serving(dev, eng, profile, max_len, path, label):
         f"{st['steps']} steps, {st['admit_waves']} admission waves, mean occupied slots "
         f"{st['mean_occupied_slots']:.2f}, peak memory {peak_mb:.1f} MB")
     # The ops that round a row differently at another M, or between the
-    # split-K kernel and the tensor-core path of A or B (D and F must give
-    # the same bits: row_stability asserts it): where two runs of one prompt
-    # part, the gap must be a near tie and one of these must have rounded
-    # differently.
+    # decode body and the tensor-core path of A or B (D and F must give the
+    # same bits, and A's or B's decode body a row's bits at every M:
+    # row_stability asserts both): where two runs of one prompt part, the
+    # gap must be a near tie and one of these must have rounded differently.
     stability = row_stability(eng, dev)
-    log("row stability (rows of M that differ from the row alone, M = 2/5/8/16/40, and "
-        f"at MMA_MIN_M across A's or B's two kernels; {D_VS_F}: rows that differ at S = "
-        "1/K+1, asserted 0): "
+    log("row stability (rows of M that differ from the row alone, M = 2/5/8/16/40 (and 63 "
+        f"for A or B, asserted 0, as for rms_norm), and at MMA_MIN_M across A's or B's two "
+        f"kernels; {D_VS_F}: rows that differ at S = 1/K+1, asserted 0): "
         + "; ".join(f"{op}: {'/'.join(str(d[m]) for m in sorted(d))}"
                     for op, d in stability.items()))
     unstable = [op for op, d in stability.items() if any(d.values())]
@@ -1941,7 +1982,7 @@ def main(argv):
     t0 = time.perf_counter()
     qmm4_step, qmm4_prefill = phase_quant_matmul(dev)
     kernels = {
-        "quant_matmul_int4": (qmm4_step, "quant_matmul_int4.cu", "ops/pallas/quant_matmul.py:76",
+        "quant_matmul_int4": (qmm4_step, "qmm_decode.cuh", "ops/pallas/quant_matmul.py:76",
                               step),
         "quant_matmul_int4_mma": (
             qmm4_prefill, "qmm_mma.cuh", "ops/pallas/quant_matmul.py:76",
@@ -1960,7 +2001,7 @@ def main(argv):
     }
     qmm8_step, qmm8_prefill = phase_quant_matmul_int8(dev)
     kernels |= {
-        "quant_matmul_int8": (qmm8_step, "quant_matmul_int8.cu", "ops/pallas/quant_matmul.py:58",
+        "quant_matmul_int8": (qmm8_step, "qmm_decode.cuh", "ops/pallas/quant_matmul.py:58",
                               step8),
         "quant_matmul_int8_mma": (
             qmm8_prefill, "qmm_mma.cuh", "ops/pallas/quant_matmul.py:58",

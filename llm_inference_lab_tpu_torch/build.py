@@ -39,14 +39,16 @@ F = ctypes.c_float
 # C signatures: every entry returns the cudaError_t of its launches as int.
 SIGNATURES = {
     "quant_matmul_int4": {
-        # x, w, scale, workspace, out, M, K, N, ksplit, stream
-        "qmm_int4": [P, P, P, P, P, I, I, I, I, P],
-        # the tensor-core path (M >= 64): the same arguments
+        # the decode body (M < 64): x, w, scale, workspace, counters, out, M,
+        # K, N, ksplit, stream
+        "qmm_int4": [P, P, P, P, P, P, I, I, I, I, P],
+        # the tensor-core prefill path (M >= 64): x, w, scale, workspace,
+        # out, M, K, N, ksplit, stream
         "qmm_int4_mma": [P, P, P, P, P, I, I, I, I, P],
     },
     "quant_matmul_int8": {
         # the arguments of qmm_int4 and qmm_int4_mma, w int8 [K, N]
-        "qmm_int8": [P, P, P, P, P, I, I, I, I, P],
+        "qmm_int8": [P, P, P, P, P, P, I, I, I, I, P],
         "qmm_int8_mma": [P, P, P, P, P, I, I, I, I, P],
     },
     "flash_decode": {

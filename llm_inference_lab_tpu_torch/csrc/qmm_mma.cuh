@@ -5,7 +5,7 @@
 //
 // with bf16 x, int4 (v2 split-K halves) or int8 weights, f32 accumulation,
 // the scale in f32 and one rounding to bf16, read from the same bytes as
-// the split-K CUDA-core kernels of the two files (which keep M < 64).
+// the decode body (csrc/qmm_decode.cuh), which takes M < 64.
 //
 // Replaces, for prefill shapes: llm_inference_lab_tpu/ops/pallas/
 // quant_matmul.py quant_matmul_pallas (_kernel_int4, _kernel_int8), whose
@@ -317,8 +317,8 @@ mma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
 }
 
 // out = (0 + the K splits' partial sums in ascending order) * scale, bf16:
-// the second pass of both kernels' K split (this path's and the split-K
-// kernel's of quant_matmul_int4.cu and quant_matmul_int8.cu).
+// the second pass of this path's K split (the decode body combines its
+// splits inside its own launch).
 __global__ void finish_kernel(const float* __restrict__ ws, const float* __restrict__ scale,
                               __nv_bfloat16* __restrict__ out, int M, int N, int ksplit) {
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;

@@ -5,16 +5,17 @@ Port of llm_inference_lab_tpu/ops/pallas/quant_matmul.py (int4 and int8
 paths) and of its reference quant_matmul_xla. On a CPU tensor
 ``quant_matmul`` and ``quant_matmul_int8`` run their plain versions; on a
 CUDA tensor they launch csrc/quant_matmul_int4.cu and
-csrc/quant_matmul_int8.cu or raise. Each file holds two kernels, routed by
+csrc/quant_matmul_int8.cu or raise. Each file holds two bodies, routed by
 M alone: below MMA_MIN_M rows (every decode and verify call: M = 1, 2, 5,
-8, 16, 40) the split-K CUDA-core kernel, whose outputs sum in an order that
-depends on (K, N) only; at MMA_MIN_M rows and above (prefills: M = 160,
-Mistral's 512-row chunks, admission waves of G * P rows, where the TPU
-dispatcher sent M > 32 to XLA) the tensor-core path of csrc/qmm_mma.cuh,
-through ``quant_matmul_mma`` and ``quant_matmul_int8_mma``, each with its
-own launch count, whose sums follow a k order fixed by (K, N) too
-(``mma_plan``). So within each path a row rounds alike at every M; the two
-paths round a row differently (chip_smoke.py's row_stability counts it).
+8, 16, 40) the decode body of csrc/qmm_decode.cuh (tensor cores, every row
+of x in one block, one launch a call, the K split by ``decode_plan``);
+at MMA_MIN_M rows and above (prefills: M = 160, Mistral's 512-row chunks,
+admission waves of G * P rows, where the TPU dispatcher sent M > 32 to XLA)
+the tensor-core path of csrc/qmm_mma.cuh, through ``quant_matmul_mma`` and
+``quant_matmul_int8_mma``, each with its own launch count. Both sum a row in
+an order fixed by (K, N) and the weight type, never by M (``decode_plan``,
+``mma_plan``), so within each body a row rounds alike at every M; the two
+bodies round a row differently (chip_smoke.py's row_stability counts it).
 """
 
 from __future__ import annotations
@@ -22,10 +23,12 @@ from __future__ import annotations
 import torch
 
 from llm_inference_lab_tpu_torch import build
+from llm_inference_lab_tpu_torch.ops.flash_decode import data_ptrs, ticket_counters
 
-BN = 256  # kernel columns per block
-SPLIT_ROWS = 64  # the kernels split K in units of this many weight rows
-TARGET_BLOCKS = 4 * 132  # about four blocks per H100 SM
+DECODE_BN = 256  # decode body: output columns a block
+DECODE_KTILE = 64  # decode body: weight rows a k-tile (packed rows at int4)
+SMS = 132  # H100 SXM streaming multiprocessors
+DECODE_MIN_BLOCKS = 96  # the decode plan's floor on blocks a call
 MMA_MIN_M = 64  # rows from which the tensor-core path takes the call
 MMA_BN = 128  # tensor-core path: output columns a block
 MMA_KTILE = 64  # tensor-core path: k-values a k-tile (its unit of K split)
@@ -52,18 +55,19 @@ def quant_matmul_plain_int8(x: torch.Tensor, w: torch.Tensor, scale: torch.Tenso
     return y.to(x.dtype)
 
 
-def ksplit_for(K: int, N: int, bits: int = 4) -> int:
-    """How many blocks share the K reduction of one column block: the largest
-    divisor of the chunk count that keeps the grid near TARGET_BLOCKS. It
-    depends on (K, N) only, never on M, so every M sums in the same order.
-    A weight row holds K/2 packed bytes at 4 bits, K at 8."""
-    chunks = (K // 2 if bits == 4 else K) // SPLIT_ROWS
-    nblk = N // BN
-    best = 1
-    for d in range(1, chunks + 1):
-        if chunks % d == 0 and nblk * d <= TARGET_BLOCKS:
-            best = d
-    return best
+def decode_plan(K: int, N: int, bits: int = 4) -> int:
+    """The decode body's K split, from (K, N) and the weight type alone:
+    with the fixed column tile and k-tile it is all that decides the order
+    of a row's sums, so every M rounds a row alike. As many splits as keep
+    the grid of N / DECODE_BN column tiles at one block an SM or fewer, and
+    one more where that leaves fewer than DECODE_MIN_BLOCKS blocks; at most
+    one a k-tile. Split z takes k-tiles [z nk / ks, (z + 1) nk / ks)."""
+    ktiles = (K // 2 if bits == 4 else K) // DECODE_KTILE
+    nblk = N // DECODE_BN
+    ks = max(1, SMS // nblk)
+    if nblk * ks < DECODE_MIN_BLOCKS:
+        ks += 1
+    return max(1, min(ks, ktiles))
 
 
 def takes_mma(M: int) -> bool:
@@ -87,11 +91,10 @@ def mma_plan(K: int, N: int, bits: int = 4) -> int:
 def _launch(name: str, x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
             bits: int, mma: bool = False) -> torch.Tensor:
     """Check the operands of kernel A (bits 4, w [K/2, N]) or B (bits 8,
-    w [K, N]) and launch it, its split-K kernel or (mma) its tensor-core
-    path: bf16 x, int8 w, f32 scale [N], N a multiple of 256, K a multiple
-    of the split unit, contiguous operands on one device and w (for the
-    tensor-core path x too) 16-byte aligned (a layer's view of the stacked
-    weight qualifies)."""
+    w [K, N]) and launch its decode body or (mma) its tensor-core path: bf16
+    x, int8 w, f32 scale [N], N a multiple of 256, K of 64, contiguous
+    operands on one device, x and w 16-byte aligned (a layer's view of the
+    stacked weight qualifies)."""
     M, K = x.shape
     N = w.shape[-1]
     rows = K // 2 if bits == 4 else K
@@ -99,31 +102,35 @@ def _launch(name: str, x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
         raise TypeError(f"{name} kernel takes bf16 x, int8 w, f32 scale")
     if w.shape != (rows, N) or scale.shape != (N,) or (bits == 4 and K % 2):
         raise ValueError(f"bad shapes x {tuple(x.shape)} w {tuple(w.shape)} scale {tuple(scale.shape)}")
-    if N % BN or rows % SPLIT_ROWS:
-        raise ValueError(f"{name} kernel needs N % {BN} == 0 and K % {K // rows * SPLIT_ROWS} "
-                         f"== 0, got K={K} N={N}")
+    if N % DECODE_BN or K % MMA_KTILE:
+        raise ValueError(f"{name} kernel needs N % {DECODE_BN} == 0 and K % {MMA_KTILE} == 0, "
+                         f"got K={K} N={N}")
     if not (x.is_contiguous() and w.is_contiguous() and scale.is_contiguous()):
         raise ValueError(f"{name} kernel needs contiguous operands")
-    if w.data_ptr() % 16 or not (w.device == x.device == scale.device):
-        raise ValueError(f"{name} kernel needs w 16-byte aligned and all operands on one device")
+    if x.data_ptr() % 16 or w.data_ptr() % 16 or not (w.device == x.device == scale.device):
+        raise ValueError(f"{name} kernel needs x and w 16-byte aligned and all operands on one "
+                         "device")
+    if M < 1:
+        raise ValueError(f"{name} kernel needs M >= 1")
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    lib = build.library(name)
     if mma:
-        if x.data_ptr() % 16 or M < 1:
-            raise ValueError(f"{name} tensor-core path needs x 16-byte aligned and M >= 1")
         ks = mma_plan(K, N, bits)
         ws = torch.empty((ks, M, N), dtype=torch.float32, device=x.device) if ks > 1 else None
-        out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
-        err = getattr(build.library(name), f"qmm_int{bits}_mma")(
-            x.data_ptr(), w.data_ptr(), scale.data_ptr(), 0 if ws is None else ws.data_ptr(),
-            out.data_ptr(), M, K, N, ks, stream)
+        err = getattr(lib, f"qmm_int{bits}_mma")(
+            x.data_ptr(), w.data_ptr(), scale.data_ptr(), *data_ptrs(ws), out.data_ptr(), M, K,
+            N, ks, stream)
         build.check(err, name + " (tensor-core path)")
         return out
-    ks = ksplit_for(K, N, bits)
-    ws = torch.empty((ks, M, N), dtype=torch.float32, device=x.device)
-    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
-    err = getattr(build.library(name), f"qmm_int{bits}")(
-        x.data_ptr(), w.data_ptr(), scale.data_ptr(), ws.data_ptr(), out.data_ptr(), M, K, N,
-        ks, stream)
+    ks = decode_plan(K, N, bits)
+    ws = counters = None
+    if ks > 1:
+        ws = torch.empty((ks, M, N), dtype=torch.float32, device=x.device)
+        counters = ticket_counters(x.device, N // DECODE_BN)
+    err = getattr(lib, f"qmm_int{bits}")(
+        x.data_ptr(), w.data_ptr(), scale.data_ptr(), *data_ptrs(ws, counters), out.data_ptr(),
+        M, K, N, ks, stream)
     build.check(err, name)
     return out
 

@@ -619,6 +619,7 @@ def test_paged_flash_rejects_page_size_not_a_power_of_two(card):
 
 QMM_SHAPES = [(3072, 5120), (8192, 2048), (2048, 2048)]  # 3B qkv, 1B down and o
 QMM_MMA_M = (64, 160, 512, 2048)
+QMM_DECODE_M = (1, 2, 5, 8, 16, 40, 63)
 
 
 def _qmm_inputs(card, bits, K, N, M):
@@ -663,20 +664,91 @@ def test_qmm_tensor_core_path_matches_plain_and_rows_ignore_m(card, bits, K, N):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bits", [4, 8])
-def test_qmm_decode_shapes_stay_on_the_split_k_kernel(card, bits):
-    """M = 1, 2, 5, 8, 16, 40 and 63 launch the split-K kernel (its own
-    count; the tensor-core path's count stays), every row with the same
-    bits at each of them."""
+def test_qmm_decode_shapes_take_the_decode_body(card, bits):
+    """M = 1, 2, 5, 8, 16, 40 and 63 launch the decode body (csrc/
+    qmm_decode.cuh), one launch a call on its own count (the tensor-core
+    path's count stays), every row with the same bits at each of them."""
     K, N = 3072, 5120
     x, w, scale = _qmm_inputs(card, bits, K, N, 63)
     kernel, mma = ((quant_matmul, quant_matmul_mma) if bits == 4 else
                    (quant_matmul_int8, quant_matmul_int8_mma))
     before, before_mma = kernel.launches, mma.launches
-    ms = (1, 2, 5, 8, 16, 40, MMA_MIN_M - 1)
-    outs = {M: kernel(x[:M], w, scale) for M in ms}
-    assert kernel.launches == before + len(ms) and mma.launches == before_mma
-    for M in ms:
+    outs = {M: kernel(x[:M], w, scale) for M in QMM_DECODE_M}
+    assert kernel.launches == before + len(QMM_DECODE_M) and mma.launches == before_mma
+    for M in QMM_DECODE_M:
         assert torch.equal(outs[M], outs[MMA_MIN_M - 1][:M]), M
+
+
+# (K, N) of every projection the decode paths run: the 3B and 1B, Gemma-2
+# 9B and 2B, Mistral-7B and its untied head (N = 32000 = 125 x 256).
+QMM_DECODE_WIDTHS = {
+    "3B": [(3072, 5120), (3072, 3072), (3072, 16384), (8192, 3072)],
+    "1B": [(2048, 3072), (2048, 2048), (2048, 16384), (8192, 2048)],
+    "Gemma-2 9B": [(3584, 8192), (4096, 3584), (3584, 28672), (14336, 3584)],
+    "Gemma-2 2B": [(2304, 4096), (2048, 2304), (2304, 18432), (9216, 2304)],
+    "Mistral-7B": [(4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096), (4096, 32000)],
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", list(QMM_DECODE_WIDTHS))
+@pytest.mark.parametrize("bits", [4, 8])
+def test_qmm_decode_matches_plain_and_rows_ignore_m(card, bits, width):
+    """The decode body at every projection of a width, at M = 1, 2, 5, 8, 16,
+    40 and 63 (the first M rows of one x, random bytes, -128 included):
+    within the tolerance of the plain version on the same inputs in f32 (A:
+    1e-2 of the largest output; B: 2^-8 |ref| + 2^-14 of the largest, as
+    test_qmm_tensor_core_path_matches_plain_and_rows_ignore_m), every row
+    with the same bits as the row computed alone (M = 1), and two calls
+    back to back on the same weights with the same bits (the split's ticket
+    counters are zero again after each launch)."""
+    kernel, plain = ((quant_matmul, quant_matmul_plain) if bits == 4 else
+                     (quant_matmul_int8, quant_matmul_plain_int8))
+    for K, N in QMM_DECODE_WIDTHS[width]:
+        x, w, scale = _qmm_inputs(card, bits, K, N, max(QMM_DECODE_M))
+        alone = torch.cat([kernel(x[i:i + 1], w, scale) for i in range(max(QMM_DECODE_M))])
+        for M in QMM_DECODE_M:
+            before = kernel.launches
+            got = kernel(x[:M], w, scale)
+            assert kernel.launches == before + 1
+            ref = plain(x[:M].float(), w, scale)
+            err = (got.float() - ref).abs()
+            if bits == 4:
+                assert err.max() <= 1e-2 * ref.abs().max(), (K, N, M, err.max())
+            else:
+                assert torch.all(err <= 2.0 ** -8 * ref.abs() + 2.0 ** -14 * ref.abs().max()), \
+                    (K, N, M)
+            assert torch.equal(got, alone[:M]), (K, N, M)
+        assert torch.equal(kernel(x[:40], w, scale), kernel(x[:40], w, scale)), (K, N)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [4, 8])
+def test_qmm_decode_rejects_what_it_does_not_take(card, bits):
+    """Misaligned or strided x or w, a wrong dtype, and N not a multiple of
+    256 raise before any launch."""
+    K, N = 2048, 2048
+    kernel = quant_matmul if bits == 4 else quant_matmul_int8
+    rows = K // 2 if bits == 4 else K
+    x = torch.zeros((4 * K + 8,), device=card, dtype=torch.bfloat16)
+    w = torch.zeros((rows * N + 16,), device=card, dtype=torch.int8)
+    scale = torch.ones((N,), device=card)
+    before = kernel.launches
+    with pytest.raises(ValueError, match="aligned"):
+        kernel(x[1:2 * K + 1].view(2, K), w[:rows * N].view(rows, N), scale)
+    with pytest.raises(ValueError, match="aligned"):
+        kernel(x[:2 * K].view(2, K), w[1:rows * N + 1].view(rows, N), scale)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel(x[:4 * K].view(2, 2 * K)[:, :K], w[:rows * N].view(rows, N), scale)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel(x[:2 * K].view(2, K), w[:rows * N].view(N, rows).t(), scale)
+    with pytest.raises(TypeError):
+        kernel(x[:2 * K].view(2, K), w[:rows * N].view(rows, N), scale.double())
+    with pytest.raises(TypeError):
+        kernel(x[:2 * K].view(2, K).half(), w[:rows * N].view(rows, N), scale)
+    with pytest.raises(ValueError, match="N % 256"):
+        kernel(x[:2 * K].view(2, K), w[:rows * 128].view(rows, 128), scale[:128])
+    assert kernel.launches == before
 
 
 @pytest.mark.cuda

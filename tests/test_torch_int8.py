@@ -45,7 +45,9 @@ from llm_inference_lab_tpu_torch.models.paged import (
 )
 from llm_inference_lab_tpu_torch.ops import quant as tq
 from llm_inference_lab_tpu_torch.ops.quant_matmul import (
-    ksplit_for,
+    DECODE_BN,
+    DECODE_KTILE,
+    decode_plan,
     quant_matmul_int8,
     quant_matmul_plain_int8,
 )
@@ -109,15 +111,15 @@ def test_int8_wrapper_uses_plain_version_only_for_cpu_tensors():
 
 
 def test_int8_ksplit_depends_on_shape_only():
-    """Kernel B's split of K never depends on M (so every M sums in the same
-    order), divides the 64-row chunks, and fills the card, at every shape
-    of the int8 path."""
+    """Kernel B's split of K at decode (decode_plan) has no M to depend on
+    (so every M sums in the same order), cuts the 64-row k-tiles into whole
+    ranges, and fills the card, at every shape of the int8 path."""
     for K, N in PATH_SHAPES:
-        ks = ksplit_for(K, N, bits=8)
-        assert (K // 64) % ks == 0
-        assert (N // 256) * ks <= 4 * 132
-        assert (N // 256) * ks >= 96
-        assert ks >= ksplit_for(K, N)  # twice the rows of int4: at least the same split
+        ks = decode_plan(K, N, bits=8)
+        assert K % DECODE_KTILE == 0 and 1 <= ks <= K // DECODE_KTILE
+        assert (N // DECODE_BN) * ks <= 2 * 132
+        assert (N // DECODE_BN) * ks >= 96
+        assert ks == decode_plan(K, N)  # the split follows the column tiles, as int4's
 
 
 def _rows(rng, shape, dtype):

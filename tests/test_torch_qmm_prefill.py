@@ -12,7 +12,7 @@ magnitude: f32 1e-5 (summation order), bf16 2e-2 (every output rounds to
 bf16, ~2^-8, and the two sides sum in another order). Inputs are made with
 numpy from a seed. The route and the tensor-core path's K split are pure
 Python and tested here: M decides the route only through MMA_MIN_M, so
-every decode and verify shape (1 to 40 rows) stays on the split-K kernel,
+every decode and verify shape (1 to 40 rows) stays on the decode body,
 and the split is a function of (K, N) and the weight type, never of M.
 """
 
@@ -73,9 +73,9 @@ def test_prefill_matches_quant_matmul_xla(bits, K, N, dtype):
 def test_route_depends_on_m_only_through_mma_min_m():
     """Every decode and verify shape of the paths (B=1 draft and verify at
     K = 1 and 4, the 8-slot serving step up to its K=4 verify of 40 rows)
-    stays on the split-K kernel; every prefill (a 160-row prompt, Mistral's
-    512-row chunks, admission waves of G x P rows) takes the tensor-core
-    path."""
+    stays on the decode body (csrc/qmm_decode.cuh); every prefill (a
+    160-row prompt, Mistral's 512-row chunks, admission waves of G x P
+    rows) takes the tensor-core path."""
     assert MMA_MIN_M == 64
     for M in (1, 2, 5, 8, 16, 40, MMA_MIN_M - 1):
         assert not takes_mma(M), M

@@ -6,6 +6,8 @@ PyTorch version. The CUDA kernel itself is held to the plain version on the
 card by tests/test_torch_cuda.py and by chip_smoke.py.
 """
 
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,7 +19,9 @@ from llm_inference_lab_tpu.ops.pallas.quant_matmul import quant_matmul_pallas
 from llm_inference_lab_tpu_torch.convert import params_from_jax, to_tensor
 from llm_inference_lab_tpu_torch.ops import quant as tq
 from llm_inference_lab_tpu_torch.ops.quant_matmul import (
-    ksplit_for,
+    DECODE_BN,
+    DECODE_KTILE,
+    decode_plan,
     quant_matmul,
     quant_matmul_plain,
 )
@@ -145,14 +149,17 @@ def test_convert_keeps_bf16_bits():
 
 
 def test_ksplit_depends_on_shape_only():
-    """The kernel's split of K never depends on M (so M = 1 and M = 2 sum in
-    the same order), divides the staged chunks, and fills the card."""
+    """The decode body's split of K (decode_plan) has no M to depend on (so
+    M = 1 and M = 2 sum in the same order), cuts the 64-packed-row k-tiles
+    into whole ranges, and fills the card, at every int4 shape of the main
+    path."""
+    assert list(inspect.signature(decode_plan).parameters) == ["K", "N", "bits"]
     for K, N in [(3072, 5120), (3072, 3072), (3072, 16384), (8192, 3072),
                  (2048, 3072), (2048, 2048), (2048, 16384), (8192, 2048)]:
-        ks = ksplit_for(K, N)
-        assert ((K // 2) // 64) % ks == 0
-        assert (N // 256) * ks <= 4 * 132
-        assert (N // 256) * ks >= 96  # most of the 132 SMs get a block
+        ks = decode_plan(K, N)
+        assert (K // 2) % DECODE_KTILE == 0 and 1 <= ks <= (K // 2) // DECODE_KTILE
+        assert (N // DECODE_BN) * ks <= 2 * 132
+        assert (N // DECODE_BN) * ks >= 96  # most of the 132 SMs get a block
 
 
 def test_wrapper_uses_plain_version_only_for_cpu_tensors():
