@@ -13,7 +13,9 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
  1. build every kernel from csrc/ (one nvcc per source, in parallel);
  2. each kernel against its plain PyTorch version on the card, at the
     shapes its path gives it (rms_norm at every model's width, rows
-    bit-independent of M), with its time, the plain version's, one
+    bit-independent of M; the fused add_rms_norm bit for bit torch's add
+    then rms_norm at every width and M = 1 to 2048, with Gemma-2's post
+    weight), with its time, the plain version's, one
     library call's and the bound (bytes at 3.35 TB/s, operations at 989
     TFLOP/s bf16): quant_matmul_int4 (kernel A: its decode body,
     csrc/qmm_decode.cuh, at every width's projections, 3B, 1B, Gemma-2 9B
@@ -23,7 +25,9 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
     csrc/qmm_mma.cuh, at M = 64, 160, 512 and 2048 at the 3B, 1B, Gemma-2 9B and Mistral-7B
     widths, every row's bits independent of M within each, the rows that
     differ between the two counted, timed at M = 160, 512, 2048),
-    flash_decode and verify_prefix at the B=1 main path's shapes,
+    flash_decode at the B=1 main path's shapes, verify_prefix (split over
+    V) exactly its plain version at every vocabulary of the paths and its
+    edge cases (ties across splits, NaN, unaligned and strided rows),
     flash_prefill at admission prefills (and resumed chunks), paged_flash
     at the serving step's (F gives D's bits on the same keys); then the int8
     kernels: quant_matmul_int8 (kernel B, the same decode body) at every
@@ -52,7 +56,9 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
     llama-3.2-1b draft (random weights from a seed, int8 embedding/tied
     head), K=1, greedy, 64 new tokens, max_seq_len 512, on bench.py's
     prompt: one warm-up, three timed generate calls with every kernel's
-    launch count set to 0 just before and read just after; greedy spec ids
+    launch count set to 0 just before and read just after (rms_norm once a
+    forward, add_rms_norm twice a layer, asserted on every path, and each
+    path's ids logged as a digest to compare commits); greedy spec ids
     must equal a baseline run's and repeat exactly, logprobs finite, and a
     run drafting with the target's own weights must accept drafts and give
     the same ids;
@@ -99,6 +105,7 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
 Without CUDA it exits non-zero before printing any result.
 """
 
+import hashlib
 import json
 import math
 import statistics
@@ -164,6 +171,10 @@ LAYERS = {64: 16, 128: 28}  # layers of the model with that head dim
 SERVE_PROMPTS = ["The quick brown fox jumps over the lazy dog. " * (1 + i % 8) for i in range(16)]
 SERVE_BUDGETS = [(16, 32, 48, 64)[i % 4] for i in range(16)]
 SERVE_SLOTS, SERVE_PAGE, SERVE_MAX_LEN = 8, 64, 1024
+# The main path (phases 3 and 3b): bench.py's int4 3B + 1B at K=1.
+INT4_CFG = dict(base_model="llama-3.2-3b", draft_model="llama-3.2-1b", max_draft=1,
+                max_new_tokens=64, max_seq_len=512, quantization="int4", quantized_init=True,
+                quantize_embed=True, seed=0)
 # The int8 path (phases 4 and 5): configs/llama32_int8.yaml's engine
 # settings with the int8 KV cache.
 INT8_CFG = dict(base_model="llama-3.2-3b", draft_model="llama-3.2-1b", max_draft=4,
@@ -205,11 +216,12 @@ RING_LEN = 4736  # round_up(window 4096 + chunk 512 + K 4 + 2, 128)
 MISTRAL_LONG = PROMPT * 40  # 5400 byte tokens: P = 5632 (11 chunks of 512), max_len 5760
 MISTRAL_LONG_SHAPE = (5400, 5632, 5760)  # tokens, prompt block P, max_len
 P_RING = 5400  # a decode position of the long prompt: its window wraps the ring
-# The kernels each path must launch (and no other): the norm and the
+# The kernels each path must launch (and no other): the norms (rms_norm
+# once a forward, add_rms_norm twice a layer a forward) and the
 # projections' two kernels (decode rows through the decode body, prefill
 # rows through the tensor-core path) on every path, then its attention.
-INT4 = {"rms_norm", "quant_matmul_int4", "quant_matmul_int4_mma"}
-INT8 = {"rms_norm", "quant_matmul_int8", "quant_matmul_int8_mma"}
+INT4 = {"rms_norm", "add_rms_norm", "quant_matmul_int4", "quant_matmul_int4_mma"}
+INT8 = {"rms_norm", "add_rms_norm", "quant_matmul_int8", "quant_matmul_int8_mma"}
 SPEC = {"flash_decode", "flash_prefill", "verify_prefix"}
 SERVE = {"flash_prefill", "paged_flash", "verify_prefix"}
 PATH_KERNELS = {
@@ -554,50 +566,127 @@ def phase_flash_decode(dev):
     return agg
 
 
+VERIFY_V = (128256, 256000, 32000)  # the Llama-3, Gemma-2 and Mistral vocabularies
+VERIFY_ODD_V = 50257  # a vocabulary whose rows leave 16-byte alignment (gpt2's)
+
+
+def verify_cases(g, dev):
+    """Kernel C's cases: {name: (draft, logits)}. The main path's [1, 1, V]
+    view of [1, 2, V] for each of VERIFY_V; [8, 4, V] as the first K rows of
+    [8, 5, V] with a forced tie, a mismatch, a NaN in a matching row, an
+    all-NaN row and an all -inf row; V = 50257 from a buffer 4 bytes past a
+    16-byte boundary; a tie across a split boundary (the lower index in the
+    earlier split, and the draft naming the higher one: reject); a NaN only
+    in the last split."""
+    from llm_inference_lab_tpu_torch.ops.verify import split_width, verify_plan
+
+    cases = {}
+    for V in VERIFY_V:
+        lg = torch.randn((1, 2, V), generator=g, device=dev)[:, :-1]
+        cases[f"[1,1,{V}]"] = (torch.argmax(lg, -1).to(torch.int32), lg)
+    V = VERIFY_V[0]
+    lg = torch.randn((8, 5, V), generator=g, device=dev)[:, :4]
+    d = torch.argmax(lg, -1).to(torch.int32)
+    d[1, 2] += 1
+    lg[3, 1, 7] = lg[3, 1, 9000] = lg[3, 1].max() + 1
+    d[3, 1] = 7
+    lg[0, 3, 5] = float("nan")
+    lg[2, 0, :] = float("nan")
+    lg[4, 3, :] = float("-inf")
+    d[4, 3] = 0
+    cases[f"[8,4,{V}] strided"] = (d, lg)
+    B, K, V = 2, 3, VERIFY_ODD_V
+    flat = torch.randn((B * K * V + 1,), generator=g, device=dev)
+    lg = flat[1:].view(B, K, V)
+    cases[f"[{B},{K},{V}] unaligned"] = (torch.argmax(lg, -1).to(torch.int32), lg)
+    B, K, V = 2, 2, VERIFY_V[0]
+    n = verify_plan(B * K, V)
+    w = split_width(V, n)
+    lg = torch.randn((B, K + 1, V), generator=g, device=dev)[:, :K]
+    d = torch.argmax(lg, -1).to(torch.int32)
+    top = float(lg.max()) + 1
+    lg[0, 0, w - 1] = lg[0, 0, w] = top
+    lg[0, 1, 2 * w - 1] = lg[0, 1, 2 * w] = top
+    lg[1, 1, (n - 1) * w] = float("nan")
+    d[0, 0], d[0, 1] = w - 1, 2 * w
+    cases[f"[{B},{K},{V}] tie across splits, NaN in the last"] = (d, lg)
+    return cases
+
+
 def phase_verify_prefix(dev):
-    from llm_inference_lab_tpu_torch.ops.verify import verify_prefix, verify_prefix_plain
+    """Kernel C split over V (verify_plan) at every case of verify_cases:
+    equal to the plain version and to its split plain version exactly, one
+    launch a call, the ticket counters back at 0; timed at the main path's
+    [1, 1, 128256] (and the other vocabularies) beside the plain version,
+    torch.argmax and the bound (the logits read once)."""
+    from llm_inference_lab_tpu_torch.ops.flash_decode import ticket_counters
+    from llm_inference_lab_tpu_torch.ops.verify import (
+        verify_plan,
+        verify_prefix,
+        verify_prefix_plain,
+        verify_prefix_split_plain,
+    )
 
     g = torch.Generator(device=dev).manual_seed(3)
-    V = 128256
-    # Main path: the first K rows of the [1, K+1, V] verify logits, K = 1.
-    full = torch.randn((1, 2, V), generator=g, device=dev)
-    lg1 = full[:, :-1]
-    d1 = torch.argmax(lg1, -1).to(torch.int32)
-    # [4, 4, V] with a forced tie, a NaN in a matching row, an all-NaN row.
-    lg4 = torch.randn((4, 4, V), generator=g, device=dev)
-    d4 = torch.argmax(lg4, -1).to(torch.int32)
-    d4[1, 2] += 1
-    lg4[3, 1, 7] = lg4[3, 1, 9000] = lg4[3, 1].max() + 1
-    d4[3, 1] = 7
-    lg4[0, 3, 5] = float("nan")
-    lg4[2, 0, :] = float("nan")
-    for d, lg in ((d1, lg1), (d4, lg4)):
-        got, ref = verify_prefix(d, lg), verify_prefix_plain(d, lg)
-        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), (got, ref)
-    assert verify_prefix(d4, lg4)[0].tolist() == [3, 2, 0, 4]
-    assert verify_prefix(d1, lg1)[0].tolist() == [1]
-    ms = median_ms(lambda: verify_prefix(d1, lg1))
-    plain = median_ms(lambda: verify_prefix_plain(d1, lg1))
-    lib = median_ms(lambda: torch.argmax(lg1, -1))
-    b, by = bound_ms(V * 4 + 4 + 1 + 4, V)
-    log(f"verify_prefix [1,1,{V}]: {ms:.4f} ms  plain {plain:.4f}  library {lib:.4f}  "
-        f"bound {b:.5f} ({by})  exact")
-    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b, bound_by=by, max_abs_err=0.0)
+    cases = verify_cases(g, dev)
+    for name, (d, lg) in cases.items():
+        B, K, V = lg.shape
+        ref = verify_prefix_plain(d, lg)
+        split = verify_prefix_split_plain(d, lg, verify_plan(B * K, V))
+        before = verify_prefix.launches
+        got = verify_prefix(d, lg)
+        assert verify_prefix.launches == before + 1, (name, "launches")
+        torch.cuda.synchronize()
+        for a, b in ((got, ref), (split, ref)):
+            assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]), (name, a, b)
+        assert not ticket_counters(dev, B)[:B].any(), (name, "tickets not reset")
+        log(f"verify_prefix {name} ({verify_plan(B * K, V)} splits a row): accept_len "
+            f"{got[0].tolist()} == plain == split plain, one launch")
+    assert not cases["[8,4,128256] strided"][1].is_contiguous()
+    assert verify_prefix(*cases["[8,4,128256] strided"])[0].tolist() == [3, 2, 0, 4, 4, 4, 4, 4]
+    assert verify_prefix(*cases["[2,2,128256] tie across splits, NaN in the last"])[1].tolist() \
+        == [[True, False], [True, False]]
+    agg = None
+    for V in VERIFY_V:
+        d, lg = cases[f"[1,1,{V}]"]
+        ms = median_ms(lambda: verify_prefix(d, lg))
+        plain = median_ms(lambda: verify_prefix_plain(d, lg))
+        lib = median_ms(lambda: torch.argmax(lg, -1))
+        b, by = bound_ms(V * 4 + 4 + 1 + 4, V)
+        log(f"verify_prefix [1,1,{V}] ({verify_plan(1, V)} splits): {ms:.4f} ms  plain "
+            f"{plain:.4f}  library {lib:.4f} (torch.argmax)  bound {b:.5f} ({by})  exact")
+        if agg is None:  # the main path's vocabulary
+            agg = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b, bound_by=by,
+                       max_abs_err=0.0)
+    return agg
 
 
 # d_model of every model on a path, with Gemma's one-offset weights.
 NORM_WIDTHS = ((2048, False), (3072, False), (2304, True), (3584, True), (4096, False))
 NORM_M = (1, 2, 5, 8, 16, 40, 512)
+ADD_NORM_M = (1, 2, 5, 8, 16, 40, 63, 512, 2048)
 
 
 def phase_rms_norm(dev):
     """The rms_norm kernel at every path's width (1B, 3B, Gemma-2 2B and 9B
     with one-offset weights, Mistral-7B), bf16 rows and weights: within one
     bf16 step of the plain formula per element, and every row with the same
-    bits alone and among M = 2, 5, 8, 16, 40, 512 rows. Times at the B=1
-    main path's K=1 step: the 1B draft's 33 norms at M = 1, the 3B verify's
-    57 at M = 2, beside torch's formula and F.rms_norm."""
-    from llm_inference_lab_tpu_torch.ops.rms_norm import rms_norm, rms_norm_plain
+    bits alone and among M = 2, 5, 8, 16, 40, 512 rows. Then the fused
+    add_rms_norm at the same widths (the Gemma-2 widths also with the post
+    weight), M = ADD_NORM_M, bf16 and f32 weights: its residual bit for bit
+    torch's x + a' and its norm the rms_norm kernel's on that residual, one
+    launch a call. Times at the B=1 main path's K=1 step: rms_norm, the
+    first norm of each forward, once at M = 1 (1B draft) and once at M = 2
+    (3B verify); add_rms_norm 32 times at M = 1 and 56 at M = 2, beside the
+    unfused pair it replaced (torch's add, then the rms_norm kernel), its
+    plain version, the library pair (torch's add, then F.rms_norm) and the
+    bound. Returns (the rms_norm row, the add_rms_norm row)."""
+    from llm_inference_lab_tpu_torch.ops.rms_norm import (
+        add_rms_norm,
+        add_rms_norm_plain,
+        rms_norm,
+        rms_norm_plain,
+    )
 
     g = torch.Generator(device=dev).manual_seed(7)
     max_err = 0.0
@@ -619,10 +708,37 @@ def phase_rms_norm(dev):
         log(f"rms_norm N={N} one_offset={one_offset}: within one bf16 step of the plain formula "
             f"(max abs err {err.max().item():.3g}); rows differing from the row alone at M = "
             f"2/5/8/16/40/512: {'/'.join(str(differ[m]) for m in NORM_M[1:])}")
-    agg = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bound_by="bytes",
-               max_abs_err=max_err)
-    for M, N, n in ((1, 2048, 33), (2, 3072, 57)):
+    add_err = 0.0
+    for N, one_offset in NORM_WIDTHS:
+        x = (torch.randn((max(ADD_NORM_M), N), generator=g, device=dev) * 3).bfloat16()
+        a = (torch.randn((max(ADD_NORM_M), N), generator=g, device=dev) * 2).bfloat16()
+        for w_dtype in (torch.bfloat16, torch.float32):
+            w = (torch.randn((N,), generator=g, device=dev) * 0.1 + (0 if one_offset else 1))
+            pw = (torch.randn((N,), generator=g, device=dev) * 0.3 + (0 if one_offset else 1))
+            w, pw = w.to(w_dtype), pw.to(w_dtype)
+            for post in ((None, pw) if one_offset else (None,)):
+                for M in ADD_NORM_M:
+                    before = add_rms_norm.launches
+                    res, norm = add_rms_norm(x[:M], a[:M], w, 1e-6, one_offset, post)
+                    assert add_rms_norm.launches == before + 1, (N, M, "launches")
+                    a2 = a[:M] if post is None else rms_norm(a[:M], post, 1e-6, one_offset)
+                    ref = x[:M] + a2
+                    assert torch.equal(res, ref), (N, M, w_dtype, post is None, "residual bits")
+                    assert torch.equal(norm, rms_norm(ref, w, 1e-6, one_offset)), (
+                        N, M, w_dtype, post is None, "norm bits")
+                    plain = rms_norm_plain(ref, w, 1e-6, one_offset).float()
+                    add_err = max(add_err, (norm.float() - plain).abs().max().item())
+            log(f"add_rms_norm N={N} one_offset={one_offset} {str(w_dtype)[6:]} weights"
+                f"{' (and the post weight)' if one_offset else ''}: residual and norm bit for "
+                f"bit torch's add then the rms_norm kernel at M = {ADD_NORM_M}, one launch a call")
+    norm_row = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bound_by="bytes",
+                    max_abs_err=max_err)
+    add_row = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bound_by="bytes",
+                   max_abs_err=add_err)
+    unfused = 0.0
+    for M, N, n in ((1, 2048, 16 * 2), (2, 3072, 28 * 2)):
         x = torch.randn((M, N), generator=g, device=dev).bfloat16()
+        a = torch.randn((M, N), generator=g, device=dev).bfloat16()
         w = torch.ones((N,), device=dev, dtype=torch.bfloat16)
         ms = median_ms(lambda: rms_norm(x, w, 1e-5))
         plain = median_ms(lambda: rms_norm_plain(x, w, 1e-5))
@@ -631,8 +747,31 @@ def phase_rms_norm(dev):
         log(f"rms_norm M={M} N={N}: {ms:.4f} ms  plain {plain:.4f}  library {lib:.4f} "
             f"(F.rms_norm)  bound {b:.6f} ({by})")
         for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib), ("bound_ms", b)):
-            agg[key] += n * val
-    return agg
+            norm_row[key] += val
+        ms = median_ms(lambda: add_rms_norm(x, a, w, 1e-5))
+        pair = median_ms(lambda: rms_norm(x + a, w, 1e-5))
+        plain = median_ms(lambda: add_rms_norm_plain(x, a, w, 1e-5))
+        lib = median_ms(lambda: torch.nn.functional.rms_norm(x + a, (N,), w, 1e-5))
+        b, by = bound_ms(8 * M * N + 2 * N, 5 * M * N)
+        log(f"add_rms_norm M={M} N={N}: {ms:.4f} ms  unfused (torch add + rms_norm kernel) "
+            f"{pair:.4f}  plain {plain:.4f}  library {lib:.4f} (x + a, F.rms_norm)  bound "
+            f"{b:.6f} ({by}); x {n} calls a K=1 step")
+        for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib), ("bound_ms", b)):
+            add_row[key] += n * val
+        unfused += n * pair
+    log(f"add_rms_norm a K=1 step (88 calls): {add_row['ms']:.4f} ms; the unfused pairs it "
+        f"replaced {unfused:.4f} ms; the step's norms: {add_row['ms'] + norm_row['ms']:.4f} ms "
+        f"in 90 launches (unfused: {unfused + norm_row['ms']:.4f} ms in 178)")
+    for M, N in ((1, 2304), (2, 3584)):  # Gemma-2's sandwich variant at its K=1 step's M
+        x, a = (torch.randn((M, N), generator=g, device=dev).bfloat16() for _ in "xa")
+        w = torch.zeros((N,), device=dev, dtype=torch.bfloat16)
+        ms = median_ms(lambda: add_rms_norm(x, a, w, 1e-6, True, w))
+        pair = median_ms(lambda: rms_norm(x + rms_norm(a, w, 1e-6, True), w, 1e-6, True))
+        lib = median_ms(lambda: torch.nn.functional.rms_norm(
+            x + torch.nn.functional.rms_norm(a, (N,), w + 1, 1e-6), (N,), w + 1, 1e-6))
+        log(f"add_rms_norm with the post weight M={M} N={N}: {ms:.4f} ms  unfused (rms_norm "
+            f"kernel, torch add, rms_norm kernel) {pair:.4f}  library {lib:.4f}")
+    return norm_row, add_row
 
 
 def f32_plain(q, k, v, pos, ks=None, vs=None, **opts):
@@ -1491,17 +1630,45 @@ def phase_ring_attention(dev):
 
 def count_launches(path, run):
     """Set every kernel's launch count to 0, call run(), read the counts, and
-    check that exactly the kernels of `path` launched."""
+    check that exactly the kernels of `path` launched, rms_norm once a
+    forward and add_rms_norm twice a layer a forward (the forwards and their
+    layers counted around models/transformer.py's forward)."""
+    from llm_inference_lab_tpu_torch.models import transformer
+
     wrappers = kernel_wrappers()
     for w in wrappers.values():
         w.launches = 0
-    out = run()
+    seen = {"forwards": 0, "layers": 0}
+    inner = transformer.forward
+
+    def forward(cfg, *args, **kwargs):
+        seen["forwards"] += 1
+        seen["layers"] += cfg.n_layers
+        return inner(cfg, *args, **kwargs)
+
+    transformer.forward = forward
+    try:
+        out = run()
+    finally:
+        transformer.forward = inner
     launches = {name: w.launches for name, w in wrappers.items()}
-    log(f"launches in {path}: {launches}")
+    log(f"launches in {path}: {launches}; {seen['forwards']} forwards of {seen['layers']} "
+        f"layers in all")
     launched = {name for name, n in launches.items() if n}
     assert launched == PATH_KERNELS[path], (path, "launched", launched,
                                             "expected", PATH_KERNELS[path])
+    assert launches["rms_norm"] == seen["forwards"], (path, "rms_norm once a forward", seen)
+    assert launches["add_rms_norm"] == 2 * seen["layers"], (path, "add_rms_norm twice a layer",
+                                                            seen)
     return out, launches
+
+
+def ids_digest(path, id_lists):
+    """Log a digest of a path's generated ids (a list of id lists, in request
+    or run order), so that two commits' runs can be compared line by line."""
+    digest = hashlib.sha256(json.dumps(id_lists).encode()).hexdigest()[:16]
+    log(f"ids digest {path}: {digest} ({len(id_lists)} sequences, "
+        f"{sum(map(len, id_lists))} ids)")
 
 
 def phase_end_to_end(dev, profile, cfg, path, label):
@@ -1526,6 +1693,7 @@ def phase_end_to_end(dev, profile, cfg, path, label):
         lp = torch.tensor(r["token_logprobs"])
         assert len(lp) == r["generated_tokens"] and torch.isfinite(lp).all(), "bad logprobs"
     assert runs[0]["generated_tokens"] >= 1
+    ids_digest(path, [ids])
     # The baseline is timed as the spec run is: one warm-up, median of 3.
     base_eng = Engine(replace(cfg, draft_model=None), device=dev, target_params=eng.target.params)
     base_eng.generate(PROMPT)
@@ -1578,6 +1746,7 @@ def phase_long_prompt(dev, eng, path):
         path, lambda: (eng.generate(LONG_PROMPT), base.generate(LONG_PROMPT)))
     peak_mb = torch.cuda.max_memory_allocated() / 1e6
     assert spec["generated_ids"] == bl["generated_ids"], "long prompt: spec ids != baseline ids"
+    ids_digest(path, [spec["generated_ids"], bl["generated_ids"]])
     for r in (spec, bl):
         lp = torch.tensor(r["token_logprobs"] + r["prompt_logprobs"][1:])
         assert r["generated_tokens"] >= 1 and torch.isfinite(lp).all(), "bad long-prompt logprobs"
@@ -1636,6 +1805,8 @@ def phase_mistral_long(dev, eng, paths):
     ring8, launches[paths[2]] = count_launches(paths[2], lambda: ring8_eng.generate(MISTRAL_LONG))
     full8, launches[paths[3]] = count_launches(paths[3], lambda: full8_eng.generate(MISTRAL_LONG))
     peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    for path, runs in zip(paths, ((spec, ring), (full,), (ring8,), (full8,))):
+        ids_digest(path, [r["generated_ids"] for r in runs])
     assert base.target.config.kv_ring_len == RING_LEN and full_eng.target.config.kv_ring_len is None
     for r in (spec, ring, full, ring8, full8):
         lp = torch.tensor(r["token_logprobs"] + r["prompt_logprobs"][1:])
@@ -1708,10 +1879,10 @@ def kernel_wrappers():
         quant_matmul_int8_mma,
         quant_matmul_mma,
     )
-    from llm_inference_lab_tpu_torch.ops.rms_norm import rms_norm
+    from llm_inference_lab_tpu_torch.ops.rms_norm import add_rms_norm, rms_norm
     from llm_inference_lab_tpu_torch.ops.verify import verify_prefix
 
-    return {"rms_norm": rms_norm,
+    return {"rms_norm": rms_norm, "add_rms_norm": add_rms_norm,
             "quant_matmul_int4": quant_matmul, "quant_matmul_int4_mma": quant_matmul_mma,
             "quant_matmul_int8": quant_matmul_int8, "quant_matmul_int8_mma": quant_matmul_int8_mma,
             "flash_decode": flash_decode, "flash_decode_int8": flash_decode_int8,
@@ -1721,6 +1892,7 @@ def kernel_wrappers():
 
 
 RMS_NORM_OP = "rms_norm (kernel, fixed order)"
+ADD_NORM_OP = "add_rms_norm (kernel, fixed order)"
 D_VS_F = "D vs F rows at the serving shapes"
 ACROSS_MMA = "kernel {} across MMA_MIN_M (decode body alone vs tensor-core path)"
 
@@ -1731,7 +1903,8 @@ def row_stability(eng, dev):
     generate runs M = 1, 2 at K=1 and 1, 5 at K=4; the 8-slot batcher 8, 16
     or 8, 40), and the projection kernel also at 63 (its decode body's
     largest M): for each M, how many rows differ in any bit from the row
-    alone; 0 for rms_norm and the projection kernel (asserted). Random rows
+    alone; 0 for rms_norm, add_rms_norm and the projection kernel
+    (asserted). Random rows
     can miss a rounding that a real row shows (tests/torch_kv_align_probe.py).
     Then the projection kernel across MMA_MIN_M: MMA_MIN_M rows together
     (its tensor-core path, which every prefill takes) against the same rows
@@ -1739,7 +1912,11 @@ def row_stability(eng, dev):
     run prefills and another decodes through this op can part there. Then D
     against F over the same keys at the serving step's shapes: F runs D's
     body, so no row may differ (asserted)."""
-    from llm_inference_lab_tpu_torch.models.transformer import lm_head_logits, rms_norm
+    from llm_inference_lab_tpu_torch.models.transformer import (
+        add_rms_norm,
+        lm_head_logits,
+        rms_norm,
+    )
     from llm_inference_lab_tpu_torch.ops.quant import dense
     from llm_inference_lab_tpu_torch.ops.quant_matmul import MMA_MIN_M
 
@@ -1752,10 +1929,15 @@ def row_stability(eng, dev):
             and not isinstance(params["embed"], torch.Tensor) else
             "tied bf16 head (torch.mm, f32 out)" if cfg.tie_word_embeddings else
             "untied head (dense)")
+    layer0 = params["layers"]
+    post = layer0["post_attn_norm_scale"][0] if cfg.post_norms else None
     ops = {
         RMS_NORM_OP:
-            lambda a: rms_norm(a, params["layers"]["attn_norm_scale"][0], cfg.rms_norm_eps,
+            lambda a: rms_norm(a, layer0["attn_norm_scale"][0], cfg.rms_norm_eps,
                                cfg.rms_one_offset),
+        ADD_NORM_OP:  # the residual a + a' and its norm, side by side
+            lambda a: torch.cat(add_rms_norm(a, a, layer0["mlp_norm_scale"][0],
+                                             cfg.rms_norm_eps, cfg.rms_one_offset, post), -1),
         head: lambda a: lm_head_logits(cfg, params, a),
         kernel: lambda a: dense(a, w),
     }
@@ -1768,7 +1950,8 @@ def row_stability(eng, dev):
         if name == kernel:
             out[ACROSS_MMA.format("A" if w.bits == 4 else "B")] = {
                 MMA_MIN_M: int((fn(x) != alone).any(-1).sum())}
-    assert not any(out[RMS_NORM_OP].values()), ("rms_norm rows depend on M", out[RMS_NORM_OP])
+    for op in (RMS_NORM_OP, ADD_NORM_OP):
+        assert not any(out[op].values()), (op, "rows depend on M", out[op])
     assert not any(out[kernel].values()), ("projection rows depend on M", out[kernel])
     out[D_VS_F] = attention_rows(eng, dev)
     assert not any(out[D_VS_F].values()), ("D and F differ", out[D_VS_F])
@@ -1854,6 +2037,7 @@ def phase_serving(dev, eng, profile, max_len, path, label):
     peak_mb = torch.cuda.max_memory_allocated() / 1e6
     st = paged.stats.report()
     assert len(results) == len(SERVE_PROMPTS) == st["retired"], "not every request retired"
+    ids_digest(path, [r["generated_ids"] for r in sorted(results, key=lambda r: r["req_id"])])
     for r in results:
         lp = torch.tensor(r["token_logprobs"] + r["prompt_logprobs"][1:])
         assert r["generated_tokens"] >= 1 and torch.isfinite(lp).all(), ("bad result", r["req_id"])
@@ -1869,7 +2053,7 @@ def phase_serving(dev, eng, profile, max_len, path, label):
     # gap must be a near tie and one of these must have rounded differently.
     stability = row_stability(eng, dev)
     log("row stability (rows of M that differ from the row alone, M = 2/5/8/16/40 (and 63 "
-        f"for A or B, asserted 0, as for rms_norm), and at MMA_MIN_M across A's or B's two "
+        f"for A or B, asserted 0, as for the norms), and at MMA_MIN_M across A's or B's two "
         f"kernels; {D_VS_F}: rows that differ at S = 1/K+1, asserted 0): "
         + "; ".join(f"{op}: {'/'.join(str(d[m]) for m in sorted(d))}"
                     for op, d in stability.items()))
@@ -1996,8 +2180,15 @@ def main(argv):
                         "one K=1 decode step of the 8-slot serving batch (both models' layers)"),
         "verify_prefix": (phase_verify_prefix(dev), "verify_prefix.cu",
                           "ops/pallas/verify_pallas.py:46", step),
-        # No Pallas kernel: JAX's rms_norm is plain jnp (transformer.py:29).
-        "rms_norm": (phase_rms_norm(dev), "rms_norm.cu", "models/transformer.py:29", step),
+    }
+    # No Pallas kernel: JAX's rms_norm is plain jnp (transformer.py:29), and
+    # the residual add before each later norm too (transformer.py:424-435).
+    norm_row, add_row = phase_rms_norm(dev)
+    kernels |= {
+        "rms_norm": (norm_row, "rms_norm.cu", "models/transformer.py:29",
+                     step + ": the first norm of each forward"),
+        "add_rms_norm": (add_row, "rms_norm.cu", "models/transformer.py:424",
+                         step + ": the residual add and the norm after it, 2 a layer"),
     }
     qmm8_step, qmm8_prefill = phase_quant_matmul_int8(dev)
     kernels |= {
@@ -2052,11 +2243,8 @@ def main(argv):
     paths = list(PATH_KERNELS)
     on_path = {}
     t0 = time.perf_counter()
-    eng, on_path[paths[0]] = phase_end_to_end(
-        dev, profile, dict(base_model="llama-3.2-3b", draft_model="llama-3.2-1b", max_draft=1,
-                           max_new_tokens=64, max_seq_len=512, quantization="int4",
-                           quantized_init=True, quantize_embed=True, seed=0),
-        paths[0], "3B int4 + 1B draft, K=1")
+    eng, on_path[paths[0]] = phase_end_to_end(dev, profile, INT4_CFG, paths[0],
+                                              "3B int4 + 1B draft, K=1")
     log(f"phase 3 took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     on_path[paths[1]] = phase_serving(dev, eng, profile, SERVE_MAX_LEN, paths[1],

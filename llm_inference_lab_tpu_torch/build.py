@@ -82,12 +82,15 @@ SIGNATURES = {
                              I, P],
     },
     "verify_prefix": {
-        # draft, logits, arg_ws, mask, accept_len, B, K, V, row_stride, batch_stride, stream
-        "verify_prefix_f32": [P, P, P, P, P, I, I, I, LL, LL, P],
+        # draft, logits, ws, counters, mask, accept_len, B, K, V, row_stride,
+        # batch_stride, nsplit, width, stream
+        "verify_prefix_f32": [P, P, P, P, P, P, I, I, I, LL, LL, I, I, P],
     },
     "rms_norm": {
         # x, w, out, M, N, eps, one_offset, w_f32, stream
         "rms_norm_bf16": [P, P, P, I, I, F, I, I, P],
+        # x, a, w, post_w, x_out, out, M, N, eps, one_offset, w_f32, stream
+        "add_rms_norm_bf16": [P, P, P, P, P, P, I, I, F, I, I, P],
     },
 }
 

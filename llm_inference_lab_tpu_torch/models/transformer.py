@@ -30,7 +30,7 @@ from llm_inference_lab_tpu_torch.models.base import (
 from llm_inference_lab_tpu_torch.models.paged import PagedKVCache, page_slots, write_paged_layer
 from llm_inference_lab_tpu_torch.ops.attention import attend, paged_attend
 from llm_inference_lab_tpu_torch.ops.quant import EmbedQuant, QuantTensor, dense, f32_logits
-from llm_inference_lab_tpu_torch.ops.rms_norm import rms_norm
+from llm_inference_lab_tpu_torch.ops.rms_norm import add_rms_norm, rms_norm
 
 
 @lru_cache(maxsize=32)
@@ -147,22 +147,24 @@ def forward(cfg: ModelConfig, params: Any, tokens: torch.Tensor, positions: torc
     else:
         slots = cache_slots(cache_lens, tokens.shape[1], cache.max_seq_len, cfg.kv_ring_len)
 
-    def norm(h, w):
-        return rms_norm(h, w, cfg.rms_norm_eps, cfg.rms_one_offset)
+    def add_norm(h, a, w, post):
+        # h + a' and its norm in one launch, a' = Gemma-2's sandwich norm of a
+        # (post_norms) or a: the norm after each residual add is the next
+        # block's input norm, after the last layer the final norm.
+        return add_rms_norm(h, a, w, cfg.rms_norm_eps, cfg.rms_one_offset,
+                            p[post] if cfg.post_norms else None)
 
+    layers = params["layers"]
+    n = rms_norm(x, layers["attn_norm_scale"][0], cfg.rms_norm_eps, cfg.rms_one_offset)
     for i in range(cfg.n_layers):
-        p = _layer_params(params["layers"], i)
-        a = _attn_block(cfg, p, norm(x, p["attn_norm_scale"]), positions, cos, sin, cache, i,
-                        slots)
-        if cfg.post_norms:  # Gemma-2's sandwich norms
-            a = norm(a, p["post_attn_norm_scale"])
-        x = x + a
-        h = _mlp_block(cfg, p, norm(x, p["mlp_norm_scale"]))
-        if cfg.post_norms:
-            h = norm(h, p["post_mlp_norm_scale"])
-        x = x + h
-    x = norm(x, params["final_norm_scale"])
-    return lm_head_logits(cfg, params, x), cache
+        p = _layer_params(layers, i)
+        a = _attn_block(cfg, p, n, positions, cos, sin, cache, i, slots)
+        x, n = add_norm(x, a, p["mlp_norm_scale"], "post_attn_norm_scale")
+        h = _mlp_block(cfg, p, n)
+        w_next = (layers["attn_norm_scale"][i + 1] if i + 1 < cfg.n_layers
+                  else params["final_norm_scale"])
+        x, n = add_norm(x, h, w_next, "post_mlp_norm_scale")
+    return lm_head_logits(cfg, params, n), cache
 
 
 @lru_cache(maxsize=8)

@@ -20,11 +20,12 @@ from llm_inference_lab_tpu_torch.ops.flash_decode import (
     flash_decode,
     flash_decode_int8,
     flash_decode_plain,
+    ticket_counters,
 )
 from llm_inference_lab_tpu_torch.ops.flash_prefill import flash_prefill, flash_prefill_int8
 from llm_inference_lab_tpu_torch.ops.paged_flash import paged_flash, paged_flash_int8
 from llm_inference_lab_tpu_torch.ops.quant import quantize_int4
-from llm_inference_lab_tpu_torch.ops.rms_norm import rms_norm, rms_norm_plain
+from llm_inference_lab_tpu_torch.ops.rms_norm import add_rms_norm, rms_norm, rms_norm_plain
 from llm_inference_lab_tpu_torch.ops.quant_matmul import (
     MMA_MIN_M,
     quant_matmul,
@@ -34,7 +35,13 @@ from llm_inference_lab_tpu_torch.ops.quant_matmul import (
     quant_matmul_plain,
     quant_matmul_plain_int8,
 )
-from llm_inference_lab_tpu_torch.ops.verify import verify_prefix, verify_prefix_plain
+from llm_inference_lab_tpu_torch.ops.verify import (
+    split_width,
+    verify_plan,
+    verify_prefix,
+    verify_prefix_plain,
+    verify_prefix_split_plain,
+)
 
 
 @pytest.fixture
@@ -763,3 +770,123 @@ def test_qmm_tensor_core_path_rejects_what_it_does_not_take(card):
         quant_matmul_mma(x[:64 * K].view(64, K), w[:, :128], scale[:128])
     with pytest.raises(TypeError):
         quant_matmul_int8_mma(x[:64 * K].view(64, K).float(), w, scale)
+
+
+NORM_WIDTHS = (2048, 2304, 3072, 3584, 4096)  # d_model of every model on the paths
+NORM_ROWS = (1, 2, 5, 8, 16, 40, 63, 512, 2048)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["plain", "one_offset", "post_w"])
+@pytest.mark.parametrize("N", NORM_WIDTHS)
+def test_add_rms_norm_kernel_is_torch_add_then_rms_norm_bits(card, N, variant):
+    """The fused kernel's two outputs have the bits of the unfused pair:
+    torch's bf16 x + a' (a' = the rms_norm kernel on a with post_w, Gemma-2's
+    sandwich norm, one-offset weights) and the rms_norm kernel on that sum,
+    at every M of the paths, bf16 and f32 weights; one launch a call, the
+    inputs untouched."""
+    g = torch.Generator(device=card).manual_seed(N)
+    one_offset = variant != "plain"
+    x = (torch.randn((max(NORM_ROWS), N), generator=g, device=card) * 3).bfloat16()
+    a = (torch.randn((max(NORM_ROWS), N), generator=g, device=card) * 2).bfloat16()
+    x0, a0 = x.clone(), a.clone()
+    for w_dtype in (torch.bfloat16, torch.float32):
+        w = (torch.randn((N,), generator=g, device=card) * 0.1 + (0 if one_offset else 1))
+        pw = (torch.randn((N,), generator=g, device=card) * 0.3).to(w_dtype)
+        w = w.to(w_dtype)
+        post = pw if variant == "post_w" else None
+        for M in NORM_ROWS:
+            before = add_rms_norm.launches, rms_norm.launches
+            res, norm = add_rms_norm(x[:M], a[:M], w, 1e-6, one_offset, post)
+            assert (add_rms_norm.launches, rms_norm.launches) == (before[0] + 1, before[1])
+            a2 = a[:M] if post is None else rms_norm(a[:M], post, 1e-6, one_offset)
+            ref = x[:M] + a2
+            assert torch.equal(res, ref), (w_dtype, M, "residual")
+            assert torch.equal(norm, rms_norm(ref, w, 1e-6, one_offset)), (w_dtype, M, "norm")
+    torch.cuda.synchronize()
+    assert torch.equal(x, x0) and torch.equal(a, a0)
+
+
+@pytest.mark.cuda
+def test_add_rms_norm_rejects_what_it_does_not_take(card):
+    x = torch.zeros((2, 1024), device=card, dtype=torch.bfloat16)
+    w = torch.ones(1024, device=card, dtype=torch.bfloat16)
+    big = torch.zeros((2, 8200), device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        add_rms_norm(big, big, torch.ones(8200, device=card, dtype=torch.bfloat16), 1e-6)
+    with pytest.raises(ValueError):
+        add_rms_norm(x, x[:1], w, 1e-6)
+    with pytest.raises(TypeError):
+        add_rms_norm(x, x, w, 1e-6, post_w=w.float())
+    with pytest.raises(TypeError):
+        add_rms_norm(x.float(), x.float(), w, 1e-6)
+    flat = torch.zeros(2 * 1024 + 8, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # rows 2 bytes past a 16-byte boundary
+        add_rms_norm(flat[1:2049].view(2, 1024), x, w, 1e-6)
+
+
+def _verify_case(name, card):
+    """(draft, logits) on the card for one of kernel C's cases: the main
+    path's [1, 1, V] view of [1, 2, V]; [8, 4, V] as the first K rows of
+    [8, 5, V]; V = 50257 rows 4 bytes past 16-byte boundaries; a tie across
+    a split boundary; a NaN only in the last split; the special rows (a
+    tie, a NaN in a matching row, an all-NaN row, an all -inf row)."""
+    rng = np.random.default_rng(len(name))
+    B, K, V = {"main 128256": (1, 1, 128256), "main 256000": (1, 1, 256000),
+               "main 32000": (1, 1, 32000), "strided [8,4,V]": (8, 4, 128256),
+               "unaligned 50257": (2, 3, 50257), "tie across a split boundary": (2, 2, 128256),
+               "NaN in the last split only": (2, 2, 32000), "special rows": (4, 4, 50257)}[name]
+    if name == "unaligned 50257":
+        flat = torch.from_numpy(rng.normal(0, 1, B * K * V + 1).astype(np.float32)).to(card)
+        lg = flat[1:].view(B, K, V)
+    else:
+        full = torch.from_numpy(rng.normal(0, 1, (B, K + 1, V)).astype(np.float32)).to(card)
+        lg = full[:, :K]
+    draft = torch.argmax(lg, -1).to(torch.int32)
+    n = verify_plan(B * K, V)
+    w = split_width(V, n)
+    top = float(lg.max()) + 1.0
+    if name == "tie across a split boundary":
+        lg[0, 0, w - 1] = lg[0, 0, w] = top
+        lg[1, 1, 3 * w] = lg[1, 1, w + 5] = top
+        lg[0, 1, 2 * w] = lg[0, 1, 2 * w - 1] = top
+        draft[0, 0], draft[1, 1], draft[0, 1] = w - 1, w + 5, 2 * w
+    if name == "NaN in the last split only":
+        lg[0, 0, V - 1] = lg[1, 1, (n - 1) * w] = float("nan")
+    if name == "special rows":
+        draft[1, 2] = (draft[1, 2] + 1) % V
+        lg[3, 1, 7] = lg[3, 1, 9000] = top
+        draft[3, 1] = 7
+        lg[0, 3, 5] = float("nan")
+        lg[2, 0, :] = float("nan")
+        lg[3, 3, :] = float("-inf")
+        draft[3, 3] = 0
+    return draft, lg
+
+
+VERIFY_CASES = ["main 128256", "main 256000", "main 32000", "strided [8,4,V]", "unaligned 50257",
+                "tie across a split boundary", "NaN in the last split only", "special rows"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", VERIFY_CASES)
+def test_verify_prefix_split_kernel_equals_plain(card, name):
+    """Kernel C split over V: exactly the plain version and its own split
+    plain version, one launch a call, the sequences' ticket counters back
+    at 0 after each call, the same result when called again."""
+    draft, lg = _verify_case(name, card)
+    B, K, V = lg.shape
+    ref = verify_prefix_plain(draft, lg)
+    split = verify_prefix_split_plain(draft, lg, verify_plan(B * K, V))
+    assert torch.equal(split[0], ref[0]) and torch.equal(split[1], ref[1])
+    for _ in range(3):
+        before = verify_prefix.launches
+        got = verify_prefix(draft, lg)
+        assert verify_prefix.launches == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), (got, ref)
+        assert not ticket_counters(card, B)[:B].any()
+    if name == "special rows":
+        assert got[0].tolist() == [3, 2, 0, 4]
+    if name == "tie across a split boundary":
+        assert got[1].tolist() == [[True, False], [True, True]]

@@ -100,8 +100,12 @@ def _rope64(x, cos, sin):
 SCORES = []
 
 
-def _attend64(q, k, v, positions, round_qk=False, round_scores=False):
-    """Causal attention from position 0 in q's dtype (prefill only)."""
+def _attend64(q, k, v, positions, k_scale=None, v_scale=None, round_qk=False,
+              round_scores=False, **options):
+    """Causal attention from position 0 in q's dtype (prefill only), over a
+    float cache; the model's attention options (llama-tiny: no window,
+    ring, scale or softcap) are not read."""
+    assert k_scale is None and v_scale is None, "an int8 cache is not probed"
     S, g = q.shape[1], q.shape[2] // k.shape[1]
     if round_qk:
         q, k = q.float().double(), k.float().double()
@@ -115,11 +119,20 @@ def _attend64(q, k, v, positions, round_qk=False, round_scores=False):
 
 
 def float64_forward(rows, attend=_attend64, round_op=None):
-    saved = {n: getattr(T, n) for n in ("rope_tables", "rope", "attend", "rms_norm", "dense")}
+    saved = {n: getattr(T, n)
+             for n in ("rope_tables", "rope", "attend", "rms_norm", "add_rms_norm", "dense")}
     T.rope_tables, T.rope, T.attend = _rope_tables64, _rope64, attend
     if round_op is not None:
         f = saved[round_op]
         setattr(T, round_op, lambda *a: f(*a).float().double())
+    if round_op == "rms_norm":  # the norms after the residual adds: their output, not the sum
+        add = saved["add_rms_norm"]
+
+        def add_rounded(*a, **k):
+            x, n = add(*a, **k)
+            return x, n.float().double()
+
+        T.add_rms_norm = add_rounded
     try:
         return port(rows, torch.float64)
     finally:
@@ -161,8 +174,9 @@ def main():
     print(f"   largest |attention score| per layer (float64, n={len(ids)}):",
           [round(s, 1) for s in SCORES])
     print(f"   float64 forward with one op's output rounded to f32 (n={len(ids)}), lp vs float64:")
-    for what, kw in (("attention scores", dict(attend=lambda *a: _attend64(*a, round_scores=True))),
-                     ("q and k", dict(attend=lambda *a: _attend64(*a, round_qk=True))),
+    for what, kw in (("attention scores",
+                      dict(attend=lambda *a, **o: _attend64(*a, round_scores=True, **o))),
+                     ("q and k", dict(attend=lambda *a, **o: _attend64(*a, round_qk=True, **o))),
                      ("rms_norm", dict(round_op="rms_norm")),
                      ("dense (every matmul)", dict(round_op="dense"))):
         print(f"     {what}: {gap(float64_forward(r, **kw)[0], ref, ids)[1]:.3g}")
