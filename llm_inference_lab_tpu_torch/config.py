@@ -9,12 +9,24 @@ a field of the JAX config with a single ported value has no field here until
 a later slice ports a second value for it. So ``prefix_caching`` (off),
 ``admit_chunk`` (one-shot admission) and ``kv_lazy_pages`` (eager page
 reservation, ``kv_lazy_pages=False`` in JAX) have no field yet.
+
+``EnvFlags`` is the port's copy of the JAX package's runtime flags with the
+one field it reads. It has no ``from_env``: the port reads no environment
+variable, and a caller passes ``Engine(config, flags=EnvFlags(...))``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Optional
+
+
+@dataclass(frozen=True)
+class EnvFlags:
+    # Decode on the host: one step at a time, one ``active.any()`` poll after
+    # each (JAX's observed loop). False (the default): the decode loop of
+    # core/specstep.py, CUDA-graph replays of the step on the card.
+    sync_steps: bool = False
 
 
 @dataclass

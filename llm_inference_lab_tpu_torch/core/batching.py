@@ -23,7 +23,12 @@ a rolling-buffer cache (``kv_ring``, which raises here), per-request sampling,
 grammars, LoRA, top-N logprobs and cancel; and the TPU host's tuning of the
 loop (chunk cost model, async and prefetched polls, fused and overlapped
 admission, traces). The loop here runs POLL_EVERY steps, then reads the
-flags once and retires and admits.
+flags once and retires and admits. The steps are replays of the engine's
+decode loop (core/specstep.py ``make_decode_loop``, a CUDA graph on the card)
+over the batcher's own state, captured at construction with every lane
+inactive; admission and retirement write that state's tensors in place. With
+the engine's ``EnvFlags(sync_steps=True)`` the batcher runs the functional
+step instead, one call a step.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ import torch
 
 from llm_inference_lab_tpu_torch.core.engine import Engine, _round_up
 from llm_inference_lab_tpu_torch.core.scheduler import Scheduler
+from llm_inference_lab_tpu_torch.core.specstep import make_decode_loop
 from llm_inference_lab_tpu_torch.core.state import DecodeState, init_state
 from llm_inference_lab_tpu_torch.models.base import Model
 from llm_inference_lab_tpu_torch.models.paged import PageAllocator, PagedKVCache
@@ -197,6 +203,10 @@ class ContinuousBatcher:
             self.state = init_state(engine.target, engine.draft, n_slots, self.max_seq_len,
                                     engine.device, max_new_tokens=cfg.max_new_tokens,
                                     kv_dtype=engine.kv_dtype, **paged_kw)
+            self._loop = None
+            if not engine.flags.sync_steps:
+                self._loop = make_decode_loop(engine._step_in_place, pool=engine.graph_pool)
+                self._loop.bind(self.state)
 
     def submit(self, prompt: str, max_new_tokens: Optional[int] = None) -> int:
         """Queue a prompt; returns its req_id."""
@@ -291,8 +301,11 @@ class ContinuousBatcher:
         """n decode steps over all slots, then one host read of the flags,
         which retires the requests that finished."""
         occupied = sum(r is not None for r in self._slots)
-        for _ in range(n):
-            self.state = self.engine._step(self.state)
+        if self._loop is None:
+            for _ in range(n):
+                self.state = self.engine._step(self.state)
+        else:
+            self._loop(self.state, n)  # raises if the state's tensors were replaced
         self.stats.steps += n
         self.stats.occupied_slot_steps += n * occupied
         self._retire_finished()

@@ -11,9 +11,19 @@ int8 (``kv_quantization``), single-shot or chunked prefill
 bucketing, the
 out-of-vocab clamp and the result keys follow the JAX engine. The serving
 path (core/batching.py ContinuousBatcher) drives the same step and reads
-``encode``, ``is_spec``, ``_max_k``, ``eos_token_id`` and ``_step`` from
-here, and ``decode`` hands the final state (committed tokens and caches)
-to a caller such as core/kv_verify.py.
+``encode``, ``is_spec``, ``_max_k``, ``eos_token_id``, ``flags``, ``_step``,
+``_step_in_place`` and ``graph_pool`` from here, and ``decode`` hands the
+final state (committed tokens and caches) to a caller such as
+core/kv_verify.py.
+
+Decoding, as in JAX: by default the decode loop of core/specstep.py
+(``make_decode_loop``; JAX's device-side while_loop) in chunks of CUDA-graph
+replays on the card, of in-place steps on the CPU, with one host read after
+each chunk. The engine keeps one decode state and its loop per shape (batch,
+buffer length), resets it in place, prefills into it (eagerly) and replays.
+``EnvFlags(sync_steps=True)`` gives JAX's observed loop instead: a fresh
+state, one functional step at a time and one ``active.any()`` poll after
+each, the eager reference on the card.
 
 The device defaults to "cuda"; asking for it on a machine without CUDA
 raises (pass device="cpu" for the plain PyTorch versions of every op).
@@ -21,22 +31,26 @@ raises (pass device="cpu" for the plain PyTorch versions of every op).
 
 from __future__ import annotations
 
+import copy
 import resource
 import time
 from dataclasses import replace
+from functools import partial
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from llm_inference_lab_tpu_torch import resolve_device
-from llm_inference_lab_tpu_torch.config import EngineConfig
+from llm_inference_lab_tpu_torch.config import EngineConfig, EnvFlags
 from llm_inference_lab_tpu_torch.core.specstep import (
+    DecodeLoop,
     make_baseline_step,
+    make_decode_loop,
     make_prefill,
     make_spec_step,
 )
-from llm_inference_lab_tpu_torch.core.state import DecodeState, init_state
+from llm_inference_lab_tpu_torch.core.state import DecodeState, assign, init_state, reset_state
 from llm_inference_lab_tpu_torch.models import registry
 from llm_inference_lab_tpu_torch.ops.quant import quantize_params
 from llm_inference_lab_tpu_torch.utils.tokenizer import ByteTokenizer
@@ -50,13 +64,16 @@ def _round_up(x: int, m: int) -> int:
 
 class Engine:
     def __init__(self, config: Optional[EngineConfig] = None, *, device="cuda",
-                 target_params: Optional[dict] = None, draft_params: Optional[dict] = None):
+                 flags: Optional[EnvFlags] = None, target_params: Optional[dict] = None,
+                 draft_params: Optional[dict] = None):
         """target_params / draft_params: the models' params (e.g. carried over
         from the JAX package by convert.params_from_jax); random init from
-        cfg.seed when absent."""
+        cfg.seed when absent. flags: EnvFlags (sync_steps=True for the host
+        loop)."""
         cfg = config or EngineConfig()
         cfg.validate()
         self.config = cfg
+        self.flags = flags or EnvFlags()
         self.device = resolve_device(device)
         dtype = _DTYPES[cfg.dtype]
         qinit = cfg.quantization if (cfg.quantized_init and cfg.quantization) else None
@@ -83,10 +100,16 @@ class Engine:
         self.is_spec = self.draft is not None
         self._max_k = cfg.max_draft
         if self.is_spec:
-            self._step = make_spec_step(self.target, self.draft, k=cfg.max_draft,
-                                        eos_token_id=self.eos_token_id)
+            make_step = partial(make_spec_step, self.target, self.draft, k=cfg.max_draft,
+                                eos_token_id=self.eos_token_id)
         else:
-            self._step = make_baseline_step(self.target, eos_token_id=self.eos_token_id)
+            make_step = partial(make_baseline_step, self.target, eos_token_id=self.eos_token_id)
+        self._step, self._step_in_place = make_step(), make_step(in_place=True)
+        # The decode loops' graphs of this engine share one memory pool: they
+        # never run at once.
+        self.graph_pool = (torch.cuda.graph_pool_handle() if self.device.type == "cuda"
+                           else None)
+        self._decode_states: Dict[Tuple[int, int], Tuple[DecodeState, DecodeLoop]] = {}
         if cfg.kv_ring:
             self._enable_kv_ring()
         self._prefill = make_prefill(self.target, self.draft, chunk=cfg.prefill_chunk)
@@ -122,42 +145,97 @@ class Engine:
         return [min(max(t, 0), vocab - 1) for t in ids]
 
     def generate_batch(self, prompts: List[str]) -> List[Dict[str, Any]]:
-        return self._build_results(*self.decode(prompts))
+        with torch.inference_mode():
+            return self._build_results(*self._decode(prompts))
 
     @torch.inference_mode()
     def decode(self, prompts: List[str]) -> Tuple[DecodeState, np.ndarray, float, float]:
         """Prefill the prompts and decode them to the end. Returns the final
-        state, the prompt lengths, and the decode and total wall seconds."""
-        cfg = self.config
-        max_new = cfg.max_new_tokens
-        B = len(prompts)
-        enc = [self.encode(p, max_new, cfg.max_seq_len) for p in prompts]
-        plens = np.array([len(e) for e in enc], np.int32)
-        P = _round_up(max(int(plens.max()), 1), 32)
-        if cfg.prefill_chunk and P > cfg.prefill_chunk:
-            P = _round_up(P, cfg.prefill_chunk)  # the chunks tile the prompt block
-        max_len = _round_up(P + max_new + self._max_k + 2, 128)
-        block = np.zeros((B, P), np.int32)
-        for i, e in enumerate(enc):
-            block[i, : len(e)] = e
+        state (the caller's own: a later call does not change it), the prompt
+        lengths, and the decode and total wall seconds."""
+        state, plens, decode_s, total_s = self._decode(prompts)
+        if not self.flags.sync_steps:  # the engine's own decode state: a copy
+            state = copy.deepcopy(state)
+        return state, plens, decode_s, total_s
 
+    def _decode(self, prompts: List[str]) -> Tuple[DecodeState, np.ndarray, float, float]:
+        max_new = self.config.max_new_tokens
+        block, plens, max_len = self._prompt_block(prompts)
         dev = self.device
         t_start = time.perf_counter()
-        state = init_state(self.target, self.draft, B, max_len, dev, max_new_tokens=max_new,
-                           paged=cfg.kv_layout == "paged", page_size=cfg.kv_page_size,
-                           kv_dtype=self.kv_dtype)
-        state = self._prefill(state, torch.from_numpy(block).to(dev),
-                              torch.from_numpy(plens).to(dev))
+        prompt = torch.from_numpy(block).to(dev), torch.from_numpy(plens).to(dev)
+        if self.flags.sync_steps:
+            state = self._prefill(self._init_state(len(plens), max_len), *prompt)
+        else:
+            state, loop = self._decode_state(len(plens), max_len)
+            assign(state, self._prefill(state, *prompt))
         self._sync()
         t_decode = time.perf_counter()
         # Each active step commits >= 1 token, so max_new + 1 steps always
-        # finish. One host poll per step: active.any().
-        while state.steps < max_new + 1 and bool(state.active.any()):
-            state = self._step(state)
+        # finish.
+        if self.flags.sync_steps:
+            # One host poll per step: active.any().
+            for _ in range(max_new + 1):
+                if not bool(state.active.any()):
+                    break
+                state = self._step(state)
+        else:
+            self._run_loop(loop, state, plens, max_new)
         self._sync()
         decode_s = time.perf_counter() - t_decode
         total_s = time.perf_counter() - t_start
         return state, plens, decode_s, total_s
+
+    def _prompt_block(self, prompts: List[str]) -> Tuple[np.ndarray, np.ndarray, int]:
+        """The right-padded prompt block [B, P], the prompt lengths and the
+        buffer length: P a multiple of 32 (and of prefill_chunk when the
+        prompt is longer than a chunk), the buffer P + max_new + K + 2
+        rounded up to 128."""
+        cfg = self.config
+        enc = [self.encode(p, cfg.max_new_tokens, cfg.max_seq_len) for p in prompts]
+        plens = np.array([len(e) for e in enc], np.int32)
+        P = _round_up(max(int(plens.max()), 1), 32)
+        if cfg.prefill_chunk and P > cfg.prefill_chunk:
+            P = _round_up(P, cfg.prefill_chunk)  # the chunks tile the prompt block
+        block = np.zeros((len(enc), P), np.int32)
+        for i, e in enumerate(enc):
+            block[i, : len(e)] = e
+        return block, plens, _round_up(P + cfg.max_new_tokens + self._max_k + 2, 128)
+
+    def _init_state(self, B: int, max_len: int) -> DecodeState:
+        cfg = self.config
+        return init_state(self.target, self.draft, B, max_len, self.device,
+                          max_new_tokens=cfg.max_new_tokens, paged=cfg.kv_layout == "paged",
+                          page_size=cfg.kv_page_size, kv_dtype=self.kv_dtype)
+
+    def _decode_state(self, B: int, max_len: int) -> Tuple[DecodeState, DecodeLoop]:
+        """The decode state of this shape, reset to init_state's values, and
+        its loop (captured at its first call)."""
+        held = self._decode_states.get((B, max_len))
+        if held is None:
+            held = (self._init_state(B, max_len),
+                    make_decode_loop(self._step_in_place, pool=self.graph_pool))
+            self._decode_states[(B, max_len)] = held
+        else:
+            reset_state(held[0], self.config.max_new_tokens)
+        return held
+
+    def _run_loop(self, loop: DecodeLoop, state: DecodeState, plens: np.ndarray,
+                  max_new: int) -> None:
+        """Chunks of loop replays, one host read of (steps, active, lengths)
+        after each, until no lane is active or max_new + 1 steps ran (JAX's
+        max_steps). A chunk is ceil(largest remaining budget / (K + 1)) steps:
+        a step commits at most K + 1 tokens, so no step runs past the end
+        unless a lane hits EOS or the buffer end."""
+        per_step = self._max_k + 1 if self.is_spec else 1
+        B = len(plens)
+        steps, active, lengths = 0, plens > 0, plens.astype(np.int64)
+        while active.any() and steps < max_new + 1:
+            remaining = int((plens + max_new - lengths)[active].max())
+            loop(state, min(max(-(-remaining // per_step), 1), max_new + 1 - steps))
+            polled = torch.cat([state.steps[None], state.active.to(torch.int32),
+                                state.lengths]).cpu().numpy()
+            steps, active, lengths = int(polled[0]), polled[1:B + 1].astype(bool), polled[B + 1:]
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -175,6 +253,7 @@ class Engine:
     def _build_results(self, state: DecodeState, plens: np.ndarray, decode_s: float,
                        total_s: float) -> List[Dict[str, Any]]:
         cfg = self.config
+        steps = int(state.steps)
         tokens = state.tokens.cpu().numpy()
         lengths = state.lengths.cpu().numpy()
         logprobs = state.token_logprobs.cpu().numpy()
@@ -205,7 +284,7 @@ class Engine:
                 "bonus_tokens": int(bonus[b]),
                 "acceptance_rate": acc_b / prop_b if prop_b else 0.0,
                 "tokens_per_sec": n_gen / decode_s if decode_s > 0 else 0.0,
-                "steps": state.steps,
+                "steps": steps,
                 "policy": "longest_prefix",
                 "controller": {"type": "fixed", "k": cfg.max_draft},
                 "impl": "hf",

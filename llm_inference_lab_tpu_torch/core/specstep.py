@@ -14,19 +14,27 @@ fixed K and greedy longest_prefix acceptance. Per spec step:
      the length.
 
 The steps are plain functions of tensors that never read a value back to the
-host: the decode loop in core/engine.py polls ``active.any()`` once per step.
+host. A step advances ``steps`` by ``active.any()`` and commits nothing on an
+inactive lane, so a step run after every lane finished changes no field (JAX's
+while_loop runs no body then). Each comes in two forms: functional (a new
+state; core/engine.py's host loop under ``EnvFlags(sync_steps=True)``) and
+in place (``in_place=True``: the results written into the state's own
+tensors), which ``make_decode_loop`` captures in a CUDA graph and replays.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import replace
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
 from llm_inference_lab_tpu_torch.core.policies import longest_prefix
-from llm_inference_lab_tpu_torch.core.state import DecodeState
+from llm_inference_lab_tpu_torch.core.state import FIELDS, DecodeState, assign, state_tensors
+from llm_inference_lab_tpu_torch.models import transformer
 from llm_inference_lab_tpu_torch.models.base import Model
+from llm_inference_lab_tpu_torch.ops import kernel_wrappers
 from llm_inference_lab_tpu_torch.ops.sampling import sample_tokens
 
 
@@ -47,8 +55,25 @@ def _write_rows(buf: torch.Tensor, vals: torch.Tensor, start: torch.Tensor,
     return torch.where(active[:, None], written, buf)
 
 
+def _in_place(step):
+    """step's results written into the state's own tensors (assign): a graph
+    captured over them advances them on every replay. The KV caches are
+    written in place by the forwards already."""
+
+    def step_in_place(state: DecodeState) -> DecodeState:
+        return assign(state, step(state))
+
+    return step_in_place
+
+
+def _advance(state: DecodeState) -> torch.Tensor:
+    """steps + 1 when a lane is active, else steps: the step counts as JAX's
+    while_loop counts bodies."""
+    return state.steps + state.active.any().to(torch.int32)
+
+
 def make_spec_step(target_model: Model, draft_model: Model, *, k: int,
-                   eos_token_id: Optional[int] = None):
+                   eos_token_id: Optional[int] = None, in_place: bool = False):
     """Build step(state) -> state for greedy vanilla speculative decoding."""
     K = int(k)
 
@@ -118,13 +143,14 @@ def make_spec_step(target_model: Model, draft_model: Model, *, k: int,
             accepted=state.accepted + a * act,
             bonus=state.bonus + act,
             token_logprobs=new_lp,
-            steps=state.steps + 1,
+            steps=_advance(state),
         )
 
-    return step
+    return _in_place(step) if in_place else step
 
 
-def make_baseline_step(target_model: Model, *, eos_token_id: Optional[int] = None):
+def make_baseline_step(target_model: Model, *, eos_token_id: Optional[int] = None,
+                       in_place: bool = False):
     """Non-speculative greedy step: forward the last token, take the argmax."""
 
     def step(state: DecodeState) -> DecodeState:
@@ -154,10 +180,10 @@ def make_baseline_step(target_model: Model, *, eos_token_id: Optional[int] = Non
             active=state.active & ~hit_eos & ~exhausted & ~no_room,
             bonus=state.bonus + commit,
             token_logprobs=new_lp,
-            steps=state.steps + 1,
+            steps=_advance(state),
         )
 
-    return step
+    return _in_place(step) if in_place else step
 
 
 def make_prefill(target_model: Model, draft_model: Optional[Model], chunk: Optional[int] = None):
@@ -205,3 +231,125 @@ def make_prefill(target_model: Model, draft_model: Optional[Model], chunk: Optio
                        active=prompt_lens > 0, token_logprobs=lp_buf)
 
     return prefill
+
+
+def _launch_counts() -> Dict[str, int]:
+    """Every kernel wrapper's launch count, and the forwards and layers run."""
+    counts = {name: w.launches for name, w in kernel_wrappers().items()}
+    counts["forwards"], counts["layers"] = transformer.forward.calls, transformer.forward.layers
+    return counts
+
+
+def _set_launch_counts(counts: Dict[str, int]) -> None:
+    for name, w in kernel_wrappers().items():
+        w.launches = counts[name]
+    transformer.forward.calls, transformer.forward.layers = counts["forwards"], counts["layers"]
+
+
+class DecodeLoop:
+    """Port of llm_inference_lab_tpu/core/specstep.py ``make_decode_loop``:
+    n decode steps over one fixed set of state tensors with no host read.
+
+    ``loop(state, n)`` ties the loop to `state`'s tensors at its first call
+    (``bind``) and refuses any other state. On the card it captures the
+    in-place step once in a ``torch.cuda.CUDAGraph`` and replays the graph n
+    times; on the CPU it runs the in-place step n times. JAX's loop stops
+    when no lane is active: here a step after every lane finished changes
+    nothing, so the caller picks n and polls between calls
+    (core/engine.py, core/batching.py).
+
+    The wrappers' launch counts see no replay. ``per_replay`` holds the
+    kernel launches, forwards and layers of the captured step, ``replays``
+    this loop's replays, and the class-wide ``replayed`` the sums of
+    per_replay over every replay of every loop, with "replays" beside them.
+    Where capture fails (a host read or a synchronisation inside the step)
+    it raises: there is no eager fallback on the card."""
+
+    replayed: Dict[str, int] = {}
+
+    def __init__(self, step, pool=None):
+        self.step = step  # in place
+        self.pool = pool  # a graph pool handle, shared by the loops of one engine
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.bound: Optional[tuple] = None
+        self.per_replay: Dict[str, int] = {}
+        self.replays = 0
+        self.capture_s: Optional[float] = None  # host seconds of the capture
+        self.pool_bytes: Optional[int] = None  # memory the capture reserved
+
+    @torch.inference_mode()
+    def bind(self, state: DecodeState) -> None:
+        """Tie the loop to state's tensors; on the card capture the step over
+        them."""
+        if self.bound is not None:
+            raise ValueError("this decode loop is already bound to a state")
+        if state.tokens.is_cuda:
+            self._capture(state)
+        self.bound = state_tensors(state)
+
+    @torch.inference_mode()
+    def __call__(self, state: DecodeState, n: int) -> DecodeState:
+        if self.bound is None:
+            self.bind(state)
+        elif not all(a is b for a, b in zip(self.bound, state_tensors(state), strict=True)):
+            raise ValueError("the decode loop was bound to another state's tensors")
+        if state.tokens.is_cuda:
+            self.replay(n)
+        else:
+            for _ in range(n):
+                self.step(state)
+        return state
+
+    def replay(self, n: int) -> None:
+        for _ in range(n):
+            self.graph.replay()
+        self.replays += n
+        tally = DecodeLoop.replayed
+        for name, count in self.per_replay.items():
+            tally[name] = tally.get(name, 0) + count * n
+        tally["replays"] = tally.get("replays", 0) + n
+
+    def _capture(self, state: DecodeState) -> None:
+        dev = state.tokens.device
+        graph = torch.cuda.CUDAGraph()
+        capture = torch.cuda.graph(graph, pool=self.pool)
+        side = capture.capture_stream
+        fields = [getattr(state, name) for name in FIELDS]
+        saved = [t.clone() for t in fields]
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            # Warm-up on the capture stream: every kernel's first launch (its
+            # build and module load) and cuBLAS's workspace for this stream
+            # happen here, not under capture. The fields then get their
+            # values back; the step's cache rows land where the next step
+            # writes the same rows before anything reads them.
+            self.step(state)
+            for t, v in zip(fields, saved):
+                t.copy_(v)
+        torch.cuda.synchronize(dev)
+        del saved
+        before = _launch_counts()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        t0 = time.perf_counter()
+        try:
+            with capture:
+                self.step(state)
+        except RuntimeError as err:
+            _set_launch_counts(before)
+            raise RuntimeError("capturing the decode step in a CUDA graph failed (a host read "
+                               "or a synchronisation inside the step?)") from err
+        self.capture_s = time.perf_counter() - t0
+        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        after = _launch_counts()
+        self.per_replay = {name: after[name] - before[name] for name in after}
+        _set_launch_counts(before)  # capturing launched nothing
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph = graph
+
+
+def make_decode_loop(step, pool=None) -> DecodeLoop:
+    """The decode loop over an in-place step (make_spec_step or
+    make_baseline_step with in_place=True); pool: a graph pool handle
+    (torch.cuda.graph_pool_handle) its graph may share."""
+    return DecodeLoop(step, pool)

@@ -12,7 +12,9 @@ slice reads. Invariants (as in the JAX package):
   inactive lanes still flow through the batched step but commit nothing.
 
 The steps return a new DecodeState; the KV caches inside are updated in
-place by the forwards.
+place by the forwards. ``assign`` writes one state's tensors into another's
+(the in-place steps of core/specstep.py, which a CUDA graph replays), and
+``reset_state`` returns a state to ``init_state``'s values in place.
 """
 
 from __future__ import annotations
@@ -39,7 +41,58 @@ class DecodeState:
     accepted: torch.Tensor  # [B] int32 — draft tokens accepted
     bonus: torch.Tensor  # [B] int32 — bonus/fallback tokens emitted
     token_logprobs: torch.Tensor  # [B, max_len] f32 — target log-prob per token
-    steps: int = 0  # decode steps run (counted on the host: the loop is there)
+    steps: torch.Tensor  # [] int32 — decode steps run with an active lane
+
+
+# The tensors a step or a prefill may replace (all but the caches).
+FIELDS = ("tokens", "lengths", "prompt_lens", "max_new", "active", "proposed", "accepted",
+          "bonus", "token_logprobs", "steps")
+
+
+def cache_tensors(cache) -> tuple:
+    """Every tensor of a KV cache (contiguous or paged), None for an absent
+    one."""
+    if cache is None:
+        return ()
+    return (cache.k, cache.v, cache.k_scale, cache.v_scale, getattr(cache, "table", None))
+
+
+def state_tensors(state: DecodeState) -> tuple:
+    """Every tensor a step reads or writes: the fields and both caches."""
+    return (tuple(getattr(state, name) for name in FIELDS) + cache_tensors(state.target_cache)
+            + cache_tensors(state.draft_cache))
+
+
+def assign(state: DecodeState, new: DecodeState) -> DecodeState:
+    """Write `new`'s fields into `state`'s own tensors (copy_) and return
+    `state`: its tensors stay the same objects, so a graph captured over them
+    sees the values. Both must share their caches (the forwards write those
+    in place)."""
+    if new.target_cache is not state.target_cache or new.draft_cache is not state.draft_cache:
+        raise ValueError("assign: the two states must share their KV caches")
+    for name in FIELDS:
+        src, dst = getattr(new, name), getattr(state, name)
+        if src is not dst:
+            dst.copy_(src)
+    return state
+
+
+def reset_state(state: DecodeState, max_new_tokens: int) -> DecodeState:
+    """``init_state``'s values in the state's own tensors: zeros, every
+    lane's budget max_new_tokens, zeroed caches with int8 scales of one; a
+    paged cache keeps its table."""
+    for name in FIELDS:
+        getattr(state, name).zero_()
+    state.max_new.fill_(max_new_tokens)
+    for cache in (state.target_cache, state.draft_cache):
+        if cache is None:
+            continue
+        cache.k.zero_()
+        cache.v.zero_()
+        for scale in (cache.k_scale, cache.v_scale):
+            if scale is not None:
+                scale.fill_(1.0)
+    return state
 
 
 def init_state(target_model: Model, draft_model: Optional[Model], batch_size: int,
@@ -72,4 +125,5 @@ def init_state(target_model: Model, draft_model: Optional[Model], batch_size: in
         accepted=zeros_i32(B),
         bonus=zeros_i32(B),
         token_logprobs=torch.zeros((B, max_seq_len), dtype=torch.float32, device=device),
+        steps=torch.zeros((), dtype=torch.int32, device=device),
     )

@@ -131,7 +131,10 @@ def forward(cfg: ModelConfig, params: Any, tokens: torch.Tensor, positions: torc
             cache, cache_lens: torch.Tensor):
     """tokens, positions: [B, S] (positions int32); cache (a KVCache or a
     PagedKVCache) written in place at cache_lens[b] + arange(S). Returns
-    (logits [B, S, V] f32, cache)."""
+    (logits [B, S, V] f32, cache). ``forward.calls`` and ``forward.layers``
+    count the forwards run and their layers."""
+    forward.calls += 1
+    forward.layers += cfg.n_layers
     embed = params["embed"]
     if isinstance(embed, EmbedQuant):
         x = embed.lookup(tokens, cfg.dtype)
@@ -165,6 +168,10 @@ def forward(cfg: ModelConfig, params: Any, tokens: torch.Tensor, positions: torc
                   else params["final_norm_scale"])
         x, n = add_norm(x, h, w_next, "post_mlp_norm_scale")
     return lm_head_logits(cfg, params, n), cache
+
+
+forward.calls = 0
+forward.layers = 0
 
 
 @lru_cache(maxsize=8)

@@ -208,6 +208,10 @@ def decode_splits(T: int, S: int, opts: Options) -> int:
 
 
 _counters: dict = {}
+# Every counter buffer a larger one replaced. A CUDA graph captured a launch
+# with the buffer's address and replays it for as long as the graph lives, so
+# no buffer is ever freed.
+_outgrown: list = []
 
 
 def ticket_counters(device: torch.device, n: int) -> torch.Tensor:
@@ -216,6 +220,8 @@ def ticket_counters(device: torch.device, n: int) -> torch.Tensor:
     zeroed once, when it is made, and shared by every call in stream order."""
     buf = _counters.get(device)
     if buf is None or buf.numel() < n:
+        if buf is not None:
+            _outgrown.append(buf)
         buf = torch.zeros((max(n, 4096),), dtype=torch.int32, device=device)
         _counters[device] = buf
     return buf

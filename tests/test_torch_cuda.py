@@ -14,6 +14,10 @@ import numpy as np
 import pytest
 import torch
 
+from llm_inference_lab_tpu_torch.config import EngineConfig, EnvFlags
+from llm_inference_lab_tpu_torch.core.batching import ContinuousBatcher
+from llm_inference_lab_tpu_torch.core.engine import Engine
+from llm_inference_lab_tpu_torch.core.specstep import DecodeLoop, make_decode_loop
 from llm_inference_lab_tpu_torch.models.base import quantize_rows
 from llm_inference_lab_tpu_torch.models.paged import gather_pages
 from llm_inference_lab_tpu_torch.ops.flash_decode import (
@@ -22,6 +26,8 @@ from llm_inference_lab_tpu_torch.ops.flash_decode import (
     flash_decode_plain,
     ticket_counters,
 )
+from llm_inference_lab_tpu_torch.ops import flash_decode as fd
+from llm_inference_lab_tpu_torch.ops import kernel_wrappers
 from llm_inference_lab_tpu_torch.ops.flash_prefill import flash_prefill, flash_prefill_int8
 from llm_inference_lab_tpu_torch.ops.paged_flash import paged_flash, paged_flash_int8
 from llm_inference_lab_tpu_torch.ops.quant import quantize_int4
@@ -890,3 +896,132 @@ def test_verify_prefix_split_kernel_equals_plain(card, name):
         assert got[0].tolist() == [3, 2, 0, 4]
     if name == "tie across a split boundary":
         assert got[1].tolist() == [[True, False], [True, True]]
+
+
+# ------------------------------------------------- the decode loop's graph
+# llama-3.2-1b, int4 from a seed, as target and draft: every kernel of the
+# decode path at widths it takes, in seconds.
+GRAPH_CFG = dict(base_model="llama-3.2-1b", draft_model="llama-3.2-1b", max_new_tokens=16,
+                 max_seq_len=256, quantization="int4", quantized_init=True, seed=0)
+GRAPH_CASES = {
+    "spec K=1": dict(max_draft=1),
+    "spec K=4 int8 KV": dict(max_draft=4, kv_quantization="int8"),
+    "baseline paged": dict(draft_model=None, kv_layout="paged", kv_page_size=64),
+    "spec K=2 paged int8 KV": dict(max_draft=2, kv_layout="paged", kv_page_size=64,
+                                   kv_quantization="int8"),
+    # Mistral-7B's window of 4096: a ring of 4736 slots at max_seq_len 8192.
+    "ring baseline": dict(base_model="mistral-7b", draft_model=None, max_seq_len=8192,
+                          prefill_chunk=512, kv_ring=True),
+}
+GRAPH_PROMPTS = ["The quick brown fox jumps over the lazy dog. " * 3, "graph replay " * 5]
+
+
+def _graph_engines(card, **kw):
+    """An engine on the decode loop's graph path and one on the host loop
+    (EnvFlags(sync_steps=True)) with the same weights."""
+    cfg = EngineConfig(**{**GRAPH_CFG, **kw})
+    eng = Engine(cfg, device=card)
+    host = Engine(cfg, device=card, flags=EnvFlags(sync_steps=True),
+                  target_params=eng.target.params,
+                  draft_params=eng.draft.params if eng.draft is not None else None)
+    return eng, host
+
+
+RESULT_KEYS = ("generated_ids", "token_logprobs", "prompt_logprobs", "steps", "proposed",
+               "accepted", "bonus_tokens")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(GRAPH_CASES))
+def test_decode_loop_replays_give_the_host_loops_bits(card, case):
+    """Engine.generate_batch at B = 1 and 2 through CUDA-graph replays of the
+    decode step gives the host loop's ids, logprobs (to the 6 decimals the
+    results keep), steps and counts, on contiguous, paged, int8 and ring
+    caches, spec and baseline;
+    the captured step holds the path's decode kernels (rms_norm once a
+    forward, add_rms_norm twice a layer, no prefill kernel), and a chunk
+    of replays moves no wrapper's launch count."""
+    eng, host = _graph_engines(card, **GRAPH_CASES[case])
+    for prompts in (GRAPH_PROMPTS[:1], GRAPH_PROMPTS):
+        got, want = eng.generate_batch(prompts), host.generate_batch(prompts)
+        for g, w in zip(got, want, strict=True):
+            for key in RESULT_KEYS:
+                assert g[key] == w[key], (case, key, g[key], w[key])
+    assert len(eng._decode_states) == 2
+    for state, loop in eng._decode_states.values():
+        assert loop.graph is not None and loop.replays > 0
+        per = loop.per_replay
+        assert per["forwards"] == (eng._max_k + 1 if eng.is_spec else 1)
+        assert per["rms_norm"] == per["forwards"] and per["add_rms_norm"] == 2 * per["layers"]
+        assert per["verify_prefix"] == (1 if eng.is_spec else 0)
+        assert per["flash_prefill"] == per["flash_prefill_int8"] == 0
+        assert per["quant_matmul_int4_mma"] == 0 and per["quant_matmul_int4"] > 0
+        counts = {name: w.launches for name, w in kernel_wrappers().items()}
+        replayed = dict(DecodeLoop.replayed)
+        loop(state, 2)
+        torch.cuda.synchronize()
+        assert counts == {name: w.launches for name, w in kernel_wrappers().items()}
+        assert DecodeLoop.replayed["replays"] == replayed.get("replays", 0) + 2
+
+
+@pytest.mark.cuda
+def test_batcher_replays_give_the_host_steps_bits(card):
+    """A paged ContinuousBatcher on the decode loop (bound at construction)
+    gives the results of one on the functional step (ids, logprobs, counts):
+    6 requests through 3 slots with budgets 3 to 17."""
+    eng, host = _graph_engines(card, max_draft=2, kv_layout="paged", kv_page_size=64,
+                               max_seq_len=512)
+    runs = []
+    for e in (eng, host):
+        b = ContinuousBatcher(e, n_slots=3)
+        for i, budget in enumerate((3, 17, 9, 5, 12, 16)):
+            b.submit("served by replays " * (1 + i), max_new_tokens=budget)
+        runs.append((b, b.run()))
+    (b, got), (hb, want) = runs
+    assert b._loop.graph is not None and b._loop.replays > 0 and hb._loop is None
+    for g, w in zip(got, want, strict=True):
+        for key in ("generated_ids", "token_logprobs", "prompt_logprobs", "proposed", "accepted",
+                    "finish_reason"):
+            assert g[key] == w[key], (key, g[key], w[key])
+
+
+@pytest.mark.cuda
+def test_graph_keeps_an_outgrown_ticket_buffer(card):
+    """The ticket counters grow to a new buffer while a graph captured with
+    the old one lives: the old buffer is kept, so the graph's replays stay
+    right even after its memory would have been handed out again."""
+    eng, host = _graph_engines(card, max_draft=1)
+    first = eng.generate(GRAPH_PROMPTS[0])
+    old = fd.ticket_counters(card, 1)
+    grown = fd.ticket_counters(card, old.numel() + 1)
+    assert grown.numel() > old.numel() and any(b is old for b in fd._outgrown)
+    torch.cuda.empty_cache()
+    junk = [torch.full_like(old, 7) for _ in range(64)]  # would reuse a freed block
+    again, want = eng.generate(GRAPH_PROMPTS[0]), host.generate(GRAPH_PROMPTS[0])
+    del junk
+    for key in RESULT_KEYS:
+        assert again[key] == first[key] == want[key], key
+    assert not old.any() and not grown[:old.numel()].any()
+
+
+@pytest.mark.cuda
+def test_capture_of_a_step_that_reads_the_host_raises(card):
+    """A step that reads a value back to the host (here int() of a device
+    scalar) cannot be captured: the loop raises and does not run it
+    eagerly, and stays unbound. (Last in the file: a failed capture is the
+    one test that leaves the card's stream state unusual.)"""
+    eng, _ = _graph_engines(card, max_draft=1)
+    state = eng._init_state(1, 256)
+
+    def reads_the_host(s):
+        eng._step_in_place(s)
+        if int(s.steps) > 1000:
+            raise AssertionError("unreachable")
+        return s
+
+    loop = make_decode_loop(reads_the_host)
+    before = state.steps.clone()
+    with pytest.raises(RuntimeError, match="capturing the decode step"):
+        loop(state, 3)
+    torch.cuda.synchronize()
+    assert loop.graph is None and loop.bound is None and torch.equal(state.steps, before)
