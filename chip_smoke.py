@@ -2,10 +2,11 @@
 """Smoke run of the PyTorch/CUDA port (llm_inference_lab_tpu_torch) on one
 NVIDIA card: the quickest proof that the port builds and runs on the GPU.
 
-    python3 chip_smoke.py                    # phases 0-9, last line a JSON result
+    python3 chip_smoke.py                    # phases 0-11, last line a JSON result
     python3 chip_smoke.py --profile          # also a torch.profiler breakdown of runs
     python3 chip_smoke.py --profile=gemma    # the breakdown of the Gemma-2 runs only
     python3 chip_smoke.py --profile=mistral  # the breakdown of the Mistral B=1 run only
+    python3 chip_smoke.py --profile=sampling # the breakdown of phase 11's sampled run only
 
 Phases, in order (any failure exits non-zero; nothing is caught and ignored):
  0. the card: nvidia-smi name and power limit, torch's device name, and
@@ -51,7 +52,17 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
     S = 1 equal to its row of S = 5, and equal to their own results over
     the same keys laid out by position (bits); timed at the
     long prompt's K=4 step and its 11 prefill chunks beside SDPA given the
-    same boolean ring mask;
+    same boolean ring mask; then the ngram path's verify shapes (the int8
+    3B at K=12): kernel B's decode body at M = 13 (checked and timed with
+    the int8 3B's other M), D at S = 13 over T = 256 (within tolerance,
+    every row the bits of that row alone) and C at [1, 12, 128256] (exactly
+    its plain and split plain versions), each timed beside its library
+    call and bound; and sampling: sample_tokens on the card against its
+    own distribution (2**16 draws from one 128256-logit row under phase
+    11's filters, total variation < 0.02, as JAX's tests/test_policies.py
+    bounds its own check; the card's uniforms the CPU's bits) and the
+    sampling ops of phase 11's step timed (the top_p sort of a row, a
+    draw, the rejection policy's two distributions and its residual bonus);
  3. end to end at full width: Engine with an int4 llama-3.2-3b target and
     llama-3.2-1b draft (random weights from a seed, int8 embedding/tied
     head), K=1, greedy, 64 new tokens, max_seq_len 512, on bench.py's
@@ -97,13 +108,33 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
     then on a 5400-token prompt (11 chunks, the ring wraps) spec and
     baseline on the ring (equal ids), a baseline on the full cache and int8
     KV baselines on the ring and the full cache: ring ids == full-cache ids
-    for bf16 and int8, or a near tie of at most 2 bf16 ulps;
+    for bf16 and int8, or a near tie of at most 2 bf16 ulps; and ngram
+    drafting (K=4, no draft model) on the ring: ids == the ring baseline's;
+10. ngram at the JAX package's ngram_3b_int8_k12 configuration (int8
+    llama-3.2-3b, int8 embedding and tied head, bf16 KV, no draft model,
+    K=12, max_seq_len 512, 64 new tokens, PROMPT): a warm-up, three timed
+    generate calls and the host loop in turns; graph == host loop (ids,
+    steps, proposed, accepted), ids == a greedy baseline's, acceptance > 0
+    and more than one token committed a step (ms/step, tok/s, tokens a
+    step, acceptance, polls a generate, capture ms and graph pool MB
+    logged); then phase 3b's 16 requests through the 8-slot paged batcher
+    on the same engine, each request's ids the start of this phase's B=1
+    ids under the near-tie rule (occupancy and aggregate tok/s logged);
+11. sampling and the policies on phase 3's weights (run after phase 3b):
+    greedy=False, temperature 0.8, top_p 0.95, policy rejection, the
+    device-side adaptive controller, K up to 4: graph ids == host loop
+    ids, a repeat with the seed gives its ids and another seed others,
+    logprobs finite, the final K in [min_k, max_k]; then greedy runs of
+    conf_threshold, topk_agree, typical and the host adaptive controller
+    (a one-step graph a K), graph against host loop;
  9. the kernels' JSON line (every kernel, launches by path; the Gemma-2
-    variants of D, E and F and the ring variants of D and E on rows of their
-    own), then the result line.
+    variants of D, E and F, the ring variants of D and E, and the ngram
+    verify shapes of B, D and C on rows of their own), then the result
+    line.
 
-Every B=1 and serving path (phases 3-8) decodes through the decode loop of
-core/specstep.py: CUDA-graph replays of the step, captured once a shape.
+Every B=1 and serving path (phases 3-8, 10, 11) decodes through the decode
+loop of core/specstep.py: CUDA-graph replays of the step, captured once a
+shape (the host adaptive controller: a one-step graph a K).
 count_launches adds each replay's captured launches to the wrappers' eager
 counts (and the captured forwards and layers to the eager ones), and
 asserts that the path replayed, that no wrapper's count moves across a
@@ -192,11 +223,30 @@ INT8_CFG = dict(base_model="llama-3.2-3b", draft_model="llama-3.2-1b", max_draft
                 max_new_tokens=64, max_seq_len=512, quantization="int8", quantized_init=True,
                 kv_quantization="int8", seed=0)
 INT8_MAX_LEN = 512  # serving lanes of the int8 path
+# The ngram path (phase 10): the JAX package's ngram_3b_int8_k12
+# (scripts/headline_suite.py): an int8 3B with the int8 embedding and tied
+# head, no draft model, prompt-lookup drafts of K=12, bf16 KV.
+NGRAM_CFG = dict(base_model="llama-3.2-3b", draft_model=None, draft_mode="ngram", max_draft=12,
+                 max_new_tokens=64, max_seq_len=512, quantization="int8", quantized_init=True,
+                 quantize_embed=True, seed=0)
+NGRAM_K = 12
+NGRAM_P = P_MAIN + NGRAM_K  # the last position of a mid-generation verify block
+# Phase 11: sampling on the main path's weights (int4 3B + 1B), the
+# rejection policy and the device-side adaptive K; then greedy runs of the
+# other policies and the host adaptive controller, all at K=4.
+SAMPLED = dict(greedy=False, temperature=0.8, top_p=0.95, policy="rejection",
+               controller="adaptive-device", max_draft=4, controller_params={"max_k": 4})
+GREEDY_POLICIES = {"conf_threshold": dict(policy="conf_threshold"),
+                   "topk_agree": dict(policy="topk_agree"), "typical": dict(policy="typical"),
+                   "host adaptive K": dict(controller="adaptive", controller_params={"max_k": 4})}
+SAMPLE_DRAWS = 1 << 16  # draws of phase 2's sampling check
+SAMPLE_TV = 0.02  # their total variation bound (JAX's tests/test_policies.py's)
 KV_ALIGN_STEPS = 4  # kv_alignment_report's tolerance, in int8 steps (phase_kv_alignment)
 # Kernel B's decode checks: the path's M (B=1 draft and verify, 8-slot draft
 # and verify).
 QMM8_M = (1, 5, 8, 40)
 QMM8_TIME_M = QMM8_M + (63,)
+QMM8_NGRAM_M = NGRAM_K + 1  # the ngram path's verify rows (phase 10)
 # Kernel B per element: 2^-8 |ref| (the bf16 output's rounding) + 2^-14 of
 # the largest |ref| (f32 sums of up to 8192 products in another order).
 QMM8_RTOL, QMM8_MTOL = 2.0 ** -8, 2.0 ** -14
@@ -252,10 +302,20 @@ PATH_KERNELS = {
                                                                     "flash_prefill_int8"},
     "generate mistral-7b int8 full cache long prompt (baseline)": INT4 | {"flash_decode_int8",
                                                                           "flash_prefill_int8"},
+    "generate mistral-7b ngram K=4 ring long prompt": INT4 | SPEC,
+    "generate int8 ngram K=12 (3 runs)": INT8 | SPEC,
+    # 8 slots x 13 verify rows: B only through its tensor-core path.
+    "serving int8 ngram K=12 (16 requests)": INT8 - {"quant_matmul_int8"} | SERVE,
+    # rejection compares probabilities, not argmaxes: no kernel C.
+    "generate int4 sampled rejection adaptive-device K=4 (3 runs)": INT4 | {"flash_decode",
+                                                                             "flash_prefill"},
+    "generate int4 greedy conf_threshold, topk_agree, typical, host adaptive K": INT4 | SPEC,
 }
 GEMMA_PATHS = [path for path in PATH_KERNELS if "gemma-2" in path]
 MISTRAL_PATHS = [path for path in PATH_KERNELS if "mistral" in path]
 RING_PATHS = [path for path in MISTRAL_PATHS if "ring" in path]
+# The phase-10 paths: the K=12 verify shapes have rows of their own.
+NGRAM_PATHS = [path for path in PATH_KERNELS if "K=12" in path]
 
 
 T_START = time.perf_counter()
@@ -412,7 +472,8 @@ def qmm_decode(dev, bits, g, widths):
     timed M)}: within tolerance of the plain version at DECODE_CHECK_M (the
     first M rows of one x), every row with the same bits as the row alone
     (asserted), and a second call on the same weights with the same bits
-    (the split's tickets reset); timed at the width's M beside the plain
+    (the split's tickets reset), and so at every timed M; timed at the
+    width's M beside the plain
     version, the library call (A: dequantize, then torch.matmul; B:
     torch.matmul(x, w.to(bf16)) * scale) and the bound. Returns ({(K, N,
     M): numbers}, max abs err)."""
@@ -444,7 +505,7 @@ def qmm_decode(dev, bits, g, widths):
             sc += 1e-5
             x = torch.randn((max(DECODE_CHECK_M), K), generator=g, device=dev).bfloat16()
             alone = torch.cat([kernel(x[i:i + 1], w[0], sc[0]) for i in range(len(x))])
-            for M in DECODE_CHECK_M:
+            for M in sorted(set(DECODE_CHECK_M) | set(time_m)):
                 got = kernel(x[:M], w[0], sc[0])
                 max_err = max(max_err, qmm_within(bits, got, plain(x[:M].float(), w[0], sc[0])))
                 assert torch.equal(got, alone[:M]), (name, K, N, M, "M-dependent rounding")
@@ -670,6 +731,144 @@ def phase_verify_prefix(dev):
             agg = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b, bound_by=by,
                        max_abs_err=0.0)
     return agg
+
+
+def phase_ngram_shapes(dev):
+    """Kernels D and C at the ngram path's verify shapes (phase 10: the
+    int8 3B, K=12, B=1, T = 256): D at S = 13 over a bf16 cache with
+    POISON past the last position, within tolerance of its plain version,
+    a dead row zero, and each of its rows the bits of that row alone (S =
+    1); C at [1, 12, 128256] as the first 12 rows of [1, 13, V], exactly its
+    plain version and its split plain version. Each timed beside its plain
+    version, its library call and its bound. Returns {row: numbers} for
+    one ngram step (D: 28 layers; C: one call)."""
+    from llm_inference_lab_tpu_torch.ops.flash_decode import flash_decode, flash_decode_plain
+    from llm_inference_lab_tpu_torch.ops.verify import (
+        verify_plan,
+        verify_prefix,
+        verify_prefix_plain,
+        verify_prefix_split_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    S, (H, KVH), D = NGRAM_K + 1, (24, 8), 128
+    q, k, v, pos = flash_inputs(g, dev, 2, S, H, KVH, T_MAIN, D, NGRAM_P)
+    v[..., NGRAM_P + 1:, :] = POISON
+    pos[1, 0] = -1
+    got = flash_decode(q, k[0], v[0], pos)
+    err = check_attn(got, q, k[0], v[0], pos, what=("flash_decode", S, D, T_MAIN))
+    assert torch.all(got[1, 0] == 0), "dead row not zero"
+    for i in range(S):
+        one = flash_decode(q[:, i:i + 1].contiguous(), k[0], v[0], pos[:, i:i + 1].contiguous())
+        assert torch.equal(one, got[:, i:i + 1]), (i, "S-dependent rounding")
+    L = 2 * L2_BYTES // (2 * KVH * T_MAIN * D * 2) + 1
+    q, k, v, pos = flash_inputs(g, dev, 1, S, H, KVH, T_MAIN, D, NGRAM_P, L=L)
+    cyc = Cycle(L)
+    ms = median_ms(lambda: flash_decode(q, k[cyc()], v[cyc.i], pos))
+    plain = median_ms(lambda: flash_decode_plain(q, k[cyc()], v[cyc.i], pos), iters=10)
+    lib = median_ms(lambda: sdpa(q, k[cyc()], v[cyc.i], pos), iters=10)
+    seen = sum(NGRAM_P - S + 2 + i for i in range(S))
+    b, by = bound_ms(2 * KVH * (NGRAM_P + 1) * D * 2 + 2 * 2 * S * H * D + 4 * S,
+                     4 * H * seen * D)
+    log(f"flash_decode S={S} D={D} T={T_MAIN} p={NGRAM_P}: max_abs_err {err:.3g}, every row the "
+        f"bits of S = 1; {ms:.4f} ms  plain {plain:.4f}  library {lib:.4f}  bound {b:.5f} ({by})")
+    rows = {"flash_decode": dict(ms=28 * ms, plain_ms=28 * plain, library_ms=28 * lib,
+                                 bound_ms=28 * b, bound_by=by, max_abs_err=err)}
+    V = VERIFY_V[0]
+    lg = torch.randn((1, NGRAM_K + 1, V), generator=g, device=dev)[:, :NGRAM_K]
+    d = torch.argmax(lg, -1).to(torch.int32)
+    d[0, 7] = (d[0, 7] + 1) % V  # accept 7
+    ref = verify_prefix_plain(d, lg)
+    split = verify_prefix_split_plain(d, lg, verify_plan(NGRAM_K, V))
+    got = verify_prefix(d, lg)
+    for a in (got, split):
+        assert torch.equal(a[0], ref[0]) and torch.equal(a[1], ref[1]), (a, ref)
+    assert got[0].tolist() == [7]
+    ms = median_ms(lambda: verify_prefix(d, lg))
+    plain = median_ms(lambda: verify_prefix_plain(d, lg))
+    lib = median_ms(lambda: torch.argmax(lg, -1))
+    b, by = bound_ms(NGRAM_K * V * 4 + 4 * NGRAM_K + NGRAM_K + 4, NGRAM_K * V)
+    log(f"verify_prefix [1,{NGRAM_K},{V}] ({verify_plan(NGRAM_K, V)} splits a row): accept_len "
+        f"7 == plain == split plain; {ms:.4f} ms  plain {plain:.4f}  library {lib:.4f} "
+        f"(torch.argmax)  bound {b:.5f} ({by})")
+    rows["verify_prefix"] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b, bound_by=by,
+                                 max_abs_err=0.0)
+    return rows
+
+
+def phase_sampling_ops(dev):
+    """sample_tokens on the card against its own distribution: SAMPLE_DRAWS
+    draws (chunks of 2048 rows, each chunk its own key) from one fixed row
+    of 128256 logits (48 live ones) under phase 11's filters (temperature
+    0.8, top_p 0.95), within total variation SAMPLE_TV of
+    exp(proposal_log_probs);
+    the card's uniforms are the CPU's bits. Then the plain PyTorch sampling
+    ops of phase 11's step timed at its shapes (no Pallas kernel in JAX
+    either): a draft or bonus draw [1, V] (top_p's sort of the row),
+    rejection's proposal distributions [1, 4, V] and its residual bonus."""
+    from llm_inference_lab_tpu_torch.core.policies import rejection_bonus_logits, rejection_ratio
+    from llm_inference_lab_tpu_torch.ops.sampling import (
+        filtered_logits,
+        fold,
+        proposal_log_probs,
+        sample_tokens,
+        seed_key,
+        uniform,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    V = VERIFY_V[0]
+    kw = {key: SAMPLED[key] for key in ("temperature", "top_p")}
+    # 48 logits from 3 down to -1 spread over the row, the rest at -30: the
+    # filters keep 28 tokens, and 2**16 draws give a total variation of
+    # about 0.0074 from sampling alone.
+    row = torch.full((V,), -30.0, device=dev)
+    row[torch.arange(48, device=dev) * (V // 48)] = torch.linspace(3.0, -1.0, 48, device=dev)
+    key = torch.tensor(seed_key(13), device=dev)
+    assert torch.equal(uniform(key, (4, V)).cpu(), uniform(key.cpu(), (4, V)))
+    counts = torch.zeros(V, dtype=torch.int64, device=dev)
+    chunk = 2048
+    for i in range(SAMPLE_DRAWS // chunk):
+        ids = sample_tokens(fold(key, i), row.expand(chunk, V), **kw)
+        counts += torch.bincount(ids.long(), minlength=V)
+    want = proposal_log_probs(row, **kw).exp().double()
+    tv = 0.5 * float((counts.double() / SAMPLE_DRAWS - want).abs().sum())
+    support = int((want > 0).sum())
+    assert tv < SAMPLE_TV, ("sample_tokens on the card is off its distribution", tv)
+    log(f"sample_tokens on the card: {SAMPLE_DRAWS} draws from one row of {V} logits "
+        f"(temperature {kw['temperature']}, top_p {kw['top_p']}: {support} tokens kept), "
+        f"total variation {tv:.4f} < {SAMPLE_TV}; uniforms == the CPU's bits")
+    x1 = torch.randn((1, V), generator=g, device=dev) * 3
+    dl = torch.randn((1, 4, V), generator=g, device=dev) * 3
+    tl = torch.randn((1, 5, V), generator=g, device=dev) * 3
+    d = torch.randint(0, V, (1, 4), generator=g, device=dev, dtype=torch.int32)
+    a = torch.tensor([2], device=dev, dtype=torch.int32)
+    rej = dict(kw, draft_temperature=kw["temperature"] / 1.5)
+    # 15-70 launches a call, more than median_ms's spin can keep ahead of:
+    # CUDA events around 20 back-to-back calls instead (the host's enqueue
+    # time shows where it is the longer).
+    def loop_ms(fn, iters=20):
+        fn()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
+
+    times = {
+        "argmax [1, V] (greedy)": loop_ms(lambda: sample_tokens(None, x1, greedy=True)),
+        "filtered_logits [1, V] (the top_p sort)": loop_ms(lambda: filtered_logits(x1, **kw)),
+        "sample_tokens [1, V]": loop_ms(lambda: sample_tokens(key, x1, **kw)),
+        "rejection_ratio [1, 4, V]": loop_ms(lambda: rejection_ratio(d, dl, tl, **rej)),
+        "rejection_bonus_logits [1, 4, V]": loop_ms(
+            lambda: rejection_bonus_logits(dl, tl, a, **rej)),
+    }
+    log("sampling ops at phase 11's shapes (plain PyTorch; CUDA events around 20 calls): "
+        + "; ".join(f"{what} {ms:.4f} ms" for what, ms in times.items()))
+    return times
 
 
 # d_model of every model on a path, with Gemma's one-offset weights.
@@ -993,9 +1192,9 @@ def phase_quant_matmul_int8(dev):
     step sums; then the tensor-core path at every width's prefill shapes
     (qmm_prefill). Returns (one K=4 B=1 step's numbers, one admission
     wave's: 8 prompts of 256 rows through the 3B's 28 and the 1B's 16
-    layers)."""
+    layers, one ngram K=12 step's: 28 3B layers at M = 13)."""
     g = torch.Generator(device=dev).manual_seed(11)
-    rows, max_err = qmm_decode(dev, 8, g, {"3B": (QMM_3B, QMM8_TIME_M),
+    rows, max_err = qmm_decode(dev, 8, g, {"3B": (QMM_3B, QMM8_TIME_M + (QMM8_NGRAM_M,)),
                                             "1B": (QMM_1B, QMM8_TIME_M)})
     # One K=4 decode step at B=1: 4 draft forwards of 16 1B layers at M=1,
     # one verify of 28 3B layers at M=5.
@@ -1007,7 +1206,11 @@ def phase_quant_matmul_int8(dev):
     log(f"quant_matmul_int8: {across} rows differ between the decode body and the "
         f"tensor-core path over {sum(map(len, QMM_WIDTHS.values()))} shapes")
     wave = [(k, n, 2048, 28) for k, n in QMM_3B] + [(k, n, 2048, 16) for k, n in QMM_1B]
-    return sum_rows(rows, calls(step), max_err), sum_rows(pre, wave, pre_err)
+    ngram = [(QMM_3B, QMM8_NGRAM_M, 28)]
+    log_step("quant_matmul_int8", f"one ngram K={NGRAM_K} B=1 step (28 verify layers at M = "
+             f"{QMM8_NGRAM_M})", rows, ngram)
+    return (sum_rows(rows, calls(step), max_err), sum_rows(pre, wave, pre_err),
+            sum_rows(rows, calls(ngram), max_err))
 
 
 def int8_kv(g, dev, shape, last=None):
@@ -1819,6 +2022,131 @@ def phase_end_to_end(dev, profile, cfg, path, label):
     return eng, launches
 
 
+def step_stats(rs):
+    """Tokens a step and acceptance of generate results (their medians are
+    the runs' values: the runs repeat exactly)."""
+    r = rs[0]
+    return (f"{r['generated_tokens'] / r['steps']:.3f} tokens a step, acceptance "
+            f"{r['acceptance_rate']:.4f} ({r['accepted']} of {r['proposed']})")
+
+
+def phase_ngram(dev, profile, path):
+    """Phase 10: ngram drafting at the JAX package's ngram_3b_int8_k12
+    configuration (NGRAM_CFG) on PROMPT: one warm-up and three timed
+    generate calls on the graph path in one launch count, a greedy baseline
+    (no drafts) timed alike, then the host loop in turns with the graph
+    path. The ids must equal the baseline's (A's and B's decode rows keep
+    their bits at every M, D at S = 1 those of its row of S = 13), graph
+    and host loop must agree, and acceptance must be above 0 with more than
+    one token committed a step."""
+    from llm_inference_lab_tpu_torch.config import EngineConfig
+    from llm_inference_lab_tpu_torch.core.engine import Engine
+
+    cfg = EngineConfig(**NGRAM_CFG)
+    eng = Engine(cfg, device=dev)
+    label = f"3B int8 ngram K={NGRAM_K}"
+    eng.generate(PROMPT)  # warm-up, and the decode loop's capture
+    graph_report(f"generate ({label})", engine_loops("B, max_len", eng))
+    torch.cuda.reset_peak_memory_stats()
+    runs, launches = count_launches(path, lambda: [eng.generate(PROMPT) for _ in range(3)])
+    polls = eng.polls
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    ids = runs[0]["generated_ids"]
+    assert all(r["generated_ids"] == ids for r in runs), "repeated runs differ"
+    for r in runs:
+        lp = torch.tensor(r["token_logprobs"])
+        assert len(lp) == r["generated_tokens"] and torch.isfinite(lp).all(), "bad logprobs"
+    ids_digest(path, [ids])
+    base_eng = Engine(replace(cfg, draft_mode="vanilla"), device=dev,
+                      target_params=eng.target.params)
+    base_eng.generate(PROMPT)
+    bases = [base_eng.generate(PROMPT) for _ in range(3)]
+    assert all(b["generated_ids"] == ids for b in bases), "ngram output differs from baseline"
+    r = runs[0]
+    log(f"end to end ({label}, B=1, {cfg.max_new_tokens} new tokens): {timing(runs)}, steps "
+        f"{r['steps']}, {step_stats(runs)}, {polls} polls a generate, peak memory "
+        f"{peak_mb:.1f} MB; baseline (no drafts): {timing(bases)}, steps {bases[0]['steps']}; "
+        f"ngram ids == baseline ids; ids {ids}")
+    assert r["accepted"] > 0 and r["generated_tokens"] > r["steps"], (
+        "ngram accepted no draft on the seed's weights", ids)
+    host = host_engine(eng)
+    host.generate(PROMPT)
+    turns = [e.generate(PROMPT) for e in (host, eng, eng, host)]
+    same_decode(label, turns, [r] * 4)
+    log(f"graph path against the host loop ({label}, in turns host, graph, graph, host; ids, "
+        f"steps, proposed, accepted equal): graph {timing(turns[1:3])}; host loop "
+        f"{timing(turns[::3])}")
+    if profile:
+        profile_run(f"generate ({label})", lambda: eng.generate(PROMPT),
+                    statistics.median(r["latency_ms"] for r in runs))
+    return eng, launches
+
+
+def phase_sampling(dev, eng, profile, paths):
+    """Phase 11 on the main path's weights (eng: phase 3's engine):
+    SAMPLED (temperature 0.8, top_p 0.95, rejection, device-side adaptive
+    K up to 4) through three timed generate calls with one seed, then the
+    host loop in turns; graph ids == host loop ids, a repeat with the seed
+    gives its ids and another seed others, logprobs finite, the final K of
+    the device controller in [min_k, max_k]. Then greedy runs of the other
+    policies and the host adaptive controller (K from 4, a one-step graph a
+    K), graph path against host loop, in one launch count."""
+    from llm_inference_lab_tpu_torch.core.engine import Engine
+
+    def engine(**kw):
+        return Engine(replace(eng.config, **kw), device=dev, target_params=eng.target.params,
+                      draft_params=eng.draft.params)
+
+    label = "3B int4 + 1B draft, sampled, rejection, adaptive-device K<=4"
+    samp = engine(**SAMPLED)
+    samp.generate(PROMPT, seed=1)  # warm-up, and the capture
+    graph_report(f"generate ({label})", engine_loops("B, max_len", samp))
+    runs, launches = {}, {}
+    runs[paths[0]], launches[paths[0]] = count_launches(
+        paths[0], lambda: [samp.generate(PROMPT, seed=1) for _ in range(3)])
+    rs = runs[paths[0]]
+    ids = rs[0]["generated_ids"]
+    assert all(r["generated_ids"] == ids for r in rs), "a seed's runs differ"
+    other = samp.generate(PROMPT, seed=2)
+    assert other["generated_ids"] != ids, "another seed gave the same ids"
+    ctl = samp.controller
+    for r in rs + [other]:
+        lp = torch.tensor(r["token_logprobs"])
+        assert len(lp) == r["generated_tokens"] and torch.isfinite(lp).all(), "bad logprobs"
+        assert ctl.min_k <= r["controller"]["final_k"] <= ctl.max_k, r["controller"]
+    ids_digest(paths[0], [ids, other["generated_ids"]])
+    host = host_engine(samp)
+    host.generate(PROMPT, seed=1)
+    turns = [e.generate(PROMPT, seed=1) for e in (host, samp, samp, host)]
+    same_decode(label, turns, [rs[0]] * 4)
+    log(f"end to end ({label}, B=1): {timing(rs)}, steps {rs[0]['steps']}, {step_stats(rs)}, "
+        f"final K {rs[0]['controller']['final_k']}, {samp.polls} polls a generate; seed 2: "
+        f"other ids, acceptance {other['acceptance_rate']:.4f}; graph path against the host "
+        f"loop in turns (ids, steps, proposed, accepted equal): graph {timing(turns[1:3])}; "
+        f"host loop {timing(turns[::3])}")
+    if profile:
+        profile_run(f"generate ({label})", lambda: samp.generate(PROMPT, seed=1),
+                    statistics.median(r["latency_ms"] for r in rs))
+    greedy = {what: engine(max_draft=4, **kw) for what, kw in GREEDY_POLICIES.items()}
+    # The first run of each (the warm-up and the captures) against a fresh
+    # host-loop engine's: the host adaptive controller keeps its K and
+    # window from call to call, as JAX's does.
+    hosts = [host_engine(e).generate(PROMPT) for e in greedy.values()]
+    same_decode("greedy policies", [e.generate(PROMPT) for e in greedy.values()], hosts)
+    runs[paths[1]], launches[paths[1]] = count_launches(
+        paths[1], lambda: [e.generate(PROMPT) for e in greedy.values()])
+    ids_digest(paths[1], [r["generated_ids"] for r in runs[paths[1]]])
+    adaptive = greedy["host adaptive K"]
+    log("greedy policies at K=4 (graph == host loop): " + "; ".join(
+        f"{what}: {timing([r])}, steps {r['steps']}, {step_stats([r])}"
+        for what, r in zip(greedy, runs[paths[1]])) + f"; host adaptive K: one-step graphs at K "
+        f"{sorted({k for _, _, k in adaptive.adaptive_loops})}, final K "
+        f"{runs[paths[1]][-1]['controller']['k']}, {adaptive.polls} polls")
+    graph_report("the host adaptive controller", [(("K",) + key, loop) for key, loop in
+                                                  adaptive.adaptive_loops.items()])
+    return launches
+
+
 def secs(r):
     """Prefill and decode seconds of a generate result."""
     decode = r["generation_time_ms"] / 1e3
@@ -1880,7 +2208,9 @@ def phase_mistral_long(dev, eng, paths):
     cache. Ring ids must equal the full cache's for bf16 and for int8;
     where a pair parts, near_tie on the full-cache engine (a ring cannot
     hold a one-shot forward of the prompt) must find a gap of at most 2
-    bf16 ulps of the top logit. Each run in its own launch count."""
+    bf16 ulps of the top logit. Then ngram drafting (K=4, no draft model) on
+    the ring: its ids must equal the ring baseline's. Each run in its own
+    launch count."""
     from llm_inference_lab_tpu_torch.core.engine import Engine, _round_up
 
     cfg = eng.config
@@ -1906,8 +2236,13 @@ def phase_mistral_long(dev, eng, paths):
                                                                  kv_ring=False)
     ring8, launches[paths[2]] = count_launches(paths[2], lambda: ring8_eng.generate(MISTRAL_LONG))
     full8, launches[paths[3]] = count_launches(paths[3], lambda: full8_eng.generate(MISTRAL_LONG))
+    # ngram drafts on the ring (K=4, no draft model): the ring baseline's ids.
+    ngram_eng = engine(draft_mode="ngram")
+    ngram, launches[paths[4]] = count_launches(paths[4], lambda: ngram_eng.generate(MISTRAL_LONG))
+    assert ngram["generated_ids"] == ring["generated_ids"], "long prompt: ngram ids != ring baseline"
+    assert ngram_eng.target.config.kv_ring_len == RING_LEN
     peak_mb = torch.cuda.max_memory_allocated() / 1e6
-    for path, runs in zip(paths, ((spec, ring), (full,), (ring8,), (full8,))):
+    for path, runs in zip(paths, ((spec, ring), (full,), (ring8,), (full8,), (ngram,))):
         ids_digest(path, [r["generated_ids"] for r in runs])
     assert base.target.config.kv_ring_len == RING_LEN and full_eng.target.config.kv_ring_len is None
     for r in (spec, ring, full, ring8, full8):
@@ -1924,14 +2259,15 @@ def phase_mistral_long(dev, eng, paths):
         log(f"long prompt {kv} KV: ring ids differ from the full cache's: {tie}")
         assert tie["gap_ulps"] <= 2, ("ring != full cache, not a near tie", kv, tie)
     engines = {"spec": eng, "ring baseline": base, "full-cache baseline": full_eng,
-               "int8 ring baseline": ring8_eng, "int8 full-cache baseline": full8_eng}
+               "int8 ring baseline": ring8_eng, "int8 full-cache baseline": full8_eng,
+               "ngram K=4": ngram_eng}
     graph_report("the mistral long prompt",
                  [shaped for what, e in engines.items() for shaped in engine_loops(what, e, T)])
     # In turns, as phase 6's long prompt: graph (with the capture), host
     # loop, graph again.
     hosts = {what: host_engine(e).generate(MISTRAL_LONG) for what, e in engines.items()}
     again = {what: e.generate(MISTRAL_LONG) for what, e in engines.items()}
-    graph_runs = (spec, ring, full, ring8, full8)
+    graph_runs = (spec, ring, full, ring8, full8, ngram)
     same_decode("mistral long prompt", graph_runs * 2,
                 [*hosts.values(), *again.values()])
     log("mistral long prompt, the host loop after the graph runs, then the graph path again "
@@ -1946,7 +2282,8 @@ def phase_mistral_long(dev, eng, paths):
         f"baseline {secs(full8)}; peak memory {peak_mb:.1f} MB; cache a model: ring "
         f"{cache_mb(mc, RING_LEN):.1f} MB, full {cache_mb(mc, T):.1f} MB (at max_seq_len "
         f"{cfg.max_seq_len}: {cache_mb(mc, cfg.max_seq_len):.1f} MB), int8 ring "
-        f"{cache_mb(mc, RING_LEN, 1):.1f} MB; spec ids == ring baseline ids")
+        f"{cache_mb(mc, RING_LEN, 1):.1f} MB; spec ids == ring baseline ids; ngram K=4 on the "
+        f"ring {secs(ngram)}, {step_stats([ngram])}, ids == ring baseline ids")
     return launches
 
 
@@ -2121,7 +2458,8 @@ def phase_serving(dev, eng, profile, max_len, path, label):
         cfg = replace(eng.config, max_seq_len=max_len, kv_layout=layout, kv_page_size=SERVE_PAGE)
         b = ContinuousBatcher(Engine(cfg, device=dev, flags=flags,
                                      target_params=eng.target.params,
-                                     draft_params=eng.draft.params), n_slots=SERVE_SLOTS)
+                                     draft_params=eng.draft.params if eng.draft else None),
+                              n_slots=SERVE_SLOTS)
         for prompt, budget in zip(SERVE_PROMPTS, SERVE_BUDGETS):
             b.submit(prompt, max_new_tokens=budget)
         return b
@@ -2301,7 +2639,7 @@ def main(argv):
         "add_rms_norm": (add_row, "rms_norm.cu", "models/transformer.py:424",
                          step + ": the residual add and the norm after it, 2 a layer"),
     }
-    qmm8_step, qmm8_prefill = phase_quant_matmul_int8(dev)
+    qmm8_step, qmm8_prefill, qmm8_ngram = phase_quant_matmul_int8(dev)
     kernels |= {
         "quant_matmul_int8": (qmm8_step, "qmm_decode.cuh", "ops/pallas/quant_matmul.py:58",
                               step8),
@@ -2347,10 +2685,23 @@ def main(argv):
                                     "ops/pallas/flash_prefill.py:142",
                                     ring_prefill + ", int8 KV"),
     })
+    ngram_step = f"one ngram K={NGRAM_K} B=1 step of the int8 3B (28 verify layers at S = 13)"
+    ngram_rows = phase_ngram_shapes(dev)
+    kernels.update({
+        "quant_matmul_int8/ngram": (qmm8_ngram, "qmm_decode.cuh", "ops/pallas/quant_matmul.py:58",
+                                    ngram_step + ", M = 13"),
+        "flash_decode/ngram": (ngram_rows["flash_decode"], "flash_decode.cu",
+                               "ops/pallas/flash_decode.py:146", ngram_step + ", T = 256"),
+        "verify_prefix/ngram": (ngram_rows["verify_prefix"], "verify_prefix.cu",
+                                "ops/pallas/verify_pallas.py:46",
+                                ngram_step + f": C at [1, {NGRAM_K}, 128256]"),
+    })
+    phase_sampling_ops(dev)
     log(f"phase 2 took {time.perf_counter() - t0:.1f} s")
     profile = "--profile" in argv
     profile_gemma = profile or "--profile=gemma" in argv
     profile_mistral = profile or "--profile=mistral" in argv
+    profile_sampling = profile or "--profile=sampling" in argv
     paths = list(PATH_KERNELS)
     on_path = {}
     t0 = time.perf_counter()
@@ -2361,6 +2712,10 @@ def main(argv):
     on_path[paths[1]] = phase_serving(dev, eng, profile, SERVE_MAX_LEN, paths[1],
                                       "3B int4 + 1B draft, K=1")
     log(f"phase 3b took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    on_path.update(phase_sampling(dev, eng, profile_sampling, [
+        path for path in paths if path.startswith(("generate int4 sampled", "generate int4 greedy"))]))
+    log(f"phase 11 took {time.perf_counter() - t0:.1f} s")
     del eng
     t0 = time.perf_counter()
     eng, on_path[paths[2]] = phase_end_to_end(dev, profile, INT8_CFG, paths[2],
@@ -2371,6 +2726,13 @@ def main(argv):
     on_path[paths[3]] = phase_serving(dev, eng, profile, INT8_MAX_LEN, paths[3],
                                       "3B int8 + 1B draft, K=4, int8 KV")
     log(f"phase 5 took {time.perf_counter() - t0:.1f} s")
+    del eng
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    eng, on_path[NGRAM_PATHS[0]] = phase_ngram(dev, profile, NGRAM_PATHS[0])
+    on_path[NGRAM_PATHS[1]] = phase_serving(dev, eng, profile, SERVE_MAX_LEN, NGRAM_PATHS[1],
+                                            f"3B int8 ngram K={NGRAM_K}")
+    log(f"phase 10 took {time.perf_counter() - t0:.1f} s")
     del eng
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2388,23 +2750,28 @@ def main(argv):
                                               "Mistral-7B int4 + 7B draft, K=4, ring")
     lens = (eng.target.config.kv_ring_len, eng.draft.config.kv_ring_len)
     assert lens == (RING_LEN, RING_LEN), ("ring lengths", lens)
-    on_path.update(phase_mistral_long(dev, eng, paths[8:12]))
+    on_path.update(phase_mistral_long(dev, eng, paths[8:13]))
     log(f"phase 8 took {time.perf_counter() - t0:.1f} s")
 
     def counted(name):
         """The paths whose launches a row counts: a Gemma-2 row its paths, a
-        ring row the Mistral ring paths, the bf16 D, E and F rows the Llama
-        paths, the int8 ones the Llama and Gemma-2 paths (none launch
-        there), every other row all."""
+        ring row the Mistral ring paths, an ngram row the phase-10 paths,
+        the bf16 D, E and F rows the other Llama paths, the int8 ones the
+        Llama and Gemma-2 paths (none launch there), every other row all
+        (less the phase-10 paths where the kernel has an ngram row)."""
         if name.endswith("/gemma-2"):
             return GEMMA_PATHS
         if name.endswith("/ring"):
             return RING_PATHS
+        if name.endswith("/ngram"):
+            return NGRAM_PATHS
+        rest = [path for path in paths
+                if f"{name}/ngram" not in kernels or path not in NGRAM_PATHS]
         if name in ("flash_decode", "flash_prefill", "paged_flash"):
-            return [path for path in paths if path not in GEMMA_PATHS + MISTRAL_PATHS]
+            return [path for path in rest if path not in GEMMA_PATHS + MISTRAL_PATHS]
         if name in ("flash_decode_int8", "flash_prefill_int8", "paged_flash_int8"):
-            return [path for path in paths if path not in MISTRAL_PATHS]
-        return paths
+            return [path for path in rest if path not in MISTRAL_PATHS]
+        return rest
 
     line = {"kernels": [
         {"name": name, "route": "cuda",

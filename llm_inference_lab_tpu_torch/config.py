@@ -1,14 +1,21 @@
 """Engine configuration: the fields of llm_inference_lab_tpu/config.py
 EngineConfig that the ported slice reads.
 
-The slice is vanilla drafting at a fixed K, greedy longest_prefix
-acceptance, weight-only int4/int8 and a bf16 or int8 KV cache (per-row
-scales), contiguous or paged, single-shot or chunked prefill, and the
-rolling-buffer cache (``kv_ring``) of uniform sliding-window models;
-a field of the JAX config with a single ported value has no field here until
-a later slice ports a second value for it. So ``prefix_caching`` (off),
-``admit_chunk`` (one-shot admission) and ``kv_lazy_pages`` (eager page
-reservation, ``kv_lazy_pages=False`` in JAX) have no field yet.
+The slice is vanilla drafting from a draft model or ngram drafting from the
+token buffer, the five acceptance policies, the three K controllers,
+greedy decoding or engine-level sampling (temperature, min_p, top_k,
+top_p), the real models or the fake test model (``implementation``),
+weight-only int4/int8 and a bf16 or int8 KV cache (per-row scales),
+contiguous or paged, single-shot or chunked prefill, and the rolling-buffer
+cache (``kv_ring``) of uniform sliding-window models. A field of the JAX
+config with a single ported value has no field here until a later slice
+ports a second value for it. So ``prefix_caching`` (off), ``admit_chunk``
+(one-shot admission), ``kv_lazy_pages`` (eager page reservation,
+``kv_lazy_pages=False`` in JAX), ``per_request_sampling`` (off), the
+penalties (off) and ``medusa``, ``eagle`` and ``tree`` settings have no
+field yet. Fields are named and defaulted as in JAX, except
+``implementation``, "hf" here ("fake" in JAX): the port's entry points build
+the named model unless a caller asks for the fake one.
 
 ``EnvFlags`` is the port's copy of the JAX package's runtime flags with the
 one field it reads. It has no ``from_env``: the port reads no environment
@@ -17,8 +24,11 @@ variable, and a caller passes ``Engine(config, flags=EnvFlags(...))``.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
+
+DRAFT_MODES = ("vanilla", "ngram")
+CONTROLLERS = ("fixed", "adaptive", "adaptive-device")
 
 
 @dataclass(frozen=True)
@@ -33,7 +43,25 @@ class EnvFlags:
 class EngineConfig:
     base_model: str = "llama-3.2-3b"
     draft_model: Optional[str] = "llama-3.2-1b"
+    implementation: str = "hf"  # "hf" (the named model) | "fake" (models/fake.py)
+    # "vanilla" (a draft model) | "ngram" (prompt lookup in the token buffer;
+    # no draft model, no draft cache)
+    draft_mode: str = "vanilla"
     max_draft: int = 4  # K
+    policy: str = "longest_prefix"  # | conf_threshold | topk_agree | typical | rejection
+    policy_params: dict = field(default_factory=dict)
+    controller: str = "fixed"  # | adaptive | adaptive-device
+    controller_params: dict = field(default_factory=dict)
+    # Sampling, engine-wide. greedy=True (or temperature <= 0) takes the
+    # argmax; otherwise temperature -> min_p -> top_k -> top_p, sampled from
+    # the decode state's key. Drafts sample at temperature /
+    # draft_temperature_scale.
+    temperature: float = 1.0
+    top_k: int = 0
+    top_p: float = 1.0
+    min_p: float = 0.0
+    greedy: bool = True
+    draft_temperature_scale: float = 1.5
     max_seq_len: int = 1024
     max_new_tokens: int = 64
     dtype: str = "bfloat16"
@@ -62,9 +90,32 @@ class EngineConfig:
     # prefill_chunk, a multiple of 32: a single-shot prefill longer than the
     # ring would overwrite rows its own queries still need.
     kv_ring: bool = False
+    ngram: dict = field(default_factory=lambda: {"n": 2})
 
     def validate(self) -> None:
         """Reject settings outside the ported slice instead of ignoring them."""
+        if self.implementation not in ("hf", "fake"):
+            raise ValueError(f"unknown implementation {self.implementation!r}")
+        if self.draft_mode in ("medusa", "eagle", "tree"):
+            raise NotImplementedError(f"draft_mode {self.draft_mode!r} is not ported yet")
+        if self.draft_mode not in DRAFT_MODES:
+            raise ValueError(f"unknown draft_mode {self.draft_mode!r}")
+        if self.draft_mode == "ngram" and int(self.ngram.get("n", 2)) < 1:
+            raise ValueError(f"ngram n must be at least 1, got {self.ngram}")
+        from llm_inference_lab_tpu_torch.core.policies import POLICIES
+
+        if self.policy not in POLICIES:
+            raise ValueError(f"unknown policy {self.policy!r}; known: {sorted(POLICIES)}")
+        if self.controller not in CONTROLLERS:
+            raise ValueError(f"unknown controller {self.controller!r}; known: "
+                             f"{list(CONTROLLERS)}")
+        if self.max_draft < 1:
+            raise ValueError(f"max_draft must be at least 1, got {self.max_draft}")
+        if self.implementation == "fake" and (
+                self.quantization or self.quantize_embed or self.kv_quantization
+                or self.kv_layout != "contiguous" or self.kv_ring):
+            raise NotImplementedError("the fake model takes a contiguous bf16 cache and no "
+                                      "quantization")
         if self.embed_bits not in (4, 8):
             raise ValueError(f"embed_bits must be 4 or 8, got {self.embed_bits}")
         if self.quantize_embed and self.embed_bits == 4:

@@ -17,10 +17,17 @@ admission is memory-aware: a request waits until the allocator can reserve
 pages for its prompt, its budget and the step's K+2 scratch rows, all up
 front (the JAX package's ``kv_lazy_pages=False``).
 
+The engine's step is the batcher's: vanilla or ngram drafting (with ngram
+there is no draft model and so no draft cache to splice), any of the five
+policies, greedy decoding or the engine's sampling, drawn from the
+batcher's state key (the engine's seed), at a fixed K.
+
 Left out of this slice (ROADMAP Queue 1): lazy pages with preemption,
 prefix caching, incremental (chunked) admission and with it an engine with
-a rolling-buffer cache (``kv_ring``, which raises here), per-request sampling,
-grammars, LoRA, top-N logprobs and cancel; and the TPU host's tuning of the
+a rolling-buffer cache (``kv_ring``, which raises here), adaptive K (both
+adaptive controllers raise here: their per-slot update at admission is not
+ported), per-request sampling, penalties, ``logit_bias``, grammars, LoRA,
+top-N logprobs and cancel; and the TPU host's tuning of the
 loop (chunk cost model, async and prefetched polls, fused and overlapped
 admission, traces). The loop here runs POLL_EVERY steps, then reads the
 flags once and retires and admits. The steps are replays of the engine's
@@ -171,6 +178,10 @@ class ContinuousBatcher:
     admission and retirement, on the engine's device."""
 
     def __init__(self, engine: Engine, n_slots: int = 8):
+        if engine.config.controller != "fixed":
+            raise NotImplementedError(
+                f"the {engine.config.controller!r} controller in the batcher (a per-slot K "
+                "reset at admission) is not ported yet; use controller='fixed'")
         if any(m is not None and m.config.kv_ring_len is not None
                for m in (engine.target, engine.draft)):
             # A wave's one-shot [G, P] prefill would wrap a ring shorter than
@@ -202,7 +213,8 @@ class ContinuousBatcher:
         with torch.inference_mode():
             self.state = init_state(engine.target, engine.draft, n_slots, self.max_seq_len,
                                     engine.device, max_new_tokens=cfg.max_new_tokens,
-                                    kv_dtype=engine.kv_dtype, **paged_kw)
+                                    kv_dtype=engine.kv_dtype, seed=cfg.seed,
+                                    init_k=engine.controller.k, **paged_kw)
             self._loop = None
             if not engine.flags.sync_steps:
                 self._loop = make_decode_loop(engine._step_in_place, pool=engine.graph_pool)

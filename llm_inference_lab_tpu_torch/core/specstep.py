@@ -1,13 +1,20 @@
 """Speculative-decoding step, baseline step and prefill.
 
-Port of llm_inference_lab_tpu/core/specstep.py for vanilla drafting with a
-fixed K and greedy longest_prefix acceptance. Per spec step:
+Port of llm_inference_lab_tpu/core/specstep.py (``make_spec_step``,
+``make_baseline_step``, ``make_prefill``, ``make_decode_loop``) for vanilla
+drafting from a draft model and ngram drafting from the token buffer, the
+five acceptance policies (core/policies.py), greedy decoding or
+engine-level sampling (ops/sampling.py), a fixed K or the device-side
+adaptive K. Per spec step:
 
-  1. Draft K tokens autoregressively (K single-token draft forwards).
+  1. Draft K tokens: K single-token draft forwards (vanilla), or the
+     continuation of the last earlier occurrence of the last n committed
+     tokens (ngram: no draft model, no draft cache).
   2. Verify with ONE target forward over [last_committed, d_1..d_K]: K+1
      logit rows.
-  3. Acceptance: accept_len a in [0, K] per sequence (verify_prefix).
-  4. Bonus token from target row a: covers the partial-accept bonus, the
+  3. Acceptance: accept_len a in [0, K] per sequence, from the policy.
+  4. Bonus token from target row a (or, under ``rejection``, from the
+     residual distribution): covers the partial-accept bonus, the
      all-accepted bonus and the all-rejected fallback alike.
   5. Commit: write a+1 tokens, advance lengths, truncate at EOS and at the
      budget, deactivate finished lanes. KV "rollback" is just not advancing
@@ -16,26 +23,35 @@ fixed K and greedy longest_prefix acceptance. Per spec step:
 The steps are plain functions of tensors that never read a value back to the
 host. A step advances ``steps`` by ``active.any()`` and commits nothing on an
 inactive lane, so a step run after every lane finished changes no field (JAX's
-while_loop runs no body then). Each comes in two forms: functional (a new
-state; core/engine.py's host loop under ``EnvFlags(sync_steps=True)``) and
-in place (``in_place=True``: the results written into the state's own
-tensors), which ``make_decode_loop`` captures in a CUDA graph and replays.
+while_loop runs no body then). A step that draws random numbers advances the
+state's key (``rng``) the same way: its draws are a hash of the key, so every
+replay of a captured step draws anew. Each step comes in two forms:
+functional (a new state; core/engine.py's host loop under
+``EnvFlags(sync_steps=True)``) and in place (``in_place=True``: the results
+written into the state's own tensors), which ``make_decode_loop`` captures in
+a CUDA graph and replays.
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import replace
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
-from llm_inference_lab_tpu_torch.core.policies import longest_prefix
+from llm_inference_lab_tpu_torch.core import policies
 from llm_inference_lab_tpu_torch.core.state import FIELDS, DecodeState, assign, state_tensors
 from llm_inference_lab_tpu_torch.models import transformer
-from llm_inference_lab_tpu_torch.models.base import Model
+from llm_inference_lab_tpu_torch.models.base import Model, cache_slots
+from llm_inference_lab_tpu_torch.models.paged import PagedKVCache, page_slots
 from llm_inference_lab_tpu_torch.ops import kernel_wrappers
-from llm_inference_lab_tpu_torch.ops.sampling import sample_tokens
+from llm_inference_lab_tpu_torch.ops.sampling import fold, sample_tokens
+
+# Sites of the step's keys, folded into the state's key (JAX splits it into
+# these four): the next step's key, the draft positions', the policy's and
+# the bonus token's.
+_NEXT, _DRAFT, _POLICY, _BONUS = range(4)
 
 
 def _gather_last(tokens: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
@@ -72,25 +88,147 @@ def _advance(state: DecodeState) -> torch.Tensor:
     return state.steps + state.active.any().to(torch.int32)
 
 
-def make_spec_step(target_model: Model, draft_model: Model, *, k: int,
-                   eos_token_id: Optional[int] = None, in_place: bool = False):
-    """Build step(state) -> state for greedy vanilla speculative decoding."""
+def _next_key(state: DecodeState) -> torch.Tensor:
+    """The key after this step: advanced when a lane is active."""
+    return torch.where(state.active.any(), fold(state.rng, _NEXT), state.rng)
+
+
+def _cache_row(cache, ring_len: Optional[int], pos: torch.Tensor):
+    """Every tensor of a KV cache and the index of the row at position
+    pos[b] of each lane b in them (the slot a forward starting at pos
+    writes): t[index] is that row of every layer, [B, L, KVH(, D)]."""
+    if isinstance(cache, PagedKVCache):
+        page, off = page_slots(cache.table, pos, 1, cache.page_size)
+        index = (slice(None), page[:, 0], slice(None), off[:, 0])
+    else:
+        b, slot, _ = cache_slots(pos, 1, cache.max_seq_len, ring_len)
+        index = (slice(None), b[:, 0], slice(None), slot[:, 0])
+    return [t for t in (cache.k, cache.v, cache.k_scale, cache.v_scale) if t is not None], index
+
+
+def make_spec_step(target_model: Model, draft_model: Optional[Model], *, k: int,
+                   policy_fn: Callable = policies.longest_prefix,
+                   policy_params: Optional[dict] = None, greedy: bool = True,
+                   temperature: float = 1.0, top_k: int = 0, top_p: float = 1.0,
+                   min_p: float = 0.0, draft_temperature_scale: float = 1.5,
+                   eos_token_id: Optional[int] = None, draft_mode: str = "vanilla",
+                   ngram_cfg: Optional[dict] = None, adaptive_cfg: Optional[dict] = None,
+                   in_place: bool = False):
+    """Build step(state) -> state for speculative decoding.
+
+    draft_mode "vanilla" drafts with draft_model, sampling at temperature /
+    draft_temperature_scale (greedy: the argmax); "ngram" proposes the K
+    tokens after the last earlier occurrence of the last n committed tokens
+    (ngram_cfg {"n": n}; the last token where there is none or the
+    continuation leaves the committed text), with point-mass draft logits
+    (0 at the proposal, -30 elsewhere). The [B, K, V] draft logits are built
+    only for a policy with ``needs_draft_logits``. ``rejection`` gets the
+    filtered target and draft distributions (its params are set here, as
+    JAX's engine sets them) and its bonus comes from the residual,
+    sampled at temperature 1; every other policy's bonus is target row a
+    under the engine's filters.
+
+    adaptive_cfg (device-side adaptive K: min_k, target_acceptance, window,
+    step_size): k is the upper bound and each lane's K is
+    clamp(state.ctrl_k, min_k, k). JAX runs only eff_k_max = the largest
+    active lane's K draft forwards; a graph has no data-dependent trip
+    count, so here all k run, and a forward past eff_k_max proposes 0 (as
+    JAX's unwritten draft buffer holds) and puts back the draft-cache row it
+    wrote, so the cache holds what JAX's does. Acceptance clips to each
+    lane's K, and each active lane's EMA and K update after the step."""
     K = int(k)
+    if draft_mode not in ("vanilla", "ngram"):
+        raise NotImplementedError(f"draft_mode {draft_mode!r} is not ported yet")
+    if draft_mode == "vanilla" and draft_model is None:
+        raise ValueError("vanilla drafting needs a draft model")
+    policy_params = dict(policy_params or {})
+    draft_temp = temperature / draft_temperature_scale
+    rejecting = policy_fn is policies.rejection
+    if rejecting:
+        # min(1, p_t / p_d) is exact only with the distributions the target
+        # and the draft really sample from.
+        policy_params.update(temperature=temperature, top_k=top_k, top_p=top_p, min_p=min_p,
+                             draft_temperature=draft_temp, draft_greedy=greedy)
+    need_draft_logits = bool(getattr(policy_fn, "needs_draft_logits", True))
+    stochastic = not (greedy or temperature <= 0.0)
+    draws = stochastic or rejecting  # the step draws from its key
+    samp = dict(temperature=temperature, top_k=top_k, top_p=top_p, min_p=min_p, greedy=greedy)
+    draft_samp = dict(samp, temperature=draft_temp)
+    adaptive = adaptive_cfg is not None
+    a_min_k = int((adaptive_cfg or {}).get("min_k", 1))
+    a_target = float((adaptive_cfg or {}).get("target_acceptance", 0.5))
+    a_alpha = 2.0 / (float((adaptive_cfg or {}).get("window", 32)) + 1.0)
+    a_step = int((adaptive_cfg or {}).get("step_size", 1))
+    ngram_n = int((ngram_cfg or {}).get("n", 2))
+
+    def draft_vanilla(state, last, base, key, eff_k_max):
+        x, drafts, logit_rows = last, [], []
+        for i in range(K):
+            pos = base + i
+            # Past min_k a forward may lie beyond eff_k_max: keep the draft
+            # cache row it writes, to put back.
+            extra = adaptive and i >= a_min_k
+            if extra:
+                tensors, index = _cache_row(state.draft_cache, draft_model.config.kv_ring_len,
+                                            pos)
+                saved = [t[index] for t in tensors]
+            logits, _ = draft_model.forward(x[:, None], pos[:, None], state.draft_cache, pos)
+            row = logits[:, 0]
+            x = sample_tokens(fold(key, i) if stochastic else None, row, **draft_samp)
+            if extra:
+                ran = eff_k_max > i
+                for t, old in zip(tensors, saved):
+                    t[index] = torch.where(ran, t[index], old)
+                x = torch.where(ran, x, 0)
+                if need_draft_logits:
+                    row = torch.where(ran, row, 0.0)
+            drafts.append(x)
+            if need_draft_logits:
+                logit_rows.append(row)
+        return torch.stack(drafts, 1), torch.stack(logit_rows, 1) if need_draft_logits else None
+
+    def draft_ngram(state, last, base, key, eff_k_max):
+        tokens, lengths = state.tokens, state.lengths
+        T = tokens.shape[1]
+        N = ngram_n
+        dev = tokens.device
+        qpos = lengths[:, None] - N + torch.arange(N, dtype=torch.int32, device=dev)[None]
+        query = tokens.gather(1, qpos.clamp(0, T - 1).long())  # the last N committed tokens
+        # Window at position p: tokens[p : p+N] (N rolled views).
+        shifted = torch.stack([torch.roll(tokens, -i, dims=1) for i in range(N)], dim=-1)
+        match = (shifted == query[:, None, :]).all(dim=-1)  # [B, T]
+        pos = torch.arange(T, dtype=torch.int32, device=dev)[None]
+        # Matches inside the committed text, before the query's own place.
+        hit = match & (pos < lengths[:, None] - N)
+        best = torch.argmax(torch.where(hit, pos, -1), dim=1).to(torch.int32)  # the last one
+        prop_pos = best[:, None] + N + torch.arange(K, dtype=torch.int32, device=dev)[None]
+        cont = tokens.gather(1, prop_pos.clamp(0, T - 1).long())
+        usable = hit.any(dim=1)[:, None] & (prop_pos < lengths[:, None])
+        d = torch.where(usable, cont, last[:, None])
+        if not need_draft_logits:
+            return d, None
+        V = target_model.config.vocab_size
+        onehot = torch.arange(V, dtype=torch.int32, device=dev)[None, None] == d[..., None]
+        return d, torch.where(onehot, 0.0, -30.0)
+
+    draft_fn = draft_vanilla if draft_mode == "vanilla" else draft_ngram
 
     def step(state: DecodeState) -> DecodeState:
         B, max_len = state.tokens.shape
         dev = state.tokens.device
         last = _gather_last(state.tokens, state.lengths)  # [B]
         base = state.lengths - 1  # write/read offset: cache holds [0, L-1)
+        if adaptive:
+            # Each lane's K; the draft runs to the largest over active lanes
+            # (an inactive lane must not extend it).
+            eff_k = state.ctrl_k.clamp(a_min_k, K)
+            eff_k_max = torch.where(state.active, eff_k, a_min_k).amax()
+        else:
+            eff_k, eff_k_max = K, K
 
         # ---- 1. Draft K tokens ----
-        x, drafts = last, []
-        for i in range(K):
-            pos = base + i
-            logits, _ = draft_model.forward(x[:, None], pos[:, None], state.draft_cache, pos)
-            x = sample_tokens(logits[:, 0])
-            drafts.append(x)
-        d = torch.stack(drafts, dim=1)  # [B, K]
+        d, draft_logits = draft_fn(state, last, base,
+                                   fold(state.rng, _DRAFT) if stochastic else None, eff_k_max)
 
         # ---- 2. Verify: ONE forward over K+1 positions ----
         arange = torch.arange(K + 1, dtype=torch.int32, device=dev)[None, :]
@@ -99,11 +237,36 @@ def make_spec_step(target_model: Model, draft_model: Model, *, k: int,
         target_logits, _ = target_model.forward(verify_in, positions, state.target_cache, base)
 
         # ---- 3. Acceptance ----
-        a = longest_prefix(d, target_logits).clamp(0, K)
+        a = policy_fn(fold(state.rng, _POLICY) if rejecting else None, d, draft_logits,
+                      target_logits, **policy_params).clamp(0, K)
+        if adaptive:
+            # Positions past a lane's K were never proposed. Then each
+            # active lane's EMA and K (the hysteresis rule of
+            # AdaptiveKController, per lane).
+            a = torch.minimum(a, eff_k)
+            rate = a.float() / eff_k.clamp_min(1).float()
+            new_ema = torch.where(state.active, state.acc_ema + a_alpha * (rate - state.acc_ema),
+                                  state.acc_ema)
+            stepped = torch.where(
+                new_ema > a_target + 0.1, torch.clamp_max(state.ctrl_k + a_step, K),
+                torch.where(new_ema < a_target - 0.1,
+                            torch.clamp_min(state.ctrl_k - a_step, a_min_k), state.ctrl_k))
+            new_ctrl_k = torch.where(state.active, stepped, state.ctrl_k)
+        else:
+            new_ema, new_ctrl_k = state.acc_ema, state.ctrl_k
 
         # ---- 4. Bonus token ----
-        bonus_logits = target_logits[torch.arange(B, device=dev), a.long()]
-        bonus = sample_tokens(bonus_logits)
+        key_bonus = fold(state.rng, _BONUS) if stochastic else None
+        if rejecting:
+            # A final distribution (filters and temperature applied): sampled
+            # at temperature 1, or it would be scaled twice.
+            bonus_logits = policies.rejection_bonus_logits(
+                draft_logits, target_logits, a, temperature=temperature, top_k=top_k,
+                top_p=top_p, min_p=min_p, draft_temperature=draft_temp, draft_greedy=greedy)
+            bonus = sample_tokens(key_bonus, bonus_logits, temperature=1.0, greedy=greedy)
+        else:
+            bonus_logits = target_logits[torch.arange(B, device=dev), a.long()]
+            bonus = sample_tokens(key_bonus, bonus_logits, **samp)
 
         # ---- 5. Commit ----
         d_pad = torch.cat([d, d[:, -1:]], dim=1)  # [B, K+1]
@@ -139,19 +302,26 @@ def make_spec_step(target_model: Model, draft_model: Model, *, k: int,
             tokens=new_tokens,
             lengths=new_lengths,
             active=state.active & ~hit_eos & ~exhausted & ~no_room,
-            proposed=state.proposed + K * act,
+            proposed=state.proposed + eff_k * act,
             accepted=state.accepted + a * act,
             bonus=state.bonus + act,
             token_logprobs=new_lp,
             steps=_advance(state),
+            rng=_next_key(state) if draws else state.rng,
+            ctrl_k=new_ctrl_k,
+            acc_ema=new_ema,
         )
 
     return _in_place(step) if in_place else step
 
 
-def make_baseline_step(target_model: Model, *, eos_token_id: Optional[int] = None,
-                       in_place: bool = False):
-    """Non-speculative greedy step: forward the last token, take the argmax."""
+def make_baseline_step(target_model: Model, *, greedy: bool = True, temperature: float = 1.0,
+                       top_k: int = 0, top_p: float = 1.0, min_p: float = 0.0,
+                       eos_token_id: Optional[int] = None, in_place: bool = False):
+    """Non-speculative step: forward the last token, then the argmax
+    (greedy) or a draw under the engine's filters."""
+    stochastic = not (greedy or temperature <= 0.0)
+    samp = dict(temperature=temperature, top_k=top_k, top_p=top_p, min_p=min_p, greedy=greedy)
 
     def step(state: DecodeState) -> DecodeState:
         max_len = state.tokens.shape[1]
@@ -159,7 +329,7 @@ def make_baseline_step(target_model: Model, *, eos_token_id: Optional[int] = Non
         base = state.lengths - 1
         logits, _ = target_model.forward(last[:, None], base[:, None], state.target_cache, base)
         row = logits[:, 0].float()
-        nxt = sample_tokens(row)
+        nxt = sample_tokens(fold(state.rng, _BONUS) if stochastic else None, row, **samp)
         commit = state.active.to(torch.int32)
         remaining = state.prompt_lens + state.max_new - state.lengths
         commit = torch.minimum(commit, remaining.clamp_min(0))
@@ -181,6 +351,7 @@ def make_baseline_step(target_model: Model, *, eos_token_id: Optional[int] = Non
             bonus=state.bonus + commit,
             token_logprobs=new_lp,
             steps=_advance(state),
+            rng=_next_key(state) if stochastic else state.rng,
         )
 
     return _in_place(step) if in_place else step

@@ -15,6 +15,11 @@ The steps return a new DecodeState; the KV caches inside are updated in
 place by the forwards. ``assign`` writes one state's tensors into another's
 (the in-place steps of core/specstep.py, which a CUDA graph replays), and
 ``reset_state`` returns a state to ``init_state``'s values in place.
+
+``rng`` is the state's random key (ops/sampling.py), seeded from the call's
+seed and advanced by every step that has an active lane; ``ctrl_k`` and
+``acc_ema`` are the device-side adaptive controller's per-lane K and
+acceptance EMA.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import torch
 
 from llm_inference_lab_tpu_torch.models.base import KVCache, Model
 from llm_inference_lab_tpu_torch.models.paged import PagedKVCache
+from llm_inference_lab_tpu_torch.ops.sampling import seed_key
 
 
 @dataclass
@@ -42,11 +48,14 @@ class DecodeState:
     bonus: torch.Tensor  # [B] int32 — bonus/fallback tokens emitted
     token_logprobs: torch.Tensor  # [B, max_len] f32 — target log-prob per token
     steps: torch.Tensor  # [] int32 — decode steps run with an active lane
+    rng: torch.Tensor  # [] int64 — the random key, a 32-bit value
+    ctrl_k: torch.Tensor  # [B] int32 — device-side adaptive K per lane
+    acc_ema: torch.Tensor  # [B] f32 — its acceptance EMA per lane
 
 
 # The tensors a step or a prefill may replace (all but the caches).
 FIELDS = ("tokens", "lengths", "prompt_lens", "max_new", "active", "proposed", "accepted",
-          "bonus", "token_logprobs", "steps")
+          "bonus", "token_logprobs", "steps", "rng", "ctrl_k", "acc_ema")
 
 
 def cache_tensors(cache) -> tuple:
@@ -77,13 +86,18 @@ def assign(state: DecodeState, new: DecodeState) -> DecodeState:
     return state
 
 
-def reset_state(state: DecodeState, max_new_tokens: int) -> DecodeState:
+def reset_state(state: DecodeState, max_new_tokens: int, seed: int = 0,
+                init_k: int = 4) -> DecodeState:
     """``init_state``'s values in the state's own tensors: zeros, every
-    lane's budget max_new_tokens, zeroed caches with int8 scales of one; a
-    paged cache keeps its table."""
+    lane's budget max_new_tokens, the key of `seed`, every lane's K init_k
+    and EMA 0.5, zeroed caches with int8 scales of one; a paged cache keeps
+    its table."""
     for name in FIELDS:
         getattr(state, name).zero_()
     state.max_new.fill_(max_new_tokens)
+    state.rng.fill_(seed_key(seed))
+    state.ctrl_k.fill_(init_k)
+    state.acc_ema.fill_(0.5)
     for cache in (state.target_cache, state.draft_cache):
         if cache is None:
             continue
@@ -99,13 +113,15 @@ def init_state(target_model: Model, draft_model: Optional[Model], batch_size: in
                max_seq_len: int, device, max_new_tokens: int = 64, paged: bool = False,
                page_size: int = 64, n_pages: Optional[int] = None,
                table: Optional[torch.Tensor] = None,
-               kv_dtype: Optional[torch.dtype] = None) -> DecodeState:
+               kv_dtype: Optional[torch.dtype] = None, seed: int = 0,
+               init_k: int = 4) -> DecodeState:
     """paged=True gives both models a PagedKVCache: n_pages pages of
     page_size rows (default batch_size * max_pages) and, unless a table is
     given, the default table that gives slot b the pages [b*m, (b+1)*m).
     Each cache keeps its own copy of a given table. kv_dtype torch.int8
     makes both caches (or pools) int8 with per-row scales; None keeps the
-    models' dtype."""
+    models' dtype. seed: the key's seed; init_k: each lane's first K under
+    the device-side adaptive controller."""
     B = batch_size
     kv_kw = dict(paged=paged, page_size=page_size, n_pages=n_pages, table=table, dtype=kv_dtype)
 
@@ -126,4 +142,7 @@ def init_state(target_model: Model, draft_model: Optional[Model], batch_size: in
         bonus=zeros_i32(B),
         token_logprobs=torch.zeros((B, max_seq_len), dtype=torch.float32, device=device),
         steps=torch.zeros((), dtype=torch.int32, device=device),
+        rng=torch.tensor(seed_key(seed), dtype=torch.int64, device=device),
+        ctrl_k=torch.full((B,), init_k, dtype=torch.int32, device=device),
+        acc_ema=torch.full((B,), 0.5, dtype=torch.float32, device=device),
     )

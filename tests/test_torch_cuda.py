@@ -32,6 +32,12 @@ from llm_inference_lab_tpu_torch.ops.flash_prefill import flash_prefill, flash_p
 from llm_inference_lab_tpu_torch.ops.paged_flash import paged_flash, paged_flash_int8
 from llm_inference_lab_tpu_torch.ops.quant import quantize_int4
 from llm_inference_lab_tpu_torch.ops.rms_norm import add_rms_norm, rms_norm, rms_norm_plain
+from llm_inference_lab_tpu_torch.ops.sampling import (
+    proposal_log_probs,
+    sample_tokens,
+    seed_key,
+    uniform,
+)
 from llm_inference_lab_tpu_torch.ops.quant_matmul import (
     MMA_MIN_M,
     quant_matmul,
@@ -982,6 +988,80 @@ def test_batcher_replays_give_the_host_steps_bits(card):
     for g, w in zip(got, want, strict=True):
         for key in ("generated_ids", "token_logprobs", "prompt_logprobs", "proposed", "accepted",
                     "finish_reason"):
+            assert g[key] == w[key], (key, g[key], w[key])
+
+
+@pytest.mark.cuda
+def test_card_draws_the_cpu_draws(card):
+    """The counter-based key gives the card the CPU's uniforms bit for bit
+    and the same sampled ids (Gumbel-max over [64, 32000] logits, every
+    filter on); 2**16 draws of one row of 24 logits lie within total
+    variation 0.02 of exp(proposal_log_probs)."""
+    g = torch.Generator().manual_seed(0)
+    logits = torch.randn((64, 32000), generator=g) * 3
+    key = torch.tensor(seed_key(9))
+    assert torch.equal(uniform(key.to(card), (64, 32000)).cpu(), uniform(key, (64, 32000)))
+    kw = dict(temperature=0.8, top_k=400, top_p=0.95, min_p=0.01)
+    got = sample_tokens(key.to(card), logits.to(card), **kw).cpu()
+    assert torch.equal(got, sample_tokens(key, logits, **kw))
+    row = torch.randn(24, generator=g) * 2
+    ids = sample_tokens(key.to(card), row.to(card).expand(1 << 16, 24), **kw).cpu()
+    emp = torch.bincount(ids.long(), minlength=24).double() / (1 << 16)
+    tv = 0.5 * (emp - proposal_log_probs(row, **kw).exp().double()).abs().sum()
+    assert tv < 0.02, tv
+
+
+SLICE_CASES = {
+    "ngram K=4": dict(draft_model=None, draft_mode="ngram", max_draft=4),
+    "ngram K=3 paged": dict(draft_model=None, draft_mode="ngram", max_draft=3,
+                            kv_layout="paged", kv_page_size=64),
+    "rejection sampled, adaptive-device": dict(
+        max_draft=3, greedy=False, temperature=0.8, top_p=0.95, policy="rejection",
+        controller="adaptive-device", controller_params={"max_k": 4}),
+    "baseline sampled": dict(draft_model=None, greedy=False, temperature=0.7, top_k=50),
+    "conf_threshold": dict(max_draft=2, policy="conf_threshold"),
+    "topk_agree": dict(max_draft=2, policy="topk_agree"),
+    "typical": dict(max_draft=2, policy="typical"),
+    "host adaptive": dict(max_draft=2, controller="adaptive",
+                          controller_params={"max_k": 4, "target_acceptance": 0.5}),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SLICE_CASES))
+def test_slice_paths_replay_the_host_loops_bits(card, case):
+    """ngram, sampling, the policies and both adaptive controllers through
+    the graph path give the host loop's results at B = 1 and 2 (the host
+    adaptive controller: one-step graphs a K against the functional step);
+    a sampled path repeats under its seed and moves with another."""
+    eng, host = _graph_engines(card, **SLICE_CASES[case])
+    for prompts in (GRAPH_PROMPTS[:1], GRAPH_PROMPTS):
+        got, want = eng.generate_batch(prompts, seed=5), host.generate_batch(prompts, seed=5)
+        for g, w in zip(got, want, strict=True):
+            for key in RESULT_KEYS + ("controller",):
+                assert g[key] == w[key], (case, key, g[key], w[key])
+    if case == "host adaptive":
+        assert len({k for _, _, k in eng.adaptive_loops}) > 1
+        assert all(loop.graph is not None for loop in eng.adaptive_loops.values())
+    if not eng.config.greedy:
+        again, other = eng.generate_batch(GRAPH_PROMPTS, seed=5), eng.generate_batch(
+            GRAPH_PROMPTS, seed=6)
+        assert [r["generated_ids"] for r in again] == [r["generated_ids"] for r in got]
+        assert [r["generated_ids"] for r in other] != [r["generated_ids"] for r in got]
+
+
+@pytest.mark.cuda
+def test_ngram_batcher_replays_give_the_host_steps_bits(card):
+    eng, host = _graph_engines(card, draft_model=None, draft_mode="ngram", max_draft=4,
+                               kv_layout="paged", kv_page_size=64, max_seq_len=512)
+    runs = []
+    for e in (eng, host):
+        b = ContinuousBatcher(e, n_slots=3)
+        for i, budget in enumerate((3, 17, 9, 5, 12, 16)):
+            b.submit("served by replays " * (1 + i), max_new_tokens=budget)
+        runs.append(b.run())
+    for g, w in zip(*runs, strict=True):
+        for key in ("generated_ids", "token_logprobs", "proposed", "accepted"):
             assert g[key] == w[key], (key, g[key], w[key])
 
 

@@ -143,6 +143,6 @@ def test_longest_prefix_reads_the_first_k_rows():
     logits[0, 3, 5] = 0.0  # no NaN: compare with the registry op path too
     full = np.concatenate([logits, np.random.default_rng(3).normal(0, 1, (4, 1, 1000))
                           .astype(np.float32)], axis=1)
-    got = longest_prefix(torch.from_numpy(draft), torch.from_numpy(full))
+    got = longest_prefix(None, torch.from_numpy(draft), None, torch.from_numpy(full))
     ref = jax_longest_prefix(None, jnp.asarray(draft), None, jnp.asarray(full))
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))

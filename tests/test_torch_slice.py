@@ -160,6 +160,10 @@ def test_port_imports_no_jax():
     the JAX package (checked on the source text)."""
     files = sorted((ROOT / "llm_inference_lab_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    names = {f.relative_to(ROOT).as_posix() for f in files}
+    assert names >= {f"llm_inference_lab_tpu_torch/{m}.py" for m in (
+        "ops/sampling", "core/policies", "core/controllers", "models/fake", "core/state",
+        "core/specstep", "core/engine", "core/batching", "config")}
     for f in files:
         text = f.read_text()
         assert not _FORBIDDEN.search(text), f"{f} imports JAX or the JAX package"
