@@ -2,11 +2,12 @@
 """Smoke run of the PyTorch/CUDA port (llm_inference_lab_tpu_torch) on one
 NVIDIA card: the quickest proof that the port builds and runs on the GPU.
 
-    python3 chip_smoke.py                    # phases 0-11, last line a JSON result
+    python3 chip_smoke.py                    # phases 0-13, last line a JSON result
     python3 chip_smoke.py --profile          # also a torch.profiler breakdown of runs
     python3 chip_smoke.py --profile=gemma    # the breakdown of the Gemma-2 runs only
     python3 chip_smoke.py --profile=mistral  # the breakdown of the Mistral B=1 run only
     python3 chip_smoke.py --profile=sampling # the breakdown of phase 11's sampled run only
+    python3 chip_smoke.py --profile=heads    # the breakdown of phases 12 and 13's runs only
 
 Phases, in order (any failure exits non-zero; nothing is caught and ignored):
  0. the card: nvidia-smi name and power limit, torch's device name, and
@@ -63,6 +64,16 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
     bounds its own check; the card's uniforms the CPU's bits) and the
     sampling ops of phase 11's step timed (the top_p sort of a row, a
     draw, the rejection policy's two distributions and its residual bonus);
+    then D's and F's tree variants (the tree speculation's verify chunk,
+    tree [3, 2], S = 10, at the 3B's geometry, bf16 and int8, POISON in V
+    at every leaf's slot, which only that leaf may see, and past the
+    chunk): D at T = 256 and 4096 (chunks mid-cache, at the cache's end and
+    at slot -1), F through pages of 16 and 64 with D's bits, each within
+    check_attn's tolerance of its plain version, timed at the tree paths'
+    shapes beside SDPA given the same boolean mask and the bound; and A's
+    decode body at Llama-3.1-8B's widths (4096 -> 6144, 4096, 28672,
+    14336 -> 4096, the untied head 4096 -> 128256) at M = 1 to 3 and the
+    decode checks' M, timed beside its bound and library call;
  3. end to end at full width: Engine with an int4 llama-3.2-3b target and
     llama-3.2-1b draft (random weights from a seed, int8 embedding/tied
     head), K=1, greedy, 64 new tokens, max_seq_len 512, on bench.py's
@@ -127,12 +138,30 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
     logprobs finite, the final K in [min_k, max_k]; then greedy runs of
     conf_threshold, topk_agree, typical and the host adaptive controller
     (a one-step graph a K), graph against host loop;
+12. EAGLE at the JAX package's eagle_8b_int4 (llama-3.1-8b, int4
+    projections and untied head through A, int8 embedding, no draft model,
+    K=2, max_seq_len 512, 64 new tokens, PROMPT; run after phase 10): a
+    warm-up, three timed generate calls and the host loop in turns; graph
+    == host loop (ids, steps, proposed, accepted), ids == a greedy
+    baseline's on the same weights exactly, acceptance > 0 (ms/step, tok/s,
+    tokens a step, acceptance, polls, capture ms, graph pool MB, peak
+    memory and launches a forward logged); the batched head call's rows
+    against one head call a draft position (rows that differ logged);
+13. Medusa and tree speculation on phase 3's int4 3B target (no draft
+    model; run after phase 11): Medusa K=4 with identity ("tie") heads and
+    the tree [3, 2], each with phase 12's checks; then phase 3b's 16
+    requests through the 8-slot paged batcher with the tree and with
+    Medusa, each request's ids the start of that mode's B=1 ids under the
+    near-tie rule (and D's and F's tree variants with the same bits at the
+    serving shapes); then self_distill_medusa (2 heads, three seed
+    prompts, 30 steps) under a 60 s cap: the loss falls, the ids stay,
+    Medusa's acceptance before and after logged;
  9. the kernels' JSON line (every kernel, launches by path; the Gemma-2
-    variants of D, E and F, the ring variants of D and E, and the ngram
-    verify shapes of B, D and C on rows of their own), then the result
-    line.
+    variants of D, E and F, the ring variants of D and E, the ngram
+    verify shapes of B, D and C, D's and F's tree variants and A at the 8B
+    widths on rows of their own), then the result line.
 
-Every B=1 and serving path (phases 3-8, 10, 11) decodes through the decode
+Every B=1 and serving path (phases 3-8, 10-13) decodes through the decode
 loop of core/specstep.py: CUDA-graph replays of the step, captured once a
 shape (the host adaptive controller: a one-step graph a K).
 count_launches adds each replay's captured launches to the wrappers' eager
@@ -174,6 +203,11 @@ QMM_9B = [(3584, 8192), (4096, 3584), (3584, 28672), (14336, 3584)]
 QMM_2B = [(2304, 4096), (2048, 2304), (2304, 18432), (9216, 2304)]
 QMM_MISTRAL = [(4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096)]
 MISTRAL_HEAD = (4096, 32000)
+# Llama-3.1-8B (phase 12): the projections of Mistral-7B's widths and the
+# untied int4 head of the 128256-token vocabulary; A's decode body at the
+# EAGLE step's M: 2 head rows (K=2), 3 verify rows (K+1).
+QMM_8B = QMM_MISTRAL + [(4096, 128256)]
+QMM_8B_M = (1, 2, 3)
 QMM_WIDTHS = {"3B": QMM_3B, "1B": QMM_1B, "Gemma-2 9B": QMM_9B,
               "Mistral-7B": QMM_MISTRAL + [MISTRAL_HEAD]}
 # Kernels A and B below MMA_MIN_M rows (the decode body, csrc/qmm_decode.cuh):
@@ -277,6 +311,23 @@ RING_LEN = 4736  # round_up(window 4096 + chunk 512 + K 4 + 2, 128)
 MISTRAL_LONG = PROMPT * 40  # 5400 byte tokens: P = 5632 (11 chunks of 512), max_len 5760
 MISTRAL_LONG_SHAPE = (5400, 5632, 5760)  # tokens, prompt block P, max_len
 P_RING = 5400  # a decode position of the long prompt: its window wraps the ring
+# Phase 12: EAGLE at the JAX package's eagle_8b_int4 (scripts/headline_suite.py):
+# Llama-3.1-8B, int4 projections and untied head, int8 embedding, no draft
+# model, K=2.
+EAGLE_CFG = dict(base_model="llama-3.1-8b", draft_model=None, draft_mode="eagle", max_draft=2,
+                 max_new_tokens=64, max_seq_len=512, quantization="int4", quantized_init=True,
+                 quantize_embed=True, seed=0)
+# Phase 13 on phase 3's int4 3B target (no draft model): Medusa at K=4 with
+# identity ("tie") heads, and the JAX package's default tree.
+MEDUSA_K = 4
+TREE_BRANCHING = (3, 2)  # S = num_nodes + 1 = 10 verify rows, depth 2
+TREE_S = 10
+# self_distill_medusa's settings. Adam moves every entry of a [D, D] head by
+# about lr a step, so h @ proj moves by up to lr * D: the tiny model's lr of
+# 5e-3 (D = 64) is 5e-3 * 64 / 3072 ~ 1e-4 at the 3B's width; 5e-3 there
+# diverged (loss 11.5 -> 180).
+DISTILL = dict(num_heads=2, tokens_per_prompt=32, steps=30, lr=5e-5)
+DISTILL_CAP_S = 60.0  # its time cap on the card, asserted
 # The kernels each path must launch (and no other): the norms (rms_norm
 # once a forward, add_rms_norm twice a layer a forward) and the
 # projections' two kernels (decode rows through the decode body, prefill
@@ -310,12 +361,24 @@ PATH_KERNELS = {
     "generate int4 sampled rejection adaptive-device K=4 (3 runs)": INT4 | {"flash_decode",
                                                                              "flash_prefill"},
     "generate int4 greedy conf_threshold, topk_agree, typical, host adaptive K": INT4 | SPEC,
+    "generate llama-3.1-8b int4 eagle K=2 (3 runs)": INT4 | SPEC,
+    "generate int4 medusa K=4 (3 runs)": INT4 | SPEC,
+    # The tree walks its own path (no C), and its verify chunk attends
+    # through D's tree variant only.
+    "generate int4 tree [3, 2] (3 runs)": INT4 | {"flash_prefill", "flash_decode_tree"},
+    # 8 slots x 10 tree rows: A only through its tensor-core path.
+    "serving int4 tree [3, 2] (16 requests)": INT4 - {"quant_matmul_int4"} | {
+        "flash_prefill", "paged_flash_tree"},
+    "serving int4 medusa K=4 (16 requests)": INT4 | SERVE,
 }
 GEMMA_PATHS = [path for path in PATH_KERNELS if "gemma-2" in path]
 MISTRAL_PATHS = [path for path in PATH_KERNELS if "mistral" in path]
 RING_PATHS = [path for path in MISTRAL_PATHS if "ring" in path]
 # The phase-10 paths: the K=12 verify shapes have rows of their own.
 NGRAM_PATHS = [path for path in PATH_KERNELS if "K=12" in path]
+# The phase-12 path: A's decode body at the 8B widths has a row of its own.
+EAGLE_PATHS = [path for path in PATH_KERNELS if "llama-3.1-8b" in path]
+HEAD_PATHS = [path for path in PATH_KERNELS if "medusa" in path or "tree" in path]
 
 
 T_START = time.perf_counter()
@@ -1845,7 +1908,8 @@ def phase_ring_attention(dev):
 # The kernels that only a decode step launches: outside the decode loop's
 # replays they launch only in the eager warm-up step before a capture.
 DECODE_ONLY = {"quant_matmul_int4", "quant_matmul_int8", "flash_decode", "flash_decode_int8",
-               "paged_flash", "paged_flash_int8", "verify_prefix"}
+               "paged_flash", "paged_flash_int8", "verify_prefix", "flash_decode_tree",
+               "flash_decode_tree_int8", "paged_flash_tree", "paged_flash_tree_int8"}
 
 
 def count_launches(path, run):
@@ -1924,6 +1988,12 @@ def engine_loops(what, eng, T=None):
             if T is None or key[1] == T]
 
 
+def draft_params_of(eng):
+    """What an engine drafts with, to build another on the same weights: the
+    draft model's params, the medusa or tree heads, or None."""
+    return eng.draft.params if eng.draft is not None else eng._draft_params
+
+
 def host_engine(eng):
     """An engine with eng's weights and settings on the host loop
     (EnvFlags(sync_steps=True)): the eager reference of the graph path."""
@@ -1931,8 +2001,7 @@ def host_engine(eng):
     from llm_inference_lab_tpu_torch.core.engine import Engine
 
     return Engine(eng.config, device=eng.device, flags=EnvFlags(sync_steps=True),
-                  target_params=eng.target.params,
-                  draft_params=eng.draft.params if eng.draft is not None else None)
+                  target_params=eng.target.params, draft_params=draft_params_of(eng))
 
 
 def same_decode(what, graph, host):
@@ -2423,7 +2492,24 @@ def attention_rows(eng, dev):
         a = flash_decode(q, k, v, pos, *sc, **opts)
         b = paged_flash(q, pools[0], pools[1], pos, table, *pools[2:], **opts)
         out[S] = int((a != b).any(-1).sum())
+    if eng.tree is not None:  # the tree variants, at the tree's verify chunk
+        from llm_inference_lab_tpu_torch.ops.flash_decode import flash_decode_tree
+        from llm_inference_lab_tpu_torch.ops.paged_flash import paged_flash_tree
+
+        anc = torch.from_numpy(eng.tree.build()[3]).to(dev)
+        S = anc.shape[0]
+        q = torch.randn((B, S, H, D), generator=g, device=dev).bfloat16()
+        start = torch.arange(240, 240 + B, device=dev, dtype=torch.int32)
+        a = flash_decode_tree(q, k, v, anc, start, *sc, **opts)
+        b = paged_flash_tree(q, pools[0], pools[1], table, anc, start, *pools[2:], **opts)
+        out[f"tree {S}"] = int((a != b).any(-1).sum())
     return out
+
+
+def row_key(m):
+    """Order row_stability's keys: the M (or S) in order, then the named
+    ones (the tree variants')."""
+    return (1, m) if isinstance(m, str) else (0, str(m).zfill(8))
 
 
 def near_tie(eng, dev, prompt, ids_a, ids_b):
@@ -2458,7 +2544,7 @@ def phase_serving(dev, eng, profile, max_len, path, label):
         cfg = replace(eng.config, max_seq_len=max_len, kv_layout=layout, kv_page_size=SERVE_PAGE)
         b = ContinuousBatcher(Engine(cfg, device=dev, flags=flags,
                                      target_params=eng.target.params,
-                                     draft_params=eng.draft.params if eng.draft else None),
+                                     draft_params=draft_params_of(eng)),
                               n_slots=SERVE_SLOTS)
         for prompt, budget in zip(SERVE_PROMPTS, SERVE_BUDGETS):
             b.submit(prompt, max_new_tokens=budget)
@@ -2503,7 +2589,7 @@ def phase_serving(dev, eng, profile, max_len, path, label):
     log("row stability (rows of M that differ from the row alone, M = 2/5/8/16/40 (and 63 "
         f"for A or B, asserted 0, as for the norms), and at MMA_MIN_M across A's or B's two "
         f"kernels; {D_VS_F}: rows that differ at S = 1/K+1, asserted 0): "
-        + "; ".join(f"{op}: {'/'.join(str(d[m]) for m in sorted(d))}"
+        + "; ".join(f"{op}: {'/'.join(str(d[m]) for m in sorted(d, key=row_key))}"
                     for op, d in stability.items()))
     unstable = [op for op, d in stability.items() if any(d.values())]
 
@@ -2532,6 +2618,342 @@ def phase_serving(dev, eng, profile, max_len, path, label):
     if profile:
         profiled = batcher("paged")  # its capture stays out of the profile
         profile_run(f"serving run ({label})", profiled.run, st["wall_s"] * 1e3)
+    return launches
+
+
+# ------------------------------------------------- tree attention (D and F)
+def tree_inputs(g, dev, B, H, KVH, T, D, start, int8=False, L=1):
+    """q [B, S, H, D] bf16 and keys [L, B, KVH, T, D] (bf16, or int8 with f32
+    scales) for the tree's verify chunk at slots start[b] .. start[b] + S - 1
+    (TREE_BRANCHING), with POISON in V (int8: bytes and scales) at every
+    leaf's slot, which only that leaf may see, and at every slot past the
+    chunk; the ancestry mask and the starts on the card."""
+    from llm_inference_lab_tpu_torch.core.treespec import TreeConfig
+
+    _, depths, _, anc = TreeConfig(TREE_BRANCHING).build()
+    S = len(depths)
+    q = torch.randn((B, S, H, D), generator=g, device=dev).bfloat16()
+    shape = (L, B, KVH, T, D)
+    if int8:
+        (k, ks), (v, vs) = int8_kv(g, dev, shape), int8_kv(g, dev, shape)
+    else:
+        k, v = (torch.randn(shape, generator=g, device=dev).bfloat16() for _ in "kv")
+        ks = vs = None
+    leaves = [i for i in range(S) if depths[i] == depths.max()]
+    for b, c in enumerate(start):
+        hidden = [c + i for i in leaves if c + i >= 0] + list(range(max(c + S, 0), T))
+        idx = torch.tensor(hidden, device=dev, dtype=torch.long)
+        if int8:
+            v[:, b, :, idx] = POISON_BYTE
+            vs[:, b, :, idx] = POISON_SCALE
+        else:
+            v[:, b, :, idx] = POISON
+    return (q, k, v, ks, vs, torch.from_numpy(anc).to(dev),
+            torch.tensor(start, device=dev, dtype=torch.int32))
+
+
+def tree_mask_of(anc, start, T):
+    """The tree's boolean mask [B, 1, S, T] for SDPA (the library yardstick)."""
+    from llm_inference_lab_tpu_torch.ops.flash_decode import tree_visible
+
+    return tree_visible(T, anc, start)[:, None]
+
+
+def sdpa_tree(q, k, v, mask, ks=None, vs=None):
+    """SDPA given the tree's boolean mask (timed only, never used); an int8
+    cache dequantized to bf16 first."""
+    if ks is not None:
+        k, v = (k.float() * ks[..., None]).to(q.dtype), (v.float() * vs[..., None]).to(q.dtype)
+    out = torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k, v, attn_mask=mask, enable_gqa=True)
+    return out.transpose(1, 2)
+
+
+def tree_bound(anc, start, H, KVH, D, int8=False, extra_bytes=0):
+    """Bytes: K and V of the keys [0, start + S) of every sequence (int8: a
+    byte a value and 8 bytes of scales a key), q and out bf16, the tree's
+    words and starts; operations: 4 D per (query row, visible key), a row
+    seeing the keys before its chunk and its ancestors' in it."""
+    S = anc.shape[0]
+    keys = sum(max(c + S, 0) for c in start.tolist())
+    per_key = 2 * D + 8 if int8 else 4 * D
+    anc_n = anc.sum(-1).tolist()
+    seen = sum(max(c, 0) + n for c in start.tolist() for n in anc_n) * H
+    return bound_ms(KVH * keys * per_key + 2 * 2 * len(start) * S * H * D + 4 * S
+                    + 4 * len(start) + extra_bytes, 4 * seen * D)
+
+
+def phase_tree_attention(dev):
+    """D's and F's tree variants (the tree's verify chunk, S = 10 at the 3B's
+    geometry, 24 / 8 heads of 128): each within check_attn's tolerance of
+    its plain version, bf16 and int8, with POISON at every leaf's slot and
+    past the chunk (tree_inputs); D at T = 256 (one split) and 4096 (16
+    splits, those past the chunk empty), chunks mid-cache, ending at the
+    cache's last slot and at slot -1 (an empty batcher slot's); F over
+    pages of 16 and 64 through a shuffled table, with D's bits on the same
+    keys. Timed beside SDPA given the same boolean mask and the bound: D at
+    the B=1 tree path's shapes (T = 256, chunk at P_MAIN), F at the 8-slot
+    serving step's (page 64, chunks near 240). Returns {name: numbers of
+    one tree step's 28 layers}."""
+    from llm_inference_lab_tpu_torch.models.paged import gather_pages
+    from llm_inference_lab_tpu_torch.ops.flash_decode import (
+        flash_decode_plain,
+        flash_decode_tree,
+        tree_bits,
+    )
+    from llm_inference_lab_tpu_torch.ops.paged_flash import paged_flash_plain, paged_flash_tree
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    H, KVH = GEOMS[128]
+    D, layers = 128, LAYERS[128]
+    errs = {}
+    for int8 in (False, True):
+        name = "_int8" if int8 else ""
+        for T in (256, 4096):
+            start = [T // 2 + 5, T - TREE_S, -1]
+            q, k, v, ks, vs, anc, st = tree_inputs(g, dev, 3, H, KVH, T, D, start, int8)
+            sc = (ks[0], vs[0]) if int8 else ()
+            got = flash_decode_tree(q, k[0], v[0], anc, st, *sc)
+            pos = torch.zeros(q.shape[:2], device=dev, dtype=torch.int32)
+            err = check_attn(got, q, k[0], v[0], pos, *sc, what=("flash_decode_tree" + name, T),
+                             tree_mask=anc, chunk_start=st)
+            errs["flash_decode_tree" + name] = max(errs.get("flash_decode_tree" + name, 0.0), err)
+            log(f"flash_decode_tree{name} S={TREE_S} D={D} T={T} chunks at {start}: max_abs_err "
+                f"{err:.3g} (POISON at every leaf's slot and past the chunk)")
+        for P in (16, 64):
+            start = torch.randint(0, SERVE_MAX_LEN - TREE_S, (SERVE_SLOTS,), generator=g,
+                                  device=dev).tolist()
+            start[1] = -1
+            q, k, v, ks, vs, anc, st = tree_inputs(g, dev, SERVE_SLOTS, H, KVH, SERVE_MAX_LEN, D,
+                                                   start, int8)
+            sc = (ks[0], vs[0]) if int8 else ()
+            pools, table = to_pages(g, dev, (k[0], v[0], *sc), P)
+            got = paged_flash_tree(q, pools[0], pools[1], table, anc, st, *pools[2:])
+            pos = torch.zeros(q.shape[:2], device=dev, dtype=torch.int32)
+            err = check_attn(got, q, k[0], v[0], pos, *sc, what=("paged_flash_tree" + name, P),
+                             tree_mask=anc, chunk_start=st)
+            assert torch.equal(gather_pages(pools[0], table), k[0])
+            assert torch.equal(flash_decode_tree(q, k[0], v[0], anc, st, *sc), got), (
+                "paged_flash_tree" + name, P, "F != D on the same keys")
+            errs["paged_flash_tree" + name] = max(errs.get("paged_flash_tree" + name, 0.0), err)
+            log(f"paged_flash_tree{name} B={SERVE_SLOTS} S={TREE_S} D={D} P={P}: max_abs_err "
+                f"{err:.3g}; flash_decode_tree's bits on the gathered keys")
+    aggs = {}
+    for int8 in (False, True):
+        name = "_int8" if int8 else ""
+        # D: the B=1 tree path's verify call, T = 256, the chunk at P_MAIN.
+        per_layer = 2 * KVH * T_MAIN * D * (1 if int8 else 2)
+        L = 2 * L2_BYTES // per_layer + 1
+        q, k, v, ks, vs, anc, st = tree_inputs(g, dev, 1, H, KVH, T_MAIN, D, [P_MAIN], int8, L=L)
+        sc = (lambda i: (ks[i], vs[i])) if int8 else (lambda i: ())
+        pos = torch.zeros(q.shape[:2], device=dev, dtype=torch.int32)
+        mask = tree_mask_of(anc, st, T_MAIN)
+        bits = tree_bits(anc)  # as the forward passes it: once a forward, not a layer
+        cyc = Cycle(L)
+        ms = median_ms(lambda: flash_decode_tree(q, k[cyc()], v[cyc.i], anc, st, *sc(cyc.i),
+                                                 bits=bits))
+        plain = median_ms(lambda: flash_decode_plain(q, k[cyc()], v[cyc.i], pos, *sc(cyc.i),
+                                                     tree_mask=anc, chunk_start=st), iters=10)
+        lib = median_ms(lambda: sdpa_tree(q, k[cyc()], v[cyc.i], mask, *sc(cyc.i)), iters=10)
+        b, by = tree_bound(anc, st, H, KVH, D, int8)
+        log(f"flash_decode_tree{name} B=1 S={TREE_S} D={D} T={T_MAIN} chunk at {P_MAIN}: "
+            f"{ms:.4f} ms  plain {plain:.4f}  library {lib:.4f} (SDPA, boolean mask)  bound "
+            f"{b:.5f} ({by})")
+        aggs["flash_decode_tree" + name] = dict(
+            ms=layers * ms, plain_ms=layers * plain, library_ms=layers * lib,
+            bound_ms=layers * b, bound_by=by, max_abs_err=errs["flash_decode_tree" + name])
+        del k, v, ks, vs
+        # F: the 8-slot serving step's verify call, pages of 64, chunks near 240.
+        M = SERVE_MAX_LEN // SERVE_PAGE
+        start = [240 + b for b in range(SERVE_SLOTS)]
+        q, k, v, ks, vs, anc, st = tree_inputs(g, dev, SERVE_SLOTS, H, KVH, SERVE_MAX_LEN, D,
+                                               start, int8)
+        pools, table = to_pages(g, dev, (k[0], v[0]) + ((ks[0], vs[0]) if int8 else ()),
+                                SERVE_PAGE)
+        L = 2 * L2_BYTES // sum(p.numel() * p.element_size() for p in pools) + 1
+        pools = [p_.expand(L, *p_.shape).clone() for p_ in pools]
+        pos = torch.zeros(q.shape[:2], device=dev, dtype=torch.int32)
+        mask = tree_mask_of(anc, st, M * SERVE_PAGE)
+        cyc = Cycle(L)
+        scp = (lambda i: (pools[2][i], pools[3][i])) if int8 else (lambda i: ())
+        bits = tree_bits(anc)
+        ms = median_ms(lambda: paged_flash_tree(q, pools[0][cyc()], pools[1][cyc.i], table, anc,
+                                                st, *scp(cyc.i), bits=bits))
+        plain = median_ms(lambda: paged_flash_plain(q, pools[0][cyc()], pools[1][cyc.i], pos,
+                                                    table, *scp(cyc.i), tree_mask=anc,
+                                                    chunk_start=st), iters=10)
+        gathered = (lambda i: tuple(gather_pages(t[i], table) for t in pools[2:])) if int8 \
+            else (lambda i: ())
+        lib = median_ms(lambda: sdpa_tree(q, gather_pages(pools[0][cyc()], table),
+                                          gather_pages(pools[1][cyc.i], table), mask,
+                                          *gathered(cyc.i)), iters=10)
+        b, by = tree_bound(anc, st, H, KVH, D, int8, extra_bytes=4 * table.numel())
+        log(f"paged_flash_tree{name} B={SERVE_SLOTS} S={TREE_S} D={D} P={SERVE_PAGE} chunks at "
+            f"{start[0]}..{start[-1]}: {ms:.4f} ms  plain {plain:.4f}  library {lib:.4f} "
+            f"(gather + SDPA, boolean mask)  bound {b:.5f} ({by})")
+        aggs["paged_flash_tree" + name] = dict(
+            ms=layers * ms, plain_ms=layers * plain, library_ms=layers * lib,
+            bound_ms=layers * b, bound_by=by, max_abs_err=errs["paged_flash_tree" + name])
+        del pools
+    return aggs
+
+
+def phase_quant_matmul_8b(dev):
+    """Kernel A's decode body at Llama-3.1-8B's widths (its projections and
+    the untied 128256-token head) at M = 1 to 3 and the decode checks'
+    M (qmm_decode); returns the numbers of one EAGLE K=2 step: 32 verify
+    layers and the head at M = 3, the head call of the K=2 EAGLE inputs at
+    M = 2."""
+    g = torch.Generator(device=dev).manual_seed(22)
+    rows, max_err = qmm_decode(dev, 4, g, {"Llama-3.1-8B": (QMM_8B, QMM_8B_M)})
+    head = [QMM_8B[-1]]
+    step = [(QMM_MISTRAL, 3, 32), (head, 3, 1), (head, 2, 1)]
+    log_step("quant_matmul_int4", "one Llama-3.1-8B EAGLE K=2 step (32 verify layers and the "
+             "head at M = 3, the EAGLE head call at M = 2)", rows, step)
+    return sum_rows(rows, calls(step), max_err)
+
+
+# ------------------------------------------------- Medusa, EAGLE and the tree
+def head_rows(eng, dev, B=4):
+    """The step's one head call over [B * K, D] rows against one head call a
+    draft position ([B, D] each), on a random hidden carry: the rows whose
+    logits differ in any bit and the proposals (argmax) that differ. A
+    proposal that differs can move acceptance, never the ids
+    (verification is exact)."""
+    cfg = eng.config
+    D = eng.target.config.d_model
+    K = cfg.max_draft
+    g = torch.Generator(device=dev).manual_seed(23)
+    with torch.inference_mode():
+        h = torch.randn((B, D), generator=g, device=dev)
+        if cfg.draft_mode == "medusa":
+            proj = eng._draft_params["medusa_proj"][:K]
+            inputs = torch.matmul(h.to(eng.target.config.dtype), proj).transpose(0, 1)
+        else:
+            h_prev, h_cur, hs = torch.randn((B, D), generator=g, device=dev), h, []
+            for _ in range(K):
+                h_prev, h_cur = h_cur, h_cur + 0.7 * (h_cur - h_prev)
+                hs.append(h_cur)
+            inputs = torch.stack(hs, 1).to(eng.target.config.dtype)
+        batched = eng.target.head(inputs.reshape(B * K, D)).reshape(B, K, -1)
+        per = torch.stack([eng.target.head(inputs[:, i].contiguous()) for i in range(K)], 1)
+    return (int((batched != per).any(-1).sum()),
+            int((batched.argmax(-1) != per.argmax(-1)).sum()), B * K)
+
+
+def phase_head_generate(dev, profile, eng, path, label):
+    """A head mode (Medusa, EAGLE or the tree) at B=1 on PROMPT: a warm-up
+    (the capture), three timed generate calls in one launch count, a greedy
+    baseline on the same weights (vanilla, no draft model) timed alike, the
+    host loop in turns with the graph path. The ids must equal the
+    baseline's exactly, the graph's the host loop's (ids, steps, proposed,
+    accepted), and acceptance must be above 0 (asserted; the ids are logged
+    when it is not). Logs ms/step, tok/s, tokens a step, acceptance, polls,
+    capture ms and graph pool MB, peak memory and kernel launches a
+    forward. Returns the launches."""
+    from llm_inference_lab_tpu_torch.core.engine import Engine
+
+    eng.generate(PROMPT)  # warm-up, and the decode loop's capture
+    loops = engine_loops("B, max_len", eng)
+    graph_report(f"generate ({label})", loops)
+    torch.cuda.reset_peak_memory_stats()
+    runs, launches = count_launches(path, lambda: [eng.generate(PROMPT) for _ in range(3)])
+    polls = eng.polls
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    ids = runs[0]["generated_ids"]
+    assert all(r["generated_ids"] == ids for r in runs), "repeated runs differ"
+    for r in runs:
+        lp = torch.tensor(r["token_logprobs"])
+        assert len(lp) == r["generated_tokens"] and torch.isfinite(lp).all(), "bad logprobs"
+    ids_digest(path, [ids])
+    base_eng = Engine(replace(eng.config, draft_mode="vanilla", draft_model=None), device=dev,
+                      target_params=eng.target.params)
+    base_eng.generate(PROMPT)
+    bases = [base_eng.generate(PROMPT) for _ in range(3)]
+    assert all(b["generated_ids"] == ids for b in bases), (
+        label, "ids differ from the greedy baseline's", ids, bases[0]["generated_ids"])
+    r = runs[0]
+    per = loops[0][1].per_replay
+    kernels = sum(n for name, n in per.items() if name not in ("forwards", "layers"))
+    log(f"end to end ({label}, B=1, {eng.config.max_new_tokens} new tokens): {timing(runs)}, "
+        f"steps {r['steps']}, {step_stats(runs)}, {polls} polls a generate, capture "
+        f"{loops[0][1].capture_s * 1e3:.1f} ms, graph pool {loops[0][1].pool_bytes / 1e6:.1f} MB, "
+        f"peak memory {peak_mb:.1f} MB, {kernels / per['forwards']:.1f} kernel launches a "
+        f"forward ({kernels} a step of {per['forwards']} forward); baseline (no drafts): "
+        f"{timing(bases)}, steps {bases[0]['steps']}; ids == baseline ids; ids {ids}")
+    assert r["accepted"] > 0, (label, "accepted no draft on the seed's weights", ids)
+    host = host_engine(eng)
+    host.generate(PROMPT)
+    turns = [e.generate(PROMPT) for e in (host, eng, eng, host)]
+    same_decode(label, turns, [r] * 4)
+    log(f"graph path against the host loop ({label}, in turns host, graph, graph, host; ids, "
+        f"steps, proposed, accepted equal): graph {timing(turns[1:3])}; host loop "
+        f"{timing(turns[::3])}")
+    if profile:
+        profile_run(f"generate ({label})", lambda: eng.generate(PROMPT),
+                    statistics.median(r["latency_ms"] for r in runs))
+    return launches
+
+
+def phase_eagle(dev, profile, path):
+    """Phase 12: EAGLE at the JAX package's eagle_8b_int4 (EAGLE_CFG):
+    phase_head_generate, and the batched head call against one a position."""
+    from llm_inference_lab_tpu_torch.config import EngineConfig
+    from llm_inference_lab_tpu_torch.core.engine import Engine
+
+    t0 = time.perf_counter()
+    eng = Engine(EngineConfig(**EAGLE_CFG), device=dev)
+    torch.cuda.synchronize()
+    log(f"engine init (random int4 Llama-3.1-8B on the card): {time.perf_counter() - t0:.1f} s")
+    launches = phase_head_generate(dev, profile, eng, path, "Llama-3.1-8B int4 EAGLE K=2")
+    logits, props, n = head_rows(eng, dev)
+    log(f"EAGLE head call, batched ([B*K, D]) against one a position ([B, D]): {logits} of {n} "
+        f"rows differ in some logit, {props} proposals differ")
+    return launches
+
+
+def phase_heads(dev, eng, profile, paths):
+    """Phase 13 on phase 3's int4 3B target (eng: phase 3's engine; no draft
+    model): Medusa at K=4 with identity heads and the tree TREE_BRANCHING,
+    each through phase_head_generate; then phase 3b's requests through the
+    8-slot paged batcher with the tree and with Medusa (phase_serving: each
+    request's ids the start of that mode's B=1 ids under the near-tie rule);
+    then self_distill_medusa (DISTILL: 2 heads, PROMPT's three shortest
+    serving prompts, 30 steps) under DISTILL_CAP_S: the loss must fall;
+    Medusa's acceptance is logged before and after."""
+    from llm_inference_lab_tpu_torch.core.engine import Engine
+    from llm_inference_lab_tpu_torch.core.head_training import self_distill_medusa
+
+    def engine(**kw):
+        return Engine(replace(eng.config, draft_model=None, **kw), device=dev,
+                      target_params=eng.target.params)
+
+    launches = {}
+    medusa = engine(draft_mode="medusa", max_draft=MEDUSA_K)
+    launches[paths[0]] = phase_head_generate(dev, profile, medusa, paths[0],
+                                             f"3B int4 Medusa K={MEDUSA_K} tie heads")
+    logits, props, n = head_rows(medusa, dev)
+    log(f"Medusa head call, batched ([B*K, D]) against one a position ([B, D]): {logits} of "
+        f"{n} rows differ in some logit, {props} proposals differ")
+    tree = engine(draft_mode="tree", tree={"branching": list(TREE_BRANCHING)})
+    launches[paths[1]] = phase_head_generate(dev, profile, tree, paths[1],
+                                             f"3B int4 tree {list(TREE_BRANCHING)}")
+    launches[paths[2]] = phase_serving(dev, tree, profile, SERVE_MAX_LEN, paths[2],
+                                       f"3B int4 tree {list(TREE_BRANCHING)}")
+    launches[paths[3]] = phase_serving(dev, medusa, profile, SERVE_MAX_LEN, paths[3],
+                                       f"3B int4 Medusa K={MEDUSA_K}")
+    before = medusa.generate(PROMPT)
+    t0 = time.perf_counter()
+    _, hist = self_distill_medusa(medusa, sorted(set(SERVE_PROMPTS), key=len)[:3], **DISTILL)
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    after = medusa.generate(PROMPT)
+    log(f"self_distill_medusa ({DISTILL}): {took:.1f} s (cap {DISTILL_CAP_S} s), loss "
+        f"{[round(x, 4) for x in hist]}; Medusa K={MEDUSA_K} acceptance before "
+        f"{before['acceptance_rate']:.4f}, after {after['acceptance_rate']:.4f}; ids unchanged")
+    assert hist[-1] < hist[0], ("self-distillation's loss did not fall", hist)
+    assert took <= DISTILL_CAP_S, ("self-distillation outran its cap", took)
+    assert after["generated_ids"] == before["generated_ids"], "trained heads changed the ids"
     return launches
 
 
@@ -2697,11 +3119,31 @@ def main(argv):
                                 ngram_step + f": C at [1, {NGRAM_K}, 128256]"),
     })
     phase_sampling_ops(dev)
+    tree_rows = phase_tree_attention(dev)
+    tree_step = (f"one tree {list(TREE_BRANCHING)} B=1 step of the 3B (28 verify layers at "
+                 f"S = {TREE_S}, T = {T_MAIN})")
+    tree_serve = (f"one tree {list(TREE_BRANCHING)} step of the 8-slot serving batch (28 "
+                  f"layers at S = {TREE_S}, page {SERVE_PAGE})")
+    kernels.update({
+        "flash_decode_tree": (tree_rows["flash_decode_tree"], "flash_decode_tree.cu",
+                              "ops/attention.py:94", tree_step),
+        "flash_decode_tree_int8": (tree_rows["flash_decode_tree_int8"], "flash_decode_tree.cu",
+                                   "ops/attention.py:94", tree_step + ", int8 KV"),
+        "paged_flash_tree": (tree_rows["paged_flash_tree"], "paged_flash_tree.cu",
+                             "ops/paged_attention.py:31", tree_serve),
+        "paged_flash_tree_int8": (tree_rows["paged_flash_tree_int8"], "paged_flash_tree.cu",
+                                  "ops/paged_attention.py:31", tree_serve + ", int8 KV"),
+        "quant_matmul_int4/8b": (phase_quant_matmul_8b(dev), "qmm_decode.cuh",
+                                 "ops/pallas/quant_matmul.py:76",
+                                 "one Llama-3.1-8B EAGLE K=2 B=1 step (32 verify layers and the "
+                                 "head at M = 3, the EAGLE head call at M = 2)"),
+    })
     log(f"phase 2 took {time.perf_counter() - t0:.1f} s")
     profile = "--profile" in argv
     profile_gemma = profile or "--profile=gemma" in argv
     profile_mistral = profile or "--profile=mistral" in argv
     profile_sampling = profile or "--profile=sampling" in argv
+    profile_heads = profile or "--profile=heads" in argv
     paths = list(PATH_KERNELS)
     on_path = {}
     t0 = time.perf_counter()
@@ -2716,6 +3158,9 @@ def main(argv):
     on_path.update(phase_sampling(dev, eng, profile_sampling, [
         path for path in paths if path.startswith(("generate int4 sampled", "generate int4 greedy"))]))
     log(f"phase 11 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    on_path.update(phase_heads(dev, eng, profile_heads, HEAD_PATHS))
+    log(f"phase 13 took {time.perf_counter() - t0:.1f} s")
     del eng
     t0 = time.perf_counter()
     eng, on_path[paths[2]] = phase_end_to_end(dev, profile, INT8_CFG, paths[2],
@@ -2736,6 +3181,10 @@ def main(argv):
     del eng
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    on_path[EAGLE_PATHS[0]] = phase_eagle(dev, profile_heads, EAGLE_PATHS[0])
+    torch.cuda.empty_cache()
+    log(f"phase 12 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     label = "Gemma-2 9B int4 + 2B draft, K=1"
     eng, on_path[paths[4]] = phase_end_to_end(dev, profile_gemma, GEMMA_CFG, paths[4], label)
     on_path[paths[5]] = phase_long_prompt(dev, eng, paths[5])
@@ -2755,18 +3204,22 @@ def main(argv):
 
     def counted(name):
         """The paths whose launches a row counts: a Gemma-2 row its paths, a
-        ring row the Mistral ring paths, an ngram row the phase-10 paths,
-        the bf16 D, E and F rows the other Llama paths, the int8 ones the
-        Llama and Gemma-2 paths (none launch there), every other row all
-        (less the phase-10 paths where the kernel has an ngram row)."""
+        ring row the Mistral ring paths, an ngram row the phase-10 paths, an
+        8b row the phase-12 path, the bf16 D, E and F rows the other Llama
+        paths, the int8 ones the Llama and Gemma-2 paths (none launch
+        there), every other row all (less the phase-10 and phase-12 paths
+        where the kernel has a row of theirs)."""
         if name.endswith("/gemma-2"):
             return GEMMA_PATHS
         if name.endswith("/ring"):
             return RING_PATHS
         if name.endswith("/ngram"):
             return NGRAM_PATHS
+        if name.endswith("/8b"):
+            return EAGLE_PATHS
         rest = [path for path in paths
-                if f"{name}/ngram" not in kernels or path not in NGRAM_PATHS]
+                if (f"{name}/ngram" not in kernels or path not in NGRAM_PATHS)
+                and (f"{name}/8b" not in kernels or path not in EAGLE_PATHS)]
         if name in ("flash_decode", "flash_prefill", "paged_flash"):
             return [path for path in rest if path not in GEMMA_PATHS + MISTRAL_PATHS]
         if name in ("flash_decode_int8", "flash_prefill_int8", "paged_flash_int8"):

@@ -26,7 +26,7 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 SOURCES = ("quant_matmul_int4", "quant_matmul_int8", "flash_decode", "flash_prefill",
-           "paged_flash", "verify_prefix", "rms_norm")
+           "paged_flash", "verify_prefix", "rms_norm", "flash_decode_tree", "paged_flash_tree")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -61,6 +61,16 @@ SIGNATURES = {
         "flash_decode_int8": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, LL, LL, LL, LL, F, F,
                               I, I, I, P],
     },
+    "flash_decode_tree": {
+        # q, k, v, bits, start, out, ws, counters, B, S, H,
+        # KVH, T, D, stride_kb, stride_kh, scale, softcap, nsplit, stream
+        "flash_decode_tree_bf16": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, LL, LL, F, F, I, P],
+        # q, k, v, k_scale, v_scale, bits, start, out, ws, counters, B, S, H,
+        # KVH, T, D, stride_kb, stride_kh, stride_sb, stride_sh, scale,
+        # softcap, nsplit, stream
+        "flash_decode_tree_int8": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, LL, LL, LL, LL,
+                                   F, F, I, P],
+    },
     "flash_prefill": {
         # q, k, v, positions, out, B, S, H, KVH, T, D, stride_kb, stride_kh,
         # scale, softcap, window, ring, stream
@@ -80,6 +90,17 @@ SIGNATURES = {
         # softcap, window, nsplit, stream
         "paged_flash_int8": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, LL, LL, F, F, I,
                              I, P],
+    },
+    "paged_flash_tree": {
+        # q, k_pool, v_pool, table, bits, start, out, ws,
+        # counters, B, S, H, KVH, M, P, D, stride_page, scale, softcap,
+        # nsplit, stream
+        "paged_flash_tree_bf16": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, LL, F, F, I, P],
+        # q, k_pool, v_pool, k_scale, v_scale, table, bits, start, out, ws,
+        # counters, B, S, H, KVH, M, P, D, stride_page, stride_spage, scale,
+        # softcap, nsplit, stream
+        "paged_flash_tree_int8": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, LL, LL, F,
+                                  F, I, P],
     },
     "verify_prefix": {
         # draft, logits, ws, counters, mask, accept_len, B, K, V, row_stride,

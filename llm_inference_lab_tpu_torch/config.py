@@ -1,8 +1,9 @@
 """Engine configuration: the fields of llm_inference_lab_tpu/config.py
 EngineConfig that the ported slice reads.
 
-The slice is vanilla drafting from a draft model or ngram drafting from the
-token buffer, the five acceptance policies, the three K controllers,
+The slice is vanilla drafting from a draft model, ngram drafting from the
+token buffer, Medusa-lite and EAGLE-lite drafting from the target's hidden
+state and tree speculation (``draft_mode``), the five acceptance policies, the three K controllers,
 greedy decoding or engine-level sampling (temperature, min_p, top_k,
 top_p), the real models or the fake test model (``implementation``),
 weight-only int4/int8 and a bf16 or int8 KV cache (per-row scales),
@@ -12,8 +13,7 @@ config with a single ported value has no field here until a later slice
 ports a second value for it. So ``prefix_caching`` (off), ``admit_chunk``
 (one-shot admission), ``kv_lazy_pages`` (eager page reservation,
 ``kv_lazy_pages=False`` in JAX), ``per_request_sampling`` (off), the
-penalties (off) and ``medusa``, ``eagle`` and ``tree`` settings have no
-field yet. Fields are named and defaulted as in JAX, except
+penalties (off) have no field yet. Fields are named and defaulted as in JAX, except
 ``implementation``, "hf" here ("fake" in JAX): the port's entry points build
 the named model unless a caller asks for the fake one.
 
@@ -27,7 +27,10 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Optional
 
-DRAFT_MODES = ("vanilla", "ngram")
+DRAFT_MODES = ("vanilla", "ngram", "medusa", "eagle", "tree")
+# The modes that draft from the target's hidden-state carry: no draft model.
+HEAD_MODES = ("medusa", "eagle", "tree")
+MAX_TREE_S = 32  # the verify chunk of a tree on the card: num_nodes + 1 rows at most
 CONTROLLERS = ("fixed", "adaptive", "adaptive-device")
 
 
@@ -44,8 +47,11 @@ class EngineConfig:
     base_model: str = "llama-3.2-3b"
     draft_model: Optional[str] = "llama-3.2-1b"
     implementation: str = "hf"  # "hf" (the named model) | "fake" (models/fake.py)
-    # "vanilla" (a draft model) | "ngram" (prompt lookup in the token buffer;
-    # no draft model, no draft cache)
+    # "vanilla" (a draft model) | "ngram" (prompt lookup in the token buffer)
+    # | "medusa" (K heads over the target's hidden state) | "eagle" (the
+    # hidden state extrapolated through the target's head) | "tree" (a tree
+    # of head candidates verified in one forward): every mode but vanilla
+    # has no draft model and no draft cache.
     draft_mode: str = "vanilla"
     max_draft: int = 4  # K
     policy: str = "longest_prefix"  # | conf_threshold | topk_agree | typical | rejection
@@ -91,13 +97,21 @@ class EngineConfig:
     # ring would overwrite rows its own queries still need.
     kv_ring: bool = False
     ngram: dict = field(default_factory=lambda: {"n": 2})
+    # Medusa heads: K projections [D, D] ahead of the target's head ("tie" or
+    # "copy": identity; "random": identity plus N(0, 0.02^2) noise), sampled
+    # at this temperature and top_p unless greedy. num_heads is JAX's field:
+    # the engine sizes the heads by the largest K (or the tree's depth).
+    medusa: dict = field(default_factory=lambda: {"num_heads": 2, "head_init": "tie",
+                                                  "temperature": 0.7, "top_p": 0.9})
+    # EAGLE-lite: h' = h + alpha (h - h_prev), K times, each through the head.
+    eagle: dict = field(default_factory=lambda: {"alpha": 0.7, "max_draft": 2})
+    # Tree speculation: children per node at each depth (core/treespec.py).
+    tree: dict = field(default_factory=lambda: {"branching": [3, 2]})
 
     def validate(self) -> None:
         """Reject settings outside the ported slice instead of ignoring them."""
         if self.implementation not in ("hf", "fake"):
             raise ValueError(f"unknown implementation {self.implementation!r}")
-        if self.draft_mode in ("medusa", "eagle", "tree"):
-            raise NotImplementedError(f"draft_mode {self.draft_mode!r} is not ported yet")
         if self.draft_mode not in DRAFT_MODES:
             raise ValueError(f"unknown draft_mode {self.draft_mode!r}")
         if self.draft_mode == "ngram" and int(self.ngram.get("n", 2)) < 1:
@@ -140,3 +154,23 @@ class EngineConfig:
             if self.prefill_chunk % 32:
                 raise ValueError("kv_ring needs prefill_chunk to be a multiple of 32 (the prompt "
                                  "bucket) so no forward ever exceeds the chunk")
+        if self.draft_mode == "tree":
+            self._validate_tree()
+
+    def _validate_tree(self) -> None:
+        """What JAX's engine refuses in tree mode (the ring: core/engine.py
+        _enable_kv_ring), and what the port's tree step lacks: the
+        rejection policy's draft distributions and the adaptive controllers
+        (JAX's tree step walks greedily, with no K). A binding window with
+        the tree mask raises in the forward, as in JAX."""
+        branching = list(self.tree.get("branching", [3, 2]))
+        if not branching or any(int(b) < 1 for b in branching):
+            raise ValueError(f"tree branching must be positive integers, got {branching}")
+        if self.kv_ring:
+            raise ValueError("kv_ring is not supported in tree mode")
+        if self.policy != "longest_prefix":
+            raise NotImplementedError(f"tree mode walks the tree greedily; policy "
+                                      f"{self.policy!r} is not ported for it")
+        if self.controller != "fixed":
+            raise NotImplementedError(f"tree mode has no K; controller {self.controller!r} is "
+                                      "not ported for it")

@@ -6,7 +6,10 @@ quantized leaves are objects with ``data``, ``scale`` and ``bits``
 attributes (QuantTensor) or ``q`` and ``scale`` (EmbedQuant), and returns
 the port's param tree with the same layout: stacked ``[L, ...]`` layer
 leaves, v2 split-K-halves int4 bytes, per-channel and per-row scales. Both
-sides then compute with the same weights. Duck typing keeps the port free
+sides then compute with the same weights. The JAX engine's Medusa heads
+(``Engine._draft_params``, ``{"medusa_proj": [H, D, D]}``) carry over the
+same way, for the port's ``Engine(..., draft_params=...)`` in the medusa
+and tree modes. Duck typing keeps the port free
 of any import of JAX or of the JAX package.
 """
 

@@ -17,10 +17,13 @@ admission is memory-aware: a request waits until the allocator can reserve
 pages for its prompt, its budget and the step's K+2 scratch rows, all up
 front (the JAX package's ``kv_lazy_pages=False``).
 
-The engine's step is the batcher's: vanilla or ngram drafting (with ngram
-there is no draft model and so no draft cache to splice), any of the five
-policies, greedy decoding or the engine's sampling, drawn from the
-batcher's state key (the engine's seed), at a fixed K.
+The engine's step is the batcher's: vanilla, ngram, Medusa or EAGLE
+drafting or tree speculation (with all but vanilla there is no draft model
+and so no draft cache to splice; the head modes' hidden carry is seeded
+from the admission prefill), any of the five policies, greedy decoding or
+the engine's sampling, drawn from the batcher's state key (the engine's
+seed), at a fixed K. Page reservations and the prompt cut leave the step's
+scratch rows, the engine's ``_max_k`` + 2 (a tree's num_nodes + 3).
 
 Left out of this slice (ROADMAP Queue 1): lazy pages with preemption,
 prefix caching, incremental (chunked) admission and with it an engine with
@@ -95,7 +98,7 @@ class BatcherStats:
         }
 
 
-def make_admit_many(target_model: Model, draft_model: Optional[Model]):
+def make_admit_many(target_model: Model, draft_model: Optional[Model], hidden: bool = False):
     """G-slot admission: ONE [G, P] prefill forward per model into a
     [L, G, KVH, P, D] scratch cache, then a splice into the G slots. The
     scratch has the slots' KV dtype, so an int8 cache's admitted rows are
@@ -111,8 +114,10 @@ def make_admit_many(target_model: Model, draft_model: Optional[Model]):
     table_rows[g, j] and set the slots' table rows; a request whose own
     allocation is shorter than the group's padded P sends the excess into
     page 0, the dummy page no allocation owns. The prompt logprobs of each
-    prompt token come from the prefill logits. The state's tensors are
-    written in place."""
+    prompt token come from the prefill logits. hidden (the head modes): the
+    target's hidden row that predicted each prompt's last token (index
+    prompt_len - 2, clamped at 0) seeds the slot's last_hidden and
+    prev_hidden. The state's tensors are written in place."""
 
     def splice(cache, sub, slots: torch.Tensor, table_rows: Optional[torch.Tensor]) -> None:
         G, P = sub.k.shape[1], sub.k.shape[3]
@@ -140,13 +145,13 @@ def make_admit_many(target_model: Model, draft_model: Optional[Model]):
         zeros = torch.zeros((G,), dtype=torch.int32, device=dev)
         slots_l = slots.long()
 
-        def prefill(model: Model, cache):
+        def prefill(model: Model, cache, want_hidden=False):
             scratch = model.init_cache(G, P, dev, dtype=cache.k.dtype)
-            logits, _ = model.forward(rows, positions, scratch, zeros)
+            out = model.forward(rows, positions, scratch, zeros, return_hidden=want_hidden)
             splice(cache, scratch, slots_l, table_rows)
-            return logits
+            return out[0], out[2] if want_hidden else None
 
-        lg = prefill(target_model, state.target_cache)
+        lg, hid = prefill(target_model, state.target_cache, hidden)
         if draft_model is not None:
             prefill(draft_model, state.draft_cache)
         # Prompt logprobs: row i of the logits scores prompt token i+1;
@@ -168,6 +173,11 @@ def make_admit_many(target_model: Model, draft_model: Optional[Model]):
         state.active[slots_l] = prompt_lens > 0
         for counter in (state.proposed, state.accepted, state.bonus):
             counter[slots_l] = 0
+        if hidden:
+            h_idx = (prompt_lens - 2).clamp_min(0).long()
+            h_last = hid[torch.arange(G, device=dev), h_idx].float()
+            state.last_hidden[slots_l] = h_last
+            state.prev_hidden[slots_l] = h_last
         return state
 
     return admit
@@ -198,7 +208,7 @@ class ContinuousBatcher:
         self._slots: List[Optional[_Request]] = [None] * n_slots
         self._done: Dict[int, _Request] = {}
         self._next_id = 0
-        self._admit_many = make_admit_many(engine.target, engine.draft)
+        self._admit_many = make_admit_many(engine.target, engine.draft, engine.head_mode)
         self.stats = BatcherStats()
         self.paged = cfg.kv_layout == "paged"
         paged_kw = {}

@@ -2,22 +2,23 @@
 
 Port of llm_inference_lab_tpu/core/engine.py (``Engine.generate`` /
 ``generate_batch``, ``_enable_kv_ring`` and ``_build_results``) for the
-ported slice: Llama, Gemma or Mistral target and draft
-(models/registry.py), or the fake test model (``implementation="fake"``);
-vanilla drafting from a draft model or ngram drafting from the token buffer
-(``draft_mode``); the five acceptance policies (``policy``); the fixed, the
-host-side adaptive and the device-side adaptive K controller
-(``controller``); greedy decoding or engine-level sampling; weight-only
-int4/int8 with an optional int8 embedding/tied head, a contiguous or paged
-KV cache (``kv_layout``) of the model dtype or int8 (``kv_quantization``),
-single-shot or chunked prefill (``prefill_chunk``) and the rolling-buffer
-cache (``kv_ring``). Prompt bucketing, the out-of-vocab clamp and the
-result keys follow the JAX engine. The serving path (core/batching.py
-ContinuousBatcher) drives the same step and reads ``encode``, ``is_spec``,
-``_max_k``, ``eos_token_id``, ``flags``, ``controller``, ``_step``,
-``_step_in_place`` and ``graph_pool`` from here, and ``decode`` hands the
-final state (committed tokens and caches) to a caller such as
-core/kv_verify.py.
+ported slice: Llama, Gemma or Mistral target and draft (models/registry.py),
+or the fake test model (``implementation="fake"``); vanilla drafting from a
+draft model, ngram drafting from the token buffer, Medusa-lite and
+EAGLE-lite drafting from the target's hidden state and tree speculation
+(``draft_mode``; core/treespec.py); the five acceptance policies
+(``policy``); the fixed, the host-side adaptive and the device-side adaptive
+K controller (``controller``); greedy decoding or engine-level sampling;
+weight-only int4/int8 with an optional int8 embedding/tied head, a
+contiguous or paged KV cache (``kv_layout``) of the model dtype or int8
+(``kv_quantization``), single-shot or chunked prefill (``prefill_chunk``)
+and the rolling-buffer cache (``kv_ring``). Prompt bucketing, the
+out-of-vocab clamp and the result keys follow the JAX engine. The serving
+path (core/batching.py ContinuousBatcher) drives the same step and reads
+``encode``, ``is_spec``, ``_max_k``, ``eos_token_id``, ``flags``,
+``controller``, ``_step``, ``_step_in_place`` and ``graph_pool`` from here,
+and ``decode`` hands the final state (committed tokens and caches) to a
+caller such as core/kv_verify.py.
 
 Decoding, as in JAX: with a fixed or the device-side adaptive controller,
 by default the decode loop of core/specstep.py (``make_decode_loop``; JAX's
@@ -49,7 +50,7 @@ import numpy as np
 import torch
 
 from llm_inference_lab_tpu_torch import resolve_device
-from llm_inference_lab_tpu_torch.config import EngineConfig, EnvFlags
+from llm_inference_lab_tpu_torch.config import HEAD_MODES, EngineConfig, EnvFlags
 from llm_inference_lab_tpu_torch.core.controllers import (
     AdaptiveDeviceKController,
     AdaptiveKController,
@@ -64,6 +65,7 @@ from llm_inference_lab_tpu_torch.core.specstep import (
     make_spec_step,
 )
 from llm_inference_lab_tpu_torch.core.state import DecodeState, assign, init_state, reset_state
+from llm_inference_lab_tpu_torch.core.treespec import TreeConfig, make_tree_spec_step
 from llm_inference_lab_tpu_torch.models import registry
 from llm_inference_lab_tpu_torch.ops.quant import quantize_params
 from llm_inference_lab_tpu_torch.utils.tokenizer import ByteTokenizer
@@ -81,8 +83,10 @@ class Engine:
                  draft_params: Optional[dict] = None):
         """target_params / draft_params: the models' params (e.g. carried over
         from the JAX package by convert.params_from_jax); random init from
-        cfg.seed when absent. flags: EnvFlags (sync_steps=True for the host
-        loop)."""
+        cfg.seed when absent. In the medusa and tree modes draft_params is
+        the heads' {"medusa_proj": [H, D, D]} (JAX's Engine._draft_params),
+        made from cfg.medusa's head_init when absent. flags: EnvFlags
+        (sync_steps=True for the host loop)."""
         cfg = config or EngineConfig()
         cfg.validate()
         self.config = cfg
@@ -95,7 +99,8 @@ class Engine:
         fake = cfg.implementation == "fake"
         self.target = registry.create(cfg.base_model, implementation=cfg.implementation,
                                       seed=cfg.seed, params=target_params, **model_kw)
-        # ngram drafts from the token buffer: no draft model, no draft cache.
+        # ngram drafts from the token buffer, the head modes from the target's
+        # hidden state: no draft model, no draft cache.
         self.draft = None
         if cfg.draft_model is not None and cfg.draft_mode == "vanilla":
             # The fake target's draft misses 15% of its predictions.
@@ -121,6 +126,14 @@ class Engine:
                                             **cfg.controller_params)
         # The largest K any controller setting can ask for sizes the buffers.
         self._max_k = max(getattr(self.controller, "max_k", 0), cfg.max_draft)
+        self.head_mode = cfg.draft_mode in HEAD_MODES
+        self.tree = (TreeConfig(tuple(int(b) for b in cfg.tree.get("branching", [3, 2])))
+                     if cfg.draft_mode == "tree" else None)
+        self._draft_params = self._head_params(draft_params, dtype)
+        if self.tree is not None:
+            # The verify chunk writes num_nodes + 1 cache rows a step: the
+            # buffers' headroom is the tree's, not max_draft's.
+            self._max_k = self.tree.num_nodes + 1
         self.host_adaptive = self.is_spec and isinstance(self.controller, AdaptiveKController)
         # The step of the decode loop: at cfg.max_draft, or at max_k with the
         # device controller's per-lane K inside it.
@@ -139,22 +152,49 @@ class Engine:
         self.polls = 0  # host reads of the last decode
         if cfg.kv_ring:
             self._enable_kv_ring()
-        self._prefill = make_prefill(self.target, self.draft, chunk=cfg.prefill_chunk)
+        self._prefill = make_prefill(self.target, self.draft, chunk=cfg.prefill_chunk,
+                                     hidden=self.head_mode)
+
+    def _head_params(self, given: Optional[dict], dtype: torch.dtype) -> Optional[dict]:
+        """The Medusa heads of the medusa and tree modes ({"medusa_proj":
+        [H, D, D]}, H = the largest K or the tree's depth), JAX's
+        _draft_params: the given ones, or identity projections ("tie" or
+        "copy": the target's own head) plus, for "random", N(0, 0.02^2)
+        noise from a generator seeded with seed + 7 (JAX's PRNG cannot be
+        reproduced: carry its heads over to compare). None in every other
+        mode."""
+        cfg = self.config
+        if cfg.draft_mode not in ("medusa", "tree"):
+            return None
+        if given is not None:
+            return {"medusa_proj": given["medusa_proj"].to(self.device, dtype)}
+        H = self.tree.depth if self.tree is not None else self._max_k
+        D = self.target.config.d_model
+        proj = torch.eye(D, dtype=torch.float32, device=self.device).expand(H, D, D)
+        if cfg.medusa.get("head_init", "tie") == "random":
+            g = torch.Generator(device=self.device).manual_seed(cfg.seed + 7)
+            proj = proj + 0.02 * torch.randn((H, D, D), generator=g, device=self.device)
+        return {"medusa_proj": proj.to(dtype).contiguous()}
 
     def _build_step(self, k: int, in_place: bool = False):
-        """The step at K = k (the baseline step when not speculative)."""
+        """The step at K = k (the baseline step when not speculative; the
+        tree's step, which has no K, in tree mode)."""
         cfg = self.config
         samp = dict(greedy=cfg.greedy, temperature=cfg.temperature, top_k=cfg.top_k,
                     top_p=cfg.top_p, min_p=cfg.min_p, eos_token_id=self.eos_token_id,
                     in_place=in_place)
         if not self.is_spec:
             return make_baseline_step(self.target, **samp)
+        if self.tree is not None:
+            return make_tree_spec_step(self.target, self.tree, draft_params=self._draft_params,
+                                       **samp)
         adaptive = isinstance(self.controller, AdaptiveDeviceKController)
         return make_spec_step(
             self.target, self.draft, k=k, policy_fn=self.policy_fn,
             policy_params=cfg.policy_params, draft_temperature_scale=cfg.draft_temperature_scale,
             draft_mode=cfg.draft_mode, ngram_cfg=cfg.ngram,
-            adaptive_cfg=self.controller.adaptive_cfg() if adaptive else None, **samp)
+            adaptive_cfg=self.controller.adaptive_cfg() if adaptive else None,
+            draft_params=self._draft_params, medusa_cfg=cfg.medusa, eagle_cfg=cfg.eagle, **samp)
 
     def _step_at(self, k: int):
         """(functional, in place) steps at K = k, built once a K."""
@@ -285,10 +325,12 @@ class Engine:
                   max_new: int) -> None:
         """Chunks of loop replays, one host read of (steps, active, lengths)
         after each, until no lane is active or max_new + 1 steps ran (JAX's
-        max_steps). A chunk is ceil(largest remaining budget / (K + 1)) steps:
-        a step commits at most K + 1 tokens, so no step runs past the end
-        unless a lane hits EOS or the buffer end, or commits fewer."""
-        per_step = self._k + 1 if self.is_spec else 1
+        max_steps). A chunk is ceil(largest remaining budget / (K + 1)) steps
+        (a tree's depth + 1): a step commits at most that many tokens, so no
+        step runs past the end unless a lane hits EOS or the buffer end, or
+        commits fewer."""
+        per_step = (self.tree.depth + 1 if self.tree is not None
+                    else self._k + 1 if self.is_spec else 1)
         B = len(plens)
         steps, active, lengths = 0, plens > 0, plens.astype(np.int64)
         self.polls = 0

@@ -2,14 +2,18 @@
 
 Port of llm_inference_lab_tpu/core/specstep.py (``make_spec_step``,
 ``make_baseline_step``, ``make_prefill``, ``make_decode_loop``) for vanilla
-drafting from a draft model and ngram drafting from the token buffer, the
+drafting from a draft model, ngram drafting from the token buffer and
+Medusa-lite and EAGLE-lite drafting from the target's hidden state, the
 five acceptance policies (core/policies.py), greedy decoding or
 engine-level sampling (ops/sampling.py), a fixed K or the device-side
-adaptive K. Per spec step:
+adaptive K. (Tree speculation's step is core/treespec.py's.) Per spec step:
 
   1. Draft K tokens: K single-token draft forwards (vanilla), or the
      continuation of the last earlier occurrence of the last n committed
-     tokens (ngram: no draft model, no draft cache).
+     tokens (ngram: no draft model, no draft cache), or the target's own
+     head over K inputs made from its hidden-state carry, in ONE head call
+     of [B * K, D] rows (medusa: K projections of the carry; eagle: the
+     carry extrapolated K times).
   2. Verify with ONE target forward over [last_committed, d_1..d_K]: K+1
      logit rows.
   3. Acceptance: accept_len a in [0, K] per sequence, from the policy.
@@ -18,7 +22,9 @@ adaptive K. Per spec step:
      all-accepted bonus and the all-rejected fallback alike.
   5. Commit: write a+1 tokens, advance lengths, truncate at EOS and at the
      budget, deactivate finished lanes. KV "rollback" is just not advancing
-     the length.
+     the length. In the head modes the verify row a's hidden state (the one
+     that predicted the bonus) becomes ``last_hidden``, and the old one
+     ``prev_hidden``, on active lanes.
 
 The steps are plain functions of tensors that never read a value back to the
 host. A step advances ``steps`` by ``active.any()`` and commits nothing on an
@@ -113,7 +119,8 @@ def make_spec_step(target_model: Model, draft_model: Optional[Model], *, k: int,
                    min_p: float = 0.0, draft_temperature_scale: float = 1.5,
                    eos_token_id: Optional[int] = None, draft_mode: str = "vanilla",
                    ngram_cfg: Optional[dict] = None, adaptive_cfg: Optional[dict] = None,
-                   in_place: bool = False):
+                   draft_params: Optional[dict] = None, medusa_cfg: Optional[dict] = None,
+                   eagle_cfg: Optional[dict] = None, in_place: bool = False):
     """Build step(state) -> state for speculative decoding.
 
     draft_mode "vanilla" drafts with draft_model, sampling at temperature /
@@ -135,12 +142,37 @@ def make_spec_step(target_model: Model, draft_model: Optional[Model], *, k: int,
     count, so here all k run, and a forward past eff_k_max proposes 0 (as
     JAX's unwritten draft buffer holds) and puts back the draft-cache row it
     wrote, so the cache holds what JAX's does. Acceptance clips to each
-    lane's K, and each active lane's EMA and K update after the step."""
+    lane's K, and each active lane's EMA and K update after the step.
+
+    draft_mode "medusa" (draft_params {"medusa_proj": [>= K, D, D]},
+    medusa_cfg's temperature and top_p) proposes, for each i < K, a token of
+    the target's head over last_hidden @ proj[i] (the carry cast to the
+    model dtype): the argmax when greedy, else a draw at medusa's
+    temperature and top_p. "eagle" (eagle_cfg's alpha) proposes the argmax
+    of the head over h_{i+1} = h_i + alpha (h_i - h_{i-1}), from h_0 =
+    last_hidden and h_{-1} = prev_hidden (f32, cast for the head). JAX calls
+    the head once a draft position; no head input depends on an earlier
+    head's logits here (no penalties, no grammar), so the K inputs go
+    through ONE head call of [B * K, D] rows. Both draft all K heads under
+    the device-side adaptive controller, and acceptance clips, as JAX's
+    do."""
     K = int(k)
-    if draft_mode not in ("vanilla", "ngram"):
-        raise NotImplementedError(f"draft_mode {draft_mode!r} is not ported yet")
+    if draft_mode not in ("vanilla", "ngram", "medusa", "eagle"):
+        raise ValueError(f"unknown chain draft_mode {draft_mode!r} (tree speculation is "
+                         "core/treespec.py's step)")
     if draft_mode == "vanilla" and draft_model is None:
         raise ValueError("vanilla drafting needs a draft model")
+    heads = draft_mode in ("medusa", "eagle")
+    if draft_mode == "medusa":
+        proj = (draft_params or {}).get("medusa_proj")
+        if proj is None or proj.shape[0] < K:
+            raise ValueError(f"medusa drafting at K={K} needs draft_params['medusa_proj'] with "
+                             f"at least {K} heads")
+    medusa_cfg = dict(medusa_cfg or {})
+    m_temp = float(medusa_cfg.get("temperature", 0.7))
+    m_top_p = float(medusa_cfg.get("top_p", 0.9))
+    eagle_alpha = float((eagle_cfg or {}).get("alpha", 0.7))
+    compute_dtype = target_model.config.dtype
     policy_params = dict(policy_params or {})
     draft_temp = temperature / draft_temperature_scale
     rejecting = policy_fn is policies.rejection
@@ -151,7 +183,8 @@ def make_spec_step(target_model: Model, draft_model: Optional[Model], *, k: int,
                              draft_temperature=draft_temp, draft_greedy=greedy)
     need_draft_logits = bool(getattr(policy_fn, "needs_draft_logits", True))
     stochastic = not (greedy or temperature <= 0.0)
-    draws = stochastic or rejecting  # the step draws from its key
+    head_sampled = draft_mode == "medusa" and not greedy  # medusa draws at its own temperature
+    draws = stochastic or rejecting or head_sampled  # the step draws from its key
     samp = dict(temperature=temperature, top_k=top_k, top_p=top_p, min_p=min_p, greedy=greedy)
     draft_samp = dict(samp, temperature=draft_temp)
     adaptive = adaptive_cfg is not None
@@ -211,7 +244,33 @@ def make_spec_step(target_model: Model, draft_model: Optional[Model], *, k: int,
         onehot = torch.arange(V, dtype=torch.int32, device=dev)[None, None] == d[..., None]
         return d, torch.where(onehot, 0.0, -30.0)
 
-    draft_fn = draft_vanilla if draft_mode == "vanilla" else draft_ngram
+    def head_proposals(inputs, key):
+        """One head call over inputs [B, K, D] (the model dtype): the K
+        proposals [B, K] and, for a policy that reads them, the f32 head
+        logits [B, K, V]."""
+        B = inputs.shape[0]
+        logits = target_model.head(inputs.reshape(B * K, -1)).reshape(B, K, -1)
+        if head_sampled:
+            d = torch.stack([sample_tokens(fold(key, i), logits[:, i], temperature=m_temp,
+                                           top_p=m_top_p) for i in range(K)], 1)
+        else:
+            d = torch.argmax(logits, dim=-1).to(torch.int32)
+        return d, logits if need_draft_logits else None
+
+    def draft_medusa(state, last, base, key, eff_k_max):
+        h = state.last_hidden.to(compute_dtype)  # [B, D]
+        inputs = torch.matmul(h, proj[:K].to(compute_dtype))  # [K, B, D], one batched product
+        return head_proposals(inputs.transpose(0, 1), key)
+
+    def draft_eagle(state, last, base, key, eff_k_max):
+        h_prev, h_cur, hs = state.prev_hidden, state.last_hidden, []
+        for _ in range(K):
+            h_prev, h_cur = h_cur, h_cur + eagle_alpha * (h_cur - h_prev)
+            hs.append(h_cur)
+        return head_proposals(torch.stack(hs, 1).to(compute_dtype), key)
+
+    draft_fn = {"vanilla": draft_vanilla, "ngram": draft_ngram, "medusa": draft_medusa,
+                "eagle": draft_eagle}[draft_mode]
 
     def step(state: DecodeState) -> DecodeState:
         B, max_len = state.tokens.shape
@@ -228,13 +287,16 @@ def make_spec_step(target_model: Model, draft_model: Optional[Model], *, k: int,
 
         # ---- 1. Draft K tokens ----
         d, draft_logits = draft_fn(state, last, base,
-                                   fold(state.rng, _DRAFT) if stochastic else None, eff_k_max)
+                                   fold(state.rng, _DRAFT) if stochastic or head_sampled
+                                   else None, eff_k_max)
 
         # ---- 2. Verify: ONE forward over K+1 positions ----
         arange = torch.arange(K + 1, dtype=torch.int32, device=dev)[None, :]
         verify_in = torch.cat([last[:, None], d], dim=1)
         positions = base[:, None] + arange
-        target_logits, _ = target_model.forward(verify_in, positions, state.target_cache, base)
+        target_logits, _, *hidden = target_model.forward(verify_in, positions,
+                                                         state.target_cache, base,
+                                                         return_hidden=heads)
 
         # ---- 3. Acceptance ----
         a = policy_fn(fold(state.rng, _POLICY) if rejecting else None, d, draft_logits,
@@ -297,6 +359,11 @@ def make_spec_step(target_model: Model, draft_model: Optional[Model], *, k: int,
         exhausted = (new_lengths - state.prompt_lens) >= state.max_new
         no_room = new_lengths + K + 1 > max_len  # next step writes K+1 rows
         act = state.active.to(torch.int32)
+        carry = {}
+        if heads:
+            # The hidden row that predicted the bonus: the next step's heads.
+            h_row = hidden[0][torch.arange(B, device=dev), a.long()].float()
+            carry = hidden_carry(state, h_row)
         return replace(
             state,
             tokens=new_tokens,
@@ -310,9 +377,19 @@ def make_spec_step(target_model: Model, draft_model: Optional[Model], *, k: int,
             rng=_next_key(state) if draws else state.rng,
             ctrl_k=new_ctrl_k,
             acc_ema=new_ema,
+            **carry,
         )
 
     return _in_place(step) if in_place else step
+
+
+def hidden_carry(state: DecodeState, h_row: torch.Tensor) -> dict:
+    """The hidden carry after a step: h_row [B, D] f32 becomes last_hidden and
+    the old last_hidden prev_hidden, on active lanes (an inactive lane keeps
+    both)."""
+    act = state.active[:, None]
+    return dict(last_hidden=torch.where(act, h_row, state.last_hidden),
+                prev_hidden=torch.where(act, state.last_hidden, state.prev_hidden))
 
 
 def make_baseline_step(target_model: Model, *, greedy: bool = True, temperature: float = 1.0,
@@ -357,7 +434,8 @@ def make_baseline_step(target_model: Model, *, greedy: bool = True, temperature:
     return _in_place(step) if in_place else step
 
 
-def make_prefill(target_model: Model, draft_model: Optional[Model], chunk: Optional[int] = None):
+def make_prefill(target_model: Model, draft_model: Optional[Model], chunk: Optional[int] = None,
+                 hidden: bool = False):
     """Prompt prefill: populate both caches over the right-padded prompt
     block and score the prompt tokens (prompt logprobs) from the target
     logits. Junk KV rows beyond each prompt sit at positions the mask never
@@ -370,7 +448,11 @@ def make_prefill(target_model: Model, draft_model: Optional[Model], chunk: Optio
     chunks wrote and their own. Activations are then O(chunk) rows, and a
     rolling-buffer cache shorter than the prompt is written before it wraps
     past rows a query still needs. Row j of chunk i scores the prompt token
-    at position i*chunk + j + 1."""
+    at position i*chunk + j + 1.
+
+    hidden (the head modes): the target's hidden row that predicted the
+    last prompt token (index prompt_len - 2, clamped at 0), taken from the
+    chunk that holds it, seeds last_hidden and prev_hidden (f32)."""
 
     def prefill(state: DecodeState, prompt_block: torch.Tensor,
                 prompt_lens: torch.Tensor) -> DecodeState:
@@ -381,11 +463,18 @@ def make_prefill(target_model: Model, draft_model: Optional[Model], chunk: Optio
         if P % C:
             raise ValueError(f"prompt block of {P} is not a multiple of the chunk {C}")
         arange = torch.arange(C, dtype=torch.int32, device=dev)[None].repeat(B, 1)
+        h_idx = (prompt_lens - 2).clamp_min(0).long()
+        h_last = torch.zeros_like(state.last_hidden)
         for c0 in range(0, P, C):
             tok = prompt_block[:, c0:c0 + C]
             positions = c0 + arange
             start = torch.full((B,), c0, dtype=torch.int32, device=dev)
-            lg, _ = target_model.forward(tok, positions, state.target_cache, start)
+            lg, _, *hid = target_model.forward(tok, positions, state.target_cache, start,
+                                               return_hidden=hidden)
+            if hidden:
+                local = h_idx - c0
+                sel = hid[0][torch.arange(B, device=dev), local.clamp(0, C - 1)].float()
+                h_last = torch.where(((local >= 0) & (local < C))[:, None], sel, h_last)
             if draft_model is not None:
                 draft_model.forward(tok, positions, state.draft_cache, start)
             # Row j scores the next prompt token, 0 past the prompt; the last
@@ -398,8 +487,9 @@ def make_prefill(target_model: Model, draft_model: Optional[Model], chunk: Optio
                 positions[:, :n] + 1 < prompt_lens[:, None], row_lp, 0.0)
         tokens = state.tokens.clone()
         tokens[:, :P] = prompt_block
+        carry = dict(last_hidden=h_last, prev_hidden=h_last.clone()) if hidden else {}
         return replace(state, tokens=tokens, lengths=prompt_lens, prompt_lens=prompt_lens,
-                       active=prompt_lens > 0, token_logprobs=lp_buf)
+                       active=prompt_lens > 0, token_logprobs=lp_buf, **carry)
 
     return prefill
 

@@ -19,7 +19,10 @@ place by the forwards. ``assign`` writes one state's tensors into another's
 ``rng`` is the state's random key (ops/sampling.py), seeded from the call's
 seed and advanced by every step that has an active lane; ``ctrl_k`` and
 ``acc_ema`` are the device-side adaptive controller's per-lane K and
-acceptance EMA.
+acceptance EMA. ``last_hidden`` and ``prev_hidden`` are the hidden-state
+carry of the head modes (Medusa, EAGLE, tree): the target's final hidden
+row that predicted the last committed token, and the one before it (f32
+[B, D_target]; zeros, and untouched, in the other modes).
 """
 
 from __future__ import annotations
@@ -51,11 +54,14 @@ class DecodeState:
     rng: torch.Tensor  # [] int64 — the random key, a 32-bit value
     ctrl_k: torch.Tensor  # [B] int32 — device-side adaptive K per lane
     acc_ema: torch.Tensor  # [B] f32 — its acceptance EMA per lane
+    last_hidden: torch.Tensor  # [B, D_target] f32 — the head modes' hidden carry
+    prev_hidden: torch.Tensor  # [B, D_target] f32 — the carry a step before (EAGLE)
 
 
 # The tensors a step or a prefill may replace (all but the caches).
 FIELDS = ("tokens", "lengths", "prompt_lens", "max_new", "active", "proposed", "accepted",
-          "bonus", "token_logprobs", "steps", "rng", "ctrl_k", "acc_ema")
+          "bonus", "token_logprobs", "steps", "rng", "ctrl_k", "acc_ema", "last_hidden",
+          "prev_hidden")
 
 
 def cache_tensors(cache) -> tuple:
@@ -88,8 +94,8 @@ def assign(state: DecodeState, new: DecodeState) -> DecodeState:
 
 def reset_state(state: DecodeState, max_new_tokens: int, seed: int = 0,
                 init_k: int = 4) -> DecodeState:
-    """``init_state``'s values in the state's own tensors: zeros, every
-    lane's budget max_new_tokens, the key of `seed`, every lane's K init_k
+    """``init_state``'s values in the state's own tensors: zeros (the hidden
+    carry too), every lane's budget max_new_tokens, the key of `seed`, every lane's K init_k
     and EMA 0.5, zeroed caches with int8 scales of one; a paged cache keeps
     its table."""
     for name in FIELDS:
@@ -145,4 +151,8 @@ def init_state(target_model: Model, draft_model: Optional[Model], batch_size: in
         rng=torch.tensor(seed_key(seed), dtype=torch.int64, device=device),
         ctrl_k=torch.full((B,), init_k, dtype=torch.int32, device=device),
         acc_ema=torch.full((B,), 0.5, dtype=torch.float32, device=device),
+        last_hidden=torch.zeros((B, target_model.config.d_model), dtype=torch.float32,
+                                device=device),
+        prev_hidden=torch.zeros((B, target_model.config.d_model), dtype=torch.float32,
+                                device=device),
     )

@@ -49,6 +49,16 @@
 // A row with no visible key (position -1) returns zeros, as attend_xla
 // does.
 //
+// The tree variant (kernels D and F, TREE = true) is attend_xla's tree
+// branch: the S rows of a verify chunk are the nodes of a speculation tree,
+// written at slots chunk_start .. chunk_start + S - 1 of their sequence but
+// at logical positions by depth, so a row's keys are not [first key,
+// position]. Row s sees every key before chunk_start[b] and key
+// chunk_start[b] + j of the chunk iff bit j of its ancestry word bits[s] is
+// set (its own node and its ancestors; S <= 32); nothing past the chunk.
+// The block's key range is [0, chunk_start + S), so the splits past the
+// chunk stay empty; the ancestry bits mask inside it. No window or ring.
+//
 // Split over T (kernels D and F, nz >= 1): block z of a (b, kv head, row
 // block) takes the keys of split lo / SPLIT + z, where lo is the block's
 // lowest first visible key and splits are fixed absolute ranges of SPLIT
@@ -213,6 +223,13 @@ struct Pages {
   int n, lg;
 };
 
+// The tree variant's operands: bits uint32 [S], bit j of bits[s] set iff
+// node s sees node j of the chunk; start int32 [B], the chunk's first slot.
+struct Tree {
+  const unsigned* bits;
+  const int* start;
+};
+
 // The whole kernel. q bf16 [B, S, H, D]; positions int32 [B, S]; out bf16
 // [B, S, H, D]. PLANE and RING: k, v [B, KVH, T, D] planes through their
 // batch and head strides (bf16, or int8 with scales ks, vs [B, KVH, T]
@@ -222,8 +239,8 @@ struct Pages {
 // >> lg]. nz = 0: kernel E, the block walks all its keys and writes its
 // rows. nz >= 1: kernels D and F, grid.z = nz splits; ws holds gridDim.x *
 // gridDim.y * nz * ROWS * (D + 2) floats and counters gridDim.x * gridDim.y
-// zeros (nz > 1).
-template <int D, class T_, int MAP>
+// zeros (nz > 1). TREE: pos is not read; tree gives each row's keys.
+template <int D, class T_, int MAP, bool TREE>
 __global__ void __launch_bounds__(WARPS * 32)
 attend_kernel(const __nv_bfloat16* __restrict__ q, const T_* __restrict__ k,
               const T_* __restrict__ v, const float* __restrict__ ks,
@@ -231,7 +248,7 @@ attend_kernel(const __nv_bfloat16* __restrict__ q, const T_* __restrict__ k,
               __nv_bfloat16* __restrict__ out, float* __restrict__ ws,
               unsigned* __restrict__ counters, int S, int H, int KVH, int Tk,
               long long stride_kb, long long stride_kh, long long stride_sb, long long stride_sh,
-              Options opt, int nz, Pages pages) {
+              Options opt, int nz, Pages pages, Tree tree) {
   constexpr bool RING = MAP == MAP_RING;
   constexpr bool PAGED = MAP == MAP_PAGED;
   using L = Layout<D, T_>;
@@ -248,6 +265,7 @@ attend_kernel(const __nv_bfloat16* __restrict__ q, const T_* __restrict__ k,
   __shared__ int lo_s, hi_s;
   __shared__ unsigned last_s;
   __shared__ int page_s[2][PAGED ? BK<D> : 1];  // the pages a stage's tile spans
+  __shared__ unsigned anc_s[TREE ? ROWS : 1];    // each row's ancestry word
 
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
   unsigned char* stages = smem + L::q_bytes;
@@ -268,7 +286,11 @@ attend_kernel(const __nv_bfloat16* __restrict__ q, const T_* __restrict__ k,
   const float* vsp = INT8 ? vs + sboff + (size_t)h * stride_sh : nullptr;
   const int* table = PAGED ? pages.table + (size_t)b * pages.n : nullptr;
 
-  // q rows (zeros past the last row) and positions (-1 past it).
+  // The tree's chunk starts at slot cs of this sequence (0 without a tree).
+  const int cs = TREE ? tree.start[b] : 0;
+
+  // q rows (zeros past the last row) and positions (-1 past it). A tree row
+  // takes the chunk's last slot as its position: its keys are [0, cs + S).
   for (int e = tid; e < ROWS * (D / 8); e += WARPS * 32) {
     const int lr = e / (D / 8), c = e % (D / 8), r = r0 + lr;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
@@ -281,7 +303,12 @@ attend_kernel(const __nv_bfloat16* __restrict__ q, const T_* __restrict__ k,
   }
   if (tid < ROWS) {
     const int r = r0 + tid;
-    pos_s[tid] = r < nrows ? pos[b * S + r / group] : -1;
+    if constexpr (TREE) {
+      pos_s[tid] = r < nrows ? cs + S - 1 : -1;
+      anc_s[tid] = r < nrows ? tree.bits[r / group] : 0u;
+    } else {
+      pos_s[tid] = r < nrows ? pos[b * S + r / group] : -1;
+    }
   }
   if (tid == 0) lo_s = INT_MAX, hi_s = -1;
   __syncthreads();
@@ -384,6 +411,8 @@ attend_kernel(const __nv_bfloat16* __restrict__ q, const T_* __restrict__ k,
   const int g = lane >> 2, tq = lane & 3;
   const int lr0 = warp * 16 + g, lr1 = lr0 + 8;
   const int p0 = pos_s[lr0], p1 = pos_s[lr1];
+  unsigned anc0 = 0u, anc1 = 0u;  // the rows' ancestry words (the tree variant)
+  if constexpr (TREE) anc0 = anc_s[lr0], anc1 = anc_s[lr1];
   // Row r sees key k iff (unsigned)(k - lo_r) <= span_r: its keys are
   // [first visible key, position] (cut at the plane's end without a ring);
   // a row with none gets lo_r = 2^30, which no key reaches. A ring plane
@@ -469,6 +498,10 @@ attend_kernel(const __nv_bfloat16* __restrict__ q, const T_* __restrict__ k,
             int slot = s0 + jj;
             if (slot >= opt.ring) slot -= opt.ring;
             seen = seen && slot < Tk;
+          }
+          if constexpr (TREE) {  // in the chunk: the ancestry bit (rel < S <= 32)
+            const int rel = t0 + jj - cs;
+            if (seen && rel >= 0) seen = ((e < 2 ? anc0 : anc1) >> rel) & 1u;
           }
           float s = __fmul_rn(sc[n][e], opt.scale);
           if constexpr (INT8) s = __fmul_rn(s, kst[jj]);
@@ -642,47 +675,52 @@ attend_kernel(const __nv_bfloat16* __restrict__ q, const T_* __restrict__ k,
   if (tid == 0) counters[bidx] = 0u;  // ready for the next launch on the stream
 }
 
-// The launch of attend_kernel<D, T, MAP> on grid (B * KVH, row blocks,
-// max(nz, 1)).
-template <int D, class T, int MAP>
+// The launch of attend_kernel<D, T, MAP, TREE> on grid (B * KVH, row
+// blocks, max(nz, 1)).
+template <int D, class T, int MAP, bool TREE>
 int launch(const void* q, const void* k, const void* v, const void* ks, const void* vs,
            const void* pos, void* out, float* ws, unsigned* counters, int B, int S, int H,
            int KVH, int Tk, long long stride_kb, long long stride_kh, long long stride_sb,
-           long long stride_sh, Options opt, int nz, Pages pages, cudaStream_t st) {
+           long long stride_sh, Options opt, int nz, Pages pages, Tree tree, cudaStream_t st) {
   constexpr size_t smem = Layout<D, T>::total;
-  constexpr size_t stat = ROWS * sizeof(int) + 3 * sizeof(int) + 2 * BK<D> * sizeof(int);
+  constexpr size_t stat = ROWS * sizeof(int) + 3 * sizeof(int) + 2 * BK<D> * sizeof(int) +
+                          (TREE ? ROWS : 1) * sizeof(unsigned);
   // The combine keeps each warp's split weights in the stage buffers.
   if (nz > 1 && (size_t)WARPS * nz * sizeof(float) > 2 * Layout<D, T>::stage_bytes)
     return (int)cudaErrorInvalidValue;
-  static const cudaError_t shared_ok = allow_shared(attend_kernel<D, T, MAP>, smem, stat);
+  static const cudaError_t shared_ok =
+      allow_shared(attend_kernel<D, T, MAP, TREE>, smem, stat);
   if (shared_ok != cudaSuccess) return (int)shared_ok;
   const int nrows = S * (H / KVH);
   dim3 grid(B * KVH, (nrows + ROWS - 1) / ROWS, nz > 1 ? nz : 1);
-  attend_kernel<D, T, MAP><<<grid, WARPS * 32, smem, st>>>(
+  attend_kernel<D, T, MAP, TREE><<<grid, WARPS * 32, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(ks), static_cast<const float*>(vs), static_cast<const int*>(pos),
       static_cast<__nv_bfloat16*>(out), ws, counters, S, H, KVH, Tk, stride_kb, stride_kh,
-      stride_sb, stride_sh, opt, nz, pages);
+      stride_sb, stride_sh, opt, nz, pages, tree);
   return (int)cudaGetLastError();
 }
 
 // The planes of kernels D and E (ring picked by opt.ring) or F's page pool
-// (pages.table set), by head dim.
-template <class T, int MAP>
+// (pages.table set), by head dim; TREE: D's and F's tree variant.
+template <class T, int MAP, bool TREE = false>
 int launch_map(const void* q, const void* k, const void* v, const void* ks, const void* vs,
                const void* pos, void* out, float* ws, unsigned* counters, int B, int S, int H,
                int KVH, int Tk, int D, long long stride_kb, long long stride_kh,
                long long stride_sb, long long stride_sh, Options opt, int nz, Pages pages,
-               cudaStream_t st) {
+               cudaStream_t st, Tree tree = Tree{nullptr, nullptr}) {
   if (D == 128)
-    return launch<128, T, MAP>(q, k, v, ks, vs, pos, out, ws, counters, B, S, H, KVH, Tk,
-                               stride_kb, stride_kh, stride_sb, stride_sh, opt, nz, pages, st);
+    return launch<128, T, MAP, TREE>(q, k, v, ks, vs, pos, out, ws, counters, B, S, H, KVH, Tk,
+                                     stride_kb, stride_kh, stride_sb, stride_sh, opt, nz, pages,
+                                     tree, st);
   if (D == 64)
-    return launch<64, T, MAP>(q, k, v, ks, vs, pos, out, ws, counters, B, S, H, KVH, Tk,
-                              stride_kb, stride_kh, stride_sb, stride_sh, opt, nz, pages, st);
+    return launch<64, T, MAP, TREE>(q, k, v, ks, vs, pos, out, ws, counters, B, S, H, KVH, Tk,
+                                    stride_kb, stride_kh, stride_sb, stride_sh, opt, nz, pages,
+                                    tree, st);
   if (D == 256)
-    return launch<256, T, MAP>(q, k, v, ks, vs, pos, out, ws, counters, B, S, H, KVH, Tk,
-                               stride_kb, stride_kh, stride_sb, stride_sh, opt, nz, pages, st);
+    return launch<256, T, MAP, TREE>(q, k, v, ks, vs, pos, out, ws, counters, B, S, H, KVH, Tk,
+                                     stride_kb, stride_kh, stride_sb, stride_sh, opt, nz, pages,
+                                     tree, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -725,6 +763,48 @@ int launch_paged(const void* q, const void* k_pool, const void* v_pool, const vo
   return launch_map<T, MAP_PAGED>(q, k_pool, v_pool, ks_pool, vs_pool, pos, out, ws, counters, B, S,
                               H, KVH, M * P, D, stride_page, (long long)P * D, stride_spage, P,
                               opt, nz, pages, st);
+}
+
+// D's tree variant over [B, KVH, T, D] planes: tree.bits [S] and
+// tree.start [B] (attend_kernel's TREE). Refuses a window, a ring, S > 32
+// (a row's ancestry is one 32-bit word) and an unknown head dim.
+template <class T>
+int launch_tree(const void* q, const void* k, const void* v, const void* ks, const void* vs,
+                void* out, float* ws, unsigned* counters, int B, int S, int H, int KVH, int Tk,
+                int D, long long stride_kb, long long stride_kh, long long stride_sb,
+                long long stride_sh, Options opt, int nz, Tree tree, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (H % KVH || S < 1 || S > 32 || opt.window != 0 || opt.ring != 0 || nz < 1 ||
+      tree.bits == nullptr || tree.start == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (nz > 1 && (ws == nullptr || counters == nullptr)) return (int)cudaErrorInvalidValue;
+  const Pages none{nullptr, 0, 0};
+  return launch_map<T, MAP_PLANE, true>(q, k, v, ks, vs, nullptr, out, ws, counters, B, S, H,
+                                        KVH, Tk, D, stride_kb, stride_kh, stride_sb, stride_sh,
+                                        opt, nz, none, st, tree);
+}
+
+// F's tree variant over [N, KVH, P, D] pools through table [B, M]: the
+// arguments of launch_paged, with tree.bits [S] and tree.start [B] (slots,
+// through the table) for the positions. Refuses what launch_paged and
+// launch_tree refuse.
+template <class T>
+int launch_paged_tree(const void* q, const void* k_pool, const void* v_pool, const void* ks_pool,
+                      const void* vs_pool, const void* table, void* out, float* ws,
+                      unsigned* counters, int B, int S, int H, int KVH, int M, int P, int D,
+                      long long stride_page, long long stride_spage, Options opt, int nz,
+                      Tree tree, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (H % KVH || opt.ring != 0 || opt.window != 0 || P < 1 || (P & (P - 1)) || M < 1 || S < 1 ||
+      S > 32 || tree.bits == nullptr || tree.start == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (nz < 1 || (nz > 1 && (ws == nullptr || counters == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const Pages pages{static_cast<const int*>(table), M, __builtin_ctz((unsigned)P)};
+  return launch_map<T, MAP_PAGED, true>(q, k_pool, v_pool, ks_pool, vs_pool, nullptr, out, ws,
+                                        counters, B, S, H, KVH, M * P, D, stride_page,
+                                        (long long)P * D, stride_spage, P, opt, nz, pages, st,
+                                        tree);
 }
 
 }  // namespace

@@ -134,10 +134,19 @@ class Model:
     config: ModelConfig
     params: dict
 
-    def forward(self, tokens, positions, cache, cache_lens):
+    def forward(self, tokens, positions, cache, cache_lens, return_hidden=False,
+                tree_mask=None):
         from llm_inference_lab_tpu_torch.models.transformer import forward
 
-        return forward(self.config, self.params, tokens, positions, cache, cache_lens)
+        return forward(self.config, self.params, tokens, positions, cache, cache_lens,
+                       return_hidden, tree_mask)
+
+    def head(self, hidden: torch.Tensor) -> torch.Tensor:
+        """The model's head (JAX's head_fn): hidden states [.., D] -> f32
+        logits [.., V], as the forward computes them from its last norm."""
+        from llm_inference_lab_tpu_torch.models.transformer import lm_head_logits
+
+        return lm_head_logits(self.config, self.params, hidden)
 
     def init_cache(self, batch_size: int, max_seq_len: int, device, paged: bool = False,
                    page_size: int = 64, n_pages: Optional[int] = None,

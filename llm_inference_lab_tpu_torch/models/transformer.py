@@ -29,6 +29,7 @@ from llm_inference_lab_tpu_torch.models.base import (
 )
 from llm_inference_lab_tpu_torch.models.paged import PagedKVCache, page_slots, write_paged_layer
 from llm_inference_lab_tpu_torch.ops.attention import attend, paged_attend
+from llm_inference_lab_tpu_torch.ops.flash_decode import tree_bits
 from llm_inference_lab_tpu_torch.ops.quant import EmbedQuant, QuantTensor, dense, f32_logits
 from llm_inference_lab_tpu_torch.ops.rms_norm import add_rms_norm, rms_norm
 
@@ -90,7 +91,7 @@ def attn_options(cfg: ModelConfig, layer: int) -> dict:
 
 
 def _attn_block(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor,
-                cos, sin, cache, layer: int, slots) -> torch.Tensor:
+                cos, sin, cache, layer: int, slots, tree: Optional[dict] = None) -> torch.Tensor:
     B, S, _ = x.shape
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     qkv = dense(x, p["w_qkv"])  # fused QKV: one matmul instead of three
@@ -102,7 +103,7 @@ def _attn_block(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Ten
     # an int8 cache quantizes the rows and attends with the layer's scales.
     scales = ((cache.k_scale[layer], cache.v_scale[layer]) if cache.k_scale is not None
               else (None, None))
-    options = attn_options(cfg, layer)
+    options = dict(attn_options(cfg, layer), **(tree or {}))
     if isinstance(cache, PagedKVCache):
         write_paged_layer(cache, layer, qk[:, :, H:], v, slots)
         attn = paged_attend(q, cache.k[layer], cache.v[layer], positions, cache.table, *scales,
@@ -128,11 +129,32 @@ def _layer_params(layers: dict, i: int) -> dict:
 
 
 def forward(cfg: ModelConfig, params: Any, tokens: torch.Tensor, positions: torch.Tensor,
-            cache, cache_lens: torch.Tensor):
+            cache, cache_lens: torch.Tensor, return_hidden: bool = False,
+            tree_mask: Optional[torch.Tensor] = None):
     """tokens, positions: [B, S] (positions int32); cache (a KVCache or a
     PagedKVCache) written in place at cache_lens[b] + arange(S). Returns
-    (logits [B, S, V] f32, cache). ``forward.calls`` and ``forward.layers``
-    count the forwards run and their layers."""
+    (logits [B, S, V] f32, cache), and with return_hidden the final
+    post-norm hidden states [B, S, D] (the model dtype) third: the input of
+    the head, which the Medusa and EAGLE heads read. tree_mask [S, S] bool
+    (tree speculation): the chunk's rows are still written at cache_lens +
+    arange(S), but attend by ancestry (row s sees the slots before the chunk
+    and chunk row j iff tree_mask[s, j]) and take RoPE at `positions`, the
+    caller's logical positions by depth. As in JAX, a sliding window that can
+    bind and a ring refuse the tree mask. ``forward.calls`` and
+    ``forward.layers`` count the forwards run and their layers."""
+    tree = {}
+    if tree_mask is not None:
+        if cfg.kv_ring_len is not None:
+            raise ValueError("the tree mask needs a cache without a ring")
+        span = cache.k.shape[-2] * (cache.table.shape[-1] if isinstance(cache, PagedKVCache)
+                                    else 1)
+        if cfg.sliding_window is not None and span > cfg.sliding_window:
+            raise NotImplementedError("sliding-window attention with tree caches longer than "
+                                      "the window is not supported")
+        # The kernels' form of the mask, once a forward (the card's tree
+        # variants take S <= 32; the plain versions any S).
+        tree = dict(tree_mask=tree_mask, chunk_start=cache_lens,
+                    tree_bits=tree_bits(tree_mask) if tree_mask.is_cuda else None)
     forward.calls += 1
     forward.layers += cfg.n_layers
     embed = params["embed"]
@@ -161,12 +183,14 @@ def forward(cfg: ModelConfig, params: Any, tokens: torch.Tensor, positions: torc
     n = rms_norm(x, layers["attn_norm_scale"][0], cfg.rms_norm_eps, cfg.rms_one_offset)
     for i in range(cfg.n_layers):
         p = _layer_params(layers, i)
-        a = _attn_block(cfg, p, n, positions, cos, sin, cache, i, slots)
+        a = _attn_block(cfg, p, n, positions, cos, sin, cache, i, slots, tree)
         x, n = add_norm(x, a, p["mlp_norm_scale"], "post_attn_norm_scale")
         h = _mlp_block(cfg, p, n)
         w_next = (layers["attn_norm_scale"][i + 1] if i + 1 < cfg.n_layers
                   else params["final_norm_scale"])
         x, n = add_norm(x, h, w_next, "post_mlp_norm_scale")
+    if return_hidden:
+        return lm_head_logits(cfg, params, n), cache, n
     return lm_head_logits(cfg, params, n), cache
 
 

@@ -3,11 +3,22 @@ kernel: each carries a ``launches`` count, one a launch, on the card only."""
 
 
 def kernel_wrappers() -> dict:
-    """name -> wrapper, for every kernel of the port (the int8 variants and A's
-    and B's tensor-core paths count apart)."""
-    from llm_inference_lab_tpu_torch.ops.flash_decode import flash_decode, flash_decode_int8
+    """name -> wrapper, for every kernel of the port (the int8 variants, the
+    tree variants of D and F and A's and B's tensor-core paths count
+    apart)."""
+    from llm_inference_lab_tpu_torch.ops.flash_decode import (
+        flash_decode,
+        flash_decode_int8,
+        flash_decode_tree,
+        flash_decode_tree_int8,
+    )
     from llm_inference_lab_tpu_torch.ops.flash_prefill import flash_prefill, flash_prefill_int8
-    from llm_inference_lab_tpu_torch.ops.paged_flash import paged_flash, paged_flash_int8
+    from llm_inference_lab_tpu_torch.ops.paged_flash import (
+        paged_flash,
+        paged_flash_int8,
+        paged_flash_tree,
+        paged_flash_tree_int8,
+    )
     from llm_inference_lab_tpu_torch.ops.quant_matmul import (
         quant_matmul,
         quant_matmul_int8,
@@ -23,4 +34,7 @@ def kernel_wrappers() -> dict:
             "flash_decode": flash_decode, "flash_decode_int8": flash_decode_int8,
             "flash_prefill": flash_prefill, "flash_prefill_int8": flash_prefill_int8,
             "paged_flash": paged_flash, "paged_flash_int8": paged_flash_int8,
+            "flash_decode_tree": flash_decode_tree,
+            "flash_decode_tree_int8": flash_decode_tree_int8,
+            "paged_flash_tree": paged_flash_tree, "paged_flash_tree_int8": paged_flash_tree_int8,
             "verify_prefix": verify_prefix}

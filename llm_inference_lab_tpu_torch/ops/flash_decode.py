@@ -23,7 +23,11 @@ mod R satisfies rel < window and rel <= p, as attend_xla's ring branch
 says. R is the ring's length, not T: a cache shorter than the ring (T < R)
 holds the slots [0, T). A query row with no visible key (position -1)
 returns zeros, as attend_xla does; the Pallas tile body returns the mean of
-V there.
+V there. The tree variant (``flash_decode_tree``, attend_xla's tree branch,
+for tree speculation's verify chunk) takes an ancestry mask tree_mask
+[S, S] and the chunk's first slot chunk_start [B] instead of positions:
+row s sees every slot before chunk_start[b], slot chunk_start[b] + j iff
+tree_mask[s, j], and nothing after the chunk.
 
 The kernel (csrc/attn_mma.cuh on tensor cores) splits the keys at fixed
 absolute positions into SPLIT-key splits over grid.z (``decode_splits``)
@@ -86,17 +90,55 @@ class Options(NamedTuple):
                 self.window or 0)
 
 
+def tree_visible(T: int, tree_mask: torch.Tensor, chunk_start: torch.Tensor) -> torch.Tensor:
+    """attend_xla's tree mask [B, S, T]: slot t is visible to row s of
+    sequence b iff t < chunk_start[b], or t = chunk_start[b] + j with j < S
+    and tree_mask[s, j]."""
+    S = tree_mask.shape[0]
+    rel = (torch.arange(T, device=chunk_start.device)[None] - chunk_start[:, None].long())
+    in_chunk = (rel >= 0) & (rel < S)
+    anc = tree_mask.to(chunk_start.device)[:, rel.clamp(0, S - 1)].permute(1, 0, 2)
+    return (rel < 0)[:, None] | (in_chunk[:, None] & anc)
+
+
+def tree_bits(tree_mask: torch.Tensor) -> torch.Tensor:
+    """The kernels' form of an ancestry mask [S, S] (S <= 32): int32 [S], bit
+    j of row s set iff tree_mask[s, j] (bit 31 as the sign)."""
+    S = tree_mask.shape[0]
+    if S > 32:
+        raise NotImplementedError(f"a tree verify chunk of {S} rows: the card's tree variant "
+                                  "takes at most 32 (num_nodes + 1 <= 32)")
+    # Device ops only (no host copy), so a captured forward may call it.
+    one = torch.ones((S,), dtype=torch.int64, device=tree_mask.device)
+    word = (tree_mask.long() * (one << torch.arange(S, device=tree_mask.device))).sum(-1)
+    return torch.where(word >= 1 << 31, word - (1 << 32), word).to(torch.int32)
+
+
+def _check_tree(tree_mask: torch.Tensor, chunk_start: torch.Tensor, B: int, S: int,
+                options: dict) -> None:
+    if tree_mask.shape != (S, S) or tree_mask.dtype != torch.bool:
+        raise ValueError(f"tree_mask must be bool [S, S] = [{S}, {S}], got "
+                         f"{tuple(tree_mask.shape)} {tree_mask.dtype}")
+    if chunk_start.shape != (B,):
+        raise ValueError(f"chunk_start must be [B] = [{B}], got {tuple(chunk_start.shape)}")
+    if options.get("window") is not None or options.get("ring_len") is not None:
+        raise NotImplementedError("the tree mask takes no window or ring (attend_xla's tree "
+                                  "branch has none)")
+
+
 def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        positions: torch.Tensor, k_scale: Optional[torch.Tensor] = None,
                        v_scale: Optional[torch.Tensor] = None, *, scale: Optional[float] = None,
                        softcap: Optional[float] = None, window: Optional[int] = None,
-                       ring_len: Optional[int] = None) -> torch.Tensor:
+                       ring_len: Optional[int] = None, tree_mask: Optional[torch.Tensor] = None,
+                       chunk_start: Optional[torch.Tensor] = None) -> torch.Tensor:
     """attend_xla's chain-decode math in f32, in its order: an int8 cache
     dequantized to q's dtype, scores times the scale, the softcap, the
     position mask (with the window's lower bound; with a ring, the modular
-    rule rel = (p - slot) mod ring_len < window and rel <= p), softmax,
-    zeros on rows with no visible key, probabilities rounded to the cache
-    dtype before P @ V (as attend_xla rounds them)."""
+    rule rel = (p - slot) mod ring_len < window and rel <= p; with
+    tree_mask and chunk_start, the tree mask of tree_visible instead),
+    softmax, zeros on rows with no visible key, probabilities rounded to the
+    cache dtype before P @ V (as attend_xla rounds them)."""
     Options(scale, softcap, window, ring_len).check()
     k, v = dequantize_cache(q, k, v, k_scale, v_scale)
     B, S, H, D = q.shape
@@ -109,7 +151,10 @@ def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scores = torch.tanh(scores / softcap) * softcap
     kv_pos = torch.arange(T, device=q.device)[None, None, None, None, :]
     p = positions[:, None, None, :, None]
-    if ring_len is not None:
+    if tree_mask is not None:
+        _check_tree(tree_mask, chunk_start, B, S, dict(window=window, ring_len=ring_len))
+        mask = tree_visible(T, tree_mask, chunk_start)[:, None, None]
+    elif ring_len is not None:
         rel = (p - kv_pos) % ring_len
         mask = (rel < window) & (rel <= p)
     else:
@@ -127,8 +172,9 @@ def flash_decode_split_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              positions: torch.Tensor, k_scale: Optional[torch.Tensor] = None,
                              v_scale: Optional[torch.Tensor] = None, *, split: int = SPLIT,
                              scale: Optional[float] = None, softcap: Optional[float] = None,
-                             window: Optional[int] = None,
-                             ring_len: Optional[int] = None) -> torch.Tensor:
+                             window: Optional[int] = None, ring_len: Optional[int] = None,
+                             tree_mask: Optional[torch.Tensor] = None,
+                             chunk_start: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel D's split-and-combine arithmetic, plainly (the CPU tests hold it
     to flash_decode_plain; the wrapper never calls it). The keys a row sees
     are cut at fixed absolute positions into splits of `split` keys (with a
@@ -140,7 +186,9 @@ def flash_decode_split_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     splits in which the row sees a key, in ascending order: M = max m_i,
     w_i = exp(m_i - M), out = sum w_i acc_i / sum w_i l_i; zeros for a row
     that sees no key. Scores follow the kernel's order: q.k times the scale,
-    for int8 times k's per-key scale, then the softcap."""
+    for int8 times k's per-key scale, then the softcap. With tree_mask and
+    chunk_start (the tree variant) a row sees tree_visible's keys, split at
+    their slots, up to the chunk's last slot."""
     Options(scale, softcap, window, ring_len).check()
     B, S, H, D = q.shape
     KVH, T = k.shape[1], k.shape[2]
@@ -155,7 +203,12 @@ def flash_decode_split_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scores = torch.tanh(scores / softcap) * softcap
     slot = torch.arange(T, device=q.device)[None, None, None, None, :]
     p = positions[:, None, None, :, None]
-    if ring_len is not None:
+    if tree_mask is not None:
+        _check_tree(tree_mask, chunk_start, B, S, dict(window=window, ring_len=ring_len))
+        kv_pos = slot.expand_as(scores)
+        mask = tree_visible(T, tree_mask, chunk_start)[:, None, None]
+        positions = (chunk_start[:, None] + S - 1).expand(B, S)  # the last key a row may see
+    elif ring_len is not None:
         kv_pos = p - (p - slot) % ring_len  # the position the slot holds for this row
         mask = (p - kv_pos < window) & (kv_pos >= 0)
     else:
@@ -365,3 +418,119 @@ def flash_decode_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positio
 
 flash_decode.launches = 0
 flash_decode_int8.launches = 0
+
+
+def launch_tree(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                k_scale: Optional[torch.Tensor], v_scale: Optional[torch.Tensor],
+                tree_mask: torch.Tensor, chunk_start: torch.Tensor, opts: Options,
+                bits: Optional[torch.Tensor], table: Optional[torch.Tensor] = None,
+                name: str = "") -> torch.Tensor:
+    """Check the tree operands of D's or F's tree variant (kernel
+    "flash_decode" over planes k, v [B, KVH, T, D], or "paged_flash" over
+    pools through `table`), the rest of the operands as their chain entries
+    do, and launch its bf16 or int8 entry. bits: tree_bits(tree_mask),
+    computed here when None."""
+    opts.check()
+    int8 = k.dtype == torch.int8
+    B, S = q.shape[:2]
+    _check_tree(tree_mask, chunk_start, B, S, opts._asdict())
+    if S > 32:
+        raise NotImplementedError(f"{name}: a tree verify chunk of {S} rows; the card's tree "
+                                  "variant takes at most 32 (num_nodes + 1 <= 32)")
+    if bits is None:
+        bits = tree_bits(tree_mask)
+    if bits.dtype != torch.int32 or bits.shape != (S,) or not bits.is_contiguous():
+        raise TypeError(f"{name} kernel takes contiguous int32 tree bits [S]")
+    if chunk_start.dtype != torch.int32 or not chunk_start.is_contiguous():
+        raise TypeError(f"{name} kernel takes a contiguous int32 chunk_start [B]")
+    if bits.device != q.device or chunk_start.device != q.device:
+        raise ValueError(f"{name} kernel needs all operands on one device")
+    positions = torch.empty((B, S), dtype=torch.int32, device=q.device)  # the checks' shape
+    lib = build.library(kernel + "_tree")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    scale, softcap, _ = opts.kernel_args(q.shape[3])
+    out = torch.empty_like(q)
+    if kernel == "flash_decode":
+        H, D = q.shape[2], q.shape[3]
+        check_queries(name, q, positions, k, v,
+                      cache_dtype=torch.int8 if int8 else torch.bfloat16)
+        check_planes(name, q, k, v)
+        KVH, T = k.shape[1], k.shape[2]
+        ws, counters, nz = split_buffers(q, KVH, T, opts)
+        head = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+        dims = (B, S, H, KVH, T, D, k.stride(0), k.stride(1))
+        if int8:
+            check_scales(name, k, k_scale, v_scale)
+            err = lib.flash_decode_tree_int8(
+                *head, k_scale.data_ptr(), v_scale.data_ptr(), bits.data_ptr(),
+                chunk_start.data_ptr(), out.data_ptr(), *data_ptrs(ws, counters), *dims,
+                k_scale.stride(0), k_scale.stride(1), scale, softcap, nz, stream)
+        else:
+            err = lib.flash_decode_tree_bf16(
+                *head, bits.data_ptr(), chunk_start.data_ptr(), out.data_ptr(),
+                *data_ptrs(ws, counters), *dims, scale, softcap, nz, stream)
+    else:
+        from llm_inference_lab_tpu_torch.ops.paged_flash import _check_pools
+
+        _, _, H, D, KVH, P, M = _check_pools(name, q, k, v, positions, table,
+                                             torch.int8 if int8 else torch.bfloat16)
+        ws, counters, nz = split_buffers(q, KVH, M * P, opts)
+        if int8:
+            check_scales(name, k, k_scale, v_scale)
+            if k_scale.stride(1) != P:
+                raise ValueError(f"{name} kernel needs scale pools with [KVH, P] pages")
+            err = lib.paged_flash_tree_int8(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
+                table.data_ptr(), bits.data_ptr(), chunk_start.data_ptr(), out.data_ptr(),
+                *data_ptrs(ws, counters), B, S, H, KVH, M, P, D, k.stride(0), k_scale.stride(0),
+                scale, softcap, nz, stream)
+        else:
+            err = lib.paged_flash_tree_bf16(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), table.data_ptr(), bits.data_ptr(),
+                chunk_start.data_ptr(), out.data_ptr(), *data_ptrs(ws, counters), B, S, H, KVH,
+                M, P, D, k.stride(0), scale, softcap, nz, stream)
+    build.check(err, name)
+    return out
+
+
+def flash_decode_tree(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      tree_mask: torch.Tensor, chunk_start: torch.Tensor,
+                      k_scale: Optional[torch.Tensor] = None,
+                      v_scale: Optional[torch.Tensor] = None,
+                      bits: Optional[torch.Tensor] = None, **options) -> torch.Tensor:
+    """Kernel D's tree variant: the verify chunk of tree speculation, q
+    [B, S, H, D] at slots chunk_start[b] .. + S - 1, row s seeing the slots
+    before the chunk and the chunk's slots tree_mask[s] names (bool [S, S];
+    bits, its tree_bits, may be given). options: scale and softcap. On a
+    CPU tensor the plain version; on a CUDA tensor the kernel,
+    csrc/flash_decode_tree.cu (S <= 32, or NotImplementedError), or an
+    error. An int8 cache goes to flash_decode_tree_int8."""
+    if k.dtype == torch.int8:
+        return flash_decode_tree_int8(q, k, v, tree_mask, chunk_start, k_scale, v_scale, bits,
+                                      **options)
+    if not q.is_cuda:
+        return flash_decode_plain(q, k, v, torch.zeros(q.shape[:2], dtype=torch.int32),
+                                  tree_mask=tree_mask, chunk_start=chunk_start, **options)
+    out = launch_tree("flash_decode", q, k, v, None, None, tree_mask, chunk_start,
+                      Options(**options), bits, name="flash_decode_tree")
+    flash_decode_tree.launches += 1
+    return out
+
+
+def flash_decode_tree_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           tree_mask: torch.Tensor, chunk_start: torch.Tensor,
+                           k_scale: torch.Tensor, v_scale: torch.Tensor,
+                           bits: Optional[torch.Tensor] = None, **options) -> torch.Tensor:
+    """flash_decode_tree over an int8 cache with f32 scales [B, KVH, T]."""
+    if not q.is_cuda:
+        return flash_decode_plain(q, k, v, torch.zeros(q.shape[:2], dtype=torch.int32), k_scale,
+                                  v_scale, tree_mask=tree_mask, chunk_start=chunk_start,
+                                  **options)
+    out = launch_tree("flash_decode", q, k, v, k_scale, v_scale, tree_mask, chunk_start,
+                      Options(**options), bits, name="flash_decode_tree_int8")
+    flash_decode_tree_int8.launches += 1
+    return out
+
+
+flash_decode_tree.launches = 0
+flash_decode_tree_int8.launches = 0

@@ -23,7 +23,9 @@ address map written plainly, ``paged_flash_split_plain`` the whole kernel's
 arithmetic, for the CPU tests). Page ids in the table must lie in [0, N):
 the serving allocator hands out only such ids, and the kernel does not
 check. The ring cache (ring_len) is contiguous only, as in JAX: it raises
-here.
+here. ``paged_flash_tree`` is F's tree variant (paged_attend_xla's tree
+branch): flash_decode_tree's mask through the page table, chunk_start a
+slot (page ordinal * P + row).
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from llm_inference_lab_tpu_torch.ops.flash_decode import (
     data_ptrs,
     flash_decode_plain,
     flash_decode_split_plain,
+    launch_tree,
     split_buffers,
 )
 
@@ -96,12 +99,15 @@ def paged_flash_split_plain(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch
     flash_decode_split_plain over the same keys laid out contiguously."""
     _refuse_ring(options)
     window = options.get("window")
+    live = positions
+    if options.get("tree_mask") is not None:  # a tree row's keys end at its chunk's last slot
+        live = (options["chunk_start"][:, None] + q.shape[1] - 1).expand(q.shape[:2])
     scales = ()
     if k_scale is not None:
-        scales = tuple(paged_keys(s, table, positions, window) for s in (k_scale, v_scale))
+        scales = tuple(paged_keys(s, table, live, window) for s in (k_scale, v_scale))
     return flash_decode_split_plain(
-        q, paged_keys(k_pool, table, positions, window),
-        paged_keys(v_pool, table, positions, window), positions, *scales, split=split, **options)
+        q, paged_keys(k_pool, table, live, window), paged_keys(v_pool, table, live, window),
+        positions, *scales, split=split, **options)
 
 
 def _refuse_ring(options: dict) -> None:
@@ -193,3 +199,43 @@ def paged_flash_int8(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor
 
 paged_flash.launches = 0
 paged_flash_int8.launches = 0
+
+
+def paged_flash_tree(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                     table: torch.Tensor, tree_mask: torch.Tensor, chunk_start: torch.Tensor,
+                     k_scale: Optional[torch.Tensor] = None,
+                     v_scale: Optional[torch.Tensor] = None,
+                     bits: Optional[torch.Tensor] = None, **options) -> torch.Tensor:
+    """Kernel F's tree variant (csrc/paged_flash_tree.cu): flash_decode_tree's
+    function with the keys of sequence b read through table[b] (options:
+    scale and softcap; bits: tree_bits(tree_mask), or None). int8 pools go
+    to paged_flash_tree_int8."""
+    if k_pool.dtype == torch.int8:
+        return paged_flash_tree_int8(q, k_pool, v_pool, table, tree_mask, chunk_start, k_scale,
+                                     v_scale, bits, **options)
+    if not q.is_cuda:
+        return paged_flash_plain(q, k_pool, v_pool, torch.zeros(q.shape[:2], dtype=torch.int32),
+                                 table, tree_mask=tree_mask, chunk_start=chunk_start, **options)
+    out = launch_tree("paged_flash", q, k_pool, v_pool, None, None, tree_mask, chunk_start,
+                      Options(**options), bits, table, name="paged_flash_tree")
+    paged_flash_tree.launches += 1
+    return out
+
+
+def paged_flash_tree_int8(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                          table: torch.Tensor, tree_mask: torch.Tensor, chunk_start: torch.Tensor,
+                          k_scale: torch.Tensor, v_scale: torch.Tensor,
+                          bits: Optional[torch.Tensor] = None, **options) -> torch.Tensor:
+    """paged_flash_tree over int8 pools with f32 scale pools [N, KVH, P]."""
+    if not q.is_cuda:
+        return paged_flash_plain(q, k_pool, v_pool, torch.zeros(q.shape[:2], dtype=torch.int32),
+                                 table, k_scale, v_scale, tree_mask=tree_mask,
+                                 chunk_start=chunk_start, **options)
+    out = launch_tree("paged_flash", q, k_pool, v_pool, k_scale, v_scale, tree_mask, chunk_start,
+                      Options(**options), bits, table, name="paged_flash_tree_int8")
+    paged_flash_tree_int8.launches += 1
+    return out
+
+
+paged_flash_tree.launches = 0
+paged_flash_tree_int8.launches = 0

@@ -929,7 +929,7 @@ def _graph_engines(card, **kw):
     eng = Engine(cfg, device=card)
     host = Engine(cfg, device=card, flags=EnvFlags(sync_steps=True),
                   target_params=eng.target.params,
-                  draft_params=eng.draft.params if eng.draft is not None else None)
+                  draft_params=eng.draft.params if eng.draft is not None else eng._draft_params)
     return eng, host
 
 
@@ -1024,6 +1024,14 @@ SLICE_CASES = {
     "typical": dict(max_draft=2, policy="typical"),
     "host adaptive": dict(max_draft=2, controller="adaptive",
                           controller_params={"max_k": 4, "target_acceptance": 0.5}),
+    "medusa K=3": dict(draft_model=None, draft_mode="medusa", max_draft=3),
+    "medusa K=2 sampled": dict(draft_model=None, draft_mode="medusa", max_draft=2,
+                               greedy=False, temperature=0.8),
+    "eagle K=2": dict(draft_model=None, draft_mode="eagle", max_draft=2),
+    "tree [3, 2]": dict(draft_model=None, draft_mode="tree"),
+    "tree [2, 2] paged int8 KV": dict(draft_model=None, draft_mode="tree",
+                                      tree={"branching": [2, 2]}, kv_layout="paged",
+                                      kv_page_size=64, kv_quantization="int8"),
 }
 
 
@@ -1105,3 +1113,86 @@ def test_capture_of_a_step_that_reads_the_host_raises(card):
         loop(state, 3)
     torch.cuda.synchronize()
     assert loop.graph is None and loop.bound is None and torch.equal(state.steps, before)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+@pytest.mark.parametrize("cache", ["bf16", "int8"])
+def test_tree_variants_match_plain_and_each_other(card, cache, layout):
+    """D's and F's tree variants (S = 10, tree [3, 2], 3B geometry) within
+    _attn_within of the plain version, with 64 in V at every leaf's slot
+    (only the leaf may see it) and past the chunk, chunks mid-cache, at the
+    cache's end and at slot -1; F gives D's bits on the same keys; one
+    launch a call, counted apart from the chain kernels."""
+    from llm_inference_lab_tpu_torch.core.treespec import TreeConfig
+    from llm_inference_lab_tpu_torch.ops.flash_decode import (
+        flash_decode_tree,
+        flash_decode_tree_int8,
+    )
+    from llm_inference_lab_tpu_torch.ops.paged_flash import paged_flash_tree, paged_flash_tree_int8
+
+    g = torch.Generator(device=card).manual_seed(12)
+    _, depths, _, anc = TreeConfig((3, 2)).build()
+    anc = torch.from_numpy(anc).to(card)
+    S, B, H, KVH, T, D = 10, 3, 24, 8, 1024, 128
+    start = torch.tensor([517, T - S, -1], device=card, dtype=torch.int32)
+    if cache == "int8":
+        (k, ks), (v, vs) = (_int8_cache(card, g, (B, KVH, T, D)) for _ in "kv")
+        scales, dk, fk = (ks, vs), flash_decode_tree_int8, paged_flash_tree_int8
+    else:
+        k, v = (torch.randn((B, KVH, T, D), generator=g, device=card).bfloat16() for _ in "kv")
+        scales, dk, fk = (), flash_decode_tree, paged_flash_tree
+    for b, c in enumerate(start.tolist()):
+        hidden = [c + i for i in range(S) if depths[i] == 2 and c + i >= 0]
+        hidden += list(range(max(c + S, 0), T))
+        v[b, :, hidden] = 64 if cache == "bf16" else 127
+    q = torch.randn((B, S, H, D), generator=g, device=card).bfloat16()
+    pos = torch.zeros((B, S), device=card, dtype=torch.int32)
+    before = dk.launches
+    ref = dk(q, k, v, anc, start, *scales)
+    assert dk.launches == before + 1
+    assert _attn_within(ref, q, k, v, pos, *scales, tree_mask=anc, chunk_start=start)
+    if layout == "paged":
+        pools = []
+        for t in (k, v, *scales):
+            g_t = torch.Generator(device=card).manual_seed(3)  # one table for all four
+            pool, table = _pool_of(card, g_t, t, 64)
+            pools.append(pool)
+        got = fk(q, pools[0], pools[1], table, anc, start, *pools[2:])
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_tree_variant_refuses_more_than_32_rows(card):
+    """A tree whose verify chunk outgrows one 32-bit ancestry word raises on
+    the card, naming the limit; so does a window with the tree mask."""
+    from llm_inference_lab_tpu_torch.ops.flash_decode import flash_decode_tree
+
+    S = 33
+    q = torch.zeros((1, S, 8, 64), device=card, dtype=torch.bfloat16)
+    k = torch.zeros((1, 8, 128, 64), device=card, dtype=torch.bfloat16)
+    anc = torch.ones((S, S), device=card, dtype=torch.bool)
+    start = torch.zeros((1,), device=card, dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="32"):
+        flash_decode_tree(q, k, k, anc, start)
+    with pytest.raises(NotImplementedError):
+        flash_decode_tree(q[:, :4].contiguous(), k, k, anc[:4, :4].contiguous(), start,
+                          window=16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["medusa", "tree"])
+def test_head_mode_batcher_replays_give_the_host_steps_bits(card, mode):
+    """The batcher in a head mode (admission seeds the hidden carry) on the
+    decode loop gives the functional step's results."""
+    eng, host = _graph_engines(card, draft_model=None, draft_mode=mode, max_draft=2,
+                               kv_layout="paged", kv_page_size=64, max_seq_len=512)
+    runs = []
+    for e in (eng, host):
+        b = ContinuousBatcher(e, n_slots=3)
+        for i, budget in enumerate((3, 17, 9, 5, 12, 16)):
+            b.submit("served by replays " * (1 + i), max_new_tokens=budget)
+        runs.append(b.run())
+    for g, w in zip(*runs, strict=True):
+        for key in ("generated_ids", "token_logprobs", "proposed", "accepted"):
+            assert g[key] == w[key], (key, g[key], w[key])

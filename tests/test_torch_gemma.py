@@ -278,19 +278,22 @@ def test_gemma2_layers_route_the_window(monkeypatch, paged):
 
 
 def test_unported_options_still_raise():
-    """The tree mask stays unported: it raises. The ring cache runs on a
-    contiguous cache (tests/test_torch_mistral.py holds it to JAX) and is
-    refused on pages, as in JAX."""
+    """The tree mask with a window that can bind raises, as JAX's forward
+    refuses it (attend_xla's tree branch has no window), on a contiguous
+    cache and on pages. The ring cache runs on a contiguous cache
+    (tests/test_torch_mistral.py holds it to JAX) and is refused on pages,
+    as in JAX."""
     q, k, v, pos, _, _ = (torch.from_numpy(a) if a is not None else None
                           for a in _decode_inputs("f32", 128, S=1))
     assert torch.isfinite(attention.attend(q, k, v, pos, window=16, ring_len=64)).all()
+    tree = dict(tree_mask=torch.ones(1, 1, dtype=torch.bool),
+                chunk_start=torch.zeros((2,), dtype=torch.int32))
     with pytest.raises(NotImplementedError):
-        attention.attend(q, k, v, pos, tree_mask=torch.ones(1, 1, dtype=torch.bool))
+        attention.attend(q, k, v, pos, window=16, **tree)
     pool = k.reshape(-1, 2, 32, 128)[:9]
     table = torch.arange(1, 9, dtype=torch.int32)[None].repeat(2, 1)
     with pytest.raises(NotImplementedError):
-        attention.paged_attend(q, pool, pool, pos, table,
-                               tree_mask=torch.ones(1, 1, dtype=torch.bool))
+        attention.paged_attend(q, pool, pool, pos, table, window=16, **tree)
     with pytest.raises(TypeError):  # paged_attend takes no ring_len
         attention.paged_attend(q, pool, pool, pos, table, window=16, ring_len=64)
 

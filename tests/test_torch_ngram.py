@@ -193,9 +193,9 @@ def test_batcher_refuses_adaptive_controllers():
 
 
 def test_config_refuses_settings_outside_the_slice():
-    for kw, err in ((dict(draft_mode="medusa"), NotImplementedError),
-                    (dict(draft_mode="eagle"), NotImplementedError),
-                    (dict(draft_mode="tree"), NotImplementedError),
+    for kw, err in ((dict(draft_mode="tree", kv_ring=True, prefill_chunk=32), ValueError),
+                    (dict(draft_mode="tree", policy="typical"), NotImplementedError),
+                    (dict(draft_mode="tree", controller="adaptive"), NotImplementedError),
                     (dict(draft_mode="lookahead"), ValueError),
                     (dict(policy="nope"), ValueError), (dict(controller="pid"), ValueError),
                     (dict(implementation="vllm"), ValueError),

@@ -74,21 +74,23 @@ def test_flash_decode_row_independent_of_batching():
 
 
 def test_attend_refuses_unported_options():
-    """Of the JAX options only the tree mask stays unported and raises (a
-    ring without its window is refused as invalid); window, softcap, scale
-    and the ring run, and give attend_xla's result for the same option
-    (f32, 2e-5 absolute as above)."""
+    """Every JAX option now runs (a ring without its window is refused as
+    invalid, and the tree mask without its chunk start): window, softcap,
+    scale, the ring and the tree mask with chunk_start give attend_xla's
+    result for the same option (f32, 2e-5 absolute as above)."""
     a = _attn_inputs(1, seed=4)
     q, k, v, pos = (torch.from_numpy(x) for x in a)
     with pytest.raises(ValueError):
         attend(q, k, v, pos, ring_len=256)
+    with pytest.raises(ValueError):
+        attend(q, k, v, pos, tree_mask=torch.ones(1, 1, dtype=torch.bool))
+    tree = {"tree_mask": torch.ones(1, 1, dtype=torch.bool),
+            "chunk_start": torch.tensor([3, 200], dtype=torch.int32)}
     for kw in ({"window": 16}, {"softcap": 30.0}, {"ring_len": 128, "window": 16}, {"scale": 0.1},
-               {"tree_mask": torch.ones(1, 1, dtype=torch.bool)}):
-        if "tree_mask" in kw:
-            with pytest.raises(NotImplementedError):
-                attend(q, k, v, pos, **kw)
-            continue
-        ref = attend_xla(*(jnp.asarray(x) for x in a), **kw)
+               tree):
+        ref = attend_xla(*(jnp.asarray(x) for x in a),
+                         **{name: jnp.asarray(x.numpy()) if torch.is_tensor(x) else x
+                            for name, x in kw.items()})
         np.testing.assert_allclose(attend(q, k, v, pos, **kw).numpy(), np.asarray(ref), rtol=0,
                                    atol=2e-5)
 

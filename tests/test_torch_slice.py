@@ -163,7 +163,9 @@ def test_port_imports_no_jax():
     names = {f.relative_to(ROOT).as_posix() for f in files}
     assert names >= {f"llm_inference_lab_tpu_torch/{m}.py" for m in (
         "ops/sampling", "core/policies", "core/controllers", "models/fake", "core/state",
-        "core/specstep", "core/engine", "core/batching", "config")}
+        "core/specstep", "core/engine", "core/batching", "config", "core/treespec",
+        "core/head_training", "models/llama", "ops/attention", "ops/flash_decode",
+        "ops/paged_flash", "convert")}
     for f in files:
         text = f.read_text()
         assert not _FORBIDDEN.search(text), f"{f} imports JAX or the JAX package"
