@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (llm_inference_lab_tpu_torch) on one
 NVIDIA card: the quickest proof that the port builds and runs on the GPU.
 
-    python3 chip_smoke.py                    # phases 0-13, last line a JSON result
+    python3 chip_smoke.py                    # phases 0-15, last line a JSON result
     python3 chip_smoke.py --profile          # also a torch.profiler breakdown of runs
     python3 chip_smoke.py --profile=gemma    # the breakdown of the Gemma-2 runs only
     python3 chip_smoke.py --profile=mistral  # the breakdown of the Mistral B=1 run only
@@ -73,7 +73,11 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
     shapes beside SDPA given the same boolean mask and the bound; and A's
     decode body at Llama-3.1-8B's widths (4096 -> 6144, 4096, 28672,
     14336 -> 4096, the untied head 4096 -> 128256) at M = 1 to 3 and the
-    decode checks' M, timed beside its bound and library call;
+    decode checks' M, timed beside its bound and library call; and E at
+    phase 14's prefix-cached admissions (phase_prefix_prefill): a suffix's
+    queries from position 1024 over one sequence's gathered pages (T =
+    2048), within check_attn's tolerance and the bits of E over the same
+    keys laid out contiguously, a layer's gather timed beside E;
  3. end to end at full width: Engine with an int4 llama-3.2-3b target and
     llama-3.2-1b draft (random weights from a seed, int8 embedding/tied
     head), K=1, greedy, 64 new tokens, max_seq_len 512, on bench.py's
@@ -156,19 +160,38 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
     serving shapes); then self_distill_medusa (2 heads, three seed
     prompts, 30 steps) under a 60 s cap: the loss falls, the ids stay,
     Medusa's acceptance before and after logged;
+14. admission on phase 3's engine (run after phase 13), paged with pages
+    of 64, ids held to phase 3's B=1 ids (or the other run's) under the
+    near-tie rule: (a) phase 3b's 16 requests through 8 slots over a pool
+    of about half the eager worst case, eager reservation and lazy pages
+    (lazy must grow pages and preempt; every page comes back); (b) a
+    1024-token system prompt ahead of each sentence (lanes of 2048),
+    prefix caching off and on (on: every request after the first reuses
+    pages); (c) a 3000-token prompt admitted in chunks of 512 while 7
+    requests decode (decode steps run during it; its ids equal a B=1
+    generate's), then a decoding request cancelled (finish_reason
+    "cancelled", pages returned); tok/s, occupancy, steps, waves,
+    admit_ms and peak memory logged for each run;
+15. Mistral-7B served over the ring (run after phase 8, on its engine with
+    admit_chunk 512: R stays 4736): 4 slots, two 5400-token prompts and six
+    sentences; each long prompt admitted incrementally into a ring-sized
+    scratch with decode steps between its chunks; ids == phase 8's ring B=1
+    ids under the near-tie rule; tok/s, occupancy, admit_ms, the ring's KV
+    MB and the full cache's logged;
  9. the kernels' JSON line (every kernel, launches by path; the Gemma-2
     variants of D, E and F, the ring variants of D and E, the ngram
     verify shapes of B, D and C, D's and F's tree variants and A at the 8B
     widths on rows of their own), then the result line.
 
-Every B=1 and serving path (phases 3-8, 10-13) decodes through the decode
+Every B=1 and serving path (phases 3-8, 10-15) decodes through the decode
 loop of core/specstep.py: CUDA-graph replays of the step, captured once a
 shape (the host adaptive controller: a one-step graph a K).
 count_launches adds each replay's captured launches to the wrappers' eager
 counts (and the captured forwards and layers to the eager ones), and
 asserts that the path replayed, that no wrapper's count moves across a
 chunk of replays and that no decode-only kernel launched eagerly outside a
-capture's warm-up step. Each path runs once more on the host loop
+capture's warm-up step and a batcher's admission work (counted apart).
+Each path of phases 3-13 runs once more on the host loop
 (EnvFlags(sync_steps=True)) in the same process, in turns with the graph
 runs: ids, steps, proposed and accepted must be equal, and both timings
 are logged, with each capture's time and graph pool memory.
@@ -183,6 +206,7 @@ import statistics
 import subprocess
 import sys
 import time
+import weakref
 from dataclasses import replace
 
 import torch
@@ -328,6 +352,21 @@ TREE_S = 10
 # diverged (loss 11.5 -> 180).
 DISTILL = dict(num_heads=2, tokens_per_prompt=32, steps=30, lr=5e-5)
 DISTILL_CAP_S = 60.0  # its time cap on the card, asserted
+# Phase 14 (admission on phase 3's engine): (b) a system prompt of
+# PREFIX_TOKENS byte tokens (16 pages of 64) ahead of phase 3b's sentences,
+# lanes of PREFIX_MAX_LEN; (c) one prompt of 3000 byte tokens admitted in
+# chunks of ADMIT_CHUNK beside 7 decoding requests, lanes of ADMIT_MAX_LEN.
+SYSTEM_PREFIX = ("You are the help desk of a small bookshop. Answer in short plain sentences, "
+                 "name the shelf where a book stands, and say so when you do not know. "
+                 * 8)[:1024]
+PREFIX_TOKENS, PREFIX_MAX_LEN = 1024, 2048
+LONG_ADMIT = (PROMPT * 23)[:3000]
+ADMIT_CHUNK, ADMIT_MAX_LEN = 512, 4096
+# Phase 15: Mistral-7B served over the ring: 4 slots, two of phase 8's
+# 5400-token prompts and six of phase 3b's sentences.
+RING_SLOTS = 4
+RING_REQUESTS = [(MISTRAL_LONG, 64), (MISTRAL_LONG, 64)] + [
+    (SERVE_PROMPTS[i], SERVE_BUDGETS[i]) for i in range(6)]
 # The kernels each path must launch (and no other): the norms (rms_norm
 # once a forward, add_rms_norm twice a layer a forward) and the
 # projections' two kernels (decode rows through the decode body, prefill
@@ -370,6 +409,13 @@ PATH_KERNELS = {
     "serving int4 tree [3, 2] (16 requests)": INT4 - {"quant_matmul_int4"} | {
         "flash_prefill", "paged_flash_tree"},
     "serving int4 medusa K=4 (16 requests)": INT4 | SERVE,
+    # Phase 14: admission on phase 3's engine (page 64: every admission
+    # forward has 64 rows or more, so E and A's tensor-core path).
+    "serving int4 lazy pages with preemption (16 requests)": INT4 | SERVE,
+    "serving int4 prefix caching (16 requests)": INT4 | SERVE,
+    "serving int4 incremental admission (3000-token prompt among 7)": INT4 | SERVE,
+    # Phase 15: Mistral-7B served over the ring (contiguous: D decodes).
+    "serving mistral-7b ring incremental admission (8 requests)": INT4 | SPEC,
 }
 GEMMA_PATHS = [path for path in PATH_KERNELS if "gemma-2" in path]
 MISTRAL_PATHS = [path for path in PATH_KERNELS if "mistral" in path]
@@ -379,6 +425,10 @@ NGRAM_PATHS = [path for path in PATH_KERNELS if "K=12" in path]
 # The phase-12 path: A's decode body at the 8B widths has a row of its own.
 EAGLE_PATHS = [path for path in PATH_KERNELS if "llama-3.1-8b" in path]
 HEAD_PATHS = [path for path in PATH_KERNELS if "medusa" in path or "tree" in path]
+ADMISSION_PATHS = ["serving int4 lazy pages with preemption (16 requests)",
+                   "serving int4 prefix caching (16 requests)",
+                   "serving int4 incremental admission (3000-token prompt among 7)"]
+RING_SERVING_PATH = "serving mistral-7b ring incremental admission (8 requests)"
 
 
 T_START = time.perf_counter()
@@ -1921,7 +1971,11 @@ def count_launches(path, run):
     forwards and layers of its captured step (DecodeLoop.per_replay). The
     path must decode through replays; no wrapper's counter may move across
     a chunk of replays; and a decode-only kernel (DECODE_ONLY) may launch
-    eagerly only in the warm-up step of a loop bound inside run()."""
+    eagerly only in the warm-up step of a loop bound inside run() or in a
+    serving batcher's admission work (ContinuousBatcher._admit_pending and
+    _advance_admission, whose launches are counted apart and logged: a
+    forward of 32 rows or fewer takes the decode kernels)."""
+    from llm_inference_lab_tpu_torch.core.batching import ContinuousBatcher
     from llm_inference_lab_tpu_torch.core.specstep import DecodeLoop
     from llm_inference_lab_tpu_torch.models import transformer
 
@@ -1942,11 +1996,31 @@ def count_launches(path, run):
         inner_bind(loop, state)
         bound.append(loop)
 
+    # A serving batcher's admission work (waves, prefix-cached suffixes,
+    # incremental chunks and splices) launches eagerly: counted apart.
+    admission = {name: 0 for name in wrappers}
+    inner_admit, inner_advance = (ContinuousBatcher._admit_pending,
+                                  ContinuousBatcher._advance_admission)
+
+    def tallied(inner):
+        def call(self):
+            before = {name: w.launches for name, w in wrappers.items()}
+            try:
+                return inner(self)
+            finally:
+                for name, w in wrappers.items():
+                    admission[name] += w.launches - before[name]
+        return call
+
     DecodeLoop.replay, DecodeLoop.bind = replay, bind
+    ContinuousBatcher._admit_pending = tallied(inner_admit)
+    ContinuousBatcher._advance_admission = tallied(inner_advance)
     try:
         out = run()
     finally:
         DecodeLoop.replay, DecodeLoop.bind = inner_replay, inner_bind
+        ContinuousBatcher._admit_pending = inner_admit
+        ContinuousBatcher._advance_admission = inner_advance
     replayed = dict(DecodeLoop.replayed)
     eager = {name: w.launches for name, w in wrappers.items()}
     launches = {name: eager[name] + replayed.get(name, 0) for name in wrappers}
@@ -1955,11 +2029,13 @@ def count_launches(path, run):
     log(f"launches in {path}: {launches}; {forwards} forwards of {layers} layers in all; "
         f"{replayed.get('replays', 0)} graph replays ({replayed.get('forwards', 0)} forwards) "
         f"and {len(bound)} captures in the run; eager launches "
-        f"{ {name: n for name, n in eager.items() if n} }")
+        f"{ {name: n for name, n in eager.items() if n} }, of them in admission "
+        f"{ {name: n for name, n in admission.items() if n} }")
     assert replayed.get("replays", 0) > 0, (path, "decoded through no graph replay")
     warm_up = {name: sum(loop.per_replay[name] for loop in bound) for name in DECODE_ONLY}
-    assert all(eager[name] == warm_up[name] for name in DECODE_ONLY), (
-        path, "decode kernels launched eagerly outside the loops' warm-up steps", eager, warm_up)
+    assert all(eager[name] - admission[name] == warm_up[name] for name in DECODE_ONLY), (
+        path, "decode kernels launched eagerly outside the loops' warm-up steps and admission",
+        eager, admission, warm_up)
     launched = {name for name, n in launches.items() if n}
     assert launched == PATH_KERNELS[path], (path, "launched", launched,
                                             "expected", PATH_KERNELS[path])
@@ -2353,7 +2429,7 @@ def phase_mistral_long(dev, eng, paths):
         f"{cfg.max_seq_len}: {cache_mb(mc, cfg.max_seq_len):.1f} MB), int8 ring "
         f"{cache_mb(mc, RING_LEN, 1):.1f} MB; spec ids == ring baseline ids; ngram K=4 on the "
         f"ring {secs(ngram)}, {step_stats([ngram])}, ids == ring baseline ids")
-    return launches
+    return launches, spec["generated_ids"]
 
 
 def phase_kv_alignment(eng):
@@ -2533,6 +2609,21 @@ def near_tie(eng, dev, prompt, ids_a, ids_b):
                 gap=v1 - v2, gap_ulps=(v1 - v2) / ulp)
 
 
+def held_to(eng, dev, unstable, what, rid, prompt, ref, ids, tie_eng=None):
+    """0 when a request's ids equal ref, 1 when they part at a near tie:
+    near_tie on tie_eng (or eng) finds a gap of at most 2 bf16 ulps, and
+    unstable() names an op that rounds a row differently at another M or
+    across A's or B's two kernels (row_stability); otherwise it fails."""
+    if ids == ref:
+        return 0
+    tie = near_tie(tie_eng or eng, dev, prompt, ref, ids)
+    ops = unstable()
+    log(f"request {rid} differs from {what}: {tie}; ops that round rows differently at "
+        f"another M or across A's or B's two kernels: {ops}")
+    assert tie["gap_ulps"] <= 2 and ops, ("not a near tie at a named op", what, tie)
+    return 1
+
+
 def phase_serving(dev, eng, profile, max_len, path, label):
     """Phases 3b and 5: the paged serving path at full width, on the B=1
     phase's weights and engine settings, lanes of max_len."""
@@ -2594,13 +2685,7 @@ def phase_serving(dev, eng, profile, max_len, path, label):
     unstable = [op for op, d in stability.items() if any(d.values())]
 
     def parted(what, rid, prompt, ref, ids):
-        if ids == ref:
-            return 0
-        tie = near_tie(eng, dev, prompt, ref, ids)
-        log(f"request {rid} differs from {what}: {tie}; ops that round rows differently at "
-            f"another M or across A's or B's two kernels: {unstable}")
-        assert tie["gap_ulps"] <= 2 and unstable, ("not a near tie at a named op", what, tie)
-        return 1
+        return held_to(eng, dev, lambda: unstable, what, rid, prompt, ref, ids)
 
     layout = sum(parted("the contiguous-layout batcher", r["req_id"], prompt,
                         c["generated_ids"], r["generated_ids"])
@@ -2957,6 +3042,331 @@ def phase_heads(dev, eng, profile, paths):
     return launches
 
 
+def serve_stats(b, peak_mb):
+    """A batcher's throughput, occupancy, steps, waves, page growths,
+    preemptions, admission time and peak memory, for the log."""
+    st = b.stats.report()
+    return (f"{st['committed_tokens']} tokens in {st['wall_s']:.3f} s = {st['tok_s']:.2f} tok/s, "
+            f"mean occupied slots {st['mean_occupied_slots']:.2f}, {st['steps']} steps, "
+            f"{st['admit_waves']} waves, {st['page_grows']} page growths, "
+            f"{st['preemptions']} preemptions, admit_ms {st['admit_ms']:.1f}, peak memory "
+            f"{peak_mb:.1f} MB")
+
+
+def served(b, run):
+    """run() on a batcher from a synchronized card with its peak memory
+    reset: (its result, the peak MB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = run()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() / 1e6
+
+
+def watch_chunks(b):
+    """Record, for each incremental admission chunk a batcher runs, the
+    request, the decode steps run before it and its wall ms (admit_ms's
+    growth: the card synchronized before and after): {req_id: [(steps,
+    ms), ...]}. The wrapper holds the batcher weakly: no reference cycle
+    keeps a finished batcher (its graph and caches) alive."""
+    chunks = {}
+    ref = weakref.ref(b)
+
+    def advance():
+        b = ref()
+        pf = b._prefilling
+        steps, ms = b.stats.steps, b.stats.admit_ms
+        type(b)._advance_admission(b)
+        if pf is not None and pf["off"] > 0 and b.stats.admit_ms > ms:
+            chunks.setdefault(pf["req"].req_id, []).append((steps, b.stats.admit_ms - ms))
+
+    b._advance_admission = advance
+    return chunks
+
+
+def phase_admission(dev, eng, paths):
+    """Phase 14 on phase 3's int4 3B + 1B engine (K=1; run after phase 13),
+    every batcher paged with pages of 64 (so every admission forward has 64
+    rows or more: E and A's tensor-core path), ids held to phase 3's B=1
+    generate (or each other) under the near-tie rule (held_to):
+    (a) phase 3b's 16 requests through 8 slots over a pool of about half
+        the eager worst case of the first 8: eager reservation
+        (kv_lazy_pages=False) and lazy pages; lazy must grow pages and
+        preempt, and every page comes back;
+    (b) SYSTEM_PREFIX ahead of each of phase 3b's sentences (lanes of
+        PREFIX_MAX_LEN), the first request admitted alone so its pages are
+        cached, prefix caching off and on: on, every later request reuses
+        pages (prompt_tokens_reused > 0) and its ids are the off run's;
+    (c) LONG_ADMIT (3000 tokens) admitted in chunks of ADMIT_CHUNK into the
+        8th slot while 7 of phase 3b's sentences decode (64 new tokens
+        each): decode steps run while it is in flight, its ids equal a B=1
+        generate of it, the others' equal phase 3's; then one decoding
+        request is cancelled: finish_reason "cancelled", pages returned.
+    The lazy, prefix-cached and incremental runs each in their own launch
+    count."""
+    from llm_inference_lab_tpu_torch.core.batching import ContinuousBatcher
+    from llm_inference_lab_tpu_torch.core.engine import Engine
+
+    def engine(**kw):
+        return Engine(replace(eng.config, kv_layout="paged", kv_page_size=SERVE_PAGE, **kw),
+                      device=dev, target_params=eng.target.params,
+                      draft_params=draft_params_of(eng))
+
+    stability = []
+
+    def unstable():
+        if not stability:
+            stability.append([op for op, d in row_stability(eng, dev).items()
+                              if any(d.values())])
+        return stability[0]
+
+    reference = {p: eng.generate(p)["generated_ids"] for p in dict.fromkeys(SERVE_PROMPTS)}
+    launches = {}
+    # (a) lazy pages against eager reservation at the same constrained pool.
+    probe = engine(max_seq_len=SERVE_MAX_LEN)
+    worst = sum(-(-(len(probe.encode(p, m, SERVE_MAX_LEN)) + m + probe._max_k + 2) // SERVE_PAGE)
+                for p, m in list(zip(SERVE_PROMPTS, SERVE_BUDGETS))[:SERVE_SLOTS])
+    pool = worst // 2 + 1
+    runs = {}
+    for lazy in (False, True):
+        b = ContinuousBatcher(engine(max_seq_len=SERVE_MAX_LEN, kv_pages=pool,
+                                     kv_lazy_pages=lazy), SERVE_SLOTS)
+        for p, m in zip(SERVE_PROMPTS, SERVE_BUDGETS):
+            b.submit(p, max_new_tokens=m)
+        if lazy:
+            (results, peak), launches[paths[0]] = count_launches(paths[0],
+                                                                 lambda: served(b, b.run))
+        else:
+            results, peak = served(b, b.run)
+        assert b.allocator.free_pages == pool - 1, ("pages not returned", lazy)
+        runs[lazy] = (b, results, peak)
+        log(f"admission (a), {'lazy' if lazy else 'eager'} pages over {pool} pages of "
+            f"{SERVE_PAGE} (eager worst case of {SERVE_SLOTS} requests: {worst}): "
+            + serve_stats(b, peak))
+    b, results, _ = runs[True]
+    assert b.stats.preemptions >= 1 and b.stats.page_grows > 0, b.stats.report()
+    ids_digest(paths[0], [r["generated_ids"] for r in results])
+    for lazy, (bb, rs, _) in runs.items():
+        differ = sum(held_to(eng, dev, unstable, "generate", r["req_id"], p,
+                             reference[p][: len(r["generated_ids"])], r["generated_ids"])
+                     for r, p in zip(rs, SERVE_PROMPTS, strict=True))
+        assert all(r["generated_tokens"] == m for r, m in zip(rs, SERVE_BUDGETS)), lazy
+        log(f"admission (a) {'lazy' if lazy else 'eager'}: ids == the start of B=1 generate "
+            f"ids for {len(rs) - differ} of {len(rs)} requests (the rest near ties); resumed "
+            f"by recompute: {sorted(r.req_id for r in bb._done.values() if r.resume_ids)}")
+    # (b) prefix caching off and on.
+    prompts = [SYSTEM_PREFIX + p for p in SERVE_PROMPTS]
+    assert len(probe.encode(SYSTEM_PREFIX, 64, PREFIX_MAX_LEN)) == PREFIX_TOKENS
+    runs = {}
+    for on in (False, True):
+        b = ContinuousBatcher(engine(max_seq_len=PREFIX_MAX_LEN, prefix_caching=on),
+                              SERVE_SLOTS)
+
+        def serve(b=b):
+            b.submit(prompts[0], max_new_tokens=SERVE_BUDGETS[0])
+            b._admit_pending()  # the first request's pages are cached
+            for p, m in zip(prompts[1:], SERVE_BUDGETS[1:]):
+                b.submit(p, max_new_tokens=m)
+            return b.run()
+
+        if on:
+            (results, peak), launches[paths[1]] = count_launches(paths[1],
+                                                                 lambda: served(b, serve))
+        else:
+            results, peak = served(b, serve)
+        runs[on] = (b, results)
+        hits = f", pages hit {b.allocator.hits}, fresh {b.allocator.misses}" if on else ""
+        log(f"admission (b), prefix caching {'on' if on else 'off'} ({PREFIX_TOKENS}-token "
+            f"system prompt, lanes of {PREFIX_MAX_LEN}): " + serve_stats(b, peak) + hits)
+    (_, off), (b, on) = runs[False], runs[True]
+    reused = [r["prompt_tokens_reused"] for r in on]
+    assert all(n > 0 for n in reused[1:]) and reused[0] == 0, reused
+    assert all(r["prompt_tokens_reused"] == 0 for r in off)
+    ids_digest(paths[1], [r["generated_ids"] for r in on])
+    differ = sum(held_to(eng, dev, unstable, "the uncached batcher", r["req_id"], p,
+                         o["generated_ids"], r["generated_ids"])
+                 for r, o, p in zip(on, off, prompts, strict=True))
+    log(f"admission (b): reused prompt tokens {reused}; prefix-cached ids == uncached ids for "
+        f"{len(on) - differ} of {len(on)} requests (the rest near ties)")
+    # (c) one long prompt admitted in chunks among 7 decoding requests.
+    long_eng = engine(max_seq_len=ADMIT_MAX_LEN, admit_chunk=ADMIT_CHUNK)
+    b = ContinuousBatcher(long_eng, SERVE_SLOTS)
+    shorts = SERVE_PROMPTS[: SERVE_SLOTS - 1]
+    seen = {}
+    chunks = watch_chunks(b)
+
+    def serve():
+        rids = [b.submit(p, max_new_tokens=64) for p in shorts]
+        b._admit_pending()
+        b.step_chunk()
+        long_id = b.submit(LONG_ADMIT, max_new_tokens=64)
+        b._admit_pending()
+        assert b._prefilling is not None and b._prefilling["req"].req_id == long_id
+        steps0, chunks = b.stats.steps, 0
+        while b._prefilling is not None:
+            b.step_chunk()
+            chunks += 1
+            b._admit_pending()
+        seen.update(steps=b.stats.steps - steps0, chunks=chunks, long_id=long_id)
+        victim = next(r for r in b._slots if r is not None and r.req_id in rids)
+        seen.update(victim=victim.req_id, victim_pages=len(victim.pages))
+        assert b.cancel(victim.req_id)
+        return b.run()
+
+    (results, peak), launches[paths[2]] = count_launches(paths[2], lambda: served(b, serve))
+    res = {r["req_id"]: r for r in results}
+    assert seen["steps"] > 0 and seen["chunks"] >= -(-3000 // ADMIT_CHUNK), seen
+    victim = res[seen["victim"]]
+    assert victim["finish_reason"] == "cancelled" and len(victim["generated_ids"]) < 64, victim
+    assert b._done[seen["victim"]].pages is None
+    assert b.allocator.free_pages == b.allocator.n_pages - 1, "pages not returned"
+    ids_digest(paths[2], [r["generated_ids"] for r in results])
+    ref_eng = Engine(replace(long_eng.config, kv_layout="contiguous", admit_chunk=None),
+                     device=dev, target_params=eng.target.params,
+                     draft_params=draft_params_of(eng))
+    long_ref = ref_eng.generate(LONG_ADMIT)
+    long_res = res[seen["long_id"]]
+    differ = held_to(ref_eng, dev, unstable, "B=1 generate", seen["long_id"], LONG_ADMIT,
+                     long_ref["generated_ids"], long_res["generated_ids"])
+    for rid, p in enumerate(shorts):
+        r = res[rid]
+        differ += held_to(eng, dev, unstable, "generate", rid, p,
+                          reference[p][: len(r["generated_ids"])], r["generated_ids"])
+    lp = torch.tensor(long_res["token_logprobs"] + long_res["prompt_logprobs"][1:])
+    assert torch.isfinite(lp).all() and len(long_res["generated_ids"]) == 64
+    chunk_ms = [round(ms, 3) for _, ms in chunks[seen["long_id"]]]
+    log(f"admission (c): the {len(LONG_ADMIT)}-token prompt in {seen['chunks']} chunks of "
+        f"{ADMIT_CHUNK} (ms each {chunk_ms}) while {seen['steps']} decode steps ran; its ids "
+        f"== B=1 generate's "
+        f"({'a near tie' if differ else 'equal'} for the {len(shorts) + 1} requests: {differ} "
+        f"parted); request {seen['victim']} cancelled after "
+        f"{len(victim['generated_ids'])} tokens, its {seen['victim_pages']} pages returned; "
+        f"B=1 generate of the long prompt {secs(long_ref)}; " + serve_stats(b, peak))
+    return launches
+
+
+def phase_ring_serving(dev, eng, long_ids, path):
+    """Phase 15: Mistral-7B served over the ring, on phase 8's engine and
+    weights with admit_chunk = ADMIT_CHUNK (R stays RING_LEN: the chunk is
+    prefill_chunk's), RING_SLOTS slots, RING_REQUESTS: each long prompt
+    admitted incrementally into a ring-sized scratch (one at a time, decode
+    steps between its chunks), each request's ids held to phase 8's ring
+    B=1 ids for its prompt (long_ids: the spec run's on MISTRAL_LONG) under
+    the near-tie rule (on a full-cache engine: a ring cannot hold a one-shot
+    forward of the long prompt). Logs throughput, occupancy, admission time,
+    the ring KV MB and the full cache's for the same batcher."""
+    from llm_inference_lab_tpu_torch.core.batching import ContinuousBatcher
+    from llm_inference_lab_tpu_torch.core.engine import Engine
+
+    cfg = replace(eng.config, admit_chunk=ADMIT_CHUNK)
+    ring_eng = Engine(cfg, device=dev, target_params=eng.target.params,
+                      draft_params=eng.draft.params)
+    lens = (ring_eng.target.config.kv_ring_len, ring_eng.draft.config.kv_ring_len)
+    assert lens == (RING_LEN, RING_LEN), ("ring lengths with admit_chunk", lens)
+    b = ContinuousBatcher(ring_eng, RING_SLOTS)
+    assert b.state.target_cache.k.shape[3] == RING_LEN
+    chunks = watch_chunks(b)
+    for p, m in RING_REQUESTS:
+        b.submit(p, max_new_tokens=m)
+    (results, peak), launches = count_launches(path, lambda: served(b, b.run))
+    ids_digest(path, [r["generated_ids"] for r in results])
+    n_long = -(-len(MISTRAL_LONG) // ADMIT_CHUNK)
+    assert sorted(chunks) == [0, 1], chunks
+    for rid, runs in chunks.items():
+        assert len(runs) == n_long and runs[-1][0] > runs[0][0], (rid, runs)
+    refs = {MISTRAL_LONG: long_ids}
+    for p, _ in RING_REQUESTS[2:]:
+        refs[p] = eng.generate(p)["generated_ids"]
+    tie_eng, stability = [], []
+
+    def full_cache():
+        if not tie_eng:
+            tie_eng.append(Engine(replace(cfg, kv_ring=False, draft_model=None, admit_chunk=None),
+                                  device=dev, target_params=eng.target.params))
+        return tie_eng[0]
+
+    def unstable():
+        if not stability:
+            stability.append([op for op, d in row_stability(eng, dev).items()
+                              if any(d.values())])
+        return stability[0]
+
+    differ = 0
+    for r, (p, m) in zip(results, RING_REQUESTS, strict=True):
+        assert r["generated_tokens"] == m and r["finish_reason"] == "length", r["req_id"]
+        lp = torch.tensor(r["token_logprobs"] + r["prompt_logprobs"][1:])
+        assert torch.isfinite(lp).all(), r["req_id"]
+        ref = refs[p][:m]
+        if r["generated_ids"] != ref:
+            differ += held_to(eng, dev, unstable, "phase 8's ring B=1 ids", r["req_id"], p,
+                              ref, r["generated_ids"], tie_eng=full_cache())
+    tc, dc = ring_eng.target.config, ring_eng.draft.config
+    ring_mb = RING_SLOTS * (cache_mb(tc, RING_LEN) + cache_mb(dc, RING_LEN))
+    full_mb = RING_SLOTS * (cache_mb(tc, cfg.max_seq_len) + cache_mb(dc, cfg.max_seq_len))
+    log(f"ring serving (Mistral-7B int4 + 7B draft, K={cfg.max_draft}, ring R={RING_LEN}, "
+        f"admit_chunk {ADMIT_CHUNK}, {RING_SLOTS} slots, {len(RING_REQUESTS)} requests): "
+        + serve_stats(b, peak) + f"; long prompts in {n_long} chunks each (decode steps "
+        f"before each {[[n for n, _ in runs] for runs in chunks.values()]}, ms each "
+        f"{[[round(ms, 3) for _, ms in runs] for runs in chunks.values()]}); ids == phase "
+        f"8's ring B=1 ids for "
+        f"{len(results) - differ} of {len(results)} requests (the rest near ties); KV of "
+        f"both models: ring {ring_mb:.1f} MB, full cache at max_seq_len {cfg.max_seq_len} "
+        f"{full_mb:.1f} MB")
+    return launches
+
+
+def phase_prefix_prefill(dev):
+    """Kernel E at phase 14b's prefix-cached admissions: the suffix's S
+    queries from position PREFIX_TOKENS over one sequence's pages (SERVE_PAGE
+    rows, shuffled) gathered into a view of T = PREFIX_MAX_LEN keys (the
+    paged path of ops/attention.py for S > 32: gather_pages, then E), the
+    query span shorter than the key span and starting past key 0, POISON in
+    V past the last position, at the 3B's and the 1B's geometry and S = 64
+    and 384 (a suffix's fewest and most rows): E within check_attn's
+    tolerance of the plain version and the bits of E over the same keys laid
+    out contiguously; then, at S = 192, a layer's gather of K and V timed
+    beside E and beside SDPA given the same boolean mask (logged: the
+    gather is the suffix path's extra cost)."""
+    from llm_inference_lab_tpu_torch.models.paged import gather_pages
+    from llm_inference_lab_tpu_torch.ops.attention import paged_attend
+    from llm_inference_lab_tpu_torch.ops.flash_prefill import flash_prefill
+
+    g = torch.Generator(device=dev).manual_seed(14)
+    P, T, start = SERVE_PAGE, PREFIX_MAX_LEN, PREFIX_TOKENS
+    M = T // P
+    for D, (H, KVH) in GEOMS.items():
+        kc = torch.randn((1, KVH, T, D), generator=g, device=dev).bfloat16()
+        vc = torch.randn((1, KVH, T, D), generator=g, device=dev).bfloat16()
+        table = (torch.randperm(M + 3, generator=g, device=dev)[:M] + 1)[None].to(torch.int32)
+        pools = [torch.zeros((M + 4, KVH, P, D), device=dev, dtype=torch.bfloat16)
+                 for _ in "kv"]
+        for S in (64, 384, 192):
+            vs = vc.clone()
+            vs[:, :, start + S:] = POISON
+            for src, dst in ((kc, pools[0]), (vs, pools[1])):
+                dst[table[0].long()] = src[0].reshape(KVH, M, P, D).transpose(0, 1)
+            q = torch.randn((1, S, H, D), generator=g, device=dev).bfloat16()
+            pos = (start + torch.arange(S, device=dev, dtype=torch.int32))[None].contiguous()
+            got = paged_attend(q, pools[0], pools[1], pos, table)
+            err = check_attn(got, q, kc, vs, pos, what=("prefix suffix", D, S))
+            assert torch.equal(flash_prefill(q, kc, vs, pos), got), (D, S, "gathered != laid out")
+            if S != 192:
+                log(f"flash_prefill prefix suffix S={S} from {start} over gathered pages "
+                    f"(T={T}, D={D}): max_abs_err {err:.3g}; the bits of E over the keys "
+                    f"laid out contiguously")
+                continue
+            gather = median_ms(lambda: (gather_pages(pools[0], table),
+                                        gather_pages(pools[1], table)))
+            kg, vg = gather_pages(pools[0], table), gather_pages(pools[1], table)
+            ms = median_ms(lambda: flash_prefill(q, kg, vg, pos))
+            mask = torch.arange(T, device=dev)[None, None, None, :] <= pos[:, None, :, None]
+            lib = median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q.transpose(1, 2), kg, vg, attn_mask=mask, enable_gqa=True), iters=10)
+            log(f"prefix suffix S={S} over T={T} (D={D}) a layer: gather of K and V "
+                f"{gather:.4f} ms, flash_prefill {ms:.4f} ms, library {lib:.4f} ms (SDPA, "
+                f"boolean mask)")
+
+
 def profile_run(what, fn, latency_ms):
     """Kernel time by name over one profiled call of fn, and the device's
     busy share: the union of the kernels' intervals over the latency of an
@@ -3138,6 +3548,7 @@ def main(argv):
                                  "one Llama-3.1-8B EAGLE K=2 B=1 step (32 verify layers and the "
                                  "head at M = 3, the EAGLE head call at M = 2)"),
     })
+    phase_prefix_prefill(dev)
     log(f"phase 2 took {time.perf_counter() - t0:.1f} s")
     profile = "--profile" in argv
     profile_gemma = profile or "--profile=gemma" in argv
@@ -3161,6 +3572,9 @@ def main(argv):
     t0 = time.perf_counter()
     on_path.update(phase_heads(dev, eng, profile_heads, HEAD_PATHS))
     log(f"phase 13 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    on_path.update(phase_admission(dev, eng, ADMISSION_PATHS))
+    log(f"phase 14 took {time.perf_counter() - t0:.1f} s")
     del eng
     t0 = time.perf_counter()
     eng, on_path[paths[2]] = phase_end_to_end(dev, profile, INT8_CFG, paths[2],
@@ -3199,8 +3613,12 @@ def main(argv):
                                               "Mistral-7B int4 + 7B draft, K=4, ring")
     lens = (eng.target.config.kv_ring_len, eng.draft.config.kv_ring_len)
     assert lens == (RING_LEN, RING_LEN), ("ring lengths", lens)
-    on_path.update(phase_mistral_long(dev, eng, paths[8:13]))
+    ring_launches, long_ids = phase_mistral_long(dev, eng, paths[8:13])
+    on_path.update(ring_launches)
     log(f"phase 8 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    on_path[RING_SERVING_PATH] = phase_ring_serving(dev, eng, long_ids, RING_SERVING_PATH)
+    log(f"phase 15 took {time.perf_counter() - t0:.1f} s")
 
     def counted(name):
         """The paths whose launches a row counts: a Gemma-2 row its paths, a

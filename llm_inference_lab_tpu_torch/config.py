@@ -8,12 +8,13 @@ greedy decoding or engine-level sampling (temperature, min_p, top_k,
 top_p), the real models or the fake test model (``implementation``),
 weight-only int4/int8 and a bf16 or int8 KV cache (per-row scales),
 contiguous or paged, single-shot or chunked prefill, and the rolling-buffer
-cache (``kv_ring``) of uniform sliding-window models. A field of the JAX
-config with a single ported value has no field here until a later slice
-ports a second value for it. So ``prefix_caching`` (off), ``admit_chunk``
-(one-shot admission), ``kv_lazy_pages`` (eager page reservation,
-``kv_lazy_pages=False`` in JAX), ``per_request_sampling`` (off), the
-penalties (off) have no field yet. Fields are named and defaulted as in JAX, except
+cache (``kv_ring``) of uniform sliding-window models; in serving,
+incremental (chunked) admission (``admit_chunk``), lazy page growth with
+preemption (``kv_lazy_pages``, on by default as in JAX) and prefix caching
+(``prefix_caching``). A field of the JAX config with a single ported value
+has no field here until a later slice ports a second value for it. So
+``per_request_sampling`` (off), the penalties (off) and ``logprobs_topk``
+(none) have no field yet. Fields are named and defaulted as in JAX, except
 ``implementation``, "hf" here ("fake" in JAX): the port's entry points build
 the named model unless a caller asks for the fake one.
 
@@ -96,6 +97,24 @@ class EngineConfig:
     # prefill_chunk, a multiple of 32: a single-shot prefill longer than the
     # ring would overwrite rows its own queries still need.
     kv_ring: bool = False
+    # Serving (core/batching.py). Interleaved (chunked) admission: a prompt
+    # longer than admit_chunk prefills into a detached scratch this many
+    # tokens after each decode chunk; the splice is the only write to the
+    # decode state. A multiple of the KV bucket (page size, or 32
+    # contiguous: the batcher checks); None (or 0) = one-shot admission.
+    # Not applied under prefix caching. A ring engine sizes its ring from
+    # max(prefill_chunk, admit_chunk) and serves only with it.
+    admit_chunk: Optional[int] = None
+    # Lazy pages (paged layout): admission reserves the prompt and a growth
+    # margin; each poll grows a slot's pages ahead of its length and, with
+    # the pool dry, preempts the youngest slot (pages freed, request requeued
+    # and resumed by recomputing prompt + generated tokens). False: the
+    # worst case (prompt + budget + K + 2) reserved at admission.
+    kv_lazy_pages: bool = True
+    # Automatic prefix caching (paged layout only: the batcher checks): full
+    # prompt pages are shared between requests with the same prefix
+    # (models/paged.py PrefixPageCache) and admission forwards the suffix.
+    prefix_caching: bool = False
     ngram: dict = field(default_factory=lambda: {"n": 2})
     # Medusa heads: K projections [D, D] ahead of the target's head ("tie" or
     # "copy": identity; "random": identity plus N(0, 0.02^2) noise), sampled
@@ -154,6 +173,8 @@ class EngineConfig:
             if self.prefill_chunk % 32:
                 raise ValueError("kv_ring needs prefill_chunk to be a multiple of 32 (the prompt "
                                  "bucket) so no forward ever exceeds the chunk")
+        if self.admit_chunk is not None and self.admit_chunk < 0:
+            raise ValueError(f"admit_chunk must not be negative, got {self.admit_chunk}")
         if self.draft_mode == "tree":
             self._validate_tree()
 

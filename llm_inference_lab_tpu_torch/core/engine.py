@@ -204,19 +204,22 @@ class Engine:
 
     def _enable_kv_ring(self) -> None:
         """Ring the contiguous KV cache of uniform sliding-window models: slot
-        = position mod R with R = round_up(window + chunk + K + 2, 128), so a
-        write (at position p, clobbering p - R) never reaches a row still
-        inside a live query's window. Applied per model: a model without a
-        window, or with Gemma-2's alternating one, keeps its plain cache, and
-        so does one whose ring would not be shorter than max_seq_len."""
+        = position mod R with R = round_up(window + C + K + 2, 128), C the
+        longest forward a prompt takes (the prefill chunk, or the serving
+        batcher's admission chunk when longer), so a write (at position p,
+        clobbering p - R) never reaches a row still inside a live query's
+        window. Applied per model: a model without a window, or with
+        Gemma-2's alternating one, keeps its plain cache, and so does one
+        whose ring would not be shorter than max_seq_len."""
         cfg = self.config
+        C = max(cfg.prefill_chunk, cfg.admit_chunk or 0)
         for model in (self.target, self.draft):
             if model is None:
                 continue
             mc = model.config
             if mc.sliding_window is None or mc.alt_window:
                 continue
-            R = _round_up(mc.sliding_window + cfg.prefill_chunk + self._max_k + 2, 128)
+            R = _round_up(mc.sliding_window + C + self._max_k + 2, 128)
             if R < cfg.max_seq_len:
                 model.config = replace(mc, kv_ring_len=R)
 

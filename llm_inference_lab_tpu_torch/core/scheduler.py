@@ -35,7 +35,9 @@ class Scheduler:
 
     def submit(self, req_id: int, prompt_len: int, max_new: int) -> None:
         """Queue a request; max_new is taken for the JAX signature and not
-        read by the ordering."""
+        read by the ordering. The batcher requeues a request (pages it could
+        not get, a preemption, a ring admission that must wait) by
+        submitting its id again, at the back, as JAX's batcher does."""
         self._queue.append((req_id, prompt_len, self._seq, self._round))
         self._seq += 1
 

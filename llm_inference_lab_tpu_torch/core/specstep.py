@@ -40,6 +40,7 @@ a CUDA graph and replays.
 
 from __future__ import annotations
 
+import gc
 import time
 from dataclasses import replace
 from typing import Callable, Dict, Optional
@@ -590,9 +591,16 @@ class DecodeLoop:
         torch.cuda.synchronize(dev)
         del saved
         before = _launch_counts()
+        # Dead objects in reference cycles (a batcher with its graph and
+        # caches) are freed now and not by a collection inside the capture,
+        # where destroying a graph or freeing its pool's memory would
+        # invalidate the capture; the collector stays off until it ends.
+        gc.collect()
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
         t0 = time.perf_counter()
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with capture:
                 self.step(state)
@@ -600,6 +608,9 @@ class DecodeLoop:
             _set_launch_counts(before)
             raise RuntimeError("capturing the decode step in a CUDA graph failed (a host read "
                                "or a synchronisation inside the step?)") from err
+        finally:
+            if collecting:
+                gc.enable()
         self.capture_s = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         after = _launch_counts()

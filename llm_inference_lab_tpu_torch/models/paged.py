@@ -1,7 +1,8 @@
 """Paged KV cache: a page pool and per-sequence page tables.
 
 Port of llm_inference_lab_tpu/models/paged.py (PagedKVCache, the paged
-cache write, gather_pages and PageAllocator) for bf16 and int8 pools.
+cache write, gather_pages, PageAllocator and PrefixPageCache) for bf16 and
+int8 pools.
 Layout, as in the JAX package:
 
     k/v pools  [n_layers, n_pages, n_kv_heads, page_size, head_dim]
@@ -21,7 +22,7 @@ goes into the pool IN PLACE.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import Any, List, Optional, Tuple
 
 import torch
 
@@ -133,4 +134,99 @@ class PageAllocator:
     def free(self, pages: List[int]) -> None:
         for p in pages:
             if p != 0:
+                self._free.append(p)
+
+
+class PrefixPageCache(PageAllocator):
+    """PageAllocator with automatic prefix caching (host side), the JAX
+    package's PrefixPageCache operation for operation, so the same sequence
+    of calls hands out the same page ids.
+
+    Full page_size-token chunks of a prompt are named by a chain hash (the
+    chunk's tokens and the hash of the chunk before it), so a page is reused
+    only under the same whole prefix. ``match`` gives the longest cached
+    prefix, whose pages are shared (refcounted, and never written again by
+    a request that reuses them: its writes start at its own prompt length,
+    past every shared full chunk). After admission ``register`` publishes
+    the request's own full prompt chunks. A page whose refcount falls to 0
+    stays cached in an LRU pool, which ``alloc`` evicts from only when the
+    free list runs dry. Shared pages reach the device only as page ids in
+    table rows."""
+
+    def __init__(self, n_pages: int, page_size: int):
+        super().__init__(n_pages, page_size)
+        self._by_hash: dict = {}  # chain hash -> page id
+        self._meta: dict = {}  # page id -> [chain hash, refcount, last use]
+        self._clock = 0
+        self.hits = 0  # pages served from the cache
+        self.misses = 0  # pages registered fresh
+
+    def chunk_hashes(self, ids: List[int]) -> List[Any]:
+        """The chain hash of each FULL page_size chunk of ids."""
+        out: List[Any] = []
+        parent: Any = None
+        P = self.page_size
+        for j in range(len(ids) // P):
+            parent = hash((parent, tuple(ids[j * P: (j + 1) * P])))
+            out.append(parent)
+        return out
+
+    def _evict(self, n: int) -> int:
+        """Evict up to n unreferenced cached pages, least recently used
+        first."""
+        victims = sorted((m[2], pid) for pid, m in self._meta.items() if m[1] == 0)[:n]
+        for _, pid in victims:
+            self._by_hash.pop(self._meta.pop(pid)[0], None)
+            self._free.append(pid)
+        return len(victims)
+
+    def alloc(self, n: int) -> Optional[List[int]]:
+        if n > len(self._free):
+            self._evict(n - len(self._free))
+        return super().alloc(n)
+
+    @property
+    def reclaimable_pages(self) -> int:
+        return sum(1 for m in self._meta.values() if m[1] == 0)
+
+    def match(self, ids: List[int], max_tokens: int) -> Tuple[List[int], int]:
+        """The longest cached prefix of ids within max_tokens tokens (the
+        batcher caps it at len(ids) - 2, so the suffix recomputes the hidden
+        row the head modes carry): (shared pages, reused tokens), with a
+        refcount taken on each page."""
+        pages: List[int] = []
+        self._clock += 1
+        for h in self.chunk_hashes(ids[: max(max_tokens, 0)]):
+            pid = self._by_hash.get(h)
+            if pid is None:
+                break
+            pages.append(pid)
+        for pid in pages:
+            self._meta[pid][1] += 1
+            self._meta[pid][2] = self._clock
+        self.hits += len(pages)
+        return pages, len(pages) * self.page_size
+
+    def register(self, ids: List[int], pages: List[int], reuse_len: int) -> None:
+        """Publish a request's own full prompt chunks past the reused prefix;
+        pages is its table prefix (shared and fresh, in position order)."""
+        self._clock += 1
+        hashes = self.chunk_hashes(ids)
+        for j in range(reuse_len // self.page_size, len(hashes)):
+            if hashes[j] in self._by_hash:  # a duplicate: the first stays
+                continue
+            self._by_hash[hashes[j]] = pages[j]
+            self._meta[pages[j]] = [hashes[j], 1, self._clock]
+        self.misses += len(hashes) - reuse_len // self.page_size
+
+    def free(self, pages: List[int]) -> None:
+        """Release a request's pages: a cached page drops a refcount and
+        stays resident for reuse; the others go back to the free list."""
+        self._clock += 1
+        for p in pages:
+            m = self._meta.get(p)
+            if m is not None:
+                m[1] = max(m[1] - 1, 0)
+                m[2] = self._clock
+            elif p != 0:
                 self._free.append(p)

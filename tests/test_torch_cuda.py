@@ -10,6 +10,8 @@ chip_smoke.py holds the same kernels to the same versions at every shape of
 the main path; these tests are the quick check at a few of them.
 """
 
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +22,7 @@ from llm_inference_lab_tpu_torch.core.engine import Engine
 from llm_inference_lab_tpu_torch.core.specstep import DecodeLoop, make_decode_loop
 from llm_inference_lab_tpu_torch.models.base import quantize_rows
 from llm_inference_lab_tpu_torch.models.paged import gather_pages
+from llm_inference_lab_tpu_torch.ops.attention import paged_attend
 from llm_inference_lab_tpu_torch.ops.flash_decode import (
     flash_decode,
     flash_decode_int8,
@@ -1196,3 +1199,91 @@ def test_head_mode_batcher_replays_give_the_host_steps_bits(card, mode):
     for g, w in zip(*runs, strict=True):
         for key in ("generated_ids", "token_logprobs", "proposed", "accepted"):
             assert g[key] == w[key], (key, g[key], w[key])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_prefix_suffix_prefill_over_gathered_pages(card, int8):
+    """A prefix-cached admission's attention (ops/attention.py paged_attend
+    with S > 32): the suffix's 192 queries from reuse_len = 320 over one
+    sequence's gathered page view (T = M * P = 1024, shuffled 64-row pages),
+    the query span shorter than the key span and starting past key 0, V
+    past the last position 64. Kernel E runs once and is within the
+    tolerance of the plain version, and gives the bits of E over the same
+    keys laid out contiguously."""
+    rng = np.random.default_rng(320 + int8)
+    S, D, H, KVH, P, reuse = 192, 128, 24, 8, 64, 320
+    q, kp, vp, table, _ = _paged(card, rng, 1, S, H, KVH, D, P)
+    pos = (reuse + torch.arange(S, dtype=torch.int32, device=card))[None]
+    kc, vc = gather_pages(kp, table), gather_pages(vp, table)
+    vc[:, :, reuse + S:] = 64.0
+    for j in range(table.shape[1]):  # the poison back into the pages
+        vp[table[0, j]] = vc[0, :, j * P:(j + 1) * P]
+    scales = ()
+    route = flash_prefill
+    if int8:
+        (kp, ksp), (vp, vsp) = quantize_rows(kp.float()), quantize_rows(vp.float())
+        kc, vc = gather_pages(kp, table), gather_pages(vp, table)
+        scales = (gather_pages(ksp, table), gather_pages(vsp, table))
+        route = flash_prefill_int8
+    before = route.launches
+    got = paged_attend(q, kp, vp, pos, table, *((ksp, vsp) if int8 else ()))
+    assert route.launches == before + 1
+    assert _attn_within(got, q, kc, vc, pos, *scales)
+    assert torch.equal(route(q, kc, vc, pos, *scales), got)
+
+
+@pytest.mark.cuda
+def test_lazy_batcher_preempts_on_the_card(card):
+    """Lazy pages on the card: GRAPH_CFG's int4 llama-3.2-1b (no draft), 2
+    slots over 7 usable pages of 16 rows, two requests of 48 tokens that
+    cannot both grow: the youngest is preempted, resumes by recompute and
+    every request runs its budget; the decode loop's replays give the host
+    step's ids, logprobs and stats, and every page comes back."""
+    cfg = EngineConfig(**{**GRAPH_CFG, "draft_model": None, "max_draft": 2,
+                          "max_new_tokens": 48, "kv_layout": "paged", "kv_page_size": 16,
+                          "kv_pages": 8, "eos_token_id": -1})
+    eng = Engine(cfg, device=card)
+    host = Engine(cfg, device=card, flags=EnvFlags(sync_steps=True),
+                  target_params=eng.target.params)
+    runs = []
+    for e in (eng, host):
+        b = ContinuousBatcher(e, n_slots=2)
+        for p in ("preempt victim check", "preempt survivor check"):
+            b.submit(p)
+        runs.append((b, b.run()))
+    (b, got), (hb, want) = runs
+    assert b.stats.preemptions >= 1 and b.stats.page_grows > 0
+    assert [b.stats.preemptions, b.stats.page_grows] == [hb.stats.preemptions,
+                                                           hb.stats.page_grows]
+    for g, w in zip(got, want, strict=True):
+        assert len(g["generated_ids"]) == 48
+        for key in ("generated_ids", "token_logprobs", "finish_reason"):
+            assert g[key] == w[key], (key, g[key], w[key])
+    assert b.allocator.free_pages == 7 and not b.state.target_cache.table.any()
+
+
+@pytest.mark.cuda
+def test_capture_after_dead_batchers_in_reference_cycles(card):
+    """Batchers of other engines dropped in reference cycles (each holding
+    its captured graph, its caches and its engine's graph pool) before a
+    new batcher captures its step, with a collection due at almost every
+    allocation: DecodeLoop collects them before the capture and keeps the
+    collector off inside it (freeing a graph's pool there would invalidate
+    the capture); the new batcher then serves."""
+    cfg = EngineConfig(**{**GRAPH_CFG, "max_draft": 1})
+    eng = Engine(cfg, device=card)
+    for _ in range(2):
+        dead = ContinuousBatcher(Engine(cfg, device=card, target_params=eng.target.params,
+                                        draft_params=eng.draft.params), n_slots=2)
+        dead.cycle = dead
+        del dead
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        b = ContinuousBatcher(eng, n_slots=2)
+    finally:
+        gc.set_threshold(*thresholds)
+    assert b._loop.graph is not None and gc.isenabled()
+    b.submit("captured after dead cycles", max_new_tokens=4)
+    assert b.run()[0]["generated_tokens"] == 4

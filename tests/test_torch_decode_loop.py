@@ -11,6 +11,10 @@ convert.params_from_jax: llama-tiny and mistral-tiny with projections x10,
 gemma2-tiny unscaled (at x10 its head repeats one token), norms jittered;
 each draft mixes a second model into the target so that it agrees only some
 of the time.
+
+The in-place step's tests are in test_torch_decode_loop_step.py and
+test_torch_decode_loop_step_gemma.py, the batcher's in
+test_torch_decode_loop_batcher.py; they import their helpers from here.
 """
 
 import copy
@@ -24,7 +28,6 @@ import torch
 
 from llm_inference_lab_tpu.config import EngineConfig as JaxEngineConfig
 from llm_inference_lab_tpu.config import EnvFlags as JaxEnvFlags
-from llm_inference_lab_tpu.core.batching import ContinuousBatcher as JaxBatcher
 from llm_inference_lab_tpu.core.engine import Engine as JaxEngine
 from llm_inference_lab_tpu.models.registry import get_model
 from llm_inference_lab_tpu_torch.config import EngineConfig, EnvFlags
@@ -32,7 +35,7 @@ from llm_inference_lab_tpu_torch.convert import params_from_jax
 from llm_inference_lab_tpu_torch.core.batching import ContinuousBatcher
 from llm_inference_lab_tpu_torch.core.engine import Engine
 from llm_inference_lab_tpu_torch.core.specstep import make_decode_loop
-from llm_inference_lab_tpu_torch.core.state import FIELDS, assign, state_tensors
+from llm_inference_lab_tpu_torch.core.state import FIELDS, state_tensors
 
 PROMPTS = ["The quick brown fox jumps over the lazy dog.", "ring cache check " * 7]
 MULT = {"llama-tiny": 10, "gemma2-tiny": 1, "mistral-tiny": 10}
@@ -45,6 +48,18 @@ CACHES = {
     "ring int8": dict(prefill_chunk=32, kv_ring=True, kv_quantization="int8"),
 }
 SYNC = EnvFlags(sync_steps=True)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The tiny models run on one intra-op thread: beside the other test
+    workers on the same cores, torch's threads wait on each other at every
+    small op (a serving test file ran 4x slower at the default count). The
+    files that import this fixture share it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _jax_model(name, seed):
@@ -93,44 +108,6 @@ def _assert_same_tensors(a, b):
         assert (x is None) == (y is None)
         if x is not None:
             assert x.dtype == y.dtype and torch.equal(x, y)
-
-
-# ------------------------------------------------------- the in-place step
-STEP_CASES = [("llama-tiny", "contiguous"), ("llama-tiny", "paged"), ("llama-tiny", "int8"),
-              ("gemma2-tiny", "contiguous"), ("gemma2-tiny", "paged"),
-              ("mistral-tiny", "ring"), ("mistral-tiny", "ring int8")]
-
-
-@pytest.mark.parametrize("k", [1, 4, None])
-@pytest.mark.parametrize("name,cache", STEP_CASES)
-def test_in_place_step_equals_functional_step(name, cache, k):
-    """Two prompts prefilled alike, then the functional step on one copy of
-    the state and the in-place step on another, until both lanes finished
-    and two steps beyond: every field and every cache tensor is equal bit for
-    bit after each step, the in-place step keeps the state's own tensors,
-    and a step after every lane finished changes no field (steps included).
-    K = 1 and 4 and the baseline (k None), over a contiguous, a paged (page
-    16) and an int8 cache, and mistral-tiny's ring (128 slots, which the
-    119-token prompt's decode wraps), bf16 and int8."""
-    eng = _engine(_config(name, k, max_new_tokens=8, **CACHES[cache]))
-    block, plens, max_len = eng._prompt_block(PROMPTS)
-    prompt = torch.from_numpy(block), torch.from_numpy(plens)
-    functional = eng._prefill(eng._init_state(len(plens), max_len), *prompt)
-    in_place = eng._init_state(len(plens), max_len)  # prefilled as Engine.decode does
-    assign(in_place, eng._prefill(in_place, *prompt))
-    own = state_tensors(in_place)
-    finished = 0
-    for _ in range(eng.config.max_new_tokens + 2):
-        before = _fields(in_place)
-        functional = eng._step(functional)
-        assert eng._step_in_place(in_place) is in_place
-        assert all(a is b for a, b in zip(own, state_tensors(in_place)))
-        _assert_same_tensors(functional, in_place)
-        if not before["active"].any():
-            finished += 1
-            assert all(torch.equal(before[n], getattr(in_place, n)) for n in FIELDS)
-    assert finished >= 2
-    assert int(in_place.steps) < eng.config.max_new_tokens + 2
 
 
 # ------------------------------------------------------ the loop, and JAX
@@ -329,63 +306,3 @@ def test_env_flags_default_to_the_loop():
     assert eng.flags == EnvFlags()
     assert ContinuousBatcher(eng, 2)._loop is not None
     assert ContinuousBatcher(_engine(_config("llama-tiny", 1), SYNC), 2)._loop is None
-
-
-# ------------------------------------------------------------ the batcher
-SERVE = dict(base_model="llama-tiny", draft_model="llama-tiny", max_draft=2, max_new_tokens=16,
-             max_seq_len=256, dtype="float32")
-# Unequal budgets: a short request ends early in a chunk while the others
-# decode on, and its slot is refilled.
-SERVE_REQUESTS = [("serving parity " * n, m) for n, m in ((1, 3), (4, 17), (10, 9), (2, 5))]
-
-
-def _serve(b, chunk):
-    for prompt, budget in SERVE_REQUESTS:
-        b.submit(prompt, max_new_tokens=budget)
-    b._admit_pending()
-    for _ in range(200):
-        if not any(s is not None for s in b._slots):
-            break
-        b.step_chunk(chunk)
-        b._retire_finished()
-        b._admit_pending()
-    return [b._done[i].result for i in sorted(b._done)]
-
-
-@pytest.mark.parametrize("layout", ["contiguous", "paged"])
-@pytest.mark.parametrize("chunk", [1, 3])
-def test_batcher_loop_equals_host_step_and_jax(chunk, layout):
-    """ContinuousBatcher through its decode loop (bound at construction),
-    2 slots, 4 requests with budgets 3, 17, 9 and 5, chunks of 1 and 3
-    steps between polls: every result equals the port's batcher with the
-    functional step (sync_steps) exactly, and ids, proposed and accepted
-    equal the JAX batcher's driven through the same admit / step_chunk /
-    retire calls (token logprobs within 1e-4)."""
-    target, draft = _pair("llama-tiny")
-    kw = dict(SERVE, kv_layout=layout, kv_page_size=16)
-    jeng = JaxEngine(JaxEngineConfig(implementation="hf", kv_lazy_pages=False, **kw),
-                     target_model=target, draft_model=draft)
-    want = _serve(JaxBatcher(jeng, n_slots=2), chunk)
-    got = _serve(ContinuousBatcher(_engine(kw), n_slots=2), chunk)
-    host = _serve(ContinuousBatcher(_engine(kw, SYNC), n_slots=2), chunk)
-    assert len(got) == len(host) == len(want) == len(SERVE_REQUESTS)
-    for g, h, w in zip(got, host, want):
-        for key in ("generated_ids", "token_logprobs", "prompt_logprobs", "proposed", "accepted",
-                    "finish_reason"):
-            assert g[key] == h[key], key
-        for key in ("generated_ids", "proposed", "accepted", "finish_reason"):
-            assert g[key] == w[key], (key, g[key], w[key])
-        np.testing.assert_allclose(g["token_logprobs"], w["token_logprobs"], rtol=0, atol=1e-4)
-    assert [len(r["generated_ids"]) for r in got] == [m for _, m in SERVE_REQUESTS]
-
-
-def test_batcher_refuses_a_replaced_state():
-    """The batcher's loop is bound to the state it made: a step over a state
-    whose tensors were replaced raises instead of replaying over others."""
-    b = ContinuousBatcher(_engine(SERVE), n_slots=2)
-    b.submit("hello", max_new_tokens=4)
-    b._admit_pending()
-    b.step_chunk(1)
-    b.state = copy.deepcopy(b.state)
-    with pytest.raises(ValueError, match="another state"):
-        b.step_chunk(1)

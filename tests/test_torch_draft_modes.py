@@ -30,6 +30,7 @@ from llm_inference_lab_tpu_torch.core.engine import Engine
 from llm_inference_lab_tpu_torch.core.specstep import make_prefill, make_spec_step
 from llm_inference_lab_tpu_torch.core.state import FIELDS, assign, init_state, state_tensors
 from llm_inference_lab_tpu_torch.models.fake import make_fake_model
+from test_torch_decode_loop import one_thread  # noqa: F401
 
 KEYS = ("generated_ids", "proposed", "accepted", "bonus_tokens", "steps")
 MODES = ["medusa", "eagle"]
@@ -294,7 +295,7 @@ def test_batcher_equals_jax_and_generate(mode, layout):
     kw = dict(draft_mode=mode, kv_layout=layout, kv_page_size=16)
     jeng = _jax(**kw)
     want = _serve(JaxBatcher(jeng, n_slots=2))
-    eng = _port(jeng, **kw)
+    eng = _port(jeng, kv_lazy_pages=False, **kw)
     got = _serve(ContinuousBatcher(eng, n_slots=2))
     _same(got, want, ("generated_ids", "proposed", "accepted", "finish_reason"))
     for r, (prompt, budget) in zip(got, SERVE_REQUESTS):

@@ -44,6 +44,7 @@ from llm_inference_lab_tpu_torch.models.paged import PagedKVCache
 from llm_inference_lab_tpu_torch.ops import attention
 from llm_inference_lab_tpu_torch.ops.flash_decode import flash_decode_plain
 from llm_inference_lab_tpu_torch.ops.paged_flash import paged_flash_plain
+from test_torch_decode_loop import one_thread  # noqa: F401
 
 PROMPT = "The quick brown fox jumps over the lazy dog."
 # Attention options of the kernel checks: a score scale other than D**-0.5,
@@ -464,7 +465,8 @@ def test_gemma2_batcher_matches_jax(layout, page_size):
                      target_model=target, draft_model=draft)
     jb = JaxBatcher(jeng, n_slots=3)
     want = _drive(jb, lambda: jb.step_chunk(1), jb._retire_finished)
-    eng = Engine(EngineConfig(kv_layout=layout, kv_page_size=page_size, **SERVE), device="cpu",
+    eng = Engine(EngineConfig(kv_layout=layout, kv_page_size=page_size, kv_lazy_pages=False,
+                              **SERVE), device="cpu",
                  target_params=params_from_jax(target.params),
                  draft_params=params_from_jax(draft.params))
     b = ContinuousBatcher(eng, n_slots=3)

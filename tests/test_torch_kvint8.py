@@ -304,7 +304,7 @@ def test_int8_batcher_matches_jax(layout, page_size):
                      target_model=target, draft_model=draft)
     jb = JaxBatcher(jeng, n_slots=3)
     want = _drive(jb, lambda: jb.step_chunk(1), jb._retire_finished)
-    b = ContinuousBatcher(_port_engine(target, draft, **kw), n_slots=3)
+    b = ContinuousBatcher(_port_engine(target, draft, kv_lazy_pages=False, **kw), n_slots=3)
     assert b.state.target_cache.k.dtype == torch.int8
     got = _drive(b, lambda: b.step_chunk(1), lambda: None)
     assert sorted(got) == sorted(want) == list(range(len(REQUESTS)))

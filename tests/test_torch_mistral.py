@@ -389,7 +389,8 @@ def test_ring_kv_report_is_skipped(ring_runs):
 def test_ring_refusals():
     """A ring needs prefill_chunk, a multiple of 32, and the contiguous
     layout; it stays off where it would not shrink the cache; the batcher
-    refuses a ring engine (it needs incremental admission)."""
+    refuses a ring engine without incremental admission (admit_chunk) and
+    takes one with it."""
     for kw, match in ((dict(prefill_chunk=None), "prefill_chunk"),
                       (dict(prefill_chunk=48), "multiple of 32"),
                       (dict(kv_layout="paged"), "contiguous")):
@@ -400,9 +401,12 @@ def test_ring_refusals():
                    device="cpu")
     assert small.target.config.kv_ring_len is None
     ring = Engine(EngineConfig(**dict(COMMON, draft_model=None, kv_ring=True)), device="cpu")
-    with pytest.raises(NotImplementedError, match="admit_chunk"):
+    with pytest.raises(ValueError, match="admit_chunk"):
         ContinuousBatcher(ring, n_slots=2)
     assert ContinuousBatcher(small, n_slots=2).n_slots == 2
+    served = Engine(EngineConfig(**dict(COMMON, draft_model=None, kv_ring=True, admit_chunk=32)),
+                    device="cpu")
+    assert ContinuousBatcher(served, n_slots=2).ring
 
 
 # ------------------------------------------------ (f) chunked prefill, no ring

@@ -176,6 +176,7 @@ def test_ngram_batcher_equals_jax(layout):
     want = _serve(JaxBatcher(JaxEngine(JaxEngineConfig(implementation="hf", kv_lazy_pages=False,
                                                        **dict(NGRAM, **kw)),
                                        target_model=_target()), n_slots=2))
+    kw["kv_lazy_pages"] = False
     b = ContinuousBatcher(_port(**kw), n_slots=2)
     assert b.state.draft_cache is None
     got = _serve(b)

@@ -153,7 +153,8 @@ def test_batcher_matches_jax(layout, page_size):
     these)."""
     target, draft = _tiny(0), _tiny(0, mix_with=1)
     want = _run_jax(layout, page_size, target, draft)
-    eng = Engine(EngineConfig(kv_layout=layout, kv_page_size=page_size, **COMMON), device="cpu",
+    eng = Engine(EngineConfig(kv_layout=layout, kv_page_size=page_size, kv_lazy_pages=False,
+                              **COMMON), device="cpu",
                  target_params=params_from_jax(target.params),
                  draft_params=params_from_jax(draft.params))
     b = ContinuousBatcher(eng, n_slots=3)
@@ -198,7 +199,8 @@ def test_paged_memory_aware_admission():
     prompts = [f"memory pressure {i} " * 3 for i in range(5)]
 
     def serve(**kw):
-        b = ContinuousBatcher(_tiny_engine(kv_layout="paged", kv_page_size=64, **kw), n_slots=4)
+        b = ContinuousBatcher(_tiny_engine(kv_layout="paged", kv_page_size=64,
+                                           kv_lazy_pages=False, **kw), n_slots=4)
         occupancy = []
         step_chunk = b.step_chunk
 
@@ -217,8 +219,8 @@ def test_paged_memory_aware_admission():
     assert peak == 2 and roomy_peak == 4
     assert b.allocator.free_pages == 4
     assert [r["generated_ids"] for r in out] == [r["generated_ids"] for r in ref]
-    tight = ContinuousBatcher(_tiny_engine(kv_layout="paged", kv_page_size=64, kv_pages=2),
-                              n_slots=2)
+    tight = ContinuousBatcher(_tiny_engine(kv_layout="paged", kv_page_size=64, kv_pages=2,
+                                           kv_lazy_pages=False), n_slots=2)
     tight.submit("x" * 100, max_new_tokens=8)
     with pytest.raises(RuntimeError, match="more KV pages"):
         tight.run()

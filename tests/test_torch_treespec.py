@@ -364,7 +364,7 @@ def test_batcher_equals_jax_and_generate(layout):
     kw = LAYOUTS[layout]
     jeng = _jax(**kw)
     want = _serve(JaxBatcher(jeng, n_slots=2))
-    eng = _port(jeng, **kw)
+    eng = _port(jeng, kv_lazy_pages=False, **kw)
     assert eng._max_k == 10
     got = _serve(ContinuousBatcher(eng, n_slots=2))
     for g, w in zip(got, want, strict=True):
