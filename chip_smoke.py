@@ -2,12 +2,13 @@
 """Smoke run of the PyTorch/CUDA port (llm_inference_lab_tpu_torch) on one
 NVIDIA card: the quickest proof that the port builds and runs on the GPU.
 
-    python3 chip_smoke.py                    # phases 0-15, last line a JSON result
+    python3 chip_smoke.py                    # phases 0-16, last line a JSON result
     python3 chip_smoke.py --profile          # also a torch.profiler breakdown of runs
     python3 chip_smoke.py --profile=gemma    # the breakdown of the Gemma-2 runs only
     python3 chip_smoke.py --profile=mistral  # the breakdown of the Mistral B=1 run only
     python3 chip_smoke.py --profile=sampling # the breakdown of phase 11's sampled run only
     python3 chip_smoke.py --profile=heads    # the breakdown of phases 12 and 13's runs only
+    python3 chip_smoke.py --profile=server   # the breakdown of phase 16's sampled step only
 
 Phases, in order (any failure exits non-zero; nothing is caught and ignored):
  0. the card: nvidia-smi name and power limit, torch's device name, and
@@ -178,12 +179,25 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
     scratch with decode steps between its chunks; ids == phase 8's ring B=1
     ids under the near-tie rule; tok/s, occupancy, admit_ms, the ring's KV
     MB and the full cache's logged;
+16. the OpenAI server on phase 3's weights (run after phase 14; the port's
+    server/serving.py with per-request sampling and the top-5 capture, 8
+    paged slots, on 127.0.0.1 port 0, client threads over the loopback):
+    (a) phase 3b's 16 requests at temperature 0, 8 in flight, each text its
+    ids' and the ids phase 3's B=1 ids under the near-tie rule; (b) 8
+    seeded sampled requests alone and among other traffic give the same
+    ids, another seed others; (c) frequency_penalty 1e4 repeats no token,
+    logit_bias +100 forces its id and -100 bans phase 3's repeated token;
+    (d) stream == non-stream, a stop string cuts the text and frees the
+    slot early; (e) top_logprobs 5 has the greedy token first, sorted;
+    HTTP tok/s against a direct batcher's, the server's loop_ms, a step's
+    device ms static against per-request (every row greedy, every row
+    sampled) and the per-request ops' ms logged;
  9. the kernels' JSON line (every kernel, launches by path; the Gemma-2
     variants of D, E and F, the ring variants of D and E, the ngram
     verify shapes of B, D and C, D's and F's tree variants and A at the 8B
     widths on rows of their own), then the result line.
 
-Every B=1 and serving path (phases 3-8, 10-15) decodes through the decode
+Every B=1 and serving path (phases 3-8, 10-16) decodes through the decode
 loop of core/specstep.py: CUDA-graph replays of the step, captured once a
 shape (the host adaptive controller: a one-step graph a K).
 count_launches adds each replay's captured launches to the wrappers' eager
@@ -367,6 +381,15 @@ ADMIT_CHUNK, ADMIT_MAX_LEN = 512, 4096
 RING_SLOTS = 4
 RING_REQUESTS = [(MISTRAL_LONG, 64), (MISTRAL_LONG, 64)] + [
     (SERVE_PROMPTS[i], SERVE_BUDGETS[i]) for i in range(6)]
+# Phase 16: the OpenAI server (server/serving.py) on phase 3's weights with
+# per-request sampling and the top-5 capture, 8 paged slots, pages of 64;
+# (b)'s seeded requests sample under these filters.
+SERVER_CFG = dict(per_request_sampling=True, logprobs_topk=5, kv_layout="paged",
+                  kv_page_size=SERVE_PAGE, max_seq_len=SERVE_MAX_LEN)
+SERVER_SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.9, min_p=0.05)
+SERVER_CLIENTS = 8  # client threads posting (a)'s 16 requests: 8 in flight
+SERVER_BUDGET = 32  # new tokens of (b)-(e)'s requests
+BIAS_ID = 12345  # (c): the id a +100 logit_bias forces
 # The kernels each path must launch (and no other): the norms (rms_norm
 # once a forward, add_rms_norm twice a layer a forward) and the
 # projections' two kernels (decode rows through the decode body, prefill
@@ -416,6 +439,9 @@ PATH_KERNELS = {
     "serving int4 incremental admission (3000-token prompt among 7)": INT4 | SERVE,
     # Phase 15: Mistral-7B served over the ring (contiguous: D decodes).
     "serving mistral-7b ring incremental admission (8 requests)": INT4 | SPEC,
+    # Phase 16: the OpenAI server over HTTP (phase 3b's requests at
+    # temperature 0, then (b)-(e)): the paged serving path's kernels.
+    "serving int4 OpenAI server, per-request sampling (HTTP)": INT4 | SERVE,
 }
 GEMMA_PATHS = [path for path in PATH_KERNELS if "gemma-2" in path]
 MISTRAL_PATHS = [path for path in PATH_KERNELS if "mistral" in path]
@@ -429,6 +455,7 @@ ADMISSION_PATHS = ["serving int4 lazy pages with preemption (16 requests)",
                    "serving int4 prefix caching (16 requests)",
                    "serving int4 incremental admission (3000-token prompt among 7)"]
 RING_SERVING_PATH = "serving mistral-7b ring incremental admission (8 requests)"
+SERVER_PATH = "serving int4 OpenAI server, per-request sampling (HTTP)"
 
 
 T_START = time.perf_counter()
@@ -3245,6 +3272,357 @@ def phase_admission(dev, eng, paths):
     return launches
 
 
+def http_post(port, path, body):
+    """POST a JSON body to the server on the loopback; its JSON answer."""
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        return json.loads(resp.read())
+
+
+def http_stream(port, path, body):
+    """POST with stream: the deltas' text and the finish_reason."""
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=json.dumps(dict(body, stream=True)).encode(),
+                                 headers={"Content-Type": "application/json"})
+    text, finish = "", None
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        for raw in resp:
+            line = raw.decode().strip()
+            if line == "data: [DONE]":
+                return text, finish
+            if line.startswith("data: "):
+                ch = json.loads(line[6:])["choices"][0]
+                text += ch["text"]
+                finish = ch["finish_reason"] or finish
+    raise AssertionError("the stream ended without [DONE]")
+
+
+def post_all(port, bodies, clients):
+    """Post the bodies from `clients` threads; (answers in order, wall s)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(clients) as ex:
+        outs = list(ex.map(lambda b: http_post(port, "/v1/completions", b), bodies))
+    return outs, time.perf_counter() - t0
+
+
+def replay_ms(loop, n=16):
+    """Device ms of one replay of a decode loop's step (CUDA events around n
+    replays)."""
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    e0.record()
+    loop.replay(n)
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / n
+
+
+def graph_ms(fn, n=20):
+    """Device ms of fn as a captured step runs it: fn captured alone in a
+    CUDA graph, n replays between CUDA events (a replay's launch, a few
+    microseconds, included)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    graph.replay()
+    torch.cuda.synchronize()
+    e0.record()
+    for _ in range(n):
+        graph.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / n
+
+
+def phase_server(dev, eng, profile, path):
+    """Phase 16 on phase 3's int4 3B + 1B weights (K=1; run after phase 14):
+    the port's OpenAI server (server/serving.py InferenceServer) on the card
+    with per-request sampling and the top-5 capture (SERVER_CFG: 8 paged
+    slots, pages of 64), on 127.0.0.1 port 0, client threads posting over
+    the loopback. What the engine thread finalizes is recorded (ids and
+    all), so texts are held to ids. Asserted:
+    (a) phase 3b's 16 requests at temperature 0, 8 in flight (launches
+        counted): each text is its ids' and the ids equal phase 3's B=1
+        generate ids under the near-tie rule;
+    (b) 8 seeded requests (SERVER_SAMPLING) posted one at a time and again
+        among 8 greedy ones: the same ids both times; another seed other
+        ids;
+    (c) frequency_penalty 1e4 repeats no token; logit_bias +100 on one id
+        gives only that id; -100 on phase 3's most repeated token bans it;
+    (d) stream equals non-stream; a stop string cuts the text before it,
+        finish_reason "stop", the slot freed long before its budget;
+    (e) top_logprobs 5 (chat): the greedy token first, with its token
+        logprob, the values sorted.
+    Logged: HTTP tok/s against a direct batcher's on (a)'s requests (in
+    turns), the server's loop_ms, a replay's device ms of the static greedy
+    step against the per-request step with every row greedy and every row
+    sampled, the counts, bias, penalty, sort and top-N ops' ms at the step's
+    shapes, each batcher's capture, graph pool and launches a replay;
+    --profile=server profiles a chunk of sampled replays."""
+    from collections import Counter
+
+    from llm_inference_lab_tpu_torch.core.batching import ContinuousBatcher
+    from llm_inference_lab_tpu_torch.core.engine import Engine
+    from llm_inference_lab_tpu_torch.ops import sampling as ops
+    from llm_inference_lab_tpu_torch.server import InferenceServer
+
+    def engine(**kw):
+        return Engine(replace(eng.config, **kw), device=dev, target_params=eng.target.params,
+                      draft_params=eng.draft.params)
+
+    srv_eng = engine(**SERVER_CFG)
+    server = InferenceServer(srv_eng, n_slots=SERVE_SLOTS, port=0)  # captures its graphs
+    direct = ContinuousBatcher(srv_eng, n_slots=SERVE_SLOTS)
+    graph_report("the server's batcher", [
+        (("per-request step", SERVE_SLOTS, SERVE_MAX_LEN), server.batcher._loop),
+        (("plain greedy step", SERVE_SLOTS, SERVE_MAX_LEN), server.batcher._plain_loop)])
+    records = []  # (prompt, max_tokens, sampling, result) of each finalized request
+    inner_finalize = server._finalize
+
+    def finalize(pend):
+        records.append((pend.prompt, pend.max_tokens, json.dumps(pend.sampling, sort_keys=True),
+                        pend.result))
+        inner_finalize(pend)
+
+    def ids_of(prompt, budget, sampling):
+        key = json.dumps(sampling, sort_keys=True)
+        got = [r["generated_ids"] for p, m, k, r in records if (p, m, k) == (prompt, budget, key)]
+        assert got and all(g == got[0] for g in got), ("one request's runs differ", prompt, key)
+        return got[0]
+
+    server._finalize = finalize
+    server.start()
+    port = server.port
+    unstable_ops = []
+
+    def unstable():
+        if not unstable_ops:
+            unstable_ops.append([op for op, d in row_stability(eng, dev).items()
+                                 if any(d.values())])
+        return unstable_ops[0]
+
+    try:
+        greedy = dict(temperature=0.0)
+        http_post(port, "/v1/completions", dict(prompt=PROMPT, max_tokens=8, **greedy))  # warm-up
+        bodies = [dict(prompt=p, max_tokens=m, **greedy)
+                  for p, m in zip(SERVE_PROMPTS, SERVE_BUDGETS)]
+
+        def direct_run():
+            for p, m in zip(SERVE_PROMPTS, SERVE_BUDGETS):
+                direct.submit(p, max_new_tokens=m, **greedy)
+            t0 = time.perf_counter()
+            rs = direct.run()[-len(SERVE_PROMPTS):]
+            return rs, time.perf_counter() - t0
+
+        def tok_s(answers, wall):
+            return sum(o["usage"]["completion_tokens"] for o in answers) / wall
+
+        turns = {}
+        rs, wall = direct_run()
+        turns["direct"] = [sum(r["generated_tokens"] for r in rs) / wall]
+        loop_before, plain_before = dict(server.loop_ms), server.batcher.stats.plain_steps
+        steps_before = server.batcher.stats.steps
+        (outs, wall), launches = count_launches(path, lambda: post_all(port, bodies,
+                                                                       SERVER_CLIENTS))
+        loop_ms = {k: v - loop_before[k] for k, v in server.loop_ms.items()}
+        plain_steps = (server.batcher.stats.plain_steps - plain_before,
+                       server.batcher.stats.steps - steps_before)
+        http_tok_s = tok_s(outs, wall)
+        turns["HTTP, 8 clients"] = [http_tok_s, tok_s(*post_all(port, bodies, SERVER_CLIENTS))]
+        # Every request queued at once, as the direct batcher has them.
+        turns["HTTP, 16 clients"] = [tok_s(*post_all(port, bodies, len(bodies)))]
+        rs2, wall = direct_run()
+        turns["direct"].append(sum(r["generated_tokens"] for r in rs2) / wall)
+        turns["HTTP, 16 clients"].append(tok_s(*post_all(port, bodies, len(bodies))))
+        # (a): every text is its ids'; the ids are phase 3's B=1 ids.
+        reference = {p: eng.generate(p)["generated_ids"] for p in dict.fromkeys(SERVE_PROMPTS)}
+        ids_a, differ = [], 0
+        for rid, (o, p, m) in enumerate(zip(outs, SERVE_PROMPTS, SERVE_BUDGETS)):
+            ids = ids_of(p, m, greedy)
+            assert o["choices"][0]["text"] == srv_eng.tokenizer.decode(
+                [t for t in ids if t != srv_eng.eos_token_id]), ("text is not its ids'", rid)
+            assert len(ids) == o["usage"]["completion_tokens"] >= 1
+            differ += held_to(eng, dev, unstable, "generate (HTTP)", rid, p,
+                              reference[p][:len(ids)], ids)
+            ids_a.append(ids)
+        for r, ids in zip(rs, ids_a):
+            differ += held_to(eng, dev, unstable, "the HTTP run (direct batcher)", r["req_id"],
+                              SERVE_PROMPTS[r["req_id"] % len(SERVE_PROMPTS)], ids,
+                              r["generated_ids"])
+        ids_digest(path, ids_a)
+        log(f"(a) HTTP ids == B=1 generate ids and == the direct batcher's for "
+            f"{2 * len(outs) - differ} of {2 * len(outs)} (the rest near ties)")
+        # (b) seeded requests alone, then among greedy traffic.
+        seeded = [dict(prompt=SERVE_PROMPTS[i], max_tokens=SERVER_BUDGET, seed=100 + i,
+                       **SERVER_SAMPLING) for i in range(8)]
+        alone = [http_post(port, "/v1/completions", b) for b in seeded]
+        traffic = [dict(prompt=SERVE_PROMPTS[8 + i], max_tokens=SERVER_BUDGET, **greedy)
+                   for i in range(8)]
+        mixed, _ = post_all(port, [b for pair in zip(traffic, seeded) for b in pair], 16)
+        for i, b in enumerate(seeded):
+            assert mixed[2 * i + 1]["choices"][0]["text"] == alone[i]["choices"][0]["text"], i
+            ids_of(b["prompt"], SERVER_BUDGET, {k: v for k, v in b.items()
+                                                if k not in ("prompt", "max_tokens")})
+        other = dict(seeded[0], seed=999)
+        http_post(port, "/v1/completions", other)
+        sampled = {k: v for k, v in seeded[0].items() if k not in ("prompt", "max_tokens")}
+        ids_seed = ids_of(seeded[0]["prompt"], SERVER_BUDGET, sampled)
+        assert ids_of(other["prompt"], SERVER_BUDGET, dict(sampled, seed=999)) != ids_seed, (
+            "another seed gave the same ids")
+        greedy_like = sum(ids_of(b["prompt"], SERVER_BUDGET, {k: v for k, v in b.items() if k
+                                 not in ("prompt", "max_tokens")})
+                          == reference[b["prompt"]][:SERVER_BUDGET] for b in seeded)
+        log(f"(b) 8 seeded requests (temperature 0.8, top_k 50, top_p 0.9, min_p 0.05): the same "
+            f"ids alone and among 8 greedy ones; another seed other ids; {greedy_like} of 8 "
+            "equal the greedy ids")
+        # (c) penalties and biases.
+        base_ids = eng.generate(PROMPT)["generated_ids"][:SERVER_BUDGET]
+        top_token = Counter(base_ids).most_common(1)[0]
+        cases = {"frequency_penalty 1e4": dict(frequency_penalty=1e4),
+                 f"logit_bias +100 on {BIAS_ID}": dict(logit_bias={str(BIAS_ID): 100.0}),
+                 f"logit_bias -100 on {top_token[0]}": dict(logit_bias={str(top_token[0]): -100.0})}
+        got_c = {}
+        for what, kw in cases.items():
+            http_post(port, "/v1/completions", dict(prompt=PROMPT, max_tokens=SERVER_BUDGET,
+                                                     **greedy, **kw))
+            samp = dict(greedy, **kw)
+            if "logit_bias" in samp:
+                samp["logit_bias"] = {int(k): v for k, v in samp["logit_bias"].items()}
+            got_c[what] = ids_of(PROMPT, SERVER_BUDGET, samp)
+        freq = got_c["frequency_penalty 1e4"]
+        assert len(set(freq)) == len(freq) == SERVER_BUDGET, ("a token repeats", freq)
+        assert set(got_c[f"logit_bias +100 on {BIAS_ID}"]) == {BIAS_ID}
+        assert top_token[0] not in got_c[f"logit_bias -100 on {top_token[0]}"]
+        log(f"(c) phase 3's ids repeat {top_token[0]} {top_token[1]} times in {SERVER_BUDGET}; "
+            f"frequency_penalty 1e4: {len(set(freq))} distinct ids; +100 on {BIAS_ID}: only it; "
+            f"-100 on {top_token[0]}: absent")
+        # (d) stream against non-stream; a stop string.
+        body = dict(prompt=SERVE_PROMPTS[1], max_tokens=SERVER_BUDGET, **greedy)
+        full = http_post(port, "/v1/completions", body)["choices"][0]
+        text, finish = http_stream(port, "/v1/completions", body)
+        assert (text, finish) == (full["text"], full["finish_reason"]), "stream != non-stream"
+        long = http_post(port, "/v1/completions", dict(body, max_tokens=64))
+        full_text = long["choices"][0]["text"]
+        stop = full_text[4:6] if len(full_text) >= 6 else full_text[:1]
+        cut = http_post(port, "/v1/completions", dict(body, max_tokens=64, stop=stop))
+        assert cut["choices"][0]["text"] == full_text[:full_text.find(stop)]
+        assert cut["choices"][0]["finish_reason"] == "stop"
+        assert cut["usage"]["completion_tokens"] < 64 == long["usage"]["completion_tokens"], cut
+        log(f"(d) stream == non-stream ({len(text)} chars, {finish}); stop {stop!r}: text cut "
+            f"at {full_text.find(stop)}, the slot freed after "
+            f"{cut['usage']['completion_tokens']} of 64 tokens")
+        # (e) top_logprobs 5.
+        chat = http_post(port, "/v1/chat/completions", dict(
+            messages=[{"role": "user", "content": PROMPT}], max_tokens=16, logprobs=True,
+            top_logprobs=5, **greedy))
+        content = chat["choices"][0]["logprobs"]["content"]
+        (res,) = [r for p, m, k, r in records if m == 16 and p.startswith("user: ")]
+        assert len(content) == len(res["generated_ids"]) == len(res["top_logprobs"])
+        for pos, tok, lp, tops in zip(content, res["generated_ids"], res["token_logprobs"],
+                                      res["top_logprobs"]):
+            assert len(pos["top_logprobs"]) == 5 and tops[0]["id"] == tok
+            assert tops[0]["logprob"] == lp == pos["logprob"]
+            vals = [a["logprob"] for a in tops]
+            assert vals == sorted(vals, reverse=True) and all(math.isfinite(v) for v in vals)
+        log(f"(e) top_logprobs 5 at {len(content)} positions: the greedy token first, sorted")
+        stats = json.loads(urllib_get(port, "/stats"))
+    finally:
+        server.stop()
+    assert server.failure is None, server.failure
+    log(f"serving over HTTP (3B int4 + 1B, K=1, per-request sampling, top-5 capture, 8 slots, "
+        f"8 client threads): {http_tok_s:.2f} tok/s in the counted run ({plain_steps[0]} of "
+        f"{plain_steps[1]} steps on the plain greedy step); in turns direct, HTTP 8 clients "
+        f"x2, HTTP 16 clients, direct, HTTP 16 clients (tok/s): "
+        + "; ".join(f"{what} {', '.join(f'{x:.2f}' for x in v)}" for what, v in turns.items())
+        + "; the server's loop_ms over (a): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in loop_ms.items())
+        + f"; served {stats['served']}")
+    # The per-request step against the static greedy step, one replay's
+    # device time at 8 decoding slots (lanes of 1024, prompts of 45-360).
+    reqs = [(p, 256) for p in SERVE_PROMPTS[:SERVE_SLOTS]]
+    static = ContinuousBatcher(engine(kv_layout="paged", kv_page_size=SERVE_PAGE,
+                                      max_seq_len=SERVE_MAX_LEN, kv_lazy_pages=False),
+                               n_slots=SERVE_SLOTS)
+    per_eng = engine(**SERVER_CFG, kv_lazy_pages=False)
+    per_greedy = ContinuousBatcher(per_eng, n_slots=SERVE_SLOTS)
+    per_sampled = ContinuousBatcher(per_eng, n_slots=SERVE_SLOTS)
+    for b, kw in ((static, {}), (per_greedy, greedy), (per_sampled, SERVER_SAMPLING)):
+        for p, m in reqs:
+            b.submit(p, max_new_tokens=m, **kw)
+        b._admit_pending()
+    loops = {"static greedy": static._loop,
+             "per-request, every row greedy": per_greedy._loop,
+             "per-request, every row sampled": per_sampled._loop,
+             "the plain greedy step the host picks for greedy rows": per_greedy._plain_loop}
+    step = {what: [] for what in loops}
+    for _ in range(3):
+        for what, loop in loops.items():
+            step[what].append(replay_ms(loop))
+    graph_report("the step timings", [((what,), loop) for what, loop in loops.items()])
+    log("a decode step's device ms at 8 slots (3 rounds in turns, 16 replays each): "
+        + "; ".join(f"{what} {', '.join(f'{x:.3f}' for x in ms)}" for what, ms in step.items()))
+    # The per-request work of a K=1 step at its shapes, op by op.
+    V = eng.target.config.vocab_size
+    st = per_sampled.state
+    g = torch.Generator(device=dev).manual_seed(16)
+    rows = torch.randn((SERVE_SLOTS, 2, V), generator=g, device=dev)
+    counts = ops.token_counts(st.tokens, st.lengths, V)
+    d = torch.randint(1, V, (SERVE_SLOTS, 1), generator=g, device=dev, dtype=torch.int32)
+    from llm_inference_lab_tpu_torch.core.specstep import _Controls
+
+    ctl = _Controls(V, True)
+    samp = dict(temperature=st.temperature, top_k=st.top_k, top_p=st.top_p, min_p=st.min_p)
+    window = ctl.window_counts(counts, d)
+    row0 = rows[:, 0].contiguous()
+    op_ms = {
+        "token_counts [8, 1024] -> [8, V]": graph_ms(
+            lambda: ops.token_counts(st.tokens, st.lengths, V)),
+        "logit_bias_row [8, 32] -> [8, V]": graph_ms(
+            lambda: ops.logit_bias_row(st.bias_ids, st.bias_vals, V)),
+        "window counts [8, 2, V]": graph_ms(lambda: ctl.window_counts(counts, d)),
+        "apply_penalties [8, 2, V]": graph_ms(lambda: ops.apply_penalties(
+            rows, window, st.rep_penalty, st.presence_penalty, st.freq_penalty)),
+        "the per-row sort alone [8, V]": graph_ms(
+            lambda: torch.sort(row0, dim=-1, descending=True)),
+        "per-row filters (the sort, softmax, cumsum, masks) [8, V]": graph_ms(
+            lambda: ops.filtered_logits(row0, **samp)),
+        "per-row draw (filters and noise) [8, V]": graph_ms(lambda: ops.sample_tokens(
+            None, row0, **samp, row_keys=st.slot_rng)),
+        "top-5 [8, 2, V]": graph_ms(lambda: torch.topk(rows, 5, dim=-1)),
+    }
+    log(f"per-request ops at a K=1 8-slot step's shapes (V = {V}; each captured alone in a "
+        "graph, CUDA events around 20 replays; a step runs the counts, bias and window once, "
+        "the penalties twice (draft and verify rows), the draw twice (draft and bonus), the "
+        "top-5 once): "
+        + "; ".join(f"{k} {v:.4f} ms" for k, v in op_ms.items()))
+    if profile:
+        profile_run("16 replays of the per-request sampled step",
+                    lambda: per_sampled._loop.replay(16), 16 * statistics.median(
+                        step["per-request, every row sampled"]))
+    return launches
+
+
+def urllib_get(port, path):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=60) as resp:
+        return resp.read().decode()
+
+
 def phase_ring_serving(dev, eng, long_ids, path):
     """Phase 15: Mistral-7B served over the ring, on phase 8's engine and
     weights with admit_chunk = ADMIT_CHUNK (R stays RING_LEN: the chunk is
@@ -3555,6 +3933,7 @@ def main(argv):
     profile_mistral = profile or "--profile=mistral" in argv
     profile_sampling = profile or "--profile=sampling" in argv
     profile_heads = profile or "--profile=heads" in argv
+    profile_server = profile or "--profile=server" in argv
     paths = list(PATH_KERNELS)
     on_path = {}
     t0 = time.perf_counter()
@@ -3575,6 +3954,9 @@ def main(argv):
     t0 = time.perf_counter()
     on_path.update(phase_admission(dev, eng, ADMISSION_PATHS))
     log(f"phase 14 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    on_path[SERVER_PATH] = phase_server(dev, eng, profile_server, SERVER_PATH)
+    log(f"phase 16 took {time.perf_counter() - t0:.1f} s")
     del eng
     t0 = time.perf_counter()
     eng, on_path[paths[2]] = phase_end_to_end(dev, profile, INT8_CFG, paths[2],

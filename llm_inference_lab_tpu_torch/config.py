@@ -3,20 +3,24 @@ EngineConfig that the ported slice reads.
 
 The slice is vanilla drafting from a draft model, ngram drafting from the
 token buffer, Medusa-lite and EAGLE-lite drafting from the target's hidden
-state and tree speculation (``draft_mode``), the five acceptance policies, the three K controllers,
-greedy decoding or engine-level sampling (temperature, min_p, top_k,
-top_p), the real models or the fake test model (``implementation``),
-weight-only int4/int8 and a bf16 or int8 KV cache (per-row scales),
-contiguous or paged, single-shot or chunked prefill, and the rolling-buffer
-cache (``kv_ring``) of uniform sliding-window models; in serving,
-incremental (chunked) admission (``admit_chunk``), lazy page growth with
-preemption (``kv_lazy_pages``, on by default as in JAX) and prefix caching
-(``prefix_caching``). A field of the JAX config with a single ported value
-has no field here until a later slice ports a second value for it. So
-``per_request_sampling`` (off), the penalties (off) and ``logprobs_topk``
-(none) have no field yet. Fields are named and defaulted as in JAX, except
-``implementation``, "hf" here ("fake" in JAX): the port's entry points build
-the named model unless a caller asks for the fake one.
+state and tree speculation (``draft_mode``), the five acceptance policies,
+the three K controllers, greedy decoding or engine-level sampling
+(temperature, min_p, top_k, top_p), HF repetition and OpenAI presence and
+frequency penalties (static, engine-wide), per-request sampling
+(``per_request_sampling``: each slot's filters, penalties, ``logit_bias``
+and seed in the decode state, what the OpenAI server sets), top-N logprobs
+(``logprobs_topk``), the real models or the fake test model
+(``implementation``), weight-only int4/int8 and a bf16 or int8 KV cache
+(per-row scales), contiguous or paged, single-shot or chunked prefill, and
+the rolling-buffer cache (``kv_ring``) of uniform sliding-window models; in
+serving, incremental (chunked) admission (``admit_chunk``), lazy page growth
+with preemption (``kv_lazy_pages``, on by default as in JAX) and prefix
+caching (``prefix_caching``). A field of the JAX config with a single
+ported value has no field here until a later slice ports a second value for
+it. So ``constrain`` and ``tools`` (none: no grammar), ``lora`` (none) and
+``profile`` (off) have no field yet. Fields are named and defaulted as in
+JAX, except ``implementation``, "hf" here ("fake" in JAX): the port's entry
+points build the named model unless a caller asks for the fake one.
 
 ``EnvFlags`` is the port's copy of the JAX package's runtime flags with the
 one field it reads. It has no ``from_env``: the port reads no environment
@@ -69,6 +73,26 @@ class EngineConfig:
     min_p: float = 0.0
     greedy: bool = True
     draft_temperature_scale: float = 1.5
+    # Penalties (off at these values): HF repetition (a seen token's logit
+    # divided by r when positive, multiplied when negative) and OpenAI
+    # presence and frequency (minus p for a seen token, minus f per
+    # occurrence), over the committed text (prompt and generation), before
+    # temperature and the filters. A spec step penalizes verify row i with
+    # the counts of the text and drafts d_1..d_i, so greedy spec ids equal a
+    # penalized baseline's. Not in tree mode.
+    repetition_penalty: float = 1.0
+    presence_penalty: float = 0.0
+    frequency_penalty: float = 0.0
+    # Per-request sampling: temperature, top_k, top_p, min_p, the penalties,
+    # logit_bias and the seed live in the decode state, one value a slot
+    # (the batcher writes a request's at admission; a row at temperature
+    # <= 0 decodes greedily), and each row draws from its slot's key folded
+    # with its committed length. Off: the scalars above are the step's. Not
+    # with policy "rejection" (its distributions are the engine's).
+    per_request_sampling: bool = False
+    # Top-N alternatives (ids and log-probs) of every generated token,
+    # captured from the verify logits at commit; 0 = off (no buffers).
+    logprobs_topk: int = 0
     max_seq_len: int = 1024
     max_new_tokens: int = 64
     dtype: str = "bfloat16"
@@ -175,20 +199,36 @@ class EngineConfig:
                                  "bucket) so no forward ever exceeds the chunk")
         if self.admit_chunk is not None and self.admit_chunk < 0:
             raise ValueError(f"admit_chunk must not be negative, got {self.admit_chunk}")
+        if self.logprobs_topk < 0:
+            raise ValueError(f"logprobs_topk must not be negative, got {self.logprobs_topk}")
+        if self.per_request_sampling and self.policy == "rejection":
+            raise NotImplementedError("per-request sampling parameters are not supported with "
+                                      "the rejection policy (its distributions are the "
+                                      "engine's)")
         if self.draft_mode == "tree":
             self._validate_tree()
 
+    @property
+    def penalized(self) -> bool:
+        """Static penalties set (off at 1.0, 0.0, 0.0)."""
+        return (self.repetition_penalty != 1.0 or self.presence_penalty != 0.0
+                or self.frequency_penalty != 0.0)
+
     def _validate_tree(self) -> None:
         """What JAX's engine refuses in tree mode (the ring: core/engine.py
-        _enable_kv_ring), and what the port's tree step lacks: the
-        rejection policy's draft distributions and the adaptive controllers
-        (JAX's tree step walks greedily, with no K). A binding window with
-        the tree mask raises in the forward, as in JAX."""
+        _enable_kv_ring; penalties: _build_step), and what the port's tree
+        step lacks: the rejection policy's draft distributions and the
+        adaptive controllers (JAX's tree step walks greedily, with no K). A
+        binding window with the tree mask raises in the forward, as in
+        JAX."""
         branching = list(self.tree.get("branching", [3, 2]))
         if not branching or any(int(b) < 1 for b in branching):
             raise ValueError(f"tree branching must be positive integers, got {branching}")
         if self.kv_ring:
             raise ValueError("kv_ring is not supported in tree mode")
+        if self.penalized:
+            raise ValueError("repetition/presence/frequency penalties are not supported in "
+                             "tree mode")
         if self.policy != "longest_prefix":
             raise NotImplementedError(f"tree mode walks the tree greedily; policy "
                                       f"{self.policy!r} is not ported for it")

@@ -48,20 +48,38 @@ the engine's sampling, drawn from the batcher's state key (the engine's
 seed), at a fixed K. Page reservations and the prompt cut leave the step's
 scratch rows, the engine's ``_max_k`` + 2 (a tree's num_nodes + 3).
 
+Per-request controls (``submit``'s keywords, under the engine's
+``per_request_sampling``; JAX ``_admission_meta``): temperature, top_k,
+top_p, min_p, the three penalties, ``logit_bias`` and ``seed`` go into the
+slot's tensors of the decode state on every admission route (a wave, a
+prefix-cached suffix, an incremental splice, a resume), so the captured
+step reads them. A request's key is its seed (or one derived from the
+engine's seed and its id, ``derive_request_seed``), and a row draws from
+it folded with its committed length: a seeded request draws the same
+tokens alone or among others, and a preempted one resumes with the draws it
+would have made. Under ``logprobs_topk`` each result carries
+``top_logprobs`` (a resumed request's earlier positions kept from before
+its preemption). ``poll_generated`` reads every slot's tokens so far (the
+server's streams and stop strings).
+
 The loop here runs POLL_EVERY steps, then reads the slots' flags and
 lengths once (one [4, B] fetch), retires, grows pages, and admits. The
 steps are replays of the engine's decode loop (core/specstep.py
 ``make_decode_loop``, a CUDA graph on the card) over the batcher's own
-state, captured at construction with every lane inactive; admission,
+state, captured at construction with every lane inactive (under
+per-request sampling a second loop of the plain greedy step over the same
+state, which a chunk replays when every decoding request is greedy with no
+penalty or bias: what the per-request step would give them, without its
+counts, bias row and per-row sort); admission,
 growth, preemption, cancel and retirement write that state's tensors in
 place. With the engine's ``EnvFlags(sync_steps=True)`` the batcher runs the
 functional step instead, one call a step.
 
-Left out (ROADMAP Queue 1): fused admission in the decode graph (JAX
-``Engine._get_admit_loop``), overlapped admission, async and prefetched
-polls, the chunk cost model, per-request sampling, penalties,
-``logit_bias`` and seeds, adaptive K (both adaptive controllers raise here),
-top-N logprobs, grammars, LoRA and multi-host serving.
+Left out (ROADMAP Queue 1): grammars and tools (``response_format``
+raises), LoRA (``lora`` raises), adaptive K (both adaptive controllers
+raise here; JAX's ``record_step``), async, prefetched and overlapped polls
+and admission, the chunk cost model, fused admission in the decode graph
+(JAX ``Engine._get_admit_loop``) and multi-host serving.
 """
 
 from __future__ import annotations
@@ -74,18 +92,36 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from llm_inference_lab_tpu_torch.core.engine import Engine, _round_up
+from llm_inference_lab_tpu_torch.core.engine import Engine, _round_up, plain_rows, top_logprobs
 from llm_inference_lab_tpu_torch.core.scheduler import Scheduler
 from llm_inference_lab_tpu_torch.core.specstep import make_decode_loop
-from llm_inference_lab_tpu_torch.core.state import DecodeState, init_state
+from llm_inference_lab_tpu_torch.core.state import N_BIAS, DecodeState, init_state
 from llm_inference_lab_tpu_torch.models.base import Model
 from llm_inference_lab_tpu_torch.models.paged import (
     PageAllocator,
     PagedKVCache,
     PrefixPageCache,
 )
+from llm_inference_lab_tpu_torch.ops.sampling import seed_key
 
 POLL_EVERY = 4  # decode steps between two host reads of the slots' flags
+# The per-slot controls a request may set (submit's keywords) and the state
+# tensor each goes to; the f32 ones travel to the card in one row.
+CONTROLS = {"temperature": "temperature", "top_k": "top_k", "top_p": "top_p",
+            "min_p": "min_p", "repetition_penalty": "rep_penalty",
+            "presence_penalty": "presence_penalty", "frequency_penalty": "freq_penalty"}
+_F32_CONTROLS = ("temperature", "top_p", "min_p", "rep_penalty", "presence_penalty",
+                 "freq_penalty")
+PENALTIES = ("repetition_penalty", "presence_penalty", "frequency_penalty")
+
+
+def derive_request_seed(engine_seed: int, req_id: int, explicit: Optional[int]) -> int:
+    """A request's sampling seed (copy of JAX core/batching.py
+    derive_request_seed): its own, clamped to 31 bits, or one derived from
+    the engine's seed and its id, so a whole serving trace replays."""
+    if explicit is not None:
+        return explicit & 0x7FFFFFFF
+    return (engine_seed * 1000003 + req_id) & 0x7FFFFFFF
 
 
 @dataclass
@@ -108,6 +144,12 @@ class _Request:
     # Proposed and accepted drafts of the slots a preemption took from it.
     prior_proposed: int = 0
     prior_accepted: int = 0
+    # Per-request controls (None: the engine's), its logit_bias and seed.
+    controls: Dict[str, Any] = field(default_factory=dict)
+    logit_bias: Optional[Dict[int, float]] = None
+    seed: Optional[int] = None
+    # The top-N alternatives of the positions generated before a preemption.
+    prior_tops: List[list] = field(default_factory=list)
 
     @property
     def admit_ids(self) -> List[int]:
@@ -129,6 +171,9 @@ class BatcherStats:
     admit_waves: int = 0  # [G, P] admission prefills
     committed_tokens: int = 0  # generated tokens of retired requests
     occupied_slot_steps: int = 0  # sum over steps of occupied slots
+    # Steps run on the plain greedy step: every decoding request greedy and
+    # unpenalized under per-request sampling (Engine._plain).
+    plain_steps: int = 0
     page_grows: int = 0  # lazy page growths (table rows extended)
     preemptions: int = 0  # slots preempted on a dry pool
     # Wall time of admission work: waves, prefix admissions, incremental
@@ -141,6 +186,7 @@ class BatcherStats:
             "admitted": self.admitted,
             "retired": self.retired,
             "steps": self.steps,
+            "plain_steps": self.plain_steps,
             "admit_waves": self.admit_waves,
             "committed_tokens": self.committed_tokens,
             "page_grows": self.page_grows,
@@ -161,10 +207,19 @@ def _token_logprobs(lg: torch.Tensor, nxt: torch.Tensor) -> torch.Tensor:
 
 def _fill_slots(state: DecodeState, slots: torch.Tensor, token_rows: torch.Tensor,
                 lp_rows: torch.Tensor, prompt_lens: torch.Tensor, max_news: torch.Tensor,
-                h_last: Optional[torch.Tensor]) -> None:
+                h_last: Optional[torch.Tensor], controls: tuple) -> None:
     """What every admission writes into its slots' lanes of the decode
     state, in place: tokens and logprob lanes [G, max_len], lengths, budget,
-    active flag, zeroed counters and (head modes) the hidden carry."""
+    active flag, zeroed counters, (head modes) the hidden carry and the
+    requests' controls (ContinuousBatcher._controls: f32 [G, 6 + N_BIAS],
+    int32 [G, 1 + N_BIAS], keys int64 [G])."""
+    f32, i32, keys = controls
+    for j, name in enumerate(_F32_CONTROLS):
+        getattr(state, name)[slots] = f32[:, j]
+    state.bias_vals[slots] = f32[:, len(_F32_CONTROLS):]
+    state.top_k[slots] = i32[:, 0]
+    state.bias_ids[slots] = i32[:, 1:]
+    state.slot_rng[slots] = keys
     state.tokens[slots] = token_rows
     state.token_logprobs[slots] = lp_rows
     state.lengths[slots] = prompt_lens
@@ -215,7 +270,8 @@ def make_admit_many(target_model: Model, draft_model: Optional[Model], hidden: b
     the splice carries their scales with them.
 
     admit(state, rows [G, P], prompt_lens [G], slots [G], max_news [G],
-          table_rows [G, M] or None) -> state, all int32 on the device.
+          table_rows [G, M] or None, controls) -> state, all int32 on the
+    device (controls: _fill_slots').
 
     The prompt logprobs of each prompt token come from the prefill logits.
     hidden (the head modes): the target's hidden row that predicted each
@@ -225,7 +281,7 @@ def make_admit_many(target_model: Model, draft_model: Optional[Model], hidden: b
 
     def admit(state: DecodeState, rows: torch.Tensor, prompt_lens: torch.Tensor,
               slots: torch.Tensor, max_news: torch.Tensor,
-              table_rows: Optional[torch.Tensor]) -> DecodeState:
+              table_rows: Optional[torch.Tensor], controls: tuple) -> DecodeState:
         G, P = rows.shape
         dev = rows.device
         positions = torch.arange(P, dtype=torch.int32, device=dev)[None].repeat(G, 1)
@@ -254,7 +310,8 @@ def make_admit_many(target_model: Model, draft_model: Optional[Model], hidden: b
         if hidden:
             h_idx = (prompt_lens - 2).clamp_min(0).long()
             h_last = hid[torch.arange(G, device=dev), h_idx].float()
-        _fill_slots(state, slots_l, token_rows, lp_lanes, prompt_lens, max_news, h_last)
+        _fill_slots(state, slots_l, token_rows, lp_lanes, prompt_lens, max_news, h_last,
+                    controls)
         return state
 
     return admit
@@ -270,14 +327,14 @@ def make_admit_prefix(target_model: Model, draft_model: Optional[Model], hidden:
     reused pages are never written. reuse_len 0 is a plain paged admission.
 
     admit(state, full_row [1, P], suffix_row [1, S], prompt_len, reuse_len,
-          slot, max_new, table_row [M]) -> state (ints on the host, rows
+          slot, max_new, table_row [M], controls) -> state (ints on the host, rows
     int32 on the device). Prompt logprobs exist for the forwarded suffix
     only (the lane holds 0 at the reused positions); the head modes' carry
     is the hidden row at prompt_len - 2, inside the suffix by the cap."""
 
     def admit(state: DecodeState, full_row: torch.Tensor, suffix_row: torch.Tensor,
               prompt_len: int, reuse_len: int, slot: int, max_new: int,
-              table_row: torch.Tensor) -> DecodeState:
+              table_row: torch.Tensor, controls: tuple) -> DecodeState:
         S = suffix_row.shape[1]
         dev = suffix_row.device
         positions = reuse_len + torch.arange(S, dtype=torch.int32, device=dev)[None]
@@ -310,7 +367,8 @@ def make_admit_prefix(target_model: Model, draft_model: Optional[Model], hidden:
         if hidden:
             h_last = out[2][0, min(max(prompt_len - 2 - reuse_len, 0), S - 1)].float()[None]
         ints = torch.tensor([[slot, prompt_len, max_new]], dtype=torch.int32, device=dev)
-        _fill_slots(state, ints[:, 0].long(), token_row, lp_lane, ints[:, 1], ints[:, 2], h_last)
+        _fill_slots(state, ints[:, 0].long(), token_row, lp_lane, ints[:, 1], ints[:, 2], h_last,
+                    controls)
         return state
 
     return admit
@@ -333,7 +391,8 @@ def make_admit_incremental(target_model: Model, draft_model: Optional[Model], ch
         written into lpbuf, and (hidden) the carry replaced by the hidden
         row at plen - 2 when the chunk holds it;
       splice_fn(state, st, sd, lp_row, h_carry, prompt_row [1, P],
-                prompt_len, slot, max_new, table_row [M] or None) -> state."""
+                prompt_len, slot, max_new, table_row [M] or None, controls)
+        -> state."""
     C = chunk
 
     def chunk_fn(st, sd, lpbuf: torch.Tensor, h_carry: torch.Tensor, tok: torch.Tensor,
@@ -354,7 +413,7 @@ def make_admit_incremental(target_model: Model, draft_model: Optional[Model], ch
 
     def splice_fn(state: DecodeState, st, sd, lp_row: torch.Tensor, h_carry: torch.Tensor,
                   prompt_row: torch.Tensor, prompt_len: int, slot: int, max_new: int,
-                  table_row: Optional[torch.Tensor]) -> DecodeState:
+                  table_row: Optional[torch.Tensor], controls: tuple) -> DecodeState:
         dev = prompt_row.device
         ints = torch.tensor([[slot, prompt_len, max_new]], dtype=torch.int32, device=dev)
         slots = ints[:, 0].long()
@@ -367,7 +426,7 @@ def make_admit_incremental(target_model: Model, draft_model: Optional[Model], ch
         n = min(prompt_row.shape[1], max_len)
         token_row[:, :n] = prompt_row[:, :n]
         _fill_slots(state, slots, token_row, lp_row, ints[:, 1], ints[:, 2],
-                    h_carry if hidden else None)
+                    h_carry if hidden else None, controls)
         return state
 
     return chunk_fn, splice_fn
@@ -443,17 +502,73 @@ class ContinuousBatcher:
             self.state = init_state(engine.target, engine.draft, n_slots, self.max_seq_len,
                                     engine.device, max_new_tokens=cfg.max_new_tokens,
                                     kv_dtype=engine.kv_dtype, seed=cfg.seed,
-                                    init_k=engine.controller.k, **paged_kw)
-            self._loop = None
+                                    init_k=engine.controller.k,
+                                    defaults=engine.sampling_defaults(),
+                                    logprobs_topk=cfg.logprobs_topk, **paged_kw)
+            self._loop = self._plain_loop = None
             if not engine.flags.sync_steps:
                 self._loop = make_decode_loop(engine._step_in_place, pool=engine.graph_pool)
                 self._loop.bind(self.state)
+                if engine._plain is not None:  # the same state, the engine's pool
+                    self._plain_loop = make_decode_loop(engine._plain[1],
+                                                        pool=engine.graph_pool)
+                    self._plain_loop.bind(self.state)
 
-    def submit(self, prompt: str, max_new_tokens: Optional[int] = None) -> int:
-        """Queue a prompt; returns its req_id."""
+    def check_request(self, *, logit_bias: Optional[Dict[int, float]] = None,
+                      seed: Optional[int] = None, response_format: Optional[str] = None,
+                      lora: Optional[str] = None, **controls: Any) -> None:
+        """Refuse what this batcher cannot serve as asked, before anything is
+        queued (host only: the server's handler threads call it): a grammar
+        (``response_format``) or a LoRA adapter, not ported; per-request
+        controls, a logit_bias or a seed on an engine without
+        ``per_request_sampling`` (its step reads the engine's values);
+        penalties in tree mode; more logit_bias pairs than a slot holds
+        (N_BIAS) or an id outside the vocabulary. Raises ValueError or
+        NotImplementedError, naming what."""
+        if response_format is not None:
+            raise NotImplementedError(f"response_format {response_format!r}: grammar-"
+                                      "constrained decoding (JAX constrain/) is not ported")
+        if lora is not None:
+            raise NotImplementedError(f"LoRA adapter {lora!r}: LoRA is not ported")
+        unknown = set(controls) - set(CONTROLS)
+        if unknown:
+            raise TypeError(f"unknown request controls {sorted(unknown)}")
+        given = sorted(k for k, v in controls.items() if v is not None)
+        given += [k for k, v in (("logit_bias", logit_bias), ("seed", seed)) if v is not None]
+        cfg = self.engine.config
+        if given and not cfg.per_request_sampling:
+            raise ValueError(f"per-request {', '.join(given)} need an engine with "
+                             "EngineConfig(per_request_sampling=True)")
+        if self.engine.tree is not None:
+            off = {"repetition_penalty": 1.0, "presence_penalty": 0.0, "frequency_penalty": 0.0}
+            if any(controls.get(k) is not None and controls[k] != off[k] for k in PENALTIES):
+                raise ValueError("repetition/presence/frequency penalties are not supported in "
+                                 "tree mode")
+        if logit_bias:
+            if len(logit_bias) > N_BIAS:
+                raise ValueError(f"logit_bias holds at most {N_BIAS} tokens, got "
+                                 f"{len(logit_bias)}")
+            vocab = self.engine.target.config.vocab_size
+            bad = [t for t in logit_bias if not 0 <= int(t) < vocab]
+            if bad:
+                raise ValueError(f"logit_bias ids outside the vocabulary [0, {vocab}): {bad}")
+
+    def submit(self, prompt: str, max_new_tokens: Optional[int] = None, *,
+               logit_bias: Optional[Dict[int, float]] = None, seed: Optional[int] = None,
+               response_format: Optional[str] = None, lora: Optional[str] = None,
+               **controls: Any) -> int:
+        """Queue a prompt; returns its req_id. controls: temperature, top_k,
+        top_p, min_p, repetition_penalty, presence_penalty and
+        frequency_penalty of this request (None: the engine's); logit_bias
+        {token id: bias}; seed (JAX's submit keywords). What check_request
+        refuses raises here."""
+        self.check_request(logit_bias=logit_bias, seed=seed, response_format=response_format,
+                           lora=lora, **controls)
         max_new = max_new_tokens or self.engine.config.max_new_tokens
         ids = self.engine.encode(prompt, max_new, self.max_seq_len)
-        req = _Request(self._next_id, prompt, ids, max_new)
+        req = _Request(self._next_id, prompt, ids, max_new,
+                       controls={k: v for k, v in controls.items() if v is not None},
+                       logit_bias=dict(logit_bias) if logit_bias else None, seed=seed)
         self._next_id += 1
         self._requests[req.req_id] = req
         self.scheduler.submit(req.req_id, len(ids), max_new)
@@ -476,10 +591,45 @@ class ContinuousBatcher:
                 return True
         return False
 
+    def _controls(self, reqs: List[_Request]) -> tuple:
+        """The requests' controls for _fill_slots, on the device (JAX
+        _admission_meta): f32 [G, 6 + N_BIAS] (temperature, top_p, min_p,
+        the penalties, the bias values), int32 [G, 1 + N_BIAS] (top_k, the
+        bias ids, -1 empty) and int64 [G] keys, the key of each request's
+        seed (derive_request_seed)."""
+        G = len(reqs)
+        f32 = np.zeros((G, len(_F32_CONTROLS) + N_BIAS), np.float32)
+        i32 = np.full((G, 1 + N_BIAS), -1, np.int32)
+        keys = np.zeros((G,), np.int64)
+        for g, req in enumerate(reqs):
+            vals = self._values(req)
+            f32[g, :len(_F32_CONTROLS)] = [vals[name] for name in _F32_CONTROLS]
+            i32[g, 0] = vals["top_k"]
+            for j, (tid, bias) in enumerate((req.logit_bias or {}).items()):
+                i32[g, 1 + j] = int(tid)
+                f32[g, len(_F32_CONTROLS) + j] = float(bias)
+            keys[g] = seed_key(derive_request_seed(self.engine.config.seed, req.req_id,
+                                                   req.seed))
+        dev = self.engine.device
+        return tuple(torch.from_numpy(a).to(dev) for a in (f32, i32, keys))
+
+    def _values(self, req: _Request) -> Dict[str, float]:
+        """A request's sampling values by state field: its own, else the
+        engine's."""
+        vals = self.engine.sampling_defaults()
+        vals.update({CONTROLS[k]: v for k, v in req.controls.items()})
+        return vals
+
+    def _plain_request(self, req: _Request) -> bool:
+        """A request the plain greedy step serves exactly (Engine._plain):
+        greedy, no penalty, no logit_bias."""
+        return plain_rows(self._values(req)) and not req.logit_bias
+
     def _finish_cancelled(self, req: _Request) -> None:
         req.result = {
             "req_id": req.req_id, "text": "", "generated_ids": [], "token_logprobs": [],
-            "prompt_logprobs": None, "generated_tokens": 0, "proposed": 0, "accepted": 0,
+            "prompt_logprobs": None, "top_logprobs": None, "generated_tokens": 0,
+            "proposed": 0, "accepted": 0,
             "acceptance_rate": 0.0, "prompt_tokens_reused": 0,
             "latency_ms": (time.perf_counter() - req.submitted_at) * 1e3,
             "slot": None, "finish_reason": "cancelled",
@@ -622,7 +772,7 @@ class ContinuousBatcher:
         self.state = self._admit_prefix(
             self.state, rows, rows[:, req.reuse_len: req.reuse_len + S], len(ids),
             req.reuse_len, req.slot, req.remaining_new,
-            torch.from_numpy(self._table_row(req)).to(dev))
+            torch.from_numpy(self._table_row(req)).to(dev), self._controls([req]))
         self._slots[req.slot] = req
         self.stats.admitted += 1
         # Publish this request's own full prompt chunks for reuse.
@@ -658,7 +808,7 @@ class ContinuousBatcher:
         plens, slots, max_news = torch.from_numpy(meta).to(dev)
         self.state = self._admit_many(
             self.state, torch.from_numpy(rows).to(dev), plens, slots, max_news,
-            torch.from_numpy(table_rows).to(dev) if self.paged else None)
+            torch.from_numpy(table_rows).to(dev) if self.paged else None, self._controls(reqs))
         for req in reqs:
             self._slots[req.slot] = req
             self.stats.admitted += 1
@@ -736,7 +886,7 @@ class ContinuousBatcher:
         _, splice_fn = self._admit_incr
         self.state = splice_fn(self.state, pf["st"], pf["sd"], pf["lp"], pf["h"], pf["row_dev"],
                                len(req.admit_ids), pf["slot"], req.remaining_new,
-                               pf["table_row"])
+                               pf["table_row"], self._controls([req]))
         req.prefilling = False
         self._prefilling = None
         self.stats.admitted += 1
@@ -765,13 +915,17 @@ class ContinuousBatcher:
         if self.lazy_pages and n * self._commit_bound + self.engine._max_k + 2 > self._grow_margin:
             raise ValueError(f"a chunk of {n} steps can outrun the lazy page margin "
                              f"({self._grow_margin} tokens); take at most {2 * POLL_EVERY}")
-        occupied = sum(r is not None and not r.prefilling for r in self._slots)
+        decoding = [r for r in self._slots if r is not None and not r.prefilling]
+        occupied = len(decoding)
         if occupied:
+            plain = self.engine._plain is not None and all(map(self._plain_request, decoding))
+            self.stats.plain_steps += n if plain else 0
             if self._loop is None:
+                step = self.engine._plain[0] if plain else self.engine._step
                 for _ in range(n):
-                    self.state = self.engine._step(self.state)
-            else:
-                self._loop(self.state, n)  # raises if the state's tensors were replaced
+                    self.state = step(self.state)
+            else:  # raises if the state's tensors were replaced
+                (self._plain_loop if plain else self._loop)(self.state, n)
             self.stats.steps += n
             self.stats.occupied_slot_steps += n * occupied
         self._advance_admission()
@@ -791,6 +945,7 @@ class ContinuousBatcher:
         self._tokens = None  # the token buffer, fetched at most once a poll
         if retiring:
             tokens, logprobs = self._fetch_tokens(), st.token_logprobs.cpu().numpy()
+            tops = self._fetch_tops()
             eng = self.engine
             for slot in retiring:
                 req = self._slots[slot]
@@ -810,6 +965,11 @@ class ContinuousBatcher:
                     "prompt_logprobs": [None] + [
                         None if 0 < reuse and i <= reuse else round(float(x), 6)
                         for i, x in enumerate(logprobs[slot, 1:plen], start=1)],
+                    # A resumed request's positions before its preemption
+                    # come from the slot it held then.
+                    "top_logprobs": (req.prior_tops + top_logprobs(
+                        tops, slot, len(req.admit_ids), lengths[slot])
+                        if tops is not None else None),
                     "generated_tokens": len(gen),
                     "proposed": prop,
                     "accepted": acc,
@@ -839,6 +999,25 @@ class ContinuousBatcher:
         if self._tokens is None:
             self._tokens = self.state.tokens.cpu().numpy()
         return self._tokens
+
+    def _fetch_tops(self):
+        """The top-N buffers (ids, log-probs) on the host, under
+        logprobs_topk (JAX _fetch_tops); None when off."""
+        if not self.engine.config.logprobs_topk:
+            return None
+        return self.state.top_ids.cpu().numpy(), self.state.top_lps.cpu().numpy()
+
+    @torch.inference_mode()
+    def poll_generated(self) -> Dict[int, List[int]]:
+        """The ids each decoding request has generated so far, by req_id (one
+        read of the lengths and the token buffer): the server diffs two
+        polls for its stream deltas and stop strings (JAX
+        poll_generated)."""
+        st = self.state
+        both = torch.cat([st.lengths[:, None], st.tokens], dim=1).cpu().numpy()
+        return {req.req_id: both[slot, 1 + len(req.ids):1 + both[slot, 0]].tolist()
+                for slot, req in enumerate(self._slots)
+                if req is not None and not req.prefilling}
 
     def _clear_tables(self, slots: List[int]) -> None:
         """Zero the slots' table rows. An inactive lane still rides every
@@ -920,6 +1099,10 @@ class ContinuousBatcher:
                 st.active[slot] = False
             else:
                 req, prop, acc = op[2], op[3], op[4]
+                tops = self._fetch_tops()
+                if tops is not None:
+                    req.prior_tops += top_logprobs(tops, slot, len(req.admit_ids),
+                                                   int(lengths[slot]))
                 req.resume_ids = self._fetch_tokens()[slot, : int(lengths[slot])].tolist()
                 st.active[slot] = False
                 self._clear_tables([slot])

@@ -9,6 +9,9 @@ EAGLE-lite drafting from the target's hidden state and tree speculation
 (``draft_mode``; core/treespec.py); the five acceptance policies
 (``policy``); the fixed, the host-side adaptive and the device-side adaptive
 K controller (``controller``); greedy decoding or engine-level sampling;
+static penalties, per-request sampling (each slot's values in the decode
+state, ``sampling_defaults`` without a request's own) and top-N logprobs
+(``top_logprobs`` in each result);
 weight-only int4/int8 with an optional int8 embedding/tied head, a
 contiguous or paged KV cache (``kv_layout``) of the model dtype or int8
 (``kv_quantization``), single-shot or chunked prefill (``prefill_chunk``)
@@ -16,7 +19,7 @@ and the rolling-buffer cache (``kv_ring``). Prompt bucketing, the
 out-of-vocab clamp and the result keys follow the JAX engine. The serving
 path (core/batching.py ContinuousBatcher) drives the same step and reads
 ``encode``, ``is_spec``, ``_max_k``, ``eos_token_id``, ``flags``,
-``controller``, ``_step``, ``_step_in_place`` and ``graph_pool`` from here,
+``controller``, ``_step``, ``_step_in_place``, ``_plain`` and ``graph_pool`` from here,
 and ``decode`` hands the final state (committed tokens and caches) to a
 caller such as core/kv_verify.py.
 
@@ -75,6 +78,25 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def plain_rows(values: Dict[str, float]) -> bool:
+    """A row's sampling values (sampling_defaults' keys) are greedy with no
+    penalty: the plain greedy step gives it what the per-request step
+    does (the bias is the caller's to check)."""
+    return (values["temperature"] <= 0.0 and values["rep_penalty"] == 1.0
+            and values["presence_penalty"] == 0.0 and values["freq_penalty"] == 0.0)
+
+
+def top_logprobs(tops: Tuple[np.ndarray, np.ndarray], row: int, start: int,
+                 end: int) -> List[List[Dict[str, Any]]]:
+    """Positions start .. end - 1 of a row of the top-N buffers (ids, log
+    probs [B, max_len, N] on the host) as JAX's result lists them: for each
+    position N {"id", "logprob"} dicts, the most likely first."""
+    ids, lps = tops
+    return [[{"id": int(i), "logprob": round(float(lp), 6)} for i, lp in zip(ids[row, p],
+                                                                             lps[row, p])]
+            for p in range(start, end)]
 
 
 class Engine:
@@ -141,6 +163,17 @@ class Engine:
                    else cfg.max_draft)
         self._step, self._step_in_place = self._build_step(self._k), self._build_step(
             self._k, in_place=True)
+        # Under per-request sampling the step computes the counts, the bias
+        # row and the per-row filters at every row's values, greedy or not (a
+        # captured graph cannot branch on them). Rows that are all greedy with
+        # no penalty or bias get exactly the plain greedy step's tokens and
+        # logprobs, so the host picks that step for them: `plain` (functional,
+        # in place), or None without per-request sampling, and with Medusa
+        # heads that sample (greedy=False): their drafts would differ.
+        self._plain = ((self._build_step(self._k, plain=True),
+                        self._build_step(self._k, in_place=True, plain=True))
+                       if cfg.per_request_sampling
+                       and (cfg.greedy or cfg.draft_mode != "medusa") else None)
         self._steps_by_k: Dict[int, Any] = {}  # the host adaptive controller's steps
         # The decode loops' graphs of this engine share one memory pool: they
         # never run at once.
@@ -176,18 +209,27 @@ class Engine:
             proj = proj + 0.02 * torch.randn((H, D, D), generator=g, device=self.device)
         return {"medusa_proj": proj.to(dtype).contiguous()}
 
-    def _build_step(self, k: int, in_place: bool = False):
+    def _build_step(self, k: int, in_place: bool = False, plain: bool = False):
         """The step at K = k (the baseline step when not speculative; the
-        tree's step, which has no K, in tree mode)."""
+        tree's step, which has no K, in tree mode); plain: the greedy step
+        with no penalty and no per-request work (what per-request rows that
+        are all greedy and unpenalized get)."""
         cfg = self.config
         samp = dict(greedy=cfg.greedy, temperature=cfg.temperature, top_k=cfg.top_k,
                     top_p=cfg.top_p, min_p=cfg.min_p, eos_token_id=self.eos_token_id,
-                    in_place=in_place)
-        if not self.is_spec:
-            return make_baseline_step(self.target, **samp)
-        if self.tree is not None:
+                    per_request_sampling=cfg.per_request_sampling,
+                    logprobs_topk=cfg.logprobs_topk, in_place=in_place)
+        if plain:
+            samp.update(greedy=True, per_request_sampling=False)
+        if self.tree is not None:  # config.py refuses penalties in tree mode
             return make_tree_spec_step(self.target, self.tree, draft_params=self._draft_params,
                                        **samp)
+        if not plain:
+            samp.update(repetition_penalty=cfg.repetition_penalty,
+                        presence_penalty=cfg.presence_penalty,
+                        frequency_penalty=cfg.frequency_penalty)
+        if not self.is_spec:
+            return make_baseline_step(self.target, **samp)
         adaptive = isinstance(self.controller, AdaptiveDeviceKController)
         return make_spec_step(
             self.target, self.draft, k=k, policy_fn=self.policy_fn,
@@ -279,7 +321,7 @@ class Engine:
                 self.polls += 1
                 if not bool(state.active.any()):
                     break
-                state = self._step(state)
+                state = self._decode_steps()[0](state)
         else:
             self._run_loop(loop, state, plens, max_new)
         self._sync()
@@ -303,12 +345,31 @@ class Engine:
             block[i, : len(e)] = e
         return block, plens, _round_up(P + cfg.max_new_tokens + self._max_k + 2, 128)
 
+    def sampling_defaults(self) -> Dict[str, float]:
+        """Each slot's sampling values with no request's own (JAX's
+        _default_sampling and penalties): temperature 0 when greedy (a row
+        at temperature <= 0 is greedy), the config's filters and
+        penalties."""
+        cfg = self.config
+        return dict(temperature=0.0 if cfg.greedy else cfg.temperature, top_k=cfg.top_k,
+                    top_p=cfg.top_p, min_p=cfg.min_p, rep_penalty=cfg.repetition_penalty,
+                    presence_penalty=cfg.presence_penalty, freq_penalty=cfg.frequency_penalty)
+
+    def _decode_steps(self):
+        """(functional, in place) steps of generate: the plain pair when
+        per-request sampling's rows, all at the config's values, are greedy
+        and unpenalized (plain_rows)."""
+        if self._plain is not None and plain_rows(self.sampling_defaults()):
+            return self._plain
+        return self._step, self._step_in_place
+
     def _init_state(self, B: int, max_len: int, seed: Optional[int] = None) -> DecodeState:
         cfg = self.config
         return init_state(self.target, self.draft, B, max_len, self.device,
                           max_new_tokens=cfg.max_new_tokens, paged=cfg.kv_layout == "paged",
                           page_size=cfg.kv_page_size, kv_dtype=self.kv_dtype,
-                          seed=cfg.seed if seed is None else seed, init_k=self.controller.k)
+                          seed=cfg.seed if seed is None else seed, init_k=self.controller.k,
+                          defaults=self.sampling_defaults(), logprobs_topk=cfg.logprobs_topk)
 
     def _decode_state(self, B: int, max_len: int,
                       seed: Optional[int] = None) -> Tuple[DecodeState, DecodeLoop]:
@@ -318,10 +379,11 @@ class Engine:
         held = self._decode_states.get((B, max_len))
         if held is None:
             held = (self._init_state(B, max_len, seed),
-                    make_decode_loop(self._step_in_place, pool=self.graph_pool))
+                    make_decode_loop(self._decode_steps()[1], pool=self.graph_pool))
             self._decode_states[(B, max_len)] = held
         else:
-            reset_state(held[0], self.config.max_new_tokens, seed, self.controller.k)
+            reset_state(held[0], self.config.max_new_tokens, seed, self.controller.k,
+                        self.sampling_defaults())
         return held
 
     def _run_loop(self, loop: DecodeLoop, state: DecodeState, plens: np.ndarray,
@@ -416,6 +478,8 @@ class Engine:
         proposed = state.proposed.cpu().numpy()
         accepted = state.accepted.cpu().numpy()
         bonus = state.bonus.cpu().numpy()
+        tops = ((state.top_ids.cpu().numpy(), state.top_lps.cpu().numpy())
+                if cfg.logprobs_topk else None)
         mem = self._memory()
         controller = self.controller.info()
         if isinstance(self.controller, AdaptiveDeviceKController):
@@ -440,7 +504,8 @@ class Engine:
                 "token_logprobs": [round(float(x), 6) for x in logprobs[b, plens[b]: lengths[b]]],
                 "prompt_logprobs": [None] + [round(float(x), 6)
                                              for x in logprobs[b, 1: plens[b]]],
-                "top_logprobs": None,
+                "top_logprobs": (top_logprobs(tops, b, plens[b], lengths[b])
+                                 if tops is not None else None),
                 "latency_ms": total_s * 1e3,
                 "generation_time_ms": decode_s * 1e3,
                 "proposed": prop_b,

@@ -53,7 +53,14 @@ from llm_inference_lab_tpu_torch.models import transformer
 from llm_inference_lab_tpu_torch.models.base import Model, cache_slots
 from llm_inference_lab_tpu_torch.models.paged import PagedKVCache, page_slots
 from llm_inference_lab_tpu_torch.ops import kernel_wrappers
-from llm_inference_lab_tpu_torch.ops.sampling import fold, sample_tokens
+from llm_inference_lab_tpu_torch.ops.sampling import (
+    apply_penalties,
+    fold,
+    fold_rows,
+    logit_bias_row,
+    sample_tokens,
+    token_counts,
+)
 
 # Sites of the step's keys, folded into the state's key (JAX splits it into
 # these four): the next step's key, the draft positions', the policy's and
@@ -70,12 +77,120 @@ def _gather_last(tokens: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
 def _write_rows(buf: torch.Tensor, vals: torch.Tensor, start: torch.Tensor,
                 active: torch.Tensor) -> torch.Tensor:
     """buf[b, start[b] : start[b]+n] = vals[b] for active rows, with the start
-    clamped so the block fits (dynamic_update_slice semantics)."""
+    clamped so the block fits (dynamic_update_slice semantics); trailing
+    dims (the top-N buffers' N) ride along."""
     n = vals.shape[1]
     start = start.clamp(0, buf.shape[1] - n)
     idx = start[:, None].long() + torch.arange(n, device=buf.device)[None]
-    written = buf.scatter(1, idx, vals.to(buf.dtype))
-    return torch.where(active[:, None], written, buf)
+    trail = (1,) * (buf.ndim - 2)
+    written = buf.scatter(1, idx.reshape(idx.shape + trail).expand(vals.shape),
+                          vals.to(buf.dtype))
+    return torch.where(active.reshape(active.shape + (1,) + trail), written, buf)
+
+
+def _top_n(state: DecodeState, logits: torch.Tensor, logz: torch.Tensor, n: int) -> dict:
+    """The top-N capture at commit (JAX's logprobs_topk): the n largest
+    logits [B, S, V] of each write slot, as ids and log-probs (minus logz
+    [B, S]), written from each active lane's length; nothing when n is 0."""
+    if not n:
+        return {}
+    vals, ids = torch.topk(logits, n, dim=-1)
+    lps = vals - logz[..., None]
+    return dict(top_ids=_write_rows(state.top_ids, ids.to(torch.int32), state.lengths,
+                                    state.active),
+                top_lps=_write_rows(state.top_lps, lps, state.lengths, state.active))
+
+
+class _Controls:
+    """The per-request and penalty path of a step (JAX make_spec_step's
+    ``sctx``, ``_ctx_penalize`` and ``_draft_samp``): penalties (static
+    engine values, or each slot's under per_request_sampling) and each
+    slot's logit_bias, applied before temperature and the filters, and the
+    sampling settings of each site. Per-request rows draw from their slot's
+    key folded with their committed length and the site (the draft position
+    i, K for the bonus), so a request's stream depends on its own seed,
+    prompt and parameters only.
+
+    Everything is branch-free (JAX skips the counts and the bias with
+    lax.cond when no slot uses them; a captured graph cannot branch on the
+    host): at the off values the arithmetic leaves every logit as it is
+    (x / 1, x * 1, x - 0 - 0, x + 0)."""
+
+    def __init__(self, vocab: int, per_request: bool, penalties: tuple = (1.0, 0.0, 0.0),
+                 draft_vocab_ok: bool = True, penalize: bool = True):
+        self.V = vocab
+        self.per_request = per_request
+        self.static_pen = penalties
+        self.use_pen = penalize and (per_request or penalties != (1.0, 0.0, 0.0))
+        self.use_bias = per_request
+        # Counts and bias rows are indexed by the target's ids: a draft of
+        # another vocabulary proposes unpenalized (static penalties refuse
+        # it, as JAX's do).
+        self.draft_ok = draft_vocab_ok
+        if self.use_pen and not per_request and not draft_vocab_ok:
+            raise ValueError("penalties need draft and target to share a vocabulary")
+
+    @property
+    def active(self) -> bool:
+        return self.use_pen or self.use_bias
+
+    def context(self, state: DecodeState) -> dict:
+        """What a step computes once: [B, V] counts of the committed text,
+        the [B, V] bias row and the rows' keys at this length."""
+        ctx = {}
+        if self.per_request:
+            ctx["row_keys"] = fold(state.slot_rng, state.lengths.long())
+        if self.use_pen:
+            ctx["counts"] = token_counts(state.tokens, state.lengths, self.V)
+        if self.use_bias:
+            ctx["bias"] = logit_bias_row(state.bias_ids, state.bias_vals, self.V)
+        return ctx
+
+    def penalties(self, state: DecodeState) -> tuple:
+        if self.per_request:
+            return state.rep_penalty, state.presence_penalty, state.freq_penalty
+        return self.static_pen
+
+    def apply(self, state: DecodeState, ctx: dict, logits: torch.Tensor, counts,
+              draft_side: bool = False) -> torch.Tensor:
+        """Penalties with `counts` ([B, V] or [B, S, V]) and then the bias,
+        on logits [B, V] or [B, S, V], in f32."""
+        if not self.active or (draft_side and not self.draft_ok):
+            return logits
+        x = logits.float()
+        if self.use_pen:
+            x = apply_penalties(x, counts, *self.penalties(state))
+        if self.use_bias:
+            bias = ctx["bias"]
+            x = x + (bias[:, None] if x.ndim == 3 else bias)
+        return x
+
+    def bump(self, counts: Optional[torch.Tensor], tok: torch.Tensor) -> Optional[torch.Tensor]:
+        """counts after each row commits tok [B] (the draft's incremental
+        counts)."""
+        if not self.use_pen:
+            return counts
+        return counts.scatter_add(1, tok[:, None].long(), torch.ones_like(counts[:, :1]))
+
+    def window_counts(self, counts: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+        """[B, K+1, V]: row i counts the committed text and d_1..d_i (JAX's
+        exclusive cumsum of one_hot(d)), the counts each verify row's write
+        slot has seen."""
+        B, K = d.shape
+        dev = d.device
+        before = (torch.arange(K, device=dev)[None, None, :]
+                  < torch.arange(K + 1, device=dev)[None, :, None]).to(counts.dtype)
+        return counts[:, None].expand(B, K + 1, self.V).contiguous().scatter_add_(
+            2, d[:, None, :].expand(B, K + 1, K).long(), before.expand(B, K + 1, K))
+
+    def row_samp(self, state: DecodeState, ctx: dict, site: Optional[int],
+                 temp_scale: float = 1.0):
+        """sample_tokens' keyword arguments for the rows at `site` (None: the
+        rows' keys as they are, the baseline's one site): each slot's filters
+        (its temperature / temp_scale) and keys."""
+        keys = ctx["row_keys"] if site is None else fold_rows(ctx["row_keys"], site)
+        return dict(temperature=state.temperature / temp_scale, top_k=state.top_k,
+                    top_p=state.top_p, min_p=state.min_p, greedy=False, row_keys=keys)
 
 
 def _in_place(step):
@@ -121,7 +236,10 @@ def make_spec_step(target_model: Model, draft_model: Optional[Model], *, k: int,
                    eos_token_id: Optional[int] = None, draft_mode: str = "vanilla",
                    ngram_cfg: Optional[dict] = None, adaptive_cfg: Optional[dict] = None,
                    draft_params: Optional[dict] = None, medusa_cfg: Optional[dict] = None,
-                   eagle_cfg: Optional[dict] = None, in_place: bool = False):
+                   eagle_cfg: Optional[dict] = None, repetition_penalty: float = 1.0,
+                   presence_penalty: float = 0.0, frequency_penalty: float = 0.0,
+                   per_request_sampling: bool = False, logprobs_topk: int = 0,
+                   in_place: bool = False):
     """Build step(state) -> state for speculative decoding.
 
     draft_mode "vanilla" drafts with draft_model, sampling at temperature /
@@ -153,10 +271,24 @@ def make_spec_step(target_model: Model, draft_model: Optional[Model], *, k: int,
     of the head over h_{i+1} = h_i + alpha (h_i - h_{i-1}), from h_0 =
     last_hidden and h_{-1} = prev_hidden (f32, cast for the head). JAX calls
     the head once a draft position; no head input depends on an earlier
-    head's logits here (no penalties, no grammar), so the K inputs go
-    through ONE head call of [B * K, D] rows. Both draft all K heads under
+    head's logits here (penalties and a bias act on its output), so the K
+    inputs go through ONE head call of [B * K, D] rows. Both draft all K heads under
     the device-side adaptive controller, and acceptance clips, as JAX's
-    do."""
+    do. With penalties or a bias the K proposals are still taken in order,
+    each from its head's row penalized with the counts of the drafts before
+    it.
+
+    Penalties (static, or each slot's under per_request_sampling) and each
+    slot's logit_bias apply to every draft row and verify row before
+    temperature and the filters; verify row i with the counts of the text
+    and d_1..d_i (_Controls). per_request_sampling: every sampling site
+    (the draft, the bonus) reads each slot's filters and draws from its own
+    key; a row at temperature <= 0 is greedy; not with ``rejection``.
+    logprobs_topk N: the top-N alternatives of every written slot, from the
+    verify logits, into ``top_ids`` / ``top_lps``."""
+    if per_request_sampling and policy_fn is policies.rejection:
+        raise NotImplementedError("per-request sampling parameters are not supported with the "
+                                  "rejection policy (its distributions are the engine's)")
     K = int(k)
     if draft_mode not in ("vanilla", "ngram", "medusa", "eagle"):
         raise ValueError(f"unknown chain draft_mode {draft_mode!r} (tree speculation is "
@@ -194,9 +326,14 @@ def make_spec_step(target_model: Model, draft_model: Optional[Model], *, k: int,
     a_alpha = 2.0 / (float((adaptive_cfg or {}).get("window", 32)) + 1.0)
     a_step = int((adaptive_cfg or {}).get("step_size", 1))
     ngram_n = int((ngram_cfg or {}).get("n", 2))
+    ctl = _Controls(target_model.config.vocab_size, per_request_sampling,
+                    (repetition_penalty, presence_penalty, frequency_penalty),
+                    draft_vocab_ok=not (draft_mode == "vanilla" and draft_model.config.vocab_size
+                                        != target_model.config.vocab_size))
 
-    def draft_vanilla(state, last, base, key, eff_k_max):
+    def draft_vanilla(state, last, base, key, eff_k_max, ctx):
         x, drafts, logit_rows = last, [], []
+        cnt = ctx.get("counts")
         for i in range(K):
             pos = base + i
             # Past min_k a forward may lie beyond eff_k_max: keep the draft
@@ -207,8 +344,14 @@ def make_spec_step(target_model: Model, draft_model: Optional[Model], *, k: int,
                                             pos)
                 saved = [t[index] for t in tensors]
             logits, _ = draft_model.forward(x[:, None], pos[:, None], state.draft_cache, pos)
-            row = logits[:, 0]
-            x = sample_tokens(fold(key, i) if stochastic else None, row, **draft_samp)
+            row = ctl.apply(state, ctx, logits[:, 0], cnt, draft_side=True)
+            if per_request_sampling:
+                x = sample_tokens(None, row, **ctl.row_samp(state, ctx, i,
+                                                             draft_temperature_scale))
+            else:
+                x = sample_tokens(fold(key, i) if stochastic else None, row, **draft_samp)
+            if ctl.draft_ok:
+                cnt = ctl.bump(cnt, x)
             if extra:
                 ran = eff_k_max > i
                 for t, old in zip(tensors, saved):
@@ -221,7 +364,9 @@ def make_spec_step(target_model: Model, draft_model: Optional[Model], *, k: int,
                 logit_rows.append(row)
         return torch.stack(drafts, 1), torch.stack(logit_rows, 1) if need_draft_logits else None
 
-    def draft_ngram(state, last, base, key, eff_k_max):
+    def draft_ngram(state, last, base, key, eff_k_max, ctx):
+        # Proposals are lookups: penalties and the bias act on the verify
+        # side only (a proposal they would change fails verification).
         tokens, lengths = state.tokens, state.lengths
         T = tokens.shape[1]
         N = ngram_n
@@ -245,30 +390,42 @@ def make_spec_step(target_model: Model, draft_model: Optional[Model], *, k: int,
         onehot = torch.arange(V, dtype=torch.int32, device=dev)[None, None] == d[..., None]
         return d, torch.where(onehot, 0.0, -30.0)
 
-    def head_proposals(inputs, key):
+    def head_proposals(state, inputs, key, ctx):
         """One head call over inputs [B, K, D] (the model dtype): the K
         proposals [B, K] and, for a policy that reads them, the f32 head
-        logits [B, K, V]."""
+        logits [B, K, V]. With penalties or a bias, proposal i is taken from
+        its row penalized with the counts of the proposals before it."""
         B = inputs.shape[0]
         logits = target_model.head(inputs.reshape(B * K, -1)).reshape(B, K, -1)
-        if head_sampled:
-            d = torch.stack([sample_tokens(fold(key, i), logits[:, i], temperature=m_temp,
-                                           top_p=m_top_p) for i in range(K)], 1)
-        else:
-            d = torch.argmax(logits, dim=-1).to(torch.int32)
-        return d, logits if need_draft_logits else None
+        if not ctl.active and not head_sampled:
+            return torch.argmax(logits, dim=-1).to(torch.int32), (
+                logits if need_draft_logits else None)
+        cnt, ds, rows = ctx.get("counts"), [], []
+        for i in range(K):
+            row = ctl.apply(state, ctx, logits[:, i], cnt)
+            if not head_sampled:
+                d_i = torch.argmax(row, dim=-1).to(torch.int32)
+            else:
+                d_i = sample_tokens(None if per_request_sampling else fold(key, i), row,
+                                    temperature=m_temp, top_p=m_top_p,
+                                    row_keys=(fold_rows(ctx["row_keys"], i)
+                                              if per_request_sampling else None))
+            cnt = ctl.bump(cnt, d_i)
+            ds.append(d_i)
+            rows.append(row)
+        return torch.stack(ds, 1), torch.stack(rows, 1) if need_draft_logits else None
 
-    def draft_medusa(state, last, base, key, eff_k_max):
+    def draft_medusa(state, last, base, key, eff_k_max, ctx):
         h = state.last_hidden.to(compute_dtype)  # [B, D]
         inputs = torch.matmul(h, proj[:K].to(compute_dtype))  # [K, B, D], one batched product
-        return head_proposals(inputs.transpose(0, 1), key)
+        return head_proposals(state, inputs.transpose(0, 1), key, ctx)
 
-    def draft_eagle(state, last, base, key, eff_k_max):
+    def draft_eagle(state, last, base, key, eff_k_max, ctx):
         h_prev, h_cur, hs = state.prev_hidden, state.last_hidden, []
         for _ in range(K):
             h_prev, h_cur = h_cur, h_cur + eagle_alpha * (h_cur - h_prev)
             hs.append(h_cur)
-        return head_proposals(torch.stack(hs, 1).to(compute_dtype), key)
+        return head_proposals(state, torch.stack(hs, 1).to(compute_dtype), key, ctx)
 
     draft_fn = {"vanilla": draft_vanilla, "ngram": draft_ngram, "medusa": draft_medusa,
                 "eagle": draft_eagle}[draft_mode]
@@ -287,9 +444,10 @@ def make_spec_step(target_model: Model, draft_model: Optional[Model], *, k: int,
             eff_k, eff_k_max = K, K
 
         # ---- 1. Draft K tokens ----
+        ctx = ctl.context(state)
         d, draft_logits = draft_fn(state, last, base,
                                    fold(state.rng, _DRAFT) if stochastic or head_sampled
-                                   else None, eff_k_max)
+                                   else None, eff_k_max, ctx)
 
         # ---- 2. Verify: ONE forward over K+1 positions ----
         arange = torch.arange(K + 1, dtype=torch.int32, device=dev)[None, :]
@@ -298,6 +456,12 @@ def make_spec_step(target_model: Model, draft_model: Optional[Model], *, k: int,
         target_logits, _, *hidden = target_model.forward(verify_in, positions,
                                                          state.target_cache, base,
                                                          return_hidden=heads)
+        if ctl.active:
+            # Verify row i predicts write slot i, having seen the text and
+            # d_1..d_i: the counts the draft saw when it proposed d_{i+1}.
+            target_logits = ctl.apply(state, ctx, target_logits,
+                                      ctl.window_counts(ctx["counts"], d) if ctl.use_pen
+                                      else None)
 
         # ---- 3. Acceptance ----
         a = policy_fn(fold(state.rng, _POLICY) if rejecting else None, d, draft_logits,
@@ -329,7 +493,10 @@ def make_spec_step(target_model: Model, draft_model: Optional[Model], *, k: int,
             bonus = sample_tokens(key_bonus, bonus_logits, temperature=1.0, greedy=greedy)
         else:
             bonus_logits = target_logits[torch.arange(B, device=dev), a.long()]
-            bonus = sample_tokens(key_bonus, bonus_logits, **samp)
+            if per_request_sampling:  # site K: the draft's sites are 0 .. K-1
+                bonus = sample_tokens(None, bonus_logits, **ctl.row_samp(state, ctx, K))
+            else:
+                bonus = sample_tokens(key_bonus, bonus_logits, **samp)
 
         # ---- 5. Commit ----
         d_pad = torch.cat([d, d[:, -1:]], dim=1)  # [B, K+1]
@@ -351,6 +518,7 @@ def make_spec_step(target_model: Model, draft_model: Optional[Model], *, k: int,
         tok_logit = target_logits.gather(-1, write_vals[..., None].long())[..., 0]
         new_lp = _write_rows(state.token_logprobs, tok_logit - logz, state.lengths,
                              state.active)
+        tops = _top_n(state, target_logits, logz, logprobs_topk)
 
         new_lengths = state.lengths + commit
         if eos_token_id is not None:
@@ -379,6 +547,7 @@ def make_spec_step(target_model: Model, draft_model: Optional[Model], *, k: int,
             ctrl_k=new_ctrl_k,
             acc_ema=new_ema,
             **carry,
+            **tops,
         )
 
     return _in_place(step) if in_place else step
@@ -395,25 +564,40 @@ def hidden_carry(state: DecodeState, h_row: torch.Tensor) -> dict:
 
 def make_baseline_step(target_model: Model, *, greedy: bool = True, temperature: float = 1.0,
                        top_k: int = 0, top_p: float = 1.0, min_p: float = 0.0,
-                       eos_token_id: Optional[int] = None, in_place: bool = False):
+                       eos_token_id: Optional[int] = None, repetition_penalty: float = 1.0,
+                       presence_penalty: float = 0.0, frequency_penalty: float = 0.0,
+                       per_request_sampling: bool = False, logprobs_topk: int = 0,
+                       in_place: bool = False):
     """Non-speculative step: forward the last token, then the argmax
-    (greedy) or a draw under the engine's filters."""
+    (greedy) or a draw under the engine's filters; penalties and the bias
+    (as the spec step's) before either, and with per_request_sampling each
+    row's own filters and key (JAX's row key: the slot's folded with the
+    committed length, no site)."""
     stochastic = not (greedy or temperature <= 0.0)
     samp = dict(temperature=temperature, top_k=top_k, top_p=top_p, min_p=min_p, greedy=greedy)
+    ctl = _Controls(target_model.config.vocab_size, per_request_sampling,
+                    (repetition_penalty, presence_penalty, frequency_penalty))
 
     def step(state: DecodeState) -> DecodeState:
         max_len = state.tokens.shape[1]
         last = _gather_last(state.tokens, state.lengths)
         base = state.lengths - 1
         logits, _ = target_model.forward(last[:, None], base[:, None], state.target_cache, base)
-        row = logits[:, 0].float()
-        nxt = sample_tokens(fold(state.rng, _BONUS) if stochastic else None, row, **samp)
+        ctx = ctl.context(state)
+        # The logprobs describe the distribution sampled from: penalized.
+        row = ctl.apply(state, ctx, logits[:, 0].float(), ctx.get("counts"))
+        if per_request_sampling:
+            nxt = sample_tokens(None, row, **ctl.row_samp(state, ctx, None))
+        else:
+            nxt = sample_tokens(fold(state.rng, _BONUS) if stochastic else None, row, **samp)
         commit = state.active.to(torch.int32)
         remaining = state.prompt_lens + state.max_new - state.lengths
         commit = torch.minimum(commit, remaining.clamp_min(0))
         new_tokens = _write_rows(state.tokens, nxt[:, None], state.lengths, state.active)
-        lp = row.gather(-1, nxt[:, None].long())[:, 0] - torch.logsumexp(row, dim=-1)
+        logz = torch.logsumexp(row, dim=-1)
+        lp = row.gather(-1, nxt[:, None].long())[:, 0] - logz
         new_lp = _write_rows(state.token_logprobs, lp[:, None], state.lengths, state.active)
+        tops = _top_n(state, row[:, None], logz[:, None], logprobs_topk)
         new_lengths = state.lengths + commit
         if eos_token_id is not None:
             hit_eos = (nxt == eos_token_id) & (commit > 0)
@@ -430,6 +614,7 @@ def make_baseline_step(target_model: Model, *, greedy: bool = True, temperature:
             token_logprobs=new_lp,
             steps=_advance(state),
             rng=_next_key(state) if stochastic else state.rng,
+            **tops,
         )
 
     return _in_place(step) if in_place else step

@@ -23,6 +23,19 @@ acceptance EMA. ``last_hidden`` and ``prev_hidden`` are the hidden-state
 carry of the head modes (Medusa, EAGLE, tree): the target's final hidden
 row that predicted the last committed token, and the one before it (f32
 [B, D_target]; zeros, and untouched, in the other modes).
+
+Per-request sampling (JAX core/state.py:60-112): each slot's
+``temperature``, ``top_k``, ``top_p`` and ``min_p``, its penalties
+(``rep_penalty``, ``presence_penalty``, ``freq_penalty``), its
+``logit_bias`` as fixed-width pairs (``bias_ids`` [B, N_BIAS], id -1
+empty, and ``bias_vals``) and its key ``slot_rng`` ([B] int64, a 32-bit
+value: the request's seed; a row draws from it folded with its committed
+length and the sampling site). A step built with ``per_request_sampling``
+reads them; the others never do. ``top_ids`` and ``top_lps`` hold the top-N
+alternatives of each committed position ([B, max_len, N] under
+``logprobs_topk``; [B, 1, 1] placeholders when off). All are in ``FIELDS``:
+a captured graph reads them from the state's own tensors, which admission
+writes in place.
 """
 
 from __future__ import annotations
@@ -34,7 +47,13 @@ import torch
 
 from llm_inference_lab_tpu_torch.models.base import KVCache, Model
 from llm_inference_lab_tpu_torch.models.paged import PagedKVCache
-from llm_inference_lab_tpu_torch.ops.sampling import seed_key
+from llm_inference_lab_tpu_torch.ops.sampling import fold, seed_key
+
+N_BIAS = 32  # logit_bias pairs a slot holds (JAX init_state's n_bias)
+# The per-slot sampling values of a state with no request's own: the
+# engine's (core/engine.py sampling_defaults) or these.
+SAMPLING_DEFAULTS = dict(temperature=1.0, top_k=0, top_p=1.0, min_p=0.0, rep_penalty=1.0,
+                         presence_penalty=0.0, freq_penalty=0.0)
 
 
 @dataclass
@@ -56,12 +75,25 @@ class DecodeState:
     acc_ema: torch.Tensor  # [B] f32 — its acceptance EMA per lane
     last_hidden: torch.Tensor  # [B, D_target] f32 — the head modes' hidden carry
     prev_hidden: torch.Tensor  # [B, D_target] f32 — the carry a step before (EAGLE)
+    temperature: torch.Tensor  # [B] f32 — per-request; <= 0 greedy
+    top_k: torch.Tensor  # [B] int32 — 0 off
+    top_p: torch.Tensor  # [B] f32 — 1.0 off
+    min_p: torch.Tensor  # [B] f32 — 0.0 off
+    slot_rng: torch.Tensor  # [B] int64 — each slot's key, a 32-bit value
+    rep_penalty: torch.Tensor  # [B] f32 — 1.0 off
+    presence_penalty: torch.Tensor  # [B] f32 — 0.0 off
+    freq_penalty: torch.Tensor  # [B] f32 — 0.0 off
+    bias_ids: torch.Tensor  # [B, N_BIAS] int32 — logit_bias ids, -1 empty
+    bias_vals: torch.Tensor  # [B, N_BIAS] f32
+    top_ids: torch.Tensor  # [B, max_len, N] int32 ([B, 1, 1] when off)
+    top_lps: torch.Tensor  # [B, max_len, N] f32 ([B, 1, 1] when off)
 
 
 # The tensors a step or a prefill may replace (all but the caches).
 FIELDS = ("tokens", "lengths", "prompt_lens", "max_new", "active", "proposed", "accepted",
           "bonus", "token_logprobs", "steps", "rng", "ctrl_k", "acc_ema", "last_hidden",
-          "prev_hidden")
+          "prev_hidden", "temperature", "top_k", "top_p", "min_p", "slot_rng", "rep_penalty",
+          "presence_penalty", "freq_penalty", "bias_ids", "bias_vals", "top_ids", "top_lps")
 
 
 def cache_tensors(cache) -> tuple:
@@ -92,18 +124,31 @@ def assign(state: DecodeState, new: DecodeState) -> DecodeState:
     return state
 
 
+def _fill_sampling(state: DecodeState, seed: int, defaults: Optional[dict]) -> None:
+    """The per-slot sampling values with no request's own, in place: the
+    defaults, slot b's key fold(seed_key(seed), b) (JAX: fold_in(PRNGKey(seed),
+    b)), no logit_bias."""
+    for name, value in dict(SAMPLING_DEFAULTS, **(defaults or {})).items():
+        getattr(state, name).fill_(value)
+    B = state.slot_rng.shape[0]
+    state.slot_rng.copy_(fold(seed_key(seed), torch.arange(B, dtype=torch.int64,
+                                                            device=state.slot_rng.device)))
+    state.bias_ids.fill_(-1)
+
+
 def reset_state(state: DecodeState, max_new_tokens: int, seed: int = 0,
-                init_k: int = 4) -> DecodeState:
+                init_k: int = 4, defaults: Optional[dict] = None) -> DecodeState:
     """``init_state``'s values in the state's own tensors: zeros (the hidden
-    carry too), every lane's budget max_new_tokens, the key of `seed`, every lane's K init_k
-    and EMA 0.5, zeroed caches with int8 scales of one; a paged cache keeps
-    its table."""
+    carry too), every lane's budget max_new_tokens, the key of `seed`, every
+    lane's K init_k and EMA 0.5, the per-slot sampling values (`defaults`),
+    zeroed caches with int8 scales of one; a paged cache keeps its table."""
     for name in FIELDS:
         getattr(state, name).zero_()
     state.max_new.fill_(max_new_tokens)
     state.rng.fill_(seed_key(seed))
     state.ctrl_k.fill_(init_k)
     state.acc_ema.fill_(0.5)
+    _fill_sampling(state, seed, defaults)
     for cache in (state.target_cache, state.draft_cache):
         if cache is None:
             continue
@@ -120,39 +165,56 @@ def init_state(target_model: Model, draft_model: Optional[Model], batch_size: in
                page_size: int = 64, n_pages: Optional[int] = None,
                table: Optional[torch.Tensor] = None,
                kv_dtype: Optional[torch.dtype] = None, seed: int = 0,
-               init_k: int = 4) -> DecodeState:
+               init_k: int = 4, defaults: Optional[dict] = None,
+               logprobs_topk: int = 0) -> DecodeState:
     """paged=True gives both models a PagedKVCache: n_pages pages of
     page_size rows (default batch_size * max_pages) and, unless a table is
     given, the default table that gives slot b the pages [b*m, (b+1)*m).
     Each cache keeps its own copy of a given table. kv_dtype torch.int8
     makes both caches (or pools) int8 with per-row scales; None keeps the
-    models' dtype. seed: the key's seed; init_k: each lane's first K under
-    the device-side adaptive controller."""
+    models' dtype. seed: the key's seed (and the slots' keys); init_k: each
+    lane's first K under the device-side adaptive controller; defaults: the
+    per-slot sampling values (SAMPLING_DEFAULTS' keys); logprobs_topk: N of
+    the top-N buffers (0: placeholders)."""
     B = batch_size
     kv_kw = dict(paged=paged, page_size=page_size, n_pages=n_pages, table=table, dtype=kv_dtype)
 
-    def zeros_i32(*shape):
-        return torch.zeros(shape, dtype=torch.int32, device=device)
+    def zeros(*shape, dtype=torch.int32):
+        return torch.zeros(shape, dtype=dtype, device=device)
 
-    return DecodeState(
-        tokens=zeros_i32(B, max_seq_len),
-        lengths=zeros_i32(B),
-        prompt_lens=zeros_i32(B),
+    top_shape = (B, max_seq_len, logprobs_topk) if logprobs_topk else (B, 1, 1)
+    f32 = torch.float32
+    state = DecodeState(
+        tokens=zeros(B, max_seq_len),
+        lengths=zeros(B),
+        prompt_lens=zeros(B),
         max_new=torch.full((B,), max_new_tokens, dtype=torch.int32, device=device),
-        active=torch.zeros((B,), dtype=torch.bool, device=device),
+        active=zeros(B, dtype=torch.bool),
         target_cache=target_model.init_cache(B, max_seq_len, device, **kv_kw),
         draft_cache=(draft_model.init_cache(B, max_seq_len, device, **kv_kw)
                      if draft_model is not None else None),
-        proposed=zeros_i32(B),
-        accepted=zeros_i32(B),
-        bonus=zeros_i32(B),
-        token_logprobs=torch.zeros((B, max_seq_len), dtype=torch.float32, device=device),
-        steps=torch.zeros((), dtype=torch.int32, device=device),
+        proposed=zeros(B),
+        accepted=zeros(B),
+        bonus=zeros(B),
+        token_logprobs=zeros(B, max_seq_len, dtype=f32),
+        steps=zeros(),
         rng=torch.tensor(seed_key(seed), dtype=torch.int64, device=device),
         ctrl_k=torch.full((B,), init_k, dtype=torch.int32, device=device),
-        acc_ema=torch.full((B,), 0.5, dtype=torch.float32, device=device),
-        last_hidden=torch.zeros((B, target_model.config.d_model), dtype=torch.float32,
-                                device=device),
-        prev_hidden=torch.zeros((B, target_model.config.d_model), dtype=torch.float32,
-                                device=device),
+        acc_ema=torch.full((B,), 0.5, dtype=f32, device=device),
+        last_hidden=zeros(B, target_model.config.d_model, dtype=f32),
+        prev_hidden=zeros(B, target_model.config.d_model, dtype=f32),
+        temperature=zeros(B, dtype=f32),
+        top_k=zeros(B),
+        top_p=zeros(B, dtype=f32),
+        min_p=zeros(B, dtype=f32),
+        slot_rng=zeros(B, dtype=torch.int64),
+        rep_penalty=zeros(B, dtype=f32),
+        presence_penalty=zeros(B, dtype=f32),
+        freq_penalty=zeros(B, dtype=f32),
+        bias_ids=zeros(B, N_BIAS),
+        bias_vals=zeros(B, N_BIAS, dtype=f32),
+        top_ids=zeros(*top_shape),
+        top_lps=zeros(*top_shape, dtype=f32),
     )
+    _fill_sampling(state, seed, defaults)
+    return state

@@ -23,8 +23,12 @@ As the chain step (core/specstep.py), the step never reads a value back to
 the host, comes functional or in place (``in_place=True``, which
 ``make_decode_loop`` captures in a CUDA graph), advances ``steps`` and the
 key only when a lane is active, and commits nothing on an inactive lane.
-Greedy decoding or the engine's sampling for the bonus token; per-request
-sampling and top-N logprobs are not ported.
+Greedy decoding or the engine's sampling for the bonus token; with
+per_request_sampling each slot's logit_bias on every verify row before the
+walk and the bonus drawn under each row's own filters and key (JAX
+treespec.py:185-236); the top-N capture from the rows that predicted each
+written token (logprobs_topk). The tree takes no penalties (config.py and
+the batcher refuse them, as JAX's engine does).
 """
 
 from __future__ import annotations
@@ -38,9 +42,11 @@ import torch
 from llm_inference_lab_tpu_torch.core.specstep import (
     _BONUS,
     _advance,
+    _Controls,
     _gather_last,
     _in_place,
     _next_key,
+    _top_n,
     _write_rows,
     hidden_carry,
 )
@@ -125,11 +131,14 @@ def _compact(cache, take_from: torch.Tensor, dst: torch.Tensor) -> None:
 def make_tree_spec_step(target_model: Model, tree: TreeConfig, *, draft_params: dict,
                         greedy: bool = True, temperature: float = 1.0, top_k: int = 0,
                         top_p: float = 1.0, min_p: float = 0.0,
-                        eos_token_id: Optional[int] = None, in_place: bool = False):
+                        eos_token_id: Optional[int] = None,
+                        per_request_sampling: bool = False, logprobs_topk: int = 0,
+                        in_place: bool = False):
     """Build step(state) -> state for tree speculation. draft_params:
     {"medusa_proj": [>= depth, D, D]} (head d drafts depth d+1). The tree's
     verify chunk is num_nodes + 1 rows, which the card's attention takes up
-    to 32."""
+    to 32. per_request_sampling: each slot's logit_bias on the verify rows,
+    the bonus under each row's filters from its key at site num_nodes."""
     D_tree = tree.depth
     parents_np, depths_np, ranks_np, anc_np = tree.build()
     N = tree.num_nodes
@@ -143,6 +152,8 @@ def make_tree_spec_step(target_model: Model, tree: TreeConfig, *, draft_params: 
     compute_dtype = target_model.config.dtype
     stochastic = not (greedy or temperature <= 0.0)
     samp = dict(temperature=temperature, top_k=top_k, top_p=top_p, min_p=min_p, greedy=greedy)
+    # Per-request: the bias and the rows' keys; no penalties (1, 0, 0).
+    ctl = _Controls(target_model.config.vocab_size, per_request_sampling, penalize=False)
     # The tree's constants on the device, made once (a captured step may
     # not copy from the host).
     parents = torch.from_numpy(parents_np).long().to(dev)
@@ -173,6 +184,8 @@ def make_tree_spec_step(target_model: Model, tree: TreeConfig, *, draft_params: 
         target_logits, _, hidden = target_model.forward(
             verify_in, positions, state.target_cache, base, return_hidden=True,
             tree_mask=anc_mask)
+        ctx = ctl.context(state)
+        target_logits = ctl.apply(state, ctx, target_logits, None)
 
         # ---- 3. Acceptance: walk the deepest matching path ----
         tgt_ids = torch.argmax(target_logits, dim=-1).to(torch.int32)  # [B, S]
@@ -193,8 +206,11 @@ def make_tree_spec_step(target_model: Model, tree: TreeConfig, *, draft_params: 
 
         # ---- 4. Bonus from the deepest accepted node's row ----
         bonus_logits = target_logits[lane, cur].float()
-        bonus = sample_tokens(fold(state.rng, _BONUS) if stochastic else None, bonus_logits,
-                              **samp)
+        if per_request_sampling:
+            bonus = sample_tokens(None, bonus_logits, **ctl.row_samp(state, ctx, N))
+        else:
+            bonus = sample_tokens(fold(state.rng, _BONUS) if stochastic else None,
+                                  bonus_logits, **samp)
 
         # ---- 5. Commit: tokens, logprobs, KV compaction, the carry ----
         path_tokens = verify_in.gather(1, path)  # [B, Dt]
@@ -220,6 +236,7 @@ def make_tree_spec_step(target_model: Model, tree: TreeConfig, *, draft_params: 
         tok_logit = rows_lp.gather(-1, write_vals[..., None].long())[..., 0]
         new_lp = _write_rows(state.token_logprobs, tok_logit - logz, state.lengths,
                              state.active)
+        tops = _top_n(state, rows_lp, logz, logprobs_topk)
 
         # Accepted node j (tree slot base + path[:, j]) moves to slot
         # base + 1 + j; past a the row at the destination stays (a no-op).
@@ -247,6 +264,7 @@ def make_tree_spec_step(target_model: Model, tree: TreeConfig, *, draft_params: 
             steps=_advance(state),
             rng=_next_key(state) if stochastic else state.rng,
             **hidden_carry(state, hidden[lane, cur].float()),
+            **tops,
         )
 
     return _in_place(step) if in_place else step

@@ -1201,6 +1201,38 @@ def test_head_mode_batcher_replays_give_the_host_steps_bits(card, mode):
             assert g[key] == w[key], (key, g[key], w[key])
 
 
+PER_REQUEST = [dict(temperature=0.0), dict(temperature=0.9, top_k=40, top_p=0.9, seed=5),
+               dict(frequency_penalty=1.0, presence_penalty=0.5, repetition_penalty=1.3),
+               dict(logit_bias={65: 5.0, 66: -100.0}, temperature=1.2, min_p=0.05),
+               dict(temperature=0.7, seed=11), dict()]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["vanilla K=2", "tree"])
+def test_per_request_batcher_replays_give_the_host_steps_bits(card, mode):
+    """Per-request sampling on the card (the captured step reads each slot's
+    filters, penalties, bias and key from the state): 6 requests through 3
+    slots, greedy, sampled, seeded, penalized (not in the tree) and biased,
+    give the functional step's ids, logprobs and top-3 lists on the decode
+    loop's replays."""
+    kw = (dict(max_draft=2) if mode == "vanilla K=2"
+          else dict(draft_model=None, draft_mode="tree"))
+    eng, host = _graph_engines(card, kv_layout="paged", kv_page_size=64, max_seq_len=512,
+                               per_request_sampling=True, logprobs_topk=3, **kw)
+    runs = []
+    for e in (eng, host):
+        b = ContinuousBatcher(e, n_slots=3)
+        for i, (budget, controls) in enumerate(zip((3, 17, 9, 5, 12, 16), PER_REQUEST)):
+            if mode == "tree":
+                controls = {k: v for k, v in controls.items() if not k.endswith("penalty")}
+            b.submit("served by replays " * (1 + i), max_new_tokens=budget, **controls)
+        runs.append(b.run())
+    for g, w in zip(*runs, strict=True):
+        for key in ("generated_ids", "token_logprobs", "top_logprobs", "proposed", "accepted"):
+            assert g[key] == w[key], (key, g[key], w[key])
+    assert 66 not in runs[0][3]["generated_ids"]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("int8", [False, True])
 def test_prefix_suffix_prefill_over_gathered_pages(card, int8):

@@ -112,22 +112,42 @@ def same_results(got, want, trace, jtrace, jb, b, logprobs=True):
                                    [x for x in wlp if x is not None], rtol=3e-5, atol=1e-4)
 
 
-def same_gap(got, want, base, base_want, atol=5e-6):
+# same_gap's tolerance: ULPS f32 ulps of each of the four logprobs in a gap
+# of gaps (each is logit - logsumexp of an f32 forward whose summation order
+# the admission route changes), at magnitude 1 at least (the logsumexp a
+# logprob near 0 comes from is not smaller), plus the 6-decimal rounding of
+# the results, half a unit in the 6th place for each of the four.
+ULPS = 8
+ROUND_6 = 5e-7
+
+
+def gap_tolerance(*vals):
+    """The atol of | |a - b| - |c - d| | for the four logprobs a..d
+    (arrays of one shape): ULPS * sum of np.spacing(f32 max(|v|, 1)) +
+    4 * ROUND_6."""
+    ulps = sum(np.spacing(np.maximum(np.abs(v), 1.0).astype(np.float32)).astype(float)
+               for v in vals)
+    return ULPS * ulps + len(vals) * ROUND_6
+
+
+def same_gap(got, want, base, base_want):
     """Over int8 pools the two packages' logprobs part where an f32 row
     rounds to another int8 step (up to 1.1e-3 on these weights, in the
     port's and JAX's plain one-shot serving alike): the feature under test
     must add no gap of its own. Per request, |got - want| equals
-    |base - base_want| within atol, token logprobs and the prompt logprobs
-    got scores (not those a prefix cache served)."""
+    |base - base_want| within gap_tolerance of the four values, token
+    logprobs and the prompt logprobs got scores (not those a prefix cache
+    served)."""
     def values(r, key):
         return np.array([np.nan if x is None else x for x in r[key]], float)
 
     for rid, r in got.items():
         for key in ("token_logprobs", "prompt_logprobs"):
             scored = ~np.isnan(values(r, key))
-            gap = np.abs(values(r, key) - values(want[rid], key))[scored]
-            base_gap = np.abs(values(base[rid], key) - values(base_want[rid], key))[scored]
-            np.testing.assert_allclose(gap, base_gap, rtol=0, atol=atol)
+            four = [values(d[rid], key)[scored] for d in (got, want, base, base_want)]
+            gap, base_gap = np.abs(four[0] - four[1]), np.abs(four[2] - four[3])
+            excess = np.abs(gap - base_gap) - gap_tolerance(*four)
+            assert np.all(excess <= 0), (rid, key, float(excess.max()))
 
 
 def reference_ids(cfg, reqs):
