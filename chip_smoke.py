@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (llm_inference_lab_tpu_torch) on one
 NVIDIA card: the quickest proof that the port builds and runs on the GPU.
 
-    python3 chip_smoke.py                    # phases 0-16, last line a JSON result
+    python3 chip_smoke.py                    # phases 0-21, last line a JSON result
     python3 chip_smoke.py --profile          # also a torch.profiler breakdown of runs
     python3 chip_smoke.py --profile=gemma    # the breakdown of the Gemma-2 runs only
     python3 chip_smoke.py --profile=mistral  # the breakdown of the Mistral B=1 run only
@@ -192,6 +192,33 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
     HTTP tok/s against a direct batcher's, the server's loop_ms, a step's
     device ms static against per-request (every row greedy, every row
     sampled) and the per-request ops' ms logged;
+17. the Qwen2.5 pair at the JAX package's configs/qwen25_pair.yaml (7B
+    target, 0.5B draft, int8 weights and embedding, K=4, greedy
+    longest_prefix; random int8 bytes): phase 3's B=1 checks (graph ids ==
+    host-loop ids == baseline ids, a self-drafted run accepts) and phase
+    3b's serving checks; B at N = 896, 1152 and 151,936, C at V = 151,936,
+    D, E and F at the GQA group of 7;
+21. (on phase 17's engine) save_params of the int8 0.5B and load_params
+    onto the card, every leaf byte-equal and one forward's logits equal;
+    then a bf16 0.5B written as an HF snapshot (the port's safetensors
+    writer, HF's names, a config.json from the preset) under a temporary
+    HF_HOME: an Engine given no weights finds it, its weights_source is the
+    snapshot and its ids equal an engine given the same weights;
+18. Phi-3-mini-4k-instruct, int4 projections and head (A at N = 32,064),
+    ngram K=4 on a 2385-token prompt (the window of 2047 binds in prefill
+    and decode; D, E and F at head dim 96): phase 10's checks (acceptance
+    > 0), then phase 3b's serving checks;
+19. Mixtral-8x7B at full width, 16 of its 32 layers (32 bf16 layers are
+    93 GB, more than the card's 80), bf16, ngram K=4 at B=1: phase 10's
+    checks, then the MoE block's ms a forward against the dense bound (all
+    8 experts read) and the routed bound (only the experts routed);
+20. gpt2 and opt-125m (configs/baseline.yaml, configs/opt_baseline.yaml),
+    bf16, no draft, full depth: phase 3's B=1 checks and phase 3b's
+    serving checks (LayerNorm is plain ops: no norm kernel on these paths);
+    phase 2 holds A and B at the tail widths (N = 896, 1152, 32,064,
+    151,936; M = 1, 5, 64, 256) and times them at phases 17 and 18's
+    steps, D, E and F at head dim 96 with the window of 2047 and at group
+    7, and C at both vocabularies (rows "/qwen2.5" and "/phi3");
  9. the kernels' JSON line (every kernel, launches by path; the Gemma-2
     variants of D, E and F, the ring variants of D and E, the ngram
     verify shapes of B, D and C, D's and F's tree variants and A at the 8B
@@ -213,6 +240,7 @@ are logged, with each capture's time and graph pool memory.
 Without CUDA it exits non-zero before printing any result.
 """
 
+import gc
 import hashlib
 import json
 import math
@@ -390,6 +418,40 @@ SERVER_SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.9, min_p=0.05)
 SERVER_CLIENTS = 8  # client threads posting (a)'s 16 requests: 8 in flight
 SERVER_BUDGET = 32  # new tokens of (b)-(e)'s requests
 BIAS_ID = 12345  # (c): the id a +100 logit_bias forces
+# Phase 17: the JAX package's configs/qwen25_pair.yaml (Qwen2.5-7B target,
+# 0.5B draft, int8 weights, the int8 embedding and the 0.5B's tied head,
+# K=4, greedy longest_prefix), random int8 bytes from the seed.
+QWEN_CFG = dict(base_model="qwen2.5-7b", draft_model="qwen2.5-0.5b", max_draft=4,
+                max_new_tokens=64, max_seq_len=512, quantization="int8", quantized_init=True,
+                quantize_embed=True, policy="longest_prefix", seed=0)
+QWEN_GEOMS = {"0.5b": (14, 2, 64, 24), "7b": (28, 4, 128, 28)}  # H, KVH, head dim, layers
+QMM_QWEN_05 = [(896, 1152), (896, 896), (896, 9728), (4864, 896)]
+QMM_QWEN_7 = [(3584, 4608), (3584, 3584), (3584, 37888), (18944, 3584)]
+QWEN_HEAD = (3584, 151936)  # the 7B's untied int8 head (B); the 0.5B's is the tied int8 table
+QWEN_V = 151936
+# Phase 18: Phi-3-mini-4k-instruct, int4 projections and head (A at N =
+# 32064), bf16 embedding, ngram K=4 (no draft in the registry shares its
+# vocabulary), on a prompt of 2385 byte tokens, past the window of 2047.
+PHI_CFG = dict(base_model="phi-3-mini-4k-instruct", draft_model=None, draft_mode="ngram",
+               max_draft=4, max_new_tokens=64, max_seq_len=4096, quantization="int4",
+               quantized_init=True, seed=0)
+PHI_PROMPT = "The quick brown fox jumps over the lazy dog. " * 53  # 2385 byte tokens
+PHI_GEOM = (32, 32, 96, 32)  # H, KVH, head dim, layers
+PHI_WINDOW = 2047
+QMM_PHI = [(3072, 9216), (3072, 3072), (3072, 16384), (8192, 3072)]
+PHI_HEAD = (3072, 32064)
+PHI_V = 32064
+# Phase 19: Mixtral-8x7B at full width in bf16, 16 of its 32 layers (32
+# layers of bf16 weights are 93 GB; 16 are 47 GB of the card's 80), ngram
+# K=4, B=1. The cut preset is registered under MIXTRAL_CUT for the run.
+MIXTRAL_LAYERS = 16
+MIXTRAL_CUT = f"mixtral-8x7b-{MIXTRAL_LAYERS}-layers"
+MIXTRAL_CFG = dict(base_model=MIXTRAL_CUT, draft_model=None, draft_mode="ngram", max_draft=4,
+                   max_new_tokens=64, max_seq_len=512, seed=0)
+# Phase 20: the JAX package's non-speculative baselines, bf16, at full depth
+# (configs/baseline.yaml's gpt2, configs/opt_baseline.yaml's opt-125m).
+BASELINE_CFGS = {name: dict(base_model=name, draft_model=None, max_new_tokens=64,
+                            max_seq_len=512, seed=0) for name in ("gpt2", "opt-125m")}
 # The kernels each path must launch (and no other): the norms (rms_norm
 # once a forward, add_rms_norm twice a layer a forward) and the
 # projections' two kernels (decode rows through the decode body, prefill
@@ -442,6 +504,20 @@ PATH_KERNELS = {
     # Phase 16: the OpenAI server over HTTP (phase 3b's requests at
     # temperature 0, then (b)-(e)): the paged serving path's kernels.
     "serving int4 OpenAI server, per-request sampling (HTTP)": INT4 | SERVE,
+    # Phases 17-20: the families. Qwen2.5's 8 slots x 5 verify rows stay
+    # under MMA_MIN_M: B through both bodies.
+    "generate qwen2.5-7b int8 + 0.5b draft K=4 (3 runs)": INT8 | SPEC,
+    "serving qwen2.5-7b int8 + 0.5b draft K=4 (16 requests)": INT8 | SERVE,
+    "generate phi-3-mini int4 ngram K=4 long prompt (3 runs)": INT4 | SPEC,
+    "serving phi-3-mini int4 ngram K=4 (16 requests)": INT4 | SERVE,
+    # bf16 weights: the projections and the experts are torch.matmul.
+    f"generate mixtral-8x7b {MIXTRAL_LAYERS} layers bf16 ngram K=4 (3 runs)":
+        {"rms_norm", "add_rms_norm"} | SPEC,
+    # LayerNorm is plain ops, the projections bf16, no draft (no C).
+    "generate gpt2 bf16 baseline (3 runs)": {"flash_decode", "flash_prefill"},
+    "serving gpt2 bf16 baseline (16 requests)": {"flash_prefill", "paged_flash"},
+    "generate opt-125m bf16 baseline (3 runs)": {"flash_decode", "flash_prefill"},
+    "serving opt-125m bf16 baseline (16 requests)": {"flash_prefill", "paged_flash"},
 }
 GEMMA_PATHS = [path for path in PATH_KERNELS if "gemma-2" in path]
 MISTRAL_PATHS = [path for path in PATH_KERNELS if "mistral" in path]
@@ -456,6 +532,11 @@ ADMISSION_PATHS = ["serving int4 lazy pages with preemption (16 requests)",
                    "serving int4 incremental admission (3000-token prompt among 7)"]
 RING_SERVING_PATH = "serving mistral-7b ring incremental admission (8 requests)"
 SERVER_PATH = "serving int4 OpenAI server, per-request sampling (HTTP)"
+QWEN_PATHS = [path for path in PATH_KERNELS if "qwen2.5" in path]
+PHI_PATHS = [path for path in PATH_KERNELS if "phi-3" in path]
+MIXTRAL_PATH = next(path for path in PATH_KERNELS if "mixtral" in path)
+BASELINE_PATHS = {name: [path for path in PATH_KERNELS if f" {name} bf16" in path]
+                  for name in BASELINE_CFGS}
 
 
 T_START = time.perf_counter()
@@ -530,13 +611,13 @@ def qmm_within(bits, got, ref):
     return err.max().item()
 
 
-def qmm_prefill(dev, bits, g):
+def qmm_prefill(dev, bits, g, widths=None, prefill_m=PREFILL_M):
     """Kernel A (bits 4) or B (bits 8) at the prefill shapes of every width
-    in QMM_WIDTHS: within tolerance of the plain version at MMA_CHECK_M
+    in widths (QMM_WIDTHS by default): within tolerance of the plain version at MMA_CHECK_M
     (the first M rows of one x), every row with the same bits at each of
     those M, and the rows that differ between the decode body (those rows
     at M = MMA_MIN_M - 1) and the tensor-core path (at MMA_MIN_M)
-    counted; timed at PREFILL_M beside the plain version, the library call
+    counted; timed at prefill_m beside the plain version, the library call
     (A: dequantize, then torch.matmul; B: torch.matmul(x, w.to(bf16)) *
     scale) and the bound. Returns ({(K, N, M): numbers}, max abs err,
     rows across the paths)."""
@@ -559,14 +640,15 @@ def qmm_prefill(dev, bits, g):
 
     rows, max_err, across = {}, 0.0, 0
     name = f"quant_matmul_int{bits}"
-    for width, shapes in QMM_WIDTHS.items():
+    for width, shapes in (widths or QMM_WIDTHS).items():
         for K, N in shapes:
             wrows = K // 2 if bits == 4 else K
             L = max(2, (200 << 20) // (wrows * N))  # > 200 MB of weights: beyond L2
             w = torch.randint(-128, 128, (L, wrows, N), generator=g, dtype=torch.int8, device=dev)
             sc = torch.rand((L, N), generator=g, device=dev) * (0.02 / (7 if bits == 4 else 127))
             sc += 1e-5
-            x = torch.randn((max(MMA_CHECK_M), K), generator=g, device=dev).bfloat16()
+            x = torch.randn((max(MMA_CHECK_M + tuple(prefill_m)), K), generator=g,
+                            device=dev).bfloat16()
             outs = {}
             for M in MMA_CHECK_M:
                 outs[M] = kernel(x[:M], w[0], sc[0])
@@ -578,7 +660,7 @@ def qmm_prefill(dev, bits, g):
             across += n_across
             cyc = Cycle(L)
             line = []
-            for M in PREFILL_M:
+            for M in prefill_m:
                 xm = x[:M]
                 ms = median_ms(lambda: kernel(xm, w[cyc()], sc[cyc.i]))
                 pl = median_ms(lambda: plain(xm, w[cyc()], sc[cyc.i]), iters=5, warmup=1)
@@ -1992,7 +2074,8 @@ DECODE_ONLY = {"quant_matmul_int4", "quant_matmul_int8", "flash_decode", "flash_
 def count_launches(path, run):
     """Set every kernel's launch count to 0, call run(), read the counts, and
     check that exactly the kernels of `path` launched, rms_norm once a
-    forward and add_rms_norm twice a layer a forward. A count is the eager
+    forward and add_rms_norm twice a layer a forward (on the RMSNorm paths).
+    A count is the eager
     launches (the wrappers' counters, models/transformer.py's forward counts)
     plus the decode loops' replays, each replay counting the launches,
     forwards and layers of its captured step (DecodeLoop.per_replay). The
@@ -2066,8 +2149,10 @@ def count_launches(path, run):
     launched = {name for name, n in launches.items() if n}
     assert launched == PATH_KERNELS[path], (path, "launched", launched,
                                             "expected", PATH_KERNELS[path])
-    assert launches["rms_norm"] == forwards, (path, "rms_norm once a forward", forwards)
-    assert launches["add_rms_norm"] == 2 * layers, (path, "add_rms_norm twice a layer", layers)
+    if "rms_norm" in PATH_KERNELS[path]:  # GPT-2's and OPT's LayerNorm is plain ops
+        assert launches["rms_norm"] == forwards, (path, "rms_norm once a forward", forwards)
+        assert launches["add_rms_norm"] == 2 * layers, (path, "add_rms_norm twice a layer",
+                                                        layers)
     return out, launches
 
 
@@ -2202,25 +2287,26 @@ def step_stats(rs):
             f"{r['acceptance_rate']:.4f} ({r['accepted']} of {r['proposed']})")
 
 
-def phase_ngram(dev, profile, path):
+def phase_ngram(dev, profile, path, cfg=None, label=f"3B int8 ngram K={NGRAM_K}", prompt=PROMPT,
+                must_accept=True):
     """Phase 10: ngram drafting at the JAX package's ngram_3b_int8_k12
-    configuration (NGRAM_CFG) on PROMPT: one warm-up and three timed
+    configuration (NGRAM_CFG; phases 18 and 19 pass their own cfg, label
+    and prompt) on PROMPT: one warm-up and three timed
     generate calls on the graph path in one launch count, a greedy baseline
     (no drafts) timed alike, then the host loop in turns with the graph
     path. The ids must equal the baseline's (A's and B's decode rows keep
     their bits at every M, D at S = 1 those of its row of S = 13), graph
-    and host loop must agree, and acceptance must be above 0 with more than
-    one token committed a step."""
+    and host loop must agree, and (must_accept) acceptance must be above 0
+    with more than one token committed a step."""
     from llm_inference_lab_tpu_torch.config import EngineConfig
     from llm_inference_lab_tpu_torch.core.engine import Engine
 
-    cfg = EngineConfig(**NGRAM_CFG)
+    cfg = EngineConfig(**(cfg or NGRAM_CFG))
     eng = Engine(cfg, device=dev)
-    label = f"3B int8 ngram K={NGRAM_K}"
-    eng.generate(PROMPT)  # warm-up, and the decode loop's capture
+    eng.generate(prompt)  # warm-up, and the decode loop's capture
     graph_report(f"generate ({label})", engine_loops("B, max_len", eng))
     torch.cuda.reset_peak_memory_stats()
-    runs, launches = count_launches(path, lambda: [eng.generate(PROMPT) for _ in range(3)])
+    runs, launches = count_launches(path, lambda: [eng.generate(prompt) for _ in range(3)])
     polls = eng.polls
     peak_mb = torch.cuda.max_memory_allocated() / 1e6
     ids = runs[0]["generated_ids"]
@@ -2231,25 +2317,26 @@ def phase_ngram(dev, profile, path):
     ids_digest(path, [ids])
     base_eng = Engine(replace(cfg, draft_mode="vanilla"), device=dev,
                       target_params=eng.target.params)
-    base_eng.generate(PROMPT)
-    bases = [base_eng.generate(PROMPT) for _ in range(3)]
+    base_eng.generate(prompt)
+    bases = [base_eng.generate(prompt) for _ in range(3)]
     assert all(b["generated_ids"] == ids for b in bases), "ngram output differs from baseline"
+    del base_eng
     r = runs[0]
     log(f"end to end ({label}, B=1, {cfg.max_new_tokens} new tokens): {timing(runs)}, steps "
         f"{r['steps']}, {step_stats(runs)}, {polls} polls a generate, peak memory "
         f"{peak_mb:.1f} MB; baseline (no drafts): {timing(bases)}, steps {bases[0]['steps']}; "
         f"ngram ids == baseline ids; ids {ids}")
-    assert r["accepted"] > 0 and r["generated_tokens"] > r["steps"], (
+    assert not must_accept or (r["accepted"] > 0 and r["generated_tokens"] > r["steps"]), (
         "ngram accepted no draft on the seed's weights", ids)
     host = host_engine(eng)
-    host.generate(PROMPT)
-    turns = [e.generate(PROMPT) for e in (host, eng, eng, host)]
+    host.generate(prompt)
+    turns = [e.generate(prompt) for e in (host, eng, eng, host)]
     same_decode(label, turns, [r] * 4)
     log(f"graph path against the host loop ({label}, in turns host, graph, graph, host; ids, "
         f"steps, proposed, accepted equal): graph {timing(turns[1:3])}; host loop "
         f"{timing(turns[::3])}")
     if profile:
-        profile_run(f"generate ({label})", lambda: eng.generate(PROMPT),
+        profile_run(f"generate ({label})", lambda: eng.generate(prompt),
                     statistics.median(r["latency_ms"] for r in runs))
     return eng, launches
 
@@ -2498,6 +2585,9 @@ def kernel_wrappers():
 
 RMS_NORM_OP = "rms_norm (kernel, fixed order)"
 ADD_NORM_OP = "add_rms_norm (kernel, fixed order)"
+LAYER_NORM_OP = "layer_norm (plain ops)"
+LIBRARY_M = (64, 256)  # prefill rows row_stability adds for a bf16 model's library ops
+ADD_LAYER_NORM_OP = "residual add + layer_norm (plain ops)"
 D_VS_F = "D vs F rows at the serving shapes"
 ACROSS_MMA = "kernel {} across MMA_MIN_M (decode body alone vs tensor-core path)"
 
@@ -2514,50 +2604,72 @@ def row_stability(eng, dev):
     Then the projection kernel across MMA_MIN_M: MMA_MIN_M rows together
     (its tensor-core path, which every prefill takes) against the same rows
     alone (its decode body, which every decode step takes); a row that one
-    run prefills and another decodes through this op can part there. Then D
+    run prefills and another decodes through this op can part there. A bf16
+    model's ops are also taken at LIBRARY_M rows (a prompt's prefill). Then D
     against F over the same keys at the serving step's shapes: F runs D's
-    body, so no row may differ (asserted)."""
+    body, so no row may differ (asserted). A model with bf16 projections
+    (torch.matmul, a library call) or LayerNorm (plain ops) has those ops
+    counted, not asserted: nothing fixes their order of sums across M."""
     from llm_inference_lab_tpu_torch.models.transformer import (
         add_rms_norm,
+        layer_norm,
         lm_head_logits,
         rms_norm,
     )
-    from llm_inference_lab_tpu_torch.ops.quant import dense
+    from llm_inference_lab_tpu_torch.ops.quant import QuantTensor, dense
     from llm_inference_lab_tpu_torch.ops.quant_matmul import MMA_MIN_M
 
     cfg, params = eng.target.config, eng.target.params
     g = torch.Generator(device=dev).manual_seed(6)
-    x = torch.randn((MMA_MIN_M, cfg.d_model), generator=g, device=dev).bfloat16()
-    w = params["layers"]["w_qkv"].layer(0)
-    kernel = "quant_matmul_int4 (kernel A)" if w.bits == 4 else "quant_matmul_int8 (kernel B)"
+    w = params["layers"]["w_qkv"]
+    quant = isinstance(w, QuantTensor)
+    # The library ops (bf16 projections and head, LayerNorm) at prefill M
+    # too: cuBLAS picks its kernel by the shape.
+    x = torch.randn((MMA_MIN_M if quant else LIBRARY_M[-1], cfg.d_model), generator=g,
+                    device=dev).bfloat16()
+    w = w.layer(0) if quant else w[0]
+    kernel = ("bf16 projection (torch.matmul)" if not quant else
+              "quant_matmul_int4 (kernel A)" if w.bits == 4 else "quant_matmul_int8 (kernel B)")
     head = ("tied int8 head (cast + torch.mm, f32 out)" if cfg.tie_word_embeddings
             and not isinstance(params["embed"], torch.Tensor) else
             "tied bf16 head (torch.mm, f32 out)" if cfg.tie_word_embeddings else
             "untied head (dense)")
     layer0 = params["layers"]
     post = layer0["post_attn_norm_scale"][0] if cfg.post_norms else None
-    ops = {
-        RMS_NORM_OP:
-            lambda a: rms_norm(a, layer0["attn_norm_scale"][0], cfg.rms_norm_eps,
-                               cfg.rms_one_offset),
-        ADD_NORM_OP:  # the residual a + a' and its norm, side by side
-            lambda a: torch.cat(add_rms_norm(a, a, layer0["mlp_norm_scale"][0],
-                                             cfg.rms_norm_eps, cfg.rms_one_offset, post), -1),
-        head: lambda a: lm_head_logits(cfg, params, a),
-        kernel: lambda a: dense(a, w),
-    }
+    if cfg.use_layernorm:
+        ops = {
+            LAYER_NORM_OP: lambda a: layer_norm(a, layer0["attn_norm_scale"][0],
+                                                layer0["attn_norm_bias"][0], cfg.layer_norm_eps),
+            ADD_LAYER_NORM_OP: lambda a: layer_norm(a + a, layer0["mlp_norm_scale"][0],
+                                                    layer0["mlp_norm_bias"][0],
+                                                    cfg.layer_norm_eps),
+        }
+    else:
+        ops = {
+            RMS_NORM_OP:
+                lambda a: rms_norm(a, layer0["attn_norm_scale"][0], cfg.rms_norm_eps,
+                                   cfg.rms_one_offset),
+            ADD_NORM_OP:  # the residual a + a' and its norm, side by side
+                lambda a: torch.cat(add_rms_norm(a, a, layer0["mlp_norm_scale"][0],
+                                                 cfg.rms_norm_eps, cfg.rms_one_offset, post), -1),
+        }
+    ops |= {head: lambda a: lm_head_logits(cfg, params, a), kernel: lambda a: dense(a, w)}
     out = {}
     for name, fn in ops.items():
-        n = MMA_MIN_M if name == kernel else 40
+        ms = (2, 5, 8, 16, 40) + ((MMA_MIN_M - 1,) if name == kernel else ())
+        if not quant:
+            ms += LIBRARY_M
+        n = MMA_MIN_M if name == kernel and quant else max(ms)  # the across check's rows too
         alone = torch.cat([fn(x[i:i + 1].contiguous()) for i in range(n)])
-        out[name] = {M: int((fn(x[:M].contiguous()) != alone[:M]).any(-1).sum())
-                     for M in (2, 5, 8, 16, 40) + ((MMA_MIN_M - 1,) if name == kernel else ())}
-        if name == kernel:
+        out[name] = {M: int((fn(x[:M].contiguous()) != alone[:M]).any(-1).sum()) for M in ms}
+        if name == kernel and quant:
             out[ACROSS_MMA.format("A" if w.bits == 4 else "B")] = {
                 MMA_MIN_M: int((fn(x) != alone).any(-1).sum())}
-    for op in (RMS_NORM_OP, ADD_NORM_OP):
-        assert not any(out[op].values()), (op, "rows depend on M", out[op])
-    assert not any(out[kernel].values()), ("projection rows depend on M", out[kernel])
+    if not cfg.use_layernorm:
+        for op in (RMS_NORM_OP, ADD_NORM_OP):
+            assert not any(out[op].values()), (op, "rows depend on M", out[op])
+    if quant:
+        assert not any(out[kernel].values()), ("projection rows depend on M", out[kernel])
     out[D_VS_F] = attention_rows(eng, dev)
     assert not any(out[D_VS_F].values()), ("D and F differ", out[D_VS_F])
     return out
@@ -3693,6 +3805,546 @@ def phase_ring_serving(dev, eng, long_ids, path):
     return launches
 
 
+# ------------------------------------------------- the families' kernels (phase 2)
+# Kernels A and B at the widths that are not a multiple of 256 columns (a
+# tail tile): Qwen2.5-0.5B's qkv (1152) and o (896), Phi-3-mini's head
+# (32064), Qwen2.5-7B's head (151936); both bodies.
+TAIL_SHAPES = [(896, 1152), (896, 896), (3072, 32064), (3584, 151936)]
+TAIL_M = (1, 5, 64, 256)
+
+
+def qmm_tails(dev, g):
+    """A and B at TAIL_SHAPES and TAIL_M (the first M rows of one x, random
+    bytes): within tolerance of the plain version, the last 64 columns
+    included; a row with the same bits at M = 1 and 5 (the decode body) and
+    at 64 and 256 (the tensor-core path). Returns {bits: max abs err}."""
+    from llm_inference_lab_tpu_torch.ops.quant_matmul import (
+        quant_matmul,
+        quant_matmul_int8,
+        quant_matmul_plain,
+        quant_matmul_plain_int8,
+    )
+
+    errs = {}
+    for bits in (4, 8):
+        kernel, plain = ((quant_matmul, quant_matmul_plain) if bits == 4 else
+                         (quant_matmul_int8, quant_matmul_plain_int8))
+        err = 0.0
+        for K, N in TAIL_SHAPES:
+            wrows = K // 2 if bits == 4 else K
+            w = torch.randint(-128, 128, (wrows, N), generator=g, dtype=torch.int8, device=dev)
+            sc = torch.rand((N,), generator=g, device=dev) * (0.02 / (7 if bits == 4 else 127))
+            sc += 1e-5
+            x = torch.randn((max(TAIL_M), K), generator=g, device=dev).bfloat16()
+            outs = {}
+            for M in TAIL_M:
+                outs[M] = kernel(x[:M], w, sc)
+                ref = plain(x[:M].float(), w, sc)
+                err = max(err, qmm_within(bits, outs[M], ref))
+                assert ref[:, -64:].abs().max() > 0
+            assert torch.equal(outs[5][:1], outs[1]), (bits, K, N, "decode body rows")
+            assert torch.equal(outs[256][:64], outs[64]), (bits, K, N, "tensor-core rows")
+            log(f"quant_matmul_int{bits} K={K} N={N} (N % 256 = {N % 256}): within tolerance "
+                f"at M = {TAIL_M}, rows the same bits at M = 1, 5 and at 64, 256")
+            del w, sc, x, outs
+        errs[bits] = err
+    return errs
+
+
+def sdpa_window(q, k, v, pos, window):
+    """The library yardstick for windowed GQA attention (timed only, never
+    used): SDPA with the position and window mask as a boolean mask."""
+    T = k.shape[2]
+    kv = torch.arange(T, device=q.device)[None, None, None, :]
+    p = pos[:, None, :, None]
+    mask = (kv <= p) & (kv > p - window) if window else kv <= p
+    out = torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k, v, attn_mask=mask, enable_gqa=True)
+    return out.transpose(1, 2)
+
+
+def family_attention_checks(dev, g, H, KVH, D, window, T, lasts, prefill_lasts, errs):
+    """D (S = 1 and 5), E (S = 160) and F (D's bits through shuffled 64-row
+    pages) at one geometry, bf16 and int8 caches, POISON outside every
+    row's keys (gemma_keys), one row dead at S > 1: each within check_attn's
+    tolerance of its plain version (F also equal to D's bits); errs
+    {kernel: max abs err} updated."""
+    from llm_inference_lab_tpu_torch.ops.flash_decode import flash_decode, flash_decode_int8
+    from llm_inference_lab_tpu_torch.ops.flash_prefill import flash_prefill, flash_prefill_int8
+    from llm_inference_lab_tpu_torch.ops.paged_flash import paged_flash, paged_flash_int8
+
+    opts = {"window": window} if window else {}
+    for cache, (dk, ek, fk) in {"bf16": (flash_decode, flash_prefill, paged_flash),
+                                "int8": (flash_decode_int8, flash_prefill_int8,
+                                         paged_flash_int8)}.items():
+        for S, last in ((1, lasts), (5, lasts), (160, prefill_lasts)):
+            B = len(last)
+            pos = (torch.tensor(last, device=dev, dtype=torch.int32)[:, None] - S + 1
+                   + torch.arange(S, device=dev, dtype=torch.int32)[None]).contiguous()
+            if S > 1:
+                pos[-1, 0] = -1  # a dead row beside live ones
+            k, v, ks, vs = gemma_keys(g, dev, cache, B, KVH, T, pos, window, D=D)
+            q = torch.randn((B, S, H, D), generator=g, device=dev).bfloat16()
+            sc = (ks, vs) if cache == "int8" else ()
+            name = "flash_decode" if S <= 32 else "flash_prefill"
+            got = (dk if S <= 32 else ek)(q, k, v, pos, *sc, **opts)
+            what = (name, cache, H, KVH, D, window, S)
+            errs[name] = max(errs[name], check_attn(got, q, k, v, pos, *sc, what=what, **opts))
+            assert S == 1 or torch.all(got[-1, 0] == 0), (what, "dead row not zero")
+            if S <= 32:
+                pools, table = to_pages(g, dev, (k, v, *sc), 64)
+                paged = fk(q, pools[0], pools[1], pos, table, *pools[2:], **opts)
+                assert torch.equal(got, paged), (what, "D != F")
+                errs["paged_flash"] = max(errs["paged_flash"], check_attn(
+                    paged, q, k, v, pos, *sc, what=("F",) + what[1:], **opts))
+                del pools
+            del k, v
+    log(f"attention H={H} KVH={KVH} (group {H // KVH}) D={D} window={window} T={T}: D (S=1, 5), "
+        f"E (S=160) and F within tolerance of their plain versions, bf16 and int8, POISON "
+        f"outside every row's keys, dead rows zero, F == D")
+
+
+def time_attention(dev, g, agg, kind, n, S, H, KVH, D, T, lasts, window, what):
+    """Add n times one call's numbers (ms, plain, library, bound) of D, E
+    or F (kind) at these shapes to agg: D and E over [B, KVH, T, D] planes
+    with positions ending at lasts, F over 64-row pages of 1024-position
+    lanes (paged_inputs)."""
+    from llm_inference_lab_tpu_torch.models.paged import gather_pages
+    from llm_inference_lab_tpu_torch.ops.flash_decode import flash_decode, flash_decode_plain
+    from llm_inference_lab_tpu_torch.ops.flash_prefill import flash_prefill
+    from llm_inference_lab_tpu_torch.ops.paged_flash import paged_flash, paged_flash_plain
+
+    opts = {"window": window} if window else {}
+    B = len(lasts)
+    big = S > 32
+    it = dict(iters=5, warmup=1) if big else {}
+    pit = dict(iters=3 if big else 10, warmup=1)
+    if kind == "F":
+        M = SERVE_MAX_LEN // SERVE_PAGE
+        L = 2 * L2_BYTES // (2 * (B * M + 1) * KVH * SERVE_PAGE * D * 2) + 1
+        q, _, _, kp, vp, table, pos = paged_inputs(g, dev, B, S, H, KVH, D, SERVE_PAGE, lasts, L=L)
+        cyc = Cycle(L)
+        ms = median_ms(lambda: paged_flash(q, kp[cyc()], vp[cyc.i], pos, table, **opts))
+        plain = median_ms(lambda: paged_flash_plain(q, kp[cyc()], vp[cyc.i], pos, table, **opts),
+                          **pit)
+        lib = median_ms(lambda: sdpa_window(q, gather_pages(kp[cyc()], table),
+                                            gather_pages(vp[cyc.i], table), pos, window), **pit)
+        extra = 4 * table.numel()
+        del kp, vp
+    else:
+        L = 2 * L2_BYTES // (2 * B * KVH * T * D * 2) + 1
+        q, k, v, pos = flash_inputs(g, dev, B, S, H, KVH, T, D, lasts[0], L=L)
+        pos = (torch.tensor(lasts, device=dev, dtype=torch.int32)[:, None] - S + 1
+               + torch.arange(S, device=dev, dtype=torch.int32)[None]).contiguous()
+        fn = flash_decode if kind == "D" else flash_prefill
+        cyc = Cycle(L)
+        ms = median_ms(lambda: fn(q, k[cyc()], v[cyc.i], pos, **opts), **it)
+        plain = median_ms(lambda: flash_decode_plain(q, k[cyc()], v[cyc.i], pos, **opts), **pit)
+        lib = median_ms(lambda: sdpa_window(q, k[cyc()], v[cyc.i], pos, window), **pit)
+        extra = 0
+        del k, v
+    keys, pairs = seen_keys(pos, window)
+    b, by = bound_ms(2 * KVH * keys * D * 2 + 2 * 2 * B * S * H * D + 4 * B * S + extra,
+                     4 * H * pairs * D)
+    log(f"{kind} {what} (B={B} S={S} H={H} KVH={KVH} D={D} window={window}): {ms:.4f} ms  "
+        f"plain {plain:.4f}  library {lib:.4f} (SDPA + mask)  bound {b:.5f} ({by}), x{n}")
+    for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib), ("bound_ms", b)):
+        agg[key] += n * val
+    if by == "operations":
+        agg["bound_by"] = by
+
+
+def verify_row(dev, g, V, K=4):
+    """Kernel C at a B=1 K-draft step's [1, K, V] (a view of [1, K+1, V]):
+    equal to its plain and split plain versions, with a tie across a split
+    boundary; timed beside the plain version and torch.argmax."""
+    from llm_inference_lab_tpu_torch.ops.verify import (
+        split_width,
+        verify_plan,
+        verify_prefix,
+        verify_prefix_plain,
+        verify_prefix_split_plain,
+    )
+
+    lg = torch.randn((1, K + 1, V), generator=g, device=dev)[:, :K]
+    d = torch.argmax(lg, -1).to(torch.int32)
+    n = verify_plan(K, V)
+    w = split_width(V, n)
+    lg[0, 1, w - 1] = lg[0, 1, min(w, V - 1)] = float(lg.max()) + 1  # a tie across a split
+    d[0, 1] = min(w, V - 1)
+    ref = verify_prefix_plain(d, lg)
+    for got in (verify_prefix(d, lg), verify_prefix_split_plain(d, lg, n)):
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), (V, got, ref)
+    got = verify_prefix(d, lg)
+    err = max((a.double() - r.double()).abs().max().item() for a, r in zip(got, ref))
+    ms = median_ms(lambda: verify_prefix(d, lg))
+    plain = median_ms(lambda: verify_prefix_plain(d, lg))
+    lib = median_ms(lambda: torch.argmax(lg, -1))
+    b, by = bound_ms(K * V * 4 + 4 * K + K + 4, K * V)
+    log(f"verify_prefix [1,{K},{V}] ({n} splits): accept_len {ref[0].tolist()} == plain == split "
+        f"plain; {ms:.4f} ms  plain {plain:.4f}  library {lib:.4f} (torch.argmax)  bound "
+        f"{b:.5f} ({by})")
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b, bound_by=by, max_abs_err=err)
+
+
+def phase_family_kernels(dev):
+    """Phase 2 for phases 17-19's shapes: A and B at the tail widths
+    (qmm_tails); B's decode body at every Qwen2.5 projection and its
+    tensor-core path at their prefill (qmm_decode / qmm_prefill), A's at
+    Phi-3-mini's; D, E and F at head dim 96 with the window of 2047 and at
+    Qwen2.5's GQA group of 7 (family_attention_checks), timed at the paths'
+    shapes; C at the two vocabularies. Returns the kernels line's rows."""
+    g = torch.Generator(device=dev).manual_seed(31)
+    tails = qmm_tails(dev, g)
+    L05, L7, LP = QWEN_GEOMS["0.5b"][3], QWEN_GEOMS["7b"][3], PHI_GEOM[3]
+    rows = {}
+    dec8, err8 = qmm_decode(dev, 8, g, {"Qwen2.5-0.5B": (QMM_QWEN_05, (1,)),
+                                        "Qwen2.5-7B": (QMM_QWEN_7 + [QWEN_HEAD], (5,))})
+    step8 = [(QMM_QWEN_05, 1, 4 * L05), (QMM_QWEN_7, 5, L7), ([QWEN_HEAD], 5, 1)]
+    log_step("quant_matmul_int8", "one Qwen2.5 K=4 B=1 step (4 x 24 0.5B layers at M = 1, 28 7B "
+             "layers and the head at M = 5)", dec8, step8)
+    pre8, pre8_err, across8 = qmm_prefill(dev, 8, g, {"Qwen2.5-0.5B": QMM_QWEN_05,
+                                                      "Qwen2.5-7B": QMM_QWEN_7 + [QWEN_HEAD]},
+                                          prefill_m=(160,))
+    wave8 = ([(k, n, 160, L05) for k, n in QMM_QWEN_05] + [(k, n, 160, L7) for k, n in QMM_QWEN_7]
+             + [(*QWEN_HEAD, 160, 1)])
+    dec4, err4 = qmm_decode(dev, 4, g, {"Phi-3-mini": (QMM_PHI + [PHI_HEAD], (5,))})
+    step4 = [(QMM_PHI, 5, LP), ([PHI_HEAD], 5, 1)]
+    pre4, pre4_err, across4 = qmm_prefill(dev, 4, g, {"Phi-3-mini": QMM_PHI + [PHI_HEAD]},
+                                          prefill_m=(2400,))
+    wave4 = [(k, n, 2400, LP) for k, n in QMM_PHI] + [(*PHI_HEAD, 2400, 1)]
+    log(f"rows that differ between the decode body and the tensor-core path: B at Qwen2.5 "
+        f"{across8}, A at Phi-3-mini {across4}")
+    qmm = "ops/pallas/quant_matmul.py:"
+    rows["quant_matmul_int8/qwen2.5"] = (
+        sum_rows(dec8, calls(step8), max(err8, tails[8])), "qmm_decode.cuh", qmm + "58",
+        "one Qwen2.5 K=4 B=1 step (4 x 24 0.5B layers at M = 1, 28 7B layers and the untied "
+        "head, N = 151936, at M = 5)")
+    rows["quant_matmul_int8_mma/qwen2.5"] = (
+        sum_rows(pre8, wave8, pre8_err), "qmm_mma.cuh", qmm + "58",
+        "the Qwen2.5 pair's 160-row prompt through the 0.5B's 24 and the 7B's 28 layers and "
+        "the 7B's head")
+    rows["quant_matmul_int4/phi3"] = (
+        sum_rows(dec4, calls(step4), max(err4, tails[4])), "qmm_decode.cuh", qmm + "76",
+        "one Phi-3-mini ngram K=4 B=1 step (32 layers and the untied head, N = 32064, at M = 5)")
+    rows["quant_matmul_int4_mma/phi3"] = (
+        sum_rows(pre4, wave4, pre4_err), "qmm_mma.cuh", qmm + "76",
+        "Phi-3-mini's 2400-row prompt block through 32 layers and the head")
+
+    # Each family's rows carry the errors of its own checks.
+    errs = {fam: {"flash_decode": 0.0, "flash_prefill": 0.0, "paged_flash": 0.0}
+            for fam in ("phi3", "qwen2.5")}
+    H, KVH, D, _ = PHI_GEOM
+    family_attention_checks(dev, g, H, KVH, D, PHI_WINDOW, 4096, (2417, 4095, 3000, 300),
+                            (2559, 2399), errs["phi3"])
+    for H, KVH, D, _ in QWEN_GEOMS.values():
+        family_attention_checks(dev, g, H, KVH, D, None, 1024, (167, 1000, 611, 300),
+                                (159, 511), errs["qwen2.5"])
+    phi, qwen = ({k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bound_by="bytes",
+                          max_abs_err=e) for k, e in errs[fam].items()}
+                 for fam in ("phi3", "qwen2.5"))
+    H, KVH, D, _ = PHI_GEOM
+    time_attention(dev, g, phi["flash_decode"], "D", LP, 5, H, KVH, D, 2560, [2417], PHI_WINDOW,
+                   "Phi-3-mini ngram verify, p = 2417")
+    time_attention(dev, g, phi["flash_prefill"], "E", LP, 2400, H, KVH, D, 2560, [2399],
+                   PHI_WINDOW, "Phi-3-mini prompt block from 0")
+    time_attention(dev, g, phi["paged_flash"], "F", LP, 5, H, KVH, D, SERVE_MAX_LEN,
+                   [246 + b for b in range(SERVE_SLOTS)], PHI_WINDOW, "Phi-3-mini serving step")
+    for (H, KVH, D, layers), S, n in zip(QWEN_GEOMS.values(), (1, 5), (4 * L05, L7)):
+        time_attention(dev, g, qwen["flash_decode"], "D", n, S, H, KVH, D, 256, [167], None,
+                       "Qwen2.5 K=4 step, p = 167")
+        time_attention(dev, g, qwen["flash_prefill"], "E", layers, 160, H, KVH, D, 256, [159],
+                       None, "Qwen2.5 prompt block from 0")
+        time_attention(dev, g, qwen["paged_flash"], "F", n, S, H, KVH, D, SERVE_MAX_LEN,
+                       [246 + b for b in range(SERVE_SLOTS)], None, "Qwen2.5 serving step")
+    att = {"flash_decode": ("flash_decode.cu", "ops/pallas/flash_decode.py:146"),
+           "flash_prefill": ("flash_prefill.cu", "ops/pallas/flash_prefill.py:86"),
+           "paged_flash": ("paged_flash.cu", "ops/pallas/paged_flash.py:82")}
+    per = {"phi3": {"flash_decode": "one Phi-3-mini ngram K=4 B=1 step at p = 2417 (32 layers "
+                                    "at S = 5, head dim 96, window 2047)",
+                    "flash_prefill": "Phi-3-mini's 2400-row prompt block (32 layers, window "
+                                     "2047 binding)",
+                    "paged_flash": "one Phi-3-mini ngram K=4 step of the 8-slot serving batch "
+                                   "(32 layers at S = 5)"},
+           "qwen2.5": {"flash_decode": "one Qwen2.5 K=4 B=1 step at p = 167 (4 x 24 0.5B layers "
+                                       "at S = 1, 28 7B layers at S = 5; GQA group 7)",
+                       "flash_prefill": "the Qwen2.5 pair's 160-row prompt (24 + 28 layers)",
+                       "paged_flash": "one Qwen2.5 K=4 step of the 8-slot serving batch"}}
+    for fam, timed in (("phi3", phi), ("qwen2.5", qwen)):
+        for name, (src, where) in att.items():
+            rows[f"{name}/{fam}"] = (timed[name], src, where, per[fam][name])
+    rows["verify_prefix/qwen2.5"] = (verify_row(dev, g, QWEN_V), "verify_prefix.cu",
+                                     "ops/pallas/verify_pallas.py:46",
+                                     f"one Qwen2.5 K=4 B=1 step: C at [1, 4, {QWEN_V}]")
+    rows["verify_prefix/phi3"] = (verify_row(dev, g, PHI_V), "verify_prefix.cu",
+                                  "ops/pallas/verify_pallas.py:46",
+                                  f"one Phi-3-mini ngram K=4 B=1 step: C at [1, 4, {PHI_V}]")
+    return rows
+
+
+# ------------------------------------------------------- phases 17-21: the families
+def tree_bytes(tree):
+    """Bytes of a param tree's tensors (QuantTensor and EmbedQuant leaves
+    included)."""
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    return sum(tree_bytes(t) for t in vars(tree).values() if isinstance(t, torch.Tensor))
+
+
+def model_report(eng, label, k_draft=0):
+    """Log the models' weights, where they came from, and the bound of one
+    decode step: the target's weights read once and the draft's k_draft
+    times, at 3.35 TB/s (the KV cache and activations left out)."""
+    t = tree_bytes(eng.target.params)
+    d = tree_bytes(eng.draft.params) if eng.draft is not None else 0
+    b = (t + k_draft * d) / PEAK_BYTES_PER_S * 1e3
+    log(f"{label}: weights {t / 1e9:.3f} GB target + {d / 1e9:.3f} GB draft "
+        f"(weights_source {eng.target.weights_source!r}); bound of one decode step "
+        f"(the target's weights once, the draft's {k_draft} times) {b:.3f} ms")
+    return b
+
+
+def phase_qwen(dev, paths):
+    """Phase 17: the Qwen2.5 pair (QWEN_CFG) through B=1 generate (phase 3's
+    checks: graph == host loop == baseline ids, a self-drafted run
+    accepts) and phase 3b's 16 requests through the 8-slot paged batcher
+    (== B=1 under the near-tie rule). Returns (the engine, launches)."""
+    label = "Qwen2.5-7B int8 + 0.5B draft, K=4"
+    out = {}
+    eng, out[paths[0]] = phase_end_to_end(dev, False, QWEN_CFG, paths[0], label)
+    model_report(eng, label, k_draft=QWEN_CFG["max_draft"])
+    out[paths[1]] = phase_serving(dev, eng, False, SERVE_MAX_LEN, paths[1], label)
+    return eng, out
+
+
+def phase_phi3(dev, paths):
+    """Phase 18: Phi-3-mini-4k-instruct (PHI_CFG) on PHI_PROMPT, past the
+    window (phase 10's checks: graph == host loop, ngram ids == baseline
+    ids, acceptance > 0), then phase 3b's requests through the paged
+    batcher (== B=1 under the near-tie rule)."""
+    label = "Phi-3-mini int4 ngram K=4"
+    out = {}
+    eng, out[paths[0]] = phase_ngram(dev, False, paths[0], cfg=PHI_CFG, label=label,
+                                     prompt=PHI_PROMPT)
+    n = len(eng.encode(PHI_PROMPT, PHI_CFG["max_new_tokens"], PHI_CFG["max_seq_len"]))
+    assert n > PHI_WINDOW, ("the window does not bind", n)
+    model_report(eng, f"{label} ({n}-token prompt, window {PHI_WINDOW})")
+    out[paths[1]] = phase_serving(dev, eng, False, SERVE_MAX_LEN, paths[1], label)
+    del eng
+    return out
+
+
+def moe_block_report(dev, eng):
+    """The MoE block of one layer (ops/moe.py) at B=1's rows: T = 1 (a
+    baseline step) and T = 5 (an ngram K=4 verify), its ms a forward (x
+    layers) beside two bounds: the dense read of all experts (what the
+    block does) and the routed bound (only the experts its rows route to,
+    counted from this run's routing)."""
+    from llm_inference_lab_tpu_torch.ops.moe import moe_mlp, route
+
+    cfg, layers = eng.target.config, eng.target.params["layers"]
+    D, Fd, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    per_expert = 3 * D * Fd * 2
+    g = torch.Generator(device=dev).manual_seed(19)
+    w = (layers["w_router"][0], layers["w_gate_up"][0], layers["w_down"][0])
+    for T in (1, 5):
+        x = torch.randn((T, D), generator=g, device=dev).bfloat16()
+        ms = median_ms(lambda: moe_mlp(x, *w, top_k=cfg.experts_per_token), iters=10)
+        routed = int(torch.unique(route(x, w[0], cfg.experts_per_token)[1]).numel())
+        dense_b = (E * per_expert + D * E * 2) / PEAK_BYTES_PER_S * 1e3
+        routed_b = (routed * per_expert + D * E * 2) / PEAK_BYTES_PER_S * 1e3
+        log(f"MoE block (mixtral-8x7b, T={T}): {ms:.4f} ms a layer, {ms * cfg.n_layers:.3f} ms a "
+            f"forward of {cfg.n_layers} layers; dense bound (all {E} experts read) "
+            f"{dense_b * cfg.n_layers:.3f} ms a forward ({dense_b / ms:.3f} of it a layer); routed "
+            f"bound ({routed} experts routed) {routed_b * cfg.n_layers:.3f} ms a forward "
+            f"({dense_b / routed_b:.2f}x less than dense)")
+
+
+def phase_mixtral(dev, path):
+    """Phase 19: Mixtral-8x7B at full width, MIXTRAL_LAYERS of its 32
+    layers (registered as MIXTRAL_CUT for the phase), bf16, ngram K=4 at
+    B=1 (phase 10's checks but acceptance), then the MoE block's ms
+    against its bounds."""
+    from llm_inference_lab_tpu_torch.models import mixtral
+
+    table = mixtral.MIXTRAL_CONFIGS
+    table[MIXTRAL_CUT] = replace(table["mixtral-8x7b"], name=MIXTRAL_CUT, n_layers=MIXTRAL_LAYERS)
+    try:
+        label = f"Mixtral-8x7B ({MIXTRAL_LAYERS} of 32 layers) bf16 ngram K=4"
+        # Random experts do not repeat a token as the dense models do: the
+        # acceptance is logged, not asserted.
+        eng, launches = phase_ngram(dev, False, path, cfg=MIXTRAL_CFG, label=label,
+                                    must_accept=False)
+        model_report(eng, label)
+        moe_block_report(dev, eng)
+        del eng
+    finally:
+        del table[MIXTRAL_CUT]
+    return launches
+
+
+def phase_baselines(dev):
+    """Phase 20: gpt2 and opt-125m (BASELINE_CFGS), bf16, no draft, at full
+    depth: phase 3's B=1 checks (graph == host loop; a self-drafted run
+    equals the baseline and accepts), then phase 3b's requests through the
+    paged batcher (== B=1 under the near-tie rule; prompts and budgets stay
+    inside GPT-2's 1024 positions)."""
+    out = {}
+    for name, cfg in BASELINE_CFGS.items():
+        paths, label = BASELINE_PATHS[name], f"{name} bf16 baseline"
+        eng, out[paths[0]] = phase_end_to_end(dev, False, cfg, paths[0], label)
+        model_report(eng, label)
+        out[paths[1]] = phase_serving(dev, eng, False, SERVE_MAX_LEN, paths[1], label)
+        del eng
+        torch.cuda.empty_cache()
+    return out
+
+
+def hf_qwen_tensors(cfg, params):
+    """A Qwen2 model's params under HF's names and layouts ([out, in]
+    weights; q, k and v, their biases, gate and up split apart): what
+    models/loader.py reads back."""
+    H, KV, Dh, Fd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
+    lay = params["layers"]
+    t = {"model.embed_tokens.weight": params["embed"],
+         "model.norm.weight": params["final_norm_scale"]}
+    for i in range(cfg.n_layers):
+        p = f"model.layers.{i}."
+        for part, w, b in zip("qkv", lay["w_qkv"][i].split([H * Dh, KV * Dh, KV * Dh], -1),
+                              lay["b_qkv"][i].split([H * Dh, KV * Dh, KV * Dh], -1)):
+            t[p + f"self_attn.{part}_proj.weight"] = w.t().contiguous()
+            t[p + f"self_attn.{part}_proj.bias"] = b.contiguous()
+        t[p + "self_attn.o_proj.weight"] = lay["wo"][i].t().contiguous()
+        gate, up = lay["w_gate_up"][i].split([Fd, Fd], -1)
+        t[p + "mlp.gate_proj.weight"] = gate.t().contiguous()
+        t[p + "mlp.up_proj.weight"] = up.t().contiguous()
+        t[p + "mlp.down_proj.weight"] = lay["w_down"][i].t().contiguous()
+        t[p + "input_layernorm.weight"] = lay["attn_norm_scale"][i]
+        t[p + "post_attention_layernorm.weight"] = lay["mlp_norm_scale"][i]
+    return t
+
+
+def same_leaves(a, b, path=""):
+    """Two param trees with the same structure, leaf types and bytes."""
+    if isinstance(a, dict):
+        assert isinstance(b, dict) and set(a) == set(b), (path, sorted(a), sorted(b))
+        return sum(same_leaves(a[k], b[k], f"{path}/{k}") for k in a)
+    if isinstance(a, torch.Tensor):
+        assert isinstance(b, torch.Tensor) and a.dtype == b.dtype and torch.equal(a, b), path
+        return 1
+    assert type(a) is type(b) and getattr(a, "bits", None) == getattr(b, "bits", None), path
+    return sum(same_leaves(x, y, f"{path}.{n}") for (n, x), y in
+               zip(vars(a).items(), vars(b).values()) if isinstance(x, torch.Tensor))
+
+
+def phase_checkpoints(dev, eng):
+    """Phase 21. (a) save_params of phase 17's int8 Qwen2.5-0.5B draft and
+    load_params back onto the card: every leaf byte-equal, and one
+    forward's logits equal. (b) An HF-layout snapshot of a bf16 0.5B
+    (random weights from seed 7, biases made nonzero) written by the port's
+    writer under HF's names, with a config.json from the preset, in a
+    temporary HF_HOME: an Engine with no params finds it
+    (find_cached_checkpoint), its weights_source is the snapshot, and its
+    ids equal an engine given the same weights directly. HF_HOME is
+    restored afterwards."""
+    import os
+    import tempfile
+
+    from llm_inference_lab_tpu_torch.config import EngineConfig
+    from llm_inference_lab_tpu_torch.core.engine import Engine
+    from llm_inference_lab_tpu_torch.models import checkpoint, loader, registry
+    from llm_inference_lab_tpu_torch.models.base import Model
+    from llm_inference_lab_tpu_torch.utils.safetensors import save_file
+
+    draft = eng.draft
+    old_home = os.environ.get("HF_HOME")
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            path = os.path.join(tmp, "qwen2.5-0.5b-int8.safetensors")
+            t0 = time.perf_counter()
+            checkpoint.save_params(draft.params, path)
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            loaded = checkpoint.load_params(path, device=dev)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            n = same_leaves(draft.params, loaded)
+            toks = torch.tensor([eng.tokenizer.encode(PROMPT)], device=dev, dtype=torch.int32)
+            pos = torch.arange(toks.shape[1], device=dev, dtype=torch.int32)[None]
+            logits = []
+            for params in (draft.params, loaded):
+                m = Model(config=draft.config, params=params)
+                cache = m.init_cache(1, 256, dev)
+                logits.append(m.forward(toks, pos, cache, torch.zeros((1,), device=dev,
+                                                                      dtype=torch.int32))[0])
+            assert torch.equal(logits[0], logits[1]), "logits of the loaded checkpoint differ"
+            log(f"checkpoint: save_params of the int8 Qwen2.5-0.5B ({os.path.getsize(path) / 1e6:.1f}"
+                f" MB) {save_s:.2f} s, load_params onto the card {load_s:.2f} s; {n} tensors "
+                f"byte-equal, one forward's logits equal")
+            del loaded
+            # (b) an HF-layout snapshot in a temporary HF_HOME.
+            os.environ["HF_HOME"] = os.path.join(tmp, "hf")
+            ref = registry.create("qwen2.5-0.5b", device=dev, seed=7)
+            assert ref.weights_source == "random", ref.weights_source  # the empty cache
+            ref.params["layers"]["b_qkv"].normal_(0, 0.5, generator=torch.Generator(
+                device=dev).manual_seed(8))
+            cfg = ref.config
+            snap = os.path.join(tmp, "hf", "hub", "models--Qwen--Qwen2.5-0.5B", "snapshots",
+                                "0123456789abcdef")
+            os.makedirs(snap)
+            hf = dict(model_type="qwen2", vocab_size=cfg.vocab_size,
+                      num_hidden_layers=cfg.n_layers, num_attention_heads=cfg.n_heads,
+                      num_key_value_heads=cfg.n_kv_heads, hidden_size=cfg.d_model,
+                      intermediate_size=cfg.d_ff,
+                      max_position_embeddings=cfg.max_position_embeddings,
+                      rope_theta=cfg.rope_theta, rms_norm_eps=cfg.rms_norm_eps,
+                      tie_word_embeddings=cfg.tie_word_embeddings, use_sliding_window=False)
+            with open(os.path.join(snap, "config.json"), "w") as f:
+                json.dump(hf, f)
+            t0 = time.perf_counter()
+            save_file(hf_qwen_tensors(cfg, ref.params), os.path.join(snap, "model.safetensors"))
+            write_s = time.perf_counter() - t0
+            assert loader.find_cached_checkpoint("qwen2.5-0.5b") == snap
+            ecfg = EngineConfig(base_model="qwen2.5-0.5b", draft_model=None, max_new_tokens=32,
+                                max_seq_len=512)
+            t0 = time.perf_counter()
+            cached = Engine(ecfg, device=dev)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            assert cached.target.weights_source == snap, cached.target.weights_source
+            got = cached.target.config
+            for field in ("n_layers", "n_heads", "n_kv_heads", "d_model", "d_ff", "vocab_size",
+                          "rope_theta", "rms_norm_eps", "qkv_bias", "tie_word_embeddings"):
+                assert getattr(got, field) == getattr(cfg, field), field
+            n = same_leaves(cached.target.params, ref.params)
+            a = cached.generate(PROMPT)
+            b = Engine(ecfg, device=dev, target_params=ref.params).generate(PROMPT)
+            assert a["weights_source"] == snap and b["weights_source"] == "given"
+            assert a["generated_ids"] == b["generated_ids"], "cached snapshot ids differ"
+            log(f"HF cache: a bf16 Qwen2.5-0.5B snapshot written in {write_s:.2f} s under a "
+                f"temporary HF_HOME; Engine found it (weights_source {snap!r}), loaded it in "
+                f"{init_s:.2f} s ({n} tensors byte-equal to the weights written), and its "
+                f"{len(a['generated_ids'])} ids equal an engine given the weights directly")
+            del cached, ref
+        finally:
+            if old_home is None:
+                os.environ.pop("HF_HOME", None)
+            else:
+                os.environ["HF_HOME"] = old_home
+    assert os.environ.get("HF_HOME") == old_home
+
+
+def free_card():
+    """Collect dead engines (a reference cycle keeps a model's weights) and
+    return the cached blocks, before the next model is built."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"card memory: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved")
+
+
 def phase_prefix_prefill(dev):
     """Kernel E at phase 14b's prefix-cached admissions: the suffix's S
     queries from position PREFIX_TOKENS over one sequence's pages (SERVE_PAGE
@@ -3926,6 +4578,7 @@ def main(argv):
                                  "one Llama-3.1-8B EAGLE K=2 B=1 step (32 verify layers and the "
                                  "head at M = 3, the EAGLE head call at M = 2)"),
     })
+    kernels.update(phase_family_kernels(dev))
     phase_prefix_prefill(dev)
     log(f"phase 2 took {time.perf_counter() - t0:.1f} s")
     profile = "--profile" in argv
@@ -4001,25 +4654,44 @@ def main(argv):
     t0 = time.perf_counter()
     on_path[RING_SERVING_PATH] = phase_ring_serving(dev, eng, long_ids, RING_SERVING_PATH)
     log(f"phase 15 took {time.perf_counter() - t0:.1f} s")
+    del eng
+    free_card()
+    t0 = time.perf_counter()
+    eng, launches = phase_qwen(dev, QWEN_PATHS)
+    on_path.update(launches)
+    log(f"phase 17 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_checkpoints(dev, eng)
+    log(f"phase 21 took {time.perf_counter() - t0:.1f} s")
+    del eng
+    free_card()
+    t0 = time.perf_counter()
+    on_path.update(phase_phi3(dev, PHI_PATHS))
+    log(f"phase 18 took {time.perf_counter() - t0:.1f} s")
+    free_card()
+    t0 = time.perf_counter()
+    on_path[MIXTRAL_PATH] = phase_mixtral(dev, MIXTRAL_PATH)
+    log(f"phase 19 took {time.perf_counter() - t0:.1f} s")
+    free_card()
+    t0 = time.perf_counter()
+    on_path.update(phase_baselines(dev))
+    log(f"phase 20 took {time.perf_counter() - t0:.1f} s")
+
+    # A row "<kernel>/<suffix>" counts the paths of its suffix.
+    suffix_paths = {"gemma-2": GEMMA_PATHS, "ring": RING_PATHS, "ngram": NGRAM_PATHS,
+                    "8b": EAGLE_PATHS, "qwen2.5": QWEN_PATHS, "phi3": PHI_PATHS}
 
     def counted(name):
-        """The paths whose launches a row counts: a Gemma-2 row its paths, a
-        ring row the Mistral ring paths, an ngram row the phase-10 paths, an
-        8b row the phase-12 path, the bf16 D, E and F rows the other Llama
-        paths, the int8 ones the Llama and Gemma-2 paths (none launch
-        there), every other row all (less the phase-10 and phase-12 paths
-        where the kernel has a row of theirs)."""
-        if name.endswith("/gemma-2"):
-            return GEMMA_PATHS
-        if name.endswith("/ring"):
-            return RING_PATHS
-        if name.endswith("/ngram"):
-            return NGRAM_PATHS
-        if name.endswith("/8b"):
-            return EAGLE_PATHS
+        """The paths whose launches a row counts: a suffixed row (Gemma-2,
+        ring, ngram, 8b, Qwen2.5, Phi-3) its suffix's paths; the bf16 D, E
+        and F rows the other Llama paths and phases 19-20's, the int8 ones
+        all but Mistral's (none launch there); every other row all paths
+        less those where the kernel has a suffixed row of theirs."""
+        if "/" in name:
+            return suffix_paths[name.split("/", 1)[1]]
         rest = [path for path in paths
-                if (f"{name}/ngram" not in kernels or path not in NGRAM_PATHS)
-                and (f"{name}/8b" not in kernels or path not in EAGLE_PATHS)]
+                if not any(f"{name}/{suffix}" in kernels and path in ps
+                           for suffix, ps in suffix_paths.items())]
         if name in ("flash_decode", "flash_prefill", "paged_flash"):
             return [path for path in rest if path not in GEMMA_PATHS + MISTRAL_PATHS]
         if name in ("flash_decode_int8", "flash_prefill_int8", "paged_flash_int8"):

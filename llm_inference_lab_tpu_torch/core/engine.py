@@ -2,8 +2,9 @@
 
 Port of llm_inference_lab_tpu/core/engine.py (``Engine.generate`` /
 ``generate_batch``, ``_enable_kv_ring`` and ``_build_results``) for the
-ported slice: Llama, Gemma or Mistral target and draft (models/registry.py),
-or the fake test model (``implementation="fake"``); vanilla drafting from a
+ported slice: a target and draft of any of the eight families
+(models/registry.py; weights from the local HF cache when it holds the
+preset's snapshot, as JAX's factory prefers them), or the fake test model (``implementation="fake"``); vanilla drafting from a
 draft model, ngram drafting from the token buffer, Medusa-lite and
 EAGLE-lite drafting from the target's hidden state and tree speculation
 (``draft_mode``; core/treespec.py); the five acceptance policies
@@ -131,11 +132,17 @@ class Engine:
                                          params=draft_params, **model_kw)
         if cfg.quantization and not cfg.quantized_init:
             for m in (self.target, self.draft):
+                if m is not None and m.config.moe:
+                    # JAX's quantize_params quantizes a real Mixtral's router
+                    # (a 3-D leaf past min_size), which its routing cannot
+                    # read: no quantized MoE in either package (a quantized
+                    # init is refused by mixtral.create, as JAX's).
+                    raise NotImplementedError("weight quantization of a MoE model (its router "
+                                              "and expert stacks) is not implemented")
                 if m is not None:
                     m.params = quantize_params(m.params, cfg.quantization,
                                                include_embed=cfg.quantize_embed)
-        self._weights_source = ("fake" if fake else
-                                "given" if target_params is not None else "random")
+        self._weights_source = "fake" if fake else self.target.weights_source
         self.tokenizer = ByteTokenizer()
         self.eos_token_id = (cfg.eos_token_id if cfg.eos_token_id is not None
                              else self.tokenizer.eos_token_id)

@@ -130,6 +130,11 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 // Keys a tile: 64, or 32 at head dim 256 (the accumulator is 128 registers).
+// Every head dim here (64, 96, 128, 256) is a multiple of 16, which is all
+// the body needs: D / 16 k-steps of the score product, D / 8 output n-tiles,
+// whole 16-byte rows; at 96 the q and bf16 tile rows are 208 bytes, 13
+// 16-byte units, odd, so ldmatrix's 8 rows still fall in 8 distinct bank
+// groups.
 template <int D>
 constexpr int BK = D == 256 ? 32 : 64;
 
@@ -721,6 +726,10 @@ int launch_map(const void* q, const void* k, const void* v, const void* ks, cons
     return launch<256, T, MAP, TREE>(q, k, v, ks, vs, pos, out, ws, counters, B, S, H, KVH, Tk,
                                      stride_kb, stride_kh, stride_sb, stride_sh, opt, nz, pages,
                                      tree, st);
+  if (D == 96)  // Phi-3 (3072 / 32)
+    return launch<96, T, MAP, TREE>(q, k, v, ks, vs, pos, out, ws, counters, B, S, H, KVH, Tk,
+                                    stride_kb, stride_kh, stride_sb, stride_sh, opt, nz, pages,
+                                    tree, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -38,7 +38,7 @@
 
 #include "attn_mma.cuh"
 
-// Requires D in {64, 128, 256}, H % KVH == 0, contiguous q / out / positions
+// Requires D in {64, 96, 128, 256}, H % KVH == 0, contiguous q / out / positions
 // and unit-stride [T, D] planes in k and v (checked in Python). softcap,
 // window and ring: 0 turns them off; a ring needs a window and at least 64
 // slots (a tile). nsplit > 1: ws holds B * KVH * row blocks * nsplit * 64 *

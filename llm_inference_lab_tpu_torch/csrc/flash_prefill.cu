@@ -38,7 +38,7 @@
 
 #include "attn_mma.cuh"
 
-// Requires D in {64, 128, 256}, H % KVH == 0, contiguous q / out / positions
+// Requires D in {64, 96, 128, 256}, H % KVH == 0, contiguous q / out / positions
 // and unit-stride [T, D] planes in k and v (checked in Python); the options
 // of flash_decode_bf16.
 extern "C" int flash_prefill_bf16(const void* q, const void* k, const void* v, const void* pos,

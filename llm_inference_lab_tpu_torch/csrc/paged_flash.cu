@@ -41,7 +41,7 @@
 
 #include "attn_mma.cuh"
 
-// Requires D in {64, 128, 256}, H % KVH == 0, P a power of two, contiguous
+// Requires D in {64, 96, 128, 256}, H % KVH == 0, P a power of two, contiguous
 // q / out / positions / table, unit-stride [P, D] pages with head stride
 // P * D in both pools, and page ids in [0, N) (checked in Python, the ids by
 // the allocator); the options of flash_decode_bf16 but the ring. nsplit > 1:

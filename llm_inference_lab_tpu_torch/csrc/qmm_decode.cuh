@@ -24,7 +24,8 @@
 // every M here, but not below the CUDA cores' f32 rate at M = 40.
 //
 // Design, point by point:
-//  * Every row of x in one block: a block owns BN = 256 output columns and
+//  * Every row of x in one block: a block owns BN = 256 output columns (the
+//    last block of N % 256 != 0 fewer: the columns past N are zeros) and
 //    a range of K, and all M rows (8 NT of them, NT = ceil(M / 8) a template
 //    argument); nothing in the grid runs over M, so every weight byte is
 //    read once a call whatever M. 256 columns, not 128: each block reads
@@ -159,8 +160,11 @@ __device__ __forceinline__ unsigned pair_int8(unsigned u0, unsigned u1) {
 }
 
 // x bf16 [M, K]; w int8 [K/2, N] (BITS 4) or [K, N] (BITS 8); scale f32
-// [N]; out bf16 [M, N]. Grid (N / BN, ks): block (c, z) owns columns
-// [c BN, c BN + BN) and k-tiles [z nk / ks, (z + 1) nk / ks). ks > 1: ws
+// [N]; out bf16 [M, N]. Grid (ceil(N / BN), ks): block (c, z) owns columns
+// [c BN, min(c BN + BN, N)) and k-tiles [z nk / ks, (z + 1) nk / ks). The
+// last column tile of an N that is not a multiple of BN (N % 64 == 0:
+// Qwen2.5's 896 and 1152, Phi-3's 32,064-token head) loads zeros for the
+// columns past N (whole 16-byte chunks) and stores nothing there. ks > 1: ws
 // f32 [ks, M, N] and counters[c] (zero on entry, zero again on exit).
 template <int BITS, int NT>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -190,7 +194,9 @@ decode_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
 #pragma unroll
     for (int u = 0; u < KT * BN / 16 / THREADS; ++u) {
       const int e = tid + u * THREADS, r = e >> 4, c = e & 15;
-      cp16(wsm + w_at(r, c >> 1, (c & 1) << 4), w + (size_t)(kt * KT + r) * N + n0 + c * 16, 16);
+      const bool live = n0 + c * 16 < N;  // N % 64 == 0: a 16-column chunk is all in or out
+      cp16(wsm + w_at(r, c >> 1, (c & 1) << 4),
+           w + (live ? (size_t)(kt * KT + r) * N + n0 + c * 16 : 0), live ? 16 : 0);
     }
     for (int e = tid; e < 8 * NT * (XR / 16); e += THREADS) {
       const int t = e / (XR / 16), c = e % (XR / 16), gr = c >> 1;
@@ -293,8 +299,12 @@ decode_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
   }
   __syncthreads();
   if (kh == 0) {
+    // A tail tile (N % 256 != 0) has columns past N: their weights were
+    // zeros, and they are neither read nor written here.
     const int col = n0 + slice * 32 + 4 * g;
-    const float4 sc = *reinterpret_cast<const float4*>(scale + col);
+    const bool live_col = col < N;
+    const float4 sc = live_col ? *reinterpret_cast<const float4*>(scale + col)
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
     for (int t = 0; t < NT; ++t) {
 #pragma unroll
@@ -304,7 +314,7 @@ decode_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int row = 8 * t + 2 * tq + h;
-        if (row >= M) continue;
+        if (row >= M || !live_col) continue;
         const float4 v =
             make_float4(acc[t][0][h], acc[t][0][2 + h], acc[t][1][h], acc[t][1][2 + h]);
         if (ks == 1) {
@@ -331,9 +341,11 @@ decode_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
   __threadfence();
   // 64 threads a token, 4 columns each; tokens tid / 64, + 8, ...
   const int c4 = n0 + 4 * (tid & 63);
-  const float4 s4 = *reinterpret_cast<const float4*>(scale + c4);
+  const bool live_c4 = c4 < N;
+  const float4 s4 = live_c4 ? *reinterpret_cast<const float4*>(scale + c4)
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
   const size_t split = (size_t)M * N;
-  for (int row = tid >> 6; row < M; row += THREADS / 64) {
+  for (int row = tid >> 6; live_c4 && row < M; row += THREADS / 64) {
     const float* p = ws + (size_t)row * N + c4;
     float4 a = __ldcg(reinterpret_cast<const float4*>(p));
 #pragma unroll 8
@@ -361,7 +373,7 @@ int launch_nt(const void* x, const void* w, const void* scale, void* ws, void* c
   static const cudaError_t shared_ok = cudaFuncSetAttribute(
       decode_kernel<BITS, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (shared_ok != cudaSuccess) return (int)shared_ok;
-  decode_kernel<BITS, NT><<<dim3(N / BN, ks), THREADS, smem, st>>>(
+  decode_kernel<BITS, NT><<<dim3((N + BN - 1) / BN, ks), THREADS, smem, st>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w),
       static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(out),
       static_cast<float*>(ws), static_cast<unsigned*>(counters), M, K, N, ks);
@@ -369,7 +381,7 @@ int launch_nt(const void* x, const void* w, const void* scale, void* ws, void* c
 }
 }  // namespace dec
 
-// The C entries' body for M < 64 rows. Refuses M outside 1..64, N % 256,
+// The C entries' body for M < 64 rows. Refuses M outside 1..64, N % 64,
 // a K that is not whole k-tiles, a split outside 1..k-tiles, and a split
 // without its workspace or counters.
 template <int BITS>
@@ -377,7 +389,7 @@ int launch_decode(const void* x, const void* w, const void* scale, void* ws, voi
                   void* out, int M, int K, int N, int ks, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rows = BITS == 4 ? K / 2 : K;
-  if (M < 1 || M > 64 || N % dec::BN || K % 64 || rows % dec::KT || ks < 1 ||
+  if (M < 1 || M > 64 || N < 64 || N % 64 || K % 64 || rows % dec::KT || ks < 1 ||
       ks > rows / dec::KT || (ks > 1 && (ws == nullptr || counters == nullptr)))
     return (int)cudaErrorInvalidValue;
   switch ((M + 7) / 8) {

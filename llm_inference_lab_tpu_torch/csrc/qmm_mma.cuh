@@ -177,7 +177,10 @@ __device__ __forceinline__ void bytes_to_bf16(unsigned v, unsigned& lo, unsigned
 }
 
 // x bf16 [M, K]; w int8 [K/2, N] (BITS 4) or [K, N] (BITS 8); scale f32
-// [N]. Grid (ceil(M / BM), N / BN, ksplit); block z takes k-tiles
+// [N]. Grid (ceil(M / BM), ceil(N / BN), ksplit); with N % 128 == 64 the
+// last column tile loads zeros for its 64 columns past N and stores nothing
+// there (an element's value depends only on its row and column, so the
+// live columns keep their bits). Block z takes k-tiles
 // [z * nkz, (z + 1) * nkz). ksplit = 1: out bf16 [M, N] = sum * scale;
 // ksplit > 1: ws f32 [ksplit, M, N] partial sums (finish_kernel adds them).
 template <int BITS>
@@ -213,7 +216,9 @@ mma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
     }
     for (int e = tid; e < L::WROWS * CPR; e += THREADS) {
       const int r = e / CPR, c = e % CPR;
-      cp16(wr + r * BN + c * 16, w + (size_t)(kt * L::WROWS + r) * N + n0 + c * 16, 16);
+      const bool live = n0 + c * 16 < N;  // N % 64 == 0: a 16-column chunk is all in or out
+      cp16(wr + r * BN + c * 16, w + (live ? (size_t)(kt * L::WROWS + r) * N + n0 + c * 16 : 0),
+           live ? 16 : 0);
     }
   };
 
@@ -304,6 +309,7 @@ mma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
       const int col = n0 + j * 8 + 2 * tq;
+      if (col >= N) continue;  // the tail tile's columns past N (zero weights)
       const float s0 = acc[4 * j + 2 * h], s1 = acc[4 * j + 2 * h + 1];
       if (ws != nullptr) {
         *reinterpret_cast<float2*>(ws + ((size_t)z * M + row) * N + col) = make_float2(s0, s1);
@@ -329,20 +335,20 @@ __global__ void finish_kernel(const float* __restrict__ ws, const float* __restr
   out[idx] = __float2bfloat16(s * scale[idx % N]);
 }
 
-// The C entries' body. Refuses M < 1, N % 128, K % 64, a split that does
+// The C entries' body. Refuses M < 1, N % 64, K % 64, a split that does
 // not divide the k-tiles, and a missing workspace.
 template <int BITS>
 int launch(const void* x, const void* w, const void* scale, void* ws, void* out, int M, int K,
            int N, int ksplit, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nk = K / BKV;  // k-tiles: 32 packed rows (int4) or 64 rows (int8) each
-  if (M < 1 || N % BN || K % BKV || ksplit < 1 || nk % ksplit || (ksplit > 1 && ws == nullptr))
+  if (M < 1 || N < 64 || N % 64 || K % BKV || ksplit < 1 || nk % ksplit || (ksplit > 1 && ws == nullptr))
     return (int)cudaErrorInvalidValue;
   constexpr size_t smem = Layout<BITS>::total;
   static const cudaError_t shared_ok = cudaFuncSetAttribute(
       mma_kernel<BITS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (shared_ok != cudaSuccess) return (int)shared_ok;
-  dim3 grid((M + BM - 1) / BM, N / BN, ksplit);
+  dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN, ksplit);
   mma_kernel<BITS><<<grid, THREADS, smem, st>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w),
       static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(out),

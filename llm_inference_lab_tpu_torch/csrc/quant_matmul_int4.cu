@@ -20,8 +20,8 @@
 
 // M < 64 rows (csrc/qmm_decode.cuh): x bf16 [M, K], 16-byte aligned; w int8
 // [K/2, N]; scale f32 [N]; out bf16 [M, N]; with ksplit > 1, ws f32
-// [ksplit, M, N] and counters (>= N / 256 of them, zero; left zero).
-// Requires N % 256 == 0, K % 64 == 0 and 1 <= ksplit <= K / 64 (checked
+// [ksplit, M, N] and counters (>= ceil(N / 256) of them, zero; left zero).
+// Requires N % 64 == 0, K % 64 == 0 and 1 <= ksplit <= K / 64 (checked
 // here and by the Python wrapper, which also picks ksplit: decode_plan).
 extern "C" int qmm_int4(const void* x, const void* w, const void* scale, void* ws,
                         void* counters, void* out, int M, int K, int N, int ksplit,
@@ -30,7 +30,7 @@ extern "C" int qmm_int4(const void* x, const void* w, const void* scale, void* w
 }
 
 // The tensor-core path for M >= 64 rows (csrc/qmm_mma.cuh): the same x, w,
-// scale and out, ws f32 [ksplit, M, N] when ksplit > 1. Requires N % 128 ==
+// scale and out, ws f32 [ksplit, M, N] when ksplit > 1. Requires N % 64 ==
 // 0 and K % 64 == 0, ksplit dividing K / 64, x 16-byte aligned (checked by
 // the Python wrapper, and all but the alignment here).
 extern "C" int qmm_int4_mma(const void* x, const void* w, const void* scale, void* ws,

@@ -2,8 +2,10 @@
 
 Port of llm_inference_lab_tpu/models/base.py (ModelConfig, KVCache, the
 per-row int8 quantization and the cache write at absolute positions, or at
-position mod ring_len in the rolling-buffer cache) for the Llama, Gemma and
-Mistral families.
+position mod ring_len in the rolling-buffer cache) for the eight families:
+Llama, Qwen2, Phi-3, Mistral and Mixtral (RMSNorm, rotary, gated MLP or
+routed experts), Gemma and Gemma-2, and GPT-2 and OPT (LayerNorm with
+biases, learned positions, a plain MLP).
 
 Cache-tail invariant (what makes single-pass verification work): the cache
 holds KV for committed tokens [0, L-1), everything except the last committed
@@ -40,10 +42,22 @@ class ModelConfig:
     # ("llama3", factor, low_freq_factor, high_freq_factor, original_max)
     rope_scaling: Optional[tuple] = None
     rms_norm_eps: float = 1e-5
+    layer_norm_eps: float = 1e-5
     tie_word_embeddings: bool = True
     dtype: torch.dtype = torch.bfloat16
-    # Gated MLP activation: "silu" (Llama) or "gelu_tanh" (Gemma's GeGLU).
+    # GPT-2 / OPT: learned absolute positions (row position + pos_offset of
+    # the table; HF OPT's offset is 2) and a bias on every projection
+    # (use_bias: init_params makes them; the forward reads the bias leaves
+    # the params have).
+    use_learned_pos: bool = False
+    use_bias: bool = False
+    # MLP activation: "silu" (Llama) or "gelu_tanh" (Gemma's GeGLU) gate a
+    # gated MLP; "gelu" (GPT-2, tanh-approximated as jax.nn.gelu) and "relu"
+    # (OPT) a plain two-layer one.
     act: str = "silu"
+    pos_offset: int = 0
+    # Qwen2: a bias on the fused q/k/v projection only.
+    qkv_bias: bool = False
     # Local attention: a token at position p attends to (p - window, p];
     # None = full causal attention.
     sliding_window: Optional[int] = None
@@ -66,12 +80,30 @@ class ModelConfig:
     # write ever clobbers a row still inside a live query's window (a write
     # at position p clobbers p - kv_ring_len). None = slot == position.
     kv_ring_len: Optional[int] = None
+    # Mixtral: n_experts gated-MLP experts a layer behind a top-k router
+    # (ops/moe.py); 0 = a dense MLP.
+    n_experts: int = 0
+    experts_per_token: int = 2
 
     @property
     def head_dim(self) -> int:
         if self.head_dim_override is not None:
             return self.head_dim_override
         return self.d_model // self.n_heads
+
+    @property
+    def use_layernorm(self) -> bool:
+        """LayerNorm with a bias (GPT-2, OPT) instead of RMSNorm."""
+        return self.arch in ("gpt2", "opt")
+
+    @property
+    def gated_mlp(self) -> bool:
+        """A gated MLP (silu or tanh-gelu gate) instead of the plain one."""
+        return self.act in ("silu", "gelu_tanh")
+
+    @property
+    def moe(self) -> bool:
+        return self.n_experts > 0
 
 
 @dataclass
@@ -129,10 +161,13 @@ def quantize_rows(x: torch.Tensor):
 @dataclass
 class Model:
     """A bound model: config + params (a nested dict of tensors, QuantTensor
-    and EmbedQuant leaves, laid out as the JAX package's param tree)."""
+    and EmbedQuant leaves, laid out as the JAX package's param tree), and
+    where the weights came from ("random", "given" or a checkpoint's path;
+    JAX's extras["weights_source"])."""
 
     config: ModelConfig
     params: dict
+    weights_source: str = "random"
 
     def forward(self, tokens, positions, cache, cache_lens, return_hidden=False,
                 tree_mask=None):

@@ -11,6 +11,7 @@ layers global).
 
 from __future__ import annotations
 
+from llm_inference_lab_tpu_torch.models import loader
 from llm_inference_lab_tpu_torch.models.base import Model, ModelConfig
 from llm_inference_lab_tpu_torch.models.factory import create_family_model
 
@@ -73,4 +74,4 @@ GEMMA_CONFIGS.update({
 
 def create(name: str, **kw) -> Model:
     """A Gemma model: the keywords of factory.create_family_model."""
-    return create_family_model(GEMMA_CONFIGS, name, **kw)
+    return create_family_model(GEMMA_CONFIGS, name, load_checkpoint=loader.load_llama_checkpoint, **kw)

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+from llm_inference_lab_tpu_torch.models import loader
 from llm_inference_lab_tpu_torch.models.base import Model, ModelConfig
 from llm_inference_lab_tpu_torch.models.factory import create_family_model
 
@@ -32,4 +33,4 @@ LLAMA_CONFIGS = {
 
 def create(name: str, **kw) -> Model:
     """A Llama model: the keywords of factory.create_family_model."""
-    return create_family_model(LLAMA_CONFIGS, name, **kw)
+    return create_family_model(LLAMA_CONFIGS, name, load_checkpoint=loader.load_llama_checkpoint, **kw)

@@ -8,6 +8,7 @@ untied head. A uniform window is what the rolling-buffer cache
 
 from __future__ import annotations
 
+from llm_inference_lab_tpu_torch.models import loader
 from llm_inference_lab_tpu_torch.models.base import Model, ModelConfig
 from llm_inference_lab_tpu_torch.models.factory import create_family_model
 
@@ -29,4 +30,4 @@ MISTRAL_CONFIGS = {
 
 def create(name: str, **kw) -> Model:
     """A Mistral model: the keywords of factory.create_family_model."""
-    return create_family_model(MISTRAL_CONFIGS, name, **kw)
+    return create_family_model(MISTRAL_CONFIGS, name, load_checkpoint=loader.load_llama_checkpoint, **kw)

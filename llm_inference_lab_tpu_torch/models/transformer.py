@@ -1,16 +1,18 @@
-"""Llama-architecture decoder: RMSNorm, llama3 RoPE, fused QKV, GQA
-attention over the cache, gated SiLU or GeGLU MLP, tied (optionally int8)
-head; with Gemma's and Gemma-2's flags (embedding scale, (1 + w) norms,
-sandwich norms, the per-layer sliding window, the score scale and the
-attention and final logit softcaps) and Mistral's untied head and
-rolling-buffer cache (ModelConfig.kv_ring_len: the rows land at position mod
-ring and attention masks modulo the ring).
+"""The decoder of the eight families: Llama's (RMSNorm, llama3 RoPE, fused
+QKV, GQA attention over the cache, gated SiLU MLP, tied (optionally int8)
+head), with Qwen2's QKV bias, Phi-3's and Mistral's untied heads and
+windows, Mixtral's routed experts (ops/moe.py), Gemma's and Gemma-2's flags
+(embedding scale, (1 + w) norms, GeGLU, sandwich norms, the per-layer
+sliding window, the score scale and the attention and final logit
+softcaps), GPT-2's and OPT's LayerNorm with biases, learned positions (no
+rotary) and plain gelu or relu MLP with biases, and the rolling-buffer
+cache (ModelConfig.kv_ring_len: the rows land at position mod ring and
+attention masks modulo the ring).
 
-Port of llm_inference_lab_tpu/models/transformer.py for the Llama, Gemma and
-Mistral families.
-The JAX package scans one compiled layer over stacked params; the port runs
-a Python loop over the same stacked tensors, taking each layer as a view
-(no copy), and every projection goes through ``ops.quant.dense``.
+Port of llm_inference_lab_tpu/models/transformer.py. The JAX package scans
+one compiled layer over stacked params; the port runs a Python loop over
+the same stacked tensors, taking each layer as a view (no copy), and every
+projection goes through ``ops.quant.dense``.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from llm_inference_lab_tpu_torch.models.base import (
 from llm_inference_lab_tpu_torch.models.paged import PagedKVCache, page_slots, write_paged_layer
 from llm_inference_lab_tpu_torch.ops.attention import attend, paged_attend
 from llm_inference_lab_tpu_torch.ops.flash_decode import tree_bits
+from llm_inference_lab_tpu_torch.ops.moe import gated, moe_mlp
 from llm_inference_lab_tpu_torch.ops.quant import EmbedQuant, QuantTensor, dense, f32_logits
 from llm_inference_lab_tpu_torch.ops.rms_norm import add_rms_norm, rms_norm
 
@@ -79,6 +82,32 @@ def rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """LayerNorm over the last axis in f32 (JAX's layer_norm: the mean, the
+    biased variance, (x - mean) * rsqrt(var + eps) * scale + bias), rounded
+    to x's dtype."""
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows idx of table [n, D] as jnp.take gives them (its "fill" mode): an
+    index in [-n, 0) counts from the end, as numpy's does, and any other
+    index outside the table gives a row of NaN. Branch-free, with no
+    out-of-range gather (a device assert on the card), so a captured graph
+    takes it: a dead row's position -1 reads the table's last row (GPT-2),
+    or row pos_offset - 1 (OPT)."""
+    n = table.shape[0]
+    idx = torch.where(idx < 0, idx + n, idx)
+    inside = (idx >= 0) & (idx < n)
+    rows = table[idx.clamp(0, n - 1)]
+    return torch.where(inside[..., None], rows, torch.full_like(rows, float("nan")))
+
+
 def attn_options(cfg: ModelConfig, layer: int) -> dict:
     """The attention options of one layer (JAX _attn_extras with the window
     gate): the window on every layer, or with alt_window on even layers
@@ -94,9 +123,11 @@ def _attn_block(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Ten
                 cos, sin, cache, layer: int, slots, tree: Optional[dict] = None) -> torch.Tensor:
     B, S, _ = x.shape
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    qkv = dense(x, p["w_qkv"])  # fused QKV: one matmul instead of three
+    qkv = dense(x, p["w_qkv"], p.get("b_qkv"))  # fused QKV: one matmul instead of three
     # q and k heads rotate together: one pass of elementwise ops, not two.
-    qk = rope(qkv[..., : (H + KV) * Dh].reshape(B, S, H + KV, Dh), cos, sin)
+    qk = qkv[..., : (H + KV) * Dh].reshape(B, S, H + KV, Dh)
+    if cos is not None:  # rotary (not under learned positions)
+        qk = rope(qk, cos, sin)
     v = qkv[..., (H + KV) * Dh:].reshape(B, S, KV, Dh)
     q = qk[:, :, :H].contiguous()
     # Write the new KV at absolute positions BEFORE attending (ops/attention);
@@ -112,15 +143,20 @@ def _attn_block(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Ten
         write_cache_layer(cache, layer, qk[:, :, H:], v, slots)
         attn = attend(q, cache.k[layer], cache.v[layer], positions, *scales,
                       ring_len=cfg.kv_ring_len, **options)
-    return dense(attn.reshape(B, S, H * Dh), p["wo"])
+    return dense(attn.reshape(B, S, H * Dh), p["wo"], p.get("bo"))
 
 
 def _mlp_block(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    gu = dense(x, p["w_gate_up"])  # gate and up fused into one matmul
-    F_ = gu.shape[-1] // 2
-    gate = gu[..., :F_]
-    gate = F.gelu(gate, approximate="tanh") if cfg.act == "gelu_tanh" else F.silu(gate)
-    return dense(gate * gu[..., F_:], p["w_down"])
+    if cfg.moe:  # Mixtral: top-k routed gated-MLP experts
+        B, S, D = x.shape
+        return moe_mlp(x.reshape(B * S, D), p["w_router"], p["w_gate_up"], p["w_down"],
+                       top_k=cfg.experts_per_token, act=cfg.act).reshape(B, S, D)
+    if not cfg.gated_mlp:  # GPT-2's gelu (tanh-approximated, jax.nn.gelu's default), OPT's relu
+        h = dense(x, p["w_fc"], p.get("b_fc"))
+        h = F.gelu(h, approximate="tanh") if cfg.act == "gelu" else F.relu(h)
+        return dense(h, p["w_proj"], p.get("b_proj"))
+    # gate and up fused into one matmul
+    return dense(gated(dense(x, p["w_gate_up"]), cfg.act), p["w_down"])
 
 
 def _layer_params(layers: dict, i: int) -> dict:
@@ -166,29 +202,47 @@ def forward(cfg: ModelConfig, params: Any, tokens: torch.Tensor, positions: torc
         # Gemma's input normalizer: sqrt(d_model) rounded to the compute
         # dtype, then multiplied (as the JAX package and HF round it).
         x = x * _embed_multiplier(cfg.d_model, cfg.dtype)
-    cos, sin = rope_tables(cfg, positions)
+    cos = sin = None
+    if cfg.use_learned_pos:
+        x = x + take_rows(params["pos_embed"], positions + cfg.pos_offset).to(cfg.dtype)
+    else:
+        cos, sin = rope_tables(cfg, positions)
     if isinstance(cache, PagedKVCache):
         slots = page_slots(cache.table, cache_lens, tokens.shape[1], cache.page_size)
     else:
         slots = cache_slots(cache_lens, tokens.shape[1], cache.max_seq_len, cfg.kv_ring_len)
 
-    def add_norm(h, a, w, post):
-        # h + a' and its norm in one launch, a' = Gemma-2's sandwich norm of a
-        # (post_norms) or a: the norm after each residual add is the next
-        # block's input norm, after the last layer the final norm.
+    layers = params["layers"]
+
+    def norm_of(i):
+        """Scale and bias (None for RMSNorm) of layer i's input norm; at i = L
+        the final norm's."""
+        if i == cfg.n_layers:
+            return params["final_norm_scale"], params.get("final_norm_bias")
+        return layers["attn_norm_scale"][i], (layers["attn_norm_bias"][i] if cfg.use_layernorm
+                                              else None)
+
+    def add_norm(h, a, w, b, post):
+        # h + a and the norm after it, which is the next block's input norm
+        # (after the last layer the final norm). RMSNorm: one launch, with
+        # Gemma-2's sandwich norm of a (post_norms) inside. LayerNorm (GPT-2,
+        # OPT; no Pallas kernel): the add in the model dtype, then plain ops
+        # in f32, as JAX computes them.
+        if cfg.use_layernorm:
+            s = h + a
+            return s, layer_norm(s, w, b, cfg.layer_norm_eps)
         return add_rms_norm(h, a, w, cfg.rms_norm_eps, cfg.rms_one_offset,
                             p[post] if cfg.post_norms else None)
 
-    layers = params["layers"]
-    n = rms_norm(x, layers["attn_norm_scale"][0], cfg.rms_norm_eps, cfg.rms_one_offset)
+    w, b = norm_of(0)
+    n = (layer_norm(x, w, b, cfg.layer_norm_eps) if cfg.use_layernorm
+         else rms_norm(x, w, cfg.rms_norm_eps, cfg.rms_one_offset))
     for i in range(cfg.n_layers):
         p = _layer_params(layers, i)
         a = _attn_block(cfg, p, n, positions, cos, sin, cache, i, slots, tree)
-        x, n = add_norm(x, a, p["mlp_norm_scale"], "post_attn_norm_scale")
+        x, n = add_norm(x, a, p["mlp_norm_scale"], p.get("mlp_norm_bias"), "post_attn_norm_scale")
         h = _mlp_block(cfg, p, n)
-        w_next = (layers["attn_norm_scale"][i + 1] if i + 1 < cfg.n_layers
-                  else params["final_norm_scale"])
-        x, n = add_norm(x, h, w_next, "post_mlp_norm_scale")
+        x, n = add_norm(x, h, *norm_of(i + 1), "post_mlp_norm_scale")
     if return_hidden:
         return lm_head_logits(cfg, params, n), cache, n
     return lm_head_logits(cfg, params, n), cache
@@ -228,13 +282,15 @@ def lm_head_logits(cfg: ModelConfig, params: Any, x: torch.Tensor) -> torch.Tens
 
 
 def _normal(g: torch.Generator, shape, dtype, device, std: float = 0.02) -> torch.Tensor:
-    return torch.randn(shape, generator=g, dtype=dtype, device=device) * std
+    # Scaled in place: a Mixtral expert stack is 30 GB in bf16.
+    return torch.randn(shape, generator=g, dtype=dtype, device=device).mul_(std)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device,
                 skip_big: bool = False) -> dict:
-    """Random init with the JAX package's shapes and N(0, 0.02^2) weights.
-    skip_big leaves the projections out (init_params_quantized adds them)."""
+    """Random init with the JAX package's shapes and N(0, 0.02^2) weights
+    (biases and LayerNorm biases zero, norms the identity). skip_big leaves
+    the projections out (init_params_quantized adds them)."""
     D, Fd, H, KV, Dh, L = (cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv_heads,
                            cfg.head_dim, cfg.n_layers)
     dt = cfg.dtype
@@ -248,14 +304,37 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device,
         layers.update(
             w_qkv=_normal(generator, (L, D, (H + 2 * KV) * Dh), dt, device),
             wo=_normal(generator, (L, H * Dh, D), dt, device),
-            w_gate_up=_normal(generator, (L, D, 2 * Fd), dt, device),
-            w_down=_normal(generator, (L, Fd, D), dt, device),
         )
+    zeros = lambda *shape: torch.zeros(shape, dtype=dt, device=device)  # noqa: E731
+    if cfg.use_layernorm:  # GPT-2 / OPT: the LayerNorm biases
+        layers.update(attn_norm_bias=zeros(L, D), mlp_norm_bias=zeros(L, D))
+    if cfg.use_bias:  # GPT-2 / OPT: a bias on every projection
+        layers.update(b_qkv=zeros(L, (H + 2 * KV) * Dh), bo=zeros(L, D), b_fc=zeros(L, Fd),
+                      b_proj=zeros(L, D))
+    elif cfg.qkv_bias:  # Qwen2: on the fused QKV only
+        layers["b_qkv"] = zeros(L, (H + 2 * KV) * Dh)
+    if not skip_big:
+        if cfg.moe:  # Mixtral: the router and the expert-stacked gated MLPs
+            E = cfg.n_experts
+            layers.update(w_router=_normal(generator, (L, D, E), dt, device),
+                          w_gate_up=_normal(generator, (L, E, D, 2 * Fd), dt, device),
+                          w_down=_normal(generator, (L, E, Fd, D), dt, device))
+        elif cfg.gated_mlp:
+            layers.update(w_gate_up=_normal(generator, (L, D, 2 * Fd), dt, device),
+                          w_down=_normal(generator, (L, Fd, D), dt, device))
+        else:
+            layers.update(w_fc=_normal(generator, (L, D, Fd), dt, device),
+                          w_proj=_normal(generator, (L, Fd, D), dt, device))
     params = {
         "embed": _normal(generator, (cfg.vocab_size, D), dt, device),
         "layers": layers,
         "final_norm_scale": norm_one((D,), dtype=dt, device=device),
     }
+    if cfg.use_learned_pos:
+        params["pos_embed"] = _normal(generator, (cfg.max_position_embeddings + cfg.pos_offset,
+                                                  D), dt, device)
+    if cfg.use_layernorm:
+        params["final_norm_bias"] = zeros(D)
     if not cfg.tie_word_embeddings and not skip_big:
         params["lm_head"] = _normal(generator, (D, cfg.vocab_size), dt, device)
     return params
@@ -266,7 +345,8 @@ def init_params_quantized(cfg: ModelConfig, generator: torch.Generator, device,
     """Random init directly in quantized form: random bytes straight into the
     packed layout, with scales that make the dequantized weights about
     N(0, 0.02^2)-sized (as the JAX package's init_params_quantized), so a
-    full-size model never exists in bf16."""
+    full-size model never exists in bf16. The MoE experts have no quantized
+    form (mixtral.create refuses quantized_init, as JAX's MixtralModel)."""
     params = init_params(cfg, generator, device, skip_big=True)
     bits = 4 if mode == "int4" else 8
     maxq = 7 if bits == 4 else 127
@@ -285,8 +365,12 @@ def init_params_quantized(cfg: ModelConfig, generator: torch.Generator, device,
                            cfg.head_dim, cfg.n_layers)
     params["layers"]["w_qkv"] = rand_qt(D, (H + 2 * KV) * Dh, L)
     params["layers"]["wo"] = rand_qt(H * Dh, D, L)
-    params["layers"]["w_gate_up"] = rand_qt(D, 2 * Fd, L)
-    params["layers"]["w_down"] = rand_qt(Fd, D, L)
+    if cfg.gated_mlp:
+        params["layers"]["w_gate_up"] = rand_qt(D, 2 * Fd, L)
+        params["layers"]["w_down"] = rand_qt(Fd, D, L)
+    else:
+        params["layers"]["w_fc"] = rand_qt(D, Fd, L)
+        params["layers"]["w_proj"] = rand_qt(Fd, D, L)
     if quantize_embed:
         params["embed"] = EmbedQuant(
             rand_bytes((cfg.vocab_size, D)),

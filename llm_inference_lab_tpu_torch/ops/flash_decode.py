@@ -49,6 +49,7 @@ from llm_inference_lab_tpu_torch import build
 RING_MIN = 64  # the kernels' key tile: a shorter ring is refused on the card
 SPLIT = 256  # kernel D's split of the keys, at fixed absolute positions (csrc/attn_mma.cuh)
 ROWS = 64  # query rows a block of kernels D and E
+HEAD_DIMS = (64, 96, 128, 256)  # the head dims csrc/attn_mma.cuh is built for
 
 
 def dequantize_cache(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -301,7 +302,7 @@ def data_ptrs(*tensors):
 def check_queries(name: str, q: torch.Tensor, positions: torch.Tensor, *caches: torch.Tensor,
                   cache_dtype: torch.dtype = torch.bfloat16):
     """The checks every attention kernel makes on q, positions and its K/V
-    tensors: bf16 q, caches of cache_dtype, D in {64, 128, 256}, int32 positions
+    tensors: bf16 q, caches of cache_dtype, D in HEAD_DIMS, int32 positions
     [B, S], contiguous q and positions, one device, 16-byte aligned q and
     caches (the kernels read 16-byte vectors: a misaligned view would fault
     on the card after the launch). Returns (B, S, H, D)."""
@@ -310,8 +311,8 @@ def check_queries(name: str, q: torch.Tensor, positions: torch.Tensor, *caches: 
         raise TypeError(f"{name} kernel takes bf16 q and {cache_dtype} caches")
     if positions.dtype != torch.int32 or positions.shape != (B, S):
         raise TypeError(f"{name} kernel takes int32 positions [B, S]")
-    if D not in (64, 128, 256):
-        raise ValueError(f"{name} kernel: head dim {D} is not 64, 128 or 256")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"{name} kernel: head dim {D} is not one of {HEAD_DIMS}")
     if not (q.is_contiguous() and positions.is_contiguous()):
         raise ValueError(f"{name} kernel needs contiguous q and positions")
     if any(t.device != q.device for t in (positions, *caches)):

@@ -16,7 +16,7 @@ and the kernel reads it through its pointer offset with no copy.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
@@ -129,27 +129,37 @@ def quantize_embed(embed: torch.Tensor) -> EmbedQuant:
     return EmbedQuant(q, scale)
 
 
-def dense(x: torch.Tensor, w: Any) -> torch.Tensor:
+def dense(x: torch.Tensor, w: Any, b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The single matmul entry point for all model projections.
 
-    x: [..., d_in]; w: tensor [d_in, d_out] or a (per-layer) QuantTensor.
-    int4 weights go through quant_matmul (kernel A on CUDA tensors), int8
-    weights through quant_matmul_int8 (kernel B)."""
+    x: [..., d_in]; w: tensor [d_in, d_out] or a (per-layer) QuantTensor;
+    b: an optional bias [d_out], added after the product is rounded to x's
+    dtype (as JAX's dense adds it). int4 weights go through quant_matmul
+    (kernel A on CUDA tensors), int8 weights through quant_matmul_int8
+    (kernel B)."""
     if not isinstance(w, QuantTensor):
-        return torch.matmul(x, w.to(x.dtype))
-    lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1]).contiguous()
-    matmul = quant_matmul if w.bits == 4 else quant_matmul_int8
-    y = matmul(x2, w.data, w.scale)
-    return y.reshape(*lead, w.shape[-1])
+        y = torch.matmul(x, w.to(x.dtype))
+    else:
+        lead = x.shape[:-1]
+        x2 = x.reshape(-1, x.shape[-1]).contiguous()
+        matmul = quant_matmul if w.bits == 4 else quant_matmul_int8
+        y = matmul(x2, w.data, w.scale).reshape(*lead, w.shape[-1])
+    return y if b is None else y + b.to(y.dtype)
+
+
+# The projections' bias leaves (Qwen2's b_qkv; GPT-2's and OPT's four).
+BIASES = ("b_qkv", "bo", "b_fc", "b_proj")
 
 
 def quantize_params(params: Any, mode: str, min_size: int = 1 << 16,
                     include_embed: bool = False) -> Any:
     """Quantize every 2-D/3-D weight leaf >= min_size elements (norms and the
     embedding stay as they are unless include_embed, which makes the
-    embedding an int8 EmbedQuant). Leaves are replaced in place in the
-    nested dict."""
+    embedding an int8 EmbedQuant). Biases stay too: JAX's quantize_params
+    tells them by "bias" in the name, which its stacked bias leaves (b_qkv,
+    bo, b_fc, b_proj) lack, so it quantizes one of them from min_size
+    elements (qwen2.5-7b's b_qkv, [28, 4608]) and its dense then fails on
+    it. Leaves are replaced in place in the nested dict."""
 
     def walk(node: Any, prefix: str) -> Any:
         if isinstance(node, dict):
@@ -160,7 +170,8 @@ def quantize_params(params: Any, mode: str, min_size: int = 1 << 16,
             return node
         if prefix.endswith(".embed"):
             return quantize_embed(node) if include_embed else node
-        if "embed" in prefix or "norm" in prefix or "bias" in prefix:
+        if ("embed" in prefix or "norm" in prefix or "bias" in prefix
+                or prefix.rsplit(".", 1)[-1] in BIASES):
             return node
         if node.dim() in (2, 3) and node.numel() >= min_size:
             return quantize(node, mode)

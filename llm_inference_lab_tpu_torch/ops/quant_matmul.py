@@ -32,6 +32,7 @@ DECODE_MIN_BLOCKS = 96  # the decode plan's floor on blocks a call
 MMA_MIN_M = 64  # rows from which the tensor-core path takes the call
 MMA_BN = 128  # tensor-core path: output columns a block
 MMA_KTILE = 64  # tensor-core path: k-values a k-tile (its unit of K split)
+N_ALIGN = 64  # both bodies take any N that is a multiple of this
 
 
 def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
@@ -61,9 +62,10 @@ def decode_plan(K: int, N: int, bits: int = 4) -> int:
     of a row's sums, so every M rounds a row alike. As many splits as keep
     the grid of N / DECODE_BN column tiles at one block an SM or fewer, and
     one more where that leaves fewer than DECODE_MIN_BLOCKS blocks; at most
-    one a k-tile. Split z takes k-tiles [z nk / ks, (z + 1) nk / ks)."""
+    one a k-tile. Split z takes k-tiles [z nk / ks, (z + 1) nk / ks). A
+    tail tile (N % 256 != 0) counts as a block."""
     ktiles = (K // 2 if bits == 4 else K) // DECODE_KTILE
-    nblk = N // DECODE_BN
+    nblk = -(-N // DECODE_BN)
     ks = max(1, SMS // nblk)
     if nblk * ks < DECODE_MIN_BLOCKS:
         ks += 1
@@ -83,7 +85,7 @@ def mma_plan(K: int, N: int, bits: int = 4) -> int:
     blocks), where one block a column tile leaves the card half empty at a
     160-row prefill; measured on an H100 by tests/torch_qmm_probe.py (PERF.md
     §6)."""
-    if bits == 8 and N // MMA_BN <= 32 and (K // MMA_KTILE) % 2 == 0:
+    if bits == 8 and -(-N // MMA_BN) <= 32 and (K // MMA_KTILE) % 2 == 0:
         return 2
     return 1
 
@@ -92,7 +94,9 @@ def _launch(name: str, x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
             bits: int, mma: bool = False) -> torch.Tensor:
     """Check the operands of kernel A (bits 4, w [K/2, N]) or B (bits 8,
     w [K, N]) and launch its decode body or (mma) its tensor-core path: bf16
-    x, int8 w, f32 scale [N], N a multiple of 256, K of 64, contiguous
+    x, int8 w, f32 scale [N], N a multiple of 64 (a tail of column tiles
+    is masked in the kernel: the weights keep their shape and bytes), K of
+    64, contiguous
     operands on one device, x and w 16-byte aligned (a layer's view of the
     stacked weight qualifies)."""
     M, K = x.shape
@@ -102,8 +106,8 @@ def _launch(name: str, x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
         raise TypeError(f"{name} kernel takes bf16 x, int8 w, f32 scale")
     if w.shape != (rows, N) or scale.shape != (N,) or (bits == 4 and K % 2):
         raise ValueError(f"bad shapes x {tuple(x.shape)} w {tuple(w.shape)} scale {tuple(scale.shape)}")
-    if N % DECODE_BN or K % MMA_KTILE:
-        raise ValueError(f"{name} kernel needs N % {DECODE_BN} == 0 and K % {MMA_KTILE} == 0, "
+    if N % N_ALIGN or N < N_ALIGN or K % MMA_KTILE:
+        raise ValueError(f"{name} kernel needs N % {N_ALIGN} == 0 and K % {MMA_KTILE} == 0, "
                          f"got K={K} N={N}")
     if not (x.is_contiguous() and w.is_contiguous() and scale.is_contiguous()):
         raise ValueError(f"{name} kernel needs contiguous operands")
@@ -127,7 +131,7 @@ def _launch(name: str, x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     ws = counters = None
     if ks > 1:
         ws = torch.empty((ks, M, N), dtype=torch.float32, device=x.device)
-        counters = ticket_counters(x.device, N // DECODE_BN)
+        counters = ticket_counters(x.device, -(-N // DECODE_BN))
     err = getattr(lib, f"qmm_int{bits}")(
         x.data_ptr(), w.data_ptr(), scale.data_ptr(), *data_ptrs(ws, counters), out.data_ptr(),
         M, K, N, ks, stream)

@@ -293,8 +293,8 @@ def test_int8_kernel_rejects_misaligned_and_strided_weights(card):
         quant_matmul_int8(x, flat[8 - 1:-1].view(K, N), scale)
     with pytest.raises(ValueError, match="contiguous"):
         quant_matmul_int8(x, flat[:K * N].view(N, K).t(), scale)
-    with pytest.raises(ValueError, match="N % 256"):
-        quant_matmul_int8(x, flat[:K * 128].view(K, 128), scale[:128])
+    with pytest.raises(ValueError, match="N % 64"):
+        quant_matmul_int8(x, flat[:K * 96].view(K, 96), scale[:96])
 
 
 def _int8_cache(card, g, shape):
@@ -593,7 +593,7 @@ OPTION_SETS = [{}, {"scale": 0.11, "softcap": 20.0}, {"window": 300},
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("P", [16, 64, 128])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 96, 128, 256])
 @pytest.mark.parametrize("cache", ["bf16", "int8"])
 def test_paged_flash_equals_flash_decode_bits(card, cache, D, P):
     """Kernel F gives kernel D's bits on the same keys: four sequences at
@@ -603,7 +603,7 @@ def test_paged_flash_equals_flash_decode_bits(card, cache, D, P):
     option set: none, scale and softcap, a window, all three. Each F call
     is one launch and within _attn_within of the plain version."""
     g = torch.Generator(device=card).manual_seed(D + P)
-    H, KVH = {64: (32, 8), 128: (24, 8), 256: (16, 8)}[D]
+    H, KVH = {64: (32, 8), 96: (32, 32), 128: (24, 8), 256: (16, 8)}[D]
     B, T = 4, 1024
     if cache == "int8":
         (k, ks), (v, vs) = (_int8_cache(card, g, (B, KVH, T, D)) for _ in "kv")
@@ -768,8 +768,8 @@ def test_qmm_decode_rejects_what_it_does_not_take(card, bits):
         kernel(x[:2 * K].view(2, K), w[:rows * N].view(rows, N), scale.double())
     with pytest.raises(TypeError):
         kernel(x[:2 * K].view(2, K).half(), w[:rows * N].view(rows, N), scale)
-    with pytest.raises(ValueError, match="N % 256"):
-        kernel(x[:2 * K].view(2, K), w[:rows * 128].view(rows, 128), scale[:128])
+    with pytest.raises(ValueError, match="N % 64"):
+        kernel(x[:2 * K].view(2, K), w[:rows * 96].view(rows, 96), scale[:96])
     assert kernel.launches == before
 
 
@@ -781,8 +781,8 @@ def test_qmm_tensor_core_path_rejects_what_it_does_not_take(card):
     scale = torch.ones((N,), device=card)
     with pytest.raises(ValueError, match="aligned"):
         quant_matmul_mma(x[1:64 * K + 1].view(64, K), w, scale)
-    with pytest.raises(ValueError, match="N % 256"):
-        quant_matmul_mma(x[:64 * K].view(64, K), w[:, :128], scale[:128])
+    with pytest.raises(ValueError, match="N % 64"):
+        quant_matmul_mma(x[:64 * K].view(64, K), w[:, :96].contiguous(), scale[:96])
     with pytest.raises(TypeError):
         quant_matmul_int8_mma(x[:64 * K].view(64, K).float(), w, scale)
 
@@ -1319,3 +1319,102 @@ def test_capture_after_dead_batchers_in_reference_cycles(card):
     assert b._loop.graph is not None and gc.isenabled()
     b.submit("captured after dead cycles", max_new_tokens=4)
     assert b.run()[0]["generated_tokens"] == 4
+
+
+# (K, N) of the widths that are not a multiple of 256 columns (a tail tile):
+# Qwen2.5-0.5B's qkv (1152) and o and down (896), Qwen2.5-7B's untied head
+# (151,936) and Phi-3-mini's (32,064, a multiple of 64 only).
+QMM_TAIL_WIDTHS = [(896, 1152), (896, 896), (4864, 896), (3584, 151936), (3072, 32064)]
+QMM_TAIL_M = (1, 5, 64, 256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N", QMM_TAIL_WIDTHS)
+@pytest.mark.parametrize("bits", [4, 8])
+def test_qmm_tail_columns_match_plain_and_rows_ignore_m(card, bits, K, N):
+    """Kernels A and B at N % 256 != 0, through both bodies (M = 1 and 5 the
+    decode body, 64 and 256 the tensor-core path): within the tolerance of
+    the plain version (A: 1e-2 of the largest output; B: 2^-8 |ref| + 2^-14
+    of the largest), the last columns included, and a row with the same
+    bits at every M of a body."""
+    x, w, scale = _qmm_inputs(card, bits, K, N, max(QMM_TAIL_M))
+    kernel, plain = ((quant_matmul, quant_matmul_plain) if bits == 4 else
+                     (quant_matmul_int8, quant_matmul_plain_int8))
+    outs = {}
+    for M in QMM_TAIL_M:
+        got = kernel(x[:M], w, scale)
+        ref = plain(x[:M].float(), w, scale)
+        err = (got.float() - ref).abs()
+        if bits == 4:
+            assert err.max() <= 1e-2 * ref.abs().max(), (M, err.max())
+        else:
+            assert torch.all(err <= 2.0 ** -8 * ref.abs() + 2.0 ** -14 * ref.abs().max()), M
+        assert ref[:, -64:].abs().max() > 0  # the tail columns are not vacuous
+        outs[M] = got
+    assert torch.equal(outs[5][:1], outs[1]) and torch.equal(outs[256][:64], outs[64])
+
+
+# Head dim 96 (Phi-3-mini: 32 heads, no GQA, its odd window of 2047) and a
+# GQA group of 7 (Qwen2.5-0.5B's 14 / 2 at head dim 64, Qwen2.5-7B's 28 / 4
+# at 128).
+NEW_GEOMETRIES = [(96, 32, 32, 2047), (64, 14, 2, None), (128, 28, 4, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,H,KVH,window", NEW_GEOMETRIES)
+@pytest.mark.parametrize("cache", ["bf16", "int8"])
+def test_attention_at_head_dim_96_and_group_7(card, cache, D, H, KVH, window):
+    """D (S = 1 and 5), E (a 160-row chunk resuming at 2400, and a prompt
+    from 0) and F (D's bits through a page table) over one cache of T =
+    4096, sequence 0 at positions past the window, sequence 1 with a dead
+    row; and D's and F's tree variants (S = 10, no window): each within
+    _attn_within of the plain version, one launch a call."""
+    from llm_inference_lab_tpu_torch.core.treespec import TreeConfig
+    from llm_inference_lab_tpu_torch.ops.flash_decode import (
+        flash_decode_tree,
+        flash_decode_tree_int8,
+    )
+    from llm_inference_lab_tpu_torch.ops.paged_flash import paged_flash_tree, paged_flash_tree_int8
+
+    g = torch.Generator(device=card).manual_seed(D + H)
+    B, T = 2, 4096
+    if cache == "int8":
+        (k, ks), (v, vs) = (_int8_cache(card, g, (B, KVH, T, D)) for _ in "kv")
+        scales = (ks, vs)
+        dk, ek, fk = flash_decode_int8, flash_prefill_int8, paged_flash_int8
+        tdk, tfk = flash_decode_tree_int8, paged_flash_tree_int8
+    else:
+        k, v = (torch.randn((B, KVH, T, D), generator=g, device=card).bfloat16() for _ in "kv")
+        scales = ()
+        dk, ek, fk = flash_decode, flash_prefill, paged_flash
+        tdk, tfk = flash_decode_tree, paged_flash_tree
+    opts = {"window": window} if window else {}
+    pools = []
+    for t in (k, v, *scales):
+        g_t = torch.Generator(device=card).manual_seed(7)  # one table for all four
+        pool, table = _pool_of(card, g_t, t, 64)
+        pools.append(pool)
+    for S, last in ((1, (3000, 1200)), (5, (4095, 700)), (160, (2559, 159))):
+        last = torch.tensor(last, device=card, dtype=torch.int32)
+        pos = (last[:, None] - S + 1 + torch.arange(S, device=card, dtype=torch.int32)[None])
+        pos = pos.contiguous()
+        pos[1, 0] = -1
+        q = torch.randn((B, S, H, D), generator=g, device=card).bfloat16()
+        kernel = ek if S > 32 else dk
+        before = kernel.launches
+        got = kernel(q, k, v, pos, *scales, **opts)
+        assert kernel.launches == before + 1
+        assert _attn_within(got, q, k, v, pos, *scales, **opts), (S, D, H)
+        if S <= 32:
+            paged = fk(q, pools[0], pools[1], pos, table, *pools[2:], **opts)
+            assert torch.equal(paged, got), S
+    _, _, _, anc = TreeConfig((3, 2)).build()
+    anc = torch.from_numpy(anc).to(card)
+    start = torch.tensor([517, T - 10], device=card, dtype=torch.int32)
+    q = torch.randn((B, 10, H, D), generator=g, device=card).bfloat16()
+    before = tdk.launches
+    ref = tdk(q, k, v, anc, start, *scales)
+    assert tdk.launches == before + 1
+    zeros = torch.zeros((B, 10), device=card, dtype=torch.int32)
+    assert _attn_within(ref, q, k, v, zeros, *scales, tree_mask=anc, chunk_start=start)
+    assert torch.equal(tfk(q, pools[0], pools[1], table, anc, start, *pools[2:]), ref)

@@ -31,6 +31,7 @@ from llm_inference_lab_tpu_torch.core.head_training import (
     train_medusa_heads,
 )
 from llm_inference_lab_tpu_torch.models.factory import create_family_model
+from llm_inference_lab_tpu_torch.models.loader import load_llama_checkpoint
 from llm_inference_lab_tpu_torch.models.llama import LLAMA_CONFIGS
 from llm_inference_lab_tpu_torch.models.registry import create
 
@@ -103,7 +104,7 @@ def test_quantized_untied_head_raises():
     device; the int8 tied head trains."""
     untied = {"untied": replace(LLAMA_CONFIGS["llama-tiny"], tie_word_embeddings=False)}
     quantized = create_family_model(untied, "untied", device="cpu", dtype=torch.float32,
-                                    quantized_init="int4")
+                                    quantized_init="int4", load_checkpoint=load_llama_checkpoint)
     with pytest.raises(NotImplementedError, match="kernel A"):
         train_medusa_heads(quantized, _seqs(2, (2, 12)), num_heads=1, steps=1)
     tied = create("llama-tiny", device="cpu", dtype=torch.float32, quantized_init="int8",
