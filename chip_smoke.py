@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (llm_inference_lab_tpu_torch) on one
 NVIDIA card: the quickest proof that the port builds and runs on the GPU.
 
-    python3 chip_smoke.py                    # phases 0-21, last line a JSON result
+    python3 chip_smoke.py                    # phases 0-22, last line a JSON result
     python3 chip_smoke.py --profile          # also a torch.profiler breakdown of runs
     python3 chip_smoke.py --profile=gemma    # the breakdown of the Gemma-2 runs only
     python3 chip_smoke.py --profile=mistral  # the breakdown of the Mistral B=1 run only
@@ -219,12 +219,27 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
     151,936; M = 1, 5, 64, 256) and times them at phases 17 and 18's
     steps, D, E and F at head dim 96 with the window of 2047 and at group
     7, and C at both vocabularies (rows "/qwen2.5" and "/phi3");
+22. (after phase 16, on phase 3's weights) grammar-constrained decoding and
+    forced tool calls: one engine a grammar (constrain json, json_object,
+    json_schema, regex; tools), each compiling its tables (compile s and
+    table MB logged); B=1 generate under every key, each output walked by
+    the port's automaton and checked independently (json.loads, the
+    schema's fields, re.fullmatch, the tool's name and arguments), its ids
+    the constrained baseline's and the host loop's; an unconstrained call
+    on a table engine gives phase 3's ids; the step ms of the constrained
+    graph against the unconstrained one on the same engine and state, and
+    the grammar's ops against their bound; phase 3b's batcher with
+    constrained and free requests mixed (the free ones phase 3b's ids, all
+    free on a table engine exactly phase 3b's); the server with
+    response_format json_schema, guided_regex, tool_choice required, a
+    named and a streamed named tool call; Medusa K=4 and (after phase 10)
+    ngram K=12 under json_schema;
  9. the kernels' JSON line (every kernel, launches by path; the Gemma-2
     variants of D, E and F, the ring variants of D and E, the ngram
     verify shapes of B, D and C, D's and F's tree variants and A at the 8B
     widths on rows of their own), then the result line.
 
-Every B=1 and serving path (phases 3-8, 10-16) decodes through the decode
+Every B=1 and serving path (phases 3-8, 10-22) decodes through the decode
 loop of core/specstep.py: CUDA-graph replays of the step, captured once a
 shape (the host adaptive controller: a one-step graph a K).
 count_launches adds each replay's captured launches to the wrappers' eager
@@ -244,6 +259,7 @@ import gc
 import hashlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -452,6 +468,30 @@ MIXTRAL_CFG = dict(base_model=MIXTRAL_CUT, draft_model=None, draft_mode="ngram",
 # (configs/baseline.yaml's gpt2, configs/opt_baseline.yaml's opt-125m).
 BASELINE_CFGS = {name: dict(base_model=name, draft_model=None, max_new_tokens=64,
                             max_seq_len=512, seed=0) for name in ("gpt2", "opt-125m")}
+# Phase 22: grammar-constrained decoding on phase 3's weights, one engine a
+# grammar (constrain json, json_object, json_schema, regex; tools), with the
+# keys generate is called with (GRAMMAR_KEYS; the first is the engine's
+# main key). The schema, the regex and the tools are finite: their outputs
+# end in EOS well inside 64 tokens; generic json may run to the budget.
+GRAMMAR_SCHEMA = {"type": "object", "properties": {
+    "ok": {"type": "boolean"}, "mode": {"enum": ["fast", "safe", "off"]}}}
+GRAMMAR_REGEX = "(yes|no|maybe)"
+GRAMMAR_TOOLS = [
+    {"type": "function", "function": {"name": "get_weather", "parameters": {
+        "type": "object", "properties": {"city": {"enum": ["Oslo", "Rome"]}}}}},
+    {"type": "function", "function": {"name": "set_light", "parameters": {
+        "type": "object", "properties": {"on": {"type": "boolean"}}}}},
+]
+GRAMMARS = {
+    "json": (dict(constrain="json"), "json"),
+    "json_object": (dict(constrain="json_object"), "json_object"),
+    "json_schema": (dict(constrain="json_schema", constrain_schema=GRAMMAR_SCHEMA), "json_schema"),
+    "regex": (dict(constrain="regex", constrain_regex=GRAMMAR_REGEX), "regex"),
+    "tools": (dict(tools=GRAMMAR_TOOLS), "tool_call"),
+}
+GRAMMAR_KEYS = {name: [key] for name, (_, key) in GRAMMARS.items()}
+GRAMMAR_KEYS["tools"] += ["tool_call:get_weather", "tool_call:set_light"]
+GRAMMAR_SERVED = ("json_object", "json_schema", "tools")  # phase 22 (b)'s batchers
 # The kernels each path must launch (and no other): the norms (rms_norm
 # once a forward, add_rms_norm twice a layer a forward) and the
 # projections' two kernels (decode rows through the decode body, prefill
@@ -518,6 +558,13 @@ PATH_KERNELS = {
     "serving gpt2 bf16 baseline (16 requests)": {"flash_prefill", "paged_flash"},
     "generate opt-125m bf16 baseline (3 runs)": {"flash_decode", "flash_prefill"},
     "serving opt-125m bf16 baseline (16 requests)": {"flash_prefill", "paged_flash"},
+    # Phase 22: the grammar's ops are plain torch ops inside the captured
+    # step; the paths launch what phase 3's, 3b's, 16's, 13's and 10's do.
+    "generate int4 grammars (json, json_object, json_schema, regex, tools)": INT4 | SPEC,
+    "serving int4 grammars mixed with free requests (4 x 16 requests)": INT4 | SERVE,
+    "serving int4 OpenAI server, grammars and tool calls (HTTP)": INT4 | SERVE,
+    "generate int4 medusa K=4 under json_schema (3 runs)": INT4 | SPEC,
+    "generate int8 ngram K=12 under json_schema (3 runs)": INT8 | SPEC,
 }
 GEMMA_PATHS = [path for path in PATH_KERNELS if "gemma-2" in path]
 MISTRAL_PATHS = [path for path in PATH_KERNELS if "mistral" in path]
@@ -537,6 +584,11 @@ PHI_PATHS = [path for path in PATH_KERNELS if "phi-3" in path]
 MIXTRAL_PATH = next(path for path in PATH_KERNELS if "mixtral" in path)
 BASELINE_PATHS = {name: [path for path in PATH_KERNELS if f" {name} bf16" in path]
                   for name in BASELINE_CFGS}
+GRAMMAR_PATHS = [path for path in PATH_KERNELS if "grammar" in path or "under json" in path]
+PATH_SERVE_INT4 = "serving int4 (16 requests)"
+# Phase 3b's ids by request (phase_serving), which phase 22 holds its free
+# requests on a table-carrying engine to.
+SERVED_IDS = {}
 
 
 T_START = time.perf_counter()
@@ -2789,7 +2841,8 @@ def phase_serving(dev, eng, profile, max_len, path, label):
     peak_mb = torch.cuda.max_memory_allocated() / 1e6
     st = paged.stats.report()
     assert len(results) == len(SERVE_PROMPTS) == st["retired"], "not every request retired"
-    ids_digest(path, [r["generated_ids"] for r in sorted(results, key=lambda r: r["req_id"])])
+    SERVED_IDS[path] = [r["generated_ids"] for r in sorted(results, key=lambda r: r["req_id"])]
+    ids_digest(path, SERVED_IDS[path])
     for r in results:
         lp = torch.tensor(r["token_logprobs"] + r["prompt_logprobs"][1:])
         assert r["generated_tokens"] >= 1 and torch.isfinite(lp).all(), ("bad result", r["req_id"])
@@ -4336,6 +4389,420 @@ def phase_checkpoints(dev, eng):
     assert os.environ.get("HF_HOME") == old_home
 
 
+# ------------------------------------------------------- phase 22: grammars
+def grammar_valid(name, key, text):
+    """The independent check of a completed constrained output (no port
+    code): json.loads; a JSON object for json_object; the schema's fields in
+    order with their types; a full regex match; a tool call naming a tool
+    (the forced one) with arguments of its parameters' shape."""
+    if name == "regex":
+        return re.fullmatch(GRAMMAR_REGEX, text) is not None
+    obj = json.loads(text)
+    if key == "json_object":
+        assert isinstance(obj, dict), text
+    if name == "json_schema":
+        assert list(obj) == ["ok", "mode"] and isinstance(obj["ok"], bool), text
+        assert obj["mode"] in GRAMMAR_SCHEMA["properties"]["mode"]["enum"], text
+    if name == "tools":
+        assert set(obj) == {"name", "arguments"}, text
+        if key.startswith("tool_call:"):
+            assert obj["name"] == key.split(":", 1)[1], text
+        args = obj["arguments"]
+        if obj["name"] == "get_weather":
+            assert list(args) == ["city"] and args["city"] in ("Oslo", "Rome"), text
+        else:
+            assert obj["name"] == "set_light" and list(args) == ["on"], text
+            assert isinstance(args["on"], bool), text
+    return True
+
+
+def grammar_output(eng, name, key, ids, text, budget):
+    """A constrained output against the port's automaton and the independent
+    check: the committed ids (EOS included) walk from the key's initial
+    state without dying (walk_tokens on the engine's host tables); one that
+    ends in EOS passes grammar_valid; one that does not ran to its budget
+    (None: the output must complete). Returns whether it completed."""
+    from llm_inference_lab_tpu_torch.constrain.runtime import walk_tokens
+
+    lex, _, _ = walk_tokens(eng.constrain_tables, eng._resolve_fsm_initial(key), ids)
+    assert lex >= 0, (name, key, "the automaton refuses the committed ids", ids)
+    done = bool(ids) and ids[-1] == eng.eos_token_id
+    if done:
+        assert grammar_valid(name, key, text), (name, key, text)
+    else:
+        assert budget is not None and len(ids) == budget, (name, key, "incomplete", ids, text)
+    return done
+
+
+def http_tool_stream(port, body):
+    """POST a chat body with stream and a forced tool: the tool_calls chunks'
+    name (from the first, with the call's id), the concatenated argument
+    deltas and the last finish_reason."""
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/chat/completions",
+                                 data=json.dumps(dict(body, stream=True)).encode(),
+                                 headers={"Content-Type": "application/json"})
+    name, args, finish = None, "", None
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        for raw in resp:
+            line = raw.decode().strip()
+            if line == "data: [DONE]":
+                return name, args, finish
+            if line.startswith("data: "):
+                ch = json.loads(line[6:])["choices"][0]
+                for tc in ch["delta"].get("tool_calls", []):
+                    if "id" in tc:
+                        assert tc["id"].startswith("call_") and name is None, tc
+                        name = tc["function"]["name"]
+                    args += tc["function"]["arguments"]
+                finish = ch["finish_reason"] or finish
+    raise AssertionError("the stream ended without [DONE]")
+
+
+def grammar_engine(base, name, dev, flags=None, own_draft=True, **kw):
+    """An engine with base's weights and settings (own_draft: its draft's
+    params too; False: none, a head mode's default heads) and the grammar
+    `name` (GRAMMARS), tables compiled at construction."""
+    from llm_inference_lab_tpu_torch.core.engine import Engine
+
+    return Engine(replace(base.config, **GRAMMARS[name][0], **kw), device=dev, flags=flags,
+                  target_params=base.target.params,
+                  draft_params=draft_params_of(base) if own_draft else None)
+
+
+def step_pair_ms(e):
+    """(unconstrained, constrained) device ms of one replay of a grammar
+    engine's two decode loops over its one B=1 decode state (replay_ms):
+    the unconstrained loop is bound (captured) here when no unconstrained
+    call ran; a replay after the run, every lane inactive, runs every op
+    of the step (it is branch-free)."""
+    (key,) = e._decode_states
+    state, loop = e._decode_states[key]
+    if loop.bound is None:
+        loop(state, 1)
+    return replay_ms(loop), replay_ms(e._fsm_loops[key])
+
+
+def mask_ops_ms(dev, eng, rows):
+    """Device ms of the grammar's ops on `rows` rows of the engine's tables
+    (graph_ms: each captured alone): token_mask + apply_mask over [rows, V]
+    f32 logits, transition, and walk_window over K=1; beside the bound of
+    the mask (each table byte of the rows read once, 8 a vocabulary entry,
+    plus the logits read and written: 16 bytes an entry, at 3.35 TB/s)."""
+    from llm_inference_lab_tpu_torch.constrain import runtime as rt
+
+    tbl = eng._constrain_tbl
+    V = tbl["state_out"].shape[1]
+    g = torch.Generator(device=dev).manual_seed(5)
+    logits = torch.randn((rows, V), generator=g, device=dev)
+    lex = torch.full((rows,), eng._resolve_fsm_initial(GRAMMARS["json"][1]), dtype=torch.int32,
+                     device=dev)
+    stack = torch.zeros((rows, rt.STACK_DEPTH), dtype=torch.int32, device=dev)
+    sp = torch.zeros((rows,), dtype=torch.int32, device=dev)
+    tok = torch.randint(0, V, (rows,), generator=g, device=dev, dtype=torch.int32)
+    mask_ms = graph_ms(lambda: rt.apply_mask(logits, rt.token_mask(tbl, lex, stack, sp)))
+    trans_ms = graph_ms(lambda: rt.transition(tbl, lex, stack, sp, tok))
+    walk_ms = graph_ms(lambda: rt.walk_window(tbl, lex, stack, sp, tok[:, None]))
+    table_b, full_b = rows * V * 8, rows * V * 16
+    return dict(rows=rows, mask_ms=mask_ms, transition_ms=trans_ms, walk_ms=walk_ms,
+                bound_ms=bound_ms(full_b, 0)[0], table_bound_ms=bound_ms(table_b, 0)[0])
+
+
+def phase_grammars(dev, eng, paths):
+    """Phase 22 on phase 3's int4 3B + 1B weights (K=1; eng: phase 3's
+    engine): grammar-constrained decoding and forced tool calls.
+    (a) one engine a grammar (GRAMMARS: json, json_object, json_schema,
+    regex, tools), weights shared, each compiling its tables: compile s and
+    table MB logged; B=1 generate under each key, three runs, one launch
+    count; every output checked (grammar_output); greedy spec ids == the
+    constrained baseline's; graph ids == the host loop's; an unconstrained
+    call on the tools engine gives phase 3's ids; step ms of the
+    constrained graph against the unconstrained one on the same engine and
+    state; the grammar ops' ms against their bound at 3 and 24 rows.
+    (b) phase 3b's 16 requests through 8-slot paged batchers of three
+    grammars, even ones constrained, odd ones free: the free ones' ids are
+    phase 3b's, the constrained ones the start of B=1 generate's under the
+    same key (the near-tie rule), every output checked; phase 3b's requests
+    all free on the tools engine give phase 3b's ids exactly (the
+    unconstrained graph replays).
+    (c) the OpenAI server (phase 16's settings) with a grammar:
+    response_format json_schema, guided_regex, tool_choice required, a
+    named tool, a streamed named tool call, a free request; ids (what the engine thread
+    finalizes) against B=1 generate of the rendered prompt.
+    (d) Medusa K=4 (phase 13's settings) under json_schema: its ids the
+    constrained baseline's and the host loop's, acceptance logged.
+    Returns the launches of each path."""
+    from llm_inference_lab_tpu_torch.config import EnvFlags
+    from llm_inference_lab_tpu_torch.constrain.runtime import table_bytes
+    from llm_inference_lab_tpu_torch.core.batching import ContinuousBatcher
+    from llm_inference_lab_tpu_torch.server import InferenceServer
+
+    launches = {}
+    sync = EnvFlags(sync_steps=True)
+    ref_ids = eng.generate(PROMPT)["generated_ids"]
+    unstable_ops = []
+
+    def unstable():
+        if not unstable_ops:
+            unstable_ops.append([op for op, d in row_stability(eng, dev).items()
+                                 if any(d.values())])
+        return unstable_ops[0]
+
+    # (a) B=1 generate under each grammar key.
+    engines = {}
+    for name in GRAMMARS:
+        t0 = time.perf_counter()
+        engines[name] = grammar_engine(eng, name, dev)
+        torch.cuda.synchronize()
+        e = engines[name]
+        log(f"phase 22 engine {name}: tables compiled in {e.constrain_compile_s:.3f} s "
+            f"(engine build {time.perf_counter() - t0:.2f} s), "
+            f"{table_bytes(e._constrain_tbl) / 1e6:.1f} MB on the card, keys "
+            f"{sorted(e._fsm_initial_map)}")
+    keys = [(name, key) for name in GRAMMARS for key in GRAMMAR_KEYS[name]]
+    for name, key in keys:
+        engines[name].generate(PROMPT, response_format=key)  # warm-up, the captures
+    engines["tools"].generate(PROMPT)
+    for name, e in engines.items():
+        graph_report(f"generate, grammar {name} (constrained step)",
+                     [(("B, max_len",) + k, loop) for k, loop in e._fsm_loops.items()])
+
+    def b1_runs():
+        out = {(name, key): [engines[name].generate(PROMPT, response_format=key)
+                             for _ in range(3 if key == GRAMMARS[name][1] else 1)]
+               for name, key in keys}
+        out[("tools", None)] = [engines["tools"].generate(PROMPT) for _ in range(3)]
+        return out
+
+    runs, launches[paths[0]] = count_launches(paths[0], b1_runs)
+    b1 = {}
+    for (name, key), rs in runs.items():
+        ids = rs[0]["generated_ids"]
+        assert all(r["generated_ids"] == ids for r in rs), (name, key, "repeated runs differ")
+        if key is None:
+            assert ids == ref_ids, ("an unconstrained call on a table engine differs from "
+                                    "phase 3's ids", ids, ref_ids)
+            continue
+        # Generic json may run to the budget; the other grammars are finite.
+        done = grammar_output(engines[name], name, key, ids, rs[0]["text"],
+                              engines[name].config.max_new_tokens
+                              if name in ("json", "json_object") else None)
+        b1[(name, key)] = ids
+        base = grammar_engine(eng, name, dev, draft_model=None)
+        want = base.generate(PROMPT, response_format=key)["generated_ids"]
+        assert ids == want, (name, key, "constrained spec ids != constrained baseline ids")
+        del base
+        checked = "constrained baseline"
+        if key == GRAMMARS[name][1]:  # the host loop once a grammar
+            host = grammar_engine(eng, name, dev, flags=sync)
+            same_decode(f"grammar {name} {key}", [host.generate(PROMPT, response_format=key)],
+                        rs[:1])
+            checked += ", host loop"
+            del host
+        log(f"phase 22 generate {name} key {key}: {timing(rs)}, {len(ids)} ids, completed "
+            f"{done}, text {rs[0]['text']!r}; ids == {checked}")
+    ids_digest(paths[0], [b1[k] for k in sorted(b1, key=str)])
+    for name, e in engines.items():
+        plain_ms, fsm_ms = step_pair_ms(e)
+        log(f"phase 22 step ms, engine {name}, one B=1 decode state: unconstrained graph "
+            f"{plain_ms:.4f}, constrained graph {fsm_ms:.4f} (+{fsm_ms - plain_ms:.4f})")
+    log(f"phase 22 generate on the tools engine: {timing(runs[('tools', None)])} unconstrained, "
+        f"{timing(runs[('tools', 'tool_call')])} constrained (a chunk of replays runs to its "
+        f"planned length past an early EOS: ms/step counts the active steps)")
+    for rows in (3, 24):  # K=1: 1 draft row + 2 verify rows a slot; B=1 and 8 slots
+        ops = mask_ops_ms(dev, engines["json"], rows)
+        log(f"phase 22 grammar ops at {rows} rows of V = 128256 (json tables): mask "
+            f"{ops['mask_ms']:.4f} ms (bound {ops['bound_ms']:.5f} ms: table bytes and the logits "
+            f"once, {rows * 128256 * 16 / 1e6:.2f} MB; table bytes alone "
+            f"{ops['table_bound_ms']:.5f} ms), transition {ops['transition_ms']:.4f} ms, "
+            f"walk_window K=1 {ops['walk_ms']:.4f} ms")
+
+    # (b) phase 3b's batcher, constrained and free requests mixed.
+    serve_kw = dict(max_seq_len=SERVE_MAX_LEN, kv_layout="paged", kv_page_size=SERVE_PAGE)
+    served_free = SERVED_IDS[PATH_SERVE_INT4]
+
+    def mixed(name):
+        e = grammar_engine(eng, name, dev, **serve_kw)
+        b = ContinuousBatcher(e, n_slots=SERVE_SLOTS)
+        want = []
+        for i, (prompt, budget) in enumerate(zip(SERVE_PROMPTS, SERVE_BUDGETS)):
+            key = GRAMMAR_KEYS[name][(i // 2) % len(GRAMMAR_KEYS[name])] if i % 2 == 0 else None
+            b.submit(prompt, max_new_tokens=budget, response_format=key)
+            want.append(key)
+        return e, b, want
+
+    batchers = {name: mixed(name) for name in GRAMMAR_SERVED}
+    free_e = grammar_engine(eng, "tools", dev, **serve_kw)
+    free_b = ContinuousBatcher(free_e, n_slots=SERVE_SLOTS)
+    for prompt, budget in zip(SERVE_PROMPTS, SERVE_BUDGETS):
+        free_b.submit(prompt, max_new_tokens=budget)
+
+    def serve_all():
+        return {name: b.run() for name, (_, b, _) in batchers.items()} | {"free": free_b.run()}
+
+    served, launches[paths[1]] = count_launches(paths[1], serve_all)
+    assert [r["generated_ids"] for r in served["free"]] == served_free, (
+        "phase 3b's requests on a table-carrying engine differ from phase 3b's ids")
+    assert free_b.stats.constrained_steps == 0
+    ids_digest(paths[1] + " (all free: phase 3b's digest)",
+               [r["generated_ids"] for r in served["free"]])
+    refs = {}
+    for name, (e, b, keys_b) in batchers.items():
+        differ = completed = 0
+        for r, key, prompt in zip(served[name], keys_b, SERVE_PROMPTS):
+            ids = r["generated_ids"]
+            if key is None:
+                differ += held_to(eng, dev, unstable, "phase 3b (free request)", r["req_id"],
+                                  prompt, served_free[r["req_id"]], ids)
+                continue
+            if (name, key, prompt) not in refs:
+                refs[(name, key, prompt)] = engines[name].generate(
+                    prompt, response_format=key)["generated_ids"]
+            ref = refs[(name, key, prompt)][:len(ids)]
+            differ += held_to(eng, dev, unstable, f"generate under {key}", r["req_id"], prompt,
+                              ref, ids)
+            completed += grammar_output(e, name, key, ids, r["text"], SERVE_BUDGETS[r["req_id"]])
+        st = b.stats.report()
+        log(f"phase 22 serving {name}: 16 requests (8 under {GRAMMAR_KEYS[name]}, {completed} "
+            f"completed), {st['tok_s']:.2f} tok/s, {st['steps']} steps ({st['constrained_steps']} "
+            f"constrained), ids == B=1 / phase 3b for {16 - differ} of 16 (the rest near ties)")
+        graph_report(f"serving, grammar {name}", [(("unconstrained", SERVE_SLOTS), b._loop),
+                                                  (("constrained", SERVE_SLOTS), b._fsm_loop)])
+        assert st["constrained_steps"] > 0
+    b = batchers["json_schema"][1]
+    fsm_ms, plain_ms = replay_ms(b._fsm_loop), replay_ms(b._loop)
+    log(f"phase 22 step ms of the 8-slot serving state (json_schema): unconstrained graph "
+        f"{plain_ms:.4f}, constrained graph {fsm_ms:.4f} (+{fsm_ms - plain_ms:.4f})")
+    del batchers, free_b, free_e
+
+    # (c) the OpenAI server with a grammar.
+    def server(name):
+        e = grammar_engine(eng, name, dev, **SERVER_CFG)
+        srv = InferenceServer(e, n_slots=SERVE_SLOTS, port=0)
+        records = []
+        inner = srv._finalize
+
+        def finalize(pend):
+            records.append((pend.prompt, pend.max_tokens, pend.sampling.get("response_format"),
+                            pend.result))
+            inner(pend)
+
+        srv._finalize = finalize
+        srv.start()
+        return srv, records
+
+    servers = {name: server(name) for name in ("json_schema", "regex", "tools")}
+    tool_req = dict(messages=[{"role": "user", "content": "What is the weather in Oslo?"}],
+                    tools=GRAMMAR_TOOLS, max_tokens=64, temperature=0)
+    named = {"type": "function", "function": {"name": "get_weather"}}
+
+    def http_all():
+        out = {}
+        port = servers["json_schema"][0].port
+        out["json_schema"] = [http_post(port, "/v1/completions", dict(
+            prompt=p, max_tokens=48, temperature=0, response_format={
+                "type": "json_schema", "json_schema": {"schema": GRAMMAR_SCHEMA}}))
+            for p in SERVE_PROMPTS[:2]]
+        out["free"] = http_post(port, "/v1/completions", dict(prompt=SERVE_PROMPTS[2],
+                                                              max_tokens=16, temperature=0))
+        port = servers["regex"][0].port
+        out["regex"] = [http_post(port, "/v1/completions", dict(
+            prompt=p, max_tokens=16, temperature=0, guided_regex=GRAMMAR_REGEX))
+            for p in SERVE_PROMPTS[:2]]
+        port = servers["tools"][0].port
+        out["required"] = http_post(port, "/v1/chat/completions",
+                                    dict(tool_req, tool_choice="required"))
+        out["named"] = http_post(port, "/v1/chat/completions", dict(tool_req, tool_choice=named))
+        out["stream"] = http_tool_stream(port, dict(tool_req, tool_choice=named))
+        return out
+
+    try:
+        answers, launches[paths[2]] = count_launches(paths[2], http_all)
+    finally:
+        for srv, _ in servers.values():
+            srv.stop()
+    for o in answers["json_schema"]:
+        assert grammar_valid("json_schema", "json_schema", o["choices"][0]["text"]), o
+    for o in answers["regex"]:
+        assert grammar_valid("regex", "regex", o["choices"][0]["text"]), o
+    calls = []
+    for what in ("required", "named"):
+        ch = answers[what]["choices"][0]
+        assert ch["finish_reason"] == "tool_calls" and ch["message"]["content"] is None, ch
+        (tc,) = ch["message"]["tool_calls"]
+        text = json.dumps({"name": tc["function"]["name"],
+                           "arguments": json.loads(tc["function"]["arguments"])})
+        assert grammar_valid("tools", "tool_call" if what == "required"
+                             else "tool_call:get_weather", text)
+        calls.append(tc["function"]["name"])
+    name, args, finish = answers["stream"]
+    assert name == "get_weather" and finish == "tool_calls", answers["stream"]
+    assert json.loads(args)["city"] in ("Oslo", "Rome"), args
+    differ = n = 0
+    for srv_name, (srv, records) in servers.items():
+        for prompt, budget, key, result in records:
+            ref = (engines[srv_name].generate(prompt, response_format=key) if key is not None
+                   else eng.generate(prompt))["generated_ids"]
+            ids = result["generated_ids"]
+            differ += held_to(eng, dev, unstable, f"generate under {key} (HTTP)", n, prompt,
+                              ref[:len(ids)], ids)
+            n += 1
+            if key is not None:
+                grammar_output(srv.engine, srv_name, key, ids, result["text"], budget)
+    log(f"phase 22 server: json_schema {[o['choices'][0]['text'] for o in answers['json_schema']]}"
+        f", guided_regex {[o['choices'][0]['text'] for o in answers['regex']]}, tool calls "
+        f"{calls}, streamed call {name}({args}) finish {finish}; ids == B=1 generate for "
+        f"{n - differ} of {n} (the rest near ties)")
+
+    # (d) Medusa K=4 under json_schema.
+    medusa = grammar_engine(eng, "json_schema", dev, own_draft=False, draft_model=None,
+                            draft_mode="medusa", max_draft=MEDUSA_K)
+    key = GRAMMARS["json_schema"][1]
+    medusa.generate(PROMPT, response_format=key)
+    rs, launches[paths[3]] = count_launches(paths[3], lambda: [
+        medusa.generate(PROMPT, response_format=key) for _ in range(3)])
+    ids = rs[0]["generated_ids"]
+    assert all(r["generated_ids"] == ids for r in rs)
+    assert ids == b1[("json_schema", key)], "Medusa under json_schema != the constrained baseline"
+    host = grammar_engine(eng, "json_schema", dev, flags=sync, own_draft=False,
+                          draft_model=None, draft_mode="medusa", max_draft=MEDUSA_K)
+    same_decode("medusa json_schema", [host.generate(PROMPT, response_format=key)], rs[:1])
+    grammar_output(medusa, "json_schema", key, ids, rs[0]["text"], None)
+    plain_ms, fsm_ms = step_pair_ms(medusa)
+    log(f"phase 22 Medusa K={MEDUSA_K} under json_schema: {timing(rs)}, {step_stats(rs)}; ids == "
+        f"constrained baseline, == host loop; step ms unconstrained graph {plain_ms:.4f}, "
+        f"constrained graph {fsm_ms:.4f} (+{fsm_ms - plain_ms:.4f})")
+    return launches
+
+
+def phase_grammar_ngram(dev, eng, path):
+    """Phase 22 (e) on phase 10's weights and settings (int8 3B, ngram
+    K=12): json_schema's tables on an engine of the same weights; B=1
+    generate, its ids the constrained baseline's and the host loop's, the
+    output checked."""
+    from llm_inference_lab_tpu_torch.config import EnvFlags
+
+    e = grammar_engine(eng, "json_schema", dev)
+    key = GRAMMARS["json_schema"][1]
+    e.generate(PROMPT, response_format=key)
+    rs, launches = count_launches(path, lambda: [e.generate(PROMPT, response_format=key)
+                                                 for _ in range(3)])
+    ids = rs[0]["generated_ids"]
+    assert all(r["generated_ids"] == ids for r in rs)
+    base = grammar_engine(eng, "json_schema", dev, draft_mode="vanilla")
+    assert base.generate(PROMPT, response_format=key)["generated_ids"] == ids, (
+        "ngram under json_schema != the constrained baseline")
+    host = grammar_engine(eng, "json_schema", dev, flags=EnvFlags(sync_steps=True))
+    same_decode("ngram json_schema", [host.generate(PROMPT, response_format=key)], rs[:1])
+    grammar_output(e, "json_schema", key, ids, rs[0]["text"], None)
+    plain_ms, fsm_ms = step_pair_ms(e)
+    log(f"phase 22 ngram K={NGRAM_K} under json_schema: {timing(rs)}, {step_stats(rs)}; ids "
+        f"== constrained baseline, == host loop; step ms unconstrained graph {plain_ms:.4f}, "
+        f"constrained graph {fsm_ms:.4f} (+{fsm_ms - plain_ms:.4f})")
+    return launches
+
+
 def free_card():
     """Collect dead engines (a reference cycle keeps a model's weights) and
     return the cached blocks, before the next model is built."""
@@ -4610,6 +5077,9 @@ def main(argv):
     t0 = time.perf_counter()
     on_path[SERVER_PATH] = phase_server(dev, eng, profile_server, SERVER_PATH)
     log(f"phase 16 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    on_path.update(phase_grammars(dev, eng, GRAMMAR_PATHS[:4]))
+    log(f"phase 22 took {time.perf_counter() - t0:.1f} s")
     del eng
     t0 = time.perf_counter()
     eng, on_path[paths[2]] = phase_end_to_end(dev, profile, INT8_CFG, paths[2],
@@ -4627,6 +5097,9 @@ def main(argv):
     on_path[NGRAM_PATHS[1]] = phase_serving(dev, eng, profile, SERVE_MAX_LEN, NGRAM_PATHS[1],
                                             f"3B int8 ngram K={NGRAM_K}")
     log(f"phase 10 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    on_path[GRAMMAR_PATHS[4]] = phase_grammar_ngram(dev, eng, GRAMMAR_PATHS[4])
+    log(f"phase 22 (ngram) took {time.perf_counter() - t0:.1f} s")
     del eng
     torch.cuda.empty_cache()
     t0 = time.perf_counter()

@@ -15,12 +15,15 @@ and seed in the decode state, what the OpenAI server sets), top-N logprobs
 the rolling-buffer cache (``kv_ring``) of uniform sliding-window models; in
 serving, incremental (chunked) admission (``admit_chunk``), lazy page growth
 with preemption (``kv_lazy_pages``, on by default as in JAX) and prefix
-caching (``prefix_caching``). A field of the JAX config with a single
-ported value has no field here until a later slice ports a second value for
-it. So ``constrain`` and ``tools`` (none: no grammar), ``lora`` (none) and
-``profile`` (off) have no field yet. Fields are named and defaulted as in
-JAX, except ``implementation``, "hf" here ("fake" in JAX): the port's entry
-points build the named model unless a caller asks for the fake one.
+caching (``prefix_caching``), and grammar-constrained decoding
+(``constrain`` with ``constrain_schema`` or ``constrain_regex``, or
+``tools``: the grammar's token tables, built once by the engine, masking
+every sampling site). A field of the JAX config with a single ported value
+has no field here until a later slice ports a second value for it. So
+``lora`` (none) and ``profile`` (off) have no field yet. Fields are named
+and defaulted as in JAX, except ``implementation``, "hf" here ("fake" in
+JAX): the port's entry points build the named model unless a caller asks
+for the fake one.
 
 ``EnvFlags`` is the port's copy of the JAX package's runtime flags with the
 one field it reads. It has no ``from_env``: the port reads no environment
@@ -37,6 +40,7 @@ DRAFT_MODES = ("vanilla", "ngram", "medusa", "eagle", "tree")
 HEAD_MODES = ("medusa", "eagle", "tree")
 MAX_TREE_S = 32  # the verify chunk of a tree on the card: num_nodes + 1 rows at most
 CONTROLLERS = ("fixed", "adaptive", "adaptive-device")
+CONSTRAINTS = ("json", "json_object", "json_schema", "regex")
 
 
 @dataclass(frozen=True)
@@ -139,6 +143,22 @@ class EngineConfig:
     # prompt pages are shared between requests with the same prefix
     # (models/paged.py PrefixPageCache) and admission forwards the suffix.
     prefix_caching: bool = False
+    # Grammar-constrained decoding (constrain/): None disables; "json" (any
+    # top-level value), "json_object" (OpenAI response_format), "json_schema"
+    # (structured outputs: needs constrain_schema) or "regex" (guided regex,
+    # an anchored full match: needs constrain_regex). The engine compiles the
+    # grammar's token tables once and masks every sampling site on the
+    # device; the value is Engine.generate's default and fixes which grammar
+    # the deployment serves (requests opt in by response_format).
+    constrain: Optional[str] = None
+    constrain_schema: Optional[dict] = None
+    constrain_regex: Optional[str] = None
+    # Tool calling (constrain/tools.py): the OpenAI `tools` list compiled
+    # into a tool-call grammar ({"name": ..., "arguments": ...} under each
+    # tool's parameters schema). Requests opt in by tool_choice ("required"
+    # or a named function; "auto" is unconstrained and parsed on the host).
+    # Not with `constrain` (one grammar table a deployment).
+    tools: Optional[list] = None
     ngram: dict = field(default_factory=lambda: {"n": 2})
     # Medusa heads: K projections [D, D] ahead of the target's head ("tie" or
     # "copy": identity; "random": identity plus N(0, 0.02^2) noise), sampled
@@ -205,8 +225,27 @@ class EngineConfig:
             raise NotImplementedError("per-request sampling parameters are not supported with "
                                       "the rejection policy (its distributions are the "
                                       "engine's)")
+        self._validate_constrain()
         if self.draft_mode == "tree":
             self._validate_tree()
+
+    def _validate_constrain(self) -> None:
+        """JAX's engine checks of the grammar fields (core/engine.py:324-378),
+        in its order and with its messages."""
+        if self.tools and self.constrain is not None:
+            raise ValueError("tools and constrain are mutually exclusive (one grammar table per "
+                             "deployment)")
+        if self.constrain is None and not self.tools:
+            return
+        if self.constrain is not None and self.constrain not in CONSTRAINTS:
+            raise ValueError(f"constrain must be 'json', 'json_object', 'json_schema', or "
+                             f"'regex', got {self.constrain!r}")
+        if self.draft_mode == "tree":
+            raise ValueError("constrained decoding is not supported in tree mode")
+        if self.constrain == "regex" and not self.constrain_regex:
+            raise ValueError("constrain='regex' requires constrain_regex")
+        if self.constrain == "json_schema" and not self.constrain_schema:
+            raise ValueError("constrain='json_schema' requires constrain_schema")
 
     @property
     def penalized(self) -> bool:

@@ -62,6 +62,17 @@ would have made. Under ``logprobs_topk`` each result carries
 its preemption). ``poll_generated`` reads every slot's tokens so far (the
 server's streams and stop strings).
 
+Grammars (``submit(..., response_format=)``, a key of the engine's grammar:
+JAX ``_admission_meta``): every admission route writes the slot's FSM, the
+key's initial state with an empty stack (-1 without a key), so a reused slot
+starts afresh. A preempted constrained request resumes with its FSM walked
+over the tokens it generated before the preemption (constrain/runtime.py
+``walk_tokens`` on the host tables): JAX gives it the initial state again,
+which forces a fresh value after its partial one. While a constrained
+request decodes, a chunk replays the constrained step's loop (the engine's
+``_fsm_steps``, captured over the same state); otherwise the unconstrained
+one, whose ids and step time are those of an engine without tables.
+
 The loop here runs POLL_EVERY steps, then reads the slots' flags and
 lengths once (one [4, B] fetch), retires, grows pages, and admits. The
 steps are replays of the engine's decode loop (core/specstep.py
@@ -75,11 +86,11 @@ growth, preemption, cancel and retirement write that state's tensors in
 place. With the engine's ``EnvFlags(sync_steps=True)`` the batcher runs the
 functional step instead, one call a step.
 
-Left out (ROADMAP Queue 1): grammars and tools (``response_format``
-raises), LoRA (``lora`` raises), adaptive K (both adaptive controllers
-raise here; JAX's ``record_step``), async, prefetched and overlapped polls
-and admission, the chunk cost model, fused admission in the decode graph
-(JAX ``Engine._get_admit_loop``) and multi-host serving.
+Left out (ROADMAP Queue 1): LoRA (``lora`` raises), adaptive K (both
+adaptive controllers raise here; JAX's ``record_step``), async, prefetched
+and overlapped polls and admission, the chunk cost model, fused admission
+in the decode graph (JAX ``Engine._get_admit_loop``) and multi-host
+serving.
 """
 
 from __future__ import annotations
@@ -92,6 +103,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from llm_inference_lab_tpu_torch.constrain import runtime as fsm
 from llm_inference_lab_tpu_torch.core.engine import Engine, _round_up, plain_rows, top_logprobs
 from llm_inference_lab_tpu_torch.core.scheduler import Scheduler
 from llm_inference_lab_tpu_torch.core.specstep import make_decode_loop
@@ -150,6 +162,8 @@ class _Request:
     seed: Optional[int] = None
     # The top-N alternatives of the positions generated before a preemption.
     prior_tops: List[list] = field(default_factory=list)
+    # The initial FSM state of the request's grammar key (-1: unconstrained).
+    fsm_init: int = fsm.UNCONSTRAINED
 
     @property
     def admit_ids(self) -> List[int]:
@@ -174,6 +188,8 @@ class BatcherStats:
     # Steps run on the plain greedy step: every decoding request greedy and
     # unpenalized under per-request sampling (Engine._plain).
     plain_steps: int = 0
+    # Steps run on the constrained step: a constrained request decoding.
+    constrained_steps: int = 0
     page_grows: int = 0  # lazy page growths (table rows extended)
     preemptions: int = 0  # slots preempted on a dry pool
     # Wall time of admission work: waves, prefix admissions, incremental
@@ -187,6 +203,7 @@ class BatcherStats:
             "retired": self.retired,
             "steps": self.steps,
             "plain_steps": self.plain_steps,
+            "constrained_steps": self.constrained_steps,
             "admit_waves": self.admit_waves,
             "committed_tokens": self.committed_tokens,
             "page_grows": self.page_grows,
@@ -212,8 +229,12 @@ def _fill_slots(state: DecodeState, slots: torch.Tensor, token_rows: torch.Tenso
     state, in place: tokens and logprob lanes [G, max_len], lengths, budget,
     active flag, zeroed counters, (head modes) the hidden carry and the
     requests' controls (ContinuousBatcher._controls: f32 [G, 6 + N_BIAS],
-    int32 [G, 1 + N_BIAS], keys int64 [G])."""
-    f32, i32, keys = controls
+    int32 [G, 1 + N_BIAS], keys int64 [G], and the FSM: lex [G], stack
+    [G, STACK_DEPTH], sp [G] int32)."""
+    f32, i32, keys, fsm_lex, fsm_stack, fsm_sp = controls
+    state.fsm_lex[slots] = fsm_lex
+    state.fsm_stack[slots] = fsm_stack
+    state.fsm_sp[slots] = fsm_sp
     for j, name in enumerate(_F32_CONTROLS):
         getattr(state, name)[slots] = f32[:, j]
     state.bias_vals[slots] = f32[:, len(_F32_CONTROLS):]
@@ -505,7 +526,7 @@ class ContinuousBatcher:
                                     init_k=engine.controller.k,
                                     defaults=engine.sampling_defaults(),
                                     logprobs_topk=cfg.logprobs_topk, **paged_kw)
-            self._loop = self._plain_loop = None
+            self._loop = self._plain_loop = self._fsm_loop = None
             if not engine.flags.sync_steps:
                 self._loop = make_decode_loop(engine._step_in_place, pool=engine.graph_pool)
                 self._loop.bind(self.state)
@@ -513,21 +534,26 @@ class ContinuousBatcher:
                     self._plain_loop = make_decode_loop(engine._plain[1],
                                                         pool=engine.graph_pool)
                     self._plain_loop.bind(self.state)
+                if engine._fsm_steps is not None:
+                    self._fsm_loop = make_decode_loop(engine._fsm_steps[1],
+                                                      pool=engine.graph_pool)
+                    self._fsm_loop.bind(self.state)
 
     def check_request(self, *, logit_bias: Optional[Dict[int, float]] = None,
                       seed: Optional[int] = None, response_format: Optional[str] = None,
                       lora: Optional[str] = None, **controls: Any) -> None:
         """Refuse what this batcher cannot serve as asked, before anything is
         queued (host only: the server's handler threads call it): a grammar
-        (``response_format``) or a LoRA adapter, not ported; per-request
+        key the engine's grammar cannot serve (``response_format``; ValueError
+        with JAX's message, from Engine._resolve_fsm_initial), a LoRA adapter
+        (not ported); per-request
         controls, a logit_bias or a seed on an engine without
         ``per_request_sampling`` (its step reads the engine's values);
         penalties in tree mode; more logit_bias pairs than a slot holds
         (N_BIAS) or an id outside the vocabulary. Raises ValueError or
         NotImplementedError, naming what."""
         if response_format is not None:
-            raise NotImplementedError(f"response_format {response_format!r}: grammar-"
-                                      "constrained decoding (JAX constrain/) is not ported")
+            self.engine._resolve_fsm_initial(response_format)
         if lora is not None:
             raise NotImplementedError(f"LoRA adapter {lora!r}: LoRA is not ported")
         unknown = set(controls) - set(CONTROLS)
@@ -560,15 +586,18 @@ class ContinuousBatcher:
         """Queue a prompt; returns its req_id. controls: temperature, top_k,
         top_p, min_p, repetition_penalty, presence_penalty and
         frequency_penalty of this request (None: the engine's); logit_bias
-        {token id: bias}; seed (JAX's submit keywords). What check_request
-        refuses raises here."""
+        {token id: bias}; seed; response_format, a grammar key of the
+        engine's (None: unconstrained, whatever the engine's default; JAX's
+        submit keywords). What check_request refuses raises here."""
         self.check_request(logit_bias=logit_bias, seed=seed, response_format=response_format,
                            lora=lora, **controls)
         max_new = max_new_tokens or self.engine.config.max_new_tokens
         ids = self.engine.encode(prompt, max_new, self.max_seq_len)
         req = _Request(self._next_id, prompt, ids, max_new,
                        controls={k: v for k, v in controls.items() if v is not None},
-                       logit_bias=dict(logit_bias) if logit_bias else None, seed=seed)
+                       logit_bias=dict(logit_bias) if logit_bias else None, seed=seed,
+                       fsm_init=(self.engine._resolve_fsm_initial(response_format)
+                                 if response_format is not None else fsm.UNCONSTRAINED))
         self._next_id += 1
         self._requests[req.req_id] = req
         self.scheduler.submit(req.req_id, len(ids), max_new)
@@ -595,13 +624,15 @@ class ContinuousBatcher:
         """The requests' controls for _fill_slots, on the device (JAX
         _admission_meta): f32 [G, 6 + N_BIAS] (temperature, top_p, min_p,
         the penalties, the bias values), int32 [G, 1 + N_BIAS] (top_k, the
-        bias ids, -1 empty) and int64 [G] keys, the key of each request's
-        seed (derive_request_seed)."""
+        bias ids, -1 empty), int64 [G] keys, the key of each request's
+        seed (derive_request_seed), and each request's FSM (_fsm_of)."""
         G = len(reqs)
         f32 = np.zeros((G, len(_F32_CONTROLS) + N_BIAS), np.float32)
         i32 = np.full((G, 1 + N_BIAS), -1, np.int32)
         keys = np.zeros((G,), np.int64)
+        fsm_lex, fsm_stack, fsm_sp = fsm.init_fsm(G)
         for g, req in enumerate(reqs):
+            fsm_lex[g], fsm_stack[g], fsm_sp[g] = self._fsm_of(req)
             vals = self._values(req)
             f32[g, :len(_F32_CONTROLS)] = [vals[name] for name in _F32_CONTROLS]
             i32[g, 0] = vals["top_k"]
@@ -611,7 +642,18 @@ class ContinuousBatcher:
             keys[g] = seed_key(derive_request_seed(self.engine.config.seed, req.req_id,
                                                    req.seed))
         dev = self.engine.device
-        return tuple(torch.from_numpy(a).to(dev) for a in (f32, i32, keys))
+        return tuple(torch.from_numpy(a).to(dev)
+                     for a in (f32, i32, keys, fsm_lex, fsm_stack, fsm_sp))
+
+    def _fsm_of(self, req: _Request) -> tuple:
+        """A request's FSM at admission: unconstrained, or its key's initial
+        state with an empty stack, or for a request resumed after a
+        preemption that state walked over the tokens it generated before
+        (the context it resumes with ends with them)."""
+        if req.fsm_init == fsm.UNCONSTRAINED:
+            return fsm.UNCONSTRAINED, 0, 0
+        return fsm.walk_tokens(self.engine.constrain_tables, req.fsm_init,
+                               req.admit_ids[len(req.ids):])
 
     def _values(self, req: _Request) -> Dict[str, float]:
         """A request's sampling values by state field: its own, else the
@@ -918,14 +960,21 @@ class ContinuousBatcher:
         decoding = [r for r in self._slots if r is not None and not r.prefilling]
         occupied = len(decoding)
         if occupied:
-            plain = self.engine._plain is not None and all(map(self._plain_request, decoding))
+            # A constrained request decoding: the constrained step for all.
+            constrained = any(r.fsm_init != fsm.UNCONSTRAINED for r in decoding)
+            plain = (not constrained and self.engine._plain is not None
+                     and all(map(self._plain_request, decoding)))
             self.stats.plain_steps += n if plain else 0
+            self.stats.constrained_steps += n if constrained else 0
             if self._loop is None:
-                step = self.engine._plain[0] if plain else self.engine._step
+                step = (self.engine._fsm_steps[0] if constrained
+                        else self.engine._plain[0] if plain else self.engine._step)
                 for _ in range(n):
                     self.state = step(self.state)
             else:  # raises if the state's tensors were replaced
-                (self._plain_loop if plain else self._loop)(self.state, n)
+                loop = (self._fsm_loop if constrained
+                        else self._plain_loop if plain else self._loop)
+                loop(self.state, n)
             self.stats.steps += n
             self.stats.occupied_slot_steps += n * occupied
         self._advance_admission()

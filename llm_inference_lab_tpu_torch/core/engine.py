@@ -12,7 +12,9 @@ EAGLE-lite drafting from the target's hidden state and tree speculation
 K controller (``controller``); greedy decoding or engine-level sampling;
 static penalties, per-request sampling (each slot's values in the decode
 state, ``sampling_defaults`` without a request's own) and top-N logprobs
-(``top_logprobs`` in each result);
+(``top_logprobs`` in each result); grammar-constrained decoding and forced
+tool calls (``constrain``, ``tools``: the grammar's token tables compiled
+once at construction, ``response_format`` a call);
 weight-only int4/int8 with an optional int8 embedding/tied head, a
 contiguous or paged KV cache (``kv_layout``) of the model dtype or int8
 (``kv_quantization``), single-shot or chunked prefill (``prefill_chunk``)
@@ -20,8 +22,9 @@ and the rolling-buffer cache (``kv_ring``). Prompt bucketing, the
 out-of-vocab clamp and the result keys follow the JAX engine. The serving
 path (core/batching.py ContinuousBatcher) drives the same step and reads
 ``encode``, ``is_spec``, ``_max_k``, ``eos_token_id``, ``flags``,
-``controller``, ``_step``, ``_step_in_place``, ``_plain`` and ``graph_pool`` from here,
-and ``decode`` hands the final state (committed tokens and caches) to a
+``controller``, ``_step``, ``_step_in_place``, ``_plain``, ``_fsm_steps``,
+``constrain_tables``, ``_resolve_fsm_initial`` and ``graph_pool`` from
+here, and ``decode`` hands the final state (committed tokens and caches) to a
 caller such as core/kv_verify.py.
 
 Decoding, as in JAX: with a fixed or the device-side adaptive controller,
@@ -37,6 +40,14 @@ adaptive controller picks K before every step, as JAX's observed loop does:
 one step at a time with the one-step-delayed poll, each K its own step (on
 the card a one-step graph captured once a K and shape, in the engine's
 pool; the functional step under sync_steps).
+
+An engine built with a grammar (``constrain`` or ``tools``) holds the
+constrained step beside the unconstrained one (JAX skips the mask with a
+``lax.cond``; a graph cannot branch). A call whose grammar key
+(``response_format``, or the deployment's default: ``constrain``'s, none
+under ``tools``) selects an initial state replays the constrained step's
+loop over the same decode state; any other replays the unconstrained one, so
+its ids and step time are those of an engine without tables.
 
 The device defaults to "cuda"; asking for it on a machine without CUDA
 raises (pass device="cpu" for the plain PyTorch versions of every op).
@@ -55,6 +66,15 @@ import torch
 
 from llm_inference_lab_tpu_torch import resolve_device
 from llm_inference_lab_tpu_torch.config import HEAD_MODES, EngineConfig, EnvFlags
+from llm_inference_lab_tpu_torch.constrain import runtime as fsm
+from llm_inference_lab_tpu_torch.constrain.jsonfsm import (
+    compile_token_tables,
+    json_char_automaton,
+    token_bytes_of,
+)
+from llm_inference_lab_tpu_torch.constrain.regex import build_regex_automaton
+from llm_inference_lab_tpu_torch.constrain.schema import build_schema_automaton
+from llm_inference_lab_tpu_torch.constrain.tools import build_tools_automaton
 from llm_inference_lab_tpu_torch.core.controllers import (
     AdaptiveDeviceKController,
     AdaptiveKController,
@@ -75,6 +95,10 @@ from llm_inference_lab_tpu_torch.ops.quant import quantize_params
 from llm_inference_lab_tpu_torch.utils.tokenizer import ByteTokenizer
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+# Steps a chunk of a constrained call's replays at most (Engine._run_loop).
+FSM_CHUNK = 8
 
 
 def _round_up(x: int, m: int) -> int:
@@ -168,6 +192,7 @@ class Engine:
         # device controller's per-lane K inside it.
         self._k = (self.controller.max_k if isinstance(self.controller, AdaptiveDeviceKController)
                    else cfg.max_draft)
+        self._build_constraint()
         self._step, self._step_in_place = self._build_step(self._k), self._build_step(
             self._k, in_place=True)
         # Under per-request sampling the step computes the counts, the bias
@@ -181,12 +206,19 @@ class Engine:
                         self._build_step(self._k, in_place=True, plain=True))
                        if cfg.per_request_sampling
                        and (cfg.greedy or cfg.draft_mode != "medusa") else None)
+        # The constrained step (functional, in place), or None without a
+        # grammar: what a call or a batch with a constrained slot runs.
+        self._fsm_steps = ((self._build_step(self._k, fsm=True),
+                            self._build_step(self._k, in_place=True, fsm=True))
+                           if self._constrain_tbl is not None else None)
         self._steps_by_k: Dict[int, Any] = {}  # the host adaptive controller's steps
         # The decode loops' graphs of this engine share one memory pool: they
         # never run at once.
         self.graph_pool = (torch.cuda.graph_pool_handle() if self.device.type == "cuda"
                            else None)
         self._decode_states: Dict[Tuple[int, int], Tuple[DecodeState, DecodeLoop]] = {}
+        # The constrained step's loops over the same decode states.
+        self._fsm_loops: Dict[Tuple[int, int], DecodeLoop] = {}
         # The host adaptive controller's one-step loops, by (B, max_len, K).
         self.adaptive_loops: Dict[Tuple[int, int, int], DecodeLoop] = {}
         self.polls = 0  # host reads of the last decode
@@ -194,6 +226,67 @@ class Engine:
             self._enable_kv_ring()
         self._prefill = make_prefill(self.target, self.draft, chunk=cfg.prefill_chunk,
                                      hidden=self.head_mode)
+
+    def _build_constraint(self) -> None:
+        """The grammar's token tables, compiled once on the host (JAX
+        engine.py:320-404) and uploaded to the device, and the grammar keys
+        the deployment serves with each one's initial state. None without
+        ``constrain`` or ``tools`` (config.py checks the fields)."""
+        cfg = self.config
+        self._constrain_tbl = self.constrain_tables = None
+        self._fsm_initial_map: Dict[str, int] = {}
+        self._fsm_initial = fsm.UNCONSTRAINED
+        self.constrain_compile_s = 0.0
+        if cfg.constrain is None and not cfg.tools:
+            return
+        t0 = time.perf_counter()
+        tool_initials = None
+        if cfg.tools:
+            # The union of the tools' call shapes, one initial a tool_choice
+            # option; requests opt in, the default decode stays free.
+            auto, tool_initials = build_tools_automaton(cfg.tools)
+        elif cfg.constrain == "regex":
+            auto = build_regex_automaton(cfg.constrain_regex)
+        elif cfg.constrain == "json_schema":
+            auto = build_schema_automaton(cfg.constrain_schema)
+        else:
+            auto = json_char_automaton()
+        tb, tl = token_bytes_of(self.tokenizer, self.target.config.vocab_size)
+        tt = compile_token_tables(auto, tb, tl, eos_id=self.eos_token_id
+                                  if self.eos_token_id is not None else 0)
+        self.constrain_compile_s = time.perf_counter() - t0
+        # The tables on the host (views of the compiled arrays): the
+        # batcher's walk of a resumed request's FSM.
+        self.constrain_tables = fsm.device_tables(tt, "cpu")
+        self._constrain_tbl = fsm.device_tables(tt, self.device)
+        # Base char-state ids survive compile_token_tables, so the tool map's
+        # initials are valid table rows.
+        if tool_initials is not None:
+            self._fsm_initial_map = dict(tool_initials)
+        else:
+            self._fsm_initial_map = ({cfg.constrain: tt.initial}
+                                     if cfg.constrain in ("json_schema", "regex")
+                                     else {"json": tt.initial, "json_object": tt.initial_objonly})
+            self._fsm_initial = self._fsm_initial_map[cfg.constrain]
+
+    def _resolve_fsm_initial(self, response_format: Optional[str]) -> int:
+        """FSM start state for a grammar key ("json", "json_object",
+        "json_schema", "regex", "tool_call", "tool_call:<name>"); None
+        selects the deployment default (-1, unconstrained, without tables
+        or under tools). A key the engine's grammar cannot serve raises
+        ValueError with JAX's message: nothing decodes unconstrained in its
+        place."""
+        if response_format is None:
+            return self._fsm_initial
+        if self._constrain_tbl is None:
+            raise ValueError("response_format requires the engine to be built with "
+                             "EngineConfig(constrain=...) or EngineConfig(tools=...)")
+        init = self._fsm_initial_map.get(response_format)
+        if init is None:
+            raise ValueError(f"this deployment's grammar cannot serve response_format "
+                             f"{response_format!r} (available: "
+                             f"{sorted(self._fsm_initial_map)})")
+        return init
 
     def _head_params(self, given: Optional[dict], dtype: torch.dtype) -> Optional[dict]:
         """The Medusa heads of the medusa and tree modes ({"medusa_proj":
@@ -216,16 +309,20 @@ class Engine:
             proj = proj + 0.02 * torch.randn((H, D, D), generator=g, device=self.device)
         return {"medusa_proj": proj.to(dtype).contiguous()}
 
-    def _build_step(self, k: int, in_place: bool = False, plain: bool = False):
+    def _build_step(self, k: int, in_place: bool = False, plain: bool = False,
+                    fsm: bool = False):
         """The step at K = k (the baseline step when not speculative; the
         tree's step, which has no K, in tree mode); plain: the greedy step
         with no penalty and no per-request work (what per-request rows that
-        are all greedy and unpenalized get)."""
+        are all greedy and unpenalized get); fsm: masked by the grammar's
+        tables (config.py refuses a grammar in tree mode)."""
         cfg = self.config
         samp = dict(greedy=cfg.greedy, temperature=cfg.temperature, top_k=cfg.top_k,
                     top_p=cfg.top_p, min_p=cfg.min_p, eos_token_id=self.eos_token_id,
                     per_request_sampling=cfg.per_request_sampling,
                     logprobs_topk=cfg.logprobs_topk, in_place=in_place)
+        if fsm:
+            samp["constrain_tbl"] = self._constrain_tbl
         if plain:
             samp.update(greedy=True, per_request_sampling=False)
         if self.tree is not None:  # config.py refuses penalties in tree mode
@@ -245,11 +342,14 @@ class Engine:
             adaptive_cfg=self.controller.adaptive_cfg() if adaptive else None,
             draft_params=self._draft_params, medusa_cfg=cfg.medusa, eagle_cfg=cfg.eagle, **samp)
 
-    def _step_at(self, k: int):
-        """(functional, in place) steps at K = k, built once a K."""
-        if k not in self._steps_by_k:
-            self._steps_by_k[k] = (self._build_step(k), self._build_step(k, in_place=True))
-        return self._steps_by_k[k]
+    def _step_at(self, k: int, fsm: bool = False):
+        """(functional, in place) steps at K = k, built once a K (and
+        grammar: fsm)."""
+        key = (k, "fsm") if fsm else k
+        if key not in self._steps_by_k:
+            self._steps_by_k[key] = (self._build_step(k, fsm=fsm),
+                                     self._build_step(k, in_place=True, fsm=fsm))
+        return self._steps_by_k[key]
 
     def _enable_kv_ring(self) -> None:
         """Ring the contiguous KV cache of uniform sliding-window models: slot
@@ -272,8 +372,9 @@ class Engine:
             if R < cfg.max_seq_len:
                 model.config = replace(mc, kv_ring_len=R)
 
-    def generate(self, prompt: str, seed: Optional[int] = None) -> Dict[str, Any]:
-        return self.generate_batch([prompt], seed=seed)[0]
+    def generate(self, prompt: str, seed: Optional[int] = None,
+                 response_format: Optional[str] = None) -> Dict[str, Any]:
+        return self.generate_batch([prompt], seed=seed, response_format=response_format)[0]
 
     def encode(self, prompt: str, max_new: int, max_seq_len: int) -> List[int]:
         """Prompt ids, cut to leave room for max_new tokens and the step's
@@ -284,43 +385,49 @@ class Engine:
         ids = self.tokenizer.encode(prompt)[: max_seq_len - max_new - self._max_k - 2]
         return [min(max(t, 0), vocab - 1) for t in ids]
 
-    def generate_batch(self, prompts: List[str],
-                       seed: Optional[int] = None) -> List[Dict[str, Any]]:
+    def generate_batch(self, prompts: List[str], seed: Optional[int] = None,
+                       response_format: Optional[str] = None) -> List[Dict[str, Any]]:
         """One result dict per prompt. seed: the key of the call's sampling
-        (the config's seed when None)."""
+        (the config's seed when None); response_format: the grammar key of
+        the whole batch (None: the deployment's default; _resolve_fsm_initial
+        raises for a key it cannot serve)."""
         with torch.inference_mode():
-            return self._build_results(*self._decode(prompts, seed))
+            return self._build_results(*self._decode(prompts, seed, response_format))
 
     @torch.inference_mode()
-    def decode(self, prompts: List[str],
-               seed: Optional[int] = None) -> Tuple[DecodeState, np.ndarray, float, float]:
+    def decode(self, prompts: List[str], seed: Optional[int] = None,
+               response_format: Optional[str] = None
+               ) -> Tuple[DecodeState, np.ndarray, float, float]:
         """Prefill the prompts and decode them to the end. Returns the final
         state (the caller's own: a later call does not change it), the prompt
         lengths, and the decode and total wall seconds."""
-        state, plens, decode_s, total_s = self._decode(prompts, seed)
+        state, plens, decode_s, total_s = self._decode(prompts, seed, response_format)
         if not self.flags.sync_steps:  # the engine's own decode state: a copy
             state = copy.deepcopy(state)
         return state, plens, decode_s, total_s
 
-    def _decode(self, prompts: List[str],
-                seed: Optional[int]) -> Tuple[DecodeState, np.ndarray, float, float]:
+    def _decode(self, prompts: List[str], seed: Optional[int],
+                response_format: Optional[str] = None
+                ) -> Tuple[DecodeState, np.ndarray, float, float]:
         max_new = self.config.max_new_tokens
         seed = self.config.seed if seed is None else seed
+        fsm_init = self._resolve_fsm_initial(response_format)
+        constrained = fsm_init != fsm.UNCONSTRAINED
         block, plens, max_len = self._prompt_block(prompts)
         dev = self.device
         t_start = time.perf_counter()
         prompt = torch.from_numpy(block).to(dev), torch.from_numpy(plens).to(dev)
         if self.flags.sync_steps:
-            state = self._prefill(self._init_state(len(plens), max_len, seed), *prompt)
+            state = self._prefill(self._init_state(len(plens), max_len, seed, fsm_init), *prompt)
         else:
-            state, loop = self._decode_state(len(plens), max_len, seed)
+            state, loop = self._decode_state(len(plens), max_len, seed, fsm_init)
             assign(state, self._prefill(state, *prompt))
         self._sync()
         t_decode = time.perf_counter()
         # Each active step commits >= 1 token, so max_new + 1 steps always
         # finish.
         if self.host_adaptive:
-            state = self._run_adaptive(state, max_new)
+            state = self._run_adaptive(state, max_new, constrained)
         elif self.flags.sync_steps:
             # One host poll per step: active.any().
             self.polls = 0
@@ -328,7 +435,9 @@ class Engine:
                 self.polls += 1
                 if not bool(state.active.any()):
                     break
-                state = self._decode_steps()[0](state)
+                state = self._decode_steps(constrained)[0](state)
+        elif constrained:
+            self._run_loop(loop, state, plens, max_new, cap=FSM_CHUNK)
         else:
             self._run_loop(loop, state, plens, max_new)
         self._sync()
@@ -362,45 +471,60 @@ class Engine:
                     top_p=cfg.top_p, min_p=cfg.min_p, rep_penalty=cfg.repetition_penalty,
                     presence_penalty=cfg.presence_penalty, freq_penalty=cfg.frequency_penalty)
 
-    def _decode_steps(self):
-        """(functional, in place) steps of generate: the plain pair when
-        per-request sampling's rows, all at the config's values, are greedy
-        and unpenalized (plain_rows)."""
+    def _decode_steps(self, constrained: bool = False):
+        """(functional, in place) steps of generate: the constrained pair for
+        a constrained call, else the plain pair when per-request sampling's
+        rows, all at the config's values, are greedy and unpenalized
+        (plain_rows)."""
+        if constrained:
+            return self._fsm_steps
         if self._plain is not None and plain_rows(self.sampling_defaults()):
             return self._plain
         return self._step, self._step_in_place
 
-    def _init_state(self, B: int, max_len: int, seed: Optional[int] = None) -> DecodeState:
+    def _init_state(self, B: int, max_len: int, seed: Optional[int] = None,
+                    fsm_init: int = fsm.UNCONSTRAINED) -> DecodeState:
         cfg = self.config
         return init_state(self.target, self.draft, B, max_len, self.device,
                           max_new_tokens=cfg.max_new_tokens, paged=cfg.kv_layout == "paged",
                           page_size=cfg.kv_page_size, kv_dtype=self.kv_dtype,
                           seed=cfg.seed if seed is None else seed, init_k=self.controller.k,
-                          defaults=self.sampling_defaults(), logprobs_topk=cfg.logprobs_topk)
+                          defaults=self.sampling_defaults(), logprobs_topk=cfg.logprobs_topk,
+                          fsm_init=fsm_init)
 
-    def _decode_state(self, B: int, max_len: int,
-                      seed: Optional[int] = None) -> Tuple[DecodeState, DecodeLoop]:
-        """The decode state of this shape, reset to init_state's values, and
-        its loop (captured at its first call)."""
+    def _decode_state(self, B: int, max_len: int, seed: Optional[int] = None,
+                      fsm_init: int = fsm.UNCONSTRAINED) -> Tuple[DecodeState, DecodeLoop]:
+        """The decode state of this shape, reset to init_state's values with
+        every lane's FSM at fsm_init, and the loop to replay over it: the
+        unconstrained step's, or with fsm_init set the constrained step's
+        (each captured at its first call, both over the same state)."""
         seed = self.config.seed if seed is None else seed
         held = self._decode_states.get((B, max_len))
         if held is None:
-            held = (self._init_state(B, max_len, seed),
+            held = (self._init_state(B, max_len, seed, fsm_init),
                     make_decode_loop(self._decode_steps()[1], pool=self.graph_pool))
             self._decode_states[(B, max_len)] = held
         else:
             reset_state(held[0], self.config.max_new_tokens, seed, self.controller.k,
-                        self.sampling_defaults())
-        return held
+                        self.sampling_defaults(), fsm_init)
+        if fsm_init == fsm.UNCONSTRAINED:
+            return held
+        loop = self._fsm_loops.get((B, max_len))
+        if loop is None:
+            loop = self._fsm_loops[(B, max_len)] = make_decode_loop(self._fsm_steps[1],
+                                                                    pool=self.graph_pool)
+        return held[0], loop
 
     def _run_loop(self, loop: DecodeLoop, state: DecodeState, plens: np.ndarray,
-                  max_new: int) -> None:
+                  max_new: int, cap: Optional[int] = None) -> None:
         """Chunks of loop replays, one host read of (steps, active, lengths)
         after each, until no lane is active or max_new + 1 steps ran (JAX's
         max_steps). A chunk is ceil(largest remaining budget / (K + 1)) steps
         (a tree's depth + 1): a step commits at most that many tokens, so no
         step runs past the end unless a lane hits EOS or the buffer end, or
-        commits fewer."""
+        commits fewer. cap: at most that many steps a chunk (a constrained
+        call, whose grammar often ends the output in EOS long before the
+        budget: the replays after it would change nothing)."""
         per_step = (self.tree.depth + 1 if self.tree is not None
                     else self._k + 1 if self.is_spec else 1)
         B = len(plens)
@@ -408,13 +532,15 @@ class Engine:
         self.polls = 0
         while active.any() and steps < max_new + 1:
             remaining = int((plens + max_new - lengths)[active].max())
-            loop(state, min(max(-(-remaining // per_step), 1), max_new + 1 - steps))
+            n = min(max(-(-remaining // per_step), 1), max_new + 1 - steps)
+            loop(state, n if cap is None else min(n, cap))
             polled = torch.cat([state.steps[None], state.active.to(torch.int32),
                                 state.lengths]).cpu().numpy()
             self.polls += 1
             steps, active, lengths = int(polled[0]), polled[1:B + 1].astype(bool), polled[B + 1:]
 
-    def _run_adaptive(self, state: DecodeState, max_new: int) -> DecodeState:
+    def _run_adaptive(self, state: DecodeState, max_new: int,
+                      constrained: bool = False) -> DecodeState:
         """JAX's observed loop under the host adaptive controller: before each
         step the controller picks K; after it the sums (proposed, accepted,
         any active) of the step before are read (one step of lag, so the
@@ -424,7 +550,8 @@ class Engine:
         ``steps`` does not count it; JAX's result counts it). Each step is
         the functional step at K under sync_steps, else one replay of the
         one-step loop of K over the engine's decode state (on the card a
-        graph captured at K's first step, in the engine's pool)."""
+        graph captured at K's first step, in the engine's pool; the
+        constrained step's at K for a constrained call)."""
         ctrl = self.controller
         B, max_len = state.tokens.shape
         on_card = state.tokens.is_cuda
@@ -433,13 +560,15 @@ class Engine:
         self.polls = 0
         for step_i in range(max_new + 1):
             k = ctrl.get_k(step_i)
+            steps = self._step_at(k, fsm=True) if constrained else self._step_at(k)
             if self.flags.sync_steps:
-                state = self._step_at(k)[0](state)
+                state = steps[0](state)
             else:
-                loop = self.adaptive_loops.get((B, max_len, k))
+                key = (B, max_len, k) + (("fsm",) if constrained else ())
+                loop = self.adaptive_loops.get(key)
                 if loop is None:
-                    loop = make_decode_loop(self._step_at(k)[1], pool=self.graph_pool)
-                    self.adaptive_loops[(B, max_len, k)] = loop
+                    loop = make_decode_loop(steps[1], pool=self.graph_pool)
+                    self.adaptive_loops[key] = loop
                 loop(state, 1)
             if pending is not None:
                 if on_card:

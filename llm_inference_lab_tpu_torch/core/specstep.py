@@ -36,6 +36,16 @@ functional (a new state; core/engine.py's host loop under
 ``EnvFlags(sync_steps=True)``) and in place (``in_place=True``: the results
 written into the state's own tensors), which ``make_decode_loop`` captures in
 a CUDA graph and replays.
+
+A step built with a grammar's tables (``constrain_tbl``, constrain/runtime.py
+``device_tables``) masks every sampling site and advances each slot's FSM by
+what it commits, as JAX's does: the draft rows (where the draft shares the
+target's vocabulary), the verify rows over the FSM walked through the draft
+window (the soundness guarantee: an invalid token gets -inf before
+acceptance and the bonus), and the baseline's row, each after penalties and
+logit_bias. JAX skips the mask at run time when no slot is constrained; a
+graph cannot branch, so the engine builds this step beside the
+unconstrained one and the host picks.
 """
 
 from __future__ import annotations
@@ -47,6 +57,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from llm_inference_lab_tpu_torch.constrain import runtime as fsm
 from llm_inference_lab_tpu_torch.core import policies
 from llm_inference_lab_tpu_torch.core.state import FIELDS, DecodeState, assign, state_tensors
 from llm_inference_lab_tpu_torch.models import transformer
@@ -239,7 +250,7 @@ def make_spec_step(target_model: Model, draft_model: Optional[Model], *, k: int,
                    eagle_cfg: Optional[dict] = None, repetition_penalty: float = 1.0,
                    presence_penalty: float = 0.0, frequency_penalty: float = 0.0,
                    per_request_sampling: bool = False, logprobs_topk: int = 0,
-                   in_place: bool = False):
+                   constrain_tbl: Optional[dict] = None, in_place: bool = False):
     """Build step(state) -> state for speculative decoding.
 
     draft_mode "vanilla" drafts with draft_model, sampling at temperature /
@@ -285,7 +296,14 @@ def make_spec_step(target_model: Model, draft_model: Optional[Model], *, k: int,
     (the draft, the bonus) reads each slot's filters and draws from its own
     key; a row at temperature <= 0 is greedy; not with ``rejection``.
     logprobs_topk N: the top-N alternatives of every written slot, from the
-    verify logits, into ``top_ids`` / ``top_lps``."""
+    verify logits, into ``top_ids`` / ``top_lps``.
+
+    constrain_tbl: the grammar's device tables. The draft rows are masked
+    by each slot's FSM advanced over the drafts before them (vanilla with a
+    draft of the target's vocabulary, Medusa and EAGLE, which then propose
+    one position at a time; ngram has no draft logits); verify row i by the
+    FSM walked over d_1..d_i; the FSM advances by the committed drafts and
+    the bonus. The policy sees the masked draft and target logits."""
     if per_request_sampling and policy_fn is policies.rejection:
         raise NotImplementedError("per-request sampling parameters are not supported with the "
                                   "rejection policy (its distributions are the engine's)")
@@ -326,14 +344,22 @@ def make_spec_step(target_model: Model, draft_model: Optional[Model], *, k: int,
     a_alpha = 2.0 / (float((adaptive_cfg or {}).get("window", 32)) + 1.0)
     a_step = int((adaptive_cfg or {}).get("step_size", 1))
     ngram_n = int((ngram_cfg or {}).get("n", 2))
+    vocab_ok = not (draft_mode == "vanilla"
+                    and draft_model.config.vocab_size != target_model.config.vocab_size)
     ctl = _Controls(target_model.config.vocab_size, per_request_sampling,
                     (repetition_penalty, presence_penalty, frequency_penalty),
-                    draft_vocab_ok=not (draft_mode == "vanilla" and draft_model.config.vocab_size
-                                        != target_model.config.vocab_size))
+                    draft_vocab_ok=vocab_ok)
+    # The tables are indexed by the target's ids: a draft of another
+    # vocabulary proposes unmasked (the verify side keeps the output sound).
+    fsm_draft = constrain_tbl is not None and vocab_ok and draft_mode != "ngram"
+
+    def draft_fsm(state):
+        return (state.fsm_lex, state.fsm_stack, state.fsm_sp) if fsm_draft else None
 
     def draft_vanilla(state, last, base, key, eff_k_max, ctx):
         x, drafts, logit_rows = last, [], []
         cnt = ctx.get("counts")
+        f = draft_fsm(state)
         for i in range(K):
             pos = base + i
             # Past min_k a forward may lie beyond eff_k_max: keep the draft
@@ -345,6 +371,8 @@ def make_spec_step(target_model: Model, draft_model: Optional[Model], *, k: int,
                 saved = [t[index] for t in tensors]
             logits, _ = draft_model.forward(x[:, None], pos[:, None], state.draft_cache, pos)
             row = ctl.apply(state, ctx, logits[:, 0], cnt, draft_side=True)
+            if f is not None:
+                row = fsm.apply_mask(row, fsm.token_mask(constrain_tbl, *f))
             if per_request_sampling:
                 x = sample_tokens(None, row, **ctl.row_samp(state, ctx, i,
                                                              draft_temperature_scale))
@@ -352,6 +380,8 @@ def make_spec_step(target_model: Model, draft_model: Optional[Model], *, k: int,
                 x = sample_tokens(fold(key, i) if stochastic else None, row, **draft_samp)
             if ctl.draft_ok:
                 cnt = ctl.bump(cnt, x)
+            if f is not None:
+                f = fsm.transition(constrain_tbl, *f, x)
             if extra:
                 ran = eff_k_max > i
                 for t, old in zip(tensors, saved):
@@ -397,12 +427,15 @@ def make_spec_step(target_model: Model, draft_model: Optional[Model], *, k: int,
         its row penalized with the counts of the proposals before it."""
         B = inputs.shape[0]
         logits = target_model.head(inputs.reshape(B * K, -1)).reshape(B, K, -1)
-        if not ctl.active and not head_sampled:
+        f = draft_fsm(state)
+        if not ctl.active and not head_sampled and f is None:
             return torch.argmax(logits, dim=-1).to(torch.int32), (
                 logits if need_draft_logits else None)
         cnt, ds, rows = ctx.get("counts"), [], []
         for i in range(K):
             row = ctl.apply(state, ctx, logits[:, i], cnt)
+            if f is not None:
+                row = fsm.apply_mask(row, fsm.token_mask(constrain_tbl, *f))
             if not head_sampled:
                 d_i = torch.argmax(row, dim=-1).to(torch.int32)
             else:
@@ -411,6 +444,8 @@ def make_spec_step(target_model: Model, draft_model: Optional[Model], *, k: int,
                                     row_keys=(fold_rows(ctx["row_keys"], i)
                                               if per_request_sampling else None))
             cnt = ctl.bump(cnt, d_i)
+            if f is not None:
+                f = fsm.transition(constrain_tbl, *f, d_i)
             ds.append(d_i)
             rows.append(row)
         return torch.stack(ds, 1), torch.stack(rows, 1) if need_draft_logits else None
@@ -462,6 +497,13 @@ def make_spec_step(target_model: Model, draft_model: Optional[Model], *, k: int,
             target_logits = ctl.apply(state, ctx, target_logits,
                                       ctl.window_counts(ctx["counts"], d) if ctl.use_pen
                                       else None)
+        if constrain_tbl is not None:
+            # The soundness guarantee: walk the drafts through each slot's
+            # FSM and -inf every invalid token at every verify position.
+            walked = fsm.walk_window(constrain_tbl, state.fsm_lex, state.fsm_stack,
+                                     state.fsm_sp, d)
+            target_logits = fsm.apply_mask(target_logits,
+                                           fsm.window_mask(constrain_tbl, *walked))
 
         # ---- 3. Acceptance ----
         a = policy_fn(fold(state.rng, _POLICY) if rejecting else None, d, draft_logits,
@@ -533,6 +575,8 @@ def make_spec_step(target_model: Model, draft_model: Optional[Model], *, k: int,
             # The hidden row that predicted the bonus: the next step's heads.
             h_row = hidden[0][torch.arange(B, device=dev), a.long()].float()
             carry = hidden_carry(state, h_row)
+        if constrain_tbl is not None:
+            carry |= fsm_commit(constrain_tbl, state, walked, commit, a, bonus, K)
         return replace(
             state,
             tokens=new_tokens,
@@ -553,6 +597,27 @@ def make_spec_step(target_model: Model, draft_model: Optional[Model], *, k: int,
     return _in_place(step) if in_place else step
 
 
+def fsm_commit(tbl: dict, state: DecodeState, walked: tuple, commit: torch.Tensor,
+               a: torch.Tensor, bonus: torch.Tensor, K: int) -> dict:
+    """Each slot's FSM after the commit (JAX specstep.py:720-752): the walked
+    state before position min(commit, K), or, when the bonus committed
+    (commit == a + 1), the state at a advanced by the bonus; inactive
+    lanes keep theirs."""
+    lexs, stacks, sps = walked
+    rows = torch.arange(lexs.shape[0], device=lexs.device)
+    idx, at = commit.clamp_max(K).long(), a.long()
+    b_lex, b_stack, b_sp = fsm.transition(tbl, lexs[rows, at], stacks[rows, at], sps[rows, at],
+                                          bonus)
+    use_b = commit == a + 1
+    act = state.active
+    new_lex = torch.where(use_b, b_lex, lexs[rows, idx])
+    new_stack = torch.where(use_b[:, None], b_stack, stacks[rows, idx])
+    new_sp = torch.where(use_b, b_sp, sps[rows, idx])
+    return dict(fsm_lex=torch.where(act, new_lex, state.fsm_lex),
+                fsm_stack=torch.where(act[:, None], new_stack, state.fsm_stack),
+                fsm_sp=torch.where(act, new_sp, state.fsm_sp))
+
+
 def hidden_carry(state: DecodeState, h_row: torch.Tensor) -> dict:
     """The hidden carry after a step: h_row [B, D] f32 becomes last_hidden and
     the old last_hidden prev_hidden, on active lanes (an inactive lane keeps
@@ -567,12 +632,14 @@ def make_baseline_step(target_model: Model, *, greedy: bool = True, temperature:
                        eos_token_id: Optional[int] = None, repetition_penalty: float = 1.0,
                        presence_penalty: float = 0.0, frequency_penalty: float = 0.0,
                        per_request_sampling: bool = False, logprobs_topk: int = 0,
-                       in_place: bool = False):
+                       constrain_tbl: Optional[dict] = None, in_place: bool = False):
     """Non-speculative step: forward the last token, then the argmax
     (greedy) or a draw under the engine's filters; penalties and the bias
     (as the spec step's) before either, and with per_request_sampling each
     row's own filters and key (JAX's row key: the slot's folded with the
-    committed length, no site)."""
+    committed length, no site). constrain_tbl: the row masked by each
+    slot's FSM after the bias, which then advances by the committed
+    token."""
     stochastic = not (greedy or temperature <= 0.0)
     samp = dict(temperature=temperature, top_k=top_k, top_p=top_p, min_p=min_p, greedy=greedy)
     ctl = _Controls(target_model.config.vocab_size, per_request_sampling,
@@ -586,6 +653,9 @@ def make_baseline_step(target_model: Model, *, greedy: bool = True, temperature:
         ctx = ctl.context(state)
         # The logprobs describe the distribution sampled from: penalized.
         row = ctl.apply(state, ctx, logits[:, 0].float(), ctx.get("counts"))
+        if constrain_tbl is not None:
+            row = fsm.apply_mask(row, fsm.token_mask(constrain_tbl, state.fsm_lex,
+                                                     state.fsm_stack, state.fsm_sp))
         if per_request_sampling:
             nxt = sample_tokens(None, row, **ctl.row_samp(state, ctx, None))
         else:
@@ -605,6 +675,11 @@ def make_baseline_step(target_model: Model, *, greedy: bool = True, temperature:
             hit_eos = torch.zeros_like(state.active)
         exhausted = (new_lengths - state.prompt_lens) >= state.max_new
         no_room = new_lengths + 2 > max_len
+        fsm_new = {}
+        if constrain_tbl is not None:
+            fsm_new = dict(zip(("fsm_lex", "fsm_stack", "fsm_sp"), fsm.transition(
+                constrain_tbl, state.fsm_lex, state.fsm_stack, state.fsm_sp, nxt,
+                active=state.active & (commit > 0))))
         return replace(
             state,
             tokens=new_tokens,
@@ -615,6 +690,7 @@ def make_baseline_step(target_model: Model, *, greedy: bool = True, temperature:
             steps=_advance(state),
             rng=_next_key(state) if stochastic else state.rng,
             **tops,
+            **fsm_new,
         )
 
     return _in_place(step) if in_place else step

@@ -36,6 +36,12 @@ alternatives of each committed position ([B, max_len, N] under
 ``logprobs_topk``; [B, 1, 1] placeholders when off). All are in ``FIELDS``:
 a captured graph reads them from the state's own tensors, which admission
 writes in place.
+
+Grammar-constrained decoding (JAX core/state.py:73-81, constrain/runtime.py):
+each slot's FSM, ``fsm_lex`` [B] (the lexer state; -1 unconstrained, -2
+dead), ``fsm_stack`` [B, STACK_DEPTH] (nesting symbols, bottom-first) and
+``fsm_sp`` [B] (the stack height), all int32. Only a step built with the
+grammar's tables reads or advances them; admission writes them.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ from typing import Optional, Union
 
 import torch
 
+from llm_inference_lab_tpu_torch.constrain.runtime import STACK_DEPTH, UNCONSTRAINED
 from llm_inference_lab_tpu_torch.models.base import KVCache, Model
 from llm_inference_lab_tpu_torch.models.paged import PagedKVCache
 from llm_inference_lab_tpu_torch.ops.sampling import fold, seed_key
@@ -87,13 +94,17 @@ class DecodeState:
     bias_vals: torch.Tensor  # [B, N_BIAS] f32
     top_ids: torch.Tensor  # [B, max_len, N] int32 ([B, 1, 1] when off)
     top_lps: torch.Tensor  # [B, max_len, N] f32 ([B, 1, 1] when off)
+    fsm_lex: torch.Tensor  # [B] int32 — the grammar's lexer state; -1 unconstrained
+    fsm_stack: torch.Tensor  # [B, STACK_DEPTH] int32 — its nesting stack
+    fsm_sp: torch.Tensor  # [B] int32 — the stack height
 
 
 # The tensors a step or a prefill may replace (all but the caches).
 FIELDS = ("tokens", "lengths", "prompt_lens", "max_new", "active", "proposed", "accepted",
           "bonus", "token_logprobs", "steps", "rng", "ctrl_k", "acc_ema", "last_hidden",
           "prev_hidden", "temperature", "top_k", "top_p", "min_p", "slot_rng", "rep_penalty",
-          "presence_penalty", "freq_penalty", "bias_ids", "bias_vals", "top_ids", "top_lps")
+          "presence_penalty", "freq_penalty", "bias_ids", "bias_vals", "top_ids", "top_lps",
+          "fsm_lex", "fsm_stack", "fsm_sp")
 
 
 def cache_tensors(cache) -> tuple:
@@ -137,14 +148,17 @@ def _fill_sampling(state: DecodeState, seed: int, defaults: Optional[dict]) -> N
 
 
 def reset_state(state: DecodeState, max_new_tokens: int, seed: int = 0,
-                init_k: int = 4, defaults: Optional[dict] = None) -> DecodeState:
+                init_k: int = 4, defaults: Optional[dict] = None,
+                fsm_init: int = UNCONSTRAINED) -> DecodeState:
     """``init_state``'s values in the state's own tensors: zeros (the hidden
     carry too), every lane's budget max_new_tokens, the key of `seed`, every
     lane's K init_k and EMA 0.5, the per-slot sampling values (`defaults`),
-    zeroed caches with int8 scales of one; a paged cache keeps its table."""
+    every lane's FSM at fsm_init with an empty stack, zeroed caches with
+    int8 scales of one; a paged cache keeps its table."""
     for name in FIELDS:
         getattr(state, name).zero_()
     state.max_new.fill_(max_new_tokens)
+    state.fsm_lex.fill_(fsm_init)
     state.rng.fill_(seed_key(seed))
     state.ctrl_k.fill_(init_k)
     state.acc_ema.fill_(0.5)
@@ -166,7 +180,7 @@ def init_state(target_model: Model, draft_model: Optional[Model], batch_size: in
                table: Optional[torch.Tensor] = None,
                kv_dtype: Optional[torch.dtype] = None, seed: int = 0,
                init_k: int = 4, defaults: Optional[dict] = None,
-               logprobs_topk: int = 0) -> DecodeState:
+               logprobs_topk: int = 0, fsm_init: int = UNCONSTRAINED) -> DecodeState:
     """paged=True gives both models a PagedKVCache: n_pages pages of
     page_size rows (default batch_size * max_pages) and, unless a table is
     given, the default table that gives slot b the pages [b*m, (b+1)*m).
@@ -175,7 +189,8 @@ def init_state(target_model: Model, draft_model: Optional[Model], batch_size: in
     models' dtype. seed: the key's seed (and the slots' keys); init_k: each
     lane's first K under the device-side adaptive controller; defaults: the
     per-slot sampling values (SAMPLING_DEFAULTS' keys); logprobs_topk: N of
-    the top-N buffers (0: placeholders)."""
+    the top-N buffers (0: placeholders); fsm_init: every lane's grammar
+    state (-1: unconstrained)."""
     B = batch_size
     kv_kw = dict(paged=paged, page_size=page_size, n_pages=n_pages, table=table, dtype=kv_dtype)
 
@@ -215,6 +230,9 @@ def init_state(target_model: Model, draft_model: Optional[Model], batch_size: in
         bias_vals=zeros(B, N_BIAS, dtype=f32),
         top_ids=zeros(*top_shape),
         top_lps=zeros(*top_shape, dtype=f32),
+        fsm_lex=torch.full((B,), fsm_init, dtype=torch.int32, device=device),
+        fsm_stack=zeros(B, STACK_DEPTH),
+        fsm_sp=zeros(B),
     )
     _fill_sampling(state, seed, defaults)
     return state

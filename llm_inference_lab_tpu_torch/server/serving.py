@@ -16,7 +16,10 @@ so it frees early; finish_reason "stop"), stream (server-sent events, the
 OpenAI chunk schema, ``data: [DONE]``; stream_options.include_usage adds a
 usage chunk), echo (completions), n (up to 16 independent choices, each in
 its own slot) and best_of (completions: the n of best_of candidates with the
-highest mean token logprob; usage counts all), logprobs and top_logprobs
+highest mean token logprob; usage counts all), response_format
+(json_object, json_schema, and json) and guided_regex under the engine's
+grammar (EngineConfig.constrain; a request's schema or pattern must be the
+one the deployment compiled), logprobs and top_logprobs
 (trimmed from the engine's captured top N, EngineConfig.logprobs_topk), and
 under EngineConfig(per_request_sampling=True) temperature, top_k, top_p,
 min_p, repetition_penalty, presence_penalty, frequency_penalty, logit_bias
@@ -25,16 +28,20 @@ the first, so they differ). The server's request_timeout and a client that
 disconnects mid-stream cancel the request. Chat renders the messages as a
 role transcript ("role: content" lines, then "assistant:"; the port has no
 chat template), tools listed ahead of it; tool_choice "auto" parses a tool
-call from the generated text (JAX's strict parse).
+call from the generated text (JAX's strict parse), "required" and a named
+function constrain decoding to the engine's tool grammar
+(EngineConfig.tools) and answer tool_calls, streamed as OpenAI's
+tool_calls chunks (the name once, then argument deltas).
 
-What the port does not have is refused with an error that names it, never
-answered plainly: a response_format other than text and guided_regex
-(grammar-constrained decoding, 400), tool_choice "required" or a named
-function (they constrain decoding to the tool grammar, 400), a model name
-other than the engine's (LoRA adapters, 404), /v1/embeddings (501), and on
-an engine without per_request_sampling any sampling field, logit_bias or
-seed whose value is not the engine's own (400). ContinuousBatcher
-.check_request makes these checks in the handler thread.
+A grammar the deployment cannot serve is a 400 with JAX's message (the
+engine without tables, another grammar, another schema or pattern, a tool
+not compiled in); nothing decodes unconstrained in its place. What the port
+does not have is refused with an error that names it, never answered
+plainly: a model name other than the engine's (LoRA adapters, 404),
+/v1/embeddings (501), and on an engine without per_request_sampling any
+sampling field, logit_bias or seed whose value is not the engine's own
+(400). ContinuousBatcher.check_request makes these checks in the handler
+thread.
 
 Architecture: HTTP handler threads queue requests and wait on per-request
 events; ONE engine thread owns the device. It submits what is queued to the
@@ -82,6 +89,68 @@ def _parse_tool_call(text: str, allowed=None):
     return d["name"], d["arguments"]
 
 
+class _HTTPServer(ThreadingHTTPServer):
+    """The listening socket with a backlog for many clients at once: the
+    default of 5 resets the connections of a burst the accept loop has not
+    reached yet."""
+
+    request_queue_size = 128
+
+
+class _ToolStream:
+    """A constrained tool call streamed as OpenAI tool_calls chunks (JAX
+    serving.py:912-979): the grammar makes the text
+    `{"name":<json string>,"arguments":` + arguments + `}`, so the name goes
+    out once, with the call's id, as soon as it is complete, then the
+    arguments' characters as deltas. One character is held back: the last
+    `}` closes the wrapper, not the arguments, and only the finish (call
+    complete, or cut by the budget) tells which. Called with each text delta
+    and None at the end."""
+
+    MARKER = ',"arguments":'
+
+    def __init__(self, emit, pend: "_Pending"):
+        self.emit, self.pend = emit, pend
+        self.text = ""
+        self.args_at = -1  # where the arguments value starts
+        self.sent = 0  # argument characters already emitted
+        self.call_id = f"call_{uuid.uuid4().hex[:24]}"
+
+    def __call__(self, chunk: Optional[str]) -> None:
+        if chunk is not None:
+            self.text += chunk
+        if self.args_at < 0:
+            try:
+                name, after = json.JSONDecoder().raw_decode(self.text, 8)
+            except (ValueError, IndexError):
+                name = None
+            if name is not None and self.text.startswith(self.MARKER, after):
+                self.args_at = after + len(self.MARKER)
+                self.emit({"tool_calls": [{"index": 0, "id": self.call_id, "type": "function",
+                                           "function": {"name": name, "arguments": ""}}]}, None)
+            elif chunk is None:  # the budget ended inside the name
+                self.emit({}, self.pend.finish_reason or "length")
+                return
+            else:
+                return
+        if chunk is None:  # finish: flush all but the wrapper's }
+            args = self.text[self.args_at:]
+            done = _parse_tool_call(self.text) is not None
+            if done and args.endswith("}"):
+                args = args[:-1]
+            delta = args[self.sent:]
+            self.sent = len(args)
+            self.emit({"tool_calls": [{"index": 0, "function": {"arguments": delta}}]}
+                      if delta else {}, "tool_calls" if done
+                      else self.pend.finish_reason or "length")
+            return
+        avail = len(self.text) - self.args_at - 1  # hold one back
+        if avail > self.sent:
+            delta = self.text[self.args_at + self.sent:self.args_at + avail]
+            self.sent = avail
+            self.emit({"tool_calls": [{"index": 0, "function": {"arguments": delta}}]}, None)
+
+
 class _RequestError(Exception):
     """A request the server refuses: the HTTP code and the message."""
 
@@ -95,12 +164,15 @@ class _Pending:
     engine thread reports back."""
 
     def __init__(self, prompt: str, max_tokens: int, stream: bool = False,
-                 stop: Optional[List[str]] = None, sampling: Optional[dict] = None):
+                 stop: Optional[List[str]] = None, sampling: Optional[dict] = None,
+                 tool_stream: bool = False):
         self.prompt = prompt
         self.max_tokens = max_tokens
-        # submit's keywords: the controls, logit_bias and seed (empty: the
-        # engine's values).
+        # submit's keywords: the controls, logit_bias, seed and the grammar
+        # key (response_format) (empty: the engine's values, unconstrained).
         self.sampling = sampling or {}
+        # A streamed forced tool call: deltas go out as tool_calls chunks.
+        self.tool_stream = tool_stream
         self.event = threading.Event()
         self.result: Optional[dict] = None
         self.error: Optional[str] = None
@@ -168,7 +240,7 @@ class InferenceServer:
         self._inflight: Dict[int, _Pending] = {}
         self._stop = threading.Event()
         self._worker: Optional[threading.Thread] = None
-        self._httpd: Optional[ThreadingHTTPServer] = None
+        self._httpd: Optional[_HTTPServer] = None
         self._started_at = time.time()
         self._served = 0
         self.failure: Optional[str] = None  # what stopped the engine thread
@@ -366,27 +438,18 @@ class InferenceServer:
         if model and model != cfg.base_model:
             raise _RequestError(404, f"model {model!r} not found: this server serves "
                                      f"{cfg.base_model!r} (LoRA adapters are not ported)")
-        rf = body.get("response_format") or {}
-        rf_type = rf.get("type") if isinstance(rf, dict) else rf
-        if body.get("guided_regex"):
-            rf_type = "regex"
-        if rf_type not in (None, "text"):
-            raise _RequestError(400, f"response_format {rf_type!r} is not ported "
-                                     "(grammar-constrained decoding)")
-        tool_names = None
+        rf_type = self._response_format(body)
+        tool_names, tool_parse = None, None
         if tools:
             try:
                 tool_names = [(t.get("function", t) or {}).get("name") for t in tools]
             except AttributeError:
                 raise _RequestError(400, "malformed tools list") from None
-            choice = body.get("tool_choice", "auto")
-            if choice in (None, "none"):
-                tool_names = None
-            elif choice != "auto":
-                raise _RequestError(400, f"tool_choice {choice!r} is not ported (forced tool "
-                                         "calls need grammar-constrained decoding; 'auto' "
-                                         "and 'none' are served)")
+            rf_type, tool_parse = self._tool_choice(body.get("tool_choice", "auto"),
+                                                    tool_names, rf_type)
         sampling = _request_sampling(body, eng)
+        if rf_type is not None:
+            sampling["response_format"] = rf_type
         try:
             self.batcher.check_request(**sampling)
         except (ValueError, NotImplementedError, TypeError) as err:
@@ -409,8 +472,71 @@ class InferenceServer:
         opts = body.get("stream_options")
         return dict(chat=chat, prompt=prompt, max_tokens=max_tokens, n=n, best_of=best_of,
                     stream=stream, stop=stop, sampling=sampling, tool_names=tool_names,
+                    tool_parse=tool_parse,
                     stream_usage=bool(opts.get("include_usage")) if isinstance(opts, dict)
                     else False)
+
+    def _response_format(self, body: dict) -> Optional[str]:
+        """The grammar key of response_format (or vLLM's guided_regex), None
+        for text; 400 with JAX's message (serving.py:482-540) for one the
+        deployment's grammar cannot serve: no tables, another grammar, a
+        schema or pattern other than the compiled one."""
+        eng = self.engine
+        cfg = eng.config
+        rf = body.get("response_format") or {}
+        if body.get("guided_regex") and not rf:
+            rf = {"type": "regex", "pattern": body["guided_regex"]}
+        rf_type = rf.get("type") if isinstance(rf, dict) else rf
+        served = eng._fsm_initial_map
+        if rf_type in (None, "text"):
+            return None
+        if rf_type == "regex":
+            if "regex" not in served:
+                raise _RequestError(400, "this server's grammar cannot serve regex (start with "
+                                         "EngineConfig(constrain='regex', constrain_regex=...))")
+            pat = rf.get("pattern") if isinstance(rf, dict) else None
+            if pat is not None and pat != cfg.constrain_regex:
+                raise _RequestError(400, "request pattern does not match the pattern this "
+                                         "server was compiled with")
+        elif rf_type in ("json", "json_object", "json_schema"):
+            if eng._constrain_tbl is None or rf_type not in served:
+                raise _RequestError(400, f"this server's grammar cannot serve response_format "
+                                         f"{rf_type!r} (started with EngineConfig.constrain="
+                                         f"{cfg.constrain!r})")
+            schema = ((rf.get("json_schema") or {}).get("schema")
+                      if rf_type == "json_schema" and isinstance(rf, dict) else None)
+            if schema is not None and schema != cfg.constrain_schema:
+                raise _RequestError(400, "request schema does not match the schema this server "
+                                         "was compiled with")
+        else:
+            raise _RequestError(400, f"unsupported response_format {rf_type!r}")
+        return rf_type
+
+    def _tool_choice(self, choice, tool_names: List[str], rf_type: Optional[str]) -> tuple:
+        """(grammar key, tool parse) of a chat request with tools (JAX
+        serving.py:542-590): "none" neither; "auto" parses a call from
+        unconstrained text; "required" (any tool) and a named function
+        constrain decoding to the engine's tool grammar ("force"), 400 when
+        it was not compiled with them."""
+        avail = self.engine._fsm_initial_map if self.engine.config.tools else {}
+        if choice in (None, "none"):
+            return rf_type, None
+        if choice == "auto":
+            return rf_type, "auto"
+        if choice == "required":
+            compiled = {k.split(":", 1)[1] for k in avail if ":" in k}
+            if not compiled or not compiled <= set(tool_names):
+                raise _RequestError(400, "tool_choice 'required' needs the server started with "
+                                         "EngineConfig(tools=...) whose tools the request's "
+                                         f"list covers (compiled: {sorted(compiled)})")
+            return "tool_call", "force"
+        if isinstance(choice, dict) and choice.get("type") == "function":
+            name = (choice.get("function") or {}).get("name")
+            if f"tool_call:{name}" not in avail:
+                raise _RequestError(400, f"tool {name!r} is not compiled into this server's "
+                                         "tool grammar")
+            return f"tool_call:{name}", "force"
+        raise _RequestError(400, f"unsupported tool_choice {choice!r}")
 
     def _logprobs(self, body: dict, chat: bool, prompt: str, res: dict) -> Optional[dict]:
         """The choice's logprobs in OpenAI's shape (JAX's lp_of): null unless
@@ -488,7 +614,9 @@ class InferenceServer:
         for i, p in enumerate(cands):
             text, finish = text_of(p), p.finish_reason
             message: Dict[str, Any] = {"role": "assistant", "content": text}
-            if req["tool_names"]:
+            if req["tool_parse"]:
+                # Forced: the grammar guarantees the shape unless the budget
+                # cut the call (then the raw text and "length" pass).
                 tc = _parse_tool_call(text, allowed=req["tool_names"])
                 if tc is not None:
                     message = {"role": "assistant", "content": None, "tool_calls": [{
@@ -585,7 +713,8 @@ class InferenceServer:
                 try:
                     req = outer._parse(self.path, body)
                     pend = _Pending(req["prompt"], req["max_tokens"], stream=req["stream"],
-                                    stop=req["stop"], sampling=req["sampling"])
+                                    stop=req["stop"], sampling=req["sampling"],
+                                    tool_stream=req["stream"] and req["tool_parse"] == "force")
                     extra = [_Pending(req["prompt"], req["max_tokens"], stop=req["stop"],
                                       sampling=_candidate_sampling(req["sampling"], i + 1))
                              for i in range(req["best_of"] - 1)]
@@ -634,6 +763,12 @@ class InferenceServer:
                         choice = {"index": 0, "text": delta or "", "finish_reason": finish}
                     send({"id": rid, "object": obj, "model": model, "choices": [choice]})
 
+                def emit_tool(delta: dict, finish: Optional[str]) -> None:
+                    send({"id": rid, "object": obj, "model": model,
+                          "choices": [{"index": 0, "delta": delta, "finish_reason": finish}]})
+
+                tool_feed = _ToolStream(emit_tool, pend) if pend.tool_stream else None
+
                 deadline = time.time() + WAIT_S
                 try:
                     if chat:  # the role preamble (OpenAI's convention)
@@ -648,12 +783,18 @@ class InferenceServer:
                                 break
                             continue
                         if chunk is not None:
-                            emit(chunk, None)
+                            if tool_feed is not None:
+                                tool_feed(chunk)
+                            else:
+                                emit(chunk, None)
                             continue
                         if pend.error is not None:
                             send({"error": pend.error})
                         else:
-                            emit(None, pend.finish_reason or "stop")
+                            if tool_feed is not None:
+                                tool_feed(None)
+                            else:
+                                emit(None, pend.finish_reason or "stop")
                             if req["stream_usage"]:
                                 n_p = len(outer.engine.tokenizer.encode(req["prompt"]))
                                 n_c = (pend.result or {}).get("generated_tokens", 0)
@@ -672,7 +813,7 @@ class InferenceServer:
     def start(self, block: bool = False) -> None:
         self._worker = threading.Thread(target=self._engine_loop, name="engine", daemon=True)
         self._worker.start()
-        self._httpd = ThreadingHTTPServer((self.host, self.port), self._make_handler())
+        self._httpd = _HTTPServer((self.host, self.port), self._make_handler())
         self.port = self._httpd.server_address[1]  # port 0: the one given
         self._http_thread = threading.Thread(target=self._httpd.serve_forever, daemon=True)
         self._http_thread.start()

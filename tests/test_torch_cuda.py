@@ -1418,3 +1418,120 @@ def test_attention_at_head_dim_96_and_group_7(card, cache, D, H, KVH, window):
     zeros = torch.zeros((B, 10), device=card, dtype=torch.int32)
     assert _attn_within(ref, q, k, v, zeros, *scales, tree_mask=anc, chunk_start=start)
     assert torch.equal(tfk(q, pools[0], pools[1], table, anc, start, *pools[2:]), ref)
+
+
+# ------------------------------------------------------ grammar runtime
+GRAMMAR_SCHEMA = {"type": "object", "properties": {"ok": {"type": "boolean"},
+                                                   "pick": {"enum": ["red", "green"]}}}
+
+
+def _grammar_tables(V):
+    """The port's JSON tables on the ByteTokenizer at V (host), and random
+    reachable FSM rows from CPU walks of valid tokens (plus dead,
+    unconstrained and full-stack rows)."""
+    from llm_inference_lab_tpu_torch.constrain import runtime as rt
+    from llm_inference_lab_tpu_torch.constrain.jsonfsm import (
+        compile_token_tables,
+        json_char_automaton,
+        token_bytes_of,
+    )
+    from llm_inference_lab_tpu_torch.utils.tokenizer import ByteTokenizer
+
+    tb, tl = token_bytes_of(ByteTokenizer(), V)
+    tt = compile_token_tables(json_char_automaton(), tb, tl, eos_id=0)
+    cpu = rt.device_tables(tt, "cpu")
+    g = np.random.default_rng(7)
+    rows = []
+    for walk in range(24):
+        lex = tt.initial if walk % 2 else tt.initial_objonly
+        state = (torch.tensor([lex], dtype=torch.int32),
+                 torch.zeros((1, rt.STACK_DEPTH), dtype=torch.int32),
+                 torch.zeros((1,), dtype=torch.int32))
+        for _ in range(int(g.integers(0, 30))):
+            mask = rt.token_mask(cpu, *state)[0].numpy().copy()
+            mask[0] = False
+            if not mask.any():
+                break
+            tok = torch.tensor([int(g.choice(np.flatnonzero(mask)))], dtype=torch.int32)
+            state = rt.transition(cpu, *state, tok)
+        rows.append(state)
+    full = torch.full((1, rt.STACK_DEPTH), 1, dtype=torch.int32)
+    rows += [(torch.tensor([rt.DEAD_STATE], dtype=torch.int32), full * 0, torch.zeros(1).int()),
+             (torch.tensor([rt.UNCONSTRAINED], dtype=torch.int32), full * 0, torch.zeros(1).int()),
+             (torch.tensor([tt.initial], dtype=torch.int32), full,
+              torch.tensor([rt.STACK_DEPTH], dtype=torch.int32))]
+    return tt, cpu, tuple(torch.cat(parts) for parts in zip(*rows))
+
+
+@pytest.mark.cuda
+def test_grammar_runtime_on_the_card_equals_the_cpu(card):
+    """constrain/runtime.py on the card over the same tables (JSON at V =
+    128256): token_mask, apply_mask, transition (valid, invalid and EOS
+    tokens, an active mask), walk_window and window_mask give the CPU's
+    booleans, integers and logits exactly."""
+    from llm_inference_lab_tpu_torch.constrain import runtime as rt
+
+    V = 128256
+    tt, cpu, state = _grammar_tables(V)
+    gpu = rt.device_tables(tt, card)
+    on = tuple(t.to(card) for t in state)
+    mask = rt.token_mask(cpu, *state)
+    assert torch.equal(rt.token_mask(gpu, *on).cpu(), mask)
+    g = torch.Generator().manual_seed(3)
+    logits = torch.randn((mask.shape[0], V), generator=g)
+    assert torch.equal(rt.apply_mask(logits.to(card), mask.to(card)).cpu(),
+                       rt.apply_mask(logits, mask))
+    B = mask.shape[0]
+    valid = torch.multinomial(mask.float() + 1e-9, 4, generator=g).int()
+    toks = torch.where(torch.rand((B, 4), generator=g) < 0.2,
+                       torch.randint(0, V, (B, 4), generator=g, dtype=torch.int32), valid)
+    toks[::5, 0] = 0  # EOS
+    active = torch.rand((B,), generator=g) < 0.8
+    for args in ((toks[:, 0],), (toks[:, 1], active)):
+        want = rt.transition(cpu, *state, *args)
+        got = rt.transition(gpu, *on, *(a.to(card) for a in args))
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    want = rt.walk_window(cpu, *state, toks)
+    got = rt.walk_window(gpu, *on, toks.to(card))
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    assert torch.equal(rt.window_mask(gpu, *got).cpu(), rt.window_mask(cpu, *want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grammar", ["json_schema", "tools"])
+def test_constrained_replays_give_the_host_loops_bits(card, grammar):
+    """Constrained decoding through CUDA-graph replays of the constrained
+    step gives the host loop's ids and logprobs: generate under the
+    grammar, spec K=2 and baseline, and a paged batcher mixing constrained
+    and free requests; every completed constrained output parses."""
+    import json
+
+    tools = [{"type": "function", "function": {"name": "set_light", "parameters": {
+        "type": "object", "properties": {"on": {"type": "boolean"}}}}}]
+    kw = (dict(constrain="json_schema", constrain_schema=GRAMMAR_SCHEMA)
+          if grammar == "json_schema" else dict(tools=tools))
+    key = "json_schema" if grammar == "json_schema" else "tool_call:set_light"
+    for spec in (dict(max_draft=2), dict(draft_model=None)):
+        eng, host = _graph_engines(card, max_new_tokens=48, **kw, **spec)
+        got = eng.generate_batch(GRAPH_PROMPTS, response_format=key)
+        want = host.generate_batch(GRAPH_PROMPTS, response_format=key)
+        for g, w in zip(got, want, strict=True):
+            for key_ in RESULT_KEYS:
+                assert g[key_] == w[key_], (grammar, key_, g[key_], w[key_])
+            if g["generated_ids"][-1] == eng.eos_token_id:
+                json.loads(g["text"])
+        assert eng._fsm_loops and all(loop.graph is not None for loop in eng._fsm_loops.values())
+    eng, host = _graph_engines(card, max_draft=2, kv_layout="paged", kv_page_size=64,
+                               max_seq_len=512, max_new_tokens=48, **kw)
+    runs = []
+    for e in (eng, host):
+        b = ContinuousBatcher(e, n_slots=3)
+        for i, budget in enumerate((3, 40, 9, 5, 44, 16)):
+            b.submit("served by replays " * (1 + i), max_new_tokens=budget,
+                     response_format=key if i % 2 else None)
+        runs.append((b, b.run()))
+    (b, got), (_, want) = runs
+    assert b._fsm_loop.graph is not None and b.stats.constrained_steps > 0
+    for g, w in zip(got, want, strict=True):
+        for key_ in ("generated_ids", "token_logprobs", "proposed", "accepted", "finish_reason"):
+            assert g[key_] == w[key_], (key_, g[key_], w[key_])

@@ -364,14 +364,18 @@ def test_bad_json_and_unknown_path(server):
 
 
 REFUSED = [
-    ("/v1/completions", {"response_format": {"type": "json_object"}}, 400, "not ported"),
-    ("/v1/completions", {"response_format": {"type": "json_schema"}}, 400, "not ported"),
-    ("/v1/completions", {"guided_regex": "[a-z]+"}, 400, "not ported"),
+    # A server without a grammar (EngineConfig.constrain / tools): JAX's 400s.
+    ("/v1/completions", {"response_format": {"type": "json_object"}}, 400,
+     "grammar cannot serve response_format 'json_object'"),
+    ("/v1/completions", {"response_format": {"type": "json_schema"}}, 400,
+     "grammar cannot serve response_format 'json_schema'"),
+    ("/v1/completions", {"guided_regex": "[a-z]+"}, 400, "grammar cannot serve regex"),
     ("/v1/chat/completions", {"tools": [{"type": "function", "function": {"name": "f"}}],
-                              "tool_choice": "required"}, 400, "not ported"),
+                              "tool_choice": "required"}, 400,
+     "needs the server started with EngineConfig(tools=...)"),
     ("/v1/chat/completions", {"tools": [{"type": "function", "function": {"name": "f"}}],
                               "tool_choice": {"type": "function", "function": {"name": "f"}}},
-     400, "not ported"),
+     400, "tool 'f' is not compiled into this server's tool grammar"),
     ("/v1/completions", {"model": "my-lora-adapter"}, 404, "LoRA adapters are not ported"),
     ("/v1/embeddings", {"input": "x"}, 501, "/v1/embeddings is not ported"),
     # A greedy engine without per_request_sampling cannot honour these.
@@ -384,9 +388,9 @@ REFUSED = [
 
 @pytest.mark.parametrize("i", range(len(REFUSED)))
 def test_refused_features_name_themselves(server, i):
-    """Each feature the port does not have, and sampling fields a static
-    engine would not honour, return an error naming it; none is answered
-    plainly."""
+    """Each feature the port does not have, a grammar the deployment has
+    not compiled, and sampling fields a static engine would not honour,
+    return an error naming it; none is answered plainly."""
     path, body, code, words = REFUSED[i]
     body = dict({"prompt": "x", "messages": [{"role": "user", "content": "x"}]}, **body)
     got_code, msg = _error(server, path, body)

@@ -169,7 +169,9 @@ def test_port_imports_no_jax():
         "core/head_training", "models/llama", "ops/attention", "ops/flash_decode",
         "ops/paged_flash", "convert", "server/__init__", "server/serving", "models/qwen2",
         "models/phi3", "models/mixtral", "models/gpt2", "models/opt", "models/loader",
-        "models/checkpoint", "models/factory", "ops/moe", "utils/safetensors")}
+        "models/checkpoint", "models/factory", "ops/moe", "utils/safetensors",
+        "constrain/__init__", "constrain/jsonfsm", "constrain/regex", "constrain/schema",
+        "constrain/tools", "constrain/runtime")}
     for f in files:
         text = f.read_text()
         assert not _FORBIDDEN.search(text), f"{f} imports JAX or the JAX package"

@@ -11,7 +11,9 @@ and on llama-tiny f32 (weights and heads carried over by
 convert.params_from_jax, projections x10), contiguous and paged, gives
 JAX's ids, proposed, accepted, steps and logprobs; a step at a time, the
 committed cache rows after compaction equal JAX's; the batcher equals JAX's
-and the port's own generate.
+and the port's own generate. A grammar (constrain or tools) in tree mode
+raises JAX's error. The file runs on one intra-op thread (the one_thread
+fixture).
 """
 
 import functools
@@ -49,6 +51,7 @@ from llm_inference_lab_tpu_torch.ops.flash_decode import (
     tree_bits,
 )
 from llm_inference_lab_tpu_torch.ops.paged_flash import paged_flash_split_plain
+from test_torch_decode_loop import one_thread  # noqa: F401
 
 BRANCHINGS = [[2], [2, 2], [3, 2], [2, 2, 2]]
 KEYS = ("generated_ids", "proposed", "accepted", "bonus_tokens", "steps")
@@ -389,3 +392,15 @@ def test_tree_refusals():
     big = torch.ones((33, 33), dtype=torch.bool)
     with pytest.raises(NotImplementedError, match="32"):
         tree_bits(big)
+
+
+@pytest.mark.parametrize("grammar", [dict(constrain="json"), dict(tools=[{"name": "ping"}])])
+def test_tree_refuses_a_grammar(grammar):
+    """Constrained decoding in tree mode raises JAX's ValueError in both
+    packages (the tree walks its own path: no FSM walk over it)."""
+    cfg = dict(implementation="fake", base_model="fake", draft_model=None, draft_mode="tree",
+               **grammar)
+    with pytest.raises(ValueError, match="not supported in tree mode"):
+        JaxEngine(JaxEngineConfig(**cfg))
+    with pytest.raises(ValueError, match="not supported in tree mode"):
+        Engine(EngineConfig(max_seq_len=256, **cfg), device="cpu")
