@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (llm_inference_lab_tpu_torch) on one
 NVIDIA card: the quickest proof that the port builds and runs on the GPU.
 
-    python3 chip_smoke.py                    # phases 0-22, last line a JSON result
+    python3 chip_smoke.py                    # phases 0-23, last line a JSON result
     python3 chip_smoke.py --profile          # also a torch.profiler breakdown of runs
     python3 chip_smoke.py --profile=gemma    # the breakdown of the Gemma-2 runs only
     python3 chip_smoke.py --profile=mistral  # the breakdown of the Mistral B=1 run only
@@ -78,7 +78,11 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
     phase 14's prefix-cached admissions (phase_prefix_prefill): a suffix's
     queries from position 1024 over one sequence's gathered pages (T =
     2048), within check_attn's tolerance and the bits of E over the same
-    keys laid out contiguously, a layer's gather timed beside E;
+    keys laid out contiguously, a layer's gather timed beside E; and kernel
+    A's f32-output instantiation (the EmbedQuant4 tied head) at N = 128,256
+    and K = 3072 and 2048, M = 1, 2, 5 and 104 (both bodies): within the
+    f32 summation bound of its plain version, the bf16 kernel's output its
+    rounding bit for bit, timed beside the library call;
  3. end to end at full width: Engine with an int4 llama-3.2-3b target and
     llama-3.2-1b draft (random weights from a seed, int8 embedding/tied
     head), K=1, greedy, 64 new tokens, max_seq_len 512, on bench.py's
@@ -234,12 +238,29 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
     response_format json_schema, guided_regex, tool_choice required, a
     named and a streamed named tool call; Medusa K=4 and (after phase 10)
     ngram K=12 under json_schema;
+23. (after phase 22, on phase 3's weights) multi-LoRA, embeddings and the
+    int4 embedding: (a) three rank-16 adapters on q, k, v, o, gate, up and
+    down at full width (numpy seeds) in one pack: B=1 generate of the base
+    (phase 3's ids) and of each adapter, each adapter biting on the first
+    step's logits; a bf16 3B with one adapter against its merged weights;
+    phase 3b's requests with the adapters round-robin, each its own B=1
+    generate's ids; phase 14's system prompt under two adapters, prefix
+    caching off and on (equal ids, pages hit only within an adapter);
+    Medusa K=4 under an adapter (== the baseline under it); the server's
+    /v1/models, `model` routing and 404; the step's device ms with and
+    without the pack, base rows against adapted rows; (b) Engine.embed of
+    64 texts of 9-135 tokens, mean and last (norms 1, each alone against
+    its batch row), and /v1/embeddings (float == base64); (c) the main path
+    with embed_bits=4 (the tied head through kernel A's f32 instantiation,
+    held in phase 2 at the heads' widths and rows): B=1 generate in turns
+    with phase 3's engine, graph == host loop, spec == baseline, phase 3b's
+    batcher, and the table's checkpoint round trip;
  9. the kernels' JSON line (every kernel, launches by path; the Gemma-2
     variants of D, E and F, the ring variants of D and E, the ngram
     verify shapes of B, D and C, D's and F's tree variants and A at the 8B
     widths on rows of their own), then the result line.
 
-Every B=1 and serving path (phases 3-8, 10-22) decodes through the decode
+Every B=1 and serving path (phases 3-8, 10-23) decodes through the decode
 loop of core/specstep.py: CUDA-graph replays of the step, captured once a
 shape (the host adaptive controller: a one-step graph a K).
 count_launches adds each replay's captured launches to the wrappers' eager
@@ -492,12 +513,26 @@ GRAMMARS = {
 GRAMMAR_KEYS = {name: [key] for name, (_, key) in GRAMMARS.items()}
 GRAMMAR_KEYS["tools"] += ["tool_call:get_weather", "tool_call:set_light"]
 GRAMMAR_SERVED = ("json_object", "json_schema", "tools")  # phase 22 (b)'s batchers
+# Phase 23: LoRA adapters at the 3B's full width (make_adapter, numpy
+# seeds), each row's delta held to bite (LORA_BITE: the first step's max
+# |delta logit| against the base, about 1% of the logits' scale); the
+# embeddings' alone-against-batch floor (cosine within 2^-8 of 1: bf16
+# activations of another M); kernel A's f32 instantiation at the tied
+# heads' widths and rows (K=1 B=1: M = 1 and 2; K=4: 5; ngram's 8-slot
+# verify: 104).
+LORA_N, LORA_RANK, LORA_ALPHA = 3, 16, 32.0
+LORA_TARGETS = ("q", "k", "v", "o", "gate", "up", "down")
+LORA_BITE = 1e-2
+EMBED_COS = 1.0 - 2.0 ** -8
+EMBED_TEXTS = [PROMPT[: 9 + (len(PROMPT) - 9) * i // 63] for i in range(64)]  # 9-135 tokens
+HEAD_F32_K, HEAD_V, HEAD_F32_M = (3072, 2048), 128256, (1, 2, 5, 104)
 # The kernels each path must launch (and no other): the norms (rms_norm
 # once a forward, add_rms_norm twice a layer a forward) and the
 # projections' two kernels (decode rows through the decode body, prefill
 # rows through the tensor-core path) on every path, then its attention.
 INT4 = {"rms_norm", "add_rms_norm", "quant_matmul_int4", "quant_matmul_int4_mma"}
 INT8 = {"rms_norm", "add_rms_norm", "quant_matmul_int8", "quant_matmul_int8_mma"}
+HEAD4 = {"quant_matmul_int4_f32", "quant_matmul_int4_f32_mma"}  # the EmbedQuant4 head
 SPEC = {"flash_decode", "flash_prefill", "verify_prefix"}
 SERVE = {"flash_prefill", "paged_flash", "verify_prefix"}
 PATH_KERNELS = {
@@ -565,6 +600,20 @@ PATH_KERNELS = {
     "serving int4 OpenAI server, grammars and tool calls (HTTP)": INT4 | SERVE,
     "generate int4 medusa K=4 under json_schema (3 runs)": INT4 | SPEC,
     "generate int8 ngram K=12 under json_schema (3 runs)": INT8 | SPEC,
+    # Phase 23: LoRA on phase 3's weights (the deltas are plain torch ops in
+    # the captured step), Engine.embed (eager, no head: E and A's
+    # tensor-core path at 64 x 160 rows), and the int4 embedding, whose tied
+    # head is kernel A's f32 instantiation (decode rows through its decode
+    # body, prefill and admission rows through its tensor-core path).
+    "generate int4 LoRA pack, base and 3 adapters (4 x 3 runs)": INT4 | SPEC,
+    "serving int4 LoRA adapters round-robin (16 requests)": INT4 | SERVE,
+    "serving int4 LoRA prefix caching under two adapters (16 requests)": INT4 | SERVE,
+    "generate int4 medusa K=4 under a LoRA adapter (3 runs)": INT4 | SPEC,
+    "serving int4 OpenAI server, LoRA model routing (HTTP)": INT4 | SERVE,
+    "embed int4 64 texts, mean and last pooling": {"rms_norm", "add_rms_norm",
+                                                   "quant_matmul_int4_mma", "flash_prefill"},
+    "generate int4 embed_bits=4 (3 runs)": INT4 | SPEC | HEAD4,
+    "serving int4 embed_bits=4 (16 requests)": INT4 | SERVE | HEAD4,
 }
 GEMMA_PATHS = [path for path in PATH_KERNELS if "gemma-2" in path]
 MISTRAL_PATHS = [path for path in PATH_KERNELS if "mistral" in path]
@@ -585,6 +634,9 @@ MIXTRAL_PATH = next(path for path in PATH_KERNELS if "mixtral" in path)
 BASELINE_PATHS = {name: [path for path in PATH_KERNELS if f" {name} bf16" in path]
                   for name in BASELINE_CFGS}
 GRAMMAR_PATHS = [path for path in PATH_KERNELS if "grammar" in path or "under json" in path]
+LORA_PATHS = [path for path in PATH_KERNELS if "LoRA" in path]
+EMBED_PATH = next(path for path in PATH_KERNELS if path.startswith("embed "))
+EMBED4_PATHS = [path for path in PATH_KERNELS if "embed_bits=4" in path]
 PATH_SERVE_INT4 = "serving int4 (16 requests)"
 # Phase 3b's ids by request (phase_serving), which phase 22 holds its free
 # requests on a table-carrying engine to.
@@ -2118,7 +2170,8 @@ def phase_ring_attention(dev):
 
 # The kernels that only a decode step launches: outside the decode loop's
 # replays they launch only in the eager warm-up step before a capture.
-DECODE_ONLY = {"quant_matmul_int4", "quant_matmul_int8", "flash_decode", "flash_decode_int8",
+DECODE_ONLY = {"quant_matmul_int4", "quant_matmul_int8", "quant_matmul_int4_f32",
+               "flash_decode", "flash_decode_int8",
                "paged_flash", "paged_flash_int8", "verify_prefix", "flash_decode_tree",
                "flash_decode_tree_int8", "paged_flash_tree", "paged_flash_tree_int8"}
 
@@ -2668,7 +2721,7 @@ def row_stability(eng, dev):
         lm_head_logits,
         rms_norm,
     )
-    from llm_inference_lab_tpu_torch.ops.quant import QuantTensor, dense
+    from llm_inference_lab_tpu_torch.ops.quant import EmbedQuant4, QuantTensor, dense
     from llm_inference_lab_tpu_torch.ops.quant_matmul import MMA_MIN_M
 
     cfg, params = eng.target.config, eng.target.params
@@ -2682,7 +2735,9 @@ def row_stability(eng, dev):
     w = w.layer(0) if quant else w[0]
     kernel = ("bf16 projection (torch.matmul)" if not quant else
               "quant_matmul_int4 (kernel A)" if w.bits == 4 else "quant_matmul_int8 (kernel B)")
-    head = ("tied int8 head (cast + torch.mm, f32 out)" if cfg.tie_word_embeddings
+    head = ("tied int4 head (kernel A, f32 out)" if cfg.tie_word_embeddings
+            and isinstance(params["embed"], EmbedQuant4) else
+            "tied int8 head (cast + torch.mm, f32 out)" if cfg.tie_word_embeddings
             and not isinstance(params["embed"], torch.Tensor) else
             "tied bf16 head (torch.mm, f32 out)" if cfg.tie_word_embeddings else
             "untied head (dense)")
@@ -2779,35 +2834,44 @@ def row_key(m):
     return (1, m) if isinstance(m, str) else (0, str(m).zfill(8))
 
 
-def near_tie(eng, dev, prompt, ids_a, ids_b):
-    """At the first position where two greedy runs of one prompt differ: the
-    two top target logits from a fresh B=1 forward over the common prefix,
-    their gap and the gap in bf16 ulps of the top logit (the head's logits
-    are f32, as in JAX; a bf16 step of the top logit is the scale at which
-    the bf16 activations feeding it round)."""
-    j = next(i for i, (a, b) in enumerate(zip(ids_a, ids_b)) if a != b)
-    ctx = eng.tokenizer.encode(prompt) + ids_a[:j]
+def last_logits(eng, dev, ctx, adapter=None):
+    """The target's f32 logits of the last of the token ids ctx, from a fresh
+    B=1 forward (its rows under the LoRA adapter `adapter`, a name of the
+    engine's pack; None: no adapter ids given)."""
     n = len(ctx)
     cache = eng.target.init_cache(1, -(-n // 32) * 32, dev, dtype=eng.kv_dtype)
+    lid = (None if adapter is None
+           else torch.tensor([eng.lora_id(adapter)], device=dev, dtype=torch.int32))
     logits, _ = eng.target.forward(
         torch.tensor([ctx], device=dev, dtype=torch.int32),
         torch.arange(n, device=dev, dtype=torch.int32)[None],
-        cache, torch.zeros((1,), device=dev, dtype=torch.int32))
-    top = torch.topk(logits[0, -1], 2)
+        cache, torch.zeros((1,), device=dev, dtype=torch.int32), lora_ids=lid)
+    return logits[0, -1]
+
+
+def near_tie(eng, dev, prompt, ids_a, ids_b, adapter=None):
+    """At the first position where two greedy runs of one prompt differ: the
+    two top target logits from a fresh B=1 forward over the common prefix
+    (under `adapter`), their gap and the gap in bf16 ulps of the top logit
+    (the head's logits are f32, as in JAX; a bf16 step of the top logit is
+    the scale at which the bf16 activations feeding it round)."""
+    j = next(i for i, (a, b) in enumerate(zip(ids_a, ids_b)) if a != b)
+    top = torch.topk(last_logits(eng, dev, eng.tokenizer.encode(prompt) + ids_a[:j], adapter), 2)
     (v1, v2), (t1, t2) = top.values.tolist(), top.indices.tolist()
     ulp = 2.0 ** (math.floor(math.log2(abs(v1))) - 7)
     return dict(position=j, tokens=(ids_a[j], ids_b[j]), top2=((t1, v1), (t2, v2)),
                 gap=v1 - v2, gap_ulps=(v1 - v2) / ulp)
 
 
-def held_to(eng, dev, unstable, what, rid, prompt, ref, ids, tie_eng=None):
+def held_to(eng, dev, unstable, what, rid, prompt, ref, ids, tie_eng=None, adapter=None):
     """0 when a request's ids equal ref, 1 when they part at a near tie:
-    near_tie on tie_eng (or eng) finds a gap of at most 2 bf16 ulps, and
-    unstable() names an op that rounds a row differently at another M or
-    across A's or B's two kernels (row_stability); otherwise it fails."""
+    near_tie on tie_eng (or eng; under `adapter`) finds a gap of at most 2
+    bf16 ulps, and unstable() names an op that rounds a row differently at
+    another M or across A's or B's two kernels (row_stability); otherwise
+    it fails."""
     if ids == ref:
         return 0
-    tie = near_tie(tie_eng or eng, dev, prompt, ref, ids)
+    tie = near_tie(tie_eng or eng, dev, prompt, ref, ids, adapter)
     ops = unstable()
     log(f"request {rid} differs from {what}: {tie}; ops that round rows differently at "
         f"another M or across A's or B's two kernels: {ops}")
@@ -4803,6 +4867,511 @@ def phase_grammar_ngram(dev, eng, path):
     return launches
 
 
+# ------------------------------------------- phase 23: LoRA, embed, int4 head
+def lora_adapters(cfg):
+    """LORA_N adapters of rank LORA_RANK on all seven matrices at cfg's full
+    widths, from numpy seeds (models/lora.py make_adapter)."""
+    import numpy as np
+
+    from llm_inference_lab_tpu_torch.models.lora import make_adapter
+
+    return [make_adapter(cfg, f"a{i}", rank=LORA_RANK, alpha=LORA_ALPHA, targets=LORA_TARGETS,
+                         rng=np.random.default_rng(100 + i)) for i in range(LORA_N)]
+
+
+def pack_bytes(eng):
+    """Bytes of the target's LoRA pack (every site's A and B)."""
+    return sum(v.numel() * v.element_size() for k, v in eng.target.params["layers"].items()
+               if k.startswith("lora_"))
+
+
+def count_eager(path, run):
+    """count_launches for an entry point that runs no decode loop (embed):
+    every count set to 0 just before run(), read just after; exactly the
+    path's kernels launched, rms_norm once a forward and add_rms_norm
+    twice a layer."""
+    from llm_inference_lab_tpu_torch.models import transformer
+
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    transformer.forward.calls = transformer.forward.layers = 0
+    out = run()
+    launches = {name: w.launches for name, w in wrappers.items()}
+    log(f"launches in {path}: { {k: n for k, n in launches.items() if n} }; "
+        f"{transformer.forward.calls} forwards of {transformer.forward.layers} layers")
+    assert {name for name, n in launches.items() if n} == PATH_KERNELS[path], (path, launches)
+    assert launches["rms_norm"] == transformer.forward.calls
+    assert launches["add_rms_norm"] == 2 * transformer.forward.layers
+    return out, launches
+
+
+def phase_lora(dev, eng, paths):
+    """Phase 23 (a) on phase 3's int4 3B + 1B weights (K=1): multi-LoRA.
+    LORA_N adapters (lora_adapters: rank LORA_RANK on q, k, v, o, gate, up
+    and down at full width, numpy seeds) in one pack on an engine sharing
+    phase 3's weights. Asserted: B=1 generate of the base on the pack
+    engine gives phase 3's ids (its rows' delta is an exact zero), and each
+    adapter bites on the logits (the first step's max |delta logit| against
+    the base above LORA_BITE); a bf16 3B (no draft) with adapter a0 gives
+    the ids of the same model with a0 merged into its weights (near-tie
+    rule; the logit difference logged); phase 3b's 16 requests through the
+    8-slot paged batcher with the adapters round-robin (base, a0, a1, a2)
+    each give their own B=1 generate's ids (near-tie rule); phase 14's
+    1024-token system prompt under a0 and a1 alternately, prefix caching
+    off and on: equal ids, and the first request of each adapter reuses no
+    page (pages are hit only within an adapter), every later one does;
+    Medusa K=4 under a1: ids == the baseline's under a1; the server:
+    /v1/models lists the base and the adapters, `model` routes (8 greedy
+    requests, each its B=1 generate's ids under the near-tie rule), an
+    unknown model is a 404. Logged: a replay's device ms with the pack
+    against the engine without it, base rows against adapted rows, at B=1
+    and in the 8-slot batcher, beside the pack's bytes bound."""
+    import urllib.error
+
+    from llm_inference_lab_tpu_torch.core.batching import ContinuousBatcher
+    from llm_inference_lab_tpu_torch.core.engine import Engine
+    from llm_inference_lab_tpu_torch.server import InferenceServer
+
+    launches = {}
+    ads = lora_adapters(eng.target.config)
+    names = [None] + [a.name for a in ads]
+
+    def engine(**kw):
+        return Engine(replace(eng.config, **kw), device=dev, target_params=eng.target.params,
+                      draft_params=eng.draft.params, lora_adapters=ads)
+
+    t0 = time.perf_counter()
+    le = engine()
+    torch.cuda.synchronize()
+    log(f"phase 23 LoRA engine: {LORA_N} adapters of rank {LORA_RANK} on "
+        f"{'/'.join(LORA_TARGETS)}, pack {pack_bytes(le) / 1e6:.1f} MB "
+        f"({pack_bytes(le) / LORA_N / 1e6:.1f} MB an adapter), built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    ref_ids = eng.generate(PROMPT)["generated_ids"]
+    for name in names:
+        le.generate(PROMPT, adapter=name)  # warm-up (one decode state: one capture)
+    runs, launches[paths[0]] = count_launches(
+        paths[0], lambda: {n: [le.generate(PROMPT, adapter=n) for _ in range(3)] for n in names})
+    b1 = {}
+    for n, rs in runs.items():
+        assert all(r["generated_ids"] == rs[0]["generated_ids"] for r in rs), (n, "repeat")
+        b1[n] = rs[0]["generated_ids"]
+        log(f"phase 23 LoRA generate, adapter {n}: {timing(rs)}")
+    assert b1[None] == ref_ids, "base rows on the pack engine differ from phase 3's ids"
+    ids_digest(paths[0], [b1[n] for n in names])
+    prompt_ids = le.tokenizer.encode(PROMPT)
+    base_logits = last_logits(le, dev, prompt_ids, None)
+    assert torch.equal(base_logits, last_logits(eng, dev, prompt_ids)), "base row's logits moved"
+    for a in ads:
+        bite = (last_logits(le, dev, prompt_ids, a.name) - base_logits).abs().max().item()
+        log(f"phase 23 adapter {a.name}: first step's max |delta logit| against the base "
+            f"{bite:.4f} (floor {LORA_BITE}); ids differ from the base's: {b1[a.name] != ref_ids}")
+        assert bite > LORA_BITE, (a.name, bite)
+
+    # Step ms: the pack engine's B=1 state, rows at -1 and at a0, against
+    # phase 3's engine without a pack (replays over inactive lanes run every
+    # op of the branch-free step).
+    (key,) = [k for k in le._decode_states if k[0] == 1]
+    state, loop = le._decode_states[key]
+    _, plain_loop = eng._decode_states[key]
+    times = {}
+    for what in ("no pack", "pack, base rows", "pack, adapted rows", "pack, base rows again",
+                 "no pack again"):
+        if what.startswith("pack"):
+            with torch.inference_mode():  # the engine's state is an inference tensor
+                state.lora_ids.fill_(0 if "adapted" in what else -1)
+        times[what] = replay_ms(plain_loop if what.startswith("no pack") else loop)
+    tgt_bytes = pack_bytes(le)  # one target forward a K=1 step reads the pack once
+    log(f"phase 23 K=1 B=1 step device ms (replays, in turns): "
+        + ", ".join(f"{w} {ms:.4f}" for w, ms in times.items())
+        + f"; the pack's bytes bound {bound_ms(tgt_bytes, 0)[0]:.4f} ms a step "
+          f"({tgt_bytes / 1e6:.1f} MB); the port's kernels launch "
+          f"{sum(v for k, v in loop.per_replay.items() if k not in ('forwards', 'layers'))} "
+          f"times a replay with the pack and without (the deltas are library ops)")
+
+    # A bf16 3B with a0 against the same model with a0 merged.
+    cfg16 = replace(eng.config, quantization=None, quantized_init=False, quantize_embed=False,
+                    draft_model=None)
+    bf = Engine(cfg16, device=dev, lora_adapters=ads[:1])
+    merged_layers = dict(bf.target.params["layers"])
+    for site, key_ in (("qkv", "w_qkv"), ("o", "wo"), ("gate_up", "w_gate_up"),
+                       ("down", "w_down")):
+        A, B = (torch.from_numpy(m).to(dev) for m in ads[0].weights[site])
+        merged_layers[key_] = (merged_layers[key_].float() + A @ B).bfloat16()
+        del A, B
+    merged_layers = {k: v for k, v in merged_layers.items() if not k.startswith("lora_")}
+    merged = Engine(cfg16, device=dev, target_params=dict(bf.target.params,
+                                                          layers=merged_layers))
+    got = bf.generate(PROMPT, adapter="a0")["generated_ids"]
+    want = merged.generate(PROMPT)["generated_ids"]
+    diff = (last_logits(bf, dev, prompt_ids, "a0") - last_logits(merged, dev, prompt_ids))
+    tie = near_tie(bf, dev, PROMPT, want, got, "a0") if got != want else None
+    log(f"phase 23 bf16 3B: adapter a0 ids {'==' if tie is None else 'part from'} the merged "
+        f"weights' ids ({len(got)} ids){'' if tie is None else f' at {tie}'}; first step's "
+        f"max |logit difference| {diff.abs().max().item():.5f}")
+    assert tie is None or tie["gap_ulps"] <= 2, ("not a near tie", tie)
+    del bf, merged, merged_layers
+    free_card()
+
+    unstable_ops = []
+
+    def unstable():
+        if not unstable_ops:
+            unstable_ops.append([op for op, d in row_stability(eng, dev).items()
+                                 if any(d.values())])
+        return unstable_ops[0]
+
+    # Phase 3b's requests with the adapters round-robin.
+    serve_kw = dict(max_seq_len=SERVE_MAX_LEN, kv_layout="paged", kv_page_size=SERVE_PAGE)
+    se = engine(**serve_kw)
+    b = ContinuousBatcher(se, n_slots=SERVE_SLOTS)
+    rr = [names[i % len(names)] for i in range(len(SERVE_PROMPTS))]
+    for p, m, n in zip(SERVE_PROMPTS, SERVE_BUDGETS, rr):
+        b.submit(p, max_new_tokens=m, lora=n)
+    (results, peak), launches[paths[1]] = count_launches(paths[1], lambda: served(b, b.run))
+    ids_digest(paths[1], [r["generated_ids"] for r in results])
+    ref = {(p, n): le.generate(p, adapter=n)["generated_ids"] for p, n in zip(SERVE_PROMPTS, rr)}
+    differ = sum(held_to(le, dev, unstable, f"generate under {n}", r["req_id"], p,
+                         ref[(p, n)][: len(r["generated_ids"])], r["generated_ids"], adapter=n)
+                 for r, p, n in zip(results, SERVE_PROMPTS, rr))
+    log(f"phase 23 serving, adapters round-robin: " + serve_stats(b, peak)
+        + f"; ids == each request's B=1 generate under its adapter for "
+          f"{len(results) - differ} of {len(results)} (the rest near ties)")
+    sst, sloop = b.state, b._loop
+    # The same batcher without a pack (lanes inactive: the step's every op).
+    nb = ContinuousBatcher(Engine(replace(eng.config, **serve_kw), device=dev,
+                                  target_params=eng.target.params,
+                                  draft_params=eng.draft.params), n_slots=SERVE_SLOTS)
+    with torch.inference_mode():
+        nb._loop(nb.state, 1)  # its capture
+    t8 = {"no pack": replay_ms(nb._loop)}
+    for what, ids in (("pack, base rows", [-1] * SERVE_SLOTS),
+                      ("pack, rows round-robin", [(-1, 0, 1, 2)[i % 4]
+                                                  for i in range(SERVE_SLOTS)]),
+                      ("pack, base rows again", [-1] * SERVE_SLOTS)):
+        with torch.inference_mode():
+            sst.lora_ids.copy_(torch.tensor(ids, dtype=torch.int32, device=dev))
+        t8[what] = replay_ms(sloop)
+    t8["no pack again"] = replay_ms(nb._loop)
+    del nb
+    log("phase 23 8-slot K=1 step device ms (replays, in turns): "
+        + ", ".join(f"{w} {ms:.4f}" for w, ms in t8.items()))
+    del b, se
+
+    # Phase 14's system prompt under two adapters, prefix caching off and on.
+    prompts = [SYSTEM_PREFIX + p for p in SERVE_PROMPTS]
+    two = ["a0", "a1"]
+    pre = {}
+    for on in (False, True):
+        pb = ContinuousBatcher(engine(kv_layout="paged", kv_page_size=SERVE_PAGE,
+                                      max_seq_len=PREFIX_MAX_LEN, prefix_caching=on), SERVE_SLOTS)
+
+        def serve(pb=pb):
+            for i in range(2):  # each adapter's first request admitted alone, in turn
+                pb.submit(prompts[i], max_new_tokens=SERVE_BUDGETS[i], lora=two[i])
+                pb._admit_pending()
+            for i in range(2, len(prompts)):
+                pb.submit(prompts[i], max_new_tokens=SERVE_BUDGETS[i], lora=two[i % 2])
+            return pb.run()
+
+        if on:
+            (rs, peak), launches[paths[2]] = count_launches(paths[2], lambda: served(pb, serve))
+        else:
+            rs, peak = served(pb, serve)
+        pre[on] = rs
+        log(f"phase 23 prefix caching {'on' if on else 'off'} under a0 and a1: "
+            + serve_stats(pb, peak) + (f", pages hit {pb.allocator.hits}" if on else ""))
+    reused = [r["prompt_tokens_reused"] for r in pre[True]]
+    assert reused[0] == reused[1] == 0 and all(n > 0 for n in reused[2:]), reused
+    assert all(r["prompt_tokens_reused"] == 0 for r in pre[False])
+    ids_digest(paths[2], [r["generated_ids"] for r in pre[True]])
+    differ = sum(held_to(le, dev, unstable, "the uncached batcher", r["req_id"], p,
+                         o["generated_ids"], r["generated_ids"], adapter=two[i % 2])
+                 for i, (r, o, p) in enumerate(zip(pre[True], pre[False], prompts)))
+    log(f"phase 23 prefix caching under two adapters: reused {reused}; cached ids == uncached "
+        f"for {len(prompts) - differ} of {len(prompts)} (the rest near ties); the second "
+        f"adapter's first request reused none of the first's pages")
+
+    # Medusa K=4 under a1.
+    med = Engine(replace(eng.config, draft_model=None, draft_mode="medusa", max_draft=MEDUSA_K),
+                 device=dev, target_params=eng.target.params, lora_adapters=ads)
+    med.generate(PROMPT, adapter="a1")
+    mrs, launches[paths[3]] = count_launches(
+        paths[3], lambda: [med.generate(PROMPT, adapter="a1") for _ in range(3)])
+    base_a1 = Engine(replace(eng.config, draft_model=None), device=dev,
+                     target_params=eng.target.params, lora_adapters=ads)
+    assert mrs[0]["generated_ids"] == base_a1.generate(PROMPT, adapter="a1")["generated_ids"], (
+        "medusa under a1 differs from the baseline under a1")
+    ids_digest(paths[3], [mrs[0]["generated_ids"]])
+    log(f"phase 23 Medusa K={MEDUSA_K} under a1: {timing(mrs)}, {step_stats(mrs)}; ids == the "
+        f"baseline's under a1")
+    del med, base_a1
+
+    # The server: /v1/models, `model` routing, the 404; embeddings ride it.
+    srv_eng = engine(**serve_kw)
+    server = InferenceServer(srv_eng, n_slots=SERVE_SLOTS, port=0)
+    records = []
+    inner_finalize = server._finalize
+
+    def finalize(pend):
+        records.append((pend.prompt, pend.sampling.get("lora"), pend.result["generated_ids"]))
+        inner_finalize(pend)
+
+    server._finalize = finalize
+    server.start()
+    try:
+        port = server.port
+        listed = json.loads(urllib_get(port, "/v1/models"))["data"]
+        assert [m["id"] for m in listed] == [eng.config.base_model] + [a.name for a in ads]
+        assert all(m.get("parent") == eng.config.base_model for m in listed[1:])
+        models = [eng.config.base_model] + [a.name for a in ads]
+        bodies = [dict(prompt=p, max_tokens=16, model=models[i % len(models)])
+                  for i, p in enumerate(SERVE_PROMPTS[:8])]
+        http_post(port, "/v1/completions", dict(prompt=PROMPT, max_tokens=4))  # warm-up
+        records.clear()
+        (outs, wall), launches[paths[4]] = count_launches(
+            paths[4], lambda: post_all(port, bodies, SERVE_SLOTS))
+        differ = 0
+        for body in bodies:
+            n = None if body["model"] == eng.config.base_model else body["model"]
+            (got,) = [ids for p, lo, ids in records if p == body["prompt"] and lo == n]
+            want = le.generate(body["prompt"], adapter=n)["generated_ids"][:16]
+            differ += held_to(le, dev, unstable, "B=1 generate", body["model"],
+                              body["prompt"], want, got, adapter=n)
+        try:
+            http_post(port, "/v1/completions", dict(prompt="x", model="ghost"))
+            refused = None
+        except urllib.error.HTTPError as err:
+            refused = (err.code, json.loads(err.read())["error"])
+        assert refused == (404, "model 'ghost' not found (base or a loaded LoRA adapter)"), (
+            refused)
+        log(f"phase 23 server: /v1/models {[m['id'] for m in listed]}; 8 requests routed by "
+            f"model in {wall:.3f} s, ids == B=1 generate under the named adapter for "
+            f"{8 - differ} of 8 (the rest near ties); 'ghost' -> 404")
+        embed_over_http(port, srv_eng)
+    finally:
+        server.stop()
+    del server, srv_eng, le
+    free_card()
+    return launches
+
+
+def embed_over_http(port, eng):
+    """/v1/embeddings on the server: float and base64 give the same vectors,
+    equal to Engine.embed's on the engine thread."""
+    import base64
+
+    import numpy as np
+
+    texts = EMBED_TEXTS[:8]
+    fl = http_post(port, "/v1/embeddings", dict(input=texts))
+    b64 = http_post(port, "/v1/embeddings", dict(input=texts, encoding_format="base64"))
+    a = np.array([d["embedding"] for d in fl["data"]], np.float32)
+    b = np.stack([np.frombuffer(base64.b64decode(d["embedding"]), "<f4") for d in b64["data"]])
+    assert a.shape == (8, eng.target.config.d_model) and np.array_equal(a, b)
+    np.testing.assert_allclose(np.linalg.norm(a, axis=-1), 1.0, atol=1e-5)
+    log(f"phase 23 /v1/embeddings: 8 inputs, float == base64 vectors, norms 1, usage "
+        f"{fl['usage']}")
+
+
+def phase_embed(dev, eng, path):
+    """Phase 23 (b) on phase 3's target: Engine.embed of EMBED_TEXTS (64
+    texts of 9-135 tokens), mean and last pooling, counted (no decode loop:
+    count_eager): every row's norm 1, each text alone within EMBED_COS of
+    its row of the batch (cosine; alone it pads to another length and its
+    projections take A's decode body, the batch's the tensor-core path),
+    mean and last differ; the call's ms and peak memory logged."""
+    import numpy as np
+
+    eng.embed(EMBED_TEXTS[:2])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mb = torch.cuda.memory_allocated() / 1e6
+    t0 = time.perf_counter()
+    (out, launches) = count_eager(path, lambda: {p: eng.embed(EMBED_TEXTS, pooling=p)
+                                                 for p in ("mean", "last")})
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / 2
+    peak = torch.cuda.max_memory_allocated() / 1e6 - base_mb
+    for pooling, (emb, n_tok) in out.items():
+        assert emb.shape == (64, eng.target.config.d_model) and np.isfinite(emb).all()
+        np.testing.assert_allclose(np.linalg.norm(emb, axis=-1), 1.0, atol=1e-5)
+        cos = [float(np.dot(eng.embed([EMBED_TEXTS[i]], pooling=pooling)[0][0], emb[i]))
+               for i in range(0, len(EMBED_TEXTS), 9)]
+        log(f"phase 23 embed {pooling}: 64 texts, {n_tok} tokens, norms 1; alone against the "
+            f"batch: cosine min {min(cos):.6f} (floor {EMBED_COS})")
+        assert min(cos) >= EMBED_COS, (pooling, cos)
+    # Random weights give nearly one hidden row at every position: the two
+    # poolings part in the low bits only, so only that they part is asserted.
+    gap = float(np.abs(out["mean"][0] - out["last"][0]).max())
+    assert gap > 0, "mean and last pooling gave the same vector"
+    log(f"phase 23 embed: {wall * 1e3:.1f} ms a call of 64 texts (P = 160), peak memory "
+        f"+{peak:.1f} MB over the engine's; max |mean - last| of text 0 {gap:.6f}")
+    return launches
+
+
+def phase_head_f32(dev):
+    """Kernel A's f32 instantiation (the EmbedQuant4 tied head) at the 3B's
+    and the 1B's head widths, K = d_model, N = 128,256, M = HEAD_F32_M:
+    within the f32 summation bound of the plain version (quant_matmul_plain,
+    f32 out), the bf16 instantiation's output exactly the f32 one rounded,
+    every row the same bits at every M of the decode body; timed beside the
+    plain version, the library call (dequantize, then torch.mm with an f32
+    output) and the bound. Returns (one K=1 B=1 step's two heads, the 3B's
+    head at M = 104: the ngram K=12 8-slot verify) as kernel rows."""
+    from llm_inference_lab_tpu_torch.ops.quant import QuantTensor, dequantize
+    from llm_inference_lab_tpu_torch.ops.quant_matmul import (
+        quant_matmul,
+        quant_matmul_f32,
+        quant_matmul_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    rows, max_err = {}, 0.0
+    for K in HEAD_F32_K:
+        N = HEAD_V
+        w = torch.randint(-128, 128, (2, K // 2, N), generator=g, dtype=torch.int8, device=dev)
+        sc = torch.rand((2, N), generator=g, device=dev) * (0.02 / 7) + 1e-5
+        x = torch.randn((max(HEAD_F32_M), K), generator=g, device=dev).bfloat16()
+        wint = dequantize(QuantTensor(w[0], torch.ones_like(sc[0]), 4), torch.float32)
+        alone = torch.cat([quant_matmul_f32(x[i:i + 1], w[0], sc[0]) for i in range(5)])
+        for M in HEAD_F32_M:
+            got = quant_matmul_f32(x[:M], w[0], sc[0])
+            ref = quant_matmul_plain(x[:M], w[0], sc[0], out_dtype=torch.float32)
+            bound = K * 2.0 ** -24 * (x[:M].float().abs() @ wint.abs()) * sc[0] + 1e-30
+            err = (got - ref).abs()
+            assert got.dtype == torch.float32 and torch.all(err <= bound), (K, M)
+            assert torch.equal(quant_matmul(x[:M], w[0], sc[0]), got.bfloat16()), (K, M)
+            if M <= 5:
+                assert torch.equal(got, alone[:M]), (K, M, "rows depend on M")
+            max_err = max(max_err, err.max().item())
+        del wint
+        cyc = Cycle(2)
+        line = []
+        for M in HEAD_F32_M:
+            xm = x[:M]
+            ms = median_ms(lambda: quant_matmul_f32(xm, w[cyc()], sc[cyc.i]))
+            pl = median_ms(lambda: quant_matmul_plain(xm, w[cyc()], sc[cyc.i],
+                                                      out_dtype=torch.float32), iters=3, warmup=1)
+            lib = median_ms(lambda: torch.mm(xm, dequantize(QuantTensor(w[cyc()], sc[cyc.i], 4),
+                                                            torch.bfloat16),
+                                             out_dtype=torch.float32), iters=10)
+            b, by = bound_ms(K // 2 * N + 4 * N + 2 * M * K + 4 * M * N, 2 * M * K * N)
+            rows[(K, N, M)] = dict(ms=ms, plain_ms=pl, library_ms=lib, bound_ms=b, bound_by=by)
+            line.append(f"M={M} {ms:.4f} ms (bound {b:.4f} {by}, {b / ms:.3f} of it) plain "
+                        f"{pl:.4f} library {lib:.4f} ({ms / lib:.2f}x)")
+        log(f"quant_matmul_int4_f32 (EmbedQuant4 head) K={K} N={N}: within the f32 summation "
+            f"bound of the plain version, the bf16 kernel its rounding, rows the same bits at "
+            f"M = 1-5; " + "; ".join(line))
+        del w, sc, x
+    step = [(HEAD_F32_K[1], HEAD_V, 1, 1), (HEAD_F32_K[0], HEAD_V, 2, 1)]
+    verify = [(HEAD_F32_K[0], HEAD_V, 104, 1)]
+    return sum_rows(rows, step, max_err), sum_rows(rows, verify, max_err)
+
+
+def phase_embed4(dev, eng, paths):
+    """Phase 23 (c): the main path with the int4 embedding and tied head
+    (INT4_CFG with embed_bits=4: random weights from the same seed; the
+    head through kernel A's f32 instantiation). B=1 generate, three runs
+    counted, in turns with phase 3's engine (tok/s and ms a step, against
+    the 4.3-4.9 ms predicted); graph ids == host-loop ids; spec ids ==
+    baseline ids; phase 3b's requests through the 8-slot paged batcher,
+    each the start of B=1 generate's ids (near-tie rule); a save_params /
+    load_params round trip of the table (__e4data__), byte-equal."""
+    import os
+    import tempfile
+
+    from llm_inference_lab_tpu_torch.config import EngineConfig
+    from llm_inference_lab_tpu_torch.core.batching import ContinuousBatcher
+    from llm_inference_lab_tpu_torch.core.engine import Engine
+    from llm_inference_lab_tpu_torch.models import checkpoint
+    from llm_inference_lab_tpu_torch.ops.quant import EmbedQuant4
+
+    launches = {}
+    t0 = time.perf_counter()
+    e4 = Engine(EngineConfig(**INT4_CFG, embed_bits=4), device=dev)
+    torch.cuda.synchronize()
+    assert isinstance(e4.target.params["embed"], EmbedQuant4)
+    assert isinstance(e4.draft.params["embed"], EmbedQuant4)
+    tables = sum(m.params["embed"].qt.data.numel() + m.params["embed"].rq.numel()
+                 for m in (e4.target, e4.draft))
+    log(f"phase 23 int4-embedding engine: built in {time.perf_counter() - t0:.1f} s; both "
+        f"tables' two layouts {tables / 1e6:.1f} MB (head layout read a step: "
+        f"{tables / 2e6:.1f} MB)")
+    e4.generate(PROMPT)
+    graph_report("generate (int4 embedding)", engine_loops("B, max_len", e4))
+    runs, launches[paths[0]] = count_launches(paths[0],
+                                              lambda: [e4.generate(PROMPT) for _ in range(3)])
+    ids = runs[0]["generated_ids"]
+    assert all(r["generated_ids"] == ids for r in runs) and runs[0]["generated_tokens"] >= 1
+    assert all(math.isfinite(x) for r in runs for x in r["token_logprobs"])
+    ids_digest(paths[0], [ids])
+    base = Engine(replace(e4.config, draft_model=None), device=dev,
+                  target_params=e4.target.params)
+    assert base.generate(PROMPT)["generated_ids"] == ids, "int4-embedding spec != baseline"
+    del base
+    host = host_engine(e4)
+    same_decode("int4 embedding", [host.generate(PROMPT)], runs[:1])
+    del host
+    turns = [e.generate(PROMPT) for e in (eng, e4, e4, eng)]
+    log(f"phase 23 int4 embedding B=1 (in turns with phase 3's int8 embedding): "
+        f"{timing(turns[1:3])}; phase 3's engine {timing(turns[::3])}; graph ids == host "
+        f"loop ids, spec ids == baseline ids; predicted 4.3-4.9 ms a step")
+    (key,) = [k for k in e4._decode_states if k[0] == 1]
+    step = {"int4 embedding": replay_ms(e4._decode_states[key][1])}
+    if key in eng._decode_states:
+        step["int8 embedding (phase 3)"] = replay_ms(eng._decode_states[key][1])
+        step["int4 embedding again"] = replay_ms(e4._decode_states[key][1])
+    log("phase 23 K=1 B=1 step device ms (replays): "
+        + ", ".join(f"{w} {ms:.4f}" for w, ms in step.items()))
+
+    serve_kw = dict(max_seq_len=SERVE_MAX_LEN, kv_layout="paged", kv_page_size=SERVE_PAGE)
+    b = ContinuousBatcher(Engine(replace(e4.config, **serve_kw), device=dev,
+                                 target_params=e4.target.params, draft_params=e4.draft.params),
+                          n_slots=SERVE_SLOTS)
+    for p, m in zip(SERVE_PROMPTS, SERVE_BUDGETS):
+        b.submit(p, max_new_tokens=m)
+    (results, peak), launches[paths[1]] = count_launches(paths[1], lambda: served(b, b.run))
+    ids_digest(paths[1], [r["generated_ids"] for r in results])
+    stab = []
+
+    def unstable():
+        if not stab:
+            stab.append([op for op, d in row_stability(e4, dev).items() if any(d.values())])
+        return stab[0]
+
+    ref = {p: e4.generate(p)["generated_ids"] for p in dict.fromkeys(SERVE_PROMPTS)}
+    differ = sum(held_to(e4, dev, unstable, "generate (int4 embedding)", r["req_id"], p,
+                         ref[p][: len(r["generated_ids"])], r["generated_ids"])
+                 for r, p in zip(results, SERVE_PROMPTS))
+    log(f"phase 23 int4-embedding serving: " + serve_stats(b, peak)
+        + f"; ids == the start of B=1 generate's for {len(results) - differ} of {len(results)} "
+          "(the rest near ties)")
+    del b
+
+    table = e4.target.params["embed"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "embed4.safetensors")
+        t0 = time.perf_counter()
+        checkpoint.save_params({"embed": table}, path)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = checkpoint.load_params(path, device=dev)["embed"]
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        assert isinstance(back, EmbedQuant4)
+        for a, c in ((table.qt.data, back.qt.data), (table.qt.scale, back.qt.scale),
+                     (table.rq, back.rq)):
+            assert a.dtype == c.dtype and torch.equal(a, c), "EmbedQuant4 round trip"
+        log(f"phase 23 EmbedQuant4 checkpoint (__e4data__ + __e4scale__, "
+            f"{os.path.getsize(path) / 1e6:.1f} MB): saved in {save_s:.2f} s, loaded in "
+            f"{load_s:.2f} s, head and row layouts and scales byte-equal")
+    del e4
+    free_card()
+    return launches
+
+
 def free_card():
     """Collect dead engines (a reference cycle keeps a model's weights) and
     return the cached blocks, before the next model is built."""
@@ -5046,6 +5615,17 @@ def main(argv):
                                  "head at M = 3, the EAGLE head call at M = 2)"),
     })
     kernels.update(phase_family_kernels(dev))
+    head_step, head_verify = phase_head_f32(dev)
+    kernels.update({
+        "quant_matmul_int4_f32": (
+            head_step, "qmm_decode.cuh", "ops/pallas/quant_matmul.py:76",
+            "one K=1 B=1 step's two EmbedQuant4 tied heads (the 1B's at M = 1, the 3B's at "
+            "M = 2; N = 128256, f32 out)"),
+        "quant_matmul_int4_f32_mma": (
+            head_verify, "qmm_mma.cuh", "ops/pallas/quant_matmul.py:76",
+            "the 3B's EmbedQuant4 tied head at M = 104 (an 8-slot ngram K=12 verify; f32 "
+            "out)"),
+    })
     phase_prefix_prefill(dev)
     log(f"phase 2 took {time.perf_counter() - t0:.1f} s")
     profile = "--profile" in argv
@@ -5080,6 +5660,11 @@ def main(argv):
     t0 = time.perf_counter()
     on_path.update(phase_grammars(dev, eng, GRAMMAR_PATHS[:4]))
     log(f"phase 22 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    on_path.update(phase_lora(dev, eng, LORA_PATHS))
+    on_path[EMBED_PATH] = phase_embed(dev, eng, EMBED_PATH)
+    on_path.update(phase_embed4(dev, eng, EMBED4_PATHS))
+    log(f"phase 23 took {time.perf_counter() - t0:.1f} s")
     del eng
     t0 = time.perf_counter()
     eng, on_path[paths[2]] = phase_end_to_end(dev, profile, INT8_CFG, paths[2],

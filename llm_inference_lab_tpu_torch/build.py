@@ -45,6 +45,9 @@ SIGNATURES = {
         # the tensor-core prefill path (M >= 64): x, w, scale, workspace,
         # out, M, K, N, ksplit, stream
         "qmm_int4_mma": [P, P, P, P, P, I, I, I, I, P],
+        # the same two with an f32 output (the EmbedQuant4 tied head)
+        "qmm_int4_f32": [P, P, P, P, P, P, I, I, I, I, P],
+        "qmm_int4_mma_f32": [P, P, P, P, P, I, I, I, I, P],
     },
     "quant_matmul_int8": {
         # the arguments of qmm_int4 and qmm_int4_mma, w int8 [K, N]

@@ -15,12 +15,15 @@ and seed in the decode state, what the OpenAI server sets), top-N logprobs
 the rolling-buffer cache (``kv_ring``) of uniform sliding-window models; in
 serving, incremental (chunked) admission (``admit_chunk``), lazy page growth
 with preemption (``kv_lazy_pages``, on by default as in JAX) and prefix
-caching (``prefix_caching``), and grammar-constrained decoding
+caching (``prefix_caching``), grammar-constrained decoding
 (``constrain`` with ``constrain_schema`` or ``constrain_regex``, or
 ``tools``: the grammar's token tables, built once by the engine, masking
-every sampling site). A field of the JAX config with a single ported value
-has no field here until a later slice ports a second value for it. So
-``lora`` (none) and ``profile`` (off) have no field yet. Fields are named
+every sampling site), the int8 or int4 embedding and tied head
+(``quantize_embed`` with ``embed_bits`` 8 or 4), and LoRA adapters from
+local PEFT directories (``lora_paths``; ``Engine(lora_adapters=...)`` takes
+them built). A field of the JAX config with a single ported value has no
+field here until a later slice ports a second value for it. So
+``profile`` (off) has no field yet. Fields are named
 and defaulted as in JAX, except ``implementation``, "hf" here ("fake" in
 JAX): the port's entry points build the named model unless a caller asks
 for the fake one.
@@ -32,6 +35,7 @@ variable, and a caller passes ``Engine(config, flags=EnvFlags(...))``.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -102,7 +106,7 @@ class EngineConfig:
     dtype: str = "bfloat16"
     quantization: Optional[str] = None  # None | "int8" | "int4"
     quantize_embed: bool = False
-    embed_bits: int = 8  # 8 (EmbedQuant) or 4 (EmbedQuant4, not ported yet)
+    embed_bits: int = 8  # 8 (EmbedQuant) or 4 (EmbedQuant4: the head through kernel A, f32 out)
     quantized_init: bool = False
     seed: int = 0
     eos_token_id: Optional[int] = None
@@ -159,6 +163,12 @@ class EngineConfig:
     # or a named function; "auto" is unconstrained and parsed on the host).
     # Not with `constrain` (one grammar table a deployment).
     tools: Optional[list] = None
+    # Multi-LoRA serving (models/lora.py): local HF PEFT adapter directories
+    # (adapter_config.json + adapter_model.safetensors; nothing is
+    # downloaded), each loaded under its directory's basename and stacked
+    # into one pack; a request picks one by name (generate(adapter=...),
+    # submit(lora=...), the server's `model` field). Not in tree mode.
+    lora_paths: Optional[list] = None
     ngram: dict = field(default_factory=lambda: {"n": 2})
     # Medusa heads: K projections [D, D] ahead of the target's head ("tie" or
     # "copy": identity; "random": identity plus N(0, 0.02^2) noise), sampled
@@ -195,8 +205,10 @@ class EngineConfig:
                                       "quantization")
         if self.embed_bits not in (4, 8):
             raise ValueError(f"embed_bits must be 4 or 8, got {self.embed_bits}")
-        if self.quantize_embed and self.embed_bits == 4:
-            raise NotImplementedError("int4 embedding (EmbedQuant4) is not ported yet")
+        for path in self.lora_paths or ():
+            if not os.path.isfile(os.path.join(path, "adapter_config.json")):
+                raise ValueError(f"lora_paths: {path!r} is not a local PEFT adapter directory "
+                                 "(no adapter_config.json; nothing is downloaded)")
         if self.quantization not in (None, "int8", "int4"):
             raise ValueError(f"unknown quantization {self.quantization!r}")
         if self.kv_quantization not in (None, "int8"):

@@ -86,7 +86,17 @@ growth, preemption, cancel and retirement write that state's tensors in
 place. With the engine's ``EnvFlags(sync_steps=True)`` the batcher runs the
 functional step instead, one call a step.
 
-Left out (ROADMAP Queue 1): LoRA (``lora`` raises), adaptive K (both
+Multi-LoRA (``submit(..., lora=name)``, an adapter of the engine's pack;
+JAX ``_admission_meta``): every admission route writes the slot's
+``lora_ids`` (-1 for a request without one, so a reused slot starts on the
+base model) and runs the request's admission forward of the target under
+its adapter; a resumed request keeps it. Prefix caching keys its pages by
+adapter (models/paged.py ``root``): a page is shared only within one
+adapter, where JAX's token-only hashes share them across adapters. An
+unknown adapter raises at submit, with JAX's message (JAX raises it at
+admission).
+
+Left out (ROADMAP Queue 1): adaptive K (both
 adaptive controllers raise here; JAX's ``record_step``), async, prefetched
 and overlapped polls and admission, the chunk cost model, fused admission
 in the decode graph (JAX ``Engine._get_admit_loop``) and multi-host
@@ -164,6 +174,14 @@ class _Request:
     prior_tops: List[list] = field(default_factory=list)
     # The initial FSM state of the request's grammar key (-1: unconstrained).
     fsm_init: int = fsm.UNCONSTRAINED
+    # Its LoRA adapter's index in the engine's pack (-1: the base model).
+    lora_id: int = -1
+
+    @property
+    def prefix_root(self):
+        """The root of its prompt's chain hashes (PrefixPageCache): None for
+        the base model (JAX's hashes), the adapter's key otherwise."""
+        return None if self.lora_id < 0 else ("lora", self.lora_id)
 
     @property
     def admit_ids(self) -> List[int]:
@@ -229,9 +247,10 @@ def _fill_slots(state: DecodeState, slots: torch.Tensor, token_rows: torch.Tenso
     state, in place: tokens and logprob lanes [G, max_len], lengths, budget,
     active flag, zeroed counters, (head modes) the hidden carry and the
     requests' controls (ContinuousBatcher._controls: f32 [G, 6 + N_BIAS],
-    int32 [G, 1 + N_BIAS], keys int64 [G], and the FSM: lex [G], stack
-    [G, STACK_DEPTH], sp [G] int32)."""
-    f32, i32, keys, fsm_lex, fsm_stack, fsm_sp = controls
+    int32 [G, 1 + N_BIAS], keys int64 [G], the FSM: lex [G], stack
+    [G, STACK_DEPTH], sp [G] int32, and the LoRA ids [G] int32)."""
+    f32, i32, keys, fsm_lex, fsm_stack, fsm_sp, lora = controls
+    state.lora_ids[slots] = lora
     state.fsm_lex[slots] = fsm_lex
     state.fsm_stack[slots] = fsm_stack
     state.fsm_sp[slots] = fsm_sp
@@ -309,13 +328,14 @@ def make_admit_many(target_model: Model, draft_model: Optional[Model], hidden: b
         zeros = torch.zeros((G,), dtype=torch.int32, device=dev)
         slots_l = slots.long()
 
-        def prefill(model: Model, cache, want_hidden=False):
+        def prefill(model: Model, cache, want_hidden=False, lora_ids=None):
             scratch = model.init_cache(G, P, dev, dtype=cache.k.dtype)
-            out = model.forward(rows, positions, scratch, zeros, return_hidden=want_hidden)
+            out = model.forward(rows, positions, scratch, zeros, return_hidden=want_hidden,
+                                lora_ids=lora_ids)
             _splice(cache, scratch, slots_l, table_rows)
             return out[0], out[2] if want_hidden else None
 
-        lg, hid = prefill(target_model, state.target_cache, hidden)
+        lg, hid = prefill(target_model, state.target_cache, hidden, controls[-1])
         if draft_model is not None:
             prefill(draft_model, state.draft_cache)
         # Prompt logprobs: row i of the logits scores prompt token i+1;
@@ -361,14 +381,15 @@ def make_admit_prefix(target_model: Model, draft_model: Optional[Model], hidden:
         positions = reuse_len + torch.arange(S, dtype=torch.int32, device=dev)[None]
         start = torch.full((1,), reuse_len, dtype=torch.int32, device=dev)
 
-        def run(model: Model, cache, want_hidden=False):
+        def run(model: Model, cache, want_hidden=False, lora_ids=None):
             view = PagedKVCache(k=cache.k, v=cache.v, table=table_row[None],
                                 k_scale=cache.k_scale, v_scale=cache.v_scale)
-            out = model.forward(suffix_row, positions, view, start, return_hidden=want_hidden)
+            out = model.forward(suffix_row, positions, view, start, return_hidden=want_hidden,
+                                lora_ids=lora_ids)
             cache.table[slot] = table_row
             return out
 
-        out = run(target_model, state.target_cache, hidden)
+        out = run(target_model, state.target_cache, hidden, controls[-1])
         if draft_model is not None:
             run(draft_model, state.draft_cache)
         # Suffix row j (position reuse_len + j) scores the prompt token at
@@ -406,22 +427,24 @@ def make_admit_incremental(target_model: Model, draft_model: Optional[Model], ch
 
     Returns (chunk_fn, splice_fn):
       chunk_fn(st, sd, lpbuf [1, max_len], h_carry [1, D], tok [1, C],
-               nxt [1, C], off, plen) -> h_carry: one C-token forward of
-        each model into its scratch at offset off (positions off ..
-        off + C - 1, in place), the prompt logprobs of the chunk's rows
-        written into lpbuf, and (hidden) the carry replaced by the hidden
-        row at plen - 2 when the chunk holds it;
+               nxt [1, C], off, plen, lora [1]) -> h_carry: one C-token
+        forward of each model into its scratch at offset off (positions
+        off .. off + C - 1, in place; the target's under the request's
+        LoRA id), the prompt logprobs of the chunk's rows written into
+        lpbuf, and (hidden) the carry replaced by the hidden row at
+        plen - 2 when the chunk holds it;
       splice_fn(state, st, sd, lp_row, h_carry, prompt_row [1, P],
                 prompt_len, slot, max_new, table_row [M] or None, controls)
         -> state."""
     C = chunk
 
     def chunk_fn(st, sd, lpbuf: torch.Tensor, h_carry: torch.Tensor, tok: torch.Tensor,
-                 nxt: torch.Tensor, off: int, plen: int) -> torch.Tensor:
+                 nxt: torch.Tensor, off: int, plen: int, lora: torch.Tensor) -> torch.Tensor:
         dev = tok.device
         positions = off + torch.arange(C, dtype=torch.int32, device=dev)[None]
         start = torch.full((1,), off, dtype=torch.int32, device=dev)
-        out = target_model.forward(tok, positions, st, start, return_hidden=hidden)
+        out = target_model.forward(tok, positions, st, start, return_hidden=hidden,
+                                   lora_ids=lora)
         if draft_model is not None:
             draft_model.forward(tok, positions, sd, start)
         row_lp = torch.where(positions[0] + 1 < plen, _token_logprobs(out[0][0], nxt[0]), 0.0)
@@ -546,16 +569,15 @@ class ContinuousBatcher:
         queued (host only: the server's handler threads call it): a grammar
         key the engine's grammar cannot serve (``response_format``; ValueError
         with JAX's message, from Engine._resolve_fsm_initial), a LoRA adapter
-        (not ported); per-request
-        controls, a logit_bias or a seed on an engine without
+        the engine does not have (``lora``; ValueError, JAX's message);
+        per-request controls, a logit_bias or a seed on an engine without
         ``per_request_sampling`` (its step reads the engine's values);
         penalties in tree mode; more logit_bias pairs than a slot holds
         (N_BIAS) or an id outside the vocabulary. Raises ValueError or
         NotImplementedError, naming what."""
         if response_format is not None:
             self.engine._resolve_fsm_initial(response_format)
-        if lora is not None:
-            raise NotImplementedError(f"LoRA adapter {lora!r}: LoRA is not ported")
+        self.engine.lora_id(lora)
         unknown = set(controls) - set(CONTROLS)
         if unknown:
             raise TypeError(f"unknown request controls {sorted(unknown)}")
@@ -587,8 +609,9 @@ class ContinuousBatcher:
         top_p, min_p, repetition_penalty, presence_penalty and
         frequency_penalty of this request (None: the engine's); logit_bias
         {token id: bias}; seed; response_format, a grammar key of the
-        engine's (None: unconstrained, whatever the engine's default; JAX's
-        submit keywords). What check_request refuses raises here."""
+        engine's (None: unconstrained, whatever the engine's default); lora,
+        an adapter of the engine's pack (None: the base model); JAX's submit
+        keywords. What check_request refuses raises here."""
         self.check_request(logit_bias=logit_bias, seed=seed, response_format=response_format,
                            lora=lora, **controls)
         max_new = max_new_tokens or self.engine.config.max_new_tokens
@@ -597,7 +620,8 @@ class ContinuousBatcher:
                        controls={k: v for k, v in controls.items() if v is not None},
                        logit_bias=dict(logit_bias) if logit_bias else None, seed=seed,
                        fsm_init=(self.engine._resolve_fsm_initial(response_format)
-                                 if response_format is not None else fsm.UNCONSTRAINED))
+                                 if response_format is not None else fsm.UNCONSTRAINED),
+                       lora_id=self.engine.lora_id(lora))
         self._next_id += 1
         self._requests[req.req_id] = req
         self.scheduler.submit(req.req_id, len(ids), max_new)
@@ -625,7 +649,8 @@ class ContinuousBatcher:
         _admission_meta): f32 [G, 6 + N_BIAS] (temperature, top_p, min_p,
         the penalties, the bias values), int32 [G, 1 + N_BIAS] (top_k, the
         bias ids, -1 empty), int64 [G] keys, the key of each request's
-        seed (derive_request_seed), and each request's FSM (_fsm_of)."""
+        seed (derive_request_seed), each request's FSM (_fsm_of) and int32
+        [G] its LoRA id."""
         G = len(reqs)
         f32 = np.zeros((G, len(_F32_CONTROLS) + N_BIAS), np.float32)
         i32 = np.full((G, 1 + N_BIAS), -1, np.int32)
@@ -641,9 +666,10 @@ class ContinuousBatcher:
                 f32[g, len(_F32_CONTROLS) + j] = float(bias)
             keys[g] = seed_key(derive_request_seed(self.engine.config.seed, req.req_id,
                                                    req.seed))
+        lora = np.array([req.lora_id for req in reqs], np.int32)
         dev = self.engine.device
         return tuple(torch.from_numpy(a).to(dev)
-                     for a in (f32, i32, keys, fsm_lex, fsm_stack, fsm_sp))
+                     for a in (f32, i32, keys, fsm_lex, fsm_stack, fsm_sp, lora))
 
     def _fsm_of(self, req: _Request) -> tuple:
         """A request's FSM at admission: unconstrained, or its key's initial
@@ -725,7 +751,7 @@ class ContinuousBatcher:
             shared: List[int] = []
             reuse_len = 0
             if self.prefix_caching:
-                shared, reuse_len = self.allocator.match(ids, len(ids) - 2)
+                shared, reuse_len = self.allocator.match(ids, len(ids) - 2, req.prefix_root)
             cap_tok = len(ids) + req.remaining_new + eng._max_k + 2
             need_tok = min(len(ids) + self._grow_margin, cap_tok) if self.lazy_pages else cap_tok
             pages = self.allocator.alloc(self.allocator.pages_needed(need_tok) - len(shared))
@@ -818,7 +844,7 @@ class ContinuousBatcher:
         self._slots[req.slot] = req
         self.stats.admitted += 1
         # Publish this request's own full prompt chunks for reuse.
-        self.allocator.register(ids, req.pages, req.reuse_len)
+        self.allocator.register(ids, req.pages, req.reuse_len, req.prefix_root)
 
     def _admit_group(self, reqs: List[_Request], P: Optional[int] = None) -> None:
         """One admission wave. P is the page size (paged) or 32
@@ -886,6 +912,7 @@ class ContinuousBatcher:
             "sd": scratch(eng.draft, self.state.draft_cache),
             "lp": torch.zeros((1, self.state.tokens.shape[1]), dtype=torch.float32, device=dev),
             "h": torch.zeros((1, eng.target.config.d_model), dtype=torch.float32, device=dev),
+            "lora": torch.full((1,), req.lora_id, dtype=torch.int32, device=dev),
         }
         req.prefilling = True
         self._slots[req.slot] = req
@@ -911,7 +938,7 @@ class ContinuousBatcher:
         chunk_fn, _ = self._admit_incr
         pf["h"] = chunk_fn(pf["st"], pf["sd"], pf["lp"], pf["h"], pf["row_dev"][:, off: off + C],
                            torch.from_numpy(nxt).to(self.engine.device), off,
-                           len(req.admit_ids))
+                           len(req.admit_ids), pf["lora"])
         pf["off"] = off + C
         pf["ready"] = pf["off"] >= P
         self.engine._sync()

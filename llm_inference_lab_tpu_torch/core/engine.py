@@ -15,7 +15,11 @@ state, ``sampling_defaults`` without a request's own) and top-N logprobs
 (``top_logprobs`` in each result); grammar-constrained decoding and forced
 tool calls (``constrain``, ``tools``: the grammar's token tables compiled
 once at construction, ``response_format`` a call);
-weight-only int4/int8 with an optional int8 embedding/tied head, a
+multi-LoRA (``lora_adapters``, ``cfg.lora_paths``: the adapters stacked
+into one pack in the target's layers, ``lora_names`` name -> id, a call's
+``adapter`` every lane's id in the decode state); sentence embeddings
+(``embed``: one eager prefill-shaped forward of the target, pooled in f32);
+weight-only int4/int8 with an optional int8 or int4 embedding/tied head, a
 contiguous or paged KV cache (``kv_layout``) of the model dtype or int8
 (``kv_quantization``), single-shot or chunked prefill (``prefill_chunk``)
 and the rolling-buffer cache (``kv_ring``). Prompt bucketing, the
@@ -91,6 +95,7 @@ from llm_inference_lab_tpu_torch.core.specstep import (
 from llm_inference_lab_tpu_torch.core.state import DecodeState, assign, init_state, reset_state
 from llm_inference_lab_tpu_torch.core.treespec import TreeConfig, make_tree_spec_step
 from llm_inference_lab_tpu_torch.models import registry
+from llm_inference_lab_tpu_torch.models.lora import Adapter, build_pack, load_peft_adapter
 from llm_inference_lab_tpu_torch.ops.quant import quantize_params
 from llm_inference_lab_tpu_torch.utils.tokenizer import ByteTokenizer
 
@@ -127,13 +132,16 @@ def top_logprobs(tops: Tuple[np.ndarray, np.ndarray], row: int, start: int,
 class Engine:
     def __init__(self, config: Optional[EngineConfig] = None, *, device="cuda",
                  flags: Optional[EnvFlags] = None, target_params: Optional[dict] = None,
-                 draft_params: Optional[dict] = None):
+                 draft_params: Optional[dict] = None,
+                 lora_adapters: Optional[List[Adapter]] = None):
         """target_params / draft_params: the models' params (e.g. carried over
         from the JAX package by convert.params_from_jax); random init from
         cfg.seed when absent. In the medusa and tree modes draft_params is
         the heads' {"medusa_proj": [H, D, D]} (JAX's Engine._draft_params),
         made from cfg.medusa's head_init when absent. flags: EnvFlags
-        (sync_steps=True for the host loop)."""
+        (sync_steps=True for the host loop). lora_adapters: models/lora.py
+        Adapters, stacked with cfg.lora_paths' (after them) into the
+        target's LoRA pack, addressed by name (lora_names)."""
         cfg = config or EngineConfig()
         cfg.validate()
         self.config = cfg
@@ -141,8 +149,11 @@ class Engine:
         self.device = resolve_device(device)
         dtype = _DTYPES[cfg.dtype]
         qinit = cfg.quantization if (cfg.quantized_init and cfg.quantization) else None
+        # quantize_embed carries the bit width to a quantized init (JAX's
+        # engine does the same): True an int8 table, 4 an EmbedQuant4.
         model_kw = dict(device=self.device, dtype=dtype, quantized_init=qinit,
-                        quantize_embed=cfg.quantize_embed)
+                        quantize_embed=((4 if cfg.embed_bits == 4 else True)
+                                        if cfg.quantize_embed else False))
         fake = cfg.implementation == "fake"
         self.target = registry.create(cfg.base_model, implementation=cfg.implementation,
                                       seed=cfg.seed, params=target_params, **model_kw)
@@ -165,7 +176,8 @@ class Engine:
                                               "and expert stacks) is not implemented")
                 if m is not None:
                     m.params = quantize_params(m.params, cfg.quantization,
-                                               include_embed=cfg.quantize_embed)
+                                               include_embed=cfg.quantize_embed,
+                                               embed_bits=cfg.embed_bits)
         self._weights_source = "fake" if fake else self.target.weights_source
         self.tokenizer = ByteTokenizer()
         self.eos_token_id = (cfg.eos_token_id if cfg.eos_token_id is not None
@@ -193,6 +205,7 @@ class Engine:
         self._k = (self.controller.max_k if isinstance(self.controller, AdaptiveDeviceKController)
                    else cfg.max_draft)
         self._build_constraint()
+        self._build_lora(list(lora_adapters or []))
         self._step, self._step_in_place = self._build_step(self._k), self._build_step(
             self._k, in_place=True)
         # Under per-request sampling the step computes the counts, the bias
@@ -268,6 +281,38 @@ class Engine:
                                      if cfg.constrain in ("json_schema", "regex")
                                      else {"json": tt.initial, "json_object": tt.initial_objonly})
             self._fsm_initial = self._fsm_initial_map[cfg.constrain]
+
+    def _build_lora(self, adapters: List[Adapter]) -> None:
+        """Stack the given adapters and cfg.lora_paths' (JAX engine.py:407-431)
+        into the target's LoRA pack, model dtype, on the device; lora_names
+        maps each name to its index. The target gets a new params dict and
+        layers dict holding the pack (the tensors are shared), so params
+        handed in by a caller, or shared with another engine, stay as they
+        were. Tree mode and the fake model refuse adapters."""
+        cfg = self.config
+        self.lora_names: Dict[str, int] = {}
+        adapters = adapters + [load_peft_adapter(p, self.target.config)
+                               for p in cfg.lora_paths or ()]
+        if not adapters:
+            return
+        if self.tree is not None:
+            raise ValueError("LoRA is not supported in tree mode")
+        if cfg.implementation == "fake":
+            raise NotImplementedError("the fake model has no layers to adapt (LoRA)")
+        pack, self.lora_names = build_pack(self.target.config, adapters,
+                                           dtype=self.target.config.dtype, device=self.device)
+        params = self.target.params
+        self.target.params = dict(params, layers=dict(params["layers"], **pack))
+
+    def lora_id(self, adapter: Optional[str]) -> int:
+        """The pack index of an adapter name (None: -1, the base model);
+        ValueError naming the loaded ones for any other name."""
+        if adapter is None:
+            return -1
+        if adapter not in self.lora_names:
+            raise ValueError(f"unknown LoRA adapter {adapter!r} (engine has "
+                             f"{sorted(self.lora_names)})")
+        return self.lora_names[adapter]
 
     def _resolve_fsm_initial(self, response_format: Optional[str]) -> int:
         """FSM start state for a grammar key ("json", "json_object",
@@ -373,8 +418,10 @@ class Engine:
                 model.config = replace(mc, kv_ring_len=R)
 
     def generate(self, prompt: str, seed: Optional[int] = None,
-                 response_format: Optional[str] = None) -> Dict[str, Any]:
-        return self.generate_batch([prompt], seed=seed, response_format=response_format)[0]
+                 response_format: Optional[str] = None,
+                 adapter: Optional[str] = None) -> Dict[str, Any]:
+        return self.generate_batch([prompt], seed=seed, response_format=response_format,
+                                   adapter=adapter)[0]
 
     def encode(self, prompt: str, max_new: int, max_seq_len: int) -> List[int]:
         """Prompt ids, cut to leave room for max_new tokens and the step's
@@ -386,41 +433,46 @@ class Engine:
         return [min(max(t, 0), vocab - 1) for t in ids]
 
     def generate_batch(self, prompts: List[str], seed: Optional[int] = None,
-                       response_format: Optional[str] = None) -> List[Dict[str, Any]]:
+                       response_format: Optional[str] = None,
+                       adapter: Optional[str] = None) -> List[Dict[str, Any]]:
         """One result dict per prompt. seed: the key of the call's sampling
         (the config's seed when None); response_format: the grammar key of
         the whole batch (None: the deployment's default; _resolve_fsm_initial
-        raises for a key it cannot serve)."""
+        raises for a key it cannot serve); adapter: the LoRA adapter of the
+        whole batch (None: the base model; lora_id raises for an unknown
+        name)."""
         with torch.inference_mode():
-            return self._build_results(*self._decode(prompts, seed, response_format))
+            return self._build_results(*self._decode(prompts, seed, response_format, adapter))
 
     @torch.inference_mode()
     def decode(self, prompts: List[str], seed: Optional[int] = None,
-               response_format: Optional[str] = None
+               response_format: Optional[str] = None, adapter: Optional[str] = None
                ) -> Tuple[DecodeState, np.ndarray, float, float]:
         """Prefill the prompts and decode them to the end. Returns the final
         state (the caller's own: a later call does not change it), the prompt
         lengths, and the decode and total wall seconds."""
-        state, plens, decode_s, total_s = self._decode(prompts, seed, response_format)
+        state, plens, decode_s, total_s = self._decode(prompts, seed, response_format, adapter)
         if not self.flags.sync_steps:  # the engine's own decode state: a copy
             state = copy.deepcopy(state)
         return state, plens, decode_s, total_s
 
     def _decode(self, prompts: List[str], seed: Optional[int],
-                response_format: Optional[str] = None
+                response_format: Optional[str] = None, adapter: Optional[str] = None
                 ) -> Tuple[DecodeState, np.ndarray, float, float]:
         max_new = self.config.max_new_tokens
         seed = self.config.seed if seed is None else seed
         fsm_init = self._resolve_fsm_initial(response_format)
+        lora_id = self.lora_id(adapter)
         constrained = fsm_init != fsm.UNCONSTRAINED
         block, plens, max_len = self._prompt_block(prompts)
         dev = self.device
         t_start = time.perf_counter()
         prompt = torch.from_numpy(block).to(dev), torch.from_numpy(plens).to(dev)
         if self.flags.sync_steps:
-            state = self._prefill(self._init_state(len(plens), max_len, seed, fsm_init), *prompt)
+            state = self._prefill(self._init_state(len(plens), max_len, seed, fsm_init, lora_id),
+                                  *prompt)
         else:
-            state, loop = self._decode_state(len(plens), max_len, seed, fsm_init)
+            state, loop = self._decode_state(len(plens), max_len, seed, fsm_init, lora_id)
             assign(state, self._prefill(state, *prompt))
         self._sync()
         t_decode = time.perf_counter()
@@ -483,30 +535,32 @@ class Engine:
         return self._step, self._step_in_place
 
     def _init_state(self, B: int, max_len: int, seed: Optional[int] = None,
-                    fsm_init: int = fsm.UNCONSTRAINED) -> DecodeState:
+                    fsm_init: int = fsm.UNCONSTRAINED, lora_id: int = -1) -> DecodeState:
         cfg = self.config
         return init_state(self.target, self.draft, B, max_len, self.device,
                           max_new_tokens=cfg.max_new_tokens, paged=cfg.kv_layout == "paged",
                           page_size=cfg.kv_page_size, kv_dtype=self.kv_dtype,
                           seed=cfg.seed if seed is None else seed, init_k=self.controller.k,
                           defaults=self.sampling_defaults(), logprobs_topk=cfg.logprobs_topk,
-                          fsm_init=fsm_init)
+                          fsm_init=fsm_init, lora_id=lora_id)
 
     def _decode_state(self, B: int, max_len: int, seed: Optional[int] = None,
-                      fsm_init: int = fsm.UNCONSTRAINED) -> Tuple[DecodeState, DecodeLoop]:
+                      fsm_init: int = fsm.UNCONSTRAINED,
+                      lora_id: int = -1) -> Tuple[DecodeState, DecodeLoop]:
         """The decode state of this shape, reset to init_state's values with
-        every lane's FSM at fsm_init, and the loop to replay over it: the
-        unconstrained step's, or with fsm_init set the constrained step's
-        (each captured at its first call, both over the same state)."""
+        every lane's FSM at fsm_init and adapter lora_id, and the loop to
+        replay over it: the unconstrained step's, or with fsm_init set the
+        constrained step's (each captured at its first call, both over the
+        same state)."""
         seed = self.config.seed if seed is None else seed
         held = self._decode_states.get((B, max_len))
         if held is None:
-            held = (self._init_state(B, max_len, seed, fsm_init),
+            held = (self._init_state(B, max_len, seed, fsm_init, lora_id),
                     make_decode_loop(self._decode_steps()[1], pool=self.graph_pool))
             self._decode_states[(B, max_len)] = held
         else:
             reset_state(held[0], self.config.max_new_tokens, seed, self.controller.k,
-                        self.sampling_defaults(), fsm_init)
+                        self.sampling_defaults(), fsm_init, lora_id)
         if fsm_init == fsm.UNCONSTRAINED:
             return held
         loop = self._fsm_loops.get((B, max_len))
@@ -590,6 +644,54 @@ class Engine:
             else:
                 pending = (sums, None)
         return state
+
+    @torch.inference_mode()
+    def embed(self, texts: List[str], pooling: str = "mean",
+              normalize: bool = True) -> Tuple[np.ndarray, int]:
+        """Sentence embeddings from the target's final (post-norm) hidden
+        states (JAX Engine.embed, engine.py:643-702; OpenAI /v1/embeddings):
+        one eager prefill-shaped forward of the target over a scratch
+        contiguous cache that is freed after the call, outside any graph and
+        without the head; the base model (no adapter), as JAX's. Each text
+        is cut to max_seq_len tokens (ids clamped into the vocabulary, as
+        ``encode`` clamps them) and right-padded to a multiple of 32.
+        pooling: "mean" (over each text's tokens, in f32) or "last" (its
+        last token's row); normalize: each row divided by max(its L2 norm,
+        1e-9). Returns (f32 numpy [B, D], the prompt tokens)."""
+        if pooling not in ("mean", "last"):
+            raise ValueError(f"pooling must be 'mean' or 'last', got {pooling!r}")
+        cfg = self.config
+        vocab = self.target.config.vocab_size
+        enc = [[min(max(t, 0), vocab - 1) for t in self.tokenizer.encode(text)[: cfg.max_seq_len]]
+               for text in texts]
+        plens = np.array([max(len(e), 1) for e in enc], np.int32)
+        P = _round_up(int(plens.max()), 32)
+        ring = self.target.config.kv_ring_len
+        if ring is not None and P > ring:
+            # One forward over more rows than the ring holds would overwrite
+            # rows its own queries still need.
+            raise ValueError(f"embed: {P} tokens do not fit the target's KV ring of {ring}")
+        block = np.zeros((len(enc), P), np.int32)
+        for i, e in enumerate(enc):
+            block[i, : len(e)] = e
+        B, dev = len(enc), self.device
+        tokens = torch.from_numpy(block).to(dev)
+        lens = torch.from_numpy(plens).to(dev)
+        positions = torch.arange(P, dtype=torch.int32, device=dev)[None].expand(B, P)
+        cache = self.target.init_cache(B, P, dev)
+        _, _, hidden = self.target.forward(tokens, positions.contiguous(), cache,
+                                           torch.zeros((B,), dtype=torch.int32, device=dev),
+                                           return_hidden=True, logits=False)
+        del cache
+        hidden = hidden.float()
+        if pooling == "last":
+            emb = hidden[torch.arange(B, device=dev), (lens - 1).clamp(0, P - 1).long()]
+        else:
+            m = (torch.arange(P, device=dev)[None] < lens[:, None]).float()
+            emb = (hidden * m[..., None]).sum(1) / m.sum(1).clamp_min(1.0)[:, None]
+        if normalize:
+            emb = emb / torch.linalg.norm(emb, dim=-1, keepdim=True).clamp_min(1e-9)
+        return emb.cpu().numpy(), int(plens.sum())
 
     def _sync(self) -> None:
         if self.device.type == "cuda":

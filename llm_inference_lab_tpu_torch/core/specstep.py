@@ -46,6 +46,12 @@ acceptance and the bonus), and the baseline's row, each after penalties and
 logit_bias. JAX skips the mask at run time when no slot is constrained; a
 graph cannot branch, so the engine builds this step beside the
 unconstrained one and the host picks.
+
+Every target forward (the verify, the baseline's, the prefill's) takes the
+state's ``lora_ids``: with a LoRA pack in the target's params each row adds
+its slot's adapter delta (JAX specstep.py passes them to the same
+forwards). Draft forwards stay on the base model; Medusa and EAGLE draft
+from the adapted target's hidden state.
 """
 
 from __future__ import annotations
@@ -490,7 +496,8 @@ def make_spec_step(target_model: Model, draft_model: Optional[Model], *, k: int,
         positions = base[:, None] + arange
         target_logits, _, *hidden = target_model.forward(verify_in, positions,
                                                          state.target_cache, base,
-                                                         return_hidden=heads)
+                                                         return_hidden=heads,
+                                                         lora_ids=state.lora_ids)
         if ctl.active:
             # Verify row i predicts write slot i, having seen the text and
             # d_1..d_i: the counts the draft saw when it proposed d_{i+1}.
@@ -649,7 +656,8 @@ def make_baseline_step(target_model: Model, *, greedy: bool = True, temperature:
         max_len = state.tokens.shape[1]
         last = _gather_last(state.tokens, state.lengths)
         base = state.lengths - 1
-        logits, _ = target_model.forward(last[:, None], base[:, None], state.target_cache, base)
+        logits, _ = target_model.forward(last[:, None], base[:, None], state.target_cache, base,
+                                         lora_ids=state.lora_ids)
         ctx = ctl.context(state)
         # The logprobs describe the distribution sampled from: penalized.
         row = ctl.apply(state, ctx, logits[:, 0].float(), ctx.get("counts"))
@@ -732,7 +740,7 @@ def make_prefill(target_model: Model, draft_model: Optional[Model], chunk: Optio
             positions = c0 + arange
             start = torch.full((B,), c0, dtype=torch.int32, device=dev)
             lg, _, *hid = target_model.forward(tok, positions, state.target_cache, start,
-                                               return_hidden=hidden)
+                                               return_hidden=hidden, lora_ids=state.lora_ids)
             if hidden:
                 local = h_idx - c0
                 sel = hid[0][torch.arange(B, device=dev), local.clamp(0, C - 1)].float()

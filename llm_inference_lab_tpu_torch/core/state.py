@@ -37,6 +37,10 @@ alternatives of each committed position ([B, max_len, N] under
 a captured graph reads them from the state's own tensors, which admission
 writes in place.
 
+Multi-LoRA (JAX core/state.py:69-72): ``lora_ids`` [B] int32, each slot's
+adapter in the target's LoRA pack (-1: the base model), which every target
+forward reads; in ``FIELDS``, so a captured graph reads it in place.
+
 Grammar-constrained decoding (JAX core/state.py:73-81, constrain/runtime.py):
 each slot's FSM, ``fsm_lex`` [B] (the lexer state; -1 unconstrained, -2
 dead), ``fsm_stack`` [B, STACK_DEPTH] (nesting symbols, bottom-first) and
@@ -97,6 +101,7 @@ class DecodeState:
     fsm_lex: torch.Tensor  # [B] int32 — the grammar's lexer state; -1 unconstrained
     fsm_stack: torch.Tensor  # [B, STACK_DEPTH] int32 — its nesting stack
     fsm_sp: torch.Tensor  # [B] int32 — the stack height
+    lora_ids: torch.Tensor  # [B] int32 — each slot's LoRA adapter, -1 the base
 
 
 # The tensors a step or a prefill may replace (all but the caches).
@@ -104,7 +109,7 @@ FIELDS = ("tokens", "lengths", "prompt_lens", "max_new", "active", "proposed", "
           "bonus", "token_logprobs", "steps", "rng", "ctrl_k", "acc_ema", "last_hidden",
           "prev_hidden", "temperature", "top_k", "top_p", "min_p", "slot_rng", "rep_penalty",
           "presence_penalty", "freq_penalty", "bias_ids", "bias_vals", "top_ids", "top_lps",
-          "fsm_lex", "fsm_stack", "fsm_sp")
+          "fsm_lex", "fsm_stack", "fsm_sp", "lora_ids")
 
 
 def cache_tensors(cache) -> tuple:
@@ -149,16 +154,18 @@ def _fill_sampling(state: DecodeState, seed: int, defaults: Optional[dict]) -> N
 
 def reset_state(state: DecodeState, max_new_tokens: int, seed: int = 0,
                 init_k: int = 4, defaults: Optional[dict] = None,
-                fsm_init: int = UNCONSTRAINED) -> DecodeState:
+                fsm_init: int = UNCONSTRAINED, lora_id: int = -1) -> DecodeState:
     """``init_state``'s values in the state's own tensors: zeros (the hidden
     carry too), every lane's budget max_new_tokens, the key of `seed`, every
     lane's K init_k and EMA 0.5, the per-slot sampling values (`defaults`),
-    every lane's FSM at fsm_init with an empty stack, zeroed caches with
-    int8 scales of one; a paged cache keeps its table."""
+    every lane's FSM at fsm_init with an empty stack, every lane's adapter
+    lora_id, zeroed caches with int8 scales of one; a paged cache keeps its
+    table."""
     for name in FIELDS:
         getattr(state, name).zero_()
     state.max_new.fill_(max_new_tokens)
     state.fsm_lex.fill_(fsm_init)
+    state.lora_ids.fill_(lora_id)
     state.rng.fill_(seed_key(seed))
     state.ctrl_k.fill_(init_k)
     state.acc_ema.fill_(0.5)
@@ -180,7 +187,8 @@ def init_state(target_model: Model, draft_model: Optional[Model], batch_size: in
                table: Optional[torch.Tensor] = None,
                kv_dtype: Optional[torch.dtype] = None, seed: int = 0,
                init_k: int = 4, defaults: Optional[dict] = None,
-               logprobs_topk: int = 0, fsm_init: int = UNCONSTRAINED) -> DecodeState:
+               logprobs_topk: int = 0, fsm_init: int = UNCONSTRAINED,
+               lora_id: int = -1) -> DecodeState:
     """paged=True gives both models a PagedKVCache: n_pages pages of
     page_size rows (default batch_size * max_pages) and, unless a table is
     given, the default table that gives slot b the pages [b*m, (b+1)*m).
@@ -190,7 +198,8 @@ def init_state(target_model: Model, draft_model: Optional[Model], batch_size: in
     lane's first K under the device-side adaptive controller; defaults: the
     per-slot sampling values (SAMPLING_DEFAULTS' keys); logprobs_topk: N of
     the top-N buffers (0: placeholders); fsm_init: every lane's grammar
-    state (-1: unconstrained)."""
+    state (-1: unconstrained); lora_id: every lane's adapter (-1: the base
+    model)."""
     B = batch_size
     kv_kw = dict(paged=paged, page_size=page_size, n_pages=n_pages, table=table, dtype=kv_dtype)
 
@@ -233,6 +242,7 @@ def init_state(target_model: Model, draft_model: Optional[Model], batch_size: in
         fsm_lex=torch.full((B,), fsm_init, dtype=torch.int32, device=device),
         fsm_stack=zeros(B, STACK_DEPTH),
         fsm_sp=zeros(B),
+        lora_ids=torch.full((B,), lora_id, dtype=torch.int32, device=device),
     )
     _fill_sampling(state, seed, defaults)
     return state

@@ -67,6 +67,10 @@
 //    split order (its own read back at its place, not first), applies the
 //    scale, writes bf16 and resets the ticket for the next launch on the
 //    stream: kernel D's combine (attn_mma.cuh), with D's ticket counters.
+//  * The output type is a template argument: bf16 (kernels A and B), or
+//    f32 (OutT float, A's instantiation for the EmbedQuant4 tied head,
+//    whose logits stay f32), the same f32 product stored unrounded. The
+//    loop is the same text, so the bf16 instantiation keeps its bits.
 //  * A row's bits are independent of M: every output element is the f32
 //    chain of the same mma.sync instructions over the k-tiles in ascending
 //    order (at int4 the low then the high nibbles of each 16 packed rows),
@@ -160,16 +164,16 @@ __device__ __forceinline__ unsigned pair_int8(unsigned u0, unsigned u1) {
 }
 
 // x bf16 [M, K]; w int8 [K/2, N] (BITS 4) or [K, N] (BITS 8); scale f32
-// [N]; out bf16 [M, N]. Grid (ceil(N / BN), ks): block (c, z) owns columns
+// [N]; out OutT (bf16, or f32) [M, N]. Grid (ceil(N / BN), ks): block (c, z) owns columns
 // [c BN, min(c BN + BN, N)) and k-tiles [z nk / ks, (z + 1) nk / ks). The
 // last column tile of an N that is not a multiple of BN (N % 64 == 0:
 // Qwen2.5's 896 and 1152, Phi-3's 32,064-token head) loads zeros for the
 // columns past N (whole 16-byte chunks) and stores nothing there. ks > 1: ws
 // f32 [ks, M, N] and counters[c] (zero on entry, zero again on exit).
-template <int BITS, int NT>
+template <int BITS, int NT, typename OutT>
 __global__ void __launch_bounds__(THREADS, 1)
 decode_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
-              const float* __restrict__ scale, __nv_bfloat16* __restrict__ out,
+              const float* __restrict__ scale, OutT* __restrict__ out,
               float* __restrict__ ws, unsigned* __restrict__ counters, int M, int K, int N,
               int ks) {
   using L = Layout<BITS, NT>;
@@ -318,12 +322,7 @@ decode_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
         const float4 v =
             make_float4(acc[t][0][h], acc[t][0][2 + h], acc[t][1][h], acc[t][1][2 + h]);
         if (ks == 1) {
-          __nv_bfloat162 p0 = __floats2bfloat162_rn(v.x * sc.x, v.y * sc.y);
-          __nv_bfloat162 p1 = __floats2bfloat162_rn(v.z * sc.z, v.w * sc.w);
-          uint2 o;
-          o.x = *reinterpret_cast<unsigned*>(&p0);
-          o.y = *reinterpret_cast<unsigned*>(&p1);
-          *reinterpret_cast<uint2*>(out + (size_t)row * N + col) = o;
+          store4(out + (size_t)row * N + col, v.x * sc.x, v.y * sc.y, v.z * sc.z, v.w * sc.w);
         } else {
           *reinterpret_cast<float4*>(ws + ((size_t)z * M + row) * N + col) = v;
         }
@@ -356,26 +355,21 @@ decode_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
       a.z += b.z;
       a.w += b.w;
     }
-    __nv_bfloat162 p0 = __floats2bfloat162_rn(a.x * s4.x, a.y * s4.y);
-    __nv_bfloat162 p1 = __floats2bfloat162_rn(a.z * s4.z, a.w * s4.w);
-    uint2 o;
-    o.x = *reinterpret_cast<unsigned*>(&p0);
-    o.y = *reinterpret_cast<unsigned*>(&p1);
-    *reinterpret_cast<uint2*>(out + (size_t)row * N + c4) = o;
+    store4(out + (size_t)row * N + c4, a.x * s4.x, a.y * s4.y, a.z * s4.z, a.w * s4.w);
   }
   if (tid == 0) counters[blockIdx.x] = 0u;  // ready for the next launch on the stream
 }
 
-template <int BITS, int NT>
+template <int BITS, int NT, typename OutT>
 int launch_nt(const void* x, const void* w, const void* scale, void* ws, void* counters,
               void* out, int M, int K, int N, int ks, cudaStream_t st) {
   constexpr size_t smem = Layout<BITS, NT>::total;
   static const cudaError_t shared_ok = cudaFuncSetAttribute(
-      decode_kernel<BITS, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      decode_kernel<BITS, NT, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (shared_ok != cudaSuccess) return (int)shared_ok;
-  decode_kernel<BITS, NT><<<dim3((N + BN - 1) / BN, ks), THREADS, smem, st>>>(
+  decode_kernel<BITS, NT, OutT><<<dim3((N + BN - 1) / BN, ks), THREADS, smem, st>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w),
-      static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(out),
+      static_cast<const float*>(scale), static_cast<OutT*>(out),
       static_cast<float*>(ws), static_cast<unsigned*>(counters), M, K, N, ks);
   return (int)cudaGetLastError();
 }
@@ -383,8 +377,8 @@ int launch_nt(const void* x, const void* w, const void* scale, void* ws, void* c
 
 // The C entries' body for M < 64 rows. Refuses M outside 1..64, N % 64,
 // a K that is not whole k-tiles, a split outside 1..k-tiles, and a split
-// without its workspace or counters.
-template <int BITS>
+// without its workspace or counters. out is OutT [M, N].
+template <int BITS, typename OutT = __nv_bfloat16>
 int launch_decode(const void* x, const void* w, const void* scale, void* ws, void* counters,
                   void* out, int M, int K, int N, int ks, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -393,14 +387,14 @@ int launch_decode(const void* x, const void* w, const void* scale, void* ws, voi
       ks > rows / dec::KT || (ks > 1 && (ws == nullptr || counters == nullptr)))
     return (int)cudaErrorInvalidValue;
   switch ((M + 7) / 8) {
-    case 1: return dec::launch_nt<BITS, 1>(x, w, scale, ws, counters, out, M, K, N, ks, st);
-    case 2: return dec::launch_nt<BITS, 2>(x, w, scale, ws, counters, out, M, K, N, ks, st);
-    case 3: return dec::launch_nt<BITS, 3>(x, w, scale, ws, counters, out, M, K, N, ks, st);
-    case 4: return dec::launch_nt<BITS, 4>(x, w, scale, ws, counters, out, M, K, N, ks, st);
-    case 5: return dec::launch_nt<BITS, 5>(x, w, scale, ws, counters, out, M, K, N, ks, st);
-    case 6: return dec::launch_nt<BITS, 6>(x, w, scale, ws, counters, out, M, K, N, ks, st);
-    case 7: return dec::launch_nt<BITS, 7>(x, w, scale, ws, counters, out, M, K, N, ks, st);
-    default: return dec::launch_nt<BITS, 8>(x, w, scale, ws, counters, out, M, K, N, ks, st);
+    case 1: return dec::launch_nt<BITS, 1, OutT>(x, w, scale, ws, counters, out, M, K, N, ks, st);
+    case 2: return dec::launch_nt<BITS, 2, OutT>(x, w, scale, ws, counters, out, M, K, N, ks, st);
+    case 3: return dec::launch_nt<BITS, 3, OutT>(x, w, scale, ws, counters, out, M, K, N, ks, st);
+    case 4: return dec::launch_nt<BITS, 4, OutT>(x, w, scale, ws, counters, out, M, K, N, ks, st);
+    case 5: return dec::launch_nt<BITS, 5, OutT>(x, w, scale, ws, counters, out, M, K, N, ks, st);
+    case 6: return dec::launch_nt<BITS, 6, OutT>(x, w, scale, ws, counters, out, M, K, N, ks, st);
+    case 7: return dec::launch_nt<BITS, 7, OutT>(x, w, scale, ws, counters, out, M, K, N, ks, st);
+    default: return dec::launch_nt<BITS, 8, OutT>(x, w, scale, ws, counters, out, M, K, N, ks, st);
   }
 }
 

@@ -35,7 +35,11 @@
 //    128 + u by a byte permute and 136 is subtracted in bf16; an int8 byte
 //    + 128 becomes the f32 2^23 + u, minus 2^23 + 128, then bf16.
 //  * Epilogue: the f32 sum times the f32 scale, one bf16 store. No
-//    workspace unless the K split is on.
+//    workspace unless the K split is on. OutT float (kernel A's f32
+//    instantiation, the EmbedQuant4 tied head at N = V: JAX rounds those
+//    logits to bf16 through dense, the port keeps them f32) stores the same
+//    product unrounded; the loop is the same, so a bf16 output keeps its
+//    bits.
 //  * Bits: every output is the tensor cores' f32 chain over the k-tiles in
 //    ascending order, 16 k-values a wgmma, and its value for one element
 //    depends only on that element's row of x and column of w (a block 256
@@ -143,6 +147,28 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// The output's one rounding, shared by both bodies: f32 values of one row
+// at adjacent columns stored as bf16, or as they are for OutT float.
+__device__ __forceinline__ void store2(__nv_bfloat16* o, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(float* o, float a, float b) {
+  *reinterpret_cast<float2*>(o) = make_float2(a, b);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* o, float a, float b, float c, float d) {
+  __nv_bfloat162 p0 = __floats2bfloat162_rn(a, b);
+  __nv_bfloat162 p1 = __floats2bfloat162_rn(c, d);
+  uint2 v;
+  v.x = *reinterpret_cast<unsigned*>(&p0);
+  v.y = *reinterpret_cast<unsigned*>(&p1);
+  *reinterpret_cast<uint2*>(o) = v;
+}
+__device__ __forceinline__ void store4(float* o, float a, float b, float c, float d) {
+  *reinterpret_cast<float4*>(o) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void store1(__nv_bfloat16* o, float a) { *o = __float2bfloat16(a); }
+__device__ __forceinline__ void store1(float* o, float a) { *o = a; }
+
 // Byte offset of 16-byte chunk c of row r in a tile of ROW_BYTES rows: the
 // chunk index XOR r % 8, the 128-byte swizzle wgmma's descriptors name
 // (with the tile 1024-byte aligned).
@@ -177,16 +203,17 @@ __device__ __forceinline__ void bytes_to_bf16(unsigned v, unsigned& lo, unsigned
 }
 
 // x bf16 [M, K]; w int8 [K/2, N] (BITS 4) or [K, N] (BITS 8); scale f32
-// [N]. Grid (ceil(M / BM), ceil(N / BN), ksplit); with N % 128 == 64 the
+// [N]; out OutT (bf16, or f32 for A's head instantiation) [M, N]. Grid
+// (ceil(M / BM), ceil(N / BN), ksplit); with N % 128 == 64 the
 // last column tile loads zeros for its 64 columns past N and stores nothing
 // there (an element's value depends only on its row and column, so the
 // live columns keep their bits). Block z takes k-tiles
 // [z * nkz, (z + 1) * nkz). ksplit = 1: out bf16 [M, N] = sum * scale;
 // ksplit > 1: ws f32 [ksplit, M, N] partial sums (finish_kernel adds them).
-template <int BITS>
+template <int BITS, typename OutT>
 __global__ void __launch_bounds__(THREADS, 2)
 mma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
-           const float* __restrict__ scale, __nv_bfloat16* __restrict__ out,
+           const float* __restrict__ scale, OutT* __restrict__ out,
            float* __restrict__ ws, int M, int K, int N, int nkz) {
   using L = Layout<BITS>;
   constexpr int CPR = BN / 16;  // 16-byte chunks a raw weight row
@@ -315,29 +342,29 @@ mma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
         *reinterpret_cast<float2*>(ws + ((size_t)z * M + row) * N + col) = make_float2(s0, s1);
       } else {
         const float2 sc = *reinterpret_cast<const float2*>(scale + col);
-        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * N + col) =
-            __floats2bfloat162_rn(s0 * sc.x, s1 * sc.y);
+        store2(out + (size_t)row * N + col, s0 * sc.x, s1 * sc.y);
       }
     }
   }
 }
 
-// out = (0 + the K splits' partial sums in ascending order) * scale, bf16:
-// the second pass of this path's K split (the decode body combines its
-// splits inside its own launch).
+// out = (0 + the K splits' partial sums in ascending order) * scale, bf16
+// (or f32 for OutT float): the second pass of this path's K split (the
+// decode body combines its splits inside its own launch).
+template <typename OutT>
 __global__ void finish_kernel(const float* __restrict__ ws, const float* __restrict__ scale,
-                              __nv_bfloat16* __restrict__ out, int M, int N, int ksplit) {
+                              OutT* __restrict__ out, int M, int N, int ksplit) {
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   const size_t total = (size_t)M * N;
   if (idx >= total) return;
   float s = 0.f;
   for (int k = 0; k < ksplit; ++k) s += ws[(size_t)k * total + idx];
-  out[idx] = __float2bfloat16(s * scale[idx % N]);
+  store1(out + idx, s * scale[idx % N]);
 }
 
 // The C entries' body. Refuses M < 1, N % 64, K % 64, a split that does
-// not divide the k-tiles, and a missing workspace.
-template <int BITS>
+// not divide the k-tiles, and a missing workspace. out is OutT [M, N].
+template <int BITS, typename OutT = __nv_bfloat16>
 int launch(const void* x, const void* w, const void* scale, void* ws, void* out, int M, int K,
            int N, int ksplit, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -346,18 +373,18 @@ int launch(const void* x, const void* w, const void* scale, void* ws, void* out,
     return (int)cudaErrorInvalidValue;
   constexpr size_t smem = Layout<BITS>::total;
   static const cudaError_t shared_ok = cudaFuncSetAttribute(
-      mma_kernel<BITS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      mma_kernel<BITS, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (shared_ok != cudaSuccess) return (int)shared_ok;
   dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN, ksplit);
-  mma_kernel<BITS><<<grid, THREADS, smem, st>>>(
+  mma_kernel<BITS, OutT><<<grid, THREADS, smem, st>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w),
-      static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(out),
+      static_cast<const float*>(scale), static_cast<OutT*>(out),
       ksplit > 1 ? static_cast<float*>(ws) : nullptr, M, K, N, nk / ksplit);
   if (ksplit > 1) {
     const size_t total = (size_t)M * N;
-    finish_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
+    finish_kernel<OutT><<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
         static_cast<const float*>(ws), static_cast<const float*>(scale),
-        static_cast<__nv_bfloat16*>(out), M, N, ksplit);
+        static_cast<OutT*>(out), M, N, ksplit);
   }
   return (int)cudaGetLastError();
 }

@@ -4,7 +4,11 @@
 //           quant_matmul_pallas, int4 path (_kernel_int4 / _kernel_int4_st).
 //
 // Computes  y[M, N] = (x[M, K] @ unpack4(w)[K, N]) * scale[N]
-// with f32 accumulation and a bf16 output. w is the JAX package's "v2
+// with f32 accumulation and a bf16 output, or, in the _f32 entries, an f32
+// output: the EmbedQuant4 tied head (ops/quant.py EmbedQuant4.head_logits,
+// JAX ops/quant.py:300, where JAX's dense rounds the logits to bf16), at
+// N = V = 128,256 and K = d_model, M = the head's rows (1 and 2 at a K=1
+// decode step, 104 at an 8-slot ngram verify, a prefill's rows). w is the JAX package's "v2
 // split-K halves" bytes: byte [i, n] holds w[i, n] + 8 in its low nibble and
 // w[i + K/2, n] as two's complement in its high nibble. A per-layer weight is
 // a pointer into the stacked [L, K/2, N] buffer: no copy.
@@ -36,4 +40,17 @@ extern "C" int qmm_int4(const void* x, const void* w, const void* scale, void* w
 extern "C" int qmm_int4_mma(const void* x, const void* w, const void* scale, void* ws,
                             void* out, int M, int K, int N, int ksplit, void* stream) {
   return qmm::launch<4>(x, w, scale, ws, out, M, K, N, ksplit, stream);
+}
+
+// The f32-output instantiations of both bodies (the same arguments, out f32
+// [M, N]): the scale applied to the f32 sum and stored unrounded.
+extern "C" int qmm_int4_f32(const void* x, const void* w, const void* scale, void* ws,
+                            void* counters, void* out, int M, int K, int N, int ksplit,
+                            void* stream) {
+  return qmm::launch_decode<4, float>(x, w, scale, ws, counters, out, M, K, N, ksplit, stream);
+}
+
+extern "C" int qmm_int4_mma_f32(const void* x, const void* w, const void* scale, void* ws,
+                                void* out, int M, int K, int N, int ksplit, void* stream) {
+  return qmm::launch<4, float>(x, w, scale, ws, out, M, K, N, ksplit, stream);
 }

@@ -170,11 +170,11 @@ class Model:
     weights_source: str = "random"
 
     def forward(self, tokens, positions, cache, cache_lens, return_hidden=False,
-                tree_mask=None):
+                tree_mask=None, lora_ids=None, logits=True):
         from llm_inference_lab_tpu_torch.models.transformer import forward
 
         return forward(self.config, self.params, tokens, positions, cache, cache_lens,
-                       return_hidden, tree_mask)
+                       return_hidden, tree_mask, lora_ids, logits)
 
     def head(self, hidden: torch.Tensor) -> torch.Tensor:
         """The model's head (JAX's head_fn): hidden states [.., D] -> f32

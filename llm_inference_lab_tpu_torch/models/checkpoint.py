@@ -9,8 +9,10 @@ EmbedQuant leaf as '<path>/__edata__' and '<path>/__escale__'; the metadata's
 "int4_fmt" is "v2" (int4 bytes: the low nibble biased by +8, the high
 nibble two's complement). A file without that marker is v1, whose low
 nibble was two's complement too: loading migrates its int4 bytes with one
-XOR of bit 3. JAX's int4 dual-layout embedding (EmbedQuant4,
-'<path>/__e4data__') is not ported yet: loading one raises.
+XOR of bit 3. An EmbedQuant4 leaf is saved as its head layout,
+'<path>/__e4data__' and '<path>/__e4scale__'; its row layout is repacked on
+load. JAX's migration keys on '__qdata__' only, so it would load an
+'__e4data__' leaf of a v1 file unmigrated: the port refuses one.
 """
 
 from __future__ import annotations
@@ -21,17 +23,22 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from llm_inference_lab_tpu_torch.ops.quant import EmbedQuant, QuantTensor
+from llm_inference_lab_tpu_torch.ops.quant import (
+    EmbedQuant,
+    EmbedQuant4,
+    QuantTensor,
+    repack_int4_rows,
+)
 from llm_inference_lab_tpu_torch.utils.safetensors import SafeFile, save_file
 
 _QDATA, _QSCALE = "/__qdata__", "/__qscale__"
 _EDATA, _ESCALE = "/__edata__", "/__escale__"
-_E4DATA = "/__e4data__"
+_E4DATA, _E4SCALE = "/__e4data__", "/__e4scale__"
 
 
 def save_params(params: Any, path: str) -> None:
-    """Write the param tree (tensors, QuantTensor and EmbedQuant leaves, on
-    any device) to `path`."""
+    """Write the param tree (tensors, QuantTensor, EmbedQuant and EmbedQuant4
+    leaves, on any device) to `path`."""
     tensors: Dict[str, torch.Tensor] = {}
     quant: Dict[str, int] = {}
 
@@ -44,6 +51,8 @@ def save_params(params: Any, path: str) -> None:
             quant[prefix] = node.bits
         elif isinstance(node, EmbedQuant):
             tensors[prefix + _EDATA], tensors[prefix + _ESCALE] = node.q, node.scale
+        elif isinstance(node, EmbedQuant4):  # the row layout is derived: not saved
+            tensors[prefix + _E4DATA], tensors[prefix + _E4SCALE] = node.qt.data, node.qt.scale
         else:
             tensors[prefix] = node
 
@@ -71,10 +80,10 @@ def load_params(path: str, dtype: Optional[torch.dtype] = None, device="cpu") ->
 
     names = f.keys()
     for name in names:
-        if name.endswith(_E4DATA):
-            raise NotImplementedError(
-                f"{path}: {name.rsplit('/__', 1)[0]} is an int4 embedding (EmbedQuant4), "
-                "which the port does not have yet")
+        if v1 and name.endswith(_E4DATA):
+            raise ValueError(
+                f"{path}: {name.rsplit('/__', 1)[0]} is an int4 embedding (EmbedQuant4) in a "
+                "v1 file (no int4_fmt marker): its nibbles' format is not known")
     for name in names:
         base, _, tag = name.rpartition("/__")
         tag = "/__" + tag if base else ""
@@ -86,7 +95,11 @@ def load_params(path: str, dtype: Optional[torch.dtype] = None, device="cpu") ->
             put(base, QuantTensor(data, f.get(base + _QSCALE, device), bits))
         elif tag == _EDATA:
             put(base, EmbedQuant(f.get(name, device), f.get(base + _ESCALE, device)))
-        elif tag in (_QSCALE, _ESCALE):
+        elif tag == _E4DATA:
+            data = f.get(name, device)
+            put(base, EmbedQuant4(QuantTensor(data, f.get(base + _E4SCALE, device), bits=4),
+                                  repack_int4_rows(data)))
+        elif tag in (_QSCALE, _ESCALE, _E4SCALE):
             continue  # read with its data
         else:
             t = f.get(name, device)

@@ -90,7 +90,9 @@ FAKE_CONFIG = ModelConfig(name="fake", arch="fake", vocab_size=256, n_layers=1, 
 @dataclass
 class FakeModel(Model):
     def forward(self, tokens, positions, cache, cache_lens, return_hidden=False,
-                tree_mask=None):
+                tree_mask=None, lora_ids=None, logits=True):
+        # No layers: no LoRA pack (the engine refuses adapters here), and the
+        # logits cost nothing to make.
         return fake_forward(self.config, self.params, tokens, positions, cache, cache_lens,
                             return_hidden, tree_mask)
 

@@ -151,7 +151,13 @@ class PrefixPageCache(PageAllocator):
     the request's own full prompt chunks. A page whose refcount falls to 0
     stays cached in an LRU pool, which ``alloc`` evicts from only when the
     free list runs dry. Shared pages reach the device only as page ids in
-    table rows."""
+    table rows.
+
+    ``root`` (the batcher's: None for the base model, a LoRA adapter's key
+    otherwise) starts the chain, so a page is shared only among requests
+    of one adapter: an adapter at the qkv site changes the K and V rows a
+    page holds. JAX hashes the tokens alone and shares pages across
+    adapters; with root None the hashes are JAX's."""
 
     def __init__(self, n_pages: int, page_size: int):
         super().__init__(n_pages, page_size)
@@ -161,10 +167,11 @@ class PrefixPageCache(PageAllocator):
         self.hits = 0  # pages served from the cache
         self.misses = 0  # pages registered fresh
 
-    def chunk_hashes(self, ids: List[int]) -> List[Any]:
-        """The chain hash of each FULL page_size chunk of ids."""
+    def chunk_hashes(self, ids: List[int], root: Any = None) -> List[Any]:
+        """The chain hash of each FULL page_size chunk of ids, the chain
+        started at root."""
         out: List[Any] = []
-        parent: Any = None
+        parent: Any = root
         P = self.page_size
         for j in range(len(ids) // P):
             parent = hash((parent, tuple(ids[j * P: (j + 1) * P])))
@@ -189,14 +196,14 @@ class PrefixPageCache(PageAllocator):
     def reclaimable_pages(self) -> int:
         return sum(1 for m in self._meta.values() if m[1] == 0)
 
-    def match(self, ids: List[int], max_tokens: int) -> Tuple[List[int], int]:
+    def match(self, ids: List[int], max_tokens: int, root: Any = None) -> Tuple[List[int], int]:
         """The longest cached prefix of ids within max_tokens tokens (the
         batcher caps it at len(ids) - 2, so the suffix recomputes the hidden
         row the head modes carry): (shared pages, reused tokens), with a
         refcount taken on each page."""
         pages: List[int] = []
         self._clock += 1
-        for h in self.chunk_hashes(ids[: max(max_tokens, 0)]):
+        for h in self.chunk_hashes(ids[: max(max_tokens, 0)], root):
             pid = self._by_hash.get(h)
             if pid is None:
                 break
@@ -207,11 +214,12 @@ class PrefixPageCache(PageAllocator):
         self.hits += len(pages)
         return pages, len(pages) * self.page_size
 
-    def register(self, ids: List[int], pages: List[int], reuse_len: int) -> None:
+    def register(self, ids: List[int], pages: List[int], reuse_len: int,
+                 root: Any = None) -> None:
         """Publish a request's own full prompt chunks past the reused prefix;
         pages is its table prefix (shared and fresh, in position order)."""
         self._clock += 1
-        hashes = self.chunk_hashes(ids)
+        hashes = self.chunk_hashes(ids, root)
         for j in range(reuse_len // self.page_size, len(hashes)):
             if hashes[j] in self._by_hash:  # a duplicate: the first stays
                 continue

@@ -7,7 +7,11 @@ sliding window, the score scale and the attention and final logit
 softcaps), GPT-2's and OPT's LayerNorm with biases, learned positions (no
 rotary) and plain gelu or relu MLP with biases, and the rolling-buffer
 cache (ModelConfig.kv_ring_len: the rows land at position mod ring and
-attention masks modulo the ring).
+attention masks modulo the ring). The embedding may be int8 (EmbedQuant)
+or int4 (EmbedQuant4, its tied head through kernel A with an f32 output),
+and a LoRA pack in params["layers"] (models/lora.py) adds each row's
+adapter delta at the fused QKV, the output projection and the gated MLP's
+gate/up and down projections when the forward is given ``lora_ids``.
 
 Port of llm_inference_lab_tpu/models/transformer.py. The JAX package scans
 one compiled layer over stacked params; the port runs a Python loop over
@@ -29,11 +33,19 @@ from llm_inference_lab_tpu_torch.models.base import (
     cache_slots,
     write_cache_layer,
 )
+from llm_inference_lab_tpu_torch.models.lora import adapter_mask, has_pack, lora_delta
 from llm_inference_lab_tpu_torch.models.paged import PagedKVCache, page_slots, write_paged_layer
 from llm_inference_lab_tpu_torch.ops.attention import attend, paged_attend
 from llm_inference_lab_tpu_torch.ops.flash_decode import tree_bits
 from llm_inference_lab_tpu_torch.ops.moe import gated, moe_mlp
-from llm_inference_lab_tpu_torch.ops.quant import EmbedQuant, QuantTensor, dense, f32_logits
+from llm_inference_lab_tpu_torch.ops.quant import (
+    EmbedQuant,
+    EmbedQuant4,
+    QuantTensor,
+    dense,
+    f32_logits,
+    repack_int4_rows,
+)
 from llm_inference_lab_tpu_torch.ops.rms_norm import add_rms_norm, rms_norm
 
 
@@ -119,11 +131,23 @@ def attn_options(cfg: ModelConfig, layer: int) -> dict:
                 softcap=cfg.attn_logit_softcap)
 
 
+def _lora(p: dict, site: str, mask: Optional[torch.Tensor], y: torch.Tensor,
+          x: torch.Tensor) -> torch.Tensor:
+    """y plus the rows' adapter deltas at `site` (JAX _lora), or y alone
+    without a pack or without lora_ids (mask None)."""
+    A = p.get(f"lora_A_{site}")
+    if A is None or mask is None:
+        return y
+    return y + lora_delta(A, p[f"lora_B_{site}"], None, x, mask=mask)
+
+
 def _attn_block(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor,
-                cos, sin, cache, layer: int, slots, tree: Optional[dict] = None) -> torch.Tensor:
+                cos, sin, cache, layer: int, slots, tree: Optional[dict] = None,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     B, S, _ = x.shape
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    qkv = dense(x, p["w_qkv"], p.get("b_qkv"))  # fused QKV: one matmul instead of three
+    # fused QKV: one matmul instead of three
+    qkv = _lora(p, "qkv", mask, dense(x, p["w_qkv"], p.get("b_qkv")), x)
     # q and k heads rotate together: one pass of elementwise ops, not two.
     qk = qkv[..., : (H + KV) * Dh].reshape(B, S, H + KV, Dh)
     if cos is not None:  # rotary (not under learned positions)
@@ -143,10 +167,12 @@ def _attn_block(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Ten
         write_cache_layer(cache, layer, qk[:, :, H:], v, slots)
         attn = attend(q, cache.k[layer], cache.v[layer], positions, *scales,
                       ring_len=cfg.kv_ring_len, **options)
-    return dense(attn.reshape(B, S, H * Dh), p["wo"], p.get("bo"))
+    a = attn.reshape(B, S, H * Dh)
+    return _lora(p, "o", mask, dense(a, p["wo"], p.get("bo")), a)
 
 
-def _mlp_block(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+def _mlp_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
+               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     if cfg.moe:  # Mixtral: top-k routed gated-MLP experts
         B, S, D = x.shape
         return moe_mlp(x.reshape(B * S, D), p["w_router"], p["w_gate_up"], p["w_down"],
@@ -156,7 +182,8 @@ def _mlp_block(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
         h = F.gelu(h, approximate="tanh") if cfg.act == "gelu" else F.relu(h)
         return dense(h, p["w_proj"], p.get("b_proj"))
     # gate and up fused into one matmul
-    return dense(gated(dense(x, p["w_gate_up"]), cfg.act), p["w_down"])
+    h = gated(_lora(p, "gate_up", mask, dense(x, p["w_gate_up"]), x), cfg.act)
+    return _lora(p, "down", mask, dense(h, p["w_down"]), h)
 
 
 def _layer_params(layers: dict, i: int) -> dict:
@@ -166,7 +193,8 @@ def _layer_params(layers: dict, i: int) -> dict:
 
 def forward(cfg: ModelConfig, params: Any, tokens: torch.Tensor, positions: torch.Tensor,
             cache, cache_lens: torch.Tensor, return_hidden: bool = False,
-            tree_mask: Optional[torch.Tensor] = None):
+            tree_mask: Optional[torch.Tensor] = None, lora_ids: Optional[torch.Tensor] = None,
+            logits: bool = True):
     """tokens, positions: [B, S] (positions int32); cache (a KVCache or a
     PagedKVCache) written in place at cache_lens[b] + arange(S). Returns
     (logits [B, S, V] f32, cache), and with return_hidden the final
@@ -176,7 +204,11 @@ def forward(cfg: ModelConfig, params: Any, tokens: torch.Tensor, positions: torc
     arange(S), but attend by ancestry (row s sees the slots before the chunk
     and chunk row j iff tree_mask[s, j]) and take RoPE at `positions`, the
     caller's logical positions by depth. As in JAX, a sliding window that can
-    bind and a ring refuse the tree mask. ``forward.calls`` and
+    bind and a ring refuse the tree mask. lora_ids [B] int32: each row's
+    adapter in the params' LoRA pack (-1: the base model); without a pack,
+    or with lora_ids None, no delta is computed (JAX passes none where the
+    layers hold no pack). logits=False skips the head (the logits are
+    None): Engine.embed reads the hidden states only. ``forward.calls`` and
     ``forward.layers`` count the forwards run and their layers."""
     tree = {}
     if tree_mask is not None:
@@ -194,7 +226,7 @@ def forward(cfg: ModelConfig, params: Any, tokens: torch.Tensor, positions: torc
     forward.calls += 1
     forward.layers += cfg.n_layers
     embed = params["embed"]
-    if isinstance(embed, EmbedQuant):
+    if isinstance(embed, (EmbedQuant, EmbedQuant4)):
         x = embed.lookup(tokens, cfg.dtype)
     else:
         x = embed[tokens].to(cfg.dtype)
@@ -213,6 +245,11 @@ def forward(cfg: ModelConfig, params: Any, tokens: torch.Tensor, positions: torc
         slots = cache_slots(cache_lens, tokens.shape[1], cache.max_seq_len, cfg.kv_ring_len)
 
     layers = params["layers"]
+    mask = None
+    if lora_ids is not None and has_pack(layers):
+        # Each row's adapter as a 0/1 mask over the pack, once a forward.
+        pack = next(v for k, v in layers.items() if k.startswith("lora_A_"))
+        mask = adapter_mask(lora_ids, pack.shape[1], tokens.shape[1], pack.dtype)
 
     def norm_of(i):
         """Scale and bias (None for RMSNorm) of layer i's input norm; at i = L
@@ -239,13 +276,14 @@ def forward(cfg: ModelConfig, params: Any, tokens: torch.Tensor, positions: torc
          else rms_norm(x, w, cfg.rms_norm_eps, cfg.rms_one_offset))
     for i in range(cfg.n_layers):
         p = _layer_params(layers, i)
-        a = _attn_block(cfg, p, n, positions, cos, sin, cache, i, slots, tree)
+        a = _attn_block(cfg, p, n, positions, cos, sin, cache, i, slots, tree, mask)
         x, n = add_norm(x, a, p["mlp_norm_scale"], p.get("mlp_norm_bias"), "post_attn_norm_scale")
-        h = _mlp_block(cfg, p, n)
+        h = _mlp_block(cfg, p, n, mask)
         x, n = add_norm(x, h, *norm_of(i + 1), "post_mlp_norm_scale")
+    out = lm_head_logits(cfg, params, n) if logits else None
     if return_hidden:
-        return lm_head_logits(cfg, params, n), cache, n
-    return lm_head_logits(cfg, params, n), cache
+        return out, cache, n
+    return out, cache
 
 
 forward.calls = 0
@@ -267,7 +305,7 @@ def lm_head_logits(cfg: ModelConfig, params: Any, x: torch.Tensor) -> torch.Tens
     (cap * tanh(logits / cap), in place on the f32 logits)."""
     if cfg.tie_word_embeddings:
         embed = params["embed"]
-        if isinstance(embed, EmbedQuant):
+        if isinstance(embed, (EmbedQuant, EmbedQuant4)):
             logits = embed.head_logits(x)
         else:
             logits = f32_logits(x, embed.to(x.dtype))
@@ -341,12 +379,15 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device,
 
 
 def init_params_quantized(cfg: ModelConfig, generator: torch.Generator, device,
-                          mode: str = "int4", quantize_embed: bool = False) -> dict:
+                          mode: str = "int4", quantize_embed=False) -> dict:
     """Random init directly in quantized form: random bytes straight into the
     packed layout, with scales that make the dequantized weights about
     N(0, 0.02^2)-sized (as the JAX package's init_params_quantized), so a
-    full-size model never exists in bf16. The MoE experts have no quantized
-    form (mixtral.create refuses quantized_init, as JAX's MixtralModel)."""
+    full-size model never exists in bf16. quantize_embed carries the
+    embedding's bit width as JAX's does: True (or 8) an int8 EmbedQuant, 4
+    an EmbedQuant4 (random head-layout bytes, the row layout repacked from
+    them). The MoE experts have no quantized form (mixtral.create refuses
+    quantized_init, as JAX's MixtralModel)."""
     params = init_params(cfg, generator, device, skip_big=True)
     bits = 4 if mode == "int4" else 8
     maxq = 7 if bits == 4 else 127
@@ -371,7 +412,13 @@ def init_params_quantized(cfg: ModelConfig, generator: torch.Generator, device,
     else:
         params["layers"]["w_fc"] = rand_qt(D, Fd, L)
         params["layers"]["w_proj"] = rand_qt(Fd, D, L)
-    if quantize_embed:
+    if quantize_embed == 4:
+        e4 = rand_bytes((D // 2, cfg.vocab_size))
+        params["embed"] = EmbedQuant4(
+            QuantTensor(e4, torch.full((cfg.vocab_size,), 0.02 / 7, dtype=torch.float32,
+                                       device=device), bits=4),
+            repack_int4_rows(e4))
+    elif quantize_embed:
         params["embed"] = EmbedQuant(
             rand_bytes((cfg.vocab_size, D)),
             torch.full((cfg.vocab_size,), 0.02 / 127, dtype=torch.float32, device=device),

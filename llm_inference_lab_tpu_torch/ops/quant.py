@@ -7,6 +7,9 @@ Port of llm_inference_lab_tpu/ops/quant.py with the same formats and bytes:
   biased by +8, and row ``i + K/2`` in its high nibble as two's complement.
 * EmbedQuant: int8 embedding table ``[V, D]`` with per-row scales, used both
   for the lookup and as the tied lm_head (f32 logits).
+* EmbedQuant4: the same values at int4 in two layouts, the head's packed
+  ``[D/2, V]`` (kernel A's operand, through its f32-output instantiation)
+  and the lookup's row-packed ``[V, D/2]``.
 
 Layer-stacked weights (``data [L, K/2, N]``, ``scale [L, N]``) need no
 QuantStackRef: ``QuantTensor.layer(i)`` is a view into the stacked buffer,
@@ -22,6 +25,7 @@ import torch
 
 from llm_inference_lab_tpu_torch.ops.quant_matmul import (
     quant_matmul,
+    quant_matmul_f32,
     quant_matmul_int8,
     unpack_int4,
 )
@@ -122,6 +126,63 @@ def f32_logits(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return y.reshape(*lead, table.shape[0])
 
 
+@dataclass
+class EmbedQuant4:
+    """INT4 embedding table and tied head (EngineConfig.embed_bits=4; JAX
+    ops/quant.py EmbedQuant4): one set of int4 values in two packings.
+
+    qt: the head layout, a QuantTensor of packed [D/2, V] (v2 split-K
+    halves) with the per-token scales [V] on its output axis: kernel A's
+    operand, so the head reads half the int8 table's bytes in place (no
+    copy of the table a call). rq: the row layout int8 [V, D/2], byte j of
+    row v holding w[v, j] + 8 in its low nibble and w[v, j + D/2] in its
+    high nibble, so the lookup gathers contiguous rows."""
+
+    qt: QuantTensor  # bits 4, data [D/2, V], scale [V]
+    rq: torch.Tensor  # int8 [V, D/2]
+
+    @property
+    def shape(self):  # logical [V, D], as a bf16 table's
+        return (self.qt.data.shape[1], self.qt.data.shape[0] * 2)
+
+    def lookup(self, tokens: torch.Tensor, dtype) -> torch.Tensor:
+        """The rows of `tokens` [..] -> [.., D] in dtype (plain torch on the
+        device, as JAX's is XLA): the gathered bytes unpacked, times the
+        row's scale in f32."""
+        b = self.rq[tokens]
+        t = b & 0x0F  # the low nibble, biased by +8
+        lo = (t - 8).float()
+        # byte = 16 h + (l + 8), so (byte - t) is 16 h: an exact shift.
+        hi = ((b.to(torch.int32) - t.to(torch.int32)) >> 4).float()
+        rows = torch.cat([lo, hi], dim=-1)
+        return (rows * self.qt.scale[tokens].unsqueeze(-1)).to(dtype)
+
+    def head_logits(self, x: torch.Tensor) -> torch.Tensor:
+        """x [.., D] -> f32 logits [.., V]: kernel A's f32 instantiation
+        (JAX's dense rounds them to bf16; the port keeps f32)."""
+        lead = x.shape[:-1]
+        x2 = x.reshape(-1, x.shape[-1]).contiguous()
+        return quant_matmul_f32(x2, self.qt.data, self.qt.scale).reshape(*lead, -1)
+
+
+def repack_int4_rows(qt_data: torch.Tensor) -> torch.Tensor:
+    """Head layout packed [D/2, V] -> row layout packed [V, D/2] of the same
+    int4 values (JAX repack_int4_rows, byte for byte)."""
+    t = (qt_data & 0x0F).to(torch.int32)  # biased low nibbles
+    lo = t - 8  # rows [0, D/2)
+    hi = (qt_data.to(torch.int32) - t) >> 4  # rows [D/2, D)
+    return (((lo.t() + 8) & 0x0F) | ((hi.t() & 0x0F) << 4)).to(torch.int8).contiguous()
+
+
+def quantize_embed4(embed: torch.Tensor) -> EmbedQuant4:
+    """[V, D] table -> EmbedQuant4: int4 quantization of the transpose
+    (each token row's scale on the head's output axis), and the row layout
+    repacked from the same bytes (JAX quantize_embed4)."""
+    qt = quantize_int4(embed.float().t().contiguous())
+    qt = QuantTensor(qt.data.contiguous(), qt.scale.contiguous(), bits=4)
+    return EmbedQuant4(qt, repack_int4_rows(qt.data))
+
+
 def quantize_embed(embed: torch.Tensor) -> EmbedQuant:
     e32 = embed.float()
     scale = e32.abs().amax(dim=1).clamp_min(1e-8) / 127.0
@@ -152,10 +213,11 @@ BIASES = ("b_qkv", "bo", "b_fc", "b_proj")
 
 
 def quantize_params(params: Any, mode: str, min_size: int = 1 << 16,
-                    include_embed: bool = False) -> Any:
+                    include_embed: bool = False, embed_bits: int = 8) -> Any:
     """Quantize every 2-D/3-D weight leaf >= min_size elements (norms and the
     embedding stay as they are unless include_embed, which makes the
-    embedding an int8 EmbedQuant). Biases stay too: JAX's quantize_params
+    embedding an int8 EmbedQuant, or with embed_bits 4 an EmbedQuant4).
+    Biases stay too: JAX's quantize_params
     tells them by "bias" in the name, which its stacked bias leaves (b_qkv,
     bo, b_fc, b_proj) lack, so it quantizes one of them from min_size
     elements (qwen2.5-7b's b_qkv, [28, 4608]) and its dense then fails on
@@ -169,7 +231,9 @@ def quantize_params(params: Any, mode: str, min_size: int = 1 << 16,
         if not isinstance(node, torch.Tensor):
             return node
         if prefix.endswith(".embed"):
-            return quantize_embed(node) if include_embed else node
+            if not include_embed:
+                return node
+            return quantize_embed4(node) if embed_bits == 4 else quantize_embed(node)
         if ("embed" in prefix or "norm" in prefix or "bias" in prefix
                 or prefix.rsplit(".", 1)[-1] in BIASES):
             return node

@@ -16,6 +16,13 @@ the tensor-core path of csrc/qmm_mma.cuh, through ``quant_matmul_mma`` and
 an order fixed by (K, N) and the weight type, never by M (``decode_plan``,
 ``mma_plan``), so within each body a row rounds alike at every M; the two
 bodies round a row differently (chip_smoke.py's row_stability counts it).
+
+``quant_matmul_f32`` (and ``quant_matmul_f32_mma`` from MMA_MIN_M rows) is
+kernel A with an f32 output, both bodies instantiated with the output type
+(the scale applied to the f32 sum, nothing rounded): the EmbedQuant4 tied
+head (ops/quant.py), whose logits JAX rounds to bf16 through dense and the
+port keeps in f32. Its plain version is ``quant_matmul_plain`` with
+``out_dtype=torch.float32``; each wrapper has its own launch count.
 """
 
 from __future__ import annotations
@@ -42,11 +49,13 @@ def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
     return torch.cat([lo, hi], dim=-2)
 
 
-def quant_matmul_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+def quant_matmul_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                       out_dtype=None) -> torch.Tensor:
     """x [M, K]; w int8 [K/2, N] packed int4; scale f32 [N]. f32 accumulation,
-    output in x's dtype (quant_matmul_xla's contract)."""
+    output in x's dtype (quant_matmul_xla's contract), or in out_dtype
+    (torch.float32: the f32 instantiation's, the scaled sum unrounded)."""
     y = torch.matmul(x.float(), unpack_int4(w).float()) * scale
-    return y.to(x.dtype)
+    return y.to(out_dtype or x.dtype)
 
 
 def quant_matmul_plain_int8(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -91,9 +100,10 @@ def mma_plan(K: int, N: int, bits: int = 4) -> int:
 
 
 def _launch(name: str, x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
-            bits: int, mma: bool = False) -> torch.Tensor:
+            bits: int, mma: bool = False, f32: bool = False) -> torch.Tensor:
     """Check the operands of kernel A (bits 4, w [K/2, N]) or B (bits 8,
-    w [K, N]) and launch its decode body or (mma) its tensor-core path: bf16
+    w [K, N]) and launch its decode body or (mma) its tensor-core path, with
+    a bf16 output or (f32, A only) an f32 one: bf16
     x, int8 w, f32 scale [N], N a multiple of 64 (a tail of column tiles
     is masked in the kernel: the weights keep their shape and bytes), K of
     64, contiguous
@@ -117,12 +127,13 @@ def _launch(name: str, x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     if M < 1:
         raise ValueError(f"{name} kernel needs M >= 1")
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    out = torch.empty((M, N), dtype=torch.float32 if f32 else torch.bfloat16, device=x.device)
     lib = build.library(name)
+    tail = "_f32" if f32 else ""
     if mma:
         ks = mma_plan(K, N, bits)
         ws = torch.empty((ks, M, N), dtype=torch.float32, device=x.device) if ks > 1 else None
-        err = getattr(lib, f"qmm_int{bits}_mma")(
+        err = getattr(lib, f"qmm_int{bits}_mma{tail}")(
             x.data_ptr(), w.data_ptr(), scale.data_ptr(), *data_ptrs(ws), out.data_ptr(), M, K,
             N, ks, stream)
         build.check(err, name + " (tensor-core path)")
@@ -132,7 +143,7 @@ def _launch(name: str, x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     if ks > 1:
         ws = torch.empty((ks, M, N), dtype=torch.float32, device=x.device)
         counters = ticket_counters(x.device, -(-N // DECODE_BN))
-    err = getattr(lib, f"qmm_int{bits}")(
+    err = getattr(lib, f"qmm_int{bits}{tail}")(
         x.data_ptr(), w.data_ptr(), scale.data_ptr(), *data_ptrs(ws, counters), out.data_ptr(),
         M, K, N, ks, stream)
     build.check(err, name)
@@ -161,6 +172,28 @@ def quant_matmul_mma(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> t
     return out
 
 
+def quant_matmul_f32(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Kernel A with an f32 output: x bf16 [M, K] @ packed w [K/2, N], times
+    scale [N], the f32 sum scaled and not rounded (the EmbedQuant4 head);
+    M >= MMA_MIN_M goes to quant_matmul_f32_mma."""
+    if not x.is_cuda:
+        return quant_matmul_plain(x, w, scale, out_dtype=torch.float32)
+    if takes_mma(x.shape[0]):
+        return quant_matmul_f32_mma(x, w, scale)
+    out = _launch("quant_matmul_int4", x, w, scale, bits=4, f32=True)
+    quant_matmul_f32.launches += 1
+    return out
+
+
+def quant_matmul_f32_mma(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """quant_matmul_f32's tensor-core path (csrc/qmm_mma.cuh, f32 out)."""
+    if not x.is_cuda:
+        return quant_matmul_plain(x, w, scale, out_dtype=torch.float32)
+    out = _launch("quant_matmul_int4", x, w, scale, bits=4, mma=True, f32=True)
+    quant_matmul_f32_mma.launches += 1
+    return out
+
+
 def quant_matmul_int8(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """int8: x [M, K] @ w [K, N], times scale [N]; M >= MMA_MIN_M goes to
     quant_matmul_int8_mma."""
@@ -184,5 +217,7 @@ def quant_matmul_int8_mma(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor)
 
 quant_matmul.launches = 0
 quant_matmul_mma.launches = 0
+quant_matmul_f32.launches = 0
+quant_matmul_f32_mma.launches = 0
 quant_matmul_int8.launches = 0
 quant_matmul_int8_mma.launches = 0

@@ -6,9 +6,10 @@ Endpoints:
   GET  /health                 -> {"status": "ok", ...}
   GET  /stats                  -> served count, loop_ms, the batcher's stats
   GET  /metrics                -> Prometheus text
-  GET  /v1/models              -> the model listing
+  GET  /v1/models              -> the base model and every LoRA adapter
   POST /v1/completions         -> {choices: [{text, ...}], usage: {...}}
   POST /v1/chat/completions    -> {choices: [{message: {...}}], usage: {...}}
+  POST /v1/embeddings          -> {data: [{embedding, index}], usage: {...}}
 
 Request features: max_tokens (or max_completion_tokens), stop (a string or
 a list: matched on the host, the text cut before it and the slot cancelled
@@ -31,23 +32,28 @@ chat template), tools listed ahead of it; tool_choice "auto" parses a tool
 call from the generated text (JAX's strict parse), "required" and a named
 function constrain decoding to the engine's tool grammar
 (EngineConfig.tools) and answer tool_calls, streamed as OpenAI's
-tool_calls chunks (the name once, then argument deltas).
+tool_calls chunks (the name once, then argument deltas). The ``model``
+field routes a request to a LoRA adapter of the engine's pack by name (the
+base model's name, or none, is the base; any other name a 404 with JAX's
+text). /v1/embeddings (JAX serving.py:822-879): ``input`` a string or a list
+of at most 64 strings, ``encoding_format`` "float" or "base64" (little-endian
+f32), ``pooling`` "mean" or "last"; Engine.embed runs on the engine thread
+between decode chunks.
 
 A grammar the deployment cannot serve is a 400 with JAX's message (the
 engine without tables, another grammar, another schema or pattern, a tool
 not compiled in); nothing decodes unconstrained in its place. What the port
 does not have is refused with an error that names it, never answered
-plainly: a model name other than the engine's (LoRA adapters, 404),
-/v1/embeddings (501), and on an engine without per_request_sampling any
-sampling field, logit_bias or seed whose value is not the engine's own
-(400). ContinuousBatcher.check_request makes these checks in the handler
-thread.
+plainly: on an engine without per_request_sampling any sampling field,
+logit_bias or seed whose value is not the engine's own (400).
+ContinuousBatcher.check_request makes these checks in the handler thread.
 
 Architecture: HTTP handler threads queue requests and wait on per-request
 events; ONE engine thread owns the device. It submits what is queued to the
 ContinuousBatcher, runs its chunks of decode steps (``step_chunk``: the
 decode loop's graph replays, then the poll that retires), admits
-(``_admit_pending``), cancels, observes the streams and wakes the waiters.
+(``_admit_pending``), runs the queued embedding calls, cancels, observes the
+streams and wakes the waiters.
 Handler threads never touch a tensor. The batcher, and so its decode
 graphs, is built when the server is, before any of its threads starts.
 """
@@ -55,6 +61,7 @@ graphs, is built when the server is, before any of its threads starts.
 from __future__ import annotations
 
 import argparse
+import base64
 import json
 import logging
 import queue
@@ -71,6 +78,7 @@ from llm_inference_lab_tpu_torch.core.batching import CONTROLS, POLL_EVERY, Cont
 from llm_inference_lab_tpu_torch.core.engine import Engine
 
 MAX_N = 16  # the most choices (n, best_of) a request may ask for
+MAX_EMBED_INPUTS = 64  # the most inputs an embeddings request may carry (JAX's)
 WAIT_S = 600.0  # how long a handler waits for its generation
 
 
@@ -159,6 +167,17 @@ class _RequestError(Exception):
         self.code = code
 
 
+class _EmbedJob:
+    """One /v1/embeddings call for the engine thread: its texts and pooling,
+    and the result ((f32 [B, D], prompt tokens)) or the error."""
+
+    def __init__(self, texts: List[str], pooling: str):
+        self.texts, self.pooling = texts, pooling
+        self.event = threading.Event()
+        self.result = None
+        self.error: Optional[str] = None
+
+
 class _Pending:
     """One generation in flight: what the handler asked for and what the
     engine thread reports back."""
@@ -230,6 +249,7 @@ class InferenceServer:
         self.host, self.port = host, port
         self.request_timeout = request_timeout
         self._incoming: "queue.Queue[_Pending]" = queue.Queue()
+        self._embed_jobs: "queue.Queue[_EmbedJob]" = queue.Queue()
         # Cancels cross from handler threads to the engine thread here: only
         # the engine thread writes the device's active flags.
         self._cancels: "queue.Queue[_Pending]" = queue.Queue()
@@ -264,12 +284,17 @@ class InferenceServer:
         pending = list(self._inflight.values())
         with self._lock:
             self.failure = failure
-            while True:
-                try:
-                    pending.append(self._incoming.get_nowait())
-                except queue.Empty:
-                    break
+            for q in (self._incoming, self._embed_jobs):
+                while True:
+                    try:
+                        pending.append(q.get_nowait())
+                    except queue.Empty:
+                        break
         for p in pending:
+            if isinstance(p, _EmbedJob):
+                p.error = f"the engine failed: {self.failure}"
+                p.event.set()
+                continue
             p.error = f"the engine failed: {self.failure}"
             p.chunks.put(None)
             p.event.set()
@@ -292,9 +317,24 @@ class InferenceServer:
                 continue
             self._inflight[rid] = p
 
+    def _run_embeddings(self) -> None:
+        """Every queued embedding call, each one Engine.embed forward on
+        this thread (the one that owns the card), between decode chunks."""
+        while True:
+            try:
+                job = self._embed_jobs.get_nowait()
+            except queue.Empty:
+                return
+            try:
+                job.result = self.engine.embed(job.texts, pooling=job.pooling)
+            except (ValueError, NotImplementedError) as err:
+                job.error = str(err)
+            job.event.set()
+
     def _serve(self) -> None:
         b, lm = self.batcher, self.loop_ms
         while not self._stop.is_set():
+            self._run_embeddings()  # JAX's loop does not time them either
             t0 = time.perf_counter()
             drained = self._submit_incoming()
             lm["submit"] += (time.perf_counter() - t0) * 1e3
@@ -434,10 +474,15 @@ class InferenceServer:
                     content = json.dumps(m["tool_calls"])
                 lines.append(f"{role}: {content}")
             prompt = "\n".join(lines) + "\nassistant:"
+        # OpenAI `model` routing (multi-LoRA): an adapter's name selects it;
+        # the base model's name, or none, the base.
         model = body.get("model")
+        lora = None
         if model and model != cfg.base_model:
-            raise _RequestError(404, f"model {model!r} not found: this server serves "
-                                     f"{cfg.base_model!r} (LoRA adapters are not ported)")
+            if not isinstance(model, str) or model not in eng.lora_names:
+                raise _RequestError(404, f"model {model!r} not found (base or a loaded LoRA "
+                                         "adapter)")
+            lora = model
         rf_type = self._response_format(body)
         tool_names, tool_parse = None, None
         if tools:
@@ -450,6 +495,8 @@ class InferenceServer:
         sampling = _request_sampling(body, eng)
         if rf_type is not None:
             sampling["response_format"] = rf_type
+        if lora is not None:
+            sampling["lora"] = lora
         try:
             self.batcher.check_request(**sampling)
         except (ValueError, NotImplementedError, TypeError) as err:
@@ -475,6 +522,45 @@ class InferenceServer:
                     tool_parse=tool_parse,
                     stream_usage=bool(opts.get("include_usage")) if isinstance(opts, dict)
                     else False)
+
+    def _embeddings(self, body: dict) -> dict:
+        """An /v1/embeddings request (JAX serving.py:822-879, its 400s): the
+        texts go to the engine thread, which runs Engine.embed; the vectors
+        come back as float lists or base64 of little-endian f32."""
+        inp = body.get("input", "")
+        texts = ([inp] if isinstance(inp, str)
+                 else list(inp) if isinstance(inp, (list, tuple)) else None)
+        if not texts or not all(isinstance(t, str) for t in texts):
+            raise _RequestError(400, "input must be a string or list of strings")
+        if len(texts) > MAX_EMBED_INPUTS:
+            raise _RequestError(400, f"at most {MAX_EMBED_INPUTS} inputs")
+        fmt = body.get("encoding_format", "float")
+        if fmt not in ("float", "base64"):
+            raise _RequestError(400, f"unsupported encoding_format {fmt!r}")
+        pooling = body.get("pooling", "mean")
+        if pooling not in ("mean", "last"):
+            raise _RequestError(400, f"unsupported pooling {pooling!r}")
+        job = _EmbedJob(texts, pooling)
+        with self._lock:
+            if self.failure is not None:
+                raise _RequestError(500, f"the engine failed: {self.failure}")
+            self._embed_jobs.put(job)
+        self._wake.set()
+        if not job.event.wait(timeout=WAIT_S):
+            raise _RequestError(504, "embedding timed out")
+        if job.error is not None:
+            raise _RequestError(500 if self.failure else 400, job.error)
+        emb, n_tok = job.result
+
+        def enc(row):
+            if fmt == "base64":
+                return base64.b64encode(row.astype("<f4").tobytes()).decode()
+            return [float(x) for x in row]
+
+        return {"object": "list", "model": self.engine.config.base_model,
+                "data": [{"object": "embedding", "index": i, "embedding": enc(emb[i])}
+                         for i in range(emb.shape[0])],
+                "usage": {"prompt_tokens": n_tok, "total_tokens": n_tok}}
 
     def _response_format(self, body: dict) -> Optional[str]:
         """The grammar key of response_format (or vLLM's guided_regex), None
@@ -688,8 +774,12 @@ class InferenceServer:
                                                  for k, v in outer.loop_ms.items()},
                                      "batcher": outer.batcher.stats.report()})
                 elif self.path == "/v1/models":
-                    self._json(200, {"object": "list",
-                                     "data": [{"id": cfg.base_model, "object": "model"}]})
+                    # The base model and every LoRA adapter (each addressable
+                    # through the `model` field).
+                    self._json(200, {"object": "list", "data": [
+                        {"id": cfg.base_model, "object": "model"}] + [
+                        {"id": name, "object": "model", "parent": cfg.base_model}
+                        for name in sorted(outer.engine.lora_names)]})
                 elif self.path == "/metrics":
                     self._send(200, outer._metrics().encode(), "text/plain; version=0.0.4")
                 else:
@@ -705,7 +795,10 @@ class InferenceServer:
                     self._json(400, {"error": "invalid JSON"})
                     return
                 if self.path == "/v1/embeddings":
-                    self._json(501, {"error": "/v1/embeddings is not ported (Engine.embed)"})
+                    try:
+                        self._json(200, outer._embeddings(body))
+                    except _RequestError as err:
+                        self._json(err.code, {"error": str(err)})
                     return
                 if self.path not in ("/v1/completions", "/v1/chat/completions"):
                     self._json(404, {"error": "not found"})

@@ -1,7 +1,7 @@
 """Port parity for the checkpoint layer (models/checkpoint.py) against the
 JAX package's models/checkpoint.py on the CPU: each package reads the
-other's files to the same bytes, v1 int4 files migrate, and JAX's int4
-embedding raises.
+other's files to the same bytes, v1 int4 files migrate, and an int4
+embedding in a v1 file raises (test_torch_embed4.py holds the v2 ones).
 """
 
 import dataclasses
@@ -110,15 +110,22 @@ def test_v1_int4_file_migrates(tmp_path):
 
 
 def test_int4_embedding_raises(tmp_path):
-    """JAX's int4 dual-layout embedding (EmbedQuant4, embed_bits=4) has no
-    port yet: loading its file raises NotImplementedError naming it."""
+    """An int4 dual-layout embedding (EmbedQuant4, embed_bits=4) in a v1
+    file (JAX's file without its int4_fmt marker) raises ValueError naming
+    it: JAX's v1 migration keys on __qdata__ only, so its __e4data__ bytes
+    would load unmigrated. The v2 file JAX wrote loads."""
     p = jt.init_params(dataclasses.replace(J_LLAMA["llama-tiny"], dtype=jnp.bfloat16),
                        jax.random.PRNGKey(0))
     p = jax_quantize(p, "int4", min_size=0, include_embed=True, embed_bits=4)
     path = str(tmp_path / "e4.safetensors")
     jck.save_params(p, path)
-    with pytest.raises(NotImplementedError, match="EmbedQuant4"):
-        checkpoint.load_params(path)
+    f = SafeFile(path)
+    meta = f.metadata()
+    v1 = str(tmp_path / "e4_v1.safetensors")
+    save_file({name: f.get(name) for name in f.keys()}, v1, metadata={"quant": meta["quant"]})
+    with pytest.raises(ValueError, match="EmbedQuant4"):
+        checkpoint.load_params(v1)
+    assert checkpoint.load_params(path)["embed"].qt.bits == 4
 
 
 def test_load_params_casts_and_places(tmp_path):

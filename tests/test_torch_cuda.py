@@ -1535,3 +1535,129 @@ def test_constrained_replays_give_the_host_loops_bits(card, grammar):
     for g, w in zip(got, want, strict=True):
         for key_ in ("generated_ids", "token_logprobs", "proposed", "accepted", "finish_reason"):
             assert g[key_] == w[key_], (key_, g[key_], w[key_])
+
+
+# Kernel A's f32-output instantiation (the EmbedQuant4 tied head): the head's
+# widths (K = d_model of the 3B and the 1B, N = V) at the head's row counts
+# (1 and 2 at a K=1 step, 5 at K=4, 104 at the ngram batcher's verify: the
+# tensor-core path).
+HEAD_F32_SHAPES = [(3072, 128256), (2048, 128256)]
+HEAD_F32_M = (1, 2, 5, 104)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N", HEAD_F32_SHAPES)
+def test_qmm_f32_matches_plain_and_is_the_bf16_kernel_unrounded(card, K, N):
+    """quant_matmul_f32 (both bodies) within the f32 summation bound of its
+    plain version (K * 2^-24 * sum_k |x_k w_kn| * scale_n), one launch a
+    call on its own counts; and the bf16 instantiation's output is exactly
+    the f32 one rounded to bf16 (the same loop: the bf16 kernel keeps its
+    bits)."""
+    from llm_inference_lab_tpu_torch.ops.quant import dequantize, QuantTensor
+    from llm_inference_lab_tpu_torch.ops.quant_matmul import quant_matmul_f32, quant_matmul_f32_mma
+
+    x, w, scale = _qmm_inputs(card, 4, K, N, max(HEAD_F32_M))
+    wint = dequantize(QuantTensor(w, torch.ones_like(scale), 4), torch.float32)
+    for M in HEAD_F32_M:
+        before = (quant_matmul_f32.launches, quant_matmul_f32_mma.launches)
+        got = quant_matmul_f32(x[:M], w, scale)
+        mma = M >= MMA_MIN_M
+        assert (quant_matmul_f32.launches - before[0],
+                quant_matmul_f32_mma.launches - before[1]) == ((0, 1) if mma else (1, 0))
+        assert got.dtype == torch.float32 and got.shape == (M, N)
+        ref = quant_matmul_plain(x[:M], w, scale, out_dtype=torch.float32)
+        bound = K * 2.0 ** -24 * (x[:M].float().abs() @ wint.abs()) * scale + 1e-30
+        assert torch.all((got - ref).abs() <= bound), M
+        bf16 = (quant_matmul_mma if mma else quant_matmul)(x[:M], w, scale)
+        assert torch.equal(bf16, got.bfloat16()), M
+
+
+def _tree_to(tree, dev):
+    from llm_inference_lab_tpu_torch.ops.quant import EmbedQuant, QuantTensor
+
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, QuantTensor):
+        return QuantTensor(tree.data.to(dev), tree.scale.to(dev), tree.bits)
+    if isinstance(tree, EmbedQuant):
+        return EmbedQuant(tree.q.to(dev), tree.scale.to(dev))
+    return tree.to(dev)
+
+
+@pytest.mark.cuda
+def test_lora_forward_on_the_card_equals_the_cpu(card):
+    """A 2-layer cut of llama-3.2-1b (int4 projections, int8 head, bf16) with
+    two rank-16 adapters on all seven matrices: rows [-1, 0, 1] on the card
+    against the CPU's plain versions, each within 2% of the largest logit
+    (bf16 activations rounded by other kernels), the adapters moving their
+    rows by far more; the base row keeps the pack-free forward's bits."""
+    import dataclasses
+
+    from llm_inference_lab_tpu_torch.models import lora, transformer
+    from llm_inference_lab_tpu_torch.models.base import Model
+    from llm_inference_lab_tpu_torch.models.llama import LLAMA_CONFIGS
+
+    cfg = dataclasses.replace(LLAMA_CONFIGS["llama-3.2-1b"], n_layers=2)
+    params = transformer.init_params_quantized(cfg, torch.Generator().manual_seed(0), "cpu",
+                                               mode="int4", quantize_embed=True)
+    ads = [lora.make_adapter(cfg, f"a{i}", rank=16, alpha=64.0,
+                             targets=("q", "k", "v", "o", "gate", "up", "down"),
+                             rng=np.random.default_rng(i)) for i in range(2)]
+    outs = {}
+    for dev in ("cpu", card):
+        p = _tree_to(params, dev)
+        pack, _ = lora.build_pack(cfg, ads, dtype=torch.bfloat16, device=dev)
+        m = Model(cfg, dict(p, layers=dict(p["layers"], **pack)))
+        free = Model(cfg, p)
+        toks = torch.tensor([[1, 5, 9, 200, 3000]] * 3, device=dev)
+        pos = torch.arange(5, dtype=torch.int32, device=dev)[None].repeat(3, 1)
+        zeros = torch.zeros(3, dtype=torch.int32, device=dev)
+        ids = torch.tensor([-1, 0, 1], dtype=torch.int32, device=dev)
+        outs[str(dev)] = m.forward(toks, pos, m.init_cache(3, 64, dev), zeros, lora_ids=ids)[0]
+        base = free.forward(toks, pos, free.init_cache(3, 64, dev), zeros)[0]
+        assert torch.equal(outs[str(dev)][0], base[0])
+    got, want = outs[str(card)].cpu(), outs["cpu"]
+    scale = want.abs().max()
+    err = (got - want).abs().max()
+    assert err <= 0.02 * scale, (float(err), float(scale))
+    for row in (1, 2):
+        assert (want[row] - want[0]).abs().max() > 5 * err
+
+
+@pytest.mark.cuda
+def test_lora_and_embed4_replays_give_the_host_loops_bits(card):
+    """An engine with a LoRA pack (two rank-16 adapters) and the int4
+    embedding: generate under each adapter and the base, and a paged
+    batcher with the adapters mixed, through graph replays give the host
+    loop's ids and logprobs; kernel A's f32 instantiation launched."""
+    from llm_inference_lab_tpu_torch.models import lora
+    from llm_inference_lab_tpu_torch.models.llama import LLAMA_CONFIGS
+    from llm_inference_lab_tpu_torch.ops.quant_matmul import quant_matmul_f32
+
+    cfg1b = LLAMA_CONFIGS["llama-3.2-1b"]
+    ads = [lora.make_adapter(cfg1b, f"a{i}", rank=16, alpha=64.0,
+                             targets=("q", "k", "v", "o", "gate", "up", "down"),
+                             rng=np.random.default_rng(i)) for i in range(2)]
+    cfg = EngineConfig(**{**GRAPH_CFG, "max_draft": 1, "quantize_embed": True, "embed_bits": 4})
+    eng = Engine(cfg, device=card, lora_adapters=ads)
+    host = Engine(cfg, device=card, flags=EnvFlags(sync_steps=True),
+                  target_params=eng.target.params, draft_params=eng.draft.params,
+                  lora_adapters=ads)
+    before = quant_matmul_f32.launches
+    for adapter in (None, "a0", "a1"):
+        got = eng.generate_batch(GRAPH_PROMPTS, adapter=adapter)
+        want = host.generate_batch(GRAPH_PROMPTS, adapter=adapter)
+        for g, w in zip(got, want, strict=True):
+            for key in RESULT_KEYS:
+                assert g[key] == w[key], (adapter, key)
+    assert quant_matmul_f32.launches > before
+    runs = []
+    for e in (eng, host):
+        b = ContinuousBatcher(e, n_slots=3)
+        for i, budget in enumerate((3, 12, 9, 5, 14, 16)):
+            b.submit("served by replays " * (1 + i), max_new_tokens=budget,
+                     lora=(None, "a0", "a1")[i % 3])
+        runs.append(b.run())
+    for g, w in zip(*runs, strict=True):
+        for key in ("generated_ids", "token_logprobs", "proposed", "accepted"):
+            assert g[key] == w[key], key

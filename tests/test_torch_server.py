@@ -376,8 +376,11 @@ REFUSED = [
     ("/v1/chat/completions", {"tools": [{"type": "function", "function": {"name": "f"}}],
                               "tool_choice": {"type": "function", "function": {"name": "f"}}},
      400, "tool 'f' is not compiled into this server's tool grammar"),
-    ("/v1/completions", {"model": "my-lora-adapter"}, 404, "LoRA adapters are not ported"),
-    ("/v1/embeddings", {"input": "x"}, 501, "/v1/embeddings is not ported"),
+    # A model name that is neither the base nor a loaded LoRA adapter (JAX's
+    # 404), and embeddings whose input is not text (JAX's 400).
+    ("/v1/completions", {"model": "my-lora-adapter"}, 404,
+     "model 'my-lora-adapter' not found (base or a loaded LoRA adapter)"),
+    ("/v1/embeddings", {"input": 7}, 400, "input must be a string or list of strings"),
     # A greedy engine without per_request_sampling cannot honour these.
     ("/v1/completions", {"temperature": 0.9}, 400, "per_request_sampling"),
     ("/v1/completions", {"seed": 3}, 400, "per_request_sampling"),

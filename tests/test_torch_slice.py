@@ -143,8 +143,9 @@ def test_engine_quantized_random_init_runs():
 def test_config_rejects_unported_settings():
     with pytest.raises(ValueError):
         EngineConfig(embed_bits=6).validate()
+    EngineConfig(quantize_embed=True, embed_bits=4).validate()  # EmbedQuant4: ported
     with pytest.raises(NotImplementedError):
-        EngineConfig(quantize_embed=True, embed_bits=4).validate()
+        EngineConfig(implementation="fake", quantize_embed=True, embed_bits=4).validate()
     with pytest.raises(ValueError):
         EngineConfig(quantization="int2").validate()
     with pytest.raises(ValueError):
