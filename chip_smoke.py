@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (llm_inference_lab_tpu_torch) on one
 NVIDIA card: the quickest proof that the port builds and runs on the GPU.
 
-    python3 chip_smoke.py                    # phases 0-23, last line a JSON result
+    python3 chip_smoke.py                    # phases 0-24, last line a JSON result
     python3 chip_smoke.py --profile          # also a torch.profiler breakdown of runs
     python3 chip_smoke.py --profile=gemma    # the breakdown of the Gemma-2 runs only
     python3 chip_smoke.py --profile=mistral  # the breakdown of the Mistral B=1 run only
@@ -255,6 +255,22 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
     held in phase 2 at the heads' widths and rows): B=1 generate in turns
     with phase 3's engine, graph == host loop, spec == baseline, phase 3b's
     batcher, and the table's checkpoint round trip;
+24. (after phase 23, on phase 3's weights; (c) after phase 10 on its
+    engine) JAX's pipelined serving loop, 8 paged slots of page 64: (a)
+    phase 3b's 16 requests through run() in turns with the synchronous
+    order (step_chunk(POLL_EVERY), _retire_finished(), _admit_pending()):
+    tok/s, the report and the trace rows, ids equal to each other and to
+    B=1 generate's under the near-tie rule; the chunk cost model's fit;
+    (b) 32 staggered requests (budgets 16-128, two submitted after every
+    chunk, JAX's server-loop order) with overlap_admit and fused_admit off
+    and on, in turns: tok/s, the admit, poll-wait and retire shares, the
+    admission calls' CUDA-event spans, the replays' device ms and the
+    card's busy share, equal ids (near ties allowed); (c) both adaptive controllers in
+    the ngram K=12 batcher: the K trajectory, ids equal to the fixed-K
+    batcher's (near ties allowed); (d) phase 16's HTTP clients over the
+    loop in turns with the direct batcher; (e) Engine.profile_phases on
+    phase 3's engine (each phase a CUDA graph's replays), and a profiled
+    generate whose phase_ms has no error;
  9. the kernels' JSON line (every kernel, launches by path; the Gemma-2
     variants of D, E and F, the ring variants of D and E, the ngram
     verify shapes of B, D and C, D's and F's tree variants and A at the 8B
@@ -350,6 +366,11 @@ LAYERS = {64: 16, 128: 28}  # layers of the model with that head dim
 SERVE_PROMPTS = ["The quick brown fox jumps over the lazy dog. " * (1 + i % 8) for i in range(16)]
 SERVE_BUDGETS = [(16, 32, 48, 64)[i % 4] for i in range(16)]
 SERVE_SLOTS, SERVE_PAGE, SERVE_MAX_LEN = 8, 64, 1024
+# Phase 14 (a)'s run() turn takes this many pages fewer than the synchronous
+# order's pool (17 pages): at 17, run() grows pages twice and preempts
+# nothing (it grows from lengths a chunk old and retires exactly); at 13 it
+# must preempt (asserted).
+RUN_POOL_CUT = 4
 # The main path (phases 3 and 3b): bench.py's int4 3B + 1B at K=1.
 INT4_CFG = dict(base_model="llama-3.2-3b", draft_model="llama-3.2-1b", max_draft=1,
                 max_new_tokens=64, max_seq_len=512, quantization="int4", quantized_init=True,
@@ -614,6 +635,10 @@ PATH_KERNELS = {
                                                    "quant_matmul_int4_mma", "flash_prefill"},
     "generate int4 embed_bits=4 (3 runs)": INT4 | SPEC | HEAD4,
     "serving int4 embed_bits=4 (16 requests)": INT4 | SERVE | HEAD4,
+    # Phase 24: JAX's pipelined loop on phase 3's weights (the serving
+    # path's kernels).
+    "serving int4 pipelined loop (16 requests)": INT4 | SERVE,
+    "serving int4 pipelined loop, staggered arrivals (32 requests)": INT4 | SERVE,
 }
 GEMMA_PATHS = [path for path in PATH_KERNELS if "gemma-2" in path]
 MISTRAL_PATHS = [path for path in PATH_KERNELS if "mistral" in path]
@@ -638,6 +663,12 @@ LORA_PATHS = [path for path in PATH_KERNELS if "LoRA" in path]
 EMBED_PATH = next(path for path in PATH_KERNELS if path.startswith("embed "))
 EMBED4_PATHS = [path for path in PATH_KERNELS if "embed_bits=4" in path]
 PATH_SERVE_INT4 = "serving int4 (16 requests)"
+PIPELINE_PATHS = [path for path in PATH_KERNELS if "pipelined loop" in path]
+# Phase 24 (b): request i is phase 3b's prompt i % 16 with a budget of 16 to
+# 128 tokens; STAGGER_ARRIVALS are submitted after every chunk.
+STAGGER_N, STAGGER_ARRIVALS = 32, 2
+STAGGER_BUDGETS = [16 + (37 * i) % 113 for i in range(STAGGER_N)]
+ADAPTIVE_BUDGET = 192  # phase 24 (c): new tokens of each ngram request
 # Phase 3b's ids by request (phase_serving), which phase 22 holds its free
 # requests on a table-carrying engine to.
 SERVED_IDS = {}
@@ -2187,9 +2218,11 @@ def count_launches(path, run):
     path must decode through replays; no wrapper's counter may move across
     a chunk of replays; and a decode-only kernel (DECODE_ONLY) may launch
     eagerly only in the warm-up step of a loop bound inside run() or in a
-    serving batcher's admission work (ContinuousBatcher._admit_pending and
-    _advance_admission, whose launches are counted apart and logged: a
-    forward of 32 rows or fewer takes the decode kernels)."""
+    serving batcher's admission work (ContinuousBatcher's admission calls:
+    _execute_admissions, _admit_one, _admit_group (a fused wave too),
+    _finish_admission and _advance_admission, whose launches are counted
+    apart and logged: a forward of 32 rows or fewer takes the decode
+    kernels)."""
     from llm_inference_lab_tpu_torch.core.batching import ContinuousBatcher
     from llm_inference_lab_tpu_torch.core.specstep import DecodeLoop
     from llm_inference_lab_tpu_torch.models import transformer
@@ -2211,31 +2244,37 @@ def count_launches(path, run):
         inner_bind(loop, state)
         bound.append(loop)
 
-    # A serving batcher's admission work (waves, prefix-cached suffixes,
-    # incremental chunks and splices) launches eagerly: counted apart.
+    # A serving batcher's admission work (waves, fused waves, prefix-cached
+    # suffixes, incremental chunks and splices) launches eagerly: counted
+    # apart, once (the outermost of these calls).
     admission = {name: 0 for name in wrappers}
-    inner_admit, inner_advance = (ContinuousBatcher._admit_pending,
-                                  ContinuousBatcher._advance_admission)
+    admit_calls = ("_execute_admissions", "_admit_one", "_admit_group", "_finish_admission",
+                   "_advance_admission")
+    inner_calls = {name: getattr(ContinuousBatcher, name) for name in admit_calls}
+    depth = [0]
 
     def tallied(inner):
-        def call(self):
+        def call(self, *a, **kw):
             before = {name: w.launches for name, w in wrappers.items()}
+            depth[0] += 1
             try:
-                return inner(self)
+                return inner(self, *a, **kw)
             finally:
-                for name, w in wrappers.items():
-                    admission[name] += w.launches - before[name]
+                depth[0] -= 1
+                if not depth[0]:
+                    for name, w in wrappers.items():
+                        admission[name] += w.launches - before[name]
         return call
 
     DecodeLoop.replay, DecodeLoop.bind = replay, bind
-    ContinuousBatcher._admit_pending = tallied(inner_admit)
-    ContinuousBatcher._advance_admission = tallied(inner_advance)
+    for name, inner in inner_calls.items():
+        setattr(ContinuousBatcher, name, tallied(inner))
     try:
         out = run()
     finally:
         DecodeLoop.replay, DecodeLoop.bind = inner_replay, inner_bind
-        ContinuousBatcher._admit_pending = inner_admit
-        ContinuousBatcher._advance_admission = inner_advance
+        for name, inner in inner_calls.items():
+            setattr(ContinuousBatcher, name, inner)
     replayed = dict(DecodeLoop.replayed)
     eager = {name: w.launches for name, w in wrappers.items()}
     launches = {name: eager[name] + replayed.get(name, 0) for name in wrappers}
@@ -2903,7 +2942,7 @@ def phase_serving(dev, eng, profile, max_len, path, label):
     torch.cuda.reset_peak_memory_stats()
     results, launches = count_launches(path, paged.run)
     peak_mb = torch.cuda.max_memory_allocated() / 1e6
-    st = paged.stats.report()
+    st = paged.stats.report(SERVE_SLOTS)
     assert len(results) == len(SERVE_PROMPTS) == st["retired"], "not every request retired"
     SERVED_IDS[path] = [r["generated_ids"] for r in sorted(results, key=lambda r: r["req_id"])]
     ids_digest(path, SERVED_IDS[path])
@@ -2913,8 +2952,8 @@ def phase_serving(dev, eng, profile, max_len, path, label):
     log(f"serving ({label}, paged KV page {SERVE_PAGE}, {SERVE_SLOTS} slots, "
         f"max_seq_len {max_len}): {len(results)} requests, {st['committed_tokens']} "
         f"generated tokens in {st['wall_s']:.3f} s = {st['tok_s']:.2f} tok/s aggregate; "
-        f"{st['steps']} steps, {st['admit_waves']} admission waves, mean occupied slots "
-        f"{st['mean_occupied_slots']:.2f}, peak memory {peak_mb:.1f} MB")
+        f"{st['steps']} steps in {st['chunks']} chunks, {st['admit_waves']} admission waves, "
+        f"mean occupied slots a poll {st['mean_occupancy']:.2f}, peak memory {peak_mb:.1f} MB")
     graph_report(f"serving ({label})", [(("paged", SERVE_SLOTS, max_len), paged._loop)])
     # The graph path against the host loop in one process, in turns: graph
     # (the counted run above), host, graph.
@@ -2922,7 +2961,7 @@ def phase_serving(dev, eng, profile, max_len, path, label):
     for what, flags in (("host loop", EnvFlags(sync_steps=True)), ("graph again", None)):
         b = batcher("paged", flags)
         again = b.run()
-        turns[what] = b.stats.report()["tok_s"]
+        turns[what] = b.stats.report(SERVE_SLOTS)["tok_s"]
         for r, a in zip(results, again, strict=True):
             assert r["generated_ids"] == a["generated_ids"], (what, "ids differ", r["req_id"])
     log(f"serving, graph path against the host loop in turns (equal ids): "
@@ -3301,12 +3340,12 @@ def phase_heads(dev, eng, profile, paths):
 def serve_stats(b, peak_mb):
     """A batcher's throughput, occupancy, steps, waves, page growths,
     preemptions, admission time and peak memory, for the log."""
-    st = b.stats.report()
+    st = b.stats.report(b.n_slots)
     return (f"{st['committed_tokens']} tokens in {st['wall_s']:.3f} s = {st['tok_s']:.2f} tok/s, "
-            f"mean occupied slots {st['mean_occupied_slots']:.2f}, {st['steps']} steps, "
-            f"{st['admit_waves']} waves, {st['page_grows']} page growths, "
-            f"{st['preemptions']} preemptions, admit_ms {st['admit_ms']:.1f}, peak memory "
-            f"{peak_mb:.1f} MB")
+            f"mean occupied slots a poll {st['mean_occupancy']:.2f}, {st['steps']} steps in "
+            f"{st['chunks']} chunks, {st['admit_waves']} waves, {st['page_grows']} page growths, "
+            f"{st['preemptions']} preemptions, admit_ms {st['admit_ms_total']:.1f} (host), peak "
+            f"memory {peak_mb:.1f} MB")
 
 
 def served(b, run):
@@ -3321,8 +3360,8 @@ def served(b, run):
 
 def watch_chunks(b):
     """Record, for each incremental admission chunk a batcher runs, the
-    request, the decode steps run before it and its wall ms (admit_ms's
-    growth: the card synchronized before and after): {req_id: [(steps,
+    request, the decode steps run before it and its device ms (CUDA events
+    around the chunk's work, read once the run is over): {req_id: [(steps,
     ms), ...]}. The wrapper holds the batcher weakly: no reference cycle
     keeps a finished batcher (its graph and caches) alive."""
     chunks = {}
@@ -3331,10 +3370,13 @@ def watch_chunks(b):
     def advance():
         b = ref()
         pf = b._prefilling
-        steps, ms = b.stats.steps, b.stats.admit_ms
+        off, steps = (pf["off"] if pf is not None else None), b.stats.steps
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
         type(b)._advance_admission(b)
-        if pf is not None and pf["off"] > 0 and b.stats.admit_ms > ms:
-            chunks.setdefault(pf["req"].req_id, []).append((steps, b.stats.admit_ms - ms))
+        e1.record()
+        if pf is not None and pf["off"] > off:
+            chunks.setdefault(pf["req"].req_id, []).append((steps, (e0, e1)))
 
     b._advance_admission = advance
     return chunks
@@ -3347,8 +3389,13 @@ def phase_admission(dev, eng, paths):
     generate (or each other) under the near-tie rule (held_to):
     (a) phase 3b's 16 requests through 8 slots over a pool of about half
         the eager worst case of the first 8: eager reservation
-        (kv_lazy_pages=False) and lazy pages; lazy must grow pages and
-        preempt, and every page comes back;
+        (kv_lazy_pages=False) and lazy pages, in the synchronous order
+        (sync_serve: growth from the lengths now); lazy must grow pages and
+        preempt, and every page comes back; then lazy pages through run()
+        (JAX's loop: growth from a snapshot a chunk old) over RUN_POOL_CUT
+        pages fewer, where it must grow pages and preempt too, return every
+        page and give every request its whole budget, its ids held to the
+        same rule;
     (b) SYSTEM_PREFIX ahead of each of phase 3b's sentences (lanes of
         PREFIX_MAX_LEN), the first request admitted alone so its pages are
         cached, prefix caching off and on: on, every later request reuses
@@ -3390,24 +3437,35 @@ def phase_admission(dev, eng, paths):
         for p, m in zip(SERVE_PROMPTS, SERVE_BUDGETS):
             b.submit(p, max_new_tokens=m)
         if lazy:
-            (results, peak), launches[paths[0]] = count_launches(paths[0],
-                                                                 lambda: served(b, b.run))
+            (results, peak), launches[paths[0]] = count_launches(
+                paths[0], lambda: served(b, lambda: sync_serve(b)))
         else:
-            results, peak = served(b, b.run)
+            results, peak = served(b, lambda: sync_serve(b))
         assert b.allocator.free_pages == pool - 1, ("pages not returned", lazy)
         runs[lazy] = (b, results, peak)
         log(f"admission (a), {'lazy' if lazy else 'eager'} pages over {pool} pages of "
             f"{SERVE_PAGE} (eager worst case of {SERVE_SLOTS} requests: {worst}): "
             + serve_stats(b, peak))
     b, results, _ = runs[True]
-    assert b.stats.preemptions >= 1 and b.stats.page_grows > 0, b.stats.report()
+    assert b.stats.preemptions >= 1 and b.stats.page_grows > 0, b.stats.report(b.n_slots)
     ids_digest(paths[0], [r["generated_ids"] for r in results])
+    run_pool = pool - RUN_POOL_CUT
+    b = ContinuousBatcher(engine(max_seq_len=SERVE_MAX_LEN, kv_pages=run_pool), SERVE_SLOTS)
+    for p, m in zip(SERVE_PROMPTS, SERVE_BUDGETS):
+        b.submit(p, max_new_tokens=m)
+    rs, peak = served(b, b.run)
+    assert b.allocator.free_pages == run_pool - 1, "pages not returned (run)"
+    assert b.stats.preemptions >= 1 and b.stats.page_grows > 0, b.stats.report(b.n_slots)
+    runs["lazy, run()"] = (b, rs, peak)
+    log(f"admission (a), lazy pages through run() over {run_pool} pages: "
+        + serve_stats(b, peak))
     for lazy, (bb, rs, _) in runs.items():
         differ = sum(held_to(eng, dev, unstable, "generate", r["req_id"], p,
                              reference[p][: len(r["generated_ids"])], r["generated_ids"])
                      for r, p in zip(rs, SERVE_PROMPTS, strict=True))
         assert all(r["generated_tokens"] == m for r, m in zip(rs, SERVE_BUDGETS)), lazy
-        log(f"admission (a) {'lazy' if lazy else 'eager'}: ids == the start of B=1 generate "
+        what = lazy if isinstance(lazy, str) else "lazy" if lazy else "eager"
+        log(f"admission (a) {what}: ids == the start of B=1 generate "
             f"ids for {len(rs) - differ} of {len(rs)} requests (the rest near ties); resumed "
             f"by recompute: {sorted(r.req_id for r in bb._done.values() if r.resume_ids)}")
     # (b) prefix caching off and on.
@@ -3455,12 +3513,14 @@ def phase_admission(dev, eng, paths):
         rids = [b.submit(p, max_new_tokens=64) for p in shorts]
         b._admit_pending()
         b.step_chunk()
+        b._retire_finished()
         long_id = b.submit(LONG_ADMIT, max_new_tokens=64)
         b._admit_pending()
         assert b._prefilling is not None and b._prefilling["req"].req_id == long_id
         steps0, chunks = b.stats.steps, 0
         while b._prefilling is not None:
             b.step_chunk()
+            b._retire_finished()
             chunks += 1
             b._admit_pending()
         seen.update(steps=b.stats.steps - steps0, chunks=chunks, long_id=long_id)
@@ -3490,7 +3550,7 @@ def phase_admission(dev, eng, paths):
                           reference[p][: len(r["generated_ids"])], r["generated_ids"])
     lp = torch.tensor(long_res["token_logprobs"] + long_res["prompt_logprobs"][1:])
     assert torch.isfinite(lp).all() and len(long_res["generated_ids"]) == 64
-    chunk_ms = [round(ms, 3) for _, ms in chunks[seen["long_id"]]]
+    chunk_ms = [round(e0.elapsed_time(e1), 3) for _, (e0, e1) in chunks[seen["long_id"]]]
     log(f"admission (c): the {len(LONG_ADMIT)}-token prompt in {seen['chunks']} chunks of "
         f"{ADMIT_CHUNK} (ms each {chunk_ms}) while {seen['steps']} decode steps ran; its ids "
         f"== B=1 generate's "
@@ -3914,7 +3974,8 @@ def phase_ring_serving(dev, eng, long_ids, path):
         f"admit_chunk {ADMIT_CHUNK}, {RING_SLOTS} slots, {len(RING_REQUESTS)} requests): "
         + serve_stats(b, peak) + f"; long prompts in {n_long} chunks each (decode steps "
         f"before each {[[n for n, _ in runs] for runs in chunks.values()]}, ms each "
-        f"{[[round(ms, 3) for _, ms in runs] for runs in chunks.values()]}); ids == phase "
+        f"{[[round(e0.elapsed_time(e1), 3) for _, (e0, e1) in runs] for runs in chunks.values()]}"
+        f"); ids == phase "
         f"8's ring B=1 ids for "
         f"{len(results) - differ} of {len(results)} requests (the rest near ties); KV of "
         f"both models: ring {ring_mb:.1f} MB, full cache at max_seq_len {cfg.max_seq_len} "
@@ -4727,7 +4788,7 @@ def phase_grammars(dev, eng, paths):
             differ += held_to(eng, dev, unstable, f"generate under {key}", r["req_id"], prompt,
                               ref, ids)
             completed += grammar_output(e, name, key, ids, r["text"], SERVE_BUDGETS[r["req_id"]])
-        st = b.stats.report()
+        st = b.stats.report(b.n_slots)
         log(f"phase 22 serving {name}: 16 requests (8 under {GRAMMAR_KEYS[name]}, {completed} "
             f"completed), {st['tok_s']:.2f} tok/s, {st['steps']} steps ({st['constrained_steps']} "
             f"constrained), ids == B=1 / phase 3b for {16 - differ} of 16 (the rest near ties)")
@@ -5372,6 +5433,361 @@ def phase_embed4(dev, eng, paths):
     return launches
 
 
+# ------------------------------------------ phase 24: the pipelined serving loop
+def device_spans(b, names):
+    """Wrap the batcher's methods `names` (instance attributes, which its
+    own calls reach; each call goes to the class's method of the moment, so
+    count_launches' taps see it): CUDA events around each outermost call of
+    them. Returns the list the spans go into: (name, start event, end
+    event). The wrappers hold the batcher weakly."""
+    marks, depth, ref = [], [0], weakref.ref(b)
+    for name in names:
+        def call(*a, name=name, **kw):
+            inner = getattr(type(ref()), name).__get__(ref())
+            if depth[0]:
+                return inner(*a, **kw)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            depth[0] += 1
+            try:
+                return inner(*a, **kw)
+            finally:
+                depth[0] -= 1
+                e1 = torch.cuda.Event(enable_timing=True)
+                e1.record()
+                marks.append((name, e0, e1))
+
+        setattr(b, name, call)
+    return marks
+
+
+def span_ms(marks):
+    """The device ms of device_spans' marks, summed (the card synchronized)."""
+    torch.cuda.synchronize()
+    return sum(e0.elapsed_time(e1) for _, e0, e1 in marks)
+
+
+def sync_serve(b):
+    """The synchronous order through the batcher's public calls: admit,
+    then step_chunk(POLL_EVERY), a poll of the state now, admit, until the
+    queue and the slots are empty."""
+    from llm_inference_lab_tpu_torch.core.batching import POLL_EVERY
+
+    b._admit_pending()
+    while any(r is not None for r in b._slots) or b.scheduler.pending():
+        b.step_chunk(POLL_EVERY)
+        b._retire_finished()
+        b._admit_pending()
+    torch.cuda.synchronize()
+    return [b._done[i].result for i in sorted(b._done)]
+
+
+def staggered_serve(b, reqs, arrivals=STAGGER_ARRIVALS):
+    """JAX's server-loop order (server/serving.py:170-201) with `arrivals`
+    requests submitted after every chunk (the rest at once while nothing
+    decodes): snapshot, step_chunk(), _admit_overlapped, _prefetch_retire,
+    _retire_finished(flags), _admit_post_poll. Returns the results by
+    req_id."""
+    queue = list(reqs)
+    while True:
+        for _ in range(arrivals):
+            if queue:
+                b.submit(*queue.pop(0))
+        if not any(r is not None for r in b._slots):
+            if not queue and not b.scheduler.pending():
+                break
+            b._admit_pending()
+        flags = b.poll_flags_async()
+        b.step_chunk()
+        b._admit_overlapped()
+        fresh = b._prefetch_retire(flags)
+        b._retire_finished(fresh if fresh is not None else flags)
+        b._admit_post_poll()
+    torch.cuda.synchronize()
+    return [b._done[i].result for i in sorted(b._done)]
+
+
+def cost_fit(b):
+    """The chunk cost model's two constants measured on a full 8-slot batch:
+    chunks of 1 to POLL_EVERY steps, each followed by a poll of the state
+    now (step_chunk(n), _retire_finished()), their host wall fitted by least
+    squares: (the intercept, the host ms a poll cycle adds; the slope, the
+    ms of a step), with a replay's device ms beside them."""
+    import numpy as np
+
+    from llm_inference_lab_tpu_torch.core.batching import POLL_EVERY
+
+    for p in SERVE_PROMPTS[:SERVE_SLOTS]:
+        b.submit(p, max_new_tokens=400)
+    b._admit_pending()
+    samples = []
+    for rep in range(7):
+        for n in range(1, POLL_EVERY + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            b.step_chunk(n)
+            b._retire_finished()
+            if rep:  # the first round warms up
+                samples.append((n, (time.perf_counter() - t0) * 1e3))
+    ns = [n for n, _ in samples]
+    slope, intercept = (float(x) for x in np.polyfit(ns, [w for _, w in samples], 1))
+    return intercept, slope, replay_ms(b._loop)
+
+
+def phase_pipelined_serving(dev, eng, paths):
+    """Phase 24 (a), (b), (d) and (e) on phase 3's int4 3B + 1B weights (K=1),
+    8 paged slots of page 64, lanes of SERVE_MAX_LEN (docstring at the top).
+    Returns the launches of (a)'s first pipelined run and (b)'s first run."""
+    from llm_inference_lab_tpu_torch.config import EnvFlags
+    from llm_inference_lab_tpu_torch.core.batching import ContinuousBatcher
+    from llm_inference_lab_tpu_torch.core.engine import Engine
+    from llm_inference_lab_tpu_torch.server import InferenceServer
+
+    def engine(flags=None, **kw):
+        cfg = replace(eng.config, **{**dict(max_seq_len=SERVE_MAX_LEN, kv_layout="paged",
+                                            kv_page_size=SERVE_PAGE), **kw})
+        return Engine(cfg, device=dev, flags=flags, target_params=eng.target.params,
+                      draft_params=draft_params_of(eng))
+
+    stability = []
+
+    def unstable():
+        if not stability:
+            stability.append([op for op, d in row_stability(eng, dev).items()
+                              if any(d.values())])
+        return stability[0]
+
+    launches = {}
+    serve_eng = engine()
+    reference = {p: eng.generate(p)["generated_ids"] for p in dict.fromkeys(SERVE_PROMPTS)}
+    intercept, slope, replay = cost_fit(ContinuousBatcher(serve_eng, SERVE_SLOTS))
+    log(f"24 chunk cost fit (8 slots, K=1; step_chunk(n) and a poll of the state now, n = 1 to "
+        f"4, 6 rounds): {intercept:.3f} host ms a poll cycle + {slope:.3f} ms a step (a replay of "
+        f"the step: {replay:.3f} device ms)")
+    gc.collect()
+    # (a) phase 3b's 16 requests: run() in turns with the synchronous order.
+    turns, ids, first = [], {}, None
+    for turn, order in enumerate(("pipelined", "synchronous", "pipelined", "synchronous")):
+        b = ContinuousBatcher(serve_eng, SERVE_SLOTS)
+        for p, m in zip(SERVE_PROMPTS, SERVE_BUDGETS):
+            b.submit(p, max_new_tokens=m)
+        if order == "pipelined":
+            b.start_trace()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if turn == 0:
+            rs, launches[paths[0]] = count_launches(paths[0], b.run)
+        else:
+            rs = b.run() if order == "pipelined" else sync_serve(b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = b.stats.report(SERVE_SLOTS)
+        turns.append((order, st["committed_tokens"] / wall, wall))
+        ids.setdefault(order, [r["generated_ids"] for r in rs])
+        if turn < 2:
+            log(f"24(a) {order} report: {json.dumps(st)}")
+        if turn == 0:
+            first = [r["generated_ids"] for r in rs]
+            log(f"24(a) pipelined trace rows (t s, occupied slots, committed tokens, steps): "
+                + json.dumps([[row['t'], row['occupied'], row['committed'], row['steps']]
+                              for row in b.trace]))
+        for r, prompt in zip(rs, SERVE_PROMPTS, strict=True):
+            assert r["generated_tokens"] >= 1, ("24(a) empty result", order, r["req_id"])
+        del b
+        gc.collect()
+    log("24(a) tok/s in turns (16 requests, wall around the call): "
+        + ", ".join(f"{o} {tps:.2f} ({w:.3f} s)" for o, tps, w in turns))
+    ids_digest(paths[0], first)
+    differ = 0
+    for rid, prompt in enumerate(SERVE_PROMPTS):
+        for what, got in (("the synchronous order", ids["synchronous"][rid]),
+                          ("B=1 generate", reference[prompt][:len(first[rid])]),
+                          ("phase 3b", SERVED_IDS[PATH_SERVE_INT4][rid])):
+            differ += held_to(eng, dev, unstable, what, rid, prompt, got, first[rid])
+    log(f"24(a) pipelined ids == the synchronous order's, B=1 generate's and phase 3b's for "
+        f"{48 - differ} of 48 comparisons (the rest near ties)")
+    # (b) staggered arrivals, the admission switches off and on, in turns.
+    reqs = [(SERVE_PROMPTS[i % len(SERVE_PROMPTS)], STAGGER_BUDGETS[i])
+            for i in range(STAGGER_N)]
+    switches = {"off": None, "overlap_admit": EnvFlags(overlap_admit=True),
+                "fused_admit": EnvFlags(fused_admit=True)}
+    engines = {name: engine(flags) for name, flags in switches.items()}
+    rows, stagger_ids = [], {}
+    for turn, name in enumerate(("off", "overlap_admit", "fused_admit", "off")):
+        b = ContinuousBatcher(engines[name], SERVE_SLOTS)
+        admits = device_spans(b, ("_execute_admissions", "_finish_admission",
+                                  "_advance_admission", "_admit_group"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if turn == 0:
+            rs, launches[paths[1]] = count_launches(paths[1], lambda: staggered_serve(b, reqs))
+        else:
+            rs = staggered_serve(b, reqs)
+        wall = time.perf_counter() - t0
+        st = b.stats.report(SERVE_SLOTS)
+        replays, admit_span = b._loop.replays, span_ms(admits)
+        step_ms = replay_ms(b._loop)
+        rows.append(dict(turn=name, tok_s=round(st["committed_tokens"] / wall, 2),
+                         wall_s=round(wall, 3), chunks=st["chunks"], steps=st["steps"],
+                         admit_waves=st["admit_waves"], admit_fused=st["admit_fused"],
+                         admit_share=round(st["admit_ms_total"] / (wall * 1e3), 4),
+                         poll_wait_share=round(st["poll_wait_ms"] / (wall * 1e3), 4),
+                         retire_share=round(st["retire_ms_total"] / (wall * 1e3), 4),
+                         admit_ms_a_wave=round(st["admit_ms_total"] / max(st["admit_waves"], 1),
+                                               2),
+                         admit_span_ms=round(admit_span, 2), replays=replays,
+                         replay_ms=round(step_ms, 3),
+                         busy_share=[round(replays * step_ms / (wall * 1e3), 4),
+                                     round((replays * step_ms + admit_span) / (wall * 1e3), 4)]))
+        assert len(rs) == STAGGER_N and all(r["generated_tokens"] >= 1 for r in rs), name
+        stagger_ids.setdefault(name, [r["generated_ids"] for r in rs])
+        del b, admits
+        gc.collect()
+    log("24(b) staggered arrivals (32 requests, budgets 16-128, 2 submitted a chunk), in turns "
+        "(admit_span_ms: CUDA events around each admission call, host enqueue gaps included, an "
+        "upper bound of its device time; busy_share: the replays' device ms (replays x a "
+        "replay's ms) over the wall, and with the admission spans added): " + json.dumps(rows))
+    base = stagger_ids["off"]
+    ids_digest(paths[1], base)
+    differ = 0
+    for name, got in stagger_ids.items():
+        for rid, (g, (prompt, _)) in enumerate(zip(got, reqs, strict=True)):
+            differ += held_to(eng, dev, unstable, f"staggered, {name} against off", rid,
+                              prompt, base[rid], g)
+    log(f"24(b) ids equal across the turns for {3 * STAGGER_N - differ} of {3 * STAGGER_N} "
+        f"(the rest near ties)")
+    del engines
+    gc.collect()
+    # (d) phase 16's HTTP clients over the loop, in turns with the direct batcher.
+    srv_eng = engine(**SERVER_CFG)
+    server = InferenceServer(srv_eng, n_slots=SERVE_SLOTS, port=0)
+    direct = ContinuousBatcher(srv_eng, SERVE_SLOTS)
+    records = {}
+    inner_finalize = server._finalize
+
+    def finalize(pend):
+        records.setdefault(pend.prompt, pend.result["generated_ids"])
+        inner_finalize(pend)
+
+    server._finalize = finalize
+    server.start()
+    try:
+        greedy = dict(temperature=0.0)
+        bodies = [dict(prompt=p, max_tokens=m, **greedy)
+                  for p, m in zip(SERVE_PROMPTS, SERVE_BUDGETS)]
+        http_post(server.port, "/v1/completions", dict(prompt=PROMPT, max_tokens=8, **greedy))
+        records.clear()
+        http, dir_rs = [], None
+        for what in ("direct", "HTTP", "HTTP", "direct"):
+            if what == "direct":
+                for p, m in zip(SERVE_PROMPTS, SERVE_BUDGETS):
+                    direct.submit(p, max_new_tokens=m, **greedy)
+                t0 = time.perf_counter()
+                rs = direct.run()[-len(SERVE_PROMPTS):]
+                http.append((what, sum(r["generated_tokens"] for r in rs)
+                             / (time.perf_counter() - t0)))
+                dir_rs = dir_rs or rs
+            else:
+                outs, wall = post_all(server.port, bodies, SERVER_CLIENTS)
+                http.append((what, sum(o["usage"]["completion_tokens"] for o in outs) / wall))
+        stats = json.loads(urllib_get(server.port, "/stats"))
+    finally:
+        server.stop()
+    log("24(d) HTTP (8 clients) against the direct batcher, phase 3b's requests at temperature "
+        "0, in turns: " + ", ".join(f"{w} {t:.2f} tok/s" for w, t in http)
+        + f"; the server's loop_ms {stats['loop_ms']}, batcher {json.dumps(stats['batcher'])}")
+    differ = sum(held_to(eng, dev, unstable, "the direct batcher (HTTP)", rid, prompt,
+                         dir_rs[rid]["generated_ids"], records[prompt][:len(
+                             dir_rs[rid]["generated_ids"])])
+                 for rid, prompt in enumerate(dict.fromkeys(SERVE_PROMPTS)))
+    log(f"24(d) HTTP ids == the direct batcher's for {len(records) - differ} of {len(records)} "
+        "prompts (the rest near ties)")
+    del server, direct, srv_eng
+    gc.collect()
+    # (e) profile_phases and a profiled generate on phase 3's engine.
+    prof_eng = Engine(replace(eng.config, profile=True), device=dev,
+                      target_params=eng.target.params, draft_params=draft_params_of(eng))
+    r = prof_eng.generate(PROMPT)
+    summary = prof_eng.profiler.summary()
+    ph = summary["phase_ms"]
+    assert ph is not None and "error" not in ph, ph
+    assert ph["draft_ms"] > 0 and ph["verify_ms"] > 0 and ph["step_ms"] > 0, ph
+    assert ph["commit_sample_ms"] >= -0.05 * ph["step_ms"], ph
+    assert r["generated_ids"] == reference[PROMPT] or held_to(
+        eng, dev, unstable, "phase 3 (profiled)", 0, PROMPT, reference[PROMPT],
+        r["generated_ids"]) == 1
+    b8 = prof_eng.profile_phases(batch=SERVE_SLOTS)
+    log(f"24(e) profile_phases (CUDA-graph chains, slope of 10 and 40 links), B=1: "
+        f"{json.dumps(ph)}; B={SERVE_SLOTS}: {json.dumps(b8)}; the profiled generate: step_ms "
+        f"{json.dumps(summary['step_ms'])}, prefill_ms {json.dumps(summary['prefill_ms'])}, "
+        f"acceptance histogram {summary['acceptance_histogram']}, memory {summary['memory']}")
+    del prof_eng
+    gc.collect()
+    return launches
+
+
+def phase_adaptive_serving(dev, eng):
+    """Phase 24 (c) on phase 10's int8 3B ngram K=12 engine: both adaptive
+    controllers in the batcher (8 paged slots of page 64, phase 3b's first 8
+    prompts at ADAPTIVE_BUDGET tokens; target acceptance 0.95 over the text's
+    0.83, so K walks down): the K after every poll (the scheduler's, or each
+    slot's ctrl_k), and greedy ids equal to the fixed-K batcher's under the
+    near-tie rule."""
+    from llm_inference_lab_tpu_torch.core.batching import ContinuousBatcher
+    from llm_inference_lab_tpu_torch.core.engine import Engine
+
+    reqs = [(p, ADAPTIVE_BUDGET) for p in SERVE_PROMPTS[:SERVE_SLOTS]]
+    params = dict(min_k=1, max_k=NGRAM_K, target_acceptance=0.95, window=8)
+    unstable_ops = []
+
+    def unstable():
+        if not unstable_ops:
+            unstable_ops.append([op for op, d in row_stability(eng, dev).items()
+                                 if any(d.values())])
+        return unstable_ops[0]
+
+    out = {}
+    for ctl in ("fixed", "adaptive", "adaptive-device"):
+        cfg = replace(eng.config, max_seq_len=SERVE_MAX_LEN, kv_layout="paged",
+                      kv_page_size=SERVE_PAGE, controller=ctl,
+                      controller_params={} if ctl == "fixed" else params)
+        b = ContinuousBatcher(Engine(cfg, device=dev, target_params=eng.target.params), SERVE_SLOTS)
+        ks = []
+        inner = b._retire_finished
+
+        def poll(flags=None, b=b, ks=ks, inner=inner, ctl=ctl):
+            inner(flags)
+            ks.append(b.scheduler.k if ctl == "adaptive" else b.state.ctrl_k.tolist())
+
+        b._retire_finished = poll
+        for p, m in reqs:
+            b.submit(p, max_new_tokens=m)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rs = b.run()
+        wall = time.perf_counter() - t0
+        st = b.stats.report(SERVE_SLOTS)
+        out[ctl] = [r["generated_ids"] for r in rs]
+        acc = sum(r["accepted"] for r in rs) / max(sum(r["proposed"] for r in rs), 1)
+        tps = st["committed_tokens"] / wall
+        log(f"24(c) ngram K={NGRAM_K} batcher, controller {ctl}: {tps:.2f} tok/s, acceptance "
+            f"{acc:.4f}, {st['steps']} steps in {st['chunks']} chunks; K after each poll: "
+            f"{ks if ctl != 'adaptive-device' else [k[0] for k in ks]}"
+            + (f" (slot 0's; last poll all slots {ks[-1]})" if ctl == "adaptive-device" else "")
+            + (f"; K loops captured {sorted(k for k, _ in b._k_loops)}" if ctl == "adaptive"
+               else ""))
+        if ctl == "adaptive":
+            assert len(set(ks)) > 1, ("the host controller's K never moved", ks)
+        del b
+        gc.collect()
+    differ = sum(held_to(eng, dev, unstable, f"the fixed-K batcher ({ctl})", rid, p,
+                         out["fixed"][rid], out[ctl][rid])
+                 for ctl in ("adaptive", "adaptive-device")
+                 for rid, (p, _) in enumerate(reqs))
+    log(f"24(c) adaptive batchers' ids == the fixed-K batcher's for {2 * len(reqs) - differ} of "
+        f"{2 * len(reqs)} (the rest near ties)")
+
+
 def free_card():
     """Collect dead engines (a reference cycle keeps a model's weights) and
     return the cached blocks, before the next model is built."""
@@ -5665,6 +6081,9 @@ def main(argv):
     on_path[EMBED_PATH] = phase_embed(dev, eng, EMBED_PATH)
     on_path.update(phase_embed4(dev, eng, EMBED4_PATHS))
     log(f"phase 23 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    on_path.update(phase_pipelined_serving(dev, eng, PIPELINE_PATHS))
+    log(f"phase 24 took {time.perf_counter() - t0:.1f} s")
     del eng
     t0 = time.perf_counter()
     eng, on_path[paths[2]] = phase_end_to_end(dev, profile, INT8_CFG, paths[2],
@@ -5685,6 +6104,9 @@ def main(argv):
     t0 = time.perf_counter()
     on_path[GRAMMAR_PATHS[4]] = phase_grammar_ngram(dev, eng, GRAMMAR_PATHS[4])
     log(f"phase 22 (ngram) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_adaptive_serving(dev, eng)
+    log(f"phase 24 (c) took {time.perf_counter() - t0:.1f} s")
     del eng
     torch.cuda.empty_cache()
     t0 = time.perf_counter()

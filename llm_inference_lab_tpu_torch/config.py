@@ -21,16 +21,21 @@ caching (``prefix_caching``), grammar-constrained decoding
 every sampling site), the int8 or int4 embedding and tied head
 (``quantize_embed`` with ``embed_bits`` 8 or 4), and LoRA adapters from
 local PEFT directories (``lora_paths``; ``Engine(lora_adapters=...)`` takes
-them built). A field of the JAX config with a single ported value has no
-field here until a later slice ports a second value for it. So
-``profile`` (off) has no field yet. Fields are named
+them built). ``profile`` turns on the engine's StructuredProfiler
+(metrics/profiler.py): the one switch for JAX's SPECDX_PROFILE and
+SPECDX_DETAILED_METRICS. A field of the JAX config with a single ported value
+has no field here until a later slice ports a second value for it. Fields
+are named
 and defaulted as in JAX, except ``implementation``, "hf" here ("fake" in
 JAX): the port's entry points build the named model unless a caller asks
 for the fake one.
 
 ``EnvFlags`` is the port's copy of the JAX package's runtime flags with the
-one field it reads. It has no ``from_env``: the port reads no environment
-variable, and a caller passes ``Engine(config, flags=EnvFlags(...))``.
+fields it reads, and JAX's two serving switches that its batcher reads
+inline from the environment (``SPECDX_OVERLAP_ADMIT``,
+``SPECDX_FUSED_ADMIT``). It has no ``from_env``: the port reads no
+environment variable, and a caller passes ``Engine(config,
+flags=EnvFlags(...))``.
 """
 
 from __future__ import annotations
@@ -53,6 +58,12 @@ class EnvFlags:
     # each (JAX's observed loop). False (the default): the decode loop of
     # core/specstep.py, CUDA-graph replays of the step on the card.
     sync_steps: bool = False
+    # The batcher's admission experiments, off as in JAX: admit into the
+    # slots free at the live snapshot right after a chunk is enqueued
+    # (overlap_admit), and enqueue the wave planned before a chunk straight
+    # ahead of its replays (fused_admit).
+    overlap_admit: bool = False
+    fused_admit: bool = False
 
 
 @dataclass
@@ -110,6 +121,9 @@ class EngineConfig:
     quantized_init: bool = False
     seed: int = 0
     eos_token_id: Optional[int] = None
+    # The engine's StructuredProfiler: prefill and per-step ms and the
+    # acceptance histogram of generate, and profile_phases' breakdown.
+    profile: bool = False
     # KV cache layout: "contiguous" (one [max_seq] lane per slot) or "paged"
     # (a page pool and per-sequence page tables, models/paged.py).
     kv_layout: str = "contiguous"

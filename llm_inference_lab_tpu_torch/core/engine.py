@@ -43,7 +43,15 @@ loop instead: a fresh state, one functional step at a time and one
 adaptive controller picks K before every step, as JAX's observed loop does:
 one step at a time with the one-step-delayed poll, each K its own step (on
 the card a one-step graph captured once a K and shape, in the engine's
-pool; the functional step under sync_steps).
+pool; the functional step under sync_steps). The profiler
+(``self.profiler``, metrics/profiler.py StructuredProfiler: on under
+``cfg.profile``, the one switch for JAX's SPECDX_PROFILE and
+SPECDX_DETAILED_METRICS) takes
+generate through the same observed loop (JAX engine.py:828-880): it records
+the prefill's ms, each step's ms (CUDA events, read after the loop) and its
+accepted drafts, and fills ``phase_ms`` once an engine with
+``profile_phases`` (draft, verify and commit ms of the step, each the slope
+of a CUDA graph's replays on the card).
 
 An engine built with a grammar (``constrain`` or ``tools``) holds the
 constrained step beside the unconstrained one (JAX skips the mask with a
@@ -59,8 +67,8 @@ raises (pass device="cpu" for the plain PyTorch versions of every op).
 
 from __future__ import annotations
 
+import contextlib
 import copy
-import resource
 import time
 from dataclasses import replace
 from typing import Any, Dict, List, Optional, Tuple
@@ -94,6 +102,13 @@ from llm_inference_lab_tpu_torch.core.specstep import (
 )
 from llm_inference_lab_tpu_torch.core.state import DecodeState, assign, init_state, reset_state
 from llm_inference_lab_tpu_torch.core.treespec import TreeConfig, make_tree_spec_step
+from llm_inference_lab_tpu_torch.metrics.profiler import (
+    StructuredProfiler,
+    device_memory_stats,
+    read_ms,
+    slope_chain_ms,
+    stopwatch,
+)
 from llm_inference_lab_tpu_torch.models import registry
 from llm_inference_lab_tpu_torch.models.lora import Adapter, build_pack, load_peft_adapter
 from llm_inference_lab_tpu_torch.ops.quant import quantize_params
@@ -189,6 +204,14 @@ class Engine:
         self.policy_fn = create_policy(cfg.policy)
         self.controller = create_controller(cfg.controller, k=cfg.max_draft,
                                             **cfg.controller_params)
+        # JAX's recorder, on under cfg.profile (JAX's SPECDX_PROFILE and
+        # SPECDX_DETAILED_METRICS turn on the same one); profile_phases'
+        # breakdowns are cached by (k, batch).
+        self.profiler = StructuredProfiler(enabled=cfg.profile)
+        self._phase_cache: Dict[tuple, Dict[str, Any]] = {}
+        self.profiler.run_metadata = {
+            "base_model": cfg.base_model, "draft_model": cfg.draft_model, "policy": cfg.policy,
+            "controller": cfg.controller, "dtype": cfg.dtype, "backend": self.device.type}
         # The largest K any controller setting can ask for sizes the buffers.
         self._max_k = max(getattr(self.controller, "max_k", 0), cfg.max_draft)
         self.head_mode = cfg.draft_mode in HEAD_MODES
@@ -387,13 +410,13 @@ class Engine:
             adaptive_cfg=self.controller.adaptive_cfg() if adaptive else None,
             draft_params=self._draft_params, medusa_cfg=cfg.medusa, eagle_cfg=cfg.eagle, **samp)
 
-    def _step_at(self, k: int, fsm: bool = False):
-        """(functional, in place) steps at K = k, built once a K (and
-        grammar: fsm)."""
-        key = (k, "fsm") if fsm else k
+    def _step_at(self, k: int, fsm: bool = False, plain: bool = False):
+        """(functional, in place) steps at K = k, built once a K and variant:
+        the grammar's (fsm), the plain greedy one (plain) or the engine's."""
+        key = (k, "fsm") if fsm else (k, "plain") if plain else k
         if key not in self._steps_by_k:
-            self._steps_by_k[key] = (self._build_step(k, fsm=fsm),
-                                     self._build_step(k, in_place=True, fsm=fsm))
+            self._steps_by_k[key] = (self._build_step(k, fsm=fsm, plain=plain),
+                                     self._build_step(k, in_place=True, fsm=fsm, plain=plain))
         return self._steps_by_k[key]
 
     def _enable_kv_ring(self) -> None:
@@ -442,7 +465,17 @@ class Engine:
         whole batch (None: the base model; lora_id raises for an unknown
         name)."""
         with torch.inference_mode():
-            return self._build_results(*self._decode(prompts, seed, response_format, adapter))
+            results = self._build_results(*self._decode(prompts, seed, response_format,
+                                                        adapter))
+        if self.profiler.enabled and self.profiler.phase_ms is None:
+            # The phase breakdown once an engine (JAX engine.py:1139-1151,
+            # whose SPECDX_PROFILE_PHASES is on by default): a failure is
+            # recorded, not raised, as JAX's.
+            try:
+                self.profiler.phase_ms = self.profile_phases()
+            except Exception as err:  # noqa: BLE001 - JAX's rule: never fail a generation
+                self.profiler.phase_ms = {"error": str(err)}
+        return results
 
     @torch.inference_mode()
     def decode(self, prompts: List[str], seed: Optional[int] = None,
@@ -476,10 +509,11 @@ class Engine:
             assign(state, self._prefill(state, *prompt))
         self._sync()
         t_decode = time.perf_counter()
+        self.profiler.record_prefill((t_decode - t_start) * 1e3)
         # Each active step commits >= 1 token, so max_new + 1 steps always
         # finish.
-        if self.host_adaptive:
-            state = self._run_adaptive(state, max_new, constrained)
+        if self.host_adaptive or self.profiler.enabled:
+            state = self._run_observed(state, max_new, constrained)
         elif self.flags.sync_steps:
             # One host poll per step: active.any().
             self.polls = 0
@@ -593,37 +627,51 @@ class Engine:
             self.polls += 1
             steps, active, lengths = int(polled[0]), polled[1:B + 1].astype(bool), polled[B + 1:]
 
-    def _run_adaptive(self, state: DecodeState, max_new: int,
+    def _run_observed(self, state: DecodeState, max_new: int,
                       constrained: bool = False) -> DecodeState:
-        """JAX's observed loop under the host adaptive controller: before each
-        step the controller picks K; after it the sums (proposed, accepted,
-        any active) of the step before are read (one step of lag, so the
-        read overlaps the step on the card) and fed to the controller, and
-        the loop ends when they show no active lane. So it runs one step
-        after the last lane finished, which changes nothing (the state's
-        ``steps`` does not count it; JAX's result counts it). Each step is
-        the functional step at K under sync_steps, else one replay of the
-        one-step loop of K over the engine's decode state (on the card a
-        graph captured at K's first step, in the engine's pool; the
-        constrained step's at K for a constrained call)."""
+        """JAX's observed loop, under the host adaptive controller or the
+        profiler: before each step the controller picks K (the engine's own
+        step otherwise); after it the sums (proposed, accepted, any active)
+        of the step before are read (one step of lag, so the read overlaps
+        the step on the card) and fed to the controller, and the loop ends
+        when they show no active lane. So it runs one step after the last
+        lane finished, which changes nothing (the state's ``steps`` does not
+        count it; JAX's result counts it). Each step is the functional step
+        at K under sync_steps, else one replay of the one-step loop of K over
+        the engine's decode state (on the card a graph captured at K's first
+        step, in the engine's pool; the constrained step's at K for a
+        constrained call). Under the profiler each step is timed
+        (StructuredProfiler.time_step: CUDA events on the card) and its
+        accepted drafts recorded, read once after the loop."""
         ctrl = self.controller
         B, max_len = state.tokens.shape
         on_card = state.tokens.is_cuda
+        prof = self.profiler
         pending = None
         prev_prop = prev_acc = 0
+        marks, step_sums = [], []  # under the profiler: each step's time and sums
         self.polls = 0
         for step_i in range(max_new + 1):
-            k = ctrl.get_k(step_i)
-            steps = self._step_at(k, fsm=True) if constrained else self._step_at(k)
-            if self.flags.sync_steps:
-                state = steps[0](state)
+            if self.host_adaptive:
+                k = ctrl.get_k(step_i)
+                steps = self._step_at(k, fsm=True) if constrained else self._step_at(k)
             else:
-                key = (B, max_len, k) + (("fsm",) if constrained else ())
-                loop = self.adaptive_loops.get(key)
-                if loop is None:
-                    loop = make_decode_loop(steps[1], pool=self.graph_pool)
-                    self.adaptive_loops[key] = loop
-                loop(state, 1)
+                k, steps = self._k, self._decode_steps(constrained)
+            with (stopwatch(state.tokens.device, marks) if prof.enabled
+                  else contextlib.nullcontext()):
+                if self.flags.sync_steps:
+                    state = steps[0](state)
+                else:
+                    key = (B, max_len, k) + (("fsm",) if constrained else ())
+                    loop = self.adaptive_loops.get(key)
+                    if loop is None:
+                        loop = make_decode_loop(steps[1], pool=self.graph_pool)
+                        self.adaptive_loops[key] = loop
+                    loop(state, 1)
+            sums = torch.stack([state.proposed.sum(), state.accepted.sum(),
+                                state.active.any().to(state.proposed.dtype)])
+            if prof.enabled:
+                step_sums.append(sums)
             if pending is not None:
                 if on_card:
                     pending[1].synchronize()
@@ -633,8 +681,6 @@ class Engine:
                 prev_prop, prev_acc = prop, acc
                 if not act:
                     break
-            sums = torch.stack([state.proposed.sum(), state.accepted.sum(),
-                                state.active.any().to(state.proposed.dtype)])
             if on_card:
                 host = torch.empty(3, dtype=sums.dtype, pin_memory=True)
                 host.copy_(sums, non_blocking=True)
@@ -643,7 +689,82 @@ class Engine:
                 pending = (host, done)
             else:
                 pending = (sums, None)
+        if prof.enabled:
+            accepted = [0] + torch.stack(step_sums)[:, 1].cpu().tolist()
+            for i, ms in enumerate(read_ms(marks)):
+                prof.record_step(ms, accepted=accepted[i + 1] - accepted[i])
         return state
+
+    @torch.inference_mode()
+    def profile_phases(self, batch: int = 1) -> Dict[str, Any]:
+        """The decode step split into phases (JAX Engine.profile_phases),
+        each timed as the slope of a dependent chain (slope_chain_ms: on the
+        card replays of a CUDA graph captured over one link, as the decode
+        loop replays the step):
+
+          draft_ms   = K x one single-token draft-model forward
+          verify_ms  = one target forward over K + 1 rows
+          step_ms    = the engine's whole step (its in-place step at K)
+          commit_sample_ms = step_ms - draft_ms - verify_ms
+
+        K is the engine's largest (``_max_k``; 0 without speculation). The
+        modes without a draft model (ngram, medusa, eagle, tree) have
+        draft_ms 0: their drafting lands in verify or commit. Caches are
+        contiguous of the engine's KV type, B = batch lanes at position 8
+        of max_seq_len. Cached per (k, batch)."""
+        k = self._max_k if self.is_spec else 0
+        key = (k, batch)
+        if key in self._phase_cache:
+            return self._phase_cache[key]
+        B, T, dev = batch, self.config.max_seq_len, self.device
+        tgt = self.target
+
+        def i32(*shape, fill):
+            return torch.full(shape, fill, dtype=torch.int32, device=dev)
+
+        draft1 = 0.0
+        if self.draft is not None and k > 0:
+            d = self.draft
+
+            def dfwd(params, carry):
+                tok, cache = carry
+                logits = d.forward(tok, i32(B, 1, fill=8), cache, i32(B, fill=7))[0]
+                tok.copy_(logits[:, -1:].argmax(-1))
+
+            draft1 = slope_chain_ms(dfwd, None, (i32(B, 1, fill=1),
+                                                 d.init_cache(B, T, dev, dtype=self.kv_dtype)))
+        R = k + 1  # verify rows a lane
+        rows = (torch.arange(R, dtype=torch.int32, device=dev) + 8)[None].repeat(B, 1)
+
+        def vfwd(params, carry):
+            tok, cache = carry
+            logits = tgt.forward(tok, rows, cache, i32(B, fill=7))[0]
+            tok.copy_(torch.cat([tok[:, 1:], logits[:, -1:].argmax(-1).to(tok.dtype)], 1))
+
+        verify = slope_chain_ms(vfwd, None, (i32(B, R, fill=1),
+                                             tgt.init_cache(B, T, dev, dtype=self.kv_dtype)))
+        step_fn = self._build_step(max(k, 1) if self.is_spec else 1, in_place=True)
+        state = init_state(tgt, self.draft, B, T, dev, max_new_tokens=10_000,
+                           kv_dtype=self.kv_dtype, seed=self.config.seed,
+                           init_k=self.controller.k, defaults=self.sampling_defaults(),
+                           logprobs_topk=self.config.logprobs_topk)
+        state.lengths.fill_(8)
+        state.prompt_lens.fill_(8)
+        state.active.fill_(True)
+        state.tokens[:, :8] = 1
+        step = slope_chain_ms(lambda params, st: step_fn(st), None, state)
+        out = {
+            "k": k,
+            "batch": B,
+            "draft_forwards": k if self.draft is not None else 0,
+            "draft_ms": round(k * draft1, 4),
+            "draft_ms_per_forward": round(draft1, 4),
+            "verify_ms": round(verify, 4),
+            "commit_sample_ms": round(step - k * draft1 - verify, 4),
+            "step_ms": round(step, 4),
+        }
+        self._phase_cache[key] = out
+        return out
 
     @torch.inference_mode()
     def embed(self, texts: List[str], pooling: str = "mean",
@@ -697,15 +818,6 @@ class Engine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _memory(self) -> Dict[str, Any]:
-        on_card = self.device.type == "cuda"
-        return {
-            "device_mem_mb": torch.cuda.memory_allocated(self.device) / 1e6 if on_card else None,
-            "device_peak_mb": (torch.cuda.max_memory_allocated(self.device) / 1e6
-                               if on_card else None),
-            "mem_rss_mb": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0,
-        }
-
     def _build_results(self, state: DecodeState, plens: np.ndarray, decode_s: float,
                        total_s: float) -> List[Dict[str, Any]]:
         cfg = self.config
@@ -718,7 +830,7 @@ class Engine:
         bonus = state.bonus.cpu().numpy()
         tops = ((state.top_ids.cpu().numpy(), state.top_lps.cpu().numpy())
                 if cfg.logprobs_topk else None)
-        mem = self._memory()
+        mem = device_memory_stats(self.device).as_dict()
         controller = self.controller.info()
         if isinstance(self.controller, AdaptiveDeviceKController):
             # The device controller's final per-lane state (one read, after

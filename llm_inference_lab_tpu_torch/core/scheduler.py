@@ -2,11 +2,11 @@
 overdue rule.
 
 Port of llm_inference_lab_tpu/native/__init__.py ``NativeScheduler``
-(``submit``, ``pending``, ``admit``: the algorithm of its Python path and of
-native/scheduler.cc ``sched_admit``). The JAX package kept a C++ copy for
-its TPU host; here it is host Python only: one admission decision costs
-microseconds against a decode step of tens of milliseconds. The adaptive-K
-EMA (``record_step``) comes with the adaptive controller.
+(``submit``, ``pending``, ``admit``, ``record_step``, ``acceptance_ema``
+and ``k``: the algorithm of its Python path and of native/scheduler.cc). The
+JAX package kept a C++ copy for its TPU host; here it is host Python only:
+one admission decision costs microseconds against a decode step of tens of
+milliseconds.
 """
 
 from __future__ import annotations
@@ -25,9 +25,20 @@ class Scheduler:
     waited more than max_wait admission rounds is overdue and goes first,
     with its own bucket, so none starves."""
 
-    def __init__(self, length_bucket: int = LENGTH_BUCKET, max_wait: int = MAX_WAIT):
+    def __init__(self, length_bucket: int = LENGTH_BUCKET, max_wait: int = MAX_WAIT,
+                 init_k: int = 4, min_k: int = 1, max_k: int = 8,
+                 target_acceptance: float = 0.5, window: int = 32):
         self.length_bucket = length_bucket
         self.max_wait = max_wait
+        # The serving path's adaptive K: an EMA of the acceptance rate with
+        # alpha = 2 / (window + 1), from 0.5; K steps up by one above
+        # target + 0.1 and down by one below target - 0.1, within [min_k,
+        # max_k].
+        self.min_k, self.max_k = min_k, max_k
+        self.target_acceptance = target_acceptance
+        self._alpha = 2.0 / (window + 1.0)
+        self._ema = 0.5
+        self._k = init_k
         # (req_id, prompt_len, submit order, admission round at submit)
         self._queue: Deque[Tuple[int, int, int, int]] = deque()
         self._seq = 0
@@ -67,3 +78,21 @@ class Scheduler:
                     keep.append(item)
             self._queue = keep
         return out
+
+    def record_step(self, proposed: int, accepted: int) -> int:
+        """Feed one poll's proposed and accepted draft counts; returns K."""
+        if proposed > 0:
+            self._ema += self._alpha * (accepted / proposed - self._ema)
+            if self._ema > self.target_acceptance + 0.1 and self._k < self.max_k:
+                self._k += 1
+            elif self._ema < self.target_acceptance - 0.1 and self._k > self.min_k:
+                self._k -= 1
+        return self._k
+
+    @property
+    def acceptance_ema(self) -> float:
+        return self._ema
+
+    @property
+    def k(self) -> int:
+        return self._k

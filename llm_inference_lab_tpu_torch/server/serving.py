@@ -50,10 +50,14 @@ ContinuousBatcher.check_request makes these checks in the handler thread.
 
 Architecture: HTTP handler threads queue requests and wait on per-request
 events; ONE engine thread owns the device. It submits what is queued to the
-ContinuousBatcher, runs its chunks of decode steps (``step_chunk``: the
-decode loop's graph replays, then the poll that retires), admits
-(``_admit_pending``), runs the queued embedding calls, cancels, observes the
-streams and wakes the waiters.
+ContinuousBatcher and runs JAX's pipelined cycle (server/serving.py:170-201):
+snapshot the flags (``poll_flags_async``), a chunk of decode steps
+(``step_chunk()``: exact-retirement length, the decode loop's graph
+replays), overlapped admission (``_admit_overlapped``, under
+EnvFlags.overlap_admit), early retirement (``_prefetch_retire``), the
+lagged poll (``_retire_finished``), admission (``_admit_post_poll``); then it
+runs the queued embedding calls, cancels, observes the streams and wakes the
+waiters.
 Handler threads never touch a tensor. The batcher, and so its decode
 graphs, is built when the server is, before any of its threads starts.
 """
@@ -240,12 +244,11 @@ class InferenceServer:
     def __init__(self, engine: Engine, n_slots: int = 8, host: str = "127.0.0.1",
                  port: int = 8000, poll_every: int = POLL_EVERY,
                  request_timeout: Optional[float] = None):
-        """poll_every: decode steps between two polls (the batcher's chunk).
-        request_timeout: seconds after which a request is cancelled and its
-        slot freed (finish_reason "cancelled"); None = unbounded."""
+        """poll_every: the batcher's longest chunk (decode steps between two
+        polls). request_timeout: seconds after which a request is cancelled
+        and its slot freed (finish_reason "cancelled"); None = unbounded."""
         self.engine = engine
-        self.batcher = ContinuousBatcher(engine, n_slots=n_slots)
-        self.poll_every = poll_every
+        self.batcher = ContinuousBatcher(engine, n_slots=n_slots, poll_every=poll_every)
         self.host, self.port = host, port
         self.request_timeout = request_timeout
         self._incoming: "queue.Queue[_Pending]" = queue.Queue()
@@ -346,10 +349,14 @@ class InferenceServer:
                 self._wake.clear()
                 continue
             t1 = time.perf_counter()
-            b.step_chunk(self.poll_every)  # replays, then the poll that retires
+            flags = b.poll_flags_async()
+            b.step_chunk()
+            b._admit_overlapped()
+            fresh = b._prefetch_retire(flags)
+            b._retire_finished(fresh if fresh is not None else flags)
             t2 = time.perf_counter()
             lm["decode_poll"] += (t2 - t1) * 1e3
-            b._admit_pending()
+            b._admit_post_poll()
             t3 = time.perf_counter()
             lm["admit"] += (t3 - t2) * 1e3
             self._scan_cancels()
@@ -772,7 +779,8 @@ class InferenceServer:
                     self._json(200, {"served": outer._served,
                                      "loop_ms": {k: round(v, 1)
                                                  for k, v in outer.loop_ms.items()},
-                                     "batcher": outer.batcher.stats.report()})
+                                     "batcher": outer.batcher.stats.report(
+                                         outer.batcher.n_slots)})
                 elif self.path == "/v1/models":
                     # The base model and every LoRA adapter (each addressable
                     # through the `model` field).

@@ -88,6 +88,7 @@ def test_decode_progresses_during_long_admission():
     assert pf is not None and not bool(b.state.active[pf["slot"]])
     before = int(b.state.lengths[slot0])
     b.step_chunk(2)  # a decode chunk and ONE admission chunk
+    b._retire_finished()
     assert b._prefilling is pf and pf["off"] == 64
     assert int(b.state.lengths[slot0]) > before
 
@@ -105,6 +106,7 @@ def test_cancel_mid_prefill(layout):
     queued = b.submit(SHORT)
     assert b._prefilling is not None
     b.step_chunk(1)
+    b._retire_finished()
     assert b.cancel(rid)
     res = {r["req_id"]: r for r in b.run()}
     assert res[rid]["finish_reason"] == "cancelled" and res[rid]["generated_ids"] == []
@@ -125,6 +127,7 @@ def test_cancel_decoding_and_queued():
     first, queued = b.submit("cancel me while decoding"), b.submit("never admitted")
     b._admit_pending()
     b.step_chunk(2)
+    b._retire_finished()
     assert b.cancel(first) and b.cancel(queued) and not b.cancel(99)
     res = {r["req_id"]: r for r in b.run()}
     assert res[first]["finish_reason"] == res[queued]["finish_reason"] == "cancelled"
@@ -205,6 +208,7 @@ def test_eagle_carry_across_chunks_equals_one_shot():
         b._admit_pending()
         while b._prefilling is not None:
             b.step_chunk(1)
+            b._retire_finished()
             b._admit_pending()
         carry.append(b.state.last_hidden[0].clone())
         assert torch.equal(b.state.last_hidden[0], b.state.prev_hidden[0])

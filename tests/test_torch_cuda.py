@@ -1661,3 +1661,74 @@ def test_lora_and_embed4_replays_give_the_host_loops_bits(card):
     for g, w in zip(*runs, strict=True):
         for key in ("generated_ids", "token_logprobs", "proposed", "accepted"):
             assert g[key] == w[key], key
+
+
+@pytest.mark.cuda
+def test_poll_snapshot_on_the_card_holds_the_state_before_the_chunk(card):
+    """poll_flags_async on the card: its copies go into pinned host buffers
+    behind the work enqueued before it, marked by an event; read after the
+    next chunk they hold the flags, lengths and tokens as they stood before
+    it (while the state has moved on). Two buffer sets are written in turn,
+    and a handle whose set was written again raises. run() through the
+    pipelined loop gives the host-step batcher's results."""
+    eng, host = _graph_engines(card, max_draft=2, kv_layout="paged", kv_page_size=64,
+                               max_seq_len=512)
+    b = ContinuousBatcher(eng, n_slots=3)
+    for i in range(3):
+        b.submit("lagged snapshot " * (1 + i), max_new_tokens=12)
+    b._admit_pending()
+    lengths, tokens = b.state.lengths.cpu().numpy(), b.state.tokens.cpu().numpy()
+    first = b.poll_flags_async()
+    b.step_chunk(4)
+    flags, snap_tokens, _ = first.read()
+    assert flags[3].tolist() == lengths.tolist() and (snap_tokens == tokens).all()
+    assert flags[0].all() and (b.state.lengths.cpu().numpy() > lengths).all()
+    assert all(first.bufs[k].is_pinned() for k in ("flags", "tokens", "logprobs"))
+    second, third = b.poll_flags_async(), b.poll_flags_async()
+    assert third.bufs is first.bufs and second.bufs is not first.bufs
+    second.read()
+    with pytest.raises(RuntimeError, match="later one"):
+        first.read()
+    runs = []
+    for e in (eng, host):
+        bb = ContinuousBatcher(e, n_slots=3)
+        for i, budget in enumerate((3, 17, 9, 5, 12, 16)):
+            bb.submit("pipelined on the card " * (1 + i), max_new_tokens=budget)
+        runs.append(bb.run())
+    for g, w in zip(*runs, strict=True):
+        for key in ("generated_ids", "token_logprobs", "proposed", "accepted", "slot"):
+            assert g[key] == w[key], (key, g[key], w[key])
+
+
+@pytest.mark.cuda
+def test_adaptive_batcher_replays_give_the_host_steps_bits(card):
+    """controller="adaptive" in the batcher on the card: each chunk replays
+    the one-step loop of the scheduler's K, each K's captured at its first
+    chunk over the batcher's state in the engine's graph pool; the results
+    equal the host-step batcher's (the functional step at each K), and the
+    K moved."""
+    eng, host = _graph_engines(card, max_draft=2, kv_layout="paged", kv_page_size=64,
+                               max_seq_len=512, controller="adaptive",
+                               controller_params={"min_k": 1, "max_k": 4,
+                                                  "target_acceptance": 0.05, "window": 4})
+    runs = []
+    for e in (eng, host):
+        b = ContinuousBatcher(e, n_slots=3, poll_every=2)
+        b._calibrate_chunk_cost = lambda n, wall_ms: None
+        ks = []
+        inner = b._retire_finished
+
+        def poll(flags=None, b=b, ks=ks, inner=inner):
+            inner(flags)
+            ks.append(b.scheduler.k)
+
+        b._retire_finished = poll
+        for i, budget in enumerate((9, 17, 12, 16)):
+            b.submit("the same text again " * (1 + i), max_new_tokens=budget)
+        runs.append((b.run(), ks, b))
+    (got, ks, b), (want, hks, _) = runs
+    assert ks == hks and len(set(ks)) > 1, ks
+    assert b._k_loops and all(loop.graph is not None for loop in b._k_loops.values())
+    for g, w in zip(got, want, strict=True):
+        for key in ("generated_ids", "token_logprobs", "proposed", "accepted"):
+            assert g[key] == w[key], (key, g[key], w[key])

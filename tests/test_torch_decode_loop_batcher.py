@@ -70,6 +70,7 @@ def test_batcher_refuses_a_replaced_state():
     b.submit("hello", max_new_tokens=4)
     b._admit_pending()
     b.step_chunk(1)
+    b._retire_finished()
     b.state = copy.deepcopy(b.state)
     with pytest.raises(ValueError, match="another state"):
         b.step_chunk(1)

@@ -470,7 +470,7 @@ def test_gemma2_batcher_matches_jax(layout, page_size):
                  target_params=params_from_jax(target.params),
                  draft_params=params_from_jax(draft.params))
     b = ContinuousBatcher(eng, n_slots=3)
-    got = _drive(b, lambda: b.step_chunk(1), lambda: None)
+    got = _drive(b, lambda: b.step_chunk(1), b._retire_finished)
     assert sorted(got) == sorted(want) == list(range(len(REQUESTS)))
     for rid, r in got.items():
         w = want[rid]
@@ -480,4 +480,4 @@ def test_gemma2_batcher_matches_jax(layout, page_size):
         np.testing.assert_allclose(r["prompt_logprobs"][1:], w["prompt_logprobs"][1:],
                                    rtol=3e-5, atol=1e-4)
     assert sum(r["accepted"] for r in got.values()) > 0
-    assert b.stats.report()["admit_waves"] >= 2
+    assert b.stats.report(b.n_slots)["admit_waves"] >= 2

@@ -188,9 +188,25 @@ def test_ngram_batcher_equals_jax(layout):
 
 
 def test_batcher_refuses_adaptive_controllers():
+    """The batcher once refused both adaptive controllers; it now serves
+    them as JAX's does (K from the scheduler's EMA a chunk, or each slot's
+    K on the device): the ngram batcher's greedy ids equal the fixed-K
+    batcher's, and under the host controller ids, proposed and accepted
+    equal JAX's batcher's."""
+    kw = dict(kv_layout="paged", kv_page_size=16, kv_lazy_pages=False)
+    fixed = _serve(ContinuousBatcher(_port(**kw), n_slots=2))
     for name in ("adaptive", "adaptive-device"):
-        with pytest.raises(NotImplementedError, match="controller"):
-            ContinuousBatcher(_port(controller=name), n_slots=2)
+        ctl = dict(controller=name, controller_params={"min_k": 1, "max_k": 6,
+                                                       "target_acceptance": 0.05})
+        got = _serve(ContinuousBatcher(_port(**ctl, **kw), n_slots=2))
+        assert [r["generated_ids"] for r in got] == [r["generated_ids"] for r in fixed], name
+        if name == "adaptive":
+            want = _serve(JaxBatcher(JaxEngine(JaxEngineConfig(
+                implementation="hf", **dict(NGRAM, **ctl, **kw)), target_model=_target()),
+                n_slots=2))
+            for g, w in zip(got, want, strict=True):
+                for key in ("generated_ids", "proposed", "accepted", "finish_reason"):
+                    assert g[key] == w[key], (key, g[key], w[key])
 
 
 def test_config_refuses_settings_outside_the_slice():

@@ -158,7 +158,7 @@ def test_batcher_matches_jax(layout, page_size):
                  target_params=params_from_jax(target.params),
                  draft_params=params_from_jax(draft.params))
     b = ContinuousBatcher(eng, n_slots=3)
-    got = _drive(b, lambda: b.step_chunk(1), lambda: None)  # step_chunk retires itself
+    got = _drive(b, lambda: b.step_chunk(1), b._retire_finished)
     assert sorted(got) == sorted(want) == list(range(len(REQUESTS)))
     for rid, r in got.items():
         w = want[rid]
@@ -171,7 +171,7 @@ def test_batcher_matches_jax(layout, page_size):
                                    rtol=3e-5, atol=1e-4)
         assert r["prompt_logprobs"][0] is None and r["prompt_tokens_reused"] == 0
     assert sum(r["accepted"] for r in got.values()) > 0  # drafts are accepted: bonus paths run
-    stats = b.stats.report()
+    stats = b.stats.report(b.n_slots)
     assert stats["admitted"] == stats["retired"] == len(REQUESTS)
     assert stats["committed_tokens"] == sum(r["generated_tokens"] for r in got.values())
     assert stats["admit_waves"] >= 2  # the queued half was admitted as slots retired
@@ -262,6 +262,7 @@ def test_retired_slot_cannot_corrupt_reused_pages():
     assert first_page != 0
     before = b.state.target_cache.k[0, first_page].clone()
     b.step_chunk(2)
+    b._retire_finished()
     after = b.state.target_cache.k[0, first_page]
     guard = min(16, len(b._slots[slot].ids))  # page rows holding prompt KV stay put
     assert torch.equal(before[:, :guard], after[:, :guard])

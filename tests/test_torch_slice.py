@@ -172,7 +172,8 @@ def test_port_imports_no_jax():
         "models/phi3", "models/mixtral", "models/gpt2", "models/opt", "models/loader",
         "models/checkpoint", "models/factory", "ops/moe", "utils/safetensors",
         "constrain/__init__", "constrain/jsonfsm", "constrain/regex", "constrain/schema",
-        "constrain/tools", "constrain/runtime")}
+        "constrain/tools", "constrain/runtime", "core/scheduler", "metrics/__init__",
+        "metrics/profiler")}
     for f in files:
         text = f.read_text()
         assert not _FORBIDDEN.search(text), f"{f} imports JAX or the JAX package"
