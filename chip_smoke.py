@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (llm_inference_lab_tpu_torch) on one
 NVIDIA card: the quickest proof that the port builds and runs on the GPU.
 
-    python3 chip_smoke.py                    # phases 0-24, last line a JSON result
+    python3 chip_smoke.py                    # phases 0-25, last line a JSON result
     python3 chip_smoke.py --profile          # also a torch.profiler breakdown of runs
     python3 chip_smoke.py --profile=gemma    # the breakdown of the Gemma-2 runs only
     python3 chip_smoke.py --profile=mistral  # the breakdown of the Mistral B=1 run only
@@ -271,6 +271,22 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
     loop in turns with the direct batcher; (e) Engine.profile_phases on
     phase 3's engine (each phase a CUDA graph's replays), and a profiled
     generate whose phase_ms has no error;
+ 25. (after phase 5) the bench harness and the CLI at phase 3's main path
+    (int4 3B + 1B, K=1, the int8 embedding and tied head): (a) `cli run`
+    in two subprocesses, on configs/llama32_pair.yaml with phase 3's
+    settings as flags and on configs/llama32_int8.yaml with phase 4's,
+    each text equal to its phase's; (b) run_k_sweep for K = 1-4 over
+    PROMPT_SUITE (B = 10), one iteration: every K a success with no
+    error, one capture a K (the warm-up's shape replayed), tok/s,
+    aggregate tok/s, step ms and each K's set-up seconds apart; (c)
+    compare_to_baseline on bench.py's prompt; (d) run_stress, 200 requests
+    of churn through 8 paged slots: every request completed and non-empty,
+    latency degradation under JAX's 2.5, RSS and device-memory growth;
+    (e) the perplexity of the 3B in bf16, int8 and int4 (quantized_clone)
+    over 4 rows of 512 ids from the seed, each finite and above 1, the
+    deltas and a forward's ms; (f) `cli serve` in a subprocess on a free
+    port and BenchmarkRunner(mode="http") against it (healthy, every
+    request a success; the subprocess killed in a finally);
  9. the kernels' JSON line (every kernel, launches by path; the Gemma-2
     variants of D, E and F, the ring variants of D and E, the ngram
     verify shapes of B, D and C, D's and F's tree variants and A at the 8B
@@ -296,6 +312,7 @@ import gc
 import hashlib
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -310,6 +327,7 @@ PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
 SPIN_CYCLES_PER_S = 1.98e9  # H100 SXM top SM clock: a spin lasts at least this long
 L2_BYTES = 50 << 20
+ROOT = os.path.dirname(os.path.abspath(__file__))  # the checkout: phase 25's subprocesses run here
 PROMPT = "The quick brown fox jumps over the lazy dog. " * 3
 T_MAIN = 256  # cache length of the main path (P = 160, 64 new tokens, K = 1)
 P_MAIN = 167  # a mid-generation position: prompt (135) + 32 tokens
@@ -639,6 +657,18 @@ PATH_KERNELS = {
     # path's kernels).
     "serving int4 pipelined loop (16 requests)": INT4 | SERVE,
     "serving int4 pipelined loop, staggered arrivals (32 requests)": INT4 | SERVE,
+    # Phase 25: the bench harness on phase 3's engine settings. The sweep's
+    # B = 10 rows stay under MMA_MIN_M at every K (verify 10 x (K + 1) <=
+    # 50); its prefill (10 x 64 rows) and the baseline comparison's (160)
+    # take A's tensor-core path. The perplexity forwards (S = 512: E, and
+    # A's or B's tensor-core path) run eagerly on a bf16 3B and its int8 and
+    # int4 clones (the bf16 projections and head are torch.matmul).
+    "bench k_sweep int4 K=1-4 (10 prompts a batch)": INT4 | SPEC,
+    "bench compare_to_baseline int4 (spec, then baseline)": INT4 | SPEC,
+    "bench stress int4 paged (200 requests, 8 slots)": INT4 | SERVE,
+    "bench perplexity 3B bf16, int8, int4 (4 x 512 ids)": {
+        "rms_norm", "add_rms_norm", "flash_prefill", "quant_matmul_int8_mma",
+        "quant_matmul_int4_mma"},
 }
 GEMMA_PATHS = [path for path in PATH_KERNELS if "gemma-2" in path]
 MISTRAL_PATHS = [path for path in PATH_KERNELS if "mistral" in path]
@@ -672,6 +702,12 @@ ADAPTIVE_BUDGET = 192  # phase 24 (c): new tokens of each ngram request
 # Phase 3b's ids by request (phase_serving), which phase 22 holds its free
 # requests on a table-carrying engine to.
 SERVED_IDS = {}
+# Phases 3's and 4's B=1 text (phase_end_to_end), which phase 25 (a) holds
+# the CLI's to.
+END_TO_END_TEXT = {}
+HARNESS_PATHS = [path for path in PATH_KERNELS if path.startswith("bench ")]
+PPL_ROWS, PPL_S = 4, 512  # phase 25 (e): rows of ids a model, ids a row
+HARNESS_TIMEOUT_S = 600  # a CLI subprocess's limit in phase 25
 
 
 T_START = time.perf_counter()
@@ -2385,6 +2421,7 @@ def phase_end_to_end(dev, profile, cfg, path, label):
         assert len(lp) == r["generated_tokens"] and torch.isfinite(lp).all(), "bad logprobs"
     assert runs[0]["generated_tokens"] >= 1
     ids_digest(path, [ids])
+    END_TO_END_TEXT[path] = runs[0]["text"]
     # The baseline is timed as the spec run is: one warm-up, median of 3.
     base_eng = Engine(replace(cfg, draft_model=None), device=dev, target_params=eng.target.params)
     base_eng.generate(PROMPT)
@@ -5849,6 +5886,247 @@ def phase_prefix_prefill(dev):
                 f"boolean mask)")
 
 
+# ------------------------------------------- phase 25: bench harness and CLI
+def cli_command(*args):
+    """`python -m llm_inference_lab_tpu_torch.cli` with args, from the
+    checkout's root."""
+    return [sys.executable, "-m", "llm_inference_lab_tpu_torch.cli", *args]
+
+
+PHASE3_FLAGS = ("--config", os.path.join(ROOT, "configs", "llama32_pair.yaml"), "-k", "1",
+                "--quantization", "int4", "--quantize-embed", "--quantized-init", "--seed", "0")
+PHASE4_FLAGS = ("--config", os.path.join(ROOT, "configs", "llama32_int8.yaml"),
+                "--quantized-init", "--kv-quantization", "int8", "--seed", "0")
+
+
+def harness_cli_runs(paths):
+    """(a) `cli run` on phase 3's and phase 4's engines, in two
+    subprocesses at once (configs/llama32_pair.yaml with phase 3's settings
+    as flags; configs/llama32_int8.yaml with the quantized init and the
+    int8 KV of phase 4): each prints one JSON line whose text is its
+    phase's."""
+    from llm_inference_lab_tpu_torch.config import EngineConfig
+    from llm_inference_lab_tpu_torch.cli import build_config, build_parser
+
+    runs = {paths[0]: PHASE3_FLAGS, paths[2]: PHASE4_FLAGS}
+    for path, flags in runs.items():  # the flags give the phase's engine
+        cfg = build_config(build_parser().parse_args(["run", PROMPT, *flags]))
+        want = EngineConfig(**(INT4_CFG if path == paths[0] else INT8_CFG))
+        assert cfg == want, (path, cfg, want)
+    t0 = time.perf_counter()
+    procs = {path: subprocess.Popen(cli_command("run", PROMPT, *flags), cwd=ROOT,
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for path, flags in runs.items()}
+    try:
+        outs = {path: proc.communicate(timeout=HARNESS_TIMEOUT_S)
+                for path, proc in procs.items()}
+    finally:
+        for proc in procs.values():
+            proc.kill()
+            proc.wait()
+    for path, (out, err) in outs.items():
+        assert procs[path].returncode == 0, (path, "cli run failed", err[-3000:])
+        result = json.loads(out.strip().splitlines()[-1])
+        assert "generated_ids" not in result
+        assert result["text"] == END_TO_END_TEXT[path], (path, "cli run text != its phase's")
+        log(f"cli run ({' '.join(runs[path])}): text == phase's ({path}); "
+            f"{result['generated_tokens']} tokens, {result['steps']} steps, "
+            f"{result['tokens_per_sec']:.2f} tok/s, acceptance {result['acceptance_rate']:.4f}")
+    log(f"cli run: two subprocesses in {time.perf_counter() - t0:.1f} s")
+
+
+def harness_k_sweep(dev, path):
+    """(b) run_k_sweep at phase 3's engine settings for K = 1-4 over
+    PROMPT_SUITE (one batch of 10), one iteration: every K a success (a
+    caught failure fails the phase), each K's decode loop captured once
+    at the warm-up's shape and replayed by the timed iteration."""
+    from llm_inference_lab_tpu_torch.bench.k_sweep import PROMPT_SUITE, run_k_sweep
+    from llm_inference_lab_tpu_torch.core.specstep import DecodeLoop
+
+    cfg = dict(INT4_CFG)
+    named = {k: cfg.pop(k) for k in ("base_model", "draft_model", "max_new_tokens",
+                                     "quantization", "seed")}
+    cfg.pop("max_draft")
+    captured, inner = [], DecodeLoop._capture
+
+    def capture(loop, state):
+        captured.append(tuple(state.tokens.shape))
+        return inner(loop, state)
+
+    DecodeLoop._capture = capture
+    try:
+        out, launches = count_launches(path, lambda: run_k_sweep(
+            implementation="hf", max_k=4, iterations=1, device=dev, **named, **cfg))
+    finally:
+        DecodeLoop._capture = inner
+    rows = out["summary_results"]
+    for k, row in rows.items():
+        assert row["success_rate"] == 1.0 and "error" not in row, (k, row.get("error"))
+    B = len(PROMPT_SUITE)
+    assert len(captured) == len(rows) and all(shape[0] == B for shape in captured), captured
+    assert out["system_info"]["backend"] == torch.device(dev).type, out["system_info"]
+    log(f"k_sweep (B={B}, {named['max_new_tokens']} new tokens, 1 iteration; captures "
+        f"{captured}, one a K): " + "; ".join(
+            f"{k}: {row['tokens_per_sec']['mean']:.2f} tok/s a request, aggregate "
+            f"{row['aggregate_tokens_per_sec']['mean']:.2f} tok/s, step "
+            f"{row['step_latency_ms']['mean']:.3f} ms, acceptance "
+            f"{row['acceptance_rate']['mean']:.4f}, set-up {row['setup_s']:.2f} s"
+            for k, row in rows.items()))
+    log(f"k_sweep system_info: {json.dumps(out['system_info'])}")
+    return launches
+
+
+def harness_compare(dev, path):
+    """(c) compare_to_baseline on bench.py's prompt (one warm-up, three
+    runs each): random weights accept nothing."""
+    from llm_inference_lab_tpu_torch.bench.run_bench import BenchmarkRunner
+    from llm_inference_lab_tpu_torch.config import EngineConfig
+
+    def run():
+        runner = BenchmarkRunner(mode="specdec", config=EngineConfig(**INT4_CFG), warmup=1,
+                                 iterations=3, device=dev)
+        return runner.compare_to_baseline([PROMPT], max_new_tokens=INT4_CFG["max_new_tokens"])
+
+    out, launches = count_launches(path, run)
+    spec, base = out["specdec"], out["baseline"]
+    assert spec["tokens_per_sec"]["mean"] > 0 and base["tokens_per_sec"]["mean"] > 0
+    assert base["acceptance_rate"]["mean"] == 0.0
+    log(f"compare_to_baseline (3 runs each): spec {spec['tokens_per_sec']['median']:.2f} tok/s "
+        f"(latency {spec['latency_ms']['median']:.2f} ms, acceptance "
+        f"{spec['acceptance_rate']['mean']:.4f}), baseline {base['tokens_per_sec']['median']:.2f}"
+        f" tok/s (latency {base['latency_ms']['median']:.2f} ms); speedup {out['speedup']:.4f}")
+    return launches
+
+
+def harness_stress(dev, path):
+    """(d) run_stress: StressConfig's 200 requests of churn through 8 paged
+    slots (page 64, lanes of SERVE_MAX_LEN) on phase 3's weights."""
+    from llm_inference_lab_tpu_torch.bench.stress import StressConfig, run_stress
+    from llm_inference_lab_tpu_torch.config import EngineConfig
+    from llm_inference_lab_tpu_torch.core.engine import Engine
+
+    cfg = EngineConfig(**INT4_CFG).override(max_seq_len=SERVE_MAX_LEN, kv_layout="paged",
+                                           kv_page_size=SERVE_PAGE)
+    eng = Engine(cfg, device=dev)
+    stress_cfg = StressConfig(n_slots=SERVE_SLOTS)
+    report, launches = count_launches(path, lambda: run_stress(eng, stress_cfg))
+    assert report["completed"] == stress_cfg.total_requests and report["all_nonempty"], report
+    assert report["latency_degradation"] < 2.5, report["latency_degradation"]
+    first, last = report["first_window"], report["last_window"]
+    log(f"stress ({report['completed']} requests, {SERVE_SLOTS} paged slots): "
+        f"{report['tokens']} tokens in {report['wall_s']:.3f} s = "
+        f"{report['tokens_per_sec']:.2f} tok/s, {report['decode_steps']} steps in "
+        f"{report['polls']} polls; poll p50 {first['p50_ms']:.3f} -> {last['p50_ms']:.3f} ms, "
+        f"p95 {first['p95_ms']:.3f} -> {last['p95_ms']:.3f} ms (degradation "
+        f"{report['latency_degradation']:.4f}); RSS growth {report['rss_growth_mb']:.1f} MB, "
+        f"device memory growth {report['device_mem_growth_mb']} MB")
+    return launches
+
+
+def forward_ms(evaluator, tokens, length, runs=3):
+    """Median ms of one perplexity forward between CUDA events, the card
+    idle before each (its eager ops queue faster than the card runs them,
+    so the events time the card's work)."""
+    times = []
+    for _ in range(runs + 1):  # the first run warms the allocator
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        evaluator._nll(tokens, length)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times[1:])
+
+
+def harness_perplexity(dev, path):
+    """(e) the perplexity of the 3B in bf16 and of its int8 and int4 clones
+    (quantized_clone: JAX's min_size 1024) over PPL_ROWS rows of PPL_S ids
+    from the seed; one forward's device ms of each."""
+    import numpy as np
+
+    from llm_inference_lab_tpu_torch.bench.quality_eval import (
+        PerplexityEvaluator,
+        perplexity_delta,
+        quantized_clone,
+    )
+    from llm_inference_lab_tpu_torch.models import registry
+
+    model = registry.create(INT4_CFG["base_model"], device=dev, dtype=torch.bfloat16, seed=0)
+    assert model.weights_source == "random", model.weights_source
+    rng = np.random.default_rng(25)
+    rows = [rng.integers(1, model.config.vocab_size, PPL_S).tolist() for _ in range(PPL_ROWS)]
+    clones = {mode: quantized_clone(model, mode) for mode in ("int8", "int4")}
+
+    def run():
+        return {mode: perplexity_delta(model, clone, rows, max_seq_len=PPL_S)
+                for mode, clone in clones.items()}
+
+    deltas, launches = count_eager(path, run)
+    tokens = torch.tensor(rows[:1], dtype=torch.int32, device=dev)
+    length = torch.tensor([PPL_S], dtype=torch.int32, device=dev)
+    ms = {name: forward_ms(PerplexityEvaluator(m, PPL_S), tokens, length)
+          for name, m in (("bf16", model), *clones.items())}
+    for mode, d in deltas.items():
+        assert all(math.isfinite(d[k]) and d[k] > 1 for k in ("ppl_a", "ppl_b")), (mode, d)
+    log(f"perplexity of the 3B over {PPL_ROWS} x {PPL_S} ids (random weights): bf16 "
+        f"{deltas['int8']['ppl_a']:.4f}; " + "; ".join(
+            f"{mode} {d['ppl_b']:.4f} (delta {d['delta']:+.4f}, "
+            f"{d['delta'] / d['ppl_a']:+.3e} relative)" for mode, d in deltas.items())
+        + f"; a forward of S = {PPL_S}: " + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items()))
+    return launches
+
+
+def harness_serve():
+    """(f) `cli serve` (phase 3's engine, a contiguous cache, 8 slots) in a
+    subprocess on a free port; BenchmarkRunner(mode="http") against it:
+    healthy, every request a success. The subprocess is killed however
+    the phase ends."""
+    import select
+
+    from llm_inference_lab_tpu_torch.bench.k_sweep import PROMPT_SUITE
+    from llm_inference_lab_tpu_torch.bench.run_bench import BenchmarkRunner
+
+    proc = subprocess.Popen(cli_command("serve", *PHASE3_FLAGS, "--port", "0", "--slots",
+                                        str(SERVE_SLOTS)), cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    served = False
+    try:
+        t0 = time.perf_counter()
+        ready, _, _ = select.select([proc.stdout], [], [], HARNESS_TIMEOUT_S)
+        line = proc.stdout.readline() if ready else ""
+        assert line, ("cli serve printed no address", proc.poll())
+        url = json.loads(line)["serving"]
+        log(f"cli serve: {url} after {time.perf_counter() - t0:.1f} s")
+        runner = BenchmarkRunner(mode="http", server_url=url, iterations=1)
+        out = runner.run(PROMPT_SUITE, max_new_tokens=32)
+        assert out["healthy"] and out["success_rate"] == 1.0, out
+        log(f"http runner against cli serve ({len(PROMPT_SUITE)} requests one at a time, 32 "
+            f"new tokens): latency median {out['latency_ms']['median']:.2f} ms, "
+            f"{out['tokens_per_sec']['median']:.2f} tok/s a request, success rate "
+            f"{out['success_rate']}")
+        served = True
+    finally:
+        proc.kill()
+        _, err = proc.communicate(timeout=60)
+        if not served:
+            log(f"cli serve's stderr, its end: {err[-3000:]}")
+
+
+def phase_harness(dev, paths):
+    """Phase 25: the bench harness and the CLI at phase 3's main path."""
+    harness_cli_runs(list(PATH_KERNELS))
+    launches = {}
+    for path, run in zip(paths, (harness_k_sweep, harness_compare, harness_stress,
+                                 harness_perplexity)):
+        t0 = time.perf_counter()
+        launches[path] = run(dev, path)
+        free_card()
+        log(f"phase 25 {path} took {time.perf_counter() - t0:.1f} s")
+    harness_serve()
+    return launches
+
+
 def profile_run(what, fn, latency_ms):
     """Kernel time by name over one profiled call of fn, and the device's
     busy share: the union of the kernels' intervals over the latency of an
@@ -6095,7 +6373,10 @@ def main(argv):
                                       "3B int8 + 1B draft, K=4, int8 KV")
     log(f"phase 5 took {time.perf_counter() - t0:.1f} s")
     del eng
-    torch.cuda.empty_cache()
+    free_card()
+    t0 = time.perf_counter()
+    on_path.update(phase_harness(dev, HARNESS_PATHS))
+    log(f"phase 25 took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     eng, on_path[NGRAM_PATHS[0]] = phase_ngram(dev, profile, NGRAM_PATHS[0])
     on_path[NGRAM_PATHS[1]] = phase_serving(dev, eng, profile, SERVE_MAX_LEN, NGRAM_PATHS[1],

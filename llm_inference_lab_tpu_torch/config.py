@@ -35,14 +35,15 @@ fields it reads, and JAX's two serving switches that its batcher reads
 inline from the environment (``SPECDX_OVERLAP_ADMIT``,
 ``SPECDX_FUSED_ADMIT``). It has no ``from_env``: the port reads no
 environment variable, and a caller passes ``Engine(config,
-flags=EnvFlags(...))``.
+flags=EnvFlags(...))`` or ``run_k_sweep(flags=EnvFlags(...))``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Any, Dict, Optional
 
 DRAFT_MODES = ("vanilla", "ngram", "medusa", "eagle", "tree")
 # The modes that draft from the target's hidden-state carry: no draft model.
@@ -64,6 +65,11 @@ class EnvFlags:
     # ahead of its replays (fused_admit).
     overlap_admit: bool = False
     fused_admit: bool = False
+    # The K sweep's (bench/k_sweep.py): synthetic results without touching
+    # the device (JAX's SPECDX_DRY_RUN), and its batch size (JAX's
+    # SPECDX_BATCH_SIZE; 0: the whole prompt suite in one batch).
+    dry_run: bool = False
+    batch_size: int = 0
 
 
 @dataclass
@@ -195,6 +201,11 @@ class EngineConfig:
     # Tree speculation: children per node at each depth (core/treespec.py).
     tree: dict = field(default_factory=lambda: {"branching": [3, 2]})
 
+    def override(self, **kwargs: Any) -> "EngineConfig":
+        """A copy with the non-None values applied (JAX's config.py:236-241,
+        the CLI layer)."""
+        return dataclasses.replace(self, **{k: v for k, v in kwargs.items() if v is not None})
+
     def validate(self) -> None:
         """Reject settings outside the ported slice instead of ignoring them."""
         if self.implementation not in ("hf", "fake"):
@@ -300,3 +311,24 @@ class EngineConfig:
         if self.controller != "fixed":
             raise NotImplementedError(f"tree mode has no K; controller {self.controller!r} is "
                                       "not ported for it")
+
+
+def load_config(path: Optional[str] = None, defaults: Optional[Dict[str, Any]] = None,
+                **overrides: Any) -> EngineConfig:
+    """An EngineConfig from defaults <- the config file at path <- overrides
+    (None ones skipped), JAX's precedence (config.py:244-257). defaults:
+    field values beneath the file's (the CLI's own defaults). A key the
+    port's config does not have raises: it is not ported (JAX drops it)."""
+    data: Dict[str, Any] = dict(defaults or {})
+    if path:
+        import yaml
+
+        with open(path) as f:
+            data.update(yaml.safe_load(f) or {})
+    data.update({k: v for k, v in overrides.items() if v is not None})
+    known = {f.name for f in dataclasses.fields(EngineConfig)}
+    unknown = sorted(set(data) - known)
+    if unknown:
+        raise ValueError(f"config keys {unknown} are not fields of the port's EngineConfig")
+    return EngineConfig(**data)
+

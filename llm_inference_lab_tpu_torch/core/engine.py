@@ -442,9 +442,10 @@ class Engine:
 
     def generate(self, prompt: str, seed: Optional[int] = None,
                  response_format: Optional[str] = None,
-                 adapter: Optional[str] = None) -> Dict[str, Any]:
+                 adapter: Optional[str] = None,
+                 max_new_tokens: Optional[int] = None) -> Dict[str, Any]:
         return self.generate_batch([prompt], seed=seed, response_format=response_format,
-                                   adapter=adapter)[0]
+                                   adapter=adapter, max_new_tokens=max_new_tokens)[0]
 
     def encode(self, prompt: str, max_new: int, max_seq_len: int) -> List[int]:
         """Prompt ids, cut to leave room for max_new tokens and the step's
@@ -457,16 +458,18 @@ class Engine:
 
     def generate_batch(self, prompts: List[str], seed: Optional[int] = None,
                        response_format: Optional[str] = None,
-                       adapter: Optional[str] = None) -> List[Dict[str, Any]]:
+                       adapter: Optional[str] = None,
+                       max_new_tokens: Optional[int] = None) -> List[Dict[str, Any]]:
         """One result dict per prompt. seed: the key of the call's sampling
         (the config's seed when None); response_format: the grammar key of
         the whole batch (None: the deployment's default; _resolve_fsm_initial
         raises for a key it cannot serve); adapter: the LoRA adapter of the
         whole batch (None: the base model; lora_id raises for an unknown
-        name)."""
+        name); max_new_tokens: the call's budget (None: the config's), as
+        JAX's generate_batch takes it."""
         with torch.inference_mode():
             results = self._build_results(*self._decode(prompts, seed, response_format,
-                                                        adapter))
+                                                        adapter, max_new_tokens))
         if self.profiler.enabled and self.profiler.phase_ms is None:
             # The phase breakdown once an engine (JAX engine.py:1139-1151,
             # whose SPECDX_PROFILE_PHASES is on by default): a failure is
@@ -490,22 +493,24 @@ class Engine:
         return state, plens, decode_s, total_s
 
     def _decode(self, prompts: List[str], seed: Optional[int],
-                response_format: Optional[str] = None, adapter: Optional[str] = None
+                response_format: Optional[str] = None, adapter: Optional[str] = None,
+                max_new_tokens: Optional[int] = None
                 ) -> Tuple[DecodeState, np.ndarray, float, float]:
-        max_new = self.config.max_new_tokens
+        max_new = self.config.max_new_tokens if max_new_tokens is None else max_new_tokens
         seed = self.config.seed if seed is None else seed
         fsm_init = self._resolve_fsm_initial(response_format)
         lora_id = self.lora_id(adapter)
         constrained = fsm_init != fsm.UNCONSTRAINED
-        block, plens, max_len = self._prompt_block(prompts)
+        block, plens, max_len = self._prompt_block(prompts, max_new)
         dev = self.device
         t_start = time.perf_counter()
         prompt = torch.from_numpy(block).to(dev), torch.from_numpy(plens).to(dev)
         if self.flags.sync_steps:
-            state = self._prefill(self._init_state(len(plens), max_len, seed, fsm_init, lora_id),
-                                  *prompt)
+            state = self._prefill(self._init_state(len(plens), max_len, seed, fsm_init, lora_id,
+                                                   max_new), *prompt)
         else:
-            state, loop = self._decode_state(len(plens), max_len, seed, fsm_init, lora_id)
+            state, loop = self._decode_state(len(plens), max_len, seed, fsm_init, lora_id,
+                                             max_new)
             assign(state, self._prefill(state, *prompt))
         self._sync()
         t_decode = time.perf_counter()
@@ -531,13 +536,15 @@ class Engine:
         total_s = time.perf_counter() - t_start
         return state, plens, decode_s, total_s
 
-    def _prompt_block(self, prompts: List[str]) -> Tuple[np.ndarray, np.ndarray, int]:
+    def _prompt_block(self, prompts: List[str], max_new: Optional[int] = None
+                      ) -> Tuple[np.ndarray, np.ndarray, int]:
         """The right-padded prompt block [B, P], the prompt lengths and the
         buffer length: P a multiple of 32 (and of prefill_chunk when the
-        prompt is longer than a chunk), the buffer P + max_new + K + 2
-        rounded up to 128."""
+        prompt is longer than a chunk), the buffer P + max_new (the config's
+        budget when None) + K + 2 rounded up to 128."""
         cfg = self.config
-        enc = [self.encode(p, cfg.max_new_tokens, cfg.max_seq_len) for p in prompts]
+        max_new = cfg.max_new_tokens if max_new is None else max_new
+        enc = [self.encode(p, max_new, cfg.max_seq_len) for p in prompts]
         plens = np.array([len(e) for e in enc], np.int32)
         P = _round_up(max(int(plens.max()), 1), 32)
         if cfg.prefill_chunk and P > cfg.prefill_chunk:
@@ -545,7 +552,7 @@ class Engine:
         block = np.zeros((len(enc), P), np.int32)
         for i, e in enumerate(enc):
             block[i, : len(e)] = e
-        return block, plens, _round_up(P + cfg.max_new_tokens + self._max_k + 2, 128)
+        return block, plens, _round_up(P + max_new + self._max_k + 2, 128)
 
     def sampling_defaults(self) -> Dict[str, float]:
         """Each slot's sampling values with no request's own (JAX's
@@ -569,31 +576,34 @@ class Engine:
         return self._step, self._step_in_place
 
     def _init_state(self, B: int, max_len: int, seed: Optional[int] = None,
-                    fsm_init: int = fsm.UNCONSTRAINED, lora_id: int = -1) -> DecodeState:
+                    fsm_init: int = fsm.UNCONSTRAINED, lora_id: int = -1,
+                    max_new: Optional[int] = None) -> DecodeState:
         cfg = self.config
         return init_state(self.target, self.draft, B, max_len, self.device,
-                          max_new_tokens=cfg.max_new_tokens, paged=cfg.kv_layout == "paged",
+                          max_new_tokens=cfg.max_new_tokens if max_new is None else max_new,
+                          paged=cfg.kv_layout == "paged",
                           page_size=cfg.kv_page_size, kv_dtype=self.kv_dtype,
                           seed=cfg.seed if seed is None else seed, init_k=self.controller.k,
                           defaults=self.sampling_defaults(), logprobs_topk=cfg.logprobs_topk,
                           fsm_init=fsm_init, lora_id=lora_id)
 
     def _decode_state(self, B: int, max_len: int, seed: Optional[int] = None,
-                      fsm_init: int = fsm.UNCONSTRAINED,
-                      lora_id: int = -1) -> Tuple[DecodeState, DecodeLoop]:
+                      fsm_init: int = fsm.UNCONSTRAINED, lora_id: int = -1,
+                      max_new: Optional[int] = None) -> Tuple[DecodeState, DecodeLoop]:
         """The decode state of this shape, reset to init_state's values with
         every lane's FSM at fsm_init and adapter lora_id, and the loop to
         replay over it: the unconstrained step's, or with fsm_init set the
         constrained step's (each captured at its first call, both over the
         same state)."""
         seed = self.config.seed if seed is None else seed
+        max_new = self.config.max_new_tokens if max_new is None else max_new
         held = self._decode_states.get((B, max_len))
         if held is None:
-            held = (self._init_state(B, max_len, seed, fsm_init, lora_id),
+            held = (self._init_state(B, max_len, seed, fsm_init, lora_id, max_new),
                     make_decode_loop(self._decode_steps()[1], pool=self.graph_pool))
             self._decode_states[(B, max_len)] = held
         else:
-            reset_state(held[0], self.config.max_new_tokens, seed, self.controller.k,
+            reset_state(held[0], max_new, seed, self.controller.k,
                         self.sampling_defaults(), fsm_init, lora_id)
         if fsm_init == fsm.UNCONSTRAINED:
             return held

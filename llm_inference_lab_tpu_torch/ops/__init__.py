@@ -1,5 +1,8 @@
 """The port's ops. ``kernel_wrappers`` names every wrapper that launches a
-kernel: each carries a ``launches`` count, one a launch, on the card only."""
+kernel: each carries a ``launches`` count, one a launch, on the card only.
+``kernel_backends`` says what runs each op the engine dispatches."""
+
+from typing import Dict
 
 
 def kernel_wrappers() -> dict:
@@ -42,3 +45,35 @@ def kernel_wrappers() -> dict:
             "flash_decode_tree_int8": flash_decode_tree_int8,
             "paged_flash_tree": paged_flash_tree, "paged_flash_tree_int8": paged_flash_tree_int8,
             "verify_prefix": verify_prefix}
+
+
+def kernel_backends(device) -> Dict[str, str]:
+    """op the engine dispatches (JAX's registry names) -> what runs it on
+    `device`: on CUDA the csrc/ sources its wrappers build (each wrapper
+    module's LIBRARY, the one its launches load), on the CPU "plain" (the
+    wrappers' plain versions); "torch" for moe_mlp, PyTorch ops on both
+    (ops/moe.py, as JAX's XLA moe_dense: no kernel)."""
+    import torch
+
+    from llm_inference_lab_tpu_torch.ops import (
+        flash_decode,
+        flash_prefill,
+        paged_flash,
+        quant_matmul,
+        rms_norm,
+        verify,
+    )
+
+    libraries = {
+        "quant_matmul": (quant_matmul.INT4_LIBRARY, quant_matmul.INT8_LIBRARY),
+        "verify_prefix": (verify.LIBRARY,),
+        "decode_attention": (flash_decode.LIBRARY, flash_decode.LIBRARY + flash_decode.TREE),
+        "prefill_attention": (flash_prefill.LIBRARY,),
+        "paged_attention": (paged_flash.LIBRARY, paged_flash.LIBRARY + flash_decode.TREE),
+        "rms_norm": (rms_norm.LIBRARY,),
+    }
+    on_card = torch.device(device).type == "cuda"
+    out = {op: (", ".join(f"csrc/{name}.cu" for name in names) if on_card else "plain")
+           for op, names in libraries.items()}
+    out["moe_mlp"] = "torch"
+    return out

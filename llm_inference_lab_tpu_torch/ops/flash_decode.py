@@ -50,6 +50,8 @@ RING_MIN = 64  # the kernels' key tile: a shorter ring is refused on the card
 SPLIT = 256  # kernel D's split of the keys, at fixed absolute positions (csrc/attn_mma.cuh)
 ROWS = 64  # query rows a block of kernels D and E
 HEAD_DIMS = (64, 96, 128, 256)  # the head dims csrc/attn_mma.cuh is built for
+LIBRARY = "flash_decode"  # csrc/flash_decode.cu
+TREE = "_tree"  # a tree variant's library: csrc/<kernel>_tree.cu
 
 
 def dequantize_cache(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -401,7 +403,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions: t
         return flash_decode_int8(q, k, v, positions, k_scale, v_scale, **options)
     if not q.is_cuda:
         return flash_decode_plain(q, k, v, positions, **options)
-    out = launch_planes("flash_decode", q, k, v, positions, None, None, Options(**options))
+    out = launch_planes(LIBRARY, q, k, v, positions, None, None, Options(**options))
     flash_decode.launches += 1
     return out
 
@@ -412,7 +414,7 @@ def flash_decode_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positio
     [B, KVH, T]."""
     if not q.is_cuda:
         return flash_decode_plain(q, k, v, positions, k_scale, v_scale, **options)
-    out = launch_planes("flash_decode", q, k, v, positions, k_scale, v_scale, Options(**options))
+    out = launch_planes(LIBRARY, q, k, v, positions, k_scale, v_scale, Options(**options))
     flash_decode_int8.launches += 1
     return out
 
@@ -447,7 +449,7 @@ def launch_tree(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if bits.device != q.device or chunk_start.device != q.device:
         raise ValueError(f"{name} kernel needs all operands on one device")
     positions = torch.empty((B, S), dtype=torch.int32, device=q.device)  # the checks' shape
-    lib = build.library(kernel + "_tree")
+    lib = build.library(kernel + TREE)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     scale, softcap, _ = opts.kernel_args(q.shape[3])
     out = torch.empty_like(q)
@@ -512,7 +514,7 @@ def flash_decode_tree(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not q.is_cuda:
         return flash_decode_plain(q, k, v, torch.zeros(q.shape[:2], dtype=torch.int32),
                                   tree_mask=tree_mask, chunk_start=chunk_start, **options)
-    out = launch_tree("flash_decode", q, k, v, None, None, tree_mask, chunk_start,
+    out = launch_tree(LIBRARY, q, k, v, None, None, tree_mask, chunk_start,
                       Options(**options), bits, name="flash_decode_tree")
     flash_decode_tree.launches += 1
     return out
@@ -527,7 +529,7 @@ def flash_decode_tree_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_decode_plain(q, k, v, torch.zeros(q.shape[:2], dtype=torch.int32), k_scale,
                                   v_scale, tree_mask=tree_mask, chunk_start=chunk_start,
                                   **options)
-    out = launch_tree("flash_decode", q, k, v, k_scale, v_scale, tree_mask, chunk_start,
+    out = launch_tree(LIBRARY, q, k, v, k_scale, v_scale, tree_mask, chunk_start,
                       Options(**options), bits, name="flash_decode_tree_int8")
     flash_decode_tree_int8.launches += 1
     return out

@@ -32,6 +32,8 @@ import torch
 
 from llm_inference_lab_tpu_torch.ops.flash_decode import Options, flash_decode_plain, launch_planes
 
+LIBRARY = "flash_prefill"  # csrc/flash_prefill.cu
+
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor,
                   k_scale: Optional[torch.Tensor] = None, v_scale: Optional[torch.Tensor] = None,
                   **options) -> torch.Tensor:
@@ -41,7 +43,7 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions: 
         return flash_prefill_int8(q, k, v, positions, k_scale, v_scale, **options)
     if not q.is_cuda:
         return flash_decode_plain(q, k, v, positions, **options)
-    out = launch_planes("flash_prefill", q, k, v, positions, None, None, Options(**options))
+    out = launch_planes(LIBRARY, q, k, v, positions, None, None, Options(**options))
     flash_prefill.launches += 1
     return out
 
@@ -52,7 +54,7 @@ def flash_prefill_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positi
     [B, KVH, T]."""
     if not q.is_cuda:
         return flash_decode_plain(q, k, v, positions, k_scale, v_scale, **options)
-    out = launch_planes("flash_prefill", q, k, v, positions, k_scale, v_scale, Options(**options))
+    out = launch_planes(LIBRARY, q, k, v, positions, k_scale, v_scale, Options(**options))
     flash_prefill_int8.launches += 1
     return out
 

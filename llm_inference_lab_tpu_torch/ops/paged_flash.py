@@ -48,6 +48,8 @@ from llm_inference_lab_tpu_torch.ops.flash_decode import (
     split_buffers,
 )
 
+LIBRARY = "paged_flash"  # csrc/paged_flash.cu
+
 
 def paged_flash_plain(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                       positions: torch.Tensor, table: torch.Tensor,
@@ -157,7 +159,7 @@ def paged_flash(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                                          torch.bfloat16)
     out = torch.empty_like(q)
     ws, counters, nz = split_buffers(q, KVH, M * P, opts)
-    lib = build.library("paged_flash")
+    lib = build.library(LIBRARY)
     err = lib.paged_flash_bf16(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
         positions.data_ptr(), out.data_ptr(), *data_ptrs(ws, counters), B, S, H, KVH, M, P, D,
@@ -186,7 +188,7 @@ def paged_flash_int8(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor
         raise ValueError("paged_flash_int8 kernel needs scale pools with [KVH, P] pages")
     out = torch.empty_like(q)
     ws, counters, nz = split_buffers(q, KVH, M * P, opts)
-    lib = build.library("paged_flash")
+    lib = build.library(LIBRARY)
     err = lib.paged_flash_int8(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), k_scale.data_ptr(),
         v_scale.data_ptr(), table.data_ptr(), positions.data_ptr(), out.data_ptr(),
@@ -216,7 +218,7 @@ def paged_flash_tree(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor
     if not q.is_cuda:
         return paged_flash_plain(q, k_pool, v_pool, torch.zeros(q.shape[:2], dtype=torch.int32),
                                  table, tree_mask=tree_mask, chunk_start=chunk_start, **options)
-    out = launch_tree("paged_flash", q, k_pool, v_pool, None, None, tree_mask, chunk_start,
+    out = launch_tree(LIBRARY, q, k_pool, v_pool, None, None, tree_mask, chunk_start,
                       Options(**options), bits, table, name="paged_flash_tree")
     paged_flash_tree.launches += 1
     return out
@@ -231,7 +233,7 @@ def paged_flash_tree_int8(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.T
         return paged_flash_plain(q, k_pool, v_pool, torch.zeros(q.shape[:2], dtype=torch.int32),
                                  table, k_scale, v_scale, tree_mask=tree_mask,
                                  chunk_start=chunk_start, **options)
-    out = launch_tree("paged_flash", q, k_pool, v_pool, k_scale, v_scale, tree_mask, chunk_start,
+    out = launch_tree(LIBRARY, q, k_pool, v_pool, k_scale, v_scale, tree_mask, chunk_start,
                       Options(**options), bits, table, name="paged_flash_tree_int8")
     paged_flash_tree_int8.launches += 1
     return out

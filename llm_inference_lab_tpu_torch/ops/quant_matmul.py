@@ -40,6 +40,8 @@ MMA_MIN_M = 64  # rows from which the tensor-core path takes the call
 MMA_BN = 128  # tensor-core path: output columns a block
 MMA_KTILE = 64  # tensor-core path: k-values a k-tile (its unit of K split)
 N_ALIGN = 64  # both bodies take any N that is a multiple of this
+# The kernel libraries (csrc/<name>.cu) of A (int4) and B (int8).
+INT4_LIBRARY, INT8_LIBRARY = "quant_matmul_int4", "quant_matmul_int8"
 
 
 def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
@@ -157,7 +159,7 @@ def quant_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> torch
         return quant_matmul_plain(x, w, scale)
     if takes_mma(x.shape[0]):
         return quant_matmul_mma(x, w, scale)
-    out = _launch("quant_matmul_int4", x, w, scale, bits=4)
+    out = _launch(INT4_LIBRARY, x, w, scale, bits=4)
     quant_matmul.launches += 1
     return out
 
@@ -167,7 +169,7 @@ def quant_matmul_mma(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> t
     takes from MMA_MIN_M rows on; it computes any M >= 1."""
     if not x.is_cuda:
         return quant_matmul_plain(x, w, scale)
-    out = _launch("quant_matmul_int4", x, w, scale, bits=4, mma=True)
+    out = _launch(INT4_LIBRARY, x, w, scale, bits=4, mma=True)
     quant_matmul_mma.launches += 1
     return out
 
@@ -180,7 +182,7 @@ def quant_matmul_f32(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> t
         return quant_matmul_plain(x, w, scale, out_dtype=torch.float32)
     if takes_mma(x.shape[0]):
         return quant_matmul_f32_mma(x, w, scale)
-    out = _launch("quant_matmul_int4", x, w, scale, bits=4, f32=True)
+    out = _launch(INT4_LIBRARY, x, w, scale, bits=4, f32=True)
     quant_matmul_f32.launches += 1
     return out
 
@@ -189,7 +191,7 @@ def quant_matmul_f32_mma(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) 
     """quant_matmul_f32's tensor-core path (csrc/qmm_mma.cuh, f32 out)."""
     if not x.is_cuda:
         return quant_matmul_plain(x, w, scale, out_dtype=torch.float32)
-    out = _launch("quant_matmul_int4", x, w, scale, bits=4, mma=True, f32=True)
+    out = _launch(INT4_LIBRARY, x, w, scale, bits=4, mma=True, f32=True)
     quant_matmul_f32_mma.launches += 1
     return out
 
@@ -201,7 +203,7 @@ def quant_matmul_int8(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> 
         return quant_matmul_plain_int8(x, w, scale)
     if takes_mma(x.shape[0]):
         return quant_matmul_int8_mma(x, w, scale)
-    out = _launch("quant_matmul_int8", x, w, scale, bits=8)
+    out = _launch(INT8_LIBRARY, x, w, scale, bits=8)
     quant_matmul_int8.launches += 1
     return out
 
@@ -210,7 +212,7 @@ def quant_matmul_int8_mma(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor)
     """Kernel B's tensor-core path, as quant_matmul_mma for int8 weights."""
     if not x.is_cuda:
         return quant_matmul_plain_int8(x, w, scale)
-    out = _launch("quant_matmul_int8", x, w, scale, bits=8, mma=True)
+    out = _launch(INT8_LIBRARY, x, w, scale, bits=8, mma=True)
     quant_matmul_int8_mma.launches += 1
     return out
 

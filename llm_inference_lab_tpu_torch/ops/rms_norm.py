@@ -29,6 +29,7 @@ import torch
 from llm_inference_lab_tpu_torch import build
 
 ADD_NORM_MAX_N = 8192  # the fused kernel holds a row in registers: 4 chunks of 8 a thread
+LIBRARY = "rms_norm"  # csrc/rms_norm.cu (rms_norm and add_rms_norm)
 
 
 def rms_norm_plain(x: torch.Tensor, scale: torch.Tensor, eps: float,
@@ -74,7 +75,7 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float,
     N = x.shape[-1]
     if x.numel() == 0:
         return out
-    err = build.library("rms_norm").rms_norm_bf16(
+    err = build.library(LIBRARY).rms_norm_bf16(
         x.data_ptr(), scale.data_ptr(), out.data_ptr(), x.numel() // N, N, float(eps),
         int(one_offset), int(scale.dtype == torch.float32),
         torch.cuda.current_stream(x.device).cuda_stream)
@@ -118,7 +119,7 @@ def add_rms_norm(x: torch.Tensor, a: torch.Tensor, w: torch.Tensor, eps: float,
             raise TypeError("add_rms_norm kernel takes two weights of one dtype")
     res, out = torch.empty_like(x), torch.empty_like(x)  # x + a', its norm
     if x.numel():
-        err = build.library("rms_norm").add_rms_norm_bf16(
+        err = build.library(LIBRARY).add_rms_norm_bf16(
             x.data_ptr(), a.data_ptr(), w.data_ptr(),
             0 if post_w is None else post_w.data_ptr(), res.data_ptr(), out.data_ptr(),
             x.numel() // N, N, float(eps), int(one_offset), int(w.dtype == torch.float32),

@@ -35,6 +35,7 @@ SMS = 132  # H100 SXM streaming multiprocessors
 BLOCKS_PER_SM = 8
 MIN_SPLIT = 2048
 MAX_K = 32  # the kernel's last block keeps a sequence's K arguments in shared memory
+LIBRARY = "verify_prefix"  # csrc/verify_prefix.cu
 
 
 def split_width(V: int, splits: int) -> int:
@@ -113,7 +114,7 @@ def verify_prefix(draft_tokens: torch.Tensor,
         return accept_len.zero_(), mask
     splits = verify_plan(B * K, V)
     ws = torch.empty((3, B * K, splits), dtype=torch.int32, device=dev)
-    err = build.library("verify_prefix").verify_prefix_f32(
+    err = build.library(LIBRARY).verify_prefix_f32(
         draft.data_ptr(), target_logits.data_ptr(), ws.data_ptr(),
         ticket_counters(dev, B).data_ptr(), mask.data_ptr(), accept_len.data_ptr(), B, K, V,
         target_logits.stride(1), target_logits.stride(0), splits, split_width(V, splits),

@@ -64,15 +64,14 @@ graphs, is built when the server is, before any of its threads starts.
 
 from __future__ import annotations
 
-import argparse
 import base64
 import json
 import logging
 import queue
+import sys
 import threading
 import time
 import uuid
-from dataclasses import fields
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, List, Optional
 
@@ -935,52 +934,11 @@ class InferenceServer:
             self._worker.join(timeout=30)
 
 
-def load_config(path: Optional[str], **overrides: Any):
-    """An EngineConfig from a YAML file and overrides (None ones skipped).
-    A key the port's config does not have raises: it is not ported."""
-    from llm_inference_lab_tpu_torch.config import EngineConfig
-
-    data: Dict[str, Any] = {}
-    if path:
-        import yaml
-
-        with open(path) as f:
-            data = yaml.safe_load(f) or {}
-    data.update({k: v for k, v in overrides.items() if v is not None})
-    known = {f.name for f in fields(EngineConfig)}
-    unknown = sorted(set(data) - known)
-    if unknown:
-        raise ValueError(f"config keys {unknown} are not fields of the port's EngineConfig")
-    return EngineConfig(**data)
-
-
 def main(argv: Optional[List[str]] = None) -> int:  # pragma: no cover - thin CLI
-    ap = argparse.ArgumentParser(description="the port's OpenAI-compatible server")
-    ap.add_argument("--config", default=None, help="a YAML file of EngineConfig fields")
-    ap.add_argument("--base-model", default=None)
-    ap.add_argument("--draft-model", default=None)
-    ap.add_argument("--impl", default=None, help="hf (default) or fake")
-    ap.add_argument("--device", default="cuda")
-    ap.add_argument("--host", default="127.0.0.1")
-    ap.add_argument("--port", type=int, default=8000)
-    ap.add_argument("--slots", type=int, default=8)
-    ap.add_argument("--per-request-sampling", action="store_true", default=None)
-    ap.add_argument("--logprobs-topk", type=int, default=None)
-    args = ap.parse_args(argv)
-    cfg = load_config(args.config, base_model=args.base_model, draft_model=args.draft_model,
-                      implementation=args.impl, per_request_sampling=args.per_request_sampling,
-                      logprobs_topk=args.logprobs_topk)
-    server = InferenceServer(Engine(cfg, device=args.device), n_slots=args.slots,
-                             host=args.host, port=args.port)
-    server.start()
-    print(json.dumps({"serving": f"http://{server.host}:{server.port}"}), flush=True)
-    try:
-        while server._worker.is_alive():
-            time.sleep(1)
-    except KeyboardInterrupt:
-        pass
-    server.stop()
-    return 0 if server.failure is None else 1
+    """``specdx-torch serve`` (cli.py): one parser of the config's flags."""
+    from llm_inference_lab_tpu_torch.cli import main as cli_main
+
+    return cli_main(["serve", *(sys.argv[1:] if argv is None else argv)])
 
 
 if __name__ == "__main__":  # pragma: no cover

@@ -173,7 +173,9 @@ def test_port_imports_no_jax():
         "models/checkpoint", "models/factory", "ops/moe", "utils/safetensors",
         "constrain/__init__", "constrain/jsonfsm", "constrain/regex", "constrain/schema",
         "constrain/tools", "constrain/runtime", "core/scheduler", "metrics/__init__",
-        "metrics/profiler")}
+        "metrics/profiler", "bench/__init__", "bench/run_bench", "bench/k_sweep",
+        "bench/stress", "bench/quality_eval", "cli", "features", "utils/sequence",
+        "utils/validation", "utils/determinism", "utils/tokenizer")}
     for f in files:
         text = f.read_text()
         assert not _FORBIDDEN.search(text), f"{f} imports JAX or the JAX package"
