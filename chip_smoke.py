@@ -570,6 +570,10 @@ HEAD_F32_K, HEAD_V, HEAD_F32_M = (3072, 2048), 128256, (1, 2, 5, 104)
 # projections' two kernels (decode rows through the decode body, prefill
 # rows through the tensor-core path) on every path, then its attention.
 INT4 = {"rms_norm", "add_rms_norm", "quant_matmul_int4", "quant_matmul_int4_mma"}
+TP_PATH = "generate int4 model=2 (2 ranks sharing the card over gloo)"
+DP_PATH = "serving int4 MultiHostBatcher data=2 (16 requests, 2 ranks)"
+TPDP_PATH = "serving int4 MultiHostBatcher data=2 x model=2 (16 requests, 4 ranks)"
+PARALLEL_PATHS = [TP_PATH, DP_PATH, TPDP_PATH]
 INT8 = {"rms_norm", "add_rms_norm", "quant_matmul_int8", "quant_matmul_int8_mma"}
 HEAD4 = {"quant_matmul_int4_f32", "quant_matmul_int4_f32_mma"}  # the EmbedQuant4 head
 SPEC = {"flash_decode", "flash_prefill", "verify_prefix"}
@@ -653,6 +657,14 @@ PATH_KERNELS = {
                                                    "quant_matmul_int4_mma", "flash_prefill"},
     "generate int4 embed_bits=4 (3 runs)": INT4 | SPEC | HEAD4,
     "serving int4 embed_bits=4 (16 requests)": INT4 | SERVE | HEAD4,
+    # Phase 26: phase 3's engine and phase 3b's serving over a mesh of ranks
+    # sharing the card over gloo. Under the model axis the output
+    # projections' partial sums go through kernel A's f32 instantiation
+    # (decode rows through its decode body, prefill and admission rows
+    # through its tensor-core path).
+    TP_PATH: INT4 | SPEC | HEAD4,
+    DP_PATH: INT4 | SERVE,
+    TPDP_PATH: INT4 | SERVE | HEAD4,
     # Phase 24: JAX's pipelined loop on phase 3's weights (the serving
     # path's kernels).
     "serving int4 pipelined loop (16 requests)": INT4 | SERVE,
@@ -693,6 +705,14 @@ LORA_PATHS = [path for path in PATH_KERNELS if "LoRA" in path]
 EMBED_PATH = next(path for path in PATH_KERNELS if path.startswith("embed "))
 EMBED4_PATHS = [path for path in PATH_KERNELS if "embed_bits=4" in path]
 PATH_SERVE_INT4 = "serving int4 (16 requests)"
+PATH_GENERATE_INT4 = "generate int4 (3 runs)"
+# Phase 26 (a): the model=2 forward's logits against the whole model's on
+# the same weights and input, as a share of the largest |logit|. The ranks
+# add kernel A's f32 partials of wo and w_down and round once, the whole
+# model's kernel rounds its own sum once: the bf16 activations round at
+# other places, 28 layers deep. Measured 0.0039 of 3.305 at the prefill, 0
+# at the decode chunk (H100, 700 W); the bound is ~13 times that.
+TP_LOGIT_RTOL = 2.0 ** -6
 PIPELINE_PATHS = [path for path in PATH_KERNELS if "pipelined loop" in path]
 # Phase 24 (b): request i is phase 3b's prompt i % 16 with a budget of 16 to
 # 128 tokens; STAGGER_ARRIVALS are submitted after every chunk.
@@ -703,8 +723,12 @@ ADAPTIVE_BUDGET = 192  # phase 24 (c): new tokens of each ngram request
 # requests on a table-carrying engine to.
 SERVED_IDS = {}
 # Phases 3's and 4's B=1 text (phase_end_to_end), which phase 25 (a) holds
-# the CLI's to.
+# the CLI's to, and ids, which phase 26 (a) holds its ranks' to.
 END_TO_END_TEXT = {}
+END_TO_END_IDS = {}
+# Each serving path's ops that round a row differently at another M
+# (phase_serving's row_stability), for phase 26's held_to.
+UNSTABLE = {}
 HARNESS_PATHS = [path for path in PATH_KERNELS if path.startswith("bench ")]
 PPL_ROWS, PPL_S = 4, 512  # phase 25 (e): rows of ids a model, ids a row
 HARNESS_TIMEOUT_S = 600  # a CLI subprocess's limit in phase 25
@@ -780,6 +804,13 @@ def qmm_within(bits, got, ref):
         ok = (err <= QMM8_RTOL * ref.abs() + QMM8_MTOL * ref.abs().max()).all()
     assert torch.isfinite(got).all() and bool(ok), (bits, tuple(got.shape), err.max().item())
     return err.max().item()
+
+
+def f32_sum_bound(x, wint, scale):
+    """Kernel A's f32 instantiation against the plain version: the f32
+    summation bound K 2^-24 (|x| @ |w_int|) scale, per element (w_int the
+    int4 values unscaled)."""
+    return x.shape[1] * 2.0 ** -24 * (x.float().abs() @ wint.abs()) * scale + 1e-30
 
 
 def qmm_prefill(dev, bits, g, widths=None, prefill_m=PREFILL_M):
@@ -2422,6 +2453,7 @@ def phase_end_to_end(dev, profile, cfg, path, label):
     assert runs[0]["generated_tokens"] >= 1
     ids_digest(path, [ids])
     END_TO_END_TEXT[path] = runs[0]["text"]
+    END_TO_END_IDS[path] = ids
     # The baseline is timed as the spec run is: one warm-up, median of 3.
     base_eng = Engine(replace(cfg, draft_model=None), device=dev, target_params=eng.target.params)
     base_eng.generate(PROMPT)
@@ -2931,7 +2963,9 @@ def near_tie(eng, dev, prompt, ids_a, ids_b, adapter=None):
     (under `adapter`), their gap and the gap in bf16 ulps of the top logit
     (the head's logits are f32, as in JAX; a bf16 step of the top logit is
     the scale at which the bf16 activations feeding it round)."""
-    j = next(i for i, (a, b) in enumerate(zip(ids_a, ids_b)) if a != b)
+    j = next((i for i, (a, b) in enumerate(zip(ids_a, ids_b)) if a != b), None)
+    assert j is not None, ("one run stops where the other goes on, with no parting",
+                           len(ids_a), len(ids_b))
     top = torch.topk(last_logits(eng, dev, eng.tokenizer.encode(prompt) + ids_a[:j], adapter), 2)
     (v1, v2), (t1, t2) = top.values.tolist(), top.indices.tolist()
     ulp = 2.0 ** (math.floor(math.log2(abs(v1))) - 7)
@@ -3015,6 +3049,7 @@ def phase_serving(dev, eng, profile, max_len, path, label):
         + "; ".join(f"{op}: {'/'.join(str(d[m]) for m in sorted(d, key=row_key))}"
                     for op, d in stability.items()))
     unstable = [op for op, d in stability.items() if any(d.values())]
+    UNSTABLE[path] = unstable
 
     def parted(what, rid, prompt, ref, ids):
         return held_to(eng, dev, lambda: unstable, what, rid, prompt, ref, ids)
@@ -5337,7 +5372,7 @@ def phase_head_f32(dev):
         for M in HEAD_F32_M:
             got = quant_matmul_f32(x[:M], w[0], sc[0])
             ref = quant_matmul_plain(x[:M], w[0], sc[0], out_dtype=torch.float32)
-            bound = K * 2.0 ** -24 * (x[:M].float().abs() @ wint.abs()) * sc[0] + 1e-30
+            bound = f32_sum_bound(x[:M], wint, sc[0])
             err = (got - ref).abs()
             assert got.dtype == torch.float32 and torch.all(err <= bound), (K, M)
             assert torch.equal(quant_matmul(x[:M], w[0], sc[0]), got.bfloat16()), (K, M)
@@ -6165,6 +6200,273 @@ def profile_run(what, fn, latency_ms):
     for e in sorted(ops, key=lambda e: -e.self_cpu_time_total)[:12]:
         log(f"  {e.self_cpu_time_total / 1e3:9.3f} ms  {e.count:6d} calls  {e.key[:90]}")
 
+# ------------------------------------------- phase 26: data and model axes
+TP_SUMS = "tensor-parallel partial sums (kernel A's f32 partials added over the model axis)"
+
+
+def sharded_shapes(dev):
+    """Kernels A (both instantiations), D, E and F at the shapes a rank of
+    model=2 gives them (3B: 12 of 24 q heads over 4 of 8 KV heads, w_qkv
+    N = 2560, gate_up N = 8192, wo K = 1536 and w_down K = 4096 through the
+    f32 instantiation; the 1B: 16/4 heads, N = 1536 and 8192, K = 1024 and
+    4096), each against its plain version at decode rows (1, 2, 8) and a
+    prefill (160): the f32 rows within phase 17's f32 summation bound
+    (f32_sum_bound: the partials the model group adds must be f32, not bf16
+    rounded), the rest within phase 2's tolerance. These launches are
+    checks, outside every count."""
+    from llm_inference_lab_tpu_torch.ops.flash_decode import flash_decode
+    from llm_inference_lab_tpu_torch.ops.flash_prefill import flash_prefill
+    from llm_inference_lab_tpu_torch.ops.paged_flash import paged_flash
+    from llm_inference_lab_tpu_torch.ops.quant import QuantTensor, dequantize, quantize_int4
+    from llm_inference_lab_tpu_torch.ops.quant_matmul import (
+        quant_matmul,
+        quant_matmul_f32,
+        quant_matmul_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(26)
+    errs = {}
+    shapes = {"3B": [(3072, 2560, False), (3072, 8192, False), (1536, 3072, True),
+                     (4096, 3072, True)],
+              "1B": [(2048, 1536, False), (2048, 8192, False), (1024, 2048, True),
+                     (4096, 2048, True)]}
+    for model, widths in shapes.items():
+        for K, N, f32 in widths:
+            qt = quantize_int4(torch.randn((K, N), generator=g, device=dev) * 0.02)
+            wint = (dequantize(QuantTensor(qt.data, torch.ones_like(qt.scale), 4), torch.float32)
+                    if f32 else None)
+            for M in (1, 2, 8, 160):
+                x = torch.randn((M, K), generator=g, device=dev).bfloat16()
+                ref = quant_matmul_plain(x, qt.data, qt.scale, out_dtype=torch.float32)
+                if f32:
+                    got = quant_matmul_f32(x, qt.data, qt.scale)
+                    err = (got - ref).abs()
+                    assert got.dtype == torch.float32 and torch.isfinite(got).all() and bool(
+                        (err <= f32_sum_bound(x, wint, qt.scale)).all()), (model, K, N, M)
+                    errs[("A f32", model, K, N, M)] = err.max().item()
+                else:
+                    got = quant_matmul(x, qt.data, qt.scale)
+                    assert got.dtype == torch.bfloat16
+                    errs[("A", model, K, N, M)] = qmm_within(4, got, ref)
+            del wint
+    for D, (H, KVH) in ((128, (12, 4)), (64, (16, 4))):
+        for S in (1, 2):
+            q, k, v, pos = flash_inputs(g, dev, 2, S, H, KVH, T_MAIN, D, P_MAIN)
+            errs[("D", D, S)] = check_attn(flash_decode(q, k[0], v[0], pos), q, k[0], v[0], pos,
+                                           what=("sharded flash_decode", D, S))
+            last = [P_MAIN + b for b in range(4)]
+            q, kc, vc, kp, vp, table, pos = paged_inputs(g, dev, 4, S, H, KVH, D, SERVE_PAGE,
+                                                         last)
+            errs[("F", D, S)] = check_attn(paged_flash(q, kp[0], vp[0], pos, table), q, kc[0],
+                                           vc[0], pos, what=("sharded paged_flash", D, S))
+        q, k, v, pos = flash_inputs(g, dev, 1, 160, H, KVH, T_MAIN, D, 159)
+        errs[("E", D, 160)] = check_attn(flash_prefill(q, k[0], v[0], pos), q, k[0], v[0], pos,
+                                         what=("sharded flash_prefill", D))
+    log("phase 26 kernels at the model=2 shapes (A, A's f32 instantiation within the f32 "
+        "summation bound, D, E, F against their plain versions): max_abs_err " + ", ".join(
+            f"{'/'.join(map(str, key))} {err:.3g}" for key, err in errs.items()))
+
+
+def rank_counts(path, run):
+    """count_launches inside a rank: every wrapper's count, the forward
+    counts and the loops' replay tallies set to 0, run(), then the eager
+    launches plus each replay's captured ones (the data axis alone
+    captures; under the model axis every step is eager). Asserts that
+    exactly the path's kernels launched, rms_norm once a forward and
+    add_rms_norm twice a layer. Also the host seconds in the model axis's
+    collectives and in the batcher's control traffic."""
+    from llm_inference_lab_tpu_torch.core.specstep import DecodeLoop
+    from llm_inference_lab_tpu_torch.models import transformer
+    from llm_inference_lab_tpu_torch.parallel.mesh import COLLECTIVES, CONTROL
+
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    transformer.forward.calls = transformer.forward.layers = 0
+    DecodeLoop.replayed.clear()
+    for tally in (COLLECTIVES, CONTROL):
+        tally.update(calls=0, seconds=0.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    replayed = dict(DecodeLoop.replayed)
+    launches = {name: w.launches + replayed.get(name, 0) for name, w in wrappers.items()}
+    forwards = transformer.forward.calls + replayed.get("forwards", 0)
+    layers = transformer.forward.layers + replayed.get("layers", 0)
+    launched = {name for name, n in launches.items() if n}
+    assert launched == PATH_KERNELS[path], (path, "launched", launched, "expected",
+                                            PATH_KERNELS[path])
+    assert launches["rms_norm"] == forwards and launches["add_rms_norm"] == 2 * layers, (
+        path, launches, forwards, layers)
+    return out, dict(launches=launches, forwards=forwards, replays=replayed.get("replays", 0),
+                     wall_s=wall, coll_calls=COLLECTIVES["calls"],
+                     coll_s=COLLECTIVES["seconds"], control_calls=CONTROL["calls"],
+                     control_s=CONTROL["seconds"])
+
+
+def rank_generate():
+    """Phase 26 (a), one rank of model=2: phase 3's engine (shard_draft: the
+    1B's 8 KV heads split too) over the mesh; a prefill of phase 3's
+    prompt and a decode chunk of 2 rows against the whole 3B's forward on
+    the same weights (this rank builds it from the same seed); then a
+    warm-up generate and a counted one."""
+    from llm_inference_lab_tpu_torch.config import EngineConfig
+    from llm_inference_lab_tpu_torch.core.engine import Engine
+    from llm_inference_lab_tpu_torch.models import registry
+    from llm_inference_lab_tpu_torch.parallel.mesh import make_mesh
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    mesh = make_mesh(data=1, model=2)
+    cfg = EngineConfig(**dict(INT4_CFG, shard_draft=True))
+    t0 = time.perf_counter()
+    eng = Engine(cfg, device=dev, mesh=mesh)
+    init_s = time.perf_counter() - t0
+    whole = registry.create(cfg.base_model, device=dev, dtype=torch.bfloat16, seed=cfg.seed,
+                            quantized_init="int4", quantize_embed=True)
+    ids = eng.encode(PROMPT, cfg.max_new_tokens, cfg.max_seq_len)
+    n = len(ids)
+    logits = {}
+    with torch.inference_mode():
+        for name, model in (("whole", whole), ("tp", eng.target)):
+            cache = model.init_cache(1, T_MAIN, dev)
+            pre, _ = model.forward(torch.tensor([ids], device=dev, dtype=torch.int32),
+                                   torch.arange(n, device=dev, dtype=torch.int32)[None], cache,
+                                   torch.zeros((1,), device=dev, dtype=torch.int32))
+            nxt = pre[0, -1].argmax().item()
+            dec, _ = model.forward(torch.tensor([[ids[-1], nxt]], device=dev, dtype=torch.int32),
+                                   torch.tensor([[n, n + 1]], device=dev, dtype=torch.int32),
+                                   cache, torch.full((1,), n, device=dev, dtype=torch.int32))
+            logits[name] = (pre[0], dec[0])
+    err = {what: ((logits["tp"][i] - logits["whole"][i]).abs().max().item(),
+                  logits["whole"][i].abs().max().item())
+           for i, what in enumerate(("prefill", "decode"))}
+    assert all(torch.isfinite(x).all() for pair in logits.values() for x in pair)
+    del whole, logits
+    torch.cuda.empty_cache()
+    eng.generate(PROMPT)  # warm-up: every kernel's first launch
+    r, counts = rank_counts(TP_PATH, lambda: eng.generate(PROMPT))
+    lp = torch.tensor(r["token_logprobs"])
+    assert len(lp) == r["generated_tokens"] and torch.isfinite(lp).all(), "bad logprobs"
+    return dict(ids=r["generated_ids"], counts=counts, err=err, steps=r["steps"],
+                decode_ms=r["generation_time_ms"], tok_s=r["tokens_per_sec"], init_s=init_s,
+                ranks=mesh.size, coords=mesh.coords)
+
+
+def rank_serve(model):
+    """Phase 26 (b) and (c), one rank: phase 3b's 16 requests through a
+    MultiHostBatcher of 8 slots (8 / data a rank) on phase 3's weights,
+    paged (page 64, lanes of 1024), over data = ranks / model x model."""
+    from llm_inference_lab_tpu_torch.config import EngineConfig
+    from llm_inference_lab_tpu_torch.core.engine import Engine
+    from llm_inference_lab_tpu_torch.core.multihost_batching import MultiHostBatcher
+    from llm_inference_lab_tpu_torch.parallel.multihost import make_multihost_mesh
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    mesh = make_multihost_mesh(model_per_host=model)
+    path = TPDP_PATH if model > 1 else DP_PATH
+    cfg = EngineConfig(**dict(INT4_CFG, shard_draft=True, max_seq_len=SERVE_MAX_LEN,
+                              kv_layout="paged", kv_page_size=SERVE_PAGE))
+    eng = Engine(cfg, device=dev, mesh=mesh)
+    b = MultiHostBatcher(eng, n_slots=SERVE_SLOTS)
+    if b.is_coordinator:
+        for prompt, budget in zip(SERVE_PROMPTS, SERVE_BUDGETS):
+            b.submit(prompt, max_new_tokens=budget)
+    results, counts = rank_counts(path, b.run)
+    for r in results:
+        lp = torch.tensor(r["token_logprobs"])
+        assert r["generated_tokens"] >= 1 and torch.isfinite(lp).all(), ("bad result", r["req_id"])
+    st = b.stats.report(SERVE_SLOTS)
+    return dict(ids=[r["generated_ids"] for r in sorted(results, key=lambda r: r["req_id"])],
+                counts=counts, stats=st, rows=b._rows, ranks=mesh.size, coords=mesh.coords)
+
+
+def rank_report(what, got):
+    """Log each rank's step time and the shares of its wall in the model
+    axis's collectives and in the batcher's control traffic."""
+    for r, g in enumerate(got):
+        c = g["counts"]
+        steps = g["steps"] if "steps" in g else g["stats"]["steps"]
+        log(f"{what} rank {r} {g['coords']}: {c['wall_s'] * 1e3 / max(steps, 1):.3f} ms a step "
+            f"({steps} steps in {c['wall_s']:.3f} s), model-axis collectives {c['coll_calls']} "
+            f"calls {c['coll_s']:.3f} s = {c['coll_s'] / c['wall_s']:.1%} of the wall, control "
+            f"traffic {c['control_calls']} calls {c['control_s']:.3f} s = "
+            f"{c['control_s'] / c['wall_s']:.1%}; {c['forwards']} forwards, {c['replays']} graph "
+            f"replays; launches { {k: v for k, v in c['launches'].items() if v} }")
+
+
+def summed(got):
+    """The ranks' launch counts added, kernel by kernel (the kernels line)."""
+    return {name: sum(g["counts"]["launches"][name] for g in got)
+            for name in got[0]["counts"]["launches"]}
+
+
+def phase_parallel(dev, eng):
+    """Phase 26: the data and model axes on the one card. Two or four
+    processes share cuda:0 over gloo (NCCL refuses two ranks on one device),
+    so their collectives go by the host: this shows that the kernels run
+    right at the sharded shapes, that the ranks stay in step and that the
+    ids hold to the single-process path; it does not measure
+    tensor-parallel speed. The parent built every kernel before it spawns.
+    (a) model=2: phase 3's engine generates phase 3's prompt at B=1; both
+    ranks' ids equal; held to all of phase 3's ids (held_to, the partial
+    sums one of the ops that may round differently); a prefill's and a
+    decode chunk's logits against the whole model's. (b) data=2 and (c)
+    data=2 x model=2: phase 3b's 16 requests through an 8-slot
+    MultiHostBatcher, every rank's ids equal, each request held to phase
+    3b's (the partial sums excused only in (c): (b) has none)."""
+    from llm_inference_lab_tpu_torch.parallel.multihost import launch
+
+    sharded_shapes(dev)
+
+    def ops(model):  # the ops that may round differently: the partial sums under model > 1
+        return lambda: ([TP_SUMS] if model > 1 else []) + UNSTABLE[PATH_SERVE_INT4]
+
+    out = {}
+    t0 = time.perf_counter()
+    got = launch(rank_generate, 2, timeout=600)
+    log(f"phase 26 (a) model=2 on 2 ranks: {time.perf_counter() - t0:.1f} s with the ranks' "
+        f"start; engine init {[round(g['init_s'], 1) for g in got]} s")
+    ids = got[0]["ids"]
+    assert all(g["ids"] == ids for g in got), "the ranks' ids differ"
+    for what, (err, top) in got[0]["err"].items():
+        log(f"phase 26 (a) {what} logits, model=2 against the whole 3B: max_abs_err {err:.4g} "
+            f"(largest |logit| {top:.4g})")
+        assert err <= TP_LOGIT_RTOL * top, (what, err, top)
+    parted = held_to(eng, dev, ops(2), "phase 3's generate", 0, PROMPT,
+                     END_TO_END_IDS[PATH_GENERATE_INT4], ids)
+    ids_digest(TP_PATH, [ids])
+    log(f"phase 26 (a): ids == phase 3's: {not parted} ({parted} partings at near ties); "
+        f"{got[0]['steps']} steps, {got[0]['tok_s']:.2f} tok/s")
+    rank_report("phase 26 (a)", got)
+    out[TP_PATH] = summed(got)
+    for model, ranks, path, what in ((1, 2, DP_PATH, "(b) data=2"),
+                                     (2, 4, TPDP_PATH, "(c) data=2 x model=2")):
+        t0 = time.perf_counter()
+        got = launch(rank_serve, ranks, args=(model,), timeout=600)
+        log(f"phase 26 {what} on {ranks} ranks: {time.perf_counter() - t0:.1f} s with the "
+            f"ranks' start")
+        ids = got[0]["ids"]
+        assert len(ids) == len(SERVE_PROMPTS)
+        assert all(g["ids"] == ids for g in got), (what, "the ranks' ids differ")
+        ref = SERVED_IDS[PATH_SERVE_INT4]
+        parted = sum(held_to(eng, dev, ops(model), "phase 3b's batcher", rid, prompt, ref[rid],
+                             got_ids)
+                     for rid, (prompt, got_ids) in enumerate(zip(SERVE_PROMPTS, ids)))
+        ids_digest(path, ids)
+        st = got[0]["stats"]
+        log(f"phase 26 {what}: ids == phase 3b's for {len(ids) - parted} of {len(ids)} "
+            f"requests (the rest near ties); {got[0]['rows']} slots a rank; coordinator "
+            f"{st['committed_tokens']} tokens in {st['wall_s']:.3f} s = {st['tok_s']:.2f} tok/s, "
+            f"{st['steps']} steps, {st['admit_waves']} admission waves, page grows "
+            f"{st['page_grows']}, preemptions {st['preemptions']}")
+        rank_report(f"phase 26 {what}", got)
+        out[path] = summed(got)
+    return out
+
 
 def main(argv):
     if not torch.cuda.is_available():
@@ -6338,6 +6640,9 @@ def main(argv):
     on_path[paths[1]] = phase_serving(dev, eng, profile, SERVE_MAX_LEN, paths[1],
                                       "3B int4 + 1B draft, K=1")
     log(f"phase 3b took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    on_path.update(phase_parallel(dev, eng))
+    log(f"phase 26 took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     on_path.update(phase_sampling(dev, eng, profile_sampling, [
         path for path in paths if path.startswith(("generate int4 sampled", "generate int4 greedy"))]))

@@ -16,12 +16,13 @@ Every C entry takes pointers and the CUDA stream as ``void*`` and returns
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
@@ -146,12 +147,22 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
     if not todo:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # Several processes (the ranks of a mesh) may reach an unbuilt library
+    # at once: one builds under an exclusive lock on a file of BUILD_DIR,
+    # the others wait and find it built.
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        todo = [n for n in todo if not _lib_path(n).exists()]
+        return _build(todo) if todo else {}
+
+
+def _build(todo: List[str]) -> Dict[str, str]:
     nvcc = _nvcc()
     procs = {}
     for name in todo:
-        # Build to a temporary name and rename, so a build that is cut off
-        # never leaves a library that looks complete.
-        tmp = _lib_path(name).with_suffix(".so.tmp")
+        # Build to a temporary name of this process's own and rename, so a
+        # build that is cut off never leaves a library that looks complete.
+        tmp = _lib_path(name).with_suffix(f".so.tmp{os.getpid()}")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))

@@ -19,9 +19,10 @@ caching (``prefix_caching``), grammar-constrained decoding
 (``constrain`` with ``constrain_schema`` or ``constrain_regex``, or
 ``tools``: the grammar's token tables, built once by the engine, masking
 every sampling site), the int8 or int4 embedding and tied head
-(``quantize_embed`` with ``embed_bits`` 8 or 4), and LoRA adapters from
+(``quantize_embed`` with ``embed_bits`` 8 or 4), LoRA adapters from
 local PEFT directories (``lora_paths``; ``Engine(lora_adapters=...)`` takes
-them built). ``profile`` turns on the engine's StructuredProfiler
+them built), and the data and model axes of a mesh (``mesh_shape``,
+``shard_draft``). ``profile`` turns on the engine's StructuredProfiler
 (metrics/profiler.py): the one switch for JAX's SPECDX_PROFILE and
 SPECDX_DETAILED_METRICS. A field of the JAX config with a single ported value
 has no field here until a later slice ports a second value for it. Fields
@@ -51,6 +52,7 @@ HEAD_MODES = ("medusa", "eagle", "tree")
 MAX_TREE_S = 32  # the verify chunk of a tree on the card: num_nodes + 1 rows at most
 CONTROLLERS = ("fixed", "adaptive", "adaptive-device")
 CONSTRAINTS = ("json", "json_object", "json_schema", "regex")
+MESH_AXES = ("data", "model", "seq", "stage", "expert")
 
 
 @dataclass(frozen=True)
@@ -200,6 +202,14 @@ class EngineConfig:
     eagle: dict = field(default_factory=lambda: {"alpha": 0.7, "max_draft": 2})
     # Tree speculation: children per node at each depth (core/treespec.py).
     tree: dict = field(default_factory=lambda: {"branching": [3, 2]})
+    # Parallelism (JAX config.py:206-209): the mesh's axes, e.g. {"data": 2,
+    # "model": 2} (parallel/mesh.py make_mesh over the initialised world,
+    # when Engine is given no mesh; the seq, stage and expert axes are not
+    # ported and raise), and whether the draft model shards on the model
+    # axis too (only when its KV heads split; else it runs whole on every
+    # rank).
+    mesh_shape: dict = field(default_factory=dict)
+    shard_draft: bool = False
 
     def override(self, **kwargs: Any) -> "EngineConfig":
         """A copy with the non-None values applied (JAX's config.py:236-241,
@@ -258,6 +268,10 @@ class EngineConfig:
             raise ValueError(f"admit_chunk must not be negative, got {self.admit_chunk}")
         if self.logprobs_topk < 0:
             raise ValueError(f"logprobs_topk must not be negative, got {self.logprobs_topk}")
+        unknown_axes = sorted(set(self.mesh_shape) - set(MESH_AXES))
+        if unknown_axes or any(int(v) < 1 for v in self.mesh_shape.values()):
+            raise ValueError(f"mesh_shape takes positive sizes of the axes {list(MESH_AXES)}, "
+                             f"got {self.mesh_shape}")
         if self.per_request_sampling and self.policy == "rejection":
             raise NotImplementedError("per-request sampling parameters are not supported with "
                                       "the rejection policy (its distributions are the "

@@ -141,7 +141,6 @@ import torch
 from llm_inference_lab_tpu_torch.constrain import runtime as fsm
 from llm_inference_lab_tpu_torch.core.engine import Engine, _round_up, plain_rows, top_logprobs
 from llm_inference_lab_tpu_torch.core.scheduler import Scheduler
-from llm_inference_lab_tpu_torch.core.specstep import make_decode_loop
 from llm_inference_lab_tpu_torch.core.state import N_BIAS, DecodeState, init_state
 from llm_inference_lab_tpu_torch.models.base import Model
 from llm_inference_lab_tpu_torch.models.paged import (
@@ -564,12 +563,38 @@ def make_admit_incremental(target_model: Model, draft_model: Optional[Model], ch
 
 class ContinuousBatcher:
     """Drives an Engine's step over a fixed slot batch with rolling
-    admission and retirement, on the engine's device."""
+    admission and retirement, on the engine's device.
+
+    On an engine with a mesh the host keeps every slot's bookkeeping, and
+    the decode state holds this rank's slots only: n_slots / data rows
+    (global slots [row0, row0 + rows)), at the rank's KV heads. Host
+    decisions must then be alike on every rank: the chunk cost model keeps
+    its defaults (a wall-clock refit differs between ranks), and slots
+    across data ranks need the coordinator's decisions
+    (core/multihost_batching.py MultiHostBatcher), so this class refuses a
+    data axis above 1."""
+
+    # JAX's switches (core/batching.py:714-725): a subclass that replays the
+    # host's decisions on several processes turns off what it cannot (lazy
+    # pages, JAX's fourth, every class supports).
+    _supports_incremental_admit = True
+    _supports_overlap_admit = True
+    _supports_fused_admit = True
+    _coordinated = False  # a subclass whose decisions one rank makes for all
 
     def __init__(self, engine: Engine, n_slots: int = 8, poll_every: int = POLL_EVERY):
         """poll_every: the longest chunk (decode steps between two polls),
         which sizes the lazy pages' growth margin."""
         cfg = engine.config
+        mesh = engine.mesh
+        data = mesh.shape["data"] if mesh is not None else 1
+        if data > 1 and not self._coordinated:
+            raise ValueError("a ContinuousBatcher on a mesh with a data axis above 1 needs the "
+                             "coordinator's decisions: use MultiHostBatcher")
+        if n_slots % data:
+            raise ValueError(f"n_slots ({n_slots}) must split over the data axis ({data})")
+        self._rows = n_slots // data
+        self._row0 = mesh.coords["data"] * self._rows if mesh is not None else 0
         self.poll_every = poll_every
         self.paged = cfg.kv_layout == "paged"
         if cfg.prefix_caching and not self.paged:
@@ -578,7 +603,8 @@ class ContinuousBatcher:
         self.ring = any(m is not None and m.config.kv_ring_len is not None
                         for m in (engine.target, engine.draft))
         # Incremental admission: not under prefix caching (JAX's rule).
-        self.admit_chunk = cfg.admit_chunk if cfg.admit_chunk and not self.prefix_caching else None
+        self.admit_chunk = (cfg.admit_chunk if cfg.admit_chunk and not self.prefix_caching
+                            and self._supports_incremental_admit else None)
         if self.admit_chunk is not None:
             bucket = cfg.kv_page_size if self.paged else 32
             if self.admit_chunk % bucket:
@@ -650,7 +676,8 @@ class ContinuousBatcher:
             self.allocator = (PrefixPageCache if self.prefix_caching else PageAllocator)(
                 n_pages, P)
             paged_kw = dict(paged=True, page_size=P, n_pages=n_pages,
-                            table=torch.zeros((n_slots, self._pages_per_seq), dtype=torch.int32))
+                            table=torch.zeros((self._rows, self._pages_per_seq),
+                                              dtype=torch.int32))
             # Growth runs at each poll from the snapshot's lengths, one chunk
             # old: between two growths run the chunk the snapshot did not see
             # and the next, so the margin covers two chunks of poll_every
@@ -661,23 +688,22 @@ class ContinuousBatcher:
             self._grow_margin = 2 * poll_every * self._commit_bound + engine._max_k + 2
             self._admit_seq = 0
         with torch.inference_mode():
-            self.state = init_state(engine.target, engine.draft, n_slots, self.max_seq_len,
+            self.state = init_state(engine.target, engine.draft, self._rows, self.max_seq_len,
                                     engine.device, max_new_tokens=cfg.max_new_tokens,
                                     kv_dtype=engine.kv_dtype, seed=cfg.seed,
                                     init_k=engine.controller.k,
                                     defaults=engine.sampling_defaults(),
-                                    logprobs_topk=cfg.logprobs_topk, **paged_kw)
+                                    logprobs_topk=cfg.logprobs_topk, row0=self._row0,
+                                    **paged_kw)
             self._loop = self._plain_loop = self._fsm_loop = None
             if not engine.flags.sync_steps:
-                self._loop = make_decode_loop(engine._step_in_place, pool=engine.graph_pool)
+                self._loop = engine.make_loop(engine._step_in_place)
                 self._loop.bind(self.state)
                 if engine._plain is not None:  # the same state, the engine's pool
-                    self._plain_loop = make_decode_loop(engine._plain[1],
-                                                        pool=engine.graph_pool)
+                    self._plain_loop = engine.make_loop(engine._plain[1])
                     self._plain_loop.bind(self.state)
                 if engine._fsm_steps is not None:
-                    self._fsm_loop = make_decode_loop(engine._fsm_steps[1],
-                                                      pool=engine.graph_pool)
+                    self._fsm_loop = engine.make_loop(engine._fsm_steps[1])
                     self._fsm_loop.bind(self.state)
             # The host adaptive controller's loops at the other K's, by (K,
             # variant), each captured over this state at its first chunk.
@@ -763,9 +789,32 @@ class ContinuousBatcher:
         for slot, r in enumerate(self._slots):
             if r is not None and r.req_id == req_id:
                 r.cancelled = True
-                self.state.active[slot] = False
+                self._deactivate(slot)
                 return True
         return False
+
+    def _row(self, slot: int) -> Optional[int]:
+        """The decode state's row of a slot, None for a slot another data
+        rank holds (without a data axis, the slot itself)."""
+        row = slot - self._row0
+        return row if 0 <= row < self._rows else None
+
+    def _deactivate(self, slot: int) -> None:
+        row = self._row(slot)
+        if row is not None:
+            self.state.active[row] = False
+
+    def _write_table(self, slot: int, row: Optional[np.ndarray]) -> None:
+        """A slot's table row in both caches (None: zeroed), on the rank
+        that holds it."""
+        local = self._row(slot)
+        if local is None:
+            return
+        st = self.state
+        value = 0 if row is None else to_device(row, st.tokens.device)
+        for cache in (st.target_cache, st.draft_cache):
+            if cache is not None:
+                cache.table[local] = value
 
     def _controls(self, reqs: List[_Request]) -> tuple:
         """The requests' controls for _fill_slots, on the device (JAX
@@ -928,7 +977,7 @@ class ContinuousBatcher:
         (retirement has not run since, so the snapshot still describes every
         other slot). The admitted slots go into _snap_fresh: this poll skips
         them, the next snapshot sees them."""
-        if not self.engine.flags.overlap_admit:
+        if not (self.engine.flags.overlap_admit and self._supports_overlap_admit):
             return
         pf = self._prefilling
         ready = pf is not None and pf["ready"]
@@ -953,6 +1002,11 @@ class ContinuousBatcher:
         self.stats.admit_plan_ms += (time.perf_counter() - t_plan) * 1e3
         if mark_fresh:
             self._snap_fresh.update(req.slot for req in planned)
+        self._admit_planned(planned)
+
+    def _admit_planned(self, planned: List[_Request]) -> None:
+        """Admit planned requests: prefix-cached and incremental ones one
+        slot at a time, the rest sorted by length in power-of-two groups."""
         group: List[_Request] = []
         for req in planned:
             if self.prefix_caching or self._incremental(req):
@@ -973,7 +1027,8 @@ class ContinuousBatcher:
         slots in _snap_fresh; the one-shot group is returned for step_chunk
         to enqueue as one wave straight ahead of the chunk's replays (None:
         none)."""
-        if (not self.engine.flags.fused_admit or not self.scheduler.pending()
+        if (not (self.engine.flags.fused_admit and self._supports_fused_admit)
+                or not self.scheduler.pending()
                 or all(r is not None for r in self._slots)):
             return None
         ride: List[_Request] = []
@@ -1040,7 +1095,6 @@ class ContinuousBatcher:
         incremental admission passes its own bucket-rounded P (JAX's
         one-slot ``make_admit``) and counts as no wave."""
         dev = self.engine.device
-        G = len(reqs)
         if P is None:
             bucket = self.engine.config.kv_page_size if self.paged else 32
             need = max(_round_up(max(len(r.admit_ids), 1), bucket) for r in reqs)
@@ -1051,20 +1105,24 @@ class ContinuousBatcher:
             if P > lane:
                 P = need
             self.stats.admit_waves += 1
+        # The rows this rank holds (every row without a data axis).
+        held = [req for req in reqs if self._row(req.slot) is not None]
+        G = len(held)
         rows = np.zeros((G, P), np.int32)
-        meta = np.zeros((3, G), np.int32)  # prompt_lens, slots, max_news
+        meta = np.zeros((3, G), np.int32)  # prompt_lens, state rows, max_news
         table_rows = np.zeros((G, self._pages_per_seq if self.paged else 1), np.int32)
-        for i, req in enumerate(reqs):
+        for i, req in enumerate(held):
             ids = req.admit_ids
             rows[i, : len(ids)] = ids
-            meta[:, i] = (len(ids), req.slot, req.remaining_new)
+            meta[:, i] = (len(ids), self._row(req.slot), req.remaining_new)
             if self.paged:
                 table_rows[i] = self._table_row(req)
         t_d = time.perf_counter()
-        plens, slots, max_news = to_device(meta, dev)
-        self.state = self._admit_many(
-            self.state, to_device(rows, dev), plens, slots, max_news,
-            to_device(table_rows, dev) if self.paged else None, self._controls(reqs))
+        if held:
+            plens, slots, max_news = to_device(meta, dev)
+            self.state = self._admit_many(
+                self.state, to_device(rows, dev), plens, slots, max_news,
+                to_device(table_rows, dev) if self.paged else None, self._controls(held))
         self.stats.admit_dispatch_ms += (time.perf_counter() - t_d) * 1e3
         for req in reqs:
             self._note_admitted(req, req.slot)
@@ -1248,7 +1306,7 @@ class ContinuousBatcher:
             key = (k, "fsm" if constrained else "plain" if plain else "free")
             loop = self._k_loops.get(key)
             if loop is None:
-                loop = self._k_loops[key] = make_decode_loop(steps[1], pool=eng.graph_pool)
+                loop = self._k_loops[key] = eng.make_loop(steps[1])
         loop(self.state, n)  # raises if the state's tensors were replaced
 
     def _next_chunk_len(self) -> int:
@@ -1408,9 +1466,11 @@ class ContinuousBatcher:
         another request may own next."""
         if not self._stale_tables:
             return
-        if self.paged:
+        rows = [self._row(s) for s in sorted(self._stale_tables)]
+        rows = [r for r in rows if r is not None]
+        if self.paged and rows:
             st = self.state
-            idx = to_device(sorted(self._stale_tables), st.tokens.device).long()
+            idx = to_device(rows, st.tokens.device).long()
             for cache in (st.target_cache, st.draft_cache):
                 if cache is not None:
                     cache.table[idx] = 0
@@ -1617,30 +1677,22 @@ class ContinuousBatcher:
         is inactive in that read finished in the chunk since the snapshot:
         it retires from the read and is not requeued (JAX requeues it, and
         the resumed request generates past its budget or its EOS)."""
-        st = self.state
         fresh = None
         if any(op[0] == "preempt" for op in ops):
-            # A copy: on the CPU .numpy() is a view, and the loop deactivates.
-            fresh = (self._fetch_tokens() + (st.active.cpu().numpy().copy(),
-                                             st.proposed.cpu().numpy(),
-                                             st.accepted.cpu().numpy(), self._fetch_tops()))
+            # _fetch_flags' arrays are copies (the loop deactivates).
+            fresh = (self._fetch_tokens() + self._fetch_flags()[:3] + (self._fetch_tops(),))
         for op in ops:
             kind, slot = op[0], op[1]
             if kind == "grow":
-                row = to_device(op[2], st.tokens.device)
-                for cache in (st.target_cache, st.draft_cache):
-                    if cache is not None:
-                        cache.table[slot] = row
+                self._write_table(slot, op[2])
                 self.stats.page_grows += 1
             elif kind == "truncate":
-                st.active[slot] = False
+                self._deactivate(slot)
             else:
                 req = op[2]
                 tokens, lengths, logprobs, active, proposed, accepted, tops = fresh
-                st.active[slot] = False
-                for cache in (st.target_cache, st.draft_cache):
-                    if cache is not None:
-                        cache.table[slot] = 0
+                self._deactivate(slot)
+                self._write_table(slot, None)
                 req.pages = None  # _plan_growth freed them
                 if not active[slot]:
                     self._slots[slot] = req
@@ -1704,7 +1756,9 @@ class ContinuousBatcher:
             self._admit_overlapped()
             fresh = self._prefetch_retire(flags)
             self._retire_finished(fresh if fresh is not None else flags)
-            if self.stats.admitted + self.stats.retired == work0:
+            # Under a mesh the ranks' walls differ, and their chunk lengths
+            # must not: the cost model keeps its defaults.
+            if self.stats.admitted + self.stats.retired == work0 and self.engine.mesh is None:
                 self._calibrate_chunk_cost(self._last_chunk_n,
                                            (time.perf_counter() - t_iter) * 1e3)
             self._admit_post_poll()

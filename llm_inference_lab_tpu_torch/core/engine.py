@@ -61,6 +61,17 @@ under ``tools``) selects an initial state replays the constrained step's
 loop over the same decode state; any other replays the unconstrained one, so
 its ids and step time are those of an engine without tables.
 
+Under a mesh (``mesh=``, or ``cfg.mesh_shape`` over the initialised world;
+parallel/): on the model axis each model is loaded whole and replaced by
+this rank's share (parallel/sharding.py, Megatron order; the draft only
+with ``shard_draft`` and when its KV heads split), and the decode loops
+run their in-place step eagerly, never captured: a graph cannot hold a
+gloo collective's host hop, and capturing NCCL collectives waits for a
+second card. On the data axis alone each rank captures as in one process.
+The engine decides this once, at construction (``eager_loops``).
+``generate_batch`` splits the prompts over the data axis and returns every
+result on every rank.
+
 The device defaults to "cuda"; asking for it on a machine without CUDA
 raises (pass device="cpu" for the plain PyTorch versions of every op).
 """
@@ -112,6 +123,8 @@ from llm_inference_lab_tpu_torch.metrics.profiler import (
 from llm_inference_lab_tpu_torch.models import registry
 from llm_inference_lab_tpu_torch.models.lora import Adapter, build_pack, load_peft_adapter
 from llm_inference_lab_tpu_torch.ops.quant import quantize_params
+from llm_inference_lab_tpu_torch.parallel.mesh import Mesh, make_mesh
+from llm_inference_lab_tpu_torch.parallel.sharding import shard_model
 from llm_inference_lab_tpu_torch.utils.tokenizer import ByteTokenizer
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -148,7 +161,7 @@ class Engine:
     def __init__(self, config: Optional[EngineConfig] = None, *, device="cuda",
                  flags: Optional[EnvFlags] = None, target_params: Optional[dict] = None,
                  draft_params: Optional[dict] = None,
-                 lora_adapters: Optional[List[Adapter]] = None):
+                 lora_adapters: Optional[List[Adapter]] = None, mesh: Optional[Mesh] = None):
         """target_params / draft_params: the models' params (e.g. carried over
         from the JAX package by convert.params_from_jax); random init from
         cfg.seed when absent. In the medusa and tree modes draft_params is
@@ -156,7 +169,11 @@ class Engine:
         made from cfg.medusa's head_init when absent. flags: EnvFlags
         (sync_steps=True for the host loop). lora_adapters: models/lora.py
         Adapters, stacked with cfg.lora_paths' (after them) into the
-        target's LoRA pack, addressed by name (lora_names)."""
+        target's LoRA pack, addressed by name (lora_names). mesh: this
+        rank's parallel/mesh.py Mesh (None: one made from cfg.mesh_shape
+        when it is set, else no mesh; given with a cfg.mesh_shape, the two
+        must agree); the params given are the whole models', which the
+        engine shards."""
         cfg = config or EngineConfig()
         cfg.validate()
         self.config = cfg
@@ -194,6 +211,21 @@ class Engine:
                                                include_embed=cfg.quantize_embed,
                                                embed_bits=cfg.embed_bits)
         self._weights_source = "fake" if fake else self.target.weights_source
+        if mesh is None and cfg.mesh_shape:
+            mesh = make_mesh(**cfg.mesh_shape)
+        elif mesh is not None and any(mesh.shape.get(axis, 1) != n
+                                      for axis, n in cfg.mesh_shape.items()):
+            raise ValueError(f"the mesh given ({mesh.shape}) differs from cfg.mesh_shape "
+                             f"({cfg.mesh_shape})")
+        self.mesh = mesh
+        self._data = self.mesh.shape["data"] if self.mesh is not None else 1
+        # Under the model axis the decode loops run their in-place step
+        # eagerly (a graph cannot hold a gloo collective's host hop, and
+        # capturing NCCL collectives is not done); under the data axis alone
+        # each rank captures as in one process. Decided here, once.
+        self.eager_loops = self.mesh is not None and self.mesh.shape["model"] > 1
+        if self.mesh is not None:
+            self._shard_models()
         self.tokenizer = ByteTokenizer()
         self.eos_token_id = (cfg.eos_token_id if cfg.eos_token_id is not None
                              else self.tokenizer.eos_token_id)
@@ -263,6 +295,39 @@ class Engine:
         self._prefill = make_prefill(self.target, self.draft, chunk=cfg.prefill_chunk,
                                      hidden=self.head_mode)
 
+    def _shard_models(self) -> None:
+        """The models as this rank holds them (JAX engine.py:201-212): under
+        the model axis the target's share (parallel/sharding.py shard_model:
+        loaded whole, then shard_params, as JAX's), and the draft's only
+        with shard_draft and when its KV heads split over the axis, else
+        the whole draft on every rank. Refuses what the port does not
+        shard: a MoE model under any mesh; under the model axis the fake
+        model and the profiler (its phase breakdown captures graphs)."""
+        cfg, mesh = self.config, self.mesh
+        if mesh.coords is None:
+            raise ValueError(f"rank {mesh.rank} is outside the {mesh.shape} mesh")
+        for m in (self.target, self.draft):
+            if m is not None and getattr(m.config, "moe", False):
+                raise NotImplementedError("a MoE model under a mesh is not sharded (the expert "
+                                          "axis is not ported)")
+        n = mesh.shape["model"]
+        if n == 1:
+            return
+        if cfg.implementation == "fake":
+            raise NotImplementedError("the fake model has no heads to shard over the model axis")
+        if cfg.profile:
+            raise NotImplementedError("the profiler under the model axis is not ported (its "
+                                      "phase breakdown captures CUDA graphs, which cannot hold "
+                                      "the axis's collectives)")
+        self.target = shard_model(self.target, mesh)
+        if self.draft is not None and cfg.shard_draft and self.draft.config.n_kv_heads % n == 0:
+            self.draft = shard_model(self.draft, mesh)
+
+    def make_loop(self, step) -> DecodeLoop:
+        """A decode loop over an in-place step of this engine: in its graph
+        pool, eager under the model axis (eager_loops)."""
+        return make_decode_loop(step, pool=self.graph_pool, eager=self.eager_loops)
+
     def _build_constraint(self) -> None:
         """The grammar's token tables, compiled once on the host (JAX
         engine.py:320-404) and uploaded to the device, and the grammar keys
@@ -320,6 +385,9 @@ class Engine:
             return
         if self.tree is not None:
             raise ValueError("LoRA is not supported in tree mode")
+        if self.eager_loops:
+            raise NotImplementedError("LoRA under tensor parallelism (model > 1) is not sharded: "
+                                      "each site's delta would need the rank's columns")
         if cfg.implementation == "fake":
             raise NotImplementedError("the fake model has no layers to adapt (LoRA)")
         pack, self.lora_names = build_pack(self.target.config, adapters,
@@ -466,10 +534,15 @@ class Engine:
         raises for a key it cannot serve); adapter: the LoRA adapter of the
         whole batch (None: the base model; lora_id raises for an unknown
         name); max_new_tokens: the call's budget (None: the config's), as
-        JAX's generate_batch takes it."""
+        JAX's generate_batch takes it. Under the data axis of a mesh each
+        data rank decodes its block of the prompts (their number must split
+        over the axis) and every rank returns every prompt's result."""
         with torch.inference_mode():
-            results = self._build_results(*self._decode(prompts, seed, response_format,
+            local = prompts if self._data == 1 else prompts[self.mesh.data_slice(len(prompts))]
+            results = self._build_results(*self._decode(local, seed, response_format,
                                                         adapter, max_new_tokens))
+            if self._data > 1:
+                results = self.mesh.gather_data(results)
         if self.profiler.enabled and self.profiler.phase_ms is None:
             # The phase breakdown once an engine (JAX engine.py:1139-1151,
             # whose SPECDX_PROFILE_PHASES is on by default): a failure is
@@ -585,7 +658,8 @@ class Engine:
                           page_size=cfg.kv_page_size, kv_dtype=self.kv_dtype,
                           seed=cfg.seed if seed is None else seed, init_k=self.controller.k,
                           defaults=self.sampling_defaults(), logprobs_topk=cfg.logprobs_topk,
-                          fsm_init=fsm_init, lora_id=lora_id)
+                          fsm_init=fsm_init, lora_id=lora_id,
+                          row0=self.mesh.coords["data"] * B if self._data > 1 else 0)
 
     def _decode_state(self, B: int, max_len: int, seed: Optional[int] = None,
                       fsm_init: int = fsm.UNCONSTRAINED, lora_id: int = -1,
@@ -600,7 +674,7 @@ class Engine:
         held = self._decode_states.get((B, max_len))
         if held is None:
             held = (self._init_state(B, max_len, seed, fsm_init, lora_id, max_new),
-                    make_decode_loop(self._decode_steps()[1], pool=self.graph_pool))
+                    self.make_loop(self._decode_steps()[1]))
             self._decode_states[(B, max_len)] = held
         else:
             reset_state(held[0], max_new, seed, self.controller.k,
@@ -609,8 +683,7 @@ class Engine:
             return held
         loop = self._fsm_loops.get((B, max_len))
         if loop is None:
-            loop = self._fsm_loops[(B, max_len)] = make_decode_loop(self._fsm_steps[1],
-                                                                    pool=self.graph_pool)
+            loop = self._fsm_loops[(B, max_len)] = self.make_loop(self._fsm_steps[1])
         return held[0], loop
 
     def _run_loop(self, loop: DecodeLoop, state: DecodeState, plens: np.ndarray,
@@ -675,7 +748,7 @@ class Engine:
                     key = (B, max_len, k) + (("fsm",) if constrained else ())
                     loop = self.adaptive_loops.get(key)
                     if loop is None:
-                        loop = make_decode_loop(steps[1], pool=self.graph_pool)
+                        loop = self.make_loop(steps[1])
                         self.adaptive_loops[key] = loop
                     loop(state, 1)
             sums = torch.stack([state.proposed.sum(), state.accepted.sum(),

@@ -79,13 +79,14 @@ def rejection_ratio(draft_tokens, draft_logits, target_logits, *, temperature: f
     return torch.where(torch.isfinite(lpt_i), ratio, 0.0)
 
 
-def rejection(key, draft_tokens, draft_logits, target_logits, **params):
+def rejection(key, draft_tokens, draft_logits, target_logits, row0: int = 0, **params):
     """Stochastic speculative sampling: accept d_i with probability
     min(1, p_t / p_d) (Leviathan et al.), distribution-exact with the
-    residual bonus of ``rejection_bonus_logits``. params: temperature,
-    top_k, top_p, min_p, draft_temperature, draft_greedy."""
+    residual bonus of ``rejection_bonus_logits``. row0: the global number
+    of row 0 (sampling.uniform); params: temperature, top_k, top_p, min_p,
+    draft_temperature, draft_greedy."""
     ratio = rejection_ratio(draft_tokens, draft_logits, target_logits, **params)
-    return _prefix_len(uniform(key, draft_tokens.shape) < ratio)
+    return _prefix_len(uniform(key, draft_tokens.shape, row0) < ratio)
 
 
 def rejection_bonus_logits(draft_logits, target_logits, accept_len, temperature: float = 1.0,

@@ -383,7 +383,8 @@ def make_spec_step(target_model: Model, draft_model: Optional[Model], *, k: int,
                 x = sample_tokens(None, row, **ctl.row_samp(state, ctx, i,
                                                              draft_temperature_scale))
             else:
-                x = sample_tokens(fold(key, i) if stochastic else None, row, **draft_samp)
+                x = sample_tokens(fold(key, i) if stochastic else None, row, **draft_samp,
+                                  row0=state.row0)
             if ctl.draft_ok:
                 cnt = ctl.bump(cnt, x)
             if f is not None:
@@ -448,7 +449,8 @@ def make_spec_step(target_model: Model, draft_model: Optional[Model], *, k: int,
                 d_i = sample_tokens(None if per_request_sampling else fold(key, i), row,
                                     temperature=m_temp, top_p=m_top_p,
                                     row_keys=(fold_rows(ctx["row_keys"], i)
-                                              if per_request_sampling else None))
+                                              if per_request_sampling else None),
+                                    row0=state.row0)
             cnt = ctl.bump(cnt, d_i)
             if f is not None:
                 f = fsm.transition(constrain_tbl, *f, d_i)
@@ -514,7 +516,8 @@ def make_spec_step(target_model: Model, draft_model: Optional[Model], *, k: int,
 
         # ---- 3. Acceptance ----
         a = policy_fn(fold(state.rng, _POLICY) if rejecting else None, d, draft_logits,
-                      target_logits, **policy_params).clamp(0, K)
+                      target_logits, **policy_params,
+                      **({"row0": state.row0} if rejecting else {})).clamp(0, K)
         if adaptive:
             # Positions past a lane's K were never proposed. Then each
             # active lane's EMA and K (the hysteresis rule of
@@ -539,13 +542,14 @@ def make_spec_step(target_model: Model, draft_model: Optional[Model], *, k: int,
             bonus_logits = policies.rejection_bonus_logits(
                 draft_logits, target_logits, a, temperature=temperature, top_k=top_k,
                 top_p=top_p, min_p=min_p, draft_temperature=draft_temp, draft_greedy=greedy)
-            bonus = sample_tokens(key_bonus, bonus_logits, temperature=1.0, greedy=greedy)
+            bonus = sample_tokens(key_bonus, bonus_logits, temperature=1.0, greedy=greedy,
+                                  row0=state.row0)
         else:
             bonus_logits = target_logits[torch.arange(B, device=dev), a.long()]
             if per_request_sampling:  # site K: the draft's sites are 0 .. K-1
                 bonus = sample_tokens(None, bonus_logits, **ctl.row_samp(state, ctx, K))
             else:
-                bonus = sample_tokens(key_bonus, bonus_logits, **samp)
+                bonus = sample_tokens(key_bonus, bonus_logits, **samp, row0=state.row0)
 
         # ---- 5. Commit ----
         d_pad = torch.cat([d, d[:, -1:]], dim=1)  # [B, K+1]
@@ -667,7 +671,8 @@ def make_baseline_step(target_model: Model, *, greedy: bool = True, temperature:
         if per_request_sampling:
             nxt = sample_tokens(None, row, **ctl.row_samp(state, ctx, None))
         else:
-            nxt = sample_tokens(fold(state.rng, _BONUS) if stochastic else None, row, **samp)
+            nxt = sample_tokens(fold(state.rng, _BONUS) if stochastic else None, row, **samp,
+                                row0=state.row0)
         commit = state.active.to(torch.int32)
         remaining = state.prompt_lens + state.max_new - state.lengths
         commit = torch.minimum(commit, remaining.clamp_min(0))
@@ -794,13 +799,17 @@ class DecodeLoop:
     this loop's replays, and the class-wide ``replayed`` the sums of
     per_replay over every replay of every loop, with "replays" beside them.
     Where capture fails (a host read or a synchronisation inside the step)
-    it raises: there is no eager fallback on the card."""
+    it raises: there is no eager fallback on the card. ``eager=True``
+    (decided by the engine at its construction: a tensor-parallel mesh,
+    whose collectives a graph cannot hold) runs the in-place step n times on
+    the card too, as on the CPU; nothing is captured."""
 
     replayed: Dict[str, int] = {}
 
-    def __init__(self, step, pool=None):
+    def __init__(self, step, pool=None, eager: bool = False):
         self.step = step  # in place
         self.pool = pool  # a graph pool handle, shared by the loops of one engine
+        self.eager = eager
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.bound: Optional[tuple] = None
         self.per_replay: Dict[str, int] = {}
@@ -814,7 +823,7 @@ class DecodeLoop:
         them."""
         if self.bound is not None:
             raise ValueError("this decode loop is already bound to a state")
-        if state.tokens.is_cuda:
+        if state.tokens.is_cuda and not self.eager:
             self._capture(state)
         self.bound = state_tensors(state)
 
@@ -824,7 +833,7 @@ class DecodeLoop:
             self.bind(state)
         elif not all(a is b for a, b in zip(self.bound, state_tensors(state), strict=True)):
             raise ValueError("the decode loop was bound to another state's tensors")
-        if state.tokens.is_cuda:
+        if state.tokens.is_cuda and not self.eager:
             self.replay(n)
         else:
             for _ in range(n):
@@ -889,8 +898,9 @@ class DecodeLoop:
         self.graph = graph
 
 
-def make_decode_loop(step, pool=None) -> DecodeLoop:
+def make_decode_loop(step, pool=None, eager: bool = False) -> DecodeLoop:
     """The decode loop over an in-place step (make_spec_step or
     make_baseline_step with in_place=True); pool: a graph pool handle
-    (torch.cuda.graph_pool_handle) its graph may share."""
-    return DecodeLoop(step, pool)
+    (torch.cuda.graph_pool_handle) its graph may share; eager: run the step
+    without a graph on the card too."""
+    return DecodeLoop(step, pool, eager)

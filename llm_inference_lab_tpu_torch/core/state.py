@@ -102,6 +102,10 @@ class DecodeState:
     fsm_stack: torch.Tensor  # [B, STACK_DEPTH] int32 — its nesting stack
     fsm_sp: torch.Tensor  # [B] int32 — the stack height
     lora_ids: torch.Tensor  # [B] int32 — each slot's LoRA adapter, -1 the base
+    # The global number of row 0: a data rank's first row of the mesh's
+    # batch (0 without a data axis). The random draws hash global rows, so a
+    # row draws what it draws in one process.
+    row0: int = 0
 
 
 # The tensors a step or a prefill may replace (all but the caches).
@@ -143,11 +147,11 @@ def assign(state: DecodeState, new: DecodeState) -> DecodeState:
 def _fill_sampling(state: DecodeState, seed: int, defaults: Optional[dict]) -> None:
     """The per-slot sampling values with no request's own, in place: the
     defaults, slot b's key fold(seed_key(seed), b) (JAX: fold_in(PRNGKey(seed),
-    b)), no logit_bias."""
+    b); b the global slot, from state.row0), no logit_bias."""
     for name, value in dict(SAMPLING_DEFAULTS, **(defaults or {})).items():
         getattr(state, name).fill_(value)
-    B = state.slot_rng.shape[0]
-    state.slot_rng.copy_(fold(seed_key(seed), torch.arange(B, dtype=torch.int64,
+    row0, B = state.row0, state.slot_rng.shape[0]
+    state.slot_rng.copy_(fold(seed_key(seed), torch.arange(row0, row0 + B, dtype=torch.int64,
                                                             device=state.slot_rng.device)))
     state.bias_ids.fill_(-1)
 
@@ -188,7 +192,7 @@ def init_state(target_model: Model, draft_model: Optional[Model], batch_size: in
                kv_dtype: Optional[torch.dtype] = None, seed: int = 0,
                init_k: int = 4, defaults: Optional[dict] = None,
                logprobs_topk: int = 0, fsm_init: int = UNCONSTRAINED,
-               lora_id: int = -1) -> DecodeState:
+               lora_id: int = -1, row0: int = 0) -> DecodeState:
     """paged=True gives both models a PagedKVCache: n_pages pages of
     page_size rows (default batch_size * max_pages) and, unless a table is
     given, the default table that gives slot b the pages [b*m, (b+1)*m).
@@ -199,7 +203,7 @@ def init_state(target_model: Model, draft_model: Optional[Model], batch_size: in
     per-slot sampling values (SAMPLING_DEFAULTS' keys); logprobs_topk: N of
     the top-N buffers (0: placeholders); fsm_init: every lane's grammar
     state (-1: unconstrained); lora_id: every lane's adapter (-1: the base
-    model)."""
+    model); row0: the global number of row 0 (a data rank's first row)."""
     B = batch_size
     kv_kw = dict(paged=paged, page_size=page_size, n_pages=n_pages, table=table, dtype=kv_dtype)
 
@@ -243,6 +247,7 @@ def init_state(target_model: Model, draft_model: Optional[Model], batch_size: in
         fsm_stack=zeros(B, STACK_DEPTH),
         fsm_sp=zeros(B),
         lora_ids=torch.full((B,), lora_id, dtype=torch.int32, device=device),
+        row0=row0,
     )
     _fill_sampling(state, seed, defaults)
     return state

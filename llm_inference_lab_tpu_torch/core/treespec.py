@@ -210,7 +210,7 @@ def make_tree_spec_step(target_model: Model, tree: TreeConfig, *, draft_params: 
             bonus = sample_tokens(None, bonus_logits, **ctl.row_samp(state, ctx, N))
         else:
             bonus = sample_tokens(fold(state.rng, _BONUS) if stochastic else None,
-                                  bonus_logits, **samp)
+                                  bonus_logits, **samp, row0=state.row0)
 
         # ---- 5. Commit: tokens, logprobs, KV compaction, the carry ----
         path_tokens = verify_in.gather(1, path)  # [B, Dt]

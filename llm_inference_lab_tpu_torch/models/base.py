@@ -22,7 +22,7 @@ buffer), so a step never copies the cache.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
@@ -84,6 +84,10 @@ class ModelConfig:
     # (ops/moe.py); 0 = a dense MLP.
     n_experts: int = 0
     experts_per_token: int = 2
+    # Tensor parallelism: the model group a rank's forward runs its
+    # collectives over (parallel/mesh.py TensorParallel). Not a field: a
+    # whole model has none, and a rank's share is a RankConfig.
+    tp = None
 
     @property
     def head_dim(self) -> int:
@@ -104,6 +108,16 @@ class ModelConfig:
     @property
     def moe(self) -> bool:
         return self.n_experts > 0
+
+
+@dataclass(frozen=True)
+class RankConfig(ModelConfig):
+    """A rank's share of a tensor-parallel model (parallel/sharding.py
+    shard_config): the rank's heads (n_heads, n_kv_heads) and MLP width
+    (d_ff), head_dim_override the whole model's head dim, and ``tp`` the
+    model group its forward's collectives run over."""
+
+    tp: Optional[Any] = None
 
 
 @dataclass

@@ -13,6 +13,14 @@ and a LoRA pack in params["layers"] (models/lora.py) adds each row's
 adapter delta at the fused QKV, the output projection and the gated MLP's
 gate/up and down projections when the forward is given ``lora_ids``.
 
+Tensor parallelism (a rank's models/base.py RankConfig, its ``tp``): the rank
+holds its heads' columns of the fused QKV, its columns of the MLP's input
+projection and the matching rows of the output projections
+(parallel/sharding.py); each output projection's partial sums are added
+over the model group in f32 (``_out_proj``), the vocab-parallel embedding
+is summed the same way and the head's logits are all-gathered. Attention
+and the caches run at the rank's heads, unchanged.
+
 Port of llm_inference_lab_tpu/models/transformer.py. The JAX package scans
 one compiled layer over stacked params; the port runs a Python loop over
 the same stacked tensors, taking each layer as a view (no copy), and every
@@ -43,6 +51,7 @@ from llm_inference_lab_tpu_torch.ops.quant import (
     EmbedQuant4,
     QuantTensor,
     dense,
+    dense_f32,
     f32_logits,
     repack_int4_rows,
 )
@@ -168,7 +177,20 @@ def _attn_block(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Ten
         attn = attend(q, cache.k[layer], cache.v[layer], positions, *scales,
                       ring_len=cfg.kv_ring_len, **options)
     a = attn.reshape(B, S, H * Dh)
-    return _lora(p, "o", mask, dense(a, p["wo"], p.get("bo")), a)
+    return _lora(p, "o", mask, _out_proj(cfg, a, p["wo"], p.get("bo")), a)
+
+
+def _out_proj(cfg: ModelConfig, x: torch.Tensor, w: Any,
+              b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A row-parallel projection (wo, w_down, w_proj): dense, or under
+    tensor parallelism the rank's partial sum in f32 (dense_f32), added
+    over the model group in f32 and rounded to the model dtype once, as the
+    unsharded kernel rounds its sum once; then the bias, which every rank
+    holds whole and adds once, after the sum."""
+    if cfg.tp is None:
+        return dense(x, w, b)
+    y = cfg.tp.all_reduce(dense_f32(x, w)).to(x.dtype)
+    return y if b is None else y + b.to(y.dtype)
 
 
 def _mlp_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
@@ -180,10 +202,10 @@ def _mlp_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
     if not cfg.gated_mlp:  # GPT-2's gelu (tanh-approximated, jax.nn.gelu's default), OPT's relu
         h = dense(x, p["w_fc"], p.get("b_fc"))
         h = F.gelu(h, approximate="tanh") if cfg.act == "gelu" else F.relu(h)
-        return dense(h, p["w_proj"], p.get("b_proj"))
+        return _out_proj(cfg, h, p["w_proj"], p.get("b_proj"))
     # gate and up fused into one matmul
     h = gated(_lora(p, "gate_up", mask, dense(x, p["w_gate_up"]), x), cfg.act)
-    return _lora(p, "down", mask, dense(h, p["w_down"]), h)
+    return _lora(p, "down", mask, _out_proj(cfg, h, p["w_down"]), h)
 
 
 def _layer_params(layers: dict, i: int) -> dict:
@@ -225,11 +247,7 @@ def forward(cfg: ModelConfig, params: Any, tokens: torch.Tensor, positions: torc
                     tree_bits=tree_bits(tree_mask) if tree_mask.is_cuda else None)
     forward.calls += 1
     forward.layers += cfg.n_layers
-    embed = params["embed"]
-    if isinstance(embed, (EmbedQuant, EmbedQuant4)):
-        x = embed.lookup(tokens, cfg.dtype)
-    else:
-        x = embed[tokens].to(cfg.dtype)
+    x = _embed_lookup(cfg, params["embed"], tokens)
     if cfg.embed_scale:
         # Gemma's input normalizer: sqrt(d_model) rounded to the compute
         # dtype, then multiplied (as the JAX package and HF round it).
@@ -290,6 +308,26 @@ forward.calls = 0
 forward.layers = 0
 
 
+def _embed_lookup(cfg: ModelConfig, embed: Any, tokens: torch.Tensor) -> torch.Tensor:
+    """The rows of `tokens` in the model dtype. Under tensor parallelism the
+    rank holds vocab rows [r n, (r + 1) n) (n = its row count): it looks up
+    the ids in its range, writes zero for the rest, and the model group's
+    sum (in f32) is each row exactly, one non-zero term."""
+    def lookup(ids):
+        if isinstance(embed, (EmbedQuant, EmbedQuant4)):
+            return embed.lookup(ids, cfg.dtype)
+        return embed[ids].to(cfg.dtype)
+
+    if cfg.tp is None:
+        return lookup(tokens)
+    n = (embed.rq if isinstance(embed, EmbedQuant4) else
+         embed.q if isinstance(embed, EmbedQuant) else embed).shape[0]
+    local = tokens - cfg.tp.rank * n
+    inside = (local >= 0) & (local < n)
+    rows = torch.where(inside[..., None], lookup(local.clamp(0, n - 1)).float(), 0.0)
+    return cfg.tp.all_reduce(rows).to(cfg.dtype)
+
+
 @lru_cache(maxsize=8)
 def _embed_multiplier(d_model: int, dtype: torch.dtype) -> float:
     """sqrt(d_model) rounded to `dtype`, as a Python float (exact in f32, so
@@ -301,7 +339,8 @@ def lm_head_logits(cfg: ModelConfig, params: Any, x: torch.Tensor) -> torch.Tens
     """Hidden states [.., D] -> vocab logits, f32: a tied head or an
     unquantized untied one keeps its products and sums in f32 (JAX's
     preferred_element_type=f32), a quantized untied head goes through dense
-    as JAX's does. Gemma-2 caps them
+    as JAX's does. Under tensor parallelism each rank's head gives its
+    vocab columns, all-gathered into the whole row. Gemma-2 caps them
     (cap * tanh(logits / cap), in place on the f32 logits)."""
     if cfg.tie_word_embeddings:
         embed = params["embed"]
@@ -313,6 +352,8 @@ def lm_head_logits(cfg: ModelConfig, params: Any, x: torch.Tensor) -> torch.Tens
         logits = dense(x, params["lm_head"]).float()
     else:
         logits = f32_logits(x, params["lm_head"].to(x.dtype).t())
+    if cfg.tp is not None:  # the rank's vocab columns: the whole row on every rank
+        logits = cfg.tp.all_gather_last(logits)
     if cfg.final_logit_softcap is not None:
         cap = cfg.final_logit_softcap
         logits = logits.div_(cap).tanh_().mul_(cap)

@@ -69,11 +69,18 @@ def quantize_int4(w: torch.Tensor) -> QuantTensor:
         raise ValueError("int4 packing requires an even d_in")
     w32 = w.float()
     scale = w32.abs().amax(dim=-2).clamp_min(1e-8) / 7.0
-    q = torch.round(w32 / scale.unsqueeze(-2)).clamp(-7, 7).to(torch.int32)
-    half = d_in // 2
+    q = torch.round(w32 / scale.unsqueeze(-2)).clamp(-7, 7)
+    return QuantTensor(pack_int4(q), scale, bits=4)
+
+
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """int4 values [.., K, N] (in [-8, 7]) -> the v2 packing [.., K/2, N]:
+    byte [i, n] holds row i + 8 in its low nibble and row i + K/2 in its
+    high nibble."""
+    q = q.to(torch.int32)
+    half = q.shape[-2] // 2
     lo, hi = q[..., :half, :], q[..., half:, :]
-    packed = (((lo + 8) & 0x0F) | ((hi & 0x0F) << 4)).to(torch.int8)
-    return QuantTensor(packed, scale, bits=4)
+    return (((lo + 8) & 0x0F) | ((hi & 0x0F) << 4)).to(torch.int8)
 
 
 def quantize(w: torch.Tensor, mode: str) -> QuantTensor:
@@ -188,6 +195,80 @@ def quantize_embed(embed: torch.Tensor) -> EmbedQuant:
     scale = e32.abs().amax(dim=1).clamp_min(1e-8) / 127.0
     q = torch.round(e32 / scale[:, None]).clamp(-127, 127).to(torch.int8)
     return EmbedQuant(q, scale)
+
+
+def int4_rows(data: torch.Tensor, r0: int, r1: int) -> torch.Tensor:
+    """Rows [r0, r1) of the int4 weight packed in data [.., K/2, N], as int8
+    values in [-8, 7]: rows below K/2 are the low nibbles of the packed rows
+    of the same index, rows from K/2 the high nibbles of row - K/2. Only
+    those packed rows are read."""
+    half = data.shape[-2]
+    parts = []
+    if r0 < half:
+        parts.append((data[..., r0:min(r1, half), :] & 0x0F) - 8)
+    if r1 > half:
+        parts.append(data[..., max(r0, half) - half:r1 - half, :] >> 4)
+    return torch.cat(parts, dim=-2)
+
+
+def row_shard(w: "QuantTensor", r0: int, r1: int) -> "QuantTensor":
+    """Rows [r0, r1) of a quantized weight [.., K, N] (its input dim: a
+    row-parallel projection's shard), a contiguous copy. int8 slices its
+    rows; int4 cannot slice bytes (byte [i, n] holds rows i and i + K/2), so
+    its rows are unpacked and packed again at K' = r1 - r0 (int4_rows,
+    pack_int4). The per-output-channel scale stays whole: every shard's
+    partial sums of a column take the column's scale."""
+    if w.bits == 4:
+        if (r1 - r0) % 2:
+            raise ValueError(f"an int4 row shard needs an even row count, got {r1 - r0}")
+        data = pack_int4(int4_rows(w.data, r0, r1))
+    else:
+        data = w.data[..., r0:r1, :]
+    return QuantTensor(data.contiguous(), w.scale.clone(), w.bits)
+
+
+def column_shard(w: Any, cols: torch.Tensor) -> Any:
+    """Output columns `cols` (an index tensor) of a weight [.., K, N] or a
+    bias [.., N]: a QuantTensor's bytes and scales, each a contiguous copy
+    (kernel A's wrapper takes contiguous, 16-byte aligned operands, and a
+    view would keep the whole tensor alive)."""
+    if isinstance(w, QuantTensor):
+        return QuantTensor(w.data.index_select(-1, cols).contiguous(),
+                           w.scale.index_select(-1, cols).contiguous(), w.bits)
+    return w.index_select(-1, cols).contiguous()
+
+
+def vocab_shard(embed: Any, v0: int, v1: int) -> Any:
+    """Vocab rows [v0, v1) of an embedding: a table [V, D]'s rows, an
+    EmbedQuant's rows and scales, an EmbedQuant4's head-layout columns,
+    row-layout rows and scales; each a contiguous copy."""
+    if isinstance(embed, EmbedQuant):
+        return EmbedQuant(embed.q[v0:v1].contiguous(), embed.scale[v0:v1].contiguous())
+    if isinstance(embed, EmbedQuant4):
+        return EmbedQuant4(QuantTensor(embed.qt.data[:, v0:v1].contiguous(),
+                                       embed.qt.scale[v0:v1].contiguous(), bits=4),
+                           embed.rq[v0:v1].contiguous())
+    return embed[v0:v1].contiguous()
+
+
+def dense_f32(x: torch.Tensor, w: Any) -> torch.Tensor:
+    """x [..., d_in] @ w with an f32 output (no bias): a row-parallel
+    projection's partial sum, which the ranks add in f32 before the sum is
+    rounded once (models/transformer.py). int4 through kernel A's f32
+    instantiation (quant_matmul_f32); int8 through kernel B, which has no
+    f32 instantiation: its partial is rounded to x's dtype first (at bf16,
+    2^-9 of each partial's magnitude); an unquantized weight with f32
+    products and sums (f32_logits' route)."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    if isinstance(w, QuantTensor):
+        if w.bits == 4:
+            y = quant_matmul_f32(x2, w.data, w.scale)
+        else:
+            y = quant_matmul_int8(x2, w.data, w.scale).float()
+    else:
+        y = f32_logits(x2, w.to(x.dtype).t())
+    return y.reshape(*lead, y.shape[-1])
 
 
 def dense(x: torch.Tensor, w: Any, b: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -42,7 +42,6 @@ _GOLDEN = 0x1E3779B9
 
 Key = Union[int, torch.Tensor]
 
-
 def _mix(h: Key) -> Key:
     """A 32-bit finalizer (murmur3's shape): a bijection of [0, 2**32) with
     full avalanche. Works on Python ints and int64 tensors alike."""
@@ -64,20 +63,24 @@ def fold(key: Key, data: Key) -> Key:
     return _mix((key + (data + 1) * _GOLDEN) & _M32)
 
 
-def uniform(key: torch.Tensor, shape) -> torch.Tensor:
+def uniform(key: torch.Tensor, shape, row0: int = 0) -> torch.Tensor:
     """f32 uniforms in (0, 1) of `shape`, a hash of (key, row, column): the
-    leading dims flatten to rows, the last is the column."""
+    leading dims flatten to rows, the last is the column. row0: the global
+    number of the block's first row on dim 0 (a data rank's first row of a
+    batch), so that each row draws what it draws in one process."""
     shape = tuple(shape)
     rows, cols = math.prod(shape[:-1]), shape[-1]
     dev = key.device
-    row_keys = fold(key, torch.arange(rows, dtype=torch.int64, device=dev))[:, None]
+    first = row0 * (rows // shape[0]) if rows else 0
+    row_keys = fold(key, torch.arange(first, first + rows, dtype=torch.int64,
+                                      device=dev))[:, None]
     h = fold(row_keys, torch.arange(cols, dtype=torch.int64, device=dev)[None])
     return (((h >> 8).to(torch.float32) + 0.5) * 2.0 ** -24).reshape(shape)
 
 
-def gumbel(key: torch.Tensor, shape) -> torch.Tensor:
-    """Standard Gumbel noise of `shape` from uniform(key, shape)."""
-    return -torch.log(-torch.log(uniform(key, shape)))
+def gumbel(key: torch.Tensor, shape, row0: int = 0) -> torch.Tensor:
+    """Standard Gumbel noise of `shape` from uniform(key, shape, row0)."""
+    return -torch.log(-torch.log(uniform(key, shape, row0)))
 
 
 def fold_rows(row_keys: torch.Tensor, site: Key) -> torch.Tensor:
@@ -226,11 +229,11 @@ def proposal_log_probs(logits: torch.Tensor, temperature: float = 1.0, top_k: in
 
 def sample_tokens(key: Optional[torch.Tensor], logits: torch.Tensor, temperature=1.0,
                   top_k=0, top_p=1.0, min_p=0.0, greedy: bool = False,
-                  row_keys: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  row_keys: Optional[torch.Tensor] = None, row0: int = 0) -> torch.Tensor:
     """[B, V] logits -> [B] int32 ids in [0, V). Greedy (or a scalar
     temperature <= 0): the argmax (first maximal index on ties; `key`
     unused). Otherwise a Gumbel-max draw from the filtered logits, with
-    gumbel(key, [B, V]) or, given row_keys [B], each row's own noise; a row
+    gumbel(key, [B, V], row0) or, given row_keys [B], each row's own noise; a row
     whose filtered maximum is not finite (all NaN or all -inf) takes the
     argmax of its logits. Per-row parameters ([B] tensors): a row at
     temperature <= 0 takes the argmax."""
@@ -241,7 +244,7 @@ def sample_tokens(key: Optional[torch.Tensor], logits: torch.Tensor, temperature
         return fallback
     scaled = filtered_logits(logits, temperature, top_k, top_p, min_p)
     noise = (-torch.log(-torch.log(uniform_rows(row_keys, V))) if row_keys is not None
-             else gumbel(key, scaled.shape))
+             else gumbel(key, scaled.shape, row0))
     sampled = torch.argmax(scaled + noise, dim=-1).to(torch.int32)
     bad = ~torch.isfinite(scaled.amax(dim=-1))
     out = torch.where(bad, fallback, sampled)

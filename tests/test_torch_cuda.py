@@ -1732,3 +1732,38 @@ def test_adaptive_batcher_replays_give_the_host_steps_bits(card):
     for g, w in zip(got, want, strict=True):
         for key in ("generated_ids", "token_logprobs", "proposed", "accepted"):
             assert g[key] == w[key], (key, g[key], w[key])
+
+
+@pytest.mark.cuda
+def test_tp_forward_of_two_ranks_on_the_card_equals_one_process(card):
+    """A model=2 forward of two gloo ranks sharing cuda:0 (int4 projections,
+    the int8 embedding and tied head; kernel A on the column shards, its f32
+    instantiation on the row shards, D and E at the rank's heads) against
+    the single-process forward on the card, for a 96-token prefill (A's
+    tensor-core path) and decode chunks of 1 and 3 tokens (its decode
+    body): both ranks' logits equal, each within 1e-2 of the largest |logit|
+    (QMM_RTOL: the ranks add f32 partials and round once where the whole
+    kernel rounds its own sum once)."""
+    import os
+    import sys
+
+    from llm_inference_lab_tpu_torch.models.base import Model, ModelConfig
+    from llm_inference_lab_tpu_torch.models.transformer import init_params_quantized
+    from llm_inference_lab_tpu_torch.parallel.multihost import launch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_parallel_ranks as ranks
+
+    cfg = ModelConfig(name="tp-card", vocab_size=4096, n_layers=2, n_heads=8, n_kv_heads=4,
+                      d_model=512, d_ff=1024, dtype=torch.bfloat16)
+    g = torch.Generator(device=card).manual_seed(0)
+    params = init_params_quantized(cfg, g, card, mode="int4", quantize_embed=True)
+    tokens = np.random.default_rng(0).integers(0, 4096, (1, 96)).astype(np.int32)
+    with torch.inference_mode():
+        want = ranks._forward(Model(cfg, params), tokens, (1, 3), card)
+    host = ranks._to(params, "cpu")
+    got = launch(ranks.tp_forward_cuda, 2, args=({"int4": (cfg, host)}, tokens), timeout=300)
+    for r in range(2):
+        for a, b, w in zip(got[r]["int4"], got[0]["int4"], want, strict=True):
+            assert np.array_equal(a, b), ("rank", r)
+            assert np.isfinite(a).all() and np.abs(a - w).max() <= 1e-2 * np.abs(w).max()

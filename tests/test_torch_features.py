@@ -173,11 +173,74 @@ def _refuse_ring_serving():
                                           prefill_chunk=32), device="cpu"), n_slots=1)
 
 
+def _mesh(data=1, model=1):
+    """Rank 0's view of a mesh, without a process group: every refusal below
+    raises before a collective would run."""
+    from llm_inference_lab_tpu_torch.parallel.mesh import Mesh
+
+    return Mesh({"data": data, "model": model}, 0, {"data": 0, "model": 0}, "gloo")
+
+
+TINY = dict(base_model="llama-tiny", draft_model=None, max_seq_len=96, dtype="float32")
+
+
+def _mesh_engine(data=1, model=1, **kw):
+    return Engine(EngineConfig(**dict(TINY, **kw)), device="cpu", mesh=_mesh(data, model))
+
+
+def _refuse_mesh_axis():
+    from llm_inference_lab_tpu_torch.parallel.mesh import make_mesh
+
+    make_mesh(model=2, seq=2)
+
+
+def _refuse_mesh_lora():
+    ad = lora.make_adapter(LLAMA_CONFIGS["llama-tiny"], "a", rank=2)
+    Engine(EngineConfig(**TINY), device="cpu", mesh=_mesh(model=2), lora_adapters=[ad])
+
+
+def _refuse_mesh_heads():
+    from dataclasses import replace
+
+    from llm_inference_lab_tpu_torch.parallel.sharding import shard_config
+
+    shard_config(replace(LLAMA_CONFIGS["llama-tiny"], n_kv_heads=3, n_heads=3), _mesh(model=2))
+
+
+def _refuse_multihost(**kw):
+    from llm_inference_lab_tpu_torch.core.multihost_batching import MultiHostBatcher
+
+    return MultiHostBatcher(_mesh_engine(data=2, **kw), n_slots=2)
+
+
+def _refuse_slots():
+    from llm_inference_lab_tpu_torch.core.multihost_batching import MultiHostBatcher
+
+    MultiHostBatcher(_mesh_engine(data=2), n_slots=3)
+
+
 REFUSE = {"ring_serving_without_admit_chunk": _refuse_ring_serving,
           "moe_weight_quantization": _refuse_moe_quantization,
           "tree_over_max_s": _refuse_big_tree, "embed_bits": _refuse_embed_bits,
           "lora_mlp_without_gated_mlp": _refuse_lora_mlp,
-          "unknown_config_key": _refuse_config_key}
+          "unknown_config_key": _refuse_config_key,
+          "mesh_seq_stage_expert_axes": _refuse_mesh_axis,
+          "mesh_shape_differs": lambda: _mesh_engine(data=2, mesh_shape={"model": 2}),
+          "mesh_lora_under_model": _refuse_mesh_lora,
+          "mesh_moe": lambda: _mesh_engine(data=2, base_model="mixtral-tiny"),
+          "mesh_fake_under_model": lambda: Engine(
+              EngineConfig(implementation="fake", base_model="fake", draft_model="fake"),
+              device="cpu", mesh=_mesh(model=2)),
+          "mesh_profiler_under_model": lambda: _mesh_engine(model=2, profile=True),
+          "mesh_heads_do_not_split": _refuse_mesh_heads,
+          "mesh_batch_does_not_split": lambda: _mesh_engine(data=2).generate_batch(["a"]),
+          "mesh_batcher_data_axis": lambda: ContinuousBatcher(_mesh_engine(data=2), n_slots=2),
+          "mesh_slots_do_not_split": _refuse_slots,
+          "multihost_prefix_caching": lambda: _refuse_multihost(
+              kv_layout="paged", kv_page_size=32, prefix_caching=True),
+          "multihost_kv_ring": lambda: _refuse_multihost(
+              base_model="mistral-tiny", max_seq_len=512, kv_ring=True, prefill_chunk=32),
+          "multihost_cancel": lambda: _refuse_multihost().cancel(0)}
 
 
 @pytest.mark.parametrize("refusal", features.port_refusals(), ids=lambda r: r["name"])
