@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (llm_inference_lab_tpu_torch) on one
 NVIDIA card: the quickest proof that the port builds and runs on the GPU.
 
-    python3 chip_smoke.py                    # phases 0-25, last line a JSON result
+    python3 chip_smoke.py                    # phases 0-27, last line a JSON result
     python3 chip_smoke.py --profile          # also a torch.profiler breakdown of runs
     python3 chip_smoke.py --profile=gemma    # the breakdown of the Gemma-2 runs only
     python3 chip_smoke.py --profile=mistral  # the breakdown of the Mistral B=1 run only
@@ -287,6 +287,19 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
     deltas and a forward's ms; (f) `cli serve` in a subprocess on a free
     port and BenchmarkRunner(mode="http") against it (healthy, every
     request a success; the subprocess killed in a finally);
+ 26 (d), 27. (26 (d) and 27 (a), (a'), (b), (d) after phase 5; (c) after
+    phase 26) the int8 model axis and the seq, stage and expert axes, ranks
+    sharing cuda:0 over gloo: (26 d) phase 4's engine at model=2, its
+    partial sums through kernel B's f32 instantiation, ids held to phase
+    4's; (27 a) phase 3's engine at seq=2 on a 4064-token prompt (ring
+    prefill through E's shard variant, T-split caches through D's), ids
+    held to one process's, the prefill logits within 2^-6 of the largest,
+    each rank's cache slice against one process's rows; (a') the int8
+    engine at seq=2; (b) phase 3's engine at stage=2, ids equal phase 3's
+    exactly; (c) stage=2 x model=2 on 4 ranks, generate_batch of phase 3b's
+    16 prompts held to phase 3b's; (d) Mixtral-8x7B cut to 4 layers at
+    expert=2, ids held to one process's, each rank's peak memory; each
+    rank's ms a step and the collectives' share;
  9. the kernels' JSON line (every kernel, launches by path; the Gemma-2
     variants of D, E and F, the ring variants of D and E, the ngram
     verify shapes of B, D and C, D's and F's tree variants and A at the 8B
@@ -574,8 +587,22 @@ TP_PATH = "generate int4 model=2 (2 ranks sharing the card over gloo)"
 DP_PATH = "serving int4 MultiHostBatcher data=2 (16 requests, 2 ranks)"
 TPDP_PATH = "serving int4 MultiHostBatcher data=2 x model=2 (16 requests, 4 ranks)"
 PARALLEL_PATHS = [TP_PATH, DP_PATH, TPDP_PATH]
+# Phases 26 (d) and 27: the int8 model axis and the seq, stage and expert
+# axes, ranks sharing the card over gloo.
+TP8_PATH = "generate int8 model=2 (2 ranks sharing the card over gloo)"
+SEQ_PATH = "generate int4 seq=2, a 4064-token prompt (2 ranks sharing the card over gloo)"
+SEQ8_PATH = "generate int8 seq=2, int8 KV (2 ranks sharing the card over gloo)"
+STAGE_PATH = "generate int4 stage=2 (2 ranks sharing the card over gloo)"
+STAGE_TP_PATH = "generate_batch int4 stage=2 x model=2 (16 prompts, 4 ranks)"
+# Phase 27 (d): Mixtral-8x7B at full width cut to EXPERT_LAYERS layers: each
+# rank builds the whole cut model on the card (11.8 GB in bf16) before it
+# keeps its half of the experts, and two ranks share the card.
+EXPERT_LAYERS = 4
+EXPERT_CUT = f"mixtral-8x7b-{EXPERT_LAYERS}-layers"
+EXPERT_PATH = f"generate mixtral-8x7b {EXPERT_LAYERS} layers bf16 ngram K=4 expert=2 (2 ranks)"
 INT8 = {"rms_norm", "add_rms_norm", "quant_matmul_int8", "quant_matmul_int8_mma"}
 HEAD4 = {"quant_matmul_int4_f32", "quant_matmul_int4_f32_mma"}  # the EmbedQuant4 head
+LN = {"layer_norm", "add_layer_norm"}  # GPT-2's and OPT's norms
 SPEC = {"flash_decode", "flash_prefill", "verify_prefix"}
 SERVE = {"flash_prefill", "paged_flash", "verify_prefix"}
 PATH_KERNELS = {
@@ -631,11 +658,11 @@ PATH_KERNELS = {
     # bf16 weights: the projections and the experts are torch.matmul.
     f"generate mixtral-8x7b {MIXTRAL_LAYERS} layers bf16 ngram K=4 (3 runs)":
         {"rms_norm", "add_rms_norm"} | SPEC,
-    # LayerNorm is plain ops, the projections bf16, no draft (no C).
-    "generate gpt2 bf16 baseline (3 runs)": {"flash_decode", "flash_prefill"},
-    "serving gpt2 bf16 baseline (16 requests)": {"flash_prefill", "paged_flash"},
-    "generate opt-125m bf16 baseline (3 runs)": {"flash_decode", "flash_prefill"},
-    "serving opt-125m bf16 baseline (16 requests)": {"flash_prefill", "paged_flash"},
+    # LayerNorm through its kernels, the projections bf16, no draft (no C).
+    "generate gpt2 bf16 baseline (3 runs)": LN | {"flash_decode", "flash_prefill"},
+    "serving gpt2 bf16 baseline (16 requests)": LN | {"flash_prefill", "paged_flash"},
+    "generate opt-125m bf16 baseline (3 runs)": LN | {"flash_decode", "flash_prefill"},
+    "serving opt-125m bf16 baseline (16 requests)": LN | {"flash_prefill", "paged_flash"},
     # Phase 22: the grammar's ops are plain torch ops inside the captured
     # step; the paths launch what phase 3's, 3b's, 16's, 13's and 10's do.
     "generate int4 grammars (json, json_object, json_schema, regex, tools)": INT4 | SPEC,
@@ -665,6 +692,19 @@ PATH_KERNELS = {
     TP_PATH: INT4 | SPEC | HEAD4,
     DP_PATH: INT4 | SERVE,
     TPDP_PATH: INT4 | SERVE | HEAD4,
+    # Phase 26 (d): the int8 engine at model=2, its partial sums through
+    # kernel B's f32 instantiation (both bodies). Phase 27: under seq every
+    # cache is split on T (the ring's blocks through E's shard variant, every
+    # other forward through D's over the slices); under stage a pipeline
+    # of phase 3's kernels; stage x model adds A's f32 partials; the cut
+    # Mixtral at expert=2 (its experts' products are torch ops).
+    TP8_PATH: INT8 | {"flash_decode_int8", "flash_prefill_int8", "verify_prefix",
+                      "quant_matmul_int8_f32", "quant_matmul_int8_f32_mma"},
+    SEQ_PATH: INT4 | {"flash_prefill_shard", "flash_decode_shard", "verify_prefix"},
+    SEQ8_PATH: INT8 | {"flash_prefill_shard", "flash_decode_shard_int8", "verify_prefix"},
+    STAGE_PATH: INT4 | SPEC,
+    STAGE_TP_PATH: INT4 | SPEC | HEAD4,
+    EXPERT_PATH: {"rms_norm", "add_rms_norm"} | SPEC,
     # Phase 24: JAX's pipelined loop on phase 3's weights (the serving
     # path's kernels).
     "serving int4 pipelined loop (16 requests)": INT4 | SERVE,
@@ -706,6 +746,8 @@ EMBED_PATH = next(path for path in PATH_KERNELS if path.startswith("embed "))
 EMBED4_PATHS = [path for path in PATH_KERNELS if "embed_bits=4" in path]
 PATH_SERVE_INT4 = "serving int4 (16 requests)"
 PATH_GENERATE_INT4 = "generate int4 (3 runs)"
+PATH_SERVE_INT8 = "serving int8 (16 requests)"
+PATH_GENERATE_INT8 = "generate int8 (3 runs)"
 # Phase 26 (a): the model=2 forward's logits against the whole model's on
 # the same weights and input, as a share of the largest |logit|. The ranks
 # add kernel A's f32 partials of wo and w_down and round once, the whole
@@ -729,6 +771,11 @@ END_TO_END_IDS = {}
 # Each serving path's ops that round a row differently at another M
 # (phase_serving's row_stability), for phase 26's held_to.
 UNSTABLE = {}
+# Each serving path's requests that part from B=1 generate at a near tie.
+PARTINGS = {}
+# The count of those on phase 20's serving paths with LayerNorm as plain
+# ops (PERF.md §6).
+PLAIN_LN_PARTINGS = {"gpt2": 2, "opt-125m": 4}
 HARNESS_PATHS = [path for path in PATH_KERNELS if path.startswith("bench ")]
 PPL_ROWS, PPL_S = 4, 512  # phase 25 (e): rows of ids a model, ids a row
 HARNESS_TIMEOUT_S = 600  # a CLI subprocess's limit in phase 25
@@ -2269,6 +2316,7 @@ def phase_ring_attention(dev):
 # The kernels that only a decode step launches: outside the decode loop's
 # replays they launch only in the eager warm-up step before a capture.
 DECODE_ONLY = {"quant_matmul_int4", "quant_matmul_int8", "quant_matmul_int4_f32",
+               "quant_matmul_int8_f32",
                "flash_decode", "flash_decode_int8",
                "paged_flash", "paged_flash_int8", "verify_prefix", "flash_decode_tree",
                "flash_decode_tree_int8", "paged_flash_tree", "paged_flash_tree_int8"}
@@ -2276,8 +2324,9 @@ DECODE_ONLY = {"quant_matmul_int4", "quant_matmul_int8", "quant_matmul_int4_f32"
 
 def count_launches(path, run):
     """Set every kernel's launch count to 0, call run(), read the counts, and
-    check that exactly the kernels of `path` launched, rms_norm once a
-    forward and add_rms_norm twice a layer a forward (on the RMSNorm paths).
+    check that exactly the kernels of `path` launched, rms_norm (or
+    layer_norm) once a forward and add_rms_norm (or add_layer_norm) twice a
+    layer a forward.
     A count is the eager
     launches (the wrappers' counters, models/transformer.py's forward counts)
     plus the decode loops' replays, each replay counting the launches,
@@ -2360,10 +2409,11 @@ def count_launches(path, run):
     launched = {name for name, n in launches.items() if n}
     assert launched == PATH_KERNELS[path], (path, "launched", launched,
                                             "expected", PATH_KERNELS[path])
-    if "rms_norm" in PATH_KERNELS[path]:  # GPT-2's and OPT's LayerNorm is plain ops
-        assert launches["rms_norm"] == forwards, (path, "rms_norm once a forward", forwards)
-        assert launches["add_rms_norm"] == 2 * layers, (path, "add_rms_norm twice a layer",
-                                                        layers)
+    for norm in ("rms_norm", "layer_norm"):  # GPT-2's and OPT's are LayerNorm
+        if norm in PATH_KERNELS[path]:
+            assert launches[norm] == forwards, (path, f"{norm} once a forward", forwards)
+            assert launches["add_" + norm] == 2 * layers, (path, f"add_{norm} twice a layer",
+                                                           layers)
     return out, launches
 
 
@@ -2798,9 +2848,9 @@ def kernel_wrappers():
 
 RMS_NORM_OP = "rms_norm (kernel, fixed order)"
 ADD_NORM_OP = "add_rms_norm (kernel, fixed order)"
-LAYER_NORM_OP = "layer_norm (plain ops)"
+LAYER_NORM_OP = "layer_norm (kernel, fixed order)"
 LIBRARY_M = (64, 256)  # prefill rows row_stability adds for a bf16 model's library ops
-ADD_LAYER_NORM_OP = "residual add + layer_norm (plain ops)"
+ADD_LAYER_NORM_OP = "add_layer_norm (kernel, fixed order)"
 D_VS_F = "D vs F rows at the serving shapes"
 ACROSS_MMA = "kernel {} across MMA_MIN_M (decode body alone vs tensor-core path)"
 
@@ -2811,8 +2861,8 @@ def row_stability(eng, dev):
     generate runs M = 1, 2 at K=1 and 1, 5 at K=4; the 8-slot batcher 8, 16
     or 8, 40), and the projection kernel also at 63 (its decode body's
     largest M): for each M, how many rows differ in any bit from the row
-    alone; 0 for rms_norm, add_rms_norm and the projection kernel
-    (asserted). Random rows
+    alone; 0 for rms_norm, add_rms_norm, layer_norm, add_layer_norm and
+    the projection kernel (asserted). Random rows
     can miss a rounding that a real row shows (tests/torch_kv_align_probe.py).
     Then the projection kernel across MMA_MIN_M: MMA_MIN_M rows together
     (its tensor-core path, which every prefill takes) against the same rows
@@ -2821,9 +2871,11 @@ def row_stability(eng, dev):
     model's ops are also taken at LIBRARY_M rows (a prompt's prefill). Then D
     against F over the same keys at the serving step's shapes: F runs D's
     body, so no row may differ (asserted). A model with bf16 projections
-    (torch.matmul, a library call) or LayerNorm (plain ops) has those ops
-    counted, not asserted: nothing fixes their order of sums across M."""
+    (torch.matmul, a library call) has each projection of a layer counted at
+    its own width, not asserted: nothing fixes their order of sums across
+    M."""
     from llm_inference_lab_tpu_torch.models.transformer import (
+        add_layer_norm,
         add_rms_norm,
         layer_norm,
         lm_head_logits,
@@ -2841,7 +2893,7 @@ def row_stability(eng, dev):
     x = torch.randn((MMA_MIN_M if quant else LIBRARY_M[-1], cfg.d_model), generator=g,
                     device=dev).bfloat16()
     w = w.layer(0) if quant else w[0]
-    kernel = ("bf16 projection (torch.matmul)" if not quant else
+    kernel = ("bf16 projection w_qkv (torch.matmul)" if not quant else
               "quant_matmul_int4 (kernel A)" if w.bits == 4 else "quant_matmul_int8 (kernel B)")
     head = ("tied int4 head (kernel A, f32 out)" if cfg.tie_word_embeddings
             and isinstance(params["embed"], EmbedQuant4) else
@@ -2855,9 +2907,10 @@ def row_stability(eng, dev):
         ops = {
             LAYER_NORM_OP: lambda a: layer_norm(a, layer0["attn_norm_scale"][0],
                                                 layer0["attn_norm_bias"][0], cfg.layer_norm_eps),
-            ADD_LAYER_NORM_OP: lambda a: layer_norm(a + a, layer0["mlp_norm_scale"][0],
-                                                    layer0["mlp_norm_bias"][0],
-                                                    cfg.layer_norm_eps),
+            ADD_LAYER_NORM_OP:  # the residual a + a and its norm, side by side
+                lambda a: torch.cat(add_layer_norm(a, a, layer0["mlp_norm_scale"][0],
+                                                   layer0["mlp_norm_bias"][0],
+                                                   cfg.layer_norm_eps), -1),
         }
     else:
         ops = {
@@ -2869,20 +2922,30 @@ def row_stability(eng, dev):
                                                  cfg.rms_norm_eps, cfg.rms_one_offset, post), -1),
         }
     ops |= {head: lambda a: lm_head_logits(cfg, params, a), kernel: lambda a: dense(a, w)}
+    inputs = {}
+    if not quant:  # every bf16 projection of a layer: cuBLAS picks its kernel by the shape
+        for leaf in ("wo", "w_gate_up", "w_down", "w_fc", "w_proj"):
+            if leaf in layer0:
+                name = f"bf16 projection {leaf} (torch.matmul)"
+                ops[name] = lambda a, wl=layer0[leaf][0]: dense(a, wl)
+                inputs[name] = torch.randn((LIBRARY_M[-1], layer0[leaf].shape[-2]),
+                                           generator=g, device=dev).bfloat16()
     out = {}
     for name, fn in ops.items():
         ms = (2, 5, 8, 16, 40) + ((MMA_MIN_M - 1,) if name == kernel else ())
         if not quant:
             ms += LIBRARY_M
         n = MMA_MIN_M if name == kernel and quant else max(ms)  # the across check's rows too
-        alone = torch.cat([fn(x[i:i + 1].contiguous()) for i in range(n)])
-        out[name] = {M: int((fn(x[:M].contiguous()) != alone[:M]).any(-1).sum()) for M in ms}
+        xs = inputs.get(name, x)
+        alone = torch.cat([fn(xs[i:i + 1].contiguous()) for i in range(n)])
+        out[name] = {M: int((fn(xs[:M].contiguous()) != alone[:M]).any(-1).sum()) for M in ms}
         if name == kernel and quant:
             out[ACROSS_MMA.format("A" if w.bits == 4 else "B")] = {
                 MMA_MIN_M: int((fn(x) != alone).any(-1).sum())}
-    if not cfg.use_layernorm:
-        for op in (RMS_NORM_OP, ADD_NORM_OP):
-            assert not any(out[op].values()), (op, "rows depend on M", out[op])
+    norms = (LAYER_NORM_OP, ADD_LAYER_NORM_OP) if cfg.use_layernorm else (RMS_NORM_OP,
+                                                                          ADD_NORM_OP)
+    for op in norms:
+        assert not any(out[op].values()), (op, "rows depend on M", out[op])
     if quant:
         assert not any(out[kernel].values()), ("projection rows depend on M", out[kernel])
     out[D_VS_F] = attention_rows(eng, dev)
@@ -3067,6 +3130,7 @@ def phase_serving(dev, eng, profile, max_len, path, label):
                  for r, prompt in zip(results, SERVE_PROMPTS))
     log(f"serving ids == the start of B=1 generate ids for {len(results) - differ} of "
         f"{len(results)} requests (the rest near ties)")
+    PARTINGS[path] = differ
     if profile:
         profiled = batcher("paged")  # its capture stays out of the profile
         profile_run(f"serving run ({label})", profiled.run, st["wall_s"] * 1e3)
@@ -4447,6 +4511,10 @@ def phase_baselines(dev):
         eng, out[paths[0]] = phase_end_to_end(dev, False, cfg, paths[0], label)
         model_report(eng, label)
         out[paths[1]] = phase_serving(dev, eng, False, SERVE_MAX_LEN, paths[1], label)
+        log(f"phase 20 {name}: {PARTINGS[paths[1]]} of {len(SERVE_PROMPTS)} served requests part "
+            f"from B=1 generate at near ties, LayerNorm through its kernels (with plain "
+            f"LayerNorm ops: {PLAIN_LN_PARTINGS[name]} of 16); the ops left that round a row "
+            f"differently across M: {UNSTABLE[paths[1]]}")
         del eng
         torch.cuda.empty_cache()
     return out
@@ -6267,21 +6335,26 @@ def sharded_shapes(dev):
             f"{'/'.join(map(str, key))} {err:.3g}" for key, err in errs.items()))
 
 
-def rank_counts(path, run):
+def rank_counts(path, run, last_stage=True):
     """count_launches inside a rank: every wrapper's count, the forward
     counts and the loops' replay tallies set to 0, run(), then the eager
     launches plus each replay's captured ones (the data axis alone
-    captures; under the model axis every step is eager). Asserts that
-    exactly the path's kernels launched, rms_norm once a forward and
-    add_rms_norm twice a layer. Also the host seconds in the model axis's
-    collectives and in the batcher's control traffic."""
+    captures; under the model, seq, stage or expert axis every step is
+    eager). Asserts that exactly the path's kernels launched, rms_norm once
+    a forward and add_rms_norm twice a layer (under the stage axis a
+    forward is a microbatch through the stage's layers; a stage before the
+    last adds unfused after its last layer, once less a microbatch). Also
+    the host seconds in the axes' collectives and in the batcher's control
+    traffic."""
     from llm_inference_lab_tpu_torch.core.specstep import DecodeLoop
     from llm_inference_lab_tpu_torch.models import transformer
     from llm_inference_lab_tpu_torch.parallel.mesh import COLLECTIVES, CONTROL
+    from llm_inference_lab_tpu_torch.parallel.pipeline import forward_pp
 
     wrappers = kernel_wrappers()
     for w in wrappers.values():
         w.launches = 0
+    forward_pp.calls = 0
     transformer.forward.calls = transformer.forward.layers = 0
     DecodeLoop.replayed.clear()
     for tally in (COLLECTIVES, CONTROL):
@@ -6298,8 +6371,10 @@ def rank_counts(path, run):
     launched = {name for name, n in launches.items() if n}
     assert launched == PATH_KERNELS[path], (path, "launched", launched, "expected",
                                             PATH_KERNELS[path])
-    assert launches["rms_norm"] == forwards and launches["add_rms_norm"] == 2 * layers, (
-        path, launches, forwards, layers)
+    unfused = 0 if last_stage else forward_pp.calls
+    assert (launches["rms_norm"] == forwards
+            and launches["add_rms_norm"] == 2 * layers - unfused), (
+        path, launches, forwards, layers, unfused)
     return out, dict(launches=launches, forwards=forwards, replays=replayed.get("replays", 0),
                      wall_s=wall, coll_calls=COLLECTIVES["calls"],
                      coll_s=COLLECTIVES["seconds"], control_calls=CONTROL["calls"],
@@ -6385,13 +6460,13 @@ def rank_serve(model):
 
 
 def rank_report(what, got):
-    """Log each rank's step time and the shares of its wall in the model
-    axis's collectives and in the batcher's control traffic."""
+    """Log each rank's step time and the shares of its wall in the mesh
+    axes' collectives and in the batcher's control traffic."""
     for r, g in enumerate(got):
         c = g["counts"]
         steps = g["steps"] if "steps" in g else g["stats"]["steps"]
         log(f"{what} rank {r} {g['coords']}: {c['wall_s'] * 1e3 / max(steps, 1):.3f} ms a step "
-            f"({steps} steps in {c['wall_s']:.3f} s), model-axis collectives {c['coll_calls']} "
+            f"({steps} steps in {c['wall_s']:.3f} s), the axes' collectives {c['coll_calls']} "
             f"calls {c['coll_s']:.3f} s = {c['coll_s'] / c['wall_s']:.1%} of the wall, control "
             f"traffic {c['control_calls']} calls {c['control_s']:.3f} s = "
             f"{c['control_s'] / c['wall_s']:.1%}; {c['forwards']} forwards, {c['replays']} graph "
@@ -6466,6 +6541,556 @@ def phase_parallel(dev, eng):
         rank_report(f"phase 26 {what}", got)
         out[path] = summed(got)
     return out
+
+
+
+# ------------------- phase 2: kernel B f32, the shard variants, LayerNorm
+# Kernel B's f32 instantiation at the int8 3B's and 1B's model=2
+# row-parallel shapes (wo at K = H*dh / 2, w_down at K = F / 2), at the rows
+# of phase 26 (d)'s K=4 step (1 and 5), the ngram verify (13) and an 8-slot
+# ngram verify (104, the tensor-core path).
+INT8_TP_SHAPES = {"3B": [(1536, 3072), (4096, 3072)], "1B": [(1024, 2048), (4096, 2048)]}
+INT8_F32_M = (1, 5, 13, 104)
+# Phase 27 (a)'s prompt: 4064 byte tokens, so P = 4064 (2032 rows a seq
+# rank), T = 4224 (a slice of 2112 a rank, the second from position 2112).
+SEQ_PROMPT = (PROMPT * 31)[:4064]
+SEQ_P, SEQ_T, SEQ_MAX_LEN = 4064, 4224, 4608
+LN_WIDTH = 768  # gpt2's and opt-125m's d_model
+LN_M = (2, 5, 8, 16, 40, 64, 256)
+
+
+def sdpa_shard(q, k, v, pos, t0):
+    """One library call for the shard variant's function (timed only):
+    SDPA with the mask of keys t0 + j <= p, and the rows' logsumexp."""
+    T, H, KVH = k.shape[2], q.shape[2], k.shape[1]
+    mask = (t0 + torch.arange(T, device=q.device))[None, None, None, :] <= pos[:, None, :, None]
+    qt = q.transpose(1, 2)
+    out = torch.nn.functional.scaled_dot_product_attention(qt, k, v, attn_mask=mask,
+                                                           enable_gqa=True)
+    kk = k.repeat_interleave(H // KVH, dim=1)
+    s = (qt @ kk.transpose(-1, -2)).float() * q.shape[-1] ** -0.5
+    return out.transpose(1, 2), torch.logsumexp(s.masked_fill(~mask, float("-inf")), -1)
+
+
+def check_shard(got, q, k, v, pos, t0, ks=None, vs=None, what=""):
+    """The shard variant's (out, lse) against its plain version on f32 copies
+    (an int8 cache dequantized in f32): out per element within FLASH_RTOL
+    |ref| + ATTN_VTOL sum_j P_j |v_j| + FLASH_ATOL (check_attn's tolerance),
+    lse within 1e-3, the same rows dead (-inf, zeros). Returns the max abs
+    errs of out and lse."""
+    from llm_inference_lab_tpu_torch.ops.flash_decode import flash_decode_shard_plain
+
+    o, lse = got
+    kf, vf = k.float(), v.float()
+    if ks is not None:
+        kf, vf = kf * ks[..., None], vf * vs[..., None]
+    ref, rl = flash_decode_shard_plain(q.float(), kf, vf, pos, t0)
+    mag, _ = flash_decode_shard_plain(q.float(), kf, vf.abs(), pos, t0)
+    excess = ((o - ref).abs() - FLASH_RTOL * ref.abs() - ATTN_VTOL * mag - FLASH_ATOL).max()
+    live = torch.isfinite(rl)
+    assert torch.equal(live, torch.isfinite(lse)) and torch.isfinite(o).all(), (what, "dead rows")
+    lse_err = (lse - rl)[live].abs().max().item() if bool(live.any()) else 0.0
+    assert excess.item() <= 0 and lse_err <= 1e-3, (what, excess.item(), lse_err)
+    assert torch.all(o[~live.transpose(1, 2)] == 0), (what, "a dead row is not zeros")
+    return (o - ref).abs().max().item(), lse_err
+
+
+def phase_axes_kernels(dev):
+    """Phase 2's cells of B's f32 instantiation, the shard variants and the
+    LayerNorm kernels, each against its plain
+    version on the card, timed beside it, one library call and the bound:
+    (a) kernel B's f32 instantiation (decode body and tensor-core path) at
+    the int8 models' model=2 row-parallel shapes, M = 1, 5, 13 and 104,
+    every element within phase 17's f32 summation bound and the bf16
+    instantiation exactly the f32 output rounded; (b) kernel D's shard
+    variant (bf16 and int8 slices) and E's (bf16 blocks) at the 3B's and
+    the 1B's geometry over phase 27 (a)'s slices and blocks (T = 4224 as two
+    slices of 2112, the second from t0 = 2112, and blocks of 2032 rows),
+    with dead rows and slices wholly after a row; (c) the LayerNorm kernels
+    at gpt2's width, within one bf16 step of the plain ops, every row with
+    its bits alone at M = 2 to 256, add_layer_norm bit for bit torch's add
+    then layer_norm. Returns {kernel: row}."""
+    from llm_inference_lab_tpu_torch.ops.flash_decode import (
+        flash_decode_shard,
+        flash_decode_shard_plain,
+    )
+    from llm_inference_lab_tpu_torch.ops.flash_prefill import flash_prefill_shard
+    from llm_inference_lab_tpu_torch.ops.quant_matmul import (
+        quant_matmul_int8,
+        quant_matmul_int8_f32,
+        quant_matmul_int8_f32_mma,
+        quant_matmul_int8_mma,
+        quant_matmul_plain_int8,
+        takes_mma,
+    )
+    from llm_inference_lab_tpu_torch.ops.rms_norm import (
+        add_layer_norm,
+        add_layer_norm_plain,
+        layer_norm,
+        layer_norm_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    rows = {}
+
+    def row(max_err):
+        return dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bound_by="bytes",
+                    max_abs_err=max_err)
+
+    def add(r, n, ms, plain, lib, b):
+        for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib), ("bound_ms", b)):
+            r[key] += n * val
+
+    # (a) B's f32 instantiation.
+    err = 0.0
+    weights = {}
+    for model, widths in INT8_TP_SHAPES.items():
+        for K, N in widths:
+            w = torch.randint(-127, 128, (K, N), generator=g, device=dev, dtype=torch.int8)
+            scale = torch.rand((N,), generator=g, device=dev) * (0.02 / 127) + 1e-5
+            weights[(K, N)] = (w, scale)
+            x = torch.randn((max(INT8_F32_M), K), generator=g, device=dev).bfloat16()
+            for M in INT8_F32_M:
+                got = quant_matmul_int8_f32(x[:M], w, scale)
+                ref = quant_matmul_plain_int8(x[:M], w, scale, out_dtype=torch.float32)
+                e = (got - ref).abs()
+                assert got.dtype == torch.float32 and torch.isfinite(got).all() and bool(
+                    (e <= f32_sum_bound(x[:M], w.float(), scale)).all()), ("B f32", K, N, M)
+                bf16 = (quant_matmul_int8_mma if takes_mma(M) else quant_matmul_int8)(
+                    x[:M], w, scale)
+                assert torch.equal(bf16, got.bfloat16()), ("B f32 != the bf16 kernel", K, N, M)
+                err = max(err, e.max().item())
+    log(f"quant_matmul_int8_f32 (kernel B, f32 out) at the model=2 shapes "
+        f"{INT8_TP_SHAPES}, M = {INT8_F32_M}: every element within the f32 summation bound "
+        f"(max abs err {err:.3g}); the bf16 instantiation is the f32 output rounded, bit for "
+        f"bit")
+    dec, pre = row(err), row(err)
+    # Phase 26 (d)'s K=4 step (4 draft forwards of the 1B at M = 1, a 3B
+    # verify at M = 5: wo and w_down a layer) and its prefill (M = 160).
+    for (K, N), M, n, r in (((1024, 2048), 1, 64, dec), ((4096, 2048), 1, 64, dec),
+                            ((1536, 3072), 5, 28, dec), ((4096, 3072), 5, 28, dec),
+                            ((1024, 2048), 160, 16, pre), ((4096, 2048), 160, 16, pre),
+                            ((1536, 3072), 160, 28, pre), ((4096, 3072), 160, 28, pre)):
+        L = 2 * L2_BYTES // (K * N) + 1
+        ws = torch.randint(-127, 128, (L, K, N), generator=g, device=dev, dtype=torch.int8)
+        scale = weights[(K, N)][1]
+        x = torch.randn((M, K), generator=g, device=dev).bfloat16()
+        cyc = Cycle(L)
+        fn = quant_matmul_int8_f32_mma if takes_mma(M) else quant_matmul_int8_f32
+        ms = median_ms(lambda: fn(x, ws[cyc()], scale))
+        plain = median_ms(lambda: quant_matmul_plain_int8(x, ws[cyc()], scale, torch.float32),
+                          iters=10)
+        lib = median_ms(lambda: torch.mm(x, ws[cyc()].to(torch.bfloat16),
+                                         out_dtype=torch.float32) * scale, iters=10)
+        b, by = bound_ms(K * N + 2 * M * K + 4 * M * N + 4 * N, 2 * M * K * N)
+        r["bound_by"] = by
+        log(f"quant_matmul_int8_f32 M={M} K={K} N={N}: {ms:.4f} ms  plain {plain:.4f}  library "
+            f"{lib:.4f} (torch.mm(x, w.to(bf16), f32 out) * scale)  bound {b:.5f} ({by}); x {n}")
+        add(r, n, ms, plain, lib, b)
+        del ws
+    rows["quant_matmul_int8_f32"], rows["quant_matmul_int8_f32_mma"] = dec, pre
+
+    # (b) the shard variant of D (bf16, int8) and E (bf16).
+    per, S_loc = SEQ_T // 2, SEQ_P // 2
+    errs = {"bf16": (0.0, 0.0), "int8": (0.0, 0.0), "E": (0.0, 0.0)}
+    for D, (H, KVH) in GEOMS.items():
+        for int8 in (False, True):
+            k = torch.randn((1, KVH, per, D), generator=g, device=dev)
+            v = torch.randn((1, KVH, per, D), generator=g, device=dev)
+            sc = ()
+            if int8:
+                from llm_inference_lab_tpu_torch.models.base import quantize_rows
+
+                (k, ks), (v, vs) = quantize_rows(k), quantize_rows(v)
+                sc = (ks, vs)
+            else:
+                k, v = k.bfloat16(), v.bfloat16()
+            for t0 in (0, per):
+                for S in (1, 2, 5):
+                    q = torch.randn((2, S, H, D), generator=g, device=dev).bfloat16()
+                    pos = (torch.tensor([[4100], [1000]], device=dev)
+                           + torch.arange(S, device=dev)).int().contiguous()
+                    pos[1, 0] = -1  # a dead row
+                    kk, vv = k.expand(2, -1, -1, -1), v.expand(2, -1, -1, -1)
+                    sc2 = tuple(s.expand(2, -1, -1) for s in sc)
+                    got = flash_decode_shard(q, kk, vv, pos, t0, *sc2)
+                    e = check_shard(got, q, kk, vv, pos, t0, *sc2,
+                                    what=("flash_decode_shard", D, int8, t0, S))
+                    key = "int8" if int8 else "bf16"
+                    errs[key] = tuple(max(a, b) for a, b in zip(errs[key], e))
+        k = torch.randn((1, KVH, S_loc, D), generator=g, device=dev).bfloat16()
+        v = torch.randn((1, KVH, S_loc, D), generator=g, device=dev).bfloat16()
+        q = torch.randn((1, S_loc, H, D), generator=g, device=dev).bfloat16()
+        pos = (S_loc + torch.arange(S_loc, device=dev)).int()[None].contiguous()
+        for src in (0, 1, 2):  # a block wholly seen, the diagonal, one wholly after
+            got = flash_prefill_shard(q, k, v, pos, src * S_loc)
+            e = check_shard(got, q, k, v, pos, src * S_loc, what=("flash_prefill_shard", D, src))
+            assert bool(torch.isfinite(got[1]).any()) == (src < 2)
+            errs["E"] = tuple(max(a, b) for a, b in zip(errs["E"], e))
+    log(f"shard variants against their plain versions (max abs err of out, of lse): D bf16 "
+        f"{errs['bf16']}, D int8 {errs['int8']}, E bf16 {errs['E']}; dead rows zeros and -inf")
+    d16, d8, e16 = row(errs["bf16"][0]), row(errs["int8"][0]), row(errs["E"][0])
+    # Timed at phase 27 (a)'s K=1 step on the rank holding positions [2112,
+    # 4224) at p = 4100 (16 1B layers at S = 1, 28 3B layers at S = 2), at
+    # (a')'s int8 K=4 step (4 x 16 at S = 1, 28 at S = 5), and at (a)'s
+    # prefill on rank 1 (its diagonal block and block 0 a layer, 28 + 16
+    # layers).
+    for r, int8, cases in ((d16, False, ((64, 1, 16), (128, 2, 28))),
+                           (d8, True, ((64, 1, 64), (128, 5, 28)))):
+        for D, S, n in cases:
+            H, KVH = GEOMS[D]
+            L = 2 * L2_BYTES // (2 * KVH * per * D * (1 if int8 else 2)) + 1
+            k = torch.randn((L, 1, KVH, per, D), generator=g, device=dev)
+            v = torch.randn((L, 1, KVH, per, D), generator=g, device=dev)
+            if int8:
+                from llm_inference_lab_tpu_torch.models.base import quantize_rows
+
+                (k, ks), (v, vs) = quantize_rows(k), quantize_rows(v)
+            else:
+                k, v, ks, vs = k.bfloat16(), v.bfloat16(), None, None
+            q = torch.randn((1, S, H, D), generator=g, device=dev).bfloat16()
+            pos = (4100 - S + 1 + torch.arange(S, device=dev)).int()[None].contiguous()
+            cyc = Cycle(L)
+
+            def sc():
+                return (ks[cyc.i], vs[cyc.i]) if int8 else ()
+
+            ms = median_ms(lambda: flash_decode_shard(q, k[cyc()], v[cyc.i], pos, per, *sc()))
+            plain = median_ms(lambda: flash_decode_shard_plain(q, k[cyc()], v[cyc.i], pos, per,
+                                                               *sc()), iters=10)
+
+            def library():
+                kk, vv = k[cyc()], v[cyc.i]
+                if int8:
+                    kk = (kk.float() * ks[cyc.i][..., None]).bfloat16()
+                    vv = (vv.float() * vs[cyc.i][..., None]).bfloat16()
+                return sdpa_shard(q, kk, vv, pos, per)
+
+            lib = median_ms(library, iters=10)
+            keys = 4100 + 1 - per
+            b, by = bound_ms(2 * KVH * keys * D * (1 if int8 else 2) + (8 * KVH * keys if int8
+                                                                         else 0)
+                             + 2 * S * H * D + 4 * S * H * D + 4 * S * H,
+                             4 * H * S * keys * D)
+            r["bound_by"] = by
+            log(f"flash_decode_shard{'_int8' if int8 else ''} S={S} D={D} slice of {per} from "
+                f"{per}, p=4100: {ms:.4f} ms  plain {plain:.4f}  library {lib:.4f} (SDPA, "
+                f"offset mask, logsumexp)  bound {b:.5f} ({by}); x {n}")
+            add(r, n, ms, plain, lib, b)
+            del k, v
+    for D, n in ((128, 28), (64, 16)):
+        H, KVH = GEOMS[D]
+        k = torch.randn((1, KVH, S_loc, D), generator=g, device=dev).bfloat16()
+        v = torch.randn((1, KVH, S_loc, D), generator=g, device=dev).bfloat16()
+        q = torch.randn((1, S_loc, H, D), generator=g, device=dev).bfloat16()
+        pos = (S_loc + torch.arange(S_loc, device=dev)).int()[None].contiguous()
+        for src, seen in ((0, S_loc * S_loc), (1, S_loc * (S_loc + 1) // 2)):
+            ms = median_ms(lambda: flash_prefill_shard(q, k, v, pos, src * S_loc), iters=10)
+            plain = median_ms(lambda: flash_decode_shard_plain(q, k, v, pos, src * S_loc),
+                              iters=3)
+            lib = median_ms(lambda: sdpa_shard(q, k, v, pos, src * S_loc), iters=10)
+            b, by = bound_ms(2 * 2 * KVH * S_loc * D + 2 * S_loc * H * D + 4 * S_loc * H * D
+                             + 4 * S_loc * H, 4 * H * seen * D)
+            e16["bound_by"] = by
+            log(f"flash_prefill_shard D={D} {S_loc} rows on block {src} ({seen} keys seen a "
+                f"head): {ms:.4f} ms  plain {plain:.4f}  library {lib:.4f}  bound {b:.5f} "
+                f"({by}); x {n}")
+            add(e16, n, ms, plain, lib, b)
+    rows["flash_decode_shard"], rows["flash_decode_shard_int8"] = d16, d8
+    rows["flash_prefill_shard"] = e16
+
+    # (c) LayerNorm at gpt2's width.
+    N = LN_WIDTH
+    ln_err = add_err = 0.0
+    for w_dtype in (torch.bfloat16, torch.float32):
+        x = (torch.randn((max(LN_M), N), generator=g, device=dev) * 3 + 0.5).bfloat16()
+        a = torch.randn((max(LN_M), N), generator=g, device=dev).bfloat16()
+        w = (torch.randn((N,), generator=g, device=dev) * 0.1 + 1).to(w_dtype)
+        b = (torch.randn((N,), generator=g, device=dev) * 0.1).to(w_dtype)
+        got = layer_norm(x, w, b, 1e-5)
+        ref = layer_norm_plain(x, w, b, 1e-5).float()
+        step = 2.0 ** (torch.floor(torch.log2(ref.abs().clamp_min(1e-30))) - 7)
+        e = (got.float() - ref).abs()
+        # One bf16 step, and 2^-16 where w x_hat and b nearly cancel (the f32
+        # mean and variance summed in other orders).
+        assert torch.all(e <= step + 2.0 ** -16), ("layer_norm beyond one bf16 step", w_dtype)
+        ln_err = max(ln_err, e.max().item())
+        alone = torch.cat([layer_norm(x[i:i + 1], w, b, 1e-5) for i in range(40)])
+        differ = {M: int((layer_norm(x[:M], w, b, 1e-5)[:40] != alone[:min(M, 40)]).any(-1).sum())
+                  for M in LN_M}
+        assert not any(differ.values()), ("layer_norm rows depend on M", differ)
+        for M in (1,) + LN_M:
+            s, nrm = add_layer_norm(x[:M], a[:M], w, b, 1e-5)
+            assert torch.equal(s, x[:M] + a[:M]) and torch.equal(nrm, layer_norm(
+                x[:M] + a[:M], w, b, 1e-5)), ("add_layer_norm bits", M)
+        add_err = max(add_err, (nrm.float() - add_layer_norm_plain(x, a, w, b, 1e-5)[1].float())
+                      .abs().max().item())
+        log(f"layer_norm N={N} {str(w_dtype)[6:]} weights: within one bf16 step of the plain "
+            f"ops (max abs err {e.max().item():.3g}); rows differing from the row alone at M = "
+            f"{LN_M}: {'/'.join(str(differ[m]) for m in LN_M)}; add_layer_norm bit for bit "
+            f"torch's add then layer_norm")
+    ln, aln = row(ln_err), row(add_err)
+    x = torch.randn((1, N), generator=g, device=dev).bfloat16()
+    a = torch.randn((1, N), generator=g, device=dev).bfloat16()
+    w = torch.ones((N,), device=dev, dtype=torch.bfloat16)
+    b = torch.zeros((N,), device=dev, dtype=torch.bfloat16)
+    F_ln = torch.nn.functional.layer_norm
+    for r, n, fn, plain_fn, lib_fn, nbytes in (
+            (ln, 1, lambda: layer_norm(x, w, b, 1e-5), lambda: layer_norm_plain(x, w, b, 1e-5),
+             lambda: F_ln(x, (N,), w, b, 1e-5), 4 * N + 4 * N),
+            (aln, 24, lambda: add_layer_norm(x, a, w, b, 1e-5),
+             lambda: add_layer_norm_plain(x, a, w, b, 1e-5),
+             lambda: F_ln(x + a, (N,), w, b, 1e-5), 8 * N + 4 * N)):
+        ms, plain, lib = median_ms(fn), median_ms(plain_fn), median_ms(lib_fn)
+        bnd, by = bound_ms(nbytes, 8 * N)
+        log(f"{'add_' if r is aln else ''}layer_norm M=1 N={N}: {ms:.4f} ms  plain {plain:.4f}  "
+            f"library {lib:.4f} ({'x + a, ' if r is aln else ''}F.layer_norm)  bound {bnd:.6f} "
+            f"({by}); x {n} a gpt2 step")
+        add(r, n, ms, plain, lib, bnd)
+    rows["layer_norm"], rows["add_layer_norm"] = ln, aln
+    return rows
+
+
+# ------------------------------ phases 26 (d) and 27: the new mesh axes
+AXES_PATHS = [TP8_PATH, SEQ_PATH, SEQ8_PATH, STAGE_PATH, EXPERT_PATH]
+TP8_SUMS = "tensor-parallel partial sums (kernel B's f32 partials added over the model axis)"
+RING_SUMS = ("ring attention and the T-split cache (slices' f32 rows merged by log-sum-exp "
+             "where one kernel sums once)")
+EXPERT_SUMS = ("expert-parallel MoE (moe_dense's f32 down rows added over the expert axis, "
+               "one process rounds them to bf16 first)")
+SEQ_LOGIT_ROWS = (0, 1000, 2031, 2032, 3000, SEQ_P - 1)  # prompt rows whose logits are held
+SEQ_CACHE_LAYERS = (0, 13, 27)  # the 3B's cache layers each rank returns
+
+
+def seq_reference(dev):
+    """Phase 27 (a)'s one-process reference on phase 3's weights: the
+    engine (max_seq_len SEQ_MAX_LEN), the ids of SEQ_PROMPT, the prefill
+    logits at SEQ_LOGIT_ROWS and the final target cache's SEQ_CACHE_LAYERS
+    (k and v, on the host)."""
+    from llm_inference_lab_tpu_torch.config import EngineConfig
+    from llm_inference_lab_tpu_torch.core.engine import Engine
+
+    eng = Engine(EngineConfig(**dict(INT4_CFG, max_seq_len=SEQ_MAX_LEN)), device=dev)
+    logits = seq_prefill_rows(eng, dev)
+    state, plens, decode_s, total_s = eng.decode([SEQ_PROMPT])
+    ids = eng._build_results(state, plens, decode_s, total_s)[0]["generated_ids"]
+    c = state.target_cache
+    cache = {i: (c.k[i].cpu(), c.v[i].cpu()) for i in SEQ_CACHE_LAYERS}
+    return eng, ids, logits, cache
+
+
+def seq_prefill_rows(eng, dev):
+    """The target's prefill of SEQ_PROMPT's block (P = SEQ_P): the f32 logits
+    at SEQ_LOGIT_ROWS (under a seq axis the ring prefill, cp)."""
+    ids = eng.tokenizer.encode(SEQ_PROMPT)
+    assert len(ids) == SEQ_P, len(ids)
+    with torch.inference_mode():
+        cache = eng.target.init_cache(1, SEQ_T, dev)
+        logits, _ = eng.target.forward(
+            torch.tensor([ids], device=dev, dtype=torch.int32),
+            torch.arange(SEQ_P, device=dev, dtype=torch.int32)[None], cache,
+            torch.zeros((1,), device=dev, dtype=torch.int32), cp=eng.target.config.sp is not None)
+        return logits[0, list(SEQ_LOGIT_ROWS)].cpu()
+
+
+def rank_axes():
+    """Phases 26 (d) and 27 (a), (a'), (b) and (d), one rank of two sharing
+    cuda:0 over gloo, each on a mesh of its own in one world: (26 d) phase
+    4's int8 engine at model=2; (27 a) phase 3's engine at seq=2 with
+    SEQ_PROMPT (the prefill's logits rows, a counted generate, the final
+    cache's layers of the rank's slice); (27 a') phase 4's at seq=2 on
+    PROMPT; (27 b) phase 3's at stage=2; (27 d) the cut Mixtral at expert=2
+    (peak device memory from the engine's build on)."""
+    from llm_inference_lab_tpu_torch.config import EngineConfig
+    from llm_inference_lab_tpu_torch.core.engine import Engine
+    from llm_inference_lab_tpu_torch.models import mixtral
+    from llm_inference_lab_tpu_torch.parallel.mesh import make_mesh
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    out = {}
+
+    def generate(name, path, cfg, mesh_kw, prompt=PROMPT, last_stage=True):
+        mesh = make_mesh(**mesh_kw)
+        t0 = time.perf_counter()
+        eng = Engine(EngineConfig(**cfg), device=dev, mesh=mesh)
+        init_s = time.perf_counter() - t0
+        eng.generate(PROMPT, max_new_tokens=4)  # warm-up: every kernel's first launch
+        r, counts = rank_counts(path, lambda: eng.generate(prompt), last_stage=last_stage)
+        lp = torch.tensor(r["token_logprobs"])
+        assert len(lp) == r["generated_tokens"] and torch.isfinite(lp).all(), (name, "logprobs")
+        out[name] = dict(ids=r["generated_ids"], counts=counts, steps=r["steps"],
+                         tok_s=r["tokens_per_sec"], init_s=init_s, coords=mesh.coords)
+        return eng
+
+    generate("tp8", TP8_PATH, INT8_CFG, dict(model=2))
+    torch.cuda.empty_cache()
+    eng = generate("seq", SEQ_PATH, dict(INT4_CFG, max_seq_len=SEQ_MAX_LEN), dict(seq=2),
+                   SEQ_PROMPT)
+    out["seq"]["logits"] = seq_prefill_rows(eng, dev)
+    state = eng._decode_states[(1, SEQ_T)][0]
+    c = state.target_cache
+    out["seq"]["cache"] = {i: (c.k[i].cpu(), c.v[i].cpu()) for i in SEQ_CACHE_LAYERS}
+    out["seq"]["t0"] = c.t0
+    del eng, state, c
+    torch.cuda.empty_cache()
+    generate("seq8", SEQ8_PATH, INT8_CFG, dict(seq=2))
+    torch.cuda.empty_cache()
+    last = torch.distributed.get_rank() == 1  # stage 1 of 2
+    generate("stage", STAGE_PATH, INT4_CFG, dict(stage=2), last_stage=last)
+    torch.cuda.empty_cache()
+    table = mixtral.MIXTRAL_CONFIGS
+    table[EXPERT_CUT] = replace(table["mixtral-8x7b"], name=EXPERT_CUT, n_layers=EXPERT_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    eng = generate("expert", EXPERT_PATH, dict(MIXTRAL_CFG, base_model=EXPERT_CUT),
+                   dict(expert=2))
+    out["expert"]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["expert"]["held_gb"] = torch.cuda.memory_allocated() / 1e9
+    del eng
+    return out
+
+
+def rank_stage_model():
+    """Phase 27 (c), one rank of four: phase 3's engine (the draft sharded on
+    the model axis too) at stage=2 x model=2, two microbatches, through
+    generate_batch of phase 3b's 16 prompts (64 new tokens each)."""
+    from llm_inference_lab_tpu_torch.config import EngineConfig
+    from llm_inference_lab_tpu_torch.core.engine import Engine
+    from llm_inference_lab_tpu_torch.parallel.mesh import make_mesh
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    mesh = make_mesh(stage=2, model=2)
+    eng = Engine(EngineConfig(**dict(INT4_CFG, shard_draft=True, pp_microbatches=2)),
+                 device=dev, mesh=mesh)
+    last = mesh.coords["stage"] == 1
+    rs, counts = rank_counts(STAGE_TP_PATH, lambda: eng.generate_batch(SERVE_PROMPTS),
+                             last_stage=last)
+    for r in rs:
+        lp = torch.tensor(r["token_logprobs"])
+        assert torch.isfinite(lp).all() and r["generated_tokens"] >= 1, "bad result"
+    return dict(ids=[r["generated_ids"] for r in rs], counts=counts, steps=rs[0]["steps"],
+                coords=mesh.coords)
+
+
+def phase_axes(dev, eng):
+    """Phases 26 (d) and 27 (a), (a'), (b), (d), after phase 5 (eng: phase
+    4's int8 engine). Two processes share cuda:0 over gloo, so this shows
+    correctness and the host cost of each axis's collectives, not parallel
+    speed. (26 d) int8 model=2: ids held to phase 4's (the partial sums now
+    f32: B's f32 instantiation); (27 a) seq=2 on SEQ_PROMPT: ids held to one
+    process's (seq_reference, built here on phase 3's weights), the prefill
+    logits within TP_LOGIT_RTOL of the largest |logit|, each rank's cache
+    slice against one process's rows (layer 0 bit for bit, later layers
+    logged); (27 a') int8 seq=2: ids held to phase 4's; (27 b) stage=2: ids
+    equal to phase 3's exactly; (27 d) the cut Mixtral at expert=2: ids held
+    to one process's on the same cut (built here), each rank's peak
+    memory. Returns each path's launches (the ranks' added)."""
+    from llm_inference_lab_tpu_torch.config import EngineConfig
+    from llm_inference_lab_tpu_torch.core.engine import Engine
+    from llm_inference_lab_tpu_torch.models import mixtral
+    from llm_inference_lab_tpu_torch.parallel.multihost import launch
+
+    t0 = time.perf_counter()
+    ref_eng, seq_ids, seq_logits, seq_cache = seq_reference(dev)
+    table = mixtral.MIXTRAL_CONFIGS
+    table[EXPERT_CUT] = replace(table["mixtral-8x7b"], name=EXPERT_CUT, n_layers=EXPERT_LAYERS)
+    try:
+        moe_eng = Engine(EngineConfig(**dict(MIXTRAL_CFG, base_model=EXPERT_CUT)), device=dev)
+        moe_ids = moe_eng.generate(PROMPT)["generated_ids"]
+        log(f"phase 27 references in one process: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        got = launch(rank_axes, 2, timeout=900)
+        log(f"phase 26 (d) and 27 (a), (a'), (b), (d) on 2 ranks: "
+            f"{time.perf_counter() - t0:.1f} s with the ranks' start")
+        for name in got[0]:
+            assert all(g[name]["ids"] == got[0][name]["ids"] for g in got), (name, "ranks differ")
+        int8_ids = END_TO_END_IDS[PATH_GENERATE_INT8]
+        ops8 = lambda: [TP8_SUMS] + UNSTABLE[PATH_SERVE_INT8]  # noqa: E731
+        parted = held_to(eng, dev, ops8, "phase 4's generate", 0, PROMPT, int8_ids,
+                         got[0]["tp8"]["ids"])
+        ids_digest(TP8_PATH, [got[0]["tp8"]["ids"]])
+        log(f"phase 26 (d) int8 model=2: ids == phase 4's: {not parted} ({parted} partings at "
+            f"near ties)")
+        rank_report("phase 26 (d)", [g["tp8"] for g in got])
+        # (a) seq=2.
+        ring = lambda: [RING_SUMS] + UNSTABLE[PATH_SERVE_INT4]  # noqa: E731
+        parted = held_to(ref_eng, dev, ring, "one process's generate", 0, SEQ_PROMPT, seq_ids,
+                         got[0]["seq"]["ids"])
+        ids_digest(SEQ_PATH, [got[0]["seq"]["ids"]])
+        for g in got:
+            err = (g["seq"]["logits"] - seq_logits).abs().max().item()
+            top = seq_logits.abs().max().item()
+            assert torch.isfinite(g["seq"]["logits"]).all() and err <= TP_LOGIT_RTOL * top, (
+                "seq=2 prefill logits", err, top)
+        log(f"phase 27 (a) seq=2 prefill logits at rows {SEQ_LOGIT_ROWS}: max_abs_err {err:.4g} "
+            f"(largest |logit| {top:.4g})")
+        for r, g in enumerate(got):
+            t0_r = g["seq"]["t0"]
+            errs = {}
+            for i, (k, v) in g["seq"]["cache"].items():
+                rk, rv = (t[:, :, t0_r:t0_r + k.shape[2]] for t in seq_cache[i])
+                errs[i] = max((k.float() - rk.float()).abs().max().item(),
+                              (v.float() - rv.float()).abs().max().item())
+                if i == 0 and not parted:
+                    assert torch.equal(k, rk) and torch.equal(v, rv), ("layer 0 of the slice", r)
+            log(f"phase 27 (a) rank {r}: the cache slice of positions [{t0_r}, "
+                f"{t0_r + SEQ_T // 2}) against one process's rows, max abs err of k and v by "
+                f"layer {errs} (layer 0 bit for bit when the ids hold)")
+        log(f"phase 27 (a) seq=2: ids == one process's: {not parted} ({parted} partings at "
+            f"near ties); {got[0]['seq']['steps']} steps")
+        rank_report("phase 27 (a)", [g["seq"] for g in got])
+        parted = held_to(eng, dev, lambda: [RING_SUMS] + UNSTABLE[PATH_SERVE_INT8],
+                         "phase 4's generate", 0, PROMPT, int8_ids, got[0]["seq8"]["ids"])
+        ids_digest(SEQ8_PATH, [got[0]["seq8"]["ids"]])
+        log(f"phase 27 (a') int8 seq=2: ids == phase 4's: {not parted} ({parted} partings at "
+            f"near ties)")
+        rank_report("phase 27 (a')", [g["seq8"] for g in got])
+        # (b) stage=2: exactly phase 3's ids.
+        assert got[0]["stage"]["ids"] == END_TO_END_IDS[PATH_GENERATE_INT4], (
+            "stage=2 ids differ from phase 3's", got[0]["stage"]["ids"])
+        ids_digest(STAGE_PATH, [got[0]["stage"]["ids"]])
+        log("phase 27 (b) stage=2: ids == phase 3's, exactly")
+        rank_report("phase 27 (b)", [g["stage"] for g in got])
+        # (d) expert=2.
+        parted = held_to(moe_eng, dev, lambda: [EXPERT_SUMS], "one process's generate", 0,
+                         PROMPT, moe_ids, got[0]["expert"]["ids"])
+        ids_digest(EXPERT_PATH, [got[0]["expert"]["ids"]])
+        log(f"phase 27 (d) expert=2 ({EXPERT_CUT}): ids == one process's: {not parted} "
+            f"({parted} partings at near ties); peak device memory by rank "
+            f"{[round(g['expert']['peak_gb'], 2) for g in got]} GB (the whole cut model built "
+            f"first), held after the build {[round(g['expert']['held_gb'], 2) for g in got]} GB")
+        rank_report("phase 27 (d)", [g["expert"] for g in got])
+    finally:
+        del table[EXPERT_CUT]
+    return {path: summed([g[name] for g in got])
+            for name, path in (("tp8", TP8_PATH), ("seq", SEQ_PATH), ("seq8", SEQ8_PATH),
+                               ("stage", STAGE_PATH), ("expert", EXPERT_PATH))}
+
+
+def phase_stage_model(dev, eng):
+    """Phase 27 (c), after phase 26 (eng: phase 3's engine): stage=2 x
+    model=2 on 4 ranks sharing the card over gloo, generate_batch of phase
+    3b's 16 prompts; every rank's ids equal, each request held to phase
+    3b's (its budget's first tokens) under the near-tie rule."""
+    from llm_inference_lab_tpu_torch.parallel.multihost import launch
+
+    t0 = time.perf_counter()
+    got = launch(rank_stage_model, 4, timeout=600)
+    log(f"phase 27 (c) stage=2 x model=2 on 4 ranks: {time.perf_counter() - t0:.1f} s with the "
+        f"ranks' start")
+    ids = got[0]["ids"]
+    assert all(g["ids"] == ids for g in got), "the ranks' ids differ"
+    ref = SERVED_IDS[PATH_SERVE_INT4]
+    ops = lambda: [TP_SUMS] + UNSTABLE[PATH_SERVE_INT4]  # noqa: E731
+    parted = sum(held_to(eng, dev, ops, "phase 3b's batcher", rid, prompt, want,
+                         got_ids[:len(want)])
+                 for rid, (prompt, want, got_ids) in enumerate(zip(SERVE_PROMPTS, ref, ids)))
+    ids_digest(STAGE_TP_PATH, ids)
+    log(f"phase 27 (c) stage=2 x model=2: ids == phase 3b's for {len(ids) - parted} of "
+        f"{len(ids)} requests (the rest near ties)")
+    rank_report("phase 27 (c)", got)
+    return {STAGE_TP_PATH: summed(got)}
 
 
 def main(argv):
@@ -6623,6 +7248,36 @@ def main(argv):
             "out)"),
     })
     phase_prefix_prefill(dev)
+    axes = phase_axes_kernels(dev)
+    model8 = "phase 26 (d)'s int8 model=2 "
+    kernels.update({
+        "quant_matmul_int8_f32": (
+            axes["quant_matmul_int8_f32"], "qmm_decode.cuh", "ops/pallas/quant_matmul.py:58",
+            model8 + "K=4 step's partial sums (wo, w_down: 4 x 16 1B layers at M = 1, 28 3B "
+                     "layers at M = 5; f32 out)"),
+        "quant_matmul_int8_f32_mma": (
+            axes["quant_matmul_int8_f32_mma"], "qmm_mma.cuh", "ops/pallas/quant_matmul.py:58",
+            model8 + "prefill's partial sums (M = 160 through 16 + 28 layers; f32 out)"),
+        "flash_decode_shard": (
+            axes["flash_decode_shard"], "flash_decode_shard.cu", "ops/pallas/flash_decode.py:146",
+            "one K=1 step of phase 27 (a) on the rank holding positions [2112, 4224), p = "
+            "4100 (16 draft layers at S = 1, 28 verify layers at S = 2; f32 out and lse)"),
+        "flash_decode_shard_int8": (
+            axes["flash_decode_shard_int8"], "flash_decode_shard.cu",
+            "ops/pallas/flash_decode.py:203",
+            "one K=4 step at phase 27 (a)'s slice and position, int8 KV (4 x 16 layers at S = "
+            "1, 28 at S = 5)"),
+        "flash_prefill_shard": (
+            axes["flash_prefill_shard"], "flash_prefill_shard.cu",
+            "ops/pallas/flash_prefill.py:86",
+            "phase 27 (a)'s ring prefill on rank 1: its 2032 rows against block 0 and its own "
+            "block, 28 3B and 16 1B layers"),
+        "layer_norm": (axes["layer_norm"], "rms_norm.cu", "models/transformer.py:41",
+                       "one gpt2 B=1 decode step: the first norm (M = 1, N = 768)"),
+        "add_layer_norm": (axes["add_layer_norm"], "rms_norm.cu", "models/transformer.py:41",
+                           "one gpt2 B=1 decode step: the 24 residual adds and the norms "
+                           "after them"),
+    })
     log(f"phase 2 took {time.perf_counter() - t0:.1f} s")
     profile = "--profile" in argv
     profile_gemma = profile or "--profile=gemma" in argv
@@ -6643,6 +7298,9 @@ def main(argv):
     t0 = time.perf_counter()
     on_path.update(phase_parallel(dev, eng))
     log(f"phase 26 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    on_path.update(phase_stage_model(dev, eng))
+    log(f"phase 27 (c) took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     on_path.update(phase_sampling(dev, eng, profile_sampling, [
         path for path in paths if path.startswith(("generate int4 sampled", "generate int4 greedy"))]))
@@ -6677,6 +7335,9 @@ def main(argv):
     on_path[paths[3]] = phase_serving(dev, eng, profile, INT8_MAX_LEN, paths[3],
                                       "3B int8 + 1B draft, K=4, int8 KV")
     log(f"phase 5 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    on_path.update(phase_axes(dev, eng))
+    log(f"phases 26 (d) and 27 (a), (a'), (b), (d) took {time.perf_counter() - t0:.1f} s")
     del eng
     free_card()
     t0 = time.perf_counter()

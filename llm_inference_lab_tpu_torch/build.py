@@ -27,7 +27,8 @@ from typing import Dict, Iterable, List
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 SOURCES = ("quant_matmul_int4", "quant_matmul_int8", "flash_decode", "flash_prefill",
-           "paged_flash", "verify_prefix", "rms_norm", "flash_decode_tree", "paged_flash_tree")
+           "paged_flash", "verify_prefix", "rms_norm", "flash_decode_tree", "paged_flash_tree",
+           "flash_decode_shard", "flash_prefill_shard")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -54,6 +55,9 @@ SIGNATURES = {
         # the arguments of qmm_int4 and qmm_int4_mma, w int8 [K, N]
         "qmm_int8": [P, P, P, P, P, P, I, I, I, I, P],
         "qmm_int8_mma": [P, P, P, P, P, I, I, I, I, P],
+        # the same two with an f32 output (a row-parallel partial sum)
+        "qmm_int8_f32": [P, P, P, P, P, P, I, I, I, I, P],
+        "qmm_int8_mma_f32": [P, P, P, P, P, I, I, I, I, P],
     },
     "flash_decode": {
         # q, k, v, positions, out, ws, counters, B, S, H, KVH, T, D, stride_kb,
@@ -74,6 +78,21 @@ SIGNATURES = {
         # softcap, nsplit, stream
         "flash_decode_tree_int8": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, LL, LL, LL, LL,
                                    F, F, I, P],
+    },
+    "flash_decode_shard": {
+        # q, k, v, positions, out, lse, ws, counters, B, S, H, KVH, T, D,
+        # stride_kb, stride_kh, scale, t0, nsplit, stream
+        "flash_decode_shard_bf16": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, LL, LL, F, I, I, P],
+        # q, k, v, k_scale, v_scale, positions, out, lse, ws, counters, B, S,
+        # H, KVH, T, D, stride_kb, stride_kh, stride_sb, stride_sh, scale, t0,
+        # nsplit, stream
+        "flash_decode_shard_int8": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, LL, LL, LL,
+                                    LL, F, I, I, P],
+    },
+    "flash_prefill_shard": {
+        # q, k, v, positions, out, lse, B, S, H, KVH, T, D, stride_kb,
+        # stride_kh, scale, t0, stream
+        "flash_prefill_shard_bf16": [P, P, P, P, P, P, I, I, I, I, I, I, LL, LL, F, I, P],
     },
     "flash_prefill": {
         # q, k, v, positions, out, B, S, H, KVH, T, D, stride_kb, stride_kh,
@@ -116,6 +135,10 @@ SIGNATURES = {
         "rms_norm_bf16": [P, P, P, I, I, F, I, I, P],
         # x, a, w, post_w, x_out, out, M, N, eps, one_offset, w_f32, stream
         "add_rms_norm_bf16": [P, P, P, P, P, P, I, I, F, I, I, P],
+        # x, w, b, out, M, N, eps, w_f32, stream
+        "layer_norm_bf16": [P, P, P, P, I, I, F, I, P],
+        # x, a, w, b, x_out, out, M, N, eps, w_f32, stream
+        "add_layer_norm_bf16": [P, P, P, P, P, P, I, I, F, I, P],
     },
 }
 

@@ -21,8 +21,9 @@ caching (``prefix_caching``), grammar-constrained decoding
 every sampling site), the int8 or int4 embedding and tied head
 (``quantize_embed`` with ``embed_bits`` 8 or 4), LoRA adapters from
 local PEFT directories (``lora_paths``; ``Engine(lora_adapters=...)`` takes
-them built), and the data and model axes of a mesh (``mesh_shape``,
-``shard_draft``). ``profile`` turns on the engine's StructuredProfiler
+them built), and the axes of a mesh (``mesh_shape``: data, model, seq,
+stage and expert; ``shard_draft``; ``pp_microbatches`` under stage).
+``profile`` turns on the engine's StructuredProfiler
 (metrics/profiler.py): the one switch for JAX's SPECDX_PROFILE and
 SPECDX_DETAILED_METRICS. A field of the JAX config with a single ported value
 has no field here until a later slice ports a second value for it. Fields
@@ -203,13 +204,15 @@ class EngineConfig:
     # Tree speculation: children per node at each depth (core/treespec.py).
     tree: dict = field(default_factory=lambda: {"branching": [3, 2]})
     # Parallelism (JAX config.py:206-209): the mesh's axes, e.g. {"data": 2,
-    # "model": 2} (parallel/mesh.py make_mesh over the initialised world,
-    # when Engine is given no mesh; the seq, stage and expert axes are not
-    # ported and raise), and whether the draft model shards on the model
-    # axis too (only when its KV heads split; else it runs whole on every
-    # rank).
+    # "model": 2} or {"stage": 2, "model": 2} (parallel/mesh.py make_mesh
+    # over the initialised world, when Engine is given no mesh), whether the
+    # draft model shards on the model axis too (only when its KV heads
+    # split; else it runs whole on every rank), and the microbatches a
+    # pipelined forward splits its batch into under the stage axis (None:
+    # one a row, parallel/pipeline.py _pick_microbatches).
     mesh_shape: dict = field(default_factory=dict)
     shard_draft: bool = False
+    pp_microbatches: Optional[int] = None
 
     def override(self, **kwargs: Any) -> "EngineConfig":
         """A copy with the non-None values applied (JAX's config.py:236-241,

@@ -593,6 +593,11 @@ class ContinuousBatcher:
                              "coordinator's decisions: use MultiHostBatcher")
         if n_slots % data:
             raise ValueError(f"n_slots ({n_slots}) must split over the data axis ({data})")
+        axes = getattr(engine, "_axes", {})
+        if axes.get("seq", 1) > 1 or axes.get("stage", 1) > 1:
+            raise NotImplementedError("a ContinuousBatcher under the seq or stage axis is not "
+                                      "ported (its admission prefills into scratch caches and "
+                                      "copies their rows; use Engine.generate_batch)")
         self._rows = n_slots // data
         self._row0 = mesh.coords["data"] * self._rows if mesh is not None else 0
         self.poll_every = poll_every

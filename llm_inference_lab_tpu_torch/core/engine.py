@@ -62,13 +62,20 @@ loop over the same decode state; any other replays the unconstrained one, so
 its ids and step time are those of an engine without tables.
 
 Under a mesh (``mesh=``, or ``cfg.mesh_shape`` over the initialised world;
-parallel/): on the model axis each model is loaded whole and replaced by
-this rank's share (parallel/sharding.py, Megatron order; the draft only
-with ``shard_draft`` and when its KV heads split), and the decode loops
-run their in-place step eagerly, never captured: a graph cannot hold a
-gloo collective's host hop, and capturing NCCL collectives waits for a
-second card. On the data axis alone each rank captures as in one process.
-The engine decides this once, at construction (``eager_loops``).
+parallel/): each model is loaded whole and replaced by this rank's share
+(parallel/sharding.py): on the model axis its heads and columns (Megatron
+order; the draft only with ``shard_draft`` and when its KV heads split), on
+the stage axis the target's layers (the draft stays whole on every rank;
+the target's forward is the GPipe schedule of parallel/pipeline.py, in
+``cfg.pp_microbatches`` microbatches), on the expert axis a MoE model's
+experts (ops/moe.py moe_expert); on the seq axis both models' contiguous
+caches hold their rank's slice of T, the single-shot prefill runs ring
+attention (parallel/context.py) and the prompt block is a multiple of
+lcm(32, seq). Under any of those four axes the decode loops run their
+in-place step eagerly, never captured: a graph cannot hold a gloo
+collective's host hop, and capturing NCCL collectives waits for a second
+card. On the data axis alone each rank captures as in one process. The
+engine decides this once, at construction (``eager_loops``).
 ``generate_batch`` splits the prompts over the data axis and returns every
 result on every rank.
 
@@ -80,6 +87,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import math
 import time
 from dataclasses import replace
 from typing import Any, Dict, List, Optional, Tuple
@@ -219,11 +227,17 @@ class Engine:
                              f"({cfg.mesh_shape})")
         self.mesh = mesh
         self._data = self.mesh.shape["data"] if self.mesh is not None else 1
-        # Under the model axis the decode loops run their in-place step
-        # eagerly (a graph cannot hold a gloo collective's host hop, and
-        # capturing NCCL collectives is not done); under the data axis alone
-        # each rank captures as in one process. Decided here, once.
-        self.eager_loops = self.mesh is not None and self.mesh.shape["model"] > 1
+        # The axes whose forwards hold a collective (JAX leaves the fake model
+        # out of the seq, stage and expert axes: it runs whole on each rank).
+        self._axes = {axis: (self.mesh.shape.get(axis, 1) if self.mesh is not None
+                             and (axis == "model" or not fake) else 1)
+                      for axis in ("model", "seq", "stage", "expert")}
+        self._seq = self._axes["seq"]
+        # Under any of them the decode loops run their in-place step eagerly
+        # (a graph cannot hold a gloo collective's host hop, and capturing
+        # NCCL collectives is not done); under the data axis alone each rank
+        # captures as in one process. Decided here, once.
+        self.eager_loops = any(n > 1 for n in self._axes.values())
         if self.mesh is not None:
             self._shard_models()
         self.tokenizer = ByteTokenizer()
@@ -293,35 +307,57 @@ class Engine:
         if cfg.kv_ring:
             self._enable_kv_ring()
         self._prefill = make_prefill(self.target, self.draft, chunk=cfg.prefill_chunk,
-                                     hidden=self.head_mode)
+                                     hidden=self.head_mode, cp=self._seq > 1)
 
     def _shard_models(self) -> None:
-        """The models as this rank holds them (JAX engine.py:201-212): under
-        the model axis the target's share (parallel/sharding.py shard_model:
-        loaded whole, then shard_params, as JAX's), and the draft's only
-        with shard_draft and when its KV heads split over the axis, else
-        the whole draft on every rank. Refuses what the port does not
-        shard: a MoE model under any mesh; under the model axis the fake
-        model and the profiler (its phase breakdown captures graphs)."""
+        """The models as this rank holds them (JAX engine.py:150-238): the
+        target's share (parallel/sharding.py shard_model: loaded whole, then
+        shard_params, as JAX's) on every axis; the draft's on the model axis
+        only with shard_draft and when its KV heads split over it, never on
+        the stage axis (JAX pipelines the target's forward only), and on the
+        seq and expert axes as the target's. JAX's refusals: under the seq
+        axis prefill_chunk (which also covers kv_ring, which the config
+        allows only with a prefill_chunk); under the stage axis paged KV and
+        the tree. The port's own: under the model axis the fake model; the
+        profiler under any collective axis (its phase breakdown captures
+        graphs); under the seq axis paged KV and the tree."""
         cfg, mesh = self.config, self.mesh
         if mesh.coords is None:
             raise ValueError(f"rank {mesh.rank} is outside the {mesh.shape} mesh")
-        for m in (self.target, self.draft):
-            if m is not None and getattr(m.config, "moe", False):
-                raise NotImplementedError("a MoE model under a mesh is not sharded (the expert "
-                                          "axis is not ported)")
-        n = mesh.shape["model"]
-        if n == 1:
-            return
-        if cfg.implementation == "fake":
+        n, seq, stage = self._axes["model"], self._axes["seq"], self._axes["stage"]
+        if n > 1 and cfg.implementation == "fake":
             raise NotImplementedError("the fake model has no heads to shard over the model axis")
-        if cfg.profile:
+        if cfg.profile and n > 1:
             raise NotImplementedError("the profiler under the model axis is not ported (its "
                                       "phase breakdown captures CUDA graphs, which cannot hold "
                                       "the axis's collectives)")
-        self.target = shard_model(self.target, mesh)
-        if self.draft is not None and cfg.shard_draft and self.draft.config.n_kv_heads % n == 0:
-            self.draft = shard_model(self.draft, mesh)
+        if cfg.profile and self.eager_loops:
+            raise NotImplementedError("the profiler under the seq, stage or expert axis is not "
+                                      "ported (its phase breakdown captures CUDA graphs)")
+        if seq > 1:
+            if cfg.prefill_chunk:
+                raise ValueError("prefill_chunk and seq-parallel (ring) prefill are mutually "
+                                 "exclusive: chunked prefill attends to the cache prefix, which "
+                                 "the ring pass does not cover")
+            if cfg.kv_layout == "paged":
+                raise NotImplementedError("paged KV under the seq axis is not ported (the ring "
+                                          "prefill writes a contiguous cache)")
+            if cfg.draft_mode == "tree":
+                raise NotImplementedError("the tree under the seq axis is not ported (kernel D's "
+                                          "shard variant has no ancestry mask)")
+        if stage > 1:
+            if cfg.kv_layout == "paged":
+                raise ValueError("paged KV under pipeline parallelism is not supported")
+            if cfg.draft_mode == "tree":
+                raise ValueError("tree speculation under pipeline parallelism is not supported")
+        if not self.eager_loops:
+            return
+        self.target = shard_model(self.target, mesh, cfg.pp_microbatches)
+        if self.draft is not None:
+            axes = ["seq", "expert"]
+            if cfg.shard_draft and self.draft.config.n_kv_heads % n == 0:
+                axes.append("model")
+            self.draft = shard_model(self.draft, mesh, axes=axes)
 
     def make_loop(self, step) -> DecodeLoop:
         """A decode loop over an in-place step of this engine: in its graph
@@ -385,9 +421,14 @@ class Engine:
             return
         if self.tree is not None:
             raise ValueError("LoRA is not supported in tree mode")
-        if self.eager_loops:
+        if self._axes["stage"] > 1:
+            raise ValueError("LoRA with pipeline parallelism is not supported (forward_pp "
+                             "ignores adapter packs)")
+        if self._axes["model"] > 1:
             raise NotImplementedError("LoRA under tensor parallelism (model > 1) is not sharded: "
                                       "each site's delta would need the rank's columns")
+        if self.eager_loops:
+            raise NotImplementedError("LoRA under the seq or expert axis is not ported")
         if cfg.implementation == "fake":
             raise NotImplementedError("the fake model has no layers to adapt (LoRA)")
         pack, self.lora_names = build_pack(self.target.config, adapters,
@@ -622,6 +663,8 @@ class Engine:
         P = _round_up(max(int(plens.max()), 1), 32)
         if cfg.prefill_chunk and P > cfg.prefill_chunk:
             P = _round_up(P, cfg.prefill_chunk)  # the chunks tile the prompt block
+        if self._seq > 1:  # the ring prefill splits the block over the seq axis
+            P = _round_up(P, math.lcm(32, self._seq))
         block = np.zeros((len(enc), P), np.int32)
         for i, e in enumerate(enc):
             block[i, : len(e)] = e

@@ -84,6 +84,9 @@ class MultiHostBatcher(ContinuousBatcher):
         self.is_coordinator = self.rank == 0
         if self.n_procs > 1:
             cfg = engine.config
+            if any(mesh.shape.get(axis, 1) > 1 for axis in ("seq", "stage", "expert")):
+                raise NotImplementedError("MultiHostBatcher under the seq, stage or expert axis "
+                                          "is not ported (its ranks split data x model only)")
             if cfg.prefix_caching:
                 raise NotImplementedError("prefix caching under MultiHostBatcher on several "
                                           "ranks is not ported")

@@ -710,7 +710,7 @@ def make_baseline_step(target_model: Model, *, greedy: bool = True, temperature:
 
 
 def make_prefill(target_model: Model, draft_model: Optional[Model], chunk: Optional[int] = None,
-                 hidden: bool = False):
+                 hidden: bool = False, cp: bool = False):
     """Prompt prefill: populate both caches over the right-padded prompt
     block and score the prompt tokens (prompt logprobs) from the target
     logits. Junk KV rows beyond each prompt sit at positions the mask never
@@ -727,7 +727,10 @@ def make_prefill(target_model: Model, draft_model: Optional[Model], chunk: Optio
 
     hidden (the head modes): the target's hidden row that predicted the
     last prompt token (index prompt_len - 2, clamped at 0), taken from the
-    chunk that holds it, seeds last_hidden and prev_hidden (f32)."""
+    chunk that holds it, seeds last_hidden and prev_hidden (f32).
+
+    cp (a seq axis; JAX's context_parallel): the single-shot prefill of
+    both models runs ring attention over the seq axis (forward's cp)."""
 
     def prefill(state: DecodeState, prompt_block: torch.Tensor,
                 prompt_lens: torch.Tensor) -> DecodeState:
@@ -745,13 +748,14 @@ def make_prefill(target_model: Model, draft_model: Optional[Model], chunk: Optio
             positions = c0 + arange
             start = torch.full((B,), c0, dtype=torch.int32, device=dev)
             lg, _, *hid = target_model.forward(tok, positions, state.target_cache, start,
-                                               return_hidden=hidden, lora_ids=state.lora_ids)
+                                               return_hidden=hidden, lora_ids=state.lora_ids,
+                                               cp=cp)
             if hidden:
                 local = h_idx - c0
                 sel = hid[0][torch.arange(B, device=dev), local.clamp(0, C - 1)].float()
                 h_last = torch.where(((local >= 0) & (local < C))[:, None], sel, h_last)
             if draft_model is not None:
-                draft_model.forward(tok, positions, state.draft_cache, start)
+                draft_model.forward(tok, positions, state.draft_cache, start, cp=cp)
             # Row j scores the next prompt token, 0 past the prompt; the last
             # row of the block has none: C - 1 rows score in the last chunk.
             n = min(C, P - 1 - c0)

@@ -46,6 +46,12 @@
 //    first visible key, its largest position] (zeros instead), so dead
 //    pages, pages below the window, unused table entries and the dummy
 //    page 0 are never read for a live row.
+//  * SHARD: position j is row j - t0 of the [T, D] plane, which holds the
+//    positions [t0, t0 + T) only (a rank's slice of a cache whose T is split
+//    over the seq axis, or a K/V block of ring attention); no other key
+//    exists. The output is then f32, not rounded, with each row's f32
+//    log-sum-exp m + log(l) beside it (-inf for a row that saw no key), so
+//    the slices' rows merge exactly as the splits of kernel D combine.
 // A row with no visible key (position -1) returns zeros, as attend_xla
 // does.
 //
@@ -98,7 +104,7 @@ constexpr int ROWS = 16 * WARPS;  // query rows a block
 constexpr int SPLIT = 256;        // keys a split of kernels D and F (a multiple of every BK)
 
 // Where key position j is loaded from (see the head of this file).
-enum Map { MAP_PLANE, MAP_RING, MAP_PAGED };
+enum Map { MAP_PLANE, MAP_RING, MAP_PAGED, MAP_SHARD };
 
 // The static options of the Pallas tile body; 0 turns softcap, window and
 // ring off.
@@ -235,6 +241,13 @@ struct Tree {
   const int* start;
 };
 
+// The shard map's operands: the plane's first position, and lse f32
+// [B, H, S] for each row's log-sum-exp.
+struct Shard {
+  int t0;
+  float* lse;
+};
+
 // The whole kernel. q bf16 [B, S, H, D]; positions int32 [B, S]; out bf16
 // [B, S, H, D]. PLANE and RING: k, v [B, KVH, T, D] planes through their
 // batch and head strides (bf16, or int8 with scales ks, vs [B, KVH, T]
@@ -245,17 +258,19 @@ struct Tree {
 // rows. nz >= 1: kernels D and F, grid.z = nz splits; ws holds gridDim.x *
 // gridDim.y * nz * ROWS * (D + 2) floats and counters gridDim.x * gridDim.y
 // zeros (nz > 1). TREE: pos is not read; tree gives each row's keys.
+// SHARD: out is f32 and shard.lse gets each row's log-sum-exp.
 template <int D, class T_, int MAP, bool TREE>
 __global__ void __launch_bounds__(WARPS * 32)
 attend_kernel(const __nv_bfloat16* __restrict__ q, const T_* __restrict__ k,
               const T_* __restrict__ v, const float* __restrict__ ks,
               const float* __restrict__ vs, const int* __restrict__ pos,
-              __nv_bfloat16* __restrict__ out, float* __restrict__ ws,
+              void* __restrict__ out, float* __restrict__ ws,
               unsigned* __restrict__ counters, int S, int H, int KVH, int Tk,
               long long stride_kb, long long stride_kh, long long stride_sb, long long stride_sh,
-              Options opt, int nz, Pages pages, Tree tree) {
+              Options opt, int nz, Pages pages, Tree tree, Shard shard) {
   constexpr bool RING = MAP == MAP_RING;
   constexpr bool PAGED = MAP == MAP_PAGED;
+  constexpr bool SHARD = MAP == MAP_SHARD;
   using L = Layout<D, T_>;
   constexpr bool INT8 = L::INT8;
   constexpr int BKD = BK<D>;
@@ -293,6 +308,8 @@ attend_kernel(const __nv_bfloat16* __restrict__ q, const T_* __restrict__ k,
 
   // The tree's chunk starts at slot cs of this sequence (0 without a tree).
   const int cs = TREE ? tree.start[b] : 0;
+  // The plane's first position: the shard's t0, else 0.
+  const int kbeg = SHARD ? shard.t0 : 0;
 
   // q rows (zeros past the last row) and positions (-1 past it). A tree row
   // takes the chunk's last slot as its position: its keys are [0, cs + S).
@@ -333,10 +350,11 @@ attend_kernel(const __nv_bfloat16* __restrict__ q, const T_* __restrict__ k,
     }
   }
   __syncthreads();
-  const int lo = lo_s, hi = hi_s;
-  // Positions [lo, kend) exist: without a ring the plane ends at T; a ring's
-  // positions run on past T and each load checks its slot.
-  const int kend = RING ? hi + 1 : min(hi + 1, Tk);
+  const int lo = SHARD ? max(lo_s, kbeg) : lo_s, hi = hi_s;
+  // Positions [lo, kend) exist: without a ring the plane ends at T (a shard's
+  // at t0 + T); a ring's positions run on past T and each load checks its
+  // slot.
+  const int kend = RING ? hi + 1 : min(hi + 1, kbeg + Tk);
   const bool any = hi >= 0 && kend > lo;
   int ta = any ? lo / BKD : 0, tb = any ? (kend - 1) / BKD : -1;
   const int nsp = any ? (kend - 1) / SPLIT - lo / SPLIT + 1 : 0;  // splits the block's keys span
@@ -391,12 +409,12 @@ attend_kernel(const __nv_bfloat16* __restrict__ q, const T_* __restrict__ k,
         }
       }
     } else {
-      const int s0 = RING ? t0 % opt.ring : t0;
+      const int s0 = RING ? t0 % opt.ring : t0 - kbeg;  // a shard's slot may be < 0
       for (int e = tid; e < BKD * CH; e += WARPS * 32) {
         const int j = e / CH, c = e % CH;
         int slot = s0 + j;
         if (RING && slot >= opt.ring) slot -= opt.ring;
-        const bool live = t0 + j < kend && slot < Tk;
+        const bool live = t0 + j < kend && slot < Tk && (!SHARD || slot >= 0);
         const size_t off = live ? (size_t)slot * D + c * (16 / sizeof(T_)) : 0;
         cp16(sb + (size_t)j * L::RS + c * 16, kp + off, live ? 16 : 0);
         cp16(sb + L::kv_bytes + (size_t)j * L::RS + c * 16, vp + off, live ? 16 : 0);
@@ -405,7 +423,7 @@ attend_kernel(const __nv_bfloat16* __restrict__ q, const T_* __restrict__ k,
         for (int j = tid; j < BKD; j += WARPS * 32) {
           int slot = s0 + j;
           if (RING && slot >= opt.ring) slot -= opt.ring;
-          const bool live = t0 + j < kend && slot < Tk;
+          const bool live = t0 + j < kend && slot < Tk && (!SHARD || slot >= 0);
           cp4(kst + j, ksp + (live ? slot : 0), live ? 4 : 0);
           cp4(kst + BKD + j, vsp + (live ? slot : 0), live ? 4 : 0);
         }
@@ -419,11 +437,12 @@ attend_kernel(const __nv_bfloat16* __restrict__ q, const T_* __restrict__ k,
   unsigned anc0 = 0u, anc1 = 0u;  // the rows' ancestry words (the tree variant)
   if constexpr (TREE) anc0 = anc_s[lr0], anc1 = anc_s[lr1];
   // Row r sees key k iff (unsigned)(k - lo_r) <= span_r: its keys are
-  // [first visible key, position] (cut at the plane's end without a ring);
+  // [first visible key, position] (cut at the plane's ends without a ring);
   // a row with none gets lo_r = 2^30, which no key reaches. A ring plane
   // shorter than the ring also checks each key's slot (slot_check).
   const auto row_range = [&](int p, unsigned& span) {
-    const int first = first_key(p, window), last = RING ? p : min(p, Tk - 1);
+    const int first = max(first_key(p, window), kbeg);
+    const int last = RING ? p : min(p, kbeg + Tk - 1);
     const bool any_key = p >= 0 && last >= first;
     span = any_key ? (unsigned)(last - first) : 0u;
     return any_key ? first : 1 << 30;
@@ -571,9 +590,21 @@ attend_kernel(const __nv_bfloat16* __restrict__ q, const T_* __restrict__ k,
     __syncthreads();
   }
 
+  // Row lr's output offset; two adjacent columns stored as bf16, or as f32
+  // for a shard; a shard's row log-sum-exp (lse [B, H, S]).
   const auto out_row = [&](int lr) {
     const int r = r0 + lr, s = r / group, gi = r % group;
-    return out + (((size_t)b * S + s) * H + h * group + gi) * D;
+    return (((size_t)b * S + s) * H + h * group + gi) * D;
+  };
+  const auto store = [&](size_t off, float x0, float x1) {
+    if constexpr (SHARD)
+      *reinterpret_cast<float2*>(static_cast<float*>(out) + off) = make_float2(x0, x1);
+    else
+      *reinterpret_cast<unsigned*>(static_cast<__nv_bfloat16*>(out) + off) = pack_bf16(x0, x1);
+  };
+  const auto store_lse = [&](int lr, float lse) {
+    const int r = r0 + lr, s = r / group, gi = r % group;
+    shard.lse[((size_t)b * H + h * group + gi) * S + s] = lse;
   };
   if (nz <= 1) {  // kernel E, or D with one split: the rows are final
     const bool broken = nz == 1 && nsp > 1;
@@ -582,7 +613,7 @@ attend_kernel(const __nv_bfloat16* __restrict__ q, const T_* __restrict__ k,
       const int lr = i ? lr1 : lr0;
       if (r0 + lr >= nrows) continue;
       const float l = i ? l1 : l0;
-      __nv_bfloat16* o = out_row(lr);
+      const size_t o = out_row(lr);
 #pragma unroll
       for (int dn = 0; dn < DT; ++dn) {
         float x0 = 0.f, x1 = 0.f;
@@ -592,8 +623,10 @@ attend_kernel(const __nv_bfloat16* __restrict__ q, const T_* __restrict__ k,
           x0 = __fdiv_rn(acc[dn][2 * i], l);
           x1 = __fdiv_rn(acc[dn][2 * i + 1], l);
         }
-        *reinterpret_cast<unsigned*>(o + dn * 8 + 2 * tq) = pack_bf16(x0, x1);
+        store(o + dn * 8 + 2 * tq, x0, x1);
       }
+      if (SHARD && tq == 0)
+        store_lse(lr, broken ? NAN : l > 0.f ? __fadd_rn(i ? m1 : m0, logf(l)) : NEG_INF);
     }
     return;
   }
@@ -630,7 +663,7 @@ attend_kernel(const __nv_bfloat16* __restrict__ q, const T_* __restrict__ k,
   // order, the same arithmetic on every lane.
   float* wsh = reinterpret_cast<float*>(stages) + (size_t)warp * nz;
   for (int lr = warp; lr < ROWS && r0 + lr < nrows; lr += WARPS) {
-    __nv_bfloat16* o = out_row(lr);
+    const size_t o = out_row(lr);
     const float* ml = ws_ml + 2 * ((size_t)bidx * nz * ROWS + lr);  // split z at + 2 z ROWS
     const float* ac = ws_acc + ((size_t)bidx * nz * ROWS + lr) * D;  // split z at + z ROWS D
     float M = NEG_INF;
@@ -673,8 +706,10 @@ attend_kernel(const __nv_bfloat16* __restrict__ q, const T_* __restrict__ k,
         x0 = __fdiv_rn(o0, Lsum);
         x1 = __fdiv_rn(o1, Lsum);
       }
-      *reinterpret_cast<unsigned*>(o + c) = pack_bf16(x0, x1);
+      store(o + c, x0, x1);
     }
+    if (SHARD && lane == 0)
+      store_lse(lr, nsp > nz ? NAN : Lsum > 0.f ? __fadd_rn(M, logf(Lsum)) : NEG_INF);
     __syncwarp();  // the next row writes wsh
   }
   if (tid == 0) counters[bidx] = 0u;  // ready for the next launch on the stream
@@ -686,7 +721,8 @@ template <int D, class T, int MAP, bool TREE>
 int launch(const void* q, const void* k, const void* v, const void* ks, const void* vs,
            const void* pos, void* out, float* ws, unsigned* counters, int B, int S, int H,
            int KVH, int Tk, long long stride_kb, long long stride_kh, long long stride_sb,
-           long long stride_sh, Options opt, int nz, Pages pages, Tree tree, cudaStream_t st) {
+           long long stride_sh, Options opt, int nz, Pages pages, Tree tree, Shard shard,
+           cudaStream_t st) {
   constexpr size_t smem = Layout<D, T>::total;
   constexpr size_t stat = ROWS * sizeof(int) + 3 * sizeof(int) + 2 * BK<D> * sizeof(int) +
                           (TREE ? ROWS : 1) * sizeof(unsigned);
@@ -701,35 +737,37 @@ int launch(const void* q, const void* k, const void* v, const void* ks, const vo
   attend_kernel<D, T, MAP, TREE><<<grid, WARPS * 32, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(ks), static_cast<const float*>(vs), static_cast<const int*>(pos),
-      static_cast<__nv_bfloat16*>(out), ws, counters, S, H, KVH, Tk, stride_kb, stride_kh,
-      stride_sb, stride_sh, opt, nz, pages, tree);
+      out, ws, counters, S, H, KVH, Tk, stride_kb, stride_kh, stride_sb, stride_sh, opt, nz,
+      pages, tree, shard);
   return (int)cudaGetLastError();
 }
 
 // The planes of kernels D and E (ring picked by opt.ring) or F's page pool
-// (pages.table set), by head dim; TREE: D's and F's tree variant.
+// (pages.table set), by head dim; TREE: D's and F's tree variant; shard:
+// the operands of MAP_SHARD.
 template <class T, int MAP, bool TREE = false>
 int launch_map(const void* q, const void* k, const void* v, const void* ks, const void* vs,
                const void* pos, void* out, float* ws, unsigned* counters, int B, int S, int H,
                int KVH, int Tk, int D, long long stride_kb, long long stride_kh,
                long long stride_sb, long long stride_sh, Options opt, int nz, Pages pages,
-               cudaStream_t st, Tree tree = Tree{nullptr, nullptr}) {
+               cudaStream_t st, Tree tree = Tree{nullptr, nullptr},
+               Shard shard = Shard{0, nullptr}) {
   if (D == 128)
     return launch<128, T, MAP, TREE>(q, k, v, ks, vs, pos, out, ws, counters, B, S, H, KVH, Tk,
                                      stride_kb, stride_kh, stride_sb, stride_sh, opt, nz, pages,
-                                     tree, st);
+                                     tree, shard, st);
   if (D == 64)
     return launch<64, T, MAP, TREE>(q, k, v, ks, vs, pos, out, ws, counters, B, S, H, KVH, Tk,
                                     stride_kb, stride_kh, stride_sb, stride_sh, opt, nz, pages,
-                                    tree, st);
+                                    tree, shard, st);
   if (D == 256)
     return launch<256, T, MAP, TREE>(q, k, v, ks, vs, pos, out, ws, counters, B, S, H, KVH, Tk,
                                      stride_kb, stride_kh, stride_sb, stride_sh, opt, nz, pages,
-                                     tree, st);
+                                     tree, shard, st);
   if (D == 96)  // Phi-3 (3072 / 32)
     return launch<96, T, MAP, TREE>(q, k, v, ks, vs, pos, out, ws, counters, B, S, H, KVH, Tk,
                                     stride_kb, stride_kh, stride_sb, stride_sh, opt, nz, pages,
-                                    tree, st);
+                                    tree, shard, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -814,6 +852,27 @@ int launch_paged_tree(const void* q, const void* k_pool, const void* v_pool, con
                                         counters, B, S, H, KVH, M * P, D, stride_page,
                                         (long long)P * D, stride_spage, P, opt, nz, pages, st,
                                         tree);
+}
+
+// D's and E's shard variant (MAP_SHARD) over [B, KVH, T, D] planes that
+// hold positions [t0, t0 + T): out f32 [B, S, H, D] and lse f32 [B, H, S].
+// nz = 0: E's walk (every key in one block); nz >= 1: D's split over T.
+// The chain mask with the score scale: no softcap, window or ring. Refuses
+// t0 < 0, a missing lse and an unknown head dim.
+template <class T>
+int launch_shard(const void* q, const void* k, const void* v, const void* ks, const void* vs,
+                 const void* pos, void* out, float* lse, float* ws, unsigned* counters, int B,
+                 int S, int H, int KVH, int Tk, int D, long long stride_kb, long long stride_kh,
+                 long long stride_sb, long long stride_sh, float scale, int t0, int nz,
+                 void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (H % KVH || t0 < 0 || lse == nullptr || nz < 0) return (int)cudaErrorInvalidValue;
+  if (nz > 1 && (ws == nullptr || counters == nullptr)) return (int)cudaErrorInvalidValue;
+  const Pages none{nullptr, 0, 0};
+  return launch_map<T, MAP_SHARD>(q, k, v, ks, vs, pos, out, ws, counters, B, S, H, KVH, Tk, D,
+                                  stride_kb, stride_kh, stride_sb, stride_sh,
+                                  Options{scale, 0.f, 0, 0}, nz, none, st,
+                                  Tree{nullptr, nullptr}, Shard{t0, lse});
 }
 
 }  // namespace

@@ -68,8 +68,9 @@
 //    scale, writes bf16 and resets the ticket for the next launch on the
 //    stream: kernel D's combine (attn_mma.cuh), with D's ticket counters.
 //  * The output type is a template argument: bf16 (kernels A and B), or
-//    f32 (OutT float, A's instantiation for the EmbedQuant4 tied head,
-//    whose logits stay f32), the same f32 product stored unrounded. The
+//    f32 (OutT float: A's instantiation for the EmbedQuant4 tied head,
+//    whose logits stay f32, and A's and B's for a row-parallel partial sum
+//    under the model axis), the same f32 product stored unrounded. The
 //    loop is the same text, so the bf16 instantiation keeps its bits.
 //  * A row's bits are independent of M: every output element is the f32
 //    chain of the same mma.sync instructions over the k-tiles in ascending

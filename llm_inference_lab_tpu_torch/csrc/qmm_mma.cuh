@@ -37,7 +37,8 @@
 //  * Epilogue: the f32 sum times the f32 scale, one bf16 store. No
 //    workspace unless the K split is on. OutT float (kernel A's f32
 //    instantiation, the EmbedQuant4 tied head at N = V: JAX rounds those
-//    logits to bf16 through dense, the port keeps them f32) stores the same
+//    logits to bf16 through dense, the port keeps them f32; and A's and
+//    B's row-parallel partial sums under the model axis) stores the same
 //    product unrounded; the loop is the same, so a bf16 output keeps its
 //    bits.
 //  * Bits: every output is the tensor cores' f32 chain over the k-tiles in

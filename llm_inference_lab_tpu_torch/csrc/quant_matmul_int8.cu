@@ -5,7 +5,10 @@
 //
 // Computes  y[M, N] = (x[M, K] @ w[K, N]) * scale[N]
 // with f32 accumulation and a bf16 output, the contract of the JAX package's
-// quant_matmul_xla. w holds one symmetric int8 weight per byte; a per-layer
+// quant_matmul_xla, or, in the _f32 entries, an f32 output: a row-parallel
+// projection's partial sum under the model axis (wo, w_down at K / n), which
+// the ranks add in f32 and round once, as GSPMD's kernel over the whole K
+// rounds its sum once. w holds one symmetric int8 weight per byte; a per-layer
 // weight is a pointer into the stacked [L, K, N] buffer: no copy.
 //
 // What bounds it on the H100: below 64 rows (decode and verify, M = 1 to
@@ -35,4 +38,17 @@ extern "C" int qmm_int8(const void* x, const void* w, const void* scale, void* w
 extern "C" int qmm_int8_mma(const void* x, const void* w, const void* scale, void* ws,
                             void* out, int M, int K, int N, int ksplit, void* stream) {
   return qmm::launch<8>(x, w, scale, ws, out, M, K, N, ksplit, stream);
+}
+
+// The f32-output instantiations of both bodies (the same arguments, out f32
+// [M, N]): the scale applied to the f32 sum and stored unrounded.
+extern "C" int qmm_int8_f32(const void* x, const void* w, const void* scale, void* ws,
+                            void* counters, void* out, int M, int K, int N, int ksplit,
+                            void* stream) {
+  return qmm::launch_decode<8, float>(x, w, scale, ws, counters, out, M, K, N, ksplit, stream);
+}
+
+extern "C" int qmm_int8_mma_f32(const void* x, const void* w, const void* scale, void* ws,
+                                void* out, int M, int K, int N, int ksplit, void* stream) {
+  return qmm::launch<8, float>(x, w, scale, ws, out, M, K, N, ksplit, stream);
 }

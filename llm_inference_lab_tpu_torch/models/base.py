@@ -22,7 +22,7 @@ buffer), so a step never copies the cache.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 
@@ -84,10 +84,19 @@ class ModelConfig:
     # (ops/moe.py); 0 = a dense MLP.
     n_experts: int = 0
     experts_per_token: int = 2
-    # Tensor parallelism: the model group a rank's forward runs its
-    # collectives over (parallel/mesh.py TensorParallel). Not a field: a
-    # whole model has none, and a rank's share is a RankConfig.
+    # A rank's axes under a mesh (parallel/mesh.py AxisGroup): the model
+    # group of its tensor-parallel collectives (tp), the seq group of its
+    # ring prefill and sliced caches (sp), the stage group of its pipeline
+    # (pp, with the global index of its first layer, layer0, and the
+    # microbatches a forward splits into) and the expert group of its MoE
+    # layers (ep). Not fields: a whole model has none, and a rank's share
+    # is a RankConfig.
     tp = None
+    sp = None
+    pp = None
+    ep = None
+    layer0 = 0
+    pp_microbatches = None
 
     @property
     def head_dim(self) -> int:
@@ -112,12 +121,19 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class RankConfig(ModelConfig):
-    """A rank's share of a tensor-parallel model (parallel/sharding.py
-    shard_config): the rank's heads (n_heads, n_kv_heads) and MLP width
-    (d_ff), head_dim_override the whole model's head dim, and ``tp`` the
-    model group its forward's collectives run over."""
+    """A rank's share of a model under a mesh (parallel/sharding.py
+    shard_config): under the model axis the rank's heads (n_heads,
+    n_kv_heads) and MLP width (d_ff), head_dim_override the whole model's
+    head dim, and ``tp`` the model group its forward's collectives run
+    over; under the stage axis its layers (n_layers of them from layer0)
+    and ``pp``; ``sp`` and ``ep`` the seq and expert groups."""
 
     tp: Optional[Any] = None
+    sp: Optional[Any] = None
+    pp: Optional[Any] = None
+    ep: Optional[Any] = None
+    layer0: int = 0
+    pp_microbatches: Optional[int] = None
 
 
 @dataclass
@@ -129,12 +145,17 @@ class KVCache:
     per-(head, position) scales in k_scale / v_scale [n_layers, B, n_kv_heads,
     max_seq] f32, initialised to ones. The JAX package carries scales for
     every cache; a bf16 cache here carries None instead, which saves their
-    memory and never reads them."""
+    memory and never reads them.
+
+    t0: None for a cache that holds every position (slot = position); under
+    the seq axis a rank's slice of a cache whose T splits (JAX's
+    _cache_sharding), slot j holding position t0 + j."""
 
     k: torch.Tensor
     v: torch.Tensor
     k_scale: Optional[torch.Tensor] = None
     v_scale: Optional[torch.Tensor] = None
+    t0: Optional[int] = None
 
     @classmethod
     def create(cls, cfg: ModelConfig, batch_size: int, max_seq_len: int,
@@ -184,11 +205,11 @@ class Model:
     weights_source: str = "random"
 
     def forward(self, tokens, positions, cache, cache_lens, return_hidden=False,
-                tree_mask=None, lora_ids=None, logits=True):
+                tree_mask=None, lora_ids=None, logits=True, cp=False):
         from llm_inference_lab_tpu_torch.models.transformer import forward
 
         return forward(self.config, self.params, tokens, positions, cache, cache_lens,
-                       return_hidden, tree_mask, lora_ids, logits)
+                       return_hidden, tree_mask, lora_ids, logits, cp)
 
     def head(self, hidden: torch.Tensor) -> torch.Tensor:
         """The model's head (JAX's head_fn): hidden states [.., D] -> f32
@@ -214,6 +235,14 @@ class Model:
                                        dtype=dtype)
         if self.config.kv_ring_len is not None:
             max_seq_len = min(max_seq_len, self.config.kv_ring_len)
+        sp = self.config.sp
+        if sp is not None and max_seq_len % sp.size == 0:
+            # Under the seq axis a T that splits holds this rank's slice (JAX's
+            # _cache_sharding); one that does not stays whole.
+            per = max_seq_len // sp.size
+            cache = KVCache.create(self.config, batch_size, per, device, dtype=dtype)
+            cache.t0 = sp.rank * per
+            return cache
         return KVCache.create(self.config, batch_size, max_seq_len, device, dtype=dtype)
 
 
@@ -238,12 +267,42 @@ def cache_slots(start: torch.Tensor, S: int, T: int, ring_len: Optional[int] = N
     return torch.arange(start.shape[0], device=start.device)[:, None], slots, rows
 
 
+class SliceSlots(NamedTuple):
+    """Where a chunk's rows land in a rank's slice of a T-split cache: the
+    rows (b, row) whose position falls in the slice, and their slots."""
+
+    b: torch.Tensor
+    row: torch.Tensor
+    slot: torch.Tensor
+
+
+def slice_slots(start: torch.Tensor, S: int, t0: int, T: int) -> SliceSlots:
+    """The rows of a chunk of S rows per sequence at positions start[b] ..
+    start[b] + S - 1 that fall in the slice [t0, t0 + T), and their slots
+    (position - t0): a row outside it is not written, so a rank whose slice
+    holds none writes nothing. Reads the rows on the host (the seq axis
+    runs its forwards eagerly)."""
+    pos = start[:, None].long() + torch.arange(S, device=start.device)[None]
+    b, row = ((pos >= t0) & (pos < t0 + T)).nonzero(as_tuple=True)
+    return SliceSlots(b, row, pos[b, row] - t0)
+
+
 def write_cache_layer(cache: KVCache, layer: int, k_new: torch.Tensor,
                       v_new: torch.Tensor, slots) -> None:
     """Write the new rows k_new/v_new [B, S, n_kv, d] (model compute order)
-    of layer `layer` at ``slots = cache_slots(...)``, in place; an int8
-    cache quantizes each row as it is written and writes its scale at the
-    same slot (the port of update_cache_layer, both branches)."""
+    of layer `layer` at ``slots = cache_slots(...)`` (or a slice's
+    ``slice_slots``), in place; an int8 cache quantizes each row as it is
+    written and writes its scale at the same slot (the port of
+    update_cache_layer, both branches)."""
+    if isinstance(slots, SliceSlots):
+        for dst, scales, new in ((cache.k, cache.k_scale, k_new),
+                                 (cache.v, cache.v_scale, v_new)):
+            new = new[slots.b, slots.row]  # [n, n_kv, d]
+            if dst.dtype == torch.int8:
+                new, scale = quantize_rows(new)
+                scales[layer][slots.b, :, slots.slot] = scale
+            dst[layer][slots.b, :, slots.slot, :] = new.to(dst.dtype)
+        return
     b_idx, slot, rows = slots
     # Advanced indices (b [B,1], slot [B,S]) around the head slice index a
     # [B, S, n_kv, d] block (a [B, S, n_kv] block of scales): exactly the

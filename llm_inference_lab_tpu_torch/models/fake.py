@@ -90,9 +90,10 @@ FAKE_CONFIG = ModelConfig(name="fake", arch="fake", vocab_size=256, n_layers=1, 
 @dataclass
 class FakeModel(Model):
     def forward(self, tokens, positions, cache, cache_lens, return_hidden=False,
-                tree_mask=None, lora_ids=None, logits=True):
+                tree_mask=None, lora_ids=None, logits=True, cp=False):
         # No layers: no LoRA pack (the engine refuses adapters here), and the
-        # logits cost nothing to make.
+        # logits cost nothing to make; no attention for a ring prefill (the
+        # engine keeps the fake model out of the seq axis, as JAX's).
         return fake_forward(self.config, self.params, tokens, positions, cache, cache_lens,
                             return_hidden, tree_mask)
 

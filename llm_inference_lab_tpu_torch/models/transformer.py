@@ -19,7 +19,11 @@ projection and the matching rows of the output projections
 (parallel/sharding.py); each output projection's partial sums are added
 over the model group in f32 (``_out_proj``), the vocab-parallel embedding
 is summed the same way and the head's logits are all-gathered. Attention
-and the caches run at the rank's heads, unchanged.
+and the caches run at the rank's heads, unchanged. The other axes: ``sp``
+(seq: the ring prefill under ``cp`` and caches split on T, attended slice
+by slice), ``pp`` (stage: the forward is parallel/pipeline.py forward_pp
+over the rank's layers, run by ``run_layers``) and ``ep`` (expert: a MoE
+layer through ops/moe.py moe_expert, as under the model axis).
 
 Port of llm_inference_lab_tpu/models/transformer.py. The JAX package scans
 one compiled layer over stacked params; the port runs a Python loop over
@@ -30,7 +34,7 @@ projection goes through ``ops.quant.dense``.
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Any, Optional
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -39,13 +43,14 @@ import torch.nn.functional as F
 from llm_inference_lab_tpu_torch.models.base import (
     ModelConfig,
     cache_slots,
+    slice_slots,
     write_cache_layer,
 )
 from llm_inference_lab_tpu_torch.models.lora import adapter_mask, has_pack, lora_delta
 from llm_inference_lab_tpu_torch.models.paged import PagedKVCache, page_slots, write_paged_layer
-from llm_inference_lab_tpu_torch.ops.attention import attend, paged_attend
+from llm_inference_lab_tpu_torch.ops.attention import attend, attend_slices, paged_attend
 from llm_inference_lab_tpu_torch.ops.flash_decode import tree_bits
-from llm_inference_lab_tpu_torch.ops.moe import gated, moe_mlp
+from llm_inference_lab_tpu_torch.ops.moe import gated, moe_expert, moe_mlp
 from llm_inference_lab_tpu_torch.ops.quant import (
     EmbedQuant,
     EmbedQuant4,
@@ -55,7 +60,13 @@ from llm_inference_lab_tpu_torch.ops.quant import (
     f32_logits,
     repack_int4_rows,
 )
-from llm_inference_lab_tpu_torch.ops.rms_norm import add_rms_norm, rms_norm
+from llm_inference_lab_tpu_torch.ops.rms_norm import (
+    add_layer_norm,
+    add_rms_norm,
+    layer_norm,
+    rms_norm,
+)
+from llm_inference_lab_tpu_torch.parallel.context import ring_attention_shard
 
 
 @lru_cache(maxsize=32)
@@ -103,18 +114,6 @@ def rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
-def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-               eps: float) -> torch.Tensor:
-    """LayerNorm over the last axis in f32 (JAX's layer_norm: the mean, the
-    biased variance, (x - mean) * rsqrt(var + eps) * scale + bias), rounded
-    to x's dtype."""
-    x32 = x.float()
-    mean = x32.mean(dim=-1, keepdim=True)
-    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
-    y = (x32 - mean) * torch.rsqrt(var + eps)
-    return (y * scale.float() + bias.float()).to(x.dtype)
-
-
 def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Rows idx of table [n, D] as jnp.take gives them (its "fill" mode): an
     index in [-n, 0) counts from the end, as numpy's does, and any other
@@ -150,11 +149,30 @@ def _lora(p: dict, site: str, mask: Optional[torch.Tensor], y: torch.Tensor,
     return y + lora_delta(A, p[f"lora_B_{site}"], None, x, mask=mask)
 
 
+class Context(NamedTuple):
+    """What every layer of a forward reads beside its params and input: the
+    rows' positions, the rotary tables (None under learned positions), the
+    cache and where the chunk's rows land in it, the tree's kernel options,
+    the LoRA mask, and under the ring prefill its per-block cache slots."""
+
+    positions: torch.Tensor
+    cos: Optional[torch.Tensor]
+    sin: Optional[torch.Tensor]
+    cache: Any
+    slots: Any
+    tree: dict
+    mask: Optional[torch.Tensor]
+    ring: Optional[list] = None
+
+
 def _attn_block(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor,
                 cos, sin, cache, layer: int, slots, tree: Optional[dict] = None,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                mask: Optional[torch.Tensor] = None, ring: Optional[list] = None) -> torch.Tensor:
+    """One layer's attention block (a Context's pieces, layer: the cache's
+    layer index); ring: under the ring prefill, each K/V block's slots."""
     B, S, _ = x.shape
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    tree = tree or {}
     # fused QKV: one matmul instead of three
     qkv = _lora(p, "qkv", mask, dense(x, p["w_qkv"], p.get("b_qkv")), x)
     # q and k heads rotate together: one pass of elementwise ops, not two.
@@ -167,15 +185,28 @@ def _attn_block(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Ten
     # an int8 cache quantizes the rows and attends with the layer's scales.
     scales = ((cache.k_scale[layer], cache.v_scale[layer]) if cache.k_scale is not None
               else (None, None))
-    options = dict(attn_options(cfg, layer), **(tree or {}))
-    if isinstance(cache, PagedKVCache):
+    if ring is not None:
+        # The ring prefill (JAX's cp branch): the rows of each K/V block the
+        # rank holds that fall in its cache are written as the block passes.
+        def write(src, k_blk, v_blk):
+            write_cache_layer(cache, layer, k_blk, v_blk, ring[src])
+
+        attn = ring_attention_shard(q, qk[:, :, H:], v, cfg.sp, on_block=write)
+    elif isinstance(cache, PagedKVCache):
+        options = dict(attn_options(cfg, cfg.layer0 + layer), **tree)
         write_paged_layer(cache, layer, qk[:, :, H:], v, slots)
-        attn = paged_attend(q, cache.k[layer], cache.v[layer], positions, cache.table, *scales,
-                            **options)
+        attn = paged_attend(q, cache.k[layer], cache.v[layer], positions, cache.table,
+                            *scales, **options)
     else:
+        options = dict(attn_options(cfg, cfg.layer0 + layer), **tree)
         write_cache_layer(cache, layer, qk[:, :, H:], v, slots)
-        attn = attend(q, cache.k[layer], cache.v[layer], positions, *scales,
-                      ring_len=cfg.kv_ring_len, **options)
+        if cache.t0 is not None:  # a slice of T over the seq axis: merged over the ranks
+            attn = attend_slices(q, cache.k[layer], cache.v[layer], positions, cache.t0,
+                                 *scales, group=cfg.sp, span=cache.k.shape[3] * cfg.sp.size,
+                                 **options)
+        else:
+            attn = attend(q, cache.k[layer], cache.v[layer], positions, *scales,
+                          ring_len=cfg.kv_ring_len, **options)
     a = attn.reshape(B, S, H * Dh)
     return _lora(p, "o", mask, _out_proj(cfg, a, p["wo"], p.get("bo")), a)
 
@@ -197,6 +228,10 @@ def _mlp_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     if cfg.moe:  # Mixtral: top-k routed gated-MLP experts
         B, S, D = x.shape
+        if cfg.ep is not None or cfg.tp is not None:  # moe_dense's expert-parallel form
+            return moe_expert(x.reshape(B * S, D), p["w_router"], p["w_gate_up"], p["w_down"],
+                              top_k=cfg.experts_per_token, act=cfg.act, ep=cfg.ep,
+                              tp=cfg.tp).reshape(B, S, D)
         return moe_mlp(x.reshape(B * S, D), p["w_router"], p["w_gate_up"], p["w_down"],
                        top_k=cfg.experts_per_token, act=cfg.act).reshape(B, S, D)
     if not cfg.gated_mlp:  # GPT-2's gelu (tanh-approximated, jax.nn.gelu's default), OPT's relu
@@ -213,10 +248,145 @@ def _layer_params(layers: dict, i: int) -> dict:
             for name, w in layers.items()}
 
 
+def _tree_options(cfg: ModelConfig, cache, cache_lens: torch.Tensor,
+                  tree_mask: Optional[torch.Tensor]) -> dict:
+    """The tree mask's kernel options of a forward ({} without a mask). As
+    in JAX, a sliding window that can bind and a ring refuse the mask."""
+    if tree_mask is None:
+        return {}
+    if cfg.kv_ring_len is not None:
+        raise ValueError("the tree mask needs a cache without a ring")
+    span = cache.k.shape[-2] * (cache.table.shape[-1] if isinstance(cache, PagedKVCache)
+                                else 1)
+    if cfg.sliding_window is not None and span > cfg.sliding_window:
+        raise NotImplementedError("sliding-window attention with tree caches longer than "
+                                  "the window is not supported")
+    # The kernels' form of the mask, once a forward (the card's tree
+    # variants take S <= 32; the plain versions any S).
+    return dict(tree_mask=tree_mask, chunk_start=cache_lens,
+                tree_bits=tree_bits(tree_mask) if tree_mask.is_cuda else None)
+
+
+def _check_ring(cfg: ModelConfig, cache) -> None:
+    """JAX's refusals of a ring (context-parallel) prefill: Gemma-2's
+    attention options, and a window the cache is long enough to bind (the
+    cache's global T)."""
+    if cfg.sp is None:
+        raise ValueError("a ring (context-parallel) prefill needs a seq axis above 1")
+    if cfg.attn_logit_softcap is not None or cfg.query_pre_attn_scalar is not None:
+        raise NotImplementedError(
+            "gemma2 attention (softcap / query_pre_attn_scalar) is implemented on the "
+            "contiguous and paged chain-decode paths (the ring-prefill variant is future work)")
+    if isinstance(cache, PagedKVCache):
+        raise NotImplementedError("paged KV under the seq axis is not ported (the ring prefill "
+                                  "writes a contiguous cache)")
+    max_t = cache.k.shape[-2] * (cfg.sp.size if cache.t0 is not None else 1)
+    if cfg.sliding_window is not None and max_t > cfg.sliding_window:
+        raise NotImplementedError("sliding-window attention with context-parallel / tree "
+                                  "caches longer than the window is not supported")
+
+
+def context(cfg: ModelConfig, params: Any, tokens: torch.Tensor, positions: torch.Tensor,
+            cache, cache_lens: torch.Tensor, tree_mask: Optional[torch.Tensor] = None,
+            lora_ids: Optional[torch.Tensor] = None, ring: bool = False) -> Context:
+    """The Context of a forward over tokens, positions [B, S] (computed once
+    for all its layers). ring: tokens are this rank's rows of the ring
+    prefill's block (JAX's cp), whose every block's rows are written where
+    they fall in the cache."""
+    tree = _tree_options(cfg, cache, cache_lens, tree_mask)
+    cos = sin = None
+    if not cfg.use_learned_pos:
+        cos, sin = rope_tables(cfg, positions)
+    S = tokens.shape[1]
+    slots = blocks = None
+    if isinstance(cache, PagedKVCache):
+        slots = page_slots(cache.table, cache_lens, S, cache.page_size)
+    elif ring:
+        # Block src holds the prompt rows [src S, (src + 1) S): the cache
+        # rows at cache_lens + those rows.
+        blocks = [(slice_slots(cache_lens + src * S, S, cache.t0, cache.k.shape[3])
+                   if cache.t0 is not None
+                   else cache_slots(cache_lens + src * S, S, cache.max_seq_len, cfg.kv_ring_len))
+                  for src in range(cfg.sp.size)]
+    elif cache.t0 is not None:
+        slots = slice_slots(cache_lens, S, cache.t0, cache.k.shape[3])
+    else:
+        slots = cache_slots(cache_lens, S, cache.max_seq_len, cfg.kv_ring_len)
+    mask = None
+    layers = params["layers"]
+    if lora_ids is not None and has_pack(layers):
+        # Each row's adapter as a 0/1 mask over the pack, once a forward.
+        pack = next(v for k, v in layers.items() if k.startswith("lora_A_"))
+        mask = adapter_mask(lora_ids, pack.shape[1], S, pack.dtype)
+    return Context(positions, cos, sin, cache, slots, tree, mask, blocks)
+
+
+def embed(cfg: ModelConfig, params: Any, tokens: torch.Tensor,
+          positions: torch.Tensor) -> torch.Tensor:
+    """The rows entering the first layer: the embedding (Gemma's scaled),
+    plus the learned positions of GPT-2 and OPT."""
+    x = _embed_lookup(cfg, params["embed"], tokens)
+    if cfg.embed_scale:
+        # Gemma's input normalizer: sqrt(d_model) rounded to the compute
+        # dtype, then multiplied (as the JAX package and HF round it).
+        x = x * _embed_multiplier(cfg.d_model, cfg.dtype)
+    if cfg.use_learned_pos:
+        x = x + take_rows(params["pos_embed"], positions + cfg.pos_offset).to(cfg.dtype)
+    return x
+
+
+def run_layers(cfg: ModelConfig, params: Any, x: torch.Tensor, ctx: Context,
+               final_norm: bool = True):
+    """Every layer of params["layers"] over the residual rows x, which enter
+    its first layer. Returns (x, n): the residual rows after the last layer
+    and, with final_norm, their final norm (the head's input); without it
+    (a pipeline stage before the last) n is None and x is torch's x + h,
+    the bits the fused add gives. Each norm after the first runs fused with
+    the residual add before it: RMSNorm through add_rms_norm (with Gemma-2's
+    sandwich norm of a, post_norms, inside), GPT-2's and OPT's LayerNorm
+    through add_layer_norm."""
+    layers = params["layers"]
+    L = next(iter(layers.values()))
+    L = (L.data if isinstance(L, QuantTensor) else L).shape[0]
+
+    def norm_of(i):
+        """Scale and bias (None for RMSNorm) of layer i's input norm; at i = L
+        the final norm's."""
+        if i == L:
+            return params["final_norm_scale"], params.get("final_norm_bias")
+        return layers["attn_norm_scale"][i], (layers["attn_norm_bias"][i] if cfg.use_layernorm
+                                              else None)
+
+    def add_norm(h, a, w, b, post):
+        # h + a and the norm after it, which is the next block's input norm
+        # (after the last layer the final norm), in one launch.
+        if cfg.use_layernorm:
+            return add_layer_norm(h, a, w, b, cfg.layer_norm_eps)
+        return add_rms_norm(h, a, w, cfg.rms_norm_eps, cfg.rms_one_offset,
+                            p[post] if cfg.post_norms else None)
+
+    w, b = norm_of(0)
+    n = (layer_norm(x, w, b, cfg.layer_norm_eps) if cfg.use_layernorm
+         else rms_norm(x, w, cfg.rms_norm_eps, cfg.rms_one_offset))
+    for i in range(L):
+        p = _layer_params(layers, i)
+        a = _attn_block(cfg, p, n, ctx.positions, ctx.cos, ctx.sin, ctx.cache, i, ctx.slots,
+                        ctx.tree, ctx.mask, ctx.ring)
+        x, n = add_norm(x, a, p["mlp_norm_scale"], p.get("mlp_norm_bias"), "post_attn_norm_scale")
+        h = _mlp_block(cfg, p, n, ctx.mask)
+        if i + 1 < L or final_norm:
+            x, n = add_norm(x, h, *norm_of(i + 1), "post_mlp_norm_scale")
+        else:
+            if cfg.post_norms:
+                h = rms_norm(h, p["post_mlp_norm_scale"], cfg.rms_norm_eps, cfg.rms_one_offset)
+            x, n = x + h, None
+    return x, n
+
+
 def forward(cfg: ModelConfig, params: Any, tokens: torch.Tensor, positions: torch.Tensor,
             cache, cache_lens: torch.Tensor, return_hidden: bool = False,
             tree_mask: Optional[torch.Tensor] = None, lora_ids: Optional[torch.Tensor] = None,
-            logits: bool = True):
+            logits: bool = True, cp: bool = False):
     """tokens, positions: [B, S] (positions int32); cache (a KVCache or a
     PagedKVCache) written in place at cache_lens[b] + arange(S). Returns
     (logits [B, S, V] f32, cache), and with return_hidden the final
@@ -231,73 +401,34 @@ def forward(cfg: ModelConfig, params: Any, tokens: torch.Tensor, positions: torc
     or with lora_ids None, no delta is computed (JAX passes none where the
     layers hold no pack). logits=False skips the head (the logits are
     None): Engine.embed reads the hidden states only. ``forward.calls`` and
-    ``forward.layers`` count the forwards run and their layers."""
-    tree = {}
-    if tree_mask is not None:
-        if cfg.kv_ring_len is not None:
-            raise ValueError("the tree mask needs a cache without a ring")
-        span = cache.k.shape[-2] * (cache.table.shape[-1] if isinstance(cache, PagedKVCache)
-                                    else 1)
-        if cfg.sliding_window is not None and span > cfg.sliding_window:
-            raise NotImplementedError("sliding-window attention with tree caches longer than "
-                                      "the window is not supported")
-        # The kernels' form of the mask, once a forward (the card's tree
-        # variants take S <= 32; the plain versions any S).
-        tree = dict(tree_mask=tree_mask, chunk_start=cache_lens,
-                    tree_bits=tree_bits(tree_mask) if tree_mask.is_cuda else None)
+    ``forward.layers`` count the forwards run and their layers.
+
+    Under a mesh (cfg a RankConfig): a stage axis runs the pipeline
+    (parallel/pipeline.py forward_pp); cp=True (JAX's cp, the single-shot
+    prefill under a seq axis) runs this rank's S / n rows of the block
+    through every layer, attention by ring attention (parallel/context.py),
+    and gathers the final hidden rows over the seq group, so every rank
+    computes the same logits; without cp a cache sliced on T over the seq
+    axis is attended slice by slice and merged (ops/attention.py
+    attend_slices)."""
+    if cfg.pp is not None:
+        from llm_inference_lab_tpu_torch.parallel.pipeline import forward_pp
+
+        return forward_pp(cfg, params, tokens, positions, cache, cache_lens, return_hidden,
+                          tree_mask, lora_ids, logits, cp)
+    if cp:
+        _check_ring(cfg, cache)
+        n_seq, P = cfg.sp.size, tokens.shape[1]
+        if P % n_seq:
+            raise ValueError(f"seq len {P} not divisible by seq={n_seq}")
+        rows = slice(cfg.sp.rank * (P // n_seq), (cfg.sp.rank + 1) * (P // n_seq))
+        tokens, positions = tokens[:, rows], positions[:, rows]
+    ctx = context(cfg, params, tokens, positions, cache, cache_lens, tree_mask, lora_ids, cp)
     forward.calls += 1
     forward.layers += cfg.n_layers
-    x = _embed_lookup(cfg, params["embed"], tokens)
-    if cfg.embed_scale:
-        # Gemma's input normalizer: sqrt(d_model) rounded to the compute
-        # dtype, then multiplied (as the JAX package and HF round it).
-        x = x * _embed_multiplier(cfg.d_model, cfg.dtype)
-    cos = sin = None
-    if cfg.use_learned_pos:
-        x = x + take_rows(params["pos_embed"], positions + cfg.pos_offset).to(cfg.dtype)
-    else:
-        cos, sin = rope_tables(cfg, positions)
-    if isinstance(cache, PagedKVCache):
-        slots = page_slots(cache.table, cache_lens, tokens.shape[1], cache.page_size)
-    else:
-        slots = cache_slots(cache_lens, tokens.shape[1], cache.max_seq_len, cfg.kv_ring_len)
-
-    layers = params["layers"]
-    mask = None
-    if lora_ids is not None and has_pack(layers):
-        # Each row's adapter as a 0/1 mask over the pack, once a forward.
-        pack = next(v for k, v in layers.items() if k.startswith("lora_A_"))
-        mask = adapter_mask(lora_ids, pack.shape[1], tokens.shape[1], pack.dtype)
-
-    def norm_of(i):
-        """Scale and bias (None for RMSNorm) of layer i's input norm; at i = L
-        the final norm's."""
-        if i == cfg.n_layers:
-            return params["final_norm_scale"], params.get("final_norm_bias")
-        return layers["attn_norm_scale"][i], (layers["attn_norm_bias"][i] if cfg.use_layernorm
-                                              else None)
-
-    def add_norm(h, a, w, b, post):
-        # h + a and the norm after it, which is the next block's input norm
-        # (after the last layer the final norm). RMSNorm: one launch, with
-        # Gemma-2's sandwich norm of a (post_norms) inside. LayerNorm (GPT-2,
-        # OPT; no Pallas kernel): the add in the model dtype, then plain ops
-        # in f32, as JAX computes them.
-        if cfg.use_layernorm:
-            s = h + a
-            return s, layer_norm(s, w, b, cfg.layer_norm_eps)
-        return add_rms_norm(h, a, w, cfg.rms_norm_eps, cfg.rms_one_offset,
-                            p[post] if cfg.post_norms else None)
-
-    w, b = norm_of(0)
-    n = (layer_norm(x, w, b, cfg.layer_norm_eps) if cfg.use_layernorm
-         else rms_norm(x, w, cfg.rms_norm_eps, cfg.rms_one_offset))
-    for i in range(cfg.n_layers):
-        p = _layer_params(layers, i)
-        a = _attn_block(cfg, p, n, positions, cos, sin, cache, i, slots, tree, mask)
-        x, n = add_norm(x, a, p["mlp_norm_scale"], p.get("mlp_norm_bias"), "post_attn_norm_scale")
-        h = _mlp_block(cfg, p, n, mask)
-        x, n = add_norm(x, h, *norm_of(i + 1), "post_mlp_norm_scale")
+    _, n = run_layers(cfg, params, embed(cfg, params, tokens, positions), ctx)
+    if cp:  # every rank's rows: the head's input on every rank
+        n = cfg.sp.all_gather(n, dim=1)
     out = lm_head_logits(cfg, params, n) if logits else None
     if return_hidden:
         return out, cache, n

@@ -12,10 +12,16 @@ def kernel_wrappers() -> dict:
     from llm_inference_lab_tpu_torch.ops.flash_decode import (
         flash_decode,
         flash_decode_int8,
+        flash_decode_shard,
+        flash_decode_shard_int8,
         flash_decode_tree,
         flash_decode_tree_int8,
     )
-    from llm_inference_lab_tpu_torch.ops.flash_prefill import flash_prefill, flash_prefill_int8
+    from llm_inference_lab_tpu_torch.ops.flash_prefill import (
+        flash_prefill,
+        flash_prefill_int8,
+        flash_prefill_shard,
+    )
     from llm_inference_lab_tpu_torch.ops.paged_flash import (
         paged_flash,
         paged_flash_int8,
@@ -27,23 +33,36 @@ def kernel_wrappers() -> dict:
         quant_matmul_f32,
         quant_matmul_f32_mma,
         quant_matmul_int8,
+        quant_matmul_int8_f32,
+        quant_matmul_int8_f32_mma,
         quant_matmul_int8_mma,
         quant_matmul_mma,
     )
-    from llm_inference_lab_tpu_torch.ops.rms_norm import add_rms_norm, rms_norm
+    from llm_inference_lab_tpu_torch.ops.rms_norm import (
+        add_layer_norm,
+        add_rms_norm,
+        layer_norm,
+        rms_norm,
+    )
     from llm_inference_lab_tpu_torch.ops.verify import verify_prefix
 
-    return {"rms_norm": rms_norm, "add_rms_norm": add_rms_norm,
+    return {"rms_norm": rms_norm, "add_rms_norm": add_rms_norm, "layer_norm": layer_norm,
+            "add_layer_norm": add_layer_norm,
             "quant_matmul_int4": quant_matmul, "quant_matmul_int4_mma": quant_matmul_mma,
             "quant_matmul_int4_f32": quant_matmul_f32,
             "quant_matmul_int4_f32_mma": quant_matmul_f32_mma,
             "quant_matmul_int8": quant_matmul_int8, "quant_matmul_int8_mma": quant_matmul_int8_mma,
+            "quant_matmul_int8_f32": quant_matmul_int8_f32,
+            "quant_matmul_int8_f32_mma": quant_matmul_int8_f32_mma,
             "flash_decode": flash_decode, "flash_decode_int8": flash_decode_int8,
             "flash_prefill": flash_prefill, "flash_prefill_int8": flash_prefill_int8,
             "paged_flash": paged_flash, "paged_flash_int8": paged_flash_int8,
             "flash_decode_tree": flash_decode_tree,
             "flash_decode_tree_int8": flash_decode_tree_int8,
             "paged_flash_tree": paged_flash_tree, "paged_flash_tree_int8": paged_flash_tree_int8,
+            "flash_decode_shard": flash_decode_shard,
+            "flash_decode_shard_int8": flash_decode_shard_int8,
+            "flash_prefill_shard": flash_prefill_shard,
             "verify_prefix": verify_prefix}
 
 
@@ -67,8 +86,9 @@ def kernel_backends(device) -> Dict[str, str]:
     libraries = {
         "quant_matmul": (quant_matmul.INT4_LIBRARY, quant_matmul.INT8_LIBRARY),
         "verify_prefix": (verify.LIBRARY,),
-        "decode_attention": (flash_decode.LIBRARY, flash_decode.LIBRARY + flash_decode.TREE),
-        "prefill_attention": (flash_prefill.LIBRARY,),
+        "decode_attention": (flash_decode.LIBRARY, flash_decode.LIBRARY + flash_decode.TREE,
+                             flash_decode.SHARD_LIBRARY),
+        "prefill_attention": (flash_prefill.LIBRARY, flash_prefill.SHARD_LIBRARY),
         "paged_attention": (paged_flash.LIBRARY, paged_flash.LIBRARY + flash_decode.TREE),
         "rms_norm": (rms_norm.LIBRARY,),
     }

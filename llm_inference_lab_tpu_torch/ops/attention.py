@@ -46,6 +46,16 @@ at every S, which takes S <= 32 on the card. ``tree_bits`` may carry the
 mask's kernel form (ops/flash_decode.py tree_bits), computed once a
 forward. A window that can bind and a ring are refused with the tree mask,
 as the JAX forward refuses them (attend_xla's tree branch has neither).
+
+Under the seq axis a contiguous cache whose T splits is held as slices
+(models/base.py KVCache.t0): ``attend_slices`` attends this rank's slice
+with the shard variant of kernel D (flash_decode_shard: every rank has the
+same query rows, any S), all-gathers each slice's (out, lse) over the seq
+group and merges them by log-sum-exp in f32 (merge_shards), which is the
+softmax over the whole cache; JAX's GSPMD gives its kernel the global
+cache. It takes the score scale only: the seq axis refuses Gemma-2's
+softcap, a window that can bind and the tree (the ring prefill refuses them
+first, as JAX's forward does).
 """
 
 from __future__ import annotations
@@ -55,7 +65,12 @@ from typing import Optional
 import torch
 
 from llm_inference_lab_tpu_torch.models.paged import gather_pages
-from llm_inference_lab_tpu_torch.ops.flash_decode import flash_decode, flash_decode_tree
+from llm_inference_lab_tpu_torch.ops.flash_decode import (
+    flash_decode,
+    flash_decode_shard,
+    flash_decode_tree,
+    merge_shards,
+)
 from llm_inference_lab_tpu_torch.ops.flash_prefill import flash_prefill
 from llm_inference_lab_tpu_torch.ops.paged_flash import paged_flash, paged_flash_tree
 
@@ -116,3 +131,25 @@ def paged_attend(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
         k_scale, v_scale = gather_pages(k_scale, table), gather_pages(v_scale, table)
     return flash_prefill(q, gather_pages(k_pool, table), gather_pages(v_pool, table), positions,
                          k_scale, v_scale, **options)
+
+
+def attend_slices(q: torch.Tensor, k_slice: torch.Tensor, v_slice: torch.Tensor,
+                  positions: torch.Tensor, t0: int, k_scale: Optional[torch.Tensor] = None,
+                  v_scale: Optional[torch.Tensor] = None, *, group, span: int,
+                  window: Optional[int] = None, scale: Optional[float] = None,
+                  softcap: Optional[float] = None, **tree) -> torch.Tensor:
+    """attend over a cache whose T is split over the seq group: this rank's
+    slice k_slice, v_slice [B, KVH, T / n, D] holds positions [t0, t0 + T / n)
+    (span: the whole cache's T). Each rank's (out, lse) of its slice,
+    gathered in rank order and merged: every rank gets the same rows."""
+    if tree or softcap is not None or (window is not None and span > window):
+        raise NotImplementedError("the tree mask, the softcap and a window that can bind are "
+                                  "not ported over a cache split on T (the seq axis)")
+    out, lse = flash_decode_shard(q, k_slice, v_slice, positions, t0, k_scale, v_scale,
+                                  scale=scale)
+    B, S, H, D = q.shape
+    # One hop: each rank's rows and their log-sum-exps in one f32 buffer.
+    both = group.stack(torch.cat([out.reshape(-1), lse.reshape(-1)]))
+    outs = both[:, :out.numel()].reshape(group.size, B, S, H, D)
+    lses = both[:, out.numel():].reshape(group.size, B, H, S)
+    return merge_shards(outs, lses)[0].to(q.dtype)

@@ -36,6 +36,14 @@ is that arithmetic written plainly, for the CPU tests. It rounds p to bf16
 before P.V, as Pallas does, so it is held to the plain version within a
 tolerance on the card (chip_smoke.check_attn), while a row's bits do not
 depend on S, T or the rows beside it.
+
+The shard variant (``flash_decode_shard``, csrc/flash_decode_shard.cu, and
+its int8 form) attends a rank's slice of a cache split on T over the seq
+axis: slot j holds position t0 + j, any S, and it returns the rows
+unrounded in f32 with their log-sum-exp [B, H, S], which ``merge_shards``
+combines over the slices in f32 (ops/attention.py attend_slices);
+``flash_decode_shard_plain`` is its plain version, and E's
+(ops/flash_prefill.py flash_prefill_shard) too.
 """
 
 from __future__ import annotations
@@ -537,3 +545,144 @@ def flash_decode_tree_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_decode_tree.launches = 0
 flash_decode_tree_int8.launches = 0
+
+
+# ------------------------------------------------------------ shard variant
+SHARD_LIBRARY = "flash_decode_shard"  # csrc/flash_decode_shard.cu
+
+
+def flash_decode_shard_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             positions: torch.Tensor, t0: int,
+                             k_scale: Optional[torch.Tensor] = None,
+                             v_scale: Optional[torch.Tensor] = None, *,
+                             scale: Optional[float] = None):
+    """The shard variant's function (kernels D and E over a plane that holds
+    positions [t0, t0 + T)): slot j of k, v [B, KVH, T, D] is position t0 + j
+    and a query at p sees the slots whose position is <= p. Returns out f32
+    [B, S, H, D], unrounded, the probabilities rounded to the cache's compute
+    dtype before P @ V as the kernels round them, and lse f32 [B, H, S], the
+    log-sum-exp of the row's scores; a row that sees no key gets zeros and
+    -inf. merge_shards of the slices of a cache gives attend's rows over the
+    whole cache."""
+    k, v = dequantize_cache(q, k, v, k_scale, v_scale)
+    B, S, H, D = q.shape
+    KVH, T = k.shape[1], k.shape[2]
+    group = H // KVH
+    qg = q.reshape(B, S, KVH, group, D).float()
+    scores = torch.einsum("bsngd,bntd->bngst", qg, k.float()) * (D ** -0.5 if scale is None
+                                                                  else scale)
+    kv_pos = t0 + torch.arange(T, device=q.device)
+    mask = kv_pos[None, None, None, None, :] <= positions[:, None, None, :, None]
+    scores = scores.masked_fill(~mask, float("-inf"))
+    lse = torch.logsumexp(scores, dim=-1)  # [B, KVH, group, S]; -inf: no key
+    live = torch.isfinite(lse)
+    probs = torch.exp(scores - torch.where(live, lse, torch.zeros_like(lse))[..., None])
+    out = torch.einsum("bngst,bntd->bsngd", probs.to(v.dtype).float(), v.float())
+    return out.reshape(B, S, H, D), lse.reshape(B, H, S)
+
+
+def merge_shards(outs: torch.Tensor, lses: torch.Tensor):
+    """The rows of n shards' (out [n, B, S, H, D], lse [n, B, H, S]) merged
+    in f32 by log-sum-exp, in ascending shard order: M = max lse_i, w_i =
+    exp(lse_i - M), out = sum w_i out_i / sum w_i, lse = M + log(sum w_i).
+    A shard whose row saw no key (lse -inf) contributes nothing; a row no
+    shard saw is zeros with lse -inf. Returns (out f32 [B, S, H, D],
+    lse [B, H, S])."""
+    M = lses.amax(0)
+    live = torch.isfinite(M)
+    w = torch.exp(lses - torch.where(live, M, torch.zeros_like(M)))  # 0 where lse_i = -inf
+    den = w.sum(0)
+    num = (w.transpose(2, 3)[..., None] * outs).sum(0)
+    safe = torch.where(live, den, torch.ones_like(den))
+    out = torch.where(live.transpose(1, 2)[..., None], num / safe.transpose(1, 2)[..., None],
+                      torch.zeros_like(num))
+    return out, torch.where(live, M + torch.log(safe), M)
+
+
+def shard_splits(T: int, t0: int) -> int:
+    """Kernel D's grid.z over a plane of T positions from t0: the SPLIT-key
+    ranges at fixed absolute positions that the plane meets."""
+    return (t0 + T - 1) // SPLIT - t0 // SPLIT + 1 if T else 1
+
+
+def launch_shard(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 positions: torch.Tensor, t0: int, k_scale: Optional[torch.Tensor],
+                 v_scale: Optional[torch.Tensor], scale: Optional[float]):
+    """Check the operands of D's ("flash_decode") or E's ("flash_prefill")
+    shard variant over planes k, v [B, KVH, T, D] of positions [t0, t0 + T)
+    and launch its bf16 entry, or D's int8 entry for an int8 k. Returns
+    (out f32 [B, S, H, D], lse f32 [B, H, S])."""
+    int8 = k.dtype == torch.int8
+    name = kernel + "_shard" + ("_int8" if int8 else "")
+    if int8 and kernel != "flash_decode":
+        raise TypeError(f"{name}: the ring's blocks are bf16 (E's shard variant reads no "
+                        "int8 cache)")
+    B, S, H, D = check_queries(name, q, positions, k, v,
+                               cache_dtype=torch.int8 if int8 else torch.bfloat16)
+    check_planes(name, q, k, v)
+    if t0 < 0:
+        raise ValueError(f"{name}: t0 must be >= 0, got {t0}")
+    KVH, T = k.shape[1], k.shape[2]
+    out = torch.empty((B, S, H, D), dtype=torch.float32, device=q.device)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    scale = D ** -0.5 if scale is None else scale
+    lib = build.library(kernel + "_shard")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    if kernel == "flash_prefill":
+        err = lib.flash_prefill_shard_bf16(*head, positions.data_ptr(), out.data_ptr(),
+                                           lse.data_ptr(), B, S, H, KVH, T, D, k.stride(0),
+                                           k.stride(1), scale, t0, stream)
+    else:
+        nz = shard_splits(T, t0)
+        ws = counters = None
+        if nz > 1:
+            nblk = B * KVH * -(-S * (H // KVH) // ROWS)
+            ws = torch.empty((nblk * nz * ROWS * (D + 2),), dtype=torch.float32, device=q.device)
+            counters = ticket_counters(q.device, nblk)
+        tail = (B, S, H, KVH, T, D, k.stride(0), k.stride(1))
+        if int8:
+            check_scales(name, k, k_scale, v_scale)
+            err = lib.flash_decode_shard_int8(
+                *head, k_scale.data_ptr(), v_scale.data_ptr(), positions.data_ptr(),
+                out.data_ptr(), lse.data_ptr(), *data_ptrs(ws, counters), *tail,
+                k_scale.stride(0), k_scale.stride(1), scale, t0, nz, stream)
+        else:
+            err = lib.flash_decode_shard_bf16(
+                *head, positions.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                *data_ptrs(ws, counters), *tail, scale, t0, nz, stream)
+    build.check(err, name)
+    return out, lse
+
+
+def flash_decode_shard(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       positions: torch.Tensor, t0: int, k_scale: Optional[torch.Tensor] = None,
+                       v_scale: Optional[torch.Tensor] = None, scale: Optional[float] = None):
+    """Kernel D's shard variant: q [B, S, H, D] (any S: the same rows on every
+    rank of the seq axis) over a rank's slice k, v [B, KVH, T, D] of the
+    cache, slot j holding position t0 + j. Returns (out f32 [B, S, H, D], lse
+    f32 [B, H, S]) for merge_shards. On a CPU tensor the plain version
+    (flash_decode_shard_plain); on a CUDA tensor csrc/flash_decode_shard.cu
+    or an error. An int8 cache goes to flash_decode_shard_int8."""
+    if k.dtype == torch.int8:
+        return flash_decode_shard_int8(q, k, v, positions, t0, k_scale, v_scale, scale)
+    if not q.is_cuda:
+        return flash_decode_shard_plain(q, k, v, positions, t0, scale=scale)
+    got = launch_shard("flash_decode", q, k, v, positions, t0, None, None, scale)
+    flash_decode_shard.launches += 1
+    return got
+
+
+def flash_decode_shard_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            positions: torch.Tensor, t0: int, k_scale: torch.Tensor,
+                            v_scale: torch.Tensor, scale: Optional[float] = None):
+    """flash_decode_shard over an int8 slice with f32 scales [B, KVH, T]."""
+    if not q.is_cuda:
+        return flash_decode_shard_plain(q, k, v, positions, t0, k_scale, v_scale, scale=scale)
+    got = launch_shard("flash_decode", q, k, v, positions, t0, k_scale, v_scale, scale)
+    flash_decode_shard_int8.launches += 1
+    return got
+
+
+flash_decode_shard.launches = 0
+flash_decode_shard_int8.launches = 0

@@ -22,6 +22,11 @@ and Engine.generate's prompt.
 
 Positions need not start at 0 (a chunk may resume at any base); a row at
 position -1 returns zeros, as attend_xla does.
+
+``flash_prefill_shard`` is E's shard variant, one hop of ring attention
+(parallel/context.py): the rank's query rows against the bf16 K/V block of
+positions [t0, t0 + T) it holds, (out f32, lse f32) as
+``flash_decode_shard`` returns them (csrc/flash_prefill_shard.cu).
 """
 
 from __future__ import annotations
@@ -30,9 +35,16 @@ from typing import Optional
 
 import torch
 
-from llm_inference_lab_tpu_torch.ops.flash_decode import Options, flash_decode_plain, launch_planes
+from llm_inference_lab_tpu_torch.ops.flash_decode import (
+    Options,
+    flash_decode_plain,
+    flash_decode_shard_plain,
+    launch_planes,
+    launch_shard,
+)
 
 LIBRARY = "flash_prefill"  # csrc/flash_prefill.cu
+SHARD_LIBRARY = "flash_prefill_shard"  # csrc/flash_prefill_shard.cu
 
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor,
                   k_scale: Optional[torch.Tensor] = None, v_scale: Optional[torch.Tensor] = None,
@@ -61,3 +73,18 @@ def flash_prefill_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positi
 
 flash_prefill.launches = 0
 flash_prefill_int8.launches = 0
+
+
+def flash_prefill_shard(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        positions: torch.Tensor, t0: int, scale: Optional[float] = None):
+    """Kernel E's shard variant: q [B, S, H, D] against a bf16 block k, v
+    [B, KVH, T, D] of positions [t0, t0 + T) (a ring hop). Returns (out f32
+    [B, S, H, D], lse f32 [B, H, S]); the plain version on a CPU tensor."""
+    if not q.is_cuda:
+        return flash_decode_shard_plain(q, k, v, positions, t0, scale=scale)
+    got = launch_shard("flash_prefill", q, k, v, positions, t0, None, None, scale)
+    flash_prefill_shard.launches += 1
+    return got
+
+
+flash_prefill_shard.launches = 0

@@ -27,6 +27,7 @@ from llm_inference_lab_tpu_torch.ops.quant_matmul import (
     quant_matmul,
     quant_matmul_f32,
     quant_matmul_int8,
+    quant_matmul_int8_f32,
     unpack_int4,
 )
 
@@ -255,17 +256,14 @@ def dense_f32(x: torch.Tensor, w: Any) -> torch.Tensor:
     """x [..., d_in] @ w with an f32 output (no bias): a row-parallel
     projection's partial sum, which the ranks add in f32 before the sum is
     rounded once (models/transformer.py). int4 through kernel A's f32
-    instantiation (quant_matmul_f32); int8 through kernel B, which has no
-    f32 instantiation: its partial is rounded to x's dtype first (at bf16,
-    2^-9 of each partial's magnitude); an unquantized weight with f32
-    products and sums (f32_logits' route)."""
+    instantiation (quant_matmul_f32), int8 through kernel B's
+    (quant_matmul_int8_f32): neither partial is rounded; an unquantized
+    weight with f32 products and sums (f32_logits' route)."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     if isinstance(w, QuantTensor):
-        if w.bits == 4:
-            y = quant_matmul_f32(x2, w.data, w.scale)
-        else:
-            y = quant_matmul_int8(x2, w.data, w.scale).float()
+        matmul = quant_matmul_f32 if w.bits == 4 else quant_matmul_int8_f32
+        y = matmul(x2, w.data, w.scale)
     else:
         y = f32_logits(x2, w.to(x.dtype).t())
     return y.reshape(*lead, y.shape[-1])

@@ -21,7 +21,11 @@ bodies round a row differently (chip_smoke.py's row_stability counts it).
 kernel A with an f32 output, both bodies instantiated with the output type
 (the scale applied to the f32 sum, nothing rounded): the EmbedQuant4 tied
 head (ops/quant.py), whose logits JAX rounds to bf16 through dense and the
-port keeps in f32. Its plain version is ``quant_matmul_plain`` with
+port keeps in f32, and an int4 row-parallel partial sum under the model
+axis (ops/quant.py dense_f32). ``quant_matmul_int8_f32`` (and
+``quant_matmul_int8_f32_mma``) is kernel B's: an int8 partial sum, which the
+ranks add in f32 before the sum is rounded once. Their plain versions are
+``quant_matmul_plain`` and ``quant_matmul_plain_int8`` with
 ``out_dtype=torch.float32``; each wrapper has its own launch count.
 """
 
@@ -60,11 +64,13 @@ def quant_matmul_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     return y.to(out_dtype or x.dtype)
 
 
-def quant_matmul_plain_int8(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+def quant_matmul_plain_int8(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                            out_dtype=None) -> torch.Tensor:
     """x [M, K]; w int8 [K, N]; scale f32 [N]. f32 accumulation, output in
-    x's dtype (quant_matmul_xla's contract)."""
+    x's dtype (quant_matmul_xla's contract), or in out_dtype (torch.float32:
+    the f32 instantiation's, the scaled sum unrounded)."""
     y = torch.matmul(x.float(), w.float()) * scale
-    return y.to(x.dtype)
+    return y.to(out_dtype or x.dtype)
 
 
 def decode_plan(K: int, N: int, bits: int = 4) -> int:
@@ -105,7 +111,7 @@ def _launch(name: str, x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
             bits: int, mma: bool = False, f32: bool = False) -> torch.Tensor:
     """Check the operands of kernel A (bits 4, w [K/2, N]) or B (bits 8,
     w [K, N]) and launch its decode body or (mma) its tensor-core path, with
-    a bf16 output or (f32, A only) an f32 one: bf16
+    a bf16 output or (f32) an f32 one: bf16
     x, int8 w, f32 scale [N], N a multiple of 64 (a tail of column tiles
     is masked in the kernel: the weights keep their shape and bytes), K of
     64, contiguous
@@ -217,9 +223,34 @@ def quant_matmul_int8_mma(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor)
     return out
 
 
+def quant_matmul_int8_f32(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Kernel B with an f32 output: x bf16 [M, K] @ w int8 [K, N], times
+    scale [N], the f32 sum scaled and not rounded (an int8 row-parallel
+    partial sum); M >= MMA_MIN_M goes to quant_matmul_int8_f32_mma."""
+    if not x.is_cuda:
+        return quant_matmul_plain_int8(x, w, scale, out_dtype=torch.float32)
+    if takes_mma(x.shape[0]):
+        return quant_matmul_int8_f32_mma(x, w, scale)
+    out = _launch(INT8_LIBRARY, x, w, scale, bits=8, f32=True)
+    quant_matmul_int8_f32.launches += 1
+    return out
+
+
+def quant_matmul_int8_f32_mma(x: torch.Tensor, w: torch.Tensor,
+                              scale: torch.Tensor) -> torch.Tensor:
+    """quant_matmul_int8_f32's tensor-core path (csrc/qmm_mma.cuh, f32 out)."""
+    if not x.is_cuda:
+        return quant_matmul_plain_int8(x, w, scale, out_dtype=torch.float32)
+    out = _launch(INT8_LIBRARY, x, w, scale, bits=8, mma=True, f32=True)
+    quant_matmul_int8_f32_mma.launches += 1
+    return out
+
+
 quant_matmul.launches = 0
 quant_matmul_mma.launches = 0
 quant_matmul_f32.launches = 0
 quant_matmul_f32_mma.launches = 0
 quant_matmul_int8.launches = 0
 quant_matmul_int8_mma.launches = 0
+quant_matmul_int8_f32.launches = 0
+quant_matmul_int8_f32_mma.launches = 0

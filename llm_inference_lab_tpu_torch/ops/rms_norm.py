@@ -18,6 +18,17 @@ one_offset: Gemma's weights stored as (w - 1), so the weight is 1 + w in f32
 first: the residual add of the layer loop and the norm that reads its result
 in one launch, with Gemma-2's sandwich post-norm of a in the same launch.
 Its outputs have the bits of ``rms_norm`` applied to torch's x + a'.
+
+GPT-2's and OPT's LayerNorm (JAX models/transformer.py:41 layer_norm) runs
+the same way through the same library:
+
+    layer_norm(x [.., N], w [N], b [N], eps) -> [.., N] in x's dtype
+    add_layer_norm(x, a, w, b, eps) -> (x + a, layer_norm(x + a, w, b))
+
+the mean and the biased variance in f32, each row summed in a fixed order,
+then (x - mean) * rsqrt(var + eps) * w + b rounded once; the add in x's
+dtype. Their plain versions (``layer_norm_plain``, ``add_layer_norm_plain``)
+are JAX's formula in f32 plain ops.
 """
 
 from __future__ import annotations
@@ -130,3 +141,79 @@ def add_rms_norm(x: torch.Tensor, a: torch.Tensor, w: torch.Tensor, eps: float,
 
 
 add_rms_norm.launches = 0
+
+
+def layer_norm_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                     eps: float) -> torch.Tensor:
+    """JAX's layer_norm in f32: the mean, the biased variance,
+    (x - mean) * rsqrt(var + eps) * scale + bias, rounded to x's dtype."""
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+def add_layer_norm_plain(x: torch.Tensor, a: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                         eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x + a in x's dtype, then layer_norm_plain of the sum."""
+    x = x + a
+    return x, layer_norm_plain(x, w, b, eps)
+
+
+def _layer_norm_weights(name: str, w: torch.Tensor, b: torch.Tensor, x: torch.Tensor) -> None:
+    _check_weight(name, w, x)
+    _check_weight(name, b, x)
+    if b.dtype != w.dtype:
+        raise TypeError(f"{name} kernel takes a weight and a bias of one dtype")
+    if x.shape[-1] > ADD_NORM_MAX_N:
+        raise ValueError(f"{name} kernel holds rows of at most {ADD_NORM_MAX_N}, "
+                         f"got {x.shape[-1]}")
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """LayerNorm over the last axis (one launch on the card, a row's bits
+    independent of the rows beside it)."""
+    if not x.is_cuda:
+        return layer_norm_plain(x, scale, bias, eps)
+    x = _rows("layer_norm", x)
+    _layer_norm_weights("layer_norm", scale, bias, x)
+    out = torch.empty_like(x)
+    N = x.shape[-1]
+    if x.numel() == 0:
+        return out
+    err = build.library(LIBRARY).layer_norm_bf16(
+        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), x.numel() // N, N,
+        float(eps), int(scale.dtype == torch.float32),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, "layer_norm")
+    layer_norm.launches += 1
+    return out
+
+
+def add_layer_norm(x: torch.Tensor, a: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                   eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(x + a, layer_norm(x + a, w, b)) in one launch; both outputs new
+    tensors of x's shape."""
+    if not x.is_cuda:
+        return add_layer_norm_plain(x, a, w, b, eps)
+    if a.shape != x.shape or a.device != x.device:
+        raise ValueError(f"add_layer_norm kernel needs a {tuple(x.shape)} on x's device, "
+                         f"got {tuple(a.shape)}")
+    x, a = _rows("add_layer_norm", x), _rows("add_layer_norm", a)
+    _layer_norm_weights("add_layer_norm", w, b, x)
+    res, out = torch.empty_like(x), torch.empty_like(x)
+    N = x.shape[-1]
+    if x.numel():
+        err = build.library(LIBRARY).add_layer_norm_bf16(
+            x.data_ptr(), a.data_ptr(), w.data_ptr(), b.data_ptr(), res.data_ptr(),
+            out.data_ptr(), x.numel() // N, N, float(eps), int(w.dtype == torch.float32),
+            torch.cuda.current_stream(x.device).cuda_stream)
+        build.check(err, "add_layer_norm")
+        add_layer_norm.launches += 1
+    return res, out
+
+
+layer_norm.launches = 0
+add_layer_norm.launches = 0

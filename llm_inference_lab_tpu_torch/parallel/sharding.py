@@ -21,11 +21,19 @@ leaves is not GSPMD's contiguous block:
   bo, b_proj, pos_embed, norms     whole on every rank (bo and b_proj are
                                    added once, after the sum)
 
+Under the stage axis every leaf of params["layers"] keeps layers
+[s L/S, (s+1) L/S) (a QuantTensor's bytes and scales sliced on L); under the
+expert axis a MoE layer's expert stacks (w_gate_up [L, E, D, 2F], w_down
+[L, E, F, D]) keep experts [e E/n, (e+1) E/n), dim 1, as JAX's _spec_for
+puts them on ``expert``; the router stays whole. The axes apply in that
+order, then the model axis's shards.
+
 ``PARAM_RULES`` and ``_spec_for`` are JAX's, with a spec as a tuple of axis
 names. ``shard_state`` gives this rank's rows and heads of a DecodeState as
-JAX's ``_cache_sharding`` lays them out: the batch on ``data``, KV heads on
-``model``, a dim that does not divide left whole; a paged pool keeps its
-page axis whole on every rank (the coordinator's page ids are global).
+JAX's ``_cache_sharding`` lays them out: the layers on ``stage``, the batch
+on ``data``, KV heads on ``model``, T on ``seq`` (the cache's t0 set), a
+dim that does not divide left whole; a paged pool keeps its page axis whole
+on every rank (the coordinator's page ids are global).
 """
 
 from __future__ import annotations
@@ -73,9 +81,8 @@ _LAST_KEY = re.compile(r"\['?([^'\[\]]+)'?\]$")
 
 def _spec_for(path: str, ndim: int, stage: bool = False, expert: bool = False) -> tuple:
     """JAX's _spec_for (sharding.py:53): `path` a keystr string such as
-    "['layers']['w_qkv']"; stage and expert pad the stacked-layer and
-    expert-stack axes as JAX's do (the port refuses both axes, the rule is
-    kept whole)."""
+    "['layers']['w_qkv']"; stage puts a ['layers'] leaf's stacked-layer axis
+    on "stage", expert a MoE expert stack's dim 1 on "expert"."""
     m = _LAST_KEY.search(path)
     spec = PARAM_RULES.get(m.group(1)) if m else None
     is_layer_leaf = "['layers']" in path
@@ -152,53 +159,111 @@ def _map_tree(params: Dict, fn, keys=()) -> Dict:
     return out
 
 
-def shard_config(cfg: ModelConfig, mesh) -> ModelConfig:
-    """The config of this rank's share of the model: its heads and MLP
-    width, the full model's head dim, and the mesh's TensorParallel; cfg
-    itself at model 1. Raises for what does not split on whole heads or
-    vocab rows, and NotImplementedError for a MoE model."""
-    n = mesh.shape["model"]
-    if n == 1:
+def _moe_leaf(path: str, ndim: int) -> bool:
+    """A MoE expert stack ([L, E, ...]): the leaves _spec_for puts on the
+    expert axis."""
+    return "expert" in _spec_for(path, ndim, expert=True)
+
+
+def _sizes(mesh, cfg: ModelConfig, axes) -> tuple:
+    """(model, stage, seq, expert) sizes of the axes that apply (those named
+    in `axes`, all by default; expert only for a MoE model)."""
+    def size(axis):
+        return mesh.shape.get(axis, 1) if axes is None or axis in axes else 1
+
+    return size("model"), size("stage"), size("seq"), size("expert") if cfg.moe else 1
+
+
+def shard_config(cfg: ModelConfig, mesh, microbatches: Optional[int] = None,
+                 axes=None) -> ModelConfig:
+    """The config of this rank's share of the model: under the model axis
+    its heads and MLP width, the full model's head dim and the model group
+    (tp); under the stage axis its layers (n_layers, layer0) and the stage
+    group (pp, with the forward's microbatches); under the seq axis the seq
+    group (sp); under the expert axis, for a MoE model, the expert group
+    (ep). cfg itself when no axis applies. Raises for what does not split:
+    heads, vocab rows or MLP width over the model axis, layers over the
+    stage axis (JAX's message), experts over the expert axis. axes: the axes
+    to apply (all by default; the engine's draft takes no stage axis)."""
+    n, stage, seq, expert = _sizes(mesh, cfg, axes)
+    if n == stage == seq == expert == 1:
         return cfg
-    if cfg.moe:
-        raise NotImplementedError("a MoE model under a mesh is not sharded (the expert axis "
-                                  "is not ported)")
-    for what, size in (("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
-                       ("d_ff", cfg.d_ff), ("vocab_size", cfg.vocab_size)):
-        if size % n:
-            raise ValueError(f"{what} = {size} does not split over the model axis of {n}")
     fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(ModelConfig)}
-    fields.update(n_heads=cfg.n_heads // n, n_kv_heads=cfg.n_kv_heads // n,
-                  d_ff=cfg.d_ff // n, head_dim_override=cfg.head_dim)
-    return RankConfig(tp=mesh.tp, **fields)
+    axes = {}
+    if n > 1:
+        for what, size in (("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
+                           ("d_ff", cfg.d_ff), ("vocab_size", cfg.vocab_size)):
+            if size % n:
+                raise ValueError(f"{what} = {size} does not split over the model axis of {n}")
+        fields.update(n_heads=cfg.n_heads // n, n_kv_heads=cfg.n_kv_heads // n,
+                      d_ff=cfg.d_ff // n, head_dim_override=cfg.head_dim)
+        axes["tp"] = mesh.tp
+    if stage > 1:
+        if cfg.n_layers % stage:
+            raise ValueError(f"n_layers={cfg.n_layers} not divisible by {stage} stages")
+        per = cfg.n_layers // stage
+        fields["n_layers"] = per
+        axes.update(pp=mesh.axis("stage"), layer0=mesh.coord("stage") * per,
+                    pp_microbatches=microbatches)
+    if seq > 1:
+        axes["sp"] = mesh.axis("seq")
+    if expert > 1:
+        if cfg.n_experts % expert:
+            raise ValueError(f"n_experts = {cfg.n_experts} does not split over the expert "
+                             f"axis of {expert}")
+        axes["ep"] = mesh.axis("expert")
+    return RankConfig(**fields, **axes)
 
 
-def shard_params(params: Dict, mesh, cfg: ModelConfig) -> Dict:
+def _stage_leaf(leaf: Any, s: int, n: int) -> Any:
+    """Layers [s L/n, (s+1) L/n) of a stacked leaf (a QuantTensor's bytes and
+    scales), a contiguous copy."""
+    if isinstance(leaf, QuantTensor):
+        return QuantTensor(_stage_leaf(leaf.data, s, n), _stage_leaf(leaf.scale, s, n), leaf.bits)
+    L = leaf.shape[0]
+    return leaf[s * L // n:(s + 1) * L // n].contiguous()
+
+
+def _expert_leaf(leaf: torch.Tensor, e: int, n: int) -> torch.Tensor:
+    E = leaf.shape[1]
+    return leaf[:, e * E // n:(e + 1) * E // n].contiguous()
+
+
+def shard_params(params: Dict, mesh, cfg: ModelConfig, axes=None) -> Dict:
     """This rank's tree of the full params (cfg: the full model's config,
-    which the fused leaves' head order needs). Sharded leaves are
-    contiguous copies; replicated leaves are the full tree's own tensors.
-    The full tree is left as it was."""
-    n = mesh.shape["model"]
-    if n == 1:
+    which the fused leaves' head order needs): its layers under the stage
+    axis, its experts under the expert axis, its model shards. Sharded
+    leaves are contiguous copies; replicated leaves are the full tree's own
+    tensors. The full tree is left as it was. axes: as shard_config's."""
+    n, stage, _, expert = _sizes(mesh, cfg, axes)
+    if n == stage == expert == 1:
         return params
-    shard_config(cfg, mesh)  # the checks
-    r = mesh.coords["model"]
-    return _map_tree(params, lambda path, name, leaf: _shard_leaf(path, name, leaf, cfg, r, n))
+    shard_config(cfg, mesh, axes=axes)  # the checks
+    r, st, ex = mesh.coord("model"), mesh.coord("stage"), mesh.coord("expert")
+
+    def one(path, name, leaf):
+        if stage > 1 and "['layers']" in path:
+            leaf = _stage_leaf(leaf, st, stage)
+        ndim = leaf.data.ndim if isinstance(leaf, QuantTensor) else getattr(leaf, "ndim", 0)
+        if expert > 1 and ndim and _moe_leaf(path, ndim):
+            leaf = _expert_leaf(leaf, ex, expert)
+        return _shard_leaf(path, name, leaf, cfg, r, n) if n > 1 else leaf
+
+    return _map_tree(params, one)
 
 
-def shard_model(model: Model, mesh) -> Model:
+def shard_model(model: Model, mesh, microbatches: Optional[int] = None, axes=None) -> Model:
     """This rank's share of a whole model: its config (shard_config) and
-    params (shard_params); the model itself at model 1."""
-    if mesh.shape["model"] == 1:
+    params (shard_params); the model itself when no axis applies."""
+    cfg = shard_config(model.config, mesh, microbatches, axes)
+    if cfg is model.config:
         return model
-    return Model(config=shard_config(model.config, mesh),
-                 params=shard_params(model.params, mesh, model.config),
+    return Model(config=cfg, params=shard_params(model.params, mesh, model.config, axes),
                  weights_source=model.weights_source)
 
 
-def unshard_params(parts: List[Dict], cfg: ModelConfig) -> Dict:
-    """The full tree from every rank's shard_params tree, in rank order
-    (shard_params' inverse: the same bytes)."""
+def _join_model(parts: List[Dict], cfg: ModelConfig) -> Dict:
+    """The tree of a model row from its ranks' trees, in model order."""
     n = len(parts)
 
     def join(path, name, leaves):
@@ -244,6 +309,52 @@ def unshard_params(parts: List[Dict], cfg: ModelConfig) -> Dict:
     return walk(parts)
 
 
+def unshard_params(parts: List[Dict], cfg: ModelConfig,
+                   shape: Optional[Dict[str, int]] = None) -> Dict:
+    """The full tree from every rank's shard_params tree, in rank order over
+    a mesh of `shape` (default: a model axis of every part), shard_params'
+    inverse: the same bytes. The axes are joined from the minor one out:
+    the model shards, then (seq and data replicate) the expert stacks on
+    dim 1, then the stages' layers on dim 0."""
+    from llm_inference_lab_tpu_torch.parallel.mesh import AXES
+
+    shape = shape or {"model": len(parts)}
+
+    def cat(trees, dim, which):
+        def join(path, name, leaves):
+            first = leaves[0]
+            ndim = first.data.ndim if isinstance(first, QuantTensor) else getattr(first, "ndim", 0)
+            if not (ndim and which(path, ndim)):
+                return first
+            if isinstance(first, QuantTensor):
+                return QuantTensor(torch.cat([p.data for p in leaves], dim=dim),
+                                   torch.cat([p.scale for p in leaves], dim=dim)
+                                   if dim == 0 else first.scale, first.bits)
+            return torch.cat(leaves, dim=dim)
+
+        return _zip_tree(trees, join)
+
+    joins = {"model": lambda trees: _join_model(trees, cfg),
+             "seq": lambda trees: trees[0], "data": lambda trees: trees[0],
+             "expert": lambda trees: cat(trees, 1, _moe_leaf) if cfg.moe else trees[0],
+             "stage": lambda trees: cat(trees, 0, lambda path, ndim: "['layers']" in path)}
+    items = list(parts)
+    for axis in reversed(AXES):
+        k = shape.get(axis, 1)
+        if k > 1:
+            items = [joins[axis](items[i * k:(i + 1) * k]) for i in range(len(items) // k)]
+    return items[0]
+
+
+def _zip_tree(trees: List[Dict], fn, keys=()) -> Dict:
+    out = {}
+    for k, v in trees[0].items():
+        sub = [t[k] for t in trees]
+        out[k] = (_zip_tree(sub, fn, keys + (k,)) if isinstance(v, dict)
+                  else fn(_keystr(keys + (k,)), k, sub))
+    return out
+
+
 def _part(t: Optional[torch.Tensor], dims: Dict[int, tuple]) -> Optional[torch.Tensor]:
     """t's block along each dim -> (index, count) that divides it (a dim that
     does not divide stays whole, as JAX's _cache_sharding leaves it)."""
@@ -259,14 +370,17 @@ def _part(t: Optional[torch.Tensor], dims: Dict[int, tuple]) -> Optional[torch.T
 
 def shard_state(state: DecodeState, mesh) -> DecodeState:
     """This rank's share of a whole DecodeState (JAX shard_state): every
-    per-row field's rows on the data axis; the contiguous caches' rows
-    [L, B, KVH, T, (D)] on data and their KV heads on model; a paged pool
-    [L, N, KVH, P, (D)] only its KV heads (the page axis whole on every
-    rank, as JAX's) and its table its rows (JAX replicates the table; a
-    rank's step reads its own rows only); rng and steps whole; row0 the
-    global number of the rank's first row."""
+    per-row field's rows on the data axis; the contiguous caches
+    [L, B, KVH, T, (D)] their layers on stage, rows on data, KV heads on
+    model and T on seq (the slice's t0 set); a paged pool [L, N, KVH, P,
+    (D)] only its KV heads (the page axis whole on every rank, as JAX's) and
+    its table its rows (JAX replicates the table; a rank's step reads its
+    own rows only); rng and steps whole; row0 the global number of the
+    rank's first row."""
     data = (mesh.coords["data"], mesh.shape["data"])
     model = (mesh.coords["model"], mesh.shape["model"])
+    stage = (mesh.coord("stage"), mesh.shape.get("stage", 1))
+    seq = (mesh.coord("seq"), mesh.shape.get("seq", 1))
 
     def cache(c):
         if c is None:
@@ -276,9 +390,11 @@ def shard_state(state: DecodeState, mesh) -> DecodeState:
             return PagedKVCache(k=_part(c.k, heads), v=_part(c.v, heads),
                                 table=_part(c.table, {0: data}), k_scale=_part(c.k_scale, heads),
                                 v_scale=_part(c.v_scale, heads))
-        dims = {1: data, 2: model}
+        dims = {0: stage, 1: data, 2: model, 3: seq}
+        T, n_seq = c.k.shape[3], seq[1]
+        t0 = seq[0] * (T // n_seq) if n_seq > 1 and T % n_seq == 0 else None
         return KVCache(_part(c.k, dims), _part(c.v, dims), _part(c.k_scale, dims),
-                       _part(c.v_scale, dims))
+                       _part(c.v_scale, dims), t0)
 
     fields = {name: (getattr(state, name) if name in ("rng", "steps")
                      else _part(getattr(state, name), {0: data})) for name in FIELDS}

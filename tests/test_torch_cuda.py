@@ -1767,3 +1767,190 @@ def test_tp_forward_of_two_ranks_on_the_card_equals_one_process(card):
         for a, b, w in zip(got[r]["int4"], got[0]["int4"], want, strict=True):
             assert np.array_equal(a, b), ("rank", r)
             assert np.isfinite(a).all() and np.abs(a - w).max() <= 1e-2 * np.abs(w).max()
+
+
+# Kernel B's f32-output instantiation (an int8 row-parallel partial sum under
+# the model axis): the int8 3B's wo and w_down at model = 2 (K = 1536 and
+# 4096, N = 3072) at decode, verify and ngram-verify rows, and M = 104 (the
+# tensor-core path).
+INT8_F32_SHAPES = [(1536, 3072), (4096, 3072)]
+INT8_F32_M = (1, 5, 13, 104)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N", INT8_F32_SHAPES)
+def test_qmm_int8_f32_matches_plain_and_is_the_bf16_kernel_unrounded(card, K, N):
+    """quant_matmul_int8_f32 (both bodies) within the f32 summation bound of
+    its plain version (K * 2^-24 * sum_k |x_k w_kn| * scale_n), one launch a
+    call on its own counts; the bf16 instantiation's output is exactly the
+    f32 one rounded to bf16 (the bf16 kernel keeps its bits)."""
+    from llm_inference_lab_tpu_torch.ops.quant_matmul import (
+        quant_matmul_int8_f32,
+        quant_matmul_int8_f32_mma,
+    )
+
+    x, w, scale = _qmm_inputs(card, 8, K, N, max(INT8_F32_M))
+    wint = w.float()
+    for M in INT8_F32_M:
+        before = (quant_matmul_int8_f32.launches, quant_matmul_int8_f32_mma.launches)
+        got = quant_matmul_int8_f32(x[:M], w, scale)
+        mma = M >= MMA_MIN_M
+        assert (quant_matmul_int8_f32.launches - before[0],
+                quant_matmul_int8_f32_mma.launches - before[1]) == ((0, 1) if mma else (1, 0))
+        assert got.dtype == torch.float32 and got.shape == (M, N)
+        ref = quant_matmul_plain_int8(x[:M], w, scale, out_dtype=torch.float32)
+        bound = K * 2.0 ** -24 * (x[:M].float().abs() @ wint.abs()) * scale + 1e-30
+        assert torch.all((got - ref).abs() <= bound), M
+        bf16 = (quant_matmul_int8_mma if mma else quant_matmul_int8)(x[:M], w, scale)
+        assert torch.equal(bf16, got.bfloat16()), M
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,w_dtype", [(768, torch.bfloat16), (1024, torch.float32)])
+def test_layer_norm_kernels_match_plain_and_rows_ignore_m(card, N, w_dtype):
+    """layer_norm within one bf16 step of each output of the plain formula
+    (the mean and variance summed in another order can move the last
+    rounding; plus 2^-16 where w x_hat and b nearly cancel), every row with
+    the same bits alone and among M = 2, 5, 40
+    and 256 rows; add_layer_norm's sum is torch's x + a bit for bit and its
+    norm is layer_norm of that sum bit for bit; one launch a call."""
+    from llm_inference_lab_tpu_torch.ops.rms_norm import (
+        add_layer_norm,
+        layer_norm,
+        layer_norm_plain,
+    )
+
+    g = torch.Generator(device=card).manual_seed(N)
+    x = (torch.randn((256, N), generator=g, device=card) * 3 + 0.5).bfloat16()
+    a = torch.randn((256, N), generator=g, device=card).bfloat16()
+    w = (torch.randn((N,), generator=g, device=card) * 0.1 + 1).to(w_dtype)
+    b = (torch.randn((N,), generator=g, device=card) * 0.1).to(w_dtype)
+    before = layer_norm.launches
+    got = layer_norm(x, w, b, 1e-5)
+    assert layer_norm.launches == before + 1
+    ref = layer_norm_plain(x, w, b, 1e-5).float()
+    step = 2.0 ** (torch.floor(torch.log2(ref.abs().clamp_min(1e-30))) - 7)
+    assert torch.all((got.float() - ref).abs() <= step + 2.0 ** -16)
+    alone = torch.cat([layer_norm(x[i:i + 1], w, b, 1e-5) for i in range(40)])
+    for M in (2, 5, 40, 256):
+        assert torch.equal(layer_norm(x[:M], w, b, 1e-5)[:40], alone[:min(M, 40)]), M
+    before = add_layer_norm.launches
+    s, n = add_layer_norm(x, a, w, b, 1e-5)
+    assert add_layer_norm.launches == before + 1
+    assert torch.equal(s, x + a) and torch.equal(n, layer_norm(x + a, w, b, 1e-5))
+    for M in (1, 5, 40):
+        s1, n1 = add_layer_norm(x[:M], a[:M], w, b, 1e-5)
+        assert torch.equal(n1, n[:M]), M
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,H,KVH", [(128, 24, 8), (64, 32, 8)])
+@pytest.mark.parametrize("cache", ["bf16", "int8"])
+def test_shard_variants_match_plain_and_merge_to_the_whole_cache(card, cache, D, H, KVH):
+    """D's shard variant over 2 and 4 slices of a cache of T = 4352 (the
+    slices' t0 not multiples of the 256-key split) at S = 1 and 5 and at a
+    128-row block, E's over bf16 blocks of 512 positions: out within the
+    attention tolerance and lse within 1e-4 of the plain versions (for int8
+    plus 2^-7 of |lse|: the plain version rounds each dequantized key), a slice
+    wholly after a row's position giving zeros and -inf; the slices merged
+    by merge_shards within the attention tolerance of flash_decode over the
+    whole cache."""
+    from llm_inference_lab_tpu_torch.ops.flash_decode import (
+        flash_decode_shard,
+        flash_decode_shard_plain,
+        merge_shards,
+    )
+    from llm_inference_lab_tpu_torch.ops.flash_prefill import flash_prefill_shard
+
+    g = torch.Generator(device=card).manual_seed(D + H)
+    B, T = 2, 4352
+    k = torch.randn((B, KVH, T, D), generator=g, device=card).bfloat16()
+    v = torch.randn((B, KVH, T, D), generator=g, device=card).bfloat16()
+    ks = vs = None
+    if cache == "int8":
+        k, ks = quantize_rows(k)
+        v, vs = quantize_rows(v)
+    for S in (1, 5, 128):
+        q = torch.randn((B, S, H, D), generator=g, device=card).bfloat16()
+        pos = (torch.tensor([[2000], [4100]], device=card) + torch.arange(S, device=card)).int()
+        whole = (flash_decode_int8(q, k, v, pos, ks, vs) if ks is not None
+                 else flash_decode(q, k, v, pos)).float()
+        for n in (2, 4):
+            per = T // n
+            outs, lses = [], []
+            for r in range(n):
+                sl = slice(r * per, (r + 1) * per)
+                kr, vr = k[:, :, sl].contiguous(), v[:, :, sl].contiguous()
+                sr = (ks[:, :, sl].contiguous(), vs[:, :, sl].contiguous()) if ks is not None \
+                    else (None, None)
+                o, l = flash_decode_shard(q, kr, vr, pos, r * per, *sr)
+                po, pl = flash_decode_shard_plain(q, kr, vr, pos, r * per, *sr)
+                assert o.dtype == torch.float32 and l.shape == (B, H, S)
+                live = torch.isfinite(pl)
+                assert torch.equal(live, torch.isfinite(l)), (S, n, r)
+                # The int8 plain version dequantizes each key to bf16 (2^-9 of
+                # it) where the kernel scales the f32 score: the scores, and so
+                # the lse, part by up to 2^-8 of their size.
+                lse_tol = 1e-4 + (2.0 ** -7 * pl.abs() if ks is not None else 0.0)
+                assert torch.all(((l - pl).abs() <= lse_tol)[live]), (S, n, r)
+                tol = 2.0 ** -7 * po.abs() + 2.0 ** -7
+                assert torch.all((o - po).abs() <= tol), (S, n, r)
+                assert torch.all(o[~live.transpose(1, 2)] == 0), (S, n, r)
+                outs.append(o)
+                lses.append(l)
+            merged, _ = merge_shards(torch.stack(outs), torch.stack(lses))
+            assert torch.all((merged - whole).abs() <= 2.0 ** -7 * whole.abs() + 2.0 ** -7)
+    if cache == "bf16":  # E's shard variant: the rows of block 1 against blocks 0 and 1
+        P = 512
+        q = torch.randn((B, P, H, D), generator=g, device=card).bfloat16()
+        pos = (P + torch.arange(P, device=card)).int()[None].expand(B, P).contiguous()
+        for src in (0, 1, 2):
+            kb = k[:, :, src * P:(src + 1) * P].contiguous()
+            vb = v[:, :, src * P:(src + 1) * P].contiguous()
+            o, l = flash_prefill_shard(q, kb, vb, pos, src * P)
+            po, pl = flash_decode_shard_plain(q, kb, vb, pos, src * P)
+            live = torch.isfinite(pl)
+            assert torch.equal(live, torch.isfinite(l)) and (src < 2) == bool(live.any()), src
+            assert torch.all((l - pl)[live].abs() <= 1e-4), src
+            assert torch.all((o - po).abs() <= 2.0 ** -7 * po.abs() + 2.0 ** -7), src
+
+
+@pytest.mark.cuda
+def test_seq_and_stage_forwards_of_ranks_on_the_card_equal_one_process(card):
+    """The seq=2 ring prefill (E's shard variant on the blocks, D's over the
+    T-split cache for the decode chunks) and the stage=2 pipeline of two
+    gloo ranks sharing cuda:0 against the single-process forward on the
+    card (int4 projections, the int8 embedding and tied head, bf16): a
+    96-token prefill and decode chunks of 1 and 3 tokens. Both ranks'
+    logits equal; the stage=2 logits equal one process's bit for bit (a
+    pipeline moves rows between processes and changes no sum); the seq=2
+    logits within 1e-2 of the largest |logit| (the ring and the slices
+    merge in f32 what one kernel sums in one order)."""
+    import os
+    import sys
+
+    from llm_inference_lab_tpu_torch.models.base import Model, ModelConfig
+    from llm_inference_lab_tpu_torch.models.transformer import init_params_quantized
+    from llm_inference_lab_tpu_torch.parallel.multihost import launch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_parallel_ranks as ranks
+
+    cfg = ModelConfig(name="axes-card", vocab_size=4096, n_layers=2, n_heads=8, n_kv_heads=4,
+                      d_model=512, d_ff=1024, dtype=torch.bfloat16)
+    g = torch.Generator(device=card).manual_seed(0)
+    params = init_params_quantized(cfg, g, card, mode="int4", quantize_embed=True)
+    tokens = np.random.default_rng(0).integers(0, 4096, (1, 96)).astype(np.int32)
+    with torch.inference_mode():
+        want = ranks._forward(Model(cfg, params), tokens, (1, 3), card)
+    host = ranks._to(params, "cpu")
+    for shape, cp in (({"seq": 2}, True), ({"stage": 2}, False)):
+        got = launch(ranks.mesh_forward, 2, args=({"int4": (cfg, host)}, tokens, (1, 3), shape,
+                                                  cp, None, "cuda"), timeout=300)
+        for r in range(2):
+            for a, b, w in zip(got[r]["int4"][0], got[0]["int4"][0], want, strict=True):
+                assert np.array_equal(a, b), (shape, "rank", r)
+                if cp:
+                    assert np.isfinite(a).all() and np.abs(a - w).max() <= 1e-2 * np.abs(w).max()
+                else:
+                    assert np.array_equal(a, w), shape

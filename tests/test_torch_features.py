@@ -173,30 +173,45 @@ def _refuse_ring_serving():
                                           prefill_chunk=32), device="cpu"), n_slots=1)
 
 
-def _mesh(data=1, model=1):
+def _mesh(data=1, model=1, **axes):
     """Rank 0's view of a mesh, without a process group: every refusal below
-    raises before a collective would run."""
-    from llm_inference_lab_tpu_torch.parallel.mesh import Mesh
+    raises before a collective would run. axes: seq, stage or expert."""
+    from llm_inference_lab_tpu_torch.parallel.mesh import AXES, Mesh
 
-    return Mesh({"data": data, "model": model}, 0, {"data": 0, "model": 0}, "gloo")
+    sizes = dict(axes, data=data, model=model)
+    shape = {a: sizes[a] for a in AXES if a in sizes}
+    return Mesh(shape, 0, {a: 0 for a in AXES}, "gloo")
 
 
 TINY = dict(base_model="llama-tiny", draft_model=None, max_seq_len=96, dtype="float32")
 
 
-def _mesh_engine(data=1, model=1, **kw):
-    return Engine(EngineConfig(**dict(TINY, **kw)), device="cpu", mesh=_mesh(data, model))
+def _mesh_engine(data=1, model=1, axes=None, **kw):
+    return Engine(EngineConfig(**dict(TINY, **kw)), device="cpu",
+                  mesh=_mesh(data, model, **(axes or {})))
 
 
-def _refuse_mesh_axis():
-    from llm_inference_lab_tpu_torch.parallel.mesh import make_mesh
-
-    make_mesh(model=2, seq=2)
-
-
-def _refuse_mesh_lora():
+def _refuse_mesh_lora(**axes):
     ad = lora.make_adapter(LLAMA_CONFIGS["llama-tiny"], "a", rank=2)
-    Engine(EngineConfig(**TINY), device="cpu", mesh=_mesh(model=2), lora_adapters=[ad])
+    Engine(EngineConfig(**TINY), device="cpu", mesh=_mesh(**axes), lora_adapters=[ad])
+
+
+def _refuse_slice_options():
+    from llm_inference_lab_tpu_torch.ops.attention import attend_slices
+
+    q = torch.zeros((1, 1, 2, 64))
+    kv = torch.zeros((1, 2, 16, 64))
+    attend_slices(q, kv, kv, torch.zeros((1, 1), dtype=torch.int32), 16, group=None, span=32,
+                  softcap=50.0)
+
+
+def _refuse_experts():
+    from dataclasses import replace
+
+    from llm_inference_lab_tpu_torch.models.mixtral import MIXTRAL_CONFIGS
+    from llm_inference_lab_tpu_torch.parallel.sharding import shard_config
+
+    shard_config(replace(MIXTRAL_CONFIGS["mixtral-tiny"], n_experts=3), _mesh(expert=2))
 
 
 def _refuse_mesh_heads():
@@ -207,10 +222,10 @@ def _refuse_mesh_heads():
     shard_config(replace(LLAMA_CONFIGS["llama-tiny"], n_kv_heads=3, n_heads=3), _mesh(model=2))
 
 
-def _refuse_multihost(**kw):
+def _refuse_multihost(axes=None, **kw):
     from llm_inference_lab_tpu_torch.core.multihost_batching import MultiHostBatcher
 
-    return MultiHostBatcher(_mesh_engine(data=2, **kw), n_slots=2)
+    return MultiHostBatcher(_mesh_engine(data=1 if axes else 2, axes=axes, **kw), n_slots=2)
 
 
 def _refuse_slots():
@@ -224,10 +239,18 @@ REFUSE = {"ring_serving_without_admit_chunk": _refuse_ring_serving,
           "tree_over_max_s": _refuse_big_tree, "embed_bits": _refuse_embed_bits,
           "lora_mlp_without_gated_mlp": _refuse_lora_mlp,
           "unknown_config_key": _refuse_config_key,
-          "mesh_seq_stage_expert_axes": _refuse_mesh_axis,
           "mesh_shape_differs": lambda: _mesh_engine(data=2, mesh_shape={"model": 2}),
-          "mesh_lora_under_model": _refuse_mesh_lora,
-          "mesh_moe": lambda: _mesh_engine(data=2, base_model="mixtral-tiny"),
+          "mesh_lora_under_model": lambda: _refuse_mesh_lora(model=2),
+          "mesh_lora_seq_expert": lambda: _refuse_mesh_lora(expert=2),
+          "mesh_profiler_seq_stage_expert": lambda: _mesh_engine(axes=dict(seq=2), profile=True),
+          "mesh_seq_paged": lambda: _mesh_engine(axes=dict(seq=2), kv_layout="paged",
+                                                 kv_page_size=32),
+          "mesh_seq_tree": lambda: _mesh_engine(axes=dict(seq=2), draft_mode="tree"),
+          "mesh_seq_slice_options": _refuse_slice_options,
+          "mesh_experts_do_not_split": _refuse_experts,
+          "mesh_batcher_seq_stage": lambda: ContinuousBatcher(
+              _mesh_engine(axes=dict(stage=2)), n_slots=2),
+          "multihost_seq_stage_expert": lambda: _refuse_multihost(axes=dict(expert=2)),
           "mesh_fake_under_model": lambda: Engine(
               EngineConfig(implementation="fake", base_model="fake", draft_model="fake"),
               device="cpu", mesh=_mesh(model=2)),

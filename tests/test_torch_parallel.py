@@ -340,16 +340,17 @@ def test_refusals_under_a_mesh():
               draft_model=None)
     got = launch(ranks.refusals, 4, args=(configs, kw, params_from_jax(jax_model(tkw, 1).params)),
                  threads=1, timeout=300)
-    want = {"seq": "NotImplementedError: the 'seq' mesh axis is not ported",
-            "stage": "NotImplementedError: the 'stage' mesh axis is not ported",
-            "expert": "NotImplementedError: the 'expert' mesh axis is not ported",
+    want = {"stage_seq": "ValueError: stage (pipeline) and seq (ring-attention) axes are mutually "
+                         "exclusive",
             "too_small": "ValueError: mesh 4x1x1x1x2 needs 8 devices, have 4",
             "lora": "NotImplementedError: LoRA under tensor parallelism",
             "mesh_differs": "ValueError: the mesh given ({'data': 2, 'model': 2}) differs from "
                             "cfg.mesh_shape ({'model': 4})",
             "profile": "NotImplementedError: the profiler under the model axis",
             "fake": "NotImplementedError: the fake model has no heads",
-            "moe": "NotImplementedError: a MoE model under a mesh",
+            "batcher_seq": "NotImplementedError: a ContinuousBatcher under the seq or stage axis",
+            "multihost_stage": "NotImplementedError: MultiHostBatcher under the seq, stage or "
+                               "expert axis",
             "batcher_data": "ValueError: a ContinuousBatcher on a mesh with a data axis",
             "slots_split": "ValueError: n_slots (3) must split over the data axis (2)",
             "batch_split": "ValueError: 3 rows do not split over the data axis of 2",

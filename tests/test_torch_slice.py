@@ -175,7 +175,9 @@ def test_port_imports_no_jax():
         "constrain/tools", "constrain/runtime", "core/scheduler", "metrics/__init__",
         "metrics/profiler", "bench/__init__", "bench/run_bench", "bench/k_sweep",
         "bench/stress", "bench/quality_eval", "cli", "features", "utils/sequence",
-        "utils/validation", "utils/determinism", "utils/tokenizer")}
+        "utils/validation", "utils/determinism", "utils/tokenizer", "parallel/mesh",
+        "parallel/sharding", "parallel/multihost", "parallel/context", "parallel/pipeline",
+        "core/multihost_batching")}
     for f in files:
         text = f.read_text()
         assert not _FORBIDDEN.search(text), f"{f} imports JAX or the JAX package"

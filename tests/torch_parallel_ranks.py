@@ -140,8 +140,7 @@ def refusals(configs: dict, cfg_kw: dict, target_params) -> dict:
     from llm_inference_lab_tpu_torch.parallel.mesh import auto_mesh
 
     out["auto_mesh"] = auto_mesh().shape
-    for axis in ("seq", "stage", "expert"):
-        caught(axis, lambda axis=axis: make_mesh(model=2, **{axis: 2}))
+    caught("stage_seq", lambda: make_mesh(stage=2, seq=2))
     caught("too_small", lambda: make_mesh(data=4, model=2))
     mesh = make_mesh(data=2, model=2)
     base = EngineConfig(**cfg_kw)
@@ -154,10 +153,13 @@ def refusals(configs: dict, cfg_kw: dict, target_params) -> dict:
                                           device="cpu", target_params=target_params, mesh=mesh))
     caught("fake", lambda: Engine(EngineConfig(implementation="fake", base_model="fake",
                                                draft_model="fake"), device="cpu", mesh=mesh))
-    caught("moe", lambda: Engine(EngineConfig(base_model="mixtral-tiny", draft_model=None,
-                                              dtype="float32"), device="cpu", mesh=mesh))
     from llm_inference_lab_tpu_torch.core.batching import ContinuousBatcher
 
+    seq_mesh, stage_mesh = make_mesh(seq=2, model=2), make_mesh(stage=2, model=2)
+    caught("batcher_seq", lambda: ContinuousBatcher(
+        Engine(base, device="cpu", target_params=target_params, mesh=seq_mesh), n_slots=2))
+    caught("multihost_stage", lambda: MultiHostBatcher(
+        Engine(base, device="cpu", target_params=target_params, mesh=stage_mesh), n_slots=2))
     eng = Engine(base, device="cpu", target_params=target_params, mesh=mesh)
     caught("batcher_data", lambda: ContinuousBatcher(eng, n_slots=4))
     caught("slots_split", lambda: MultiHostBatcher(eng, n_slots=3))
@@ -245,3 +247,119 @@ def fake_build(root: str, delay: float) -> list:
     time.sleep(delay)
     build.build_all(["alpha", "beta"])
     return sorted((p.name, p.read_bytes()) for p in build.BUILD_DIR.glob("*.so"))
+
+
+# ------------------------------------------------ the seq, stage and expert axes
+def ring_attention(cases: dict, n: int) -> dict:
+    """parallel/context.py ring_self_attention of each case's globally shaped
+    (q, k, v, lengths) numpy arrays over a seq axis of the whole world: case
+    -> the output on this rank (numpy)."""
+    from llm_inference_lab_tpu_torch.parallel.context import ring_self_attention
+
+    mesh = make_mesh(seq=n)
+    out = {}
+    for name, (q, k, v, lengths) in cases.items():
+        t = [torch.from_numpy(np.asarray(a)) for a in (q, k, v)]
+        lens = None if lengths is None else torch.from_numpy(np.asarray(lengths))
+        out[name] = ring_self_attention(*t, mesh, lengths=lens).numpy()
+    return out
+
+
+def mesh_forward(cases: dict, tokens: np.ndarray, steps, mesh_shape: dict, cp: bool = False,
+                 microbatches=None, device="cpu") -> dict:
+    """Each case's (config, whole params) forward on this rank's share of a
+    mesh of mesh_shape: a prefill of tokens [B, P] (with cp, the ring
+    prefill over the seq axis) and decode chunks of the given lengths, each
+    continuing the cache. case -> (logits of each chunk, this rank's cache
+    k and its t0) as numpy; under a data axis each rank runs its block of
+    the rows. device "cuda": the ranks share cuda:0."""
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    mesh = make_mesh(**mesh_shape)
+    out = {}
+    for name, (cfg, params) in cases.items():
+        model = shard_model(Model(cfg, _to(params, device)), mesh, microbatches)
+        mine = tokens[mesh.data_slice(tokens.shape[0])]  # the data axis: this rank's rows
+        B, P = mine.shape
+        total = P + sum(steps)
+        cache = model.init_cache(B, -(-total // 32) * 32, device)
+        got, pos = [], 0
+        chunks = [mine] + [(mine[:, :s] + 7 * (i + 1)) % 256 for i, s in enumerate(steps)]
+        with torch.inference_mode():
+            for i, chunk in enumerate(chunks):
+                S = chunk.shape[1]
+                positions = (pos + torch.arange(S, dtype=torch.int32, device=device))[None]
+                lens = torch.full((B,), pos, dtype=torch.int32, device=device)
+                logits, _ = model.forward(torch.from_numpy(chunk).int().to(device),
+                                          positions.expand(B, S).contiguous(), cache, lens,
+                                          cp=cp and i == 0)
+                got.append(logits.float().cpu().numpy())
+                pos += S
+        out[name] = (got, cache.k.float().cpu().numpy(), cache.t0)
+    return out
+
+
+def mesh_engine_ids(configs: dict, cfg_kws: list, target_params, draft_params, prompts,
+                    mesh_shape: dict) -> list:
+    """Engine.generate_batch of each EngineConfig's fields on a mesh of
+    mesh_shape (the engine's target and draft given whole): each engine's
+    ids of every prompt, on this rank."""
+    register(configs)
+    mesh = make_mesh(**mesh_shape)
+    out = []
+    for kw in cfg_kws:
+        eng = Engine(EngineConfig(**kw), device="cpu", target_params=target_params,
+                     draft_params=draft_params, mesh=mesh)
+        out.append([r["generated_ids"] for r in eng.generate_batch(prompts)])
+    return out
+
+
+def expert_moe(x, router, w_gate_up, w_down, top_k: int, mesh_shape: dict) -> np.ndarray:
+    """ops/moe.py moe_expert of rows x on this rank's experts and columns of
+    the whole stacks under a mesh of mesh_shape (expert, model)."""
+    from llm_inference_lab_tpu_torch.ops.moe import moe_expert
+    from llm_inference_lab_tpu_torch.parallel.sharding import shard_params
+
+    mesh = make_mesh(**mesh_shape)
+    E, D, F2 = w_gate_up.shape
+    cfg = ModelConfig(name="moe-test", n_layers=1, n_heads=2 * mesh.shape["model"],
+                      n_kv_heads=mesh.shape["model"], d_model=D, d_ff=F2 // 2, vocab_size=256,
+                      n_experts=E, experts_per_token=top_k, dtype=torch.float32)
+    full = {"layers": {"w_router": torch.from_numpy(np.asarray(router))[None],
+                       "w_gate_up": torch.from_numpy(np.asarray(w_gate_up))[None],
+                       "w_down": torch.from_numpy(np.asarray(w_down))[None]}}
+    mine = shard_params(full, mesh, cfg)["layers"]
+    y = moe_expert(torch.from_numpy(np.asarray(x)), mine["w_router"][0], mine["w_gate_up"][0],
+                   mine["w_down"][0], top_k=top_k, ep=mesh.axis("expert"), tp=mesh.tp)
+    return y.numpy()
+
+
+def mesh_forward_runs(cases: dict, tokens: np.ndarray, steps, runs) -> list:
+    """mesh_forward for each (mesh_shape, cp, microbatches) of runs, in one
+    world: a list of their results on this rank."""
+    return [mesh_forward(cases, tokens, steps, shape, cp, micro) for shape, cp, micro in runs]
+
+
+def engine_prompts(configs: dict, pairs, target_params, mesh_shape: dict) -> list:
+    """Engine.generate of each (EngineConfig fields, prompt) on a mesh of
+    mesh_shape (the target given whole): the ids of each, on this rank."""
+    register(configs)
+    mesh = make_mesh(**mesh_shape)
+    return [Engine(EngineConfig(**kw), device="cpu", target_params=target_params,
+                   mesh=mesh).generate(prompt)["generated_ids"] for kw, prompt in pairs]
+
+
+def batcher_ids(configs: dict, kw: dict, target_params, prompts, mesh_shape: dict,
+                n_slots: int = 2) -> list:
+    """A ContinuousBatcher over an Engine on a mesh of mesh_shape (every rank
+    submits the same requests and runs them): each request's ids, in
+    request order."""
+    from llm_inference_lab_tpu_torch.core.batching import ContinuousBatcher
+
+    register(configs)
+    mesh = make_mesh(**mesh_shape) if mesh_shape else None
+    b = ContinuousBatcher(Engine(EngineConfig(**kw), device="cpu", target_params=target_params,
+                                 mesh=mesh), n_slots=n_slots)
+    for prompt in prompts:
+        b.submit(prompt)
+    return [r["generated_ids"] for r in sorted(b.run(), key=lambda r: r["req_id"])]
