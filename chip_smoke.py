@@ -288,7 +288,7 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
     port and BenchmarkRunner(mode="http") against it (healthy, every
     request a success; the subprocess killed in a finally);
  26 (d), 27. (26 (d) and 27 (a), (a'), (b), (d) after phase 5; (c) after
-    phase 26) the int8 model axis and the seq, stage and expert axes, ranks
+    phase 26, its ranks in phase 26 (c)'s launch) the int8 model axis and the seq, stage and expert axes, ranks
     sharing cuda:0 over gloo: (26 d) phase 4's engine at model=2, its
     partial sums through kernel B's f32 instantiation, ids held to phase
     4's; (27 a) phase 3's engine at seq=2 on a 4064-token prompt (ring
@@ -299,7 +299,20 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
     exactly; (c) stage=2 x model=2 on 4 ranks, generate_batch of phase 3b's
     16 prompts held to phase 3b's; (d) Mixtral-8x7B cut to 4 layers at
     expert=2, ids held to one process's, each rank's peak memory; each
-    rank's ms a step and the collectives' share;
+    rank's ms a step and the collectives' share (26 (a), (c), (d), 27 (a')
+    and (c) at fewer new tokens than the main path's);
+ 28. (after phase 24; (f)'s ranks in phase 27 (c)'s launch) every engine
+    feature under the model, data and expert axes, ranks sharing cuda:0
+    over gloo: B, D and E at Qwen2.5-1.5B's model=4 shapes against their
+    plain versions; (a) phase 23's adapters at model=2, ids held to phase
+    23's engine's, each Δlogit above the floor; (b) profile_phases at
+    model=2 (eager chains), JAX's keys, finite; (c) the fake model at
+    model=2, one process's ids; (d) gpt2 at model=2, its vocabulary padded,
+    ids held to phase 20's B=1; (e) phase 14's prefix traffic through
+    MultiHostBatcher at data=2 with prefix caching, ids and reuse equal to
+    phase 14's, a cancel on both ranks; (f) the Qwen2.5-1.5B pair at
+    model=4 (its 2 KV heads replicated, the draft whole), ids held to one
+    process's, each rank's peak memory;
  9. the kernels' JSON line (every kernel, launches by path; the Gemma-2
     variants of D, E and F, the ring variants of D and E, the ngram
     verify shapes of B, D and C, D's and F's tree variants and A at the 8B
@@ -586,6 +599,10 @@ INT4 = {"rms_norm", "add_rms_norm", "quant_matmul_int4", "quant_matmul_int4_mma"
 TP_PATH = "generate int4 model=2 (2 ranks sharing the card over gloo)"
 DP_PATH = "serving int4 MultiHostBatcher data=2 (16 requests, 2 ranks)"
 TPDP_PATH = "serving int4 MultiHostBatcher data=2 x model=2 (16 requests, 4 ranks)"
+# Phase 26 (a)'s new tokens, and (c)'s budgets (phase 3b's capped at this):
+# their eager steps take ~0.25 and ~0.46 s, cut from the main path's to
+# leave room for phase 28 in the script's time limit.
+TP_NEW, TPDP_NEW = 16, 4
 PARALLEL_PATHS = [TP_PATH, DP_PATH, TPDP_PATH]
 # Phases 26 (d) and 27: the int8 model axis and the seq, stage and expert
 # axes, ranks sharing the card over gloo.
@@ -594,12 +611,27 @@ SEQ_PATH = "generate int4 seq=2, a 4064-token prompt (2 ranks sharing the card o
 SEQ8_PATH = "generate int8 seq=2, int8 KV (2 ranks sharing the card over gloo)"
 STAGE_PATH = "generate int4 stage=2 (2 ranks sharing the card over gloo)"
 STAGE_TP_PATH = "generate_batch int4 stage=2 x model=2 (16 prompts, 4 ranks)"
+# Phase 27 (c)'s new tokens a prompt (its eager steps take ~0.8 s; cut from
+# the main path's 64 to leave room for phase 28 in the script's time limit).
+STAGE_TP_NEW = 4
 # Phase 27 (d): Mixtral-8x7B at full width cut to EXPERT_LAYERS layers: each
 # rank builds the whole cut model on the card (11.8 GB in bf16) before it
 # keeps its half of the experts, and two ranks share the card.
 EXPERT_LAYERS = 4
 EXPERT_CUT = f"mixtral-8x7b-{EXPERT_LAYERS}-layers"
 EXPERT_PATH = f"generate mixtral-8x7b {EXPERT_LAYERS} layers bf16 ngram K=4 expert=2 (2 ranks)"
+# Phase 28: every engine feature under the model, data and expert axes,
+# ranks sharing the card over gloo (named apart from the paths the filters
+# below pick by substring).
+ADAPTERS_TP_PATH = "generate int4 base and 3 adapters model=2 (2 ranks)"
+PROFILE_TP_PATH = "profile_phases int4 model=2 (2 ranks)"
+FAKE_TP_PATH = "generate fake model model=2 (2 ranks)"
+GPT2_TP_PATH = "generate gpt2 model=2 vocab padded bf16 baseline (2 ranks)"
+PREFIX_DP_PATH = ("serving int4 MultiHostBatcher data=2 system-prompt prefix cache and a cancel "
+                  "(16 requests, 2 ranks)")
+QWEN_TP_PATH = "generate Qwen2.5-1.5B int8 + 0.5B draft K=4 model=4 (4 ranks)"
+MESH_FEATURE_PATHS = [ADAPTERS_TP_PATH, PROFILE_TP_PATH, FAKE_TP_PATH, GPT2_TP_PATH,
+                      PREFIX_DP_PATH, QWEN_TP_PATH]
 INT8 = {"rms_norm", "add_rms_norm", "quant_matmul_int8", "quant_matmul_int8_mma"}
 HEAD4 = {"quant_matmul_int4_f32", "quant_matmul_int4_f32_mma"}  # the EmbedQuant4 head
 LN = {"layer_norm", "add_layer_norm"}  # GPT-2's and OPT's norms
@@ -721,6 +753,20 @@ PATH_KERNELS = {
     "bench perplexity 3B bf16, int8, int4 (4 x 512 ids)": {
         "rms_norm", "add_rms_norm", "flash_prefill", "quant_matmul_int8_mma",
         "quant_matmul_int4_mma"},
+    # Phase 28: the adapters' row sites add to the f32 partials (A's f32
+    # instantiation, both bodies); profile_phases' chains decode only (no
+    # prefill: neither body's tensor-core path, nor E); the fake model's
+    # step runs C alone; gpt2's projections are bf16 torch products, its padded
+    # vocabulary cut after the gather; the data axis captures phase 14's
+    # prefix traffic; the Qwen2.5-1.5B target's partial sums through B's
+    # f32 instantiation, its 0.5B draft whole on each rank.
+    ADAPTERS_TP_PATH: INT4 | SPEC | HEAD4,
+    PROFILE_TP_PATH: {"rms_norm", "add_rms_norm", "quant_matmul_int4", "quant_matmul_int4_f32",
+                      "flash_decode", "verify_prefix"},
+    FAKE_TP_PATH: {"verify_prefix"},
+    GPT2_TP_PATH: LN | {"flash_decode", "flash_prefill"},
+    PREFIX_DP_PATH: INT4 | SERVE,
+    QWEN_TP_PATH: INT8 | SPEC | {"quant_matmul_int8_f32", "quant_matmul_int8_f32_mma"},
 }
 GEMMA_PATHS = [path for path in PATH_KERNELS if "gemma-2" in path]
 MISTRAL_PATHS = [path for path in PATH_KERNELS if "mistral" in path]
@@ -773,6 +819,9 @@ END_TO_END_IDS = {}
 UNSTABLE = {}
 # Each serving path's requests that part from B=1 generate at a near tie.
 PARTINGS = {}
+# Phase 14 (b)'s prefix-cached results, which phase 28 (e) holds its
+# MultiHostBatcher's to.
+PREFIX_SERVED = []
 # The count of those on phase 20's serving paths with LayerNorm as plain
 # ops (PERF.md §6).
 PLAIN_LN_PARTINGS = {"gpt2": 2, "opt-125m": 4}
@@ -3629,6 +3678,7 @@ def phase_admission(dev, eng, paths):
         log(f"admission (b), prefix caching {'on' if on else 'off'} ({PREFIX_TOKENS}-token "
             f"system prompt, lanes of {PREFIX_MAX_LEN}): " + serve_stats(b, peak) + hits)
     (_, off), (b, on) = runs[False], runs[True]
+    PREFIX_SERVED.extend(on)  # phase 28 (e)'s reference
     reused = [r["prompt_tokens_reused"] for r in on]
     assert all(n > 0 for n in reused[1:]) and reused[0] == 0, reused
     assert all(r["prompt_tokens_reused"] == 0 for r in off)
@@ -6372,13 +6422,35 @@ def rank_counts(path, run, last_stage=True):
     assert launched == PATH_KERNELS[path], (path, "launched", launched, "expected",
                                             PATH_KERNELS[path])
     unfused = 0 if last_stage else forward_pp.calls
-    assert (launches["rms_norm"] == forwards
-            and launches["add_rms_norm"] == 2 * layers - unfused), (
+    norm = "layer_norm" if "layer_norm" in PATH_KERNELS[path] else "rms_norm"
+    assert (launches[norm] == forwards
+            and launches["add_" + norm] == 2 * layers - unfused), (
         path, launches, forwards, layers, unfused)
     return out, dict(launches=launches, forwards=forwards, replays=replayed.get("replays", 0),
                      wall_s=wall, coll_calls=COLLECTIVES["calls"],
                      coll_s=COLLECTIVES["seconds"], control_calls=CONTROL["calls"],
                      control_s=CONTROL["seconds"])
+
+
+def rank_generate_serve():
+    """Phase 26 (a) and (b), one rank of two (one start of two processes):
+    rank_generate on a model=2 mesh, then rank_serve at data=2."""
+    out = dict(generate=rank_generate())
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["serve"] = rank_serve(1)
+    return out
+
+
+def rank_serve_stage():
+    """Phase 26 (c), 27 (c) and 28 (f), one rank of four (one start of four
+    processes): rank_serve at data=2 x model=2, then rank_stage_model
+    (which runs rank_qwen_tp)."""
+    out = dict(serve=rank_serve(2))
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["stage"] = rank_stage_model()
+    return out
 
 
 def rank_generate():
@@ -6395,7 +6467,7 @@ def rank_generate():
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     mesh = make_mesh(data=1, model=2)
-    cfg = EngineConfig(**dict(INT4_CFG, shard_draft=True))
+    cfg = EngineConfig(**dict(INT4_CFG, shard_draft=True, max_new_tokens=TP_NEW))
     t0 = time.perf_counter()
     eng = Engine(cfg, device=dev, mesh=mesh)
     init_s = time.perf_counter() - t0
@@ -6433,7 +6505,8 @@ def rank_generate():
 def rank_serve(model):
     """Phase 26 (b) and (c), one rank: phase 3b's 16 requests through a
     MultiHostBatcher of 8 slots (8 / data a rank) on phase 3's weights,
-    paged (page 64, lanes of 1024), over data = ranks / model x model."""
+    paged (page 64, lanes of 1024), over data = ranks / model x model;
+    under model=2 each budget capped at TPDP_NEW."""
     from llm_inference_lab_tpu_torch.config import EngineConfig
     from llm_inference_lab_tpu_torch.core.engine import Engine
     from llm_inference_lab_tpu_torch.core.multihost_batching import MultiHostBatcher
@@ -6449,7 +6522,7 @@ def rank_serve(model):
     b = MultiHostBatcher(eng, n_slots=SERVE_SLOTS)
     if b.is_coordinator:
         for prompt, budget in zip(SERVE_PROMPTS, SERVE_BUDGETS):
-            b.submit(prompt, max_new_tokens=budget)
+            b.submit(prompt, max_new_tokens=budget if model == 1 else min(budget, TPDP_NEW))
     results, counts = rank_counts(path, b.run)
     for r in results:
         lp = torch.tensor(r["token_logprobs"])
@@ -6486,13 +6559,17 @@ def phase_parallel(dev, eng):
     right at the sharded shapes, that the ranks stay in step and that the
     ids hold to the single-process path; it does not measure
     tensor-parallel speed. The parent built every kernel before it spawns.
-    (a) model=2: phase 3's engine generates phase 3's prompt at B=1; both
-    ranks' ids equal; held to all of phase 3's ids (held_to, the partial
+    (a) and (b) run in one launch of two ranks, (c), phase 27 (c) and
+    phase 28 (f) in one of four (rank_generate_serve, rank_serve_stage).
+    (a) model=2: phase 3's engine generates phase 3's prompt at B=1 (TP_NEW
+    new tokens); both ranks' ids equal; held to phase 3's first ids
+    (held_to, the partial
     sums one of the ops that may round differently); a prefill's and a
     decode chunk's logits against the whole model's. (b) data=2 and (c)
     data=2 x model=2: phase 3b's 16 requests through an 8-slot
     MultiHostBatcher, every rank's ids equal, each request held to phase
-    3b's (the partial sums excused only in (c): (b) has none)."""
+    3b's over the tokens it has ((c)'s budgets capped at TPDP_NEW; the
+    partial sums excused only in (c): (b) has none)."""
     from llm_inference_lab_tpu_torch.parallel.multihost import launch
 
     sharded_shapes(dev)
@@ -6502,9 +6579,10 @@ def phase_parallel(dev, eng):
 
     out = {}
     t0 = time.perf_counter()
-    got = launch(rank_generate, 2, timeout=600)
-    log(f"phase 26 (a) model=2 on 2 ranks: {time.perf_counter() - t0:.1f} s with the ranks' "
-        f"start; engine init {[round(g['init_s'], 1) for g in got]} s")
+    pair = launch(rank_generate_serve, 2, timeout=900)
+    log(f"phase 26 (a), (b) on 2 ranks: {time.perf_counter() - t0:.1f} s with the ranks' start")
+    got = [g["generate"] for g in pair]
+    log(f"phase 26 (a) model=2: engine init {[round(g['init_s'], 1) for g in got]} s")
     ids = got[0]["ids"]
     assert all(g["ids"] == ids for g in got), "the ranks' ids differ"
     for what, (err, top) in got[0]["err"].items():
@@ -6512,24 +6590,26 @@ def phase_parallel(dev, eng):
             f"(largest |logit| {top:.4g})")
         assert err <= TP_LOGIT_RTOL * top, (what, err, top)
     parted = held_to(eng, dev, ops(2), "phase 3's generate", 0, PROMPT,
-                     END_TO_END_IDS[PATH_GENERATE_INT4], ids)
+                     END_TO_END_IDS[PATH_GENERATE_INT4][:len(ids)], ids)
     ids_digest(TP_PATH, [ids])
     log(f"phase 26 (a): ids == phase 3's: {not parted} ({parted} partings at near ties); "
         f"{got[0]['steps']} steps, {got[0]['tok_s']:.2f} tok/s")
     rank_report("phase 26 (a)", got)
     out[TP_PATH] = summed(got)
-    for model, ranks, path, what in ((1, 2, DP_PATH, "(b) data=2"),
-                                     (2, 4, TPDP_PATH, "(c) data=2 x model=2")):
-        t0 = time.perf_counter()
-        got = launch(rank_serve, ranks, args=(model,), timeout=600)
-        log(f"phase 26 {what} on {ranks} ranks: {time.perf_counter() - t0:.1f} s with the "
-            f"ranks' start")
+    t0 = time.perf_counter()
+    four = launch(rank_serve_stage, 4, timeout=900)
+    log(f"phase 26 (c), 27 (c) and 28 (f) on 4 ranks: {time.perf_counter() - t0:.1f} s with the "
+        f"ranks' start")
+    STAGE_TP_RUN.extend(g["stage"] for g in four)
+    for model, got, path, what in ((1, [g["serve"] for g in pair], DP_PATH, "(b) data=2"),
+                                   (2, [g["serve"] for g in four], TPDP_PATH,
+                                    "(c) data=2 x model=2")):
         ids = got[0]["ids"]
         assert len(ids) == len(SERVE_PROMPTS)
         assert all(g["ids"] == ids for g in got), (what, "the ranks' ids differ")
         ref = SERVED_IDS[PATH_SERVE_INT4]
-        parted = sum(held_to(eng, dev, ops(model), "phase 3b's batcher", rid, prompt, ref[rid],
-                             got_ids)
+        parted = sum(held_to(eng, dev, ops(model), "phase 3b's batcher", rid, prompt,
+                             ref[rid][:len(got_ids)], got_ids)
                      for rid, (prompt, got_ids) in enumerate(zip(SERVE_PROMPTS, ids)))
         ids_digest(path, ids)
         st = got[0]["stats"]
@@ -6853,6 +6933,11 @@ def phase_axes_kernels(dev):
 
 # ------------------------------ phases 26 (d) and 27: the new mesh axes
 AXES_PATHS = [TP8_PATH, SEQ_PATH, SEQ8_PATH, STAGE_PATH, EXPERT_PATH]
+# Phases 26 (d) and 27 (a')'s new tokens (int8 model=2 and seq=2; their
+# eager steps take ~0.3 s): cut from the main path's 64 to leave room for
+# phase 28 in the script's time limit. Each run's ids are held to phase 4's
+# first tokens.
+INT8_AXES_NEW = 16
 TP8_SUMS = "tensor-parallel partial sums (kernel B's f32 partials added over the model axis)"
 RING_SUMS = ("ring attention and the T-split cache (slices' f32 rows merged by log-sum-exp "
              "where one kernel sums once)")
@@ -6923,7 +7008,7 @@ def rank_axes():
                          tok_s=r["tokens_per_sec"], init_s=init_s, coords=mesh.coords)
         return eng
 
-    generate("tp8", TP8_PATH, INT8_CFG, dict(model=2))
+    generate("tp8", TP8_PATH, dict(INT8_CFG, max_new_tokens=INT8_AXES_NEW), dict(model=2))
     torch.cuda.empty_cache()
     eng = generate("seq", SEQ_PATH, dict(INT4_CFG, max_seq_len=SEQ_MAX_LEN), dict(seq=2),
                    SEQ_PROMPT)
@@ -6934,7 +7019,7 @@ def rank_axes():
     out["seq"]["t0"] = c.t0
     del eng, state, c
     torch.cuda.empty_cache()
-    generate("seq8", SEQ8_PATH, INT8_CFG, dict(seq=2))
+    generate("seq8", SEQ8_PATH, dict(INT8_CFG, max_new_tokens=INT8_AXES_NEW), dict(seq=2))
     torch.cuda.empty_cache()
     last = torch.distributed.get_rank() == 1  # stage 1 of 2
     generate("stage", STAGE_PATH, INT4_CFG, dict(stage=2), last_stage=last)
@@ -6953,7 +7038,8 @@ def rank_axes():
 def rank_stage_model():
     """Phase 27 (c), one rank of four: phase 3's engine (the draft sharded on
     the model axis too) at stage=2 x model=2, two microbatches, through
-    generate_batch of phase 3b's 16 prompts (64 new tokens each)."""
+    generate_batch of phase 3b's 16 prompts (STAGE_TP_NEW new tokens each);
+    then, in the same world, phase 28 (f) (rank_qwen_tp)."""
     from llm_inference_lab_tpu_torch.config import EngineConfig
     from llm_inference_lab_tpu_torch.core.engine import Engine
     from llm_inference_lab_tpu_torch.parallel.mesh import make_mesh
@@ -6961,7 +7047,8 @@ def rank_stage_model():
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     mesh = make_mesh(stage=2, model=2)
-    eng = Engine(EngineConfig(**dict(INT4_CFG, shard_draft=True, pp_microbatches=2)),
+    eng = Engine(EngineConfig(**dict(INT4_CFG, shard_draft=True, pp_microbatches=2,
+                                     max_new_tokens=STAGE_TP_NEW)),
                  device=dev, mesh=mesh)
     last = mesh.coords["stage"] == 1
     rs, counts = rank_counts(STAGE_TP_PATH, lambda: eng.generate_batch(SERVE_PROMPTS),
@@ -6969,23 +7056,26 @@ def rank_stage_model():
     for r in rs:
         lp = torch.tensor(r["token_logprobs"])
         assert torch.isfinite(lp).all() and r["generated_tokens"] >= 1, "bad result"
+    del eng
+    torch.cuda.empty_cache()
     return dict(ids=[r["generated_ids"] for r in rs], counts=counts, steps=rs[0]["steps"],
-                coords=mesh.coords)
+                coords=mesh.coords, qwen=rank_qwen_tp())
 
 
 def phase_axes(dev, eng):
     """Phases 26 (d) and 27 (a), (a'), (b), (d), after phase 5 (eng: phase
     4's int8 engine). Two processes share cuda:0 over gloo, so this shows
     correctness and the host cost of each axis's collectives, not parallel
-    speed. (26 d) int8 model=2: ids held to phase 4's (the partial sums now
-    f32: B's f32 instantiation); (27 a) seq=2 on SEQ_PROMPT: ids held to one
-    process's (seq_reference, built here on phase 3's weights), the prefill
-    logits within TP_LOGIT_RTOL of the largest |logit|, each rank's cache
-    slice against one process's rows (layer 0 bit for bit, later layers
-    logged); (27 a') int8 seq=2: ids held to phase 4's; (27 b) stage=2: ids
-    equal to phase 3's exactly; (27 d) the cut Mixtral at expert=2: ids held
-    to one process's on the same cut (built here), each rank's peak
-    memory. Returns each path's launches (the ranks' added)."""
+    speed. (26 d) int8 model=2: ids held to phase 4's first INT8_AXES_NEW
+    (the partial sums now f32: B's f32 instantiation); (27 a) seq=2 on
+    SEQ_PROMPT: ids held to one process's (seq_reference, built here on
+    phase 3's weights), the prefill logits within TP_LOGIT_RTOL of the
+    largest |logit|, each rank's cache slice against one process's rows
+    (layer 0 bit for bit, later layers logged); (27 a') int8 seq=2: ids
+    held to phase 4's first INT8_AXES_NEW; (27 b) stage=2: ids equal to
+    phase 3's exactly; (27 d) the cut Mixtral at expert=2: ids held to one
+    process's on the same cut (built here), each rank's peak memory.
+    Returns each path's launches (the ranks' added)."""
     from llm_inference_lab_tpu_torch.config import EngineConfig
     from llm_inference_lab_tpu_torch.core.engine import Engine
     from llm_inference_lab_tpu_torch.models import mixtral
@@ -7007,7 +7097,8 @@ def phase_axes(dev, eng):
             assert all(g[name]["ids"] == got[0][name]["ids"] for g in got), (name, "ranks differ")
         int8_ids = END_TO_END_IDS[PATH_GENERATE_INT8]
         ops8 = lambda: [TP8_SUMS] + UNSTABLE[PATH_SERVE_INT8]  # noqa: E731
-        parted = held_to(eng, dev, ops8, "phase 4's generate", 0, PROMPT, int8_ids,
+        parted = held_to(eng, dev, ops8, "phase 4's generate", 0, PROMPT,
+                         int8_ids[:len(got[0]["tp8"]["ids"])],
                          got[0]["tp8"]["ids"])
         ids_digest(TP8_PATH, [got[0]["tp8"]["ids"]])
         log(f"phase 26 (d) int8 model=2: ids == phase 4's: {not parted} ({parted} partings at "
@@ -7041,7 +7132,8 @@ def phase_axes(dev, eng):
             f"near ties); {got[0]['seq']['steps']} steps")
         rank_report("phase 27 (a)", [g["seq"] for g in got])
         parted = held_to(eng, dev, lambda: [RING_SUMS] + UNSTABLE[PATH_SERVE_INT8],
-                         "phase 4's generate", 0, PROMPT, int8_ids, got[0]["seq8"]["ids"])
+                         "phase 4's generate", 0, PROMPT,
+                         int8_ids[:len(got[0]["seq8"]["ids"])], got[0]["seq8"]["ids"])
         ids_digest(SEQ8_PATH, [got[0]["seq8"]["ids"]])
         log(f"phase 27 (a') int8 seq=2: ids == phase 4's: {not parted} ({parted} partings at "
             f"near ties)")
@@ -7072,25 +7164,346 @@ def phase_stage_model(dev, eng):
     """Phase 27 (c), after phase 26 (eng: phase 3's engine): stage=2 x
     model=2 on 4 ranks sharing the card over gloo, generate_batch of phase
     3b's 16 prompts; every rank's ids equal, each request held to phase
-    3b's (its budget's first tokens) under the near-tie rule."""
-    from llm_inference_lab_tpu_torch.parallel.multihost import launch
-
-    t0 = time.perf_counter()
-    got = launch(rank_stage_model, 4, timeout=600)
-    log(f"phase 27 (c) stage=2 x model=2 on 4 ranks: {time.perf_counter() - t0:.1f} s with the "
-        f"ranks' start")
+    3b's over the tokens both have (a budget of 16 to 64 there,
+    STAGE_TP_NEW here) under the near-tie rule. Its ranks ran in phase 26
+    (c)'s launch (STAGE_TP_RUN), and phase 28 (f)'s after them, whose
+    results QWEN_TP_RUN keeps for phase 28's checks."""
+    got = STAGE_TP_RUN
     ids = got[0]["ids"]
     assert all(g["ids"] == ids for g in got), "the ranks' ids differ"
     ref = SERVED_IDS[PATH_SERVE_INT4]
     ops = lambda: [TP_SUMS] + UNSTABLE[PATH_SERVE_INT4]  # noqa: E731
-    parted = sum(held_to(eng, dev, ops, "phase 3b's batcher", rid, prompt, want,
-                         got_ids[:len(want)])
+    parted = sum(held_to(eng, dev, ops, "phase 3b's batcher", rid, prompt,
+                         want[:len(got_ids)], got_ids[:len(want)])
                  for rid, (prompt, want, got_ids) in enumerate(zip(SERVE_PROMPTS, ref, ids)))
     ids_digest(STAGE_TP_PATH, ids)
     log(f"phase 27 (c) stage=2 x model=2: ids == phase 3b's for {len(ids) - parted} of "
         f"{len(ids)} requests (the rest near ties)")
     rank_report("phase 27 (c)", got)
+    QWEN_TP_RUN.extend(g["qwen"] for g in got)
     return {STAGE_TP_PATH: summed(got)}
+
+
+
+# ------------------- phase 28: every engine feature under the model, data and expert axes
+# (a) phase 23's adapters at model=2 run this many new tokens (each against
+# the same call of phase 23's engine in one process).
+MESH_NEW = 4
+CANCEL_RID = 3  # (e): a request with a 64-token budget, in flight after the first chunk
+# The Qwen2.5-1.5B pair at configs/qwen25_pair.yaml's settings (int8, the
+# int8 embedding and tied heads, K=4; 8 new tokens, as the ranks' eager
+# steps take half a second): 2 KV heads over model=4 (each
+# replicated over two ranks, 3 of its 12 query heads a rank); the 0.5B
+# draft's 2 KV heads do not split: whole on every rank (JAX's rule).
+QWEN15_CFG = dict(QWEN_CFG, base_model="qwen2.5-1.5b", max_new_tokens=8)
+GPT2_TP_CFG = dict(BASELINE_CFGS["gpt2"], max_new_tokens=32)  # (d), eager steps
+QWEN15_SHAPES = {"w_qkv": (1536, 640), "wo": (384, 1536), "w_gate_up": (1536, 4480),
+                 "w_down": (2240, 1536)}  # a model=4 rank's (K, N)
+QWEN15_HEADS = (3, 1, 128)  # a rank's query heads, KV heads, head dim
+# Phase 28 (f)'s ranks' results: its ranks run in phase 27 (c)'s launch of
+# four (one start of four processes less), its checks in phase 28.
+QWEN_TP_RUN = []
+# Phase 27 (c)'s ranks' results: they run in phase 26 (c)'s launch of four,
+# the checks in phase 27 (c).
+STAGE_TP_RUN = []
+
+
+def padded_shapes(dev):
+    """Kernels B (bf16 and f32 outputs, both bodies), D and E at the shapes a
+    model=4 rank of Qwen2.5-1.5B gives them (its replicated KV head and a
+    GQA group of 3), each against its plain version: B within phase 4's
+    tolerance (the f32 outputs within the f32 summation bound) at M = 1, 5
+    (the K=4 verify) and 160 (the prefill), D at S = 1 and 5, E at 160
+    prefill rows. These launches are checks, outside every count."""
+    from llm_inference_lab_tpu_torch.ops.flash_decode import flash_decode
+    from llm_inference_lab_tpu_torch.ops.flash_prefill import flash_prefill
+    from llm_inference_lab_tpu_torch.ops.quant_matmul import (
+        quant_matmul_int8,
+        quant_matmul_int8_f32,
+        quant_matmul_int8_f32_mma,
+        quant_matmul_int8_mma,
+        quant_matmul_plain_int8,
+        takes_mma,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(28)
+    errs = {}
+    for name, (K, N) in QWEN15_SHAPES.items():
+        w = torch.randint(-127, 128, (K, N), generator=g, device=dev, dtype=torch.int8)
+        scale = torch.rand((N,), generator=g, device=dev) * (0.02 / 127) + 1e-5
+        for M in (1, 5, 160):
+            x = torch.randn((M, K), generator=g, device=dev).bfloat16()
+            ref = quant_matmul_plain_int8(x, w, scale, out_dtype=torch.float32)
+            if name in ("wo", "w_down"):  # the row-parallel partial sums: f32 out
+                got = (quant_matmul_int8_f32_mma if takes_mma(M) else quant_matmul_int8_f32)(
+                    x, w, scale)
+                e = (got - ref).abs()
+                assert got.dtype == torch.float32 and bool(
+                    (e <= f32_sum_bound(x, w.float(), scale)).all()), ("B f32", name, M)
+                errs[("B f32", name, M)] = e.max().item()
+            else:
+                got = (quant_matmul_int8_mma if takes_mma(M) else quant_matmul_int8)(x, w, scale)
+                errs[("B", name, M)] = qmm_within(8, got, ref)
+    H, KVH, D = QWEN15_HEADS
+    for S in (1, 5):
+        q, k, v, pos = flash_inputs(g, dev, 1, S, H, KVH, T_MAIN, D, P_MAIN)
+        errs[("D", S)] = check_attn(flash_decode(q, k[0], v[0], pos), q, k[0], v[0], pos,
+                                    what=("group-3 flash_decode", S))
+    q, k, v, pos = flash_inputs(g, dev, 1, 160, H, KVH, T_MAIN, D, 159)
+    errs[("E", 160)] = check_attn(flash_prefill(q, k[0], v[0], pos), q, k[0], v[0], pos,
+                                  what="group-3 flash_prefill")
+    log("phase 28 kernels at Qwen2.5-1.5B's model=4 shapes (B and its f32 instantiation, D and "
+        "E at a GQA group of 3 over a replicated KV head, against their plain versions): "
+        "max_abs_err " + ", ".join(f"{'/'.join(map(str, key))} {err:.3g}"
+                                   for key, err in errs.items()))
+
+
+def rank_mesh_features():
+    """Phase 28, one rank of two sharing cuda:0 over gloo, a mesh a part:
+    (a) phase 3's engine (the draft sharded too) at model=2 with phase
+    23's adapters (the pack built for the whole 3B, each rank its share),
+    generate of PROMPT under the base and each adapter (MESH_NEW tokens),
+    each adapter's first-step max |delta logit| against the base's; (b)
+    profile_phases of phase 3's engine at model=2; (c) the fake engine at
+    model=2; (d) gpt2 (phase 20's config) at model=2, its vocabulary of
+    50,257 padded to 50,258; (e) phase 14 (b)'s prefix traffic through a
+    MultiHostBatcher at data=2 with prefix caching (the first request
+    admitted alone, its pages shared over the data axis), request CANCEL_RID
+    cancelled after the first chunk."""
+    from llm_inference_lab_tpu_torch.config import EngineConfig
+    from llm_inference_lab_tpu_torch.core.engine import Engine
+    from llm_inference_lab_tpu_torch.core.multihost_batching import MultiHostBatcher
+    from llm_inference_lab_tpu_torch.models.llama import LLAMA_CONFIGS
+    from llm_inference_lab_tpu_torch.parallel.mesh import make_mesh
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    out = {}
+    mesh = make_mesh(model=2)
+    # (a) LoRA.
+    ads = lora_adapters(LLAMA_CONFIGS[INT4_CFG["base_model"]])
+    names = [None] + [a.name for a in ads]
+    eng = Engine(EngineConfig(**dict(INT4_CFG, shard_draft=True, max_new_tokens=MESH_NEW)),
+                 device=dev, mesh=mesh, lora_adapters=ads)
+    eng.generate(PROMPT, max_new_tokens=4)  # warm-up: every kernel's first launch
+    runs, counts = rank_counts(ADAPTERS_TP_PATH,
+                               lambda: {n: eng.generate(PROMPT, adapter=n) for n in names})
+    with torch.inference_mode():
+        prompt_ids = eng.tokenizer.encode(PROMPT)
+        base = last_logits(eng, dev, prompt_ids)
+        bites = {a.name: (last_logits(eng, dev, prompt_ids, a.name) - base).abs().max().item()
+                 for a in ads}
+    out["adapters"] = dict(ids={n: r["generated_ids"] for n, r in runs.items()}, bites=bites,
+                           counts=counts, steps=sum(r["steps"] for r in runs.values()),
+                           coords=mesh.coords)
+    del eng
+    torch.cuda.empty_cache()
+    # (b) the profiler.
+    eng = Engine(EngineConfig(**dict(INT4_CFG, shard_draft=True, profile=True)), device=dev,
+                 mesh=mesh)
+    ph, counts = rank_counts(PROFILE_TP_PATH, eng.profile_phases)
+    out["profile"] = dict(phases=ph, counts=counts, steps=1, coords=mesh.coords)
+    del eng
+    torch.cuda.empty_cache()
+    # (c) the fake model: whole on every rank, its loops captured.
+    eng = Engine(EngineConfig(implementation="fake", base_model="fake", draft_model="fake",
+                              max_draft=2, max_new_tokens=32), device=dev, mesh=mesh)
+    eng.generate(PROMPT)
+    r, counts = rank_counts(FAKE_TP_PATH, lambda: eng.generate(PROMPT))
+    out["fake"] = dict(ids=r["generated_ids"], eager=eng.eager_loops, counts=counts,
+                       steps=r["steps"], coords=mesh.coords)
+    del eng
+    # (d) gpt2, the vocabulary padded.
+    eng = Engine(EngineConfig(**GPT2_TP_CFG), device=dev, mesh=mesh)
+    eng.generate(PROMPT, max_new_tokens=4)
+    r, counts = rank_counts(GPT2_TP_PATH, lambda: eng.generate(PROMPT))
+    lp = torch.tensor(r["token_logprobs"])
+    assert torch.isfinite(lp).all() and len(lp) == r["generated_tokens"], "gpt2 logprobs"
+    out["gpt2"] = dict(ids=r["generated_ids"], counts=counts, steps=r["steps"],
+                       vocab_rows=eng.target.params["embed"].shape[0], coords=mesh.coords)
+    del eng
+    torch.cuda.empty_cache()
+    # (e) prefix caching and a cancel through MultiHostBatcher at data=2.
+    dmesh = make_mesh(data=2)
+    eng = Engine(EngineConfig(**dict(INT4_CFG, kv_layout="paged", kv_page_size=SERVE_PAGE,
+                                     max_seq_len=PREFIX_MAX_LEN, prefix_caching=True)),
+                 device=dev, mesh=dmesh)
+    b = MultiHostBatcher(eng, n_slots=SERVE_SLOTS)
+    prompts = [SYSTEM_PREFIX + p for p in SERVE_PROMPTS]
+    said = []
+
+    def serve():
+        if b.is_coordinator:
+            b.submit(prompts[0], max_new_tokens=SERVE_BUDGETS[0])
+        with torch.inference_mode():
+            b._sync_poll()  # the first request alone: its pages cached, then shared
+        if b.is_coordinator:
+            for prompt, budget in zip(prompts[1:], SERVE_BUDGETS[1:]):
+                b.submit(prompt, max_new_tokens=budget)
+        with torch.inference_mode():
+            b._sync_poll()
+            b.step_chunk(b.poll_every)
+            b._retire_finished()
+        if b.is_coordinator:
+            said.append(b.cancel(CANCEL_RID))
+        return b.run()
+
+    results, counts = rank_counts(PREFIX_DP_PATH, serve)
+    for r in results:
+        lp = torch.tensor(r["token_logprobs"])
+        assert torch.isfinite(lp).all(), ("bad result", r["req_id"])
+    results = sorted(results, key=lambda r: r["req_id"])
+    out["prefix"] = dict(ids=[r["generated_ids"] for r in results],
+                         reused=[r["prompt_tokens_reused"] for r in results],
+                         reasons=[r["finish_reason"] for r in results], said=said,
+                         counts=counts, stats=b.stats.report(SERVE_SLOTS), coords=dmesh.coords)
+    del b, eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def rank_qwen_tp():
+    """Phase 28 (f), one rank of four sharing cuda:0 over gloo (called by
+    rank_stage_model, in phase 27 (c)'s world): the
+    Qwen2.5-1.5B pair at model=4 (the target's 2 KV heads replicated, the
+    draft whole); a warm-up and a counted generate of PROMPT; the rank's
+    peak device memory from the engine's build on."""
+    from llm_inference_lab_tpu_torch.config import EngineConfig
+    from llm_inference_lab_tpu_torch.core.engine import Engine
+    from llm_inference_lab_tpu_torch.parallel.mesh import make_mesh
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    mesh = make_mesh(model=4)
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(EngineConfig(**dict(QWEN15_CFG, shard_draft=True)), device=dev, mesh=mesh)
+    t = eng.target.config
+    eng.generate(PROMPT, max_new_tokens=4)
+    r, counts = rank_counts(QWEN_TP_PATH, lambda: eng.generate(PROMPT))
+    lp = torch.tensor(r["token_logprobs"])
+    assert torch.isfinite(lp).all() and len(lp) == r["generated_tokens"], "qwen logprobs"
+    return dict(ids=r["generated_ids"], counts=counts, steps=r["steps"], coords=mesh.coords,
+                heads=(t.n_heads, t.n_kv_heads), draft_tp=eng.draft.config.tp is not None,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                held_gb=torch.cuda.memory_allocated() / 1e9)
+
+
+def phase_mesh_features(dev, eng):
+    """Phase 28, after phase 24 (eng: phase 3's engine): the
+    features the mesh refused until this slice, on ranks sharing cuda:0
+    over gloo (correctness and host cost, not parallel speed). Two ranks:
+    (a) the adapters at model=2, each adapter's ids held to phase 23's
+    engine's (the same call, MESH_NEW tokens) under the near-tie rule and
+    its Δlogit above LORA_BITE; (b) profile_phases at model=2: JAX's keys,
+    finite, the parts summing to the step; (c) the fake model at model=2:
+    one process's ids, loops captured; (d) gpt2 at model=2 (vocabulary
+    padded): phase 20's B=1 ids under the near-tie rule; (e) phase 14 (b)'s
+    prefix traffic at data=2: ids and prompt tokens reused equal to phase
+    14's (the cancelled request's a prefix of its), the cancel seen on both
+    ranks. Four ranks: (f) the Qwen2.5-1.5B pair at model=4: ids equal to
+    the pair's in one process under the near-tie rule, each rank's peak
+    memory (its ranks ran in phase 27 (c)'s launch: QWEN_TP_RUN). Returns
+    each path's launches (the ranks' added)."""
+    from llm_inference_lab_tpu_torch.config import EngineConfig
+    from llm_inference_lab_tpu_torch.core.engine import Engine
+    from llm_inference_lab_tpu_torch.parallel.multihost import launch
+
+    padded_shapes(dev)
+    t0 = time.perf_counter()
+    got = launch(rank_mesh_features, 2, timeout=900)
+    log(f"phase 28 (a)-(e) on 2 ranks: {time.perf_counter() - t0:.1f} s with the ranks' start")
+    for name in ("adapters", "fake", "gpt2", "prefix"):
+        assert all(g[name]["ids"] == got[0][name]["ids"] for g in got), (name, "ranks differ")
+    ops = lambda: [TP_SUMS] + UNSTABLE[PATH_SERVE_INT4]  # noqa: E731
+    # (a)
+    ads = lora_adapters(eng.target.config)
+    le = Engine(replace(eng.config, max_new_tokens=MESH_NEW), device=dev,
+                target_params=eng.target.params, draft_params=eng.draft.params,
+                lora_adapters=ads)
+    parted = 0
+    for name, ids in got[0]["adapters"]["ids"].items():
+        ref = le.generate(PROMPT, adapter=name)["generated_ids"]
+        parted += held_to(eng, dev, ops, f"phase 23's engine under {name}", 0, PROMPT, ref, ids,
+                          tie_eng=le, adapter=name)
+    for g in got:
+        assert all(v > LORA_BITE for v in g["adapters"]["bites"].values()), g["adapters"]["bites"]
+    ids_digest(ADAPTERS_TP_PATH, list(got[0]["adapters"]["ids"].values()))
+    log(f"phase 28 (a) model=2, base and {len(ads)} adapters: ids == phase 23's engine's for "
+        f"{len(ads) + 1 - parted} of {len(ads) + 1} (the rest near ties); first-step max "
+        f"|delta logit| by rank {[g['adapters']['bites'] for g in got]} (floor {LORA_BITE})")
+    rank_report("phase 28 (a)", [g["adapters"] for g in got])
+    del le
+    torch.cuda.empty_cache()
+    # (b)
+    keys = {"k", "batch", "draft_forwards", "draft_ms", "draft_ms_per_forward", "verify_ms",
+            "commit_sample_ms", "step_ms"}  # JAX Engine.profile_phases'
+    for g in got:
+        ph = g["profile"]["phases"]
+        assert set(ph) == keys and all(math.isfinite(v) for v in ph.values()), ph
+        assert ph["k"] == 1 and ph["draft_forwards"] == 1 and ph["step_ms"] > 0, ph
+        assert abs(ph["draft_ms"] + ph["verify_ms"] + ph["commit_sample_ms"]
+                   - ph["step_ms"]) < 1e-3, ph
+    log(f"phase 28 (b) profile_phases at model=2 (eager chains) by rank: "
+        f"{[g['profile']['phases'] for g in got]}")
+    # (c)
+    fake = Engine(EngineConfig(implementation="fake", base_model="fake", draft_model="fake",
+                               max_draft=2, max_new_tokens=32), device=dev)
+    want = fake.generate(PROMPT)["generated_ids"]
+    assert got[0]["fake"]["ids"] == want and not any(g["fake"]["eager"] for g in got)
+    log(f"phase 28 (c) the fake model at model=2: one process's ids, its loops captured")
+    # (d)
+    g2 = Engine(EngineConfig(**GPT2_TP_CFG), device=dev)
+    ref = g2.generate(PROMPT)["generated_ids"]
+    parted = held_to(g2, dev, lambda: [TP_SUMS], "phase 20's B=1 generate", 0, PROMPT, ref,
+                     got[0]["gpt2"]["ids"])
+    assert all(g["gpt2"]["vocab_rows"] == 25129 for g in got), "gpt2's padded vocab rows"
+    ids_digest(GPT2_TP_PATH, [got[0]["gpt2"]["ids"]])
+    log(f"phase 28 (d) gpt2 at model=2, 25,129 vocab rows a rank (50,257 padded to 50,258): "
+        f"ids == phase 20's B=1: {not parted} ({parted} partings at near ties)")
+    rank_report("phase 28 (d)", [g["gpt2"] for g in got])
+    del g2, fake
+    # (e)
+    mine = got[0]["prefix"]
+    assert all(g["prefix"]["reasons"] == mine["reasons"] for g in got), "ranks' reasons differ"
+    assert mine["said"] == [True] and mine["reasons"][CANCEL_RID] == "cancelled", mine["reasons"]
+    assert mine["reused"] == [r["prompt_tokens_reused"] for r in PREFIX_SERVED], mine["reused"]
+    assert mine["reused"][0] == 0 and all(n > 0 for n in mine["reused"][1:]), mine["reused"]
+    parted = 0
+    for rid, (r, ids) in enumerate(zip(PREFIX_SERVED, mine["ids"], strict=True)):
+        ref = r["generated_ids"][:len(ids)] if rid == CANCEL_RID else r["generated_ids"]
+        parted += held_to(eng, dev, lambda: UNSTABLE[PATH_SERVE_INT4], "phase 14 (b)'s batcher",
+                          rid, SYSTEM_PREFIX + SERVE_PROMPTS[rid], ref, ids)
+    cut = len(mine["ids"][CANCEL_RID])
+    assert 0 < cut < len(PREFIX_SERVED[CANCEL_RID]["generated_ids"]), cut
+    ids_digest(PREFIX_DP_PATH, mine["ids"])
+    st = mine["stats"]
+    log(f"phase 28 (e) data=2 prefix caching: prompt tokens reused {mine['reused']} == phase "
+        f"14's; ids == phase 14's for {len(mine['ids']) - parted} of {len(mine['ids'])} "
+        f"(request {CANCEL_RID} cancelled on both ranks after {cut} tokens); coordinator "
+        f"{st['committed_tokens']} tokens in {st['wall_s']:.3f} s = {st['tok_s']:.2f} tok/s")
+    rank_report("phase 28 (e)", [g["prefix"] for g in got])
+    out = {path: summed([g[name] for g in got])
+           for name, path in (("adapters", ADAPTERS_TP_PATH), ("profile", PROFILE_TP_PATH),
+                              ("fake", FAKE_TP_PATH), ("gpt2", GPT2_TP_PATH),
+                              ("prefix", PREFIX_DP_PATH))}
+    # (f)
+    qe = Engine(EngineConfig(**QWEN15_CFG), device=dev)
+    qref = qe.generate(PROMPT)["generated_ids"]
+    got = QWEN_TP_RUN
+    assert len(got) == 4 and all(g["ids"] == got[0]["ids"] for g in got), "the ranks' ids differ"
+    assert all(g["heads"] == QWEN15_HEADS[:2] and not g["draft_tp"] for g in got), got[0]["heads"]
+    parted = held_to(qe, dev, lambda: [TP8_SUMS], "one process's generate", 0, PROMPT, qref,
+                     got[0]["ids"])
+    ids_digest(QWEN_TP_PATH, [got[0]["ids"]])
+    log(f"phase 28 (f) Qwen2.5-1.5B model=4: ids == one process's: {not parted} ({parted} "
+        f"partings at near ties); peak device memory by rank "
+        f"{[round(g['peak_gb'], 2) for g in got]} GB, held after the run "
+        f"{[round(g['held_gb'], 2) for g in got]} GB")
+    rank_report("phase 28 (f)", got)
+    del qe
+    torch.cuda.empty_cache()
+    out[QWEN_TP_PATH] = summed(got)
+    return out
 
 
 def main(argv):
@@ -7325,6 +7738,9 @@ def main(argv):
     t0 = time.perf_counter()
     on_path.update(phase_pipelined_serving(dev, eng, PIPELINE_PATHS))
     log(f"phase 24 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    on_path.update(phase_mesh_features(dev, eng))
+    log(f"phase 28 took {time.perf_counter() - t0:.1f} s")
     del eng
     t0 = time.perf_counter()
     eng, on_path[paths[2]] = phase_end_to_end(dev, profile, INT8_CFG, paths[2],

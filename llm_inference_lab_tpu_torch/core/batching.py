@@ -1079,16 +1079,18 @@ class ContinuousBatcher:
         if self._admit_prefix is None:
             self._admit_group([req], P=P)
             return
-        dev = self.engine.device
-        suffix = ids[req.reuse_len:]
-        full = np.zeros((1, P), np.int32)
-        full[0, : len(ids)] = ids
-        rows = to_device(full, dev)
-        S = _round_up(max(len(suffix), 1), bucket)
-        self.state = self._admit_prefix(
-            self.state, rows, rows[:, req.reuse_len: req.reuse_len + S], len(ids),
-            req.reuse_len, req.slot, req.remaining_new,
-            to_device(self._table_row(req), dev), self._controls([req]))
+        row = self._row(req.slot)
+        if row is not None:  # the rank that holds the slot (every rank without a data axis)
+            dev = self.engine.device
+            suffix = ids[req.reuse_len:]
+            full = np.zeros((1, P), np.int32)
+            full[0, : len(ids)] = ids
+            rows = to_device(full, dev)
+            S = _round_up(max(len(suffix), 1), bucket)
+            self.state = self._admit_prefix(
+                self.state, rows, rows[:, req.reuse_len: req.reuse_len + S], len(ids),
+                req.reuse_len, row, req.remaining_new,
+                to_device(self._table_row(req), dev), self._controls([req]))
         self._note_admitted(req, req.slot)
         # Publish this request's own full prompt chunks for reuse.
         self.allocator.register(ids, req.pages, req.reuse_len, req.prefix_root)

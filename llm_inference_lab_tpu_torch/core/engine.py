@@ -75,7 +75,11 @@ lcm(32, seq). Under any of those four axes the decode loops run their
 in-place step eagerly, never captured: a graph cannot hold a gloo
 collective's host hop, and capturing NCCL collectives waits for a second
 card. On the data axis alone each rank captures as in one process. The
-engine decides this once, at construction (``eager_loops``).
+engine decides this once, at construction (``eager_loops``). Heads, MLP
+width, vocabulary and experts that do not split are padded as
+parallel/sharding.py sets out; a LoRA pack is sharded as the target (model)
+or whole (seq, expert); the profiler's phase chains run eagerly under
+eager_loops; the fake model runs whole on every rank.
 ``generate_batch`` splits the prompts over the data axis and returns every
 result on every rank.
 
@@ -132,7 +136,7 @@ from llm_inference_lab_tpu_torch.models import registry
 from llm_inference_lab_tpu_torch.models.lora import Adapter, build_pack, load_peft_adapter
 from llm_inference_lab_tpu_torch.ops.quant import quantize_params
 from llm_inference_lab_tpu_torch.parallel.mesh import Mesh, make_mesh
-from llm_inference_lab_tpu_torch.parallel.sharding import shard_model
+from llm_inference_lab_tpu_torch.parallel.sharding import shard_model, shard_params
 from llm_inference_lab_tpu_torch.utils.tokenizer import ByteTokenizer
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -227,10 +231,11 @@ class Engine:
                              f"({cfg.mesh_shape})")
         self.mesh = mesh
         self._data = self.mesh.shape["data"] if self.mesh is not None else 1
-        # The axes whose forwards hold a collective (JAX leaves the fake model
-        # out of the seq, stage and expert axes: it runs whole on each rank).
+        # The axes whose forwards hold a collective (the fake model runs whole
+        # on every rank: JAX leaves it out of the seq, stage and expert axes,
+        # and GSPMD replicates its leaves under the model axis).
         self._axes = {axis: (self.mesh.shape.get(axis, 1) if self.mesh is not None
-                             and (axis == "model" or not fake) else 1)
+                             and not fake else 1)
                       for axis in ("model", "seq", "stage", "expert")}
         self._seq = self._axes["seq"]
         # Under any of them the decode loops run their in-place step eagerly
@@ -238,6 +243,9 @@ class Engine:
         # NCCL collectives is not done); under the data axis alone each rank
         # captures as in one process. Decided here, once.
         self.eager_loops = any(n > 1 for n in self._axes.values())
+        # The whole target's config: a LoRA pack's sites are the whole
+        # model's, and its shards are taken as the target's.
+        self._target_config = self.target.config
         if self.mesh is not None:
             self._shard_models()
         self.tokenizer = ByteTokenizer()
@@ -318,22 +326,12 @@ class Engine:
         seq and expert axes as the target's. JAX's refusals: under the seq
         axis prefill_chunk (which also covers kv_ring, which the config
         allows only with a prefill_chunk); under the stage axis paged KV and
-        the tree. The port's own: under the model axis the fake model; the
-        profiler under any collective axis (its phase breakdown captures
-        graphs); under the seq axis paged KV and the tree."""
+        the tree. The port's own: under the seq axis paged KV and the tree.
+        Sizes that do not split are padded (parallel/sharding.py)."""
         cfg, mesh = self.config, self.mesh
         if mesh.coords is None:
             raise ValueError(f"rank {mesh.rank} is outside the {mesh.shape} mesh")
         n, seq, stage = self._axes["model"], self._axes["seq"], self._axes["stage"]
-        if n > 1 and cfg.implementation == "fake":
-            raise NotImplementedError("the fake model has no heads to shard over the model axis")
-        if cfg.profile and n > 1:
-            raise NotImplementedError("the profiler under the model axis is not ported (its "
-                                      "phase breakdown captures CUDA graphs, which cannot hold "
-                                      "the axis's collectives)")
-        if cfg.profile and self.eager_loops:
-            raise NotImplementedError("the profiler under the seq, stage or expert axis is not "
-                                      "ported (its phase breakdown captures CUDA graphs)")
         if seq > 1:
             if cfg.prefill_chunk:
                 raise ValueError("prefill_chunk and seq-parallel (ring) prefill are mutually "
@@ -412,11 +410,16 @@ class Engine:
         maps each name to its index. The target gets a new params dict and
         layers dict holding the pack (the tensors are shared), so params
         handed in by a caller, or shared with another engine, stay as they
-        were. Tree mode and the fake model refuse adapters."""
+        were. Under the model axis the pack is built for the whole model and
+        the rank keeps its share (parallel/sharding.py shard_params: a column
+        site's B columns, a row site's A rows); under the seq and expert axes
+        every rank holds it whole (its rows, or the whole attention, are
+        its own). Tree mode, the stage axis (JAX's ValueError) and the fake
+        model refuse adapters."""
         cfg = self.config
         self.lora_names: Dict[str, int] = {}
-        adapters = adapters + [load_peft_adapter(p, self.target.config)
-                               for p in cfg.lora_paths or ()]
+        whole = self._target_config
+        adapters = adapters + [load_peft_adapter(p, whole) for p in cfg.lora_paths or ()]
         if not adapters:
             return
         if self.tree is not None:
@@ -424,15 +427,12 @@ class Engine:
         if self._axes["stage"] > 1:
             raise ValueError("LoRA with pipeline parallelism is not supported (forward_pp "
                              "ignores adapter packs)")
-        if self._axes["model"] > 1:
-            raise NotImplementedError("LoRA under tensor parallelism (model > 1) is not sharded: "
-                                      "each site's delta would need the rank's columns")
-        if self.eager_loops:
-            raise NotImplementedError("LoRA under the seq or expert axis is not ported")
         if cfg.implementation == "fake":
             raise NotImplementedError("the fake model has no layers to adapt (LoRA)")
-        pack, self.lora_names = build_pack(self.target.config, adapters,
-                                           dtype=self.target.config.dtype, device=self.device)
+        pack, self.lora_names = build_pack(whole, adapters, dtype=whole.dtype,
+                                           device=self.device)
+        if self._axes["model"] > 1:
+            pack = shard_params({"layers": pack}, self.mesh, whole, axes=("model",))["layers"]
         params = self.target.params
         self.target.params = dict(params, layers=dict(params["layers"], **pack))
 
@@ -826,7 +826,12 @@ class Engine:
         """The decode step split into phases (JAX Engine.profile_phases),
         each timed as the slope of a dependent chain (slope_chain_ms: on the
         card replays of a CUDA graph captured over one link, as the decode
-        loop replays the step):
+        loop replays the step; under a mesh axis with collectives, where the
+        decode loops run eagerly (eager_loops), the links run eagerly too,
+        timed between CUDA events, as the slope of 2 and 8 links (an eager
+        link holds the step's host work and collectives: tens of ms at
+        model=2), and every rank must call it in the same order, since each
+        link's forwards hold the axes' collectives):
 
           draft_ms   = K x one single-token draft-model forward
           verify_ms  = one target forward over K + 1 rows
@@ -844,6 +849,7 @@ class Engine:
             return self._phase_cache[key]
         B, T, dev = batch, self.config.max_seq_len, self.device
         tgt = self.target
+        chain = dict(lo=2, hi=8, eager=True) if self.eager_loops else {}
 
         def i32(*shape, fill):
             return torch.full(shape, fill, dtype=torch.int32, device=dev)
@@ -858,7 +864,8 @@ class Engine:
                 tok.copy_(logits[:, -1:].argmax(-1))
 
             draft1 = slope_chain_ms(dfwd, None, (i32(B, 1, fill=1),
-                                                 d.init_cache(B, T, dev, dtype=self.kv_dtype)))
+                                                 d.init_cache(B, T, dev, dtype=self.kv_dtype)),
+                                    **chain)
         R = k + 1  # verify rows a lane
         rows = (torch.arange(R, dtype=torch.int32, device=dev) + 8)[None].repeat(B, 1)
 
@@ -868,7 +875,8 @@ class Engine:
             tok.copy_(torch.cat([tok[:, 1:], logits[:, -1:].argmax(-1).to(tok.dtype)], 1))
 
         verify = slope_chain_ms(vfwd, None, (i32(B, R, fill=1),
-                                             tgt.init_cache(B, T, dev, dtype=self.kv_dtype)))
+                                             tgt.init_cache(B, T, dev, dtype=self.kv_dtype)),
+                                **chain)
         step_fn = self._build_step(max(k, 1) if self.is_spec else 1, in_place=True)
         state = init_state(tgt, self.draft, B, T, dev, max_new_tokens=10_000,
                            kv_dtype=self.kv_dtype, seed=self.config.seed,
@@ -878,7 +886,8 @@ class Engine:
         state.prompt_lens.fill_(8)
         state.active.fill_(True)
         state.tokens[:, :8] = 1
-        step = slope_chain_ms(lambda params, st: step_fn(st), None, state)
+        step = slope_chain_ms(lambda params, st: step_fn(st), None, state,
+                              **chain)
         out = {
             "k": k,
             "batch": B,

@@ -14,8 +14,17 @@ Retirement reads the all-gathered flags, tokens and log-probs, so every
 rank retires the same slots at the same poll. The control traffic is
 CPU tensors over the mesh's gloo group, whatever the data plane's backend.
 
-A rank's step has collectives only inside its model group (the
-tensor-parallel forward); ranks of different data rows meet at the polls.
+A rank's step has collectives only inside its model and expert groups (the
+tensor- and expert-parallel forward); ranks of different data rows meet at
+the polls. Under prefix caching a page is written only by the rank whose
+slot admitted the prompt, so after each wave the pages the wave registered
+are copied from that rank to the same pages of every other data row
+(``_share_pages``: JAX's pool is one array replicated over data, its page
+axis never on data), and a later request on any row that reuses them reads
+the same rows. ``cancel`` is the coordinator's: it records the request, the
+next poll's broadcast carries it, and every rank deactivates the slot that
+holds it at that poll (it retires at the next with its tokens so far) or,
+for a request still queued, gives it the coordinator's cancelled result.
 
     initialize_multihost()
     mesh = make_multihost_mesh(model_per_host=...)
@@ -29,13 +38,14 @@ tensor-parallel forward); ranks of different data rows meet at the polls.
 JAX's ``_supports_*`` switches are kept: no incremental, overlapped or
 fused admission (one-shot waves); lazy pages, growth and preemption are
 supported. In one process the class is ContinuousBatcher with those
-switches. Refused on several ranks: prefix caching, a rolling-buffer
-(kv_ring) engine (it serves only with incremental admission) and
-``cancel`` (a coordinator-only write to one rank's state).
+switches. Refused on several ranks: the seq and stage axes, and a
+rolling-buffer (kv_ring) engine (it serves only with incremental
+admission).
 """
 
 from __future__ import annotations
 
+import math
 import time
 from typing import List, Optional
 
@@ -84,20 +94,19 @@ class MultiHostBatcher(ContinuousBatcher):
         self.is_coordinator = self.rank == 0
         if self.n_procs > 1:
             cfg = engine.config
-            if any(mesh.shape.get(axis, 1) > 1 for axis in ("seq", "stage", "expert")):
-                raise NotImplementedError("MultiHostBatcher under the seq, stage or expert axis "
-                                          "is not ported (its ranks split data x model only)")
-            if cfg.prefix_caching:
-                raise NotImplementedError("prefix caching under MultiHostBatcher on several "
-                                          "ranks is not ported")
+            if any(mesh.shape.get(axis, 1) > 1 for axis in ("seq", "stage")):
+                raise NotImplementedError("MultiHostBatcher under the seq or stage axis is not "
+                                          "ported (its ranks split data x expert x model only)")
             if cfg.kv_ring:
                 raise NotImplementedError("a rolling-buffer (kv_ring) engine under "
                                           "MultiHostBatcher on several ranks is not ported (it "
                                           "serves only with incremental admission)")
         super().__init__(engine, n_slots=n_slots, **kw)
         self._group = mesh.control if mesh is not None else None
-        self._model = mesh.shape["model"] if mesh is not None else 1
         self._data = mesh.shape["data"] if mesh is not None else 1
+        # Ranks a data row: consecutive in rank order (data is the major axis).
+        self._per_row = self.n_procs // self._data
+        self._cancels: List[int] = []  # the coordinator's, not yet broadcast
         self._row_buf = self.max_seq_len
         self._tab_buf = self._pages_per_seq if self.paged else 1
         self._k_sync = int(super()._current_k())
@@ -110,10 +119,39 @@ class MultiHostBatcher(ContinuousBatcher):
         return super().submit(prompt, max_new_tokens, **kw)
 
     def cancel(self, req_id: int) -> bool:
-        if self.n_procs > 1:
-            raise NotImplementedError("cancel under MultiHostBatcher on several ranks is not "
-                                      "ported (a coordinator-only write to one rank's state)")
-        return super().cancel(req_id)
+        """ContinuousBatcher.cancel on the coordinator's decisions: a queued
+        request is dropped at admission there; the cancel rides the next
+        poll's broadcast, at which every rank deactivates the slot holding
+        the request (it retires at the next poll with the tokens it has) or
+        gives a queued one the cancelled result. False for a request neither
+        queued nor in a slot."""
+        if self.n_procs == 1:
+            return super().cancel(req_id)
+        if not self.is_coordinator:
+            raise RuntimeError("cancel() is coordinator-only (rank 0 owns the queue); the other "
+                               "ranks apply it at the next poll")
+        req = self._requests.get(req_id)
+        queued = req is not None and req.slot is None
+        if not queued and all(r is None or r.req_id != req_id for r in self._slots):
+            return False
+        if queued:
+            req.cancelled = True
+        self._cancels.append(req_id)
+        return True
+
+    def _apply_cancels(self, ids: np.ndarray) -> None:
+        """The broadcast cancels, on every rank at the same poll: a slot that
+        holds one is deactivated (it retires at the next poll, cancelled);
+        a queued one, which the coordinator drops at admission, gets its
+        cancelled result on the other ranks."""
+        for rid in (int(x) for x in ids if x >= 0):
+            slot = next((s for s, r in enumerate(self._slots)
+                         if r is not None and r.req_id == rid), None)
+            if slot is not None:
+                self._slots[slot].cancelled = True
+                self._deactivate(slot)
+            elif not self.is_coordinator and rid not in self._done:
+                self._finish_cancelled(_Request(rid, "", [], 0))
 
     def _current_k(self) -> int:
         # K picks the step: every rank steps at the coordinator's value.
@@ -134,7 +172,7 @@ class MultiHostBatcher(ContinuousBatcher):
         parts = [torch.empty_like(src) for _ in range(self.n_procs)]
         dist.all_gather(parts, src, group=self._group)
         _count(t0)
-        return torch.cat([parts[d * self._model] for d in range(self._data)]).numpy()
+        return torch.cat([parts[d * self._per_row] for d in range(self._data)]).numpy()
 
     def _fetch_flags(self) -> tuple:
         if self.n_procs == 1:
@@ -219,7 +257,9 @@ class MultiHostBatcher(ContinuousBatcher):
     def _sync_poll(self) -> dict:
         """The coordinator plans admissions, K and the queue's state; every
         rank gets the same fixed-shape int32 payload (the sampling floats as
-        their bits) and runs the same admissions."""
+        their bits, the cancels since the last poll) and applies the same
+        cancels, then runs the same admissions (under prefix caching, then
+        shares the pages they registered)."""
         B, L, T = self.n_slots, self._row_buf, self._tab_buf
         header = np.zeros((B, _HEADER), np.int32)
         rows = np.zeros((B, L), np.int32)
@@ -229,8 +269,11 @@ class MultiHostBatcher(ContinuousBatcher):
         bias_ids = np.full((B, N_BIAS), -1, np.int32)
         bias_vals = np.zeros((B, N_BIAS), np.float32)
         meta = np.zeros((3,), np.int32)  # (n_admit, pending, k)
+        cancels = np.full((B,), -1, np.int32)  # request ids, -1 empty
         plans: List[_Request] = []
         if self.is_coordinator:
+            sent, self._cancels = self._cancels[:B], self._cancels[B:]
+            cancels[:len(sent)] = sent
             plans = self._plan_admissions()
             seed0 = self.engine.config.seed
             for i, req in enumerate(plans):
@@ -250,21 +293,62 @@ class MultiHostBatcher(ContinuousBatcher):
                     tables[i, :len(req.pages)] = req.pages
             meta[:] = (len(plans), self.scheduler.pending(), super()._current_k())
         parts = (header, rows, tables, stacks, samp.view(np.int32), bias_ids,
-                 bias_vals.view(np.int32), meta)
+                 bias_vals.view(np.int32), meta, cancels)
         if self.n_procs > 1:
             flat = self._broadcast(np.concatenate([p.reshape(-1) for p in parts]))
             out, at = [], 0
             for p in parts:
                 out.append(flat[at:at + p.size].reshape(p.shape))
                 at += p.size
-            header, rows, tables, stacks, samp_bits, bias_ids, bias_bits, meta = out
+            header, rows, tables, stacks, samp_bits, bias_ids, bias_bits, meta, cancels = out
             samp, bias_vals = samp_bits.view(np.float32), bias_bits.view(np.float32)
+            self._apply_cancels(cancels)
         n_admit, pending, self._k_sync = (int(x) for x in meta)
         if not self.is_coordinator:
             plans = [self._placeholder(header[i], rows[i], tables[i], stacks[i], samp[i],
                                        bias_ids[i], bias_vals[i]) for i in range(n_admit)]
         self._admit_planned(plans)
+        self._share_pages(plans)
         return {"pending": pending, "admitted": n_admit}
+
+    def _share_pages(self, plans: List[_Request]) -> None:
+        """Under prefix caching on several data rows: the pages a wave's
+        admissions registered (each prompt's full chunks past its reused
+        prefix, PrefixPageCache.register's) copied from the rank whose slot
+        wrote them to the same page of every other data row's rank with the
+        same model and expert coordinates: k, v and the int8 scales of both
+        caches, in one all-gather of bytes over the control group."""
+        if not (self.prefix_caching and self._data > 1):
+            return
+        P = self.engine.config.kv_page_size
+        pages, writers = [], []
+        for req in plans:
+            for j in range(req.reuse_len // P, len(req.admit_ids) // P):
+                pages.append(req.pages[j])
+                writers.append(req.slot // self._rows)
+        if not pages:
+            return
+        leaves = [t for c in (self.state.target_cache, self.state.draft_cache) if c is not None
+                  for t in (c.k, c.v, c.k_scale, c.v_scale) if t is not None]
+        dev = leaves[0].device
+        idx = torch.tensor(pages, device=dev)
+        src = torch.cat([t.index_select(1, idx).contiguous().view(torch.uint8).reshape(-1)
+                         for t in leaves]).cpu()  # waits for the admissions (not counted)
+        t0 = time.perf_counter()
+        got = [torch.empty_like(src) for _ in range(self.n_procs)]
+        dist.all_gather(got, src, group=self._group)
+        _count(t0)
+        mine = self.rank // self._per_row
+        for w in sorted(set(writers) - {mine}):
+            part = got[self.rank + (w - mine) * self._per_row].to(dev)
+            sel = torch.tensor([i for i, x in enumerate(writers) if x == w], device=dev)
+            at = 0
+            for t in leaves:
+                shape = (t.shape[0], len(pages), *t.shape[2:])
+                n = math.prod(shape) * t.element_size()
+                blk = part[at:at + n].clone().view(t.dtype).reshape(shape)
+                t.index_copy_(1, idx[sel], blk.index_select(1, sel))
+                at += n
 
     def _placeholder(self, head, row, table, stack, samp, bias_ids, bias_vals) -> _Request:
         """A request with what every rank's admission and retirement read:

@@ -45,7 +45,7 @@ RAISE_SITES: Dict[str, str] = {
     RING_NEEDS_CONTIGUOUS: "config.py:262",  # EngineConfig.validate
     RING_NOT_IN_TREE: "config.py:321",  # EngineConfig._validate_tree
     CONSTRAIN_NOT_IN_TREE: "config.py:298",  # EngineConfig._validate_constrain
-    LORA_NOT_IN_TREE: "core/engine.py:423",  # Engine._build_lora
+    LORA_NOT_IN_TREE: "core/engine.py:426",  # Engine._build_lora
     PER_REQUEST_NOT_WITH_REJECTION: "config.py:279",  # EngineConfig.validate
 }
 
@@ -89,7 +89,7 @@ def port_refusals() -> List[Dict[str, str]]:
         {"name": "moe_weight_quantization",
          "what": "int4/int8 weight quantization of a MoE model (JAX would quantize its "
                  "router, which its routing cannot read)",
-         "fragment": "weight quantization of a MoE model", "site": "core/engine.py:215"},
+         "fragment": "weight quantization of a MoE model", "site": "core/engine.py:219"},
         {"name": "tree_over_max_s",
          "what": "a tree whose verify chunk (num_nodes + 1 rows) exceeds MAX_TREE_S = 32 "
                  "on the card",
@@ -108,53 +108,24 @@ def port_refusals() -> List[Dict[str, str]]:
         # Under a mesh (parallel/): what the port does not shard.
         {"name": "mesh_shape_differs",
          "what": "an Engine given a mesh whose shape differs from its cfg.mesh_shape",
-         "fragment": "differs from cfg.mesh_shape", "site": "core/engine.py:226"},
-        {"name": "mesh_lora_under_model",
-         "what": "LoRA adapters under the model axis (each site's delta would need the rank's "
-                 "columns)",
-         "fragment": "LoRA under tensor parallelism", "site": "core/engine.py:428"},
-        {"name": "mesh_lora_seq_expert",
-         "what": "LoRA adapters under the seq or expert axis",
-         "fragment": "LoRA under the seq or expert axis is not ported",
-         "site": "core/engine.py:431"},
-        {"name": "mesh_profiler_seq_stage_expert",
-         "what": "the profiler under the seq, stage or expert axis (its phase breakdown captures "
-                 "CUDA graphs)",
-         "fragment": "the profiler under the seq, stage or expert axis is not ported",
-         "site": "core/engine.py:335"},
+         "fragment": "differs from cfg.mesh_shape", "site": "core/engine.py:230"},
         {"name": "mesh_seq_paged",
          "what": "paged KV under the seq axis (JAX's ring prefill writes the contiguous layout "
                  "into a page pool)",
-         "fragment": "paged KV under the seq axis is not ported", "site": "core/engine.py:343"},
+         "fragment": "paged KV under the seq axis is not ported", "site": "core/engine.py:341"},
         {"name": "mesh_seq_tree",
          "what": "tree speculation under the seq axis (kernel D's shard variant has no ancestry "
                  "mask)",
-         "fragment": "the tree under the seq axis is not ported", "site": "core/engine.py:346"},
+         "fragment": "the tree under the seq axis is not ported", "site": "core/engine.py:344"},
         {"name": "mesh_seq_slice_options",
          "what": "Gemma-2's softcap or a window that can bind over a cache split on T, outside "
                  "the ring prefill (which refuses them with JAX's messages), e.g. Engine.embed",
          "fragment": "not ported over a cache split on T", "site": "ops/attention.py:146"},
-        {"name": "mesh_experts_do_not_split",
-         "what": "a MoE model whose experts do not split over the expert axis (JAX's GSPMD pads "
-                 "them)",
-         "fragment": "does not split over the expert axis", "site": "parallel/sharding.py:212"},
         {"name": "mesh_batcher_seq_stage",
          "what": "a ContinuousBatcher under the seq or stage axis (JAX's batcher admits through "
                  "scratch caches, which neither axis lays out)",
          "fragment": "a ContinuousBatcher under the seq or stage axis is not ported",
          "site": "core/batching.py:598"},
-        {"name": "mesh_fake_under_model",
-         "what": "the fake model under the model axis (no heads to shard)",
-         "fragment": "the fake model has no heads to shard", "site": "core/engine.py:329"},
-        {"name": "mesh_profiler_under_model",
-         "what": "the profiler under the model axis (its phase breakdown captures CUDA graphs, "
-                 "which cannot hold the axis's collectives)",
-         "fragment": "the profiler under the model axis is not ported",
-         "site": "core/engine.py:331"},
-        {"name": "mesh_heads_do_not_split",
-         "what": "a model whose heads, KV heads, MLP width or vocabulary do not split over "
-                 "the model axis (JAX's GSPMD pads them)",
-         "fragment": "does not split over the model axis", "site": "parallel/sharding.py:197"},
         {"name": "mesh_batch_does_not_split",
          "what": "a generate_batch whose prompts do not split over the data axis",
          "fragment": "rows do not split over the data axis", "site": "parallel/mesh.py:223"},
@@ -165,24 +136,16 @@ def port_refusals() -> List[Dict[str, str]]:
         {"name": "mesh_slots_do_not_split",
          "what": "serving slots that do not split over the data axis",
          "fragment": "must split over the data axis", "site": "core/batching.py:595"},
-        {"name": "multihost_prefix_caching",
-         "what": "prefix caching under MultiHostBatcher on several ranks",
-         "fragment": "prefix caching under MultiHostBatcher", "site":
-             "core/multihost_batching.py:91"},
         {"name": "multihost_kv_ring",
          "what": "a rolling-buffer (kv_ring) engine under MultiHostBatcher on several ranks "
                  "(it serves only with incremental admission, which JAX's multi-host batcher "
                  "turns off)",
          "fragment": "under MultiHostBatcher on several ranks is not ported (it serves only",
-         "site": "core/multihost_batching.py:94"},
-        {"name": "multihost_seq_stage_expert",
-         "what": "MultiHostBatcher on several ranks under the seq, stage or expert axis",
-         "fragment": "MultiHostBatcher under the seq, stage or expert axis is not ported",
-         "site": "core/multihost_batching.py:88"},
-        {"name": "multihost_cancel",
-         "what": "cancel under MultiHostBatcher on several ranks (a coordinator-only write to "
-                 "one rank's state)",
-         "fragment": "cancel under MultiHostBatcher", "site": "core/multihost_batching.py:114"},
+         "site": "core/multihost_batching.py:101"},
+        {"name": "multihost_seq_stage",
+         "what": "MultiHostBatcher on several ranks under the seq or stage axis",
+         "fragment": "MultiHostBatcher under the seq or stage axis is not ported",
+         "site": "core/multihost_batching.py:98"},
     ]
 
 

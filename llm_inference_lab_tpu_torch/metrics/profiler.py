@@ -10,8 +10,10 @@ Port of llm_inference_lab_tpu/metrics/profiler.py:
   finishing a chain cancels. On the card a chain is the replay of a CUDA
   graph captured over one link, timed by CUDA events: the phases of
   ``Engine.profile_phases`` are then timed as the decode loop runs the step
-  (graph replays), and eager launch time stays out of them. On the CPU the
-  chain runs eagerly under ``perf_counter``.
+  (graph replays), and eager launch time stays out of them; under a mesh
+  axis whose collectives go by the host (the engine's eager_loops) the
+  links run eagerly between the same events, as that engine's decode loop
+  runs the step. On the CPU the chain runs eagerly under ``perf_counter``.
 - ``StructuredProfiler`` with JAX's fields and methods. ``time_step`` times
   a step on the card with CUDA events, read when ``summary`` (or
   ``flush``) needs them, not by a host sync after every step; ``trace``
@@ -63,19 +65,23 @@ def device_memory_stats(device=None) -> MemoryStats:
     return out
 
 
-def slope_chain_ms(fn: Callable, params: Any, init: Any, lo: int = 10, hi: int = 40) -> float:
+def slope_chain_ms(fn: Callable, params: Any, init: Any, lo: int = 10, hi: int = 40,
+                   eager: bool = False) -> float:
     """The cost in ms of one link ``fn(params, carry)`` of a dependent chain:
     (t(hi) - t(lo)) / (hi - lo), each t the median of 3 chains, each chain
     from `init` (its tensors are put back before every chain, outside the
     timing, as JAX's chains all start from init). fn updates the carry in
     place (the next link reads what this one wrote). Where the carry's
     tensors lie on the card, a chain is that many replays of one CUDA graph
-    captured over a link, timed between two CUDA events; on the CPU the
+    captured over a link, timed between two CUDA events, or with eager
+    (a link holding a collective that goes by the host, which no graph
+    holds) that many eager links between the same events; on the CPU the
     links run eagerly."""
     leaves = _tensors(init)
     saved = [t.clone() for t in leaves]
     if leaves and leaves[0].is_cuda:
-        timed = _graph_chain(fn, params, init, leaves[0].device)
+        timed = (_eager_chain(fn, params, init, leaves[0].device) if eager
+                 else _graph_chain(fn, params, init, leaves[0].device))
     else:
         def timed(n: int) -> float:
             t0 = time.perf_counter()
@@ -92,6 +98,21 @@ def slope_chain_ms(fn: Callable, params: Any, init: Any, lo: int = 10, hi: int =
     t_lo = sorted(run(lo) for _ in range(3))[1]
     t_hi = sorted(run(hi) for _ in range(3))[1]
     return (t_hi - t_lo) / (hi - lo)
+
+
+def _eager_chain(fn: Callable, params: Any, carry: Any, dev: torch.device):
+    """A function n -> ms of n eager links on the card, between two CUDA
+    events (the host's launches and collectives inside the span)."""
+    def run(n: int) -> float:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn(params, carry)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    return run
 
 
 def _tensors(x: Any) -> List[torch.Tensor]:

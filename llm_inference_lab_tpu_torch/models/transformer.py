@@ -142,11 +142,19 @@ def attn_options(cfg: ModelConfig, layer: int) -> dict:
 def _lora(p: dict, site: str, mask: Optional[torch.Tensor], y: torch.Tensor,
           x: torch.Tensor) -> torch.Tensor:
     """y plus the rows' adapter deltas at `site` (JAX _lora), or y alone
-    without a pack or without lora_ids (mask None)."""
+    without a pack or without lora_ids (mask None). Under tensor
+    parallelism a column site's B holds the rank's columns, so its delta is
+    the rank's columns of the whole delta."""
     A = p.get(f"lora_A_{site}")
     if A is None or mask is None:
         return y
     return y + lora_delta(A, p[f"lora_B_{site}"], None, x, mask=mask)
+
+
+def _row_lora(p: dict, site: str, mask: Optional[torch.Tensor]) -> Optional[tuple]:
+    """A row site's (A, B, mask) for _out_proj, or None without a delta."""
+    A = p.get(f"lora_A_{site}")
+    return None if A is None or mask is None else (A, p[f"lora_B_{site}"], mask)
 
 
 class Context(NamedTuple):
@@ -208,19 +216,27 @@ def _attn_block(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Ten
             attn = attend(q, cache.k[layer], cache.v[layer], positions, *scales,
                           ring_len=cfg.kv_ring_len, **options)
     a = attn.reshape(B, S, H * Dh)
-    return _lora(p, "o", mask, _out_proj(cfg, a, p["wo"], p.get("bo")), a)
+    return _out_proj(cfg, a, p["wo"], p.get("bo"), _row_lora(p, "o", mask))
 
 
-def _out_proj(cfg: ModelConfig, x: torch.Tensor, w: Any,
-              b: Optional[torch.Tensor] = None) -> torch.Tensor:
+def _out_proj(cfg: ModelConfig, x: torch.Tensor, w: Any, b: Optional[torch.Tensor] = None,
+              lora: Optional[tuple] = None) -> torch.Tensor:
     """A row-parallel projection (wo, w_down, w_proj): dense, or under
     tensor parallelism the rank's partial sum in f32 (dense_f32), added
     over the model group in f32 and rounded to the model dtype once, as the
     unsharded kernel rounds its sum once; then the bias, which every rank
-    holds whole and adds once, after the sum."""
+    holds whole and adds once, after the sum. lora: a row site's (A, B,
+    mask) (_row_lora): the rows' adapter delta, added after the projection,
+    or under tensor parallelism (A the rank's rows of its inputs) added to
+    the rank's partial before the sum, which costs no collective of its
+    own."""
     if cfg.tp is None:
-        return dense(x, w, b)
-    y = cfg.tp.all_reduce(dense_f32(x, w)).to(x.dtype)
+        y = dense(x, w, b)
+        return y if lora is None else y + lora_delta(lora[0], lora[1], None, x, mask=lora[2])
+    part = dense_f32(x, w)
+    if lora is not None:
+        part = part + lora_delta(lora[0], lora[1], None, x, mask=lora[2]).float()
+    y = cfg.tp.all_reduce(part).to(x.dtype)
     return y if b is None else y + b.to(y.dtype)
 
 
@@ -240,7 +256,7 @@ def _mlp_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
         return _out_proj(cfg, h, p["w_proj"], p.get("b_proj"))
     # gate and up fused into one matmul
     h = gated(_lora(p, "gate_up", mask, dense(x, p["w_gate_up"]), x), cfg.act)
-    return _lora(p, "down", mask, _out_proj(cfg, h, p["w_down"]), h)
+    return _out_proj(cfg, h, p["w_down"], lora=_row_lora(p, "down", mask))
 
 
 def _layer_params(layers: dict, i: int) -> dict:
@@ -471,7 +487,9 @@ def lm_head_logits(cfg: ModelConfig, params: Any, x: torch.Tensor) -> torch.Tens
     unquantized untied one keeps its products and sums in f32 (JAX's
     preferred_element_type=f32), a quantized untied head goes through dense
     as JAX's does. Under tensor parallelism each rank's head gives its
-    vocab columns, all-gathered into the whole row. Gemma-2 caps them
+    vocab columns, all-gathered into the whole row, and the columns of a
+    vocabulary padded to split over the ranks are cut, so no consumer of
+    logits (argmax, kernel C, sampling, logprobs) sees them. Gemma-2 caps them
     (cap * tanh(logits / cap), in place on the f32 logits)."""
     if cfg.tie_word_embeddings:
         embed = params["embed"]
@@ -485,6 +503,8 @@ def lm_head_logits(cfg: ModelConfig, params: Any, x: torch.Tensor) -> torch.Tens
         logits = f32_logits(x, params["lm_head"].to(x.dtype).t())
     if cfg.tp is not None:  # the rank's vocab columns: the whole row on every rank
         logits = cfg.tp.all_gather_last(logits)
+        if logits.shape[-1] > cfg.vocab_size:  # a padded vocabulary: its columns cut
+            logits = logits[..., :cfg.vocab_size].contiguous()
     if cfg.final_logit_softcap is not None:
         cap = cfg.final_logit_softcap
         logits = logits.div_(cap).tanh_().mul_(cap)

@@ -84,8 +84,9 @@ def moe_expert(x: torch.Tensor, w_router: torch.Tensor, w_gate_up: torch.Tensor,
                w_down: torch.Tensor, top_k: int = 2, act: str = "silu", ep=None,
                tp=None) -> torch.Tensor:
     """JAX's moe_dense under an expert axis (ep, parallel/mesh.py AxisGroup:
-    this rank holds experts [r E / n, (r + 1) E / n) of w_gate_up [E/n, D, 2F']
-    and w_down [E/n, F', D]) and a model axis (tp: F' = F / m, the rank's
+    this rank holds experts [r E' / n, (r + 1) E' / n) of w_gate_up [E'/n, D,
+    2F'] and w_down [E'/n, F', D], E' the experts padded to a multiple of n
+    with zero experts the router never picks) and a model axis (tp: F' = F / m, the rank's
     gate and up columns and w_down rows). x [T, D] and w_router [D, E] are
     whole. The rank's experts' gated MLP over the rows routed to them, the
     down product in f32, weighted by the f32 combine; the partial sums added
@@ -96,7 +97,9 @@ def moe_expert(x: torch.Tensor, w_router: torch.Tensor, w_gate_up: torch.Tensor,
     weights, experts = route(x, w_router, top_k)
     combine = torch.zeros((x.shape[0], E), dtype=torch.float32, device=x.device)
     combine.scatter_(1, experts, weights)
-    combine = combine[:, e0:e0 + n_local]  # this rank's experts
+    # This rank's experts; a padded expert (past the router's E columns,
+    # parallel/sharding.py) has a zero column: never routed.
+    combine = F.pad(combine, (0, max(0, e0 + n_local - E)))[:, e0:e0 + n_local]
     xe = x[None] * (combine > 0).t()[..., None].to(x.dtype)  # [E/n, T, D]: routed rows
     h = gated(torch.matmul(xe, w_gate_up.to(x.dtype)), act)  # [E/n, T, F']
     ye = _f32_bmm(h, w_down.to(x.dtype))  # [E/n, T, D] f32

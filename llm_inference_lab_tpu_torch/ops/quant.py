@@ -212,46 +212,6 @@ def int4_rows(data: torch.Tensor, r0: int, r1: int) -> torch.Tensor:
     return torch.cat(parts, dim=-2)
 
 
-def row_shard(w: "QuantTensor", r0: int, r1: int) -> "QuantTensor":
-    """Rows [r0, r1) of a quantized weight [.., K, N] (its input dim: a
-    row-parallel projection's shard), a contiguous copy. int8 slices its
-    rows; int4 cannot slice bytes (byte [i, n] holds rows i and i + K/2), so
-    its rows are unpacked and packed again at K' = r1 - r0 (int4_rows,
-    pack_int4). The per-output-channel scale stays whole: every shard's
-    partial sums of a column take the column's scale."""
-    if w.bits == 4:
-        if (r1 - r0) % 2:
-            raise ValueError(f"an int4 row shard needs an even row count, got {r1 - r0}")
-        data = pack_int4(int4_rows(w.data, r0, r1))
-    else:
-        data = w.data[..., r0:r1, :]
-    return QuantTensor(data.contiguous(), w.scale.clone(), w.bits)
-
-
-def column_shard(w: Any, cols: torch.Tensor) -> Any:
-    """Output columns `cols` (an index tensor) of a weight [.., K, N] or a
-    bias [.., N]: a QuantTensor's bytes and scales, each a contiguous copy
-    (kernel A's wrapper takes contiguous, 16-byte aligned operands, and a
-    view would keep the whole tensor alive)."""
-    if isinstance(w, QuantTensor):
-        return QuantTensor(w.data.index_select(-1, cols).contiguous(),
-                           w.scale.index_select(-1, cols).contiguous(), w.bits)
-    return w.index_select(-1, cols).contiguous()
-
-
-def vocab_shard(embed: Any, v0: int, v1: int) -> Any:
-    """Vocab rows [v0, v1) of an embedding: a table [V, D]'s rows, an
-    EmbedQuant's rows and scales, an EmbedQuant4's head-layout columns,
-    row-layout rows and scales; each a contiguous copy."""
-    if isinstance(embed, EmbedQuant):
-        return EmbedQuant(embed.q[v0:v1].contiguous(), embed.scale[v0:v1].contiguous())
-    if isinstance(embed, EmbedQuant4):
-        return EmbedQuant4(QuantTensor(embed.qt.data[:, v0:v1].contiguous(),
-                                       embed.qt.scale[v0:v1].contiguous(), bits=4),
-                           embed.rq[v0:v1].contiguous())
-    return embed[v0:v1].contiguous()
-
-
 def dense_f32(x: torch.Tensor, w: Any) -> torch.Tensor:
     """x [..., d_in] @ w with an f32 output (no bias): a row-parallel
     projection's partial sum, which the ranks add in f32 before the sum is

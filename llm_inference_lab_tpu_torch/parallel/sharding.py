@@ -2,14 +2,14 @@
 llm_inference_lab_tpu/parallel/sharding.py).
 
 JAX declares a PartitionSpec a leaf and GSPMD splits each array into
-contiguous blocks and inserts the collectives. The port writes
-Megatron-style tensor parallelism out by hand, so where a rule puts
-``model`` on a leaf, ``shard_params`` takes this rank's part in the order
-the sharded forward (models/transformer.py) reads it, which for the fused
-leaves is not GSPMD's contiguous block:
+contiguous blocks (padding a dim that does not divide) and inserts the
+collectives. The port writes Megatron-style tensor parallelism out by hand,
+so where a rule puts ``model`` on a leaf, ``shard_params`` takes this rank's
+part in the order the sharded forward (models/transformer.py) reads it,
+which for the fused leaves is not GSPMD's contiguous block:
 
-  w_qkv, b_qkv  [L, D, (H+2KV)dh]  the rank's Q heads [r H/n, (r+1) H/n),
-                                   then its K heads and its V heads
+  w_qkv, b_qkv  [L, D, (H+2KV)dh]  the rank's Q heads, then its K heads and
+                                   its V heads (head_layout)
   w_gate_up     [L, D, 2F]         its gate columns, then its up columns
   w_fc, b_fc    [L, D, F]          its block of columns
   wo, w_down,   [L, K, D]          its block of rows (the heads' rows of
@@ -21,25 +21,46 @@ leaves is not GSPMD's contiguous block:
   bo, b_proj, pos_embed, norms     whole on every rank (bo and b_proj are
                                    added once, after the sum)
 
+Each rank computes its share of what the whole model computes and nothing
+else, whatever the sizes. Heads: a rank holds a block of the KV heads and
+their query heads when the KV heads split; with fewer KV heads than ranks
+(n % KV == 0) it holds the one KV head its queries read, replicated over
+the ranks that share it, and each KV group is padded with zero query heads
+so every rank's GQA group is the same; otherwise zero KV heads pad the
+axis. The MLP width, the vocabulary and (under the expert axis) the experts
+are padded with zero columns, rows or experts to a multiple of the axis
+(ff_per_rank: of 2n for the MLP). Zero query heads have zero rows of wo,
+zero MLP columns zero rows of w_down, so their terms add nothing; a padded
+vocab row is never looked up and the head's padded columns are cut after
+the gather; a padded expert lies past the router's columns and is never
+picked. A quantized leaf's padding is what quantize gives for zeros, and an
+int4 leaf is padded before it is packed again, so a rank's bytes are those
+of its padded slice. ``unshard_params`` drops the padding.
+
+A LoRA pack (models/lora.py) splits where its site's projection does: a
+column site's B by the projection's columns, a row site's A by its rows.
+
 Under the stage axis every leaf of params["layers"] keeps layers
 [s L/S, (s+1) L/S) (a QuantTensor's bytes and scales sliced on L); under the
 expert axis a MoE layer's expert stacks (w_gate_up [L, E, D, 2F], w_down
-[L, E, F, D]) keep experts [e E/n, (e+1) E/n), dim 1, as JAX's _spec_for
-puts them on ``expert``; the router stays whole. The axes apply in that
-order, then the model axis's shards.
+[L, E, F, D]) keep their block of experts, dim 1, as JAX's _spec_for puts
+them on ``expert``; the router stays whole. The axes apply in that order,
+then the model axis's shards.
 
 ``PARAM_RULES`` and ``_spec_for`` are JAX's, with a spec as a tuple of axis
 names. ``shard_state`` gives this rank's rows and heads of a DecodeState as
 JAX's ``_cache_sharding`` lays them out: the layers on ``stage``, the batch
-on ``data``, KV heads on ``model``, T on ``seq`` (the cache's t0 set), a
-dim that does not divide left whole; a paged pool keeps its page axis whole
-on every rank (the coordinator's page ids are global).
+on ``data``, KV heads on ``model`` (head_layout's), T on ``seq`` (the
+cache's t0 set), another dim that does not divide left whole; a paged pool
+keeps its page axis whole on every rank (the coordinator's page ids are
+global).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import re
+from functools import lru_cache
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -51,11 +72,10 @@ from llm_inference_lab_tpu_torch.ops.quant import (
     EmbedQuant,
     EmbedQuant4,
     QuantTensor,
-    column_shard,
     int4_rows,
     pack_int4,
-    row_shard,
-    vocab_shard,
+    quantize_int4,
+    quantize_int8,
 )
 
 # Last param-tree key -> spec WITHOUT the stacked-layer axis (JAX's
@@ -104,51 +124,205 @@ def _keystr(keys) -> str:
     return "".join(f"['{k}']" for k in keys)
 
 
-def _block(n_total: int, r: int, n: int) -> torch.Tensor:
-    per = n_total // n
-    return torch.arange(r * per, (r + 1) * per)
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
 
 
-def _columns(name: str, N: int, cfg: ModelConfig, r: int, n: int) -> torch.Tensor:
-    """Rank r's columns of a column-parallel leaf of N columns, in the
-    sharded forward's order."""
+def head_layout(n_heads: int, n_kv_heads: int, n: int, r: int) -> tuple:
+    """Rank r's query heads and KV heads over a model axis of n (each a list
+    of global head indices in the order the rank's fused leaves hold them,
+    -1 a zero head), every rank the same GQA group:
+
+      KV heads that split   their block of KV heads and those heads' groups;
+      KV heads fewer, n % KV == 0
+                            one KV head, replicated over the n / KV ranks
+                            that share it, its group padded with zero heads
+                            to a multiple of n / KV and split over them;
+      otherwise             KV heads padded with zero heads (and their zero
+                            groups) to a multiple of n.
+
+    A zero query head's rows of wo are zero and a zero KV head's keys and
+    values are zero, so no rank adds anything the whole model does not."""
+    g = n_heads // n_kv_heads
+    if n_kv_heads % n and n % n_kv_heads == 0:
+        m = n // n_kv_heads
+        per = _round_up(g, m) // m
+        j, first = r // m, (r % m) * per
+        return [j * g + i if i < g else -1 for i in range(first, first + per)], [j]
+    per_kv = _round_up(n_kv_heads, n) // n
+    kv = [j if j < n_kv_heads else -1 for j in range(r * per_kv, (r + 1) * per_kv)]
+    return [j * g + i if j >= 0 else -1 for j in kv for i in range(g)], kv
+
+
+def ff_per_rank(d_ff: int, n: int) -> int:
+    """A rank's MLP width over a model axis of n: d_ff / n, or where it does
+    not split the width padded with zero columns to a multiple of 2n (so an
+    int4 shard's rows pack into bytes)."""
+    return d_ff // n if d_ff % n == 0 else _round_up(d_ff, 2 * n) // n
+
+
+def _block_pad(size: int, per: int, r: int) -> torch.Tensor:
+    """Entries [r per, (r + 1) per) of a dim of `size` padded to a multiple
+    of per: -1 past the end."""
+    idx = torch.arange(r * per, (r + 1) * per)
+    return torch.where(idx < size, idx, -1)
+
+
+def _head_idx(heads, dh: int) -> torch.Tensor:
+    """The dh entries of each head (-1 for a zero head's)."""
+    idx = torch.tensor(heads)[:, None] * dh + torch.arange(dh)[None]
+    return torch.where(torch.tensor(heads)[:, None] >= 0, idx, -1).reshape(-1)
+
+
+def _shift(idx: torch.Tensor, by: int) -> torch.Tensor:
+    return torch.where(idx >= 0, idx + by, -1)
+
+
+# The LoRA pack's leaves the model axis splits (models/lora.py; JAX has no
+# rule for them): a column site's B as its projection's columns, a row
+# site's A as its projection's rows. The others stay whole.
+_LORA_COLUMNS = {"lora_B_qkv": "w_qkv", "lora_B_gate_up": "w_gate_up"}
+_LORA_ROWS = {"lora_A_o": "wo", "lora_A_down": "w_down"}
+
+
+def _columns(name: str, cfg: ModelConfig, r: int, n: int) -> torch.Tensor:
+    """Rank r's columns of a column-parallel leaf, in the sharded forward's
+    order (-1 a zero column): the fused QKV's q heads, then its k heads and
+    its v heads (head_layout); the fused gate/up's gate columns, then its up
+    columns; a vocab block of the head."""
+    name = _LORA_COLUMNS.get(name, name)
     if name in ("w_qkv", "b_qkv"):
-        q, kv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
-        if N != q + 2 * kv:
-            raise ValueError(f"{name} has {N} columns, not (H + 2 KV) head_dim = {q + 2 * kv}")
-        return torch.cat([_block(q, r, n), q + _block(kv, r, n), q + kv + _block(kv, r, n)])
-    if name == "w_gate_up":
-        f = N // 2
-        return torch.cat([_block(f, r, n), f + _block(f, r, n)])
-    return _block(N, r, n)
+        dh = cfg.head_dim
+        q_heads, kv_heads = head_layout(cfg.n_heads, cfg.n_kv_heads, n, r)
+        q, kv = cfg.n_heads * dh, cfg.n_kv_heads * dh
+        kv_idx = _head_idx(kv_heads, dh)
+        return torch.cat([_head_idx(q_heads, dh), _shift(kv_idx, q), _shift(kv_idx, q + kv)])
+    if name == "lm_head":
+        return _block_pad(cfg.vocab_size, -(-cfg.vocab_size // n), r)
+    cols = _block_pad(cfg.d_ff, ff_per_rank(cfg.d_ff, n), r)
+    return torch.cat([cols, _shift(cols, cfg.d_ff)]) if name == "w_gate_up" else cols
 
 
-def _model_dim(path: str, ndim: int) -> Optional[int]:
-    """The dim a leaf's rule puts on ``model`` (negative), or None."""
+def _rows(name: str, cfg: ModelConfig, r: int, n: int) -> torch.Tensor:
+    """Rank r's rows of a row-parallel leaf (-1 a zero row): wo's the rows
+    of its query heads, in _columns' head order; w_down's and w_proj's those
+    of its MLP columns."""
+    name = _LORA_ROWS.get(name, name)
+    if name == "wo":
+        return _head_idx(head_layout(cfg.n_heads, cfg.n_kv_heads, n, r)[0], cfg.head_dim)
+    return _block_pad(cfg.d_ff, ff_per_rank(cfg.d_ff, n), r)
+
+
+def _vocab_rows(cfg: ModelConfig, r: int, n: int) -> torch.Tensor:
+    return _block_pad(cfg.vocab_size, -(-cfg.vocab_size // n), r)
+
+
+def _model_dim(path: str, name: str, ndim: int) -> Optional[int]:
+    """The dim a leaf's rule puts on ``model`` (negative), or None; a LoRA
+    pack's leaves by _LORA_COLUMNS and _LORA_ROWS."""
+    if name.startswith("lora_"):
+        return -1 if name in _LORA_COLUMNS else -2 if name in _LORA_ROWS else None
     spec = _spec_for(path, ndim)
     return spec.index("model") - len(spec) if "model" in spec else None
 
 
-def _shard_leaf(path: str, name: str, leaf: Any, cfg: ModelConfig, r: int, n: int) -> Any:
-    if name.startswith("lora_"):
-        raise NotImplementedError("LoRA under tensor parallelism (model > 1) is not sharded: "
-                                  "each site's delta would need the rank's columns")
-    if isinstance(leaf, (EmbedQuant, EmbedQuant4)):
-        V = leaf.shape[0] if isinstance(leaf, EmbedQuant4) else leaf.q.shape[0]
-        return vocab_shard(leaf, r * V // n, (r + 1) * V // n)
-    ndim = leaf.data.ndim if isinstance(leaf, QuantTensor) else getattr(leaf, "ndim", 0)
-    dim = _model_dim(path, ndim) if ndim else None
+def _index(path: str, name: str, ndim: int, cfg: ModelConfig, r: int,
+           n: int) -> Optional[tuple]:
+    """(dim, rank r's indices along it) of a leaf the model axis splits, or
+    None for a leaf every rank holds whole."""
+    dim = _model_dim(path, name, ndim) if ndim else None
     if dim is None:
+        return None
+    if name == "embed":
+        return dim, _vocab_rows(cfg, r, n)
+    return dim, (_columns(name, cfg, r, n) if dim == -1 else _rows(name, cfg, r, n))
+
+
+def _whole(name: str, cfg: ModelConfig) -> int:
+    """The whole size of the dim the model axis splits in a leaf."""
+    name = _LORA_COLUMNS.get(name, _LORA_ROWS.get(name, name))
+    if name in ("w_qkv", "b_qkv"):
+        return (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim
+    if name == "wo":
+        return cfg.n_heads * cfg.head_dim
+    if name in ("embed", "lm_head"):
+        return cfg.vocab_size
+    return 2 * cfg.d_ff if name == "w_gate_up" else cfg.d_ff
+
+
+def _take(t: torch.Tensor, dim: int, idx: torch.Tensor, fill=0) -> torch.Tensor:
+    """t's entries idx along dim, `fill` where idx is -1: a contiguous copy."""
+    idx = idx.to(t.device)
+    out = t.index_select(dim % t.ndim, idx.clamp_min(0))
+    pad = idx < 0
+    if bool(pad.any()):
+        shape = [1] * out.ndim
+        shape[dim] = -1
+        out = out.masked_fill(pad.view(shape), fill)
+    return out.contiguous()
+
+
+def _scatter(parts: List[torch.Tensor], dim: int, idxs: List[torch.Tensor],
+             size: int) -> torch.Tensor:
+    """The whole dim of `size` from every rank's entries (_take's inverse: a
+    zero entry dropped, a replicated one written by each of its ranks)."""
+    first = parts[0]
+    shape = list(first.shape)
+    shape[dim] = size
+    out = first.new_zeros(shape)
+    for part, idx in zip(parts, idxs):
+        idx = idx.to(first.device)
+        keep = (idx >= 0).nonzero().flatten()
+        out.index_copy_(dim % out.ndim, idx[keep], part.index_select(dim % part.ndim, keep))
+    return out
+
+
+@lru_cache(maxsize=None)
+def _zero(bits: int) -> tuple:
+    """(byte, scale) that quantize gives a zero column of a weight at `bits`
+    (int8: 0 and the clamped scale; int4: the packed pair of zeros, 8), so
+    a padded shard holds what quantize gives for its padded slice."""
+    qt = quantize_int8(torch.zeros(1, 1)) if bits == 8 else quantize_int4(torch.zeros(2, 1))
+    return int(qt.data[0, 0]), float(qt.scale[0])
+
+
+def _int4_take_rows(data: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """int4 rows idx of packed data [.., K/2, N] (every split's: a run of
+    rows, then -1s), zero where idx is -1, packed again (pack_int4) at
+    len(idx) rows; only the run's packed rows are read."""
+    keep = idx[idx >= 0]
+    if not len(keep):
+        return pack_int4(data.new_zeros((*data.shape[:-2], len(idx), data.shape[-1])))
+    lo = int(keep[0])
+    vals = int4_rows(data, lo, lo + len(keep))
+    return pack_int4(_take(vals, -2, torch.where(idx >= 0, idx - lo, -1)))
+
+
+def _shard_leaf(path: str, name: str, leaf: Any, cfg: ModelConfig, r: int, n: int) -> Any:
+    if isinstance(leaf, (EmbedQuant, EmbedQuant4)):
+        rows = _vocab_rows(cfg, r, n)
+        if isinstance(leaf, EmbedQuant):
+            return EmbedQuant(_take(leaf.q, 0, rows), _take(leaf.scale, 0, rows, _zero(8)[1]))
+        byte, scale = _zero(4)
+        return EmbedQuant4(QuantTensor(_take(leaf.qt.data, -1, rows, byte),
+                                       _take(leaf.qt.scale, 0, rows, scale), bits=4),
+                           _take(leaf.rq, 0, rows, byte))
+    quant = isinstance(leaf, QuantTensor)
+    ndim = leaf.data.ndim if quant else getattr(leaf, "ndim", 0)
+    got = _index(path, name, ndim, cfg, r, n)
+    if got is None:
         return leaf  # replicated: the same tensor on every rank
+    dim, idx = got
+    if not quant:
+        return _take(leaf, dim, idx)
     if dim == -1:
-        N = leaf.shape[-1]
-        return column_shard(leaf, _columns(name, N, cfg, r, n).to(
-            (leaf.data if isinstance(leaf, QuantTensor) else leaf).device))
-    K = leaf.shape[-2]
-    r0, r1 = r * K // n, (r + 1) * K // n
-    if isinstance(leaf, QuantTensor):
-        return row_shard(leaf, r0, r1)
-    return leaf[..., r0:r1, :].contiguous()
+        byte, scale = _zero(leaf.bits)
+        return QuantTensor(_take(leaf.data, -1, idx, byte), _take(leaf.scale, -1, idx, scale),
+                           leaf.bits)
+    if len(idx) % 2 and leaf.bits == 4:
+        raise ValueError(f"an int4 row shard needs an even row count, got {len(idx)}")
+    data = _int4_take_rows(leaf.data, idx) if leaf.bits == 4 else _take(leaf.data, -2, idx)
+    return QuantTensor(data.contiguous(), leaf.scale.clone(), leaf.bits)
 
 
 def _map_tree(params: Dict, fn, keys=()) -> Dict:
@@ -177,26 +351,25 @@ def _sizes(mesh, cfg: ModelConfig, axes) -> tuple:
 def shard_config(cfg: ModelConfig, mesh, microbatches: Optional[int] = None,
                  axes=None) -> ModelConfig:
     """The config of this rank's share of the model: under the model axis
-    its heads and MLP width, the full model's head dim and the model group
-    (tp); under the stage axis its layers (n_layers, layer0) and the stage
-    group (pp, with the forward's microbatches); under the seq axis the seq
-    group (sp); under the expert axis, for a MoE model, the expert group
-    (ep). cfg itself when no axis applies. Raises for what does not split:
-    heads, vocab rows or MLP width over the model axis, layers over the
-    stage axis (JAX's message), experts over the expert axis. axes: the axes
-    to apply (all by default; the engine's draft takes no stage axis)."""
+    its heads (head_layout: padded or replicated where they do not split),
+    its MLP width (ff_per_rank), the full model's head dim and vocabulary
+    (the head's padded columns are cut after the gather) and the model
+    group (tp); under the stage axis its layers (n_layers, layer0) and the
+    stage group (pp, with the forward's microbatches); under the seq axis
+    the seq group (sp); under the expert axis, for a MoE model, the expert
+    group (ep; experts that do not split are padded with experts the router
+    never picks). cfg itself when no axis applies. Raises JAX's error for
+    layers that do not split over the stage axis. axes: the axes to apply
+    (all by default; the engine's draft takes no stage axis)."""
     n, stage, seq, expert = _sizes(mesh, cfg, axes)
     if n == stage == seq == expert == 1:
         return cfg
     fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(ModelConfig)}
     axes = {}
     if n > 1:
-        for what, size in (("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
-                           ("d_ff", cfg.d_ff), ("vocab_size", cfg.vocab_size)):
-            if size % n:
-                raise ValueError(f"{what} = {size} does not split over the model axis of {n}")
-        fields.update(n_heads=cfg.n_heads // n, n_kv_heads=cfg.n_kv_heads // n,
-                      d_ff=cfg.d_ff // n, head_dim_override=cfg.head_dim)
+        q_heads, kv_heads = head_layout(cfg.n_heads, cfg.n_kv_heads, n, 0)
+        fields.update(n_heads=len(q_heads), n_kv_heads=len(kv_heads),
+                      d_ff=ff_per_rank(cfg.d_ff, n), head_dim_override=cfg.head_dim)
         axes["tp"] = mesh.tp
     if stage > 1:
         if cfg.n_layers % stage:
@@ -208,9 +381,6 @@ def shard_config(cfg: ModelConfig, mesh, microbatches: Optional[int] = None,
     if seq > 1:
         axes["sp"] = mesh.axis("seq")
     if expert > 1:
-        if cfg.n_experts % expert:
-            raise ValueError(f"n_experts = {cfg.n_experts} does not split over the expert "
-                             f"axis of {expert}")
         axes["ep"] = mesh.axis("expert")
     return RankConfig(**fields, **axes)
 
@@ -224,17 +394,21 @@ def _stage_leaf(leaf: Any, s: int, n: int) -> Any:
     return leaf[s * L // n:(s + 1) * L // n].contiguous()
 
 
-def _expert_leaf(leaf: torch.Tensor, e: int, n: int) -> torch.Tensor:
-    E = leaf.shape[1]
-    return leaf[:, e * E // n:(e + 1) * E // n].contiguous()
+def _experts(cfg: ModelConfig, e: int, n: int) -> torch.Tensor:
+    """Expert rank e's experts of n ranks: a block of E padded to a multiple
+    of n (-1 a zero expert, past the router's E columns, so never picked)."""
+    return _block_pad(cfg.n_experts, -(-cfg.n_experts // n), e)
 
 
 def shard_params(params: Dict, mesh, cfg: ModelConfig, axes=None) -> Dict:
     """This rank's tree of the full params (cfg: the full model's config,
-    which the fused leaves' head order needs): its layers under the stage
-    axis, its experts under the expert axis, its model shards. Sharded
-    leaves are contiguous copies; replicated leaves are the full tree's own
-    tensors. The full tree is left as it was. axes: as shard_config's."""
+    which the fused leaves' head order and the padding need): its layers
+    under the stage axis, its experts under the expert axis, its model
+    shards (a LoRA pack's leaves too: _LORA_COLUMNS, _LORA_ROWS). Sharded
+    leaves are contiguous copies, zero where padded (a quantized leaf's
+    padding what quantize gives for zeros); replicated leaves are the full
+    tree's own tensors. The full tree is left as it was. axes: as
+    shard_config's."""
     n, stage, _, expert = _sizes(mesh, cfg, axes)
     if n == stage == expert == 1:
         return params
@@ -246,7 +420,7 @@ def shard_params(params: Dict, mesh, cfg: ModelConfig, axes=None) -> Dict:
             leaf = _stage_leaf(leaf, st, stage)
         ndim = leaf.data.ndim if isinstance(leaf, QuantTensor) else getattr(leaf, "ndim", 0)
         if expert > 1 and ndim and _moe_leaf(path, ndim):
-            leaf = _expert_leaf(leaf, ex, expert)
+            leaf = _take(leaf, 1, _experts(cfg, ex, expert))
         return _shard_leaf(path, name, leaf, cfg, r, n) if n > 1 else leaf
 
     return _map_tree(params, one)
@@ -263,81 +437,80 @@ def shard_model(model: Model, mesh, microbatches: Optional[int] = None, axes=Non
 
 
 def _join_model(parts: List[Dict], cfg: ModelConfig) -> Dict:
-    """The tree of a model row from its ranks' trees, in model order."""
+    """The tree of a model row from its ranks' trees, in model order: each
+    split leaf's entries put back where _shard_leaf took them, the padding
+    dropped."""
     n = len(parts)
 
     def join(path, name, leaves):
         first = leaves[0]
-        if isinstance(first, EmbedQuant):
-            return EmbedQuant(torch.cat([e.q for e in leaves]), torch.cat([e.scale for e in leaves]))
-        if isinstance(first, EmbedQuant4):
-            return EmbedQuant4(QuantTensor(torch.cat([e.qt.data for e in leaves], dim=-1),
-                                           torch.cat([e.qt.scale for e in leaves]), bits=4),
-                               torch.cat([e.rq for e in leaves]))
+        if isinstance(first, (EmbedQuant, EmbedQuant4)):
+            rows = [_vocab_rows(cfg, r, n) for r in range(n)]
+            V = cfg.vocab_size
+            if isinstance(first, EmbedQuant):
+                return EmbedQuant(_scatter([e.q for e in leaves], 0, rows, V),
+                                  _scatter([e.scale for e in leaves], 0, rows, V))
+            return EmbedQuant4(QuantTensor(_scatter([e.qt.data for e in leaves], -1, rows, V),
+                                           _scatter([e.qt.scale for e in leaves], 0, rows, V),
+                                           bits=4),
+                               _scatter([e.rq for e in leaves], 0, rows, V))
         quant = isinstance(first, QuantTensor)
         ndim = first.data.ndim if quant else getattr(first, "ndim", 0)
-        dim = _model_dim(path, ndim) if ndim else None
-        if dim is None:
+        got = [_index(path, name, ndim, cfg, r, n) for r in range(n)]
+        if got[0] is None:
             return first
+        dim, idxs = got[0][0], [i for _, i in got]
+        N = _whole(name, cfg)
+        if not quant:
+            return _scatter(leaves, dim, idxs, N)
         if dim == -1:
-            N = first.shape[-1] * n
-            idx = torch.cat([_columns(name, N, cfg, r, n) for r in range(n)])
-            inv = torch.argsort(idx)
-
-            def gather(ts):
-                return torch.cat(ts, dim=-1).index_select(-1, inv.to(ts[0].device))
-
-            if quant:
-                return QuantTensor(gather([p.data for p in leaves]),
-                                   gather([p.scale for p in leaves]), first.bits)
-            return gather(leaves)
-        if quant and first.bits == 4:
+            return QuantTensor(_scatter([p.data for p in leaves], -1, idxs, N),
+                               _scatter([p.scale for p in leaves], -1, idxs, N), first.bits)
+        if first.bits == 4:
             rows = [int4_rows(p.data, 0, p.shape[-2]) for p in leaves]
-            return QuantTensor(pack_int4(torch.cat(rows, dim=-2)), first.scale, 4)
-        if quant:
-            return QuantTensor(torch.cat([p.data for p in leaves], dim=-2), first.scale, 8)
-        return torch.cat(leaves, dim=-2)
+            return QuantTensor(pack_int4(_scatter(rows, -2, idxs, N)), first.scale, 4)
+        return QuantTensor(_scatter([p.data for p in leaves], -2, idxs, N), first.scale, 8)
 
-    def walk(trees, keys=()):
-        out = {}
-        for k, v in trees[0].items():
-            sub = [t[k] for t in trees]
-            out[k] = (walk(sub, keys + (k,)) if isinstance(v, dict)
-                      else join(_keystr(keys + (k,)), k, sub))
-        return out
-
-    return walk(parts)
+    return _zip_tree(parts, join)
 
 
 def unshard_params(parts: List[Dict], cfg: ModelConfig,
                    shape: Optional[Dict[str, int]] = None) -> Dict:
     """The full tree from every rank's shard_params tree, in rank order over
     a mesh of `shape` (default: a model axis of every part), shard_params'
-    inverse: the same bytes. The axes are joined from the minor one out:
-    the model shards, then (seq and data replicate) the expert stacks on
-    dim 1, then the stages' layers on dim 0."""
+    inverse: the same bytes, the padding dropped. The axes are joined from
+    the minor one out: the model shards, then (seq and data replicate) the
+    expert stacks on dim 1, then the stages' layers on dim 0."""
     from llm_inference_lab_tpu_torch.parallel.mesh import AXES
 
     shape = shape or {"model": len(parts)}
 
-    def cat(trees, dim, which):
+    def experts(trees):
+        k = len(trees)
+
+        def join(path, name, leaves):
+            ndim = getattr(leaves[0], "ndim", 0)
+            if not (ndim and _moe_leaf(path, ndim)):
+                return leaves[0]
+            return _scatter(leaves, 1, [_experts(cfg, e, k) for e in range(k)], cfg.n_experts)
+
+        return _zip_tree(trees, join)
+
+    def stages(trees):
         def join(path, name, leaves):
             first = leaves[0]
-            ndim = first.data.ndim if isinstance(first, QuantTensor) else getattr(first, "ndim", 0)
-            if not (ndim and which(path, ndim)):
+            if "['layers']" not in path:
                 return first
             if isinstance(first, QuantTensor):
-                return QuantTensor(torch.cat([p.data for p in leaves], dim=dim),
-                                   torch.cat([p.scale for p in leaves], dim=dim)
-                                   if dim == 0 else first.scale, first.bits)
-            return torch.cat(leaves, dim=dim)
+                return QuantTensor(torch.cat([p.data for p in leaves]),
+                                   torch.cat([p.scale for p in leaves]), first.bits)
+            return torch.cat(leaves)
 
         return _zip_tree(trees, join)
 
     joins = {"model": lambda trees: _join_model(trees, cfg),
              "seq": lambda trees: trees[0], "data": lambda trees: trees[0],
-             "expert": lambda trees: cat(trees, 1, _moe_leaf) if cfg.moe else trees[0],
-             "stage": lambda trees: cat(trees, 0, lambda path, ndim: "['layers']" in path)}
+             "expert": experts if cfg.moe else lambda trees: trees[0], "stage": stages}
     items = list(parts)
     for axis in reversed(AXES):
         k = shape.get(axis, 1)
@@ -376,25 +549,32 @@ def shard_state(state: DecodeState, mesh) -> DecodeState:
     (D)] only its KV heads (the page axis whole on every rank, as JAX's) and
     its table its rows (JAX replicates the table; a rank's step reads its
     own rows only); rng and steps whole; row0 the global number of the
-    rank's first row."""
+    rank's first row. The KV heads are the rank's of head_layout: where
+    they do not split, the one it shares (JAX replicates the axis) or zero
+    heads past the last (their int8 scales ones, as a fresh cache's)."""
     data = (mesh.coords["data"], mesh.shape["data"])
-    model = (mesh.coords["model"], mesh.shape["model"])
+    n, r = mesh.shape["model"], mesh.coords["model"]
     stage = (mesh.coord("stage"), mesh.shape.get("stage", 1))
     seq = (mesh.coord("seq"), mesh.shape.get("seq", 1))
+
+    def heads(t, fill=0):
+        if t is None or n == 1:
+            return t
+        kv = torch.tensor(head_layout(t.shape[2], t.shape[2], n, r)[1])
+        return _take(t, 2, kv, fill)
 
     def cache(c):
         if c is None:
             return None
         if isinstance(c, PagedKVCache):
-            heads = {2: model}
-            return PagedKVCache(k=_part(c.k, heads), v=_part(c.v, heads),
-                                table=_part(c.table, {0: data}), k_scale=_part(c.k_scale, heads),
-                                v_scale=_part(c.v_scale, heads))
-        dims = {0: stage, 1: data, 2: model, 3: seq}
+            return PagedKVCache(k=heads(c.k), v=heads(c.v), table=_part(c.table, {0: data}),
+                                k_scale=heads(c.k_scale, 1.0), v_scale=heads(c.v_scale, 1.0))
+        dims = {0: stage, 1: data, 3: seq}
         T, n_seq = c.k.shape[3], seq[1]
         t0 = seq[0] * (T // n_seq) if n_seq > 1 and T % n_seq == 0 else None
-        return KVCache(_part(c.k, dims), _part(c.v, dims), _part(c.k_scale, dims),
-                       _part(c.v_scale, dims), t0)
+        return KVCache(_part(heads(c.k), dims), _part(heads(c.v), dims),
+                       _part(heads(c.k_scale, 1.0), dims), _part(heads(c.v_scale, 1.0), dims),
+                       t0)
 
     fields = {name: (getattr(state, name) if name in ("rng", "steps")
                      else _part(getattr(state, name), {0: data})) for name in FIELDS}

@@ -191,11 +191,6 @@ def _mesh_engine(data=1, model=1, axes=None, **kw):
                   mesh=_mesh(data, model, **(axes or {})))
 
 
-def _refuse_mesh_lora(**axes):
-    ad = lora.make_adapter(LLAMA_CONFIGS["llama-tiny"], "a", rank=2)
-    Engine(EngineConfig(**TINY), device="cpu", mesh=_mesh(**axes), lora_adapters=[ad])
-
-
 def _refuse_slice_options():
     from llm_inference_lab_tpu_torch.ops.attention import attend_slices
 
@@ -203,23 +198,6 @@ def _refuse_slice_options():
     kv = torch.zeros((1, 2, 16, 64))
     attend_slices(q, kv, kv, torch.zeros((1, 1), dtype=torch.int32), 16, group=None, span=32,
                   softcap=50.0)
-
-
-def _refuse_experts():
-    from dataclasses import replace
-
-    from llm_inference_lab_tpu_torch.models.mixtral import MIXTRAL_CONFIGS
-    from llm_inference_lab_tpu_torch.parallel.sharding import shard_config
-
-    shard_config(replace(MIXTRAL_CONFIGS["mixtral-tiny"], n_experts=3), _mesh(expert=2))
-
-
-def _refuse_mesh_heads():
-    from dataclasses import replace
-
-    from llm_inference_lab_tpu_torch.parallel.sharding import shard_config
-
-    shard_config(replace(LLAMA_CONFIGS["llama-tiny"], n_kv_heads=3, n_heads=3), _mesh(model=2))
 
 
 def _refuse_multihost(axes=None, **kw):
@@ -240,30 +218,18 @@ REFUSE = {"ring_serving_without_admit_chunk": _refuse_ring_serving,
           "lora_mlp_without_gated_mlp": _refuse_lora_mlp,
           "unknown_config_key": _refuse_config_key,
           "mesh_shape_differs": lambda: _mesh_engine(data=2, mesh_shape={"model": 2}),
-          "mesh_lora_under_model": lambda: _refuse_mesh_lora(model=2),
-          "mesh_lora_seq_expert": lambda: _refuse_mesh_lora(expert=2),
-          "mesh_profiler_seq_stage_expert": lambda: _mesh_engine(axes=dict(seq=2), profile=True),
           "mesh_seq_paged": lambda: _mesh_engine(axes=dict(seq=2), kv_layout="paged",
                                                  kv_page_size=32),
           "mesh_seq_tree": lambda: _mesh_engine(axes=dict(seq=2), draft_mode="tree"),
           "mesh_seq_slice_options": _refuse_slice_options,
-          "mesh_experts_do_not_split": _refuse_experts,
           "mesh_batcher_seq_stage": lambda: ContinuousBatcher(
               _mesh_engine(axes=dict(stage=2)), n_slots=2),
-          "multihost_seq_stage_expert": lambda: _refuse_multihost(axes=dict(expert=2)),
-          "mesh_fake_under_model": lambda: Engine(
-              EngineConfig(implementation="fake", base_model="fake", draft_model="fake"),
-              device="cpu", mesh=_mesh(model=2)),
-          "mesh_profiler_under_model": lambda: _mesh_engine(model=2, profile=True),
-          "mesh_heads_do_not_split": _refuse_mesh_heads,
+          "multihost_seq_stage": lambda: _refuse_multihost(axes=dict(stage=2)),
           "mesh_batch_does_not_split": lambda: _mesh_engine(data=2).generate_batch(["a"]),
           "mesh_batcher_data_axis": lambda: ContinuousBatcher(_mesh_engine(data=2), n_slots=2),
           "mesh_slots_do_not_split": _refuse_slots,
-          "multihost_prefix_caching": lambda: _refuse_multihost(
-              kv_layout="paged", kv_page_size=32, prefix_caching=True),
           "multihost_kv_ring": lambda: _refuse_multihost(
-              base_model="mistral-tiny", max_seq_len=512, kv_ring=True, prefill_chunk=32),
-          "multihost_cancel": lambda: _refuse_multihost().cancel(0)}
+              base_model="mistral-tiny", max_seq_len=512, kv_ring=True, prefill_chunk=32)}
 
 
 @pytest.mark.parametrize("refusal", features.port_refusals(), ids=lambda r: r["name"])

@@ -46,7 +46,7 @@ from llm_inference_lab_tpu_torch.core.engine import Engine
 from llm_inference_lab_tpu_torch.core.state import FIELDS, init_state
 from llm_inference_lab_tpu_torch.models import llama
 from llm_inference_lab_tpu_torch.models.base import Model, ModelConfig
-from llm_inference_lab_tpu_torch.ops.quant import EmbedQuant, EmbedQuant4, QuantTensor, row_shard
+from llm_inference_lab_tpu_torch.ops.quant import EmbedQuant, EmbedQuant4, QuantTensor
 from llm_inference_lab_tpu_torch.parallel.mesh import Mesh
 from llm_inference_lab_tpu_torch.parallel.multihost import launch
 from llm_inference_lab_tpu_torch.parallel.sharding import (
@@ -228,15 +228,17 @@ def test_shard_params_equals_numpy_slices_and_rebuilds(n, quant):
 
 @pytest.mark.parametrize("n", [2, 3, 4])
 def test_int4_row_shard_unpacks_to_the_rows_exactly(n):
-    """Rows [r K/n, (r+1) K/n) of a packed int4 weight, a shard at 3 ranks
-    straddling K/2 included, repacked at K/n."""
+    """Rows [r K/n, (r+1) K/n) of a packed int4 w_down (shard_params), a shard
+    at 3 ranks straddling K/2 included, repacked at K/n, the scale whole."""
     g = np.random.default_rng(n)
     K, N = 192, 64
     data = torch.from_numpy(g.integers(-128, 128, (2, K // 2, N)).astype(np.int8))
     scale = torch.from_numpy(g.random((2, N)).astype(np.float32))
     vals = np_unpack4(data.numpy())
+    cfg = ModelConfig(n_heads=n, n_kv_heads=n, d_model=16 * n, d_ff=K)
     for r in range(n):
-        sh = row_shard(QuantTensor(data, scale, bits=4), r * K // n, (r + 1) * K // n)
+        sh = shard_params({"layers": {"w_down": QuantTensor(data, scale, bits=4)}},
+                          fake_mesh(n, r), cfg)["layers"]["w_down"]
         assert sh.data.shape == (2, K // n // 2, N) and sh.data.is_contiguous()
         np.testing.assert_array_equal(np_unpack4(sh.data.numpy()),
                                       vals[:, r * K // n:(r + 1) * K // n])
@@ -343,26 +345,22 @@ def test_refusals_under_a_mesh():
     want = {"stage_seq": "ValueError: stage (pipeline) and seq (ring-attention) axes are mutually "
                          "exclusive",
             "too_small": "ValueError: mesh 4x1x1x1x2 needs 8 devices, have 4",
-            "lora": "NotImplementedError: LoRA under tensor parallelism",
             "mesh_differs": "ValueError: the mesh given ({'data': 2, 'model': 2}) differs from "
                             "cfg.mesh_shape ({'model': 4})",
-            "profile": "NotImplementedError: the profiler under the model axis",
-            "fake": "NotImplementedError: the fake model has no heads",
             "batcher_seq": "NotImplementedError: a ContinuousBatcher under the seq or stage axis",
-            "multihost_stage": "NotImplementedError: MultiHostBatcher under the seq, stage or "
-                               "expert axis",
+            "multihost_stage": "NotImplementedError: MultiHostBatcher under the seq or stage "
+                               "axis",
             "batcher_data": "ValueError: a ContinuousBatcher on a mesh with a data axis",
             "slots_split": "ValueError: n_slots (3) must split over the data axis (2)",
-            "batch_split": "ValueError: 3 rows do not split over the data axis of 2",
-            "cancel": "NotImplementedError: cancel under MultiHostBatcher",
-            "prefix": "NotImplementedError: prefix caching under MultiHostBatcher"}
+            "batch_split": "ValueError: 3 rows do not split over the data axis of 2"}
     for r in range(4):
         for name, fragment in want.items():
             assert fragment in got[r].get(name, ""), (r, name, got[r].get(name))
         assert got[r]["auto_mesh"] == {"data": 1, "model": 4}
-        assert ("submit" in got[r]) == (r != 0)
+        assert ("submit" in got[r]) == ("cancel" in got[r]) == (r != 0)
         if r:
             assert "RuntimeError: submit() is coordinator-only" in got[r]["submit"]
+            assert "RuntimeError: cancel() is coordinator-only" in got[r]["cancel"]
 
 
 # ------------------------------------------------------------ shard_state

@@ -126,8 +126,6 @@ def engine_ids(configs: dict, cfg_kws: list, target_params, draft_params, prompt
 
 def refusals(configs: dict, cfg_kw: dict, target_params) -> dict:
     """The messages of what a mesh refuses, on a world of 4 ranks."""
-    from llm_inference_lab_tpu_torch.models.lora import make_adapter
-
     register(configs)
     out = {}
 
@@ -144,15 +142,8 @@ def refusals(configs: dict, cfg_kw: dict, target_params) -> dict:
     caught("too_small", lambda: make_mesh(data=4, model=2))
     mesh = make_mesh(data=2, model=2)
     base = EngineConfig(**cfg_kw)
-    tcfg = configs[base.base_model]
-    caught("lora", lambda: Engine(base, device="cpu", target_params=target_params, mesh=mesh,
-                                  lora_adapters=[make_adapter(tcfg, "a", rank=2)]))
-    caught("profile", lambda: Engine(EngineConfig(**dict(cfg_kw, profile=True)), device="cpu",
-                                     target_params=target_params, mesh=mesh))
     caught("mesh_differs", lambda: Engine(EngineConfig(**dict(cfg_kw, mesh_shape={"model": 4})),
                                           device="cpu", target_params=target_params, mesh=mesh))
-    caught("fake", lambda: Engine(EngineConfig(implementation="fake", base_model="fake",
-                                               draft_model="fake"), device="cpu", mesh=mesh))
     from llm_inference_lab_tpu_torch.core.batching import ContinuousBatcher
 
     seq_mesh, stage_mesh = make_mesh(seq=2, model=2), make_mesh(stage=2, model=2)
@@ -165,12 +156,9 @@ def refusals(configs: dict, cfg_kw: dict, target_params) -> dict:
     caught("slots_split", lambda: MultiHostBatcher(eng, n_slots=3))
     caught("batch_split", lambda: eng.generate_batch(["one", "two", "three"]))
     mh = MultiHostBatcher(eng, n_slots=4)
-    caught("cancel", lambda: mh.cancel(0))
     if not mh.is_coordinator:
         caught("submit", lambda: mh.submit("x"))
-    caught("prefix", lambda: MultiHostBatcher(Engine(
-        EngineConfig(**dict(cfg_kw, kv_layout="paged", kv_page_size=32, prefix_caching=True)),
-        device="cpu", target_params=target_params, mesh=mesh), n_slots=4))
+        caught("cancel", lambda: mh.cancel(0))
     return out
 
 
@@ -362,4 +350,105 @@ def batcher_ids(configs: dict, kw: dict, target_params, prompts, mesh_shape: dic
                                  mesh=mesh), n_slots=n_slots)
     for prompt in prompts:
         b.submit(prompt)
+    return [r["generated_ids"] for r in sorted(b.run(), key=lambda r: r["req_id"])]
+
+
+# --------------- padded sizes, LoRA, the fake model, the profiler, MultiHostBatcher
+def jobs(items) -> list:
+    """Each (name of a function of this module, args) in order, on every rank
+    of one world (each job makes its meshes, collectively): their results on
+    this rank. One launch runs a test file's every multi-rank check."""
+    return [globals()[name](*args) for name, args in items]
+
+
+def lora_engine_ids(configs: dict, kw: dict, target_params, adapters, prompts,
+                    mesh_shape: dict, names, requests=None) -> dict:
+    """An Engine with LoRA adapters (models/lora.py Adapters) on a mesh of
+    mesh_shape: generate_batch's ids of the prompts under each adapter name
+    of `names` (None the base model) and, with requests ((prompt, budget,
+    adapter) triples), a MultiHostBatcher's ids of each in request order."""
+    register(configs)
+    eng = Engine(EngineConfig(**kw), device="cpu", target_params=target_params,
+                 mesh=make_mesh(**mesh_shape), lora_adapters=adapters)
+    out = {"batch": {name: [r["generated_ids"] for r in eng.generate_batch(prompts,
+                                                                            adapter=name)]
+                     for name in names}}
+    if requests is not None:
+        b = MultiHostBatcher(eng, n_slots=4)
+        if b.is_coordinator:
+            for prompt, budget, name in requests:
+                b.submit(prompt, max_new_tokens=budget, lora=name)
+        out["served"] = [r["generated_ids"] for r in sorted(b.run(), key=lambda r: r["req_id"])]
+    return out
+
+
+def fake_and_profile(configs: dict, fake_kw: dict, prompts, profile_kw: dict, target_params,
+                     draft_params, shapes) -> dict:
+    """The fake engine's generate_batch ids on a (data 2, model 2) mesh, and
+    for each mesh shape of `shapes` a profiled engine's generate_batch: its
+    ids, the profiler's summary (phase_ms filled) and profile_phases()
+    called again."""
+    register(configs)
+    fake = Engine(EngineConfig(**fake_kw), device="cpu", mesh=make_mesh(data=2, model=2))
+    out = {"fake": [r["generated_ids"] for r in fake.generate_batch(prompts)],
+           "fake_eager": fake.eager_loops}
+    for shape in shapes:
+        eng = Engine(EngineConfig(**profile_kw), device="cpu", target_params=target_params,
+                     draft_params=draft_params, mesh=make_mesh(**shape))
+        ids = [r["generated_ids"] for r in eng.generate_batch(prompts)]
+        out["x".join(f"{k}{v}" for k, v in shape.items())] = (
+            ids, eng.profiler.summary(), eng.profile_phases(), eng.eager_loops)
+    return out
+
+
+def mh_prefix_cancel(configs: dict, kw: dict, target_params, draft_params, requests,
+                     cancel_reqs, mesh_shape: dict) -> dict:
+    """MultiHostBatcher on a mesh of mesh_shape: (a) prefix-cached serving of
+    (prompt, budget) requests, each result's ids, prompt tokens reused and
+    slot; (b) the cancel_reqs through a batcher driven by hand: request 5
+    cancelled while queued, then after the first chunk request 1 in flight;
+    every result's ids and finish reason, and what cancel returned. (a)'s
+    results also carry their token log-probs."""
+    register(configs)
+    mesh = make_mesh(**mesh_shape)
+    n_slots = 2 * mesh.shape["data"]
+    out = {}
+    eng = Engine(EngineConfig(**kw), device="cpu", target_params=target_params,
+                 draft_params=draft_params, mesh=mesh)
+    b = MultiHostBatcher(eng, n_slots=n_slots)
+    if b.is_coordinator:
+        for prompt, budget in requests:
+            b.submit(prompt, max_new_tokens=budget)
+    out["prefix"] = [{k: r[k] for k in ("req_id", "generated_ids", "prompt_tokens_reused",
+                                        "slot", "finish_reason", "token_logprobs")}
+                     for r in sorted(b.run(), key=lambda r: r["req_id"])]
+    b = MultiHostBatcher(Engine(EngineConfig(**dict(kw, prefix_caching=False)), device="cpu",
+                                target_params=target_params, draft_params=draft_params,
+                                mesh=mesh), n_slots=n_slots)
+    said = []
+    if b.is_coordinator:
+        for prompt, budget in cancel_reqs:
+            b.submit(prompt, max_new_tokens=budget)
+        said.append(b.cancel(5))  # queued: four slots hold requests 0-3
+    with torch.inference_mode():
+        b._sync_poll()
+        b.step_chunk(b.poll_every)
+        b._retire_finished()
+    if b.is_coordinator:
+        said += [b.cancel(1), b.cancel(99)]  # in flight; never submitted
+    out["cancel"] = [{k: r[k] for k in ("req_id", "generated_ids", "finish_reason")}
+                     for r in sorted(b.run(), key=lambda r: r["req_id"])]
+    out["said"] = said
+    return out
+
+
+def mh_expert(configs: dict, kw: dict, target_params, requests, mesh_shape: dict) -> list:
+    """MultiHostBatcher on a mesh of mesh_shape (data x expert): each
+    request's ids, in request order."""
+    register(configs)
+    b = MultiHostBatcher(Engine(EngineConfig(**kw), device="cpu", target_params=target_params,
+                                mesh=make_mesh(**mesh_shape)), n_slots=4)
+    if b.is_coordinator:
+        for prompt, budget in requests:
+            b.submit(prompt, max_new_tokens=budget)
     return [r["generated_ids"] for r in sorted(b.run(), key=lambda r: r["req_id"])]
