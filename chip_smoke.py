@@ -441,6 +441,9 @@ SAMPLED = dict(greedy=False, temperature=0.8, top_p=0.95, policy="rejection",
 GREEDY_POLICIES = {"conf_threshold": dict(policy="conf_threshold"),
                    "topk_agree": dict(policy="topk_agree"), "typical": dict(policy="typical"),
                    "host adaptive K": dict(controller="adaptive", controller_params={"max_k": 4})}
+# Their new tokens (K=4 at an acceptance of 0 on random weights: a token a
+# step; cut from the main path's 64 to leave room for phase 29).
+GREEDY_POLICIES_NEW = 32
 SAMPLE_DRAWS = 1 << 16  # draws of phase 2's sampling check
 SAMPLE_TV = 0.02  # their total variation bound (JAX's tests/test_policies.py's)
 KV_ALIGN_STEPS = 4  # kv_alignment_report's tolerance, in int8 steps (phase_kv_alignment)
@@ -598,11 +601,13 @@ HEAD_F32_K, HEAD_V, HEAD_F32_M = (3072, 2048), 128256, (1, 2, 5, 104)
 INT4 = {"rms_norm", "add_rms_norm", "quant_matmul_int4", "quant_matmul_int4_mma"}
 TP_PATH = "generate int4 model=2 (2 ranks sharing the card over gloo)"
 DP_PATH = "serving int4 MultiHostBatcher data=2 (16 requests, 2 ranks)"
-TPDP_PATH = "serving int4 MultiHostBatcher data=2 x model=2 (16 requests, 4 ranks)"
-# Phase 26 (a)'s new tokens, and (c)'s budgets (phase 3b's capped at this):
-# their eager steps take ~0.25 and ~0.46 s, cut from the main path's to
-# leave room for phase 28 in the script's time limit.
-TP_NEW, TPDP_NEW = 16, 4
+TPDP_PATH = "serving int4 MultiHostBatcher data=2 x model=2 (8 requests, 4 ranks)"
+# Phase 26 (a)'s new tokens, and (c)'s budgets (phase 3b's capped at this)
+# and requests (phase 3b's first TPDP_N: one admission wave): their eager
+# steps take ~0.25 and ~2.5 s, and (c)'s prefill hops by the host in f32
+# partials (four ranks on the host), cut from the main path's to leave
+# room for phases 28 and 29 in the script's time limit.
+TP_NEW, TPDP_NEW, TPDP_N = 16, 4, 8
 PARALLEL_PATHS = [TP_PATH, DP_PATH, TPDP_PATH]
 # Phases 26 (d) and 27: the int8 model axis and the seq, stage and expert
 # axes, ranks sharing the card over gloo.
@@ -610,9 +615,11 @@ TP8_PATH = "generate int8 model=2 (2 ranks sharing the card over gloo)"
 SEQ_PATH = "generate int4 seq=2, a 4064-token prompt (2 ranks sharing the card over gloo)"
 SEQ8_PATH = "generate int8 seq=2, int8 KV (2 ranks sharing the card over gloo)"
 STAGE_PATH = "generate int4 stage=2 (2 ranks sharing the card over gloo)"
-STAGE_TP_PATH = "generate_batch int4 stage=2 x model=2 (16 prompts, 4 ranks)"
-# Phase 27 (c)'s new tokens a prompt (its eager steps take ~0.8 s; cut from
-# the main path's 64 to leave room for phase 28 in the script's time limit).
+STAGE_TP_PATH = "generate_batch int4 stage=2 x model=2 (8 prompts, 4 ranks)"
+# Phase 27 (c)'s new tokens a prompt, over phase 3b's first TPDP_N prompts
+# (its prefill's partials hop by the host, four ranks on it: cut from the
+# main path's 64 tokens and 16 prompts to leave room for phases 28 and 29
+# in the script's time limit).
 STAGE_TP_NEW = 4
 # Phase 27 (d): Mixtral-8x7B at full width cut to EXPERT_LAYERS layers: each
 # rank builds the whole cut model on the card (11.8 GB in bf16) before it
@@ -632,6 +639,18 @@ PREFIX_DP_PATH = ("serving int4 MultiHostBatcher data=2 system-prompt prefix cac
 QWEN_TP_PATH = "generate Qwen2.5-1.5B int8 + 0.5B draft K=4 model=4 (4 ranks)"
 MESH_FEATURE_PATHS = [ADAPTERS_TP_PATH, PROFILE_TP_PATH, FAKE_TP_PATH, GPT2_TP_PATH,
                       PREFIX_DP_PATH, QWEN_TP_PATH]
+# Phase 29: serving under the seq and stage axes, ranks sharing the card
+# over gloo (named apart from the paths the filters below pick by
+# substring: "Tree", "Gemma-2").
+SEQ_SERVE_PATH = "serving int4 seq=2 contiguous, phase 3b's first 8 requests (2 ranks)"
+STAGE_SERVE_PATH = "serving int4 stage=2 contiguous, phase 3b's first 8 requests (2 ranks)"
+SEQ_TREE_PATH = "generate int4 Tree [3, 2] seq=2 (2 ranks)"
+SEQ_TREE_SERVE_PATH = "serving int4 Tree [3, 2] seq=2 paged, 8 requests (2 ranks)"
+SEQ_PREFIX_PATH = "serving int4 seq=2 paged prefix cache, phase 14 (b)'s traffic (2 ranks)"
+SEQ_GEMMA_PATH = "serving Gemma-2 9B int4 + 2B seq=2 contiguous, 8 requests (2 ranks)"
+SEQ_DP_PATH = "serving int4 MultiHostBatcher data=2 x seq=2 contiguous, 8 requests (4 ranks)"
+SEQ_STAGE_PATHS = [SEQ_SERVE_PATH, STAGE_SERVE_PATH, SEQ_TREE_PATH, SEQ_TREE_SERVE_PATH,
+                   SEQ_PREFIX_PATH, SEQ_GEMMA_PATH, SEQ_DP_PATH]
 INT8 = {"rms_norm", "add_rms_norm", "quant_matmul_int8", "quant_matmul_int8_mma"}
 HEAD4 = {"quant_matmul_int4_f32", "quant_matmul_int4_f32_mma"}  # the EmbedQuant4 head
 LN = {"layer_norm", "add_layer_norm"}  # GPT-2's and OPT's norms
@@ -740,7 +759,7 @@ PATH_KERNELS = {
     # Phase 24: JAX's pipelined loop on phase 3's weights (the serving
     # path's kernels).
     "serving int4 pipelined loop (16 requests)": INT4 | SERVE,
-    "serving int4 pipelined loop, staggered arrivals (32 requests)": INT4 | SERVE,
+    "serving int4 pipelined loop, staggered arrivals (16 requests)": INT4 | SERVE,
     # Phase 25: the bench harness on phase 3's engine settings. The sweep's
     # B = 10 rows stay under MMA_MIN_M at every K (verify 10 x (K + 1) <=
     # 50); its prefill (10 x 64 rows) and the baseline comparison's (160)
@@ -767,6 +786,20 @@ PATH_KERNELS = {
     GPT2_TP_PATH: LN | {"flash_decode", "flash_prefill"},
     PREFIX_DP_PATH: INT4 | SERVE,
     QWEN_TP_PATH: INT8 | SPEC | {"quant_matmul_int8_f32", "quant_matmul_int8_f32_mma"},
+    # Phase 29: a contiguous cache split on T decodes through D's shard
+    # variants (Gemma-2's softcap through its options variant, the tree's
+    # verify chunk through its ancestry-word variant) and admits through a
+    # whole scratch (E); generate's prefill is the ring (E's shard
+    # variant); a paged pool is whole on every seq rank (F); under stage a
+    # pipeline of phase 3b's kernels. The tree walks its own path (no C); 8
+    # slots x 10 tree rows take A's tensor-core path only.
+    SEQ_SERVE_PATH: INT4 | {"flash_prefill", "flash_decode_shard", "verify_prefix"},
+    STAGE_SERVE_PATH: INT4 | SPEC,
+    SEQ_TREE_PATH: INT4 | {"flash_prefill_shard", "flash_decode_shard_tree"},
+    SEQ_TREE_SERVE_PATH: INT4 - {"quant_matmul_int4"} | {"flash_prefill", "paged_flash_tree"},
+    SEQ_PREFIX_PATH: INT4 | SERVE,
+    SEQ_GEMMA_PATH: INT4 | {"flash_prefill", "flash_decode_shard_opts", "verify_prefix"},
+    SEQ_DP_PATH: INT4 | {"flash_prefill", "flash_decode_shard", "verify_prefix"},
 }
 GEMMA_PATHS = [path for path in PATH_KERNELS if "gemma-2" in path]
 MISTRAL_PATHS = [path for path in PATH_KERNELS if "mistral" in path]
@@ -804,7 +837,7 @@ TP_LOGIT_RTOL = 2.0 ** -6
 PIPELINE_PATHS = [path for path in PATH_KERNELS if "pipelined loop" in path]
 # Phase 24 (b): request i is phase 3b's prompt i % 16 with a budget of 16 to
 # 128 tokens; STAGGER_ARRIVALS are submitted after every chunk.
-STAGGER_N, STAGGER_ARRIVALS = 32, 2
+STAGGER_N, STAGGER_ARRIVALS = 16, 2
 STAGGER_BUDGETS = [16 + (37 * i) % 113 for i in range(STAGGER_N)]
 ADAPTIVE_BUDGET = 192  # phase 24 (c): new tokens of each ngram request
 # Phase 3b's ids by request (phase_serving), which phase 22 holds its free
@@ -2627,6 +2660,7 @@ def phase_ngram(dev, profile, path, cfg=None, label=f"3B int8 ngram K={NGRAM_K}"
         lp = torch.tensor(r["token_logprobs"])
         assert len(lp) == r["generated_tokens"] and torch.isfinite(lp).all(), "bad logprobs"
     ids_digest(path, [ids])
+    END_TO_END_IDS[path] = ids  # phase 29 (c)'s reference for the tree
     base_eng = Engine(replace(cfg, draft_mode="vanilla"), device=dev,
                       target_params=eng.target.params)
     base_eng.generate(prompt)
@@ -2698,7 +2732,8 @@ def phase_sampling(dev, eng, profile, paths):
     if profile:
         profile_run(f"generate ({label})", lambda: samp.generate(PROMPT, seed=1),
                     statistics.median(r["latency_ms"] for r in rs))
-    greedy = {what: engine(max_draft=4, **kw) for what, kw in GREEDY_POLICIES.items()}
+    greedy = {what: engine(max_draft=4, max_new_tokens=GREEDY_POLICIES_NEW, **kw)
+              for what, kw in GREEDY_POLICIES.items()}
     # The first run of each (the warm-up and the captures) against a fresh
     # host-loop engine's: the host adaptive controller keeps its K and
     # window from call to call, as JAX's does.
@@ -3431,6 +3466,7 @@ def phase_head_generate(dev, profile, eng, path, label):
         lp = torch.tensor(r["token_logprobs"])
         assert len(lp) == r["generated_tokens"] and torch.isfinite(lp).all(), "bad logprobs"
     ids_digest(path, [ids])
+    END_TO_END_IDS[path] = ids  # phase 29 (c)'s reference for the tree
     base_eng = Engine(replace(eng.config, draft_mode="vanilla", draft_model=None), device=dev,
                       target_params=eng.target.params)
     base_eng.generate(PROMPT)
@@ -5833,10 +5869,11 @@ def phase_pipelined_serving(dev, eng, paths):
         stagger_ids.setdefault(name, [r["generated_ids"] for r in rs])
         del b, admits
         gc.collect()
-    log("24(b) staggered arrivals (32 requests, budgets 16-128, 2 submitted a chunk), in turns "
-        "(admit_span_ms: CUDA events around each admission call, host enqueue gaps included, an "
-        "upper bound of its device time; busy_share: the replays' device ms (replays x a "
-        "replay's ms) over the wall, and with the admission spans added): " + json.dumps(rows))
+    log(f"24(b) staggered arrivals ({STAGGER_N} requests, budgets 16-128, 2 submitted a "
+        "chunk), in turns (admit_span_ms: CUDA events around each admission call, host "
+        "enqueue gaps included, an upper bound of its device time; busy_share: the "
+        "replays' device ms (replays x a replay's ms) over the wall, and with the "
+        "admission spans added): " + json.dumps(rows))
     base = stagger_ids["off"]
     ids_digest(paths[1], base)
     differ = 0
@@ -6433,23 +6470,30 @@ def rank_counts(path, run, last_stage=True):
 
 
 def rank_generate_serve():
-    """Phase 26 (a) and (b), one rank of two (one start of two processes):
-    rank_generate on a model=2 mesh, then rank_serve at data=2."""
+    """Phases 26 (a), (b), 28 (a)-(e) and 29 (a)-(e), one rank of two (one
+    start of two processes): rank_generate on a model=2 mesh, rank_serve at
+    data=2, rank_mesh_features, then rank_seq_stage; the phases check their
+    results later (MESH_RUN, SEQ_STAGE_RUN), once their references exist."""
     out = dict(generate=rank_generate())
-    gc.collect()
-    torch.cuda.empty_cache()
-    out["serve"] = rank_serve(1)
+    for name, fn in (("serve", lambda: rank_serve(1)), ("mesh", rank_mesh_features),
+                     ("seq_stage", rank_seq_stage)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[name] = fn()
     return out
 
 
 def rank_serve_stage():
-    """Phase 26 (c), 27 (c) and 28 (f), one rank of four (one start of four
-    processes): rank_serve at data=2 x model=2, then rank_stage_model
-    (which runs rank_qwen_tp)."""
+    """Phase 26 (c), 27 (c), 28 (f) and 29 (f), one rank of four (one start
+    of four processes): rank_serve at data=2 x model=2, then
+    rank_stage_model (which runs rank_qwen_tp), then rank_seq_dp."""
     out = dict(serve=rank_serve(2))
     gc.collect()
     torch.cuda.empty_cache()
     out["stage"] = rank_stage_model()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seq_dp"] = rank_seq_dp()
     return out
 
 
@@ -6493,7 +6537,7 @@ def rank_generate():
     assert all(torch.isfinite(x).all() for pair in logits.values() for x in pair)
     del whole, logits
     torch.cuda.empty_cache()
-    eng.generate(PROMPT)  # warm-up: every kernel's first launch
+    eng.generate(PROMPT, max_new_tokens=4)  # warm-up: every kernel's first launch
     r, counts = rank_counts(TP_PATH, lambda: eng.generate(PROMPT))
     lp = torch.tensor(r["token_logprobs"])
     assert len(lp) == r["generated_tokens"] and torch.isfinite(lp).all(), "bad logprobs"
@@ -6506,7 +6550,7 @@ def rank_serve(model):
     """Phase 26 (b) and (c), one rank: phase 3b's 16 requests through a
     MultiHostBatcher of 8 slots (8 / data a rank) on phase 3's weights,
     paged (page 64, lanes of 1024), over data = ranks / model x model;
-    under model=2 each budget capped at TPDP_NEW."""
+    under model=2 the first TPDP_N, each budget capped at TPDP_NEW."""
     from llm_inference_lab_tpu_torch.config import EngineConfig
     from llm_inference_lab_tpu_torch.core.engine import Engine
     from llm_inference_lab_tpu_torch.core.multihost_batching import MultiHostBatcher
@@ -6521,8 +6565,11 @@ def rank_serve(model):
     eng = Engine(cfg, device=dev, mesh=mesh)
     b = MultiHostBatcher(eng, n_slots=SERVE_SLOTS)
     if b.is_coordinator:
-        for prompt, budget in zip(SERVE_PROMPTS, SERVE_BUDGETS):
-            b.submit(prompt, max_new_tokens=budget if model == 1 else min(budget, TPDP_NEW))
+        for i, (prompt, budget) in enumerate(zip(SERVE_PROMPTS, SERVE_BUDGETS)):
+            if model == 1:
+                b.submit(prompt, max_new_tokens=budget)
+            elif i < TPDP_N:
+                b.submit(prompt, max_new_tokens=min(budget, TPDP_NEW))
     results, counts = rank_counts(path, b.run)
     for r in results:
         lp = torch.tensor(r["token_logprobs"])
@@ -6559,17 +6606,18 @@ def phase_parallel(dev, eng):
     right at the sharded shapes, that the ranks stay in step and that the
     ids hold to the single-process path; it does not measure
     tensor-parallel speed. The parent built every kernel before it spawns.
-    (a) and (b) run in one launch of two ranks, (c), phase 27 (c) and
-    phase 28 (f) in one of four (rank_generate_serve, rank_serve_stage).
+    (a) and (b) run in one launch of two ranks with phases 28 (a)-(e) and 29
+    (a)-(e), (c) in one of four with phases 27 (c), 28 (f) and 29 (f)
+    (rank_generate_serve, rank_serve_stage).
     (a) model=2: phase 3's engine generates phase 3's prompt at B=1 (TP_NEW
     new tokens); both ranks' ids equal; held to phase 3's first ids
     (held_to, the partial
     sums one of the ops that may round differently); a prefill's and a
     decode chunk's logits against the whole model's. (b) data=2 and (c)
-    data=2 x model=2: phase 3b's 16 requests through an 8-slot
-    MultiHostBatcher, every rank's ids equal, each request held to phase
-    3b's over the tokens it has ((c)'s budgets capped at TPDP_NEW; the
-    partial sums excused only in (c): (b) has none)."""
+    data=2 x model=2: phase 3b's 16 requests (in (c) the first TPDP_N, each
+    budget capped at TPDP_NEW) through an 8-slot MultiHostBatcher, every
+    rank's ids equal, each request held to phase 3b's over the tokens it
+    has (the partial sums excused only in (c): (b) has none)."""
     from llm_inference_lab_tpu_torch.parallel.multihost import launch
 
     sharded_shapes(dev)
@@ -6580,7 +6628,10 @@ def phase_parallel(dev, eng):
     out = {}
     t0 = time.perf_counter()
     pair = launch(rank_generate_serve, 2, timeout=900)
-    log(f"phase 26 (a), (b) on 2 ranks: {time.perf_counter() - t0:.1f} s with the ranks' start")
+    log(f"phase 26 (a), (b), 28 (a)-(e) and 29 (a)-(e) on 2 ranks: "
+        f"{time.perf_counter() - t0:.1f} s with the ranks' start")
+    MESH_RUN.extend(g["mesh"] for g in pair)
+    SEQ_STAGE_RUN.extend(g["seq_stage"] for g in pair)
     got = [g["generate"] for g in pair]
     log(f"phase 26 (a) model=2: engine init {[round(g['init_s'], 1) for g in got]} s")
     ids = got[0]["ids"]
@@ -6598,14 +6649,15 @@ def phase_parallel(dev, eng):
     out[TP_PATH] = summed(got)
     t0 = time.perf_counter()
     four = launch(rank_serve_stage, 4, timeout=900)
-    log(f"phase 26 (c), 27 (c) and 28 (f) on 4 ranks: {time.perf_counter() - t0:.1f} s with the "
-        f"ranks' start")
+    log(f"phase 26 (c), 27 (c), 28 (f), 29 (f) on 4 ranks: {time.perf_counter() - t0:.1f} s "
+        f"with the ranks' start")
     STAGE_TP_RUN.extend(g["stage"] for g in four)
+    SEQ_DP_RUN.extend(g["seq_dp"] for g in four)
     for model, got, path, what in ((1, [g["serve"] for g in pair], DP_PATH, "(b) data=2"),
                                    (2, [g["serve"] for g in four], TPDP_PATH,
                                     "(c) data=2 x model=2")):
         ids = got[0]["ids"]
-        assert len(ids) == len(SERVE_PROMPTS)
+        assert len(ids) == (len(SERVE_PROMPTS) if model == 1 else TPDP_N)
         assert all(g["ids"] == ids for g in got), (what, "the ranks' ids differ")
         ref = SERVED_IDS[PATH_SERVE_INT4]
         parted = sum(held_to(eng, dev, ops(model), "phase 3b's batcher", rid, prompt,
@@ -6635,6 +6687,9 @@ INT8_F32_M = (1, 5, 13, 104)
 # rank), T = 4224 (a slice of 2112 a rank, the second from position 2112).
 SEQ_PROMPT = (PROMPT * 31)[:4064]
 SEQ_P, SEQ_T, SEQ_MAX_LEN = 4064, 4224, 4608
+# Its new tokens (eager seq=2 steps of ~0.15 s; cut from the main path's 64
+# to leave room for phase 29).
+SEQ_NEW = 32
 LN_WIDTH = 768  # gpt2's and opt-125m's d_model
 LN_M = (2, 5, 8, 16, 40, 64, 256)
 
@@ -6652,20 +6707,36 @@ def sdpa_shard(q, k, v, pos, t0):
     return out.transpose(1, 2), torch.logsumexp(s.masked_fill(~mask, float("-inf")), -1)
 
 
-def check_shard(got, q, k, v, pos, t0, ks=None, vs=None, what=""):
+def sdpa_shard_masked(q, k, v, mask, scale=None, ks=None, vs=None):
+    """One library call for a shard variant with a mask of its own (timed
+    only): SDPA given the boolean mask [B, 1, S, T] (an int8 cache
+    dequantized to bf16 first; no softcap) and the rows' logsumexp."""
+    if ks is not None:
+        k, v = (k.float() * ks[..., None]).to(q.dtype), (v.float() * vs[..., None]).to(q.dtype)
+    H, KVH = q.shape[2], k.shape[1]
+    qt = q.transpose(1, 2)
+    out = torch.nn.functional.scaled_dot_product_attention(qt, k, v, attn_mask=mask,
+                                                           scale=scale, enable_gqa=True)
+    kk = k.repeat_interleave(H // KVH, dim=1)
+    s = (qt @ kk.transpose(-1, -2)).float() * (q.shape[-1] ** -0.5 if scale is None else scale)
+    return out.transpose(1, 2), torch.logsumexp(s.masked_fill(~mask, float("-inf")), -1)
+
+
+def check_shard(got, q, k, v, pos, t0, ks=None, vs=None, what="", **opts):
     """The shard variant's (out, lse) against its plain version on f32 copies
-    (an int8 cache dequantized in f32): out per element within FLASH_RTOL
-    |ref| + ATTN_VTOL sum_j P_j |v_j| + FLASH_ATOL (check_attn's tolerance),
-    lse within 1e-3, the same rows dead (-inf, zeros). Returns the max abs
-    errs of out and lse."""
+    (an int8 cache dequantized in f32; opts: the plain version's scale,
+    softcap, window or tree_mask and chunk_start): out per element within
+    FLASH_RTOL |ref| + ATTN_VTOL sum_j P_j |v_j| + FLASH_ATOL (check_attn's
+    tolerance), lse within 1e-3, the same rows dead (-inf, zeros). Returns
+    the max abs errs of out and lse."""
     from llm_inference_lab_tpu_torch.ops.flash_decode import flash_decode_shard_plain
 
     o, lse = got
     kf, vf = k.float(), v.float()
     if ks is not None:
         kf, vf = kf * ks[..., None], vf * vs[..., None]
-    ref, rl = flash_decode_shard_plain(q.float(), kf, vf, pos, t0)
-    mag, _ = flash_decode_shard_plain(q.float(), kf, vf.abs(), pos, t0)
+    ref, rl = flash_decode_shard_plain(q.float(), kf, vf, pos, t0, **opts)
+    mag, _ = flash_decode_shard_plain(q.float(), kf, vf.abs(), pos, t0, **opts)
     excess = ((o - ref).abs() - FLASH_RTOL * ref.abs() - ATTN_VTOL * mag - FLASH_ATOL).max()
     live = torch.isfinite(rl)
     assert torch.equal(live, torch.isfinite(lse)) and torch.isfinite(o).all(), (what, "dead rows")
@@ -6878,6 +6949,7 @@ def phase_axes_kernels(dev):
             add(e16, n, ms, plain, lib, b)
     rows["flash_decode_shard"], rows["flash_decode_shard_int8"] = d16, d8
     rows["flash_prefill_shard"] = e16
+    rows.update(shard_tree_and_options(dev, g, row, add))
 
     # (c) LayerNorm at gpt2's width.
     N = LN_WIDTH
@@ -6931,13 +7003,192 @@ def phase_axes_kernels(dev):
     return rows
 
 
+# Phase 2 (d): D's shard variant with the ancestry word at phase 13's tree
+# (S = 10, the 3B's geometry) over the halves of phase 29 (c)'s T = 256,
+# and with Gemma-2's options at D = 256 over halves of T = 8960, rows
+# past the window.
+TREE_SHARD_T = T_MAIN
+GEMMA_SHARD_T = 8960
+
+
+def shard_tree_and_options(dev, g, row, add):
+    """Phase 2 (d) (phase_axes_kernels' row and add): kernel D's shard
+    variant with the ancestry word (flash_decode_shard_tree, bf16 and int8)
+    over both halves of T = TREE_SHARD_T, B = 3 chunks of S = 10 rows: one
+    straddling the boundary, one wholly in the second half, one wholly in
+    the first (so the second half shows its rows nothing: lse -inf), POISON
+    past each chunk; and with Gemma-2's options (flash_decode_shard_opts,
+    bf16 and int8: the scale, softcap 50, the window 4096 and no window)
+    at D = 256 over both halves of T = GEMMA_SHARD_T, a row at p = 8900
+    whose window lies wholly in the second half, one at p = 5000 seeing
+    both halves, a dead row (p = -1) beside one at p = 3000, POISON at the
+    keys no live row sees. Each
+    within check_shard's tolerance of its plain version; timed at phase 29
+    (c)'s tree step on the rank holding [128, 256) (the chunk at P_MAIN, 28
+    layers) and at the Gemma-2 long prompt's K=1 step on the rank holding
+    [2240, 4480) (p = 4352: 42 9B layers at S = 2, 26 2B layers at S = 1,
+    half of each windowed), beside SDPA with the same mask and logsumexp
+    (no softcap) and the bound."""
+    from llm_inference_lab_tpu_torch.core.treespec import TreeConfig
+    from llm_inference_lab_tpu_torch.models.base import quantize_rows
+    from llm_inference_lab_tpu_torch.ops.flash_decode import (
+        flash_decode_shard_opts,
+        flash_decode_shard_plain,
+        flash_decode_shard_tree,
+        tree_visible,
+    )
+
+    rows = {}
+    anc = torch.from_numpy(TreeConfig(TREE_BRANCHING).build()[3]).to(dev)
+    S = anc.shape[0]
+    D, (H, KVH) = 128, GEOMS[128]
+    per = TREE_SHARD_T // 2
+    errs = {False: (0.0, 0.0), True: (0.0, 0.0)}
+    start = torch.tensor([per - 4, per + 30, per - 60], device=dev, dtype=torch.int32)
+    for int8 in (False, True):
+        q = torch.randn((3, S, H, D), generator=g, device=dev).bfloat16()
+        for t0 in (0, per):
+            k = torch.randn((3, KVH, per, D), generator=g, device=dev)
+            v = torch.randn((3, KVH, per, D), generator=g, device=dev)
+            past = (t0 + torch.arange(per, device=dev))[None] >= (start[:, None] + S)
+            v[past[:, None, :].expand(-1, KVH, -1)] = POISON
+            sc = ()
+            if int8:
+                (k, ks), (v, vs) = quantize_rows(k), quantize_rows(v)
+                sc = (ks, vs)
+            else:
+                k, v = k.bfloat16(), v.bfloat16()
+            got = flash_decode_shard_tree(q, k, v, anc, start, t0, *sc)
+            e = check_shard(got, q, k, v, None, t0, *sc, what=("flash_decode_shard_tree", int8,
+                                                               t0), tree_mask=anc,
+                            chunk_start=start)
+            assert bool(torch.isinf(got[1][2]).all()) == (t0 == per), "the masked slice"
+            errs[int8] = tuple(max(a, b) for a, b in zip(errs[int8], e))
+    log(f"flash_decode_shard_tree (S = {S}, D = {D}) over both halves of T = {TREE_SHARD_T}, "
+        f"chunks straddling, after and before the boundary, against its plain version (max "
+        f"abs err of out, of lse): bf16 {errs[False]}, int8 {errs[True]}; the second half "
+        f"shows the first-half chunk's rows nothing (lse -inf)")
+    t16, t8 = row(errs[False][0]), row(errs[True][0])
+    # Timed: the B=1 tree step's verify chunk at P_MAIN on the rank holding
+    # [per, 2 per), 28 layers.
+    chunk = torch.tensor([P_MAIN], device=dev, dtype=torch.int32)
+    keys = P_MAIN + S - per
+    seen = (P_MAIN - per) * S + int(anc.sum())  # (row, key) pairs a head
+    for r, int8 in ((t16, False), (t8, True)):
+        L = 28
+        k = torch.randn((L, 1, KVH, per, D), generator=g, device=dev)
+        v = torch.randn((L, 1, KVH, per, D), generator=g, device=dev)
+        if int8:
+            (k, ks), (v, vs) = quantize_rows(k), quantize_rows(v)
+        else:
+            k, v, ks, vs = k.bfloat16(), v.bfloat16(), None, None
+        q = torch.randn((1, S, H, D), generator=g, device=dev).bfloat16()
+        cyc = Cycle(L)
+
+        def sc():
+            return (ks[cyc.i], vs[cyc.i]) if int8 else ()
+
+        mask = tree_visible(per, anc, chunk - per)[:, None]
+        ms = median_ms(lambda: flash_decode_shard_tree(q, k[cyc()], v[cyc.i], anc, chunk, per,
+                                                       *sc()))
+        plain = median_ms(lambda: flash_decode_shard_plain(
+            q, k[cyc()], v[cyc.i], None, per, *sc(), tree_mask=anc, chunk_start=chunk), iters=10)
+        lib = median_ms(lambda: sdpa_shard_masked(q, k[cyc()], v[cyc.i], mask, None, *sc()),
+                        iters=10)
+        b, by = bound_ms(2 * KVH * keys * D * (1 if int8 else 2) + (8 * KVH * keys if int8 else 0)
+                         + 2 * S * H * D + 4 * S * H * D + 4 * S * H + 4 * S + 4,
+                         4 * H * seen * D)
+        r["bound_by"] = by
+        log(f"flash_decode_shard_tree{'_int8' if int8 else ''} S={S} D={D} slice [{per}, "
+            f"{2 * per}), chunk at {P_MAIN}: {ms:.4f} ms  plain {plain:.4f}  library {lib:.4f} "
+            f"(SDPA, tree mask, logsumexp)  bound {b:.5f} ({by}); x {L}")
+        add(r, L, ms, plain, lib, b)
+        del k, v
+    rows["flash_decode_shard_tree"], rows["flash_decode_shard_tree_int8"] = t16, t8
+
+    # Gemma-2's options over halves of GEMMA_SHARD_T.
+    H9, KVH9, _ = GEMMA_GEOMS["9b"]
+    D = 256
+    per = GEMMA_SHARD_T // 2
+    pos = torch.tensor([[8899, 8900], [4999, 5000], [-1, 3000]], device=dev, dtype=torch.int32)
+    errs = {False: (0.0, 0.0), True: (0.0, 0.0)}
+    for int8 in (False, True):
+        for window in (GEMMA_WINDOW, None):
+            k, v, ks, vs = gemma_keys(g, dev, "int8" if int8 else "bf16", 3, KVH9,
+                                      GEMMA_SHARD_T, pos, window)
+            q = torch.randn((3, 2, H9, D), generator=g, device=dev).bfloat16()
+            opts = dict(GEMMA_OPTS, window=window)
+            for t0 in (0, per):
+                part = [t[:, :, t0:t0 + per] if t is not None else None for t in (k, v, ks, vs)]
+                sc = tuple(part[2:]) if int8 else ()
+                got = flash_decode_shard_opts(q, part[0], part[1], pos, t0, *sc, **opts)
+                e = check_shard(got, q, part[0], part[1], pos, t0, *sc,
+                                what=("flash_decode_shard_opts", int8, window, t0), **opts)
+                behind = window is not None and t0 == 0
+                assert bool(torch.isinf(got[1][0]).all()) == behind, "the slice behind the window"
+                assert bool(torch.isinf(got[1][2, :, 0]).all()), "a dead row"
+                errs[int8] = tuple(max(a, b) for a, b in zip(errs[int8], e))
+            del k, v, ks, vs
+    log(f"flash_decode_shard_opts (Gemma-2 9B: D = {D}, scale, softcap 50, window "
+        f"{GEMMA_WINDOW} and none) over both halves of T = {GEMMA_SHARD_T} against its plain "
+        f"version (max abs err of out, of lse): bf16 {errs[False]}, int8 {errs[True]}; the "
+        f"first half lies wholly behind the window of the row at p = 8900 (lse -inf)")
+    o16, o8 = row(errs[False][0]), row(errs[True][0])
+    per = T_LONG // 2
+    for r, int8 in ((o16, False), (o8, True)):
+        for model, S, n in (("9b", 2, 21), ("2b", 1, 13)):
+            Hm, KVHm, _ = GEMMA_GEOMS[model]
+            for window in (GEMMA_WINDOW, None):
+                L = 2 * L2_BYTES // (2 * KVHm * per * D * (1 if int8 else 2)) + 1
+                k = torch.randn((L, 1, KVHm, per, D), generator=g, device=dev)
+                v = torch.randn((L, 1, KVHm, per, D), generator=g, device=dev)
+                if int8:
+                    (k, ks), (v, vs) = quantize_rows(k), quantize_rows(v)
+                else:
+                    k, v, ks, vs = k.bfloat16(), v.bfloat16(), None, None
+                q = torch.randn((1, S, Hm, D), generator=g, device=dev).bfloat16()
+                p = (P_LONG - S + 1 + torch.arange(S, device=dev)).int()[None].contiguous()
+                opts = dict(GEMMA_OPTS, window=window)
+                cyc = Cycle(L)
+
+                def sc():
+                    return (ks[cyc.i], vs[cyc.i]) if int8 else ()
+
+                kv = (per + torch.arange(per, device=dev))[None, None, None, :]
+                mask = kv <= p[:, None, :, None]
+                if window:
+                    mask = mask & (kv > p[:, None, :, None] - window)
+                ms = median_ms(lambda: flash_decode_shard_opts(q, k[cyc()], v[cyc.i], p, per,
+                                                               *sc(), **opts))
+                plain = median_ms(lambda: flash_decode_shard_plain(q, k[cyc()], v[cyc.i], p, per,
+                                                                   *sc(), **opts), iters=10)
+                lib = median_ms(lambda: sdpa_shard_masked(q, k[cyc()], v[cyc.i], mask,
+                                                          GEMMA_OPTS["scale"], *sc()), iters=10)
+                lo = max(per, P_LONG - S + 1 - window + 1) if window else per
+                keys = P_LONG + 1 - lo
+                pairs = int(mask.sum())
+                b, by = bound_ms(2 * KVHm * keys * D * (1 if int8 else 2)
+                                 + (8 * KVHm * keys if int8 else 0)
+                                 + 2 * S * Hm * D + 4 * S * Hm * D + 4 * S * Hm,
+                                 4 * Hm * pairs * D)
+                r["bound_by"] = by
+                log(f"flash_decode_shard_opts{'_int8' if int8 else ''} Gemma-2 {model} S={S} "
+                    f"window {window} slice [{per}, {2 * per}), p={P_LONG}: {ms:.4f} ms  plain "
+                    f"{plain:.4f}  library {lib:.4f} (SDPA + mask, logsumexp, no softcap)  bound "
+                    f"{b:.5f} ({by}); x {n}")
+                add(r, n, ms, plain, lib, b)
+                del k, v
+    rows["flash_decode_shard_opts"], rows["flash_decode_shard_opts_int8"] = o16, o8
+    return rows
+
+
 # ------------------------------ phases 26 (d) and 27: the new mesh axes
 AXES_PATHS = [TP8_PATH, SEQ_PATH, SEQ8_PATH, STAGE_PATH, EXPERT_PATH]
 # Phases 26 (d) and 27 (a')'s new tokens (int8 model=2 and seq=2; their
 # eager steps take ~0.3 s): cut from the main path's 64 to leave room for
 # phase 28 in the script's time limit. Each run's ids are held to phase 4's
 # first tokens.
-INT8_AXES_NEW = 16
+INT8_AXES_NEW = 8
 TP8_SUMS = "tensor-parallel partial sums (kernel B's f32 partials added over the model axis)"
 RING_SUMS = ("ring attention and the T-split cache (slices' f32 rows merged by log-sum-exp "
              "where one kernel sums once)")
@@ -6955,7 +7206,8 @@ def seq_reference(dev):
     from llm_inference_lab_tpu_torch.config import EngineConfig
     from llm_inference_lab_tpu_torch.core.engine import Engine
 
-    eng = Engine(EngineConfig(**dict(INT4_CFG, max_seq_len=SEQ_MAX_LEN)), device=dev)
+    eng = Engine(EngineConfig(**dict(INT4_CFG, max_seq_len=SEQ_MAX_LEN, max_new_tokens=SEQ_NEW)),
+                 device=dev)
     logits = seq_prefill_rows(eng, dev)
     state, plens, decode_s, total_s = eng.decode([SEQ_PROMPT])
     ids = eng._build_results(state, plens, decode_s, total_s)[0]["generated_ids"]
@@ -7010,8 +7262,8 @@ def rank_axes():
 
     generate("tp8", TP8_PATH, dict(INT8_CFG, max_new_tokens=INT8_AXES_NEW), dict(model=2))
     torch.cuda.empty_cache()
-    eng = generate("seq", SEQ_PATH, dict(INT4_CFG, max_seq_len=SEQ_MAX_LEN), dict(seq=2),
-                   SEQ_PROMPT)
+    eng = generate("seq", SEQ_PATH, dict(INT4_CFG, max_seq_len=SEQ_MAX_LEN,
+                                         max_new_tokens=SEQ_NEW), dict(seq=2), SEQ_PROMPT)
     out["seq"]["logits"] = seq_prefill_rows(eng, dev)
     state = eng._decode_states[(1, SEQ_T)][0]
     c = state.target_cache
@@ -7038,7 +7290,8 @@ def rank_axes():
 def rank_stage_model():
     """Phase 27 (c), one rank of four: phase 3's engine (the draft sharded on
     the model axis too) at stage=2 x model=2, two microbatches, through
-    generate_batch of phase 3b's 16 prompts (STAGE_TP_NEW new tokens each);
+    generate_batch of phase 3b's first TPDP_N prompts (STAGE_TP_NEW new
+    tokens each);
     then, in the same world, phase 28 (f) (rank_qwen_tp)."""
     from llm_inference_lab_tpu_torch.config import EngineConfig
     from llm_inference_lab_tpu_torch.core.engine import Engine
@@ -7051,7 +7304,7 @@ def rank_stage_model():
                                      max_new_tokens=STAGE_TP_NEW)),
                  device=dev, mesh=mesh)
     last = mesh.coords["stage"] == 1
-    rs, counts = rank_counts(STAGE_TP_PATH, lambda: eng.generate_batch(SERVE_PROMPTS),
+    rs, counts = rank_counts(STAGE_TP_PATH, lambda: eng.generate_batch(SERVE_PROMPTS[:TPDP_N]),
                              last_stage=last)
     for r in rs:
         lp = torch.tensor(r["token_logprobs"])
@@ -7163,7 +7416,7 @@ def phase_axes(dev, eng):
 def phase_stage_model(dev, eng):
     """Phase 27 (c), after phase 26 (eng: phase 3's engine): stage=2 x
     model=2 on 4 ranks sharing the card over gloo, generate_batch of phase
-    3b's 16 prompts; every rank's ids equal, each request held to phase
+    3b's first TPDP_N prompts; every rank's ids equal, each request held to phase
     3b's over the tokens both have (a budget of 16 to 64 there,
     STAGE_TP_NEW here) under the near-tie rule. Its ranks ran in phase 26
     (c)'s launch (STAGE_TP_RUN), and phase 28 (f)'s after them, whose
@@ -7191,11 +7444,11 @@ def phase_stage_model(dev, eng):
 MESH_NEW = 4
 CANCEL_RID = 3  # (e): a request with a 64-token budget, in flight after the first chunk
 # The Qwen2.5-1.5B pair at configs/qwen25_pair.yaml's settings (int8, the
-# int8 embedding and tied heads, K=4; 8 new tokens, as the ranks' eager
-# steps take half a second): 2 KV heads over model=4 (each
+# int8 embedding and tied heads, K=4; 4 new tokens, as the ranks' eager
+# steps take most of a second): 2 KV heads over model=4 (each
 # replicated over two ranks, 3 of its 12 query heads a rank); the 0.5B
 # draft's 2 KV heads do not split: whole on every rank (JAX's rule).
-QWEN15_CFG = dict(QWEN_CFG, base_model="qwen2.5-1.5b", max_new_tokens=8)
+QWEN15_CFG = dict(QWEN_CFG, base_model="qwen2.5-1.5b", max_new_tokens=4)
 GPT2_TP_CFG = dict(BASELINE_CFGS["gpt2"], max_new_tokens=32)  # (d), eager steps
 QWEN15_SHAPES = {"w_qkv": (1536, 640), "wo": (384, 1536), "w_gate_up": (1536, 4480),
                  "w_down": (2240, 1536)}  # a model=4 rank's (K, N)
@@ -7206,6 +7459,9 @@ QWEN_TP_RUN = []
 # Phase 27 (c)'s ranks' results: they run in phase 26 (c)'s launch of four,
 # the checks in phase 27 (c).
 STAGE_TP_RUN = []
+# Phase 28 (a)-(e)'s ranks' results: they run in phase 26 (a)'s launch of
+# two, the checks in phase 28.
+MESH_RUN = []
 
 
 def padded_shapes(dev):
@@ -7259,7 +7515,8 @@ def padded_shapes(dev):
 
 
 def rank_mesh_features():
-    """Phase 28, one rank of two sharing cuda:0 over gloo, a mesh a part:
+    """Phase 28, one rank of two sharing cuda:0 over gloo (in phase 26 (a)'s
+    launch), a mesh a part:
     (a) phase 3's engine (the draft sharded too) at model=2 with phase
     23's adapters (the pack built for the whole 3B, each rank its share),
     generate of PROMPT under the base and each adapter (MESH_NEW tokens),
@@ -7402,16 +7659,14 @@ def phase_mesh_features(dev, eng):
     14's (the cancelled request's a prefix of its), the cancel seen on both
     ranks. Four ranks: (f) the Qwen2.5-1.5B pair at model=4: ids equal to
     the pair's in one process under the near-tie rule, each rank's peak
-    memory (its ranks ran in phase 27 (c)'s launch: QWEN_TP_RUN). Returns
-    each path's launches (the ranks' added)."""
+    memory. The ranks of (a)-(e) ran in phase 26 (a)'s launch of two
+    (MESH_RUN), those of (f) in phase 27 (c)'s of four (QWEN_TP_RUN).
+    Returns each path's launches (the ranks' added)."""
     from llm_inference_lab_tpu_torch.config import EngineConfig
     from llm_inference_lab_tpu_torch.core.engine import Engine
-    from llm_inference_lab_tpu_torch.parallel.multihost import launch
 
     padded_shapes(dev)
-    t0 = time.perf_counter()
-    got = launch(rank_mesh_features, 2, timeout=900)
-    log(f"phase 28 (a)-(e) on 2 ranks: {time.perf_counter() - t0:.1f} s with the ranks' start")
+    got = MESH_RUN
     for name in ("adapters", "fake", "gpt2", "prefix"):
         assert all(g[name]["ids"] == got[0][name]["ids"] for g in got), (name, "ranks differ")
     ops = lambda: [TP_SUMS] + UNSTABLE[PATH_SERVE_INT4]  # noqa: E731
@@ -7503,6 +7758,282 @@ def phase_mesh_features(dev, eng):
     del qe
     torch.cuda.empty_cache()
     out[QWEN_TP_PATH] = summed(got)
+    return out
+
+
+# ------------------- phase 29: serving under the seq and stage axes
+# The requests of (a), (b), (c)'s batcher, (e) and (f): phase 3b's (and
+# phase 7's) first 8, each cut to SEQ_STAGE_NEW new tokens; lanes of
+# SEQ_STAGE_MAX_LEN, so the contiguous caches split into slices of 256
+# and the longer prompts (up to 360 tokens) cross from one rank's slice
+# into the other's. (c)'s generate runs SEQ_TREE_NEW new tokens of PROMPT
+# (T = 256: slices of 128, the verify chunk crossing position 128).
+SEQ_STAGE_N, SEQ_STAGE_NEW, SEQ_STAGE_MAX_LEN, SEQ_TREE_NEW = 8, 16, 512, 32
+SEQ_STAGE_REQS = [(p, min(m, SEQ_STAGE_NEW))
+                  for p, m in zip(SERVE_PROMPTS[:SEQ_STAGE_N], SERVE_BUDGETS)]
+# Phase 29's ranks' results: (a)-(e) run in phase 26 (a)'s launch of two,
+# (f) in phase 26 (c)'s of four.
+SEQ_STAGE_RUN = []
+SEQ_DP_RUN = []
+
+
+def cache_view(cache):
+    """(k's shape, t0) of a cache: a rank's slice of T under the seq axis
+    (t0 its first position), its stage's layers under stage."""
+    return tuple(cache.k.shape), getattr(cache, "t0", None)
+
+
+def rank_batcher(path, eng, requests, last_stage=True, prefix_first=False):
+    """A ContinuousBatcher of SERVE_SLOTS over eng on this rank, the
+    requests submitted (with prefix_first the first admitted alone before
+    the others, as phase 14 (b)), run() counted: each result's ids (and
+    prompt tokens reused), the counts, the stats and the target cache's
+    view."""
+    from llm_inference_lab_tpu_torch.core.batching import ContinuousBatcher
+
+    b = ContinuousBatcher(eng, n_slots=SERVE_SLOTS)
+
+    def serve():
+        with torch.inference_mode():
+            for i, (prompt, budget) in enumerate(requests):
+                b.submit(prompt, max_new_tokens=budget)
+                if prefix_first and i == 0:
+                    b._admit_pending()  # the first request's pages are cached
+        return b.run()
+
+    results, counts = rank_counts(path, serve, last_stage=last_stage)
+    results = sorted(results, key=lambda r: r["req_id"])
+    for r in results:
+        lp = torch.tensor(r["token_logprobs"])
+        assert r["generated_tokens"] >= 1 and torch.isfinite(lp).all(), (path, r["req_id"])
+    return dict(ids=[r["generated_ids"] for r in results],
+                reused=[r["prompt_tokens_reused"] for r in results], counts=counts,
+                stats=b.stats.report(SERVE_SLOTS), view=cache_view(b.state.target_cache))
+
+
+def rank_seq_stage():
+    """Phase 29 (a)-(e), one rank of two sharing cuda:0 over gloo (in phase
+    26 (a)'s launch), a mesh a part: (a) phase 3's engine at seq=2, SEQ_STAGE_REQS through an 8-slot
+    contiguous batcher (each rank's cache its slice of T); (b) the same at
+    stage=2 (each stage's 14 layers, two microbatches); (c) the tree
+    TREE_BRANCHING at seq=2: generate of PROMPT (the ring prefill, the
+    verify chunk through D's shard variant with the ancestry word, the KV
+    compaction across slices) and SEQ_STAGE_REQS through the 8-slot paged
+    batcher (the pool whole on each rank); (d) phase 14 (b)'s prefix
+    traffic at seq=2 (paged, prefix caching); (e) phase 7's Gemma-2 9B + 2B
+    at seq=2, SEQ_STAGE_REQS through the 8-slot contiguous batcher (the
+    softcap through D's shard variant with the options)."""
+    from llm_inference_lab_tpu_torch.config import EngineConfig
+    from llm_inference_lab_tpu_torch.core.engine import Engine
+    from llm_inference_lab_tpu_torch.parallel.mesh import make_mesh
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    out = {}
+    seq, stage = make_mesh(seq=2), make_mesh(stage=2)
+
+    def engine(cfg, mesh, **kw):
+        return Engine(EngineConfig(**dict(cfg, **kw)), device=dev, mesh=mesh)
+
+    def done(name, got, coords, steps=None):
+        got["coords"] = coords
+        if steps is not None:
+            got["steps"] = steps
+        out[name] = got
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (a), (b)
+    eng = engine(INT4_CFG, seq, max_seq_len=SEQ_STAGE_MAX_LEN)
+    done("a", rank_batcher(SEQ_SERVE_PATH, eng, SEQ_STAGE_REQS), seq.coords)
+    del eng
+    eng = engine(INT4_CFG, stage, max_seq_len=SEQ_STAGE_MAX_LEN, pp_microbatches=2)
+    done("b", rank_batcher(STAGE_SERVE_PATH, eng, SEQ_STAGE_REQS,
+                           last_stage=stage.coords["stage"] == 1), stage.coords)
+    del eng
+    # (c) the tree: generate, then the paged batcher.
+    tree = dict(draft_model=None, draft_mode="tree", tree={"branching": list(TREE_BRANCHING)})
+    eng = engine(INT4_CFG, seq, max_new_tokens=SEQ_TREE_NEW, **tree)
+    eng.generate(PROMPT, max_new_tokens=4)  # warm-up: every kernel's first launch
+    r, counts = rank_counts(SEQ_TREE_PATH, lambda: eng.generate(PROMPT))
+    lp = torch.tensor(r["token_logprobs"])
+    assert len(lp) == r["generated_tokens"] and torch.isfinite(lp).all(), "tree logprobs"
+    view = cache_view(next(iter(eng._decode_states.values()))[0].target_cache)
+    done("c", dict(ids=r["generated_ids"], counts=counts, accepted=r["accepted"], view=view),
+         seq.coords, r["steps"])
+    del eng
+    eng = engine(INT4_CFG, seq, max_seq_len=SERVE_MAX_LEN, kv_layout="paged",
+                 kv_page_size=SERVE_PAGE, **tree)
+    done("c_serve", rank_batcher(SEQ_TREE_SERVE_PATH, eng, SEQ_STAGE_REQS), seq.coords)
+    del eng
+    # (d) phase 14 (b)'s prefix traffic.
+    eng = engine(INT4_CFG, seq, max_seq_len=PREFIX_MAX_LEN, kv_layout="paged",
+                 kv_page_size=SERVE_PAGE, prefix_caching=True)
+    done("d", rank_batcher(SEQ_PREFIX_PATH, eng,
+                           [(SYSTEM_PREFIX + p, m) for p, m in zip(SERVE_PROMPTS, SERVE_BUDGETS)],
+                           prefix_first=True), seq.coords)
+    del eng
+    # (e) Gemma-2.
+    eng = engine(GEMMA_CFG, seq, max_seq_len=SEQ_STAGE_MAX_LEN)
+    done("e", rank_batcher(SEQ_GEMMA_PATH, eng, SEQ_STAGE_REQS), seq.coords)
+    del eng
+    return out
+
+
+def rank_seq_dp():
+    """Phase 29 (f), one rank of four (in phase 26 (c)'s launch): phase 3's
+    engine at data=2 x seq=2, SEQ_STAGE_REQS through an 8-slot
+    MultiHostBatcher (4 slots a data row, contiguous: each rank's cache its
+    row's slots' slice of T)."""
+    from llm_inference_lab_tpu_torch.config import EngineConfig
+    from llm_inference_lab_tpu_torch.core.engine import Engine
+    from llm_inference_lab_tpu_torch.core.multihost_batching import MultiHostBatcher
+    from llm_inference_lab_tpu_torch.parallel.mesh import make_mesh
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    mesh = make_mesh(data=2, seq=2)
+    eng = Engine(EngineConfig(**dict(INT4_CFG, max_seq_len=SEQ_STAGE_MAX_LEN)), device=dev,
+                 mesh=mesh)
+    b = MultiHostBatcher(eng, n_slots=SERVE_SLOTS)
+    if b.is_coordinator:
+        for prompt, budget in SEQ_STAGE_REQS:
+            b.submit(prompt, max_new_tokens=budget)
+    results, counts = rank_counts(SEQ_DP_PATH, b.run)
+    for r in results:
+        lp = torch.tensor(r["token_logprobs"])
+        assert r["generated_tokens"] >= 1 and torch.isfinite(lp).all(), ("bad result", r["req_id"])
+    got = dict(ids=[r["generated_ids"] for r in sorted(results, key=lambda r: r["req_id"])],
+               counts=counts, stats=b.stats.report(SERVE_SLOTS),
+               view=cache_view(b.state.target_cache), coords=mesh.coords)
+    del b, eng
+    torch.cuda.empty_cache()
+    return got
+
+
+def phase_seq_stage_serving(dev, gemma):
+    """Phase 29, after phase 7 (gemma: phase 6's Gemma-2 engine, for its near
+    ties): serving under the seq and stage axes on ranks sharing cuda:0
+    over gloo (correctness and host cost, not parallel speed). Two ranks
+    (rank_seq_stage, in phase 26 (a)'s launch: SEQ_STAGE_RUN): (a) seq=2
+    and (b) stage=2, phase 3b's first 8 requests cut to SEQ_STAGE_NEW
+    tokens, each held to phase 3b's over the tokens both have; (c) the tree
+    at seq=2: generate's ids held to phase 13's tree generate's first
+    SEQ_TREE_NEW (acceptance above 0), the paged batcher's to phase 13's
+    tree batcher's; (d) phase 14 (b)'s prefix traffic at seq=2: prompt
+    tokens reused equal to phase 14's, ids held to its; (e) Gemma-2 at
+    seq=2, held to phase 7's. Four ranks: (f) data=2 x seq=2 through
+    MultiHostBatcher, held to phase 3b's (its ranks ran in phase 26 (c)'s
+    launch: SEQ_DP_RUN). Every rank's ids equal; each rank's cache is its
+    slice of T (t0 = rank x T / 2) or its stage's 14 layers, a paged pool
+    whole. Returns each path's launches (the ranks' added)."""
+    from llm_inference_lab_tpu_torch.config import EngineConfig
+    from llm_inference_lab_tpu_torch.core.engine import Engine
+
+    got = SEQ_STAGE_RUN
+    for name in got[0]:
+        assert all(g[name]["ids"] == got[0][name]["ids"] for g in got), (name, "ranks differ")
+    ref_eng = Engine(EngineConfig(**INT4_CFG), device=dev)  # phase 3's weights: near ties
+    ring = lambda: [RING_SUMS] + UNSTABLE[PATH_SERVE_INT4]  # noqa: E731
+    half = SEQ_STAGE_MAX_LEN // 2
+
+    def held_all(what, eng, ops, refs, ids_list, prompts):
+        return sum(held_to(eng, dev, ops, what, rid, prompt, ref[:len(ids)], ids[:len(ref)])
+                   for rid, (prompt, ref, ids) in enumerate(zip(prompts, refs, ids_list,
+                                                                strict=True)))
+
+    def views(name, T=None, layers=None, paged=False):
+        for r, g in enumerate(got):
+            shape, t0_r = g[name]["view"]
+            if paged:
+                assert t0_r is None and shape[3] == SERVE_PAGE, (name, "the whole pool", shape)
+            elif layers is not None:
+                assert t0_r is None and shape[0] == layers, (name, "the stage's layers", shape)
+            else:
+                assert shape[3] == T // 2 and t0_r == r * (T // 2), (name, "the slice", shape)
+        return [g[name]["view"] for g in got]
+
+    prompts = [p for p, _ in SEQ_STAGE_REQS]
+    ref = SERVED_IDS[PATH_SERVE_INT4]
+    out = {}
+    for name, path, what, ops in (("a", SEQ_SERVE_PATH, "(a) seq=2", ring),
+                                  ("b", STAGE_SERVE_PATH, "(b) stage=2",
+                                   lambda: UNSTABLE[PATH_SERVE_INT4])):
+        ids = got[0][name]["ids"]
+        parted = held_all("phase 3b's batcher", ref_eng, ops, ref[:SEQ_STAGE_N], ids, prompts)
+        v = (views(name, T=SEQ_STAGE_MAX_LEN) if name == "a"
+             else views(name, layers=LAYERS[128] // 2))
+        ids_digest(path, ids)
+        st = got[0][name]["stats"]
+        log(f"phase 29 {what}: ids == phase 3b's for {len(ids) - parted} of {len(ids)} "
+            f"requests over the tokens both have (the rest near ties); cache by rank {v}; "
+            f"{st['committed_tokens']} tokens in {st['wall_s']:.3f} s = {st['tok_s']:.2f} tok/s, "
+            f"{st['steps']} steps, {st['admit_waves']} admission waves")
+        rank_report(f"phase 29 {what}", [g[name] for g in got])
+        out[path] = summed([g[name] for g in got])
+    # (c)
+    tree_gen, tree_serve = HEAD_PATHS[1], HEAD_PATHS[2]
+    c = got[0]["c"]
+    want = END_TO_END_IDS[tree_gen][:SEQ_TREE_NEW]
+    parted = held_to(ref_eng, dev, ring, "phase 13's tree generate", 0, PROMPT, want, c["ids"])
+    assert c["accepted"] > 0, ("the tree at seq=2 accepted nothing", c["ids"])
+    v = views("c", T=T_MAIN)
+    ids_digest(SEQ_TREE_PATH, [c["ids"]])
+    log(f"phase 29 (c) tree {list(TREE_BRANCHING)} seq=2 generate: ids == phase 13's first "
+        f"{SEQ_TREE_NEW}: {not parted} ({parted} partings at near ties); {c['accepted']} "
+        f"accepted in {c['steps']} steps; cache by rank {v}")
+    rank_report("phase 29 (c)", [g["c"] for g in got])
+    out[SEQ_TREE_PATH] = summed([g["c"] for g in got])
+    ids = got[0]["c_serve"]["ids"]
+    parted = held_all("phase 13's tree batcher", ref_eng, lambda: UNSTABLE[tree_serve],
+                      SERVED_IDS[tree_serve][:SEQ_STAGE_N], ids, prompts)
+    v = views("c_serve", paged=True)
+    ids_digest(SEQ_TREE_SERVE_PATH, ids)
+    log(f"phase 29 (c) tree seq=2 paged batcher: ids == phase 13's for {len(ids) - parted} of "
+        f"{len(ids)} (the rest near ties); pool by rank {v}")
+    rank_report("phase 29 (c) batcher", [g["c_serve"] for g in got])
+    out[SEQ_TREE_SERVE_PATH] = summed([g["c_serve"] for g in got])
+    # (d)
+    d = got[0]["d"]
+    assert d["reused"] == [r["prompt_tokens_reused"] for r in PREFIX_SERVED], d["reused"]
+    parted = held_all("phase 14 (b)'s batcher", ref_eng, lambda: UNSTABLE[PATH_SERVE_INT4],
+                      [r["generated_ids"] for r in PREFIX_SERVED], d["ids"],
+                      [SYSTEM_PREFIX + p for p in SERVE_PROMPTS])
+    v = views("d", paged=True)
+    ids_digest(SEQ_PREFIX_PATH, d["ids"])
+    log(f"phase 29 (d) seq=2 prefix caching: prompt tokens reused {d['reused']} == phase 14's; "
+        f"ids == phase 14's for {len(d['ids']) - parted} of {len(d['ids'])} (the rest near "
+        f"ties); pool by rank {v}")
+    rank_report("phase 29 (d)", [g["d"] for g in got])
+    out[SEQ_PREFIX_PATH] = summed([g["d"] for g in got])
+    # (e)
+    gemma_serve = GEMMA_PATHS[2]
+    ids = got[0]["e"]["ids"]
+    parted = held_all("phase 7's batcher", gemma, lambda: [RING_SUMS] + UNSTABLE[gemma_serve],
+                      SERVED_IDS[gemma_serve][:SEQ_STAGE_N], ids, prompts)
+    v = views("e", T=SEQ_STAGE_MAX_LEN)
+    ids_digest(SEQ_GEMMA_PATH, ids)
+    log(f"phase 29 (e) Gemma-2 seq=2: ids == phase 7's for {len(ids) - parted} of {len(ids)} "
+        f"over the tokens both have (the rest near ties); cache by rank {v}")
+    rank_report("phase 29 (e)", [g["e"] for g in got])
+    out[SEQ_GEMMA_PATH] = summed([g["e"] for g in got])
+    # (f)
+    got = SEQ_DP_RUN
+    ids = got[0]["ids"]
+    assert len(got) == 4 and all(g["ids"] == ids for g in got), "the ranks' ids differ"
+    parted = held_all("phase 3b's batcher", ref_eng, ring, ref[:SEQ_STAGE_N], ids, prompts)
+    for r, g in enumerate(got):
+        shape, t0_r = g["view"]
+        assert shape[1] == SERVE_SLOTS // 2 and shape[3] == half and t0_r == (r % 2) * half, (
+            "data x seq: the row's slots, the slice", r, shape, t0_r)
+    ids_digest(SEQ_DP_PATH, ids)
+    log(f"phase 29 (f) data=2 x seq=2 MultiHostBatcher: ids == phase 3b's for "
+        f"{len(ids) - parted} of {len(ids)} (the rest near ties); cache by rank "
+        f"{[g['view'] for g in got]}")
+    rank_report("phase 29 (f)", got)
+    out[SEQ_DP_PATH] = summed(got)
+    del ref_eng
+    torch.cuda.empty_cache()
     return out
 
 
@@ -7685,6 +8216,23 @@ def main(argv):
             "ops/pallas/flash_prefill.py:86",
             "phase 27 (a)'s ring prefill on rank 1: its 2032 rows against block 0 and its own "
             "block, 28 3B and 16 1B layers"),
+        "flash_decode_shard_tree": (
+            axes["flash_decode_shard_tree"], "flash_decode_shard_tree.cu", "ops/attention.py:94",
+            f"one tree {list(TREE_BRANCHING)} step of phase 29 (c)'s generate on the rank "
+            f"holding positions [128, 256), the chunk at {P_MAIN} (28 layers at S = {TREE_S}; "
+            f"f32 out and lse)"),
+        "flash_decode_shard_tree_int8": (
+            axes["flash_decode_shard_tree_int8"], "flash_decode_shard_tree.cu",
+            "ops/attention.py:94", "the same step over an int8 slice"),
+        "flash_decode_shard_opts": (
+            axes["flash_decode_shard_opts"], "flash_decode_shard.cu",
+            "ops/pallas/flash_decode.py:146",
+            "one K=1 step of the Gemma-2 long-prompt path on the rank holding positions [2240, "
+            "4480), p = 4352 (26 2B layers at S = 1, 42 9B layers at S = 2, half of each "
+            "windowed; f32 out and lse)"),
+        "flash_decode_shard_opts_int8": (
+            axes["flash_decode_shard_opts_int8"], "flash_decode_shard.cu",
+            "ops/pallas/flash_decode.py:203", "the same step over an int8 slice"),
         "layer_norm": (axes["layer_norm"], "rms_norm.cu", "models/transformer.py:41",
                        "one gpt2 B=1 decode step: the first norm (M = 1, N = 768)"),
         "add_layer_norm": (axes["add_layer_norm"], "rms_norm.cu", "models/transformer.py:41",
@@ -7784,6 +8332,9 @@ def main(argv):
     t0 = time.perf_counter()
     on_path[paths[6]] = phase_serving(dev, eng, profile_gemma, SERVE_MAX_LEN, paths[6], label)
     log(f"phase 7 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    on_path.update(phase_seq_stage_serving(dev, eng))
+    log(f"phase 29 took {time.perf_counter() - t0:.1f} s")
     del eng
     torch.cuda.empty_cache()
     t0 = time.perf_counter()

@@ -28,7 +28,7 @@ CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 SOURCES = ("quant_matmul_int4", "quant_matmul_int8", "flash_decode", "flash_prefill",
            "paged_flash", "verify_prefix", "rms_norm", "flash_decode_tree", "paged_flash_tree",
-           "flash_decode_shard", "flash_prefill_shard")
+           "flash_decode_shard", "flash_prefill_shard", "flash_decode_shard_tree")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -81,13 +81,25 @@ SIGNATURES = {
     },
     "flash_decode_shard": {
         # q, k, v, positions, out, lse, ws, counters, B, S, H, KVH, T, D,
-        # stride_kb, stride_kh, scale, t0, nsplit, stream
-        "flash_decode_shard_bf16": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, LL, LL, F, I, I, P],
+        # stride_kb, stride_kh, scale, softcap, window, t0, nsplit, stream
+        "flash_decode_shard_bf16": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, LL, LL, F, F, I, I,
+                                    I, P],
         # q, k, v, k_scale, v_scale, positions, out, lse, ws, counters, B, S,
-        # H, KVH, T, D, stride_kb, stride_kh, stride_sb, stride_sh, scale, t0,
-        # nsplit, stream
+        # H, KVH, T, D, stride_kb, stride_kh, stride_sb, stride_sh, scale,
+        # softcap, window, t0, nsplit, stream
         "flash_decode_shard_int8": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, LL, LL, LL,
-                                    LL, F, I, I, P],
+                                    LL, F, F, I, I, I, P],
+    },
+    "flash_decode_shard_tree": {
+        # q, k, v, bits, start, out, lse, ws, counters, B, S, H, KVH, T, D,
+        # stride_kb, stride_kh, scale, softcap, t0, nsplit, stream
+        "flash_decode_shard_tree_bf16": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, LL, LL, F,
+                                         F, I, I, P],
+        # q, k, v, k_scale, v_scale, bits, start, out, lse, ws, counters, B,
+        # S, H, KVH, T, D, stride_kb, stride_kh, stride_sb, stride_sh, scale,
+        # softcap, t0, nsplit, stream
+        "flash_decode_shard_tree_int8": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, LL,
+                                         LL, LL, LL, F, F, I, I, P],
     },
     "flash_prefill_shard": {
         # q, k, v, positions, out, lse, B, S, H, KVH, T, D, stride_kb,

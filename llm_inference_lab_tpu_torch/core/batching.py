@@ -362,7 +362,8 @@ def _splice(cache, sub, slots: torch.Tensor, table_rows: Optional[torch.Tensor])
     """Copy scratch caches [L, G, KVH, T, D] (int8 scales with them) into
     the slots: contiguous caches take lanes [0, T) of the slots (rows past
     T keep stale data, which the position mask hides until decode
-    overwrites them); paged caches take scratch page j of row g into page
+    overwrites them), a slice of T under the seq axis the scratch rows of
+    its own positions; paged caches take scratch page j of row g into page
     table_rows[g, j] and set the slots' table rows. A request whose own
     allocation is shorter than the scratch sends the excess into page 0,
     the dummy page no allocation owns."""
@@ -382,9 +383,12 @@ def _splice(cache, sub, slots: torch.Tensor, table_rows: Optional[torch.Tensor])
             dst[:, pids] = src.reshape(L, G, KVH, J, pg, *src.shape[4:]).transpose(2, 3)
         cache.table[slots] = table_rows
     else:
-        n = min(T, cache.k.shape[3])
+        # A slice of T under the seq axis (slot j: position t0 + j) takes the
+        # scratch rows of its positions; a whole cache lanes [0, T).
+        t0 = cache.t0 or 0
+        n = max(min(T - t0, cache.k.shape[3]), 0)
         for src, dst in pairs:
-            dst[:, slots, :, :n] = src[:, :, :, :n]
+            dst[:, slots, :, :n] = src[:, :, :, t0:t0 + n]
 
 
 def make_admit_many(target_model: Model, draft_model: Optional[Model], hidden: bool = False):
@@ -414,7 +418,7 @@ def make_admit_many(target_model: Model, draft_model: Optional[Model], hidden: b
         slots_l = slots.long()
 
         def prefill(model: Model, cache, want_hidden=False, lora_ids=None):
-            scratch = model.init_cache(G, P, dev, dtype=cache.k.dtype)
+            scratch = model.init_cache(G, P, dev, dtype=cache.k.dtype, split=False)
             out = model.forward(rows, positions, scratch, zeros, return_hidden=want_hidden,
                                 lora_ids=lora_ids)
             _splice(cache, scratch, slots_l, table_rows)
@@ -572,7 +576,13 @@ class ContinuousBatcher:
     its defaults (a wall-clock refit differs between ranks), and slots
     across data ranks need the coordinator's decisions
     (core/multihost_batching.py MultiHostBatcher), so this class refuses a
-    data axis above 1."""
+    data axis above 1. Under the seq axis a contiguous cache holds the
+    rank's slice of T: admission prefills a whole scratch on every seq rank
+    (the plain forward, as JAX's admission) and each rank splices the rows
+    of its slice's positions; a paged pool is whole on every seq rank.
+    Under the stage axis admission runs the pipeline (parallel/pipeline.py)
+    over the stage's layers of a scratch, and each stage splices its
+    layers."""
 
     # JAX's switches (core/batching.py:714-725): a subclass that replays the
     # host's decisions on several processes turns off what it cannot (lazy
@@ -593,11 +603,6 @@ class ContinuousBatcher:
                              "coordinator's decisions: use MultiHostBatcher")
         if n_slots % data:
             raise ValueError(f"n_slots ({n_slots}) must split over the data axis ({data})")
-        axes = getattr(engine, "_axes", {})
-        if axes.get("seq", 1) > 1 or axes.get("stage", 1) > 1:
-            raise NotImplementedError("a ContinuousBatcher under the seq or stage axis is not "
-                                      "ported (its admission prefills into scratch caches and "
-                                      "copies their rows; use Engine.generate_batch)")
         self._rows = n_slots // data
         self._row0 = mesh.coords["data"] * self._rows if mesh is not None else 0
         self.poll_every = poll_every
@@ -1154,7 +1159,7 @@ class ContinuousBatcher:
             # A ring model writes at position mod R: its scratch is the
             # ring itself (init_cache holds a ring model to R slots).
             T = cache.k.shape[-2] if self.ring else P
-            return model.init_cache(1, T, dev, dtype=cache.k.dtype)
+            return model.init_cache(1, T, dev, dtype=cache.k.dtype, split=False)
 
         self._prefilling = {
             "req": req, "slot": req.slot, "off": 0, "P": P, "ready": False,

@@ -71,8 +71,11 @@ the target's forward is the GPipe schedule of parallel/pipeline.py, in
 experts (ops/moe.py moe_expert); on the seq axis both models' contiguous
 caches hold their rank's slice of T, the single-shot prefill runs ring
 attention (parallel/context.py) and the prompt block is a multiple of
-lcm(32, seq). Under any of those four axes the decode loops run their
-in-place step eagerly, never captured: a graph cannot hold a gloo
+lcm(32, seq); a paged pool is whole on every seq rank and prefills unsplit;
+the tree's verify chunk attends the slices through kernel D's shard
+variant with the ancestry word and its KV compaction moves rows across
+slices (core/treespec.py). Under any of those four axes the decode loops
+run their in-place step eagerly, never captured: a graph cannot hold a gloo
 collective's host hop, and capturing NCCL collectives waits for a second
 card. On the data axis alone each rank captures as in one process. The
 engine decides this once, at construction (``eager_loops``). Heads, MLP
@@ -314,8 +317,12 @@ class Engine:
         self.polls = 0  # host reads of the last decode
         if cfg.kv_ring:
             self._enable_kv_ring()
+        # Under the seq axis the ring prefill writes a contiguous cache's
+        # slices; a paged pool, whole on every seq rank, takes the unsplit
+        # prefill (the rows JAX's unsharded paged engine writes).
         self._prefill = make_prefill(self.target, self.draft, chunk=cfg.prefill_chunk,
-                                     hidden=self.head_mode, cp=self._seq > 1)
+                                     hidden=self.head_mode,
+                                     cp=self._seq > 1 and cfg.kv_layout != "paged")
 
     def _shard_models(self) -> None:
         """The models as this rank holds them (JAX engine.py:150-238): the
@@ -326,8 +333,9 @@ class Engine:
         seq and expert axes as the target's. JAX's refusals: under the seq
         axis prefill_chunk (which also covers kv_ring, which the config
         allows only with a prefill_chunk); under the stage axis paged KV and
-        the tree. The port's own: under the seq axis paged KV and the tree.
-        Sizes that do not split are padded (parallel/sharding.py)."""
+        the tree. Sizes that do not split are padded (parallel/sharding.py).
+        A paged pool is whole on every seq rank (JAX's _cache_sharding
+        replicates it over seq)."""
         cfg, mesh = self.config, self.mesh
         if mesh.coords is None:
             raise ValueError(f"rank {mesh.rank} is outside the {mesh.shape} mesh")
@@ -337,12 +345,6 @@ class Engine:
                 raise ValueError("prefill_chunk and seq-parallel (ring) prefill are mutually "
                                  "exclusive: chunked prefill attends to the cache prefix, which "
                                  "the ring pass does not cover")
-            if cfg.kv_layout == "paged":
-                raise NotImplementedError("paged KV under the seq axis is not ported (the ring "
-                                          "prefill writes a contiguous cache)")
-            if cfg.draft_mode == "tree":
-                raise NotImplementedError("the tree under the seq axis is not ported (kernel D's "
-                                          "shard variant has no ancestry mask)")
         if stage > 1:
             if cfg.kv_layout == "paged":
                 raise ValueError("paged KV under pipeline parallelism is not supported")

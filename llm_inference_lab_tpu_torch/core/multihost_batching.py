@@ -38,9 +38,11 @@ for a request still queued, gives it the coordinator's cancelled result.
 JAX's ``_supports_*`` switches are kept: no incremental, overlapped or
 fused admission (one-shot waves); lazy pages, growth and preemption are
 supported. In one process the class is ContinuousBatcher with those
-switches. Refused on several ranks: the seq and stage axes, and a
-rolling-buffer (kv_ring) engine (it serves only with incremental
-admission).
+switches. A data row's ranks may span the stage, expert, seq and model
+axes: each holds the row's slots (its cache slice of T under seq, its
+stage's layers under stage) and steps with its groups' collectives.
+Refused on several ranks: a rolling-buffer (kv_ring) engine (it serves
+only with incremental admission).
 """
 
 from __future__ import annotations
@@ -94,9 +96,6 @@ class MultiHostBatcher(ContinuousBatcher):
         self.is_coordinator = self.rank == 0
         if self.n_procs > 1:
             cfg = engine.config
-            if any(mesh.shape.get(axis, 1) > 1 for axis in ("seq", "stage")):
-                raise NotImplementedError("MultiHostBatcher under the seq or stage axis is not "
-                                          "ported (its ranks split data x expert x model only)")
             if cfg.kv_ring:
                 raise NotImplementedError("a rolling-buffer (kv_ring) engine under "
                                           "MultiHostBatcher on several ranks is not ported (it "
@@ -104,7 +103,9 @@ class MultiHostBatcher(ContinuousBatcher):
         super().__init__(engine, n_slots=n_slots, **kw)
         self._group = mesh.control if mesh is not None else None
         self._data = mesh.shape["data"] if mesh is not None else 1
-        # Ranks a data row: consecutive in rank order (data is the major axis).
+        # Ranks a data row (its stage, expert, seq and model ranks): a run of
+        # consecutive ranks, since data is the mesh's major axis
+        # (parallel/mesh.py AXES), so row d's first rank is d * _per_row.
         self._per_row = self.n_procs // self._data
         self._cancels: List[int] = []  # the coordinator's, not yet broadcast
         self._row_buf = self.max_seq_len
@@ -166,7 +167,8 @@ class MultiHostBatcher(ContinuousBatcher):
     # -- the gathers ----------------------------------------------------
     def _gather_rows(self, t: torch.Tensor) -> np.ndarray:
         """Every data rank's rows of a state tensor [rows, ...], in slot
-        order, on every rank (one model rank of each row stands for it)."""
+        order, on every rank (the first rank of each data row stands for it:
+        its stage, expert, seq and model ranks hold the same rows)."""
         src = t.detach().cpu().contiguous()  # waits for the chunk (not counted)
         t0 = time.perf_counter()
         parts = [torch.empty_like(src) for _ in range(self.n_procs)]
@@ -316,7 +318,8 @@ class MultiHostBatcher(ContinuousBatcher):
         admissions registered (each prompt's full chunks past its reused
         prefix, PrefixPageCache.register's) copied from the rank whose slot
         wrote them to the same page of every other data row's rank with the
-        same model and expert coordinates: k, v and the int8 scales of both
+        same stage, expert, seq and model coordinates (a paged pool is whole
+        on every seq rank): k, v and the int8 scales of both
         caches, in one all-gather of bytes over the control group."""
         if not (self.prefix_caching and self._data > 1):
             return

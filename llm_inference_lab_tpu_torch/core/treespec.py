@@ -17,7 +17,9 @@ rows from their tree slots to the contiguous slots base + 1 .. base + a
 that the cache invariant expects (a gather into a temporary, then the
 scatter: a source slot is never before its destination, so the two
 overlap), scales included for int8, through the page table for a paged
-cache. The carry becomes the deepest accepted node's hidden row.
+cache, and across ranks for a cache split on T over the seq axis (a row
+may move from one rank's slice into another's). The carry becomes the
+deepest accepted node's hidden row.
 
 As the chain step (core/specstep.py), the step never reads a value back to
 the host, comes functional or in place (``in_place=True``, which
@@ -101,15 +103,45 @@ class TreeConfig:
                 np.array(ranks, np.int32), anc)
 
 
-def _compact(cache, take_from: torch.Tensor, dst: torch.Tensor) -> None:
+def _compact_slices(cache, tensors, take_from: torch.Tensor, dst: torch.Tensor, sp) -> None:
+    """_compact over a cache split on T over the seq group sp (this rank's
+    slice holds positions [t0, t0 + T)): a row may move from one rank's
+    slice into another's when the verify chunk straddles them. Each rank
+    reads the sources its slice holds, the ranks stack them (one gather of
+    their bytes), and each writes the destinations its slice holds from
+    the rank that owns each source. Positions clip to the whole cache's T,
+    as _compact clips them. Reads the destinations on the host (the seq
+    axis runs its steps eagerly)."""
+    T, t0 = cache.k.shape[3], cache.t0
+    src = take_from.long().clamp(0, T * sp.size - 1)
+    dst = dst.long().clamp(0, T * sp.size - 1)
+    lanes = torch.arange(dst.shape[0], device=dst.device)[:, None]
+    # [B, n, L, KVH(, D)] each, as bytes: one buffer for the gather.
+    rows = [t[:, lanes, :, (src - t0).clamp(0, T - 1)] for t in tensors]
+    flat = torch.cat([r.contiguous().view(torch.uint8).reshape(*src.shape, -1) for r in rows], -1)
+    got = sp.stack(flat)[(src // T).clamp(0, sp.size - 1), lanes, torch.arange(src.shape[1],
+                                                                              device=src.device)]
+    b, j = ((dst >= t0) & (dst < t0 + T)).nonzero(as_tuple=True)
+    at = 0
+    for t, r in zip(tensors, rows):
+        n = r[0, 0].numel() * r.element_size()
+        val = got[b, j, at:at + n].contiguous().view(t.dtype).reshape(len(b), *r.shape[2:])
+        t[:, b, :, dst[b, j] - t0] = val
+        at += n
+
+
+def _compact(cache, take_from: torch.Tensor, dst: torch.Tensor, sp=None) -> None:
     """Every layer's KV rows (and int8 scales) at slots take_from [B, n] to
     slots dst [B, n] of their lanes, in place: gathered first, so a source
     that is another entry's destination is read before it is written. A
     contiguous cache's slots clip to its length, as the forward's write
     does (the engine's headroom keeps every active lane inside it); a paged
     cache's page ordinals clip to the table width, as JAX's compact_paged
-    does."""
+    does. A cache split on T over the seq group sp: _compact_slices."""
     tensors = [t for t in (cache.k, cache.v, cache.k_scale, cache.v_scale) if t is not None]
+    if getattr(cache, "t0", None) is not None:
+        _compact_slices(cache, tensors, take_from, dst, sp)
+        return
     if isinstance(cache, PagedKVCache):
         P, M = cache.page_size, cache.table.shape[1]
 
@@ -242,7 +274,7 @@ def make_tree_spec_step(target_model: Model, tree: TreeConfig, *, draft_params: 
         # base + 1 + j; past a the row at the destination stays (a no-op).
         dst = base[:, None] + jdx[:, 1:]
         take_from = torch.where(jdx[:, 1:] <= a[:, None], base[:, None] + path, dst)
-        _compact(state.target_cache, take_from, dst)
+        _compact(state.target_cache, take_from, dst, target_model.config.sp)
 
         new_lengths = state.lengths + commit
         if eos_token_id is not None:

@@ -64,6 +64,10 @@
 // set (its own node and its ancestors; S <= 32); nothing past the chunk.
 // The block's key range is [0, chunk_start + S), so the splits past the
 // chunk stay empty; the ancestry bits mask inside it. No window or ring.
+// Over a shard (D's shard variant with TREE) chunk_start is an absolute
+// position like the tile's keys: a rank's slice may hold the keys before
+// the chunk, part of the chunk (a chunk straddles two slices) or nothing a
+// row sees, which leaves that row's log-sum-exp at -inf.
 //
 // Split over T (kernels D and F, nz >= 1): block z of a (b, kv head, row
 // block) takes the keys of split lo / SPLIT + z, where lo is the block's
@@ -857,22 +861,28 @@ int launch_paged_tree(const void* q, const void* k_pool, const void* v_pool, con
 // D's and E's shard variant (MAP_SHARD) over [B, KVH, T, D] planes that
 // hold positions [t0, t0 + T): out f32 [B, S, H, D] and lse f32 [B, H, S].
 // nz = 0: E's walk (every key in one block); nz >= 1: D's split over T.
-// The chain mask with the score scale: no softcap, window or ring. Refuses
-// t0 < 0, a missing lse and an unknown head dim.
-template <class T>
+// The chain mask with opt's scale, softcap and window (compared with the
+// keys' absolute positions t0 + slot; no ring); TREE: D's tree variant
+// over the slice, tree.start[b] the chunk's first absolute position, no
+// window, S <= 32. Refuses t0 < 0, a missing lse, a ring and an unknown
+// head dim.
+template <class T, bool TREE = false>
 int launch_shard(const void* q, const void* k, const void* v, const void* ks, const void* vs,
                  const void* pos, void* out, float* lse, float* ws, unsigned* counters, int B,
                  int S, int H, int KVH, int Tk, int D, long long stride_kb, long long stride_kh,
-                 long long stride_sb, long long stride_sh, float scale, int t0, int nz,
-                 void* stream) {
+                 long long stride_sb, long long stride_sh, Options opt, int t0, int nz,
+                 void* stream, Tree tree = Tree{nullptr, nullptr}) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (H % KVH || t0 < 0 || lse == nullptr || nz < 0) return (int)cudaErrorInvalidValue;
+  if (H % KVH || t0 < 0 || lse == nullptr || nz < 0 || opt.ring != 0 || opt.window < 0)
+    return (int)cudaErrorInvalidValue;
+  if (TREE && (S < 1 || S > 32 || opt.window != 0 || nz < 1 || tree.bits == nullptr ||
+               tree.start == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (nz > 1 && (ws == nullptr || counters == nullptr)) return (int)cudaErrorInvalidValue;
   const Pages none{nullptr, 0, 0};
-  return launch_map<T, MAP_SHARD>(q, k, v, ks, vs, pos, out, ws, counters, B, S, H, KVH, Tk, D,
-                                  stride_kb, stride_kh, stride_sb, stride_sh,
-                                  Options{scale, 0.f, 0, 0}, nz, none, st,
-                                  Tree{nullptr, nullptr}, Shard{t0, lse});
+  return launch_map<T, MAP_SHARD, TREE>(q, k, v, ks, vs, pos, out, ws, counters, B, S, H, KVH,
+                                        Tk, D, stride_kb, stride_kh, stride_sb, stride_sh, opt,
+                                        nz, none, st, tree, Shard{t0, lse});
 }
 
 }  // namespace

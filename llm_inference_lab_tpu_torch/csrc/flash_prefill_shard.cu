@@ -33,13 +33,13 @@
 #include "attn_mma.cuh"
 
 // flash_prefill_bf16's operands with t0 and lse, no softcap, window or
-// ring.
+// ring (the ring prefill refuses Gemma-2's options, as JAX's does).
 extern "C" int flash_prefill_shard_bf16(const void* q, const void* k, const void* v,
                                         const void* pos, void* out, void* lse, int B, int S,
                                         int H, int KVH, int T, int D, long long stride_kb,
                                         long long stride_kh, float scale, int t0, void* stream) {
   return mma::launch_shard<__nv_bfloat16>(q, k, v, nullptr, nullptr, pos, out,
                                           static_cast<float*>(lse), nullptr, nullptr, B, S, H,
-                                          KVH, T, D, stride_kb, stride_kh, 0, 0, scale, t0, 0,
-                                          stream);
+                                          KVH, T, D, stride_kb, stride_kh, 0, 0,
+                                          {scale, 0.f, 0, 0}, t0, 0, stream);
 }

@@ -41,11 +41,11 @@ RING_SERVING_NEEDS_ADMIT_CHUNK = "(kv_ring) needs admit_chunk"
 # Each documented refusal of the matrix -> the port's raise site (file:line
 # in llm_inference_lab_tpu_torch/), whose message holds the fragment.
 RAISE_SITES: Dict[str, str] = {
-    PREFIX_NEEDS_PAGED: "core/batching.py:606",  # ContinuousBatcher.__init__
+    PREFIX_NEEDS_PAGED: "core/batching.py:611",  # ContinuousBatcher.__init__
     RING_NEEDS_CONTIGUOUS: "config.py:262",  # EngineConfig.validate
     RING_NOT_IN_TREE: "config.py:321",  # EngineConfig._validate_tree
     CONSTRAIN_NOT_IN_TREE: "config.py:298",  # EngineConfig._validate_constrain
-    LORA_NOT_IN_TREE: "core/engine.py:426",  # Engine._build_lora
+    LORA_NOT_IN_TREE: "core/engine.py:428",  # Engine._build_lora
     PER_REQUEST_NOT_WITH_REJECTION: "config.py:279",  # EngineConfig.validate
 }
 
@@ -85,15 +85,15 @@ def port_refusals() -> List[Dict[str, str]]:
          "what": "a ContinuousBatcher over a rolling-buffer (kv_ring) engine without "
                  "admit_chunk (a one-shot prefill of a prompt longer than the ring would "
                  "overwrite rows its own queries still need)",
-         "fragment": RING_SERVING_NEEDS_ADMIT_CHUNK, "site": "core/batching.py:621"},
+         "fragment": RING_SERVING_NEEDS_ADMIT_CHUNK, "site": "core/batching.py:626"},
         {"name": "moe_weight_quantization",
          "what": "int4/int8 weight quantization of a MoE model (JAX would quantize its "
                  "router, which its routing cannot read)",
-         "fragment": "weight quantization of a MoE model", "site": "core/engine.py:219"},
+         "fragment": "weight quantization of a MoE model", "site": "core/engine.py:222"},
         {"name": "tree_over_max_s",
          "what": "a tree whose verify chunk (num_nodes + 1 rows) exceeds MAX_TREE_S = 32 "
                  "on the card",
-         "fragment": "takes at most 32", "site": "ops/flash_decode.py:120"},
+         "fragment": "takes at most 32", "site": "ops/flash_decode.py:123"},
         {"name": "embed_bits",
          "what": "embed_bits outside {4, 8}",
          "fragment": "embed_bits must be 4 or 8", "site": "config.py:245"},
@@ -108,44 +108,23 @@ def port_refusals() -> List[Dict[str, str]]:
         # Under a mesh (parallel/): what the port does not shard.
         {"name": "mesh_shape_differs",
          "what": "an Engine given a mesh whose shape differs from its cfg.mesh_shape",
-         "fragment": "differs from cfg.mesh_shape", "site": "core/engine.py:230"},
-        {"name": "mesh_seq_paged",
-         "what": "paged KV under the seq axis (JAX's ring prefill writes the contiguous layout "
-                 "into a page pool)",
-         "fragment": "paged KV under the seq axis is not ported", "site": "core/engine.py:341"},
-        {"name": "mesh_seq_tree",
-         "what": "tree speculation under the seq axis (kernel D's shard variant has no ancestry "
-                 "mask)",
-         "fragment": "the tree under the seq axis is not ported", "site": "core/engine.py:344"},
-        {"name": "mesh_seq_slice_options",
-         "what": "Gemma-2's softcap or a window that can bind over a cache split on T, outside "
-                 "the ring prefill (which refuses them with JAX's messages), e.g. Engine.embed",
-         "fragment": "not ported over a cache split on T", "site": "ops/attention.py:146"},
-        {"name": "mesh_batcher_seq_stage",
-         "what": "a ContinuousBatcher under the seq or stage axis (JAX's batcher admits through "
-                 "scratch caches, which neither axis lays out)",
-         "fragment": "a ContinuousBatcher under the seq or stage axis is not ported",
-         "site": "core/batching.py:598"},
+         "fragment": "differs from cfg.mesh_shape", "site": "core/engine.py:233"},
         {"name": "mesh_batch_does_not_split",
          "what": "a generate_batch whose prompts do not split over the data axis",
          "fragment": "rows do not split over the data axis", "site": "parallel/mesh.py:223"},
         {"name": "mesh_batcher_data_axis",
          "what": "a ContinuousBatcher on a data axis above 1 (its slots across data ranks need "
                  "the coordinator's decisions: MultiHostBatcher)",
-         "fragment": "needs the coordinator's decisions", "site": "core/batching.py:592"},
+         "fragment": "needs the coordinator's decisions", "site": "core/batching.py:602"},
         {"name": "mesh_slots_do_not_split",
          "what": "serving slots that do not split over the data axis",
-         "fragment": "must split over the data axis", "site": "core/batching.py:595"},
+         "fragment": "must split over the data axis", "site": "core/batching.py:605"},
         {"name": "multihost_kv_ring",
          "what": "a rolling-buffer (kv_ring) engine under MultiHostBatcher on several ranks "
                  "(it serves only with incremental admission, which JAX's multi-host batcher "
                  "turns off)",
          "fragment": "under MultiHostBatcher on several ranks is not ported (it serves only",
-         "site": "core/multihost_batching.py:101"},
-        {"name": "multihost_seq_stage",
-         "what": "MultiHostBatcher on several ranks under the seq or stage axis",
-         "fragment": "MultiHostBatcher under the seq or stage axis is not ported",
-         "site": "core/multihost_batching.py:98"},
+         "site": "core/multihost_batching.py:100"},
     ]
 
 

@@ -221,12 +221,15 @@ class Model:
     def init_cache(self, batch_size: int, max_seq_len: int, device, paged: bool = False,
                    page_size: int = 64, n_pages: Optional[int] = None,
                    table: Optional[torch.Tensor] = None,
-                   dtype: Optional[torch.dtype] = None):
+                   dtype: Optional[torch.dtype] = None, split: bool = True):
         """A contiguous KVCache, or with paged=True a PagedKVCache (a pool of
         n_pages pages of page_size rows and a [batch_size, max_pages] table).
         dtype: the KV element type (None: the model dtype; torch.int8: a
         quantized cache with per-row scales). A ring model's contiguous cache
-        holds at most kv_ring_len slots."""
+        holds at most kv_ring_len slots. Under the seq axis a contiguous
+        cache holds the rank's slice of T; split=False keeps every position
+        (the batcher's admission scratch, which every seq rank prefills
+        whole)."""
         if paged:
             from llm_inference_lab_tpu_torch.models.paged import PagedKVCache
 
@@ -236,7 +239,7 @@ class Model:
         if self.config.kv_ring_len is not None:
             max_seq_len = min(max_seq_len, self.config.kv_ring_len)
         sp = self.config.sp
-        if sp is not None and max_seq_len % sp.size == 0:
+        if split and sp is not None and max_seq_len % sp.size == 0:
             # Under the seq axis a T that splits holds this rank's slice (JAX's
             # _cache_sharding); one that does not stays whole.
             per = max_seq_len // sp.size

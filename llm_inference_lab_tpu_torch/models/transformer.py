@@ -272,8 +272,9 @@ def _tree_options(cfg: ModelConfig, cache, cache_lens: torch.Tensor,
         return {}
     if cfg.kv_ring_len is not None:
         raise ValueError("the tree mask needs a cache without a ring")
+    # The whole cache's T: the table's pages, or every rank's slice.
     span = cache.k.shape[-2] * (cache.table.shape[-1] if isinstance(cache, PagedKVCache)
-                                else 1)
+                                else cfg.sp.size if cache.t0 is not None else 1)
     if cfg.sliding_window is not None and span > cfg.sliding_window:
         raise NotImplementedError("sliding-window attention with tree caches longer than "
                                   "the window is not supported")
@@ -294,8 +295,8 @@ def _check_ring(cfg: ModelConfig, cache) -> None:
             "gemma2 attention (softcap / query_pre_attn_scalar) is implemented on the "
             "contiguous and paged chain-decode paths (the ring-prefill variant is future work)")
     if isinstance(cache, PagedKVCache):
-        raise NotImplementedError("paged KV under the seq axis is not ported (the ring prefill "
-                                  "writes a contiguous cache)")
+        raise NotImplementedError("the ring prefill writes a contiguous cache (a paged pool, "
+                                  "whole on every seq rank, prefills unsplit)")
     max_t = cache.k.shape[-2] * (cfg.sp.size if cache.t0 is not None else 1)
     if cfg.sliding_window is not None and max_t > cfg.sliding_window:
         raise NotImplementedError("sliding-window attention with context-parallel / tree "

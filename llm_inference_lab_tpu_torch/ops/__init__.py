@@ -14,6 +14,10 @@ def kernel_wrappers() -> dict:
         flash_decode_int8,
         flash_decode_shard,
         flash_decode_shard_int8,
+        flash_decode_shard_opts,
+        flash_decode_shard_opts_int8,
+        flash_decode_shard_tree,
+        flash_decode_shard_tree_int8,
         flash_decode_tree,
         flash_decode_tree_int8,
     )
@@ -62,6 +66,10 @@ def kernel_wrappers() -> dict:
             "paged_flash_tree": paged_flash_tree, "paged_flash_tree_int8": paged_flash_tree_int8,
             "flash_decode_shard": flash_decode_shard,
             "flash_decode_shard_int8": flash_decode_shard_int8,
+            "flash_decode_shard_opts": flash_decode_shard_opts,
+            "flash_decode_shard_opts_int8": flash_decode_shard_opts_int8,
+            "flash_decode_shard_tree": flash_decode_shard_tree,
+            "flash_decode_shard_tree_int8": flash_decode_shard_tree_int8,
             "flash_prefill_shard": flash_prefill_shard,
             "verify_prefix": verify_prefix}
 
@@ -87,7 +95,8 @@ def kernel_backends(device) -> Dict[str, str]:
         "quant_matmul": (quant_matmul.INT4_LIBRARY, quant_matmul.INT8_LIBRARY),
         "verify_prefix": (verify.LIBRARY,),
         "decode_attention": (flash_decode.LIBRARY, flash_decode.LIBRARY + flash_decode.TREE,
-                             flash_decode.SHARD_LIBRARY),
+                             flash_decode.SHARD_LIBRARY,
+                             flash_decode.SHARD_LIBRARY + flash_decode.TREE),
         "prefill_attention": (flash_prefill.LIBRARY, flash_prefill.SHARD_LIBRARY),
         "paged_attention": (paged_flash.LIBRARY, paged_flash.LIBRARY + flash_decode.TREE),
         "rms_norm": (rms_norm.LIBRARY,),

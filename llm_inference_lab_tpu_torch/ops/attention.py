@@ -49,13 +49,15 @@ as the JAX forward refuses them (attend_xla's tree branch has neither).
 
 Under the seq axis a contiguous cache whose T splits is held as slices
 (models/base.py KVCache.t0): ``attend_slices`` attends this rank's slice
-with the shard variant of kernel D (flash_decode_shard: every rank has the
-same query rows, any S), all-gathers each slice's (out, lse) over the seq
-group and merges them by log-sum-exp in f32 (merge_shards), which is the
-softmax over the whole cache; JAX's GSPMD gives its kernel the global
-cache. It takes the score scale only: the seq axis refuses Gemma-2's
-softcap, a window that can bind and the tree (the ring prefill refuses them
-first, as JAX's forward does).
+with a shard variant of kernel D (every rank has the same query rows, any
+S), all-gathers each slice's (out, lse) over the seq group and merges them
+by log-sum-exp in f32 (merge_shards), which is the softmax over the whole
+cache; JAX's GSPMD gives its kernel the global cache. The chain mask with
+the score scale goes to flash_decode_shard; Gemma-2's softcap or a window
+that can bind (over the whole cache's T) to flash_decode_shard_opts, the
+same entry with its options, the window compared with absolute positions;
+the tree mask to flash_decode_shard_tree, chunk_start an absolute position
+(a chunk may straddle two slices). Their int8 forms count apart.
 """
 
 from __future__ import annotations
@@ -68,6 +70,8 @@ from llm_inference_lab_tpu_torch.models.paged import gather_pages
 from llm_inference_lab_tpu_torch.ops.flash_decode import (
     flash_decode,
     flash_decode_shard,
+    flash_decode_shard_opts,
+    flash_decode_shard_tree,
     flash_decode_tree,
     merge_shards,
 )
@@ -137,16 +141,25 @@ def attend_slices(q: torch.Tensor, k_slice: torch.Tensor, v_slice: torch.Tensor,
                   positions: torch.Tensor, t0: int, k_scale: Optional[torch.Tensor] = None,
                   v_scale: Optional[torch.Tensor] = None, *, group, span: int,
                   window: Optional[int] = None, scale: Optional[float] = None,
-                  softcap: Optional[float] = None, **tree) -> torch.Tensor:
+                  softcap: Optional[float] = None, tree_mask: Optional[torch.Tensor] = None,
+                  chunk_start: Optional[torch.Tensor] = None,
+                  tree_bits: Optional[torch.Tensor] = None) -> torch.Tensor:
     """attend over a cache whose T is split over the seq group: this rank's
     slice k_slice, v_slice [B, KVH, T / n, D] holds positions [t0, t0 + T / n)
-    (span: the whole cache's T). Each rank's (out, lse) of its slice,
-    gathered in rank order and merged: every rank gets the same rows."""
-    if tree or softcap is not None or (window is not None and span > window):
-        raise NotImplementedError("the tree mask, the softcap and a window that can bind are "
-                                  "not ported over a cache split on T (the seq axis)")
-    out, lse = flash_decode_shard(q, k_slice, v_slice, positions, t0, k_scale, v_scale,
-                                  scale=scale)
+    (span: the whole cache's T, which decides whether the window can bind).
+    Each rank's (out, lse) of its slice, gathered in rank order and merged:
+    every rank gets the same rows."""
+    options = _options(span, window, scale=scale, softcap=softcap)
+    if tree_mask is not None:
+        options = _tree_options(options, chunk_start)
+        out, lse = flash_decode_shard_tree(q, k_slice, v_slice, tree_mask, chunk_start, t0,
+                                           k_scale, v_scale, tree_bits, **options)
+    elif "softcap" in options or "window" in options:
+        out, lse = flash_decode_shard_opts(q, k_slice, v_slice, positions, t0, k_scale, v_scale,
+                                           **options)
+    else:
+        out, lse = flash_decode_shard(q, k_slice, v_slice, positions, t0, k_scale, v_scale,
+                                      scale=scale)
     B, S, H, D = q.shape
     # One hop: each rank's rows and their log-sum-exps in one f32 buffer.
     both = group.stack(torch.cat([out.reshape(-1), lse.reshape(-1)]))

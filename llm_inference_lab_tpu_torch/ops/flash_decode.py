@@ -43,7 +43,10 @@ axis: slot j holds position t0 + j, any S, and it returns the rows
 unrounded in f32 with their log-sum-exp [B, H, S], which ``merge_shards``
 combines over the slices in f32 (ops/attention.py attend_slices);
 ``flash_decode_shard_plain`` is its plain version, and E's
-(ops/flash_prefill.py flash_prefill_shard) too.
+(ops/flash_prefill.py flash_prefill_shard) too. ``flash_decode_shard_opts``
+is the same entry with Gemma-2's softcap and a window over absolute
+positions, and ``flash_decode_shard_tree`` (csrc/flash_decode_shard_tree.cu)
+the tree variant's ancestry word over a slice; each int8 form counts apart.
 """
 
 from __future__ import annotations
@@ -552,18 +555,26 @@ SHARD_LIBRARY = "flash_decode_shard"  # csrc/flash_decode_shard.cu
 
 
 def flash_decode_shard_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                             positions: torch.Tensor, t0: int,
+                             positions: Optional[torch.Tensor], t0: int,
                              k_scale: Optional[torch.Tensor] = None,
                              v_scale: Optional[torch.Tensor] = None, *,
-                             scale: Optional[float] = None):
+                             scale: Optional[float] = None, softcap: Optional[float] = None,
+                             window: Optional[int] = None,
+                             tree_mask: Optional[torch.Tensor] = None,
+                             chunk_start: Optional[torch.Tensor] = None):
     """The shard variant's function (kernels D and E over a plane that holds
     positions [t0, t0 + T)): slot j of k, v [B, KVH, T, D] is position t0 + j
-    and a query at p sees the slots whose position is <= p. Returns out f32
-    [B, S, H, D], unrounded, the probabilities rounded to the cache's compute
-    dtype before P @ V as the kernels round them, and lse f32 [B, H, S], the
-    log-sum-exp of the row's scores; a row that sees no key gets zeros and
-    -inf. merge_shards of the slices of a cache gives attend's rows over the
-    whole cache."""
+    and a query at p sees the slots whose position is in (p - window, p]
+    (<= p without a window), scores times the scale then the softcap, as
+    flash_decode_plain; with tree_mask [S, S] and chunk_start [B] (the
+    chunk's first absolute position) instead of positions, attend_xla's
+    tree mask (tree_visible) at the slice's absolute positions. Returns out
+    f32 [B, S, H, D], unrounded, the probabilities rounded to the cache's
+    compute dtype before P @ V as the kernels round them, and lse f32
+    [B, H, S], the log-sum-exp of the row's scores; a row that sees no key
+    gets zeros and -inf. merge_shards of the slices of a cache gives
+    attend's rows over the whole cache."""
+    Options(scale, softcap, window).check()
     k, v = dequantize_cache(q, k, v, k_scale, v_scale)
     B, S, H, D = q.shape
     KVH, T = k.shape[1], k.shape[2]
@@ -571,8 +582,16 @@ def flash_decode_shard_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qg = q.reshape(B, S, KVH, group, D).float()
     scores = torch.einsum("bsngd,bntd->bngst", qg, k.float()) * (D ** -0.5 if scale is None
                                                                   else scale)
-    kv_pos = t0 + torch.arange(T, device=q.device)
-    mask = kv_pos[None, None, None, None, :] <= positions[:, None, None, :, None]
+    if softcap is not None:
+        scores = torch.tanh(scores / softcap) * softcap
+    if tree_mask is not None:
+        mask = tree_visible(T, tree_mask, chunk_start.long() - t0)[:, None, None]
+    else:
+        kv_pos = t0 + torch.arange(T, device=q.device)
+        p = positions[:, None, None, :, None]
+        mask = kv_pos[None, None, None, None, :] <= p
+        if window is not None:
+            mask = mask & (kv_pos[None, None, None, None, :] > p - window)
     scores = scores.masked_fill(~mask, float("-inf"))
     lse = torch.logsumexp(scores, dim=-1)  # [B, KVH, group, S]; -inf: no key
     live = torch.isfinite(lse)
@@ -606,53 +625,93 @@ def shard_splits(T: int, t0: int) -> int:
 
 
 def launch_shard(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 positions: torch.Tensor, t0: int, k_scale: Optional[torch.Tensor],
-                 v_scale: Optional[torch.Tensor], scale: Optional[float]):
+                 positions: Optional[torch.Tensor], t0: int, k_scale: Optional[torch.Tensor],
+                 v_scale: Optional[torch.Tensor], opts: Options,
+                 tree: Optional[tuple] = None, name: Optional[str] = None):
     """Check the operands of D's ("flash_decode") or E's ("flash_prefill")
     shard variant over planes k, v [B, KVH, T, D] of positions [t0, t0 + T)
-    and launch its bf16 entry, or D's int8 entry for an int8 k. Returns
-    (out f32 [B, S, H, D], lse f32 [B, H, S])."""
+    and launch its bf16 entry, or D's int8 entry for an int8 k. opts: the
+    score scale, and for D the softcap and the window (no ring); tree: D's
+    tree variant's (tree_mask [S, S], chunk_start [B], bits or None) in
+    place of the positions. Returns (out f32 [B, S, H, D], lse f32
+    [B, H, S])."""
     int8 = k.dtype == torch.int8
-    name = kernel + "_shard" + ("_int8" if int8 else "")
+    name = name or kernel + "_shard" + ("_int8" if int8 else "")
     if int8 and kernel != "flash_decode":
         raise TypeError(f"{name}: the ring's blocks are bf16 (E's shard variant reads no "
                         "int8 cache)")
-    B, S, H, D = check_queries(name, q, positions, k, v,
-                               cache_dtype=torch.int8 if int8 else torch.bfloat16)
+    opts.check()
+    if opts.ring_len is not None or (kernel != "flash_decode" and (opts.softcap or opts.window)):
+        raise NotImplementedError(f"{name}: no ring, and E's shard variant no softcap or "
+                                  "window (the ring prefill refuses them)")
+    cache_dtype = torch.int8 if int8 else torch.bfloat16
+    if tree is None:
+        B, S, H, D = check_queries(name, q, positions, k, v, cache_dtype=cache_dtype)
+    else:
+        B, S, H, D = check_queries(name, q, torch.zeros(q.shape[:2], dtype=torch.int32,
+                                                        device=q.device), k, v,
+                                   cache_dtype=cache_dtype)
+        tree_mask, chunk_start, bits = tree
+        _check_tree(tree_mask, chunk_start, B, S, opts._asdict())
+        if chunk_start.dtype != torch.int32 or chunk_start.device != q.device:
+            raise ValueError(f"{name}: chunk_start must be int32 on q's device")
+        bits = tree_bits(tree_mask) if bits is None else bits
     check_planes(name, q, k, v)
     if t0 < 0:
         raise ValueError(f"{name}: t0 must be >= 0, got {t0}")
     KVH, T = k.shape[1], k.shape[2]
     out = torch.empty((B, S, H, D), dtype=torch.float32, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    scale = D ** -0.5 if scale is None else scale
-    lib = build.library(kernel + "_shard")
+    scale, softcap, window = opts.kernel_args(D)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     head = (q.data_ptr(), k.data_ptr(), v.data_ptr())
     if kernel == "flash_prefill":
+        lib = build.library("flash_prefill_shard")
         err = lib.flash_prefill_shard_bf16(*head, positions.data_ptr(), out.data_ptr(),
                                            lse.data_ptr(), B, S, H, KVH, T, D, k.stride(0),
                                            k.stride(1), scale, t0, stream)
+        build.check(err, name)
+        return out, lse
+    nz = shard_splits(T, t0)
+    ws = counters = None
+    if nz > 1:
+        nblk = B * KVH * -(-S * (H // KVH) // ROWS)
+        ws = torch.empty((nblk * nz * ROWS * (D + 2),), dtype=torch.float32, device=q.device)
+        counters = ticket_counters(q.device, nblk)
+    tail = (B, S, H, KVH, T, D, k.stride(0), k.stride(1))
+    scales = ()
+    if int8:
+        check_scales(name, k, k_scale, v_scale)
+        scales = (k_scale.data_ptr(), v_scale.data_ptr())
+    sstrides = (k_scale.stride(0), k_scale.stride(1)) if int8 else ()
+    if tree is None:
+        lib = build.library("flash_decode_shard")
+        entry = lib.flash_decode_shard_int8 if int8 else lib.flash_decode_shard_bf16
+        err = entry(*head, *scales, positions.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                    *data_ptrs(ws, counters), *tail, *sstrides, scale, softcap, window, t0, nz,
+                    stream)
     else:
-        nz = shard_splits(T, t0)
-        ws = counters = None
-        if nz > 1:
-            nblk = B * KVH * -(-S * (H // KVH) // ROWS)
-            ws = torch.empty((nblk * nz * ROWS * (D + 2),), dtype=torch.float32, device=q.device)
-            counters = ticket_counters(q.device, nblk)
-        tail = (B, S, H, KVH, T, D, k.stride(0), k.stride(1))
-        if int8:
-            check_scales(name, k, k_scale, v_scale)
-            err = lib.flash_decode_shard_int8(
-                *head, k_scale.data_ptr(), v_scale.data_ptr(), positions.data_ptr(),
-                out.data_ptr(), lse.data_ptr(), *data_ptrs(ws, counters), *tail,
-                k_scale.stride(0), k_scale.stride(1), scale, t0, nz, stream)
-        else:
-            err = lib.flash_decode_shard_bf16(
-                *head, positions.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                *data_ptrs(ws, counters), *tail, scale, t0, nz, stream)
+        lib = build.library("flash_decode_shard" + TREE)
+        entry = lib.flash_decode_shard_tree_int8 if int8 else lib.flash_decode_shard_tree_bf16
+        err = entry(*head, *scales, bits.data_ptr(), chunk_start.data_ptr(), out.data_ptr(),
+                    lse.data_ptr(), *data_ptrs(ws, counters), *tail, *sstrides, scale, softcap,
+                    t0, nz, stream)
     build.check(err, name)
     return out, lse
+
+
+def _shard(counter, q, k, v, positions, t0, k_scale, v_scale, opts: Options, tree=None):
+    """One of D's shard variants: the plain version on a CPU tensor, else the
+    kernel, counted on `counter` (the wrapper) once it launched."""
+    if not q.is_cuda:
+        return flash_decode_shard_plain(
+            q, k, v, positions, t0, k_scale, v_scale, scale=opts.scale, softcap=opts.softcap,
+            window=opts.window, tree_mask=None if tree is None else tree[0],
+            chunk_start=None if tree is None else tree[1])
+    got = launch_shard("flash_decode", q, k, v, positions, t0, k_scale, v_scale, opts, tree,
+                       name=counter.__name__)
+    counter.launches += 1
+    return got
 
 
 def flash_decode_shard(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -666,23 +725,69 @@ def flash_decode_shard(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     or an error. An int8 cache goes to flash_decode_shard_int8."""
     if k.dtype == torch.int8:
         return flash_decode_shard_int8(q, k, v, positions, t0, k_scale, v_scale, scale)
-    if not q.is_cuda:
-        return flash_decode_shard_plain(q, k, v, positions, t0, scale=scale)
-    got = launch_shard("flash_decode", q, k, v, positions, t0, None, None, scale)
-    flash_decode_shard.launches += 1
-    return got
+    return _shard(flash_decode_shard, q, k, v, positions, t0, None, None, Options(scale))
 
 
 def flash_decode_shard_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             positions: torch.Tensor, t0: int, k_scale: torch.Tensor,
                             v_scale: torch.Tensor, scale: Optional[float] = None):
     """flash_decode_shard over an int8 slice with f32 scales [B, KVH, T]."""
-    if not q.is_cuda:
-        return flash_decode_shard_plain(q, k, v, positions, t0, k_scale, v_scale, scale=scale)
-    got = launch_shard("flash_decode", q, k, v, positions, t0, k_scale, v_scale, scale)
-    flash_decode_shard_int8.launches += 1
-    return got
+    return _shard(flash_decode_shard_int8, q, k, v, positions, t0, k_scale, v_scale,
+                  Options(scale))
 
 
-flash_decode_shard.launches = 0
-flash_decode_shard_int8.launches = 0
+def flash_decode_shard_opts(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            positions: torch.Tensor, t0: int,
+                            k_scale: Optional[torch.Tensor] = None,
+                            v_scale: Optional[torch.Tensor] = None, *,
+                            scale: Optional[float] = None, softcap: Optional[float] = None,
+                            window: Optional[int] = None):
+    """flash_decode_shard with Gemma-2's options: the score scale, the
+    softcap and a sliding window over absolute positions (a slice wholly
+    behind a row's window gives it lse -inf). The same kernel entry
+    (csrc/flash_decode_shard.cu) with its own launch count; an int8 cache
+    goes to flash_decode_shard_opts_int8."""
+    opts = Options(scale, softcap, window)
+    if k.dtype == torch.int8:
+        return _shard(flash_decode_shard_opts_int8, q, k, v, positions, t0, k_scale, v_scale,
+                      opts)
+    return _shard(flash_decode_shard_opts, q, k, v, positions, t0, None, None, opts)
+
+
+def flash_decode_shard_opts_int8(q, k, v, positions, t0, k_scale, v_scale, **options):
+    """flash_decode_shard_opts over an int8 slice with f32 scales [B, KVH, T]."""
+    return flash_decode_shard_opts(q, k, v, positions, t0, k_scale, v_scale, **options)
+
+
+def flash_decode_shard_tree(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            tree_mask: torch.Tensor, chunk_start: torch.Tensor, t0: int,
+                            k_scale: Optional[torch.Tensor] = None,
+                            v_scale: Optional[torch.Tensor] = None,
+                            bits: Optional[torch.Tensor] = None, *,
+                            scale: Optional[float] = None, softcap: Optional[float] = None):
+    """Kernel D's shard variant with the ancestry word: tree speculation's
+    verify chunk q [B, S, H, D] at absolute positions chunk_start[b] ..
+    + S - 1 over a rank's slice (slot j holding position t0 + j; the chunk
+    may straddle slices), row s seeing the positions before the chunk and
+    the chunk's positions tree_mask[s] names that the slice holds. Returns
+    (out f32, lse f32) for merge_shards. On a CPU tensor the plain version;
+    on a CUDA tensor csrc/flash_decode_shard_tree.cu (S <= 32) or an error.
+    An int8 cache counts on flash_decode_shard_tree_int8."""
+    tree = (tree_mask, chunk_start, bits)
+    opts = Options(scale, softcap)
+    if k.dtype == torch.int8:
+        return _shard(flash_decode_shard_tree_int8, q, k, v, None, t0, k_scale, v_scale, opts,
+                      tree)
+    return _shard(flash_decode_shard_tree, q, k, v, None, t0, None, None, opts, tree)
+
+
+def flash_decode_shard_tree_int8(q, k, v, tree_mask, chunk_start, t0, k_scale, v_scale,
+                                 bits=None, **options):
+    """flash_decode_shard_tree over an int8 slice with f32 scales [B, KVH, T]."""
+    return flash_decode_shard_tree(q, k, v, tree_mask, chunk_start, t0, k_scale, v_scale, bits,
+                                   **options)
+
+
+for _fn in (flash_decode_shard, flash_decode_shard_int8, flash_decode_shard_opts,
+            flash_decode_shard_opts_int8, flash_decode_shard_tree, flash_decode_shard_tree_int8):
+    _fn.launches = 0

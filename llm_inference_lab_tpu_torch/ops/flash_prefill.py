@@ -82,7 +82,7 @@ def flash_prefill_shard(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [B, S, H, D], lse f32 [B, H, S]); the plain version on a CPU tensor."""
     if not q.is_cuda:
         return flash_decode_shard_plain(q, k, v, positions, t0, scale=scale)
-    got = launch_shard("flash_prefill", q, k, v, positions, t0, None, None, scale)
+    got = launch_shard("flash_prefill", q, k, v, positions, t0, None, None, Options(scale))
     flash_prefill_shard.launches += 1
     return got
 

@@ -38,6 +38,7 @@ from llm_inference_lab_tpu_torch.models import transformer as tt
 from llm_inference_lab_tpu_torch.models.base import KVCache, ModelConfig, cache_slots
 from llm_inference_lab_tpu_torch.ops import rms_norm as rn
 from llm_inference_lab_tpu_torch.ops.quant import EmbedQuant
+from test_torch_decode_loop import one_thread  # noqa: F401
 
 
 def _within_norm_tolerance(dtype, got, ref):

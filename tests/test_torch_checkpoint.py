@@ -23,6 +23,7 @@ from llm_inference_lab_tpu_torch.convert import params_from_jax
 from llm_inference_lab_tpu_torch.models import checkpoint
 from llm_inference_lab_tpu_torch.ops.quant import EmbedQuant, QuantTensor
 from llm_inference_lab_tpu_torch.utils.safetensors import SafeFile, save_file
+from test_torch_decode_loop import one_thread  # noqa: F401
 
 # A Qwen2-shaped tree (biases, an untied head) small enough for the CPU.
 QWEN_SMALL = dataclasses.replace(J_QWEN2["qwen2.5-0.5b"], n_layers=2, n_heads=14, n_kv_heads=2,

@@ -26,6 +26,7 @@ from llm_inference_lab_tpu.constrain.tools import build_tools_automaton as jax_t
 from llm_inference_lab_tpu.utils.tokenizer import ByteTokenizer as JaxByteTokenizer
 from llm_inference_lab_tpu_torch.constrain import runtime as rt
 from llm_inference_lab_tpu_torch.constrain.jsonfsm import SYM_OBJ, TokenTables
+from test_torch_decode_loop import one_thread  # noqa: F401
 
 V = 300
 EOS = 0

@@ -22,6 +22,7 @@ from llm_inference_lab_tpu_torch.constrain.regex import build_regex_automaton
 from llm_inference_lab_tpu_torch.constrain.schema import build_schema_automaton
 from llm_inference_lab_tpu_torch.constrain.tools import build_tools_automaton
 from llm_inference_lab_tpu_torch.utils.tokenizer import ByteTokenizer
+from test_torch_decode_loop import one_thread  # noqa: F401
 
 SCHEMAS = [
     {"type": "object", "properties": {"a": {"type": "integer"}, "b": {"enum": ["x", "y"]}}},

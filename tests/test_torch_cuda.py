@@ -1916,6 +1916,83 @@ def test_shard_variants_match_plain_and_merge_to_the_whole_cache(card, cache, D,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cache", ["bf16", "int8"])
+def test_shard_tree_and_options_merge_to_the_whole_cache_kernels(card, cache):
+    """D's shard variant with the ancestry word (the 3B's geometry, the
+    [3, 2] tree's 10 rows, one chunk straddling the slices' boundary, one
+    wholly in the first slice) and with Gemma-2's options (D = 256, scale,
+    softcap 50, window 4096 and none, a row whose window leaves the first
+    slice behind) over 2 and 4 slices: out within the attention tolerance
+    and lse within 1e-4 of the plain versions (an int8 slice's over its
+    keys dequantized in f32, as the kernel scales the f32 score: the plain
+    version's bf16 dequantization moves the score of a row that sees a few
+    keys by ~1e-3), dead rows zeros and -inf, and the slices merged by
+    merge_shards within the attention tolerance of the whole-cache kernels
+    (flash_decode_tree, flash_decode with the options)."""
+    from llm_inference_lab_tpu_torch.core.treespec import TreeConfig
+    from llm_inference_lab_tpu_torch.ops.flash_decode import (
+        flash_decode_shard_opts,
+        flash_decode_shard_plain,
+        flash_decode_shard_tree,
+        flash_decode_tree,
+        merge_shards,
+    )
+
+    g = torch.Generator(device=card).manual_seed(23)
+    anc = torch.from_numpy(TreeConfig((3, 2)).build()[3]).to(card)
+    gemma = dict(scale=224 ** -0.5, softcap=50.0)
+    cases = [  # (D, H, KVH, T, S, run over a slice, the whole-cache kernel, plain options)
+        (128, 24, 8, 256, 10,
+         lambda q, k, v, t0, sc: flash_decode_shard_tree(q, k, v, anc, start, t0, *sc),
+         lambda q, k, v, sc: flash_decode_tree(q, k, v, anc, start, *sc),
+         dict(tree_mask=anc, chunk_start=None))]
+    for window in (4096, None):
+        opts = dict(gemma, window=window)
+        cases.append((256, 16, 8, 8960, 2,
+                      lambda q, k, v, t0, sc, o=opts: flash_decode_shard_opts(q, k, v, pos, t0,
+                                                                               *sc, **o),
+                      lambda q, k, v, sc, o=opts: flash_decode(q, k, v, pos, *sc, **o), opts))
+    start = torch.tensor([124, 60], device=card, dtype=torch.int32)
+    pos = torch.tensor([[8899, 8900], [4999, 5000]], device=card, dtype=torch.int32)
+    for D, H, KVH, T, S, shard, whole_fn, plain_opts in cases:
+        k = torch.randn((2, KVH, T, D), generator=g, device=card).bfloat16()
+        v = torch.randn((2, KVH, T, D), generator=g, device=card).bfloat16()
+        ks = vs = None
+        if cache == "int8":
+            k, ks = quantize_rows(k)
+            v, vs = quantize_rows(v)
+        q = torch.randn((2, S, H, D), generator=g, device=card).bfloat16()
+        tree = "tree_mask" in plain_opts
+        popts = dict(plain_opts, chunk_start=start) if tree else plain_opts
+        whole = whole_fn(q, k, v, (ks, vs) if ks is not None else ()).float()
+        for n in (2, 4):
+            per = T // n
+            outs, lses = [], []
+            for r in range(n):
+                sl = slice(r * per, (r + 1) * per)
+                kr, vr = k[:, :, sl].contiguous(), v[:, :, sl].contiguous()
+                sr = ((ks[:, :, sl].contiguous(), vs[:, :, sl].contiguous()) if ks is not None
+                      else ())
+                o, l = shard(q, kr, vr, r * per, sr)
+                kf, vf = kr, vr
+                if sr:
+                    kf, vf = kr.float() * sr[0][..., None], vr.float() * sr[1][..., None]
+                po, pl = flash_decode_shard_plain(q.float(), kf, vf, None if tree else pos,
+                                                  r * per, **popts)
+                live = torch.isfinite(pl)
+                assert torch.equal(live, torch.isfinite(l)), (D, n, r)
+                assert torch.all(((l - pl).abs() <= 1e-4)[live]), (D, n, r)
+                assert torch.all((o - po).abs() <= 2.0 ** -7 * po.abs() + 2.0 ** -7), (D, n, r)
+                assert torch.all(o[~live.transpose(1, 2)] == 0), (D, n, r)
+                outs.append(o)
+                lses.append(l)
+            if not tree and plain_opts["window"] is not None:
+                assert torch.isinf(lses[0][0]).all()  # p = 8900: the first slice behind
+            merged, _ = merge_shards(torch.stack(outs), torch.stack(lses))
+            assert torch.all((merged - whole).abs() <= 2.0 ** -7 * whole.abs() + 2.0 ** -7)
+
+
+@pytest.mark.cuda
 def test_seq_and_stage_forwards_of_ranks_on_the_card_equal_one_process(card):
     """The seq=2 ring prefill (E's shard variant on the blocks, D's over the
     T-split cache for the decode chunks) and the stage=2 pipeline of two

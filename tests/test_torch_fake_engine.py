@@ -40,6 +40,7 @@ from llm_inference_lab_tpu_torch.core.engine import Engine
 from llm_inference_lab_tpu_torch.models import registry
 from llm_inference_lab_tpu_torch.models.base import KVCache
 from llm_inference_lab_tpu_torch.models.fake import make_fake_model
+from test_torch_decode_loop import one_thread  # noqa: F401
 
 PROMPTS = ["fake model parity", "the quick brown fox " * 3, "ab"]
 FAKE = dict(implementation="fake", base_model="fake", draft_model="fake", max_draft=4,

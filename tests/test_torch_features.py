@@ -173,37 +173,25 @@ def _refuse_ring_serving():
                                           prefill_chunk=32), device="cpu"), n_slots=1)
 
 
-def _mesh(data=1, model=1, **axes):
+def _mesh(data=1, model=1):
     """Rank 0's view of a mesh, without a process group: every refusal below
-    raises before a collective would run. axes: seq, stage or expert."""
+    raises before a collective would run."""
     from llm_inference_lab_tpu_torch.parallel.mesh import AXES, Mesh
 
-    sizes = dict(axes, data=data, model=model)
-    shape = {a: sizes[a] for a in AXES if a in sizes}
-    return Mesh(shape, 0, {a: 0 for a in AXES}, "gloo")
+    return Mesh({"data": data, "model": model}, 0, {a: 0 for a in AXES}, "gloo")
 
 
 TINY = dict(base_model="llama-tiny", draft_model=None, max_seq_len=96, dtype="float32")
 
 
-def _mesh_engine(data=1, model=1, axes=None, **kw):
-    return Engine(EngineConfig(**dict(TINY, **kw)), device="cpu",
-                  mesh=_mesh(data, model, **(axes or {})))
+def _mesh_engine(data=1, model=1, **kw):
+    return Engine(EngineConfig(**dict(TINY, **kw)), device="cpu", mesh=_mesh(data, model))
 
 
-def _refuse_slice_options():
-    from llm_inference_lab_tpu_torch.ops.attention import attend_slices
-
-    q = torch.zeros((1, 1, 2, 64))
-    kv = torch.zeros((1, 2, 16, 64))
-    attend_slices(q, kv, kv, torch.zeros((1, 1), dtype=torch.int32), 16, group=None, span=32,
-                  softcap=50.0)
-
-
-def _refuse_multihost(axes=None, **kw):
+def _refuse_multihost(**kw):
     from llm_inference_lab_tpu_torch.core.multihost_batching import MultiHostBatcher
 
-    return MultiHostBatcher(_mesh_engine(data=1 if axes else 2, axes=axes, **kw), n_slots=2)
+    return MultiHostBatcher(_mesh_engine(data=2, **kw), n_slots=2)
 
 
 def _refuse_slots():
@@ -218,13 +206,6 @@ REFUSE = {"ring_serving_without_admit_chunk": _refuse_ring_serving,
           "lora_mlp_without_gated_mlp": _refuse_lora_mlp,
           "unknown_config_key": _refuse_config_key,
           "mesh_shape_differs": lambda: _mesh_engine(data=2, mesh_shape={"model": 2}),
-          "mesh_seq_paged": lambda: _mesh_engine(axes=dict(seq=2), kv_layout="paged",
-                                                 kv_page_size=32),
-          "mesh_seq_tree": lambda: _mesh_engine(axes=dict(seq=2), draft_mode="tree"),
-          "mesh_seq_slice_options": _refuse_slice_options,
-          "mesh_batcher_seq_stage": lambda: ContinuousBatcher(
-              _mesh_engine(axes=dict(stage=2)), n_slots=2),
-          "multihost_seq_stage": lambda: _refuse_multihost(axes=dict(stage=2)),
           "mesh_batch_does_not_split": lambda: _mesh_engine(data=2).generate_batch(["a"]),
           "mesh_batcher_data_axis": lambda: ContinuousBatcher(_mesh_engine(data=2), n_slots=2),
           "mesh_slots_do_not_split": _refuse_slots,

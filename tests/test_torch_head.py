@@ -21,6 +21,7 @@ from llm_inference_lab_tpu.ops import quant as jq
 from llm_inference_lab_tpu_torch.convert import params_from_jax
 from llm_inference_lab_tpu_torch.models import transformer as tt
 from llm_inference_lab_tpu_torch.models.base import ModelConfig
+from test_torch_decode_loop import one_thread  # noqa: F401
 
 V, D, ROWS = 32000, 1024, 4
 

@@ -34,6 +34,7 @@ from llm_inference_lab_tpu_torch.models.factory import create_family_model
 from llm_inference_lab_tpu_torch.models.loader import load_llama_checkpoint
 from llm_inference_lab_tpu_torch.models.llama import LLAMA_CONFIGS
 from llm_inference_lab_tpu_torch.models.registry import create
+from test_torch_decode_loop import one_thread  # noqa: F401
 
 
 @functools.lru_cache(maxsize=None)

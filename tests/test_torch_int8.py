@@ -51,6 +51,7 @@ from llm_inference_lab_tpu_torch.ops.quant_matmul import (
     quant_matmul_int8,
     quant_matmul_plain_int8,
 )
+from test_torch_decode_loop import one_thread  # noqa: F401
 
 # (K, N) of every int8 projection of the int8 path: 3B target, 1B draft.
 PATH_SHAPES = [(3072, 5120), (3072, 3072), (3072, 16384), (8192, 3072),

@@ -41,6 +41,7 @@ from llm_inference_lab_tpu_torch.ops import attention
 from llm_inference_lab_tpu_torch.ops import flash_decode as fd
 from llm_inference_lab_tpu_torch.ops import flash_prefill as fp
 from llm_inference_lab_tpu_torch.ops import paged_flash as pf
+from test_torch_decode_loop import one_thread  # noqa: F401
 
 # Attention outputs are O(1) averages of dequantized N(0, 1) rows; the two
 # sides sum the softmax in another order: 2e-5 absolute.

@@ -35,6 +35,7 @@ from llm_inference_lab_tpu_torch.core.engine import Engine
 from llm_inference_lab_tpu_torch.models import loader, registry
 from llm_inference_lab_tpu_torch.utils import safetensors as st
 from test_torch_checkpoint import _same
+from test_torch_decode_loop import one_thread  # noqa: F401
 
 # ------------------------------------------------------- (a) the file format
 DTYPES = [torch.bfloat16, torch.float16, torch.float32, torch.int8, torch.uint8, torch.int32,

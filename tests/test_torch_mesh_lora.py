@@ -12,7 +12,8 @@ rows), and mixtral-tiny with an adapter of its attention sites at expert 2
 (data 2 x expert 2): generate_batch's ids under the base model and each
 adapter equal JAX's unsharded LoRA engine's, and MultiHostBatcher's ids of
 requests with base and adapted rows mixed equal JAX's ContinuousBatcher's
-(the batcher under the seq axis is not ported); the fake engine's ids at
+(under model 2 and expert 2; tests/test_torch_mesh_serving.py serves
+under seq); the fake engine's ids at
 data 2 x model 2 equal JAX's fake engine's; a profiled engine (llama-tiny
 and its own weights as the draft, sharded with it) at model 2 and seq 2
 returns JAX's phase keys with finite values and JAX's ids.

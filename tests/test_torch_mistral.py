@@ -45,6 +45,7 @@ from llm_inference_lab_tpu_torch.models.base import (
 from llm_inference_lab_tpu_torch.models.mistral import MISTRAL_CONFIGS
 from llm_inference_lab_tpu_torch.ops import attention
 from llm_inference_lab_tpu_torch.ops.paged_flash import paged_flash
+from test_torch_decode_loop import one_thread  # noqa: F401
 
 # Ring attention inputs: a ring of R slots, a window W, the group of 2
 # query heads a KV head that mistral-tiny has.

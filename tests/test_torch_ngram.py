@@ -34,6 +34,7 @@ from llm_inference_lab_tpu_torch.core.engine import Engine
 from llm_inference_lab_tpu_torch.core.specstep import make_spec_step
 from llm_inference_lab_tpu_torch.core.state import init_state
 from llm_inference_lab_tpu_torch.models.fake import make_fake_model
+from test_torch_decode_loop import one_thread  # noqa: F401
 
 B, T, K = 7, 64, 5
 

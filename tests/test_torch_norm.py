@@ -16,6 +16,7 @@ import torch
 from llm_inference_lab_tpu.models import transformer as jt
 from llm_inference_lab_tpu_torch.models import transformer as tt
 from llm_inference_lab_tpu_torch.ops.rms_norm import rms_norm, rms_norm_plain
+from test_torch_decode_loop import one_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("one_offset", [False, True])

@@ -19,6 +19,7 @@ from llm_inference_lab_tpu_torch.core.policies import longest_prefix
 from llm_inference_lab_tpu_torch.ops.attention import attend
 from llm_inference_lab_tpu_torch.ops.flash_decode import flash_decode, flash_decode_plain
 from llm_inference_lab_tpu_torch.ops.verify import verify_prefix, verify_prefix_plain
+from test_torch_decode_loop import one_thread  # noqa: F401
 
 
 def _attn_inputs(S, seed, B=2, H=6, KVH=2, T=256, D=128):

@@ -35,6 +35,7 @@ from llm_inference_lab_tpu_torch.models.paged import (
 from llm_inference_lab_tpu_torch.ops import attention
 from llm_inference_lab_tpu_torch.ops.flash_prefill import flash_prefill
 from llm_inference_lab_tpu_torch.ops.paged_flash import paged_flash, paged_flash_plain
+from test_torch_decode_loop import one_thread  # noqa: F401
 
 
 def _t(*arrays):

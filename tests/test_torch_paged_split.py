@@ -28,6 +28,7 @@ from llm_inference_lab_tpu.ops.pallas.paged_flash import paged_flash_attention
 from llm_inference_lab_tpu_torch.models.base import quantize_rows
 from llm_inference_lab_tpu_torch.ops.flash_decode import flash_decode_split_plain
 from llm_inference_lab_tpu_torch.ops.paged_flash import paged_flash_split_plain, paged_keys
+from test_torch_decode_loop import one_thread  # noqa: F401
 
 ATOL = 2e-5
 SPLIT_SMALL = 64  # several splits over the 384 keys

@@ -58,6 +58,7 @@ from llm_inference_lab_tpu_torch.parallel.sharding import (
 from functools import partial
 
 import torch_parallel_ranks as ranks
+from test_torch_decode_loop import one_thread  # noqa: F401
 
 RTOL = ATOL = 2e-4  # JAX's (tests/test_parallel.py:73-75)
 QUANT = {"f32": {}, "int8": dict(mode="int8"), "int4": dict(mode="int4"),
@@ -347,9 +348,9 @@ def test_refusals_under_a_mesh():
             "too_small": "ValueError: mesh 4x1x1x1x2 needs 8 devices, have 4",
             "mesh_differs": "ValueError: the mesh given ({'data': 2, 'model': 2}) differs from "
                             "cfg.mesh_shape ({'model': 4})",
-            "batcher_seq": "NotImplementedError: a ContinuousBatcher under the seq or stage axis",
-            "multihost_stage": "NotImplementedError: MultiHostBatcher under the seq or stage "
-                               "axis",
+            "batcher_seq": "ContinuousBatcher",
+            "multihost_stage": "MultiHostBatcher",
+            "stage_paged": "ValueError: paged KV under pipeline parallelism is not supported",
             "batcher_data": "ValueError: a ContinuousBatcher on a mesh with a data axis",
             "slots_split": "ValueError: n_slots (3) must split over the data axis (2)",
             "batch_split": "ValueError: 3 rows do not split over the data axis of 2"}

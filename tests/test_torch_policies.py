@@ -14,6 +14,7 @@ from llm_inference_lab_tpu.core import policies as jp
 from llm_inference_lab_tpu.ops.sampling import proposal_log_probs as jax_proposal
 from llm_inference_lab_tpu_torch.core import policies as tp
 from llm_inference_lab_tpu_torch.ops import sampling as ts
+from test_torch_decode_loop import one_thread  # noqa: F401
 
 B, K, V = 16, 6, 500
 

@@ -38,6 +38,7 @@ from llm_inference_lab_tpu_torch.ops.quant_matmul import (
     quant_matmul_int8,
     takes_mma,
 )
+from test_torch_decode_loop import one_thread  # noqa: F401
 
 DECODE_M = (5, 8, 16, 40, 63)
 # (K, N) of every projection the paths run: the 3B and 1B, Gemma-2 9B and

@@ -35,6 +35,7 @@ from llm_inference_lab_tpu_torch.ops.quant_matmul import (
     quant_matmul_mma,
     takes_mma,
 )
+from test_torch_decode_loop import one_thread  # noqa: F401
 
 PREFILL_M = (64, 160, 512)
 # (K, N) of every projection the paths run: the 3B, 1B, Gemma-2 9B and 2B,

@@ -25,6 +25,7 @@ from llm_inference_lab_tpu_torch.ops.quant_matmul import (
     quant_matmul,
     quant_matmul_plain,
 )
+from test_torch_decode_loop import one_thread  # noqa: F401
 
 
 def _np(t: torch.Tensor) -> np.ndarray:

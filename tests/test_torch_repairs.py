@@ -29,6 +29,7 @@ from llm_inference_lab_tpu.models.transformer import layer_norm as jax_layer_nor
 from llm_inference_lab_tpu_torch.ops.quant import dense_f32, quantize_int4, quantize_int8
 from llm_inference_lab_tpu_torch.ops.quant_matmul import unpack_int4
 from llm_inference_lab_tpu_torch.ops.rms_norm import add_layer_norm_plain, layer_norm_plain
+from test_torch_decode_loop import one_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("bits", [8, 4])

@@ -18,6 +18,7 @@ from llm_inference_lab_tpu_torch.config import EngineConfig, EnvFlags
 from llm_inference_lab_tpu_torch.core.engine import Engine
 from llm_inference_lab_tpu_torch.core.state import FIELDS, assign, state_tensors
 from llm_inference_lab_tpu_torch.ops import sampling as ts
+from test_torch_decode_loop import one_thread  # noqa: F401
 
 GRID = [  # temperature, top_k, top_p, min_p
     (1.0, 0, 1.0, 0.0), (0.8, 0, 0.95, 0.0), (0.7, 5, 1.0, 0.0), (1.3, 0, 0.9, 0.1),

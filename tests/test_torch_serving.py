@@ -29,6 +29,7 @@ from llm_inference_lab_tpu_torch.convert import params_from_jax
 from llm_inference_lab_tpu_torch.core.batching import ContinuousBatcher
 from llm_inference_lab_tpu_torch.core.engine import Engine
 from llm_inference_lab_tpu_torch.core.scheduler import Scheduler
+from test_torch_decode_loop import one_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("length_bucket,max_wait,seed", [(32, 64, 0), (16, 2, 1), (8, 0, 2),

@@ -27,6 +27,7 @@ from llm_inference_lab_tpu_torch.convert import params_from_jax
 from llm_inference_lab_tpu_torch.core.engine import Engine
 from llm_inference_lab_tpu_torch.models import transformer as tt
 from llm_inference_lab_tpu_torch.models.base import KVCache, ModelConfig
+from test_torch_decode_loop import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 PROMPT = "The quick brown fox jumps over the lazy dog."

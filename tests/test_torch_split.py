@@ -22,6 +22,7 @@ from llm_inference_lab_tpu_torch.ops.flash_decode import (
     flash_decode_split_plain,
     Options,
 )
+from test_torch_decode_loop import one_thread  # noqa: F401
 
 SPLIT_SMALL = 16
 

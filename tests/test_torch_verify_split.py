@@ -26,6 +26,7 @@ from llm_inference_lab_tpu_torch.ops.verify import (
     verify_prefix_plain,
     verify_prefix_split_plain,
 )
+from test_torch_decode_loop import one_thread  # noqa: F401
 
 VOCABS = (128256, 256000, 32000, 50257)
 

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from llm_inference_lab_tpu_torch.config import EngineConfig
+from llm_inference_lab_tpu_torch.core.batching import ContinuousBatcher
 from llm_inference_lab_tpu_torch.core.engine import Engine
 from llm_inference_lab_tpu_torch.core.multihost_batching import MultiHostBatcher
 from llm_inference_lab_tpu_torch.models import llama
@@ -144,13 +145,17 @@ def refusals(configs: dict, cfg_kw: dict, target_params) -> dict:
     base = EngineConfig(**cfg_kw)
     caught("mesh_differs", lambda: Engine(EngineConfig(**dict(cfg_kw, mesh_shape={"model": 4})),
                                           device="cpu", target_params=target_params, mesh=mesh))
-    from llm_inference_lab_tpu_torch.core.batching import ContinuousBatcher
-
     seq_mesh, stage_mesh = make_mesh(seq=2, model=2), make_mesh(stage=2, model=2)
-    caught("batcher_seq", lambda: ContinuousBatcher(
-        Engine(base, device="cpu", target_params=target_params, mesh=seq_mesh), n_slots=2))
-    caught("multihost_stage", lambda: MultiHostBatcher(
-        Engine(base, device="cpu", target_params=target_params, mesh=stage_mesh), n_slots=2))
+    # Built under seq and stage (they serve); paged KV under stage refuses.
+    out["batcher_seq"] = type(ContinuousBatcher(
+        Engine(base, device="cpu", target_params=target_params, mesh=seq_mesh),
+        n_slots=2)).__name__
+    out["multihost_stage"] = type(MultiHostBatcher(
+        Engine(base, device="cpu", target_params=target_params, mesh=stage_mesh),
+        n_slots=2)).__name__
+    caught("stage_paged", lambda: Engine(EngineConfig(**dict(cfg_kw, kv_layout="paged")),
+                                         device="cpu", target_params=target_params,
+                                         mesh=stage_mesh))
     eng = Engine(base, device="cpu", target_params=target_params, mesh=mesh)
     caught("batcher_data", lambda: ContinuousBatcher(eng, n_slots=4))
     caught("slots_split", lambda: MultiHostBatcher(eng, n_slots=3))
@@ -452,3 +457,98 @@ def mh_expert(configs: dict, kw: dict, target_params, requests, mesh_shape: dict
         for prompt, budget in requests:
             b.submit(prompt, max_new_tokens=budget)
     return [r["generated_ids"] for r in sorted(b.run(), key=lambda r: r["req_id"])]
+
+
+# --------------- serving under the seq and stage axes
+def _serve_by_hand(b, requests, cancel=None) -> list:
+    """Drive a batcher one step a poll (admit, step_chunk(1), retire), as the
+    parity tests drive JAX's; MultiHostBatcher through its own poll. cancel:
+    (request, poll) cancelled by the coordinator before that poll. Returns
+    each request's result, in request order."""
+    multihost = isinstance(b, MultiHostBatcher) and b.n_procs > 1
+    coordinator = not multihost or b.is_coordinator
+    if coordinator:
+        for prompt, budget in requests:
+            b.submit(prompt, max_new_tokens=budget)
+    with torch.inference_mode():
+        for poll in range(400):
+            if cancel is not None and poll == cancel[1] and coordinator:
+                b.cancel(cancel[0])
+            if multihost:
+                info = b._sync_poll()
+                if not any(s is not None for s in b._slots) and info["pending"] == 0:
+                    break
+            else:
+                b._admit_pending()
+                if not any(s is not None for s in b._slots) and not b.scheduler.pending():
+                    break
+            b.step_chunk(1)
+            b._retire_finished()
+    return [b._done[i].result for i in sorted(b._done)]
+
+
+def serve_axes(configs: dict, cases: list) -> list:
+    """Each case, a dict of kw (EngineConfig fields), shape (the mesh's),
+    target and draft (whole params), requests ((prompt, budget) pairs),
+    kind and cancel, on a mesh of its shape. kind "batcher": a
+    ContinuousBatcher of 2 slots, "multihost": a MultiHostBatcher of 2
+    slots a data row, each driven by _serve_by_hand (cancel: its
+    (request, poll)), giving each result's ids, token log-probs, finish
+    reason, prompt tokens reused, proposed and accepted, the stats'
+    admitted and retired, and the target cache's k shape and t0 on this
+    rank; "generate": Engine.generate's ids of each prompt. None on a rank
+    outside the case's mesh."""
+    register(configs)
+    out = []
+    for case in cases:
+        mesh = make_mesh(**case["shape"])
+        if mesh.coords is None:
+            out.append(None)
+            continue
+        eng = Engine(EngineConfig(**case["kw"]), device="cpu", target_params=case["target"],
+                     draft_params=case.get("draft"), mesh=mesh)
+        if case["kind"] == "generate":
+            out.append([eng.generate(prompt, max_new_tokens=budget)["generated_ids"]
+                        for prompt, budget in case["requests"]])
+            continue
+        cls = MultiHostBatcher if case["kind"] == "multihost" else ContinuousBatcher
+        b = cls(eng, n_slots=2 * mesh.shape["data"])
+        got = _serve_by_hand(b, case["requests"], case.get("cancel"))
+        cache = b.state.target_cache
+        stats = b.stats.report(b.n_slots)
+        out.append({"results": [{k: r[k] for k in SERVED_KEYS} for r in got],
+                    "stats": (stats["admitted"], stats["retired"]),
+                    "shape": tuple(cache.k.shape), "t0": getattr(cache, "t0", None)})
+    return out
+
+
+SERVED_KEYS = ("generated_ids", "token_logprobs", "finish_reason", "prompt_tokens_reused",
+               "proposed", "accepted")
+
+
+def compact_slices(seed: int, n: int) -> tuple:
+    """core/treespec.py _compact on a cache split on T over a seq group of
+    n ranks against _compact on the whole cache (made from seed on every
+    rank): moves whose sources and destinations straddle the slices, an
+    int8 cache with its scales. Returns (this rank's slice of the whole
+    compaction, its own compaction of its slice): k, v and the scales."""
+    from llm_inference_lab_tpu_torch.core.treespec import _compact
+
+    g = torch.Generator().manual_seed(seed)
+    L, B, KVH, T, D = 2, 3, 2, 8 * n, 4
+    whole = KVCache(torch.randint(-127, 128, (L, B, KVH, T, D), generator=g).to(torch.int8),
+                    torch.randint(-127, 128, (L, B, KVH, T, D), generator=g).to(torch.int8),
+                    torch.rand((L, B, KVH, T), generator=g), torch.rand((L, B, KVH, T),
+                                                                        generator=g))
+    base = torch.tensor([5, 8 * n - 12, 2 * n + 3])[:, None]  # chunks across slice ends
+    dst = base + 1 + torch.arange(4)[None]
+    take_from = base + torch.tensor([[2, 4, 7, 9], [1, 3, 6, 10], [1, 2, 3, 4]])
+    mesh = make_mesh(seq=n)
+    per, r = T // n, mesh.coords["seq"]
+    rows = slice(r * per, (r + 1) * per)
+    mine = KVCache(*(t[:, :, :, rows].clone() for t in (whole.k, whole.v, whole.k_scale,
+                                                         whole.v_scale)), t0=r * per)
+    _compact(whole, take_from, dst)
+    _compact(mine, take_from, dst, mesh.axis("seq"))
+    return ([t[:, :, :, rows] for t in (whole.k, whole.v, whole.k_scale, whole.v_scale)],
+            [mine.k, mine.v, mine.k_scale, mine.v_scale])
