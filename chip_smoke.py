@@ -71,7 +71,14 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
     chunk): D at T = 256 and 4096 (chunks mid-cache, at the cache's end and
     at slot -1), F through pages of 16 and 64 with D's bits, each within
     check_attn's tolerance of its plain version, timed at the tree paths'
-    shapes beside SDPA given the same boolean mask and the bound; and A's
+    shapes beside SDPA given the same boolean mask and the bound; (e) the
+    three tree variants (D, F, D's shard) past one ancestry word a row,
+    trees [3, 2], [4, 3, 2] and [6, 4, 3] (S = 10, 41, 103), bf16 and int8,
+    POISON in V, D's chunks from mid-tile, F with D's bits, the shard
+    variant's chunk straddling two slices, each within its tolerance of its
+    plain version; at S = 10 the one-word operand, and its rows' bits
+    inside an S = 41 launch; timed at S = 41 and 103 beside SDPA given the
+    mask and the bound; and A's
     decode body at Llama-3.1-8B's widths (4096 -> 6144, 4096, 28672,
     14336 -> 4096, the untied head 4096 -> 128256) at M = 1 to 3 and the
     decode checks' M, timed beside its bound and library call; and E at
@@ -162,8 +169,10 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
     requests through the 8-slot paged batcher with the tree and with
     Medusa, each request's ids the start of that mode's B=1 ids under the
     near-tie rule (and D's and F's tree variants with the same bits at the
-    serving shapes); then self_distill_medusa (2 heads, three seed
-    prompts, 30 steps) under a 60 s cap: the loss falls, the ids stay,
+    serving shapes); the same generate and batcher with the tree [4, 3, 2]
+    (S = 41) and one generate with [6, 4, 3] (S = 103, ids the greedy
+    baseline's under the near-tie rule); then self_distill_medusa (2
+    heads, three seed prompts, 30 steps) under a 60 s cap: the loss falls, the ids stay,
     Medusa's acceptance before and after logged;
 14. admission on phase 3's engine (run after phase 13), paged with pages
     of 64, ids held to phase 3's B=1 ids (or the other run's) under the
@@ -182,7 +191,11 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
     sentences; each long prompt admitted incrementally into a ring-sized
     scratch with decode steps between its chunks; ids == phase 8's ring B=1
     ids under the near-tie rule; tok/s, occupancy, admit_ms, the ring's KV
-    MB and the full cache's logged;
+    MB and the full cache's logged; then the same traffic on an engine
+    without admit_chunk: each long prompt (P > R) admitted one-shot in 11
+    back-to-back chunks of 512 (no decode step between them), the
+    sentences in waves, ids held alike, its tok/s, admit_ms and peak
+    memory beside the incremental run's;
 16. the OpenAI server on phase 3's weights (run after phase 14; the port's
     server/serving.py with per-request sampling and the top-5 capture, 8
     paged slots, on 127.0.0.1 port 0, client threads over the loopback):
@@ -313,6 +326,16 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
     phase 14's, a cancel on both ranks; (f) the Qwen2.5-1.5B pair at
     model=4 (its 2 KV heads replicated, the draft whole), ids held to one
     process's, each rank's peak memory;
+ 29. (after phase 7; its ranks in phase 26's launches) serving under the
+    seq and stage axes, ranks sharing cuda:0 over gloo
+    (phase_seq_stage_serving): (a) seq=2 and (b) stage=2 batchers, (c) the
+    tree [3, 2] at seq=2 (generate, paged batcher), (d) phase 14's prefix
+    traffic at seq=2, (e) Gemma-2 at seq=2, (f) MultiHostBatcher at data=2
+    x seq=2; (g) the tree [4, 3, 2] at seq=2 through generate, its first
+    verify chunk straddling the slices; (h) Mistral-7B at full width cut
+    to 8 of its 32 layers on its ring under MultiHostBatcher at data=2 and
+    model=2 (a 5400-token prompt admitted one-shot past R), ids held to one
+    process's ContinuousBatcher; every rank's ids equal;
  9. the kernels' JSON line (every kernel, launches by path; the Gemma-2
     variants of D, E and F, the ring variants of D and E, the ngram
     verify shapes of B, D and C, D's and F's tree variants and A at the 8B
@@ -334,6 +357,7 @@ are logged, with each capture's time and graph pool memory.
 Without CUDA it exits non-zero before printing any result.
 """
 
+import contextlib
 import gc
 import hashlib
 import json
@@ -492,6 +516,10 @@ EAGLE_CFG = dict(base_model="llama-3.1-8b", draft_model=None, draft_mode="eagle"
 # identity ("tie") heads, and the JAX package's default tree.
 MEDUSA_K = 4
 TREE_BRANCHING = (3, 2)  # S = num_nodes + 1 = 10 verify rows, depth 2
+# Trees past one ancestry word a row: S = 41 (two words) and 103 (four).
+WIDE_TREE, WIDER_TREE = (4, 3, 2), (6, 4, 3)
+WIDE_TREES = [TREE_BRANCHING, WIDE_TREE, WIDER_TREE]  # phase 2 (e)
+WIDE_T = 512  # phase 2 (e)'s timed cache: the chunk at P_MAIN and S = 103 rows fit it
 TREE_S = 10
 # self_distill_medusa's settings. Adam moves every entry of a [D, D] head by
 # about lr a step, so h @ proj moves by up to lr * D: the tiny model's lr of
@@ -607,7 +635,7 @@ TPDP_PATH = "serving int4 MultiHostBatcher data=2 x model=2 (8 requests, 4 ranks
 # steps take ~0.25 and ~2.5 s, and (c)'s prefill hops by the host in f32
 # partials (four ranks on the host), cut from the main path's to leave
 # room for phases 28 and 29 in the script's time limit.
-TP_NEW, TPDP_NEW, TPDP_N = 16, 4, 8
+TP_NEW, TPDP_NEW, TPDP_N = 8, 2, 8
 PARALLEL_PATHS = [TP_PATH, DP_PATH, TPDP_PATH]
 # Phases 26 (d) and 27: the int8 model axis and the seq, stage and expert
 # axes, ranks sharing the card over gloo.
@@ -620,7 +648,7 @@ STAGE_TP_PATH = "generate_batch int4 stage=2 x model=2 (8 prompts, 4 ranks)"
 # (its prefill's partials hop by the host, four ranks on it: cut from the
 # main path's 64 tokens and 16 prompts to leave room for phases 28 and 29
 # in the script's time limit).
-STAGE_TP_NEW = 4
+STAGE_TP_NEW = 2
 # Phase 27 (d): Mixtral-8x7B at full width cut to EXPERT_LAYERS layers: each
 # rank builds the whole cut model on the card (11.8 GB in bf16) before it
 # keeps its half of the experts, and two ranks share the card.
@@ -649,6 +677,24 @@ SEQ_TREE_SERVE_PATH = "serving int4 Tree [3, 2] seq=2 paged, 8 requests (2 ranks
 SEQ_PREFIX_PATH = "serving int4 seq=2 paged prefix cache, phase 14 (b)'s traffic (2 ranks)"
 SEQ_GEMMA_PATH = "serving Gemma-2 9B int4 + 2B seq=2 contiguous, 8 requests (2 ranks)"
 SEQ_DP_PATH = "serving int4 MultiHostBatcher data=2 x seq=2 contiguous, 8 requests (4 ranks)"
+# The trees past 31 nodes (phase 13 and 29 (g)), the ring admitted one-shot
+# (phase 15) and under MultiHostBatcher (phase 29 (h)).
+WIDE_GEN_PATH = f"generate int4 tree {list(WIDE_TREE)} (3 runs)"
+WIDE_SERVE_PATH = f"serving int4 tree {list(WIDE_TREE)} (16 requests)"
+WIDER_GEN_PATH = f"generate int4 tree {list(WIDER_TREE)} (1 run)"
+SEQ_WIDE_TREE_PATH = f"generate int4 Tree {list(WIDE_TREE)} seq=2 (2 ranks)"
+WIDE_SEQ_PROMPT = PROMPT[:110]  # the [4, 3, 2] chunk from 110 straddles the slices at 128
+RING_ONESHOT_PATH = "serving mistral-7b ring one-shot admission (8 requests)"
+MISTRAL_CUT_LAYERS = 8
+MISTRAL_CUT = f"mistral-7b-{MISTRAL_CUT_LAYERS}-layers"
+MISTRAL_CUT_CFG = dict(MISTRAL_CFG, base_model=MISTRAL_CUT, draft_model=MISTRAL_CUT,
+                       max_new_tokens=16)
+RING_MH_SLOTS = 4
+RING_MH_REQUESTS = [(MISTRAL_LONG, 16)] + [(SERVE_PROMPTS[i], 16) for i in range(3)]
+RING_DP_PATH = (f"serving mistral-7b {MISTRAL_CUT_LAYERS} layers ring MultiHostBatcher data=2 "
+                f"(4 requests, 2 ranks)")
+RING_TP_PATH = (f"serving mistral-7b {MISTRAL_CUT_LAYERS} layers ring MultiHostBatcher model=2 "
+                f"(4 requests, 2 ranks)")
 SEQ_STAGE_PATHS = [SEQ_SERVE_PATH, STAGE_SERVE_PATH, SEQ_TREE_PATH, SEQ_TREE_SERVE_PATH,
                    SEQ_PREFIX_PATH, SEQ_GEMMA_PATH, SEQ_DP_PATH]
 INT8 = {"rms_norm", "add_rms_norm", "quant_matmul_int8", "quant_matmul_int8_mma"}
@@ -800,6 +846,21 @@ PATH_KERNELS = {
     SEQ_PREFIX_PATH: INT4 | SERVE,
     SEQ_GEMMA_PATH: INT4 | {"flash_prefill", "flash_decode_shard_opts", "verify_prefix"},
     SEQ_DP_PATH: INT4 | {"flash_prefill", "flash_decode_shard", "verify_prefix"},
+    # Phase 13's trees past 31 nodes: 41 verify rows at B=1 stay under
+    # MMA_MIN_M (A's decode body); 8 slots x 41 rows and 103 rows at B=1
+    # take A's tensor-core path only.
+    WIDE_GEN_PATH: INT4 | {"flash_prefill", "flash_decode_tree"},
+    WIDE_SERVE_PATH: INT4 - {"quant_matmul_int4"} | {"flash_prefill", "paged_flash_tree"},
+    WIDER_GEN_PATH: INT4 - {"quant_matmul_int4"} | {"flash_prefill", "flash_decode_tree"},
+    # Phase 15's ring admitted one-shot (chunks of 512 and waves: E and A's
+    # tensor-core path; decode through D's ring, A's decode body, C), and
+    # phase 29 (h)'s under MultiHostBatcher (model=2: A's f32 partials).
+    RING_ONESHOT_PATH: INT4 | SPEC,
+    RING_DP_PATH: INT4 | SPEC,
+    RING_TP_PATH: INT4 | SPEC | HEAD4,
+    # Phase 29 (g): the [4, 3, 2] tree at seq=2 (the ring prefill: E's shard
+    # variant; the verify chunk through D's shard tree variant).
+    SEQ_WIDE_TREE_PATH: INT4 | {"flash_prefill_shard", "flash_decode_shard_tree"},
 }
 GEMMA_PATHS = [path for path in PATH_KERNELS if "gemma-2" in path]
 MISTRAL_PATHS = [path for path in PATH_KERNELS if "mistral" in path]
@@ -3222,15 +3283,15 @@ def phase_serving(dev, eng, profile, max_len, path, label):
 
 
 # ------------------------------------------------- tree attention (D and F)
-def tree_inputs(g, dev, B, H, KVH, T, D, start, int8=False, L=1):
+def tree_inputs(g, dev, B, H, KVH, T, D, start, int8=False, L=1, branching=TREE_BRANCHING):
     """q [B, S, H, D] bf16 and keys [L, B, KVH, T, D] (bf16, or int8 with f32
     scales) for the tree's verify chunk at slots start[b] .. start[b] + S - 1
-    (TREE_BRANCHING), with POISON in V (int8: bytes and scales) at every
+    (branching), with POISON in V (int8: bytes and scales) at every
     leaf's slot, which only that leaf may see, and at every slot past the
     chunk; the ancestry mask and the starts on the card."""
     from llm_inference_lab_tpu_torch.core.treespec import TreeConfig
 
-    _, depths, _, anc = TreeConfig(TREE_BRANCHING).build()
+    _, depths, _, anc = TreeConfig(branching).build()
     S = len(depths)
     q = torch.randn((B, S, H, D), generator=g, device=dev).bfloat16()
     shape = (L, B, KVH, T, D)
@@ -3272,14 +3333,15 @@ def sdpa_tree(q, k, v, mask, ks=None, vs=None):
 def tree_bound(anc, start, H, KVH, D, int8=False, extra_bytes=0):
     """Bytes: K and V of the keys [0, start + S) of every sequence (int8: a
     byte a value and 8 bytes of scales a key), q and out bf16, the tree's
-    words and starts; operations: 4 D per (query row, visible key), a row
-    seeing the keys before its chunk and its ancestors' in it."""
+    words (ceil(S / 32) a row) and starts; operations: 4 D per (query row,
+    visible key), a row seeing the keys before its chunk and its ancestors'
+    in it."""
     S = anc.shape[0]
     keys = sum(max(c + S, 0) for c in start.tolist())
     per_key = 2 * D + 8 if int8 else 4 * D
     anc_n = anc.sum(-1).tolist()
     seen = sum(max(c, 0) + n for c in start.tolist() for n in anc_n) * H
-    return bound_ms(KVH * keys * per_key + 2 * 2 * len(start) * S * H * D + 4 * S
+    return bound_ms(KVH * keys * per_key + 2 * 2 * len(start) * S * H * D + 4 * S * -(-S // 32)
                     + 4 * len(start) + extra_bytes, 4 * seen * D)
 
 
@@ -3398,6 +3460,182 @@ def phase_tree_attention(dev):
     return aggs
 
 
+def one_word(anc):
+    """An ancestry mask of S <= 32 rows as one int32 word a row (bit j of
+    row s: anc[s, j]): the tree variants' operand at W = 1."""
+    S = anc.shape[0]
+    w = (anc.long() * (torch.ones((S,), dtype=torch.int64, device=anc.device)
+                       << torch.arange(S, device=anc.device))).sum(-1)
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+
+
+def phase_wide_tree_attention(dev):
+    """Phase 2 (e): D's and F's tree variants (bf16 and int8) and D's shard
+    tree variant at the 3B's geometry for WIDE_TREES: [3, 2] (S = 10, one
+    ancestry word a row), [4, 3, 2] (S = 41, two) and [6, 4, 3] (S = 103,
+    four), with POISON in V at every leaf's slot and past the chunk
+    (tree_inputs). D over T = 1024, chunks from slot 517 (mid-tile), at the
+    cache's end and at slot -1; F over pages of 64 with D's bits on the same
+    keys; the shard variant over both halves of T, the first chunk from 508
+    straddling them. Each within check_attn's (check_shard's) tolerance of
+    its plain version. At S = 10 tree_bits' words are the one-word operand,
+    and the [3, 2] tree's rows inside an S = 41 launch whose other nodes they
+    do not see give the S = 10 launch's bits. Timed at S = 41 and 103
+    beside SDPA given the boolean mask and the bound: D at the B=1 tree
+    step (T = WIDE_T, the chunk at P_MAIN), F at the 8-slot serving step
+    (page 64, chunks near 240), the shard variant on the rank holding the
+    second half of WIDE_T (the chunk at 240 straddling it). Returns {row
+    name: numbers of one step's 28 layers}."""
+    from llm_inference_lab_tpu_torch.core.treespec import TreeConfig
+    from llm_inference_lab_tpu_torch.models.paged import gather_pages
+    from llm_inference_lab_tpu_torch.ops.flash_decode import (
+        flash_decode_plain,
+        flash_decode_shard_plain,
+        flash_decode_shard_tree,
+        flash_decode_tree,
+        tree_bits,
+        tree_visible,
+    )
+    from llm_inference_lab_tpu_torch.ops.paged_flash import paged_flash_plain, paged_flash_tree
+
+    g = torch.Generator(device=dev).manual_seed(41)
+    H, KVH = GEOMS[128]
+    D, layers, T = 128, LAYERS[128], 1024
+    errs = {}
+
+    def note(name, err):
+        errs[name] = max(errs.get(name, 0.0), err)
+
+    for branching in WIDE_TREES:
+        S = TreeConfig(branching).num_nodes + 1
+        W = -(-S // 32)
+        for int8 in (False, True):
+            suf = "_int8" if int8 else ""
+            start = [517, T - S, -1]
+            q, k, v, ks, vs, anc, st = tree_inputs(g, dev, 3, H, KVH, T, D, start, int8,
+                                                   branching=branching)
+            assert tree_bits(anc).shape == (S, W)
+            sc = (ks[0], vs[0]) if int8 else ()
+            pos = torch.zeros(q.shape[:2], device=dev, dtype=torch.int32)
+            got = flash_decode_tree(q, k[0], v[0], anc, st, *sc)
+            note((S, "flash_decode_tree" + suf),
+                 check_attn(got, q, k[0], v[0], pos, *sc, what=("flash_decode_tree" + suf, S),
+                            tree_mask=anc, chunk_start=st))
+            pools, table = to_pages(g, dev, (k[0], v[0], *sc), SERVE_PAGE)
+            paged = paged_flash_tree(q, pools[0], pools[1], table, anc, st, *pools[2:])
+            note((S, "paged_flash_tree" + suf),
+                 check_attn(paged, q, k[0], v[0], pos, *sc, what=("paged_flash_tree" + suf, S),
+                            tree_mask=anc, chunk_start=st))
+            assert torch.equal(paged, got), ("paged_flash_tree" + suf, S, "F != D on the same keys")
+            if S == 10:
+                assert torch.equal(tree_bits(anc)[:, 0], one_word(anc)), "the one-word operand"
+                wide = torch.eye(41, device=dev, dtype=torch.bool)
+                wide[:, 0] = True
+                wide[:S, :S] = anc
+                q41 = torch.randn((3, 41, H, D), generator=g, device=dev).bfloat16()
+                q41[:, :S] = q
+                st41 = torch.tensor([517, T - 41, -1], device=dev, dtype=torch.int32)
+                assert torch.equal(flash_decode_tree(q, k[0], v[0], anc, st41, *sc),
+                                   flash_decode_tree(q41, k[0], v[0], wide, st41, *sc)[:, :S]), (
+                    "one word a row against two", int8)
+            sst = torch.tensor([T // 2 - 4, T // 2 + 30, -1], device=dev, dtype=torch.int32)
+            q, k, v, ks, vs, anc, _ = tree_inputs(g, dev, 3, H, KVH, T, D, sst.tolist(), int8,
+                                                  branching=branching)
+            for t0 in (0, T // 2):
+                part = [t[0][:, :, t0:t0 + T // 2].contiguous() if t is not None else None
+                        for t in (k, v, ks, vs)]
+                psc = tuple(part[2:]) if int8 else ()
+                e = check_shard(flash_decode_shard_tree(q, part[0], part[1], anc, sst, t0, *psc),
+                                q, part[0], part[1], None, t0, *psc,
+                                what=("flash_decode_shard_tree" + suf, S, t0), tree_mask=anc,
+                                chunk_start=sst)
+                note((S, "flash_decode_shard_tree" + suf), e[0])
+        log(f"wide tree {list(branching)} (S = {S}, {W} ancestry word(s) a row), D = {D}, T = "
+            f"{T}: max abs err against the plain version, D "
+            f"{errs[(S, 'flash_decode_tree')]:.3g} / int8 {errs[(S, 'flash_decode_tree_int8')]:.3g}"
+            f", F {errs[(S, 'paged_flash_tree')]:.3g} / {errs[(S, 'paged_flash_tree_int8')]:.3g} "
+            f"(D's bits), shard {errs[(S, 'flash_decode_shard_tree')]:.3g} / "
+            f"{errs[(S, 'flash_decode_shard_tree_int8')]:.3g} (a chunk straddling the halves)"
+            + ("; S = 10: the one-word operand, and its rows' bits inside an S = 41 launch"
+               if S == 10 else ""))
+    aggs = {}
+    for branching in WIDE_TREES[1:]:
+        anc = torch.from_numpy(TreeConfig(branching).build()[3]).to(dev)
+        S = anc.shape[0]
+        bits = tree_bits(anc)
+        # D: the B=1 tree step's verify call, the chunk at P_MAIN.
+        per_layer = 4 * KVH * WIDE_T * D
+        L = 2 * L2_BYTES // per_layer + 1
+        q, k, v, _, _, anc, st = tree_inputs(g, dev, 1, H, KVH, WIDE_T, D, [P_MAIN], L=L,
+                                             branching=branching)
+        pos = torch.zeros(q.shape[:2], device=dev, dtype=torch.int32)
+        mask = tree_mask_of(anc, st, WIDE_T)
+        cyc = Cycle(L)
+        ms = median_ms(lambda: flash_decode_tree(q, k[cyc()], v[cyc.i], anc, st, bits=bits))
+        plain = median_ms(lambda: flash_decode_plain(q, k[cyc()], v[cyc.i], pos, tree_mask=anc,
+                                                     chunk_start=st), iters=10)
+        lib = median_ms(lambda: sdpa_tree(q, k[cyc()], v[cyc.i], mask), iters=10)
+        b, by = tree_bound(anc, st, H, KVH, D)
+        log(f"flash_decode_tree B=1 S={S} D={D} T={WIDE_T} chunk at {P_MAIN}: {ms:.4f} ms  "
+            f"plain {plain:.4f}  library {lib:.4f} (SDPA, boolean mask)  bound {b:.5f} ({by})")
+        aggs[f"flash_decode_tree/S{S}"] = dict(
+            ms=layers * ms, plain_ms=layers * plain, library_ms=layers * lib,
+            bound_ms=layers * b, bound_by=by, max_abs_err=errs[(S, "flash_decode_tree")])
+        del k, v
+        # F: the 8-slot serving step's verify call, pages of 64, chunks near 240.
+        start = [240 + b_ for b_ in range(SERVE_SLOTS)]
+        q, k, v, _, _, anc, st = tree_inputs(g, dev, SERVE_SLOTS, H, KVH, SERVE_MAX_LEN, D,
+                                             start, branching=branching)
+        pools, table = to_pages(g, dev, (k[0], v[0]), SERVE_PAGE)
+        L = 2 * L2_BYTES // sum(p_.numel() * p_.element_size() for p_ in pools) + 1
+        pools = [p_.expand(L, *p_.shape).clone() for p_ in pools]
+        pos = torch.zeros(q.shape[:2], device=dev, dtype=torch.int32)
+        mask = tree_mask_of(anc, st, SERVE_MAX_LEN)
+        cyc = Cycle(L)
+        ms = median_ms(lambda: paged_flash_tree(q, pools[0][cyc()], pools[1][cyc.i], table, anc,
+                                                st, bits=bits))
+        plain = median_ms(lambda: paged_flash_plain(q, pools[0][cyc()], pools[1][cyc.i], pos,
+                                                    table, tree_mask=anc, chunk_start=st),
+                          iters=10)
+        lib = median_ms(lambda: sdpa_tree(q, gather_pages(pools[0][cyc()], table),
+                                          gather_pages(pools[1][cyc.i], table), mask), iters=10)
+        b, by = tree_bound(anc, st, H, KVH, D, extra_bytes=4 * table.numel())
+        log(f"paged_flash_tree B={SERVE_SLOTS} S={S} D={D} P={SERVE_PAGE} chunks at "
+            f"{start[0]}..{start[-1]}: {ms:.4f} ms  plain {plain:.4f}  library {lib:.4f} "
+            f"(gather + SDPA, boolean mask)  bound {b:.5f} ({by})")
+        aggs[f"paged_flash_tree/S{S}"] = dict(
+            ms=layers * ms, plain_ms=layers * plain, library_ms=layers * lib,
+            bound_ms=layers * b, bound_by=by, max_abs_err=errs[(S, "paged_flash_tree")])
+        del pools
+        # The shard variant: the rank holding [WIDE_T / 2, WIDE_T), the chunk
+        # at 240 straddling its first position.
+        per = WIDE_T // 2
+        chunk = torch.tensor([240], device=dev, dtype=torch.int32)
+        keys = 240 + S - per
+        seen = int(tree_visible(per, anc, chunk - per).sum()) * H  # (row, key) pairs
+        L = 2 * L2_BYTES // (4 * KVH * per * D) + 1
+        k, v = (torch.randn((L, 1, KVH, per, D), generator=g, device=dev).bfloat16()
+                for _ in "kv")
+        q = torch.randn((1, S, H, D), generator=g, device=dev).bfloat16()
+        mask = tree_visible(per, anc, chunk - per)[:, None]
+        cyc = Cycle(L)
+        ms = median_ms(lambda: flash_decode_shard_tree(q, k[cyc()], v[cyc.i], anc, chunk, per,
+                                                       bits=bits))
+        plain = median_ms(lambda: flash_decode_shard_plain(
+            q, k[cyc()], v[cyc.i], None, per, tree_mask=anc, chunk_start=chunk), iters=10)
+        lib = median_ms(lambda: sdpa_shard_masked(q, k[cyc()], v[cyc.i], mask), iters=10)
+        b, by = bound_ms(4 * KVH * keys * D + 2 * S * H * D + 4 * S * H * D + 4 * S * H
+                         + 4 * S * -(-S // 32) + 4, 4 * seen * D)
+        log(f"flash_decode_shard_tree S={S} D={D} slice [{per}, {WIDE_T}), chunk at 240: "
+            f"{ms:.4f} ms  plain {plain:.4f}  library {lib:.4f} (SDPA, tree mask, logsumexp)  "
+            f"bound {b:.5f} ({by})")
+        aggs[f"flash_decode_shard_tree/S{S}"] = dict(
+            ms=layers * ms, plain_ms=layers * plain, library_ms=layers * lib,
+            bound_ms=layers * b, bound_by=by, max_abs_err=errs[(S, "flash_decode_shard_tree")])
+        del k, v
+    return aggs
+
+
 def phase_quant_matmul_8b(dev):
     """Kernel A's decode body at Llama-3.1-8B's widths (its projections and
     the untied 128256-token head) at M = 1 to 3 and the decode checks'
@@ -3513,13 +3751,36 @@ def phase_eagle(dev, profile, path):
     return launches
 
 
+def phase_wider_tree(dev, eng, path, ref):
+    """One counted generate of PROMPT with the tree WIDER_TREE (S = 103
+    verify rows, four ancestry words a row) after a warm-up: finite
+    logprobs, nodes accepted, and the ids the greedy baseline's (ref) under
+    the near-tie rule (the 103-row verify takes A's tensor-core path, the
+    baseline A's decode body). Returns the launches."""
+    eng.generate(PROMPT)  # warm-up, and the decode loop's capture
+    r, launches = count_launches(path, lambda: eng.generate(PROMPT))
+    lp = torch.tensor(r["token_logprobs"])
+    assert len(lp) == r["generated_tokens"] and torch.isfinite(lp).all(), "bad logprobs"
+    assert r["accepted"] > 0, ("the tree accepted no node", r["generated_ids"])
+    parted = held_to(eng, dev, lambda: UNSTABLE[PATH_SERVE_INT4], "the greedy baseline", 0,
+                     PROMPT, ref, r["generated_ids"])
+    ids_digest(path, [r["generated_ids"]])
+    log(f"end to end (3B int4 tree {list(WIDER_TREE)}, S = {eng._max_k} verify rows, B=1): "
+        f"{r['generated_tokens']} tokens in {r['steps']} steps, {r['accepted']} accepted of "
+        f"{r['proposed']} proposed, {r['tokens_per_sec']:.2f} tok/s; ids == the greedy "
+        f"baseline's: {not parted} ({parted} partings at near ties)")
+    return launches
+
+
 def phase_heads(dev, eng, profile, paths):
     """Phase 13 on phase 3's int4 3B target (eng: phase 3's engine; no draft
     model): Medusa at K=4 with identity heads and the tree TREE_BRANCHING,
     each through phase_head_generate; then phase 3b's requests through the
     8-slot paged batcher with the tree and with Medusa (phase_serving: each
     request's ids the start of that mode's B=1 ids under the near-tie rule);
-    then self_distill_medusa (DISTILL: 2 heads, PROMPT's three shortest
+    the same generate and batcher with the tree WIDE_TREE (S = 41), and one
+    generate with WIDER_TREE (S = 103, phase_wider_tree); then
+    self_distill_medusa (DISTILL: 2 heads, PROMPT's three shortest
     serving prompts, 30 steps) under DISTILL_CAP_S: the loss must fall;
     Medusa's acceptance is logged before and after."""
     from llm_inference_lab_tpu_torch.core.engine import Engine
@@ -3543,6 +3804,20 @@ def phase_heads(dev, eng, profile, paths):
                                        f"3B int4 tree {list(TREE_BRANCHING)}")
     launches[paths[3]] = phase_serving(dev, medusa, profile, SERVE_MAX_LEN, paths[3],
                                        f"3B int4 Medusa K={MEDUSA_K}")
+    # The trees past 31 nodes: [4, 3, 2] as [3, 2] above (and phase 29
+    # (g)'s reference at seq=2), then one generate of [6, 4, 3].
+    label = f"3B int4 tree {list(WIDE_TREE)}"
+    wide = engine(draft_mode="tree", tree={"branching": list(WIDE_TREE)})
+    launches[WIDE_GEN_PATH] = phase_head_generate(dev, profile, wide, WIDE_GEN_PATH, label)
+    launches[WIDE_SERVE_PATH] = phase_serving(dev, wide, profile, SERVE_MAX_LEN, WIDE_SERVE_PATH,
+                                              label)
+    END_TO_END_IDS[SEQ_WIDE_TREE_PATH] = wide.generate(
+        WIDE_SEQ_PROMPT, max_new_tokens=SEQ_TREE_NEW)["generated_ids"]
+    del wide
+    wider = engine(draft_mode="tree", tree={"branching": list(WIDER_TREE)})
+    launches[WIDER_GEN_PATH] = phase_wider_tree(dev, wider, WIDER_GEN_PATH,
+                                                END_TO_END_IDS[paths[1]])
+    del wider
     before = medusa.generate(PROMPT)
     t0 = time.perf_counter()
     _, hist = self_distill_medusa(medusa, sorted(set(SERVE_PROMPTS), key=len)[:3], **DISTILL)
@@ -4134,38 +4409,47 @@ def urllib_get(port, path):
         return resp.read().decode()
 
 
-def phase_ring_serving(dev, eng, long_ids, path):
+def phase_ring_serving(dev, eng, long_ids, path, incremental=True):
     """Phase 15: Mistral-7B served over the ring, on phase 8's engine and
-    weights with admit_chunk = ADMIT_CHUNK (R stays RING_LEN: the chunk is
-    prefill_chunk's), RING_SLOTS slots, RING_REQUESTS: each long prompt
-    admitted incrementally into a ring-sized scratch (one at a time, decode
-    steps between its chunks), each request's ids held to phase 8's ring
-    B=1 ids for its prompt (long_ids: the spec run's on MISTRAL_LONG) under
-    the near-tie rule (on a full-cache engine: a ring cannot hold a one-shot
-    forward of the long prompt). Logs throughput, occupancy, admission time,
+    weights, RING_SLOTS slots, RING_REQUESTS. incremental: admit_chunk =
+    ADMIT_CHUNK (R stays RING_LEN: the chunk is prefill_chunk's), each long
+    prompt admitted incrementally into a ring-sized scratch (one at a time,
+    decode steps between its chunks); else no admit_chunk: each long prompt
+    (P > R) admitted one-shot in P / prefill_chunk back-to-back chunks
+    through a ring-sized scratch (no decode step between them), the
+    sentences in waves. Each request's ids held to phase 8's ring B=1 ids
+    for its prompt (long_ids: the spec run's on MISTRAL_LONG) under the
+    near-tie rule (on a full-cache engine: a ring cannot hold a one-shot
+    forward of the long prompt). Logs throughput, occupancy, admission
+    time, peak memory (beside the incremental run's for the one-shot one),
     the ring KV MB and the full cache's for the same batcher."""
     from llm_inference_lab_tpu_torch.core.batching import ContinuousBatcher
     from llm_inference_lab_tpu_torch.core.engine import Engine
 
-    cfg = replace(eng.config, admit_chunk=ADMIT_CHUNK)
+    cfg = replace(eng.config, admit_chunk=ADMIT_CHUNK if incremental else None)
     ring_eng = Engine(cfg, device=dev, target_params=eng.target.params,
                       draft_params=eng.draft.params)
     lens = (ring_eng.target.config.kv_ring_len, ring_eng.draft.config.kv_ring_len)
-    assert lens == (RING_LEN, RING_LEN), ("ring lengths with admit_chunk", lens)
+    assert lens == (RING_LEN, RING_LEN), ("ring lengths", incremental, lens)
     b = ContinuousBatcher(ring_eng, RING_SLOTS)
     assert b.state.target_cache.k.shape[3] == RING_LEN
-    chunks = watch_chunks(b)
+    n_long = -(-MISTRAL_LONG_SHAPE[0] // (ADMIT_CHUNK if incremental else cfg.prefill_chunk))
+    chunks = watch_chunks(b) if incremental else watch_one_shot(b)
     for p, m in RING_REQUESTS:
         b.submit(p, max_new_tokens=m)
     (results, peak), launches = count_launches(path, lambda: served(b, b.run))
     ids_digest(path, [r["generated_ids"] for r in results])
-    n_long = -(-len(MISTRAL_LONG) // ADMIT_CHUNK)
     assert sorted(chunks) == [0, 1], chunks
     for rid, runs in chunks.items():
-        assert len(runs) == n_long and runs[-1][0] > runs[0][0], (rid, runs)
-    refs = {MISTRAL_LONG: long_ids}
-    for p, _ in RING_REQUESTS[2:]:
-        refs[p] = eng.generate(p)["generated_ids"]
+        assert len(runs) == n_long, (rid, runs)
+        if incremental:  # decode steps ran between the chunks
+            assert runs[-1][0] > runs[0][0], (rid, runs)
+        else:  # back to back: no decode step between them
+            assert len({steps for steps, _ in runs}) == 1, (rid, runs)
+    if not RING_REFS:
+        RING_REFS[MISTRAL_LONG] = long_ids
+        for p, _ in RING_REQUESTS[2:]:
+            RING_REFS[p] = eng.generate(p)["generated_ids"]
     tie_eng, stability = [], []
 
     def full_cache():
@@ -4185,15 +4469,22 @@ def phase_ring_serving(dev, eng, long_ids, path):
         assert r["generated_tokens"] == m and r["finish_reason"] == "length", r["req_id"]
         lp = torch.tensor(r["token_logprobs"] + r["prompt_logprobs"][1:])
         assert torch.isfinite(lp).all(), r["req_id"]
-        ref = refs[p][:m]
+        ref = RING_REFS[p][:m]
         if r["generated_ids"] != ref:
             differ += held_to(eng, dev, unstable, "phase 8's ring B=1 ids", r["req_id"], p,
                               ref, r["generated_ids"], tie_eng=full_cache())
     tc, dc = ring_eng.target.config, ring_eng.draft.config
     ring_mb = RING_SLOTS * (cache_mb(tc, RING_LEN) + cache_mb(dc, RING_LEN))
     full_mb = RING_SLOTS * (cache_mb(tc, cfg.max_seq_len) + cache_mb(dc, cfg.max_seq_len))
+    st = b.stats.report(RING_SLOTS)
+    RING_SERVED["incremental" if incremental else "one-shot"] = (st["tok_s"],
+                                                                 st["admit_ms_total"], peak)
+    how = (f"admit_chunk {ADMIT_CHUNK}, long prompts admitted incrementally" if incremental
+           else f"no admit_chunk, long prompts admitted one-shot")
+    beside = ("" if incremental else "; the incremental run's (tok/s, admit_ms, peak MB): "
+              f"{tuple(round(x, 2) for x in RING_SERVED['incremental'])}")
     log(f"ring serving (Mistral-7B int4 + 7B draft, K={cfg.max_draft}, ring R={RING_LEN}, "
-        f"admit_chunk {ADMIT_CHUNK}, {RING_SLOTS} slots, {len(RING_REQUESTS)} requests): "
+        f"{how}, {RING_SLOTS} slots, {len(RING_REQUESTS)} requests): "
         + serve_stats(b, peak) + f"; long prompts in {n_long} chunks each (decode steps "
         f"before each {[[n for n, _ in runs] for runs in chunks.values()]}, ms each "
         f"{[[round(e0.elapsed_time(e1), 3) for _, (e0, e1) in runs] for runs in chunks.values()]}"
@@ -4201,8 +4492,32 @@ def phase_ring_serving(dev, eng, long_ids, path):
         f"8's ring B=1 ids for "
         f"{len(results) - differ} of {len(results)} requests (the rest near ties); KV of "
         f"both models: ring {ring_mb:.1f} MB, full cache at max_seq_len {cfg.max_seq_len} "
-        f"{full_mb:.1f} MB")
+        f"{full_mb:.1f} MB" + beside)
     return launches
+
+
+def watch_one_shot(b):
+    """watch_chunks for a ring batcher without admit_chunk: each chunk of a
+    long prompt's one-shot admission (ContinuousBatcher._admit_long_ring),
+    with the decode steps dispatched before it and its CUDA events:
+    {req_id: [(steps, (e0, e1)), ...]}. Holds the batcher weakly."""
+    chunks = {}
+    ref = weakref.ref(b)
+
+    def chunk(pf, fn):
+        b = ref()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        type(b)._prefill_chunk(b, pf, fn)
+        e1.record()
+        chunks.setdefault(pf["req"].req_id, []).append((b._steps, (e0, e1)))
+
+    b._prefill_chunk = chunk
+    return chunks
+
+
+RING_REFS = {}  # phase 15's reference ids by prompt (phase 8's ring B=1 generate)
+RING_SERVED = {}  # phase 15's (tok/s, admit_ms, peak MB) by admission
 
 
 # ------------------------------------------------- the families' kernels (phase 2)
@@ -6470,7 +6785,7 @@ def rank_counts(path, run, last_stage=True):
 
 
 def rank_generate_serve():
-    """Phases 26 (a), (b), 28 (a)-(e) and 29 (a)-(e), one rank of two (one
+    """Phases 26 (a), (b), 28 (a)-(e) and 29 (a)-(e), (g), (h), one rank of two (one
     start of two processes): rank_generate on a model=2 mesh, rank_serve at
     data=2, rank_mesh_features, then rank_seq_stage; the phases check their
     results later (MESH_RUN, SEQ_STAGE_RUN), once their references exist."""
@@ -6628,7 +6943,7 @@ def phase_parallel(dev, eng):
     out = {}
     t0 = time.perf_counter()
     pair = launch(rank_generate_serve, 2, timeout=900)
-    log(f"phase 26 (a), (b), 28 (a)-(e) and 29 (a)-(e) on 2 ranks: "
+    log(f"phase 26 (a), (b), 28 (a)-(e) and 29 (a)-(e), (g), (h) on 2 ranks: "
         f"{time.perf_counter() - t0:.1f} s with the ranks' start")
     MESH_RUN.extend(g["mesh"] for g in pair)
     SEQ_STAGE_RUN.extend(g["seq_stage"] for g in pair)
@@ -7768,7 +8083,7 @@ def phase_mesh_features(dev, eng):
 # and the longer prompts (up to 360 tokens) cross from one rank's slice
 # into the other's. (c)'s generate runs SEQ_TREE_NEW new tokens of PROMPT
 # (T = 256: slices of 128, the verify chunk crossing position 128).
-SEQ_STAGE_N, SEQ_STAGE_NEW, SEQ_STAGE_MAX_LEN, SEQ_TREE_NEW = 8, 16, 512, 32
+SEQ_STAGE_N, SEQ_STAGE_NEW, SEQ_STAGE_MAX_LEN, SEQ_TREE_NEW = 8, 8, 512, 32
 SEQ_STAGE_REQS = [(p, min(m, SEQ_STAGE_NEW))
                   for p, m in zip(SERVE_PROMPTS[:SEQ_STAGE_N], SERVE_BUDGETS)]
 # Phase 29's ranks' results: (a)-(e) run in phase 26 (a)'s launch of two,
@@ -7812,7 +8127,7 @@ def rank_batcher(path, eng, requests, last_stage=True, prefix_first=False):
 
 
 def rank_seq_stage():
-    """Phase 29 (a)-(e), one rank of two sharing cuda:0 over gloo (in phase
+    """Phase 29 (a)-(e), (g), (h), one rank of two sharing cuda:0 over gloo (in phase
     26 (a)'s launch), a mesh a part: (a) phase 3's engine at seq=2, SEQ_STAGE_REQS through an 8-slot
     contiguous batcher (each rank's cache its slice of T); (b) the same at
     stage=2 (each stage's 14 layers, two microbatches); (c) the tree
@@ -7822,7 +8137,8 @@ def rank_seq_stage():
     batcher (the pool whole on each rank); (d) phase 14 (b)'s prefix
     traffic at seq=2 (paged, prefix caching); (e) phase 7's Gemma-2 9B + 2B
     at seq=2, SEQ_STAGE_REQS through the 8-slot contiguous batcher (the
-    softcap through D's shard variant with the options)."""
+    softcap through D's shard variant with the options); then (g) and (h)
+    (rank_wide_tree_ring)."""
     from llm_inference_lab_tpu_torch.config import EngineConfig
     from llm_inference_lab_tpu_torch.core.engine import Engine
     from llm_inference_lab_tpu_torch.parallel.mesh import make_mesh
@@ -7877,7 +8193,87 @@ def rank_seq_stage():
     eng = engine(GEMMA_CFG, seq, max_seq_len=SEQ_STAGE_MAX_LEN)
     done("e", rank_batcher(SEQ_GEMMA_PATH, eng, SEQ_STAGE_REQS), seq.coords)
     del eng
+    out.update(rank_wide_tree_ring())
     return out
+
+
+def rank_wide_tree_ring():
+    """Phase 29 (g) and (h), one rank of two (rank_seq_stage's last parts):
+    (g) the tree WIDE_TREE (S = 41) at seq=2, generate of WIDE_SEQ_PROMPT,
+    its first verify chunk straddling the slices at 128; (h) Mistral-7B cut
+    to MISTRAL_CUT_LAYERS layers on its ring under MultiHostBatcher at
+    data=2 and at model=2 (rank_ring_multihost)."""
+    from llm_inference_lab_tpu_torch.config import EngineConfig
+    from llm_inference_lab_tpu_torch.core.engine import Engine
+    from llm_inference_lab_tpu_torch.parallel.mesh import make_mesh
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    out = {}
+
+    def done(name, got, coords, steps=None):
+        got["coords"] = coords
+        if steps is not None:
+            got["steps"] = steps
+        out[name] = got
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    seq = make_mesh(seq=2)
+    eng = Engine(EngineConfig(**dict(INT4_CFG, max_new_tokens=SEQ_TREE_NEW, draft_model=None,
+                                     draft_mode="tree", tree={"branching": list(WIDE_TREE)})),
+                 device=dev, mesh=seq)
+    eng.generate(WIDE_SEQ_PROMPT, max_new_tokens=4)  # warm-up: every kernel's first launch
+    r, counts = rank_counts(SEQ_WIDE_TREE_PATH, lambda: eng.generate(WIDE_SEQ_PROMPT))
+    lp = torch.tensor(r["token_logprobs"])
+    assert len(lp) == r["generated_tokens"] and torch.isfinite(lp).all(), "wide tree logprobs"
+    view = cache_view(next(iter(eng._decode_states.values()))[0].target_cache)
+    done("g", dict(ids=r["generated_ids"], counts=counts, accepted=r["accepted"], view=view),
+         seq.coords, r["steps"])
+    del eng
+    with mistral_cut():
+        for name, path, mesh in (("h_data", RING_DP_PATH, make_mesh(data=2)),
+                                 ("h_model", RING_TP_PATH, make_mesh(model=2))):
+            eng = Engine(EngineConfig(**MISTRAL_CUT_CFG), device=dev, mesh=mesh)
+            done(name, rank_ring_multihost(path, eng), mesh.coords)
+            del eng
+    return out
+
+
+@contextlib.contextmanager
+def mistral_cut():
+    """MISTRAL_CUT registered for the block: Mistral-7B at full width,
+    MISTRAL_CUT_LAYERS of its 32 layers."""
+    from llm_inference_lab_tpu_torch.models import mistral
+
+    table = mistral.MISTRAL_CONFIGS
+    table[MISTRAL_CUT] = replace(table["mistral-7b"], name=MISTRAL_CUT,
+                                 n_layers=MISTRAL_CUT_LAYERS)
+    try:
+        yield
+    finally:
+        del table[MISTRAL_CUT]
+
+
+def rank_ring_multihost(path, eng):
+    """RING_MH_REQUESTS through a MultiHostBatcher of RING_MH_SLOTS slots
+    over eng (a ring: every prompt admitted one-shot, the long one in
+    chunks of prefill_chunk), run() counted: the ids (the coordinator's on
+    every rank), the counts, the stats and the target cache's view."""
+    from llm_inference_lab_tpu_torch.core.multihost_batching import MultiHostBatcher
+
+    b = MultiHostBatcher(eng, n_slots=RING_MH_SLOTS)
+    assert b.admit_chunk is None and b._ring_len == RING_LEN, (b.admit_chunk, b._ring_len)
+    if b.is_coordinator:
+        for prompt, budget in RING_MH_REQUESTS:
+            b.submit(prompt, max_new_tokens=budget)
+    results, counts = rank_counts(path, b.run)
+    for r in results:
+        lp = torch.tensor(r["token_logprobs"])
+        assert r["generated_tokens"] >= 1 and torch.isfinite(lp).all(), (path, r["req_id"])
+    return dict(ids=[r["generated_ids"] for r in sorted(results, key=lambda r: r["req_id"])],
+                counts=counts, stats=b.stats.report(RING_MH_SLOTS),
+                view=cache_view(b.state.target_cache))
 
 
 def rank_seq_dp():
@@ -7911,6 +8307,60 @@ def rank_seq_dp():
     return got
 
 
+def check_ring_multihost(dev, got):
+    """Phase 29 (h): the ranks' MultiHostBatcher runs over the cut
+    Mistral-7B's ring (data=2, model=2) against one process's
+    ContinuousBatcher of RING_MH_SLOTS slots on the same weights (the long
+    prompt admitted one-shot past the ring, as there), each request under
+    the near-tie rule (on a full-cache engine of the cut model). Returns
+    each path's launches (the ranks' added)."""
+    from llm_inference_lab_tpu_torch.config import EngineConfig
+    from llm_inference_lab_tpu_torch.core.batching import ContinuousBatcher
+    from llm_inference_lab_tpu_torch.core.engine import Engine
+
+    out = {}
+    with mistral_cut():
+        eng = Engine(EngineConfig(**MISTRAL_CUT_CFG), device=dev)
+        b = ContinuousBatcher(eng, n_slots=RING_MH_SLOTS)
+        assert b.admit_chunk is None and b._ring_len == RING_LEN
+        for prompt, budget in RING_MH_REQUESTS:
+            b.submit(prompt, max_new_tokens=budget)
+        want = [r["generated_ids"] for r in sorted(b.run(), key=lambda r: r["req_id"])]
+        del b
+        tie = []
+
+        def full_cache():
+            if not tie:
+                tie.append(Engine(EngineConfig(**dict(MISTRAL_CUT_CFG, kv_ring=False,
+                                                      draft_model=None)),
+                                  device=dev, target_params=eng.target.params))
+            return tie[0]
+
+        for name, path, model in (("h_data", RING_DP_PATH, 1), ("h_model", RING_TP_PATH, 2)):
+            ids = got[0][name]["ids"]
+            ops = lambda m=model: ([TP_SUMS] if m > 1 else []) + UNSTABLE[PATH_SERVE_INT4]  # noqa
+            parted = sum(held_to(eng, dev, ops, "one process's ring batcher", rid, prompt, ref,
+                                 ids_r, tie_eng=full_cache())
+                         for rid, ((prompt, _), ref, ids_r) in enumerate(
+                             zip(RING_MH_REQUESTS, want, ids, strict=True)))
+            v = [g[name]["view"] for g in got]
+            assert all(shape[3] == RING_LEN for shape, _ in v), ("the ring on every rank", v)
+            ids_digest(path, ids)
+            st = got[0][name]["stats"]
+            log(f"phase 29 (h) Mistral-7B ({MISTRAL_CUT_LAYERS} of 32 layers) ring "
+                f"MultiHostBatcher {'model' if model > 1 else 'data'}=2: ids == one process's "
+                f"ContinuousBatcher for {len(ids) - parted} of {len(ids)} requests (the rest "
+                f"near ties; the {len(RING_MH_REQUESTS[0][0])}-token prompt admitted one-shot "
+                f"past R = {RING_LEN}); {st['committed_tokens']} tokens in {st['wall_s']:.3f} s "
+                f"= {st['tok_s']:.2f} tok/s, {st['admit_waves']} admission waves; cache by rank "
+                f"{v}")
+            rank_report(f"phase 29 (h) {name}", [g[name] for g in got])
+            out[path] = summed([g[name] for g in got])
+        del eng, tie
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_seq_stage_serving(dev, gemma):
     """Phase 29, after phase 7 (gemma: phase 6's Gemma-2 engine, for its near
     ties): serving under the seq and stage axes on ranks sharing cuda:0
@@ -7926,9 +8376,14 @@ def phase_seq_stage_serving(dev, gemma):
     MultiHostBatcher, held to phase 3b's (its ranks ran in phase 26 (c)'s
     launch: SEQ_DP_RUN). Every rank's ids equal; each rank's cache is its
     slice of T (t0 = rank x T / 2) or its stage's 14 layers, a paged pool
-    whole. Returns each path's launches (the ranks' added)."""
+    whole. (g) the tree WIDE_TREE at seq=2, its first verify chunk
+    straddling the slices: generate's ids held to phase 13's (acceptance
+    above 0); (h) the cut Mistral-7B's ring under MultiHostBatcher at data=2
+    and model=2, held to one process's batcher (check_ring_multihost).
+    Returns each path's launches (the ranks' added)."""
     from llm_inference_lab_tpu_torch.config import EngineConfig
     from llm_inference_lab_tpu_torch.core.engine import Engine
+    from llm_inference_lab_tpu_torch.core.treespec import TreeConfig
 
     got = SEQ_STAGE_RUN
     for name in got[0]:
@@ -8032,8 +8487,27 @@ def phase_seq_stage_serving(dev, gemma):
         f"{[g['view'] for g in got]}")
     rank_report("phase 29 (f)", got)
     out[SEQ_DP_PATH] = summed(got)
+    # (g)
+    got = SEQ_STAGE_RUN
+    g_ = got[0]["g"]
+    want = END_TO_END_IDS[SEQ_WIDE_TREE_PATH]
+    parted = held_to(ref_eng, dev, ring, "phase 13's [4, 3, 2] tree generate", 0,
+                     WIDE_SEQ_PROMPT, want, g_["ids"])
+    assert g_["accepted"] > 0, ("the wide tree at seq=2 accepted nothing", g_["ids"])
+    n_prompt = len(ref_eng.tokenizer.encode(WIDE_SEQ_PROMPT))
+    v = views("g", T=2 * got[0]["g"]["view"][0][3])
+    assert n_prompt < v[0][0][3] < n_prompt + TreeConfig(WIDE_TREE).num_nodes + 1, (
+        "the first verify chunk does not straddle the slices", n_prompt, v)
+    ids_digest(SEQ_WIDE_TREE_PATH, [g_["ids"]])
+    log(f"phase 29 (g) tree {list(WIDE_TREE)} seq=2 generate (prompt of {n_prompt} tokens, "
+        f"slices of {v[0][0][3]}): ids == phase 13's: {not parted} ({parted} partings at near "
+        f"ties); {g_['accepted']} accepted in {g_['steps']} steps; cache by rank {v}")
+    rank_report("phase 29 (g)", [g["g"] for g in got])
+    out[SEQ_WIDE_TREE_PATH] = summed([g["g"] for g in got])
+    # (h)
     del ref_eng
     torch.cuda.empty_cache()
+    out.update(check_ring_multihost(dev, got))
     return out
 
 
@@ -8174,6 +8648,26 @@ def main(argv):
                              "ops/paged_attention.py:31", tree_serve),
         "paged_flash_tree_int8": (tree_rows["paged_flash_tree_int8"], "paged_flash_tree.cu",
                                   "ops/paged_attention.py:31", tree_serve + ", int8 KV"),
+    })
+    wide_rows = phase_wide_tree_attention(dev)
+    for S, branching in ((41, WIDE_TREE), (103, WIDER_TREE)):
+        tree = f"one tree {list(branching)}"
+        kernels.update({
+            f"flash_decode_tree/S{S}": (
+                wide_rows[f"flash_decode_tree/S{S}"], "flash_decode_tree.cu",
+                "ops/attention.py:94", f"{tree} B=1 step of the 3B (28 verify layers at S = "
+                                       f"{S}, T = {WIDE_T}, the chunk at {P_MAIN})"),
+            f"paged_flash_tree/S{S}": (
+                wide_rows[f"paged_flash_tree/S{S}"], "paged_flash_tree.cu",
+                "ops/paged_attention.py:31", f"{tree} step of the 8-slot serving batch (28 "
+                                             f"layers at S = {S}, page {SERVE_PAGE})"),
+            f"flash_decode_shard_tree/S{S}": (
+                wide_rows[f"flash_decode_shard_tree/S{S}"], "flash_decode_shard_tree.cu",
+                "ops/attention.py:94", f"{tree} step on the rank holding [{WIDE_T // 2}, "
+                                       f"{WIDE_T}) of a seq=2 cache, the chunk at 240 straddling "
+                                       f"it (28 layers at S = {S}; f32 out and lse)"),
+        })
+    kernels.update({
         "quant_matmul_int4/8b": (phase_quant_matmul_8b(dev), "qmm_decode.cuh",
                                  "ops/pallas/quant_matmul.py:76",
                                  "one Llama-3.1-8B EAGLE K=2 B=1 step (32 verify layers and the "
@@ -8347,6 +8841,8 @@ def main(argv):
     log(f"phase 8 took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     on_path[RING_SERVING_PATH] = phase_ring_serving(dev, eng, long_ids, RING_SERVING_PATH)
+    on_path[RING_ONESHOT_PATH] = phase_ring_serving(dev, eng, long_ids, RING_ONESHOT_PATH,
+                                                    incremental=False)
     log(f"phase 15 took {time.perf_counter() - t0:.1f} s")
     del eng
     free_card()
@@ -8373,11 +8869,14 @@ def main(argv):
 
     # A row "<kernel>/<suffix>" counts the paths of its suffix.
     suffix_paths = {"gemma-2": GEMMA_PATHS, "ring": RING_PATHS, "ngram": NGRAM_PATHS,
-                    "8b": EAGLE_PATHS, "qwen2.5": QWEN_PATHS, "phi3": PHI_PATHS}
+                    "8b": EAGLE_PATHS, "qwen2.5": QWEN_PATHS, "phi3": PHI_PATHS,
+                    "S41": [WIDE_GEN_PATH, WIDE_SERVE_PATH, SEQ_WIDE_TREE_PATH],
+                    "S103": [WIDER_GEN_PATH]}
 
     def counted(name):
         """The paths whose launches a row counts: a suffixed row (Gemma-2,
-        ring, ngram, 8b, Qwen2.5, Phi-3) its suffix's paths; the bf16 D, E
+        ring, ngram, 8b, Qwen2.5, Phi-3, the trees of S = 41 and 103) its
+        suffix's paths; the bf16 D, E
         and F rows the other Llama paths and phases 19-20's, the int8 ones
         all but Mistral's (none launch there); every other row all paths
         less those where the kernel has a suffixed row of theirs."""

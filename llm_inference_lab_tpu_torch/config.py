@@ -50,7 +50,6 @@ from typing import Any, Dict, Optional
 DRAFT_MODES = ("vanilla", "ngram", "medusa", "eagle", "tree")
 # The modes that draft from the target's hidden-state carry: no draft model.
 HEAD_MODES = ("medusa", "eagle", "tree")
-MAX_TREE_S = 32  # the verify chunk of a tree on the card: num_nodes + 1 rows at most
 CONTROLLERS = ("fixed", "adaptive", "adaptive-device")
 CONSTRAINTS = ("json", "json_object", "json_schema", "regex")
 MESH_AXES = ("data", "model", "seq", "stage", "expert")

@@ -19,9 +19,17 @@ Admission, routed per request as JAX's ``_execute_admissions`` routes it:
   into a detached scratch one C-token forward after each decode chunk, so
   the decoding slots keep stepping; the splice at the next admission point
   is its only write to the decode state. One admission is in flight at a
-  time. A rolling-buffer (``kv_ring``) engine serves only this way: its
-  scratch is the ring's R slots, and a second long prompt waits for the
-  one in flight;
+  time. Over a rolling-buffer (``kv_ring``) cache the scratch is the
+  ring's R slots, and a second long prompt waits for the one in flight;
+* a ring without ``admit_chunk`` (and every ring prompt under
+  MultiHostBatcher, which turns incremental admission off): a prompt whose
+  32-padded length P fits the ring is admitted one-shot, in a wave or
+  alone, into a scratch of P slots, as JAX admits it; a longer one is
+  admitted alone within the same admission call, as ceil(P / C) forwards
+  of C = ``prefill_chunk`` rows through a ring-sized scratch, back to back
+  with no decode step between them, then one splice (a single forward
+  would write positions p and p + R to one slot while early queries still
+  read it: JAX's one-shot admission past R);
 * prefix-cached (``prefix_caching``, paged): the longest cached run of full
   prompt pages (models/paged.py ``PrefixPageCache``, capped at the prompt
   length - 2 so the suffix recomputes the head modes' hidden carry) is
@@ -620,11 +628,12 @@ class ContinuousBatcher:
             if self.admit_chunk % bucket:
                 raise ValueError(f"admit_chunk ({self.admit_chunk}) must be a multiple of "
                                  f"the KV bucket ({bucket})")
-        if self.ring and self.admit_chunk is None:
-            # A one-shot prefill of a prompt longer than the ring would wrap
-            # it over rows its own queries still need.
-            raise ValueError("serving over a rolling-buffer cache (kv_ring) needs admit_chunk "
-                             "(incremental admission); set e.g. admit_chunk=512")
+        # The ring's slots (the shortest, where only one model rings): a
+        # longer prompt without incremental admission is admitted in
+        # prefill_chunk forwards through a ring-sized scratch (_admit_long_ring).
+        self._ring_len = min((m.config.kv_ring_len for m in (engine.target, engine.draft)
+                              if m is not None and m.config.kv_ring_len is not None),
+                             default=None)
         self.engine = engine
         self.n_slots = n_slots
         self.max_seq_len = cfg.max_seq_len
@@ -646,9 +655,12 @@ class ContinuousBatcher:
         self._admit_many = make_admit_many(engine.target, engine.draft, hidden)
         self._admit_prefix = (make_admit_prefix(engine.target, engine.draft, hidden)
                               if self.prefix_caching else None)
+        # Chunked admission's forward and splice: incremental at admit_chunk,
+        # or over a ring without it, a long prompt's one-shot chunks at
+        # prefill_chunk (_admit_long_ring).
         self._admit_incr = (make_admit_incremental(engine.target, engine.draft,
-                                                   self.admit_chunk, hidden)
-                            if self.admit_chunk is not None else None)
+                                                   self.admit_chunk or cfg.prefill_chunk, hidden)
+                            if self.admit_chunk is not None or self.ring else None)
         self._prefilling: Optional[dict] = None  # the incremental admission in flight
         # The pipelined poll (poll_flags_async): the snapshot the next
         # retirement may read the token buffers of, and (the latest
@@ -1019,7 +1031,7 @@ class ContinuousBatcher:
         slot at a time, the rest sorted by length in power-of-two groups."""
         group: List[_Request] = []
         for req in planned:
-            if self.prefix_caching or self._incremental(req):
+            if self.prefix_caching or self._incremental(req) or self._long_ring(req):
                 self._admit_one(req)
             else:
                 group.append(req)
@@ -1043,7 +1055,7 @@ class ContinuousBatcher:
             return None
         ride: List[_Request] = []
         for req in self._plan_admissions():
-            if self.prefix_caching or self._incremental(req):
+            if self.prefix_caching or self._incremental(req) or self._long_ring(req):
                 self._snap_fresh.add(req.slot)
                 self._admit_one(req)
             else:
@@ -1061,17 +1073,26 @@ class ContinuousBatcher:
     def _incremental(self, req: _Request) -> bool:
         return self.admit_chunk is not None and len(req.admit_ids) > self.admit_chunk
 
+    def _long_ring(self, req: _Request) -> bool:
+        """A ring prompt, without incremental admission, whose 32-padded
+        length exceeds the ring: _admit_long_ring's."""
+        return (self.ring and self.admit_chunk is None
+                and _round_up(max(len(req.admit_ids), 1), 32) > self._ring_len)
+
     def _table_row(self, req: _Request) -> np.ndarray:
         row = np.zeros((self._pages_per_seq,), np.int32)
         row[: len(req.pages)] = req.pages
         return row
 
     def _admit_one(self, req: _Request) -> None:
-        """An incremental or prefix-cached admission. A long prompt starts an
-        incremental admission, or, with one already in flight, is admitted
-        one-shot (a ring engine's waits in the queue instead: its one-shot
-        forward would wrap the ring)."""
+        """An incremental, prefix-cached or long ring admission. A long prompt
+        starts an incremental admission, or, with one already in flight, is
+        admitted one-shot (a ring engine's waits in the queue instead: its
+        one-shot forward would wrap the ring)."""
         ids = req.admit_ids
+        if self._long_ring(req):
+            self._admit_long_ring(req)
+            return
         if self._incremental(req):
             if self._prefilling is None:
                 self._begin_incremental(req)
@@ -1110,7 +1131,8 @@ class ContinuousBatcher:
         if P is None:
             bucket = self.engine.config.kv_page_size if self.paged else 32
             need = max(_round_up(max(len(r.admit_ids), 1), bucket) for r in reqs)
-            lane = self.state.tokens.shape[1]
+            # A ring's wave (every prompt fits it) stays within its R slots.
+            lane = min(self.state.tokens.shape[1], self._ring_len or self.max_seq_len)
             P = bucket
             while P < need:
                 P *= 2
@@ -1145,10 +1167,35 @@ class ContinuousBatcher:
         slot; _advance_admission runs one C-token chunk after each decode
         chunk until the splice. The slot's lane (or zeroed table row) stays
         as a retired slot's until then."""
+        self._prefilling = self._scratch_admission(req, self.admit_chunk)
+        req.prefilling = True
+        self._slots[req.slot] = req
+
+    def _admit_long_ring(self, req: _Request) -> None:
+        """A ring prompt longer than the ring, one-shot: its C-token chunks
+        (C = prefill_chunk) through a ring-sized scratch back to back, then
+        the splice, all within this admission call (no decode step between
+        them). On the rank that holds the slot; the chunk count is a
+        function of the prompt's length alone, so every rank of the slot's
+        model group runs the same forwards."""
+        if self._row(req.slot) is not None:
+            t_d = time.perf_counter()
+            chunk_fn, splice_fn = self._admit_incr
+            pf = self._scratch_admission(req, self.engine.config.prefill_chunk)
+            while not pf["ready"]:
+                self._prefill_chunk(pf, chunk_fn)
+            self.state = self._splice_admission(pf, splice_fn)
+            self.stats.admit_dispatch_ms += (time.perf_counter() - t_d) * 1e3
+        self._note_admitted(req, req.slot)
+
+    def _scratch_admission(self, req: _Request, C: int) -> dict:
+        """A chunked admission's detached scratch caches and host state: the
+        prompt padded to a multiple of C, each model's scratch (a ring
+        model's holds its R slots), the prompt logprobs' lane and the hidden
+        carry."""
         eng = self.engine
         dev = eng.device
         ids = req.admit_ids
-        C = self.admit_chunk
         P = _round_up(max(len(ids), 1), C)
         row = np.zeros((1, P), np.int32)
         row[0, : len(ids)] = ids
@@ -1161,8 +1208,8 @@ class ContinuousBatcher:
             T = cache.k.shape[-2] if self.ring else P
             return model.init_cache(1, T, dev, dtype=cache.k.dtype, split=False)
 
-        self._prefilling = {
-            "req": req, "slot": req.slot, "off": 0, "P": P, "ready": False,
+        return {
+            "req": req, "slot": req.slot, "C": C, "off": 0, "P": P, "ready": False,
             "row": row, "row_dev": to_device(row, dev),
             "table_row": (to_device(self._table_row(req), dev) if self.paged
                           else None),
@@ -1172,8 +1219,6 @@ class ContinuousBatcher:
             "h": torch.zeros((1, eng.target.config.d_model), dtype=torch.float32, device=dev),
             "lora": torch.full((1,), req.lora_id, dtype=torch.int32, device=dev),
         }
-        req.prefilling = True
-        self._slots[req.slot] = req
 
     def _advance_admission(self) -> None:
         """One C-token prefill chunk of the admission in flight (none: a
@@ -1187,16 +1232,18 @@ class ContinuousBatcher:
         if req.cancelled:
             self._abort_incremental(req)
             return
-        C = self.admit_chunk
-        off, P, row = pf["off"], pf["P"], pf["row"]
+        self._prefill_chunk(pf, self._admit_incr[0])
+
+    def _prefill_chunk(self, pf: dict, chunk_fn) -> None:
+        """The next C-token forward of a chunked admission into its scratch."""
+        C, off, P, row = pf["C"], pf["off"], pf["P"], pf["row"]
         nxt = np.zeros((1, C), np.int32)
         nxt[0, : C - 1] = row[0, off + 1: off + C]
         if off + C < P:
             nxt[0, C - 1] = row[0, off + C]
-        chunk_fn, _ = self._admit_incr
         pf["h"] = chunk_fn(pf["st"], pf["sd"], pf["lp"], pf["h"], pf["row_dev"][:, off: off + C],
                            to_device(nxt, self.engine.device), off,
-                           len(req.admit_ids), pf["lora"])
+                           len(pf["req"].admit_ids), pf["lora"])
         pf["off"] = off + C
         pf["ready"] = pf["off"] >= P
 
@@ -1208,13 +1255,17 @@ class ContinuousBatcher:
         if req.cancelled:
             self._abort_incremental(req)
             return
-        _, splice_fn = self._admit_incr
-        self.state = splice_fn(self.state, pf["st"], pf["sd"], pf["lp"], pf["h"], pf["row_dev"],
-                               len(req.admit_ids), pf["slot"], req.remaining_new,
-                               pf["table_row"], self._controls([req]))
+        self.state = self._splice_admission(pf, self._admit_incr[1])
         req.prefilling = False
         self._prefilling = None
         self._note_admitted(req, pf["slot"])
+
+    def _splice_admission(self, pf: dict, splice_fn) -> DecodeState:
+        """A chunked admission's splice into its slot's state row."""
+        req = pf["req"]
+        return splice_fn(self.state, pf["st"], pf["sd"], pf["lp"], pf["h"], pf["row_dev"],
+                         len(req.admit_ids), self._row(pf["slot"]), req.remaining_new,
+                         pf["table_row"], self._controls([req]))
 
     def _abort_incremental(self, req: _Request) -> None:
         """Drop a cancelled admission in flight: nothing reached the decode

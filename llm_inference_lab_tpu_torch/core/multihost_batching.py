@@ -41,8 +41,15 @@ supported. In one process the class is ContinuousBatcher with those
 switches. A data row's ranks may span the stage, expert, seq and model
 axes: each holds the row's slots (its cache slice of T under seq, its
 stage's layers under stage) and steps with its groups' collectives.
-Refused on several ranks: a rolling-buffer (kv_ring) engine (it serves
-only with incremental admission).
+
+A rolling-buffer (``kv_ring``) engine serves here under the data and model
+axes (JAX refuses the ring with the seq axis, as the port's engine does):
+every ring prompt is admitted one-shot, a prompt longer than the ring as
+ceil(P / C) back-to-back forwards of C = prefill_chunk rows through a
+ring-sized scratch, then one splice (ContinuousBatcher._admit_long_ring).
+The chunk count is a function of the prompt's length, which every rank
+holds from the coordinator's plan, so every rank of the slot's model group
+runs the same forwards in the same order, and no control traffic is added.
 """
 
 from __future__ import annotations
@@ -94,12 +101,6 @@ class MultiHostBatcher(ContinuousBatcher):
         self.rank = mesh.rank if mesh is not None else 0
         self.n_procs = mesh.size if mesh is not None else 1
         self.is_coordinator = self.rank == 0
-        if self.n_procs > 1:
-            cfg = engine.config
-            if cfg.kv_ring:
-                raise NotImplementedError("a rolling-buffer (kv_ring) engine under "
-                                          "MultiHostBatcher on several ranks is not ported (it "
-                                          "serves only with incremental admission)")
         super().__init__(engine, n_slots=n_slots, **kw)
         self._group = mesh.control if mesh is not None else None
         self._data = mesh.shape["data"] if mesh is not None else 1

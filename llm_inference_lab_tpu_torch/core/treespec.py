@@ -168,9 +168,10 @@ def make_tree_spec_step(target_model: Model, tree: TreeConfig, *, draft_params: 
                         in_place: bool = False):
     """Build step(state) -> state for tree speculation. draft_params:
     {"medusa_proj": [>= depth, D, D]} (head d drafts depth d+1). The tree's
-    verify chunk is num_nodes + 1 rows, which the card's attention takes up
-    to 32. per_request_sampling: each slot's logit_bias on the verify rows,
-    the bonus under each row's filters from its key at site num_nodes."""
+    verify chunk is num_nodes + 1 rows, any number of them (the card's
+    attention takes the mask as ceil(S / 32) words a row).
+    per_request_sampling: each slot's logit_bias on the verify rows, the
+    bonus under each row's filters from its key at site num_nodes."""
     D_tree = tree.depth
     parents_np, depths_np, ranks_np, anc_np = tree.build()
     N = tree.num_nodes

@@ -60,10 +60,15 @@
 // written at slots chunk_start .. chunk_start + S - 1 of their sequence but
 // at logical positions by depth, so a row's keys are not [first key,
 // position]. Row s sees every key before chunk_start[b] and key
-// chunk_start[b] + j of the chunk iff bit j of its ancestry word bits[s] is
-// set (its own node and its ancestors; S <= 32); nothing past the chunk.
-// The block's key range is [0, chunk_start + S), so the splits past the
-// chunk stay empty; the ancestry bits mask inside it. No window or ring.
+// chunk_start[b] + j of the chunk iff bit j % 32 of word j / 32 of its
+// ancestry row bits[s] is set (its own node and its ancestors; a row has
+// W = ceil(S / 32) words, any S); nothing past the chunk. The block's key
+// range is [0, chunk_start + S), so the splits past the chunk stay empty;
+// the ancestry bits mask inside it. A thread reads a row's words from
+// global memory through the read-only path, only for a key tile that
+// reaches into the chunk, and only the (at most three) words the tile's
+// part of the chunk spans; static shared memory does not grow with S. No
+// window or ring.
 // Over a shard (D's shard variant with TREE) chunk_start is an absolute
 // position like the tile's keys: a rank's slice may hold the keys before
 // the chunk, part of the chunk (a chunk straddles two slices) or nothing a
@@ -238,8 +243,9 @@ struct Pages {
   int n, lg;
 };
 
-// The tree variant's operands: bits uint32 [S], bit j of bits[s] set iff
-// node s sees node j of the chunk; start int32 [B], the chunk's first slot.
+// The tree variant's operands: bits uint32 [S, W] with W = ceil(S / 32),
+// bit j % 32 of bits[s, j / 32] set iff node s sees node j of the chunk;
+// start int32 [B], the chunk's first slot.
 struct Tree {
   const unsigned* bits;
   const int* start;
@@ -289,7 +295,6 @@ attend_kernel(const __nv_bfloat16* __restrict__ q, const T_* __restrict__ k,
   __shared__ int lo_s, hi_s;
   __shared__ unsigned last_s;
   __shared__ int page_s[2][PAGED ? BK<D> : 1];  // the pages a stage's tile spans
-  __shared__ unsigned anc_s[TREE ? ROWS : 1];    // each row's ancestry word
 
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
   unsigned char* stages = smem + L::q_bytes;
@@ -331,7 +336,6 @@ attend_kernel(const __nv_bfloat16* __restrict__ q, const T_* __restrict__ k,
     const int r = r0 + tid;
     if constexpr (TREE) {
       pos_s[tid] = r < nrows ? cs + S - 1 : -1;
-      anc_s[tid] = r < nrows ? tree.bits[r / group] : 0u;
     } else {
       pos_s[tid] = r < nrows ? pos[b * S + r / group] : -1;
     }
@@ -438,8 +442,14 @@ attend_kernel(const __nv_bfloat16* __restrict__ q, const T_* __restrict__ k,
   const int g = lane >> 2, tq = lane & 3;
   const int lr0 = warp * 16 + g, lr1 = lr0 + 8;
   const int p0 = pos_s[lr0], p1 = pos_s[lr1];
-  unsigned anc0 = 0u, anc1 = 0u;  // the rows' ancestry words (the tree variant)
-  if constexpr (TREE) anc0 = anc_s[lr0], anc1 = anc_s[lr1];
+  // The tree variant: each row's W ancestry words (null past the last row).
+  const int W = TREE ? (S + 31) >> 5 : 0;
+  const unsigned* anc0 = nullptr;
+  const unsigned* anc1 = nullptr;
+  if constexpr (TREE) {
+    if (r0 + lr0 < nrows) anc0 = tree.bits + (size_t)((r0 + lr0) / group) * W;
+    if (r0 + lr1 < nrows) anc1 = tree.bits + (size_t)((r0 + lr1) / group) * W;
+  }
   // Row r sees key k iff (unsigned)(k - lo_r) <= span_r: its keys are
   // [first visible key, position] (cut at the plane's ends without a ring);
   // a row with none gets lo_r = 2^30, which no key reaches. A ring plane
@@ -515,6 +525,21 @@ attend_kernel(const __nv_bfloat16* __restrict__ q, const T_* __restrict__ k,
       }
       const int s0 = RING ? t0 % opt.ring : t0;
       const int d0 = t0 + 2 * tq - lo0, d1 = t0 + 2 * tq - lo1;
+      // The tree variant: the words of the chunk's part of this tile, from
+      // word wb on (a tile of at most 64 keys spans at most three words).
+      unsigned w00 = 0u, w01 = 0u, w02 = 0u, w10 = 0u, w11 = 0u, w12 = 0u;
+      int wb = 0;
+      if constexpr (TREE) {
+        const int rel0 = t0 - cs;
+        if (rel0 + BKD > 0 && rel0 < S) {
+          wb = max(rel0, 0) >> 5;
+          const auto word = [&](const unsigned* row, int w) {
+            return row != nullptr && w < W ? __ldg(row + w) : 0u;
+          };
+          w00 = word(anc0, wb), w01 = word(anc0, wb + 1), w02 = word(anc0, wb + 2);
+          w10 = word(anc1, wb), w11 = word(anc1, wb + 1), w12 = word(anc1, wb + 2);
+        }
+      }
       float mx0 = NEG_INF, mx1 = NEG_INF;
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
@@ -527,9 +552,14 @@ attend_kernel(const __nv_bfloat16* __restrict__ q, const T_* __restrict__ k,
             if (slot >= opt.ring) slot -= opt.ring;
             seen = seen && slot < Tk;
           }
-          if constexpr (TREE) {  // in the chunk: the ancestry bit (rel < S <= 32)
+          if constexpr (TREE) {  // in the chunk (0 <= rel < S): the ancestry bit
             const int rel = t0 + jj - cs;
-            if (seen && rel >= 0) seen = ((e < 2 ? anc0 : anc1) >> rel) & 1u;
+            if (seen && rel >= 0) {
+              const int wi = (rel >> 5) - wb;
+              const unsigned w = e < 2 ? (wi == 0 ? w00 : wi == 1 ? w01 : w02)
+                                       : (wi == 0 ? w10 : wi == 1 ? w11 : w12);
+              seen = (w >> (rel & 31)) & 1u;
+            }
           }
           float s = __fmul_rn(sc[n][e], opt.scale);
           if constexpr (INT8) s = __fmul_rn(s, kst[jj]);
@@ -728,8 +758,7 @@ int launch(const void* q, const void* k, const void* v, const void* ks, const vo
            long long stride_sh, Options opt, int nz, Pages pages, Tree tree, Shard shard,
            cudaStream_t st) {
   constexpr size_t smem = Layout<D, T>::total;
-  constexpr size_t stat = ROWS * sizeof(int) + 3 * sizeof(int) + 2 * BK<D> * sizeof(int) +
-                          (TREE ? ROWS : 1) * sizeof(unsigned);
+  constexpr size_t stat = ROWS * sizeof(int) + 3 * sizeof(int) + 2 * BK<D> * sizeof(int);
   // The combine keeps each warp's split weights in the stage buffers.
   if (nz > 1 && (size_t)WARPS * nz * sizeof(float) > 2 * Layout<D, T>::stage_bytes)
     return (int)cudaErrorInvalidValue;
@@ -816,16 +845,16 @@ int launch_paged(const void* q, const void* k_pool, const void* v_pool, const vo
                               opt, nz, pages, st);
 }
 
-// D's tree variant over [B, KVH, T, D] planes: tree.bits [S] and
-// tree.start [B] (attend_kernel's TREE). Refuses a window, a ring, S > 32
-// (a row's ancestry is one 32-bit word) and an unknown head dim.
+// D's tree variant over [B, KVH, T, D] planes: tree.bits [S, ceil(S / 32)]
+// and tree.start [B] (attend_kernel's TREE). Refuses a window, a ring and
+// an unknown head dim.
 template <class T>
 int launch_tree(const void* q, const void* k, const void* v, const void* ks, const void* vs,
                 void* out, float* ws, unsigned* counters, int B, int S, int H, int KVH, int Tk,
                 int D, long long stride_kb, long long stride_kh, long long stride_sb,
                 long long stride_sh, Options opt, int nz, Tree tree, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (H % KVH || S < 1 || S > 32 || opt.window != 0 || opt.ring != 0 || nz < 1 ||
+  if (H % KVH || S < 1 || opt.window != 0 || opt.ring != 0 || nz < 1 ||
       tree.bits == nullptr || tree.start == nullptr)
     return (int)cudaErrorInvalidValue;
   if (nz > 1 && (ws == nullptr || counters == nullptr)) return (int)cudaErrorInvalidValue;
@@ -836,9 +865,9 @@ int launch_tree(const void* q, const void* k, const void* v, const void* ks, con
 }
 
 // F's tree variant over [N, KVH, P, D] pools through table [B, M]: the
-// arguments of launch_paged, with tree.bits [S] and tree.start [B] (slots,
-// through the table) for the positions. Refuses what launch_paged and
-// launch_tree refuse.
+// arguments of launch_paged, with tree.bits [S, ceil(S / 32)] and
+// tree.start [B] (slots, through the table) for the positions. Refuses what
+// launch_paged and launch_tree refuse.
 template <class T>
 int launch_paged_tree(const void* q, const void* k_pool, const void* v_pool, const void* ks_pool,
                       const void* vs_pool, const void* table, void* out, float* ws,
@@ -847,7 +876,7 @@ int launch_paged_tree(const void* q, const void* k_pool, const void* v_pool, con
                       Tree tree, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (H % KVH || opt.ring != 0 || opt.window != 0 || P < 1 || (P & (P - 1)) || M < 1 || S < 1 ||
-      S > 32 || tree.bits == nullptr || tree.start == nullptr)
+      tree.bits == nullptr || tree.start == nullptr)
     return (int)cudaErrorInvalidValue;
   if (nz < 1 || (nz > 1 && (ws == nullptr || counters == nullptr)))
     return (int)cudaErrorInvalidValue;
@@ -864,8 +893,7 @@ int launch_paged_tree(const void* q, const void* k_pool, const void* v_pool, con
 // The chain mask with opt's scale, softcap and window (compared with the
 // keys' absolute positions t0 + slot; no ring); TREE: D's tree variant
 // over the slice, tree.start[b] the chunk's first absolute position, no
-// window, S <= 32. Refuses t0 < 0, a missing lse, a ring and an unknown
-// head dim.
+// window. Refuses t0 < 0, a missing lse, a ring and an unknown head dim.
 template <class T, bool TREE = false>
 int launch_shard(const void* q, const void* k, const void* v, const void* ks, const void* vs,
                  const void* pos, void* out, float* lse, float* ws, unsigned* counters, int B,
@@ -875,7 +903,7 @@ int launch_shard(const void* q, const void* k, const void* v, const void* ks, co
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (H % KVH || t0 < 0 || lse == nullptr || nz < 0 || opt.ring != 0 || opt.window < 0)
     return (int)cudaErrorInvalidValue;
-  if (TREE && (S < 1 || S > 32 || opt.window != 0 || nz < 1 || tree.bits == nullptr ||
+  if (TREE && (S < 1 || opt.window != 0 || nz < 1 || tree.bits == nullptr ||
                tree.start == nullptr))
     return (int)cudaErrorInvalidValue;
   if (nz > 1 && (ws == nullptr || counters == nullptr)) return (int)cudaErrorInvalidValue;

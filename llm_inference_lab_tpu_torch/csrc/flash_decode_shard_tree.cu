@@ -1,6 +1,6 @@
 // Kernel D's shard variant with the ancestry word, for Hopper: the verify
 // chunk of tree speculation over one rank's slice of a contiguous bf16 or
-// int8 KV cache whose T is split over the seq axis (S <= 32 rows).
+// int8 KV cache whose T is split over the seq axis (any number S of rows).
 //
 // Replaces: llm_inference_lab_tpu/ops/attention.py attend_xla's tree branch
 //           (:94-106) over a cache that
@@ -11,13 +11,14 @@
 //           (llm_inference_lab_tpu_torch/ops/attention.py attend_slices).
 //
 //   out[b, s, h, :] = softmax_t(cap(q[b,s,h] . k[b,h/g,t] * scale) |
-//                               t < start[b] or bits[s] >> (t - start[b]) & 1,
+//                               t < start[b] or bit (t - start[b]) of row s,
 //                               t < start[b] + S, t0 <= t < t0 + T) @ v
 //   lse[b, h, s]    = log sum_t exp(...)                  (-inf: no key)
 //
 // q bf16 [B, S, H, D]; k, v bf16 or int8 [B, KVH, T, D], the rank's slice,
 // slot j holding position t0 + j (for int8, scales f32 [B, KVH, T]);
-// bits uint32 [S]; start int32 [B], the chunk's first absolute position;
+// bits uint32 [S, ceil(S / 32)], bit j % 32 of bits[s, j / 32] for the
+// chunk's node j; start int32 [B], the chunk's first absolute position;
 // out f32 [B, S, H, D] unrounded; lse f32 [B, H, S]. The chunk may straddle
 // two ranks' slices: a rank sees its keys before the chunk and the chunk's
 // keys in its slice whose bit is set; a row that sees none gets lse -inf

@@ -1,5 +1,5 @@
 // Kernel D's tree variant, for Hopper: the verify chunk of tree speculation
-// over a contiguous bf16 or int8 KV cache (S <= 32 rows).
+// over a contiguous bf16 or int8 KV cache (any number S of rows).
 //
 // Replaces: llm_inference_lab_tpu/ops/attention.py attend_xla's tree branch
 //           (:94-106), which the JAX package runs for a tree-masked call
@@ -16,11 +16,14 @@
 //
 // Design: kernel D itself (attn_mma.cuh, TREE = true): the same tensor-core
 // tile body, key tiles and split over T at fixed 256-key ranges, so a row's
-// arithmetic is D's; only the mask differs. Each row takes one 32-bit
-// ancestry word (bit j: the chunk's node j) into shared memory, and its key
-// range is [0, start + S): the split's blocks past the chunk take their
+// arithmetic is D's; only the mask differs. Each row has W = ceil(S / 32)
+// ancestry words (bit j % 32 of word j / 32: the chunk's node j), and its
+// key range is [0, start + S): the split's blocks past the chunk take their
 // ticket and load nothing, and inside the chunk a key counts iff its bit is
-// set. A node sits at slot start + i but at logical position start +
+// set. A key tile reads only the words its part of the chunk spans (at
+// most three), from global memory through the read-only path, so shared
+// memory does not grow with S, and which word holds a bit changes no row's
+// arithmetic. A node sits at slot start + i but at logical position start +
 // depth(i), so the chain rule kv <= position would hide its own slot and its
 // ancestors': the tree variant never reads positions.
 
@@ -28,10 +31,10 @@
 
 // The tree variant (attend_xla's tree branch, which the JAX package runs for
 // tree speculation's verify chunk): the bf16 entry's q, k, v, out, split
-// buffers and strides, with bits uint32 [S] (bit j of bits[s]: node s sees
-// node j of the chunk) and start int32 [B] (the chunk's first slot) in place
-// of the positions; no window or ring; S <= 32. Row s sees the keys before
-// start[b] and the chunk's keys its bits name.
+// buffers and strides, with bits uint32 [S, ceil(S / 32)] (bit j % 32 of
+// bits[s, j / 32]: node s sees node j of the chunk) and start int32 [B] (the
+// chunk's first slot) in place of the positions; no window or ring. Row s
+// sees the keys before start[b] and the chunk's keys its bits name.
 extern "C" int flash_decode_tree_bf16(const void* q, const void* k, const void* v,
                                       const void* bits, const void* start, void* out, void* ws,
                                       void* counters, int B, int S, int H, int KVH, int T, int D,

@@ -1,5 +1,5 @@
 // Kernel F's tree variant, for Hopper: the verify chunk of tree speculation
-// over a paged bf16 or int8 KV pool (S <= 32 rows).
+// over a paged bf16 or int8 KV pool (any number S of rows).
 //
 // Replaces: llm_inference_lab_tpu/ops/paged_attention.py paged_attend_xla
 //           (:31) with tree_mask, the gather and attend_xla's tree branch,
@@ -22,9 +22,9 @@
 #include "attn_mma.cuh"
 
 // The tree variant (paged_attend_xla's tree branch): the bf16 entry's
-// arguments with bits uint32 [S] and start int32 [B] (the chunk's first
-// slot, page ordinal * P + row) in place of the positions; no window; S <=
-// 32. Through the table, the function of flash_decode_tree_bf16.
+// arguments with bits uint32 [S, ceil(S / 32)] and start int32 [B] (the
+// chunk's first slot, page ordinal * P + row) in place of the positions; no
+// window. Through the table, the function of flash_decode_tree_bf16.
 extern "C" int paged_flash_tree_bf16(const void* q, const void* k_pool, const void* v_pool,
                                      const void* table, const void* bits, const void* start,
                                      void* out, void* ws, void* counters, int B, int S, int H,

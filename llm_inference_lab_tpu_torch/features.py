@@ -34,19 +34,15 @@ RING_NOT_IN_TREE = "kv_ring is not supported in tree mode"
 CONSTRAIN_NOT_IN_TREE = "constrained decoding is not supported in tree mode"
 LORA_NOT_IN_TREE = "LoRA is not supported in tree mode"
 PER_REQUEST_NOT_WITH_REJECTION = "not supported with the rejection policy"
-# The port's own rule in the matrix (port_refusals): a ring engine serves
-# only with incremental admission.
-RING_SERVING_NEEDS_ADMIT_CHUNK = "(kv_ring) needs admit_chunk"
-
 # Each documented refusal of the matrix -> the port's raise site (file:line
 # in llm_inference_lab_tpu_torch/), whose message holds the fragment.
 RAISE_SITES: Dict[str, str] = {
-    PREFIX_NEEDS_PAGED: "core/batching.py:611",  # ContinuousBatcher.__init__
-    RING_NEEDS_CONTIGUOUS: "config.py:262",  # EngineConfig.validate
-    RING_NOT_IN_TREE: "config.py:321",  # EngineConfig._validate_tree
-    CONSTRAIN_NOT_IN_TREE: "config.py:298",  # EngineConfig._validate_constrain
+    PREFIX_NEEDS_PAGED: "core/batching.py:619",  # ContinuousBatcher.__init__
+    RING_NEEDS_CONTIGUOUS: "config.py:261",  # EngineConfig.validate
+    RING_NOT_IN_TREE: "config.py:320",  # EngineConfig._validate_tree
+    CONSTRAIN_NOT_IN_TREE: "config.py:297",  # EngineConfig._validate_constrain
     LORA_NOT_IN_TREE: "core/engine.py:428",  # Engine._build_lora
-    PER_REQUEST_NOT_WITH_REJECTION: "config.py:279",  # EngineConfig.validate
+    PER_REQUEST_NOT_WITH_REJECTION: "config.py:278",  # EngineConfig.validate
 }
 
 
@@ -54,8 +50,7 @@ def expected_error(mode: str, layout: str, feature: str,
                    policy: str = "longest_prefix") -> Optional[str]:
     """The documented incompatibility for this cell: a message fragment the
     raise must contain, or None when the cell is supported. JAX's rules,
-    in its order (RAISE_SITES holds each one's raise site in the port),
-    then the port's one rule inside the matrix (port_refusals)."""
+    in its order (RAISE_SITES holds each one's raise site in the port)."""
     if feature == "prefix_caching" and layout != "paged":
         return PREFIX_NEEDS_PAGED
     if feature == "kv_ring":
@@ -70,33 +65,21 @@ def expected_error(mode: str, layout: str, feature: str,
             return LORA_NOT_IN_TREE
     if policy == "rejection" and feature == "per_request":
         return PER_REQUEST_NOT_WITH_REJECTION
-    if feature == "kv_ring":
-        return RING_SERVING_NEEDS_ADMIT_CHUNK
     return None
 
 
 def port_refusals() -> List[Dict[str, str]]:
     """What the port refuses and JAX does not: each with the fragment its
     raise holds and its raise site (file:line in
-    llm_inference_lab_tpu_torch/). The first is inside the matrix (its
-    kv_ring cells on the contiguous layout), the others outside it."""
+    llm_inference_lab_tpu_torch/), all outside the matrix."""
     return [
-        {"name": "ring_serving_without_admit_chunk",
-         "what": "a ContinuousBatcher over a rolling-buffer (kv_ring) engine without "
-                 "admit_chunk (a one-shot prefill of a prompt longer than the ring would "
-                 "overwrite rows its own queries still need)",
-         "fragment": RING_SERVING_NEEDS_ADMIT_CHUNK, "site": "core/batching.py:626"},
         {"name": "moe_weight_quantization",
          "what": "int4/int8 weight quantization of a MoE model (JAX would quantize its "
                  "router, which its routing cannot read)",
          "fragment": "weight quantization of a MoE model", "site": "core/engine.py:222"},
-        {"name": "tree_over_max_s",
-         "what": "a tree whose verify chunk (num_nodes + 1 rows) exceeds MAX_TREE_S = 32 "
-                 "on the card",
-         "fragment": "takes at most 32", "site": "ops/flash_decode.py:123"},
         {"name": "embed_bits",
          "what": "embed_bits outside {4, 8}",
-         "fragment": "embed_bits must be 4 or 8", "site": "config.py:245"},
+         "fragment": "embed_bits must be 4 or 8", "site": "config.py:244"},
         {"name": "lora_mlp_without_gated_mlp",
          "what": "a LoRA adapter on gate/up/down of a model without a gated MLP (JAX drops "
                  "those matrices)",
@@ -104,7 +87,7 @@ def port_refusals() -> List[Dict[str, str]]:
         {"name": "unknown_config_key",
          "what": "a config file or override key that the port's EngineConfig lacks (JAX "
                  "drops it)",
-         "fragment": "are not fields of the port's EngineConfig", "site": "config.py:349"},
+         "fragment": "are not fields of the port's EngineConfig", "site": "config.py:348"},
         # Under a mesh (parallel/): what the port does not shard.
         {"name": "mesh_shape_differs",
          "what": "an Engine given a mesh whose shape differs from its cfg.mesh_shape",
@@ -115,16 +98,10 @@ def port_refusals() -> List[Dict[str, str]]:
         {"name": "mesh_batcher_data_axis",
          "what": "a ContinuousBatcher on a data axis above 1 (its slots across data ranks need "
                  "the coordinator's decisions: MultiHostBatcher)",
-         "fragment": "needs the coordinator's decisions", "site": "core/batching.py:602"},
+         "fragment": "needs the coordinator's decisions", "site": "core/batching.py:610"},
         {"name": "mesh_slots_do_not_split",
          "what": "serving slots that do not split over the data axis",
-         "fragment": "must split over the data axis", "site": "core/batching.py:605"},
-        {"name": "multihost_kv_ring",
-         "what": "a rolling-buffer (kv_ring) engine under MultiHostBatcher on several ranks "
-                 "(it serves only with incremental admission, which JAX's multi-host batcher "
-                 "turns off)",
-         "fragment": "under MultiHostBatcher on several ranks is not ported (it serves only",
-         "site": "core/multihost_batching.py:100"},
+         "fragment": "must split over the data axis", "site": "core/batching.py:613"},
     ]
 
 

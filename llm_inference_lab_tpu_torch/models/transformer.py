@@ -278,8 +278,8 @@ def _tree_options(cfg: ModelConfig, cache, cache_lens: torch.Tensor,
     if cfg.sliding_window is not None and span > cfg.sliding_window:
         raise NotImplementedError("sliding-window attention with tree caches longer than "
                                   "the window is not supported")
-    # The kernels' form of the mask, once a forward (the card's tree
-    # variants take S <= 32; the plain versions any S).
+    # The kernels' form of the mask (int32 words [S, ceil(S / 32)]), once a
+    # forward; the plain versions take the bool mask.
     return dict(tree_mask=tree_mask, chunk_start=cache_lens,
                 tree_bits=tree_bits(tree_mask) if tree_mask.is_cuda else None)
 

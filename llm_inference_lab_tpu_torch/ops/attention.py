@@ -42,9 +42,9 @@ The tree mask (tree speculation's verify chunk, attend_xla's tree branch):
 before the chunk and slot chunk_start + j iff tree_mask[s, j]; positions
 are not read. Such a call goes to D's or F's tree variant
 (flash_decode_tree, paged_flash_tree; their int8 forms for an int8 cache)
-at every S, which takes S <= 32 on the card. ``tree_bits`` may carry the
-mask's kernel form (ops/flash_decode.py tree_bits), computed once a
-forward. A window that can bind and a ring are refused with the tree mask,
+at every S. ``tree_bits`` may carry the mask's kernel form
+(ops/flash_decode.py tree_bits: int32 words [S, ceil(S / 32)]), computed
+once a forward. A window that can bind and a ring are refused with the tree mask,
 as the JAX forward refuses them (attend_xla's tree branch has neither).
 
 Under the seq axis a contiguous cache whose T splits is held as slices

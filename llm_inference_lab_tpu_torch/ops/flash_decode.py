@@ -27,7 +27,9 @@ V there. The tree variant (``flash_decode_tree``, attend_xla's tree branch,
 for tree speculation's verify chunk) takes an ancestry mask tree_mask
 [S, S] and the chunk's first slot chunk_start [B] instead of positions:
 row s sees every slot before chunk_start[b], slot chunk_start[b] + j iff
-tree_mask[s, j], and nothing after the chunk.
+tree_mask[s, j], and nothing after the chunk. The kernels take the mask
+as ``tree_bits``' words, int32 [S, ceil(S / 32)], at any S;
+``tree_mask_from_bits`` decodes them plainly.
 
 The kernel (csrc/attn_mma.cuh on tensor cores) splits the keys at fixed
 absolute positions into SPLIT-key splits over grid.z (``decode_splits``)
@@ -46,7 +48,7 @@ combines over the slices in f32 (ops/attention.py attend_slices);
 (ops/flash_prefill.py flash_prefill_shard) too. ``flash_decode_shard_opts``
 is the same entry with Gemma-2's softcap and a window over absolute
 positions, and ``flash_decode_shard_tree`` (csrc/flash_decode_shard_tree.cu)
-the tree variant's ancestry word over a slice; each int8 form counts apart.
+the tree variant's ancestry words over a slice; each int8 form counts apart.
 """
 
 from __future__ import annotations
@@ -116,16 +118,34 @@ def tree_visible(T: int, tree_mask: torch.Tensor, chunk_start: torch.Tensor) -> 
 
 
 def tree_bits(tree_mask: torch.Tensor) -> torch.Tensor:
-    """The kernels' form of an ancestry mask [S, S] (S <= 32): int32 [S], bit
-    j of row s set iff tree_mask[s, j] (bit 31 as the sign)."""
+    """The kernels' form of an ancestry mask [S, S]: int32 [S, W] with
+    W = ceil(S / 32), bit j % 32 of word j // 32 of row s set iff
+    tree_mask[s, j] (bit 31 as the sign)."""
     S = tree_mask.shape[0]
-    if S > 32:
-        raise NotImplementedError(f"a tree verify chunk of {S} rows: the card's tree variant "
-                                  "takes at most 32 (num_nodes + 1 <= 32)")
+    W = -(-S // 32)
+    dev = tree_mask.device
     # Device ops only (no host copy), so a captured forward may call it.
-    one = torch.ones((S,), dtype=torch.int64, device=tree_mask.device)
-    word = (tree_mask.long() * (one << torch.arange(S, device=tree_mask.device))).sum(-1)
+    cols = torch.cat([tree_mask.long(), torch.zeros((S, 32 * W - S), dtype=torch.int64,
+                                                    device=dev)], dim=1)
+    one = torch.ones((32,), dtype=torch.int64, device=dev)
+    word = (cols.view(S, W, 32) * (one << torch.arange(32, device=dev))).sum(-1)
     return torch.where(word >= 1 << 31, word - (1 << 32), word).to(torch.int32)
+
+
+def tree_mask_from_bits(bits: torch.Tensor, S: int) -> torch.Tensor:
+    """tree_bits' inverse, plainly: the bool ancestry mask [S, S] of int32
+    words [S, ceil(S / 32)]."""
+    shifts = torch.arange(32, device=bits.device)
+    cols = (bits.long()[..., None] >> shifts) & 1
+    return cols.reshape(bits.shape[0], -1)[:, :S].bool()
+
+
+def check_bits(name: str, bits: torch.Tensor, S: int) -> None:
+    """The kernels' tree operand: contiguous int32 words [S, ceil(S / 32)]."""
+    W = -(-S // 32)
+    if bits.dtype != torch.int32 or bits.shape != (S, W) or not bits.is_contiguous():
+        raise TypeError(f"{name} kernel takes contiguous int32 tree bits [S, ceil(S / 32)] = "
+                        f"[{S}, {W}], got {tuple(bits.shape)} {bits.dtype}")
 
 
 def _check_tree(tree_mask: torch.Tensor, chunk_start: torch.Tensor, B: int, S: int,
@@ -448,13 +468,9 @@ def launch_tree(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     int8 = k.dtype == torch.int8
     B, S = q.shape[:2]
     _check_tree(tree_mask, chunk_start, B, S, opts._asdict())
-    if S > 32:
-        raise NotImplementedError(f"{name}: a tree verify chunk of {S} rows; the card's tree "
-                                  "variant takes at most 32 (num_nodes + 1 <= 32)")
     if bits is None:
         bits = tree_bits(tree_mask)
-    if bits.dtype != torch.int32 or bits.shape != (S,) or not bits.is_contiguous():
-        raise TypeError(f"{name} kernel takes contiguous int32 tree bits [S]")
+    check_bits(name, bits, S)
     if chunk_start.dtype != torch.int32 or not chunk_start.is_contiguous():
         raise TypeError(f"{name} kernel takes a contiguous int32 chunk_start [B]")
     if bits.device != q.device or chunk_start.device != q.device:
@@ -517,7 +533,7 @@ def flash_decode_tree(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     before the chunk and the chunk's slots tree_mask[s] names (bool [S, S];
     bits, its tree_bits, may be given). options: scale and softcap. On a
     CPU tensor the plain version; on a CUDA tensor the kernel,
-    csrc/flash_decode_tree.cu (S <= 32, or NotImplementedError), or an
+    csrc/flash_decode_tree.cu (any S: W = ceil(S / 32) words a row), or an
     error. An int8 cache goes to flash_decode_tree_int8."""
     if k.dtype == torch.int8:
         return flash_decode_tree_int8(q, k, v, tree_mask, chunk_start, k_scale, v_scale, bits,
@@ -656,6 +672,9 @@ def launch_shard(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if chunk_start.dtype != torch.int32 or chunk_start.device != q.device:
             raise ValueError(f"{name}: chunk_start must be int32 on q's device")
         bits = tree_bits(tree_mask) if bits is None else bits
+        check_bits(name, bits, S)
+        if bits.device != q.device:
+            raise ValueError(f"{name}: the tree bits must be on q's device")
     check_planes(name, q, k, v)
     if t0 < 0:
         raise ValueError(f"{name}: t0 must be >= 0, got {t0}")
@@ -765,13 +784,13 @@ def flash_decode_shard_tree(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             v_scale: Optional[torch.Tensor] = None,
                             bits: Optional[torch.Tensor] = None, *,
                             scale: Optional[float] = None, softcap: Optional[float] = None):
-    """Kernel D's shard variant with the ancestry word: tree speculation's
+    """Kernel D's shard variant with the ancestry words: tree speculation's
     verify chunk q [B, S, H, D] at absolute positions chunk_start[b] ..
     + S - 1 over a rank's slice (slot j holding position t0 + j; the chunk
     may straddle slices), row s seeing the positions before the chunk and
     the chunk's positions tree_mask[s] names that the slice holds. Returns
     (out f32, lse f32) for merge_shards. On a CPU tensor the plain version;
-    on a CUDA tensor csrc/flash_decode_shard_tree.cu (S <= 32) or an error.
+    on a CUDA tensor csrc/flash_decode_shard_tree.cu (any S) or an error.
     An int8 cache counts on flash_decode_shard_tree_int8."""
     tree = (tree_mask, chunk_start, bits)
     opts = Options(scale, softcap)

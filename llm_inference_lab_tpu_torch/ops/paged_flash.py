@@ -210,8 +210,8 @@ def paged_flash_tree(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor
                      bits: Optional[torch.Tensor] = None, **options) -> torch.Tensor:
     """Kernel F's tree variant (csrc/paged_flash_tree.cu): flash_decode_tree's
     function with the keys of sequence b read through table[b] (options:
-    scale and softcap; bits: tree_bits(tree_mask), or None). int8 pools go
-    to paged_flash_tree_int8."""
+    scale and softcap; bits: tree_bits(tree_mask), int32 [S, ceil(S / 32)],
+    or None; any S). int8 pools go to paged_flash_tree_int8."""
     if k_pool.dtype == torch.int8:
         return paged_flash_tree_int8(q, k_pool, v_pool, table, tree_mask, chunk_start, k_scale,
                                      v_scale, bits, **options)

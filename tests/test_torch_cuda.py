@@ -1166,21 +1166,82 @@ def test_tree_variants_match_plain_and_each_other(card, cache, layout):
 
 
 @pytest.mark.cuda
-def test_tree_variant_refuses_more_than_32_rows(card):
-    """A tree whose verify chunk outgrows one 32-bit ancestry word raises on
-    the card, naming the limit; so does a window with the tree mask."""
-    from llm_inference_lab_tpu_torch.ops.flash_decode import flash_decode_tree
+@pytest.mark.parametrize("cache", ["bf16", "int8"])
+@pytest.mark.parametrize("branching", [(4, 3, 2), (6, 4, 3)])
+def test_tree_variants_past_32_rows(card, cache, branching):
+    """D's, F's and D's shard tree variants past one ancestry word: the
+    [4, 3, 2] tree (S = 41, two words a row) and [6, 4, 3] (S = 103, four)
+    at the 3B's geometry, 64 in V (int8: 127) at every leaf's slot and past
+    the chunk. D within _attn_within of the plain version with chunks from
+    slot 517 (mid-tile), at the cache's end and at slot -1; F gives D's
+    bits on the same keys in shuffled pages; the shard variant over two
+    slices with a chunk that straddles them, merged, within the attention
+    tolerance of D. The [3, 2] tree's 10 rows inside an S = 41 launch whose
+    other nodes they do not see give the S = 10 launch's bits (one word a
+    row against two). A window with the tree mask still raises."""
+    from llm_inference_lab_tpu_torch.core.treespec import TreeConfig
+    from llm_inference_lab_tpu_torch.ops.flash_decode import (
+        flash_decode_shard_tree,
+        flash_decode_tree,
+        merge_shards,
+        tree_bits,
+    )
+    from llm_inference_lab_tpu_torch.ops.paged_flash import paged_flash_tree
 
-    S = 33
-    q = torch.zeros((1, S, 8, 64), device=card, dtype=torch.bfloat16)
-    k = torch.zeros((1, 8, 128, 64), device=card, dtype=torch.bfloat16)
-    anc = torch.ones((S, S), device=card, dtype=torch.bool)
-    start = torch.zeros((1,), device=card, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="32"):
-        flash_decode_tree(q, k, k, anc, start)
+    g = torch.Generator(device=card).manual_seed(41)
+    _, depths, _, anc = TreeConfig(branching).build()
+    anc = torch.from_numpy(anc).to(card)
+    S, B, H, KVH, T, D = len(depths), 3, 24, 8, 1024, 128
+    assert tree_bits(anc).shape == (S, -(-S // 32))
+    start = torch.tensor([517, T - S, -1], device=card, dtype=torch.int32)
+    if cache == "int8":
+        (k, ks), (v, vs) = (_int8_cache(card, g, (B, KVH, T, D)) for _ in "kv")
+        scales = (ks, vs)
+    else:
+        k, v = (torch.randn((B, KVH, T, D), generator=g, device=card).bfloat16() for _ in "kv")
+        scales = ()
+    for b, c in enumerate(start.tolist()):
+        hidden = [c + i for i in range(S) if depths[i] == depths.max() and c + i >= 0]
+        hidden += list(range(max(c + S, 0), T))
+        v[b, :, hidden] = 64 if cache == "bf16" else 127
+    q = torch.randn((B, S, H, D), generator=g, device=card).bfloat16()
+    pos = torch.zeros((B, S), device=card, dtype=torch.int32)
+    ref = flash_decode_tree(q, k, v, anc, start, *scales)
+    assert _attn_within(ref, q, k, v, pos, *scales, tree_mask=anc, chunk_start=start)
+    pools = []
+    for t in (k, v, *scales):
+        g_t = torch.Generator(device=card).manual_seed(3)  # one table for all four
+        pool, table = _pool_of(card, g_t, t, 64)
+        pools.append(pool)
+    assert torch.equal(paged_flash_tree(q, pools[0], pools[1], table, anc, start, *pools[2:]),
+                       ref)
+    # The shard variant over two slices of 512, the first chunk at 500
+    # straddling them.
+    sst = torch.tensor([500, T - S, -1], device=card, dtype=torch.int32)
+    outs, lses = [], []
+    for r in range(2):
+        sl = slice(r * 512, (r + 1) * 512)
+        sc = tuple(t[:, :, sl].contiguous() for t in scales)
+        o, l = flash_decode_shard_tree(q, k[:, :, sl].contiguous(), v[:, :, sl].contiguous(),
+                                       anc, sst, r * 512, *sc)
+        outs.append(o)
+        lses.append(l)
+    merged, _ = merge_shards(torch.stack(outs), torch.stack(lses))
+    whole = flash_decode_tree(q, k, v, anc, sst, *scales).float()
+    assert torch.all((merged - whole).abs() <= 2.0 ** -7 * whole.abs() + 2.0 ** -7)
+    # One word a row against two: the [3, 2] tree's rows inside S = 41.
+    small = torch.from_numpy(TreeConfig((3, 2)).build()[3]).to(card)
+    wide = torch.eye(41, device=card, dtype=torch.bool)
+    wide[:, 0] = True
+    wide[:10, :10] = small
+    q41 = torch.randn((B, 41, H, D), generator=g, device=card).bfloat16()
+    st41 = torch.tensor([517, T - 41, -1], device=card, dtype=torch.int32)
+    one = flash_decode_tree(q41[:, :10].contiguous(), k, v, small, st41, *scales)
+    two = flash_decode_tree(q41, k, v, wide, st41, *scales)
+    assert torch.equal(one, two[:, :10])
     with pytest.raises(NotImplementedError):
-        flash_decode_tree(q[:, :4].contiguous(), k, k, anc[:4, :4].contiguous(), start,
-                          window=16)
+        flash_decode_tree(q[:, :4].contiguous(), k, v, anc[:4, :4].contiguous(), start,
+                          *scales, window=16)
 
 
 @pytest.mark.cuda

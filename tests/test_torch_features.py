@@ -26,7 +26,6 @@ from llm_inference_lab_tpu_torch.core.batching import ContinuousBatcher
 from llm_inference_lab_tpu_torch.core.engine import Engine
 from llm_inference_lab_tpu_torch.models import lora
 from llm_inference_lab_tpu_torch.models.llama import LLAMA_CONFIGS
-from llm_inference_lab_tpu_torch.ops.flash_decode import tree_bits
 from test_torch_decode_loop import one_thread  # noqa: F401
 
 PACKAGE = os.path.join(os.path.dirname(__file__), "..", "llm_inference_lab_tpu_torch")
@@ -91,21 +90,16 @@ def _serve_cell(cfg, feature):
 @pytest.mark.parametrize("mode,layout,feature", list(features.cells()))
 def test_matrix_cell(mode, layout, feature, lora_dir):
     """The cell works through the batcher (a non-empty result), or raises
-    the documented fragment. The port documents JAX's rule for the cell,
-    or a rule on its own list (port_refusals), whose cells then serve with
-    the setting the rule asks for (a ring: admit_chunk)."""
+    the documented fragment. The port documents JAX's rule for every cell
+    (the ring cells on the contiguous layout serve without admit_chunk)."""
     want = features.expected_error(mode, layout, feature)
-    jax_rule = jax_features.expected_error(mode, layout, feature)
-    port_rules = {r["fragment"] for r in features.port_refusals()}
-    assert want == jax_rule or (jax_rule is None and want in port_rules), (want, jax_rule)
+    assert want == jax_features.expected_error(mode, layout, feature), (mode, layout, feature)
     cfg = _cell_config(mode, layout, feature, lora_dir)
     if want is not None:
         with pytest.raises((ValueError, NotImplementedError)) as err:
             ContinuousBatcher(Engine(EngineConfig(**cfg), device="cpu"), n_slots=1)
         assert want in str(err.value), (mode, layout, feature, err.value)
-    if want == features.RING_SERVING_NEEDS_ADMIT_CHUNK:
-        _serve_cell({**cfg, "admit_chunk": 32}, feature)
-    elif want is None:
+    if want is None:
         _serve_cell(cfg, feature)
 
 
@@ -147,10 +141,6 @@ def _refuse_moe_quantization():
                         max_seq_len=96, dtype="float32"), device="cpu")
 
 
-def _refuse_big_tree():
-    tree_bits(torch.ones((33, 33), dtype=torch.bool))
-
-
 def _refuse_embed_bits():
     EngineConfig(embed_bits=2).validate()
 
@@ -165,12 +155,6 @@ def _refuse_lora_mlp():
 
 def _refuse_config_key():
     load_config(None, max_draft=2, speculative_lookahead=3)
-
-
-def _refuse_ring_serving():
-    ContinuousBatcher(Engine(EngineConfig(base_model="mistral-tiny", draft_model=None,
-                                          max_seq_len=512, dtype="float32", kv_ring=True,
-                                          prefill_chunk=32), device="cpu"), n_slots=1)
 
 
 def _mesh(data=1, model=1):
@@ -188,29 +172,20 @@ def _mesh_engine(data=1, model=1, **kw):
     return Engine(EngineConfig(**dict(TINY, **kw)), device="cpu", mesh=_mesh(data, model))
 
 
-def _refuse_multihost(**kw):
-    from llm_inference_lab_tpu_torch.core.multihost_batching import MultiHostBatcher
-
-    return MultiHostBatcher(_mesh_engine(data=2, **kw), n_slots=2)
-
-
 def _refuse_slots():
     from llm_inference_lab_tpu_torch.core.multihost_batching import MultiHostBatcher
 
     MultiHostBatcher(_mesh_engine(data=2), n_slots=3)
 
 
-REFUSE = {"ring_serving_without_admit_chunk": _refuse_ring_serving,
-          "moe_weight_quantization": _refuse_moe_quantization,
-          "tree_over_max_s": _refuse_big_tree, "embed_bits": _refuse_embed_bits,
+REFUSE = {"moe_weight_quantization": _refuse_moe_quantization,
+          "embed_bits": _refuse_embed_bits,
           "lora_mlp_without_gated_mlp": _refuse_lora_mlp,
           "unknown_config_key": _refuse_config_key,
           "mesh_shape_differs": lambda: _mesh_engine(data=2, mesh_shape={"model": 2}),
           "mesh_batch_does_not_split": lambda: _mesh_engine(data=2).generate_batch(["a"]),
           "mesh_batcher_data_axis": lambda: ContinuousBatcher(_mesh_engine(data=2), n_slots=2),
-          "mesh_slots_do_not_split": _refuse_slots,
-          "multihost_kv_ring": lambda: _refuse_multihost(
-              base_model="mistral-tiny", max_seq_len=512, kv_ring=True, prefill_chunk=32)}
+          "mesh_slots_do_not_split": _refuse_slots}
 
 
 @pytest.mark.parametrize("refusal", features.port_refusals(), ids=lambda r: r["name"])

@@ -27,7 +27,17 @@ lane and one of 58 whose tree chunk straddles them:
   * Engine.generate paged at seq=2 equals JAX's unsharded paged engine;
     JAX's own seq=2 paged engine gives other ids (its ring prefill writes
     the contiguous layout into the page pool: a fault of the reference,
-    pinned here).
+    pinned here);
+  * the tree [4, 3, 2] (40 nodes: a verify chunk of 41 rows, two ancestry
+    words a row) at seq=2, its chunk straddling the slices: Engine.generate
+    and the contiguous batcher give JAX's unsharded tree engine's and
+    batcher's results;
+  * mistral-tiny on its rolling-buffer cache (R = 128, window 16,
+    prefill_chunk 32; a draft, K = 2) under MultiHostBatcher at data=2 and
+    at model=2, whose admission is one-shot (a 153-token prompt, longer
+    than the ring, in 5 back-to-back chunks): every rank gives one
+    process's ContinuousBatcher's results (JAX's batcher cannot admit that
+    prompt one-shot: tests/test_torch_ring_oneshot.py).
 
 Each rank's cache holds its slice of T (seq) or its stage's layers (stage),
 asserted by shape. The tree's KV compaction across slices (core/treespec.py
@@ -51,7 +61,10 @@ from llm_inference_lab_tpu.core.batching import ContinuousBatcher as JaxBatcher
 from llm_inference_lab_tpu.core.engine import Engine as JaxEngine
 from llm_inference_lab_tpu.models.registry import get_model
 from llm_inference_lab_tpu.ops.attention import attend_xla
+from llm_inference_lab_tpu_torch.config import EngineConfig
 from llm_inference_lab_tpu_torch.convert import params_from_jax
+from llm_inference_lab_tpu_torch.core.batching import ContinuousBatcher
+from llm_inference_lab_tpu_torch.core.engine import Engine
 from llm_inference_lab_tpu_torch.ops.flash_decode import (
     flash_decode_shard_opts,
     flash_decode_shard_tree,
@@ -87,6 +100,18 @@ RUNS = [(name, {"seq": 2}) for name in CASES] + [("contiguous", {"stage": 2})]
 MULTIHOST = [{"data": 2, "seq": 2}, {"data": 2, "stage": 2}]
 CANCEL = (1, 2)  # request 1, before the third poll
 GENERATE = [("seq axis serving " * 5, 10)]
+WIDE_TREE = dict(TREE, tree={"branching": [4, 3, 2]})
+WIDE_REQUESTS = [("x" * 58, 9), ("short one", 6), ("a third request", 7)]  # chunk at 58: straddles
+RING = dict(base_model="mistral-tiny", draft_model="mistral-tiny", max_draft=2, max_new_tokens=12,
+            max_seq_len=512, prefill_chunk=32, kv_ring=True, dtype="float32", eos_token_id=-1)
+RING_REQUESTS = [("ring cache check " * 9, 8), ("ring cache check " * 3, 8), ("short", 6),
+                 ("a third request", 7)]
+RING_MESHES = [{"data": 2}, {"model": 2}]
+# The fleet's cases after RUNS and MULTIHOST: the paged generate, the wide
+# tree's generate and batcher, then the ring's MultiHostBatcher runs.
+GEN_AT = len(RUNS) + len(MULTIHOST)
+WIDE_AT = GEN_AT + 1
+RING_AT = GEN_AT + 3
 
 
 def _scaled(name: str, seed: int, mult: float):
@@ -98,7 +123,8 @@ def _scaled(name: str, seed: int, mult: float):
 @pytest.fixture(scope="module")
 def models():
     return {"llama-tiny": (_scaled("llama-tiny", 0, 4), _scaled("llama-tiny", 1, 4)),
-            "gemma2-tiny": (_scaled("gemma2-tiny", 3, 2), _scaled("gemma2-tiny", 4, 2))}
+            "gemma2-tiny": (_scaled("gemma2-tiny", 3, 2), _scaled("gemma2-tiny", 4, 2)),
+            "mistral-tiny": (_scaled("mistral-tiny", 5, 4), _scaled("mistral-tiny", 6, 4))}
 
 
 def _jax_engine(models, kw, **extra):
@@ -139,12 +165,16 @@ def jax_served(models):
         out[name] = _jax_served(eng, requests)
     out["multihost"] = _jax_served(_jax_engine(models, BASE), REQUESTS, n_slots=4,
                                    cancel=CANCEL)
-    return out, heads
+    wide = _jax_engine(models, WIDE_TREE)
+    out["wide_tree"] = _jax_served(wide, WIDE_REQUESTS)
+    out["wide_tree_generate"] = [wide.generate(p, max_new_tokens=m)["generated_ids"]
+                                 for p, m in WIDE_REQUESTS]
+    return out, (heads, params_from_jax(wide._draft_params))
 
 
 @pytest.fixture(scope="module")
 def fleet(models, jax_served):
-    heads = jax_served[1]
+    heads, wide_heads = jax_served[1]
 
     def case(name, shape, kind="batcher", requests=None, cancel=None, **over):
         kw, reqs = CASES[name]
@@ -158,8 +188,19 @@ def fleet(models, jax_served):
     cases += [case("contiguous", shape, "multihost", REQUESTS, CANCEL) for shape in MULTIHOST]
     cases.append(case("contiguous", {"seq": 2}, "generate", GENERATE, kv_layout="paged",
                       kv_page_size=16))
+    target = params_from_jax(models["llama-tiny"][0].params)
+    for kind in ("generate", "batcher"):
+        cases.append({"kw": WIDE_TREE, "shape": {"seq": 2}, "target": target,
+                      "draft": wide_heads, "requests": WIDE_REQUESTS, "kind": kind})
+    cases += [_ring_case(models, shape) for shape in RING_MESHES]
     items = [("serve_axes", ({}, cases)), ("compact_slices", (0, 4))]
     return launch(ranks.jobs, 4, args=(items,), threads=1, timeout=900)
+
+
+def _ring_case(models, shape, kind="multihost"):
+    target, draft = models["mistral-tiny"]
+    return {"kw": RING, "shape": shape, "target": params_from_jax(target.params),
+            "draft": params_from_jax(draft.params), "requests": RING_REQUESTS, "kind": kind}
 
 
 def _same_results(got, want, what):
@@ -232,7 +273,44 @@ def test_paged_generate_under_seq_equals_jax_unsharded(fleet, models):
         p, max_new_tokens=m)["generated_ids"] for p, m in GENERATE]
     assert len(set(want[0])) > 1
     for r in range(2):
-        assert fleet[r][0][-1] == want, r
+        assert fleet[r][0][GEN_AT] == want, r
+
+
+def test_wide_tree_under_seq_equals_jax(fleet, jax_served):
+    """The tree [4, 3, 2] (S = 41) at seq=2, the 58-token prompt's chunk
+    straddling the slices at 64: Engine.generate gives JAX's unsharded tree
+    engine's ids, and the contiguous batcher its batcher's results and
+    counts, on both ranks; some nodes are accepted."""
+    want, counts = jax_served[0]["wide_tree"]
+    assert sum(w["accepted"] for w in want) > 0
+    for r in range(2):
+        assert fleet[r][0][WIDE_AT] == jax_served[0]["wide_tree_generate"], r
+        got = fleet[r][0][WIDE_AT + 1]
+        _same_results(got["results"], want, ("wide tree", r))
+        assert got["stats"] == counts
+        assert got["shape"][1:4] == (2, 2, 64) and got["t0"] == 64 * r
+
+
+@pytest.mark.parametrize("shape", RING_MESHES, ids=["data2", "model2"])
+def test_ring_multihost_equals_one_process(fleet, models, shape):
+    """MultiHostBatcher over mistral-tiny's ring (R = 128 slots on every
+    rank) at data=2 (2 slots a data row) and model=2: its ranks' results
+    are equal, and equal one process's ContinuousBatcher (the same slots,
+    the same one-step polls), the 153-token prompt admitted one-shot past
+    the ring."""
+    case = _ring_case(models, shape)
+    eng = Engine(EngineConfig(**RING), device="cpu", target_params=case["target"],
+                 draft_params=case["draft"])
+    one = ContinuousBatcher(eng, n_slots=2 * shape.get("data", 1))
+    want = ranks._serve_by_hand(one, RING_REQUESTS)
+    _varied(want)
+    at = RING_AT + RING_MESHES.index(shape)
+    runs = [fleet[r][0][at] for r in range(2)]
+    assert runs[0]["results"] == runs[1]["results"]
+    for r, got in enumerate(runs):
+        _same_results(got["results"], want, (shape, r))
+        assert got["shape"][3] == 128
+    assert fleet[2][0][at] is None and fleet[3][0][at] is None
 
 
 def test_jax_paged_generate_under_seq_is_its_fault(models):

@@ -390,8 +390,9 @@ def test_ring_kv_report_is_skipped(ring_runs):
 def test_ring_refusals():
     """A ring needs prefill_chunk, a multiple of 32, and the contiguous
     layout; it stays off where it would not shrink the cache; the batcher
-    refuses a ring engine without incremental admission (admit_chunk) and
-    takes one with it."""
+    takes a ring engine without incremental admission (admit_chunk: a
+    prompt longer than the ring is admitted one-shot in prefill_chunk
+    forwards) and with it."""
     for kw, match in ((dict(prefill_chunk=None), "prefill_chunk"),
                       (dict(prefill_chunk=48), "multiple of 32"),
                       (dict(kv_layout="paged"), "contiguous")):
@@ -402,8 +403,8 @@ def test_ring_refusals():
                    device="cpu")
     assert small.target.config.kv_ring_len is None
     ring = Engine(EngineConfig(**dict(COMMON, draft_model=None, kv_ring=True)), device="cpu")
-    with pytest.raises(ValueError, match="admit_chunk"):
-        ContinuousBatcher(ring, n_slots=2)
+    one_shot = ContinuousBatcher(ring, n_slots=2)
+    assert one_shot.ring and one_shot.admit_chunk is None and one_shot._admit_incr is not None
     assert ContinuousBatcher(small, n_slots=2).n_slots == 2
     served = Engine(EngineConfig(**dict(COMMON, draft_model=None, kv_ring=True, admit_chunk=32)),
                     device="cpu")

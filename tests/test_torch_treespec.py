@@ -380,7 +380,8 @@ def test_batcher_equals_jax_and_generate(layout):
 def test_tree_refusals():
     """A ring, a non-greedy policy or an adaptive controller in tree mode is
     refused; a binding window with the tree mask raises in the forward (as
-    in JAX); the card's limit of 32 rows is named when a tree outgrows it."""
+    in JAX); a tree of 33 rows takes two ancestry words a row (no limit of
+    32 rows: every bit of a full mask set, the second word's bit 0 only)."""
     for kw in (dict(kv_ring=True, prefill_chunk=32), dict(policy="typical"),
                dict(controller="adaptive")):
         with pytest.raises((ValueError, NotImplementedError)):
@@ -390,8 +391,8 @@ def test_tree_refusals():
     with pytest.raises(NotImplementedError):
         attend(q, k, v, pos, tree_mask=anc, chunk_start=start, window=16)
     big = torch.ones((33, 33), dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match="32"):
-        tree_bits(big)
+    assert torch.equal(tree_bits(big), torch.full((33, 2), -1, dtype=torch.int32)
+                       .index_fill_(1, torch.tensor([1]), 1))
 
 
 @pytest.mark.parametrize("grammar", [dict(constrain="json"), dict(tools=[{"name": "ping"}])])
