@@ -89,7 +89,17 @@ Phases, in order (any failure exits non-zero; nothing is caught and ignored):
     A's f32-output instantiation (the EmbedQuant4 tied head) at N = 128,256
     and K = 3072 and 2048, M = 1, 2, 5 and 104 (both bodies): within the
     f32 summation bound of its plain version, the bf16 kernel's output its
-    rounding bit for bit, timed beside the library call;
+    rounding bit for bit, timed beside the library call; and kernel G, the
+    int8 tied head read in place (csrc/tied_head.cu), at V = 128,256, D =
+    3072 and 2048, M = 1 to 328: within the f32 summation bound of its
+    plain version, every row's bits independent of M, no copy of the table
+    allocated, timed beside the plain version and the route it replaced
+    (the table cast to bf16, torch.mm with an f32 output); and kernel H, the
+    KV-cache write (csrc/kv_write.cu), at the 3B's and Gemma-2 9B's
+    geometries, contiguous, ring (a block longer than R too) and paged,
+    bf16 and int8 caches, S = 1 to 512: bytes and scales equal to its plain
+    version's, timed at the K=1 and the int8 K=4 steps' writes; every path
+    below asserts H once a layer (outside the seq axis);
  3. end to end at full width: Engine with an int4 llama-3.2-3b target and
     llama-3.2-1b draft (random weights from a seed, int8 embedding/tied
     head), K=1, greedy, 64 new tokens, max_seq_len 512, on bench.py's
@@ -702,9 +712,15 @@ HEAD4 = {"quant_matmul_int4_f32", "quant_matmul_int4_f32_mma"}  # the EmbedQuant
 LN = {"layer_norm", "add_layer_norm"}  # GPT-2's and OPT's norms
 SPEC = {"flash_decode", "flash_prefill", "verify_prefix"}
 SERVE = {"flash_prefill", "paged_flash", "verify_prefix"}
+# Kernel G: the int8 tied head read in place, on every path whose target or
+# draft ties its head to an int8 EmbedQuant table (phase 3's int4 3B + 1B,
+# phase 10's int8 3B, Qwen2.5's 0.5B and 1.5B). The int8 path keeps a bf16
+# table, Gemma-2 a bf16 one, EAGLE's 8B, Mistral and Phi-3 untied heads,
+# the int4 embedding A's f32 instantiation; Engine.embed runs no head.
+G = {"tied_head"}
 PATH_KERNELS = {
-    "generate int4 (3 runs)": INT4 | SPEC,
-    "serving int4 (16 requests)": INT4 | SERVE,
+    "generate int4 (3 runs)": INT4 | SPEC | G,
+    "serving int4 (16 requests)": INT4 | SERVE | G,
     "generate int8 (3 runs)": INT8 | {"flash_decode_int8", "flash_prefill_int8", "verify_prefix"},
     "serving int8 (16 requests)": INT8 | {"flash_prefill_int8", "paged_flash_int8",
                                           "verify_prefix"},
@@ -720,36 +736,36 @@ PATH_KERNELS = {
     "generate mistral-7b int8 full cache long prompt (baseline)": INT4 | {"flash_decode_int8",
                                                                           "flash_prefill_int8"},
     "generate mistral-7b ngram K=4 ring long prompt": INT4 | SPEC,
-    "generate int8 ngram K=12 (3 runs)": INT8 | SPEC,
+    "generate int8 ngram K=12 (3 runs)": INT8 | SPEC | G,
     # 8 slots x 13 verify rows: B only through its tensor-core path.
-    "serving int8 ngram K=12 (16 requests)": INT8 - {"quant_matmul_int8"} | SERVE,
+    "serving int8 ngram K=12 (16 requests)": INT8 - {"quant_matmul_int8"} | SERVE | G,
     # rejection compares probabilities, not argmaxes: no kernel C.
     "generate int4 sampled rejection adaptive-device K=4 (3 runs)": INT4 | {"flash_decode",
-                                                                             "flash_prefill"},
-    "generate int4 greedy conf_threshold, topk_agree, typical, host adaptive K": INT4 | SPEC,
+                                                                             "flash_prefill"} | G,
+    "generate int4 greedy conf_threshold, topk_agree, typical, host adaptive K": INT4 | SPEC | G,
     "generate llama-3.1-8b int4 eagle K=2 (3 runs)": INT4 | SPEC,
-    "generate int4 medusa K=4 (3 runs)": INT4 | SPEC,
+    "generate int4 medusa K=4 (3 runs)": INT4 | SPEC | G,
     # The tree walks its own path (no C), and its verify chunk attends
     # through D's tree variant only.
-    "generate int4 tree [3, 2] (3 runs)": INT4 | {"flash_prefill", "flash_decode_tree"},
+    "generate int4 tree [3, 2] (3 runs)": INT4 | {"flash_prefill", "flash_decode_tree"} | G,
     # 8 slots x 10 tree rows: A only through its tensor-core path.
     "serving int4 tree [3, 2] (16 requests)": INT4 - {"quant_matmul_int4"} | {
-        "flash_prefill", "paged_flash_tree"},
-    "serving int4 medusa K=4 (16 requests)": INT4 | SERVE,
+        "flash_prefill", "paged_flash_tree"} | G,
+    "serving int4 medusa K=4 (16 requests)": INT4 | SERVE | G,
     # Phase 14: admission on phase 3's engine (page 64: every admission
     # forward has 64 rows or more, so E and A's tensor-core path).
-    "serving int4 lazy pages with preemption (16 requests)": INT4 | SERVE,
-    "serving int4 prefix caching (16 requests)": INT4 | SERVE,
-    "serving int4 incremental admission (3000-token prompt among 7)": INT4 | SERVE,
+    "serving int4 lazy pages with preemption (16 requests)": INT4 | SERVE | G,
+    "serving int4 prefix caching (16 requests)": INT4 | SERVE | G,
+    "serving int4 incremental admission (3000-token prompt among 7)": INT4 | SERVE | G,
     # Phase 15: Mistral-7B served over the ring (contiguous: D decodes).
     "serving mistral-7b ring incremental admission (8 requests)": INT4 | SPEC,
     # Phase 16: the OpenAI server over HTTP (phase 3b's requests at
     # temperature 0, then (b)-(e)): the paged serving path's kernels.
-    "serving int4 OpenAI server, per-request sampling (HTTP)": INT4 | SERVE,
+    "serving int4 OpenAI server, per-request sampling (HTTP)": INT4 | SERVE | G,
     # Phases 17-20: the families. Qwen2.5's 8 slots x 5 verify rows stay
     # under MMA_MIN_M: B through both bodies.
-    "generate qwen2.5-7b int8 + 0.5b draft K=4 (3 runs)": INT8 | SPEC,
-    "serving qwen2.5-7b int8 + 0.5b draft K=4 (16 requests)": INT8 | SERVE,
+    "generate qwen2.5-7b int8 + 0.5b draft K=4 (3 runs)": INT8 | SPEC | G,
+    "serving qwen2.5-7b int8 + 0.5b draft K=4 (16 requests)": INT8 | SERVE | G,
     "generate phi-3-mini int4 ngram K=4 long prompt (3 runs)": INT4 | SPEC,
     "serving phi-3-mini int4 ngram K=4 (16 requests)": INT4 | SERVE,
     # bf16 weights: the projections and the experts are torch.matmul.
@@ -762,21 +778,21 @@ PATH_KERNELS = {
     "serving opt-125m bf16 baseline (16 requests)": LN | {"flash_prefill", "paged_flash"},
     # Phase 22: the grammar's ops are plain torch ops inside the captured
     # step; the paths launch what phase 3's, 3b's, 16's, 13's and 10's do.
-    "generate int4 grammars (json, json_object, json_schema, regex, tools)": INT4 | SPEC,
-    "serving int4 grammars mixed with free requests (4 x 16 requests)": INT4 | SERVE,
-    "serving int4 OpenAI server, grammars and tool calls (HTTP)": INT4 | SERVE,
-    "generate int4 medusa K=4 under json_schema (3 runs)": INT4 | SPEC,
-    "generate int8 ngram K=12 under json_schema (3 runs)": INT8 | SPEC,
+    "generate int4 grammars (json, json_object, json_schema, regex, tools)": INT4 | SPEC | G,
+    "serving int4 grammars mixed with free requests (4 x 16 requests)": INT4 | SERVE | G,
+    "serving int4 OpenAI server, grammars and tool calls (HTTP)": INT4 | SERVE | G,
+    "generate int4 medusa K=4 under json_schema (3 runs)": INT4 | SPEC | G,
+    "generate int8 ngram K=12 under json_schema (3 runs)": INT8 | SPEC | G,
     # Phase 23: LoRA on phase 3's weights (the deltas are plain torch ops in
     # the captured step), Engine.embed (eager, no head: E and A's
     # tensor-core path at 64 x 160 rows), and the int4 embedding, whose tied
     # head is kernel A's f32 instantiation (decode rows through its decode
     # body, prefill and admission rows through its tensor-core path).
-    "generate int4 LoRA pack, base and 3 adapters (4 x 3 runs)": INT4 | SPEC,
-    "serving int4 LoRA adapters round-robin (16 requests)": INT4 | SERVE,
-    "serving int4 LoRA prefix caching under two adapters (16 requests)": INT4 | SERVE,
-    "generate int4 medusa K=4 under a LoRA adapter (3 runs)": INT4 | SPEC,
-    "serving int4 OpenAI server, LoRA model routing (HTTP)": INT4 | SERVE,
+    "generate int4 LoRA pack, base and 3 adapters (4 x 3 runs)": INT4 | SPEC | G,
+    "serving int4 LoRA adapters round-robin (16 requests)": INT4 | SERVE | G,
+    "serving int4 LoRA prefix caching under two adapters (16 requests)": INT4 | SERVE | G,
+    "generate int4 medusa K=4 under a LoRA adapter (3 runs)": INT4 | SPEC | G,
+    "serving int4 OpenAI server, LoRA model routing (HTTP)": INT4 | SERVE | G,
     "embed int4 64 texts, mean and last pooling": {"rms_norm", "add_rms_norm",
                                                    "quant_matmul_int4_mma", "flash_prefill"},
     "generate int4 embed_bits=4 (3 runs)": INT4 | SPEC | HEAD4,
@@ -786,9 +802,9 @@ PATH_KERNELS = {
     # projections' partial sums go through kernel A's f32 instantiation
     # (decode rows through its decode body, prefill and admission rows
     # through its tensor-core path).
-    TP_PATH: INT4 | SPEC | HEAD4,
-    DP_PATH: INT4 | SERVE,
-    TPDP_PATH: INT4 | SERVE | HEAD4,
+    TP_PATH: INT4 | SPEC | HEAD4 | G,
+    DP_PATH: INT4 | SERVE | G,
+    TPDP_PATH: INT4 | SERVE | HEAD4 | G,
     # Phase 26 (d): the int8 engine at model=2, its partial sums through
     # kernel B's f32 instantiation (both bodies). Phase 27: under seq every
     # cache is split on T (the ring's blocks through E's shard variant, every
@@ -797,24 +813,24 @@ PATH_KERNELS = {
     # Mixtral at expert=2 (its experts' products are torch ops).
     TP8_PATH: INT8 | {"flash_decode_int8", "flash_prefill_int8", "verify_prefix",
                       "quant_matmul_int8_f32", "quant_matmul_int8_f32_mma"},
-    SEQ_PATH: INT4 | {"flash_prefill_shard", "flash_decode_shard", "verify_prefix"},
+    SEQ_PATH: INT4 | {"flash_prefill_shard", "flash_decode_shard", "verify_prefix"} | G,
     SEQ8_PATH: INT8 | {"flash_prefill_shard", "flash_decode_shard_int8", "verify_prefix"},
-    STAGE_PATH: INT4 | SPEC,
-    STAGE_TP_PATH: INT4 | SPEC | HEAD4,
+    STAGE_PATH: INT4 | SPEC | G,
+    STAGE_TP_PATH: INT4 | SPEC | HEAD4 | G,
     EXPERT_PATH: {"rms_norm", "add_rms_norm"} | SPEC,
     # Phase 24: JAX's pipelined loop on phase 3's weights (the serving
     # path's kernels).
-    "serving int4 pipelined loop (16 requests)": INT4 | SERVE,
-    "serving int4 pipelined loop, staggered arrivals (16 requests)": INT4 | SERVE,
+    "serving int4 pipelined loop (16 requests)": INT4 | SERVE | G,
+    "serving int4 pipelined loop, staggered arrivals (16 requests)": INT4 | SERVE | G,
     # Phase 25: the bench harness on phase 3's engine settings. The sweep's
     # B = 10 rows stay under MMA_MIN_M at every K (verify 10 x (K + 1) <=
     # 50); its prefill (10 x 64 rows) and the baseline comparison's (160)
     # take A's tensor-core path. The perplexity forwards (S = 512: E, and
     # A's or B's tensor-core path) run eagerly on a bf16 3B and its int8 and
     # int4 clones (the bf16 projections and head are torch.matmul).
-    "bench k_sweep int4 K=1-4 (10 prompts a batch)": INT4 | SPEC,
-    "bench compare_to_baseline int4 (spec, then baseline)": INT4 | SPEC,
-    "bench stress int4 paged (200 requests, 8 slots)": INT4 | SERVE,
+    "bench k_sweep int4 K=1-4 (10 prompts a batch)": INT4 | SPEC | G,
+    "bench compare_to_baseline int4 (spec, then baseline)": INT4 | SPEC | G,
+    "bench stress int4 paged (200 requests, 8 slots)": INT4 | SERVE | G,
     "bench perplexity 3B bf16, int8, int4 (4 x 512 ids)": {
         "rms_norm", "add_rms_norm", "flash_prefill", "quant_matmul_int8_mma",
         "quant_matmul_int4_mma"},
@@ -825,13 +841,13 @@ PATH_KERNELS = {
     # vocabulary cut after the gather; the data axis captures phase 14's
     # prefix traffic; the Qwen2.5-1.5B target's partial sums through B's
     # f32 instantiation, its 0.5B draft whole on each rank.
-    ADAPTERS_TP_PATH: INT4 | SPEC | HEAD4,
+    ADAPTERS_TP_PATH: INT4 | SPEC | HEAD4 | G,
     PROFILE_TP_PATH: {"rms_norm", "add_rms_norm", "quant_matmul_int4", "quant_matmul_int4_f32",
-                      "flash_decode", "verify_prefix"},
+                      "flash_decode", "verify_prefix"} | G,
     FAKE_TP_PATH: {"verify_prefix"},
     GPT2_TP_PATH: LN | {"flash_decode", "flash_prefill"},
-    PREFIX_DP_PATH: INT4 | SERVE,
-    QWEN_TP_PATH: INT8 | SPEC | {"quant_matmul_int8_f32", "quant_matmul_int8_f32_mma"},
+    PREFIX_DP_PATH: INT4 | SERVE | G,
+    QWEN_TP_PATH: INT8 | SPEC | {"quant_matmul_int8_f32", "quant_matmul_int8_f32_mma"} | G,
     # Phase 29: a contiguous cache split on T decodes through D's shard
     # variants (Gemma-2's softcap through its options variant, the tree's
     # verify chunk through its ancestry-word variant) and admits through a
@@ -839,19 +855,19 @@ PATH_KERNELS = {
     # variant); a paged pool is whole on every seq rank (F); under stage a
     # pipeline of phase 3b's kernels. The tree walks its own path (no C); 8
     # slots x 10 tree rows take A's tensor-core path only.
-    SEQ_SERVE_PATH: INT4 | {"flash_prefill", "flash_decode_shard", "verify_prefix"},
-    STAGE_SERVE_PATH: INT4 | SPEC,
-    SEQ_TREE_PATH: INT4 | {"flash_prefill_shard", "flash_decode_shard_tree"},
-    SEQ_TREE_SERVE_PATH: INT4 - {"quant_matmul_int4"} | {"flash_prefill", "paged_flash_tree"},
-    SEQ_PREFIX_PATH: INT4 | SERVE,
+    SEQ_SERVE_PATH: INT4 | {"flash_prefill", "flash_decode_shard", "verify_prefix"} | G,
+    STAGE_SERVE_PATH: INT4 | SPEC | G,
+    SEQ_TREE_PATH: INT4 | {"flash_prefill_shard", "flash_decode_shard_tree"} | G,
+    SEQ_TREE_SERVE_PATH: INT4 - {"quant_matmul_int4"} | {"flash_prefill", "paged_flash_tree"} | G,
+    SEQ_PREFIX_PATH: INT4 | SERVE | G,
     SEQ_GEMMA_PATH: INT4 | {"flash_prefill", "flash_decode_shard_opts", "verify_prefix"},
-    SEQ_DP_PATH: INT4 | {"flash_prefill", "flash_decode_shard", "verify_prefix"},
+    SEQ_DP_PATH: INT4 | {"flash_prefill", "flash_decode_shard", "verify_prefix"} | G,
     # Phase 13's trees past 31 nodes: 41 verify rows at B=1 stay under
     # MMA_MIN_M (A's decode body); 8 slots x 41 rows and 103 rows at B=1
     # take A's tensor-core path only.
-    WIDE_GEN_PATH: INT4 | {"flash_prefill", "flash_decode_tree"},
-    WIDE_SERVE_PATH: INT4 - {"quant_matmul_int4"} | {"flash_prefill", "paged_flash_tree"},
-    WIDER_GEN_PATH: INT4 - {"quant_matmul_int4"} | {"flash_prefill", "flash_decode_tree"},
+    WIDE_GEN_PATH: INT4 | {"flash_prefill", "flash_decode_tree"} | G,
+    WIDE_SERVE_PATH: INT4 - {"quant_matmul_int4"} | {"flash_prefill", "paged_flash_tree"} | G,
+    WIDER_GEN_PATH: INT4 - {"quant_matmul_int4"} | {"flash_prefill", "flash_decode_tree"} | G,
     # Phase 15's ring admitted one-shot (chunks of 512 and waves: E and A's
     # tensor-core path; decode through D's ring, A's decode body, C), and
     # phase 29 (h)'s under MultiHostBatcher (model=2: A's f32 partials).
@@ -860,8 +876,11 @@ PATH_KERNELS = {
     RING_TP_PATH: INT4 | SPEC | HEAD4,
     # Phase 29 (g): the [4, 3, 2] tree at seq=2 (the ring prefill: E's shard
     # variant; the verify chunk through D's shard tree variant).
-    SEQ_WIDE_TREE_PATH: INT4 | {"flash_prefill_shard", "flash_decode_shard_tree"},
+    SEQ_WIDE_TREE_PATH: INT4 | {"flash_prefill_shard", "flash_decode_shard_tree"} | G,
 }
+# Kernel H: every forward writes its rows into a cache, K and V of a layer
+# in one launch (count_launches and rank_counts assert one a layer).
+PATH_KERNELS = {path: kernels | {"kv_write"} for path, kernels in PATH_KERNELS.items()}
 GEMMA_PATHS = [path for path in PATH_KERNELS if "gemma-2" in path]
 MISTRAL_PATHS = [path for path in PATH_KERNELS if "mistral" in path]
 RING_PATHS = [path for path in MISTRAL_PATHS if "ring" in path]
@@ -2557,7 +2576,16 @@ def count_launches(path, run):
             assert launches[norm] == forwards, (path, f"{norm} once a forward", forwards)
             assert launches["add_" + norm] == 2 * layers, (path, f"add_{norm} twice a layer",
                                                            layers)
+    check_kv_write(path, launches, layers)
     return out, launches
+
+
+def check_kv_write(path, launches, layers):
+    """Kernel H once a layer a forward, for K and V together. Not under the
+    seq axis: there a rank writes only the rows its slice of T holds (none,
+    no launch) and the ring prefill writes each block as it passes."""
+    if layers and "seq=" not in path:
+        assert launches["kv_write"] == layers, (path, "kv_write once a layer", launches, layers)
 
 
 def graph_report(what, loops):
@@ -3006,9 +3034,9 @@ def row_stability(eng, dev):
     generate runs M = 1, 2 at K=1 and 1, 5 at K=4; the 8-slot batcher 8, 16
     or 8, 40), and the projection kernel also at 63 (its decode body's
     largest M): for each M, how many rows differ in any bit from the row
-    alone; 0 for rms_norm, add_rms_norm, layer_norm, add_layer_norm and
-    the projection kernel (asserted). Random rows
-    can miss a rounding that a real row shows (tests/torch_kv_align_probe.py).
+    alone; 0 for rms_norm, add_rms_norm, layer_norm, add_layer_norm, the
+    projection kernel and the int8 tied head (kernel G; asserted). Random
+    rows can miss a rounding that a real row shows (tests/torch_kv_align_probe.py).
     Then the projection kernel across MMA_MIN_M: MMA_MIN_M rows together
     (its tensor-core path, which every prefill takes) against the same rows
     alone (its decode body, which every decode step takes); a row that one
@@ -3042,7 +3070,7 @@ def row_stability(eng, dev):
               "quant_matmul_int4 (kernel A)" if w.bits == 4 else "quant_matmul_int8 (kernel B)")
     head = ("tied int4 head (kernel A, f32 out)" if cfg.tie_word_embeddings
             and isinstance(params["embed"], EmbedQuant4) else
-            "tied int8 head (cast + torch.mm, f32 out)" if cfg.tie_word_embeddings
+            "tied int8 head (kernel G, f32 out)" if cfg.tie_word_embeddings
             and not isinstance(params["embed"], torch.Tensor) else
             "tied bf16 head (torch.mm, f32 out)" if cfg.tie_word_embeddings else
             "untied head (dense)")
@@ -3093,6 +3121,8 @@ def row_stability(eng, dev):
         assert not any(out[op].values()), (op, "rows depend on M", out[op])
     if quant:
         assert not any(out[kernel].values()), ("projection rows depend on M", out[kernel])
+    if "kernel G" in head:
+        assert not any(out[head].values()), ("int8 head rows depend on M", out[head])
     out[D_VS_F] = attention_rows(eng, dev)
     assert not any(out[D_VS_F].values()), ("D and F differ", out[D_VS_F])
     return out
@@ -5872,6 +5902,177 @@ def phase_head_f32(dev):
     return sum_rows(rows, step, max_err), sum_rows(rows, verify, max_err)
 
 
+# the int8 tied head's M on the paths that run it: B=1 (the 1B, the 3B's K=1
+# verify), an odd M, 8 and 16 slots, the 8-slot ngram K=12 verify, the
+# 8-slot [4, 3, 2] tree verify
+TIED_HEAD_M = (1, 2, 5, 8, 16, 104, 328)
+KV_WRITE_S = (1, 2, 5, 512)  # rows a forward writes: decode, verify, a prompt chunk
+
+
+def phase_tied_head(dev):
+    """Kernel G, the int8 tied head read in place, at the 3B's and the 1B's
+    widths (D = 3072, 2048; V = 128,256) at M = TIED_HEAD_M: within the f32
+    summation bound D 2^-24 (|x| @ |q|^T) scale of its plain version, every
+    row the same bits at every M as alone, one launch a call, and the call's
+    memory its f32 output (no copy of the table). Timed beside the plain
+    version, the route it replaced (the table cast to bf16, torch.mm with
+    an f32 output, times the scales: library_ms) and the bound V D + 4 V +
+    2 M D + 4 M V bytes. Returns one K=1 B=1 step's two heads (the 1B's at
+    M = 1, the 3B's at M = 2) as a kernel row."""
+    from llm_inference_lab_tpu_torch.ops.tied_head import tied_head, tied_head_plain
+
+    g = torch.Generator(device=dev).manual_seed(25)
+    rows, max_err, V = {}, 0.0, HEAD_V
+    for D in HEAD_F32_K:
+        q = torch.randint(-127, 128, (2, V, D), generator=g, dtype=torch.int8, device=dev)
+        sc = torch.rand((2, V), generator=g, device=dev) * (0.02 / 127) + 1e-6
+        x = torch.randn((max(TIED_HEAD_M), D), generator=g, device=dev).bfloat16()
+        alone = torch.cat([tied_head(x[i:i + 1], q[0], sc[0]) for i in range(len(x))])
+        qabs = q[0].float().abs().t()
+        for M in TIED_HEAD_M:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base, before = torch.cuda.memory_allocated(dev), tied_head.launches
+            got = tied_head(x[:M], q[0], sc[0])
+            extra = torch.cuda.max_memory_allocated(dev) - base
+            assert tied_head.launches == before + 1, (D, M, "launches")
+            assert extra <= 4 * M * V + (1 << 20), (D, M, "the call allocated", extra)
+            ref = tied_head_plain(x[:M], q[0], sc[0])
+            bound = D * 2.0 ** -24 * (x[:M].float().abs() @ qabs) * sc[0]
+            err = (got - ref).abs()
+            assert got.dtype == torch.float32 and torch.isfinite(got).all(), (D, M)
+            assert torch.all(err <= bound), (D, M, "beyond the f32 summation bound")
+            assert torch.equal(got, alone[:M]), (D, M, "rows depend on M")
+            max_err = max(max_err, err.max().item())
+        del qabs, alone
+        cyc = Cycle(2)
+        line = []
+        for M in TIED_HEAD_M:
+            xm = x[:M]
+            ms = median_ms(lambda: tied_head(xm, q[cyc()], sc[cyc.i]))
+            pl = median_ms(lambda: tied_head_plain(xm, q[cyc()], sc[cyc.i]), iters=3, warmup=1)
+            lib = median_ms(lambda: torch.mm(xm, q[cyc()].to(torch.bfloat16).t(),
+                                             out_dtype=torch.float32) * sc[cyc.i], iters=10)
+            b, by = bound_ms(V * D + 4 * V + 2 * M * D + 4 * M * V, 2 * M * V * D)
+            rows[(D, V, M)] = dict(ms=ms, plain_ms=pl, library_ms=lib, bound_ms=b, bound_by=by)
+            line.append(f"M={M} {ms:.4f} ms (bound {b:.4f} {by}, {b / ms:.3f} of it) plain "
+                        f"{pl:.4f} cast + mm {lib:.4f} ({ms / lib:.2f}x)")
+        log(f"tied_head (int8 table read in place) D={D} V={V}: within the f32 summation bound "
+            f"of the plain version, rows the same bits at M = {TIED_HEAD_M}, no table copy; "
+            + "; ".join(line))
+        del q, sc, x
+    step = [(HEAD_F32_K[1], V, 1, 1), (HEAD_F32_K[0], V, 2, 1)]
+    return sum_rows(rows, step, max_err)
+
+
+def kv_rows(g, dev, B, S, H, KVH, D):
+    """k_new, v_new [B, S, KVH, D] bf16 as the forward passes them to the
+    cache write: K the RoPE output's KV heads, V a slice of the QKV
+    projection, neither contiguous."""
+    qkv = torch.randn((B, S, (H + 2 * KVH) * D), generator=g, device=dev).bfloat16()
+    qk = qkv[..., :(H + KVH) * D].reshape(B, S, H + KVH, D) * 1
+    return qk[:, :, H:], qkv[..., (H + KVH) * D:].reshape(B, S, KVH, D)
+
+
+def kv_layer(g, dev, shape, int8, L=None):
+    """A cache layer (L stacked layers) of random bytes: [k, v, k_scale,
+    v_scale], the scales None for bf16."""
+    shape = shape if L is None else (L, *shape)
+    if int8:
+        kv = [torch.randint(-127, 128, shape, generator=g, dtype=torch.int8, device=dev)
+              for _ in "kv"]
+        return kv + [torch.rand(shape[:-1], generator=g, device=dev) + 0.01 for _ in "kv"]
+    return [torch.randn(shape, generator=g, device=dev).bfloat16() for _ in "kv"] + [None, None]
+
+
+def phase_kv_write(dev):
+    """Kernel H, one layer's K and V rows written into the cache in one
+    launch (quantized for an int8 cache), bf16 and int8 caches: the 3B's
+    geometry (24 query, 8 KV heads, d = 128) contiguous (B = 2, T = 1024),
+    on the ring (R = RING_LEN, and a block of R + 64 rows, longer than R),
+    paged (page 64, a shuffled table), and Gemma-2 9B's (16, 8, d = 256)
+    contiguous, at S = KV_WRITE_S from the forward's strided views: every
+    byte and scale equal to the plain version's, one launch a call. Timed
+    beside the plain version and the bound (the rows read once, written
+    once, their scales and indices): one K=1 B=1 step's writes (16 1B
+    layers at S = 1, 28 3B layers at S = 2, bf16, T = T_MAIN) and one int8
+    K=4 step's (4 x 16 at S = 1, 28 at S = 5). Returns the K=1 step's
+    kernel row (no single PyTorch call writes K and V: library_ms None)."""
+    import numpy as np
+
+    from llm_inference_lab_tpu_torch.models.base import cache_slots
+    from llm_inference_lab_tpu_torch.models.paged import page_slots
+    from llm_inference_lab_tpu_torch.ops.kv_write import kv_write, kv_write_plain
+
+    g = torch.Generator(device=dev).manual_seed(26)
+    B, P, T = 2, SERVE_PAGE, 1024
+    n_pages = B * T // P + 1  # page 0 the dummy
+    table = torch.from_numpy(np.random.default_rng(26).permutation(n_pages - 1)[:B * T // P]
+                             .reshape(B, T // P) + 1).to(dev, torch.int32)
+    cases = [("contiguous 3B", (24, 8, 128), KV_WRITE_S),
+             ("ring 3B", (24, 8, 128), KV_WRITE_S + (RING_LEN + 64,)),
+             ("paged 3B", (24, 8, 128), KV_WRITE_S),
+             ("contiguous Gemma-2 9B", (16, 8, 256), KV_WRITE_S)]
+    for int8 in (False, True):
+        for what, (H, KVH, D), sizes in cases:
+            for S in sizes:
+                k_new, v_new = kv_rows(g, dev, B, S, H, KVH, D)
+                if what.startswith("paged"):
+                    start = torch.tensor([0, T - S - 9], dtype=torch.int32, device=dev)
+                    slots, shape = page_slots(table, start, S, P), (n_pages, KVH, P, D)
+                elif what.startswith("ring"):
+                    start = torch.tensor([100, 9000], dtype=torch.int32, device=dev)
+                    slots = cache_slots(start, S, RING_LEN, RING_LEN)
+                    shape = (B, KVH, RING_LEN, D)
+                else:
+                    start = torch.tensor([3, T - S - 7], dtype=torch.int32, device=dev)
+                    slots, shape = cache_slots(start, S, T), (B, KVH, T, D)
+                got = kv_layer(g, dev, shape, int8)
+                want = [None if t is None else t.clone() for t in got]
+                before = kv_write.launches
+                kv_write(*got, k_new, v_new, slots)
+                assert kv_write.launches == before + 1, (what, S, "launches")
+                kv_write_plain(*want, k_new, v_new, slots)
+                for name, a, b in zip(("k", "v", "k_scale", "v_scale"), got, want):
+                    assert b is None or torch.equal(a.view(torch.uint8), b.view(torch.uint8)), (
+                        what, S, int8, name, "bytes differ from the plain version")
+            log(f"kv_write {what} {'int8' if int8 else 'bf16'} (H, KVH, d = {H}, {KVH}, {D}): "
+                f"bytes and scales equal to the plain version's at S = {sizes}, one launch a "
+                f"call")
+    row = dict(ms=0.0, plain_ms=0.0, library_ms=None, bound_ms=0.0, bound_by="bytes",
+               max_abs_err=0.0)
+    totals = {}
+    for unit, int8, work in (("K=1 step", False, ((64, 1, 16), (128, 2, 28))),
+                             ("int8 K=4 step", True, ((64, 1, 4 * 16), (128, 5, 28)))):
+        ms_sum = plain_sum = bound_sum = 0.0
+        parts = []
+        for D, S, n in work:
+            L = LAYERS[D]
+            H, KVH = GEOMS[D]
+            cache = kv_layer(g, dev, (1, KVH, T_MAIN, D), int8, L)
+            slots = cache_slots(torch.tensor([P_MAIN], dtype=torch.int32, device=dev), S, T_MAIN)
+            k_new, v_new = kv_rows(g, dev, 1, S, H, KVH, D)
+            cyc = Cycle(L)
+
+            def at(layer):
+                return [None if t is None else t[layer] for t in cache]
+
+            ms = median_ms(lambda: kv_write(*at(cyc()), k_new, v_new, slots))
+            pl = median_ms(lambda: kv_write_plain(*at(cyc()), k_new, v_new, slots))
+            elems = 2 * S * KVH * D  # K and V
+            b, _ = bound_ms(2 * elems + (elems + 8 * S * KVH if int8 else 2 * elems) + 16 * S, 0)
+            ms_sum, plain_sum, bound_sum = ms_sum + n * ms, plain_sum + n * pl, bound_sum + n * b
+            parts.append(f"d={D} S={S} {ms:.4f} ms (bound {b:.6f}) plain {pl:.4f} x {n}")
+            del cache
+        totals[unit] = ms_sum
+        log(f"kv_write one {unit} ({'int8' if int8 else 'bf16'} cache): {ms_sum:.4f} ms in "
+            f"{sum(n for *_, n in work)} launches, plain {plain_sum:.4f} ms, bound "
+            f"{bound_sum:.6f} ms (bytes); " + "; ".join(parts))
+        if unit == "K=1 step":
+            row.update(ms=ms_sum, plain_ms=plain_sum, bound_ms=bound_sum)
+    return row
+
+
 def phase_embed4(dev, eng, paths):
     """Phase 23 (c): the main path with the int4 embedding and tied head
     (INT4_CFG with embed_bits=4: random weights from the same seed; the
@@ -6778,6 +6979,7 @@ def rank_counts(path, run, last_stage=True):
     assert (launches[norm] == forwards
             and launches["add_" + norm] == 2 * layers - unfused), (
         path, launches, forwards, layers, unfused)
+    check_kv_write(path, launches, layers)
     return out, dict(launches=launches, forwards=forwards, replays=replayed.get("replays", 0),
                      wall_s=wall, coll_calls=COLLECTIVES["calls"],
                      coll_s=COLLECTIVES["seconds"], control_calls=CONTROL["calls"],
@@ -8684,6 +8886,16 @@ def main(argv):
             head_verify, "qmm_mma.cuh", "ops/pallas/quant_matmul.py:76",
             "the 3B's EmbedQuant4 tied head at M = 104 (an 8-slot ngram K=12 verify; f32 "
             "out)"),
+    })
+    kernels.update({
+        "tied_head": (
+            phase_tied_head(dev), "tied_head.cu", "ops/quant.py:222",
+            "one K=1 B=1 step's two int8 tied heads (the 1B's at M = 1, the 3B's at M = 2; V "
+            "= 128256, f32 out)"),
+        "kv_write": (
+            phase_kv_write(dev), "kv_write.cu", "models/base.py:200",
+            "one K=1 B=1 step's cache writes (16 1B layers at S = 1, 28 3B layers at S = 2, "
+            "bf16 cache)"),
     })
     phase_prefix_prefill(dev)
     axes = phase_axes_kernels(dev)

@@ -28,7 +28,8 @@ CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 SOURCES = ("quant_matmul_int4", "quant_matmul_int8", "flash_decode", "flash_prefill",
            "paged_flash", "verify_prefix", "rms_norm", "flash_decode_tree", "paged_flash_tree",
-           "flash_decode_shard", "flash_prefill_shard", "flash_decode_shard_tree")
+           "flash_decode_shard", "flash_prefill_shard", "flash_decode_shard_tree", "tied_head",
+           "kv_write")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -151,6 +152,18 @@ SIGNATURES = {
         "layer_norm_bf16": [P, P, P, P, I, I, F, I, P],
         # x, a, w, b, x_out, out, M, N, eps, w_f32, stream
         "add_layer_norm_bf16": [P, P, P, P, P, P, I, I, F, I, P],
+    },
+    "tied_head": {
+        # x, q, scale, out, M, V, D, stream: the decode body and the wide one
+        "tied_head_f32": [P, P, P, P, I, I, I, P],
+        "tied_head_wide_f32": [P, P, P, P, I, I, I, P],
+    },
+    "kv_write": {
+        # k_src, v_src, k_dst, v_dst, k_scale, v_scale, b, s, outer, slot, n,
+        # KVH, D, T, the source strides of k (b, s, h, d) and of v, dst_o,
+        # scale_o, src_f32, dst_int8, stream
+        "kv_write": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, LL, LL, LL, LL, LL, LL, LL, LL,
+                     LL, LL, I, I, P],
     },
 }
 

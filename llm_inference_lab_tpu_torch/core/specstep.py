@@ -237,11 +237,10 @@ def _cache_row(cache, ring_len: Optional[int], pos: torch.Tensor):
     pos[b] of each lane b in them (the slot a forward starting at pos
     writes): t[index] is that row of every layer, [B, L, KVH(, D)]."""
     if isinstance(cache, PagedKVCache):
-        page, off = page_slots(cache.table, pos, 1, cache.page_size)
-        index = (slice(None), page[:, 0], slice(None), off[:, 0])
+        slots = page_slots(cache.table, pos, 1, cache.page_size)
     else:
-        b, slot, _ = cache_slots(pos, 1, cache.max_seq_len, ring_len)
-        index = (slice(None), b[:, 0], slice(None), slot[:, 0])
+        slots = cache_slots(pos, 1, cache.max_seq_len, ring_len)
+    index = (slice(None), slots.outer, slice(None), slots.slot)
     return [t for t in (cache.k, cache.v, cache.k_scale, cache.v_scale) if t is not None], index
 
 

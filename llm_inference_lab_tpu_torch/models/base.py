@@ -15,16 +15,19 @@ just does not advance the length: stale rows beyond it are dead by the
 position mask and are overwritten by the next step's writes.
 
 Unlike the JAX package, which threads immutable arrays, the port writes the
-new rows into the cache IN PLACE (indexed assignment into the stacked
-buffer), so a step never copies the cache.
+new rows into the cache IN PLACE (ops/kv_write.py: kernel H on the card, one
+launch a layer for K and V), so a step never copies the cache.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, NamedTuple, Optional
+from typing import Any, Optional
 
 import torch
+
+# quantize_rows is the int8 cache's row quantization, imported from here too.
+from llm_inference_lab_tpu_torch.ops.kv_write import KVSlots, kv_write, quantize_rows  # noqa: F401
 
 
 @dataclass(frozen=True)
@@ -182,17 +185,6 @@ def kv_buffers(shape, dtype: torch.dtype, device):
     return k, v, ones, ones.clone()
 
 
-def quantize_rows(x: torch.Tensor):
-    """[..., D] -> (int8 values [..., D], f32 scales [...]): symmetric per
-    row, with the f32 steps of the JAX package's _quantize_rows, so the bytes
-    and scales are the same bit for bit (amax over D, max(amax, 1e-8) / 127,
-    round half to even, clip to +-127)."""
-    x32 = x.float()
-    scale = x32.abs().amax(dim=-1).clamp_min(1e-8) / 127.0
-    q = torch.round(x32 / scale[..., None]).clamp(-127, 127).to(torch.int8)
-    return q, scale
-
-
 @dataclass
 class Model:
     """A bound model: config + params (a nested dict of tensors, QuantTensor
@@ -249,37 +241,33 @@ class Model:
         return KVCache.create(self.config, batch_size, max_seq_len, device, dtype=dtype)
 
 
-def cache_slots(start: torch.Tensor, S: int, T: int, ring_len: Optional[int] = None):
+def lane_slots(B: int, s: torch.Tensor, outer: torch.Tensor, slot: torch.Tensor) -> KVSlots:
+    """KVSlots of the rows s [n] of every sequence b < B, each at its
+    (outer [B, n], slot [B, n])."""
+    b = torch.arange(B, device=s.device)[:, None]
+    # contiguous: at B = 1 a reshape of an expanded index is a stride-0 view
+    return KVSlots(*(t.expand_as(slot).reshape(-1).to(torch.int32).contiguous()
+                     for t in (b, s[None], outer, slot)))
+
+
+def cache_slots(start: torch.Tensor, S: int, T: int, ring_len: Optional[int] = None) -> KVSlots:
     """Where the S new rows per sequence (positions start[b] .. start[b]+S-1)
-    land, for ``write_cache_layer``: (b [B, 1], slot [B, n], rows), where the
-    last n of the S rows (rows = slice(S - n, None)) are written. Slots
-    clip to the buffer as the JAX scatter does; the engine guarantees
-    headroom. With ring_len R the slot is position mod R, and when S > R only
-    the last R rows land (an earlier row would be overwritten by a later
-    one of the same block; JAX drops it). A forward computes this once for
-    all its layers."""
-    pos = start[:, None] + torch.arange(S, device=start.device)[None]
-    rows = slice(None)
-    if ring_len is None:
-        slots = pos.clamp(0, T - 1)
-    else:
-        if S > ring_len:
-            rows = slice(S - ring_len, None)
-            pos = pos[:, rows]
-        slots = pos % ring_len
-    return torch.arange(start.shape[0], device=start.device)[:, None], slots, rows
+    land, for ``write_cache_layer``: the KVSlots of the last n of the S rows
+    of each sequence, at (b, slot). Slots clip to the buffer as the JAX
+    scatter does; the engine guarantees headroom. With ring_len R the slot
+    is position mod R, and when S > R only the last R rows land (an earlier
+    row would be overwritten by a later one of the same block; JAX drops
+    it). A forward computes this once for all its layers, on the device."""
+    rows = torch.arange(S, device=start.device)
+    if ring_len is not None and S > ring_len:
+        rows = rows[S - ring_len:]
+    pos = start[:, None].long() + rows[None]
+    slots = pos.clamp(0, T - 1) if ring_len is None else pos % ring_len
+    b = torch.arange(start.shape[0], device=start.device)[:, None]
+    return lane_slots(start.shape[0], rows, b, slots)
 
 
-class SliceSlots(NamedTuple):
-    """Where a chunk's rows land in a rank's slice of a T-split cache: the
-    rows (b, row) whose position falls in the slice, and their slots."""
-
-    b: torch.Tensor
-    row: torch.Tensor
-    slot: torch.Tensor
-
-
-def slice_slots(start: torch.Tensor, S: int, t0: int, T: int) -> SliceSlots:
+def slice_slots(start: torch.Tensor, S: int, t0: int, T: int) -> KVSlots:
     """The rows of a chunk of S rows per sequence at positions start[b] ..
     start[b] + S - 1 that fall in the slice [t0, t0 + T), and their slots
     (position - t0): a row outside it is not written, so a rank whose slice
@@ -287,32 +275,17 @@ def slice_slots(start: torch.Tensor, S: int, t0: int, T: int) -> SliceSlots:
     runs its forwards eagerly)."""
     pos = start[:, None].long() + torch.arange(S, device=start.device)[None]
     b, row = ((pos >= t0) & (pos < t0 + T)).nonzero(as_tuple=True)
-    return SliceSlots(b, row, pos[b, row] - t0)
+    return KVSlots(*(t.to(torch.int32) for t in (b, row, b, pos[b, row] - t0)))
 
 
 def write_cache_layer(cache: KVCache, layer: int, k_new: torch.Tensor,
-                      v_new: torch.Tensor, slots) -> None:
+                      v_new: torch.Tensor, slots: KVSlots) -> None:
     """Write the new rows k_new/v_new [B, S, n_kv, d] (model compute order)
     of layer `layer` at ``slots = cache_slots(...)`` (or a slice's
     ``slice_slots``), in place; an int8 cache quantizes each row as it is
     written and writes its scale at the same slot (the port of
-    update_cache_layer, both branches)."""
-    if isinstance(slots, SliceSlots):
-        for dst, scales, new in ((cache.k, cache.k_scale, k_new),
-                                 (cache.v, cache.v_scale, v_new)):
-            new = new[slots.b, slots.row]  # [n, n_kv, d]
-            if dst.dtype == torch.int8:
-                new, scale = quantize_rows(new)
-                scales[layer][slots.b, :, slots.slot] = scale
-            dst[layer][slots.b, :, slots.slot, :] = new.to(dst.dtype)
-        return
-    b_idx, slot, rows = slots
-    # Advanced indices (b [B,1], slot [B,S]) around the head slice index a
-    # [B, S, n_kv, d] block (a [B, S, n_kv] block of scales): exactly the
-    # model-order rows.
-    for dst, scales, new in ((cache.k, cache.k_scale, k_new), (cache.v, cache.v_scale, v_new)):
-        new = new[:, rows]
-        if dst.dtype == torch.int8:
-            new, scale = quantize_rows(new)
-            scales[layer][b_idx, :, slot] = scale
-        dst[layer][b_idx, :, slot, :] = new.to(dst.dtype)
+    update_cache_layer, both branches): ops/kv_write.py, one launch on the
+    card."""
+    int8 = cache.k_scale is not None
+    kv_write(cache.k[layer], cache.v[layer], cache.k_scale[layer] if int8 else None,
+             cache.v_scale[layer] if int8 else None, k_new, v_new, slots)

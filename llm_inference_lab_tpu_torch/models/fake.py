@@ -59,8 +59,12 @@ def fake_forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, positions
     logits = tail + 8.0 * torch.nn.functional.one_hot(nxt.long(), V).float()
     if cache is not None:
         B, S = tokens.shape
-        val = tokens.to(cache.k.dtype)[:, :, None, None].expand(B, S, cfg.n_kv_heads,
-                                                               cfg.head_dim)
+        # The token in the cache's type (JAX's value); an int8 cache's rows
+        # go to the write in f32, which quantizes them.
+        val = tokens.to(cache.k.dtype)
+        if cache.k.dtype == torch.int8:
+            val = val.float()
+        val = val[:, :, None, None].expand(B, S, cfg.n_kv_heads, cfg.head_dim)
         write_cache_layer(cache, 0, val, val, cache_slots(cache_lens, S, cache.k.shape[3]))
     if return_hidden:
         hidden = torch.zeros((*tokens.shape, cfg.d_model), dtype=torch.float32,

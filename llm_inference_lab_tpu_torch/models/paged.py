@@ -16,7 +16,7 @@ Layout, as in the JAX package:
 Page 0 is the dummy page: the allocator never hands it out, so the junk rows
 that inactive batch lanes write through a cleared (all-zero) table row land
 where no live sequence reads. As the port's contiguous cache does, the write
-goes into the pool IN PLACE.
+goes into the pool IN PLACE (ops/kv_write.py: kernel H on the card).
 """
 
 from __future__ import annotations
@@ -26,7 +26,8 @@ from typing import Any, List, Optional, Tuple
 
 import torch
 
-from llm_inference_lab_tpu_torch.models.base import ModelConfig, kv_buffers, quantize_rows
+from llm_inference_lab_tpu_torch.models.base import ModelConfig, kv_buffers, lane_slots
+from llm_inference_lab_tpu_torch.ops.kv_write import KVSlots, kv_write
 
 
 @dataclass
@@ -71,31 +72,28 @@ class PagedKVCache:
         return self.max_pages_per_seq * self.page_size
 
 
-def page_slots(table: torch.Tensor, start: torch.Tensor, S: int, page_size: int):
+def page_slots(table: torch.Tensor, start: torch.Tensor, S: int, page_size: int) -> KVSlots:
     """Where the S new rows of each sequence go, for ``write_paged_layer``:
-    (page [B, S], offset [B, S]), row (b, s) at position start[b] + s. The
-    page ordinal clips to the table as the JAX scatter does. A forward
-    computes it once for all its layers."""
-    pos = start[:, None].long() + torch.arange(S, device=start.device)[None]
+    the KVSlots of every row (b, s), at position start[b] + s, landing at
+    (page, offset). The page ordinal clips to the table as the JAX scatter
+    does. A forward computes it once for all its layers, on the device."""
+    rows = torch.arange(S, device=start.device)
+    pos = start[:, None].long() + rows[None]
     ordinal = torch.div(pos, page_size, rounding_mode="floor").clamp(0, table.shape[1] - 1)
-    return table.long().gather(1, ordinal), torch.remainder(pos, page_size)
+    return lane_slots(start.shape[0], rows, table.gather(1, ordinal),
+                      torch.remainder(pos, page_size))
 
 
 def write_paged_layer(cache: PagedKVCache, layer: int, k_new: torch.Tensor,
-                      v_new: torch.Tensor, slots) -> None:
+                      v_new: torch.Tensor, slots: KVSlots) -> None:
     """Write the new rows k_new/v_new [B, S, n_kv, d] (model compute order)
     of layer `layer` at ``slots = page_slots(...)``, in place; int8 pools
     quantize each row as it is written, with its scale (the port of
-    update_paged_layer / scatter_paged_stack)."""
-    page, off = slots
-    # Advanced indices (page, off [B, S]) around the head slice index a
-    # [B, S, n_kv, d] block (a [B, S, n_kv] block of scales): exactly the
-    # model-order rows.
-    for dst, scales, new in ((cache.k, cache.k_scale, k_new), (cache.v, cache.v_scale, v_new)):
-        if dst.dtype == torch.int8:
-            new, scale = quantize_rows(new)
-            scales[layer][page, :, off] = scale
-        dst[layer][page, :, off, :] = new.to(dst.dtype)
+    update_paged_layer / scatter_paged_stack): ops/kv_write.py, one launch
+    on the card."""
+    int8 = cache.k_scale is not None
+    kv_write(cache.k[layer], cache.v[layer], cache.k_scale[layer] if int8 else None,
+             cache.v_scale[layer] if int8 else None, k_new, v_new, slots)
 
 
 def gather_pages(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:

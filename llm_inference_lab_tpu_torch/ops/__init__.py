@@ -8,7 +8,8 @@ from typing import Dict
 def kernel_wrappers() -> dict:
     """name -> wrapper, for every kernel of the port (the int8 variants, the
     tree variants of D and F, A's f32-output instantiation and A's and B's
-    tensor-core paths count apart)."""
+    tensor-core paths count apart; G the int8 tied head, H the KV-cache
+    write)."""
     from llm_inference_lab_tpu_torch.ops.flash_decode import (
         flash_decode,
         flash_decode_int8,
@@ -48,6 +49,8 @@ def kernel_wrappers() -> dict:
         layer_norm,
         rms_norm,
     )
+    from llm_inference_lab_tpu_torch.ops.kv_write import kv_write
+    from llm_inference_lab_tpu_torch.ops.tied_head import tied_head
     from llm_inference_lab_tpu_torch.ops.verify import verify_prefix
 
     return {"rms_norm": rms_norm, "add_rms_norm": add_rms_norm, "layer_norm": layer_norm,
@@ -71,13 +74,14 @@ def kernel_wrappers() -> dict:
             "flash_decode_shard_tree": flash_decode_shard_tree,
             "flash_decode_shard_tree_int8": flash_decode_shard_tree_int8,
             "flash_prefill_shard": flash_prefill_shard,
-            "verify_prefix": verify_prefix}
+            "verify_prefix": verify_prefix, "tied_head": tied_head, "kv_write": kv_write}
 
 
 def kernel_backends(device) -> Dict[str, str]:
-    """op the engine dispatches (JAX's registry names) -> what runs it on
-    `device`: on CUDA the csrc/ sources its wrappers build (each wrapper
-    module's LIBRARY, the one its launches load), on the CPU "plain" (the
+    """op the engine dispatches (JAX's registry names, and tied_head and
+    kv_write, which JAX leaves to XLA) -> what runs it on `device`: on CUDA
+    the csrc/ sources its wrappers build (each wrapper module's LIBRARY, the
+    one its launches load), on the CPU "plain" (the
     wrappers' plain versions); "torch" for moe_mlp, PyTorch ops on both
     (ops/moe.py, as JAX's XLA moe_dense: no kernel)."""
     import torch
@@ -85,9 +89,11 @@ def kernel_backends(device) -> Dict[str, str]:
     from llm_inference_lab_tpu_torch.ops import (
         flash_decode,
         flash_prefill,
+        kv_write,
         paged_flash,
         quant_matmul,
         rms_norm,
+        tied_head,
         verify,
     )
 
@@ -100,6 +106,8 @@ def kernel_backends(device) -> Dict[str, str]:
         "prefill_attention": (flash_prefill.LIBRARY, flash_prefill.SHARD_LIBRARY),
         "paged_attention": (paged_flash.LIBRARY, paged_flash.LIBRARY + flash_decode.TREE),
         "rms_norm": (rms_norm.LIBRARY,),
+        "tied_head": (tied_head.LIBRARY,),
+        "kv_write": (kv_write.LIBRARY,),
     }
     on_card = torch.device(device).type == "cuda"
     out = {op: (", ".join(f"csrc/{name}.cu" for name in names) if on_card else "plain")

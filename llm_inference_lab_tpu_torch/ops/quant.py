@@ -6,7 +6,8 @@ Port of llm_inference_lab_tpu/ops/quant.py with the same formats and bytes:
 * INT4 "v2 split-K halves": byte ``[i, n]`` holds row i in its low nibble,
   biased by +8, and row ``i + K/2`` in its high nibble as two's complement.
 * EmbedQuant: int8 embedding table ``[V, D]`` with per-row scales, used both
-  for the lookup and as the tied lm_head (f32 logits).
+  for the lookup and as the tied lm_head (f32 logits, kernel G on the card:
+  ops/tied_head.py reads the table in place).
 * EmbedQuant4: the same values at int4 in two layouts, the head's packed
   ``[D/2, V]`` (kernel A's operand, through its f32-output instantiation)
   and the lookup's row-packed ``[V, D/2]``.
@@ -30,6 +31,7 @@ from llm_inference_lab_tpu_torch.ops.quant_matmul import (
     quant_matmul_int8_f32,
     unpack_int4,
 )
+from llm_inference_lab_tpu_torch.ops.tied_head import tied_head
 
 
 @dataclass
@@ -110,12 +112,11 @@ class EmbedQuant:
         return (rows * self.scale[tokens].unsqueeze(-1)).to(dtype)
 
     def head_logits(self, x: torch.Tensor) -> torch.Tensor:
-        # x [.., D] @ q[V, D]^T in f32, then the row scales on the vocab axis
-        # in f32, as JAX's dot_general with preferred_element_type=f32. The
-        # int8 -> x.dtype cast materializes a copy of the table every call
-        # (788 MB at bf16 for the 3B head); routing the head through an int8
-        # kernel is queued.
-        return f32_logits(x, self.q.to(x.dtype)) * self.scale
+        """x [.., D] -> f32 logits [.., V]: x @ q[V, D]^T in f32, then the row
+        scales on the vocab axis in f32, as JAX's dot_general with
+        preferred_element_type=f32; the table is read in place (no copy of
+        it a call)."""
+        return tied_head(x, self.q, self.scale)
 
 
 def f32_logits(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:

@@ -145,7 +145,7 @@ def test_system_info_names_what_runs():
     assert info["backend"] == "cpu" and "power_limit" not in info
     assert set(info["kernel_backends"]) == {"quant_matmul", "verify_prefix", "decode_attention",
                                             "prefill_attention", "paged_attention", "rms_norm",
-                                            "moe_mlp"}
+                                            "tied_head", "kv_write", "moe_mlp"}
     assert {v for k, v in info["kernel_backends"].items() if k != "moe_mlp"} == {"plain"}
     assert info["kernel_backends"]["moe_mlp"] == "torch"
 

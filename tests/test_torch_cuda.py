@@ -2092,3 +2092,80 @@ def test_seq_and_stage_forwards_of_ranks_on_the_card_equal_one_process(card):
                     assert np.isfinite(a).all() and np.abs(a - w).max() <= 1e-2 * np.abs(w).max()
                 else:
                     assert np.array_equal(a, w), shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [3072, 2048])
+def test_tied_head_matches_plain_and_rows_ignore_m(card, D):
+    """Kernel G (the int8 tied head read in place) at V = 32,003, a masked
+    tail tile: within the f32 summation bound D 2^-24 (|x| @ |q|^T) scale
+    of its plain version at M = 1 to 600 (past one pass of 512 tokens),
+    every row the bits of that row alone, one launch a call, and nothing
+    allocated beside its f32 output (no copy of the table)."""
+    from llm_inference_lab_tpu_torch.ops.tied_head import tied_head, tied_head_plain
+
+    V = 32003
+    g = torch.Generator(device=card).manual_seed(D)
+    q = torch.randint(-127, 128, (V, D), generator=g, dtype=torch.int8, device=card)
+    scale = torch.rand((V,), generator=g, device=card) * 1e-3 + 1e-6
+    x = torch.randn((600, D), generator=g, device=card).bfloat16()
+    alone = torch.cat([tied_head(x[i:i + 1], q, scale) for i in range(600)])
+    qabs = q.float().abs().t()
+    for M in (1, 2, 5, 16, 104, 328, 600):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(card)
+        base, before = torch.cuda.memory_allocated(card), tied_head.launches
+        got = tied_head(x[:M], q, scale)
+        assert torch.cuda.max_memory_allocated(card) - base <= 4 * M * V + (1 << 20), M
+        assert tied_head.launches == before + 1
+        bound = D * 2.0 ** -24 * (x[:M].float().abs() @ qabs) * scale
+        assert torch.isfinite(got).all(), M
+        assert torch.all((got - tied_head_plain(x[:M], q, scale)).abs() <= bound), M
+        assert torch.equal(got, alone[:M]), M
+    assert tied_head(x[:6].reshape(2, 3, D), q, scale).shape == (2, 3, V)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("layout", ["contiguous", "ring", "paged"])
+def test_kv_write_matches_plain_byte_for_byte(card, layout, int8):
+    """Kernel H (one layer's K and V rows into the cache, quantized for an
+    int8 cache) from the forward's strided views at head dims 64, 128 and
+    256, S = 1, 5 and 512 (and a block longer than the ring): every byte
+    and scale its plain version's, one launch a call."""
+    from llm_inference_lab_tpu_torch.models.base import cache_slots
+    from llm_inference_lab_tpu_torch.models.paged import page_slots
+    from llm_inference_lab_tpu_torch.ops.kv_write import kv_write, kv_write_plain
+
+    g = torch.Generator(device=card).manual_seed(int(int8))
+    B, T, R, P = 2, 1024, 640, 64
+    table = (torch.randperm(B * T // P, generator=torch.Generator().manual_seed(0)) + 1)
+    table = table.reshape(B, T // P).to(card, torch.int32)
+    for D, H, KVH in ((64, 32, 8), (128, 24, 8), (256, 16, 8)):
+        for S in (1, 5, 512) + ((R + 64,) if layout == "ring" else ()):
+            qkv = torch.randn((B, S, (H + 2 * KVH) * D), generator=g, device=card).bfloat16()
+            qk = qkv[..., :(H + KVH) * D].reshape(B, S, H + KVH, D) * 1
+            k_new, v_new = qk[:, :, H:], qkv[..., (H + KVH) * D:].reshape(B, S, KVH, D)
+            if layout == "paged":
+                start = torch.tensor([0, T - S - 9], dtype=torch.int32, device=card)
+                slots, shape = page_slots(table, start, S, P), (B * T // P + 1, KVH, P, D)
+            elif layout == "ring":
+                start = torch.tensor([100, 9000], dtype=torch.int32, device=card)
+                slots, shape = cache_slots(start, S, R, R), (B, KVH, R, D)
+            else:
+                start = torch.tensor([3, T - S - 7], dtype=torch.int32, device=card)
+                slots, shape = cache_slots(start, S, T), (B, KVH, T, D)
+            if int8:
+                got = [torch.randint(-127, 128, shape, generator=g, dtype=torch.int8,
+                                     device=card) for _ in "kv"]
+                got += [torch.rand(shape[:-1], generator=g, device=card) for _ in "kv"]
+            else:
+                got = [torch.randn(shape, generator=g, device=card).bfloat16() for _ in "kv"]
+                got += [None, None]
+            want = [None if t is None else t.clone() for t in got]
+            before = kv_write.launches
+            kv_write(*got, k_new, v_new, slots)
+            assert kv_write.launches == before + 1
+            kv_write_plain(*want, k_new, v_new, slots)
+            for a, b in zip(got, want):
+                assert b is None or torch.equal(a.view(torch.uint8), b.view(torch.uint8)), (D, S)

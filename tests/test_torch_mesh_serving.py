@@ -107,11 +107,13 @@ RING = dict(base_model="mistral-tiny", draft_model="mistral-tiny", max_draft=2, 
 RING_REQUESTS = [("ring cache check " * 9, 8), ("ring cache check " * 3, 8), ("short", 6),
                  ("a third request", 7)]
 RING_MESHES = [{"data": 2}, {"model": 2}]
+RING_GENERATE = RING_REQUESTS[:1]  # 153 tokens: longer than the ring of 128
 # The fleet's cases after RUNS and MULTIHOST: the paged generate, the wide
 # tree's generate and batcher, then the ring's MultiHostBatcher runs.
 GEN_AT = len(RUNS) + len(MULTIHOST)
 WIDE_AT = GEN_AT + 1
 RING_AT = GEN_AT + 3
+RING_STAGE_AT = RING_AT + len(RING_MESHES)
 
 
 def _scaled(name: str, seed: int, mult: float):
@@ -193,14 +195,23 @@ def fleet(models, jax_served):
         cases.append({"kw": WIDE_TREE, "shape": {"seq": 2}, "target": target,
                       "draft": wide_heads, "requests": WIDE_REQUESTS, "kind": kind})
     cases += [_ring_case(models, shape) for shape in RING_MESHES]
+    cases.append(_ring_case(models, {"stage": 2}, "generate", RING_GENERATE))
     items = [("serve_axes", ({}, cases)), ("compact_slices", (0, 4))]
     return launch(ranks.jobs, 4, args=(items,), threads=1, timeout=900)
 
 
-def _ring_case(models, shape, kind="multihost"):
+def _ring_case(models, shape, kind="multihost", requests=RING_REQUESTS):
     target, draft = models["mistral-tiny"]
     return {"kw": RING, "shape": shape, "target": params_from_jax(target.params),
-            "draft": params_from_jax(draft.params), "requests": RING_REQUESTS, "kind": kind}
+            "draft": params_from_jax(draft.params), "requests": requests, "kind": kind}
+
+
+def _ring_one_process(models, case):
+    """One process's ring engine (R = 128) on the case's weights."""
+    eng = Engine(EngineConfig(**RING), device="cpu", target_params=case["target"],
+                 draft_params=case["draft"])
+    assert eng.target.config.kv_ring_len == 128
+    return eng
 
 
 def _same_results(got, want, what):
@@ -299,9 +310,7 @@ def test_ring_multihost_equals_one_process(fleet, models, shape):
     the same one-step polls), the 153-token prompt admitted one-shot past
     the ring."""
     case = _ring_case(models, shape)
-    eng = Engine(EngineConfig(**RING), device="cpu", target_params=case["target"],
-                 draft_params=case["draft"])
-    one = ContinuousBatcher(eng, n_slots=2 * shape.get("data", 1))
+    one = ContinuousBatcher(_ring_one_process(models, case), n_slots=2 * shape.get("data", 1))
     want = ranks._serve_by_hand(one, RING_REQUESTS)
     _varied(want)
     at = RING_AT + RING_MESHES.index(shape)
@@ -311,6 +320,41 @@ def test_ring_multihost_equals_one_process(fleet, models, shape):
         _same_results(got["results"], want, (shape, r))
         assert got["shape"][3] == 128
     assert fleet[2][0][at] is None and fleet[3][0][at] is None
+
+
+def _ring_generate_ids(eng):
+    return [eng.generate(p, max_new_tokens=m)["generated_ids"] for p, m in RING_GENERATE]
+
+
+def test_ring_generate_under_stage_equals_one_process(fleet, models):
+    """mistral-tiny's ring (R = 128, a draft, K = 2) at stage=2, the
+    153-token prompt longer than the ring: each stage writes its layers'
+    rows at position mod R into its own layers of the ring, and both ranks
+    give one process's ring generate's ids."""
+    case = _ring_case(models, {"stage": 2}, "generate", RING_GENERATE)
+    want = _ring_generate_ids(_ring_one_process(models, case))
+    assert len(set(want[0])) > 1
+    for r in range(2):
+        assert fleet[r][0][RING_STAGE_AT] == want, r
+    assert fleet[2][0][RING_STAGE_AT] is None and fleet[3][0][RING_STAGE_AT] is None
+
+
+def test_jax_ring_under_stage_drops_its_pipeline(models):
+    """Settled (ROADMAP item 10): JAX's engine at stage=2 binds forward_pp to
+    the target (JAX core/engine.py:217-237), then _enable_kv_ring rebinds
+    the ringed target's apply_fn to the plain forward (:489-491), so its
+    ring never runs the pipeline: GSPMD runs the layer-sharded forward
+    whole, and its ids equal its unsharded ring's and the port's one
+    process's. The port's stages pipeline the ring
+    (test_ring_generate_under_stage_equals_one_process)."""
+    from llm_inference_lab_tpu.models import transformer as jax_transformer
+
+    one = _jax_engine(models, RING)
+    two = _jax_engine(models, RING, mesh_shape={"stage": 2})
+    assert two.target.config.kv_ring_len == 128
+    assert two.target.apply_fn.func is jax_transformer.forward
+    want = _ring_generate_ids(_ring_one_process(models, _ring_case(models, {})))
+    assert _ring_generate_ids(one) == _ring_generate_ids(two) == want
 
 
 def test_jax_paged_generate_under_seq_is_its_fault(models):
